@@ -1,0 +1,396 @@
+"""Architecture configs for decoder-only transformer families.
+
+The reference delegates architecture to llama.cpp GGUF metadata
+(core/config/gguf.go:15-60 in the reference introspects a GGUF to guess context
+size and layout). Here architectures are first-class dataclasses so the JAX
+model builders, the sharding planner (localai_tpu.parallel.sharding), and the
+engine all agree on shapes statically — XLA requires static shapes to tile
+matmuls onto the MXU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    """Shape/hyperparameter description of a Llama-family decoder.
+
+    Covers Llama 2/3, Mistral, Qwen2 (qkv biases), TinyLlama and friends —
+    the same families the reference serves through llama.cpp GGUFs.
+    """
+
+    name: str = "llama"
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 32
+    head_dim: Optional[int] = None  # defaults to hidden_size // num_heads
+    rope_theta: float = 10000.0
+    # None | "linear" | "llama3" | "yarn" | "longrope" — the reference
+    # forwards the same knob set to llama.cpp (model_config.go:231-237).
+    rope_scaling: Optional[str] = None
+    rope_scaling_factor: float = 1.0
+    # llama3-style rope scaling extras
+    rope_low_freq_factor: float = 1.0
+    rope_high_freq_factor: float = 4.0
+    rope_original_max_position: int = 8192
+    # yarn extras (NTK-by-parts ramp bounds, HF defaults)
+    rope_beta_fast: float = 32.0
+    rope_beta_slow: float = 1.0
+    # longrope (phi-3 "su") per-frequency rescale tables [head_dim/2]
+    rope_long_factor: Optional[tuple] = None
+    rope_short_factor: Optional[tuple] = None
+    # Explicit attention-amplitude factor (yarn mscale / longrope scaling);
+    # None = derive from the scaling type's published formula.
+    rope_attn_factor: Optional[float] = None
+    # Gemma-3: local (sliding) layers run their own unscaled rope base while
+    # global layers use rope_theta (+ scaling). 0 = single schedule.
+    rope_local_theta: float = 0.0
+    max_position: int = 8192
+    rms_eps: float = 1e-5
+    tie_embeddings: bool = False
+    attn_qkv_bias: bool = False  # Qwen2-style
+    # Gemma-family: GeGLU MLP ("gelu_tanh"), embeddings scaled by sqrt(D)
+    # at lookup (the tied unembed reads the raw matrix), and (1+w) RMSNorm
+    # weights — the +1 is folded into the tree at load, so only the first
+    # two need runtime branches.
+    activation: str = "silu"  # "silu" | "gelu_tanh"
+    embed_scale: bool = False
+    norm_plus_one: bool = False  # load-time fold (engine/weights.py)
+    # Gemma-2: sandwich norms (post-attention and post-feedforward RMSNorms
+    # inside the residual adds), tanh softcapping on attention scores and
+    # final logits, q scaled by query_pre_attn_scalar^-0.5 instead of
+    # head_dim^-0.5, and sliding-window attention on even layers.
+    post_norms: bool = False
+    attn_softcap: float = 0.0  # 0 = off
+    final_softcap: float = 0.0
+    query_scale: float = 0.0  # 0 = default head_dim^-0.5
+    sliding_window: int = 0  # 0 = full attention on every layer
+    # Which layers slide: layer li is sliding iff li % pattern != pattern-1.
+    # Gemma-2 alternates (2); gemma-3 runs 5 local : 1 global (6).
+    sliding_pattern: int = 2
+    # Gemma-3: per-head RMS norms on q and k (after projection, before rope).
+    qk_norm: bool = False
+    # Mixture-of-experts (Mixtral/DeepSeek-style); 0 experts = dense MLP
+    num_experts: int = 0
+    num_experts_per_token: int = 2
+    # Capacity factor for the expert-parallel (ep>1) GShard dispatch path:
+    # each expert processes at most ceil(top_k·N/E·cf) tokens per block.
+    moe_capacity_factor: float = 2.0
+    # DeepSeek-V2/V3 MoE layout (HF DeepseekV2Config/DeepseekV3Config;
+    # reference serves these via vLLM passthrough, vllm/backend.py:92-141):
+    # the first `first_k_dense` layers run a dense MLP, the rest route
+    # `num_experts_per_token` of `num_experts` routed experts (intermediate
+    # size `moe_intermediate_size`) plus an always-on shared-expert MLP of
+    # size n_shared_experts·moe_intermediate_size.
+    first_k_dense: int = 0
+    n_shared_experts: int = 0
+    moe_intermediate_size: Optional[int] = None
+    routed_scaling_factor: float = 1.0
+    # Router family: "mixtral" softmaxes the top-k logits; "deepseek"
+    # scores ALL experts (softmax/sigmoid per scoring_func) and then
+    # selects — the two orders give different weights, so this is explicit.
+    moe_family: str = "mixtral"
+    # Router scoring: "softmax" (Mixtral/DeepSeek-V2) or "sigmoid"
+    # (DeepSeek-V3/R1, selection biased by a learned per-expert correction).
+    scoring_func: str = "softmax"
+    router_bias: bool = False  # V3 e_score_correction_bias
+    norm_topk_prob: bool = False  # V3: renormalize the selected weights
+    # Group-limited routing (device-limited in the paper): experts are split
+    # into n_group groups; selection is restricted to the topk_group
+    # best-scoring groups (V2 scores a group by its max, V3 by the sum of
+    # its top-2 biased scores).
+    n_group: int = 1
+    topk_group: int = 1
+    # Multi-head Latent Attention (DeepSeek-V2/V3): q/kv project through
+    # low-rank bottlenecks and the KV cache stores ONE latent row per token
+    # ([kv_lora_rank | roped qk_rope_head_dim]) instead of per-head k/v.
+    # kv_lora_rank > 0 switches the whole attention stack to MLA.
+    kv_lora_rank: int = 0
+    q_lora_rank: Optional[int] = None  # None = direct q projection (V2-Lite)
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    # HF deepseek checkpoints store the rope dims pair-interleaved (V2
+    # always — complex rope; V3 per config.rope_interleave). The loader
+    # de-interleaves the affected projection columns so runtime rope stays
+    # the one half-split (neox) implementation.
+    rope_interleave: bool = False
+    # Qwen2-VL multimodal rope: (t, h, w) section split of head_dim/2.
+    # Non-empty → image-bearing prompts prefill with 3D position streams
+    # (ops/rope.mrope_angles); text-only paths reduce to plain rope.
+    mrope_section: tuple = ()
+    dtype: str = "bfloat16"
+    # Quantized-matmul kernel choice threaded to every model-side matmul
+    # (docs/QUANTIZATION.md): "auto" (fused Pallas dequant-matmul on TPU,
+    # XLA dequant elsewhere) | "pallas" | "xla". Lives on ArchConfig — not a shape, but
+    # cfg is the one static object every layer helper already receives, so
+    # the engine's EngineConfig.quant_kernel knob reaches models/quant.py
+    # through `dataclasses.replace(cfg, quant_kernel=...)` without
+    # re-plumbing ~30 call sites (the paged_impl treatment at entry-point
+    # granularity; quant matmuls live one level deeper).
+    quant_kernel: str = "auto"
+    # Ragged per-slot LoRA delta kernel choice (docs/LORA_SERVING.md):
+    # "auto" (Pallas segmented matmul on TPU, XLA gather elsewhere) |
+    # "pallas" | "xla". Threaded exactly like
+    # quant_kernel — EngineConfig.lora_kernel reaches ops/lora_matmul.py
+    # through `dataclasses.replace(cfg, lora_kernel=...)`.
+    lora_kernel: str = "auto"
+    # Self-draft early-exit prefix (docs/SPECULATIVE.md): > 0
+    # means `spec_mode=self_draft` drafts with the target's OWN first k
+    # layers + final norm + unembed — `llama.self_draft_view` slices the
+    # stacked layer tensors to [:k] inside the traced program, so the
+    # draft shares the sharded weight buffers (no second checkpoint in
+    # HBM). Lives on ArchConfig like quant_kernel/lora_kernel: the engine's
+    # EngineConfig.self_draft_layers knob reaches the layer-scan helpers
+    # through `dataclasses.replace(cfg, self_draft_layers=...)`.
+    self_draft_layers: int = 0
+    # Windowed+sink long-context serving (docs/LONG_CONTEXT.md):
+    # when attention_window > 0, decode (and the chunked-prefill prefix
+    # walk under the paged pool) attends only rows with position < sink or
+    # within `attention_window` of the query — StreamingLLM-style, with
+    # ABSOLUTE rope positions (rows keep their original positions; no
+    # re-rope). Lives on ArchConfig like quant_kernel: the engine's
+    # EngineConfig knobs reach every attention call through
+    # `dataclasses.replace(cfg, ...)`. 0/0 = full attention (default).
+    attention_sink: int = 0
+    attention_window: int = 0
+
+    @property
+    def head_dim_(self) -> int:
+        return self.head_dim if self.head_dim is not None else self.hidden_size // self.num_heads
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
+    @property
+    def is_mla(self) -> bool:
+        return self.kv_lora_rank > 0
+
+    @property
+    def qk_head_dim(self) -> int:
+        """Per-head q/k width under MLA (nope ⊕ rope)."""
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    # Cache layout: the engine, pool allocator, and sharding planner size the
+    # KV cache from these three, so MLA's latent layout (one pseudo-head of
+    # [kv_lora_rank + rope] per token, no separate V — values are read back
+    # out of the same latent) threads through every cache variant (dense /
+    # windowed / paged / fp8) without per-call-site branches.
+    @property
+    def cache_kv_heads(self) -> int:
+        return 1 if self.is_mla else self.num_kv_heads
+
+    @property
+    def cache_k_dim(self) -> int:
+        return self.kv_lora_rank + self.qk_rope_head_dim if self.is_mla else self.head_dim_
+
+    @property
+    def cache_v_dim(self) -> int:
+        return 0 if self.is_mla else self.head_dim_
+
+    @property
+    def moe_inter_size(self) -> int:
+        return self.moe_intermediate_size or self.intermediate_size
+
+
+# ---------------------------------------------------------------------------
+# Presets. Shapes match the public model cards for the configs listed in
+# BASELINE.json; weights are loaded from local safetensors when
+# available or randomly initialized for benchmarking.
+# ---------------------------------------------------------------------------
+
+PRESETS: dict[str, ArchConfig] = {
+    # Tiny configs for tests / CI on the virtual CPU mesh.
+    "tiny": ArchConfig(
+        name="tiny",
+        vocab_size=512,
+        hidden_size=64,
+        intermediate_size=128,
+        num_layers=2,
+        num_heads=4,
+        num_kv_heads=2,
+        max_position=256,
+        rope_theta=10000.0,
+    ),
+    "tiny-moe": ArchConfig(
+        name="tiny-moe",
+        vocab_size=512,
+        hidden_size=64,
+        intermediate_size=128,
+        num_layers=2,
+        num_heads=4,
+        num_kv_heads=2,
+        max_position=256,
+        num_experts=4,
+        num_experts_per_token=2,
+    ),
+    "tiny-mla": ArchConfig(
+        # DeepSeek-V3-shaped tiny: MLA with q-lora, sigmoid router with
+        # correction bias, group-limited top-k, shared expert, dense-first
+        # layer — every R1 mechanism at test scale.
+        name="tiny-mla",
+        vocab_size=512,
+        hidden_size=64,
+        intermediate_size=128,
+        num_layers=3,
+        num_heads=4,
+        num_kv_heads=4,
+        head_dim=16,  # rope table width = qk_rope_head_dim
+        max_position=256,
+        moe_family="deepseek",
+        num_experts=8,
+        num_experts_per_token=3,
+        first_k_dense=1,
+        n_shared_experts=1,
+        moe_intermediate_size=48,
+        routed_scaling_factor=2.5,
+        scoring_func="sigmoid",
+        router_bias=True,
+        norm_topk_prob=True,
+        n_group=4,
+        topk_group=2,
+        kv_lora_rank=32,
+        q_lora_rank=24,
+        qk_nope_head_dim=24,
+        qk_rope_head_dim=16,
+        v_head_dim=24,
+    ),
+    "llama-3.2-1b": ArchConfig(
+        name="llama-3.2-1b",
+        vocab_size=128256,
+        hidden_size=2048,
+        intermediate_size=8192,
+        num_layers=16,
+        num_heads=32,
+        num_kv_heads=8,
+        head_dim=64,
+        rope_theta=500000.0,
+        rope_scaling="llama3",
+        rope_scaling_factor=32.0,
+        max_position=131072,
+        tie_embeddings=True,
+    ),
+    "llama-3-8b": ArchConfig(
+        name="llama-3-8b",
+        vocab_size=128256,
+        hidden_size=4096,
+        intermediate_size=14336,
+        num_layers=32,
+        num_heads=32,
+        num_kv_heads=8,
+        rope_theta=500000.0,
+        max_position=8192,
+    ),
+    "mistral-7b": ArchConfig(
+        name="mistral-7b",
+        vocab_size=32000,
+        hidden_size=4096,
+        intermediate_size=14336,
+        num_layers=32,
+        num_heads=32,
+        num_kv_heads=8,
+        rope_theta=10000.0,
+        max_position=32768,
+    ),
+    "qwen2-7b": ArchConfig(
+        name="qwen2-7b",
+        vocab_size=152064,
+        hidden_size=3584,
+        intermediate_size=18944,
+        num_layers=28,
+        num_heads=28,
+        num_kv_heads=4,
+        rope_theta=1000000.0,
+        max_position=32768,
+        attn_qkv_bias=True,
+    ),
+    "mixtral-8x7b": ArchConfig(
+        name="mixtral-8x7b",
+        vocab_size=32000,
+        hidden_size=4096,
+        intermediate_size=14336,
+        num_layers=32,
+        num_heads=32,
+        num_kv_heads=8,
+        rope_theta=1000000.0,
+        max_position=32768,
+        num_experts=8,
+        num_experts_per_token=2,
+    ),
+    "deepseek-v2-lite": ArchConfig(
+        # Published card: 27 layers, 16B total / 2.4B active, MLA without
+        # q-lora, 64 routed + 2 shared experts, first layer dense.
+        name="deepseek-v2-lite",
+        vocab_size=102400,
+        hidden_size=2048,
+        intermediate_size=10944,
+        num_layers=27,
+        num_heads=16,
+        num_kv_heads=16,
+        head_dim=64,
+        rope_theta=10000.0,
+        max_position=163840,
+        moe_family="deepseek",
+        num_experts=64,
+        num_experts_per_token=6,
+        first_k_dense=1,
+        n_shared_experts=2,
+        moe_intermediate_size=1408,
+        routed_scaling_factor=1.0,
+        scoring_func="softmax",
+        rope_interleave=True,
+        kv_lora_rank=512,
+        q_lora_rank=None,
+        qk_nope_head_dim=128,
+        qk_rope_head_dim=64,
+        v_head_dim=128,
+    ),
+    "deepseek-r1": ArchConfig(
+        # DeepSeek-V3/R1 (BASELINE.json configs[4]): 61 layers (3 dense),
+        # 256 routed experts top-8 in 8 groups, sigmoid router with
+        # correction bias, MLA with q-lora. Serving shapes for the EP mesh
+        # dryrun and decode benchmarks; full weights need a multi-host pod.
+        name="deepseek-r1",
+        vocab_size=129280,
+        hidden_size=7168,
+        intermediate_size=18432,
+        num_layers=61,
+        num_heads=128,
+        num_kv_heads=128,
+        head_dim=64,
+        rope_theta=10000.0,
+        max_position=163840,
+        moe_family="deepseek",
+        num_experts=256,
+        num_experts_per_token=8,
+        first_k_dense=3,
+        n_shared_experts=1,
+        moe_intermediate_size=2048,
+        routed_scaling_factor=2.5,
+        scoring_func="sigmoid",
+        router_bias=True,
+        norm_topk_prob=True,
+        n_group=8,
+        topk_group=4,
+        rope_interleave=True,
+        kv_lora_rank=512,
+        q_lora_rank=1536,
+        qk_nope_head_dim=128,
+        qk_rope_head_dim=64,
+        v_head_dim=128,
+    ),
+}
+
+
+def get_arch(name: str) -> ArchConfig:
+    try:
+        return PRESETS[name]
+    except KeyError:
+        raise KeyError(f"unknown architecture preset {name!r}; known: {sorted(PRESETS)}") from None

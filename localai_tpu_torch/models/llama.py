@@ -1,0 +1,373 @@
+"""Llama-family decoder (Llama 2/3, Mistral, Qwen2, TinyLlama) in PyTorch
+(localai_tpu/models/llama.py, dense branch).
+
+- Parameters are a dict of stacked per-layer tensors ([L, ...] leading
+  axis, matmul weights W [in, out]) — the JAX package's tree, so weights
+  move between the two packages without reshaping (engine/weights.py).
+  The JAX layer scan becomes a Python loop over the stack.
+- Entry points: `prefill` (causal attention over a bucketed prompt) and
+  `decode_step_windowed` (one token per slot inside an N-step decode block
+  whose rows ride a block-local KV window; the cache is written once per
+  block by `write_block_to_cache`).
+- GQA, RoPE (every scaling family), RMSNorm, SwiGLU / GeGLU, optional qkv
+  bias (Qwen2) and the gemma flags (softcaps, sandwich norms, q/k norms,
+  sliding windows) chosen from ArchConfig.
+
+Not ported yet, and rejected with NotImplementedError: MoE and MLA layers
+(ROADMAP Queue A item 16), sequence-parallel ring attention and tp meshes
+(item 20), the paged pool (item 6), runtime LoRA (item 14), m-rope (item
+19) and sink+window decode (item 15).
+
+The cache and the block-local windows are updated IN PLACE (the JAX
+package returns new arrays): that saves a full copy of each per call.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from localai_tpu_torch.device import resolve_device
+from localai_tpu_torch.models.config import ArchConfig
+from localai_tpu_torch.models.quant import matmul, unembed_matmul
+from localai_tpu_torch.ops.attention import decode_attention_windowed, prefill_attention
+from localai_tpu_torch.ops.norm import rms_norm
+from localai_tpu_torch.ops.rope import (
+    apply_rope,
+    rope_frequencies,
+    rope_frequencies_local,
+    rope_query_amp,
+)
+
+Params = dict[str, Any]
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """Raise for the architecture features this port does not serve yet."""
+    if cfg.is_moe:
+        raise NotImplementedError(
+            "mixture-of-experts layers are not ported yet (ROADMAP Queue A item 16)")
+    if cfg.is_mla:
+        raise NotImplementedError(
+            "multi-head latent attention is not ported yet (ROADMAP Queue A item 16)")
+    if cfg.mrope_section:
+        raise NotImplementedError(
+            "m-rope (Qwen2-VL) is not ported yet (ROADMAP Queue A item 19)")
+    if cfg.attention_window or cfg.attention_sink:
+        raise NotImplementedError(
+            "sink+window decode is not ported yet (ROADMAP Queue A item 15)")
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dt
+
+
+class KVCache(NamedTuple):
+    """Slot KV cache: k, v [L, B_slots, S_max, K_heads, head_dim]."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+    @staticmethod
+    def zeros(cfg: ArchConfig, num_slots: int, max_seq: int, dtype=None,
+              device=None) -> "KVCache":
+        dtype = torch_dtype(cfg.dtype) if dtype is None else dtype
+        device = resolve_device(device)
+        shape = (cfg.num_layers, num_slots, max_seq, cfg.num_kv_heads, cfg.head_dim_)
+        return KVCache(
+            k=torch.zeros(shape, dtype=dtype, device=device),
+            v=torch.zeros(shape, dtype=dtype, device=device),
+        )
+
+
+def init_params(cfg: ArchConfig, seed: int = 0, scale: float = 0.02,
+                device=None) -> Params:
+    """Random init (normal · scale) with the JAX package's tree structure,
+    drawn from a torch.Generator seeded with `seed` on `device`."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    dt = torch_dtype(cfg.dtype)
+    L, D, F_ = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
+    H, K, Hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def rnd(*shape):
+        w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+        return (w * scale).to(dt)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dt, device=device)
+
+    layers: Params = {
+        "attn_norm": ones(L, D),
+        "mlp_norm": ones(L, D),
+        "wq": rnd(L, D, H * Hd),
+        "wk": rnd(L, D, K * Hd),
+        "wv": rnd(L, D, K * Hd),
+        "wo": rnd(L, H * Hd, D),
+    }
+    if cfg.post_norms:
+        layers["post_attn_norm"] = ones(L, D)
+        layers["post_ffw_norm"] = ones(L, D)
+    if cfg.qk_norm:
+        layers["q_norm"] = ones(L, Hd)
+        layers["k_norm"] = ones(L, Hd)
+    if cfg.attn_qkv_bias:
+        layers["bq"] = torch.zeros((L, H * Hd), dtype=dt, device=device)
+        layers["bk"] = torch.zeros((L, K * Hd), dtype=dt, device=device)
+        layers["bv"] = torch.zeros((L, K * Hd), dtype=dt, device=device)
+    layers["w_gate"] = rnd(L, D, F_)
+    layers["w_up"] = rnd(L, D, F_)
+    layers["w_down"] = rnd(L, F_, D)
+    params: Params = {
+        "embed": rnd(cfg.vocab_size, D),
+        "layers": layers,
+        "final_norm": ones(D),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = rnd(cfg.vocab_size, D)
+    return params
+
+
+def _layer(params: Params, li: int) -> Params:
+    """Layer li's slice of every stacked tensor (views, no copies)."""
+    return {name: t[li] for name, t in params["layers"].items()}
+
+
+def _layer_sliding(cfg: ArchConfig, li: int) -> bool | None:
+    """Which layers slide: li % pattern != pattern-1 (gemma-2: every other
+    layer, gemma-3: 5 of 6). None when the arch has no sliding window."""
+    if not cfg.sliding_window:
+        return None
+    p = cfg.sliding_pattern
+    return (li % p) != (p - 1)
+
+
+def _layer_inv_freq(cfg: ArchConfig, inv_global, inv_local, li: int):
+    """Gemma-3 sliding layers rotate with their own unscaled base."""
+    if inv_local is not None and _layer_sliding(cfg, li):
+        return inv_local
+    return inv_global
+
+
+def _embed(cfg: ArchConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    """Token embedding lookup; Gemma scales hidden states by sqrt(D) here
+    while the tied unembed reads the raw matrix."""
+    h = params["embed"][tokens]
+    if cfg.embed_scale:
+        h = (h.float() * (cfg.hidden_size**0.5)).to(h.dtype)
+    return h
+
+
+def _act(cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """Gated-MLP activation: SwiGLU (llama family) or GeGLU (gemma)."""
+    if cfg.activation == "gelu_tanh":
+        return F.gelu(x, approximate="tanh")
+    return F.silu(x)
+
+
+def _unembed(cfg: ArchConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
+    """Final projection to f32 logits (bf16 operands, f32 accumulation)."""
+    w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    logits = unembed_matmul(h, w)
+    if cfg.final_softcap:
+        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+    return logits
+
+
+def _attn_proj_qkv(cfg: ArchConfig, lp: Params, x: torch.Tensor):
+    """x: [..., D] -> q [..., H, Hd], k/v [..., K, Hd]."""
+    H, K, Hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    q = matmul(x, lp["wq"])
+    k = matmul(x, lp["wk"])
+    v = matmul(x, lp["wv"])
+    if cfg.attn_qkv_bias:
+        q = q + lp["bq"]
+        k = k + lp["bk"]
+        v = v + lp["bv"]
+    lead = x.shape[:-1]
+    q = q.reshape(*lead, H, Hd)
+    k = k.reshape(*lead, K, Hd)
+    v = v.reshape(*lead, K, Hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, lp["q_norm"], cfg.rms_eps)
+        k = rms_norm(k, lp["k_norm"], cfg.rms_eps)
+    if cfg.query_scale:
+        # Gemma-2 scales by query_pre_attn_scalar^-0.5; the attention ops
+        # divide by sqrt(head_dim), so pre-multiply q by the ratio.
+        q = q * float((cfg.head_dim_ / cfg.query_scale) ** 0.5)
+    amp = rope_query_amp(cfg)
+    if amp != 1.0:
+        q = q * float(amp)  # yarn/longrope amplitude (m² on q ≡ m on cos/sin)
+    return q, k, v
+
+
+def _attn_out(cfg: ArchConfig, lp: Params, attn_flat: torch.Tensor) -> torch.Tensor:
+    """Output projection + optional gemma-2 post-attention sandwich norm."""
+    a = matmul(attn_flat, lp["wo"])
+    if cfg.post_norms:
+        a = rms_norm(a, lp["post_attn_norm"], cfg.rms_eps)
+    return a
+
+
+def _mlp(cfg: ArchConfig, lp: Params, x: torch.Tensor) -> torch.Tensor:
+    """Dense SwiGLU / GeGLU MLP."""
+    gate = _act(cfg, matmul(x, lp["w_gate"]))
+    up = matmul(x, lp["w_up"])
+    return matmul(gate * up, lp["w_down"]).to(x.dtype)
+
+
+def _mlp_out(cfg: ArchConfig, lp: Params, x: torch.Tensor) -> torch.Tensor:
+    """MLP + optional gemma-2 post-feedforward sandwich norm."""
+    m = _mlp(cfg, lp, x)
+    if cfg.post_norms:
+        m = rms_norm(m, lp["post_ffw_norm"], cfg.rms_eps)
+    return m
+
+
+def _check_params(params: Params) -> None:
+    if "dense_layers" in params or "router" in params["layers"]:
+        raise NotImplementedError(
+            "mixture-of-experts layers are not ported yet (ROADMAP Queue A item 16)")
+
+
+def _forward_hidden(
+    cfg: ArchConfig,
+    params: Params,
+    tokens: torch.Tensor,  # [B, S] int, right-padded
+    lengths: torch.Tensor,  # [B] int valid lengths
+    collect_kv: bool,
+):
+    """Shared full-sequence forward. Returns (h [B,S,D] after the final
+    norm, length_mask [B,S], (ks, vs) [L,B,S,K,Hd] or None)."""
+    check_supported(cfg)
+    _check_params(params)
+    B, S = tokens.shape
+    dev = tokens.device
+    inv_freq = rope_frequencies(cfg, dev)
+    inv_local = rope_frequencies_local(cfg, dev)
+    pos = torch.arange(S, device=dev)
+    positions = pos[None, :].expand(B, S)
+    length_mask = pos[None, :] < lengths[:, None]
+
+    h = _embed(cfg, params, tokens)  # [B, S, D]
+    ks, vs = [], []
+    for li in range(cfg.num_layers):
+        lp = _layer(params, li)
+        x = rms_norm(h, lp["attn_norm"], cfg.rms_eps)
+        inv = _layer_inv_freq(cfg, inv_freq, inv_local, li)
+        q, k, v = _attn_proj_qkv(cfg, lp, x)
+        q = apply_rope(q, positions, inv)
+        k = apply_rope(k, positions, inv)
+        attn = prefill_attention(
+            q, k, v, length_mask, lengths,
+            softcap=cfg.attn_softcap, window=cfg.sliding_window,
+            sliding=_layer_sliding(cfg, li),
+        )
+        h = h + _attn_out(cfg, lp, attn.reshape(B, S, -1))
+        x = rms_norm(h, lp["mlp_norm"], cfg.rms_eps)
+        h = h + _mlp_out(cfg, lp, x)
+        if collect_kv:
+            ks.append(k)
+            vs.append(v)
+    h = rms_norm(h, params["final_norm"], cfg.rms_eps)
+    kv = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
+    return h, length_mask, kv
+
+
+def prefill(
+    cfg: ArchConfig,
+    params: Params,
+    tokens: torch.Tensor,  # [B, S] int, right-padded
+    lengths: torch.Tensor,  # [B] int valid lengths
+):
+    """Prompt processing. Returns (last_logits [B, V] f32, k [L,B,S,K,Hd], v)."""
+    h, _, (ks, vs) = _forward_hidden(cfg, params, tokens, lengths, collect_kv=True)
+    last_idx = torch.clamp(lengths.to(torch.int64) - 1, min=0)  # empty prompt reads 0
+    last = h[torch.arange(h.shape[0], device=h.device), last_idx]  # [B, D]
+    return _unembed(cfg, params, last), ks, vs
+
+
+def decode_step_windowed(
+    cfg: ArchConfig,
+    params: Params,
+    tokens: torch.Tensor,  # [B] current token per slot
+    positions: torch.Tensor,  # [B] its position
+    cache: KVCache,  # READ-ONLY within a decode block
+    local_k: torch.Tensor,  # [L, B, n, K, Hd] — block-local KV window
+    local_v: torch.Tensor,
+    step: int,  # index within the block
+):
+    """One step of a decode block with a block-local KV window.
+
+    The cache is never written here: each layer's new row goes into
+    local_k / local_v[:, :, step] (in place), and the engine scatters the
+    whole window into the cache once per block. Returns (logits [B, V] f32,
+    local_k, local_v)."""
+    check_supported(cfg)
+    _check_params(params)
+    B = tokens.shape[0]
+    dev = tokens.device
+    inv_freq = rope_frequencies(cfg, dev)
+    inv_local = rope_frequencies_local(cfg, dev)
+    h = _embed(cfg, params, tokens)  # [B, D]
+    for li in range(cfg.num_layers):
+        lp = _layer(params, li)
+        x = rms_norm(h, lp["attn_norm"], cfg.rms_eps)
+        inv = _layer_inv_freq(cfg, inv_freq, inv_local, li)
+        q, k, v = _attn_proj_qkv(cfg, lp, x)  # q [B,H,Hd], k/v [B,K,Hd]
+        q = apply_rope(q[:, None], positions[:, None], inv)[:, 0]
+        k = apply_rope(k[:, None], positions[:, None], inv)[:, 0]
+        attn = decode_attention_windowed(
+            q, cache.k[li], cache.v[li], local_k[li], local_v[li], k, v,
+            positions, step, softcap=cfg.attn_softcap,
+            window=cfg.sliding_window, sliding=_layer_sliding(cfg, li),
+        )
+        h = h + _attn_out(cfg, lp, attn.reshape(B, -1))
+        x = rms_norm(h, lp["mlp_norm"], cfg.rms_eps)
+        h = h + _mlp_out(cfg, lp, x)
+        local_k[li, :, step] = k.to(local_k.dtype)
+        local_v[li, :, step] = v.to(local_v.dtype)
+    h = rms_norm(h, params["final_norm"], cfg.rms_eps)
+    return _unembed(cfg, params, h), local_k, local_v
+
+
+def write_block_to_cache(
+    cache: KVCache,
+    local_k: torch.Tensor,  # [L, B, n, K, Hd]
+    local_v: torch.Tensor,
+    start_positions: torch.Tensor,  # [B] — block start per slot
+) -> KVCache:
+    """Scatter a decode block's local KV window into the cache, in place
+    (once per block). Overshooting rows clamp to S-1 (the host discards
+    those tokens)."""
+    B, n = local_k.shape[1:3]
+    S = cache.k.shape[2]
+    dev = local_k.device
+    span = torch.clamp(
+        start_positions.to(torch.int64)[:, None] + torch.arange(n, device=dev)[None, :],
+        max=S - 1,
+    )
+    bi = torch.arange(B, device=dev)[:, None]
+    cache.k[:, bi, span] = local_k.to(cache.k.dtype)
+    cache.v[:, bi, span] = local_v.to(cache.v.dtype)
+    return cache
+
+
+def write_prefill_to_cache(
+    cache: KVCache,
+    ks: torch.Tensor,  # [L, B_new, S, K, Hd] from prefill
+    vs: torch.Tensor,
+    slot: int,  # destination slot for batch row 0
+) -> KVCache:
+    """Copy a prefilled request's k/v (batch row 0) into its slot, in place."""
+    S = ks.shape[2]
+    cache.k[:, slot, :S] = ks[:, 0].to(cache.k.dtype)
+    cache.v[:, slot, :S] = vs[:, 0].to(cache.v.dtype)
+    return cache

@@ -1,0 +1,120 @@
+"""Where the serving path's time goes on the card.
+
+    python -m localai_tpu_torch.profile_engine [--arch llama-3.2-1b]
+        [--slots 8] [--prompt 500] [--steps 16]
+
+Builds the engine on random bf16 weights and drives its two device paths
+directly on this thread (no loop thread): one fused admission of `--slots`
+prompts of `--prompt` tokens, then one decode block of `--steps` steps over
+those slots. Prints, per path, the host wall time of an unprofiled run, the summed
+device time of its kernels under the profiler, the device busy share
+(their ratio), the device launches per step, and the kernels and host ops
+that take the most time. Needs a GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+
+import torch
+
+
+def _kernels(events) -> list:
+    """The device-side entries (kernels, copies) of a key_averages() list."""
+    from torch.autograd import DeviceType
+
+    return [e for e in events if e.device_type == DeviceType.CUDA]
+
+
+def _top(events, key: str, n: int) -> list[tuple[str, int, float]]:
+    rows = [(e.key[:90], e.count, (getattr(e, key, 0.0) or 0.0) / 1e3) for e in events]
+    return sorted(rows, key=lambda r: -r[2])[:n]
+
+
+def _profile(label: str, fn, steps: int = 1) -> dict:
+    """Run fn three times: a warm-up (allocator, cuBLAS handles, lazy module
+    loads), a timed run, and a run under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.monotonic() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    kern = _kernels(ev)
+    kern_ids = {id(e) for e in kern}
+    dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    launches = sum(e.count for e in kern)
+    out = {
+        "path": label,
+        "wall_ms": wall_ms,
+        "wall_ms_per_step": wall_ms / steps,
+        "device_ms": dev_ms,
+        "device_busy_share": dev_ms / wall_ms if wall_ms else 0.0,
+        "device_launches_per_step": launches / steps,
+        "top_kernels": _top(kern, "self_device_time_total", 12),
+        "top_host_ops": _top([e for e in ev if id(e) not in kern_ids],
+                             "self_cpu_time_total", 12),
+    }
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="llama-3.2-1b")
+    ap.add_argument("--slots", type=int, default=8)
+    ap.add_argument("--prompt", type=int, default=500)
+    ap.add_argument("--steps", type=int, default=16)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_engine needs a CUDA device")
+
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig, GenRequest, RequestHandle
+    from localai_tpu_torch.engine.tokenizer import ByteTokenizer
+    from localai_tpu_torch.models import get_arch
+    from localai_tpu_torch.models.llama import init_params
+
+    cfg = get_arch(args.arch)
+    params = init_params(cfg, seed=0, device="cuda")
+    eng = Engine(cfg, params, ByteTokenizer(cfg.vocab_size), device="cuda",
+                 engine_cfg=EngineConfig(max_slots=args.slots, max_seq=2048,
+                                         block_sizes=(args.steps,)))
+    gen = torch.Generator().manual_seed(0)
+    bucket = eng._bucket_for(args.prompt)
+    slots = list(range(args.slots))
+
+    def admit():
+        group = []
+        for i in range(args.slots):
+            ids = torch.randint(0, 256, (args.prompt,), generator=gen).tolist()
+            group.append((GenRequest(prompt_ids=ids, max_new_tokens=10_000, ignore_eos=True,
+                                     temperature=0.8 if i % 2 else 0.0, top_p=0.9, seed=i),
+                          RequestHandle()))
+        for s in slots:  # the previous run's requests give their slots back
+            if eng.slots[s] is not None:
+                eng._release(s)
+        eng._dispatch_admit(group, bucket, slots)
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+                      "arch": cfg.name,
+                      "slots": args.slots, "prompt": args.prompt, "bucket": bucket,
+                      "steps": args.steps}), flush=True)
+    _profile(f"admission m={args.slots} bucket={bucket}", admit)
+    _profile(f"decode block n={args.steps} slots={args.slots}", eng._run_block, args.steps)
+
+
+if __name__ == "__main__":
+    main()
