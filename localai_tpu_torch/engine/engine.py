@@ -1,5 +1,5 @@
-"""Continuous-batching serving engine, dense KV cache
-(PyTorch port of localai_tpu/engine/engine.py).
+"""Continuous-batching serving engine over a dense KV cache or a paged KV
+pool (PyTorch port of localai_tpu/engine/engine.py).
 
 One resident engine owns the device. Requests are multiplexed onto a fixed
 number of KV-cache slots by one loop thread ("engine-loop"):
@@ -13,6 +13,19 @@ number of KV-cache slots by one loop thread ("engine-loop"):
   to the host in ONE device-to-host copy.
 - Each block picks the cheapest sampler its active slots allow: greedy,
   simple (unfiltered categorical) or filtered (top-k / top-p / min-p).
+- With `kv_pages > 0` the cache is one shared page pool: device memory
+  scales with live context, not slots × max_seq. Admission reserves the
+  prompt's pages plus `kv_page_headroom`; each decode block first grows
+  every active slot's page table on the host, and when the pool cannot
+  cover the growth the youngest slot is preempted by recompute (its pages
+  freed, prompt + generated requeued at the head under the same handle,
+  its sampler state kept). Decode attention walks each slot's own pages
+  (the ragged paged-attention kernel on the card).
+- With `prefill_chunk > 0` (paged pool only) prompts longer than a chunk
+  admit chunk by chunk: at most one chunk runs between decode blocks, each
+  writes its K/V straight into the slot's pages, the slot's table is kept
+  off the decode blocks (SCRATCH) until the final chunk, and the final
+  chunk samples the first token and installs the slot.
 - Streaming is UTF-8-safe incremental detokenization with stop-sequence
   hold-back; every generated token posts exactly one event, and every
   request ends with exactly one terminal event (done or error) on every
@@ -23,8 +36,10 @@ seed (or from the OS when it has none), so a seeded request gives the same
 bytes whatever else shares the batch.
 
 Not ported yet (ROADMAP Queue A): pipelined dispatch and CUDA graphs,
-the prefix cache, the paged pool, chunked prefill, grammar, logprobs,
-speculative decoding, fork / n>1, LoRA, quantization, tp, deadlines.
+the prefix cache, the host swap tier (preemption always recomputes),
+hierarchical page tables, chunked prefill over a dense cache, grammar,
+logprobs, speculative decoding, fork / n>1, LoRA, quantization, tp,
+deadlines.
 """
 
 from __future__ import annotations
@@ -104,6 +119,18 @@ class EngineConfig:
     block_sizes: tuple[int, ...] = (64, 16, 4, 1)
     # Pending-queue bound; submit() past it raises QueueFullError. 0 = no bound.
     max_pending: int = 0
+    # Paged KV pool: kv_pages > 0 replaces the dense [slots, max_seq] cache
+    # with a shared pool of kv_pages pages of kv_page_size rows (plus one
+    # SCRATCH page). max_seq must divide by kv_page_size. 0 = dense cache.
+    kv_pages: int = 0
+    kv_page_size: int = 128
+    # Pages reserved at admission beyond the prompt bucket, so the first
+    # decode blocks do not stall on growth.
+    kv_page_headroom: int = 1
+    # Chunked prefill (paged pool only): prompts longer than this many
+    # tokens admit in chunks interleaved with decode blocks. A power of two
+    # >= min_prefill_bucket; 0 = single-shot admission.
+    prefill_chunk: int = 0
 
     def buckets(self) -> list[int]:
         out, b = [], self.min_prefill_bucket
@@ -129,6 +156,10 @@ class GenRequest:
     seed: Optional[int] = None
     ignore_eos: bool = False
     logit_bias: dict[int, float] = dataclasses.field(default_factory=dict)
+    # Set by the engine on a request it requeued after preempting it: what
+    # the re-admitted slot restores (generated tokens, streamed text, the
+    # sampler's generator state). Callers leave it None.
+    resume: Optional[dict] = None
 
 
 @dataclasses.dataclass
@@ -186,6 +217,8 @@ class _Slot:
     generated: list[int] = dataclasses.field(default_factory=list)
     emitted_len: int = 0  # chars of decoded text already streamed
     scheduled: int = 0  # tokens dispatched (admission token + decode steps)
+    sched_rows: int = 0  # cache rows written or dispatched (prompt + decode steps)
+    t_submit: float = 0.0
     t_admit: float = 0.0
     t_first: float = 0.0
 
@@ -215,13 +248,20 @@ class Engine:
             raise ValueError("block_sizes must be positive")
         if ecfg.max_pending < 0:
             raise ValueError("max_pending must be >= 0 (0 = unbounded)")
+        self._check_paged_config(ecfg)
         pdev = params["embed"].device
         if pdev.type != self.device.type:
             raise ValueError(f"params live on {pdev}, engine device is {self.device}")
         B, S, V = ecfg.max_slots, ecfg.max_seq, cfg.vocab_size
         dev = self.device
-        # Device state, one row per slot.
-        self.cache = llama.KVCache.zeros(cfg, B, S, device=dev)
+        # Device state, one row per slot; the cache is dense [L, B, S, K, Hd]
+        # or the page pool [L, kv_pages + 1, page, K, Hd].
+        self._paged = ecfg.kv_pages > 0
+        if self._paged:
+            self.cache = llama.paged_cache_zeros(cfg, ecfg.kv_pages + 1, ecfg.kv_page_size,
+                                                 device=dev)
+        else:
+            self.cache = llama.KVCache.zeros(cfg, B, S, device=dev)
         self.counts = torch.zeros((B, V), dtype=torch.int32, device=dev)
         self.bias = torch.zeros((B, V), dtype=torch.float32, device=dev)
         self.d_tokens = torch.zeros((B,), dtype=torch.int64, device=dev)
@@ -233,6 +273,22 @@ class Engine:
         self.h_sampling = {k: np.zeros((B,), np.float32) for k in _SAMPLING_FIELDS}
         self.h_sampling["top_p"][:] = 1.0
         self.h_sampling["repeat_penalty"][:] = 1.0
+        # Paged pool accounting (loop thread only). h_ptable [B, MP] mirrors
+        # each slot's pages and goes to the device with every dispatch;
+        # unused entries point at SCRATCH (the pool's last page, which no
+        # slot attends), so idle slots and overshoot rows land harmlessly.
+        self._max_pages = S // ecfg.kv_page_size if self._paged else 0
+        self._scratch_page = ecfg.kv_pages
+        self.h_ptable = np.full((B, max(self._max_pages, 1)), self._scratch_page, np.int32)
+        self._free_pages: list[int] = list(range(ecfg.kv_pages))
+        self._slot_pages: list[list[int]] = [[] for _ in range(B)]
+        self._page_refs = np.zeros((max(ecfg.kv_pages, 1),), np.int32)
+        # A decode block could not grow some slot: admissions pause until
+        # growth succeeds (the youngest slot is preempted meanwhile).
+        self._growth_blocked = False
+        # In-progress chunked admissions, oldest first: each holds a
+        # reserved, inactive slot and its page row, withheld from h_ptable.
+        self._chunkings: list[dict] = []
         # Cross-thread state.
         self._pending: deque[tuple[GenRequest, RequestHandle]] = deque()
         self._pending_lock = threading.Lock()
@@ -245,10 +301,37 @@ class Engine:
         self.m_prompt_tokens = 0
         self.m_generated_tokens = 0
         self.m_queue_shed = 0
-        self.m_admissions = 0
+        self.m_admissions = 0  # single-shot admission dispatches
         self.m_blocks = 0
+        self.m_decode_steps = 0
+        self.m_prefill_chunks = 0
+        self.m_chunks_interleaved = 0  # chunks dispatched while slots decode
+        self.m_chunked_admits = 0
+        self.m_kv_pages_peak = 0
+        self.m_kv_pages_grown = 0
+        self.m_kv_preemptions = 0
         self._decode_tokens = 0
         self._decode_time = 0.0
+
+    @staticmethod
+    def _check_paged_config(ecfg: EngineConfig) -> None:
+        """The JAX package's validation of the paged-pool and chunking knobs."""
+        if ecfg.kv_pages < 0:
+            raise ValueError("kv_pages must be >= 0 (0 = dense cache)")
+        if ecfg.kv_page_headroom < 0:
+            raise ValueError("kv_page_headroom must be >= 0")
+        C = ecfg.prefill_chunk
+        if C < 0 or (C and (C < ecfg.min_prefill_bucket or C & (C - 1))):
+            raise ValueError(f"prefill_chunk={C} must be a power of two >= "
+                             f"min_prefill_bucket={ecfg.min_prefill_bucket}")
+        if ecfg.kv_pages > 0:
+            if ecfg.kv_page_size < 1 or ecfg.max_seq % ecfg.kv_page_size:
+                raise ValueError(f"max_seq={ecfg.max_seq} must divide by "
+                                 f"kv_page_size={ecfg.kv_page_size}")
+        elif C:
+            raise NotImplementedError(
+                "prefill_chunk > 0 with a dense cache needs prefill_tail, which is not "
+                "ported yet (ROADMAP Queue A items 3 and 7); use kv_pages > 0")
 
     def _generator(self, seed: int) -> torch.Generator:
         g = torch.Generator(device=self.device)
@@ -293,6 +376,13 @@ class Engine:
             head = request.prompt_ids[0]
             request.prompt_ids = [head] + request.prompt_ids[-(limit - 1):]
             log.warning("prompt truncated to %d tokens (max_seq=%d)", limit, self.ecfg.max_seq)
+        if self._paged and self._pages_worst(request) > self.ecfg.kv_pages:
+            # Admission reserves only prompt + headroom and grows on demand,
+            # but a request whose whole context can never fit would preempt
+            # everyone and still starve.
+            raise ValueError(
+                f"request needs up to {self._pages_worst(request)} KV pages, pool has "
+                f"{self.ecfg.kv_pages}: lower max_new_tokens or grow kv_pages")
         handle = RequestHandle()
         handle.t_submit = time.monotonic()
         # The dead check and the append share _pending_lock with the loop's
@@ -330,6 +420,14 @@ class Engine:
             "queue_shed": float(self.m_queue_shed),
             "admissions": float(self.m_admissions),
             "decode_blocks": float(self.m_blocks),
+            "decode_steps": float(self.m_decode_steps),
+            "prefill_chunks": float(self.m_prefill_chunks),
+            "prefill_chunks_interleaved": float(self.m_chunks_interleaved),
+            "chunked_admits": float(self.m_chunked_admits),
+            "kv_pages_free": float(len(self._free_pages)),
+            "kv_pages_peak": float(self.m_kv_pages_peak),
+            "kv_pages_grown": float(self.m_kv_pages_grown),
+            "kv_preemptions": float(self.m_kv_preemptions),
             "admit_wait_ms": float(self._admit_wait_ewma * 1000.0),
             "loop_dead": 1.0 if self._loop_dead is not None else 0.0,
         }
@@ -366,14 +464,22 @@ class Engine:
         while not self._shutdown.is_set():
             self._purge_pending()
             self._finish_cancelled()
-            admitted = self._admit_pending()
+            if self._growth_blocked and not self.h_active.any():
+                # The growth-starved slots are gone: nothing waits on pages.
+                self._growth_blocked = False
+            progressed = self._admit_pending()
             if self.h_active.any() and self._has_unscheduled():
+                progressed = True
                 try:
-                    self._run_block()
+                    if not self._run_block():
+                        # The pool cannot cover the block's page growth:
+                        # free the youngest slot's pages so the rest go on.
+                        self._preempt_youngest()
                 except Exception as e:  # noqa: BLE001 — fail requests, not the loop
                     self._fail_block(e)
-                continue
-            if not admitted:
+            # At most one prefill chunk between two decode blocks.
+            progressed = self._advance_chunked() or progressed
+            if not progressed:
                 self._wake.wait(timeout=0.05)
                 self._wake.clear()
 
@@ -382,7 +488,7 @@ class Engine:
         its slot released."""
         log.exception("decode block failed")
         for i, slot in enumerate(self.slots):
-            if slot is not None:
+            if slot is not None and self.h_active[i]:
                 slot.handle._q.put(TokenEvent(kind="error", error=f"{type(e).__name__}: {e}"))
                 self._release(i)
 
@@ -402,9 +508,10 @@ class Engine:
 
     def _finish_cancelled(self) -> None:
         """Active slots whose caller cancelled end now (nothing is in
-        flight between loop iterations)."""
+        flight between loop iterations); a chunked admission ends at its
+        next chunk (_advance_chunked)."""
         for i, slot in enumerate(self.slots):
-            if slot is not None and slot.handle.cancelled.is_set():
+            if slot is not None and self.h_active[i] and slot.handle.cancelled.is_set():
                 self._finish(i, "stop")
 
     def _note_admitted(self, handle: RequestHandle) -> None:
@@ -418,15 +525,22 @@ class Engine:
     # ------------------------------------------------------------------ #
 
     def _admit_pending(self) -> bool:
-        """Admit pending requests into free slots, one fused admission per
-        group of same-bucket prompts at the queue head."""
+        """Admit pending requests into free slots: one fused admission per
+        group of same-bucket prompts at the queue head, or the start of one
+        chunked admission. On the paged pool a group takes only the pages
+        the pool has now (backpressure), and nothing is admitted while a
+        live slot waits on page growth."""
         admitted = False
+        if self._growth_blocked:
+            return admitted
         while True:
             free = [i for i, s in enumerate(self.slots) if s is None]
             if not free:
                 return admitted
             group: list[tuple[GenRequest, RequestHandle]] = []
             bucket = 0
+            pages_planned = 0
+            chunk_item = None
             with self._pending_lock:
                 while self._pending and len(group) < len(free):
                     request, handle = self._pending[0]
@@ -434,11 +548,29 @@ class Engine:
                         self._pending.popleft()
                         handle._q.put(TokenEvent(kind="done", finish_reason="stop"))
                         continue
+                    if self._chunkable(request):
+                        # Long prompts leave the queue before bucketing; a
+                        # group already gathered dispatches first.
+                        if not group:
+                            chunk_item = self._pending.popleft()
+                        break
+                    if self._paged:
+                        need = self._pages_needed(request)
+                        if pages_planned + need > len(self._free_pages):
+                            break  # pool backpressure — wait for a finish
+                        pages_planned += need
                     b = self._bucket_for(len(request.prompt_ids))
                     if group and b != bucket:
                         break  # different bucket — next round
                     bucket = b
                     group.append(self._pending.popleft())
+            if chunk_item is not None:
+                request, handle = chunk_item
+                if not self._chunk_start(request, handle):
+                    return admitted  # pool backpressure — requeued at the head
+                self._note_admitted(handle)
+                admitted = True
+                continue
             if not group:
                 return admitted
             for _req, handle in group:
@@ -451,77 +583,114 @@ class Engine:
                     handle._q.put(TokenEvent(kind="error", error=f"{type(e).__name__}: {e}"))
             admitted = True
 
-    def _admit(self, prompt, lens, samp, bias_rows, gens, slot_ids, bucket):
-        """The fused admission: prefill M prompts, write their KV, penalty
-        counts and bias rows into their slots, sample each first token.
-        Returns the first tokens [M] on the device."""
-        cfg = self.cfg
-        m, V = prompt.shape[0], cfg.vocab_size
-        dev = self.device
-        logits, ks, vs = llama.prefill(cfg, self.params, prompt, lens)
-        valid = (torch.arange(bucket, device=dev)[None, :] < lens[:, None]).to(torch.int32)
-        rows = torch.zeros((m, V), dtype=torch.int32, device=dev)
-        rows.scatter_add_(1, prompt, valid)
-        # Logits may cover more ids than the tokenizer decodes (padded
-        # embedding rows): mask those out of sampling for good.
-        tok_v = min(getattr(self.tokenizer, "vocab_size", V) or V, V)
-        if tok_v < V:
-            bias_rows[:, tok_v:] = NEG_INF
-        toks = sample(logits, gens, samp, rows, bias_rows)
-        rows[torch.arange(m, device=dev), toks] += 1
-        sl = torch.as_tensor(slot_ids, dtype=torch.int64, device=dev)
-        for j, s in enumerate(slot_ids):
-            llama.write_prefill_to_cache(self.cache, ks[:, j:j + 1], vs[:, j:j + 1], s)
-        self.counts[sl] = rows
-        self.bias[sl] = bias_rows
-        self.d_tokens[sl] = toks
-        self.d_positions[sl] = lens
-        return toks
-
-    def _dispatch_admit(self, group, bucket: int, slot_ids: list[int]) -> None:
+    def _request_controls(self, group):
+        """Host-side sampling rows [7, m], logit-bias rows [m, V] and one
+        generator per request; a preempted request continues its saved
+        generator state."""
         m, V = len(group), self.cfg.vocab_size
-        t0 = time.monotonic()
-        prompt = np.zeros((m, bucket), np.int64)
-        lens = np.zeros((m,), np.int64)
         samp = np.zeros((len(_SAMPLING_FIELDS), m), np.float32)
         bias_rows = np.zeros((m, V), np.float32)
-        seeds = []
+        gens = []
         for j, (r, _h) in enumerate(group):
-            prompt[j, : len(r.prompt_ids)] = r.prompt_ids
-            lens[j] = len(r.prompt_ids)
             for fi, k in enumerate(_SAMPLING_FIELDS):
                 samp[fi, j] = getattr(r, k)
             for tid, bval in r.logit_bias.items():
                 if 0 <= int(tid) < V:
                     bias_rows[j, int(tid)] = bval
             # Unseeded requests draw a random seed (reference default -1).
-            seeds.append(r.seed & 0x7FFFFFFF if r.seed is not None
-                         else int.from_bytes(os.urandom(4), "little") & 0x7FFFFFFF)
+            g = self._generator(r.seed & 0x7FFFFFFF if r.seed is not None
+                                else int.from_bytes(os.urandom(4), "little") & 0x7FFFFFFF)
+            if r.resume is not None:
+                g.set_state(r.resume["gen_state"])
+            gens.append(g)
+        return samp, bias_rows, gens
+
+    def _install_first(self, logits, prompt, lens, samp, bias_rows, gens, slot_ids):
+        """Sample each admitted prompt's first token and install the slots'
+        device state: penalty counts (prompt + first token), bias row, the
+        token and its position. prompt [m, S] right-padded to lens [m].
+        Returns the first tokens [m] on the device."""
+        m, V = prompt.shape[0], self.cfg.vocab_size
         dev = self.device
+        valid = (torch.arange(prompt.shape[1], device=dev)[None, :] < lens[:, None]).to(torch.int32)
+        rows = torch.zeros((m, V), dtype=torch.int32, device=dev)
+        rows.scatter_add_(1, prompt, valid)
+        # Logits may cover more ids than the tokenizer decodes (padded
+        # embedding rows): mask those out of sampling for good.
+        bias_rows = torch.from_numpy(bias_rows).to(dev)
+        tok_v = min(getattr(self.tokenizer, "vocab_size", V) or V, V)
+        if tok_v < V:
+            bias_rows[:, tok_v:] = NEG_INF
         sp = _sampling_params(torch.from_numpy(samp).to(dev))
-        gens = [self._generator(s) for s in seeds]
-        toks = self._admit(
-            torch.from_numpy(prompt).to(dev), torch.from_numpy(lens).to(dev), sp,
-            torch.from_numpy(bias_rows).to(dev),
-            [g if r.temperature > 0 else None for g, (r, _h) in zip(gens, group)],
-            slot_ids, bucket,
-        )
-        toks_host = toks.tolist()  # the admission's one device-to-host copy
+        toks = sample(logits, [g if t > 0 else None for g, t in zip(gens, samp[0])],
+                      sp, rows, bias_rows)
+        rows[torch.arange(m, device=dev), toks] += 1
+        sl = torch.as_tensor(slot_ids, dtype=torch.int64, device=dev)
+        self.counts[sl] = rows
+        self.bias[sl] = bias_rows
+        self.d_tokens[sl] = toks
+        self.d_positions[sl] = lens
+        return toks
+
+    def _claim_slot(self, s: int, request: GenRequest, handle: RequestHandle,
+                    generator: torch.Generator, t_admit: float) -> None:
+        """Host state of a freshly admitted slot (after its admission ran)."""
+        for k in _SAMPLING_FIELDS:
+            self.h_sampling[k][s] = getattr(request, k)
+        self.generators[s] = generator
+        n = len(request.prompt_ids)
+        self.slots[s] = _Slot(request=request, handle=handle, prompt_len=n, scheduled=1,
+                              sched_rows=n, t_submit=handle.t_submit, t_admit=t_admit)
+        self._apply_resume(s)
+        self.h_active[s] = True
+
+    def _post_first(self, s: int, tok: int) -> None:
+        slot = self.slots[s]
+        if not slot.t_first:  # a resumed request keeps its first-token time
+            slot.t_first = time.monotonic()
+        self.m_prompt_tokens += slot.prompt_len
+        self._post_token(s, tok)
+
+    def _dispatch_admit(self, group, bucket: int, slot_ids: list[int]) -> None:
+        m = len(group)
+        t0 = time.monotonic()
+        prompt = np.zeros((m, bucket), np.int64)
+        lens = np.zeros((m,), np.int64)
+        for j, (r, _h) in enumerate(group):
+            prompt[j, : len(r.prompt_ids)] = r.prompt_ids
+            lens[j] = len(r.prompt_ids)
+        samp, bias_rows, gens = self._request_controls(group)
+        dev = self.device
+        table_rows = None
+        if self._paged:
+            for (r, _h), s in zip(group, slot_ids):
+                if self._pages_alloc(s, self._pages_needed(r)) is None:
+                    for s2 in slot_ids:  # the planner counted these pages
+                        self._pages_free(s2)
+                    raise RuntimeError("KV page pool exhausted at admission")
+            table_rows = torch.from_numpy(self.h_ptable[slot_ids]).to(dev)
+        d_prompt, d_lens = torch.from_numpy(prompt).to(dev), torch.from_numpy(lens).to(dev)
+        try:
+            logits, ks, vs = llama.prefill(self.cfg, self.params, d_prompt, d_lens)
+            for j, s in enumerate(slot_ids):
+                if table_rows is not None:
+                    llama.write_prefill_to_pool(self.cache, table_rows[j], ks, vs, j)
+                else:
+                    llama.write_prefill_to_cache(self.cache, ks[:, j:j + 1], vs[:, j:j + 1], s)
+            toks = self._install_first(logits, d_prompt, d_lens, samp, bias_rows, gens, slot_ids)
+            toks_host = toks.tolist()  # the admission's one device-to-host copy
+        except Exception:
+            if self._paged:
+                for s in slot_ids:
+                    self._pages_free(s)
+            raise
         self.m_admissions += 1
         # Claim the slots only after a successful admission, so a failed
         # one leaves no slot state behind.
         for j, ((r, handle), s) in enumerate(zip(group, slot_ids)):
-            for k in _SAMPLING_FIELDS:
-                self.h_sampling[k][s] = getattr(r, k)
-            self.generators[s] = gens[j]
-            self.slots[s] = _Slot(request=r, handle=handle, prompt_len=int(lens[j]),
-                                  scheduled=1, t_admit=t0)
-            self.h_active[s] = True
-        for j, ((r, handle), s) in enumerate(zip(group, slot_ids)):
-            slot = self.slots[s]
-            slot.t_first = time.monotonic()
-            self.m_prompt_tokens += slot.prompt_len
-            self._post_token(s, int(toks_host[j]))
+            self._claim_slot(s, r, handle, gens[j], t0)
+        for j, s in enumerate(slot_ids):
+            self._post_first(s, int(toks_host[j]))
 
     # ------------------------------------------------------------------ #
     # Decode blocks
@@ -549,8 +718,13 @@ class Engine:
                 return n
         return sizes[-1]
 
-    def _run_block(self) -> None:
-        """One n-step decode block: dispatch, one host copy, then stream."""
+    def _run_block(self) -> bool:
+        """One n-step decode block: grow the pages it writes, dispatch, one
+        host copy, then stream. Returns False, having dispatched nothing,
+        when the page pool cannot cover the block's growth."""
+        n = self._pick_block_size()
+        if not self._grow_for_decode(n):
+            return False
         t0 = time.monotonic()
         cfg, B, S = self.cfg, self.ecfg.max_slots, self.ecfg.max_seq
         dev = self.device
@@ -561,20 +735,24 @@ class Engine:
         needs_filter = bool(np.any(sampled & (
             (hs["top_k"][idx] > 0) | (hs["top_p"][idx] < 1) | (hs["min_p"][idx] > 0))))
         variant = "filtered" if needs_filter else ("simple" if sampled.any() else "greedy")
-        n = self._pick_block_size()
-        # Read-side KV window: the smallest power of two (>= 256) covering
-        # every active slot's pre-block rows; the cache holds nothing the
-        # block reads past it, so decode attention streams less of it.
-        maxpos = max(self.slots[i].prompt_len + self.slots[i].scheduled for i in idx)
-        win = self._KV_WIN_MIN
-        while win < min(maxpos, S):
-            win *= 2
+        ptable = None
         read_cache = self.cache
-        if win < S:
-            read_cache = llama.KVCache(k=self.cache.k[:, :, :win], v=self.cache.v[:, :, :win])
+        if self._paged:
+            # Each slot walks its own pages, bounded by its own position.
+            ptable = torch.from_numpy(self.h_ptable).to(dev)
+        else:
+            # Read-side KV window: the smallest power of two (>= 256)
+            # covering every active slot's pre-block rows; the cache holds
+            # nothing the block reads past it, so attention streams less.
+            maxpos = max(self.slots[i].prompt_len + self.slots[i].scheduled for i in idx)
+            win = self._KV_WIN_MIN
+            while win < min(maxpos, S):
+                win *= 2
+            if win < S:
+                read_cache = llama.KVCache(k=self.cache.k[:, :, :win], v=self.cache.v[:, :, :win])
 
         pack = np.stack([act.astype(np.float32)] + [hs[k] for k in _SAMPLING_FIELDS])
-        d_pack = torch.from_numpy(pack).to(dev)  # the block's one host-to-device copy
+        d_pack = torch.from_numpy(pack).to(dev)  # the block's control rows, one copy
         active = d_pack[0] > 0
         act_i32 = active.to(torch.int32)
         sp = _sampling_params(d_pack[1:])
@@ -584,11 +762,15 @@ class Engine:
         local_k = torch.zeros(shape, dtype=self.cache.k.dtype, device=dev)
         local_v = torch.zeros(shape, dtype=self.cache.v.dtype, device=dev)
         tokens, positions = self.d_tokens, self.d_positions
+        if self._paged:
+            # Idle slots walk no pages (limit 0) and write into SCRATCH.
+            positions = torch.where(active, positions, 0)
         start_pos = positions
         out = torch.empty((n, B), dtype=torch.int64, device=dev)
         for step in range(n):
             logits, local_k, local_v = llama.decode_step_windowed(
-                cfg, self.params, tokens, positions, read_cache, local_k, local_v, step)
+                cfg, self.params, tokens, positions, read_cache, local_k, local_v, step,
+                ptable=ptable)
             if variant == "greedy":
                 nxt = sample_greedy(logits, sp, self.counts, self.bias)
             elif variant == "simple":
@@ -601,12 +783,17 @@ class Engine:
             # Clamp so idle / overshooting slots stay inside their own rows.
             positions = torch.clamp(positions + 1, max=S - 1)
             tokens = nxt
-        llama.write_block_to_cache(self.cache, local_k, local_v, start_pos)
+        if self._paged:
+            llama.write_block_to_pool(self.cache, ptable, local_k, local_v, start_pos)
+        else:
+            llama.write_block_to_cache(self.cache, local_k, local_v, start_pos)
         self.d_tokens, self.d_positions = tokens, positions
         toks = out.cpu().numpy()  # the block's one device-to-host copy
         self.m_blocks += 1
+        self.m_decode_steps += n
         for i in idx:
             self.slots[i].scheduled += n
+            self.slots[i].sched_rows += n
         consumed = 0
         for step in range(n):
             for i in idx:
@@ -616,6 +803,293 @@ class Engine:
                 self._post_token(int(i), int(toks[step, i]))
         self._decode_tokens += consumed
         self._decode_time += time.monotonic() - t0
+        return True
+
+    # ------------------------------------------------------------------ #
+    # Paged KV pool: page allocator (loop thread only)
+    # ------------------------------------------------------------------ #
+
+    def _pages_worst(self, request: GenRequest) -> int:
+        """Worst-case pages of a request: the prefill writes a whole bucket
+        of rows, and decode may reach prompt + max_new. The submit gate, and
+        the cap on admission headroom."""
+        plen = len(request.prompt_ids)
+        rows = max(self._bucket_for(plen), min(plen + request.max_new_tokens, self.ecfg.max_seq))
+        return -(-rows // self.ecfg.kv_page_size)
+
+    def _pages_needed(self, request: GenRequest) -> int:
+        """Pages a single-shot admission reserves: the prompt's bucket plus
+        kv_page_headroom, never past the worst case; decode growth takes
+        the rest as the context crosses page boundaries."""
+        base = -(-self._bucket_for(len(request.prompt_ids)) // self.ecfg.kv_page_size)
+        cap = max(base, self._pages_worst(request))
+        return min(base + self.ecfg.kv_page_headroom, cap)
+
+    def _pages_alloc(self, slot_idx: int, n: int,
+                     shared: Optional[list[int]] = None) -> Optional[np.ndarray]:
+        """Build a slot's page table: `shared` pages (one more reference
+        each) followed by `n` fresh ones. Returns the slot's table row
+        [MP], or None, changing nothing, when the pool cannot cover it."""
+        if self._slot_pages[slot_idx]:
+            # Overwriting a held table would leak its pages' references.
+            log.error("_pages_alloc: slot %d already held %d pages — releasing them",
+                      slot_idx, len(self._slot_pages[slot_idx]))
+            self._pages_free(slot_idx)
+        shared = list(shared or [])
+        fresh = self._pages_claim(max(0, min(n, self._max_pages - len(shared))))
+        if fresh is None:
+            return None
+        self._pages_addref(shared)
+        pages = shared + fresh
+        self._slot_pages[slot_idx] = pages
+        # Unused tail entries stay on SCRATCH, so rows past the slot's
+        # pages (block overshoot) land where nobody reads.
+        row = np.full((self._max_pages,), self._scratch_page, np.int32)
+        row[: len(pages)] = pages
+        self.h_ptable[slot_idx] = row
+        return row
+
+    def _pages_claim(self, n: int) -> Optional[list[int]]:
+        """Pop `n` fresh pages from the free list, refcount 1 each, or
+        None (no change) when the pool cannot cover them."""
+        if n < 0 or len(self._free_pages) < n:
+            return None
+        fresh = [self._free_pages.pop() for _ in range(n)]
+        for p in fresh:
+            self._page_refs[p] = 1
+        self.m_kv_pages_peak = max(self.m_kv_pages_peak,
+                                   self.ecfg.kv_pages - len(self._free_pages))
+        return fresh
+
+    def _pages_addref(self, pages: list[int]) -> None:
+        """One more reference on pages already allocated. A free page is
+        taken off the free list instead, so it cannot alias the next claim."""
+        for p in pages:
+            if self._page_refs[p] <= 0:
+                log.error("addref of free page %d — reclaiming it", p)
+                if p in self._free_pages:
+                    self._free_pages.remove(p)
+                self._page_refs[p] = 1
+                continue
+            self._page_refs[p] += 1
+
+    def _pages_release(self, pages: list[int]) -> None:
+        """Drop one reference per page; a page returns to the free list at
+        refcount 0. A double release is ignored (it would let two slots
+        claim the same page)."""
+        for p in pages:
+            if self._page_refs[p] <= 0:
+                log.error("double release of page %d ignored", p)
+                self._page_refs[p] = 0
+                continue
+            self._page_refs[p] -= 1
+            if self._page_refs[p] == 0:
+                self._free_pages.append(p)
+
+    def _pages_grow_slot(self, slot_idx: int, need_pages: int) -> bool:
+        """Extend a live slot's table to `need_pages` pages: a host array
+        write, shipped with the next dispatch."""
+        need_pages = min(need_pages, self._max_pages)
+        have = len(self._slot_pages[slot_idx])
+        grow = need_pages - have
+        if grow <= 0:
+            return True
+        fresh = self._pages_claim(grow)
+        if fresh is None:
+            return False
+        self._slot_pages[slot_idx].extend(fresh)
+        self.h_ptable[slot_idx, have:need_pages] = fresh
+        self.m_kv_pages_grown += grow
+        return True
+
+    def _grow_for_decode(self, steps: int) -> bool:
+        """Grow every active slot's table over the rows the next `steps`
+        decode steps write that a later block may read (rows of tokens past
+        a slot's budget are overshoot and may land in SCRATCH). Returns
+        False, and blocks admissions, when some slot cannot grow."""
+        if not self._paged:
+            return True
+        page = self.ecfg.kv_page_size
+        for i, s in enumerate(self.slots):
+            if s is None or not self.h_active[i]:
+                continue
+            rows = min(s.sched_rows + min(steps, max(self._remaining(s), 0)), self.ecfg.max_seq)
+            if not self._pages_grow_slot(i, -(-rows // page)):
+                self._growth_blocked = True
+                return False
+        self._growth_blocked = False
+        return True
+
+    def _pages_free(self, slot_idx: int) -> None:
+        self._pages_release(self._slot_pages[slot_idx])
+        self._slot_pages[slot_idx] = []
+        # The slot stays in every decode block's scatter until re-admitted:
+        # its stale table must not alias pages handed to the next request.
+        self.h_ptable[slot_idx] = self._scratch_page
+
+    # ------------------------------------------------------------------ #
+    # Chunked prefill (paged pool): a long prompt admits chunk by chunk,
+    # one chunk between two decode blocks. Mid chunks write K/V only; the
+    # final chunk also samples the first token and installs the slot.
+    # ------------------------------------------------------------------ #
+
+    def _chunkable(self, request: GenRequest) -> bool:
+        C = self.ecfg.prefill_chunk
+        return bool(C) and self._paged and len(request.prompt_ids) > C
+
+    def _chunk_admit_rows(self, total_len: int) -> int:
+        """Rows a chunked admission writes: whole mid chunks of C tokens
+        and the final tail's bucket (padding included)."""
+        C = self.ecfg.prefill_chunk
+        mids, rem = 0, total_len
+        while rem > C:
+            rem -= C
+            mids += 1
+        return mids * C + self._bucket_for(max(rem, 1))
+
+    def _chunk_start(self, request: GenRequest, handle: RequestHandle) -> bool:
+        """Reserve a slot and the pages the chunks write (plus headroom) and
+        queue the chunked admission. Returns False, with the request back
+        at the queue head, when the pool cannot cover it."""
+        ids = request.prompt_ids
+        slot_idx = next(i for i, s in enumerate(self.slots) if s is None)
+        page = self.ecfg.kv_page_size
+        rows = self._chunk_admit_rows(len(ids))
+        base = -(-rows // page)
+        worst = max(rows, min(len(ids) + request.max_new_tokens, self.ecfg.max_seq))
+        cap = max(base, -(-worst // page))
+        table_row = self._pages_alloc(slot_idx, min(base + self.ecfg.kv_page_headroom, cap))
+        if table_row is None:
+            with self._pending_lock:
+                self._pending.appendleft((request, handle))
+            return False
+        # The slot stays on SCRATCH until its final chunk: decode blocks
+        # write every slot each step, and must not reach pages this
+        # prefill owns. The chunk dispatches carry the real row.
+        self.h_ptable[slot_idx] = self._scratch_page
+        self.slots[slot_idx] = _Slot(request=request, handle=handle, prompt_len=len(ids),
+                                     sched_rows=len(ids), t_submit=handle.t_submit)
+        self._chunkings.append({"request": request, "handle": handle, "slot": slot_idx,
+                                "ids": ids, "offset": 0, "t0": time.monotonic(),
+                                "table_row": table_row})
+        return True
+
+    def _advance_chunked(self) -> bool:
+        """Run the next chunk of the oldest chunked admission. Returns
+        whether anything happened."""
+        if not self._chunkings:
+            return False
+        st = self._chunkings[0]
+        slot_idx = st["slot"]
+        if st["handle"].cancelled.is_set():
+            st["handle"]._q.put(TokenEvent(kind="done", finish_reason="stop"))
+            self._release(slot_idx)
+            return True
+        if self.h_active.any():
+            self.m_chunks_interleaved += 1
+        C = self.ecfg.prefill_chunk
+        try:
+            if len(st["ids"]) - st["offset"] > C:
+                self._dispatch_chunk(st, C)
+                st["offset"] += C
+            else:
+                self._chunkings.pop(0)
+                self._dispatch_chunk_final(st)
+        except Exception as e:  # noqa: BLE001 — fail the request, keep serving
+            log.exception("chunked prefill dispatch failed (slot %d)", slot_idx)
+            st["handle"]._q.put(TokenEvent(kind="error", error=f"{type(e).__name__}: {e}"))
+            self._release(slot_idx)
+        return True
+
+    def _dispatch_chunk(self, st: dict, n: int, with_logits: bool = False):
+        """Prefill `n` tokens of a chunked admission at its offset against
+        the rows already in its pages, writing theirs (the final tail is
+        bucketed). Returns the last token's logits [1, V], or None."""
+        offset = st["offset"]
+        seg = st["ids"][offset: offset + n]
+        toks = np.zeros((1, self._bucket_for(len(seg)) if with_logits else n), np.int64)
+        toks[0, : len(seg)] = seg
+        dev = self.device
+        logits, _ = llama.prefill_chunk_paged(
+            self.cfg, self.params, torch.from_numpy(toks).to(dev),
+            torch.tensor([len(seg)], device=dev), torch.tensor([offset], device=dev),
+            self.cache, torch.from_numpy(st["table_row"][None]).to(dev),
+            with_logits=with_logits)
+        self.m_prefill_chunks += 1
+        return logits
+
+    def _dispatch_chunk_final(self, st: dict) -> None:
+        """The last <= prefill_chunk tokens: prefill, first-token sample and
+        slot activation."""
+        request, handle, s = st["request"], st["handle"], st["slot"]
+        ids = st["ids"]
+        logits = self._dispatch_chunk(st, len(ids) - st["offset"], with_logits=True)
+        samp, bias_rows, gens = self._request_controls([(request, handle)])
+        dev = self.device
+        full = torch.as_tensor(np.asarray([ids], np.int64)).to(dev)
+        toks = self._install_first(logits, full, torch.tensor([len(ids)], device=dev),
+                                   samp, bias_rows, gens, [s])
+        tok = int(toks.tolist()[0])  # the admission's one device-to-host copy
+        # Publish the real table: blocks from here on read and write it.
+        self.h_ptable[s] = st["table_row"]
+        self.m_chunked_admits += 1
+        self._claim_slot(s, request, handle, gens[0], st["t0"])
+        self._post_first(s, tok)
+
+    # ------------------------------------------------------------------ #
+    # Preemption by recompute
+    # ------------------------------------------------------------------ #
+
+    def _preempt_youngest(self) -> None:
+        """Free the youngest live slot's pages so growth-blocked older slots
+        can go on. The victim's request is requeued at the head as prompt +
+        generated, under the same handle and with no terminal event; its
+        re-admission recomputes the KV and continues the stream
+        (_apply_resume). Recompute is the only policy: the host swap tier
+        is not ported."""
+        live = [i for i, s in enumerate(self.slots) if s is not None and self.h_active[i]]
+        if not live:
+            return
+        victim = max(live, key=lambda i: (self.slots[i].t_submit, i))
+        slot = self.slots[victim]
+        r = slot.request
+        rec = {
+            "orig_prompt_len": slot.prompt_len,
+            "generated": list(slot.generated),
+            "emitted_len": slot.emitted_len,
+            "t_submit": slot.t_submit,
+            "t_admit": slot.t_admit,
+            "t_first": slot.t_first,
+            "gen_state": self.generators[victim].get_state(),
+        }
+        resume_req = dataclasses.replace(
+            r, prompt_ids=list(r.prompt_ids) + list(slot.generated), resume=rec)
+        self.m_kv_preemptions += 1
+        self._release(victim)
+        with self._pending_lock:
+            self._pending.appendleft((resume_req, slot.handle))
+        # _growth_blocked stays set: the freed pages go to the starved
+        # slots first, not straight back to the victim at the queue head.
+        log.info("preempted slot %d (recompute, %d rows)", victim,
+                 slot.prompt_len + len(slot.generated))
+
+    def _apply_resume(self, slot_idx: int) -> None:
+        """Turn a freshly admitted slot that is a preempted request back
+        into it: its original prompt, its generated tokens and streamed
+        text (the next event continues the same handle) and its timings.
+        The admission has just sampled the next token."""
+        slot = self.slots[slot_idx]
+        rec = slot.request.resume
+        if rec is None:
+            return
+        n = rec["orig_prompt_len"]
+        slot.request = dataclasses.replace(
+            slot.request, prompt_ids=list(slot.request.prompt_ids[:n]), resume=None)
+        slot.prompt_len = n
+        slot.generated = list(rec["generated"])
+        slot.emitted_len = rec["emitted_len"]
+        slot.scheduled = len(slot.generated) + 1
+        slot.t_submit, slot.t_admit, slot.t_first = rec["t_submit"], rec["t_admit"], rec["t_first"]
 
     # ------------------------------------------------------------------ #
     # Token bookkeeping / streaming
@@ -699,5 +1173,11 @@ class Engine:
         self._release(slot_idx)
 
     def _release(self, slot_idx: int) -> None:
+        """Give a slot back: its chunked admission (if any) and its pages go
+        with it."""
         self.slots[slot_idx] = None
         self.h_active[slot_idx] = False
+        if self._chunkings:
+            self._chunkings = [st for st in self._chunkings if st["slot"] != slot_idx]
+        if self._paged:
+            self._pages_free(slot_idx)

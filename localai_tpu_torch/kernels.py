@@ -34,6 +34,10 @@ LIBRARIES = {
         "flash_prefill.cu",
         {"flash_prefill": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P], _I)},
     ),
+    "paged_attention": (
+        "paged_attention.cu",
+        {"paged_attention": ([_P] * 9 + [_I] * 9 + [_F, _P], _I)},
+    ),
 }
 
 _lock = threading.Lock()

@@ -5,21 +5,28 @@
   axis, matmul weights W [in, out]) — the JAX package's tree, so weights
   move between the two packages without reshaping (engine/weights.py).
   The JAX layer scan becomes a Python loop over the stack.
-- Entry points: `prefill` (causal attention over a bucketed prompt) and
+- Entry points: `prefill` (causal attention over a bucketed prompt),
   `decode_step_windowed` (one token per slot inside an N-step decode block
   whose rows ride a block-local KV window; the cache is written once per
-  block by `write_block_to_cache`).
+  block) and `prefill_chunk_paged` (one chunk of a long prompt, written
+  straight into the slot's pages).
+- Two cache layouts: a dense slot cache [L, B, S, K, Hd]
+  (`write_block_to_cache`, `write_prefill_to_cache`) and a paged pool
+  [L, P, page, K, Hd] shared by every slot through per-slot page tables
+  (`paged_cache_zeros`, `write_block_to_pool`, `write_chunk_to_pool`,
+  `write_prefill_to_pool`); only the attention call differs between them.
 - GQA, RoPE (every scaling family), RMSNorm, SwiGLU / GeGLU, optional qkv
   bias (Qwen2) and the gemma flags (softcaps, sandwich norms, q/k norms,
   sliding windows) chosen from ArchConfig.
 
 Not ported yet, and rejected with NotImplementedError: MoE and MLA layers
 (ROADMAP Queue A item 16), sequence-parallel ring attention and tp meshes
-(item 20), the paged pool (item 6), runtime LoRA (item 14), m-rope (item
-19) and sink+window decode (item 15).
+(item 20), fp8 pools with kv_scale (item 13), runtime LoRA (item 14),
+m-rope (item 19), and sink+window decode and hierarchical page tables
+(item 15).
 
-The cache and the block-local windows are updated IN PLACE (the JAX
-package returns new arrays): that saves a full copy of each per call.
+The cache, the pool and the block-local windows are updated IN PLACE (the
+JAX package returns new arrays): that saves a full copy of each per call.
 """
 
 from __future__ import annotations
@@ -32,7 +39,14 @@ import torch.nn.functional as F
 from localai_tpu_torch.device import resolve_device
 from localai_tpu_torch.models.config import ArchConfig
 from localai_tpu_torch.models.quant import matmul, unembed_matmul
-from localai_tpu_torch.ops.attention import decode_attention_windowed, prefill_attention
+from localai_tpu_torch.ops import ptable as _pt
+from localai_tpu_torch.ops.attention import (
+    _merge_partials_mq,
+    decode_attention_windowed,
+    decode_attention_windowed_paged,
+    paged_prefill_partials,
+    prefill_attention,
+)
 from localai_tpu_torch.ops.norm import rms_norm
 from localai_tpu_torch.ops.rope import (
     apply_rope,
@@ -68,7 +82,8 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 class KVCache(NamedTuple):
-    """Slot KV cache: k, v [L, B_slots, S_max, K_heads, head_dim]."""
+    """Slot KV cache: k, v [L, B_slots, S_max, K_heads, head_dim], or a
+    page pool [L, P, page, K_heads, head_dim] (`paged_cache_zeros`)."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -303,13 +318,15 @@ def decode_step_windowed(
     local_k: torch.Tensor,  # [L, B, n, K, Hd] — block-local KV window
     local_v: torch.Tensor,
     step: int,  # index within the block
+    ptable: torch.Tensor | None = None,  # [B, MP] int32: `cache` is a page pool
 ):
     """One step of a decode block with a block-local KV window.
 
     The cache is never written here: each layer's new row goes into
     local_k / local_v[:, :, step] (in place), and the engine scatters the
-    whole window into the cache once per block. Returns (logits [B, V] f32,
-    local_k, local_v)."""
+    whole window into the cache once per block. With `ptable` the cache is
+    a paged pool [L, P, page, K, Hd] and each slot reads its own pages.
+    Returns (logits [B, V] f32, local_k, local_v)."""
     check_supported(cfg)
     _check_params(params)
     B = tokens.shape[0]
@@ -324,11 +341,18 @@ def decode_step_windowed(
         q, k, v = _attn_proj_qkv(cfg, lp, x)  # q [B,H,Hd], k/v [B,K,Hd]
         q = apply_rope(q[:, None], positions[:, None], inv)[:, 0]
         k = apply_rope(k[:, None], positions[:, None], inv)[:, 0]
-        attn = decode_attention_windowed(
-            q, cache.k[li], cache.v[li], local_k[li], local_v[li], k, v,
-            positions, step, softcap=cfg.attn_softcap,
-            window=cfg.sliding_window, sliding=_layer_sliding(cfg, li),
-        )
+        if ptable is not None:
+            attn = decode_attention_windowed_paged(
+                q, cache.k[li], cache.v[li], ptable, local_k[li], local_v[li], k, v,
+                positions, step, softcap=cfg.attn_softcap,
+                window=cfg.sliding_window, sliding=_layer_sliding(cfg, li),
+            )
+        else:
+            attn = decode_attention_windowed(
+                q, cache.k[li], cache.v[li], local_k[li], local_v[li], k, v,
+                positions, step, softcap=cfg.attn_softcap,
+                window=cfg.sliding_window, sliding=_layer_sliding(cfg, li),
+            )
         h = h + _attn_out(cfg, lp, attn.reshape(B, -1))
         x = rms_norm(h, lp["mlp_norm"], cfg.rms_eps)
         h = h + _mlp_out(cfg, lp, x)
@@ -371,3 +395,144 @@ def write_prefill_to_cache(
     cache.k[:, slot, :S] = ks[:, 0].to(cache.k.dtype)
     cache.v[:, slot, :S] = vs[:, 0].to(cache.v.dtype)
     return cache
+
+
+# --------------------------------------------------------------------------- #
+# Paged KV cache (page pool + per-slot page tables — ops/attention.py paged)
+# --------------------------------------------------------------------------- #
+
+
+def paged_cache_zeros(cfg: ArchConfig, num_pages: int, page_size: int, dtype=None,
+                      device=None) -> KVCache:
+    """Page pool: k/v [L, P, page, K, Hd]. One pool serves every slot; the
+    engine assigns pages to slots and passes per-slot tables to each call,
+    so device memory scales with the pages in use, not slots × max_seq.
+    The engine sizes it kv_pages + 1: the last page is SCRATCH, where every
+    unassigned table entry points."""
+    dtype = torch_dtype(cfg.dtype) if dtype is None else dtype
+    device = resolve_device(device)
+    shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads, cfg.head_dim_)
+    return KVCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+    )
+
+
+def _scatter_rows(pool: KVCache, table, rows: torch.Tensor, ks: torch.Tensor,
+                  vs: torch.Tensor) -> KVCache:
+    """pool[:, table[b, row // page], row % page] = ks[:, b, i] for every
+    rows[b, i], in place. Rows are clamped to the table's span."""
+    page = pool.k.shape[2]
+    rows = torch.clamp(rows.to(torch.int64), max=_pt.width(table) * page - 1)
+    pid = _pt.gather_cols(table, rows // page)
+    off = rows % page
+    pool.k[:, pid, off] = ks.to(pool.k.dtype)
+    pool.v[:, pid, off] = vs.to(pool.v.dtype)
+    return pool
+
+
+def write_block_to_pool(
+    pool: KVCache,
+    table: torch.Tensor,  # [B, MP] int32
+    local_k: torch.Tensor,  # [L, B, n, K, Hd]
+    local_v: torch.Tensor,
+    start_positions: torch.Tensor,  # [B]
+) -> KVCache:
+    """Scatter a decode block's window into the page pool (once per block,
+    in place). Row (b, step) lands at (table[b, row // page], row % page).
+    Every slot is written: idle slots and rows past a slot's pages resolve
+    through SCRATCH table entries to a page nobody attends."""
+    n = local_k.shape[2]
+    rows = start_positions.to(torch.int64)[:, None] + torch.arange(n, device=local_k.device)
+    return _scatter_rows(pool, table, rows, local_k, local_v)
+
+
+def write_chunk_to_pool(
+    pool: KVCache,
+    table: torch.Tensor,  # [B, MP] int32
+    new_k: torch.Tensor,  # [L, B, T, K, Hd]
+    new_v: torch.Tensor,
+    positions: torch.Tensor,  # [B, T] row indices
+) -> KVCache:
+    """Scatter a chunk's rows into the page pool, in place."""
+    return _scatter_rows(pool, table, positions, new_k, new_v)
+
+
+def write_prefill_to_pool(
+    pool: KVCache,
+    table_row: torch.Tensor,  # [MP] int32: the destination slot's pages
+    ks: torch.Tensor,  # [L, B_new, Sb, K, Hd] from prefill
+    vs: torch.Tensor,
+    j: int,  # batch row within ks / vs
+) -> KVCache:
+    """Copy one prefilled request's bucket of rows into its pages, in
+    place. The prompt starts at row 0; bucket rows past the slot's pages
+    land in SCRATCH."""
+    Sb = ks.shape[2]
+    rows = torch.arange(Sb, device=ks.device)[None, :]
+    return _scatter_rows(pool, _pt.batch_row(table_row), rows, ks[:, j:j + 1], vs[:, j:j + 1])
+
+
+def prefill_chunk_paged(
+    cfg: ArchConfig,
+    params: Params,
+    tokens: torch.Tensor,  # [B, T] chunk tokens, right-padded
+    lengths: torch.Tensor,  # [B] valid chunk lengths
+    offsets: torch.Tensor,  # [B] rows already resident (the chunk starts here)
+    pool: KVCache,
+    table: torch.Tensor,  # [B, MP] int32 page tables (prefix + destination pages)
+    with_logits: bool = True,
+):
+    """One chunk of a chunked prefill, written straight into the pages.
+
+    Chunk token t attends the slot's rows [0, offsets[b]) through the paged
+    partials (the ragged kernel on the card, one launch per layer) plus the
+    in-chunk causal window, merged in plain PyTorch; the chunk's K/V rows
+    then land in the slot's pages at rows [offsets, offsets + T), in place.
+    Padding rows (t >= lengths[b]) write rows past the prompt inside the
+    slot's own pages; decode overwrites each before any query reads it.
+    Returns (last_logits [B, V] f32, or None when with_logits is False, and
+    the pool)."""
+    check_supported(cfg)
+    _check_params(params)
+    B, T = tokens.shape
+    dev = tokens.device
+    inv_freq = rope_frequencies(cfg, dev)
+    inv_local = rope_frequencies_local(cfg, dev)
+    offsets = offsets.to(device=dev, dtype=torch.int64)
+    lengths = lengths.to(device=dev, dtype=torch.int64)
+    tpos = torch.arange(T, device=dev)
+    positions = offsets[:, None] + tpos[None, :]  # [B, T] global rows
+    length_mask = tpos[None, :] < lengths[:, None]
+    causal = tpos[None, :] <= tpos[:, None]  # [T, T]
+    win_dist = tpos[:, None] - tpos[None, :]
+    h = _embed(cfg, params, tokens)  # [B, T, D]
+    new_k, new_v = [], []
+    for li in range(cfg.num_layers):
+        lp = _layer(params, li)
+        sliding = _layer_sliding(cfg, li)
+        x = rms_norm(h, lp["attn_norm"], cfg.rms_eps)
+        inv = _layer_inv_freq(cfg, inv_freq, inv_local, li)
+        q, k, v = _attn_proj_qkv(cfg, lp, x)  # q [B,T,H,Hd], k/v [B,T,K,Hd]
+        q = apply_rope(q, positions, inv)
+        k = apply_rope(k, positions, inv)
+        wmask = causal[None] & length_mask[:, None, :]  # [B, T, T]
+        if cfg.sliding_window and sliding:
+            wmask = wmask & (win_dist[None] < cfg.sliding_window)
+        acc, m, l = paged_prefill_partials(
+            q, pool.k[li], pool.v[li], table, offsets,
+            softcap=cfg.attn_softcap, window=cfg.sliding_window, sliding=sliding,
+            q_pos=positions,
+        )
+        attn = _merge_partials_mq(q, acc, m, l, k, v, wmask, softcap=cfg.attn_softcap)
+        h = h + _attn_out(cfg, lp, attn.reshape(B, T, -1).to(h.dtype))
+        x = rms_norm(h, lp["mlp_norm"], cfg.rms_eps)
+        h = h + _mlp_out(cfg, lp, x)
+        new_k.append(k)
+        new_v.append(v)
+    write_chunk_to_pool(pool, table, torch.stack(new_k), torch.stack(new_v), positions)
+    if not with_logits:
+        return None, pool
+    h = rms_norm(h, params["final_norm"], cfg.rms_eps)
+    last = h[torch.arange(B, device=dev), torch.clamp(lengths - 1, min=0)]  # [B, D]
+    return _unembed(cfg, params, last), pool

@@ -1,0 +1,269 @@
+"""Ragged paged attention: online-softmax partials over each slot's own
+pages (localai_tpu/ops/paged_flash.py).
+
+The wrapper `paged_partials_rows` launches the hand-written CUDA kernel
+`csrc/paged_attention.cu` for tensors on the card; it replaces the TPU
+kernel localai_tpu/ops/paged_flash.py::_ragged_paged_kernel. For tensors on
+the CPU it runs `paged_partials_plain`, the same online softmax walked page
+by page in plain PyTorch, which is also what the kernel is held against on
+the card. There is no other route: a CUDA tensor the kernel does not take
+(dtype, head dim, layout), a failed build or a failed launch raises.
+
+Shapes, as in the JAX package:
+- q rows  [B, K, QR, D] f32 with 1/sqrt(D) applied; QR = G query rows per
+  kv head for decode, T·G for a multi-query chunk (row r = t·G + g);
+- pools   [P, page, K, D] (one layer's slice of the page pool);
+- table   [B, MP] int32 page ids (flat; ops/ptable);
+- limits  [B] int32: rows g >= limits[b] are masked, and the walk covers
+  ceil(limits[b]/page) pages clamped to MP;
+- qpos    [B, QR] int32 query positions (sliding-window distance).
+The partials come back as acc [B, K, QR, D], m and l [B, K, QR], f32; the
+merge with the block-local window stays in plain PyTorch
+(ops/attention._merge_partials*), one numeric tail for every route.
+
+Not ported yet: fp8 pools with `kv_scale` (ROADMAP Queue A item 13),
+hierarchical tables and the sink/swin cold-middle skip (item 15).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from localai_tpu_torch import kernels
+from localai_tpu_torch.ops import ptable as _pt
+
+NEG_INF = -1e30
+PAGED_HEAD_DIMS = (64, 128)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reject_unported(kv_scale=None, sink: int = 0, swin: int = 0, mesh=None) -> None:
+    """Raise for the paged-attention features the port does not serve."""
+    if kv_scale is not None:
+        raise NotImplementedError(
+            "fp8 paged pools with kv_scale are not ported yet (ROADMAP Queue A item 13)")
+    if sink or swin:
+        raise NotImplementedError(
+            "sink+window paged attention is not ported yet (ROADMAP Queue A item 15)")
+    if mesh is not None:
+        raise NotImplementedError(
+            "tensor-parallel paged attention is not ported yet (ROADMAP Queue A item 20)")
+
+
+def _window_of(window: int, sliding) -> int:
+    """The sliding window a layer applies: 0 for a global layer."""
+    return int(window) if (window and sliding) else 0
+
+
+def paged_partials_plain(
+    qr: torch.Tensor,  # [B, K, QR, D] f32, scale applied
+    qpos: torch.Tensor,  # [B, QR] int
+    k_pool: torch.Tensor,  # [P, page, K, D]
+    v_pool: torch.Tensor,
+    table: torch.Tensor,  # [B, MP] int
+    limits: torch.Tensor,  # [B] int
+    softcap: float = 0.0,
+    window: int = 0,  # the layer's sliding window, 0 for none
+):
+    """Plain PyTorch version of the kernel: the online softmax walked one
+    table column (page) at a time for every slot, rows past each slot's
+    limit masked. Returns (acc [B, K, QR, D], m [B, K, QR], l [B, K, QR])."""
+    table = _pt._flat(table)
+    B, K, QR, D = qr.shape
+    page = k_pool.shape[1]
+    MP = table.shape[1]
+    dev = qr.device
+    qf = qr.float()
+    lim = limits.to(device=dev, dtype=torch.int64)
+    qp = qpos.to(device=dev, dtype=torch.int64)
+    # The plain version may read the limits back; the kernel never does.
+    n_pages = min(-(-max(int(lim.max()), 0) // page), MP) if B else 0
+    m = torch.full((B, K, QR), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, K, QR), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, K, QR, D), dtype=torch.float32, device=dev)
+    offs = torch.arange(page, device=dev)
+    for j in range(n_pages):
+        pid = table[:, j].to(torch.int64)
+        kp = k_pool[pid].float()  # [B, page, K, D]
+        vp = v_pool[pid].float()
+        s = torch.einsum("bkrd,bskd->bkrs", qf, kp)
+        if softcap:
+            s = softcap * torch.tanh(s / softcap)  # before the mask
+        gpos = j * page + offs  # [page]
+        valid = (gpos[None, :] < lim[:, None])[:, None, None, :]  # [B, 1, 1, page]
+        if window:
+            valid = valid & ((qp[:, None, :, None] - gpos) < window)  # [B, 1, QR, page]
+        s = torch.where(valid, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(torch.clamp(m - m_new, min=-80.0))
+        p = torch.where(valid, torch.exp(s - m_new[..., None]), 0.0)  # masked after exp
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bkrs,bskd->bkrd", p, vp)
+        m = m_new
+    return acc, m, l
+
+
+def _check_cuda_args(qr, qpos, k_pool, v_pool, table, limits) -> None:
+    if qr.dim() != 4 or k_pool.dim() != 4 or v_pool.dim() != 4:
+        raise ValueError("q rows must be [B, K, QR, D] and the pools [P, page, K, D]")
+    B, K, QR, D = qr.shape
+    if k_pool.shape != v_pool.shape or k_pool.shape[2] != K or k_pool.shape[3] != D:
+        raise ValueError(f"pool shape {tuple(k_pool.shape)} does not match q rows {tuple(qr.shape)}")
+    if D not in PAGED_HEAD_DIMS:
+        raise ValueError(f"head dim {D} not supported by the kernel (needs {PAGED_HEAD_DIMS})")
+    if qr.dtype != torch.float32:
+        raise TypeError(f"q rows must be float32, got {qr.dtype}")
+    if k_pool.dtype not in _DTYPE_CODE or v_pool.dtype != k_pool.dtype:
+        raise TypeError(f"pools must share one of {list(_DTYPE_CODE)}; got "
+                        f"{k_pool.dtype}, {v_pool.dtype}")
+    for name, t, shape in (("table", table, (B, table.shape[-1])), ("limits", limits, (B,)),
+                           ("qpos", qpos, (B, QR))):
+        if t.dtype != torch.int32 or tuple(t.shape) != shape:
+            raise TypeError(f"{name} must be int32 {list(shape)}, got {t.dtype} {tuple(t.shape)}")
+    for name, t in (("q rows", qr), ("k_pool", k_pool), ("v_pool", v_pool), ("table", table),
+                    ("limits", limits), ("qpos", qpos)):
+        if t.device != qr.device:
+            raise ValueError(f"{name} is on {t.device}, q rows on {qr.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
+        if t.data_ptr() % 16:  # rows are read in 16-byte loads
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def paged_partials_rows(
+    qr: torch.Tensor,  # [B, K, QR, D] f32, scale applied
+    qpos: torch.Tensor,  # [B, QR] int32
+    k_pool: torch.Tensor,  # [P, page, K, D] bf16 | f32
+    v_pool: torch.Tensor,
+    table: torch.Tensor,  # [B, MP] int32
+    limits: torch.Tensor,  # [B] int32
+    softcap: float = 0.0,
+    window: int = 0,  # the layer's sliding window, 0 for none
+):
+    """Paged partials (acc [B, K, QR, D], m, l [B, K, QR], f32): the CUDA
+    kernel for tensors on the card, the plain version on the CPU. Reads
+    nothing back to the host on the card."""
+    if qr.device.type == "cpu":
+        return paged_partials_plain(qr, qpos, k_pool, v_pool, table, limits, softcap, window)
+    if qr.device.type != "cuda":
+        raise ValueError(f"paged_partials_rows: unsupported device {qr.device}")
+    table = _pt._flat(table)
+    _check_cuda_args(qr, qpos, k_pool, v_pool, table, limits)
+    B, K, QR, D = qr.shape
+    acc = torch.empty((B, K, QR, D), dtype=torch.float32, device=qr.device)
+    m = torch.empty((B, K, QR), dtype=torch.float32, device=qr.device)
+    l = torch.empty_like(m)
+    lib = kernels.load("paged_attention")
+    with torch.cuda.device(qr.device):  # the library launches on the current device
+        rc = lib.paged_attention(
+            qr.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
+            limits.data_ptr(), qpos.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+            B, K, QR, D, k_pool.shape[0], k_pool.shape[1], table.shape[1],
+            _DTYPE_CODE[k_pool.dtype], int(window), float(softcap),
+            torch.cuda.current_stream(qr.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"paged_attention kernel launch failed: CUDA error {rc}")
+    paged_partials_rows.launches += 1
+    return acc, m, l
+
+
+# Launches of the CUDA kernel (the plain CPU route does not count).
+paged_partials_rows.launches = 0
+
+
+def _rows_call(qr, qpos_rows, k_pool, v_pool, table, limits, softcap, window):
+    """Cast the control operands to what the kernel takes and call it."""
+    i32 = dict(device=qr.device, dtype=torch.int32)
+    return paged_partials_rows(
+        qr.contiguous(), qpos_rows.to(**i32).contiguous(), k_pool, v_pool,
+        table.to(**i32).contiguous(), limits.to(**i32).contiguous(), softcap, window)
+
+
+def paged_decode_partials(
+    q: torch.Tensor,  # [B, H, D]
+    k_pool: torch.Tensor,  # [P, page, K, D]
+    v_pool: torch.Tensor,
+    table: torch.Tensor,  # [B, MP] int32
+    limits: torch.Tensor,  # [B] int32
+    softcap: float = 0.0,
+    window: int = 0,
+    sliding=None,
+    q_pos=None,  # [B]
+    kv_scale=None,
+    sink: int = 0,
+    swin: int = 0,
+):
+    """Decode partials: (acc [B, K, G, D], m [B, K, G, 1], l [B, K, G, 1])
+    f32, the JAX package's contract."""
+    reject_unported(kv_scale, sink, swin)
+    B, H, D = q.shape
+    K = k_pool.shape[2]
+    G = H // K
+    if q_pos is None:
+        q_pos = limits
+    qr = (q.float() * (1.0 / math.sqrt(D))).reshape(B, K, G, D)
+    qpos_rows = q_pos.reshape(B, 1).expand(B, G)
+    acc, m, l = _rows_call(qr, qpos_rows, k_pool, v_pool, table, limits, softcap,
+                           _window_of(window, sliding))
+    return acc, m[..., None], l[..., None]
+
+
+def paged_decode_partials_mq(
+    q: torch.Tensor,  # [B, T, H, D]
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    table: torch.Tensor,
+    limits: torch.Tensor,
+    softcap: float = 0.0,
+    window: int = 0,
+    sliding=None,
+    q_pos=None,  # [B, T]
+    kv_scale=None,
+    sink: int = 0,
+    swin: int = 0,
+):
+    """Multi-query partials, one page walk shared by all T queries (row
+    r = t·G + g). Returns (acc [B, K, G, T, D], m [B, K, G, T, 1],
+    l [B, K, G, T, 1])."""
+    reject_unported(kv_scale, sink, swin)
+    B, T, H, D = q.shape
+    K = k_pool.shape[2]
+    G = H // K
+    if q_pos is None:
+        q_pos = limits.reshape(B, 1).expand(B, T)
+    qr = ((q.float() * (1.0 / math.sqrt(D)))
+          .reshape(B, T, K, G, D).permute(0, 2, 1, 3, 4).reshape(B, K, T * G, D))
+    qpos_rows = torch.repeat_interleave(q_pos, G, dim=1)  # [B, T*G]
+    acc, m, l = _rows_call(qr, qpos_rows, k_pool, v_pool, table, limits, softcap,
+                           _window_of(window, sliding))
+    acc = acc.reshape(B, K, T, G, D).transpose(2, 3)
+    m = m.reshape(B, K, T, G).transpose(2, 3)[..., None]
+    l = l.reshape(B, K, T, G).transpose(2, 3)[..., None]
+    return acc, m, l
+
+
+def paged_prefill_partials_mq(
+    q: torch.Tensor,  # [B, T, H, D], T = prefill-chunk tokens
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    table: torch.Tensor,
+    limits: torch.Tensor,  # [B] rows already resident (the chunk's offset)
+    softcap: float = 0.0,
+    window: int = 0,
+    sliding=None,
+    q_pos=None,  # [B, T] global positions of the chunk tokens
+    kv_scale=None,
+    sink: int = 0,
+    swin: int = 0,
+):
+    """`paged_decode_partials_mq` for a prefill chunk. The kernel takes the
+    whole chunk in one launch (query-row tiles are its grid), so the TPU
+    kernel's host-side tiling of the token axis, a VMEM bound, has no
+    counterpart here."""
+    return paged_decode_partials_mq(q, k_pool, v_pool, table, limits, softcap=softcap,
+                                    window=window, sliding=sliding, q_pos=q_pos,
+                                    kv_scale=kv_scale, sink=sink, swin=swin)

@@ -1,15 +1,17 @@
 """Where the serving path's time goes on the card.
 
     python -m localai_tpu_torch.profile_engine [--arch llama-3.2-1b]
-        [--slots 8] [--prompt 500] [--steps 16]
+        [--slots 8] [--prompt 500] [--steps 16] [--paged]
 
-Builds the engine on random bf16 weights and drives its two device paths
+Builds the engine on random bf16 weights and drives its device paths
 directly on this thread (no loop thread): one fused admission of `--slots`
 prompts of `--prompt` tokens, then one decode block of `--steps` steps over
-those slots. Prints, per path, the host wall time of an unprofiled run, the summed
-device time of its kernels under the profiler, the device busy share
-(their ratio), the device launches per step, and the kernels and host ops
-that take the most time. Needs a GPU.
+those slots. With `--paged` it then does the same on a paged KV pool
+(page 128) and adds one 512-token prefill chunk at offset 1024 (the paged
+kernel walks the 1024 resident rows). Prints, per path, the host wall time
+of an unprofiled run, the summed device time of its kernels under the
+profiler, the device busy share (their ratio), the device launches per
+step, and the kernels and host ops that take the most time. Needs a GPU.
 """
 
 from __future__ import annotations
@@ -74,6 +76,8 @@ def main(argv=None) -> None:
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--prompt", type=int, default=500)
     ap.add_argument("--steps", type=int, default=16)
+    ap.add_argument("--paged", action="store_true",
+                    help="also profile a paged decode block and a 512-token chunk")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_engine needs a CUDA device")
@@ -85,24 +89,32 @@ def main(argv=None) -> None:
 
     cfg = get_arch(args.arch)
     params = init_params(cfg, seed=0, device="cuda")
-    eng = Engine(cfg, params, ByteTokenizer(cfg.vocab_size), device="cuda",
-                 engine_cfg=EngineConfig(max_slots=args.slots, max_seq=2048,
-                                         block_sizes=(args.steps,)))
     gen = torch.Generator().manual_seed(0)
-    bucket = eng._bucket_for(args.prompt)
     slots = list(range(args.slots))
 
-    def admit():
-        group = []
-        for i in range(args.slots):
-            ids = torch.randint(0, 256, (args.prompt,), generator=gen).tolist()
-            group.append((GenRequest(prompt_ids=ids, max_new_tokens=10_000, ignore_eos=True,
-                                     temperature=0.8 if i % 2 else 0.0, top_p=0.9, seed=i),
-                          RequestHandle()))
-        for s in slots:  # the previous run's requests give their slots back
-            if eng.slots[s] is not None:
-                eng._release(s)
-        eng._dispatch_admit(group, bucket, slots)
+    def make_engine(**kw):
+        return Engine(cfg, params, ByteTokenizer(cfg.vocab_size), device="cuda",
+                      engine_cfg=EngineConfig(max_slots=args.slots, max_seq=2048,
+                                              block_sizes=(args.steps,), **kw))
+
+    def admitter(eng):
+        bucket = eng._bucket_for(args.prompt)
+
+        def admit():
+            group = []
+            for i in range(args.slots):
+                ids = torch.randint(0, 256, (args.prompt,), generator=gen).tolist()
+                group.append((GenRequest(prompt_ids=ids, max_new_tokens=10_000,
+                                         ignore_eos=True, temperature=0.8 if i % 2 else 0.0,
+                                         top_p=0.9, seed=i), RequestHandle()))
+            for s in slots:  # the previous run's requests give their slots back
+                if eng.slots[s] is not None:
+                    eng._release(s)
+            eng._dispatch_admit(group, bucket, slots)
+        return admit, bucket
+
+    eng = make_engine()
+    admit, bucket = admitter(eng)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -114,6 +126,24 @@ def main(argv=None) -> None:
                       "steps": args.steps}), flush=True)
     _profile(f"admission m={args.slots} bucket={bucket}", admit)
     _profile(f"decode block n={args.steps} slots={args.slots}", eng._run_block, args.steps)
+    if not args.paged:
+        return
+    del eng
+    # Pages for every slot's whole context.
+    peng = make_engine(kv_pages=args.slots * 16, kv_page_size=128, prefill_chunk=512)
+    padmit, _ = admitter(peng)
+    padmit()
+    _profile(f"paged decode block n={args.steps} slots={args.slots} page=128",
+             peng._run_block, args.steps)
+    peng._release(slots[-1])  # its slot and pages take the chunked admission
+    ids = torch.randint(0, 256, (1536,), generator=gen).tolist()
+    assert peng._chunk_start(GenRequest(prompt_ids=ids, max_new_tokens=16), RequestHandle())
+    st = peng._chunkings[0]
+
+    def chunk():
+        st["offset"] = 1024
+        peng._dispatch_chunk(st, 512)
+    _profile("paged prefill chunk T=512 offset=1024", chunk)
 
 
 if __name__ == "__main__":

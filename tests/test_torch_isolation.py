@@ -28,6 +28,9 @@ def _imports(path):
 def test_port_never_imports_jax_or_the_jax_package():
     files = _port_files()
     assert len(files) > 10 and (ROOT / "chip_smoke.py").exists()
+    names = {str(p.relative_to(ROOT)) for p in files}
+    assert {"localai_tpu_torch/ops/paged_flash.py", "localai_tpu_torch/ops/ptable.py",
+            "localai_tpu_torch/profile_engine.py"} <= names
     bad = [
         (str(p.relative_to(ROOT)), mod)
         for p in files
@@ -42,7 +45,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from localai_tpu_torch.engine.tokenizer import ByteTokenizer
     from localai_tpu_torch.engine.weights import load_hf_checkpoint, params_from_numpy
     from localai_tpu_torch.models import get_arch
-    from localai_tpu_torch.models.llama import KVCache, init_params
+    from localai_tpu_torch.models.llama import KVCache, init_params, paged_cache_zeros
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_arch("tiny")
@@ -50,6 +53,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     for call in (
         lambda: init_params(cfg),
         lambda: KVCache.zeros(cfg, 1, 8),
+        lambda: paged_cache_zeros(cfg, 4, 16),
         lambda: Engine(cfg, params, ByteTokenizer()),
         lambda: params_from_numpy(cfg, {}),
         lambda: load_hf_checkpoint(cfg, "/nonexistent"),
