@@ -13,7 +13,11 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    plain version, one PyTorch library call computing the same function
    (where one exists), and the least time the card could take (bound):
    B1 flash prefill at the admission shapes, B2 ragged paged attention at
-   the paged decode and chunked-prefill shapes;
+   the paged decode and chunked-prefill shapes and on fp8 pools with a
+   per-head kv_scale, B3 dequant-matmul at llama-3-8b's projection shapes
+   (flat int8, grouped int8, packed int4; bf16 and f32 x; 1, 8 and 256
+   rows) and B4 int8 unembed at its head, with the time of a bf16 matmul
+   on the dequantized weight beside them;
 4. model   — a small f32 model on the card against the same model on the
    CPU (logits, 16 greedy decode steps), dense and paged (chunked prefill
    into pages, paged decode), then full-width llama-3.2-1b in bf16 with
@@ -23,8 +27,17 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    blocks → streamed events) answers mixed requests on llama-3.2-1b;
 6. paged engine — the same model on a paged KV pool with chunked prefill
    (long prompts chunk, decode blocks run between chunks), then the small
-   f32 model's paged engine against its dense engine.
-In 5 and 6 the kernel launch counters, zeroed just before each run, show
+   f32 model's paged engine against its dense engine;
+7. quantized model — llama-3-8b at full width and depth, seeded random
+   bf16 weights quantized on the card to int8 and to int4: prefill at 256
+   rows (the kernels' route) and 1024 rows (the dequantize-then-matmul
+   route) and 16 greedy decode steps, against the same weights through the
+   dequantize-then-matmul route everywhere;
+8. quantized engines — llama-3-8b int8 on a paged bf16 pool, then int4 on
+   an fp8 (e4m3) pool with kv_scale 2, with phase 6's mix of prompts; then
+   the small f32 model's int4 + fp8 paged engine on the card against the
+   same engine on the CPU.
+In 5, 6 and 8 the kernel launch counters, zeroed just before each run, show
 that the path went through the kernels.
 
 The last lines are the kernels' JSON record, the card's `nvidia-smi` name
@@ -34,10 +47,10 @@ and power limit, and the result line
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib.util
 import json
-import os
 import shutil
 import statistics
 import subprocess
@@ -101,6 +114,17 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+@contextlib.contextmanager
+def swapped(module, name: str, fn):
+    """module.name replaced by fn for the duration (a reference route)."""
+    orig = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield orig
+    finally:
+        setattr(module, name, orig)
 
 
 # --------------------------------------------------------------------------- #
@@ -233,6 +257,7 @@ def _paged_work(qpos, limits, K, D, MP, page, elt, window) -> tuple[float, float
 def phase_paged_kernels(gen: torch.Generator) -> list[dict]:
     import numpy as np
 
+    from localai_tpu_torch.models.llama import kv_cast
     from localai_tpu_torch.ops.paged_flash import paged_partials_plain, paged_partials_rows
 
     # Both sides compute in f32 (bf16 pool rows widen exactly): the
@@ -240,13 +265,16 @@ def phase_paged_kernels(gen: torch.Generator) -> list[dict]:
     tol = 2e-4
     # (name, B, G, T, K, D, page, MP, pool dtype, limits, softcap, window):
     # llama-3.2-1b paged decode (H=32, K=8: G=4 query rows per kv head) at
-    # D 64 and 128, one 512-token prefill chunk at offset 1536, and a small
-    # f32 shape with softcap and a sliding window.
+    # D 64 and 128, one 512-token prefill chunk at offset 1536, a small f32
+    # shape with softcap and a sliding window, and the D=128 decode shape
+    # (llama-3-8b's) on fp8 pools with a per-head kv_scale.
     shapes = [
         ("decode", 8, 4, 1, 8, 64, 128, 32, torch.bfloat16, "ragged", 0.0, 0),
         ("decode", 8, 4, 1, 8, 128, 128, 32, torch.bfloat16, "ragged", 0.0, 0),
         ("prefill_chunk", 1, 4, 512, 8, 64, 128, 32, torch.bfloat16, [1536], 0.0, 0),
         ("decode_softcap_window", 3, 2, 1, 2, 64, 16, 8, torch.float32, [100, 37, 0], 30.0, 40),
+        ("decode_fp8", 8, 4, 1, 8, 128, 128, 32, torch.float8_e4m3fn, "ragged", 0.0, 0),
+        ("decode_fp8", 8, 4, 1, 8, 128, 128, 32, torch.float8_e5m2, "ragged", 0.0, 0),
     ]
     rows = []
     for name, B, G, T, K, D, page, MP, dt, limits, softcap, window in shapes:
@@ -257,13 +285,19 @@ def phase_paged_kernels(gen: torch.Generator) -> list[dict]:
             limits[0], limits[1] = MP * page, 0
         lim = torch.tensor(limits, dtype=torch.int32, device="cuda")
         qr = torch.randn(B, K, QR, D, generator=gen, device="cuda") / D**0.5
-        kp = torch.randn(P, page, K, D, generator=gen, device="cuda").to(dt)
-        vp = torch.randn(P, page, K, D, generator=gen, device="cuda").to(dt)
+        kp = torch.randn(P, page, K, D, generator=gen, device="cuda")
+        vp = torch.randn(P, page, K, D, generator=gen, device="cuda")
+        kv_scale = None
+        if dt.itemsize == 1:  # fp8: stored = value / scale, a fixed per-head scale
+            kv_scale = torch.stack([torch.linspace(0.5, 4.0, K), torch.linspace(3.0, 0.25, K)])
+            kv_scale = kv_scale.cuda()
+            kp, vp = kp / kv_scale[0][:, None], vp / kv_scale[1][:, None]
+        kp, vp = kv_cast(kp, dt), kv_cast(vp, dt)
         # A random permutation of the pool's pages (SCRATCH, the last, unused).
         table = torch.randperm(P - 1, generator=gen, device="cuda")[: B * MP]
         table = table.reshape(B, MP).to(torch.int32).contiguous()
         qpos = (lim[:, None] + torch.arange(QR, device="cuda")[None, :] // G).to(torch.int32)
-        args = (qr, qpos, kp, vp, table, lim, softcap, window)
+        args = (qr, qpos, kp, vp, table, lim, softcap, window, kv_scale)
         acc, m, l = paged_partials_rows(*args)
         torch.cuda.synchronize()
         racc, rm, rl = paged_partials_plain(*args)
@@ -276,13 +310,15 @@ def phase_paged_kernels(gen: torch.Generator) -> list[dict]:
                           and (acc[~live] == 0).all())
         ms = cuda_time_cold_ms(lambda: paged_partials_rows(*args), 20)
         plain_ms = cuda_time_cold_ms(lambda: paged_partials_plain(*args), 3)
-        elt = torch.finfo(dt).bits // 8
         flops, nbytes = _paged_work(qpos.cpu().numpy(), np.asarray(limits), K, D, MP, page,
-                                    elt, window)
+                                    dt.itemsize, window)
+        nbytes += 0 if kv_scale is None else kv_scale.numel() * 4
         t_ops, t_bytes = flops / PEAK_FLOPS[torch.float32] * 1e3, nbytes / PEAK_BYTES * 1e3
         row = dict(shape=name, B=B, H=G * K, K=K, QR=QR, D=D, page=page, MP=MP,
                    pool_dtype=str(dt).replace("torch.", ""), limits=limits, softcap=softcap,
-                   window=window, max_abs_err=o_err, m_err=m_err, l_rel_err=l_rel, tol=tol,
+                   window=window,
+                   kv_scale=None if kv_scale is None else kv_scale.tolist(),
+                   max_abs_err=o_err, m_err=m_err, l_rel_err=l_rel, tol=tol,
                    idle_exact=idle_exact,
                    ok=max(o_err, m_err, l_rel) <= tol and idle_exact
                    and bool(torch.isfinite(acc).all()),
@@ -296,6 +332,117 @@ def phase_paged_kernels(gen: torch.Generator) -> list[dict]:
                          f"l rel err {l_rel} (tol {tol}), idle exact={idle_exact}")
         rows.append(row)
     return rows
+
+
+# llama-3-8b's projections (in, out): wk / wv, wq / wo, w_gate / w_up,
+# w_down; then a small ragged shape (three int4 groups, out not a multiple
+# of the kernel's 128-column block).
+QMM_SHAPES = [(4096, 1024), (4096, 4096), (4096, 14336), (14336, 4096), (96, 80)]
+QMM_FORMS = ("int8", "grouped_int8", "int4")
+
+
+def _grouped_int8(w, group=32):
+    """Group-wise symmetric int8 (GGUF q8_0's layout), quantized here: the
+    serving path's quantizers make the flat int8 and int4 forms only."""
+    g = w.shape[0] // group
+    wg = w.float().reshape(g, group, w.shape[1])
+    s = torch.clamp(wg.abs().amax(dim=1, keepdim=True) / 127.0, min=1e-9)
+    return {"gq": torch.clamp(torch.round(wg / s), -127, 127).to(torch.int8), "gs": s}
+
+
+def _qmm_work(form, N, n_in, n_out, x_elt) -> tuple[float, float]:
+    """(FLOPs, bytes) of x [N, in] @ w: the payload, its scales (and int4
+    zero points) and x read once, the output written once."""
+    G = n_in // 32
+    wbytes = {"int8": n_in * n_out + 4 * n_out,
+              "grouped_int8": n_in * n_out + 4 * G * n_out,
+              "int4": n_in * n_out // 2 + 8 * G * n_out}[form]
+    return 2.0 * N * n_in * n_out, wbytes + x_elt * N * (n_in + n_out)
+
+
+def _bound(flops, nbytes, dtype) -> tuple[float, str]:
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_quant_kernels(gen: torch.Generator) -> tuple[list[dict], list[dict]]:
+    """B3 at every projection shape, form, x dtype and row count of the
+    serving path, and B4 at llama-3-8b's head; each against its plain
+    version, with the time of a bf16 matmul on the dequantized weight
+    (`bf16_ms`: what the quantized kernel has to beat to be worth its
+    bytes). No one PyTorch call takes these packed layouts, so there is no
+    library time."""
+    from localai_tpu_torch.models import quant
+    from localai_tpu_torch.ops.quant_matmul import qmm, qmm_plain, qunembed, qunembed_plain
+
+    # f32 x: summation order only. bf16 x: both sides round the f32 sum once
+    # to bf16, so they may differ by one bf16 step (2^-7 of the value).
+    rel_f32, rel_bf16 = 1e-4, 2.0**-7
+    b3 = []
+    for n_in, n_out in QMM_SHAPES:
+        w = torch.randn(n_in, n_out, generator=gen, device="cuda") * 0.02
+        for form in QMM_FORMS:
+            qw = {"int8": quant.quantize_tensor, "grouped_int8": _grouped_int8,
+                  "int4": quant.quantize_tensor_g4}[form](w)
+            w_bf16 = quant.dequantize_tensor(qw).to(torch.bfloat16)
+            for dt in (torch.bfloat16, torch.float32):
+                for N in (1, 8, 256):
+                    x = torch.randn(N, n_in, generator=gen, device="cuda").to(dt)
+                    out = qmm(x, qw)
+                    torch.cuda.synchronize()
+                    want = qmm_plain(x, qw)
+                    scale = qmm_plain(x.float(), qw).abs().max().item()
+                    err = (out.float() - want.float()).abs()
+                    if dt == torch.float32:
+                        ok = err.max().item() <= rel_f32 * scale
+                    else:
+                        ok = bool((err <= rel_bf16 * want.float().abs() + rel_f32 * scale).all())
+                    ok = ok and bool(torch.isfinite(out).all())
+                    xb = x.to(torch.bfloat16)
+                    ms = cuda_time_cold_ms(lambda: qmm(x, qw), 20)
+                    plain_ms = cuda_time_cold_ms(lambda: qmm_plain(x, qw), 3)
+                    bf16_ms = cuda_time_cold_ms(lambda: torch.matmul(xb, w_bf16), 20)
+                    bound_ms, bound_by = _bound(*_qmm_work(form, N, n_in, n_out, dt.itemsize),
+                                                dt)
+                    row = dict(shape=[N, n_in, n_out], form=form,
+                               dtype=str(dt).replace("torch.", ""),
+                               max_abs_err=err.max().item(), out_max=scale, ok=ok, ms=ms,
+                               plain_ms=plain_ms, bf16_ms=bf16_ms, bound_ms=bound_ms,
+                               bound_by=bound_by)
+                    log(f"[kernel quant_matmul] {json.dumps(row)}")
+                    check(ok, f"quant_matmul disagrees with its plain version at {row}")
+                    b3.append(row)
+            del qw, w_bf16
+    b4 = []
+    V, D = 128256, 4096
+    w = torch.randn(V, D, generator=gen, device="cuda") * 0.02
+    s = torch.clamp(w.abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-9)
+    head = {"q": torch.clamp(torch.round(w / s), -127, 127).to(torch.int8), "s": s}
+    head_bf16 = (head["q"].float() * s).to(torch.bfloat16)
+    del w
+    for dt in (torch.bfloat16, torch.float32):
+        for N in (1, 8, 256):
+            h = torch.randn(N, D, generator=gen, device="cuda").to(dt)
+            out = qunembed(h, head)
+            torch.cuda.synchronize()
+            want = qunembed_plain(h, head)
+            scale = want.abs().max().item()
+            err = (out - want).abs().max().item()
+            ok = err <= rel_f32 * scale and bool(torch.isfinite(out).all())  # f32 both sides
+            hb = h.to(torch.bfloat16)
+            ms = cuda_time_cold_ms(lambda: qunembed(h, head), 20)
+            plain_ms = cuda_time_cold_ms(lambda: qunembed_plain(h, head), 3)
+            bf16_ms = cuda_time_cold_ms(
+                lambda: torch.mm(hb, head_bf16.t(), out_dtype=torch.float32), 20)
+            bound_ms, bound_by = _bound(2.0 * N * V * D,
+                                        V * D + 4 * V + dt.itemsize * N * D + 4 * N * V, dt)
+            row = dict(shape=[N, V, D], dtype=str(dt).replace("torch.", ""), max_abs_err=err,
+                       out_max=scale, ok=ok, ms=ms, plain_ms=plain_ms, bf16_ms=bf16_ms,
+                       bound_ms=bound_ms, bound_by=bound_by)
+            log(f"[kernel quant_unembed] {json.dumps(row)}")
+            check(ok, f"quant_unembed disagrees with its plain version at {row}")
+            b4.append(row)
+    return b3, b4
 
 
 # --------------------------------------------------------------------------- #
@@ -409,9 +556,13 @@ def phase_model(gen: torch.Generator) -> dict:
     toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")
     lens = torch.tensor([S, 300], device="cuda")
     logits, ks, vs = llama.prefill(cfg, params, toks, lens)
-    os.environ["LOCALAI_FLASH"] = "0"
-    ref, rks, rvs = llama.prefill(cfg, params, toks, lens)
-    del os.environ["LOCALAI_FLASH"]
+    from localai_tpu_torch.ops import attention
+
+    def dense(q, k, v, length_mask, lengths=None, **kw):
+        return attention.causal_prefill_attention(q, k, v, length_mask, **kw)
+
+    with swapped(llama, "prefill_attention", dense):  # the same call through dense math
+        ref, rks, rvs = llama.prefill(cfg, params, toks, lens)
     err = (logits - ref).abs().max().item()
     scale = ref.abs().max().item()
     top1 = (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
@@ -426,7 +577,116 @@ def phase_model(gen: torch.Generator) -> dict:
     # bf16 activations through 16 layers: the two attentions round at
     # different places; allow 5% of the largest logit.
     check(err <= 0.05 * scale, f"llama-3.2-1b prefill logits differ by {err} (max {scale})")
-    return {"params": params, "cfg": cfg, "small": small, "p_small": p_gpu}
+    return {"params": params, "cfg": cfg, "small": small, "p_small": p_gpu, "p_small_cpu": p_cpu}
+
+
+# --------------------------------------------------------------------------- #
+# 7. quantized model, 8. quantized engines
+# --------------------------------------------------------------------------- #
+
+def _dequant_route():
+    """Every quantized product through the dequantize-then-matmul route."""
+    from localai_tpu_torch.ops import quant_matmul
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(swapped(quant_matmul, "dispatch_matmul", lambda x, w: None))
+    stack.enter_context(swapped(quant_matmul, "dispatch_unembed", lambda h, w: None))
+    return stack
+
+
+def _f32_activations(qp: dict) -> dict:
+    """A quantized tree whose float leaves (embedding, norms) are f32, so
+    the forward runs in f32 on the same quantized weights."""
+    out = {k: (v.float() if isinstance(v, torch.Tensor) else v) for k, v in qp.items()}
+    out["layers"] = {k: (v if isinstance(v, dict) else v.float()) for k, v in qp["layers"].items()}
+    return out
+
+
+def phase_quant_model(gen: torch.Generator) -> dict:
+    """llama-3-8b with seeded random bf16 weights, quantized on the card to
+    int8 and int4: prefill and greedy decode through the kernels against the
+    same quantized weights through the dequantize-then-matmul route, in
+    bf16 and then with f32 activations."""
+    from localai_tpu_torch.models import get_arch, llama, quant
+
+    cfg = get_arch("llama-3-8b")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    t0 = time.monotonic()
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[model llama-3-8b] random bf16 weights in {time.monotonic() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    out = {"cfg": cfg}
+    prompts = {}
+    for B, S in ((2, 128), (2, 512)):  # 256 rows: the kernels; 1024: the dequant route
+        toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")
+        prompts[S] = (toks, torch.tensor([S, S - 37], device="cuda"))
+    bf16_top1 = {S: llama.prefill(cfg, params, *prompts[S])[0].argmax(-1) for S in prompts}
+    for mode in ("int8", "int4"):
+        t0 = time.monotonic()
+        before = torch.cuda.memory_allocated()
+        qp = quant.quantize_params(cfg, params, mode)
+        torch.cuda.synchronize()
+        qbytes = sum(t.numel() * t.element_size()
+                     for w in [*qp["layers"].values(), qp["lm_head"]] if isinstance(w, dict)
+                     for t in w.values())
+        log(f"[model llama-3-8b {mode}] quantized on the card in {time.monotonic() - t0:.1f}s: "
+            f"matmul weights + head {qbytes / 2**30:.2f} GiB, "
+            f"{(torch.cuda.memory_allocated() - before) / 2**30:.2f} GiB more allocated, "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB in all")
+        for S, (toks, lens) in prompts.items():
+            launches = quant.matmul.dequant_calls
+            logits, ks, vs = llama.prefill(cfg, qp, toks, lens)
+            routed = quant.matmul.dequant_calls - launches
+            with _dequant_route():
+                ref, rks, rvs = llama.prefill(cfg, qp, toks, lens)
+            check(bool(torch.isfinite(logits).all()) and logits.shape == (2, cfg.vocab_size),
+                  f"llama-3-8b {mode} prefill logits not finite / wrong shape")
+            err = (logits - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            ids = _greedy_decode(cfg, qp, logits, ks, vs, lens, 16, "cuda")
+            with _dequant_route():
+                ref_ids = _greedy_decode(cfg, qp, ref, rks, rvs, lens, 16, "cuda")
+            agree = sum(a == b for x, y in zip(ids, ref_ids) for a, b in zip(x, y)) / 32
+            top1_bf16 = (logits.argmax(-1) == bf16_top1[S]).float().mean().item()
+            row = dict(mode=mode, B=2, S=S, rows=2 * S, dequant_calls_in_prefill=routed,
+                       max_abs_err=err, max_abs_logit=scale,
+                       mean_abs_err=(logits - ref).abs().mean().item(),
+                       top1_agree=(logits.argmax(-1) == ref.argmax(-1)).float().mean().item(),
+                       greedy_agreement=agree, top1_vs_bf16=top1_bf16,
+                       ids_row0=[x[0] for x in ids])
+            log(f"[model llama-3-8b {mode}] kernels vs dequant route: {json.dumps(row)}")
+            # Same quantized weights; the routes round bf16 activations at
+            # other places (the kernels once per product, the dequant route
+            # after the product and again after its bf16-rounded scale), 7
+            # products per layer through 32 layers of random weights. A
+            # wrong kernel errs by the logits' own size: 25% of the largest.
+            check(err <= 0.25 * scale, f"llama-3-8b {mode} S={S}: logits differ by {err} "
+                                       f"(max {scale})")
+            check(routed == (0 if 2 * S <= 256 else 7 * cfg.num_layers),
+                  f"llama-3-8b {mode} S={S}: {routed} dequant-route products")
+            out.setdefault("rows", []).append(row)
+            del ks, vs, rks, rvs
+        # The same weights with f32 activations: the two routes then differ
+        # by f32 rounding only, through all 32 layers.
+        toks, lens = prompts[128]
+        q32 = _f32_activations(qp)
+        logits = llama.prefill(cfg32, q32, toks, lens)[0]
+        with _dequant_route():
+            ref = llama.prefill(cfg32, q32, toks, lens)[0]
+        err, scale = (logits - ref).abs().max().item(), ref.abs().max().item()
+        top1 = (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
+        log(f"[model llama-3-8b {mode} f32 activations] kernels vs dequant route, S=128: "
+            f"logits max_abs_err={err:.3e} (max |logit| {scale:.3f}), top-1 agreement={top1:.2f}")
+        check(err <= 1e-3 * scale and top1 == 1.0,
+              f"llama-3-8b {mode} f32 activations: logits differ by {err} (max {scale})")
+        out.setdefault("rows", []).append(dict(mode=mode, S=128, activations="float32",
+                                               max_abs_err=err, max_abs_logit=scale))
+        del q32, logits, ref
+        out[mode] = qp
+    del params, bf16_top1
+    torch.cuda.empty_cache()
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -438,6 +698,8 @@ def _serve(eng, plens: list[int], max_new: int = 64) -> dict:
     and stream them all; the kernel counters go to 0 just before the run
     and are read just after it."""
     from localai_tpu_torch.engine.engine import GenRequest
+    from localai_tpu_torch.models import quant
+    from localai_tpu_torch.ops import quant_matmul
     from localai_tpu_torch.ops.flash import flash_prefill_attention
     from localai_tpu_torch.ops.paged_flash import paged_partials_rows
 
@@ -459,21 +721,38 @@ def _serve(eng, plens: list[int], max_new: int = 64) -> dict:
             evs.append(ev)
         results[i] = (first, evs)
 
+    # Rows of every quantized product the kernels did not take.
+    dequant_rows = []
+    dispatch = quant_matmul.dispatch_matmul
+
+    def recording(x, w):
+        y = dispatch(x, w)
+        if y is None:
+            dequant_rows.append((quant_matmul._rows(x), x.is_floating_point()))
+        return y
+
     # The main path's run: counts go to 0 just before, are read just after.
     flash_prefill_attention.launches = 0
     paged_partials_rows.launches = 0
+    quant_matmul.qmm.launches = quant_matmul.qunembed.launches = 0
+    quant.matmul.dequant_calls = quant.unembed_matmul.dequant_calls = 0
     t0 = time.monotonic()
     threads = []
-    for i, r in enumerate(reqs):
-        h = eng.submit(r)
-        th = threading.Thread(target=consume, args=(i, h, time.monotonic()))
-        th.start()
-        threads.append(th)
-    for th in threads:
-        th.join(timeout=600)
+    with swapped(quant_matmul, "dispatch_matmul", recording):
+        for i, r in enumerate(reqs):
+            h = eng.submit(r)
+            th = threading.Thread(target=consume, args=(i, h, time.monotonic()))
+            th.start()
+            threads.append(th)
+        for th in threads:
+            th.join(timeout=600)
     wall = time.monotonic() - t0
     launches = {"flash_prefill": flash_prefill_attention.launches,
-                "paged_attention": paged_partials_rows.launches}
+                "paged_attention": paged_partials_rows.launches,
+                "quant_matmul": quant_matmul.qmm.launches,
+                "quant_unembed": quant_matmul.qunembed.launches,
+                "matmul_dequant_calls": quant.matmul.dequant_calls,
+                "unembed_dequant_calls": quant.unembed_matmul.dequant_calls}
     metrics = eng.metrics()
     eng.stop()
     check(all(not th.is_alive() for th in threads), "engine: a request never finished")
@@ -499,6 +778,9 @@ def _serve(eng, plens: list[int], max_new: int = 64) -> dict:
                 chunked_admits=int(metrics["chunked_admits"]),
                 kv_pages_peak=int(metrics["kv_pages_peak"]),
                 kv_preemptions=int(metrics["kv_preemptions"]),
+                weight_bytes=int(metrics["weight_bytes"]),
+                dequant_rows_min=min((r for r, _f in dequant_rows), default=None),
+                dequant_small_float_calls=sum(f and r <= 256 for r, f in dequant_rows),
                 launches=launches)
 
 
@@ -518,17 +800,20 @@ def phase_engine(cfg, params) -> dict:
     return out
 
 
+# 16-step blocks keep each short request decoding across several blocks, so
+# chunks run between decode blocks; prompts over 512 tokens chunk.
+PAGED_ENGINE = dict(max_slots=8, max_seq=4096, kv_pages=256, kv_page_size=128,
+                    prefill_chunk=512, block_sizes=(16, 4, 1))
+PAGED_PROMPTS = [20, 100, 300, 700, 1500, 3000, 20, 100, 300, 3500]
+
+
 def phase_paged_engine(cfg, params, small, p_small) -> dict:
     from localai_tpu_torch.engine.engine import Engine, EngineConfig, GenRequest
     from localai_tpu_torch.engine.tokenizer import ByteTokenizer
 
-    # 16-step blocks keep each short request decoding across several
-    # blocks, so chunks run between decode blocks.
-    ecfg = EngineConfig(max_slots=8, max_seq=4096, kv_pages=256, kv_page_size=128,
-                        prefill_chunk=512, block_sizes=(16, 4, 1))
-    eng = Engine(cfg, params, ByteTokenizer(cfg.vocab_size), device="cuda", engine_cfg=ecfg)
-    # Prompts over 512 tokens chunk; the short ones decode between chunks.
-    out = _serve(eng, [20, 100, 300, 700, 1500, 3000, 20, 100, 300, 3500])
+    eng = Engine(cfg, params, ByteTokenizer(cfg.vocab_size), device="cuda",
+                 engine_cfg=EngineConfig(**PAGED_ENGINE))
+    out = _serve(eng, PAGED_PROMPTS)
     L, n = cfg.num_layers, out["launches"]
     check(n["paged_attention"] == L * (out["decode_steps"] + out["prefill_chunks"])
           and n["paged_attention"] > 0,
@@ -561,20 +846,105 @@ def phase_paged_engine(cfg, params, small, p_small) -> dict:
     return out
 
 
+
+def _check_quant_launches(label: str, L: int, out: dict) -> None:
+    """The launch identities of a quantized paged engine run."""
+    n = out["launches"]
+    passes = out["admissions"] + out["prefill_chunks"]
+    check(n["quant_matmul"] > 0 and n["quant_matmul"] + n["matmul_dequant_calls"]
+          == 7 * L * (out["decode_steps"] + passes),
+          f"{label}: B3 launches {n['quant_matmul']} + dequant-route calls "
+          f"{n['matmul_dequant_calls']} != 7 x {L} layers x ({out['decode_steps']} decode "
+          f"steps + {passes} prefill passes)")
+    check(out["dequant_small_float_calls"] == 0,
+          f"{label}: {out['dequant_small_float_calls']} dequant-route calls at <= 256 rows")
+    check(n["quant_unembed"] == out["decode_steps"] + out["admissions"] + out["chunked_admits"]
+          and n["unembed_dequant_calls"] == 0,
+          f"{label}: B4 launches {n['quant_unembed']} != {out['decode_steps']} decode steps + "
+          f"{out['admissions'] + out['chunked_admits']} passes with logits")
+    check(n["paged_attention"] == L * (out["decode_steps"] + out["prefill_chunks"]),
+          f"{label}: B2 launches {n['paged_attention']} != {L} x ({out['decode_steps']} + "
+          f"{out['prefill_chunks']})")
+    check(n["flash_prefill"] == L * out["admissions"] and n["flash_prefill"] > 0,
+          f"{label}: B1 launches {n['flash_prefill']} != {L} x {out['admissions']}")
+    check(out["chunked_admits"] == 4 and out["prefill_chunks"] == 2 + 3 + 6 + 7,
+          f"{label}: chunked admissions {out['chunked_admits']}, chunks {out['prefill_chunks']}")
+
+
+def phase_quant_engines(model: dict, small, p_small, p_small_cpu) -> dict:
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig, GenRequest
+    from localai_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    cfg = model["cfg"]
+    runs = {}
+    for label, mode, kw in (("int8_engine", "int8", {}),
+                            ("int4_fp8_engine", "int4", dict(kv_cache_dtype="fp8",
+                                                             kv_scale=2.0))):
+        eng = Engine(cfg, model[mode], ByteTokenizer(cfg.vocab_size), device="cuda",
+                     engine_cfg=EngineConfig(**PAGED_ENGINE, **kw))
+        out = _serve(eng, PAGED_PROMPTS)
+        del eng
+        log(f"[engine llama-3-8b {label}] " + json.dumps(out))
+        _check_quant_launches(label, cfg.num_layers, out)
+        runs[label] = out
+    torch.cuda.empty_cache()
+
+    # The small f32 model, int4 weights on an fp8 pool with kv_scale 2:
+    # kernels on the card against plain versions on the CPU.
+    texts = {}
+    for dev, p in (("cuda", p_small), ("cpu", p_small_cpu)):
+        e = Engine(small, p, ByteTokenizer(small.vocab_size), device=dev, quantization="int4",
+                   engine_cfg=EngineConfig(max_slots=2, max_seq=256, block_sizes=(8,),
+                                           kv_pages=16, kv_page_size=64, prefill_chunk=64,
+                                           kv_cache_dtype="fp8", kv_scale=2.0))
+        try:
+            hs = [e.submit(GenRequest(prompt_ids=[(j * m) % 250 + 1 for j in range(n_)],
+                                      max_new_tokens=24, ignore_eos=True))
+                  for n_, m in ((150, 7), (3, 1), (70, 3), (200, 11))]
+            texts[dev] = [[ev.token_id for ev in h if ev.kind == "token"] for h in hs]
+        finally:
+            e.stop()
+    log(f"[engine tiny-d64 f32 int4 fp8] card greedy ids equal the CPU's: "
+        f"{texts['cuda'] == texts['cpu']}")
+    check(texts["cuda"] == texts["cpu"], "small int4 + fp8 engine: card ids differ from the CPU's")
+    return runs
+
+
+def _compact(row: dict, keys) -> dict:
+    return {k: row[k] for k in keys}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
     t_start = time.monotonic()
-    name, smi = phase_device()
-    phase_build()
+    seconds = {}
+
+    def timed(label, fn, *args):
+        t0 = time.monotonic()
+        out = fn(*args)
+        seconds[label] = round(time.monotonic() - t0, 1)
+        log(f"[phase {label}] {seconds[label]}s")
+        return out
+
+    name, smi = timed("device", phase_device)
+    timed("build", phase_build)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = phase_kernels(gen)
-    paged_rows = phase_paged_kernels(gen)
-    model = phase_model(gen)
-    dense = phase_engine(model["cfg"], model["params"])
-    paged = phase_paged_engine(model["cfg"], model["params"], model["small"], model["p_small"])
-    by_path = {k: {"dense_engine": dense["launches"][k], "paged_engine": paged["launches"][k]}
-               for k in ("flash_prefill", "paged_attention")}
+    rows = timed("flash_kernels", phase_kernels, gen)
+    paged_rows = timed("paged_kernels", phase_paged_kernels, gen)
+    b3_rows, b4_rows = timed("quant_kernels", phase_quant_kernels, gen)
+    model = timed("model", phase_model, gen)
+    dense = timed("engine", phase_engine, model["cfg"], model["params"])
+    paged = timed("paged_engine", phase_paged_engine, model["cfg"], model["params"],
+                  model["small"], model["p_small"])
+    del model["params"]
+    torch.cuda.empty_cache()
+    qmodel = timed("quant_model", phase_quant_model, gen)
+    qruns = timed("quant_engines", phase_quant_engines, qmodel, model["small"],
+                  model["p_small"], model["p_small_cpu"])
+    runs = {"dense_engine": dense, "paged_engine": paged, **qruns}
+    by_path = {k: {path: out["launches"][k] for path, out in runs.items()}
+               for k in ("flash_prefill", "paged_attention", "quant_matmul", "quant_unembed")}
     main_row = next(r for r in rows if r["shape"] == [8, 2048, 32, 8, 64])
     flash_record = {
         "name": "flash_prefill",
@@ -618,8 +988,58 @@ def main() -> None:
         "library_ms": None,  # no one PyTorch call computes partials over a page table
         "shapes": paged_rows,
     }
+    # The main shape of B3: llama-3-8b's w_gate at a decode block of 8 slots,
+    # int4 weights, bf16 x.
+    b3_main = next(r for r in b3_rows if r["shape"] == [8, 4096, 14336]
+                   and r["form"] == "int4" and r["dtype"] == "bfloat16")
+    quant_record = {
+        "name": "quant_matmul",
+        "route": "cuda",
+        "source": "localai_tpu_torch/csrc/quant_matmul.cu",
+        "replaces": "localai_tpu/ops/quant_matmul.py:109",
+        "tpu_kernel": "localai_tpu/ops/quant_matmul.py::_qmm_kernel",
+        "launches": sum(by_path["quant_matmul"].values()),
+        "launches_by_path": by_path["quant_matmul"],
+        "shape": {"N": 8, "in": 4096, "out": 14336, "form": "int4", "dtype": "bfloat16"},
+        "max_abs_err": b3_main["max_abs_err"],
+        "tol": "f32 x: 1e-4 x max|out|; bf16 x: 2^-7 x |out| + 1e-4 x max|out|",
+        "ok": all(r["ok"] for r in b3_rows),
+        "ms": b3_main["ms"],
+        "kernel_ms": b3_main["ms"],
+        "plain_ms": b3_main["plain_ms"],
+        "bound_ms": b3_main["bound_ms"],
+        "bound_by": b3_main["bound_by"],
+        "bf16_ms": b3_main["bf16_ms"],
+        "library_ms": None,  # no one PyTorch call takes the packed int8 / int4 layouts
+        # Every shape's full row is in the log above; here the times only.
+        "shapes": [_compact(r, ("shape", "form", "dtype", "ms", "bf16_ms", "bound_ms"))
+                   for r in b3_rows],
+    }
+    b4_main = next(r for r in b4_rows if r["shape"][0] == 8 and r["dtype"] == "bfloat16")
+    unembed_record = {
+        "name": "quant_unembed",
+        "route": "cuda",
+        "source": "localai_tpu_torch/csrc/quant_matmul.cu",
+        "replaces": "localai_tpu/ops/quant_matmul.py:168",
+        "tpu_kernel": "localai_tpu/ops/quant_matmul.py::_unembed_kernel",
+        "launches": sum(by_path["quant_unembed"].values()),
+        "launches_by_path": by_path["quant_unembed"],
+        "shape": {"N": 8, "V": 128256, "D": 4096, "dtype": "bfloat16"},
+        "max_abs_err": b4_main["max_abs_err"],
+        "tol": "1e-4 x max|logit| (f32 on both sides)",
+        "ok": all(r["ok"] for r in b4_rows),
+        "ms": b4_main["ms"],
+        "kernel_ms": b4_main["ms"],
+        "plain_ms": b4_main["plain_ms"],
+        "bound_ms": b4_main["bound_ms"],
+        "bound_by": b4_main["bound_by"],
+        "bf16_ms": b4_main["bf16_ms"],
+        "library_ms": None,  # no one PyTorch call takes an int8 head with its scales
+        "shapes": b4_rows,
+    }
+    log(f"[phases] {json.dumps(seconds)}")
     log(f"[done] all phases passed in {time.monotonic() - t_start:.1f}s")
-    print(json.dumps({"kernels": [flash_record, paged_record]}))
+    print(json.dumps({"kernels": [flash_record, paged_record, quant_record, unembed_record]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),

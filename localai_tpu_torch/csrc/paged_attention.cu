@@ -11,8 +11,13 @@
 //     qpos[b, r] - g >= window (the layer's sliding flag is a runtime
 //     operand: the wrapper passes window 0 for a global layer)
 //   m = max over unmasked s, l = sum exp(s - m), acc = sum exp(s - m) v_g
-// Inputs: q [B, K, QR, D] f32, pools [P, page, K, D] bf16 or f32 (one
-// layer's slice), table [B, MP] int32, limits [B] int32, qpos [B, QR] int32.
+// Inputs: q [B, K, QR, D] f32, pools [P, page, K, D] bf16, f32, fp8 e4m3
+// or fp8 e5m2 (one layer's slice), table [B, MP] int32, limits [B] int32,
+// qpos [B, QR] int32, and for fp8 pools kv_scale [2, K] f32 or null (all
+// ones): such a pool stores value / scale, and the kernel multiplies each K
+// element by kv_scale[0][kh] and each V element by kv_scale[1][kh] right
+// after widening it to f32 in registers, as the TPU kernel does on its VMEM
+// tile. bf16 and f32 pools are unscaled (the wrapper refuses a scale).
 // Outputs: acc [B, K, QR, D], m [B, K, QR], l [B, K, QR], all f32. A slot
 // with no unmasked row (limit 0: idle slots, the first prefill chunk)
 // writes m = -1e30, l = 0, acc = 0. The walk covers min(limits[b], MP*page)
@@ -31,21 +36,26 @@
 // row t0+i: it resolves the row's page through the table, reads the K row
 // straight from the pool with 16-byte loads (nothing is staged, so shared
 // memory does not grow with the page size) and scores it against the q
-// tile held in shared memory. Row max and sum reduce over the warp with
+// tile held in shared memory (bf16/f32 rows in 16-byte loads of 8 values,
+// fp8 rows in 8-byte loads of 8 values, so the row-to-lane mapping is the
+// same for every pool type). Row max and sum reduce over the warp with
 // shuffles; probabilities go through a per-warp shared buffer so every
 // lane can weight the V rows, which the warp then reads coalesced (lane i
 // holds columns i, i+32, ...). Probabilities are masked again after the
 // exponential, so a wholly masked tile adds exp(0) to nothing.
 //
 // What bounds it. Decode reads each live K/V byte once for G query rows
-// (~2 FLOPs per byte of bf16 KV per row), far below the card's ridge: it
-// is bound by bytes, and a fast version spreads one slot's walk over many
-// SMs (flash-decoding) and streams pages with cp.async/TMA. A prefill
+// (~2 FLOPs per byte of bf16 KV per row, ~4 for fp8), far below the
+// card's ridge: it is bound by bytes (an fp8 pool halves them), and a fast
+// version spreads one slot's walk over many SMs (flash-decoding) and
+// streams pages with cp.async/TMA. A prefill
 // chunk scores T*G rows against the prefix, which is bound by operations;
 // this first version does its products with scalar f32 FMAs, not tensor
 // cores. Both are later work; this is the simple, correct baseline.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -75,8 +85,31 @@ __device__ __forceinline__ void load8(const float* p, float* out) {
   out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
 }
 
+// Eight consecutive fp8 elements as f32, in one 8-byte load.
+template <__nv_fp8_interpretation_t I>
+__device__ __forceinline__ void load8_fp8(const void* p, float* out) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const __nv_fp8x2_storage_t* h = reinterpret_cast<const __nv_fp8x2_storage_t*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // the low byte is the lower-addressed element
+    const float2 f = __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(h[i], I)));
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void load8(const __nv_fp8_e4m3* p, float* out) {
+  load8_fp8<__NV_E4M3>(p, out);
+}
+
+__device__ __forceinline__ void load8(const __nv_fp8_e5m2* p, float* out) {
+  load8_fp8<__NV_E5M2>(p, out);
+}
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 x) { return static_cast<float>(x); }
+__device__ __forceinline__ float to_f32(__nv_fp8_e5m2 x) { return static_cast<float>(x); }
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -102,9 +135,9 @@ __global__ void __launch_bounds__(kThreads)
 paged_attention_kernel(const float* __restrict__ q, const T* __restrict__ k_pool,
                        const T* __restrict__ v_pool, const int* __restrict__ table,
                        const int* __restrict__ limits, const int* __restrict__ qpos,
-                       float* __restrict__ acc_out, float* __restrict__ m_out,
-                       float* __restrict__ l_out, int KH, int QR, int P, int page, int MP,
-                       int window, float softcap) {
+                       const float* __restrict__ kv_scale, float* __restrict__ acc_out,
+                       float* __restrict__ m_out, float* __restrict__ l_out, int KH, int QR,
+                       int P, int page, int MP, int window, float softcap) {
   static_assert(D % 32 == 0 && QT % 4 == 0, "tile shape");
   constexpr int NC = D / 32;  // value columns per lane
   extern __shared__ float smem[];
@@ -128,6 +161,9 @@ paged_attention_kernel(const float* __restrict__ q, const T* __restrict__ k_pool
   __syncthreads();
 
   const int n_rows = min(max(limits[b], 0), MP * page);
+  constexpr bool kFp8 = sizeof(T) == 1;  // only fp8 pools carry a scale
+  const float ksc = kFp8 && kv_scale ? kv_scale[kh] : 1.f;
+  const float vsc = kFp8 && kv_scale ? kv_scale[KH + kh] : 1.f;
   const int* trow = table + (int64_t)b * MP;
   const int64_t pool_row = (int64_t)KH * D;  // elements between pool rows
   float* pw = ps + warp * kKeys * QT;
@@ -156,6 +192,10 @@ paged_attention_kernel(const float* __restrict__ q, const T* __restrict__ k_pool
       for (int d0 = 0; d0 < D; d0 += 8) {
         float kv[8];
         load8(kr + d0, kv);
+        if (kFp8) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) kv[i] *= ksc;
+        }
 #pragma unroll
         for (int r = 0; r < QT; ++r) {
           const float4 qa = *reinterpret_cast<const float4*>(qs + r * D + d0);
@@ -199,7 +239,8 @@ paged_attention_kernel(const float* __restrict__ q, const T* __restrict__ k_pool
       const T* vr = v_pool + offj;
       float vv[NC];
 #pragma unroll
-      for (int c = 0; c < NC; ++c) vv[c] = to_f32(vr[lane + 32 * c]);
+      for (int c = 0; c < NC; ++c) vv[c] = kFp8 ? to_f32(vr[lane + 32 * c]) * vsc
+                                                : to_f32(vr[lane + 32 * c]);
       const float4* pj = reinterpret_cast<const float4*>(pw + j * QT);
 #pragma unroll
       for (int i = 0; i < QT / 4; ++i) {
@@ -251,8 +292,9 @@ paged_attention_kernel(const float* __restrict__ q, const T* __restrict__ k_pool
 
 template <typename T, int D, int QT>
 int launch(const void* q, const void* k_pool, const void* v_pool, const int* table,
-           const int* limits, const int* qpos, void* acc, void* m, void* l, int B, int KH,
-           int QR, int P, int page, int MP, int window, float softcap, cudaStream_t stream) {
+           const int* limits, const int* qpos, const float* kv_scale, void* acc, void* m,
+           void* l, int B, int KH, int QR, int P, int page, int MP, int window, float softcap,
+           cudaStream_t stream) {
   const int smem = (int)sizeof(float) * smem_floats<D, QT>();
   auto kern = paged_attention_kernel<T, D, QT>;
   // Once per kernel variant (thread-safe static init): the attribute does
@@ -263,47 +305,62 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const int* tab
   const dim3 grid((QR + QT - 1) / QT, KH, B);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), table, limits, qpos, static_cast<float*>(acc),
+      static_cast<const T*>(v_pool), table, limits, qpos, kv_scale, static_cast<float*>(acc),
       static_cast<float*>(m), static_cast<float*>(l), KH, QR, P, page, MP, window, softcap);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
 int launch_rows(const void* q, const void* k_pool, const void* v_pool, const int* table,
-                const int* limits, const int* qpos, void* acc, void* m, void* l, int B,
-                int KH, int QR, int P, int page, int MP, int window, float softcap,
-                cudaStream_t stream) {
+                const int* limits, const int* qpos, const float* kv_scale, void* acc, void* m,
+                void* l, int B, int KH, int QR, int P, int page, int MP, int window,
+                float softcap, cudaStream_t stream) {
   if (QR <= 4)
-    return launch<T, D, 4>(q, k_pool, v_pool, table, limits, qpos, acc, m, l, B, KH, QR, P,
-                           page, MP, window, softcap, stream);
-  return launch<T, D, 16>(q, k_pool, v_pool, table, limits, qpos, acc, m, l, B, KH, QR, P,
-                          page, MP, window, softcap, stream);
+    return launch<T, D, 4>(q, k_pool, v_pool, table, limits, qpos, kv_scale, acc, m, l, B, KH,
+                           QR, P, page, MP, window, softcap, stream);
+  return launch<T, D, 16>(q, k_pool, v_pool, table, limits, qpos, kv_scale, acc, m, l, B, KH,
+                          QR, P, page, MP, window, softcap, stream);
+}
+
+template <typename T>
+int launch_dim(const void* q, const void* k_pool, const void* v_pool, const int* table,
+               const int* limits, const int* qpos, const float* kv_scale, void* acc, void* m,
+               void* l, int B, int KH, int QR, int D, int P, int page, int MP, int window,
+               float softcap, cudaStream_t stream) {
+  if (D == 64)
+    return launch_rows<T, 64>(q, k_pool, v_pool, table, limits, qpos, kv_scale, acc, m, l, B,
+                              KH, QR, P, page, MP, window, softcap, stream);
+  if (D == 128)
+    return launch_rows<T, 128>(q, k_pool, v_pool, table, limits, qpos, kv_scale, acc, m, l, B,
+                               KH, QR, P, page, MP, window, softcap, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. dtype (of the pools): 0 = float32,
-// 1 = bfloat16. window: the sliding window of this layer, 0 for none.
+// 1 = bfloat16, 2 = fp8 e4m3, 3 = fp8 e5m2. kv_scale: [2, KH] f32, or null
+// for all ones; read for fp8 pools only. window: the sliding window of this layer, 0 for none.
 // softcap: 0 for none. Returns 0 or the cudaError_t of the failed launch.
 extern "C" int paged_attention(const void* q, const void* k_pool, const void* v_pool,
                                const int* table, const int* limits, const int* qpos,
-                               void* acc, void* m, void* l, int B, int KH, int QR, int D,
-                               int P, int page, int MP, int dtype, int window, float softcap,
-                               void* stream) {
+                               const float* kv_scale, void* acc, void* m, void* l, int B,
+                               int KH, int QR, int D, int P, int page, int MP, int dtype,
+                               int window, float softcap, void* stream) {
   if (B <= 0 || KH <= 0 || QR <= 0) return 0;
   if (P <= 0 || page <= 0 || MP <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && D == 64)
-    return launch_rows<__nv_bfloat16, 64>(q, k_pool, v_pool, table, limits, qpos, acc, m, l,
-                                          B, KH, QR, P, page, MP, window, softcap, st);
-  if (dtype == 1 && D == 128)
-    return launch_rows<__nv_bfloat16, 128>(q, k_pool, v_pool, table, limits, qpos, acc, m, l,
-                                           B, KH, QR, P, page, MP, window, softcap, st);
-  if (dtype == 0 && D == 64)
-    return launch_rows<float, 64>(q, k_pool, v_pool, table, limits, qpos, acc, m, l, B, KH,
-                                  QR, P, page, MP, window, softcap, st);
-  if (dtype == 0 && D == 128)
-    return launch_rows<float, 128>(q, k_pool, v_pool, table, limits, qpos, acc, m, l, B, KH,
-                                   QR, P, page, MP, window, softcap, st);
+  if (dtype == 0)
+    return launch_dim<float>(q, k_pool, v_pool, table, limits, qpos, kv_scale, acc, m, l, B,
+                             KH, QR, D, P, page, MP, window, softcap, st);
+  if (dtype == 1)
+    return launch_dim<__nv_bfloat16>(q, k_pool, v_pool, table, limits, qpos, kv_scale, acc, m,
+                                     l, B, KH, QR, D, P, page, MP, window, softcap, st);
+  if (dtype == 2)
+    return launch_dim<__nv_fp8_e4m3>(q, k_pool, v_pool, table, limits, qpos, kv_scale, acc, m,
+                                     l, B, KH, QR, D, P, page, MP, window, softcap, st);
+  if (dtype == 3)
+    return launch_dim<__nv_fp8_e5m2>(q, k_pool, v_pool, table, limits, qpos, kv_scale, acc, m,
+                                     l, B, KH, QR, D, P, page, MP, window, softcap, st);
   return (int)cudaErrorInvalidValue;
 }

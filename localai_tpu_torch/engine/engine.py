@@ -26,6 +26,12 @@ number of KV-cache slots by one loop thread ("engine-loop"):
   writes its K/V straight into the slot's pages, the slot's table is kept
   off the decode blocks (SCRATCH) until the final chunk, and the final
   chunk samples the first token and installs the slot.
+- Weights may be quantized (`Engine(..., quantization="int8"|"int4")`
+  quantizes plain params where they lie; a tree already quantized, e.g. by
+  `load_hf_checkpoint(quantize=)`, is served as it is): decode-shape
+  matmuls run the fused dequant kernels. The KV cache may be stored in fp8
+  (`kv_cache_dtype`), and a paged fp8 pool may carry a per-head scale
+  (`kv_scale`) so large K / V stay inside the format's range.
 - Streaming is UTF-8-safe incremental detokenization with stop-sequence
   hold-back; every generated token posts exactly one event, and every
   request ends with exactly one terminal event (done or error) on every
@@ -38,8 +44,7 @@ bytes whatever else shares the batch.
 Not ported yet (ROADMAP Queue A): pipelined dispatch and CUDA graphs,
 the prefix cache, the host swap tier (preemption always recomputes),
 hierarchical page tables, chunked prefill over a dense cache, grammar,
-logprobs, speculative decoding, fork / n>1, LoRA, quantization, tp,
-deadlines.
+logprobs, speculative decoding, fork / n>1, LoRA, tp, deadlines.
 """
 
 from __future__ import annotations
@@ -59,6 +64,7 @@ import torch
 from localai_tpu_torch.device import resolve_device
 from localai_tpu_torch.models import llama
 from localai_tpu_torch.models.config import ArchConfig
+from localai_tpu_torch.models.quant import is_prequantized, quantize_params
 from localai_tpu_torch.ops.sampling import (
     NEG_INF,
     SamplingParams,
@@ -131,6 +137,27 @@ class EngineConfig:
     # tokens admit in chunks interleaved with decode blocks. A power of two
     # >= min_prefill_bucket; 0 = single-shot admission.
     prefill_chunk: int = 0
+    # KV-cache storage dtype: "" = the model's; "fp8" / "fp8_e4m3" (e4m3fn)
+    # or "fp8_e5m2" halve the KV bytes of a bf16 cache.
+    kv_cache_dtype: str = ""
+    # Per-head KV scale of a paged fp8 pool: rows are stored as value /
+    # kv_scale and multiplied back by every reader, so K / V larger than
+    # e4m3's ±448 keep their values. 1.0 = unscaled storage. Needs
+    # kv_pages > 0 and an fp8 kv_cache_dtype.
+    kv_scale: float = 1.0
+
+    def cache_dtype(self, model_dtype: torch.dtype) -> torch.dtype:
+        table = {
+            "": None,
+            "fp8": torch.float8_e4m3fn,
+            "fp8_e4m3": torch.float8_e4m3fn,
+            "fp8_e5m2": torch.float8_e5m2,
+        }
+        if self.kv_cache_dtype not in table:
+            raise ValueError(f"kv_cache_dtype {self.kv_cache_dtype!r} not supported — "
+                             "use 'fp8' (e4m3) or 'fp8_e5m2'")
+        dt = table[self.kv_cache_dtype]
+        return model_dtype if dt is None else dt
 
     def buckets(self) -> list[int]:
         out, b = [], self.min_prefill_bucket
@@ -235,11 +262,11 @@ class Engine:
         tokenizer,
         engine_cfg: Optional[EngineConfig] = None,
         device=None,
+        quantization: str = "",
     ) -> None:
         llama.check_supported(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.params = params
         self.tokenizer = tokenizer
         self.ecfg = ecfg = engine_cfg or EngineConfig()
         if ecfg.max_slots < 1 or ecfg.max_seq < 2 or ecfg.min_prefill_bucket < 1:
@@ -249,9 +276,20 @@ class Engine:
         if ecfg.max_pending < 0:
             raise ValueError("max_pending must be >= 0 (0 = unbounded)")
         self._check_paged_config(ecfg)
+        if ecfg.kv_scale <= 0:
+            raise ValueError("kv_scale must be > 0")
+        if ecfg.kv_scale != 1.0 and not (ecfg.kv_pages > 0 and ecfg.kv_cache_dtype):
+            raise ValueError(
+                "kv_scale != 1.0 requires a paged pool (kv_pages > 0) with an fp8 "
+                "kv_cache_dtype — the dense cache has no scaled path")
+        model_dtype = llama.torch_dtype(cfg.dtype)
+        cache_dtype = ecfg.cache_dtype(model_dtype)
         pdev = params["embed"].device
         if pdev.type != self.device.type:
             raise ValueError(f"params live on {pdev}, engine device is {self.device}")
+        if quantization and not is_prequantized(params):
+            params = quantize_params(cfg, params, quantization)
+        self.params = params
         B, S, V = ecfg.max_slots, ecfg.max_seq, cfg.vocab_size
         dev = self.device
         # Device state, one row per slot; the cache is dense [L, B, S, K, Hd]
@@ -259,9 +297,18 @@ class Engine:
         self._paged = ecfg.kv_pages > 0
         if self._paged:
             self.cache = llama.paged_cache_zeros(cfg, ecfg.kv_pages + 1, ecfg.kv_page_size,
-                                                 device=dev)
+                                                 dtype=cache_dtype, device=dev)
         else:
-            self.cache = llama.KVCache.zeros(cfg, B, S, device=dev)
+            self.cache = llama.KVCache.zeros(cfg, B, S, dtype=cache_dtype, device=dev)
+        # Per-head (k, v) scales [2, K] of a scaled fp8 pool; None = unscaled
+        # storage. The block-local window of a scaled pool stays in the
+        # model dtype: rows are scaled and cast once, at the pool write.
+        self._kv_scales = None
+        self._local_dtype = cache_dtype
+        if ecfg.kv_scale != 1.0:
+            self._kv_scales = torch.full((2, cfg.num_kv_heads), float(ecfg.kv_scale),
+                                         dtype=torch.float32, device=dev)
+            self._local_dtype = model_dtype
         self.counts = torch.zeros((B, V), dtype=torch.int32, device=dev)
         self.bias = torch.zeros((B, V), dtype=torch.float32, device=dev)
         self.d_tokens = torch.zeros((B,), dtype=torch.int64, device=dev)
@@ -428,9 +475,18 @@ class Engine:
             "kv_pages_peak": float(self.m_kv_pages_peak),
             "kv_pages_grown": float(self.m_kv_pages_grown),
             "kv_preemptions": float(self.m_kv_preemptions),
+            "weight_bytes": float(self._weight_bytes()),
             "admit_wait_ms": float(self._admit_wait_ewma * 1000.0),
             "loop_dead": 1.0 if self._loop_dead is not None else 0.0,
         }
+
+    def _weight_bytes(self) -> int:
+        """Bytes of the parameters on the device (payloads and scales)."""
+        def size(t) -> int:
+            if isinstance(t, dict):
+                return sum(size(v) for v in t.values())
+            return t.numel() * t.element_size()
+        return size(self.params)
 
     # ------------------------------------------------------------------ #
     # Engine loop
@@ -674,7 +730,8 @@ class Engine:
             logits, ks, vs = llama.prefill(self.cfg, self.params, d_prompt, d_lens)
             for j, s in enumerate(slot_ids):
                 if table_rows is not None:
-                    llama.write_prefill_to_pool(self.cache, table_rows[j], ks, vs, j)
+                    llama.write_prefill_to_pool(self.cache, table_rows[j], ks, vs, j,
+                                                kv_scale=self._kv_scales)
                 else:
                     llama.write_prefill_to_cache(self.cache, ks[:, j:j + 1], vs[:, j:j + 1], s)
             toks = self._install_first(logits, d_prompt, d_lens, samp, bias_rows, gens, slot_ids)
@@ -759,8 +816,8 @@ class Engine:
         gens = [self.generators[i] if act[i] and hs["temperature"][i] > 0 else None
                 for i in range(B)]
         shape = (cfg.num_layers, B, n, cfg.num_kv_heads, cfg.head_dim_)
-        local_k = torch.zeros(shape, dtype=self.cache.k.dtype, device=dev)
-        local_v = torch.zeros(shape, dtype=self.cache.v.dtype, device=dev)
+        local_k = torch.zeros(shape, dtype=self._local_dtype, device=dev)
+        local_v = torch.zeros(shape, dtype=self._local_dtype, device=dev)
         tokens, positions = self.d_tokens, self.d_positions
         if self._paged:
             # Idle slots walk no pages (limit 0) and write into SCRATCH.
@@ -770,7 +827,7 @@ class Engine:
         for step in range(n):
             logits, local_k, local_v = llama.decode_step_windowed(
                 cfg, self.params, tokens, positions, read_cache, local_k, local_v, step,
-                ptable=ptable)
+                ptable=ptable, kv_scale=self._kv_scales)
             if variant == "greedy":
                 nxt = sample_greedy(logits, sp, self.counts, self.bias)
             elif variant == "simple":
@@ -784,7 +841,8 @@ class Engine:
             positions = torch.clamp(positions + 1, max=S - 1)
             tokens = nxt
         if self._paged:
-            llama.write_block_to_pool(self.cache, ptable, local_k, local_v, start_pos)
+            llama.write_block_to_pool(self.cache, ptable, local_k, local_v, start_pos,
+                                      kv_scale=self._kv_scales)
         else:
             llama.write_block_to_cache(self.cache, local_k, local_v, start_pos)
         self.d_tokens, self.d_positions = tokens, positions
@@ -1014,7 +1072,7 @@ class Engine:
             self.cfg, self.params, torch.from_numpy(toks).to(dev),
             torch.tensor([len(seg)], device=dev), torch.tensor([offset], device=dev),
             self.cache, torch.from_numpy(st["table_row"][None]).to(dev),
-            with_logits=with_logits)
+            with_logits=with_logits, kv_scale=self._kv_scales)
         self.m_prefill_chunks += 1
         return logits
 

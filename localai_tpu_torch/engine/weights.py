@@ -10,9 +10,13 @@ The safetensors format is parsed here (an 8-byte little-endian header
 length, a JSON header of dtype / shape / byte offsets, then raw bytes), so
 loading needs neither the `safetensors` package nor a network.
 
-Not ported yet: load-time quantization (ROADMAP Queue A item 13), LoRA
-merging (item 14), MoE and DeepSeek checkpoints (item 16), Phi-3's fused
-qkv / gate_up tensors (item 3).
+`load_hf_checkpoint(quantize="int8"|"int4")` quantizes the matmul weights
+on the host as it reads them (models/quant.py layout, one layer at a time),
+so the bf16 tree never exists in device memory.
+
+Not ported yet: GGUF checkpoints (ROADMAP Queue A item 13), LoRA merging
+(item 14), MoE and DeepSeek checkpoints (item 16), Phi-3's fused qkv /
+gate_up tensors (item 3).
 """
 
 from __future__ import annotations
@@ -28,6 +32,12 @@ import torch
 from localai_tpu_torch.device import resolve_device
 from localai_tpu_torch.models.config import ArchConfig
 from localai_tpu_torch.models.llama import check_supported, torch_dtype
+from localai_tpu_torch.models.quant import (
+    QUANT_LAYER_KEYS,
+    is_quantized,
+    quantize_tensor_np,
+    quantize_tensor_np_g4,
+)
 
 Params = dict[str, Any]
 
@@ -58,8 +68,10 @@ def _np_to_tensor(arr: np.ndarray) -> torch.Tensor:
 
 def params_from_numpy(cfg: ArchConfig, tree: Params, device=None) -> Params:
     """The JAX package's parameter tree (numpy arrays, or anything
-    np.asarray accepts) → the port's tensor dict on `device`, in cfg.dtype.
-    Same names and layout; used to run both packages on the same weights."""
+    np.asarray accepts) → the port's tensor dict on `device`. Same names
+    and layout; used to run both packages on the same weights. Float
+    leaves go to cfg.dtype; a quantized weight keeps its int8 / uint8
+    payload and its f32 scales."""
     check_supported(cfg)
     if "dense_layers" in tree or "router" in tree.get("layers", {}):
         raise NotImplementedError(
@@ -68,10 +80,9 @@ def params_from_numpy(cfg: ArchConfig, tree: Params, device=None) -> Params:
     dt = torch_dtype(cfg.dtype)
 
     def conv(x):
+        if is_quantized(x):
+            return {k: _np_to_tensor(np.asarray(v)).to(device) for k, v in x.items()}
         if isinstance(x, dict):
-            if "q" in x or "gq" in x or "g4" in x:
-                raise NotImplementedError(
-                    "quantized weights are not ported yet (ROADMAP Queue A item 13)")
             return {k: conv(v) for k, v in x.items()}
         return _np_to_tensor(np.asarray(x)).to(device=device, dtype=dt)
 
@@ -152,13 +163,22 @@ class _ShardReader:
         return self._open[fname].get(name)
 
 
-def load_hf_checkpoint(cfg: ArchConfig, ckpt_dir: str, device=None) -> Params:
+def load_hf_checkpoint(cfg: ArchConfig, ckpt_dir: str, device=None,
+                       quantize: str = "") -> Params:
     """Load an HF-format Llama-family checkpoint (bf16 / f16 / f32 tensors;
     llama, mistral, qwen2 and gemma layouts)
     into the stacked tensor dict on `device`, in cfg.dtype. Each stacked
     tensor is allocated on the device once and filled layer by layer, so the
-    host holds one layer's tensor at a time."""
+    host holds one layer's tensor at a time.
+
+    `quantize="int8"` / `"int4"` quantizes the matmul weights on the host
+    as they are read: int8 per-channel or int4 group-32 for the layer
+    weights, the lm_head always per-channel int8 over its D axis. Payloads
+    stay int8 / uint8 and scales f32."""
     check_supported(cfg)
+    if quantize not in ("", "none", None, "int8", "int4"):
+        raise ValueError(f"unsupported quantization mode {quantize!r}")
+    do_quant = quantize in ("int8", "int4")
     device = resolve_device(device)
     dt = torch_dtype(cfg.dtype)
     reader = _ShardReader(ckpt_dir)
@@ -172,13 +192,28 @@ def load_hf_checkpoint(cfg: ArchConfig, ckpt_dir: str, device=None) -> Params:
             t = (t.float() + 1.0).to(t.dtype)
         return t
 
-    def stack(suffix: str, transpose: bool) -> torch.Tensor:
-        first = grab(f"model.layers.0.{suffix}", transpose)
-        out = torch.empty((cfg.num_layers, *first.shape), dtype=dt, device=device)
-        out[0].copy_(first)
-        for i in range(1, cfg.num_layers):
-            out[i].copy_(grab(f"model.layers.{i}.{suffix}", transpose))
-        return out
+    def quant(t: torch.Tensor, axis: int = -2) -> dict[str, np.ndarray]:
+        arr = t.float().numpy()
+        if quantize == "int4" and axis == -2:
+            return quantize_tensor_np_g4(arr)
+        return quantize_tensor_np(arr, axis)
+
+    def stack(suffix: str, transpose: bool, can_quant: bool = False):
+        quantized = do_quant and can_quant
+
+        def layer(i: int) -> dict[str, torch.Tensor]:
+            t = grab(f"model.layers.{i}.{suffix}", transpose)
+            if quantized:  # payloads stay int8 / uint8, scales f32
+                return {k: _np_to_tensor(v) for k, v in quant(t).items()}
+            return {"w": t.to(dt)}
+
+        first = layer(0)
+        out = {k: torch.empty((cfg.num_layers, *v.shape), dtype=v.dtype, device=device)
+               for k, v in first.items()}
+        for i in range(cfg.num_layers):
+            for k, v in (first if i == 0 else layer(i)).items():
+                out[k][i].copy_(v)
+        return out if quantized else out["w"]
 
     layer_map = dict(_LAYER_MAP)
     if cfg.post_norms:
@@ -191,7 +226,7 @@ def load_hf_checkpoint(cfg: ArchConfig, ckpt_dir: str, device=None) -> Params:
     layers: Params = {}
     for our, (suffix, transpose) in layer_map.items():
         if f"model.layers.0.{suffix}" in reader:  # optional: qkv bias
-            layers[our] = stack(suffix, transpose)
+            layers[our] = stack(suffix, transpose, can_quant=our in QUANT_LAYER_KEYS)
 
     def put(name: str) -> torch.Tensor:
         return grab(name, False).to(device=device, dtype=dt)
@@ -202,7 +237,10 @@ def load_hf_checkpoint(cfg: ArchConfig, ckpt_dir: str, device=None) -> Params:
         "final_norm": put("model.norm.weight"),
     }
     if not cfg.tie_embeddings:
-        if "lm_head.weight" in reader:
+        if "lm_head.weight" in reader and do_quant:  # int8 over D: scales per vocab row
+            params["lm_head"] = {k: _np_to_tensor(v).to(device) for k, v in
+                                 quant(grab("lm_head.weight", False), axis=-1).items()}
+        elif "lm_head.weight" in reader:
             params["lm_head"] = put("lm_head.weight")
         else:  # some checkpoints tie without declaring it
             params["lm_head"] = params["embed"]

@@ -36,7 +36,12 @@ LIBRARIES = {
     ),
     "paged_attention": (
         "paged_attention.cu",
-        {"paged_attention": ([_P] * 9 + [_I] * 9 + [_F, _P], _I)},
+        {"paged_attention": ([_P] * 10 + [_I] * 9 + [_F, _P], _I)},
+    ),
+    "quant_matmul": (
+        "quant_matmul.cu",
+        {"quant_matmul": ([_P] * 5 + [_I] * 6 + [_P], _I),
+         "quant_unembed": ([_P] * 4 + [_I] * 4 + [_P], _I)},
     ),
 }
 

@@ -15,15 +15,22 @@
   [L, P, page, K, Hd] shared by every slot through per-slot page tables
   (`paged_cache_zeros`, `write_block_to_pool`, `write_chunk_to_pool`,
   `write_prefill_to_pool`); only the attention call differs between them.
+  Either may be stored in fp8 (e4m3 / e5m2); a paged pool may also carry a
+  per-head `kv_scale` [2, K] f32, so it stores value / scale and every
+  reader multiplies back (`_pool_store`). Writes into fp8 go through
+  `kv_cast`, which gives the JAX package's fp8 values.
+- Matmul weights are plain [in, out] tensors or quantized dicts (int8,
+  grouped int8, packed int4; models/quant.py), stacked [L, ...] like the
+  rest; the lm_head may be an int8 dict. Decode-shape products go to the
+  fused dequant kernels.
 - GQA, RoPE (every scaling family), RMSNorm, SwiGLU / GeGLU, optional qkv
   bias (Qwen2) and the gemma flags (softcaps, sandwich norms, q/k norms,
   sliding windows) chosen from ArchConfig.
 
 Not ported yet, and rejected with NotImplementedError: MoE and MLA layers
 (ROADMAP Queue A item 16), sequence-parallel ring attention and tp meshes
-(item 20), fp8 pools with kv_scale (item 13), runtime LoRA (item 14),
-m-rope (item 19), and sink+window decode and hierarchical page tables
-(item 15).
+(item 20), runtime LoRA (item 14), m-rope (item 19), and sink+window decode
+and hierarchical page tables (item 15).
 
 The cache, the pool and the block-local windows are updated IN PLACE (the
 JAX package returns new arrays): that saves a full copy of each per call.
@@ -38,7 +45,7 @@ import torch.nn.functional as F
 
 from localai_tpu_torch.device import resolve_device
 from localai_tpu_torch.models.config import ArchConfig
-from localai_tpu_torch.models.quant import matmul, unembed_matmul
+from localai_tpu_torch.models.quant import is_quantized, matmul, unembed_matmul
 from localai_tpu_torch.ops import ptable as _pt
 from localai_tpu_torch.ops.attention import (
     _merge_partials_mq,
@@ -79,6 +86,29 @@ def torch_dtype(name: str) -> torch.dtype:
     if not isinstance(dt, torch.dtype):
         raise ValueError(f"unknown dtype {name!r}")
     return dt
+
+
+# fp8 e4m3fn has no infinity and 448 is its largest value: the JAX package's
+# cast (ml_dtypes) rounds anything past 464 (448 plus half a step), and
+# infinities, to NaN, where torch saturates to ±448.
+_E4M3_NAN_ABOVE = 464.0
+_E5M2_NAN_BITS = 0x7E  # ml_dtypes' e5m2 NaN; torch writes 0x7F
+
+
+def kv_cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x cast to a cache's storage dtype with the JAX package's result:
+    round-to-nearest-even inside an fp8 format's range, NaN past e4m3fn's,
+    ±inf past e5m2's, and ml_dtypes' NaN bits. Other dtypes cast as is."""
+    if dtype == torch.float8_e4m3fn:
+        xf = x.float()
+        nan = torch.copysign(torch.full_like(xf, float("nan")), xf)
+        return torch.where(xf.abs() > _E4M3_NAN_ABOVE, nan, xf).to(dtype)
+    if dtype == torch.float8_e5m2:
+        xf = x.float()
+        bits = xf.to(dtype).view(torch.uint8)
+        fixed = (bits & 0x80) | _E5M2_NAN_BITS
+        return torch.where(torch.isnan(xf), fixed, bits).view(dtype)
+    return x.to(dtype)
 
 
 class KVCache(NamedTuple):
@@ -151,8 +181,10 @@ def init_params(cfg: ArchConfig, seed: int = 0, scale: float = 0.02,
 
 
 def _layer(params: Params, li: int) -> Params:
-    """Layer li's slice of every stacked tensor (views, no copies)."""
-    return {name: t[li] for name, t in params["layers"].items()}
+    """Layer li's slice of every stacked tensor, quantized dicts leaf by
+    leaf ({"q": [L, in, out], "s": [L, 1, out]} → layer li's views)."""
+    return {name: ({k: v[li] for k, v in t.items()} if isinstance(t, dict) else t[li])
+            for name, t in params["layers"].items()}
 
 
 def _layer_sliding(cfg: ArchConfig, li: int) -> bool | None:
@@ -188,7 +220,8 @@ def _act(cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def _unembed(cfg: ArchConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
-    """Final projection to f32 logits (bf16 operands, f32 accumulation)."""
+    """Final projection to f32 logits (f32 accumulation); an int8 lm_head
+    dict goes through unembed_matmul's quantized route."""
     w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     logits = unembed_matmul(h, w)
     if cfg.final_softcap:
@@ -250,6 +283,10 @@ def _check_params(params: Params) -> None:
     if "dense_layers" in params or "router" in params["layers"]:
         raise NotImplementedError(
             "mixture-of-experts layers are not ported yet (ROADMAP Queue A item 16)")
+    for name, t in [*params["layers"].items(), ("lm_head", params.get("lm_head"))]:
+        if isinstance(t, dict) and not is_quantized(t):
+            raise ValueError(f"{name}: a dict leaf must be a quantized weight, got keys "
+                             f"{sorted(t)}")
 
 
 def _forward_hidden(
@@ -319,13 +356,15 @@ def decode_step_windowed(
     local_v: torch.Tensor,
     step: int,  # index within the block
     ptable: torch.Tensor | None = None,  # [B, MP] int32: `cache` is a page pool
+    kv_scale: torch.Tensor | None = None,  # [2, K] f32 per-head (k, v) pool scales
 ):
     """One step of a decode block with a block-local KV window.
 
     The cache is never written here: each layer's new row goes into
     local_k / local_v[:, :, step] (in place), and the engine scatters the
     whole window into the cache once per block. With `ptable` the cache is
-    a paged pool [L, P, page, K, Hd] and each slot reads its own pages.
+    a paged pool [L, P, page, K, Hd] and each slot reads its own pages,
+    multiplied back by `kv_scale` when the pool is scaled.
     Returns (logits [B, V] f32, local_k, local_v)."""
     check_supported(cfg)
     _check_params(params)
@@ -345,7 +384,7 @@ def decode_step_windowed(
             attn = decode_attention_windowed_paged(
                 q, cache.k[li], cache.v[li], ptable, local_k[li], local_v[li], k, v,
                 positions, step, softcap=cfg.attn_softcap,
-                window=cfg.sliding_window, sliding=_layer_sliding(cfg, li),
+                window=cfg.sliding_window, sliding=_layer_sliding(cfg, li), kv_scale=kv_scale,
             )
         else:
             attn = decode_attention_windowed(
@@ -356,8 +395,8 @@ def decode_step_windowed(
         h = h + _attn_out(cfg, lp, attn.reshape(B, -1))
         x = rms_norm(h, lp["mlp_norm"], cfg.rms_eps)
         h = h + _mlp_out(cfg, lp, x)
-        local_k[li, :, step] = k.to(local_k.dtype)
-        local_v[li, :, step] = v.to(local_v.dtype)
+        local_k[li, :, step] = kv_cast(k, local_k.dtype)
+        local_v[li, :, step] = kv_cast(v, local_v.dtype)
     h = rms_norm(h, params["final_norm"], cfg.rms_eps)
     return _unembed(cfg, params, h), local_k, local_v
 
@@ -379,8 +418,8 @@ def write_block_to_cache(
         max=S - 1,
     )
     bi = torch.arange(B, device=dev)[:, None]
-    cache.k[:, bi, span] = local_k.to(cache.k.dtype)
-    cache.v[:, bi, span] = local_v.to(cache.v.dtype)
+    cache.k[:, bi, span] = kv_cast(local_k, cache.k.dtype)
+    cache.v[:, bi, span] = kv_cast(local_v, cache.v.dtype)
     return cache
 
 
@@ -392,8 +431,8 @@ def write_prefill_to_cache(
 ) -> KVCache:
     """Copy a prefilled request's k/v (batch row 0) into its slot, in place."""
     S = ks.shape[2]
-    cache.k[:, slot, :S] = ks[:, 0].to(cache.k.dtype)
-    cache.v[:, slot, :S] = vs[:, 0].to(cache.v.dtype)
+    cache.k[:, slot, :S] = kv_cast(ks[:, 0], cache.k.dtype)
+    cache.v[:, slot, :S] = kv_cast(vs[:, 0], cache.v.dtype)
     return cache
 
 
@@ -418,16 +457,28 @@ def paged_cache_zeros(cfg: ArchConfig, num_pages: int, page_size: int, dtype=Non
     )
 
 
+def _pool_store(rows: torch.Tensor, pool_dtype, scale_row) -> torch.Tensor:
+    """KV rows [..., K, Hd] in the pool's storage dtype, divided by the
+    per-head scale [K] first when the pool is scaled (stored = value /
+    scale; every reader multiplies back). The division runs in f32, so bf16
+    rows keep their mantissa until the final fp8 cast."""
+    if scale_row is None:
+        return kv_cast(rows, pool_dtype)
+    return kv_cast(rows.float() / scale_row[:, None], pool_dtype)
+
+
 def _scatter_rows(pool: KVCache, table, rows: torch.Tensor, ks: torch.Tensor,
-                  vs: torch.Tensor) -> KVCache:
+                  vs: torch.Tensor, kv_scale=None) -> KVCache:
     """pool[:, table[b, row // page], row % page] = ks[:, b, i] for every
     rows[b, i], in place. Rows are clamped to the table's span."""
     page = pool.k.shape[2]
     rows = torch.clamp(rows.to(torch.int64), max=_pt.width(table) * page - 1)
     pid = _pt.gather_cols(table, rows // page)
     off = rows % page
-    pool.k[:, pid, off] = ks.to(pool.k.dtype)
-    pool.v[:, pid, off] = vs.to(pool.v.dtype)
+    ksc = None if kv_scale is None else kv_scale[0]
+    vsc = None if kv_scale is None else kv_scale[1]
+    pool.k[:, pid, off] = _pool_store(ks, pool.k.dtype, ksc)
+    pool.v[:, pid, off] = _pool_store(vs, pool.v.dtype, vsc)
     return pool
 
 
@@ -437,6 +488,7 @@ def write_block_to_pool(
     local_k: torch.Tensor,  # [L, B, n, K, Hd]
     local_v: torch.Tensor,
     start_positions: torch.Tensor,  # [B]
+    kv_scale=None,  # [2, K] f32 → pool rows store value / scale
 ) -> KVCache:
     """Scatter a decode block's window into the page pool (once per block,
     in place). Row (b, step) lands at (table[b, row // page], row % page).
@@ -444,7 +496,7 @@ def write_block_to_pool(
     through SCRATCH table entries to a page nobody attends."""
     n = local_k.shape[2]
     rows = start_positions.to(torch.int64)[:, None] + torch.arange(n, device=local_k.device)
-    return _scatter_rows(pool, table, rows, local_k, local_v)
+    return _scatter_rows(pool, table, rows, local_k, local_v, kv_scale)
 
 
 def write_chunk_to_pool(
@@ -453,9 +505,10 @@ def write_chunk_to_pool(
     new_k: torch.Tensor,  # [L, B, T, K, Hd]
     new_v: torch.Tensor,
     positions: torch.Tensor,  # [B, T] row indices
+    kv_scale=None,  # [2, K] f32 → pool rows store value / scale
 ) -> KVCache:
     """Scatter a chunk's rows into the page pool, in place."""
-    return _scatter_rows(pool, table, positions, new_k, new_v)
+    return _scatter_rows(pool, table, positions, new_k, new_v, kv_scale)
 
 
 def write_prefill_to_pool(
@@ -464,13 +517,15 @@ def write_prefill_to_pool(
     ks: torch.Tensor,  # [L, B_new, Sb, K, Hd] from prefill
     vs: torch.Tensor,
     j: int,  # batch row within ks / vs
+    kv_scale=None,  # [2, K] f32 → pool rows store value / scale
 ) -> KVCache:
     """Copy one prefilled request's bucket of rows into its pages, in
     place. The prompt starts at row 0; bucket rows past the slot's pages
     land in SCRATCH."""
     Sb = ks.shape[2]
     rows = torch.arange(Sb, device=ks.device)[None, :]
-    return _scatter_rows(pool, _pt.batch_row(table_row), rows, ks[:, j:j + 1], vs[:, j:j + 1])
+    return _scatter_rows(pool, _pt.batch_row(table_row), rows, ks[:, j:j + 1], vs[:, j:j + 1],
+                         kv_scale)
 
 
 def prefill_chunk_paged(
@@ -482,6 +537,7 @@ def prefill_chunk_paged(
     pool: KVCache,
     table: torch.Tensor,  # [B, MP] int32 page tables (prefix + destination pages)
     with_logits: bool = True,
+    kv_scale: torch.Tensor | None = None,  # [2, K] f32 per-head (k, v) pool scales
 ):
     """One chunk of a chunked prefill, written straight into the pages.
 
@@ -522,7 +578,7 @@ def prefill_chunk_paged(
         acc, m, l = paged_prefill_partials(
             q, pool.k[li], pool.v[li], table, offsets,
             softcap=cfg.attn_softcap, window=cfg.sliding_window, sliding=sliding,
-            q_pos=positions,
+            q_pos=positions, kv_scale=kv_scale,
         )
         attn = _merge_partials_mq(q, acc, m, l, k, v, wmask, softcap=cfg.attn_softcap)
         h = h + _attn_out(cfg, lp, attn.reshape(B, T, -1).to(h.dtype))
@@ -530,7 +586,8 @@ def prefill_chunk_paged(
         h = h + _mlp_out(cfg, lp, x)
         new_k.append(k)
         new_v.append(v)
-    write_chunk_to_pool(pool, table, torch.stack(new_k), torch.stack(new_v), positions)
+    write_chunk_to_pool(pool, table, torch.stack(new_k), torch.stack(new_v), positions,
+                        kv_scale)
     if not with_logits:
         return None, pool
     h = rms_norm(h, params["final_norm"], cfg.rms_eps)

@@ -4,21 +4,20 @@ a dense slot KV cache or a paged pool (localai_tpu/ops/attention.py).
 - Prefill goes to the flash path (ops/flash.py: the CUDA kernel on the
   card, its plain version on the CPU) for power-of-two buckets without
   softcap or sliding window, exactly where the JAX package takes its Pallas
-  kernel; everything else, or LOCALAI_FLASH=0, takes dense math.
+  kernel; everything else takes dense math. The split is by shape only.
 - Dense decode reads the cache [B, S, K, Hd] with a length mask, in plain
   PyTorch, as the JAX package does in plain XLA.
 - Paged decode and chunked prefill read a shared page pool [P, page, K, Hd]
   through per-slot page tables: online-softmax partials over each slot's
   pages (ops/paged_flash: the CUDA kernel on the card, its plain version on
   the CPU), merged with the block-local window and the current token by
-  `_merge_partials*`.
+  `_merge_partials*`. An fp8 pool may carry a per-head `kv_scale` [2, K]:
+  its rows are multiplied back as they are read.
 - GQA: queries have H heads, the cache K kv heads; queries reshape to
   [B, K, H//K, ...] against the shared kv head.
 """
 
 from __future__ import annotations
-
-import os
 
 import torch
 
@@ -44,15 +43,14 @@ def prefill_attention(
     window: int = 0,
     sliding: bool | None = None,  # this layer uses the sliding window
 ) -> torch.Tensor:
-    """Prefill attention dispatcher: flash by default (opt out with
-    LOCALAI_FLASH=0), dense math for softcap / sliding windows / buckets
-    that are not a power of two."""
+    """Prefill attention dispatcher: flash for power-of-two buckets, dense
+    math for softcap / sliding windows / buckets that are not a power of
+    two."""
     S = q.shape[1]
     if (
         lengths is not None
         and not softcap
         and not window
-        and os.environ.get("LOCALAI_FLASH", "1") != "0"
         and (S & (S - 1)) == 0  # power-of-two bucket
     ):
         return flash_prefill_attention(
@@ -212,10 +210,10 @@ def paged_partials(q, k_pool, v_pool, table, limits, softcap: float = 0.0,
     the ragged kernel for tensors on the card, its plain version on the CPU
     (ops/paged_flash). q [B, H, D]; returns (acc [B, K, G, D],
     m [B, K, G, 1], l [B, K, G, 1]) f32, scale applied."""
-    paged_flash.reject_unported(kv_scale, sink, swin, mesh)
+    paged_flash.reject_unported(sink, swin, mesh)
     return paged_flash.paged_decode_partials(q, k_pool, v_pool, table, limits,
                                              softcap=softcap, window=window,
-                                             sliding=sliding, q_pos=q_pos)
+                                             sliding=sliding, q_pos=q_pos, kv_scale=kv_scale)
 
 
 def paged_prefill_partials(q, k_pool, v_pool, table, limits, softcap: float = 0.0,
@@ -224,10 +222,11 @@ def paged_prefill_partials(q, k_pool, v_pool, table, limits, softcap: float = 0.
     """Paged partials for a prefill chunk (models/llama.prefill_chunk_paged):
     q [B, T, H, D] is the whole chunk, limits[b] the rows already resident
     (the chunk's offset). The kernel takes the chunk in one launch."""
-    paged_flash.reject_unported(kv_scale, sink, swin, mesh)
+    paged_flash.reject_unported(sink, swin, mesh)
     return paged_flash.paged_prefill_partials_mq(q, k_pool, v_pool, table, limits,
                                                  softcap=softcap, window=window,
-                                                 sliding=sliding, q_pos=q_pos)
+                                                 sliding=sliding, q_pos=q_pos,
+                                                 kv_scale=kv_scale)
 
 
 def decode_attention_windowed_paged(

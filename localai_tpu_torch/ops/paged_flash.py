@@ -12,7 +12,11 @@ the card. There is no other route: a CUDA tensor the kernel does not take
 Shapes, as in the JAX package:
 - q rows  [B, K, QR, D] f32 with 1/sqrt(D) applied; QR = G query rows per
   kv head for decode, T·G for a multi-query chunk (row r = t·G + g);
-- pools   [P, page, K, D] (one layer's slice of the page pool);
+- pools   [P, page, K, D] (one layer's slice of the page pool), bf16, f32
+  or fp8 (e4m3 / e5m2);
+- kv_scale [2, K] f32 per-head (k, v) scales of a scaled fp8 pool, or None
+  (all ones): each K / V element is multiplied by its head's scale as it
+  is widened to f32 (the kernel takes a scale with fp8 pools only);
 - table   [B, MP] int32 page ids (flat; ops/ptable);
 - limits  [B] int32: rows g >= limits[b] are masked, and the walk covers
   ceil(limits[b]/page) pages clamped to MP;
@@ -21,8 +25,8 @@ The partials come back as acc [B, K, QR, D], m and l [B, K, QR], f32; the
 merge with the block-local window stays in plain PyTorch
 (ops/attention._merge_partials*), one numeric tail for every route.
 
-Not ported yet: fp8 pools with `kv_scale` (ROADMAP Queue A item 13),
-hierarchical tables and the sink/swin cold-middle skip (item 15).
+Not ported yet: hierarchical tables and the sink/swin cold-middle skip
+(ROADMAP Queue A item 15).
 """
 
 from __future__ import annotations
@@ -36,14 +40,12 @@ from localai_tpu_torch.ops import ptable as _pt
 
 NEG_INF = -1e30
 PAGED_HEAD_DIMS = (64, 128)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2,
+               torch.float8_e5m2: 3}
 
 
-def reject_unported(kv_scale=None, sink: int = 0, swin: int = 0, mesh=None) -> None:
+def reject_unported(sink: int = 0, swin: int = 0, mesh=None) -> None:
     """Raise for the paged-attention features the port does not serve."""
-    if kv_scale is not None:
-        raise NotImplementedError(
-            "fp8 paged pools with kv_scale are not ported yet (ROADMAP Queue A item 13)")
     if sink or swin:
         raise NotImplementedError(
             "sink+window paged attention is not ported yet (ROADMAP Queue A item 15)")
@@ -66,10 +68,12 @@ def paged_partials_plain(
     limits: torch.Tensor,  # [B] int
     softcap: float = 0.0,
     window: int = 0,  # the layer's sliding window, 0 for none
+    kv_scale: torch.Tensor | None = None,  # [2, K] f32
 ):
     """Plain PyTorch version of the kernel: the online softmax walked one
     table column (page) at a time for every slot, rows past each slot's
-    limit masked. Returns (acc [B, K, QR, D], m [B, K, QR], l [B, K, QR])."""
+    limit masked, pool rows multiplied by `kv_scale`. Returns
+    (acc [B, K, QR, D], m [B, K, QR], l [B, K, QR])."""
     table = _pt._flat(table)
     B, K, QR, D = qr.shape
     page = k_pool.shape[1]
@@ -88,6 +92,9 @@ def paged_partials_plain(
         pid = table[:, j].to(torch.int64)
         kp = k_pool[pid].float()  # [B, page, K, D]
         vp = v_pool[pid].float()
+        if kv_scale is not None:
+            kp = kp * kv_scale[0][:, None].float()
+            vp = vp * kv_scale[1][:, None].float()
         s = torch.einsum("bkrd,bskd->bkrs", qf, kp)
         if softcap:
             s = softcap * torch.tanh(s / softcap)  # before the mask
@@ -105,7 +112,7 @@ def paged_partials_plain(
     return acc, m, l
 
 
-def _check_cuda_args(qr, qpos, k_pool, v_pool, table, limits) -> None:
+def _check_cuda_args(qr, qpos, k_pool, v_pool, table, limits, kv_scale) -> None:
     if qr.dim() != 4 or k_pool.dim() != 4 or v_pool.dim() != 4:
         raise ValueError("q rows must be [B, K, QR, D] and the pools [P, page, K, D]")
     B, K, QR, D = qr.shape
@@ -131,27 +138,37 @@ def _check_cuda_args(qr, qpos, k_pool, v_pool, table, limits) -> None:
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
         if t.data_ptr() % 16:  # rows are read in 16-byte loads
             raise ValueError(f"{name} must be 16-byte aligned")
+    if kv_scale is None:
+        return
+    if k_pool.element_size() != 1:
+        raise ValueError(f"kv_scale applies to fp8 pools, got a {k_pool.dtype} pool")
+    if (kv_scale.dtype != torch.float32 or tuple(kv_scale.shape) != (2, K)
+            or kv_scale.device != k_pool.device or not kv_scale.is_contiguous()):
+        raise ValueError(f"kv_scale must be a contiguous float32 [2, {K}] on {k_pool.device}, "
+                         f"got {kv_scale.dtype} {tuple(kv_scale.shape)} on {kv_scale.device}")
 
 
 def paged_partials_rows(
     qr: torch.Tensor,  # [B, K, QR, D] f32, scale applied
     qpos: torch.Tensor,  # [B, QR] int32
-    k_pool: torch.Tensor,  # [P, page, K, D] bf16 | f32
+    k_pool: torch.Tensor,  # [P, page, K, D] bf16 | f32 | fp8 e4m3 | fp8 e5m2
     v_pool: torch.Tensor,
     table: torch.Tensor,  # [B, MP] int32
     limits: torch.Tensor,  # [B] int32
     softcap: float = 0.0,
     window: int = 0,  # the layer's sliding window, 0 for none
+    kv_scale: torch.Tensor | None = None,  # [2, K] f32, None for all ones
 ):
     """Paged partials (acc [B, K, QR, D], m, l [B, K, QR], f32): the CUDA
     kernel for tensors on the card, the plain version on the CPU. Reads
     nothing back to the host on the card."""
     if qr.device.type == "cpu":
-        return paged_partials_plain(qr, qpos, k_pool, v_pool, table, limits, softcap, window)
+        return paged_partials_plain(qr, qpos, k_pool, v_pool, table, limits, softcap, window,
+                                    kv_scale)
     if qr.device.type != "cuda":
         raise ValueError(f"paged_partials_rows: unsupported device {qr.device}")
     table = _pt._flat(table)
-    _check_cuda_args(qr, qpos, k_pool, v_pool, table, limits)
+    _check_cuda_args(qr, qpos, k_pool, v_pool, table, limits, kv_scale)
     B, K, QR, D = qr.shape
     acc = torch.empty((B, K, QR, D), dtype=torch.float32, device=qr.device)
     m = torch.empty((B, K, QR), dtype=torch.float32, device=qr.device)
@@ -160,7 +177,9 @@ def paged_partials_rows(
     with torch.cuda.device(qr.device):  # the library launches on the current device
         rc = lib.paged_attention(
             qr.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
-            limits.data_ptr(), qpos.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+            limits.data_ptr(), qpos.data_ptr(),
+            None if kv_scale is None else kv_scale.data_ptr(),
+            acc.data_ptr(), m.data_ptr(), l.data_ptr(),
             B, K, QR, D, k_pool.shape[0], k_pool.shape[1], table.shape[1],
             _DTYPE_CODE[k_pool.dtype], int(window), float(softcap),
             torch.cuda.current_stream(qr.device).cuda_stream,
@@ -175,12 +194,12 @@ def paged_partials_rows(
 paged_partials_rows.launches = 0
 
 
-def _rows_call(qr, qpos_rows, k_pool, v_pool, table, limits, softcap, window):
+def _rows_call(qr, qpos_rows, k_pool, v_pool, table, limits, softcap, window, kv_scale):
     """Cast the control operands to what the kernel takes and call it."""
     i32 = dict(device=qr.device, dtype=torch.int32)
     return paged_partials_rows(
         qr.contiguous(), qpos_rows.to(**i32).contiguous(), k_pool, v_pool,
-        table.to(**i32).contiguous(), limits.to(**i32).contiguous(), softcap, window)
+        table.to(**i32).contiguous(), limits.to(**i32).contiguous(), softcap, window, kv_scale)
 
 
 def paged_decode_partials(
@@ -199,7 +218,7 @@ def paged_decode_partials(
 ):
     """Decode partials: (acc [B, K, G, D], m [B, K, G, 1], l [B, K, G, 1])
     f32, the JAX package's contract."""
-    reject_unported(kv_scale, sink, swin)
+    reject_unported(sink, swin)
     B, H, D = q.shape
     K = k_pool.shape[2]
     G = H // K
@@ -208,7 +227,7 @@ def paged_decode_partials(
     qr = (q.float() * (1.0 / math.sqrt(D))).reshape(B, K, G, D)
     qpos_rows = q_pos.reshape(B, 1).expand(B, G)
     acc, m, l = _rows_call(qr, qpos_rows, k_pool, v_pool, table, limits, softcap,
-                           _window_of(window, sliding))
+                           _window_of(window, sliding), kv_scale)
     return acc, m[..., None], l[..., None]
 
 
@@ -229,7 +248,7 @@ def paged_decode_partials_mq(
     """Multi-query partials, one page walk shared by all T queries (row
     r = t·G + g). Returns (acc [B, K, G, T, D], m [B, K, G, T, 1],
     l [B, K, G, T, 1])."""
-    reject_unported(kv_scale, sink, swin)
+    reject_unported(sink, swin)
     B, T, H, D = q.shape
     K = k_pool.shape[2]
     G = H // K
@@ -239,7 +258,7 @@ def paged_decode_partials_mq(
           .reshape(B, T, K, G, D).permute(0, 2, 1, 3, 4).reshape(B, K, T * G, D))
     qpos_rows = torch.repeat_interleave(q_pos, G, dim=1)  # [B, T*G]
     acc, m, l = _rows_call(qr, qpos_rows, k_pool, v_pool, table, limits, softcap,
-                           _window_of(window, sliding))
+                           _window_of(window, sliding), kv_scale)
     acc = acc.reshape(B, K, T, G, D).transpose(2, 3)
     m = m.reshape(B, K, T, G).transpose(2, 3)[..., None]
     l = l.reshape(B, K, T, G).transpose(2, 3)[..., None]

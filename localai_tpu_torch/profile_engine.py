@@ -2,8 +2,12 @@
 
     python -m localai_tpu_torch.profile_engine [--arch llama-3.2-1b]
         [--slots 8] [--prompt 500] [--steps 16] [--paged]
+        [--quant int8|int4] [--kv-cache-dtype fp8|fp8_e5m2]
 
-Builds the engine on random bf16 weights and drives its device paths
+Builds the engine on random bf16 weights (quantized on the card with
+`--quant`, the KV cache stored in fp8 with `--kv-cache-dtype`; e.g.
+`--arch llama-3-8b --quant int4 --kv-cache-dtype fp8 --paged` profiles a
+quantized paged decode step) and drives its device paths
 directly on this thread (no loop thread): one fused admission of `--slots`
 prompts of `--prompt` tokens, then one decode block of `--steps` steps over
 those slots. With `--paged` it then does the same on a paged KV pool
@@ -78,6 +82,10 @@ def main(argv=None) -> None:
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--paged", action="store_true",
                     help="also profile a paged decode block and a 512-token chunk")
+    ap.add_argument("--quant", choices=("int8", "int4"), default="",
+                    help="quantize the matmul weights (and an untied head) on the card")
+    ap.add_argument("--kv-cache-dtype", choices=("fp8", "fp8_e4m3", "fp8_e5m2"), default="",
+                    help="store the KV cache in fp8")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_engine needs a CUDA device")
@@ -86,16 +94,21 @@ def main(argv=None) -> None:
     from localai_tpu_torch.engine.tokenizer import ByteTokenizer
     from localai_tpu_torch.models import get_arch
     from localai_tpu_torch.models.llama import init_params
+    from localai_tpu_torch.models.quant import quantize_params
 
     cfg = get_arch(args.arch)
     params = init_params(cfg, seed=0, device="cuda")
+    if args.quant:
+        params = quantize_params(cfg, params, args.quant)
+        torch.cuda.empty_cache()
     gen = torch.Generator().manual_seed(0)
     slots = list(range(args.slots))
 
     def make_engine(**kw):
         return Engine(cfg, params, ByteTokenizer(cfg.vocab_size), device="cuda",
                       engine_cfg=EngineConfig(max_slots=args.slots, max_seq=2048,
-                                              block_sizes=(args.steps,), **kw))
+                                              block_sizes=(args.steps,),
+                                              kv_cache_dtype=args.kv_cache_dtype, **kw))
 
     def admitter(eng):
         bucket = eng._bucket_for(args.prompt)
@@ -121,7 +134,9 @@ def main(argv=None) -> None:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
     print(json.dumps({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-                      "arch": cfg.name,
+                      "arch": cfg.name, "quant": args.quant or "bf16",
+                      "kv_cache_dtype": args.kv_cache_dtype or "model",
+                      "weight_bytes": eng.metrics()["weight_bytes"],
                       "slots": args.slots, "prompt": args.prompt, "bucket": bucket,
                       "steps": args.steps}), flush=True)
     _profile(f"admission m={args.slots} bucket={bucket}", admit)

@@ -150,3 +150,187 @@ def test_paged_cuda_tensors_never_take_the_plain_route(card, monkeypatch):
                                vp[..., :48].contiguous(), table, lim)
     with pytest.raises(TypeError, match="table"):
         pf.paged_partials_rows(qr, qpos, kp, vp, table.long(), lim)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float8_e4m3fn, torch.float8_e5m2])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("mode", ["decode", "mq"])
+def test_paged_kernel_fp8_pools_match_plain_version(card, mode, D, dtype):
+    """fp8 pools with a per-head kv_scale (not all ones): the kernel widens
+    and scales in registers, the plain walk in PyTorch, on the same bytes."""
+    from localai_tpu_torch.models.llama import kv_cast
+    from localai_tpu_torch.ops import paged_flash as pf
+
+    B, K, page, MP = 4, 8, 128, 16
+    QR = 4 if mode == "decode" else 3 * 4 * 5
+    limits = [2048, 0, 1000 + page // 2, 37]
+    qr, kp, vp, table, lim = _paged_inputs(D + 7, B, QR, K, D, page, MP, torch.float32, limits)
+    scale = torch.stack([torch.linspace(0.5, 4.0, K), torch.linspace(3.0, 0.25, K)]).cuda()
+    kp = kv_cast(kp * 20.0 / scale[0][:, None], dtype)  # stored = value / scale (< 448)
+    vp = kv_cast(vp * 20.0 / scale[1][:, None], dtype)
+    qpos = (lim[:, None] + torch.arange(QR, device="cuda")[None, :] // 4).to(torch.int32)
+    before = pf.paged_partials_rows.launches
+    got = pf.paged_partials_rows(qr, qpos, kp, vp, table, lim, 0.0, 0, scale)
+    torch.cuda.synchronize()
+    assert pf.paged_partials_rows.launches == before + 1
+    want = pf.paged_partials_plain(qr, qpos, kp, vp, table, lim, 0.0, 0, scale)
+    # Values are ~20x the unit-scale case: hold them to the same relative tolerance.
+    acc, m, l = got
+    racc, rm, rl = want
+    live = lim > 0
+    o = acc / l.clamp(min=1e-30)[..., None]
+    ro = racc / rl.clamp(min=1e-30)[..., None]
+    assert (o - ro)[live].abs().max().item() <= PAGED_TOL * ro[live].abs().max().item()
+    assert ((m - rm)[live].abs() / rm[live].abs().clamp(min=1.0)).max().item() <= PAGED_TOL
+    assert ((l - rl)[live].abs() / rl[live]).max().item() <= PAGED_TOL
+    idle = ~live
+    assert (m[idle] == -1e30).all() and (l[idle] == 0).all() and (acc[idle] == 0).all()
+    with pytest.raises(ValueError, match="kv_scale"):
+        pf.paged_partials_rows(qr, qpos, kp, vp, table, lim, 0.0, 0, scale[:, :4].contiguous())
+    with pytest.raises(ValueError, match="fp8 pools"):  # bf16 / f32 pools are unscaled
+        pf.paged_partials_rows(qr, qpos, kp.to(torch.bfloat16), vp.to(torch.bfloat16), table,
+                               lim, 0.0, 0, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float8_e4m3fn, torch.float8_e5m2])
+def test_fp8_pool_writes_match_the_cpu(card, dtype):
+    """The pool writers (fp8 cast, per-head scale, scatter through the page
+    table) give the same bytes on the card as on the CPU."""
+    import dataclasses
+
+    from localai_tpu_torch.models import get_arch
+    from localai_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(get_arch("tiny"), dtype="float32")
+    L, K, Hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim_
+    g = torch.Generator().manual_seed(5)
+    rows = torch.randn(L, 2, 8, K, Hd, generator=g) * 300.0  # some past e4m3's range
+    table = torch.tensor([[3, 1], [0, 2]], dtype=torch.int32)
+    scale = torch.tensor([[1.0, 2.0], [0.5, 4.0]])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        pool = llama.paged_cache_zeros(cfg, 5, 4, dtype=dtype, device=dev)
+        llama.write_block_to_pool(pool, table.to(dev), rows[:, :, :6].to(dev),
+                                  rows[:, :, 2:].to(dev), torch.tensor([0, 1], device=dev),
+                                  kv_scale=scale.to(dev))
+        out[dev] = [t.view(torch.uint8).cpu() for t in pool]
+    assert all(torch.equal(a, b) for a, b in zip(out["cpu"], out["cuda"]))
+
+
+# --------------------------------------------------------------------------- #
+# B3 / B4: fused dequant-matmul and int8 unembed (csrc/quant_matmul.cu)
+# --------------------------------------------------------------------------- #
+
+# llama-3-8b's projections (in, out): wk/wv, wq/wo, w_gate/w_up, w_down; and
+# a small ragged shape whose int4 groups put different in-rows in the two
+# nibbles of a byte.
+QMM_SHAPES = [(96, 80), (4096, 1024), (4096, 4096), (4096, 14336), (14336, 4096)]
+
+
+def _grouped_int8(w, group=32):
+    """Group-wise symmetric int8 (GGUF q8_0's layout): {"gq", "gs"}."""
+    g = w.shape[0] // group
+    wg = w.float().reshape(g, group, w.shape[1])
+    s = torch.clamp(wg.abs().amax(dim=1, keepdim=True) / 127.0, min=1e-9)
+    return {"gq": torch.clamp(torch.round(wg / s), -127, 127).to(torch.int8), "gs": s}
+
+
+def _quantized(form, w):
+    from localai_tpu_torch.models import quant
+
+    if form == "int8":
+        return quant.quantize_tensor(w)
+    if form == "grouped_int8":
+        return _grouped_int8(w)
+    return quant.quantize_tensor_g4(w)
+
+
+def _assert_qmm_close(got, x, qw):
+    """f32 x: summation order only, 1e-4 of the output's largest value.
+    bf16 x: both sides round the f32 sum once to bf16, so they may differ by
+    one bf16 step (2^-7 of the value), plus the summation-order term."""
+    from localai_tpu_torch.ops.quant_matmul import qmm_plain
+
+    want = qmm_plain(x, qw)
+    assert got.dtype == x.dtype and got.shape == want.shape
+    scale = qmm_plain(x.float(), qw).abs().max().item()
+    err = (got.float() - want.float()).abs()
+    if x.dtype == torch.float32:
+        assert err.max().item() <= 1e-4 * scale
+    else:
+        assert (err <= 2.0**-7 * want.float().abs() + 1e-4 * scale).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["int8", "grouped_int8", "int4"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", QMM_SHAPES)
+def test_qmm_kernel_matches_plain_version(card, shape, dtype, form):
+    from localai_tpu_torch.ops.quant_matmul import qmm
+
+    n_in, n_out = shape
+    g = torch.Generator(device="cuda").manual_seed(n_in + n_out)
+    qw = _quantized(form, torch.randn(n_in, n_out, generator=g, device="cuda") * 0.02)
+    for N in (1, 8, 256):
+        x = torch.randn(N, n_in, generator=g, device="cuda").to(dtype)
+        before = qmm.launches
+        got = qmm(x, qw)
+        torch.cuda.synchronize()
+        assert qmm.launches == before + 1
+        _assert_qmm_close(got, x, qw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("V, D", [(1000, 64), (128256, 4096)])
+def test_unembed_kernel_matches_plain_version(card, V, D, dtype):
+    from localai_tpu_torch.ops.quant_matmul import qunembed, qunembed_plain
+
+    g = torch.Generator(device="cuda").manual_seed(V + D)
+    w = torch.randn(V, D, generator=g, device="cuda") * 0.02
+    s = torch.clamp(w.abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-9)
+    head = {"q": torch.clamp(torch.round(w / s), -127, 127).to(torch.int8), "s": s}
+    for N in (1, 8, 256):
+        h = torch.randn(N, D, generator=g, device="cuda").to(dtype)
+        before = qunembed.launches
+        got = qunembed(h, head)
+        torch.cuda.synchronize()
+        assert qunembed.launches == before + 1
+        want = qunembed_plain(h, head)
+        assert got.dtype == torch.float32 and got.shape == (N, V)
+        # f32 arithmetic on both sides (bf16 h widens exactly): summation order.
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_quant_cuda_tensors_never_take_the_plain_route(card, monkeypatch):
+    from localai_tpu_torch.models import quant
+    from localai_tpu_torch.ops import quant_matmul as qm
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a plain quantized matmul ran on CUDA tensors")
+
+    monkeypatch.setattr(qm, "qmm_plain", refuse)
+    monkeypatch.setattr(qm, "qunembed_plain", refuse)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    w = torch.randn(64, 96, generator=g, device="cuda")
+    x = torch.randn(2, 3, 64, generator=g, device="cuda").to(torch.bfloat16)
+    before = qm.qmm.launches, qm.qunembed.launches
+    for form in ("int8", "grouped_int8", "int4"):
+        assert quant.matmul(x, _quantized(form, w)).shape == (2, 3, 96)
+    head = quant.quantize_tensor(w)  # over the 64 D rows: one scale per vocab column
+    head = {"q": head["q"].t().contiguous(), "s": head["s"].t().contiguous()}  # [96, 64], [96, 1]
+    assert quant.unembed_matmul(x, head).shape == (2, 3, 96)
+    torch.cuda.synchronize()
+    assert (qm.qmm.launches, qm.qunembed.launches) == (before[0] + 3, before[1] + 1)
+    # What the kernel does not take raises; it is not served otherwise.
+    with pytest.raises(ValueError, match="multiple of 4"):
+        qm.qmm(x[0], quant.quantize_tensor(w[:, :90].contiguous()))
+    with pytest.raises(ValueError, match="group size"):
+        qm.qmm(x[0], quant.quantize_tensor_g4(w, group=8))
+    with pytest.raises(TypeError, match="x must be"):
+        qm.qmm(x[0].half(), quant.quantize_tensor(w))
+    with pytest.raises(ValueError, match="at most"):
+        qm.qmm(torch.zeros(300, 64, device="cuda"), quant.quantize_tensor(w))

@@ -76,6 +76,9 @@ def test_dispatcher_flash_route_matches_dense_on_valid_rows():
 
 @pytest.mark.parametrize("route", ["flash_off", "softcap", "odd_bucket"])
 def test_dispatcher_dense_routes(route, monkeypatch):
+    """Softcap and odd buckets take the dense route; the reference's
+    LOCALAI_FLASH=0 opt-out is not read: the flash route stays (no env var
+    routes a tensor away from its kernel)."""
     B, H, K, D = 2, 4, 2, 32
     S = 48 if route == "odd_bucket" else 64
     softcap = 30.0 if route == "softcap" else 0.0
@@ -88,8 +91,12 @@ def test_dispatcher_dense_routes(route, monkeypatch):
     tmask = torch.from_numpy(mask)
     out = tatt.prefill_attention(tq, tk, tv, tmask, torch.from_numpy(lengths),
                                  softcap=softcap)
-    dense = tatt.causal_prefill_attention(tq, tk, tv, tmask, softcap=softcap)
-    assert torch.equal(out, dense)  # the dense route, not flash
+    if route == "flash_off":
+        want = flash_prefill_attention_plain(tq, tk, tv, torch.from_numpy(lengths))
+        assert torch.equal(out, want)  # still the flash route
+    else:
+        dense = tatt.causal_prefill_attention(tq, tk, tv, tmask, softcap=softcap)
+        assert torch.equal(out, dense)  # the dense route, not flash
     ref = np.asarray(jax_dense(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                                jnp.asarray(mask), softcap=softcap))
     np.testing.assert_allclose(out.numpy()[mask], ref[mask], atol=ATOL, rtol=0)

@@ -61,3 +61,36 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+
+
+def _env_reads(path):
+    """(line, key) of every environment access in a file: os.environ[...],
+    os.environ.get(...), os.getenv(...); key is None when not a literal."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    parents = {child: node for node in ast.walk(tree) for child in ast.iter_child_nodes(node)}
+
+    def literal(node):
+        return node.value if isinstance(node, ast.Constant) else None
+
+    for node in ast.walk(tree):
+        if not (isinstance(node, ast.Attribute) and node.attr in ("environ", "getenv")):
+            continue
+        up = parents.get(node)
+        if node.attr == "getenv" and isinstance(up, ast.Call):
+            yield node.lineno, literal(up.args[0]) if up.args else None
+        elif isinstance(up, ast.Subscript):
+            yield node.lineno, literal(up.slice)
+        elif isinstance(up, ast.Attribute) and isinstance(parents.get(up), ast.Call):
+            call = parents[up]
+            yield node.lineno, literal(call.args[0]) if call.args else None
+        else:
+            yield node.lineno, None
+
+
+def test_port_reads_no_environment_variable_but_cuda_home():
+    """No env var or knob routes the port's work: the only variable it reads
+    is CUDA_HOME, to find nvcc (kernels.py)."""
+    reads = {(str(p.relative_to(ROOT)), line, key)
+             for p in _port_files() for line, key in _env_reads(p)}
+    assert {key for _f, _l, key in reads} == {"CUDA_HOME"}, sorted(reads, key=str)
+    assert {f for f, _l, _k in reads} == {"localai_tpu_torch/kernels.py"}
