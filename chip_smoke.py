@@ -21,10 +21,12 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 4. model   — a small f32 model on the card against the same model on the
    CPU (logits, 16 greedy decode steps), dense and paged (chunked prefill
    into pages, paged decode), then full-width llama-3.2-1b in bf16 with
-   seeded random weights: prefill logits through the kernel against the
-   same call through plain attention;
+   seeded random weights, cut to 8 of its 16 layers for phases 4-6:
+   prefill logits through the kernel against the same call through plain
+   attention;
 5. engine  — the dense serving engine (submit → fused admission → decode
-   blocks → streamed events) answers mixed requests on llama-3.2-1b;
+   blocks → streamed events) answers mixed requests on llama-3.2-1b
+   (8 layers);
 6. paged engine — the same model on a paged KV pool with chunked prefill
    (long prompts chunk, decode blocks run between chunks), then the small
    f32 model's paged engine against its dense engine;
@@ -36,9 +38,22 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 8. quantized engines — llama-3-8b int8 on a paged bf16 pool, then int4 on
    an fp8 (e4m3) pool with kv_scale 2, with phase 6's mix of prompts; then
    the small f32 model's int4 + fp8 paged engine on the card against the
-   same engine on the CPU.
-In 5, 6 and 8 the kernel launch counters, zeroed just before each run, show
-that the path went through the kernels.
+   same engine on the CPU;
+9. lora kernels — B5 (the ragged LoRA delta) against its plain version at
+   every target projection shape of llama-3.2-1b and llama-3-8b, rank 16
+   and 64, 8 adapters and a null row, 1 and 256 rows, mixed ranks: null
+   rows exact zeros, every row bit-identical to a launch on it alone;
+10. lora http — llama-3.2-1b (16 layers, bf16) served by the port's own
+   HTTP server with 8 virtual-model tenants (PEFT adapters from a seed):
+   a warm pass, then 12 concurrent chat / completion requests (half
+   streamed, half greedy) to the tenants and the base, checked over HTTP;
+   then the same 12 to a base with no tenants (the tenancy cost);
+11. lora 8b int8 — llama-3-8b int8 with 4 tenants and 4 adapter-less
+   requests through Engine.submit (B1, B2, B3, B4 and B5 on one path);
+   then the small f32 model's paged engine with three tenants and a null
+   row on the card against the same engine on the CPU.
+In 5, 6, 8, 10 and 11 the kernel launch counters, zeroed just before each
+run, show that the path went through the kernels.
 
 The last lines are the kernels' JSON record, the card's `nvidia-smi` name
 and power limit, and the result line
@@ -55,6 +70,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -545,12 +561,14 @@ def phase_model(gen: torch.Generator) -> dict:
           f"small model paged path: {card_launches} paged kernel launches")
 
     # (b) Full-width llama-3.2-1b, bf16, random weights: the prefill through
-    # the kernel against the same call through the dense attention.
-    cfg = get_arch("llama-3.2-1b")
+    # the kernel against the same call through the dense attention. The
+    # earlier slices' 1b phases (this one, 5 and 6) run 8 of its 16 layers
+    # to keep the whole script's time in hand; lora_http serves all 16.
+    cfg = dataclasses.replace(get_arch("llama-3.2-1b"), num_layers=8)
     t0 = time.monotonic()
     params = llama.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
-    log(f"[model llama-3.2-1b] random bf16 weights in {time.monotonic() - t0:.1f}s, "
+    log(f"[model llama-3.2-1b, 8 layers] random bf16 weights in {time.monotonic() - t0:.1f}s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     B, S = 2, 512
     toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")
@@ -571,10 +589,10 @@ def phase_model(gen: torch.Generator) -> dict:
     ids = _greedy_decode(cfg, params, logits, ks, vs, lens, 16, "cuda")
     ref_ids = _greedy_decode(cfg, params, ref, rks, rvs, lens, 16, "cuda")
     agree = sum(a == b for x, y in zip(ids, ref_ids) for a, b in zip(x, y)) / (16 * B)
-    log(f"[model llama-3.2-1b bf16] kernel vs dense prefill: logits max_abs_err={err:.4f} "
+    log(f"[model llama-3.2-1b bf16, 8 layers] kernel vs dense prefill: logits max_abs_err={err:.4f} "
         f"(max |logit| {scale:.3f}), top-1 agreement={top1:.2f}, greedy ids over 16 steps "
         f"agree {agree:.2f}; kernel-path ids row0={[x[0] for x in ids]}")
-    # bf16 activations through 16 layers: the two attentions round at
+    # bf16 activations through 8 layers: the two attentions round at
     # different places; allow 5% of the largest logit.
     check(err <= 0.05 * scale, f"llama-3.2-1b prefill logits differ by {err} (max {scale})")
     return {"params": params, "cfg": cfg, "small": small, "p_small": p_gpu, "p_small_cpu": p_cpu}
@@ -693,14 +711,16 @@ def phase_quant_model(gen: torch.Generator) -> dict:
 # 5. engine, 6. paged engine
 # --------------------------------------------------------------------------- #
 
-def _serve(eng, plens: list[int], max_new: int = 64) -> dict:
-    """Submit one request per prompt length (half greedy, half seeded top-p)
-    and stream them all; the kernel counters go to 0 just before the run
-    and are read just after it."""
+def _serve(eng, plens: list[int], max_new: int = 64, adapters=None) -> dict:
+    """Submit one request per prompt length (half greedy, half seeded top-p;
+    request i with the runtime LoRA adapter adapters[i], if given) and
+    stream them all; the kernel counters go to 0 just before the run and
+    are read just after it."""
     from localai_tpu_torch.engine.engine import GenRequest
     from localai_tpu_torch.models import quant
     from localai_tpu_torch.ops import quant_matmul
     from localai_tpu_torch.ops.flash import flash_prefill_attention
+    from localai_tpu_torch.ops.lora_matmul import lora_bgmv
     from localai_tpu_torch.ops.paged_flash import paged_partials_rows
 
     gen = torch.Generator().manual_seed(3)
@@ -710,7 +730,8 @@ def _serve(eng, plens: list[int], max_new: int = 64) -> dict:
         sampled = i % 2 == 1
         reqs.append(GenRequest(prompt_ids=ids, max_new_tokens=max_new, ignore_eos=True,
                                temperature=0.8 if sampled else 0.0,
-                               top_p=0.9 if sampled else 1.0, seed=100 + i))
+                               top_p=0.9 if sampled else 1.0, seed=100 + i,
+                               adapter=adapters[i] if adapters else None))
     results: list = [None] * len(reqs)
 
     def consume(i, handle, t_submit):
@@ -736,6 +757,9 @@ def _serve(eng, plens: list[int], max_new: int = 64) -> dict:
     paged_partials_rows.launches = 0
     quant_matmul.qmm.launches = quant_matmul.qunembed.launches = 0
     quant.matmul.dequant_calls = quant.unembed_matmul.dequant_calls = 0
+    lora_bgmv.launches = 0
+    # Engine counters are read as differences over this run.
+    m0, tok0, dt0 = eng.metrics(), eng._decode_tokens, eng._decode_time
     t0 = time.monotonic()
     threads = []
     with swapped(quant_matmul, "dispatch_matmul", recording):
@@ -752,8 +776,10 @@ def _serve(eng, plens: list[int], max_new: int = 64) -> dict:
                 "quant_matmul": quant_matmul.qmm.launches,
                 "quant_unembed": quant_matmul.qunembed.launches,
                 "matmul_dequant_calls": quant.matmul.dequant_calls,
-                "unembed_dequant_calls": quant.unembed_matmul.dequant_calls}
+                "unembed_dequant_calls": quant.unembed_matmul.dequant_calls,
+                "lora_bgmv": lora_bgmv.launches}
     metrics = eng.metrics()
+    refs = [int(r) for r in eng._adapter_refs]
     eng.stop()
     check(all(not th.is_alive() for th in threads), "engine: a request never finished")
     completion, ttfts = 0, []
@@ -767,20 +793,26 @@ def _serve(eng, plens: list[int], max_new: int = 64) -> dict:
               f"request {i}: {ntok} token events, {done.completion_tokens} completion tokens")
         completion += done.completion_tokens
         ttfts.append(first)
+    def delta(k):
+        return int(metrics[k] - m0[k])
+
     return dict(requests=len(reqs), completion_tokens=completion, wall_s=wall,
                 ttft_ms_p50=statistics.median(ttfts) * 1e3, ttft_ms_max=max(ttfts) * 1e3,
-                decode_tok_s=metrics["tokens_per_second"], e2e_tok_s=completion / wall,
-                admissions=int(metrics["admissions"]),
-                decode_blocks=int(metrics["decode_blocks"]),
-                decode_steps=int(metrics["decode_steps"]),
-                prefill_chunks=int(metrics["prefill_chunks"]),
-                prefill_chunks_interleaved=int(metrics["prefill_chunks_interleaved"]),
-                chunked_admits=int(metrics["chunked_admits"]),
+                decode_tok_s=(eng._decode_tokens - tok0) / (eng._decode_time - dt0),
+                e2e_tok_s=completion / wall,
+                admissions=delta("admissions"),
+                decode_blocks=delta("decode_blocks"),
+                decode_steps=delta("decode_steps"),
+                prefill_chunks=delta("prefill_chunks"),
+                prefill_chunks_interleaved=delta("prefill_chunks_interleaved"),
+                chunked_admits=delta("chunked_admits"),
                 kv_pages_peak=int(metrics["kv_pages_peak"]),
-                kv_preemptions=int(metrics["kv_preemptions"]),
+                kv_preemptions=delta("kv_preemptions"),
                 weight_bytes=int(metrics["weight_bytes"]),
                 dequant_rows_min=min((r for r, _f in dequant_rows), default=None),
                 dequant_small_float_calls=sum(f and r <= 256 for r, f in dequant_rows),
+                adapter_refs=refs,
+                adapter_metrics={k: v for k, v in metrics.items() if k.startswith("adapter")},
                 launches=launches)
 
 
@@ -796,7 +828,7 @@ def phase_engine(cfg, params) -> dict:
           f"flash kernel launches {n['flash_prefill']} != {L} layers x "
           f"{out['admissions']} admissions")
     check(n["paged_attention"] == 0, "the dense engine launched the paged kernel")
-    log("[engine llama-3.2-1b dense] " + json.dumps(out))
+    log("[engine llama-3.2-1b dense, 8 layers] " + json.dumps(out))
     return out
 
 
@@ -825,7 +857,7 @@ def phase_paged_engine(cfg, params, small, p_small) -> dict:
     check(out["chunked_admits"] == 4 and out["prefill_chunks"] == 2 + 3 + 6 + 7,
           f"chunked admissions {out['chunked_admits']}, chunks {out['prefill_chunks']}")
     check(out["prefill_chunks_interleaved"] > 0, "no prefill chunk ran between decode blocks")
-    log("[engine llama-3.2-1b paged] " + json.dumps(out))
+    log("[engine llama-3.2-1b paged, 8 layers] " + json.dumps(out))
 
     # The small f32 model: paged + chunked engine against the dense engine.
     texts = {}
@@ -847,8 +879,9 @@ def phase_paged_engine(cfg, params, small, p_small) -> dict:
 
 
 
-def _check_quant_launches(label: str, L: int, out: dict) -> None:
-    """The launch identities of a quantized paged engine run."""
+def _check_quant_launches(label: str, L: int, out: dict, chunks=(4, 2 + 3 + 6 + 7)) -> None:
+    """The launch identities of a quantized paged engine run; `chunks` is
+    the run's (chunked admissions, prefill chunks)."""
     n = out["launches"]
     passes = out["admissions"] + out["prefill_chunks"]
     check(n["quant_matmul"] > 0 and n["quant_matmul"] + n["matmul_dequant_calls"]
@@ -867,7 +900,7 @@ def _check_quant_launches(label: str, L: int, out: dict) -> None:
           f"{out['prefill_chunks']})")
     check(n["flash_prefill"] == L * out["admissions"] and n["flash_prefill"] > 0,
           f"{label}: B1 launches {n['flash_prefill']} != {L} x {out['admissions']}")
-    check(out["chunked_admits"] == 4 and out["prefill_chunks"] == 2 + 3 + 6 + 7,
+    check((out["chunked_admits"], out["prefill_chunks"]) == tuple(chunks),
           f"{label}: chunked admissions {out['chunked_admits']}, chunks {out['prefill_chunks']}")
 
 
@@ -910,6 +943,463 @@ def phase_quant_engines(model: dict, small, p_small, p_small_cpu) -> dict:
     return runs
 
 
+# --------------------------------------------------------------------------- #
+# 9. lora kernels
+# --------------------------------------------------------------------------- #
+
+# Every LoRA target projection (in, out) of llama-3.2-1b, then llama-3-8b:
+# wq / wo, wk / wv, w_gate / w_up, w_down.
+LORA_SHAPES = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048),
+               (4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
+
+
+def _lora_work(ids, NA, n_in, n_out, R, elt) -> tuple[float, float]:
+    """(FLOPs, bytes) of the delta on these ids: 2·R·(in + out) per row
+    with an adapter; the distinct adapters' factors, x, the ids and the
+    output each moved once (null rows read no factors)."""
+    used = {int(i) for i in ids if 0 < int(i) < NA}
+    active = sum(1 for i in ids if 0 < int(i) < NA)
+    N = len(ids)
+    flops = 2.0 * R * (n_in + n_out) * active
+    nbytes = elt * (len(used) * R * (n_in + n_out) + N * (n_in + n_out)) + 4 * N
+    return flops, nbytes
+
+
+# bf16: both sides compute in f32 (bf16 factors widen exactly) and round once
+# to bf16, so they may differ by one bf16 step (2^-7 of the value) plus a
+# summation-order term of 1e-4 of the largest value.
+LORA_REL_BF16, LORA_REL_SUM = 2.0**-7, 1e-4
+
+
+def _hold_lora(x, a, b, ids) -> dict:
+    """One B5 launch against lora_delta_plain on the same inputs: the error
+    within the stated tolerance, null rows exact zeros, and each row (all of
+    them up to 9 rows, else four) bit-identical to a launch on it alone."""
+    from localai_tpu_torch.ops.lora_matmul import lora_bgmv, lora_delta_plain
+
+    out = lora_bgmv(x, a, b, ids)
+    torch.cuda.synchronize()
+    want = lora_delta_plain(x, a, b, ids)
+    scale = want.float().abs().max().item()
+    err = (out.float() - want.float()).abs()
+    host_ids = ids.tolist()
+    N = len(host_ids)
+    null_exact = all(bool((out[n] == 0).all()) for n, i in enumerate(host_ids) if i == 0)
+    check_rows = range(N) if N <= 9 else (0, 1, N // 2, N - 1)
+    independent = all(torch.equal(out[n:n + 1], lora_bgmv(x[n:n + 1], a, b, ids[n:n + 1]))
+                      for n in check_rows)
+    ok = (bool((err <= LORA_REL_BF16 * want.float().abs() + LORA_REL_SUM * scale).all())
+          and null_exact and independent and bool(torch.isfinite(out).all()))
+    return dict(shape=[N, a.shape[1], b.shape[2]], rank=a.shape[2],
+                dtype=str(x.dtype).replace("torch.", ""), ids=host_ids if N <= 9 else None,
+                max_abs_err=err.max().item(), out_max=scale, null_exact=null_exact,
+                rows_independent=independent, ok=ok)
+
+
+def phase_lora_kernels(gen: torch.Generator) -> list[dict]:
+    from localai_tpu_torch.ops.lora_matmul import lora_bgmv, lora_delta_plain
+
+    dt = torch.bfloat16
+    cases = [(n_in, n_out, R, 9, None) for n_in, n_out in LORA_SHAPES for R in (16, 64)]
+    # lora_http's decode block: rank 32 (tenants 6-7 pad the stack), 8 slots
+    # over 9 stack rows, at each llama-3.2-1b target shape.
+    cases += [(n_in, n_out, 32, 8, None) for n_in, n_out in LORA_SHAPES[:4]]
+    cases += [(4096, 4096, 16, 1, None), (4096, 4096, 16, 256, None), (2048, 2048, 32, 9, 8)]
+    rows = []
+    for n_in, n_out, R, N, small_rank in cases:
+        NA = 9  # 8 adapters and the null one
+        a = (torch.randn(NA, n_in, R, generator=gen, device="cuda") * 0.05).to(dt)
+        b = (torch.randn(NA, R, n_out, generator=gen, device="cuda") * 0.05).to(dt)
+        a[0] = 0
+        b[0] = 0
+        if small_rank:  # a rank-8 adapter zero-padded inside the rank-32 stack
+            a[1, :, small_rank:] = 0
+            b[1, small_rank:] = 0
+        x = torch.randn(N, n_in, generator=gen, device="cuda").to(dt)
+        if N == 9:  # 8 distinct adapters and one null row
+            ids = torch.tensor([1, 2, 3, 4, 0, 5, 6, 7, 8], dtype=torch.int32, device="cuda")
+        elif N == 8:  # 7 tenants and one adapter-less slot
+            ids = torch.tensor([8, 1, 0, 6, 3, 2, 7, 5], dtype=torch.int32, device="cuda")
+        else:
+            ids = (torch.arange(N, device="cuda") % NA).to(torch.int32)
+            ids[0] = 1
+        row = _hold_lora(x, a, b, ids)
+        host_ids = ids.tolist()
+        ms = cuda_time_cold_ms(lambda: lora_bgmv(x, a, b, ids), 20)
+        plain_ms = cuda_time_cold_ms(lambda: lora_delta_plain(x, a, b, ids), 3)
+        # For reference only (not one call computing the same function, and
+        # not a route of the port): torch.bmm twice on factors gathered
+        # beforehand, in the model dtype.
+        idx = ids.long()
+        a_sel, b_sel = a[idx], b[idx]
+        x3 = x[:, None, :]
+        bmm2_ms = cuda_time_cold_ms(lambda: torch.bmm(torch.bmm(x3, a_sel), b_sel), 20)
+        del a_sel, b_sel
+        bound_ms, bound_by = _bound(*_lora_work(host_ids, NA, n_in, n_out, R, dt.itemsize),
+                                    torch.float32)
+        row.update(padded_rank=small_rank, ms=ms, plain_ms=plain_ms, bmm2_gathered_ms=bmm2_ms,
+                   bound_ms=bound_ms, bound_by=bound_by)
+        log(f"[kernel lora_bgmv] {json.dumps(row)}")
+        check(row["ok"], f"lora_bgmv disagrees with its plain version at {row}")
+        rows.append(row)
+        del a, b
+    # A CUDA tensor B5 does not take raises (no other route serves it).
+    a = torch.zeros(3, 64, 8, dtype=dt, device="cuda")
+    b = torch.zeros(3, 8, 64, dtype=dt, device="cuda")
+    for bad_x, bad_ids in ((torch.zeros(2, 64, dtype=torch.float16, device="cuda"),
+                            torch.zeros(2, dtype=torch.int32, device="cuda")),
+                           (torch.zeros(2, 64, dtype=dt, device="cuda"),
+                            torch.tensor([0, 3], dtype=torch.int32))):
+        try:
+            lora_bgmv(bad_x, a, b, bad_ids)
+        except (TypeError, ValueError) as e:
+            log(f"[kernel lora_bgmv] refused as it should: {e}")
+        else:
+            fail("lora_bgmv took a tensor it does not support")
+    torch.cuda.empty_cache()
+    return rows
+
+
+# --------------------------------------------------------------------------- #
+# 10. lora http: llama-3.2-1b tenants through the port's HTTP server
+# --------------------------------------------------------------------------- #
+
+LORA_BASE_YAML = {"name": "llama-1b", "model": "llama-3.2-1b", "context_size": 4096,
+                  "max_slots": 8, "kv_pages": 256, "kv_page_size": 128,
+                  "prefill_chunk": 512, "max_tokens": 64,
+                  # Every id decodes to one printable character, so a random
+                  # model's stream carries content (a byte tokenizer would
+                  # decode ids >= 256 to nothing).
+                  "tokenizer": "synthetic-bytes"}
+
+
+def _write_models_dir(root: str, tenants: bool) -> None:
+    """The base YAML and, with `tenants`, 8 virtual models over it whose
+    PEFT adapters are written from a numpy seed: tenants 0-5 are the JAX
+    bench's LoRA row (rank 16 on q_proj / v_proj, lora_alpha = r), tenants
+    6-7 rank 32 on all seven projections. Factors are normal · 0.04, so a
+    tenant's delta is a sizeable share of the base product."""
+    import yaml
+
+    from localai_tpu_torch.engine.weights import random_lora_adapter
+    from localai_tpu_torch.models import get_arch
+
+    with open(f"{root}/llama-1b.yaml", "w") as f:
+        yaml.safe_dump(LORA_BASE_YAML, f)
+    if not tenants:
+        return
+    cfg = get_arch(LORA_BASE_YAML["model"])
+    every = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+    for t in range(8):
+        r, targets = (16, ("wq", "wv")) if t < 6 else (32, every)
+        random_lora_adapter(cfg, f"{root}/adapters/t{t}", r, r, targets, seed=t, scale=0.04)
+        with open(f"{root}/tenant{t}.yaml", "w") as f:
+            yaml.safe_dump({"name": f"tenant{t}", "base_model": "llama-1b",
+                            "adapter": f"adapters/t{t}", "max_tokens": 64}, f)
+
+
+def _http(base: str, path: str, payload: dict, t_submit: float) -> dict:
+    """POST one request; for a stream, read the SSE frames as they come.
+    Returns status, the parsed body or the frames, and the client's TTFT."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(base + path, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=900) as r:
+            if not payload.get("stream"):
+                return {"status": r.status, "body": json.loads(r.read())}
+            frames, ttft = [], None
+            for line in r:
+                line = line.decode().strip()
+                if not line.startswith("data: "):
+                    continue
+                frames.append(line[6:])
+                if ttft is None and line[6:] != "[DONE]":
+                    c = json.loads(line[6:])["choices"][0]
+                    if c.get("text") or (c.get("delta") or {}).get("content"):
+                        ttft = time.monotonic() - t_submit
+            return {"status": r.status, "frames": frames, "ttft": ttft}
+    except urllib.error.HTTPError as e:
+        return {"status": e.code, "body": e.read().decode()}
+
+
+def _lora_requests() -> list[tuple[str, str, dict]]:
+    """The measured batch: one request per tenant and 4 to the base, chat
+    and completions, half streamed, half greedy (the rest seeded top-p 0.9
+    at temperature 0.8), prompts of 20-1500 tokens (the byte tokenizer: one
+    token per character), 64 new tokens each. Request 8 repeats request 0's
+    greedy prompt on the base."""
+    import random
+
+    rnd = random.Random(7)
+    lens = [20, 100, 300, 700, 1500, 20, 100, 300, 20, 700, 1500, 300]
+    out = []
+    for i, n in enumerate(lens):
+        model = f"tenant{i}" if i < 8 else "llama-1b"
+        text = "".join(rnd.choice("abcdefghijklmnopqrstuvwxyz ") for _ in range(n))
+        greedy = i % 2 == 0
+        body = {"model": model, "max_tokens": 64, "ignore_eos": True, "stream": i % 4 in (1, 2),
+                "temperature": 0.0 if greedy else 0.8, "top_p": 1.0 if greedy else 0.9,
+                "seed": 100 + i}
+        chat = i % 3 != 2
+        if chat:
+            body["messages"] = [{"role": "user", "content": text}]
+        else:
+            body["prompt"] = text
+        out.append(("/v1/chat/completions" if chat else "/v1/completions", model, body))
+    path0, _m, body0 = out[0]
+    out[8] = (path0, "llama-1b", {**body0, "model": "llama-1b"})
+    return out
+
+
+def _http_batch(base: str, reqs) -> tuple[list[dict], float]:
+    results: list = [None] * len(reqs)
+
+    def run(i, path, body):
+        results[i] = _http(base, path, body, time.monotonic())
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=run, args=(i, path, body))
+               for i, (path, _m, body) in enumerate(reqs)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    check(all(not th.is_alive() for th in threads), "lora_http: a request never finished")
+    return results, time.monotonic() - t0
+
+
+def _check_http_results(label: str, reqs, results) -> tuple[list[str], list[float]]:
+    """Every response 200, every stream ends in [DONE], completion tokens =
+    the tokens streamed (64). Returns each request's text and the streams'
+    TTFTs."""
+    texts, ttfts = [], []
+    for i, ((_path, _model, body), res) in enumerate(zip(reqs, results)):
+        check(res["status"] == 200, f"{label}: request {i} got HTTP {res['status']}: "
+                                    f"{res.get('body')}")
+        if body["stream"]:
+            check(res["frames"][-1] == "[DONE]", f"{label}: stream {i} did not end in [DONE]")
+            chunks = [json.loads(f) for f in res["frames"][:-1]]
+            check(not any("error" in c for c in chunks), f"{label}: stream {i} errored")
+            toks = [c["choices"][0] for c in chunks if c["choices"][0]["finish_reason"] is None
+                    and ("text" in c["choices"][0] or "content" in c["choices"][0]["delta"])]
+            if "messages" in body:  # the role chunk carries no token
+                toks = toks[1:]
+            usage = chunks[-1]["usage"]
+            text = "".join(c.get("text") or c.get("delta", {}).get("content", "") for c in toks)
+            ttfts.append(res["ttft"])
+            check(usage["completion_tokens"] == len(toks) == 64,
+                  f"{label}: stream {i}: {len(toks)} token chunks, usage {usage}")
+        else:
+            c = res["body"]["choices"][0]
+            text = c["message"]["content"] if "message" in c else c["text"]
+            check(res["body"]["usage"]["completion_tokens"] == 64,
+                  f"{label}: request {i}: usage {res['body']['usage']}")
+        texts.append(text)
+    return texts, ttfts
+
+
+def _start_server(root: str):
+    from localai_tpu_torch.config import ApplicationConfig
+    from localai_tpu_torch.server import ModelManager, OpenAIApi, Router, create_server
+
+    app = ApplicationConfig(address="127.0.0.1", port=0, models_dir=root)
+    manager = ModelManager(app, device="cuda")
+    router = Router()
+    OpenAIApi(manager).register(router)
+    server = create_server(app, router)
+    threading.Thread(target=server.serve_forever, daemon=True, name="http").start()
+    return manager, server, f"http://127.0.0.1:{server.server_address[1]}"
+
+
+def _hold_served_lora(eng) -> list[dict]:
+    """B5 against its plain version on the served engine's own stacks, at
+    the first and last layer of every key, with the decode block's shape:
+    one row per slot, ids in the stack's rows (every resident tenant, then
+    a block with an adapter-less slot riding the null row). x stands for
+    the layer's activations (normal, bf16)."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    S, NA = eng.ecfg.max_slots, eng._lora_tree["wq"]["a"].shape[1]
+    blocks = [torch.arange(1, S + 1) % NA, torch.arange(S) % NA]
+    rows = []
+    for key, ent in sorted(eng._lora_tree.items()):
+        for li in (0, eng.cfg.num_layers - 1):
+            a, b = ent["a"][li], ent["b"][li]
+            for ids in blocks:
+                x = torch.randn(S, a.shape[1], generator=gen, device="cuda").to(a.dtype)
+                row = _hold_lora(x, a, b, ids.to(device="cuda", dtype=torch.int32))
+                row.update(key=key, layer=li)
+                check(row["ok"], f"lora_http: B5 on the served stacks disagrees: {row}")
+                rows.append(row)
+    worst = max(rows, key=lambda r: r["max_abs_err"] / max(r["out_max"], 1e-30))
+    log(f"[lora_http served stacks] B5 vs plain on {len(rows)} (key, layer, ids) cases, "
+        f"all ok; worst relative: {json.dumps(worst)}")
+    return rows
+
+
+def phase_lora_http() -> dict:
+    from localai_tpu_torch.ops.lora_matmul import lora_bgmv
+
+    reqs = _lora_requests()
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        _write_models_dir(root, tenants=True)
+        manager, server, base = _start_server(root)
+        try:
+            # Warm pass: one short request per tenant, so every tenant is
+            # promoted and the stacks hold all seven keys at rank 32.
+            warm = [("/v1/completions", f"tenant{t}",
+                     {"model": f"tenant{t}", "prompt": "warm up", "max_tokens": 4,
+                      "temperature": 0.0}) for t in range(8)]
+            results, _ = _http_batch(base, warm)
+            check(all(r["status"] == 200 for r in results), f"lora_http warm pass: {results}")
+            eng = manager.peek("llama-1b").engine
+            stacks = {k: list(v["a"].shape) for k, v in eng._lora_tree.items()}
+            check(len(stacks) == 7 and all(s[1] == 9 and s[3] == 32 for s in stacks.values()),
+                  f"lora_http: stacks after the warm pass {stacks}")
+            # The measured batch: counters to 0 just before, read just after.
+            m0, tok0, dt0 = eng.metrics(), eng._decode_tokens, eng._decode_time
+            lora_bgmv.launches = 0
+            results, wall = _http_batch(base, reqs)
+            launches = lora_bgmv.launches
+            m1 = eng.metrics()
+            texts, ttfts = _check_http_results("lora_http", reqs, results)
+            steps = int(m1["decode_steps"] - m0["decode_steps"])
+            L = eng.cfg.num_layers
+            # Admissions run no B5: their x is [B, S, D] (3-D), which takes
+            # the gather form; prefill chunks carry no LoRA operand. Every
+            # decode step runs the delta for all 8 slots (adapter-less and
+            # idle slots ride id 0) on each of the 7 keys of every layer,
+            # one wrapper call (shrink + expand) each.
+            check(launches == steps * L * 7 and launches > 0,
+                  f"lora_http: {launches} B5 launches != {steps} decode steps x {L} layers x 7")
+            check(texts[0] != texts[8], "lora_http: tenant0's greedy output equals the base's")
+            refs = [int(r) for r in eng._adapter_refs]
+            check(not any(refs), f"lora_http: adapter pins left at the end: {refs}")
+            dt_s = eng._decode_time - dt0
+            out["tenants"] = dict(
+                requests=len(reqs), wall_s=wall, ttft_ms_p50=statistics.median(ttfts) * 1e3,
+                ttft_ms_max=max(ttfts) * 1e3, decode_tok_s=(eng._decode_tokens - tok0) / dt_s,
+                decode_ms_per_step=dt_s / steps * 1e3, e2e_tok_s=64 * len(reqs) / wall,
+                decode_steps=steps, admissions=int(m1["admissions"] - m0["admissions"]),
+                prefill_chunks=int(m1["prefill_chunks"] - m0["prefill_chunks"]),
+                lora_bgmv_launches=launches, adapter_refs=refs,
+                adapter_metrics={k: v for k, v in m1.items() if k.startswith("adapter")},
+                stacks=stacks)
+            log("[lora_http llama-3.2-1b 8 tenants] " + json.dumps(out["tenants"]))
+            out["kernel_rows"] = _hold_served_lora(eng)
+        finally:
+            server.shutdown()
+            manager.shutdown()
+    # The same 12 requests, all to a fresh base with no tenants registered.
+    base_reqs = [(p, "llama-1b", {**b, "model": "llama-1b"}) for p, _m, b in reqs]
+    with tempfile.TemporaryDirectory() as root:
+        _write_models_dir(root, tenants=False)
+        manager, server, base = _start_server(root)
+        try:
+            _http_batch(base, [("/v1/completions", "llama-1b",
+                                {"model": "llama-1b", "prompt": "warm up", "max_tokens": 4})])
+            eng = manager.peek("llama-1b").engine
+            m0, tok0, dt0 = eng.metrics(), eng._decode_tokens, eng._decode_time
+            lora_bgmv.launches = 0
+            results, wall = _http_batch(base, base_reqs)
+            _texts, ttfts = _check_http_results("lora_http base", base_reqs, results)
+            check(lora_bgmv.launches == 0 and eng._lora_tree is None,
+                  "lora_http base: the tenant-less base ran the LoRA kernel")
+            m1 = eng.metrics()
+            steps = int(m1["decode_steps"] - m0["decode_steps"])
+            dt_s = eng._decode_time - dt0
+            out["base"] = dict(requests=len(base_reqs), wall_s=wall,
+                               ttft_ms_p50=statistics.median(ttfts) * 1e3,
+                               ttft_ms_max=max(ttfts) * 1e3,
+                               decode_tok_s=(eng._decode_tokens - tok0) / dt_s,
+                               decode_ms_per_step=dt_s / steps * 1e3,
+                               e2e_tok_s=64 * len(base_reqs) / wall, decode_steps=steps)
+        finally:
+            server.shutdown()
+            manager.shutdown()
+    # Two host-clock readings, neither the kernel's cost alone. The tok/s
+    # ratio (the JAX bench's lora_multi_vs_base) depends on scheduling:
+    # adapter requests admit alone, so the tenant run decodes at other slot
+    # occupancies and takes other step counts than the base. The ms per
+    # decode step compares like with like (a step costs about the same at
+    # any occupancy) but includes the host's share of each step;
+    # profile_engine.py --lora gives the device time per step.
+    out["lora_multi_vs_base_tok_s_scheduling_dependent"] = (
+        out["tenants"]["decode_tok_s"] / out["base"]["decode_tok_s"])
+    out["lora_step_ms_vs_base"] = (out["tenants"]["decode_ms_per_step"]
+                                   / out["base"]["decode_ms_per_step"])
+    log("[lora_http llama-3.2-1b base, no tenants] " + json.dumps(out["base"])
+        + " lora_multi_vs_base (tok/s, scheduling-dependent)="
+        + f"{out['lora_multi_vs_base_tok_s_scheduling_dependent']:.3f}"
+        + f" decode ms/step tenants vs base={out['lora_step_ms_vs_base']:.3f}")
+    torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# 11. lora on llama-3-8b int8, and the small model card vs CPU
+# --------------------------------------------------------------------------- #
+
+def phase_lora_8b(qmodel: dict, small, p_small, p_small_cpu) -> dict:
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig, GenRequest
+    from localai_tpu_torch.engine.tokenizer import ByteTokenizer
+    from localai_tpu_torch.engine.weights import random_lora_adapter
+
+    cfg = qmodel["cfg"]
+    L = cfg.num_layers
+    with tempfile.TemporaryDirectory() as root:
+        eng = Engine(cfg, qmodel["int8"], ByteTokenizer(cfg.vocab_size), device="cuda",
+                     engine_cfg=EngineConfig(**PAGED_ENGINE))
+        for t in range(4):  # rank 16 on q / v / o / down: B5 at 14336 -> 4096
+            eng.register_adapter(f"t{t}", random_lora_adapter(
+                cfg, f"{root}/t{t}", 16, 16, ("wq", "wv", "wo", "w_down"), seed=10 + t))
+        for t in range(4):  # warm pass: every tenant promoted before the run
+            _text, ev = eng.generate([1, 2, 3], max_new_tokens=2, adapter=f"t{t}")
+            check(ev.kind == "done", f"lora_8b warm pass: {ev}")
+        # Tenants admit single-shot (1500 tokens: the dequant route);
+        # adapter-less requests of 700 and 3000 tokens chunk.
+        plens = [20, 300, 700, 1500, 20, 100, 700, 3000]
+        out = _serve(eng, plens, adapters=["t0", "t1", "t2", "t3", None, None, None, None])
+        del eng
+    log("[lora_8b llama-3-8b int8, 4 tenants] " + json.dumps(out))
+    _check_quant_launches("lora_8b", L, out, chunks=(2, 2 + 6))
+    n = out["launches"]
+    check(n["lora_bgmv"] == out["decode_steps"] * L * 4 and n["lora_bgmv"] > 0,
+          f"lora_8b: B5 launches {n['lora_bgmv']} != {out['decode_steps']} decode steps x "
+          f"{L} layers x 4 keys")
+    check(not any(out["adapter_refs"]), f"lora_8b: pins left {out['adapter_refs']}")
+    torch.cuda.empty_cache()
+
+    # The small f32 model, paged, three tenants and one null row: B5 on the
+    # card against the plain version on the CPU.
+    texts = {}
+    with tempfile.TemporaryDirectory() as root:
+        dirs = [random_lora_adapter(small, f"{root}/s{t}", 8, 16,
+                                    ("wq", "wv", "wo", "w_down", "w_gate")[: 2 + t], seed=20 + t,
+                                    scale=0.05) for t in range(3)]
+        for dev, p in (("cuda", p_small), ("cpu", p_small_cpu)):
+            e = Engine(small, p, ByteTokenizer(small.vocab_size), device=dev,
+                       engine_cfg=EngineConfig(max_slots=4, max_seq=256, block_sizes=(8,),
+                                               kv_pages=16, kv_page_size=64))
+            try:
+                for t, d in enumerate(dirs):
+                    e.register_adapter(f"s{t}", d)
+                hs = [e.submit(GenRequest(prompt_ids=[(j * m) % 250 + 1 for j in range(n_)],
+                                          max_new_tokens=24, ignore_eos=True, adapter=ad))
+                      for n_, m, ad in ((150, 7, "s0"), (3, 1, None), (70, 3, "s1"),
+                                        (40, 11, "s2"))]
+                texts[dev] = [[ev.token_id for ev in h if ev.kind == "token"] for h in hs]
+            finally:
+                e.stop()
+    log(f"[lora tiny-d64 f32 paged, 3 tenants + null] card greedy ids equal the CPU's: "
+        f"{texts['cuda'] == texts['cpu']}")
+    check(texts["cuda"] == texts["cpu"], "small LoRA engine: card ids differ from the CPU's")
+    return out
+
+
 def _compact(row: dict, keys) -> dict:
     return {k: row[k] for k in keys}
 
@@ -942,9 +1432,15 @@ def main() -> None:
     qmodel = timed("quant_model", phase_quant_model, gen)
     qruns = timed("quant_engines", phase_quant_engines, qmodel, model["small"],
                   model["p_small"], model["p_small_cpu"])
-    runs = {"dense_engine": dense, "paged_engine": paged, **qruns}
+    lora_rows = timed("lora_kernels", phase_lora_kernels, gen)
+    lora_http = timed("lora_http", phase_lora_http)
+    lora_8b = timed("lora_8b", phase_lora_8b, qmodel, model["small"], model["p_small"],
+                    model["p_small_cpu"])
+    runs = {"dense_engine": dense, "paged_engine": paged, **qruns, "lora_8b_int8": lora_8b}
     by_path = {k: {path: out["launches"][k] for path, out in runs.items()}
-               for k in ("flash_prefill", "paged_attention", "quant_matmul", "quant_unembed")}
+               for k in ("flash_prefill", "paged_attention", "quant_matmul", "quant_unembed",
+                         "lora_bgmv")}
+    by_path["lora_bgmv"]["lora_http"] = lora_http["tenants"]["lora_bgmv_launches"]
     main_row = next(r for r in rows if r["shape"] == [8, 2048, 32, 8, 64])
     flash_record = {
         "name": "flash_prefill",
@@ -1037,9 +1533,42 @@ def main() -> None:
         "library_ms": None,  # no one PyTorch call takes an int8 head with its scales
         "shapes": b4_rows,
     }
+    # The main shape of B5: llama-3.2-1b's wq (2048 -> 2048) at rank 16 over
+    # 8 slots' adapters and a null row, bf16.
+    lora_main = next(r for r in lora_rows if r["shape"] == [9, 2048, 2048] and r["rank"] == 16)
+    served = lora_http["kernel_rows"]
+    lora_record = {
+        "name": "lora_bgmv",
+        "route": "cuda",
+        "source": "localai_tpu_torch/csrc/lora_matmul.cu",
+        "replaces": "localai_tpu/ops/lora_matmul.py:105",
+        "tpu_kernel": "localai_tpu/ops/lora_matmul.py::_lora_kernel",
+        "launches": sum(by_path["lora_bgmv"].values()),
+        "launches_by_path": {k: v for k, v in by_path["lora_bgmv"].items() if v},
+        "shape": {"N": 9, "in": 2048, "out": 2048, "R": 16, "dtype": "bfloat16"},
+        "max_abs_err": max(r["max_abs_err"] for r in lora_rows + served),
+        "tol": "bf16: 2^-7 x |out| + 1e-4 x max|out| (f32 on both sides, one bf16 rounding)",
+        "ok": all(r["ok"] for r in lora_rows + served),
+        # lora_http's own stacks (rank 32, 9 rows) at its decode block's ids.
+        "served_stacks": {"cases": len(served),
+                          "max_abs_err": max(r["max_abs_err"] for r in served)},
+        "ms": lora_main["ms"],
+        "kernel_ms": lora_main["ms"],
+        "plain_ms": lora_main["plain_ms"],
+        "bound_ms": lora_main["bound_ms"],
+        "bound_by": lora_main["bound_by"],
+        # For reference only: torch.bmm twice on factors gathered beforehand
+        # (two calls, not one computing the same function).
+        "bmm2_gathered_ms": lora_main["bmm2_gathered_ms"],
+        "library_ms": None,  # no one PyTorch call computes a per-row gathered delta
+        "shapes": [_compact(r, ("shape", "rank", "padded_rank", "ms", "plain_ms",
+                                "bmm2_gathered_ms", "bound_ms", "max_abs_err"))
+                   for r in lora_rows],
+    }
     log(f"[phases] {json.dumps(seconds)}")
     log(f"[done] all phases passed in {time.monotonic() - t_start:.1f}s")
-    print(json.dumps({"kernels": [flash_record, paged_record, quant_record, unembed_record]}))
+    print(json.dumps({"kernels": [flash_record, paged_record, quant_record, unembed_record,
+                                  lora_record]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),

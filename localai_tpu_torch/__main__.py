@@ -1,0 +1,103 @@
+"""CLI entry point: `python -m localai_tpu_torch [run|models|version]`.
+
+`run` starts the OpenAI-compatible server over the models dir. Its flags
+mirror the env vars ApplicationConfig.from_env reads (LOCALAI_ADDRESS,
+LOCALAI_PORT, LOCALAI_MODELS_PATH, ...), so either style works; `--device`
+picks the engines' device (default `cuda`: the server refuses to start
+without a GPU unless given `--device cpu`).
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import signal
+import sys
+
+
+def _build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="localai-tpu-torch",
+                                description="LocalAI-compatible server on one NVIDIA GPU")
+    sub = p.add_subparsers(dest="command")
+    run = sub.add_parser("run", help="start the API server (default)")
+    run.add_argument("--address", default=None, help="bind address (LOCALAI_ADDRESS)")
+    run.add_argument("--port", type=int, default=None, help="bind port (LOCALAI_PORT)")
+    run.add_argument("--models-path", default=None, help="model configs dir (LOCALAI_MODELS_PATH)")
+    run.add_argument("--api-key", action="append", default=None,
+                     help="require this API key (repeatable)")
+    run.add_argument("--max-active-models", type=int, default=None)
+    run.add_argument("--preload", action="append", default=None,
+                     help="model name to load at boot (repeatable)")
+    run.add_argument("--debug", action="store_true")
+    run.add_argument("--device", default="cuda", help="torch device of the engines (cuda | cpu)")
+    models = sub.add_parser("models", help="list configured models")
+    models.add_argument("--models-path", default=None)
+    sub.add_parser("version", help="print version")
+    return p
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or argv[0].startswith("-"):
+        argv = ["run"] + argv
+    args = _build_parser().parse_args(argv)
+
+    from localai_tpu_torch import __version__
+
+    if args.command == "version":
+        print(__version__)
+        return 0
+    from localai_tpu_torch.config import ApplicationConfig, ModelConfigLoader
+
+    overrides = {}
+    if args.models_path:
+        overrides["models_dir"] = args.models_path
+    if args.command == "models":
+        cfg = ApplicationConfig.from_env(**overrides)
+        for name, mc in sorted(ModelConfigLoader(cfg.models_dir).load_all().items()):
+            print(f"{name}\tbackend={mc.backend}\tmodel={mc.model}")
+        return 0
+
+    if args.address:
+        overrides["address"] = args.address
+    if args.port is not None:
+        overrides["port"] = args.port
+    if args.api_key:
+        overrides["api_keys"] = args.api_key
+    if args.max_active_models:
+        overrides["max_active_models"] = args.max_active_models
+    if args.preload:
+        overrides["preload_models"] = args.preload
+    if args.debug:
+        overrides["debug"] = True
+    app_cfg = ApplicationConfig.from_env(**overrides)
+    logging.basicConfig(level=logging.DEBUG if app_cfg.debug else logging.INFO,
+                        format="%(asctime)s %(levelname)s %(name)s %(message)s")
+    log = logging.getLogger("localai_tpu_torch")
+
+    from localai_tpu_torch.server import ModelManager, OpenAIApi, Router, create_server
+
+    manager = ModelManager(app_cfg, device=args.device)
+    router = Router()
+    OpenAIApi(manager).register(router)
+    for name in app_cfg.preload_models:
+        log.info("preloading model %s", name)
+        manager.get(name)
+    server = create_server(app_cfg, router)
+
+    def _stop(signum, frame):
+        log.info("shutting down")
+        manager.shutdown()
+        raise SystemExit(0)
+
+    signal.signal(signal.SIGINT, _stop)
+    signal.signal(signal.SIGTERM, _stop)
+    log.info("localai-tpu-torch %s listening on %s:%d (device %s, models dir: %s, %d configs)",
+             __version__, app_cfg.address, server.server_address[1], manager.device,
+             app_cfg.models_dir, len(manager.configs.names()))
+    server.serve_forever()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

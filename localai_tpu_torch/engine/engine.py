@@ -32,6 +32,14 @@ number of KV-cache slots by one loop thread ("engine-loop"):
   matmuls run the fused dequant kernels. The KV cache may be stored in fp8
   (`kv_cache_dtype`), and a paged fp8 pool may carry a per-head scale
   (`kv_scale`) so large K / V stay inside the format's range.
+- Multi-tenant runtime LoRA: `register_adapter(name, peft_dir)` makes a
+  tenant, and `GenRequest(adapter=name)` serves it. A tenant's factors are
+  read through a host LRU (`adapter_cache_bytes`) and promoted into the
+  stacked device factors at its first admission; once those exist, every
+  admission and decode block adds each row's own delta beside each base
+  product (the ragged LoRA kernel on the card for decode rows, id 0 = the
+  null adapter for adapter-less rows). Adapter requests admit alone and
+  single-shot; a pinned device row is never evicted.
 - Streaming is UTF-8-safe incremental detokenization with stop-sequence
   hold-back; every generated token posts exactly one event, and every
   request ends with exactly one terminal event (done or error) on every
@@ -44,7 +52,7 @@ bytes whatever else shares the batch.
 Not ported yet (ROADMAP Queue A): pipelined dispatch and CUDA graphs,
 the prefix cache, the host swap tier (preemption always recomputes),
 hierarchical page tables, chunked prefill over a dense cache, grammar,
-logprobs, speculative decoding, fork / n>1, LoRA, tp, deadlines.
+logprobs, speculative decoding, fork / n>1, tp, deadlines.
 """
 
 from __future__ import annotations
@@ -55,13 +63,14 @@ import os
 import queue
 import threading
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from typing import Any, Iterator, Optional
 
 import numpy as np
 import torch
 
 from localai_tpu_torch.device import resolve_device
+from localai_tpu_torch.engine.weights import load_lora_factors, lora_target_dims
 from localai_tpu_torch.models import llama
 from localai_tpu_torch.models.config import ArchConfig
 from localai_tpu_torch.models.quant import is_prequantized, quantize_params
@@ -75,6 +84,12 @@ from localai_tpu_torch.ops.sampling import (
 )
 
 log = logging.getLogger("localai_tpu_torch.engine")
+
+
+class AdapterError(RuntimeError):
+    """A multi-tenant LoRA adapter operation failed: an unknown adapter
+    name, a name rebound to another source, or every device adapter row
+    pinned by an active request."""
 
 
 class QueueFullError(RuntimeError):
@@ -145,6 +160,10 @@ class EngineConfig:
     # e4m3's ±448 keep their values. 1.0 = unscaled storage. Needs
     # kv_pages > 0 and an fp8 kv_cache_dtype.
     kv_scale: float = 1.0
+    # Host-RAM byte budget of the adapter tier: fetched adapter factor
+    # images stay in an LRU under it, so registered adapters can far exceed
+    # the device-resident ones (a miss re-reads the adapter from disk).
+    adapter_cache_bytes: int = 64 << 20
 
     def cache_dtype(self, model_dtype: torch.dtype) -> torch.dtype:
         table = {
@@ -183,6 +202,9 @@ class GenRequest:
     seed: Optional[int] = None
     ignore_eos: bool = False
     logit_bias: dict[int, float] = dataclasses.field(default_factory=dict)
+    # Name of a registered runtime LoRA adapter (Engine.register_adapter)
+    # applied unmerged to this request; None = the base model.
+    adapter: Optional[str] = None
     # Set by the engine on a request it requeued after preempting it: what
     # the re-admitted slot restores (generated tokens, streamed text, the
     # sampler's generator state). Callers leave it None.
@@ -275,6 +297,8 @@ class Engine:
             raise ValueError("block_sizes must be positive")
         if ecfg.max_pending < 0:
             raise ValueError("max_pending must be >= 0 (0 = unbounded)")
+        if ecfg.adapter_cache_bytes < 0:
+            raise ValueError("adapter_cache_bytes must be >= 0")
         self._check_paged_config(ecfg)
         if ecfg.kv_scale <= 0:
             raise ValueError("kv_scale must be > 0")
@@ -336,6 +360,29 @@ class Engine:
         # In-progress chunked admissions, oldest first: each holds a
         # reserved, inactive slot and its page row, withheld from h_ptable.
         self._chunkings: list[dict] = []
+        # Multi-tenant LoRA. _adapter_registry (name -> {dir, weight}) is the
+        # only adapter state touched off the loop thread (register_adapter,
+        # submit), under _adapter_lock. The rest is loop-thread only: the
+        # host factor-image LRU (_adapter_host, bounded by
+        # adapter_cache_bytes), the device row table (_adapter_rows /
+        # _adapter_refs / _adapter_last), the stacked factors (_lora_tree:
+        # {key: {"a": [L, NA, in, R], "b": [L, NA, R, out]}}, row 0 = the
+        # all-zero null adapter) and each slot's row (h_adapter). A row's
+        # refcount changes only in _adapter_acquire / _adapter_unpin.
+        self._adapter_lock = threading.Lock()
+        self._adapter_registry: dict[str, dict] = {}
+        self._adapter_host: OrderedDict[str, dict] = OrderedDict()
+        self._adapter_host_bytes = 0
+        self._adapter_rows: list[Optional[str]] = []
+        self._adapter_refs = np.zeros((0,), np.int32)
+        self._adapter_last: list[float] = []
+        self._lora_tree: Optional[dict] = None
+        self._lora_keys: tuple = ()
+        self._lora_rank = 0
+        self.h_adapter = np.zeros((B,), np.int32)
+        self.m_adapter_fetches = 0
+        self.m_adapter_promotes = 0
+        self.m_adapter_evictions = 0
         # Cross-thread state.
         self._pending: deque[tuple[GenRequest, RequestHandle]] = deque()
         self._pending_lock = threading.Lock()
@@ -430,6 +477,15 @@ class Engine:
             raise ValueError(
                 f"request needs up to {self._pages_worst(request)} KV pages, pool has "
                 f"{self.ecfg.kv_pages}: lower max_new_tokens or grow kv_pages")
+        if request.adapter is not None:
+            # Fail fast on tenant identity; the fetch / promote happens at
+            # admission on the loop thread (and may still fail there, as an
+            # error event: disk, every device row pinned).
+            with self._adapter_lock:
+                known = request.adapter in self._adapter_registry
+            if not known:
+                raise AdapterError(f"unknown adapter {request.adapter!r} — "
+                                   "register_adapter() first")
         handle = RequestHandle()
         handle.t_submit = time.monotonic()
         # The dead check and the append share _pending_lock with the loop's
@@ -458,7 +514,7 @@ class Engine:
 
     def metrics(self) -> dict[str, float]:
         tps = self._decode_tokens / self._decode_time if self._decode_time > 0 else 0.0
-        return {
+        out = {
             "prompt_tokens_processed": float(self.m_prompt_tokens),
             "tokens_generated": float(self.m_generated_tokens),
             "tokens_per_second": tps,
@@ -479,6 +535,17 @@ class Engine:
             "admit_wait_ms": float(self._admit_wait_ewma * 1000.0),
             "loop_dead": 1.0 if self._loop_dead is not None else 0.0,
         }
+        with self._adapter_lock:
+            n_adapters = len(self._adapter_registry)
+        if n_adapters or self._lora_tree is not None:
+            out["adapters_registered"] = float(n_adapters)
+            out["adapter_device_resident"] = float(
+                sum(1 for name in list(self._adapter_rows) if name is not None))
+            out["adapter_host_bytes"] = float(self._adapter_host_bytes)
+            out["adapter_fetches"] = float(self.m_adapter_fetches)
+            out["adapter_promotes"] = float(self.m_adapter_promotes)
+            out["adapter_evictions"] = float(self.m_adapter_evictions)
+        return out
 
     def _weight_bytes(self) -> int:
         """Bytes of the parameters on the device (payloads and scales)."""
@@ -610,6 +677,8 @@ class Engine:
                         if not group:
                             chunk_item = self._pending.popleft()
                         break
+                    if request.adapter is not None and group:
+                        break  # adapter requests admit alone: dispatch the group first
                     if self._paged:
                         need = self._pages_needed(request)
                         if pages_planned + need > len(self._free_pages):
@@ -620,6 +689,10 @@ class Engine:
                         break  # different bucket — next round
                     bucket = b
                     group.append(self._pending.popleft())
+                    if request.adapter is not None:
+                        # Alone, so a fetch / promote failure fails exactly
+                        # one tenant's request.
+                        break
             if chunk_item is not None:
                 request, handle = chunk_item
                 if not self._chunk_start(request, handle):
@@ -710,6 +783,28 @@ class Engine:
     def _dispatch_admit(self, group, bucket: int, slot_ids: list[int]) -> None:
         m = len(group)
         t0 = time.monotonic()
+        # Pin each request's adapter into a device row before anything else
+        # is claimed: a fetch / promote failure then fails this group (an
+        # adapter request admits alone) with nothing else to unwind.
+        adapter_rows = [0] * m
+        try:
+            for j, (r, _h) in enumerate(group):
+                if r.adapter:
+                    adapter_rows[j] = self._adapter_acquire(r.adapter)
+        except Exception:
+            for row in adapter_rows:
+                self._adapter_unpin(row)
+            raise
+        try:
+            self._dispatch_admit_pinned(group, bucket, slot_ids, adapter_rows, t0)
+        except Exception:
+            for row in adapter_rows:
+                self._adapter_unpin(row)
+            raise
+
+    def _dispatch_admit_pinned(self, group, bucket: int, slot_ids: list[int],
+                               adapter_rows: list[int], t0: float) -> None:
+        m = len(group)
         prompt = np.zeros((m, bucket), np.int64)
         lens = np.zeros((m,), np.int64)
         for j, (r, _h) in enumerate(group):
@@ -726,8 +821,14 @@ class Engine:
                     raise RuntimeError("KV page pool exhausted at admission")
             table_rows = torch.from_numpy(self.h_ptable[slot_ids]).to(dev)
         d_prompt, d_lens = torch.from_numpy(prompt).to(dev), torch.from_numpy(lens).to(dev)
+        # Once any adapter is device-resident every admission carries the
+        # stacks; adapter-less rows ride id 0, the exact-zero null adapter.
+        lora = None
+        if self._lora_tree is not None:
+            lora = (self._lora_tree,
+                    torch.from_numpy(np.asarray(adapter_rows, np.int32)).to(dev))
         try:
-            logits, ks, vs = llama.prefill(self.cfg, self.params, d_prompt, d_lens)
+            logits, ks, vs = llama.prefill(self.cfg, self.params, d_prompt, d_lens, lora=lora)
             for j, s in enumerate(slot_ids):
                 if table_rows is not None:
                     llama.write_prefill_to_pool(self.cache, table_rows[j], ks, vs, j,
@@ -746,6 +847,8 @@ class Engine:
         # one leaves no slot state behind.
         for j, ((r, handle), s) in enumerate(zip(group, slot_ids)):
             self._claim_slot(s, r, handle, gens[j], t0)
+            # The pin passes to the slot; _release drops it from here on.
+            self.h_adapter[s], adapter_rows[j] = adapter_rows[j], 0
         for j, s in enumerate(slot_ids):
             self._post_first(s, int(toks_host[j]))
 
@@ -824,10 +927,15 @@ class Engine:
             positions = torch.where(active, positions, 0)
         start_pos = positions
         out = torch.empty((n, B), dtype=torch.int64, device=dev)
+        # Every slot's adapter row (0 for adapter-less and idle slots), one
+        # copy per block; once any adapter is resident every block carries it.
+        lora = None
+        if self._lora_tree is not None:
+            lora = (self._lora_tree, torch.from_numpy(self.h_adapter.copy()).to(dev))
         for step in range(n):
             logits, local_k, local_v = llama.decode_step_windowed(
                 cfg, self.params, tokens, positions, read_cache, local_k, local_v, step,
-                ptable=ptable, kv_scale=self._kv_scales)
+                ptable=ptable, kv_scale=self._kv_scales, lora=lora)
             if variant == "greedy":
                 nxt = sample_greedy(logits, sp, self.counts, self.bias)
             elif variant == "simple":
@@ -992,8 +1100,12 @@ class Engine:
     # ------------------------------------------------------------------ #
 
     def _chunkable(self, request: GenRequest) -> bool:
+        """Whether a prompt admits chunk by chunk. Adapter prompts never do:
+        the chunk pass carries no per-slot LoRA operand (as in the JAX
+        package), so they admit single-shot."""
         C = self.ecfg.prefill_chunk
-        return bool(C) and self._paged and len(request.prompt_ids) > C
+        return (bool(C) and self._paged and len(request.prompt_ids) > C
+                and request.adapter is None)
 
     def _chunk_admit_rows(self, total_len: int) -> int:
         """Rows a chunked admission writes: whole mid chunks of C tokens
@@ -1103,8 +1215,8 @@ class Engine:
         can go on. The victim's request is requeued at the head as prompt +
         generated, under the same handle and with no terminal event; its
         re-admission recomputes the KV and continues the stream
-        (_apply_resume). Recompute is the only policy: the host swap tier
-        is not ported."""
+        (_apply_resume), re-pinning its adapter (maybe into another row).
+        Recompute is the only policy: the host swap tier is not ported."""
         live = [i for i, s in enumerate(self.slots) if s is not None and self.h_active[i]]
         if not live:
             return
@@ -1231,11 +1343,194 @@ class Engine:
         self._release(slot_idx)
 
     def _release(self, slot_idx: int) -> None:
-        """Give a slot back: its chunked admission (if any) and its pages go
-        with it."""
+        """Give a slot back: its chunked admission (if any), its adapter pin
+        and its pages go with it. Every teardown path (finish, cancel,
+        error, stop, preemption, loop death) comes through here."""
         self.slots[slot_idx] = None
         self.h_active[slot_idx] = False
+        self._slot_release_adapter(slot_idx)
         if self._chunkings:
             self._chunkings = [st for st in self._chunkings if st["slot"] != slot_idx]
         if self._paged:
             self._pages_free(slot_idx)
+
+    # ------------------------------------------------------------------ #
+    # Multi-tenant LoRA adapters
+    # ------------------------------------------------------------------ #
+
+    def register_adapter(self, name: str, adapter_dir: str, weight: float = 1.0) -> None:
+        """Register a PEFT-format adapter as a servable tenant. Metadata
+        only (no disk read): the factors are fetched through the host tier
+        and promoted into the device stacks at the first admission that
+        names it. Idempotent for the same (dir, weight); rebinding a name to
+        another source raises AdapterError (a tenant's identity stays fixed
+        while its requests may be in flight)."""
+        with self._adapter_lock:
+            prev = self._adapter_registry.get(name)
+            if prev is not None:
+                if prev["dir"] != adapter_dir or prev["weight"] != float(weight):
+                    raise AdapterError(
+                        f"adapter {name!r} is already registered from {prev['dir']!r} "
+                        f"(weight={prev['weight']}) — unregister/rename instead of rebinding")
+                return
+            self._adapter_registry[name] = {"dir": adapter_dir, "weight": float(weight)}
+
+    def adapter_names(self) -> list[str]:
+        with self._adapter_lock:
+            return sorted(self._adapter_registry)
+
+    def _adapter_image(self, name: str, reg: dict) -> dict:
+        """The host-tier factor image of one adapter: {rank, stacks: {key:
+        (A [L, in, r], B [L, r, out]) f32 numpy}, bytes}. A hit moves to the
+        LRU's end; a miss reads the adapter from disk and is inserted under
+        adapter_cache_bytes, evicting the least recently used images. An
+        image larger than the whole budget serves this promote and is not
+        kept."""
+        entry = self._adapter_host.get(name)
+        if entry is not None:
+            self._adapter_host.move_to_end(name)
+            return entry
+        rank, per_key = load_lora_factors(reg["dir"], reg["weight"], self.cfg)
+        dims = lora_target_dims(self.cfg)
+        L = self.cfg.num_layers
+        stacks: dict[str, tuple[np.ndarray, np.ndarray]] = {}
+        nbytes = 0
+        for key, layers_d in per_key.items():
+            d_in, d_out = dims[key]
+            a = np.zeros((L, d_in, rank), np.float32)
+            b = np.zeros((L, rank, d_out), np.float32)
+            for li, (a_t, b_t) in layers_d.items():
+                r = a_t.shape[1]
+                a[li, :, :r] = a_t
+                b[li, :r, :] = b_t
+            stacks[key] = (a, b)
+            nbytes += a.nbytes + b.nbytes
+        entry = {"rank": rank, "stacks": stacks, "bytes": nbytes}
+        self._adapter_host[name] = entry
+        self._adapter_host_bytes += nbytes
+        self.m_adapter_fetches += 1
+        budget = self.ecfg.adapter_cache_bytes
+        # The new image is last, so the front is never it while len > 1.
+        while self._adapter_host_bytes > budget and len(self._adapter_host) > 1:
+            _victim, gone = self._adapter_host.popitem(last=False)
+            self._adapter_host_bytes -= gone["bytes"]
+        if self._adapter_host_bytes > budget:
+            # The image alone exceeds the budget: serve it, do not keep it.
+            self._adapter_host_bytes -= self._adapter_host.pop(name)["bytes"]
+        return entry
+
+    def _lora_rebuild(self, keys: tuple, na: int, rank: int) -> None:
+        """(Re)allocate the stacked device factors at (keys, na rows, rank)
+        in the model dtype and copy every resident adapter's rows and ranks
+        from the old stacks. Row 0 is the all-zero null adapter. Rows grow
+        by doubling, capped at max_slots + 1 (_adapter_acquire)."""
+        dims = lora_target_dims(self.cfg)
+        dt = llama.torch_dtype(self.cfg.dtype)
+        L = self.cfg.num_layers
+        old = self._lora_tree or {}
+        new_tree: dict = {}
+        for key in keys:
+            d_in, d_out = dims[key]
+            a = torch.zeros((L, na, d_in, rank), dtype=dt, device=self.device)
+            b = torch.zeros((L, na, rank, d_out), dtype=dt, device=self.device)
+            o = old.get(key)
+            if o is not None:
+                ona, orank = o["a"].shape[1], o["a"].shape[3]
+                a[:, :ona, :, :orank] = o["a"]
+                b[:, :ona, :orank, :] = o["b"]
+            new_tree[key] = {"a": a, "b": b}
+        self._lora_tree = new_tree
+        self._lora_keys = keys
+        self._lora_rank = rank
+        while len(self._adapter_rows) < na:
+            self._adapter_rows.append(None)
+            self._adapter_last.append(0.0)
+        if len(self._adapter_refs) < na:
+            refs = np.zeros((na,), np.int32)
+            refs[: len(self._adapter_refs)] = self._adapter_refs
+            self._adapter_refs = refs
+
+    def _lora_write_row(self, row: int, image: dict) -> None:
+        """Write one host factor image into device row `row`, in place, for
+        every stacked key: absent keys write zeros (a recycled row never
+        keeps the previous tenant's factors) and a smaller rank is padded
+        with zeros. Values are cast to the model dtype from f32."""
+        dims = lora_target_dims(self.cfg)
+        L, rank = self.cfg.num_layers, self._lora_rank
+        for key in self._lora_keys:
+            d_in, d_out = dims[key]
+            ent = self._lora_tree[key]
+            st = image["stacks"].get(key)
+            if st is None:
+                ent["a"][:, row] = 0
+                ent["b"][:, row] = 0
+                continue
+            a_np, b_np = st
+            r = a_np.shape[-1]
+            a_t = torch.zeros((L, d_in, rank), dtype=torch.float32)
+            b_t = torch.zeros((L, rank, d_out), dtype=torch.float32)
+            a_t[:, :, :r] = torch.from_numpy(a_np)
+            b_t[:, :r, :] = torch.from_numpy(b_np)
+            ent["a"][:, row] = a_t.to(device=self.device, dtype=ent["a"].dtype)
+            ent["b"][:, row] = b_t.to(device=self.device, dtype=ent["b"].dtype)
+
+    def _adapter_acquire(self, name: str) -> int:
+        """Pin `name` into a device adapter row and return the row (the only
+        place a row is claimed; loop thread only). A resident adapter just
+        gains a reference; otherwise its image is fetched through the host
+        tier and promoted into a free row, a new row (doubling, up to
+        max_slots + 1), or the least recently used UNPINNED row. A row with
+        live references is never evicted: AdapterError when all are."""
+        with self._adapter_lock:
+            reg = self._adapter_registry.get(name)
+        if reg is None:
+            raise AdapterError(f"unknown adapter {name!r} — register_adapter() first")
+        if name in self._adapter_rows:
+            row = self._adapter_rows.index(name)
+        else:
+            image = self._adapter_image(name, reg)
+            keys = tuple(sorted(set(self._lora_keys) | set(image["stacks"])))
+            rank = max(self._lora_rank, image["rank"], 1)
+            cap = self.ecfg.max_slots + 1
+            na = len(self._adapter_rows)
+            row = next((i for i in range(1, na) if self._adapter_rows[i] is None), None)
+            if row is None and na < cap:
+                row = max(1, na)
+                na = min(cap, max(2, na * 2))
+            if row is None:
+                cands = [i for i in range(1, na)
+                         if self._adapter_rows[i] is not None and self._adapter_refs[i] == 0]
+                if cands:
+                    row = min(cands, key=lambda i: self._adapter_last[i])
+                    self._adapter_rows[row] = None
+                    self.m_adapter_evictions += 1
+            if row is None:
+                raise AdapterError("every device adapter row is pinned by an active request — "
+                                   "retry when traffic drains or raise max_slots")
+            if keys != self._lora_keys or rank != self._lora_rank or na != len(self._adapter_rows):
+                self._lora_rebuild(keys, na, rank)
+            self._lora_write_row(row, image)
+            self._adapter_rows[row] = name
+            self.m_adapter_promotes += 1
+        self._adapter_refs[row] += 1
+        self._adapter_last[row] = time.monotonic()
+        return row
+
+    def _adapter_unpin(self, row: int) -> None:
+        """Drop one reference on a device adapter row (the only decrement;
+        loop thread only). Row 0 is never pinned; an underflow is logged and
+        clamped, as a double page release is."""
+        if row <= 0 or row >= len(self._adapter_refs):
+            return
+        if self._adapter_refs[row] <= 0:
+            log.error("adapter refcount underflow at device row %d ignored", row)
+            self._adapter_refs[row] = 0
+            return
+        self._adapter_refs[row] -= 1
+
+    def _slot_release_adapter(self, slot_idx: int) -> None:
+        """Unpin a slot's adapter row (any teardown path, via _release)."""
+        row = int(self.h_adapter[slot_idx])
+        if row:
+            self.h_adapter[slot_idx] = 0
+            self._adapter_unpin(row)

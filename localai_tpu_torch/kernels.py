@@ -43,6 +43,10 @@ LIBRARIES = {
         {"quant_matmul": ([_P] * 5 + [_I] * 6 + [_P], _I),
          "quant_unembed": ([_P] * 4 + [_I] * 4 + [_P], _I)},
     ),
+    "lora_matmul": (
+        "lora_matmul.cu",
+        {"lora_bgmv": ([_P] * 6 + [_I] * 7 + [_P], _I)},
+    ),
 }
 
 _lock = threading.Lock()

@@ -23,13 +23,19 @@
   grouped int8, packed int4; models/quant.py), stacked [L, ...] like the
   rest; the lm_head may be an int8 dict. Decode-shape products go to the
   fused dequant kernels.
+- Runtime LoRA: `prefill` and `decode_step_windowed` take
+  `lora=(stacks, ids)`, the engine's stacked adapter factors {key: {"a":
+  [L, NA, in, R], "b": [L, NA, R, out]}} and one adapter id per batch row;
+  each targeted projection adds its row's delta (ops/lora_matmul.py) to
+  the base product, quantized or not. `prefill_chunk_paged` takes none:
+  adapter prompts admit single-shot, as in the JAX package.
 - GQA, RoPE (every scaling family), RMSNorm, SwiGLU / GeGLU, optional qkv
   bias (Qwen2) and the gemma flags (softcaps, sandwich norms, q/k norms,
   sliding windows) chosen from ArchConfig.
 
 Not ported yet, and rejected with NotImplementedError: MoE and MLA layers
 (ROADMAP Queue A item 16), sequence-parallel ring attention and tp meshes
-(item 20), runtime LoRA (item 14), m-rope (item 19), and sink+window decode
+(item 20), m-rope (item 19), and sink+window decode
 and hierarchical page tables (item 15).
 
 The cache, the pool and the block-local windows are updated IN PLACE (the
@@ -47,6 +53,7 @@ from localai_tpu_torch.device import resolve_device
 from localai_tpu_torch.models.config import ArchConfig
 from localai_tpu_torch.models.quant import is_quantized, matmul, unembed_matmul
 from localai_tpu_torch.ops import ptable as _pt
+from localai_tpu_torch.ops.lora_matmul import lora_delta
 from localai_tpu_torch.ops.attention import (
     _merge_partials_mq,
     decode_attention_windowed,
@@ -229,12 +236,37 @@ def _unembed(cfg: ArchConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def _attn_proj_qkv(cfg: ArchConfig, lp: Params, x: torch.Tensor):
+def _lora_add(cfg: ArchConfig, lora, key: str, x: torch.Tensor,
+              y: torch.Tensor) -> torch.Tensor:
+    """y + the per-row adapter delta of one target projection: unmerged
+    B·(A·x) beside the base product, so the base weights stay shared (and
+    possibly quantized) while each row rides its tenant's factors. lora =
+    (this layer's stacks {key: {"a": [NA, in, R], "b": [NA, R, out]}}, ids
+    [B]) or None; id 0 is the all-zero null adapter. The delta is rounded to
+    x.dtype before the add, as in the JAX package."""
+    if lora is None:
+        return y
+    stacks, ids = lora
+    entry = stacks.get(key)
+    if entry is None:
+        return y
+    return y + lora_delta(x, entry, ids)
+
+
+def _layer_lora(lora, li: int):
+    """Layer li's slice of the stacked adapter factors, with the ids."""
+    if lora is None:
+        return None
+    stacks, ids = lora
+    return {k: {"a": e["a"][li], "b": e["b"][li]} for k, e in stacks.items()}, ids
+
+
+def _attn_proj_qkv(cfg: ArchConfig, lp: Params, x: torch.Tensor, lora=None):
     """x: [..., D] -> q [..., H, Hd], k/v [..., K, Hd]."""
     H, K, Hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
-    q = matmul(x, lp["wq"])
-    k = matmul(x, lp["wk"])
-    v = matmul(x, lp["wv"])
+    q = _lora_add(cfg, lora, "wq", x, matmul(x, lp["wq"]))
+    k = _lora_add(cfg, lora, "wk", x, matmul(x, lp["wk"]))
+    v = _lora_add(cfg, lora, "wv", x, matmul(x, lp["wv"]))
     if cfg.attn_qkv_bias:
         q = q + lp["bq"]
         k = k + lp["bk"]
@@ -256,24 +288,26 @@ def _attn_proj_qkv(cfg: ArchConfig, lp: Params, x: torch.Tensor):
     return q, k, v
 
 
-def _attn_out(cfg: ArchConfig, lp: Params, attn_flat: torch.Tensor) -> torch.Tensor:
+def _attn_out(cfg: ArchConfig, lp: Params, attn_flat: torch.Tensor,
+              lora=None) -> torch.Tensor:
     """Output projection + optional gemma-2 post-attention sandwich norm."""
-    a = matmul(attn_flat, lp["wo"])
+    a = _lora_add(cfg, lora, "wo", attn_flat, matmul(attn_flat, lp["wo"]))
     if cfg.post_norms:
         a = rms_norm(a, lp["post_attn_norm"], cfg.rms_eps)
     return a
 
 
-def _mlp(cfg: ArchConfig, lp: Params, x: torch.Tensor) -> torch.Tensor:
+def _mlp(cfg: ArchConfig, lp: Params, x: torch.Tensor, lora=None) -> torch.Tensor:
     """Dense SwiGLU / GeGLU MLP."""
-    gate = _act(cfg, matmul(x, lp["w_gate"]))
-    up = matmul(x, lp["w_up"])
-    return matmul(gate * up, lp["w_down"]).to(x.dtype)
+    gate = _act(cfg, _lora_add(cfg, lora, "w_gate", x, matmul(x, lp["w_gate"])))
+    up = _lora_add(cfg, lora, "w_up", x, matmul(x, lp["w_up"]))
+    gu = gate * up
+    return _lora_add(cfg, lora, "w_down", gu, matmul(gu, lp["w_down"])).to(x.dtype)
 
 
-def _mlp_out(cfg: ArchConfig, lp: Params, x: torch.Tensor) -> torch.Tensor:
+def _mlp_out(cfg: ArchConfig, lp: Params, x: torch.Tensor, lora=None) -> torch.Tensor:
     """MLP + optional gemma-2 post-feedforward sandwich norm."""
-    m = _mlp(cfg, lp, x)
+    m = _mlp(cfg, lp, x, lora)
     if cfg.post_norms:
         m = rms_norm(m, lp["post_ffw_norm"], cfg.rms_eps)
     return m
@@ -295,6 +329,7 @@ def _forward_hidden(
     tokens: torch.Tensor,  # [B, S] int, right-padded
     lengths: torch.Tensor,  # [B] int valid lengths
     collect_kv: bool,
+    lora=None,  # (stacked adapter factors, ids [B]): per-row runtime LoRA
 ):
     """Shared full-sequence forward. Returns (h [B,S,D] after the final
     norm, length_mask [B,S], (ks, vs) [L,B,S,K,Hd] or None)."""
@@ -312,9 +347,10 @@ def _forward_hidden(
     ks, vs = [], []
     for li in range(cfg.num_layers):
         lp = _layer(params, li)
+        llora = _layer_lora(lora, li)
         x = rms_norm(h, lp["attn_norm"], cfg.rms_eps)
         inv = _layer_inv_freq(cfg, inv_freq, inv_local, li)
-        q, k, v = _attn_proj_qkv(cfg, lp, x)
+        q, k, v = _attn_proj_qkv(cfg, lp, x, llora)
         q = apply_rope(q, positions, inv)
         k = apply_rope(k, positions, inv)
         attn = prefill_attention(
@@ -322,9 +358,9 @@ def _forward_hidden(
             softcap=cfg.attn_softcap, window=cfg.sliding_window,
             sliding=_layer_sliding(cfg, li),
         )
-        h = h + _attn_out(cfg, lp, attn.reshape(B, S, -1))
+        h = h + _attn_out(cfg, lp, attn.reshape(B, S, -1), llora)
         x = rms_norm(h, lp["mlp_norm"], cfg.rms_eps)
-        h = h + _mlp_out(cfg, lp, x)
+        h = h + _mlp_out(cfg, lp, x, llora)
         if collect_kv:
             ks.append(k)
             vs.append(v)
@@ -338,9 +374,12 @@ def prefill(
     params: Params,
     tokens: torch.Tensor,  # [B, S] int, right-padded
     lengths: torch.Tensor,  # [B] int valid lengths
+    lora=None,  # (stacked adapter factors, ids [B]): per-row runtime LoRA
 ):
-    """Prompt processing. Returns (last_logits [B, V] f32, k [L,B,S,K,Hd], v)."""
-    h, _, (ks, vs) = _forward_hidden(cfg, params, tokens, lengths, collect_kv=True)
+    """Prompt processing. Returns (last_logits [B, V] f32, k [L,B,S,K,Hd], v).
+    With `lora` each row adds its adapter's delta; x is 3-D here, so every
+    delta takes the gather form (ops/lora_matmul.lora_delta)."""
+    h, _, (ks, vs) = _forward_hidden(cfg, params, tokens, lengths, collect_kv=True, lora=lora)
     last_idx = torch.clamp(lengths.to(torch.int64) - 1, min=0)  # empty prompt reads 0
     last = h[torch.arange(h.shape[0], device=h.device), last_idx]  # [B, D]
     return _unembed(cfg, params, last), ks, vs
@@ -357,6 +396,7 @@ def decode_step_windowed(
     step: int,  # index within the block
     ptable: torch.Tensor | None = None,  # [B, MP] int32: `cache` is a page pool
     kv_scale: torch.Tensor | None = None,  # [2, K] f32 per-head (k, v) pool scales
+    lora=None,  # (stacked adapter factors, ids [B] int32): per-slot runtime LoRA
 ):
     """One step of a decode block with a block-local KV window.
 
@@ -364,7 +404,9 @@ def decode_step_windowed(
     local_k / local_v[:, :, step] (in place), and the engine scatters the
     whole window into the cache once per block. With `ptable` the cache is
     a paged pool [L, P, page, K, Hd] and each slot reads its own pages,
-    multiplied back by `kv_scale` when the pool is scaled.
+    multiplied back by `kv_scale` when the pool is scaled. With `lora` each
+    slot adds its adapter's delta (the ragged kernel on the card; id 0 for
+    adapter-less slots).
     Returns (logits [B, V] f32, local_k, local_v)."""
     check_supported(cfg)
     _check_params(params)
@@ -375,9 +417,10 @@ def decode_step_windowed(
     h = _embed(cfg, params, tokens)  # [B, D]
     for li in range(cfg.num_layers):
         lp = _layer(params, li)
+        llora = _layer_lora(lora, li)
         x = rms_norm(h, lp["attn_norm"], cfg.rms_eps)
         inv = _layer_inv_freq(cfg, inv_freq, inv_local, li)
-        q, k, v = _attn_proj_qkv(cfg, lp, x)  # q [B,H,Hd], k/v [B,K,Hd]
+        q, k, v = _attn_proj_qkv(cfg, lp, x, llora)  # q [B,H,Hd], k/v [B,K,Hd]
         q = apply_rope(q[:, None], positions[:, None], inv)[:, 0]
         k = apply_rope(k[:, None], positions[:, None], inv)[:, 0]
         if ptable is not None:
@@ -392,9 +435,9 @@ def decode_step_windowed(
                 positions, step, softcap=cfg.attn_softcap,
                 window=cfg.sliding_window, sliding=_layer_sliding(cfg, li),
             )
-        h = h + _attn_out(cfg, lp, attn.reshape(B, -1))
+        h = h + _attn_out(cfg, lp, attn.reshape(B, -1), llora)
         x = rms_norm(h, lp["mlp_norm"], cfg.rms_eps)
-        h = h + _mlp_out(cfg, lp, x)
+        h = h + _mlp_out(cfg, lp, x, llora)
         local_k[li, :, step] = kv_cast(k, local_k.dtype)
         local_v[li, :, step] = kv_cast(v, local_v.dtype)
     h = rms_norm(h, params["final_norm"], cfg.rms_eps)

@@ -2,12 +2,15 @@
 
     python -m localai_tpu_torch.profile_engine [--arch llama-3.2-1b]
         [--slots 8] [--prompt 500] [--steps 16] [--paged]
-        [--quant int8|int4] [--kv-cache-dtype fp8|fp8_e5m2]
+        [--quant int8|int4] [--kv-cache-dtype fp8|fp8_e5m2] [--lora N]
 
 Builds the engine on random bf16 weights (quantized on the card with
 `--quant`, the KV cache stored in fp8 with `--kv-cache-dtype`; e.g.
 `--arch llama-3-8b --quant int4 --kv-cache-dtype fp8 --paged` profiles a
-quantized paged decode step) and drives its device paths
+quantized paged decode step; `--lora 8` registers 8 runtime LoRA tenants,
+rank 16 on q_proj / v_proj with lora_alpha = r, and gives each admitted
+slot one of them, so the decode block runs the ragged LoRA kernel on every
+layer) and drives its device paths
 directly on this thread (no loop thread): one fused admission of `--slots`
 prompts of `--prompt` tokens, then one decode block of `--steps` steps over
 those slots. With `--paged` it then does the same on a paged KV pool
@@ -23,6 +26,7 @@ from __future__ import annotations
 import argparse
 import json
 import subprocess
+import tempfile
 import time
 
 import torch
@@ -86,12 +90,15 @@ def main(argv=None) -> None:
                     help="quantize the matmul weights (and an untied head) on the card")
     ap.add_argument("--kv-cache-dtype", choices=("fp8", "fp8_e4m3", "fp8_e5m2"), default="",
                     help="store the KV cache in fp8")
+    ap.add_argument("--lora", type=int, default=0,
+                    help="serve N runtime LoRA tenants (rank 16 on q/v), slot i with tenant i % N")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_engine needs a CUDA device")
 
     from localai_tpu_torch.engine.engine import Engine, EngineConfig, GenRequest, RequestHandle
     from localai_tpu_torch.engine.tokenizer import ByteTokenizer
+    from localai_tpu_torch.engine.weights import random_lora_adapter
     from localai_tpu_torch.models import get_arch
     from localai_tpu_torch.models.llama import init_params
     from localai_tpu_torch.models.quant import quantize_params
@@ -103,12 +110,18 @@ def main(argv=None) -> None:
         torch.cuda.empty_cache()
     gen = torch.Generator().manual_seed(0)
     slots = list(range(args.slots))
+    tmp = tempfile.TemporaryDirectory()
+    tenants = [random_lora_adapter(cfg, f"{tmp.name}/t{i}", 16, 16, seed=i)
+               for i in range(args.lora)]
 
     def make_engine(**kw):
-        return Engine(cfg, params, ByteTokenizer(cfg.vocab_size), device="cuda",
-                      engine_cfg=EngineConfig(max_slots=args.slots, max_seq=2048,
-                                              block_sizes=(args.steps,),
-                                              kv_cache_dtype=args.kv_cache_dtype, **kw))
+        eng = Engine(cfg, params, ByteTokenizer(cfg.vocab_size), device="cuda",
+                     engine_cfg=EngineConfig(max_slots=args.slots, max_seq=2048,
+                                             block_sizes=(args.steps,),
+                                             kv_cache_dtype=args.kv_cache_dtype, **kw))
+        for i, d in enumerate(tenants):
+            eng.register_adapter(f"t{i}", d)
+        return eng
 
     def admitter(eng):
         bucket = eng._bucket_for(args.prompt)
@@ -119,7 +132,9 @@ def main(argv=None) -> None:
                 ids = torch.randint(0, 256, (args.prompt,), generator=gen).tolist()
                 group.append((GenRequest(prompt_ids=ids, max_new_tokens=10_000,
                                          ignore_eos=True, temperature=0.8 if i % 2 else 0.0,
-                                         top_p=0.9, seed=i), RequestHandle()))
+                                         top_p=0.9, seed=i,
+                                         adapter=f"t{i % args.lora}" if args.lora else None),
+                               RequestHandle()))
             for s in slots:  # the previous run's requests give their slots back
                 if eng.slots[s] is not None:
                     eng._release(s)
@@ -138,7 +153,7 @@ def main(argv=None) -> None:
                       "kv_cache_dtype": args.kv_cache_dtype or "model",
                       "weight_bytes": eng.metrics()["weight_bytes"],
                       "slots": args.slots, "prompt": args.prompt, "bucket": bucket,
-                      "steps": args.steps}), flush=True)
+                      "steps": args.steps, "lora_tenants": args.lora}), flush=True)
     _profile(f"admission m={args.slots} bucket={bucket}", admit)
     _profile(f"decode block n={args.steps} slots={args.slots}", eng._run_block, args.steps)
     if not args.paged:

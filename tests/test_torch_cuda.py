@@ -334,3 +334,111 @@ def test_quant_cuda_tensors_never_take_the_plain_route(card, monkeypatch):
         qm.qmm(x[0].half(), quant.quantize_tensor(w))
     with pytest.raises(ValueError, match="at most"):
         qm.qmm(torch.zeros(300, 64, device="cuda"), quant.quantize_tensor(w))
+
+
+# --------------------------------------------------------------------------- #
+# B5: ragged LoRA delta (csrc/lora_matmul.cu)
+# --------------------------------------------------------------------------- #
+
+# Every target projection (in, out) of llama-3.2-1b and llama-3-8b.
+LORA_SHAPES = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048),
+               (4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
+
+
+def _lora_stack(g, n_in, n_out, R, NA, dtype):
+    """Stacked factors [NA, in, R] / [NA, R, out] with the null adapter at
+    row 0 and adapter 1 zero-padded past rank R // 2 (mixed ranks)."""
+    a = (torch.randn(NA, n_in, R, generator=g, device="cuda") * 0.05).to(dtype)
+    b = (torch.randn(NA, R, n_out, generator=g, device="cuda") * 0.05).to(dtype)
+    a[0] = 0
+    b[0] = 0
+    if R > 1:
+        a[1, :, R // 2:] = 0
+        b[1, R // 2:] = 0
+    return a, b
+
+
+def _assert_lora_close(got, want):
+    """f32: the same f32 arithmetic in another summation order, 1e-4 of the
+    largest value. bf16: both round the f32 result once to bf16, so they may
+    differ by one bf16 step (2^-7 of the value) plus that term."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    scale = want.float().abs().max().item()
+    err = (got.float() - want.float()).abs()
+    if got.dtype == torch.float32:
+        assert err.max().item() <= 1e-4 * scale
+    else:
+        assert (err <= 2.0**-7 * want.float().abs() + 1e-4 * scale).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+# 32 is the served stacks' rank (lora_http pads its rank-16 tenants to it);
+# 24 is rounded up to a power of two in the kernel's thread mapping.
+@pytest.mark.parametrize("R", [1, 8, 16, 24, 32, 64, 128])
+@pytest.mark.parametrize("shape", LORA_SHAPES)
+def test_lora_kernel_matches_plain_version(card, shape, R, dtype):
+    from localai_tpu_torch.ops.lora_matmul import lora_bgmv, lora_delta_plain
+
+    n_in, n_out = shape
+    NA = 9  # 8 adapters and the null one
+    g = torch.Generator(device="cuda").manual_seed(n_in + n_out + R)
+    a, b = _lora_stack(g, n_in, n_out, R, NA, dtype)
+    for N in (1, 8, 256):
+        x = torch.randn(N, n_in, generator=g, device="cuda").to(dtype)
+        ids = (torch.arange(N, device="cuda") % NA).to(torch.int32)
+        if N == 1:
+            ids[0] = 1
+        before = lora_bgmv.launches
+        got = lora_bgmv(x, a, b, ids)
+        torch.cuda.synchronize()
+        assert lora_bgmv.launches == before + 1
+        _assert_lora_close(got, lora_delta_plain(x, a, b, ids))
+        null = ids == 0
+        assert (got[null] == 0).all()  # exact zeros, not approximate ones
+        if N == 8:  # each row bit-identical to a launch on that row alone
+            for n in range(N):
+                assert torch.equal(got[n:n + 1], lora_bgmv(x[n:n + 1], a, b, ids[n:n + 1]))
+
+
+@pytest.mark.cuda
+def test_lora_cuda_tensors_never_take_the_plain_route(card, monkeypatch):
+    from localai_tpu_torch.ops import lora_matmul as lm
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a plain LoRA delta ran on CUDA tensors")
+
+    monkeypatch.setattr(lm, "lora_delta_plain", refuse)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    a, b = _lora_stack(g, 64, 96, 8, 3, torch.bfloat16)
+    x = torch.randn(4, 64, generator=g, device="cuda").to(torch.bfloat16)
+    ids = torch.tensor([0, 1, 2, 1], dtype=torch.int32, device="cuda")
+    before = lm.lora_bgmv.launches
+    assert lm.lora_delta(x, {"a": a, "b": b}, ids).shape == (4, 96)
+    # Host ids are checked on the host and copied to the card.
+    assert torch.equal(lm.lora_bgmv(x, a, b, ids.cpu()), lm.lora_bgmv(x, a, b, ids))
+    torch.cuda.synchronize()
+    assert lm.lora_bgmv.launches == before + 3
+    # An id outside [0, NA) on the card reads nothing: its row is NaN.
+    bad = lm.lora_bgmv(x, a, b, torch.tensor([1, 3, -1, 0], dtype=torch.int32, device="cuda"))
+    assert torch.isnan(bad[1]).all() and torch.isnan(bad[2]).all() and (bad[3] == 0).all()
+    # What the kernel does not take raises; it is not served otherwise.
+    with pytest.raises(ValueError, match="outside"):
+        lm.lora_bgmv(x, a, b, torch.tensor([0, 1, 2, 3], dtype=torch.int32))
+    with pytest.raises(TypeError, match="x must be"):
+        lm.lora_bgmv(x.half(), a, b, ids)
+    with pytest.raises(TypeError, match="factors"):
+        lm.lora_bgmv(x, a.float(), b, ids)
+    with pytest.raises(ValueError, match="contiguous"):
+        lm.lora_bgmv(x, a.transpose(1, 2).contiguous().transpose(1, 2), b, ids)
+    with pytest.raises(ValueError, match="rank"):
+        a2, b2 = _lora_stack(g, 64, 96, 129, 2, torch.bfloat16)
+        lm.lora_bgmv(x, a2, b2, torch.zeros(4, dtype=torch.int32, device="cuda"))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        a3, b3 = _lora_stack(g, 64, 90, 8, 3, torch.bfloat16)
+        lm.lora_bgmv(x, a3, b3, ids)
+    with pytest.raises(ValueError, match="int32"):
+        lm.lora_bgmv(x, a, b, ids.long())
+    with pytest.raises(ValueError, match="at most"):
+        lm.lora_bgmv(torch.zeros(300, 64, dtype=torch.bfloat16, device="cuda"), a, b,
+                     torch.zeros(300, dtype=torch.int32, device="cuda"))

@@ -30,7 +30,11 @@ def test_port_never_imports_jax_or_the_jax_package():
     assert len(files) > 10 and (ROOT / "chip_smoke.py").exists()
     names = {str(p.relative_to(ROOT)) for p in files}
     assert {"localai_tpu_torch/ops/paged_flash.py", "localai_tpu_torch/ops/ptable.py",
-            "localai_tpu_torch/profile_engine.py"} <= names
+            "localai_tpu_torch/profile_engine.py", "localai_tpu_torch/ops/lora_matmul.py",
+            "localai_tpu_torch/config/app_config.py", "localai_tpu_torch/config/model_config.py",
+            "localai_tpu_torch/templates/evaluator.py", "localai_tpu_torch/server/app.py",
+            "localai_tpu_torch/server/manager.py", "localai_tpu_torch/server/openai_api.py",
+            "localai_tpu_torch/__main__.py"} <= names
     bad = [
         (str(p.relative_to(ROOT)), mod)
         for p in files
@@ -40,12 +44,14 @@ def test_port_never_imports_jax_or_the_jax_package():
     assert not bad, bad
 
 
-def test_entry_points_raise_without_cuda(monkeypatch):
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    from localai_tpu_torch.config import ApplicationConfig
     from localai_tpu_torch.engine.engine import Engine
     from localai_tpu_torch.engine.tokenizer import ByteTokenizer
     from localai_tpu_torch.engine.weights import load_hf_checkpoint, params_from_numpy
     from localai_tpu_torch.models import get_arch
     from localai_tpu_torch.models.llama import KVCache, init_params, paged_cache_zeros
+    from localai_tpu_torch.server.manager import ModelManager
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_arch("tiny")
@@ -58,6 +64,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda: params_from_numpy(cfg, {}),
         lambda: load_hf_checkpoint(cfg, "/nonexistent"),
         lambda: init_params(cfg, device="cuda"),
+        lambda: ModelManager(ApplicationConfig(models_dir=str(tmp_path))),
+        lambda: ModelManager(ApplicationConfig(models_dir=str(tmp_path)), device="cuda"),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
@@ -87,10 +95,30 @@ def _env_reads(path):
             yield node.lineno, None
 
 
+APP_CONFIG = "localai_tpu_torch/config/app_config.py"
+ROUTING_WORDS = ("KERNEL", "FLASH", "PAGED", "QUANT", "LORA")
+
+
 def test_port_reads_no_environment_variable_but_cuda_home():
-    """No env var or knob routes the port's work: the only variable it reads
-    is CUDA_HOME, to find nvcc (kernels.py)."""
+    """No env var or knob routes the port's work. The variables it reads are
+    CUDA_HOME, to find nvcc (kernels.py), and the LOCALAI_* deployment
+    settings of the server's ApplicationConfig (address, port, models dir,
+    keys, ...), none of which names a kernel route."""
     reads = {(str(p.relative_to(ROOT)), line, key)
              for p in _port_files() for line, key in _env_reads(p)}
-    assert {key for _f, _l, key in reads} == {"CUDA_HOME"}, sorted(reads, key=str)
-    assert {f for f, _l, _k in reads} == {"localai_tpu_torch/kernels.py"}
+    outside = {(f, k) for f, _l, k in reads if f != APP_CONFIG}
+    assert outside == {("localai_tpu_torch/kernels.py", "CUDA_HOME")}, sorted(reads, key=str)
+    # app_config.py reads literal LOCALAI_* names, or a name through its
+    # _env(name, ...) helper, whose every call passes a literal LOCALAI_* name.
+    inside = {k for f, _l, k in reads if f == APP_CONFIG}
+    assert all(k is None or k.startswith("LOCALAI_") for k in inside), inside
+    tree = ast.parse((ROOT / APP_CONFIG).read_text())
+    helper_args = [n.args[0] for n in ast.walk(tree)
+                   if isinstance(n, ast.Call) and getattr(n.func, "id", "") == "_env"]
+    assert helper_args and all(isinstance(a, ast.Constant) and a.value.startswith("LOCALAI_")
+                               for a in helper_args)
+    names = {n.value for n in ast.walk(tree)
+             if isinstance(n, ast.Constant) and isinstance(n.value, str)
+             and n.value.startswith("LOCALAI_")}
+    assert {"LOCALAI_ADDRESS", "LOCALAI_PORT", "LOCALAI_MODELS_PATH"} <= names
+    assert not [n for n in names if any(w in n for w in ROUTING_WORDS)], names
