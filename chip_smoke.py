@@ -7,12 +7,15 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 1. device  — the card's name, count and power limit; which optional
    packages this machine has (for planning later slices);
 2. build   — nvcc builds every kernel library from localai_tpu_torch/csrc
-   (one process per source, all at once) and prints what ptxas reports;
+   (one process per source, all at once) and prints what ptxas reports
+   (registers and spills of every kernel);
 3. kernels — each kernel against its plain PyTorch version on the card, at
    the serving path's shapes, with CUDA-event times of the kernel, the
    plain version, one PyTorch library call computing the same function
    (where one exists), and the least time the card could take (bound):
-   B1 flash prefill at the admission shapes, B2 ragged paged attention at
+   B1 flash prefill at the admission shapes (ragged lengths, every row at
+   full length, and S = 200; every output bit-identical when launched
+   again and for each batch row alone), B2 ragged paged attention at
    the paged decode and chunked-prefill shapes and on fp8 pools with a
    per-head kv_scale, B3 dequant-matmul at llama-3-8b's projection shapes
    (flat int8, grouped int8, packed int4; bf16 and f32 x; 1, 8 and 256
@@ -175,7 +178,8 @@ def phase_build() -> None:
         f"{time.monotonic() - t0:.1f}s with {kernels.nvcc_path()}")
     for name, out in logs.items():
         for line in out.splitlines():
-            if "ptxas info" in line and ("Used" in line or "Compiling" in line):
+            if ("ptxas info" in line and ("Used" in line or "Compiling" in line)
+                    or "spill" in line):
                 log(f"[build:{name}] {line.strip()}")
         check(kernels.library_path(name).exists(), f"library {name} missing after build")
 
@@ -204,7 +208,7 @@ def phase_kernels(gen: torch.Generator) -> list[dict]:
     # Tolerances, bf16 output: both sides round once to bf16, whose step at
     # the outputs' magnitude (|o| < 4) is at most 2^-6; f32: summation order.
     tols = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
-    shapes = [  # (B, S, H, K, D, dtype): llama-3.2-1b admissions, then D=128
+    ragged = [  # (B, S, H, K, D, dtype): llama-3.2-1b admissions, then D=128
         (1, 128, 32, 8, 64, torch.bfloat16),
         (8, 128, 32, 8, 64, torch.bfloat16),
         (1, 2048, 32, 8, 64, torch.bfloat16),
@@ -212,21 +216,50 @@ def phase_kernels(gen: torch.Generator) -> list[dict]:
         (8, 2048, 32, 8, 128, torch.bfloat16),
         (2, 256, 32, 8, 64, torch.float32),
     ]
+    # Every row of length S: the kernel, SDPA and the bound count the same
+    # work (llama-3.2-1b and llama-3-8b at 8 x 2048; the 8b admission
+    # bucket of 8 x 512). S = 200: the last query and kv tiles are partial.
+    full = [
+        (8, 2048, 32, 8, 64, torch.bfloat16),
+        (8, 2048, 32, 8, 128, torch.bfloat16),
+        (8, 512, 32, 8, 128, torch.bfloat16),
+    ]
+    partial = [
+        (3, 200, 32, 8, 64, torch.bfloat16),
+        (3, 200, 32, 8, 128, torch.bfloat16),
+        (3, 200, 32, 8, 64, torch.float32),
+    ]
+    # The added rows draw from their own generator, so the later phases see
+    # the inputs they always saw.
+    gen_added = torch.Generator(device="cuda").manual_seed(6)
+    cases = ([(sh, "ragged", gen) for sh in ragged] + [(sh, "full", gen_added) for sh in full]
+             + [(sh, "ragged", gen_added) for sh in partial])
     rows = []
-    for B, S, H, K, D, dt in shapes:
-        q = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dt)
-        k = torch.randn(B, S, K, D, generator=gen, device="cuda").to(dt)
-        v = torch.randn(B, S, K, D, generator=gen, device="cuda").to(dt)
-        lens = torch.randint(1, S + 1, (B,), generator=gen, device="cuda", dtype=torch.int32)
-        lens[0] = S  # one full row, one single-token row, the rest ragged
-        if B > 1:
-            lens[1] = 1
+    for (B, S, H, K, D, dt), mode, g in cases:
+        q = torch.randn(B, S, H, D, generator=g, device="cuda").to(dt)
+        k = torch.randn(B, S, K, D, generator=g, device="cuda").to(dt)
+        v = torch.randn(B, S, K, D, generator=g, device="cuda").to(dt)
+        if mode == "full":
+            lens = torch.full((B,), S, device="cuda", dtype=torch.int32)
+        else:  # one full row, one single-token row, the rest ragged
+            lens = torch.randint(1, S + 1, (B,), generator=g, device="cuda", dtype=torch.int32)
+            lens[0] = S
+            if B > 1:
+                lens[1] = 1
         out = flash_prefill_attention(q, k, v, lens)
         torch.cuda.synchronize()
         ref = flash_prefill_attention_plain(q, k, v, lens)
         err = (out.float() - ref.float()).abs().max().item()
         host_lens = lens.tolist()
         pad_zero = all(bool((out[b, n:] == 0).all()) for b, n in enumerate(host_lens))
+        # The same inputs again, and each batch row alone: the same bits
+        # (no block mixes batch rows; nothing sums in a varying order).
+        repeat_equal = torch.equal(out, flash_prefill_attention(q, k, v, lens))
+        rows_alone_equal = all(
+            torch.equal(out[b:b + 1], flash_prefill_attention(
+                q[b:b + 1].contiguous(), k[b:b + 1].contiguous(), v[b:b + 1].contiguous(),
+                lens[b:b + 1].contiguous()))
+            for b in range(B))
         reps = 20 if S <= 256 else 5
         ms = cuda_time_ms(lambda: flash_prefill_attention(q, k, v, lens), reps)
         plain_ms = cuda_time_ms(lambda: flash_prefill_attention_plain(q, k, v, lens), max(2, reps // 4))
@@ -236,15 +269,24 @@ def phase_kernels(gen: torch.Generator) -> list[dict]:
             reps)
         flops, nbytes = _attention_work(B, S, H, K, D, host_lens, dt)
         t_ops, t_bytes = flops / PEAK_FLOPS[dt] * 1e3, nbytes / PEAK_BYTES * 1e3
+        bound_ms = max(t_ops, t_bytes)
         row = dict(shape=[B, S, H, K, D], dtype=str(dt).replace("torch.", ""),
                    lengths=host_lens, max_abs_err=err, tol=tols[dt],
-                   ok=err <= tols[dt] and pad_zero and bool(torch.isfinite(out).all()),
+                   pad_zero=pad_zero, repeat_equal=repeat_equal,
+                   rows_alone_equal=rows_alone_equal,
+                   ok=(err <= tols[dt] and pad_zero and repeat_equal and rows_alone_equal
+                       and bool(torch.isfinite(out).all())),
                    ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=max(t_ops, t_bytes),
+                   # SDPA computes every row at full length: the same work
+                   # only where every length is S.
+                   library_same_work=all(n == S for n in host_lens),
+                   bound_ms=bound_ms, bound_frac=bound_ms / ms,
                    bound_by="operations" if t_ops >= t_bytes else "bytes")
         log(f"[kernel flash_prefill] {json.dumps(row)}")
         check(row["ok"], f"flash_prefill disagrees with its plain version at {row['shape']} "
-                         f"{row['dtype']}: err {err} (tol {tols[dt]}), padded rows zero={pad_zero}")
+                         f"{row['dtype']}: err {err} (tol {tols[dt]}), padded rows zero={pad_zero}, "
+                         f"repeat bit-identical={repeat_equal}, "
+                         f"rows alone bit-identical={rows_alone_equal}")
         rows.append(row)
     return rows
 
@@ -1441,7 +1483,12 @@ def main() -> None:
                for k in ("flash_prefill", "paged_attention", "quant_matmul", "quant_unembed",
                          "lora_bgmv")}
     by_path["lora_bgmv"]["lora_http"] = lora_http["tenants"]["lora_bgmv_launches"]
-    main_row = next(r for r in rows if r["shape"] == [8, 2048, 32, 8, 64])
+    # The main shape of B1: llama-3.2-1b's 8 x 2048 admission with every row
+    # at full length, so the kernel, SDPA and the bound count the same work.
+    main_row = next(r for r in rows if r["shape"] == [8, 2048, 32, 8, 64]
+                    and r["dtype"] == "bfloat16" and r["library_same_work"])
+    ragged_row = next(r for r in rows if r["shape"] == [8, 2048, 32, 8, 64]
+                      and r["dtype"] == "bfloat16" and not r["library_same_work"])
     flash_record = {
         "name": "flash_prefill",
         "route": "cuda",
@@ -1460,6 +1507,9 @@ def main() -> None:
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+        "library_same_work": main_row["library_same_work"],
+        # The same shape with the engine's ragged lengths (SDPA not comparable).
+        "ragged": _compact(ragged_row, ("shape", "lengths", "ms", "plain_ms", "bound_ms")),
         "shapes": rows,
     }
     # The main shape of B2: llama-3.2-1b paged decode, 8 slots, D = 64.

@@ -23,9 +23,9 @@ from localai_tpu_torch import kernels
 
 NEG_INF = -1e30
 
-# The CUDA kernel's tiles: 64 query rows per block, 64 keys per kv tile,
-# sized for Hopper's shared memory (the TPU kernel's 256/512 tiles were
-# sized for VMEM and do not carry over).
+# The CUDA kernel's kv tile: 64 keys, sized for Hopper's shared memory and
+# registers (the TPU kernel's 256/512 tiles were sized for VMEM and do not
+# carry over). The query tile (64 or 128 rows) does not change the result.
 FLASH_TILE = 64
 FLASH_HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -78,7 +78,7 @@ def flash_prefill_attention_plain(
     return o.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(q.dtype)
 
 
-def _check_cuda_args(q, k, v, lengths) -> None:
+def _check_cuda_args(q, k, v, lengths, out=None) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be [B, S, heads, D]")
     B, S, H, D = q.shape
@@ -94,11 +94,18 @@ def _check_cuda_args(q, k, v, lengths) -> None:
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if lengths.dtype != torch.int32 or lengths.shape != (B,):
         raise TypeError(f"lengths must be int32 [{B}], got {lengths.dtype} {tuple(lengths.shape)}")
-    for name, t in (("q", q), ("k", k), ("v", v), ("lengths", lengths)):
+    for name, t in (("q", q), ("k", k), ("v", v), ("lengths", lengths), ("out", out)):
+        if t is None:  # out: the wrapper's own allocation, when it passes one
+            continue
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        # The bf16 kernel moves q, k, v and out in 16-byte cp.async / vector
+        # accesses: each must start on a 16-byte boundary.
+        if name != "lengths" and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary "
+                             f"(data_ptr {t.data_ptr():#x})")
 
 
 def flash_prefill_attention(
@@ -113,9 +120,9 @@ def flash_prefill_attention(
         return flash_prefill_attention_plain(q, k, v, lengths)
     if q.device.type != "cuda":
         raise ValueError(f"flash_prefill_attention: unsupported device {q.device}")
-    _check_cuda_args(q, k, v, lengths)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _check_cuda_args(q, k, v, lengths, out)
     B, S, H, D = q.shape
-    out = torch.empty_like(q)
     lib = kernels.load("flash_prefill")
     with torch.cuda.device(q.device):  # the library launches on the current device
         rc = lib.flash_prefill(

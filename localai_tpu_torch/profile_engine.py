@@ -18,7 +18,8 @@ those slots. With `--paged` it then does the same on a paged KV pool
 kernel walks the 1024 resident rows). Prints, per path, the host wall time
 of an unprofiled run, the summed device time of its kernels under the
 profiler, the device busy share (their ratio), the device launches per
-step, and the kernels and host ops that take the most time. Needs a GPU.
+step, the kernels and host ops that take the most time, and the device
+time of each of the port's own kernels (B1-B5). Needs a GPU.
 """
 
 from __future__ import annotations
@@ -44,6 +45,12 @@ def _top(events, key: str, n: int) -> list[tuple[str, int, float]]:
     return sorted(rows, key=lambda r: -r[2])[:n]
 
 
+# Names of the port's own kernels (csrc/*.cu), listed apart from the top
+# kernels so that each one's device time shows however small it is.
+PORT_KERNELS = ("flash_prefill", "paged_attention_kernel", "qmm_kernel", "unembed_kernel",
+                "lora_shrink", "lora_expand")
+
+
 def _profile(label: str, fn, steps: int = 1) -> dict:
     """Run fn three times: a warm-up (allocator, cuBLAS handles, lazy module
     loads), a timed run, and a run under torch.profiler."""
@@ -63,6 +70,7 @@ def _profile(label: str, fn, steps: int = 1) -> dict:
     kern_ids = {id(e) for e in kern}
     dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
     launches = sum(e.count for e in kern)
+    port = [e for e in kern if any(n in e.key for n in PORT_KERNELS)]
     out = {
         "path": label,
         "wall_ms": wall_ms,
@@ -71,6 +79,7 @@ def _profile(label: str, fn, steps: int = 1) -> dict:
         "device_busy_share": dev_ms / wall_ms if wall_ms else 0.0,
         "device_launches_per_step": launches / steps,
         "top_kernels": _top(kern, "self_device_time_total", 12),
+        "port_kernels": _top(port, "self_device_time_total", len(port)),
         "top_host_ops": _top([e for e in ev if id(e) not in kern_ids],
                              "self_cpu_time_total", 12),
     }

@@ -39,11 +39,16 @@ def _qkv(seed, B, S, H, K, D, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("D", [64, 128])
-@pytest.mark.parametrize("S", [256, 200])  # 200: the last query / kv tile is partial
-def test_flash_kernel_matches_plain_version(card, S, D, dtype):
-    B, H, K = 3, 32, 8
-    q, k, v = _qkv(S + D, B, S, H, K, D, dtype)
-    lengths = torch.tensor([S, 1, 37], dtype=torch.int32, device="cuda")
+@pytest.mark.parametrize("G", [1, 4, 8])  # query heads per kv head
+# 200: the last query / kv tile is partial; 16: one partial tile.
+@pytest.mark.parametrize("S", [16, 64, 200, 256, 1024])
+def test_flash_kernel_matches_plain_version(card, S, G, D, dtype):
+    K = 4
+    H = G * K
+    # A full row, a single token, one past a 64-key tile edge, a ragged row.
+    lens = [S, 1, min(S, 65), min(S, 37)]
+    q, k, v = _qkv(S + D + G, len(lens), S, H, K, D, dtype)
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
     before = flash.flash_prefill_attention.launches
     out = flash.flash_prefill_attention(q, k, v, lengths)
     torch.cuda.synchronize()
@@ -51,8 +56,30 @@ def test_flash_kernel_matches_plain_version(card, S, D, dtype):
     ref = flash.flash_prefill_attention_plain(q, k, v, lengths)
     assert out.dtype == dtype and out.shape == q.shape
     assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
-    for b, n in enumerate(lengths.tolist()):
+    for b, n in enumerate(lens):
         assert (out[b, n:] == 0).all()  # padded rows are exact zeros
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("check", ["repeat", "row_alone"])
+def test_flash_kernel_is_deterministic_per_row(card, check, D, dtype):
+    """No block mixes batch rows and nothing sums in a varying order: a
+    second launch on the same inputs, and a launch on one batch row alone,
+    give the same bits."""
+    B, S, H, K = 3, 200, 16, 4
+    q, k, v = _qkv(7 + D, B, S, H, K, D, dtype)
+    lengths = torch.tensor([S, 1, 130], dtype=torch.int32, device="cuda")
+    out = flash.flash_prefill_attention(q, k, v, lengths)
+    if check == "repeat":
+        assert torch.equal(out, flash.flash_prefill_attention(q, k, v, lengths))
+    else:
+        for b in range(B):
+            alone = flash.flash_prefill_attention(
+                q[b:b + 1].contiguous(), k[b:b + 1].contiguous(), v[b:b + 1].contiguous(),
+                lengths[b:b + 1].contiguous())
+            assert torch.equal(out[b:b + 1], alone)
 
 
 @pytest.mark.cuda

@@ -115,7 +115,7 @@ def test_dense_sliding_window_matches_jax():
 
 @pytest.mark.parametrize("change,err", [
     ("head_dim", ValueError), ("dtype", TypeError), ("lengths", TypeError),
-    ("heads", ValueError), ("contiguous", ValueError),
+    ("heads", ValueError), ("contiguous", ValueError), ("misaligned", ValueError),
 ])
 def test_kernel_argument_checks(change, err):
     B, S, H, K, D = 2, 64, 8, 2, 64
@@ -130,6 +130,9 @@ def test_kernel_argument_checks(change, err):
         lengths = lengths.long()
     elif change == "heads":
         k, v = torch.zeros(B, S, 3, D), torch.zeros(B, S, 3, D)
+    elif change == "misaligned":  # contiguous, but 4 bytes past a 16-byte boundary
+        k = torch.zeros(B * S * K * D + 1)[1:].view(B, S, K, D)
+        assert k.is_contiguous() and k.data_ptr() % 16 == 4
     else:
         q = torch.zeros(B, H, S, D).transpose(1, 2)
     with pytest.raises(err):
