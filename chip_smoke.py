@@ -8,7 +8,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    packages this machine has (for planning later slices);
 2. build   — nvcc builds every kernel library from localai_tpu_torch/csrc
    (one process per source, all at once) and prints what ptxas reports
-   (registers and spills of every kernel);
+   (registers and spills of every kernel); a spill in B3's tensor-core
+   instances fails the run;
 3. kernels — each kernel against its plain PyTorch version on the card, at
    the serving path's shapes, with CUDA-event times of the kernel, the
    plain version, one PyTorch library call computing the same function
@@ -18,9 +19,11 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    again and for each batch row alone), B2 ragged paged attention at
    the paged decode and chunked-prefill shapes and on fp8 pools with a
    per-head kv_scale, B3 dequant-matmul at llama-3-8b's projection shapes
-   (flat int8, grouped int8, packed int4; bf16 and f32 x; 1, 8 and 256
-   rows) and B4 int8 unembed at its head, with the time of a bf16 matmul
-   on the dequantized weight beside them;
+   (flat int8, grouped int8, packed int4; bf16 and f32 x; 1, 8, 16, 64 and
+   256 rows; every output bit-identical when launched again, and up to 16
+   rows for each row alone) and B4 int8 unembed at its head, with the time
+   of a bf16 matmul on the dequantized weight beside them, and for B3 the
+   time of the dequantize-then-matmul route at the same rows;
 4. model   — a small f32 model on the card against the same model on the
    CPU (logits, 16 greedy decode steps), dense and paged (chunked prefill
    into pages, paged decode), then full-width llama-3.2-1b in bf16 with
@@ -69,6 +72,7 @@ import contextlib
 import dataclasses
 import importlib.util
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -169,19 +173,62 @@ def phase_device() -> tuple[str, str]:
 # 2. build
 # --------------------------------------------------------------------------- #
 
-def phase_build() -> None:
+def _kernel_name(mangled: str) -> str:
+    """`qmm_mma_kernel<2, 2, 1>` from a mangled kernel name (c++filt where the
+    machine has it, else the mangled name)."""
+    cxxfilt = shutil.which("c++filt")
+    if not cxxfilt:
+        return mangled
+    full = subprocess.run([cxxfilt, mangled], capture_output=True, text=True,
+                          timeout=60).stdout.strip()
+    full = full.replace("(anonymous namespace)::", "").replace("void ", "")
+    return full.split("(")[0] or mangled
+
+
+def _ptxas_usage(out: str) -> list[dict]:
+    """Registers, spill bytes and static shared memory of every kernel in an
+    `nvcc -Xptxas -v` log."""
+    rows, cur = [], None
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"kernel": _kernel_name(m.group(1))}
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(sm.group(1)) if sm else 0
+    return rows
+
+
+def phase_build() -> dict[str, list[dict]]:
     from localai_tpu_torch import kernels
 
     t0 = time.monotonic()
     logs = kernels.build()
     log(f"[build] {len(logs)} librar{'y' if len(logs) == 1 else 'ies'} in "
         f"{time.monotonic() - t0:.1f}s with {kernels.nvcc_path()}")
+    usage = {}
     for name, out in logs.items():
         for line in out.splitlines():
             if ("ptxas info" in line and ("Used" in line or "Compiling" in line)
                     or "spill" in line):
                 log(f"[build:{name}] {line.strip()}")
         check(kernels.library_path(name).exists(), f"library {name} missing after build")
+        usage[name] = _ptxas_usage(out)
+    mma = [r for r in usage["quant_matmul"] if "qmm_mma_kernel" in r["kernel"]]
+    log(f"[build:quant_matmul] tensor-core instances: {json.dumps(mma)}")
+    check(len(mma) == 9, f"expected 9 qmm_mma_kernel instances in the ptxas log, found {len(mma)}")
+    check(all(r.get("spill_stores", 1) == 0 and r.get("spill_loads", 1) == 0 for r in mma),
+          f"a qmm_mma_kernel instance spills: {mma}")
+    return usage
 
 
 # --------------------------------------------------------------------------- #
@@ -428,14 +475,21 @@ def phase_quant_kernels(gen: torch.Generator) -> tuple[list[dict], list[dict]]:
     serving path, and B4 at llama-3-8b's head; each against its plain
     version, with the time of a bf16 matmul on the dequantized weight
     (`bf16_ms`: what the quantized kernel has to beat to be worth its
-    bytes). No one PyTorch call takes these packed layouts, so there is no
-    library time."""
+    bytes) and, for B3, of models/quant.matmul with the kernel route off
+    (`dequant_ms`: what the engine pays at those rows without B3). Every B3
+    output is bit-identical when launched again, and up to 16 rows for each
+    row launched alone. No one PyTorch call takes these packed layouts, so
+    there is no library time."""
     from localai_tpu_torch.models import quant
-    from localai_tpu_torch.ops.quant_matmul import qmm, qmm_plain, qunembed, qunembed_plain
+    from localai_tpu_torch.ops.quant_matmul import (
+        _sm_count, qmm, qmm_plain, qmm_plan, qunembed, qunembed_plain)
 
     # f32 x: summation order only. bf16 x: both sides round the f32 sum once
     # to bf16, so they may differ by one bf16 step (2^-7 of the value).
     rel_f32, rel_bf16 = 1e-4, 2.0**-7
+    # The 16- and 64-row inputs draw from their own generator, so the later
+    # phases see the inputs they always saw.
+    gen_added = torch.Generator(device="cuda").manual_seed(7)
     b3 = []
     for n_in, n_out in QMM_SHAPES:
         w = torch.randn(n_in, n_out, generator=gen, device="cuda") * 0.02
@@ -444,8 +498,9 @@ def phase_quant_kernels(gen: torch.Generator) -> tuple[list[dict], list[dict]]:
                   "int4": quant.quantize_tensor_g4}[form](w)
             w_bf16 = quant.dequantize_tensor(qw).to(torch.bfloat16)
             for dt in (torch.bfloat16, torch.float32):
-                for N in (1, 8, 256):
-                    x = torch.randn(N, n_in, generator=gen, device="cuda").to(dt)
+                for N in (1, 8, 16, 64, 256):
+                    g = gen if N in (1, 8, 256) else gen_added
+                    x = torch.randn(N, n_in, generator=g, device="cuda").to(dt)
                     out = qmm(x, qw)
                     torch.cuda.synchronize()
                     want = qmm_plain(x, qw)
@@ -456,19 +511,30 @@ def phase_quant_kernels(gen: torch.Generator) -> tuple[list[dict], list[dict]]:
                     else:
                         ok = bool((err <= rel_bf16 * want.float().abs() + rel_f32 * scale).all())
                     ok = ok and bool(torch.isfinite(out).all())
+                    repeat_equal = torch.equal(out, qmm(x, qw))
+                    rows_alone_equal = (all(torch.equal(out[i:i + 1], qmm(x[i:i + 1], qw))
+                                            for i in range(N)) if N <= 16 else None)
                     xb = x.to(torch.bfloat16)
                     ms = cuda_time_cold_ms(lambda: qmm(x, qw), 20)
                     plain_ms = cuda_time_cold_ms(lambda: qmm_plain(x, qw), 3)
                     bf16_ms = cuda_time_cold_ms(lambda: torch.matmul(xb, w_bf16), 20)
+                    with _dequant_route():
+                        dequant_ms = cuda_time_cold_ms(lambda: quant.matmul(x, qw), 20)
                     bound_ms, bound_by = _bound(*_qmm_work(form, N, n_in, n_out, dt.itemsize),
                                                 dt)
+                    plan = (qmm_plan(n_in, n_out, N, _sm_count(x.device))._asdict()
+                            if dt == torch.bfloat16 else None)
                     row = dict(shape=[N, n_in, n_out], form=form,
                                dtype=str(dt).replace("torch.", ""),
-                               max_abs_err=err.max().item(), out_max=scale, ok=ok, ms=ms,
-                               plain_ms=plain_ms, bf16_ms=bf16_ms, bound_ms=bound_ms,
-                               bound_by=bound_by)
+                               max_abs_err=err.max().item(), out_max=scale,
+                               repeat_equal=repeat_equal, rows_alone_equal=rows_alone_equal,
+                               ok=ok and repeat_equal and rows_alone_equal is not False,
+                               ms=ms, plain_ms=plain_ms, bf16_ms=bf16_ms, dequant_ms=dequant_ms,
+                               bound_ms=bound_ms, bound_frac=bound_ms / ms, bound_by=bound_by,
+                               plan=plan)
                     log(f"[kernel quant_matmul] {json.dumps(row)}")
-                    check(ok, f"quant_matmul disagrees with its plain version at {row}")
+                    check(row["ok"], f"quant_matmul disagrees with its plain version or is not "
+                                     f"bit-identical on a repeat / a row alone at {row}")
                     b3.append(row)
             del qw, w_bf16
     b4 = []
@@ -1460,7 +1526,7 @@ def main() -> None:
         return out
 
     name, smi = timed("device", phase_device)
-    timed("build", phase_build)
+    usage = timed("build", phase_build)
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = timed("flash_kernels", phase_kernels, gen)
     paged_rows = timed("paged_kernels", phase_paged_kernels, gen)
@@ -1556,9 +1622,16 @@ def main() -> None:
         "bound_ms": b3_main["bound_ms"],
         "bound_by": b3_main["bound_by"],
         "bf16_ms": b3_main["bf16_ms"],
+        "dequant_ms": b3_main["dequant_ms"],
         "library_ms": None,  # no one PyTorch call takes the packed int8 / int4 layouts
+        "repeat_equal": all(r["repeat_equal"] for r in b3_rows),
+        "rows_alone_equal": all(r["rows_alone_equal"] is not False for r in b3_rows),
+        # ptxas: registers, spill bytes, static shared memory of each instance
+        # (the tensor-core instances take their ring as dynamic shared memory).
+        "ptxas": [r for r in usage["quant_matmul"] if "qmm" in r["kernel"]],
         # Every shape's full row is in the log above; here the times only.
-        "shapes": [_compact(r, ("shape", "form", "dtype", "ms", "bf16_ms", "bound_ms"))
+        "shapes": [_compact(r, ("shape", "form", "dtype", "ms", "bf16_ms", "dequant_ms",
+                                "bound_ms"))
                    for r in b3_rows],
     }
     b4_main = next(r for r in b4_rows if r["shape"][0] == 8 and r["dtype"] == "bfloat16")

@@ -22,26 +22,82 @@
 // for the vocab-major int8 head q [V, D], s [V] f32, h [N, D] f32 or bf16,
 // f32 logits [N, V]. The transpose is never materialized.
 //
-// What bounds them. At decode (N = 1..8 rows) each weight byte feeds at
-// most 2*8 FLOPs, far below the card's ridge: both are bound by the weight
-// bytes they read (B3 at llama-3-8b's w_gate: 58.7 MB int8, 29.4 MB int4
-// payload; B4: 525 MB of int8 head). The design reads every weight byte
-// once, coalesced, and keeps the dequantized values in registers only.
+// What bounds them. At decode (N = 1..16 rows) a weight byte feeds at most
+// 2*16 FLOPs (int8) or 4*16 (int4: two weights a byte), far below the
+// card's bf16 ridge of ~295 FLOPs a byte: both kernels are bound by the
+// weight bytes they read (B3 at llama-3-8b's w_gate: 58.7 MB int8; 29.4 MB
+// int4 payload plus 14.7 MB of its f32 scales and zero points; B4: 525 MB
+// of int8 head). At 3.35 TB/s the card feeds an SM ~13 bytes a cycle,
+// ~26 int4 weights, against 128 thread-instructions a cycle: all the work
+// on one weight has to fit in ~5 instructions (~10 for int8).
 //
-// B3 design. A block of 8 warps owns 128 output columns (lane l: columns
-// 4l..4l+3, one 32-bit load = 4 int8 weights or 8 int4 nibbles of 4
-// columns, so a warp reads a contiguous 128-byte stretch of a weight row)
-// and a tile of RT rows (1 for a single row, else 8). The TPU kernel walked
-// the reduction as a sequential grid axis; here the 8 warps split it
-// inside the block: per stage the block stages x[RT rows][8 chunks of 32
-// in-rows] in shared memory as f32, warp w takes chunk w (one group of the
-// grouped forms, whose group size is 32) and requests all of its weight
-// words before using any, and at the end the 8 warps' sums are added in
-// shared memory in a fixed order, so results do not depend on scheduling.
-// Known limits, recorded rather than fixed in this version: at OUT = 1024
-// (wk, wv) the grid has 8 blocks for 132 SMs, and above 8 rows each row
-// tile re-reads the weights; split-K across blocks (with a deterministic
-// second pass) and tensor cores are later work.
+// B3, bf16 x: qmm_mma_kernel<FORM, MT, NT>. The first, scalar kernel was
+// issue-bound (a shift and mask, a convert and one FMA per row for each
+// weight, ~11 instructions at 8 rows), waited for every load, and ran
+// grids of 8 (wk, wv) to 112 blocks. This one:
+// - Operands. out^T = W^T x^T: the weight's output columns are the M side
+//   of mma.sync m16n8k16 (bf16 in, f32 accumulate) and x's rows the n = 8
+//   side, so decode's 1-8 rows pad no 16-row half tile (NT = 1; NT = 2
+//   serves 9-16 rows; above 16 rows NT = 8, row tiles of 64, so 256 rows
+//   read the weights 4 times). A block is 4 warps; a warp owns 16*MT output
+//   columns (MT = 2: 128 columns a block, one full 128-byte line of a
+//   weight row; MT = 1 above 16 rows, where the NT = 8 accumulators need
+//   the registers).
+// - Integers exact, scales outside the product. Every int8 value and int4
+//   nibble is exact in bf16, so the raw integers are multiplied by x; flat
+//   int8 scales the finished f32 sum, the grouped forms scale each group's
+//   32-row partial (two k16 steps into a fresh fragment): acc = part * s_g
+//   + acc, and int4 subtracts xsum_g * z_g, xsum_g coming from one more
+//   mma of x against an all-ones A fragment. Folding the scale into a bf16
+//   weight would round every weight to bf16.
+// - Unpack in registers, ~1.5 (int4) / ~2.8 (int8) instructions a weight.
+//   The output column that an A-fragment row stands for is chosen so that
+//   lane group g reads 2*MT adjacent columns of 4 weight rows (k = 2t,
+//   2t+1, 2t+8, 2t+9) with one 32-bit (MT = 2) or 16-bit load each. One
+//   prmt interleaves two rows' bytes so that each half-word holds one
+//   weight of a column; int4: one lop3 puts a nibble into the mantissa of
+//   bf16 128.0 (0x4300 | n = 128 + n) and one bf16x2 subtraction gives two
+//   exact values (a byte holds in-rows i and i + 16 of its group, so its
+//   high nibble feeds the group's second k16 step, after a shift); int8:
+//   the biased byte (q ^ 0x80) goes into the mantissa of f32 2^23 by prmt,
+//   one FADD removes 2^23 + 128, and a prmt packs the upper halves of two
+//   such f32 (exact: |q| <= 128 has 8 significant bits) into bf16x2.
+// - Loads. Weight tiles of 64 byte-rows (64 in-rows int8, 128 int4) with
+//   their scale / zero-point rows and x's k-slice in bf16 arrive by 16-byte
+//   cp.async.cg in a ring of 3 stages, one barrier a stage, so two stages
+//   are in flight while one is converted and multiplied (a stage is 10-25
+//   KB; 3-7 blocks fit an SM; a 4-stage ring measured no faster at decode
+//   and slower above 16 rows, where it fits fewer blocks). Weight and x rows
+//   are padded by 16 bytes: a warp's 4 weight rows and ldmatrix's 8 x rows
+//   hit distinct banks. A stage's groups are unrolled into one stretch of
+//   code, so the loads and conversions of one group overlap another's mma.
+// - Split-K, one launch. The grid is (column tiles, k-splits, row tiles);
+//   the wrapper's plan (ops/quant_matmul.qmm_plan) picks the split count
+//   so that the grid fills the SMs twice over, in k-slices of whole stages.
+//   With one split a block writes bf16 out directly. With more, each writes
+//   its f32 partial tile to a workspace, fences, and bumps a per-tile
+//   counter; the last block to arrive sums the splits in order 0..S-1
+//   (8 loads in flight a thread), applies the flat scale, writes bf16, and
+//   resets the counter to 0. The workspace and counters are the wrapper's,
+//   one per device: the port issues every product in order on one stream,
+//   so one product's partials are never live beside another's.
+// - Determinism. Launches repeat bit for bit. For N <= 16 the plan and the
+//   order of every sum depend only on (IN, OUT, form), not on N (NT = 1
+//   and NT = 2 do the same arithmetic for a row), so a row's bits do not
+//   depend on how many rows decode beside it.
+//
+// B3, f32 x: qmm_kernel<float, RT, FORM>, the first kernel unchanged: a bf16
+// tensor-core operand would round x, and the f32 checks need exact f32
+// products. A block of 8 warps owns 128 output columns (lane l: columns
+// 4l..4l+3, one 32-bit weight load) and RT rows (1, else 8); the warps
+// split each 256-row stage into 32-row chunks, FMA in f32 and add their
+// sums in warp order at the end.
+//
+// Left for later: an offline weight repack so that each lane's fragment is
+// one 16-byte load with no prmt (Marlin's layout, Frantar et al. 2024), a
+// TMA ring fed by a producer warp, and bf16 scales (the f32 scale and zero
+// rows are a third of an int4 product's bytes). wgmma does little here:
+// its M is 64 and decode has 1-16 rows.
 //
 // B4 design. A block of 8 warps owns 32 vocab rows (4 per warp) and a tile
 // of RT h rows; it walks D in 512-column stages, staging h in shared
@@ -73,7 +129,6 @@ enum Form { kFlat = 0, kGrouped = 1, kInt4 = 2 };
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
 // Byte c of w as a signed int8, in f32.
 __device__ __forceinline__ float i8(uint32_t w, int c) {
@@ -321,6 +376,472 @@ unembed_kernel(const XT* __restrict__ h, const int8_t* __restrict__ q,
     }
 }
 
+// ------------------------------------------------------------------------ //
+// B3, bf16 x: mma.sync tensor-core tiles fed by a cp.async ring, split-K
+// ------------------------------------------------------------------------ //
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kMmaWarps = 4;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kRing = 3;       // cp.async stages
+constexpr int kTileRows = 64;  // weight byte-rows a stage: 64 in-rows int8, 128 int4
+
+// The tile shapes and the shared memory of one instance.
+template <int FORM, int MT, int NT>
+struct QmmTile {
+  static constexpr int kBO = kMmaWarps * 16 * MT;  // output columns a block
+  static constexpr int kRT = 8 * NT;               // x rows a block
+  static constexpr int kIn = FORM == kInt4 ? 2 * kTileRows : kTileRows;  // in-rows a stage
+  static constexpr int kGroups = kIn / kGroup;
+  static constexpr int kWPitch = kBO + 16;  // bytes: 4 rows 2 apart start 8 banks apart
+  static constexpr int kXPitch = kIn + 8;   // bf16: ldmatrix's 8 rows hit 8 bank groups
+  static constexpr int kWBytes = kTileRows * kWPitch;
+  static constexpr int kSBytes = FORM == kFlat ? 0 : kGroups * kBO * 4;  // scale rows
+  static constexpr int kZBytes = FORM == kInt4 ? kSBytes : 0;           // zero-point rows
+  static constexpr int kXBytes = kRT * kXPitch * 2;
+  static constexpr int kStageBytes = kWBytes + kSBytes + kZBytes + kXBytes;
+  static constexpr int kSmem = kRing * kStageBytes;
+  static_assert(kStageBytes % 16 == 0, "cp.async writes 16-byte chunks");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; zeros, and nothing read, when
+// `pred` is false.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t& r0, uint32_t& r1) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0, uint32_t& r1,
+                                        uint32_t& r2, uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
+}
+
+// d += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Bytes of {b, a} picked by the selector's nibbles (a = bytes 0-3).
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
+  return d;
+}
+
+// The nibbles at bits 0-3 and 16-19 of w as bf16x2 (bits 0-3 in the low
+// half), exact: OR them into the mantissa of 128.0 (0x4300), subtract 128.
+__device__ __forceinline__ uint32_t nibbles_bf16x2(uint32_t w) {
+  uint32_t h;
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n" : "=r"(h) : "r"(w), "n"(0x000F000F), "n"(0x43004300));
+  const uint32_t k128 = 0x43004300u;
+  const __nv_bfloat162 v = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&h),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&k128));
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Byte c of xa and byte c of xb, signed int8 already XORed with 0x80, as
+// bf16x2 (xa's in the low half), exact: the biased byte goes into the
+// mantissa of f32 2^23, one FADD removes 2^23 + 128, and the f32's upper
+// half is the bf16 (|q| <= 128 has 8 significant bits).
+__device__ __forceinline__ uint32_t bytes_bf16x2(uint32_t xa, uint32_t xb, int c) {
+  const float fa = __uint_as_float(prmt(xa, 0x4B000000u, 0x7650u | c)) - 8388736.f;
+  const float fb = __uint_as_float(prmt(xb, 0x4B000000u, 0x7650u | c)) - 8388736.f;
+  return prmt(__float_as_uint(fa), __float_as_uint(fb), 0x7632u);
+}
+
+// The 2 * MT weight bytes (adjacent output columns) a lane takes from one
+// weight row in shared memory.
+template <int MT>
+__device__ __forceinline__ uint32_t lds_w(const uint8_t* p) {
+  if constexpr (MT == 2) return *reinterpret_cast<const uint32_t*>(p);
+  else return *reinterpret_cast<const uint16_t*>(p);
+}
+
+// The lane's 2 * MT scales (or zero points) of one group row in shared
+// memory, in one 16-byte (MT = 2) or 8-byte load.
+template <int MT>
+__device__ __forceinline__ void lds_f32(const float* p, float (&v)[2 * MT]) {
+  if constexpr (MT == 2) {
+    const float4 f = *reinterpret_cast<const float4*>(p);
+    v[0] = f.x;
+    v[1] = f.y;
+    v[2] = f.z;
+    v[3] = f.w;
+  } else {
+    const float2 f = *reinterpret_cast<const float2*>(p);
+    v[0] = f.x;
+    v[1] = f.y;
+  }
+}
+
+// B fragments of NT n-tiles for the k16 step at column kk of the x tile.
+template <int NT, int XP>
+__device__ __forceinline__ void x_frags(uint32_t xs, int kk, int lane, uint32_t (&b)[NT][2]) {
+  if constexpr (NT == 1) {
+    const int l = lane & 15;  // x2: lanes 0-7 address k kk, lanes 8-15 k kk + 8
+    ldsm_x2(xs + ((l & 7) * XP + kk + (l >> 3) * 8) * 2, b[0][0], b[0][1]);
+  } else {
+    const int mat = lane >> 3;  // x4: (n-tile 2p, kk), (2p, kk + 8), (2p + 1, kk), (2p + 1, kk + 8)
+#pragma unroll
+    for (int p = 0; p < NT / 2; ++p) {
+      const int n = (2 * p + (mat >> 1)) * 8 + (lane & 7);
+      ldsm_x4(xs + (n * XP + kk + (mat & 1) * 8) * 2, b[2 * p][0], b[2 * p][1],
+              b[2 * p + 1][0], b[2 * p + 1][1]);
+    }
+  }
+}
+
+// 2 * MT bf16 of v to p.
+template <int MT>
+__device__ __forceinline__ void store_bf16(bf16* p, const float (&v)[2 * MT]) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+  if constexpr (MT == 2) {
+    const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(*reinterpret_cast<const uint32_t*>(&a), *reinterpret_cast<const uint32_t*>(&b));
+  } else {
+    *reinterpret_cast<__nv_bfloat162*>(p) = a;
+  }
+}
+
+// Group gi (32 in-rows) of a stage: the lane's A and B fragments, the
+// mma products, and the group's scale and zero point for the grouped forms.
+template <int FORM, int MT, int NT>
+__device__ __forceinline__ void qmm_group(const unsigned char* stage, int gi, int wcol, int lane,
+                                          float (&acc)[MT][NT][4]) {
+  using T = QmmTile<FORM, MT, NT>;
+  const int t = lane & 3;
+  const uint8_t* wt = stage + wcol;
+  const float* sc = reinterpret_cast<const float*>(stage + T::kWBytes) + wcol;
+  const float* zp = reinterpret_cast<const float*>(stage + T::kWBytes + T::kSBytes) + wcol;
+  const uint32_t xs = smem_u32(stage + T::kWBytes + T::kSBytes + T::kZBytes);
+  const uint32_t kOnes[4] = {0x3F803F80u, 0x3F803F80u, 0x3F803F80u, 0x3F803F80u};
+  uint32_t b[2][NT][2];  // x of the group's two k16 steps
+  x_frags<NT, T::kXPitch>(xs, gi * kGroup, lane, b[0]);
+  x_frags<NT, T::kXPitch>(xs, gi * kGroup + 16, lane, b[1]);
+  float part[MT][NT][4];  // the group's sum (grouped forms)
+#pragma unroll
+  for (int j = 0; j < MT; ++j)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[j][n][e] = 0.f;
+
+  if constexpr (FORM == kInt4) {
+    // Byte-rows 2t, 2t + 1, 2t + 8, 2t + 9 of the group: low nibbles are
+    // k-step 0's A rows k = 2t.., high nibbles k-step 1's.
+    const uint8_t* wr = wt + gi * 16 * T::kWPitch;
+    const uint32_t w0 = lds_w<MT>(wr + (2 * t) * T::kWPitch);
+    const uint32_t w1 = lds_w<MT>(wr + (2 * t + 1) * T::kWPitch);
+    const uint32_t w8 = lds_w<MT>(wr + (2 * t + 8) * T::kWPitch);
+    const uint32_t w9 = lds_w<MT>(wr + (2 * t + 9) * T::kWPitch);
+#pragma unroll
+    for (int j = 0; j < MT; ++j) {
+      // [row k col 2j, row k col 2j + 1, row k+1 col 2j, row k+1 col 2j + 1]
+      const uint32_t sel = j ? 0x7632u : 0x5410u;
+      const uint32_t lo = prmt(w0, w1, sel), hi = prmt(w8, w9, sel);
+#pragma unroll
+      for (int step = 0; step < 2; ++step) {
+        const int sh = 4 * step;
+        const uint32_t a[4] = {nibbles_bf16x2(lo >> sh), nibbles_bf16x2(lo >> (sh + 8)),
+                               nibbles_bf16x2(hi >> sh), nibbles_bf16x2(hi >> (sh + 8))};
+#pragma unroll
+        for (int n = 0; n < NT; ++n) mma_bf16(part[j][n], a, b[step][n][0], b[step][n][1]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int step = 0; step < 2; ++step) {
+      const uint8_t* wr = wt + (gi * kGroup + step * 16) * T::kWPitch;
+      const uint32_t w0 = lds_w<MT>(wr + (2 * t) * T::kWPitch) ^ 0x80808080u;
+      const uint32_t w1 = lds_w<MT>(wr + (2 * t + 1) * T::kWPitch) ^ 0x80808080u;
+      const uint32_t w8 = lds_w<MT>(wr + (2 * t + 8) * T::kWPitch) ^ 0x80808080u;
+      const uint32_t w9 = lds_w<MT>(wr + (2 * t + 9) * T::kWPitch) ^ 0x80808080u;
+#pragma unroll
+      for (int j = 0; j < MT; ++j) {
+        const uint32_t a[4] = {bytes_bf16x2(w0, w1, 2 * j), bytes_bf16x2(w0, w1, 2 * j + 1),
+                               bytes_bf16x2(w8, w9, 2 * j), bytes_bf16x2(w8, w9, 2 * j + 1)};
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          if constexpr (FORM == kFlat) mma_bf16(acc[j][n], a, b[step][n][0], b[step][n][1]);
+          else mma_bf16(part[j][n], a, b[step][n][0], b[step][n][1]);
+        }
+      }
+    }
+  }
+
+  if constexpr (FORM != kFlat) {
+    float sv[2 * MT], zv[2 * MT];
+    lds_f32<MT>(sc + gi * T::kBO, sv);
+    if constexpr (FORM == kInt4) lds_f32<MT>(zp + gi * T::kBO, zv);
+    float xsum[NT][4];  // Σ x over the group: c0 row 2t, c1 row 2t + 1
+    if constexpr (FORM == kInt4) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) xsum[n][e] = 0.f;
+        mma_bf16(xsum[n], kOnes, b[0][n][0], b[0][n][1]);
+        mma_bf16(xsum[n], kOnes, b[1][n][0], b[1][n][1]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < MT; ++j)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 2 * j + (e >> 1);
+          acc[j][n][e] = fmaf(part[j][n][e], sv[c], acc[j][n][e]);
+          if constexpr (FORM == kInt4)
+            acc[j][n][e] = fmaf(-xsum[n][e & 1], zv[c], acc[j][n][e]);
+        }
+  }
+}
+
+template <int FORM, int MT, int NT>
+__global__ void __launch_bounds__(kMmaThreads)
+qmm_mma_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ w,
+               const float* __restrict__ s, const float* __restrict__ z, bf16* __restrict__ out,
+               float* __restrict__ ws, int* __restrict__ counters, int N, int IN, int OUT,
+               int k_slice) {
+  using T = QmmTile<FORM, MT, NT>;
+  extern __shared__ __align__(128) unsigned char smem_mma[];
+  __shared__ int is_last;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int S = gridDim.y;
+  const int tile = blockIdx.z * gridDim.x + blockIdx.x;
+  const int c0 = blockIdx.x * T::kBO, r0 = blockIdx.z * T::kRT;
+  const int kbeg = blockIdx.y * k_slice, kend = min(kbeg + k_slice, IN);
+  const int n_stages = (kend - kbeg + T::kIn - 1) / T::kIn;
+  // The lane's 2 * MT output columns start here in the block's tile; A-row g
+  // of m-tile j is column 2j, A-row g + 8 column 2j + 1.
+  const int wcol = warp * 16 * MT + g * 2 * MT;
+
+  // Stage st of this split: weight rows, scale / zero-point rows and x's
+  // k-slice, in 16-byte chunks; chunks past the slice, IN, OUT or N are
+  // zero-filled and not read (OUT % 16 == 0, IN % 8 == 0, slices of 32).
+  auto load_stage = [&](int st) {
+    const uint32_t base = smem_u32(smem_mma) + (st % kRing) * T::kStageBytes;
+    const int k0 = kbeg + st * T::kIn;
+    constexpr int kWChunks = kTileRows * (T::kBO / 16);
+    static_assert(kWChunks % kMmaThreads == 0, "every thread copies as many weight chunks");
+#pragma unroll
+    for (int it = 0; it < kWChunks / kMmaThreads; ++it) {
+      const int i = threadIdx.x + it * kMmaThreads;
+      const int r = i / (T::kBO / 16), col = c0 + (i % (T::kBO / 16)) * 16;
+      int64_t row;  // byte-row of the payload
+      bool ok;
+      if constexpr (FORM == kInt4) {  // [G][16][OUT]: byte-row r of the stage is in group k0/32 + r/16
+        row = k0 / 2 + r;
+        ok = k0 + (r / 16) * kGroup < kend;
+      } else {
+        row = k0 + r;
+        ok = row < kend;
+      }
+      ok = ok && col < OUT;
+      cp_async16(base + r * T::kWPitch + (i % (T::kBO / 16)) * 16, w + (ok ? row * OUT + col : 0),
+                 ok);
+    }
+    if constexpr (FORM != kFlat) {
+      for (int i = threadIdx.x; i < T::kGroups * (T::kBO / 4); i += kMmaThreads) {
+        const int gi = i / (T::kBO / 4), ch = i % (T::kBO / 4);
+        const int grp = k0 / kGroup + gi, col = c0 + ch * 4;
+        const bool ok = grp * kGroup < kend && col < OUT;
+        const int64_t off = ok ? (int64_t)grp * OUT + col : 0;
+        const uint32_t dst = base + T::kWBytes + (gi * T::kBO + ch * 4) * 4;
+        cp_async16(dst, s + off, ok);
+        if constexpr (FORM == kInt4) cp_async16(dst + T::kSBytes, z + off, ok);
+      }
+    }
+    for (int i = threadIdx.x; i < T::kRT * (T::kIn / 8); i += kMmaThreads) {
+      const int r = i / (T::kIn / 8), kc = (i % (T::kIn / 8)) * 8;
+      const bool ok = r0 + r < N && k0 + kc < kend;
+      cp_async16(base + T::kWBytes + T::kSBytes + T::kZBytes + (r * T::kXPitch + kc) * 2,
+                 x + (ok ? (int64_t)(r0 + r) * IN + k0 + kc : 0), ok);
+    }
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int j = 0; j < MT; ++j)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][n][e] = 0.f;
+#pragma unroll
+  for (int st = 0; st < kRing - 1; ++st) {
+    if (st < n_stages) load_stage(st);
+    cp_async_commit();
+  }
+  for (int st = 0; st < n_stages; ++st) {
+    cp_async_wait<kRing - 2>();
+    __syncthreads();  // stage st has landed for every thread; stage st - 1 is consumed
+    if (st + kRing - 1 < n_stages) load_stage(st + kRing - 1);
+    cp_async_commit();
+
+    const unsigned char* stage = smem_mma + (st % kRing) * T::kStageBytes;
+    const int ng = min(T::kGroups, (kend - kbeg - st * T::kIn + kGroup - 1) / kGroup);
+    if (ng == T::kGroups) {  // a whole stage: every group unrolled, for ILP
+#pragma unroll
+      for (int gi = 0; gi < T::kGroups; ++gi) qmm_group<FORM, MT, NT>(stage, gi, wcol, lane, acc);
+    } else {  // the short last stage of a product whose in is not a multiple of the stage
+#pragma unroll 1
+      for (int gi = 0; gi < ng; ++gi) qmm_group<FORM, MT, NT>(stage, gi, wcol, lane, acc);
+    }
+  }
+  cp_async_wait<0>();
+
+  // Row n = r0 + 8 n-tile + 2t + h of the lane's columns: acc[j][n][h] is
+  // column 2j, acc[j][n][2 + h] column 2j + 1.
+  const int col = c0 + wcol;
+  if (S == 1) {
+    if (col >= OUT) return;
+    float sf[2 * MT];
+#pragma unroll
+    for (int c = 0; c < 2 * MT; ++c) sf[c] = FORM == kFlat ? s[col + c] : 1.f;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r0 + n * 8 + 2 * t + h;
+        if (row >= N) continue;
+        float v[2 * MT];
+#pragma unroll
+        for (int j = 0; j < MT; ++j) {
+          v[2 * j] = acc[j][n][h] * sf[2 * j];
+          v[2 * j + 1] = acc[j][n][2 + h] * sf[2 * j + 1];
+        }
+        store_bf16<MT>(out + (int64_t)row * OUT + col, v);
+      }
+    return;
+  }
+
+  // Split-K: this split's f32 tile to the workspace; the last split of the
+  // tile to arrive adds all of them in split order.
+  constexpr int kTileFloats = T::kRT * T::kBO;
+  float* mine = ws + ((int64_t)tile * S + blockIdx.y) * kTileFloats;
+  if (col < OUT) {
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = n * 8 + 2 * t + h;
+        if (r0 + r >= N) continue;
+        float* p = mine + r * T::kBO + wcol;
+        if constexpr (MT == 2) {
+          *reinterpret_cast<float4*>(p) =
+              make_float4(acc[0][n][h], acc[0][n][2 + h], acc[1][n][h], acc[1][n][2 + h]);
+        } else {
+          *reinterpret_cast<float2*>(p) = make_float2(acc[0][n][h], acc[0][n][2 + h]);
+        }
+      }
+  }
+  __threadfence();  // the partial is visible to every SM before the count moves
+  __syncthreads();
+  if (threadIdx.x == 0) is_last = atomicAdd(counters + tile, 1) == S - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  const float* all = ws + (int64_t)tile * S * kTileFloats;
+  for (int i = threadIdx.x; i < kTileFloats / 4; i += kMmaThreads) {
+    const int r = i / (T::kBO / 4), c = (i % (T::kBO / 4)) * 4;
+    if (r0 + r >= N || c0 + c >= OUT) continue;
+    const float* p = all + r * T::kBO + c;
+    float o[4];
+    for (int q0 = 0; q0 < S; q0 += 8) {  // 8 loads in flight, added in split order
+      float4 u[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        if (q0 + q < S)
+          u[q] = __ldcg(reinterpret_cast<const float4*>(p + (int64_t)(q0 + q) * kTileFloats));
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        if (q0 + q >= S) break;
+        if (q0 + q == 0) {
+          o[0] = u[q].x;
+          o[1] = u[q].y;
+          o[2] = u[q].z;
+          o[3] = u[q].w;
+        } else {
+          o[0] += u[q].x;
+          o[1] += u[q].y;
+          o[2] += u[q].z;
+          o[3] += u[q].w;
+        }
+      }
+    }
+    if constexpr (FORM == kFlat) {
+      const float4 f = *reinterpret_cast<const float4*>(s + c0 + c);
+      o[0] *= f.x;
+      o[1] *= f.y;
+      o[2] *= f.z;
+      o[3] *= f.w;
+    }
+    store_bf16<2>(out + (int64_t)(r0 + r) * OUT + c0 + c, o);
+  }
+  if (threadIdx.x == 0) counters[tile] = 0;  // every split has counted: ready for the next product
+}
+
+template <int FORM, int MT, int NT>
+int launch_qmm_mma(const void* x, const void* w, const void* s, const void* z, void* out,
+                   void* ws, void* counters, int N, int IN, int OUT, int splits, int k_slice,
+                   cudaStream_t stream) {
+  using T = QmmTile<FORM, MT, NT>;
+  auto kern = qmm_mma_kernel<FORM, MT, NT>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((OUT + T::kBO - 1) / T::kBO, splits, (N + T::kRT - 1) / T::kRT);
+  kern<<<grid, kMmaThreads, T::kSmem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const uint8_t*>(w), static_cast<const float*>(s),
+      static_cast<const float*>(z), static_cast<bf16*>(out), static_cast<float*>(ws),
+      static_cast<int*>(counters), N, IN, OUT, k_slice);
+  return (int)cudaGetLastError();
+}
+
+// The instance for a plan's (row tile, block columns): 8 or 16 rows on 128
+// columns, 64 rows on 64 columns.
+template <int FORM>
+int qmm_mma_tile(const void* x, const void* w, const void* s, const void* z, void* out,
+                 void* ws, void* counters, int N, int IN, int OUT, int row_tile, int block_cols,
+                 int splits, int k_slice, cudaStream_t st) {
+  if (row_tile == 8 && block_cols == 128)
+    return launch_qmm_mma<FORM, 2, 1>(x, w, s, z, out, ws, counters, N, IN, OUT, splits,
+                                      k_slice, st);
+  if (row_tile == 16 && block_cols == 128)
+    return launch_qmm_mma<FORM, 2, 2>(x, w, s, z, out, ws, counters, N, IN, OUT, splits,
+                                      k_slice, st);
+  if (row_tile == 64 && block_cols == 64)
+    return launch_qmm_mma<FORM, 1, 8>(x, w, s, z, out, ws, counters, N, IN, OUT, splits,
+                                      k_slice, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename XT, int RT, int FORM>
 int launch_qmm(const void* x, const void* w, const void* s, const void* z, void* out, int N,
                int IN, int OUT, cudaStream_t stream) {
@@ -371,17 +892,36 @@ int unembed_rows(const void* h, const void* q, const void* s, void* out, int N, 
 // 1 = bfloat16 (x and out share it). form: 0 flat int8 (s [OUT]), 1 grouped
 // int8, 2 packed int4 (s, z [G, OUT]); gs: the group size of forms 1 and 2,
 // which must be 32. The caller guarantees OUT % 4 == 0, 4-byte aligned
-// weights and 16-byte aligned scales. Returns 0 or the cudaError_t of the
-// failed launch.
+// weights and 16-byte aligned scales. bf16 x also needs OUT % 16 == 0,
+// IN % 8 == 0 and 16-byte aligned x and weights (cp.async), and the plan of
+// ops/quant_matmul.qmm_plan: row_tile / block_cols one of 8 / 128, 16 / 128,
+// 64 / 64; `splits` k-slices of k_slice in-rows (a multiple of 32) that
+// cover IN, none empty; with splits > 1, ws holds splits x tiles x row_tile
+// x block_cols f32 and counters one zeroed int per output tile. f32 x
+// ignores the plan. Returns 0 or the cudaError_t of the failed launch.
 extern "C" int quant_matmul(const void* x, const void* w, const void* s, const void* z,
-                            void* out, int N, int IN, int OUT, int form, int gs, int x_dtype,
-                            void* stream) {
+                            void* out, void* ws, void* counters, int N, int IN, int OUT,
+                            int form, int gs, int x_dtype, int row_tile, int block_cols,
+                            int splits, int k_slice, void* stream) {
   if (N <= 0 || OUT <= 0) return 0;
   if (IN <= 0 || OUT % kCols) return (int)cudaErrorInvalidValue;
   if (form != kFlat && (gs != kGroup || IN % kGroup)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (x_dtype == 0) return qmm_rows<float>(x, w, s, z, out, N, IN, OUT, form, st);
-  if (x_dtype == 1) return qmm_rows<__nv_bfloat16>(x, w, s, z, out, N, IN, OUT, form, st);
+  if (x_dtype != 1) return (int)cudaErrorInvalidValue;
+  if (OUT % 16 || IN % 8 || splits < 1 || k_slice <= 0 || k_slice % kGroup ||
+      (int64_t)(splits - 1) * k_slice >= IN || (int64_t)splits * k_slice < IN ||
+      (splits > 1 && (ws == nullptr || counters == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (form == kFlat)
+    return qmm_mma_tile<kFlat>(x, w, s, z, out, ws, counters, N, IN, OUT, row_tile, block_cols,
+                               splits, k_slice, st);
+  if (form == kGrouped)
+    return qmm_mma_tile<kGrouped>(x, w, s, z, out, ws, counters, N, IN, OUT, row_tile,
+                                  block_cols, splits, k_slice, st);
+  if (form == kInt4)
+    return qmm_mma_tile<kInt4>(x, w, s, z, out, ws, counters, N, IN, OUT, row_tile, block_cols,
+                               splits, k_slice, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -22,8 +22,8 @@ which are the JAX package's XLA forms. The quantizers give the JAX
 package's integers and scales bit for bit: the torch ones those of its
 compiled quantize_params, the numpy ones those of its numpy loader path.
 
-Not ported yet: GGUF ingestion (engine/gguf.py), `init_params_quantized`
-and the MoE forms (ROADMAP Queue A items 13, 9 and 16).
+Not ported yet: GGUF ingestion (engine/gguf.py) and `init_params_quantized`
+(ROADMAP Queue A item 5), and the MoE forms (Queue A item 10).
 """
 
 from __future__ import annotations

@@ -17,6 +17,13 @@ Weight forms (models/quant.py):
   (low nibble = first gs/2 in-rows of the group; value = nibble·s − z)
 - unembed        {"q": [V, D] i8, "s": [V, 1] f32}, used transposed.
 
+B3 on bf16 x splits the reduction across blocks by the plan of
+`qmm_plan`, a plain function of the shapes and the card's SM count; the
+split partials go to a workspace and counters that the wrapper keeps, one
+pair per device, grown when a product needs more and never allocated per
+call. The port issues every product in order on one stream, which is what
+makes one workspace per device safe.
+
 The dispatchers `dispatch_matmul` / `dispatch_unembed` take decode-shape
 calls (at most QUANT_KERNEL_MAX_ROWS float rows) and return None for the
 rest, which models/quant.py serves with its dequantize-then-matmul forms,
@@ -24,6 +31,8 @@ exactly where the JAX package leaves its Pallas kernels for XLA.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -37,6 +46,78 @@ QUANT_KERNEL_MAX_ROWS = 256
 KERNEL_GROUP = 32
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FORM_CODE = {"q": 0, "gq": 1, "g4": 2}
+# Split plans fill the card this many times over with blocks, each split
+# walking at least _MIN_SLICE_GROUPS groups of 32 in-rows, in whole stages
+# of the kernel's cp.async ring (4 groups: one int4 stage, two int8 stages).
+_BLOCKS_PER_SM = 2
+_MIN_SLICE_GROUPS = 4
+_STAGE_GROUPS = 4
+
+
+class QmmPlan(NamedTuple):
+    """How B3's bf16 kernel cuts x [N, in] @ w [in, out] into blocks."""
+
+    row_tile: int    # rows of x a block: 8 or 16 (N <= 16), else 64
+    block_cols: int  # output columns a block: 128, or 64 with 64-row tiles
+    splits: int      # blocks that share one output tile, each over its own k-slice
+    k_slice: int     # in-rows a split walks: whole groups of 32; the last split may be short
+
+    def tiles(self, n_rows: int, n_out: int) -> int:
+        """Output tiles, each with its own split counter."""
+        return -(-n_out // self.block_cols) * -(-n_rows // self.row_tile)
+
+    def workspace_floats(self, n_rows: int, n_out: int) -> int:
+        """f32 partials the splits of one product write (none unsplit)."""
+        if self.splits == 1:
+            return 0
+        return self.tiles(n_rows, n_out) * self.splits * self.row_tile * self.block_cols
+
+
+def qmm_plan(n_in: int, n_out: int, n_rows: int, sm_count: int) -> QmmPlan:
+    """The split plan of B3's bf16 kernel. Up to 16 rows (every decode
+    batch) the plan depends on (n_in, n_out) only, so a row's sums run in
+    the same order whatever the batch; 8 and 16 rows differ in the row tile
+    alone, which does not change a row's arithmetic. The split count is the
+    least that gives _BLOCKS_PER_SM blocks per SM, within k-slices of at
+    least _MIN_SLICE_GROUPS groups and whole stages; no split is empty."""
+    if n_rows <= 16:
+        row_tile, block_cols, row_tiles = (8 if n_rows <= 8 else 16), 128, 1
+    else:
+        row_tile, block_cols = 64, 64
+        row_tiles = -(-n_rows // row_tile)
+    tiles = -(-n_out // block_cols) * row_tiles
+    groups = -(-n_in // KERNEL_GROUP)
+    want = -(-_BLOCKS_PER_SM * sm_count // tiles)
+    splits = max(1, min(want, groups // _MIN_SLICE_GROUPS))
+    slice_groups = -(-groups // splits)
+    slice_groups = -(-slice_groups // _STAGE_GROUPS) * _STAGE_GROUPS
+    splits = -(-groups // slice_groups)
+    return QmmPlan(row_tile, block_cols, splits, slice_groups * KERNEL_GROUP)
+
+
+_sm_counts: dict[int, int] = {}
+# device index -> (f32 partials, int32 counters), grown on demand
+_workspaces: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sm_counts[idx]
+
+
+def _workspace(device: torch.device, n_floats: int, n_tiles: int):
+    """The device's split-K partials and tile counters, at least this big.
+    The counters start at 0 and every launch leaves them at 0."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    ws, cnt = _workspaces.get(idx, (None, None))
+    if ws is None or ws.numel() < n_floats:
+        ws = torch.empty(max(n_floats, 1), dtype=torch.float32, device=device)
+    if cnt is None or cnt.numel() < n_tiles:
+        cnt = torch.zeros(max(n_tiles, 1), dtype=torch.int32, device=device)
+    _workspaces[idx] = (ws, cnt)
+    return ws, cnt
 
 
 def _rows(x: torch.Tensor, tail: int = 1) -> int:
@@ -140,6 +221,15 @@ def _check_qmm_args(x, w: dict) -> tuple[int, int, int]:
         raise ValueError(f"qmm: out = {out} must be a multiple of 4 (32-bit weight loads)")
     if pay.data_ptr() % 4:
         raise ValueError("qmm: the weight must be 4-byte aligned")
+    if x.dtype == torch.bfloat16:  # the tensor-core kernel's 16-byte cp.async copies
+        if out % 16:
+            raise ValueError(f"qmm: bf16 x needs out = {out} to be a multiple of 16 "
+                             "(16-byte weight rows)")
+        if pay.data_ptr() % 16:
+            raise ValueError(f"qmm: bf16 x needs the weight {key} 16-byte aligned")
+        if n_in % 8 or x.data_ptr() % 16:
+            raise ValueError(f"qmm: bf16 x needs x 16-byte aligned with in = {n_in} "
+                             "a multiple of 8")
     return _FORM_CODE[key], out, gs
 
 
@@ -155,12 +245,21 @@ def qmm(x: torch.Tensor, w: dict) -> torch.Tensor:
     out = torch.empty((N, out_dim), dtype=x.dtype, device=x.device)
     s = w["s"] if form == 0 else w["gs"]
     z = w.get("gz")
+    ws = cnt = None
+    plan = QmmPlan(0, 0, 1, 0)  # f32 x: the scalar kernel takes no plan
+    if x.dtype == torch.bfloat16:
+        plan = qmm_plan(n_in, out_dim, N, _sm_count(x.device))
+        if plan.splits > 1:
+            ws, cnt = _workspace(x.device, plan.workspace_floats(N, out_dim),
+                                 plan.tiles(N, out_dim))
     lib = kernels.load("quant_matmul")
     with torch.cuda.device(x.device):  # the library launches on the current device
         rc = lib.quant_matmul(
             x.data_ptr(), w[_payload_key(w)].data_ptr(), s.data_ptr(),
-            None if z is None else z.data_ptr(), out.data_ptr(), N, n_in, out_dim, form, gs,
-            _DTYPE_CODE[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
+            None if z is None else z.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), None if cnt is None else cnt.data_ptr(),
+            N, n_in, out_dim, form, gs, _DTYPE_CODE[x.dtype], plan.row_tile, plan.block_cols,
+            plan.splits, plan.k_slice, torch.cuda.current_stream(x.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"quant_matmul kernel launch failed: CUDA error {rc}")
@@ -239,7 +338,8 @@ def dispatch_matmul(x: torch.Tensor, w: dict):
 def dispatch_moe_mm(x, w: dict, sub: str):
     """The MoE variants of B3 come with the MoE port."""
     raise NotImplementedError(
-        "quantized mixture-of-experts matmuls are not ported yet (ROADMAP Queue A item 16)")
+        "quantized mixture-of-experts matmuls are not ported yet (ROADMAP Queue A item 10, "
+        "with Queue B part 1 item 3)")
 
 
 def dispatch_unembed(h: torch.Tensor, w: dict):

@@ -300,13 +300,80 @@ def test_qmm_kernel_matches_plain_version(card, shape, dtype, form):
     n_in, n_out = shape
     g = torch.Generator(device="cuda").manual_seed(n_in + n_out)
     qw = _quantized(form, torch.randn(n_in, n_out, generator=g, device="cuda") * 0.02)
-    for N in (1, 8, 256):
+    # 1-16 rows: decode batches (8 and 16 the two row tiles, 3 and 13 ragged
+    # ones); 64 and 256: the 64-row tiles of admissions.
+    for N in (1, 3, 8, 13, 16, 64, 256):
         x = torch.randn(N, n_in, generator=g, device="cuda").to(dtype)
         before = qmm.launches
         got = qmm(x, qw)
         torch.cuda.synchronize()
         assert qmm.launches == before + 1
         _assert_qmm_close(got, x, qw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["int8", "grouped_int8", "int4"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", QMM_SHAPES)
+def test_qmm_kernel_is_deterministic_per_row(card, shape, dtype, form):
+    """Launched again, the same bits; up to 16 rows, every row the same bits
+    as that row launched alone (the split plan and every sum's order do not
+    depend on how many rows decode together)."""
+    from localai_tpu_torch.ops.quant_matmul import qmm
+
+    n_in, n_out = shape
+    g = torch.Generator(device="cuda").manual_seed(n_in * 3 + n_out)
+    qw = _quantized(form, torch.randn(n_in, n_out, generator=g, device="cuda") * 0.02)
+    for N in (8, 13, 16, 64):
+        x = torch.randn(N, n_in, generator=g, device="cuda").to(dtype)
+        got = qmm(x, qw)
+        assert torch.equal(got, qmm(x, qw))
+        if N <= 16:
+            for i in range(N):
+                assert torch.equal(got[i:i + 1], qmm(x[i:i + 1], qw)), (N, i)
+
+
+@pytest.mark.cuda
+def test_qmm_workspace_is_reused_across_products(card):
+    """The split-K workspace and counters are the wrapper's, one pair per
+    device: a smaller product reuses them, a larger one grows them, and
+    products of different shapes back to back give the bits each gives
+    alone (every launch leaves its tile counters at 0)."""
+    from localai_tpu_torch.ops import quant_matmul as qm
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    cases = []
+    for (n_in, n_out), form, N in (((4096, 1024), "int4", 8), ((4096, 4096), "int8", 16),
+                                   ((14336, 4096), "grouped_int8", 1), ((4096, 1024), "int8", 64),
+                                   ((4096, 14336), "int4", 3)):
+        qw = _quantized(form, torch.randn(n_in, n_out, generator=g, device="cuda") * 0.02)
+        x = torch.randn(N, n_in, generator=g, device="cuda").to(torch.bfloat16)
+        plan = qm.qmm_plan(n_in, n_out, N, qm._sm_count(x.device))
+        assert plan.splits > 1, (n_in, n_out, N)  # every case takes the split path
+        cases.append((x, qw, plan.workspace_floats(N, n_out)))
+    alone = []
+    for x, qw, _ in cases:
+        alone.append(qm.qmm(x, qw))
+        torch.cuda.synchronize()
+    idx = torch.cuda.current_device()
+    ws, cnt = qm._workspaces[idx]
+    assert ws.numel() >= max(need for _x, _w, need in cases)
+    assert not cnt.any()
+    for _ in range(3):  # back to back, no synchronisation between them
+        together = [qm.qmm(x, qw) for x, qw, _ in cases]
+        assert all(torch.equal(a, b) for a, b in zip(alone, together))
+    assert qm._workspaces[idx][0].data_ptr() == ws.data_ptr()  # nothing grew
+    assert not qm._workspaces[idx][1].any()
+    # A product that needs more: the workspace grows, once.
+    x = torch.randn(256, 4096, generator=g, device="cuda").to(torch.bfloat16)
+    qw = _quantized("int4", torch.randn(4096, 1024, generator=g, device="cuda") * 0.02)
+    need = qm.qmm_plan(4096, 1024, 256, qm._sm_count(x.device)).workspace_floats(256, 1024)
+    got = qm.qmm(x, qw)
+    _assert_qmm_close(got, x, qw)
+    assert qm._workspaces[idx][0].numel() >= need
+    grown = qm._workspaces[idx][0].data_ptr()
+    assert torch.equal(got, qm.qmm(x, qw))
+    assert qm._workspaces[idx][0].data_ptr() == grown
 
 
 @pytest.mark.cuda

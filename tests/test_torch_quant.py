@@ -139,7 +139,7 @@ def test_dispatch_splits_by_rows_and_dtype():
     stacked = {k: v[None] for k, v in w.items()}  # an expert axis: the MoE form
     assert tqm.dispatch_matmul(x[0], stacked) is None
     assert tqm.qmm.launches == launches  # the CPU never launches
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         tqm.dispatch_moe_mm(x, stacked, "...d,edf->...ef")
     with pytest.raises(ValueError, match="unsupported device"):
         tqm.qmm(x[0].to("meta"), w)
