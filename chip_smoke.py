@@ -8,8 +8,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    packages this machine has (for planning later slices);
 2. build   — nvcc builds every kernel library from localai_tpu_torch/csrc
    (one process per source, all at once) and prints what ptxas reports
-   (registers and spills of every kernel); a spill in B3's tensor-core
-   instances fails the run;
+   (registers and spills of every kernel); a spill in B2's or B3's
+   tensor-core instances fails the run;
 3. kernels — each kernel against its plain PyTorch version on the card, at
    the serving path's shapes, with CUDA-event times of the kernel, the
    plain version, one PyTorch library call computing the same function
@@ -17,8 +17,10 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    B1 flash prefill at the admission shapes (ragged lengths, every row at
    full length, and S = 200; every output bit-identical when launched
    again and for each batch row alone), B2 ragged paged attention at
-   the paged decode and chunked-prefill shapes and on fp8 pools with a
-   per-head kv_scale, B3 dequant-matmul at llama-3-8b's projection shapes
+   the paged decode and chunked-prefill shapes, on fp8 pools with a
+   per-head kv_scale, at G = 7, on pages of 16 and 48 rows with limits at
+   split edges, and for a 4-token verify (every output bit-identical when
+   launched again and for each slot alone), B3 dequant-matmul at llama-3-8b's projection shapes
    (flat int8, grouped int8, packed int4; bf16 and f32 x; 1, 8, 16, 64 and
    256 rows; every output bit-identical when launched again, and up to 16
    rows for each row alone) and B4 int8 unembed at its head, with the time
@@ -223,6 +225,13 @@ def phase_build() -> dict[str, list[dict]]:
                 log(f"[build:{name}] {line.strip()}")
         check(kernels.library_path(name).exists(), f"library {name} missing after build")
         usage[name] = _ptxas_usage(out)
+    b2 = [r for r in usage["paged_attention"] if "paged_" in r["kernel"]]
+    log(f"[build:paged_attention] instances: {json.dumps(b2)}")
+    check(sum("paged_mma_kernel" in r["kernel"] for r in b2) == 12
+          and sum("paged_scalar_kernel" in r["kernel"] for r in b2) == 4,
+          f"expected 12 paged_mma_kernel and 4 paged_scalar_kernel instances, found {b2}")
+    check(all(r.get("spill_stores", 1) == 0 and r.get("spill_loads", 1) == 0 for r in b2
+              if "paged_mma_kernel" in r["kernel"]), f"a paged_mma_kernel instance spills: {b2}")
     mma = [r for r in usage["quant_matmul"] if "qmm_mma_kernel" in r["kernel"]]
     log(f"[build:quant_matmul] tensor-core instances: {json.dumps(mma)}")
     check(len(mma) == 9, f"expected 9 qmm_mma_kernel instances in the ptxas log, found {len(mma)}")
@@ -362,17 +371,25 @@ def _paged_work(qpos, limits, K, D, MP, page, elt, window) -> tuple[float, float
 def phase_paged_kernels(gen: torch.Generator) -> list[dict]:
     import numpy as np
 
+    from localai_tpu_torch import kernels
     from localai_tpu_torch.models.llama import kv_cast
-    from localai_tpu_torch.ops.paged_flash import paged_partials_plain, paged_partials_rows
+    from localai_tpu_torch.ops.paged_flash import (
+        paged_partials_plain, paged_partials_rows, plan_for)
 
-    # Both sides compute in f32 (bf16 pool rows widen exactly): the
-    # tolerance covers summation order over up to 4096 rows.
+    # Both sides compute in f32 (pool rows widen exactly; the tensor-core
+    # kernel splits q and p into bf16 hi + lo): the tolerance covers
+    # summation order over up to 4096 rows and the hi / lo residue.
     tol = 2e-4
     # (name, B, G, T, K, D, page, MP, pool dtype, limits, softcap, window):
     # llama-3.2-1b paged decode (H=32, K=8: G=4 query rows per kv head) at
     # D 64 and 128, one 512-token prefill chunk at offset 1536, a small f32
     # shape with softcap and a sliding window, and the D=128 decode shape
-    # (llama-3-8b's) on fp8 pools with a per-head kv_scale.
+    # (llama-3-8b's) on fp8 pools with a per-head kv_scale; then, from
+    # their own generator, qwen2-7b's decode (H=28, K=4: G=7), pages of 16
+    # and of 48 rows (key tiles span pages; 48-row pages put the split
+    # edges, multiples of 128 rows, inside pages) with limits at a split
+    # edge and one row either side, and a 4-token multi-query verify
+    # (T*G = 16 rows).
     shapes = [
         ("decode", 8, 4, 1, 8, 64, 128, 32, torch.bfloat16, "ragged", 0.0, 0),
         ("decode", 8, 4, 1, 8, 128, 128, 32, torch.bfloat16, "ragged", 0.0, 0),
@@ -381,17 +398,28 @@ def phase_paged_kernels(gen: torch.Generator) -> list[dict]:
         ("decode_fp8", 8, 4, 1, 8, 128, 128, 32, torch.float8_e4m3fn, "ragged", 0.0, 0),
         ("decode_fp8", 8, 4, 1, 8, 128, 128, 32, torch.float8_e5m2, "ragged", 0.0, 0),
     ]
+    added = [
+        ("decode_g7", 8, 7, 1, 4, 128, 128, 32, torch.bfloat16, "ragged", 0.0, 0),
+        ("decode_page16", 8, 4, 1, 8, 64, 16, 256, torch.bfloat16,
+         [4096, 0, 256, 255, 257, 1024, 1, 3000], 0.0, 0),
+        ("decode_page48", 8, 4, 1, 8, 64, 48, 84, torch.bfloat16,
+         [4032, 0, 384, 383, 385, 2049, 47, 3000], 0.0, 0),
+        ("verify_t4", 8, 4, 4, 8, 128, 128, 32, torch.bfloat16, "ragged", 0.0, 0),
+    ]
+    gen_added = torch.Generator(device="cuda").manual_seed(8)
+    sms = kernels.sm_count(torch.device("cuda"))
     rows = []
-    for name, B, G, T, K, D, page, MP, dt, limits, softcap, window in shapes:
+    for (name, B, G, T, K, D, page, MP, dt, limits, softcap, window), g in (
+            [(sh, gen) for sh in shapes] + [(sh, gen_added) for sh in added]):
         QR = G * T
         P = B * MP + 1
         if limits == "ragged":  # one full slot, one idle slot, the rest random
-            limits = torch.randint(1, MP * page + 1, (B,), generator=gen, device="cuda").tolist()
+            limits = torch.randint(1, MP * page + 1, (B,), generator=g, device="cuda").tolist()
             limits[0], limits[1] = MP * page, 0
         lim = torch.tensor(limits, dtype=torch.int32, device="cuda")
-        qr = torch.randn(B, K, QR, D, generator=gen, device="cuda") / D**0.5
-        kp = torch.randn(P, page, K, D, generator=gen, device="cuda")
-        vp = torch.randn(P, page, K, D, generator=gen, device="cuda")
+        qr = torch.randn(B, K, QR, D, generator=g, device="cuda") / D**0.5
+        kp = torch.randn(P, page, K, D, generator=g, device="cuda")
+        vp = torch.randn(P, page, K, D, generator=g, device="cuda")
         kv_scale = None
         if dt.itemsize == 1:  # fp8: stored = value / scale, a fixed per-head scale
             kv_scale = torch.stack([torch.linspace(0.5, 4.0, K), torch.linspace(3.0, 0.25, K)])
@@ -399,7 +427,7 @@ def phase_paged_kernels(gen: torch.Generator) -> list[dict]:
             kp, vp = kp / kv_scale[0][:, None], vp / kv_scale[1][:, None]
         kp, vp = kv_cast(kp, dt), kv_cast(vp, dt)
         # A random permutation of the pool's pages (SCRATCH, the last, unused).
-        table = torch.randperm(P - 1, generator=gen, device="cuda")[: B * MP]
+        table = torch.randperm(P - 1, generator=g, device="cuda")[: B * MP]
         table = table.reshape(B, MP).to(torch.int32).contiguous()
         qpos = (lim[:, None] + torch.arange(QR, device="cuda")[None, :] // G).to(torch.int32)
         args = (qr, qpos, kp, vp, table, lim, softcap, window, kv_scale)
@@ -413,28 +441,47 @@ def phase_paged_kernels(gen: torch.Generator) -> list[dict]:
         l_rel = ((l - rl)[live].abs() / rl[live]).max().item()
         idle_exact = bool((m[~live] == -1e30).all() and (l[~live] == 0).all()
                           and (acc[~live] == 0).all())
+        # The same inputs again, and each slot launched alone: the same bits
+        # (no float atomics; the plan does not depend on the batch).
+        again = paged_partials_rows(*args)
+        repeat_equal = all(torch.equal(a, b) for a, b in zip((acc, m, l), again))
+        alone_equal = all(
+            all(torch.equal(a[b:b + 1], x) for a, x in zip((acc, m, l), paged_partials_rows(
+                qr[b:b + 1], qpos[b:b + 1], kp, vp, table[b:b + 1], lim[b:b + 1], softcap,
+                window, kv_scale)))
+            for b in range(B))
+        plan = plan_for(qr, kp, table, sms)
         ms = cuda_time_cold_ms(lambda: paged_partials_rows(*args), 20)
         plain_ms = cuda_time_cold_ms(lambda: paged_partials_plain(*args), 3)
         flops, nbytes = _paged_work(qpos.cpu().numpy(), np.asarray(limits), K, D, MP, page,
                                     dt.itemsize, window)
         nbytes += 0 if kv_scale is None else kv_scale.numel() * 4
-        t_ops, t_bytes = flops / PEAK_FLOPS[torch.float32] * 1e3, nbytes / PEAK_BYTES * 1e3
+        # bf16 / fp8 pools: the least time is the tensor cores' (K and V
+        # are exact in bf16); f32 pools: the f32 rate (q rows are f32).
+        rate = torch.float32 if dt == torch.float32 else torch.bfloat16
+        t_ops, t_bytes = flops / PEAK_FLOPS[rate] * 1e3, nbytes / PEAK_BYTES * 1e3
         row = dict(shape=name, B=B, H=G * K, K=K, QR=QR, D=D, page=page, MP=MP,
                    pool_dtype=str(dt).replace("torch.", ""), limits=limits, softcap=softcap,
                    window=window,
                    kv_scale=None if kv_scale is None else kv_scale.tolist(),
                    max_abs_err=o_err, m_err=m_err, l_rel_err=l_rel, tol=tol,
-                   idle_exact=idle_exact,
-                   ok=max(o_err, m_err, l_rel) <= tol and idle_exact
-                   and bool(torch.isfinite(acc).all()),
+                   idle_exact=idle_exact, repeat_equal=repeat_equal, alone_equal=alone_equal,
+                   ok=max(o_err, m_err, l_rel) <= tol and idle_exact and repeat_equal
+                   and alone_equal and bool(torch.isfinite(acc).all()),
+                   plan={**plan._asdict(), "grid": [plan.splits, K * -(-QR // plan.row_tile), B]},
                    ms=ms, plain_ms=plain_ms, library_ms=None,
-                   bound_ms=max(t_ops, t_bytes),
+                   bound_ms=max(t_ops, t_bytes), bound_frac=max(t_ops, t_bytes) / ms,
                    bound_by="operations" if t_ops >= t_bytes else "bytes",
-                   bound_basis="FLOPs over the f32 rate (q rows are f32), bytes over HBM")
+                   bound_basis=("FLOPs over the f32 rate (f32 pool: scalar FMAs)"
+                                if rate == torch.float32 else
+                                "FLOPs over the bf16 tensor-core peak (bf16 / fp8 pool)")
+                   + ", bytes over HBM")
         log(f"[kernel paged_attention] {json.dumps(row)}")
         check(row["ok"], f"paged_attention disagrees with its plain version at {name} "
                          f"D={D} {row['pool_dtype']}: acc/l err {o_err}, m err {m_err}, "
-                         f"l rel err {l_rel} (tol {tol}), idle exact={idle_exact}")
+                         f"l rel err {l_rel} (tol {tol}), idle exact={idle_exact}, "
+                         f"repeat bit-identical={repeat_equal}, "
+                         f"slots alone bit-identical={alone_equal}")
         rows.append(row)
     return rows
 
@@ -480,9 +527,10 @@ def phase_quant_kernels(gen: torch.Generator) -> tuple[list[dict], list[dict]]:
     output is bit-identical when launched again, and up to 16 rows for each
     row launched alone. No one PyTorch call takes these packed layouts, so
     there is no library time."""
+    from localai_tpu_torch import kernels
     from localai_tpu_torch.models import quant
     from localai_tpu_torch.ops.quant_matmul import (
-        _sm_count, qmm, qmm_plain, qmm_plan, qunembed, qunembed_plain)
+        qmm, qmm_plain, qmm_plan, qunembed, qunembed_plain)
 
     # f32 x: summation order only. bf16 x: both sides round the f32 sum once
     # to bf16, so they may differ by one bf16 step (2^-7 of the value).
@@ -522,7 +570,7 @@ def phase_quant_kernels(gen: torch.Generator) -> tuple[list[dict], list[dict]]:
                         dequant_ms = cuda_time_cold_ms(lambda: quant.matmul(x, qw), 20)
                     bound_ms, bound_by = _bound(*_qmm_work(form, N, n_in, n_out, dt.itemsize),
                                                 dt)
-                    plan = (qmm_plan(n_in, n_out, N, _sm_count(x.device))._asdict()
+                    plan = (qmm_plan(n_in, n_out, N, kernels.sm_count(x.device))._asdict()
                             if dt == torch.bfloat16 else None)
                     row = dict(shape=[N, n_in, n_out], form=form,
                                dtype=str(dt).replace("torch.", ""),
@@ -1598,6 +1646,11 @@ def main() -> None:
         "bound_ms": paged_main["bound_ms"],
         "bound_by": paged_main["bound_by"],
         "library_ms": None,  # no one PyTorch call computes partials over a page table
+        "bound_basis": paged_main["bound_basis"],
+        "repeat_equal": all(r["repeat_equal"] for r in paged_rows),
+        "alone_equal": all(r["alone_equal"] for r in paged_rows),
+        # ptxas: registers, spill bytes, static shared memory of each instance.
+        "ptxas": [r for r in usage["paged_attention"] if "paged_" in r["kernel"]],
         "shapes": paged_rows,
     }
     # The main shape of B3: llama-3-8b's w_gate at a decode block of 8 slots,

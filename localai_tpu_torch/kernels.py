@@ -36,7 +36,7 @@ LIBRARIES = {
     ),
     "paged_attention": (
         "paged_attention.cu",
-        {"paged_attention": ([_P] * 10 + [_I] * 9 + [_F, _P], _I)},
+        {"paged_attention": ([_P] * 12 + [_I] * 9 + [_F] + [_I] * 3 + [_P], _I)},
     ),
     "quant_matmul": (
         "quant_matmul.cu",
@@ -51,6 +51,7 @@ LIBRARIES = {
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+_sm_counts: dict[int, int] = {}
 
 
 def nvcc_path() -> str:
@@ -132,3 +133,30 @@ def load(name: str) -> ctypes.CDLL:
                 f.restype = restype
             _loaded[name] = lib
         return lib
+
+
+def grow_workspace(store: dict, device, n_floats: int, n_counters: int):
+    """A kernel's split workspace on `device` from `store` (device index ->
+    (f32 partials, int32 counters)), grown to at least this size. Counters
+    start at 0 and every launch leaves them at 0; nothing is allocated when
+    the stored pair is big enough."""
+    import torch
+
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    ws, cnt = store.get(idx, (None, None))
+    if ws is None or ws.numel() < n_floats:
+        ws = torch.empty(max(n_floats, 1), dtype=torch.float32, device=device)
+    if cnt is None or cnt.numel() < n_counters:
+        cnt = torch.zeros(max(n_counters, 1), dtype=torch.int32, device=device)
+    store[idx] = (ws, cnt)
+    return ws, cnt
+
+
+def sm_count(device) -> int:
+    """The number of SMs of a CUDA device (the split plans fill them)."""
+    import torch
+
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sm_counts[idx]

@@ -15,8 +15,10 @@ Shapes, as in the JAX package:
 - pools   [P, page, K, D] (one layer's slice of the page pool), bf16, f32
   or fp8 (e4m3 / e5m2);
 - kv_scale [2, K] f32 per-head (k, v) scales of a scaled fp8 pool, or None
-  (all ones): each K / V element is multiplied by its head's scale as it
-  is widened to f32 (the kernel takes a scale with fp8 pools only);
+  (all ones): the plain version multiplies each K / V element by its
+  head's scale; the kernel, the same function, multiplies the head's q
+  rows by the K scale and its finished acc by the V scale (it takes a
+  scale with fp8 pools only);
 - table   [B, MP] int32 page ids (flat; ops/ptable);
 - limits  [B] int32: rows g >= limits[b] are masked, and the walk covers
   ceil(limits[b]/page) pages clamped to MP;
@@ -25,6 +27,16 @@ The partials come back as acc [B, K, QR, D], m and l [B, K, QR], f32; the
 merge with the block-local window stays in plain PyTorch
 (ops/attention._merge_partials*), one numeric tail for every route.
 
+The kernel splits each slot's rows across blocks by the plan of
+`paged_plan`, a plain function of the table's capacity, the page, K, QR,
+D, the pool type and the card's SM count (never of B or of the limits),
+and the slot's own live rows (so a slot's partials do not depend on its
+batch); the split partials go to a
+workspace and counters that the wrapper keeps, one pair per device, grown
+when a call needs more and never allocated per call. The port issues
+every call in order on one stream, which is what makes one workspace per
+device safe.
+
 Not ported yet: hierarchical tables and the sink/swin cold-middle skip
 (ROADMAP Queue A item 15).
 """
@@ -32,6 +44,7 @@ Not ported yet: hierarchical tables and the sink/swin cold-middle skip
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -42,6 +55,91 @@ NEG_INF = -1e30
 PAGED_HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2,
                torch.float8_e5m2: 3}
+
+
+# Key rows of one stage of the kernel's cp.async ring; a split walks whole
+# tiles of them.
+KEY_TILE = 64
+# A slot's rows are cut into splits of whole _SPLIT_UNIT rows, as few units
+# a split as keep the slot within the plan's split count. The count aims at
+# one block an SM for one slot, at most _MOST_SPLITS (more partials cost
+# more to merge than they win at a full batch), raised where a split would
+# span more than _TABLE_SLICE - 2 pages, up to _MAX_SPLITS (the kernel's
+# kTableSlice and kMaxSplits).
+_SPLIT_UNIT = 128
+_MOST_SPLITS = 16
+_TABLE_SLICE = 512
+_MAX_SPLITS = 64
+
+
+class PagedPlan(NamedTuple):
+    """How B2 cuts q rows [B, K, QR, D] over a table of capacity MP·page."""
+
+    kernel: str    # "mma" (bf16 / fp8 pools) or "scalar" (f32 pools)
+    row_tile: int  # q rows a block: mma 16 (QR <= 16) or 64; scalar 4 (QR <= 4) or 16
+    splits: int    # most splits a slot uses: the grid's blocks for each (slot, head, row tile)
+    unit: int      # rows; a slot's splits are whole units (whole key tiles)
+
+    def split_rows(self, n_rows: int) -> int:
+        """Rows each split of a slot with n_rows live rows walks (the last
+        may be short): the fewest whole units that need at most `splits`
+        splits. The kernel computes the same from the slot's own limit."""
+        units = -(-n_rows // self.unit)
+        return max(1, -(-units // self.splits)) * self.unit
+
+    def split_edges(self, n_rows: int) -> list[tuple[int, int]]:
+        """[start, end) of each live split of a slot, in merge order; one
+        empty split for a slot with no live row."""
+        rows = self.split_rows(n_rows)
+        return [(s, min(s + rows, n_rows)) for s in range(0, n_rows, rows)] or [(0, 0)]
+
+    def tiles(self, B: int, K: int, QR: int) -> int:
+        """(slot, head, row tile) triples, each with its own split counter."""
+        return B * K * -(-QR // self.row_tile)
+
+    def workspace_floats(self, B: int, K: int, QR: int, D: int) -> int:
+        """f32 partials (m, l, acc) the splits of one call may write (none unsplit)."""
+        if self.splits == 1:
+            return 0
+        return self.tiles(B, K, QR) * self.splits * self.row_tile * (D + 2)
+
+
+def paged_plan(capacity: int, page: int, K: int, QR: int, D: int, pool_dtype,
+               sm_count: int) -> PagedPlan:
+    """The split plan of B2. It depends on the table's capacity (MP·page),
+    the page, K, QR, D and the pool type, and the card's SM count, never on
+    B or the limits (which live on the card): a slot's splits then follow
+    from its own live rows alone (`PagedPlan.split_edges`). The split count
+    is the least that gives one block an SM for one slot, at most
+    _MOST_SPLITS, raised until a full slot's split spans at most
+    _TABLE_SLICE - 2 pages (a table too wide for _MAX_SPLITS at its page
+    size raises)."""
+    if pool_dtype not in _DTYPE_CODE or D not in PAGED_HEAD_DIMS:
+        raise ValueError(f"no plan for a {pool_dtype} pool at head dim {D}")
+    if pool_dtype == torch.float32:
+        kernel, row_tile = "scalar", (4 if QR <= 4 else 16)
+    else:
+        kernel, row_tile = "mma", (16 if QR <= 16 else 64)
+    tiles = K * -(-QR // row_tile)
+    splits = max(1, min(-(-sm_count // tiles), _MOST_SPLITS))
+    widest = (_TABLE_SLICE - 2) * page // _SPLIT_UNIT  # units a split's table slice holds
+    units = -(-capacity // _SPLIT_UNIT)  # a full slot's units
+    splits = max(splits, -(-units // widest))
+    if splits > _MAX_SPLITS:
+        raise ValueError(f"a table of {capacity} rows in pages of {page} needs {splits} "
+                         f"splits; the kernel takes at most {_MAX_SPLITS}")
+    return PagedPlan(kernel, row_tile, splits, _SPLIT_UNIT)
+
+
+def plan_for(qr: torch.Tensor, k_pool: torch.Tensor, table: torch.Tensor,
+             sm_count: int) -> PagedPlan:
+    """The plan of one call, from every shape it has but B."""
+    _, K, QR, D = qr.shape
+    page = k_pool.shape[1]
+    return paged_plan(table.shape[-1] * page, page, K, QR, D, k_pool.dtype, sm_count)
+
+
+_workspaces: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}  # device index -> (partials, counters)
 
 
 def reject_unported(sink: int = 0, swin: int = 0, mesh=None) -> None:
@@ -170,18 +268,23 @@ def paged_partials_rows(
     table = _pt._flat(table)
     _check_cuda_args(qr, qpos, k_pool, v_pool, table, limits, kv_scale)
     B, K, QR, D = qr.shape
+    P, page = k_pool.shape[:2]
+    MP = table.shape[1]
     acc = torch.empty((B, K, QR, D), dtype=torch.float32, device=qr.device)
     m = torch.empty((B, K, QR), dtype=torch.float32, device=qr.device)
     l = torch.empty_like(m)
+    plan = plan_for(qr, k_pool, table, kernels.sm_count(qr.device))
+    ws, cnt = kernels.grow_workspace(_workspaces, qr.device, plan.workspace_floats(B, K, QR, D),
+                                     plan.tiles(B, K, QR))
     lib = kernels.load("paged_attention")
     with torch.cuda.device(qr.device):  # the library launches on the current device
         rc = lib.paged_attention(
             qr.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
             limits.data_ptr(), qpos.data_ptr(),
             None if kv_scale is None else kv_scale.data_ptr(),
-            acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-            B, K, QR, D, k_pool.shape[0], k_pool.shape[1], table.shape[1],
-            _DTYPE_CODE[k_pool.dtype], int(window), float(softcap),
+            acc.data_ptr(), m.data_ptr(), l.data_ptr(), ws.data_ptr(), cnt.data_ptr(),
+            B, K, QR, D, P, page, MP, _DTYPE_CODE[k_pool.dtype], int(window), float(softcap),
+            plan.row_tile, plan.splits, plan.unit,
             torch.cuda.current_stream(qr.device).cuda_stream,
         )
     if rc != 0:

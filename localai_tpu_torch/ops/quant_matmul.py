@@ -95,29 +95,8 @@ def qmm_plan(n_in: int, n_out: int, n_rows: int, sm_count: int) -> QmmPlan:
     return QmmPlan(row_tile, block_cols, splits, slice_groups * KERNEL_GROUP)
 
 
-_sm_counts: dict[int, int] = {}
 # device index -> (f32 partials, int32 counters), grown on demand
 _workspaces: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
-
-
-def _sm_count(device: torch.device) -> int:
-    idx = device.index if device.index is not None else torch.cuda.current_device()
-    if idx not in _sm_counts:
-        _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _sm_counts[idx]
-
-
-def _workspace(device: torch.device, n_floats: int, n_tiles: int):
-    """The device's split-K partials and tile counters, at least this big.
-    The counters start at 0 and every launch leaves them at 0."""
-    idx = device.index if device.index is not None else torch.cuda.current_device()
-    ws, cnt = _workspaces.get(idx, (None, None))
-    if ws is None or ws.numel() < n_floats:
-        ws = torch.empty(max(n_floats, 1), dtype=torch.float32, device=device)
-    if cnt is None or cnt.numel() < n_tiles:
-        cnt = torch.zeros(max(n_tiles, 1), dtype=torch.int32, device=device)
-    _workspaces[idx] = (ws, cnt)
-    return ws, cnt
 
 
 def _rows(x: torch.Tensor, tail: int = 1) -> int:
@@ -248,10 +227,11 @@ def qmm(x: torch.Tensor, w: dict) -> torch.Tensor:
     ws = cnt = None
     plan = QmmPlan(0, 0, 1, 0)  # f32 x: the scalar kernel takes no plan
     if x.dtype == torch.bfloat16:
-        plan = qmm_plan(n_in, out_dim, N, _sm_count(x.device))
+        plan = qmm_plan(n_in, out_dim, N, kernels.sm_count(x.device))
         if plan.splits > 1:
-            ws, cnt = _workspace(x.device, plan.workspace_floats(N, out_dim),
-                                 plan.tiles(N, out_dim))
+            ws, cnt = kernels.grow_workspace(_workspaces, x.device,
+                                             plan.workspace_floats(N, out_dim),
+                                             plan.tiles(N, out_dim))
     lib = kernels.load("quant_matmul")
     with torch.cuda.device(x.device):  # the library launches on the current device
         rc = lib.quant_matmul(

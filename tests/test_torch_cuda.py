@@ -185,7 +185,8 @@ def test_paged_cuda_tensors_never_take_the_plain_route(card, monkeypatch):
 @pytest.mark.parametrize("mode", ["decode", "mq"])
 def test_paged_kernel_fp8_pools_match_plain_version(card, mode, D, dtype):
     """fp8 pools with a per-head kv_scale (not all ones): the kernel widens
-    and scales in registers, the plain walk in PyTorch, on the same bytes."""
+    the stored bytes exactly and applies the head's scales to q and to the
+    finished acc, the plain walk scales every element, on the same bytes."""
     from localai_tpu_torch.models.llama import kv_cast
     from localai_tpu_torch.ops import paged_flash as pf
 
@@ -218,6 +219,98 @@ def test_paged_kernel_fp8_pools_match_plain_version(card, mode, D, dtype):
     with pytest.raises(ValueError, match="fp8 pools"):  # bf16 / f32 pools are unscaled
         pf.paged_partials_rows(qr, qpos, kp.to(torch.bfloat16), vp.to(torch.bfloat16), table,
                                lim, 0.0, 0, scale)
+
+
+def _paged_bits_hold(pf, args, B):
+    """A second launch, and each slot launched alone, give the same bits."""
+    qr, qpos, kp, vp, table, lim, softcap, window, scale = args
+    got = pf.paged_partials_rows(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, pf.paged_partials_rows(*args)))
+    for b in range(B):
+        alone = pf.paged_partials_rows(qr[b:b + 1], qpos[b:b + 1], kp, vp, table[b:b + 1],
+                                       lim[b:b + 1], softcap, window, scale)
+        assert all(torch.equal(a[b:b + 1], x) for a, x in zip(got, alone))
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("page", [16, 48, 128])
+@pytest.mark.parametrize("G", [1, 4, 7, 8])
+def test_paged_kernel_split_edges_repeat_and_alone(card, G, page, D):
+    """Limits at a split edge and one row either side of it, an idle slot,
+    a full slot: the kernel against its plain version, the idle slot exact,
+    and every output bit-identical on a repeat and for each slot alone.
+    48-row pages put split edges inside pages."""
+    from localai_tpu_torch import kernels
+    from localai_tpu_torch.ops import paged_flash as pf
+
+    K, MP = 4, 3072 // page
+    probe = torch.zeros(1, K, G, D, device="cuda")
+    plan = pf.paged_plan(MP * page, page, K, G, D, torch.bfloat16,
+                         kernels.sm_count(probe.device))
+    # A split edge and a row either side; full; one row past `splits`
+    # splits of one unit, so splits of two units with a 1-row last one.
+    edge = plan.unit
+    limits = [edge, edge - 1, edge + 1, 0, MP * page, plan.splits * edge + 1, 1, 1000]
+    assert [len(plan.split_edges(n)) for n in limits[:3]] == [1, 1, 2]
+    assert plan.split_edges(limits[5])[-1] == (limits[5] - 1, limits[5])
+    assert len(plan.split_edges(MP * page)) > 2
+    B = len(limits)
+    qr, kp, vp, table, lim = _paged_inputs(G * page + D, B, G, K, D, page, MP, torch.bfloat16,
+                                           limits)
+    qpos = lim[:, None].expand(B, G).contiguous()  # decode: every row at the slot's end
+    for softcap, window in ((0.0, 0), (30.0, edge + 7)):
+        args = (qr, qpos, kp, vp, table, lim, softcap, window, None)
+        got = _paged_bits_hold(pf, args, B)
+        _assert_partials_match(got, pf.paged_partials_plain(*args), limits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float8_e4m3fn, torch.float8_e5m2])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("T", [4, 64])
+def test_paged_kernel_multi_query_rows_on_the_tensor_cores(card, T, D, dtype):
+    """Multi-query rows (a 4-token verify: 16 rows, one tile; 64 tokens of
+    G = 4: four 64-row tiles) over bf16 and scaled fp8 pools, with a sliding
+    window: against the plain version, repeat and alone bit-identical."""
+    from localai_tpu_torch.models.llama import kv_cast
+    from localai_tpu_torch.ops import paged_flash as pf
+
+    B, K, G, page, MP = 4, 2, 4, 64, 32
+    QR = T * G
+    limits = [2048, 0, 513, 700]
+    qr, kp, vp, table, lim = _paged_inputs(T + D, B, QR, K, D, page, MP, torch.float32, limits)
+    scale = None
+    if dtype.itemsize == 1:
+        scale = torch.tensor([[0.5, 3.0], [2.0, 0.25]], device="cuda")
+        kp, vp = kp / scale[0][:, None], vp / scale[1][:, None]
+    kp, vp = kv_cast(kp, dtype), kv_cast(vp, dtype)
+    qpos = (lim[:, None] + torch.arange(QR, device="cuda")[None, :] // G).to(torch.int32)
+    args = (qr, qpos, kp, vp, table, lim, 20.0, 300, scale)
+    got = _paged_bits_hold(pf, args, B)
+    _assert_partials_match(got, pf.paged_partials_plain(*args), limits)
+
+
+@pytest.mark.cuda
+def test_paged_workspace_is_reused_across_calls(card):
+    """After the first call at a shape, calls allocate nothing but their
+    outputs: the workspace is the same tensor and the counters are back at
+    zero after every launch."""
+    from localai_tpu_torch.ops import paged_flash as pf
+
+    limits = [2048, 0, 1000, 37]
+    qr, kp, vp, table, lim = _paged_inputs(5, 4, 4, 8, 64, 128, 16, torch.bfloat16, limits)
+    qpos = lim[:, None].expand(4, 4).contiguous()
+    pf.paged_partials_rows(qr, qpos, kp, vp, table, lim)
+    idx = qr.device.index if qr.device.index is not None else torch.cuda.current_device()
+    ws, cnt = pf._workspaces[idx]
+    for _ in range(3):
+        pf.paged_partials_rows(qr, qpos, kp, vp, table, lim)
+        torch.cuda.synchronize()
+        assert pf._workspaces[idx][0].data_ptr() == ws.data_ptr()
+        assert not pf._workspaces[idx][1].any()
+    assert pf._workspaces[idx][1].data_ptr() == cnt.data_ptr()
 
 
 @pytest.mark.cuda
@@ -348,7 +441,7 @@ def test_qmm_workspace_is_reused_across_products(card):
                                    ((4096, 14336), "int4", 3)):
         qw = _quantized(form, torch.randn(n_in, n_out, generator=g, device="cuda") * 0.02)
         x = torch.randn(N, n_in, generator=g, device="cuda").to(torch.bfloat16)
-        plan = qm.qmm_plan(n_in, n_out, N, qm._sm_count(x.device))
+        plan = qm.qmm_plan(n_in, n_out, N, kernels.sm_count(x.device))
         assert plan.splits > 1, (n_in, n_out, N)  # every case takes the split path
         cases.append((x, qw, plan.workspace_floats(N, n_out)))
     alone = []
@@ -367,7 +460,7 @@ def test_qmm_workspace_is_reused_across_products(card):
     # A product that needs more: the workspace grows, once.
     x = torch.randn(256, 4096, generator=g, device="cuda").to(torch.bfloat16)
     qw = _quantized("int4", torch.randn(4096, 1024, generator=g, device="cuda") * 0.02)
-    need = qm.qmm_plan(4096, 1024, 256, qm._sm_count(x.device)).workspace_floats(256, 1024)
+    need = qm.qmm_plan(4096, 1024, 256, kernels.sm_count(x.device)).workspace_floats(256, 1024)
     got = qm.qmm(x, qw)
     _assert_qmm_close(got, x, qw)
     assert qm._workspaces[idx][0].numel() >= need

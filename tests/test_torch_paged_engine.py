@@ -314,6 +314,62 @@ def test_recompute_preemption_is_lossless_for_greedy(weights):
         eng.stop()
 
 
+# A seeded top-p / top-k request at T = 0.9 with all three penalties.
+SEEDED = dict(max_new_tokens=100, temperature=0.9, top_p=0.9, top_k=40, repeat_penalty=1.1,
+              presence_penalty=0.3, frequency_penalty=0.2, seed=1234, ignore_eos=True)
+
+
+def test_seeded_sampling_gives_the_same_ids_on_every_path(weights):
+    """The same seeded request draws the same ids on the dense engine, the
+    paged one, the chunked one, a 4-slot one beside three other requests,
+    and through a recompute preemption that requeues it mid-decode."""
+    cfg, _, tp = weights
+    prompt = _ids(40)
+    paths = {
+        "dense": dict(kv_pages=0),
+        "paged": dict(kv_pages=40, kv_page_size=16),
+        "chunked": dict(kv_pages=40, kv_page_size=16, prefill_chunk=16),
+        "four_slots": dict(max_slots=4, kv_pages=60, kv_page_size=16, prefill_chunk=16),
+    }
+    got = {}
+    for name, kw in paths.items():
+        eng = _engine(tp, cfg, **kw)
+        try:
+            h = eng.submit(GenRequest(prompt_ids=prompt, **SEEDED))
+            others = [eng.submit(GenRequest(prompt_ids=_ids(30 + i, 3), max_new_tokens=20,
+                                            temperature=0.7, seed=i, ignore_eos=True))
+                      for i in range(3 if name == "four_slots" else 0)]
+            got[name] = _token_ids(h)[0]
+            for o in others:
+                _token_ids(o)
+            if name == "chunked":
+                assert eng.metrics()["chunked_admits"] == 1
+        finally:
+            eng.stop()
+    # As test_recompute_preemption_is_lossless_for_greedy: both requests need
+    # 9 pages of 12, so growth collides and the younger, seeded one is requeued.
+    eng = _engine(tp, cfg, kv_pages=12, kv_page_size=16)
+    try:
+        older = eng.submit(GenRequest(prompt_ids=_ids(41, 3), max_new_tokens=100,
+                                      ignore_eos=True))
+        time.sleep(0.05)
+        h = eng.submit(GenRequest(prompt_ids=prompt, **SEEDED))
+        got["preempted"] = _token_ids(h)[0]
+        _token_ids(older)
+        assert eng.metrics()["kv_preemptions"] >= 1, "the pool never collided"
+    finally:
+        eng.stop()
+    assert len(got["dense"]) == 100
+    assert all(ids == got["dense"] for ids in got.values()), {
+        k: v[:8] for k, v in got.items()}
+    greedy = _engine(tp, cfg, kv_pages=0)
+    try:  # the draws matter: greedy decoding gives other ids
+        assert _token_ids(greedy.submit(GenRequest(
+            prompt_ids=prompt, max_new_tokens=100, ignore_eos=True)))[0] != got["dense"]
+    finally:
+        greedy.stop()
+
+
 # --------------------------------------------------------------------------- #
 # Allocator invariants
 # --------------------------------------------------------------------------- #
