@@ -8,7 +8,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    packages this machine has (for planning later slices);
 2. build   — nvcc builds every kernel library from localai_tpu_torch/csrc
    (one process per source, all at once) and prints what ptxas reports
-   (registers and spills of every kernel); a spill in B2's or B3's
+   (registers and spills of every kernel); a spill in B2's, B3's or B5's
    tensor-core instances fails the run;
 3. kernels — each kernel against its plain PyTorch version on the card, at
    the serving path's shapes, with CUDA-event times of the kernel, the
@@ -49,12 +49,16 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    same engine on the CPU;
 9. lora kernels — B5 (the ragged LoRA delta) against its plain version at
    every target projection shape of llama-3.2-1b and llama-3-8b, rank 16
-   and 64, 8 adapters and a null row, 1 and 256 rows, mixed ranks: null
-   rows exact zeros, every row bit-identical to a launch on it alone;
+   and 64, 8 adapters and a null row, 1 and 256 rows, mixed ranks, and as
+   one launch per group of targets that share x at the served groups
+   (1b q / k / v and gate / up at rank 32, 8b q / v at rank 16): null
+   rows exact zeros, every row bit-identical to a launch on it alone, two
+   launches bit-identical, nothing allocated but the outputs;
 10. lora http — llama-3.2-1b (16 layers, bf16) served by the port's own
    HTTP server with 8 virtual-model tenants (PEFT adapters from a seed):
    a warm pass, then 12 concurrent chat / completion requests (half
-   streamed, half greedy) to the tenants and the base, checked over HTTP;
+   streamed, half greedy) to the tenants and the base, checked over HTTP
+   (B5 launches = decode steps x layers x 4 groups);
    then the same 12 to a base with no tenants (the tenancy cost);
 11. lora 8b int8 — llama-3-8b int8 with 4 tenants and 4 adapter-less
    requests through Engine.submit (B1, B2, B3, B4 and B5 on one path);
@@ -237,6 +241,13 @@ def phase_build() -> dict[str, list[dict]]:
     check(len(mma) == 9, f"expected 9 qmm_mma_kernel instances in the ptxas log, found {len(mma)}")
     check(all(r.get("spill_stores", 1) == 0 and r.get("spill_loads", 1) == 0 for r in mma),
           f"a qmm_mma_kernel instance spills: {mma}")
+    b5 = [r for r in usage["lora_matmul"] if "lora_group_kernel" in r["kernel"]]
+    log(f"[build:lora_matmul] instances: {json.dumps(b5)}")
+    check(len(b5) == 4, f"expected 4 lora_group_kernel instances in the ptxas log, found {b5}")
+    mma5 = [r for r in b5 if "__nv_bfloat16, __nv_bfloat16" in r["kernel"]]
+    check(len(mma5) == 1 and mma5[0].get("spill_stores", 1) == 0
+          and mma5[0].get("spill_loads", 1) == 0,
+          f"the tensor-core lora_group_kernel instance is missing or spills: {b5}")
     return usage
 
 
@@ -876,7 +887,7 @@ def _serve(eng, plens: list[int], max_new: int = 64, adapters=None) -> dict:
     from localai_tpu_torch.models import quant
     from localai_tpu_torch.ops import quant_matmul
     from localai_tpu_torch.ops.flash import flash_prefill_attention
-    from localai_tpu_torch.ops.lora_matmul import lora_bgmv
+    from localai_tpu_torch.ops.lora_matmul import lora_bgmv_group
     from localai_tpu_torch.ops.paged_flash import paged_partials_rows
 
     gen = torch.Generator().manual_seed(3)
@@ -913,7 +924,7 @@ def _serve(eng, plens: list[int], max_new: int = 64, adapters=None) -> dict:
     paged_partials_rows.launches = 0
     quant_matmul.qmm.launches = quant_matmul.qunembed.launches = 0
     quant.matmul.dequant_calls = quant.unembed_matmul.dequant_calls = 0
-    lora_bgmv.launches = 0
+    lora_bgmv_group.launches = 0
     # Engine counters are read as differences over this run.
     m0, tok0, dt0 = eng.metrics(), eng._decode_tokens, eng._decode_time
     t0 = time.monotonic()
@@ -933,7 +944,7 @@ def _serve(eng, plens: list[int], max_new: int = 64, adapters=None) -> dict:
                 "quant_unembed": quant_matmul.qunembed.launches,
                 "matmul_dequant_calls": quant.matmul.dequant_calls,
                 "unembed_dequant_calls": quant.unembed_matmul.dequant_calls,
-                "lora_bgmv": lora_bgmv.launches}
+                "lora_bgmv": lora_bgmv_group.launches}
     metrics = eng.metrics()
     refs = [int(r) for r in eng._adapter_refs]
     eng.stop()
@@ -1113,11 +1124,18 @@ def _lora_work(ids, NA, n_in, n_out, R, elt) -> tuple[float, float]:
     """(FLOPs, bytes) of the delta on these ids: 2·R·(in + out) per row
     with an adapter; the distinct adapters' factors, x, the ids and the
     output each moved once (null rows read no factors)."""
+    return _lora_group_work(ids, NA, n_in, (n_out,), R, elt)
+
+
+def _lora_group_work(ids, NA, n_in, outs, R, elt) -> tuple[float, float]:
+    """(FLOPs, bytes) of a group of targets that share x: each target's
+    factors read once per distinct adapter, x and the ids once for the
+    group, each output written once."""
     used = {int(i) for i in ids if 0 < int(i) < NA}
     active = sum(1 for i in ids if 0 < int(i) < NA)
     N = len(ids)
-    flops = 2.0 * R * (n_in + n_out) * active
-    nbytes = elt * (len(used) * R * (n_in + n_out) + N * (n_in + n_out)) + 4 * N
+    flops = sum(2.0 * R * (n_in + o) * active for o in outs)
+    nbytes = elt * (sum(len(used) * R * (n_in + o) for o in outs) + N * (n_in + sum(outs))) + 4 * N
     return flops, nbytes
 
 
@@ -1127,33 +1145,65 @@ def _lora_work(ids, NA, n_in, n_out, R, elt) -> tuple[float, float]:
 LORA_REL_BF16, LORA_REL_SUM = 2.0**-7, 1e-4
 
 
-def _hold_lora(x, a, b, ids) -> dict:
-    """One B5 launch against lora_delta_plain on the same inputs: the error
-    within the stated tolerance, null rows exact zeros, and each row (all of
-    them up to 9 rows, else four) bit-identical to a launch on it alone."""
-    from localai_tpu_torch.ops.lora_matmul import lora_bgmv, lora_delta_plain
+def _hold_lora_group(x, pairs, ids) -> dict:
+    """One B5 launch for targets that share x against lora_delta_plain target
+    by target on the same inputs: the error within the stated tolerance,
+    null rows exact zeros, the launch allocating nothing but its outputs, a
+    second launch bit-identical, and each row (all of them up to 9 rows,
+    else four) bit-identical to a launch on it alone."""
+    from localai_tpu_torch.ops import lora_matmul as lm
 
-    out = lora_bgmv(x, a, b, ids)
+    allocations = torch.cuda.memory_stats()["allocation.all.allocated"]
+    outs = lm.lora_bgmv_group(x, pairs, ids)
     torch.cuda.synchronize()
-    want = lora_delta_plain(x, a, b, ids)
-    scale = want.float().abs().max().item()
-    err = (out.float() - want.float()).abs()
+    # One device allocation per output and none else (a byte count would
+    # depend on how the caching allocator splits its cached blocks).
+    outputs_only = (torch.cuda.memory_stats()["allocation.all.allocated"] - allocations
+                    == len(outs))
     host_ids = ids.tolist()
     N = len(host_ids)
-    null_exact = all(bool((out[n] == 0).all()) for n, i in enumerate(host_ids) if i == 0)
     check_rows = range(N) if N <= 9 else (0, 1, N // 2, N - 1)
-    independent = all(torch.equal(out[n:n + 1], lora_bgmv(x[n:n + 1], a, b, ids[n:n + 1]))
-                      for n in check_rows)
-    ok = (bool((err <= LORA_REL_BF16 * want.float().abs() + LORA_REL_SUM * scale).all())
-          and null_exact and independent and bool(torch.isfinite(out).all()))
-    return dict(shape=[N, a.shape[1], b.shape[2]], rank=a.shape[2],
+    alone = {n: lm.lora_bgmv_group(x[n:n + 1], pairs, ids[n:n + 1]) for n in check_rows}
+    again = lm.lora_bgmv_group(x, pairs, ids)
+    errs, scales, within, null_exact, independent = [], [], True, True, True
+    for t, ((a, b), out) in enumerate(zip(pairs, outs)):
+        want = lm.lora_delta_plain(x, a, b, ids)
+        scale = want.float().abs().max().item()
+        err = (out.float() - want.float()).abs()
+        within = within and bool(
+            (err <= LORA_REL_BF16 * want.float().abs() + LORA_REL_SUM * scale).all()
+            and torch.isfinite(out).all())
+        null_exact = null_exact and all(bool((out[n] == 0).all())
+                                        for n, i in enumerate(host_ids) if i == 0)
+        independent = independent and all(torch.equal(out[n:n + 1], alone[n][t])
+                                          for n in check_rows)
+        errs.append(err.max().item())
+        scales.append(scale)
+    repeat_equal = all(torch.equal(o, o2) for o, o2 in zip(outs, again))
+    ok = within and null_exact and independent and repeat_equal and outputs_only
+    return dict(shape=[N, x.shape[1], [b.shape[2] for _, b in pairs]], rank=pairs[0][0].shape[2],
                 dtype=str(x.dtype).replace("torch.", ""), ids=host_ids if N <= 9 else None,
-                max_abs_err=err.max().item(), out_max=scale, null_exact=null_exact,
-                rows_independent=independent, ok=ok)
+                max_abs_err=max(errs), out_max=max(scales), null_exact=null_exact,
+                rows_independent=independent, repeat_equal=repeat_equal,
+                allocates_outputs_only=outputs_only, ok=ok)
 
 
-def phase_lora_kernels(gen: torch.Generator) -> list[dict]:
-    from localai_tpu_torch.ops.lora_matmul import lora_bgmv, lora_delta_plain
+def _hold_lora(x, a, b, ids) -> dict:
+    """`_hold_lora_group` for one target, with its shape as [N, in, out]."""
+    row = _hold_lora_group(x, [(a, b)], ids)
+    row["shape"] = [row["shape"][0], row["shape"][1], row["shape"][2][0]]
+    return row
+
+
+# The served groups of targets that share x, one launch each: llama-3.2-1b
+# {wq, wk, wv} and {w_gate, w_up} at lora_http's rank 32, llama-3-8b
+# {wq, wv} at lora_8b's rank 16.
+LORA_GROUPS = [("1b_qkv", 2048, (2048, 512, 512), 32), ("1b_gate_up", 2048, (8192, 8192), 32),
+               ("8b_qv", 4096, (4096, 1024), 16)]
+
+
+def phase_lora_kernels(gen: torch.Generator) -> tuple[list[dict], list[dict]]:
+    from localai_tpu_torch.ops.lora_matmul import lora_bgmv, lora_bgmv_group, lora_delta_plain
 
     dt = torch.bfloat16
     cases = [(n_in, n_out, R, 9, None) for n_in, n_out in LORA_SHAPES for R in (16, 64)]
@@ -1212,8 +1262,51 @@ def phase_lora_kernels(gen: torch.Generator) -> list[dict]:
             log(f"[kernel lora_bgmv] refused as it should: {e}")
         else:
             fail("lora_bgmv took a tensor it does not support")
+    # One launch per group, at the decode block of 8 slots (7 tenants and an
+    # adapter-less slot), from a generator of its own so the rows above see
+    # the inputs they always saw. Beside it: the same kernel launched target
+    # by target, and the plain version and two bmm calls per target.
+    # The timing floor: the same flushed timing of a zero_ on 8 floats, the
+    # least any launch reads here (B5's rows sit a few us above it).
+    z = torch.zeros(8, device="cuda")
+    floor_ms = cuda_time_cold_ms(lambda: z.zero_(), 20)
+    log(f"[kernel lora_bgmv] timing floor (zero_ of 8 floats): {floor_ms:.5f} ms")
+    gen_group = torch.Generator(device="cuda").manual_seed(9)
+    group_rows = []
+    for label, n_in, outs, R in LORA_GROUPS:
+        NA = 9
+        pairs = []
+        for n_out in outs:
+            a = (torch.randn(NA, n_in, R, generator=gen_group, device="cuda") * 0.05).to(dt)
+            b = (torch.randn(NA, R, n_out, generator=gen_group, device="cuda") * 0.05).to(dt)
+            a[0] = 0
+            b[0] = 0
+            pairs.append((a, b))
+        x = torch.randn(8, n_in, generator=gen_group, device="cuda").to(dt)
+        ids = torch.tensor([8, 1, 0, 6, 3, 2, 7, 5], dtype=torch.int32, device="cuda")
+        row = _hold_lora_group(x, pairs, ids)
+        ms = cuda_time_cold_ms(lambda: lora_bgmv_group(x, pairs, ids), 20)
+        per_target = [cuda_time_cold_ms(lambda a=a, b=b: lora_bgmv(x, a, b, ids), 20)
+                      for a, b in pairs]
+        plain_ms = cuda_time_cold_ms(
+            lambda: [lora_delta_plain(x, a, b, ids) for a, b in pairs], 3)
+        idx = ids.long()
+        sel = [(a[idx], b[idx]) for a, b in pairs]
+        x3 = x[:, None, :]
+        bmm2_ms = cuda_time_cold_ms(
+            lambda: [torch.bmm(torch.bmm(x3, a_sel), b_sel) for a_sel, b_sel in sel], 20)
+        del sel
+        bound_ms, bound_by = _bound(*_lora_group_work(ids.tolist(), NA, n_in, outs, R,
+                                                      dt.itemsize), torch.float32)
+        row.update(group=label, ms=ms, timing_floor_ms=floor_ms, per_target_ms=per_target,
+                   per_target_ms_sum=sum(per_target), plain_ms=plain_ms,
+                   bmm2_gathered_ms=bmm2_ms, bound_ms=bound_ms, bound_by=bound_by)
+        log(f"[kernel lora_bgmv group] {json.dumps(row)}")
+        check(row["ok"], f"lora_bgmv_group disagrees with its plain version at {row}")
+        group_rows.append(row)
+        del pairs
     torch.cuda.empty_cache()
-    return rows
+    return rows, group_rows
 
 
 # --------------------------------------------------------------------------- #
@@ -1389,6 +1482,18 @@ def _hold_served_lora(eng) -> list[dict]:
                 row.update(key=key, layer=li)
                 check(row["ok"], f"lora_http: B5 on the served stacks disagrees: {row}")
                 rows.append(row)
+    # The two groups the decode step launches as one: q / k / v, gate / up.
+    tree = eng._lora_tree
+    for keys in (("wq", "wk", "wv"), ("w_gate", "w_up")):
+        for li in (0, eng.cfg.num_layers - 1):
+            pairs = [(tree[k]["a"][li], tree[k]["b"][li]) for k in keys]
+            for ids in blocks:
+                x = torch.randn(S, pairs[0][0].shape[1], generator=gen,
+                                device="cuda").to(pairs[0][0].dtype)
+                row = _hold_lora_group(x, pairs, ids.to(device="cuda", dtype=torch.int32))
+                row.update(key="+".join(keys), layer=li)
+                check(row["ok"], f"lora_http: B5 on the served group disagrees: {row}")
+                rows.append(row)
     worst = max(rows, key=lambda r: r["max_abs_err"] / max(r["out_max"], 1e-30))
     log(f"[lora_http served stacks] B5 vs plain on {len(rows)} (key, layer, ids) cases, "
         f"all ok; worst relative: {json.dumps(worst)}")
@@ -1396,7 +1501,7 @@ def _hold_served_lora(eng) -> list[dict]:
 
 
 def phase_lora_http() -> dict:
-    from localai_tpu_torch.ops.lora_matmul import lora_bgmv
+    from localai_tpu_torch.ops.lora_matmul import lora_bgmv_group
 
     reqs = _lora_requests()
     out = {}
@@ -1417,9 +1522,9 @@ def phase_lora_http() -> dict:
                   f"lora_http: stacks after the warm pass {stacks}")
             # The measured batch: counters to 0 just before, read just after.
             m0, tok0, dt0 = eng.metrics(), eng._decode_tokens, eng._decode_time
-            lora_bgmv.launches = 0
+            lora_bgmv_group.launches = 0
             results, wall = _http_batch(base, reqs)
-            launches = lora_bgmv.launches
+            launches = lora_bgmv_group.launches
             m1 = eng.metrics()
             texts, ttfts = _check_http_results("lora_http", reqs, results)
             steps = int(m1["decode_steps"] - m0["decode_steps"])
@@ -1427,10 +1532,10 @@ def phase_lora_http() -> dict:
             # Admissions run no B5: their x is [B, S, D] (3-D), which takes
             # the gather form; prefill chunks carry no LoRA operand. Every
             # decode step runs the delta for all 8 slots (adapter-less and
-            # idle slots ride id 0) on each of the 7 keys of every layer,
-            # one wrapper call (shrink + expand) each.
-            check(launches == steps * L * 7 and launches > 0,
-                  f"lora_http: {launches} B5 launches != {steps} decode steps x {L} layers x 7")
+            # idle slots ride id 0) on the 7 keys of every layer in 4
+            # launches: {wq, wk, wv}, wo, {w_gate, w_up}, w_down.
+            check(launches == steps * L * 4 and launches > 0,
+                  f"lora_http: {launches} B5 launches != {steps} decode steps x {L} layers x 4")
             check(texts[0] != texts[8], "lora_http: tenant0's greedy output equals the base's")
             refs = [int(r) for r in eng._adapter_refs]
             check(not any(refs), f"lora_http: adapter pins left at the end: {refs}")
@@ -1459,10 +1564,10 @@ def phase_lora_http() -> dict:
                                 {"model": "llama-1b", "prompt": "warm up", "max_tokens": 4})])
             eng = manager.peek("llama-1b").engine
             m0, tok0, dt0 = eng.metrics(), eng._decode_tokens, eng._decode_time
-            lora_bgmv.launches = 0
+            lora_bgmv_group.launches = 0
             results, wall = _http_batch(base, base_reqs)
             _texts, ttfts = _check_http_results("lora_http base", base_reqs, results)
-            check(lora_bgmv.launches == 0 and eng._lora_tree is None,
+            check(lora_bgmv_group.launches == 0 and eng._lora_tree is None,
                   "lora_http base: the tenant-less base ran the LoRA kernel")
             m1 = eng.metrics()
             steps = int(m1["decode_steps"] - m0["decode_steps"])
@@ -1523,9 +1628,10 @@ def phase_lora_8b(qmodel: dict, small, p_small, p_small_cpu) -> dict:
     log("[lora_8b llama-3-8b int8, 4 tenants] " + json.dumps(out))
     _check_quant_launches("lora_8b", L, out, chunks=(2, 2 + 6))
     n = out["launches"]
-    check(n["lora_bgmv"] == out["decode_steps"] * L * 4 and n["lora_bgmv"] > 0,
+    # q / v share x (one launch), o and down one each: 3 launches a layer.
+    check(n["lora_bgmv"] == out["decode_steps"] * L * 3 and n["lora_bgmv"] > 0,
           f"lora_8b: B5 launches {n['lora_bgmv']} != {out['decode_steps']} decode steps x "
-          f"{L} layers x 4 keys")
+          f"{L} layers x 3 launches (q + v, o, down)")
     check(not any(out["adapter_refs"]), f"lora_8b: pins left {out['adapter_refs']}")
     torch.cuda.empty_cache()
 
@@ -1588,7 +1694,7 @@ def main() -> None:
     qmodel = timed("quant_model", phase_quant_model, gen)
     qruns = timed("quant_engines", phase_quant_engines, qmodel, model["small"],
                   model["p_small"], model["p_small_cpu"])
-    lora_rows = timed("lora_kernels", phase_lora_kernels, gen)
+    lora_rows, lora_groups = timed("lora_kernels", phase_lora_kernels, gen)
     lora_http = timed("lora_http", phase_lora_http)
     lora_8b = timed("lora_8b", phase_lora_8b, qmodel, model["small"], model["p_small"],
                     model["p_small_cpu"])
@@ -1719,12 +1825,20 @@ def main() -> None:
         "source": "localai_tpu_torch/csrc/lora_matmul.cu",
         "replaces": "localai_tpu/ops/lora_matmul.py:105",
         "tpu_kernel": "localai_tpu/ops/lora_matmul.py::_lora_kernel",
+        # One launch of lora_group_kernel per group of 1-3 targets sharing x
+        # (shrink and expand inside it, one thread-block cluster per segment
+        # and target); the launches are the grouped calls.
+        "kernel": "lora_group_kernel<x, factors> (ops/lora_matmul.lora_bgmv_group)",
         "launches": sum(by_path["lora_bgmv"].values()),
         "launches_by_path": {k: v for k, v in by_path["lora_bgmv"].items() if v},
         "shape": {"N": 9, "in": 2048, "out": 2048, "R": 16, "dtype": "bfloat16"},
-        "max_abs_err": max(r["max_abs_err"] for r in lora_rows + served),
+        "max_abs_err": max(r["max_abs_err"] for r in lora_rows + lora_groups + served),
         "tol": "bf16: 2^-7 x |out| + 1e-4 x max|out| (f32 on both sides, one bf16 rounding)",
-        "ok": all(r["ok"] for r in lora_rows + served),
+        "ok": all(r["ok"] for r in lora_rows + lora_groups + served),
+        "rows_independent": all(r["rows_independent"] for r in lora_rows + lora_groups + served),
+        "repeat_equal": all(r["repeat_equal"] for r in lora_rows + lora_groups + served),
+        "allocates_outputs_only": all(r["allocates_outputs_only"]
+                                      for r in lora_rows + lora_groups + served),
         # lora_http's own stacks (rank 32, 9 rows) at its decode block's ids.
         "served_stacks": {"cases": len(served),
                           "max_abs_err": max(r["max_abs_err"] for r in served)},
@@ -1736,10 +1850,17 @@ def main() -> None:
         # For reference only: torch.bmm twice on factors gathered beforehand
         # (two calls, not one computing the same function).
         "bmm2_gathered_ms": lora_main["bmm2_gathered_ms"],
+        # The same flushed timing of a zero_ on 8 floats: the floor under any launch.
+        "timing_floor_ms": lora_groups[0]["timing_floor_ms"],
         "library_ms": None,  # no one PyTorch call computes a per-row gathered delta
+        # ptxas: registers, spill bytes, static shared memory of each instance.
+        "ptxas": [r for r in usage["lora_matmul"] if "lora_group_kernel" in r["kernel"]],
         "shapes": [_compact(r, ("shape", "rank", "padded_rank", "ms", "plain_ms",
                                 "bmm2_gathered_ms", "bound_ms", "max_abs_err"))
                    for r in lora_rows],
+        "groups": [_compact(r, ("group", "shape", "rank", "ms", "per_target_ms_sum", "plain_ms",
+                                "bmm2_gathered_ms", "bound_ms", "max_abs_err"))
+                   for r in lora_groups],
     }
     log(f"[phases] {json.dumps(seconds)}")
     log(f"[done] all phases passed in {time.monotonic() - t_start:.1f}s")

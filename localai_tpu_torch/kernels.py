@@ -45,7 +45,7 @@ LIBRARIES = {
     ),
     "lora_matmul": (
         "lora_matmul.cu",
-        {"lora_bgmv": ([_P] * 6 + [_I] * 7 + [_P], _I)},
+        {"lora_bgmv_group": ([_P] * 11 + [_I] * 18 + [_P], _I)},
     ),
 }
 

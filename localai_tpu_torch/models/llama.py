@@ -53,7 +53,7 @@ from localai_tpu_torch.device import resolve_device
 from localai_tpu_torch.models.config import ArchConfig
 from localai_tpu_torch.models.quant import is_quantized, matmul, unembed_matmul
 from localai_tpu_torch.ops import ptable as _pt
-from localai_tpu_torch.ops.lora_matmul import lora_delta
+from localai_tpu_torch.ops.lora_matmul import lora_deltas
 from localai_tpu_torch.ops.attention import (
     _merge_partials_mq,
     decode_attention_windowed,
@@ -236,21 +236,27 @@ def _unembed(cfg: ArchConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def _lora_add(cfg: ArchConfig, lora, key: str, x: torch.Tensor,
-              y: torch.Tensor) -> torch.Tensor:
-    """y + the per-row adapter delta of one target projection: unmerged
-    B·(A·x) beside the base product, so the base weights stay shared (and
+def _lora_add(lora, keys, x: torch.Tensor, ys: list) -> list:
+    """ys[i] + the per-row adapter delta of target keys[i], for targets that
+    share the input x (q / k / v, gate / up, or one key alone): unmerged
+    B·(A·x) beside each base product, so the base weights stay shared (and
     possibly quantized) while each row rides its tenant's factors. lora =
     (this layer's stacks {key: {"a": [NA, in, R], "b": [NA, R, out]}}, ids
-    [B]) or None; id 0 is the all-zero null adapter. The delta is rounded to
-    x.dtype before the add, as in the JAX package."""
+    [B]) or None; id 0 is the all-zero null adapter. The keys present in the
+    stacks go to one grouped call (one kernel launch at decode); absent keys
+    keep their base product. Each delta is rounded to x.dtype before the
+    add, as in the JAX package, and is what its key would get alone."""
     if lora is None:
-        return y
+        return ys
     stacks, ids = lora
-    entry = stacks.get(key)
-    if entry is None:
-        return y
-    return y + lora_delta(x, entry, ids)
+    present = [i for i, k in enumerate(keys) if k in stacks]
+    if not present:
+        return ys
+    deltas = lora_deltas(x, [stacks[keys[i]] for i in present], ids)
+    ys = list(ys)
+    for i, d in zip(present, deltas):
+        ys[i] = ys[i] + d
+    return ys
 
 
 def _layer_lora(lora, li: int):
@@ -264,9 +270,8 @@ def _layer_lora(lora, li: int):
 def _attn_proj_qkv(cfg: ArchConfig, lp: Params, x: torch.Tensor, lora=None):
     """x: [..., D] -> q [..., H, Hd], k/v [..., K, Hd]."""
     H, K, Hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
-    q = _lora_add(cfg, lora, "wq", x, matmul(x, lp["wq"]))
-    k = _lora_add(cfg, lora, "wk", x, matmul(x, lp["wk"]))
-    v = _lora_add(cfg, lora, "wv", x, matmul(x, lp["wv"]))
+    q, k, v = _lora_add(lora, ("wq", "wk", "wv"), x,
+                        [matmul(x, lp["wq"]), matmul(x, lp["wk"]), matmul(x, lp["wv"])])
     if cfg.attn_qkv_bias:
         q = q + lp["bq"]
         k = k + lp["bk"]
@@ -291,7 +296,7 @@ def _attn_proj_qkv(cfg: ArchConfig, lp: Params, x: torch.Tensor, lora=None):
 def _attn_out(cfg: ArchConfig, lp: Params, attn_flat: torch.Tensor,
               lora=None) -> torch.Tensor:
     """Output projection + optional gemma-2 post-attention sandwich norm."""
-    a = _lora_add(cfg, lora, "wo", attn_flat, matmul(attn_flat, lp["wo"]))
+    (a,) = _lora_add(lora, ("wo",), attn_flat, [matmul(attn_flat, lp["wo"])])
     if cfg.post_norms:
         a = rms_norm(a, lp["post_attn_norm"], cfg.rms_eps)
     return a
@@ -299,10 +304,11 @@ def _attn_out(cfg: ArchConfig, lp: Params, attn_flat: torch.Tensor,
 
 def _mlp(cfg: ArchConfig, lp: Params, x: torch.Tensor, lora=None) -> torch.Tensor:
     """Dense SwiGLU / GeGLU MLP."""
-    gate = _act(cfg, _lora_add(cfg, lora, "w_gate", x, matmul(x, lp["w_gate"])))
-    up = _lora_add(cfg, lora, "w_up", x, matmul(x, lp["w_up"]))
-    gu = gate * up
-    return _lora_add(cfg, lora, "w_down", gu, matmul(gu, lp["w_down"])).to(x.dtype)
+    gate, up = _lora_add(lora, ("w_gate", "w_up"), x,
+                         [matmul(x, lp["w_gate"]), matmul(x, lp["w_up"])])
+    gu = _act(cfg, gate) * up
+    (down,) = _lora_add(lora, ("w_down",), gu, [matmul(gu, lp["w_down"])])
+    return down.to(x.dtype)
 
 
 def _mlp_out(cfg: ArchConfig, lp: Params, x: torch.Tensor, lora=None) -> torch.Tensor:
@@ -378,7 +384,7 @@ def prefill(
 ):
     """Prompt processing. Returns (last_logits [B, V] f32, k [L,B,S,K,Hd], v).
     With `lora` each row adds its adapter's delta; x is 3-D here, so every
-    delta takes the gather form (ops/lora_matmul.lora_delta)."""
+    delta takes the gather form (ops/lora_matmul.lora_deltas)."""
     h, _, (ks, vs) = _forward_hidden(cfg, params, tokens, lengths, collect_kv=True, lora=lora)
     last_idx = torch.clamp(lengths.to(torch.int64) - 1, min=0)  # empty prompt reads 0
     last = h[torch.arange(h.shape[0], device=h.device), last_idx]  # [B, D]

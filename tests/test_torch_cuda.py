@@ -561,11 +561,12 @@ def _assert_lora_close(got, want):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 # 32 is the served stacks' rank (lora_http pads its rank-16 tenants to it);
-# 24 is rounded up to a power of two in the kernel's thread mapping.
+# 24 pads to 32 ranks in the tensor-core tiles (a multiple of 8: 16-byte rows of A);
+# 1 is narrower than 16 bytes and loads element by element.
 @pytest.mark.parametrize("R", [1, 8, 16, 24, 32, 64, 128])
 @pytest.mark.parametrize("shape", LORA_SHAPES)
 def test_lora_kernel_matches_plain_version(card, shape, R, dtype):
-    from localai_tpu_torch.ops.lora_matmul import lora_bgmv, lora_delta_plain
+    from localai_tpu_torch.ops.lora_matmul import lora_bgmv, lora_bgmv_group, lora_delta_plain
 
     n_in, n_out = shape
     NA = 9  # 8 adapters and the null one
@@ -576,10 +577,10 @@ def test_lora_kernel_matches_plain_version(card, shape, R, dtype):
         ids = (torch.arange(N, device="cuda") % NA).to(torch.int32)
         if N == 1:
             ids[0] = 1
-        before = lora_bgmv.launches
+        before = lora_bgmv_group.launches
         got = lora_bgmv(x, a, b, ids)
         torch.cuda.synchronize()
-        assert lora_bgmv.launches == before + 1
+        assert lora_bgmv_group.launches == before + 1
         _assert_lora_close(got, lora_delta_plain(x, a, b, ids))
         null = ids == 0
         assert (got[null] == 0).all()  # exact zeros, not approximate ones
@@ -600,12 +601,17 @@ def test_lora_cuda_tensors_never_take_the_plain_route(card, monkeypatch):
     a, b = _lora_stack(g, 64, 96, 8, 3, torch.bfloat16)
     x = torch.randn(4, 64, generator=g, device="cuda").to(torch.bfloat16)
     ids = torch.tensor([0, 1, 2, 1], dtype=torch.int32, device="cuda")
-    before = lm.lora_bgmv.launches
+    before = lm.lora_bgmv_group.launches
     assert lm.lora_delta(x, {"a": a, "b": b}, ids).shape == (4, 96)
     # Host ids are checked on the host and copied to the card.
     assert torch.equal(lm.lora_bgmv(x, a, b, ids.cpu()), lm.lora_bgmv(x, a, b, ids))
     torch.cuda.synchronize()
-    assert lm.lora_bgmv.launches == before + 3
+    assert lm.lora_bgmv_group.launches == before + 3
+    # A group of targets is one launch; the gather form never serves 2-D rows.
+    a2, b2 = _lora_stack(g, 64, 32, 8, 3, torch.bfloat16)
+    group = lm.lora_deltas(x, [{"a": a, "b": b}, {"a": a2, "b": b2}], ids)
+    assert [t.shape for t in group] == [(4, 96), (4, 32)]
+    assert lm.lora_bgmv_group.launches == before + 4
     # An id outside [0, NA) on the card reads nothing: its row is NaN.
     bad = lm.lora_bgmv(x, a, b, torch.tensor([1, 3, -1, 0], dtype=torch.int32, device="cuda"))
     assert torch.isnan(bad[1]).all() and torch.isnan(bad[2]).all() and (bad[3] == 0).all()
@@ -629,3 +635,98 @@ def test_lora_cuda_tensors_never_take_the_plain_route(card, monkeypatch):
     with pytest.raises(ValueError, match="at most"):
         lm.lora_bgmv(torch.zeros(300, 64, dtype=torch.bfloat16, device="cuda"), a, b,
                      torch.zeros(300, dtype=torch.int32, device="cuda"))
+    # A group shares NA and the rank, and takes at most three targets.
+    a4, b4 = _lora_stack(g, 64, 96, 16, 3, torch.bfloat16)
+    with pytest.raises(ValueError, match="share NA and the rank"):
+        lm.lora_bgmv_group(x, [(a, b), (a4, b4)], ids)
+    with pytest.raises(ValueError, match="targets"):
+        lm.lora_bgmv_group(x, [(a, b)] * 4, ids)
+    with pytest.raises(TypeError, match="alike"):
+        lm.lora_bgmv_group(x, [(a, b), (a.float(), b.float())], ids)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        xs = torch.zeros(4 * 64 + 4, dtype=torch.bfloat16, device="cuda")[4:].view(4, 64)
+        lm.lora_bgmv_group(xs, [(a, b)], ids)
+    torch.cuda.synchronize()
+    assert lm.lora_bgmv_group.launches == before + 5  # the bad-id call; nothing refused
+
+
+# The served groups (in, outs): llama-3.2-1b {wq, wk, wv} and {w_gate, w_up},
+# llama-3-8b {wq, wv} and {w_down} alone.
+LORA_GROUPS = [(2048, (2048, 512, 512)), (2048, (8192, 8192)), (4096, (4096, 1024)),
+               (14336, (4096,))]
+
+
+def _lora_ids(N, NA, g):
+    """Row ids with repeats: at 9 rows the segments are 1-3 rows long."""
+    if N == 1:
+        return torch.tensor([3], dtype=torch.int32, device="cuda")
+    if N == 9:
+        return torch.tensor([3, 1, 3, 0, 2, 3, 1, 8, 0], dtype=torch.int32, device="cuda")
+    return torch.randint(0, NA, (N,), generator=g, device="cuda", dtype=torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("R", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("group", LORA_GROUPS, ids=["1b_qkv", "1b_gate_up", "8b_qv", "8b_down"])
+def test_lora_group_kernel_matches_plain_version(card, group, R, dtype):
+    """One launch for the group against lora_delta_plain target by target,
+    at 1, 8, 9 and 256 rows with repeated ids; null rows exact zeros; each
+    row bit-identical to a launch on it alone; two launches bit-identical;
+    one launch counted per call."""
+    from localai_tpu_torch.ops import lora_matmul as lm
+
+    n_in, outs = group
+    NA = 9
+    g = torch.Generator(device="cuda").manual_seed(n_in + R + len(outs))
+    pairs = [_lora_stack(g, n_in, o, R, NA, dtype) for o in outs]
+    for N in (1, 8, 9, 256):
+        x = torch.randn(N, n_in, generator=g, device="cuda").to(dtype)
+        ids = _lora_ids(N, NA, g)
+        before = lm.lora_bgmv_group.launches
+        got = lm.lora_bgmv_group(x, pairs, ids)
+        torch.cuda.synchronize()
+        assert lm.lora_bgmv_group.launches == before + 1
+        again = lm.lora_bgmv_group(x, pairs, ids)
+        for (a, b), y, y2 in zip(pairs, got, again):
+            assert y.shape == (N, b.shape[2])
+            _assert_lora_close(y, lora_plain(x, a, b, ids))
+            assert (y[ids == 0] == 0).all()
+            assert torch.equal(y, y2)
+        for n in (range(N) if N <= 9 else (0, 1, 77, N - 1)):
+            alone = lm.lora_bgmv_group(x[n:n + 1], pairs, ids[n:n + 1])
+            assert all(torch.equal(y[n:n + 1], z) for y, z in zip(got, alone))
+
+
+def lora_plain(x, a, b, ids):
+    from localai_tpu_torch.ops.lora_matmul import lora_delta_plain
+
+    return lora_delta_plain(x, a, b, ids)
+
+
+@pytest.mark.cuda
+def test_lora_launch_allocates_only_its_outputs_and_keeps_no_state(card):
+    """The kernel needs no workspace: a launch allocates its outputs and
+    nothing else, and a launch with bad ids or only null rows between two
+    others changes nothing for the later one (no state carries over)."""
+    from localai_tpu_torch.ops import lora_matmul as lm
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    pairs = [_lora_stack(g, 2048, o, 32, 9, torch.bfloat16) for o in (2048, 512, 512)]
+    x = torch.randn(256, 2048, generator=g, device="cuda").to(torch.bfloat16)
+    ids9 = _lora_ids(9, 9, g)
+    first = lm.lora_bgmv_group(x[:9], pairs, ids9)
+    for ids in (torch.tensor([1, 12, -3, 0, 1, 2, 0, 5], dtype=torch.int32, device="cuda"),
+                torch.zeros(8, dtype=torch.int32, device="cuda"),
+                _lora_ids(256, 9, g)):
+        allocations = torch.cuda.memory_stats()["allocation.all.allocated"]
+        out = lm.lora_bgmv_group(x[:len(ids)], pairs, ids)
+        torch.cuda.synchronize()
+        # One device allocation per output and none else.
+        assert torch.cuda.memory_stats()["allocation.all.allocated"] - allocations == len(out)
+        bad = (ids < 0) | (ids >= 9)
+        for y in out:
+            assert torch.isnan(y[bad]).all() and not torch.isnan(y[~bad]).any()
+            assert (y[ids == 0] == 0).all()
+    again = lm.lora_bgmv_group(x[:9], pairs, ids9)
+    assert all(torch.equal(y, z) for y, z in zip(first, again))
