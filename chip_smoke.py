@@ -8,8 +8,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    packages this machine has (for planning later slices);
 2. build   — nvcc builds every kernel library from localai_tpu_torch/csrc
    (one process per source, all at once) and prints what ptxas reports
-   (registers and spills of every kernel); a spill in B2's, B3's or B5's
-   tensor-core instances fails the run;
+   (registers and spills of every kernel); a spill in B2's, B3's, B4's or
+   B5's tensor-core instances fails the run;
 3. kernels — each kernel against its plain PyTorch version on the card, at
    the serving path's shapes, with CUDA-event times of the kernel, the
    plain version, one PyTorch library call computing the same function
@@ -23,9 +23,11 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    launched again and for each slot alone), B3 dequant-matmul at llama-3-8b's projection shapes
    (flat int8, grouped int8, packed int4; bf16 and f32 x; 1, 8, 16, 64 and
    256 rows; every output bit-identical when launched again, and up to 16
-   rows for each row alone) and B4 int8 unembed at its head, with the time
-   of a bf16 matmul on the dequantized weight beside them, and for B3 the
-   time of the dequantize-then-matmul route at the same rows;
+   rows for each row alone) and B4 int8 unembed at llama-3-8b's head and a
+   ragged one (bf16 and f32 h; 1, 8, 16, 64 and 256 rows; bit-identical
+   when launched again, and up to 16 bf16 rows for each row alone), with
+   the time of a bf16 matmul on the dequantized weight beside them, and
+   for B3 the time of the dequantize-then-matmul route at the same rows;
 4. model   — a small f32 model on the card against the same model on the
    CPU (logits, 16 greedy decode steps), dense and paged (chunked prefill
    into pages, paged decode), then full-width llama-3.2-1b in bf16 with
@@ -241,6 +243,11 @@ def phase_build() -> dict[str, list[dict]]:
     check(len(mma) == 9, f"expected 9 qmm_mma_kernel instances in the ptxas log, found {len(mma)}")
     check(all(r.get("spill_stores", 1) == 0 and r.get("spill_loads", 1) == 0 for r in mma),
           f"a qmm_mma_kernel instance spills: {mma}")
+    b4 = [r for r in usage["quant_matmul"] if "unembed_mma_kernel" in r["kernel"]]
+    log(f"[build:quant_matmul] B4 tensor-core instances: {json.dumps(b4)}")
+    check(len(b4) == 3, f"expected 3 unembed_mma_kernel instances in the ptxas log, found {b4}")
+    check(all(r.get("spill_stores", 1) == 0 and r.get("spill_loads", 1) == 0 for r in b4),
+          f"an unembed_mma_kernel instance spills: {b4}")
     b5 = [r for r in usage["lora_matmul"] if "lora_group_kernel" in r["kernel"]]
     log(f"[build:lora_matmul] instances: {json.dumps(b5)}")
     check(len(b5) == 4, f"expected 4 lora_group_kernel instances in the ptxas log, found {b5}")
@@ -530,7 +537,8 @@ def _bound(flops, nbytes, dtype) -> tuple[float, str]:
 
 def phase_quant_kernels(gen: torch.Generator) -> tuple[list[dict], list[dict]]:
     """B3 at every projection shape, form, x dtype and row count of the
-    serving path, and B4 at llama-3-8b's head; each against its plain
+    serving path, and B4 at llama-3-8b's head and a ragged one
+    (_hold_unembed); each against its plain
     version, with the time of a bf16 matmul on the dequantized weight
     (`bf16_ms`: what the quantized kernel has to beat to be worth its
     bytes) and, for B3, of models/quant.matmul with the kernel route off
@@ -540,8 +548,7 @@ def phase_quant_kernels(gen: torch.Generator) -> tuple[list[dict], list[dict]]:
     there is no library time."""
     from localai_tpu_torch import kernels
     from localai_tpu_torch.models import quant
-    from localai_tpu_torch.ops.quant_matmul import (
-        qmm, qmm_plain, qmm_plan, qunembed, qunembed_plain)
+    from localai_tpu_torch.ops.quant_matmul import qmm, qmm_plain, qmm_plan
 
     # f32 x: summation order only. bf16 x: both sides round the f32 sum once
     # to bf16, so they may differ by one bf16 step (2^-7 of the value).
@@ -597,35 +604,62 @@ def phase_quant_kernels(gen: torch.Generator) -> tuple[list[dict], list[dict]]:
                     b3.append(row)
             del qw, w_bf16
     b4 = []
-    V, D = 128256, 4096
-    w = torch.randn(V, D, generator=gen, device="cuda") * 0.02
-    s = torch.clamp(w.abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-9)
-    head = {"q": torch.clamp(torch.round(w / s), -127, 127).to(torch.int8), "s": s}
-    head_bf16 = (head["q"].float() * s).to(torch.bfloat16)
-    del w
-    for dt in (torch.bfloat16, torch.float32):
-        for N in (1, 8, 256):
-            h = torch.randn(N, D, generator=gen, device="cuda").to(dt)
-            out = qunembed(h, head)
-            torch.cuda.synchronize()
-            want = qunembed_plain(h, head)
-            scale = want.abs().max().item()
-            err = (out - want).abs().max().item()
-            ok = err <= rel_f32 * scale and bool(torch.isfinite(out).all())  # f32 both sides
-            hb = h.to(torch.bfloat16)
-            ms = cuda_time_cold_ms(lambda: qunembed(h, head), 20)
-            plain_ms = cuda_time_cold_ms(lambda: qunembed_plain(h, head), 3)
-            bf16_ms = cuda_time_cold_ms(
-                lambda: torch.mm(hb, head_bf16.t(), out_dtype=torch.float32), 20)
-            bound_ms, bound_by = _bound(2.0 * N * V * D,
-                                        V * D + 4 * V + dt.itemsize * N * D + 4 * N * V, dt)
-            row = dict(shape=[N, V, D], dtype=str(dt).replace("torch.", ""), max_abs_err=err,
-                       out_max=scale, ok=ok, ms=ms, plain_ms=plain_ms, bf16_ms=bf16_ms,
-                       bound_ms=bound_ms, bound_by=bound_by)
-            log(f"[kernel quant_unembed] {json.dumps(row)}")
-            check(ok, f"quant_unembed disagrees with its plain version at {row}")
-            b4.append(row)
+    # llama-3-8b's head, then a ragged one (V not a multiple of a 16-row
+    # vocab tile, D = 16 * 5: a last chunk of 16 columns) from gen_added.
+    for V, D in ((128256, 4096), (1000, 80)):
+        g_head = gen if V == 128256 else gen_added
+        w = torch.randn(V, D, generator=g_head, device="cuda") * 0.02
+        s = torch.clamp(w.abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-9)
+        head = {"q": torch.clamp(torch.round(w / s), -127, 127).to(torch.int8), "s": s}
+        head_bf16 = (head["q"].float() * s).to(torch.bfloat16)
+        del w
+        for dt in (torch.bfloat16, torch.float32):
+            for N in (1, 8, 16, 64, 256):
+                g = gen if V == 128256 and N in (1, 8, 256) else gen_added
+                h = torch.randn(N, D, generator=g, device="cuda").to(dt)
+                b4.append(_hold_unembed(h, head, head_bf16))
+        del head, head_bf16
     return b3, b4
+
+
+def _hold_unembed(h, head, head_bf16) -> dict:
+    """One B4 row: the kernel against its plain version (f32 on both sides,
+    exact bf16 x int8 products: summation order only, 1e-4 x max|logit|),
+    a second launch bit-identical and, up to 16 bf16 rows, each row launched
+    alone bit-identical; times beside a bf16 matmul on the dequantized head."""
+    from localai_tpu_torch import kernels
+    from localai_tpu_torch.ops.quant_matmul import qunembed, qunembed_plain, qunembed_plan
+
+    N, D = h.shape
+    V = head["q"].shape[0]
+    dt = h.dtype
+    out = qunembed(h, head)
+    torch.cuda.synchronize()
+    want = qunembed_plain(h, head)
+    scale = want.abs().max().item()
+    err = (out - want).abs().max().item()
+    ok = err <= 1e-4 * scale and bool(torch.isfinite(out).all())
+    repeat_equal = torch.equal(out, qunembed(h, head))
+    rows_alone_equal = (all(torch.equal(out[i:i + 1], qunembed(h[i:i + 1], head))
+                            for i in range(N)) if dt == torch.bfloat16 and N <= 16 else None)
+    hb = h.to(torch.bfloat16)
+    ms = cuda_time_cold_ms(lambda: qunembed(h, head), 20)
+    plain_ms = cuda_time_cold_ms(lambda: qunembed_plain(h, head), 3)
+    bf16_ms = cuda_time_cold_ms(
+        lambda: torch.mm(hb, head_bf16.t(), out_dtype=torch.float32), 20)
+    bound_ms, bound_by = _bound(2.0 * N * V * D,
+                                V * D + 4 * V + dt.itemsize * N * D + 4 * N * V, dt)
+    plan = (qunembed_plan(V, D, N, kernels.sm_count(h.device))._asdict()
+            if dt == torch.bfloat16 else None)
+    row = dict(shape=[N, V, D], dtype=str(dt).replace("torch.", ""), max_abs_err=err,
+               out_max=scale, repeat_equal=repeat_equal, rows_alone_equal=rows_alone_equal,
+               ok=ok and repeat_equal and rows_alone_equal is not False, ms=ms,
+               plain_ms=plain_ms, bf16_ms=bf16_ms, bound_ms=bound_ms, bound_frac=bound_ms / ms,
+               bound_by=bound_by, plan=plan)
+    log(f"[kernel quant_unembed] {json.dumps(row)}")
+    check(row["ok"], f"quant_unembed disagrees with its plain version or is not bit-identical "
+                     f"on a repeat / a row alone at {row}")
+    return row
 
 
 # --------------------------------------------------------------------------- #
@@ -1793,7 +1827,8 @@ def main() -> None:
                                 "bound_ms"))
                    for r in b3_rows],
     }
-    b4_main = next(r for r in b4_rows if r["shape"][0] == 8 and r["dtype"] == "bfloat16")
+    b4_main = next(r for r in b4_rows if r["shape"] == [8, 128256, 4096]
+                   and r["dtype"] == "bfloat16")
     unembed_record = {
         "name": "quant_unembed",
         "route": "cuda",
@@ -1812,7 +1847,16 @@ def main() -> None:
         "bound_ms": b4_main["bound_ms"],
         "bound_by": b4_main["bound_by"],
         "bf16_ms": b4_main["bf16_ms"],
+        "bound_frac": b4_main["bound_frac"],
         "library_ms": None,  # no one PyTorch call takes an int8 head with its scales
+        # bf16 h: unembed_mma_kernel<NT> by ops/quant_matmul.qunembed_plan;
+        # f32 h: the scalar unembed_kernel<RT>.
+        "plan": b4_main["plan"],
+        "repeat_equal": all(r["repeat_equal"] for r in b4_rows),
+        "rows_independent": all(r["rows_alone_equal"] is not False for r in b4_rows),
+        # ptxas: registers, spill bytes, static shared memory of each instance
+        # (the tensor-core instances take h as dynamic shared memory).
+        "ptxas": [r for r in usage["quant_matmul"] if "unembed" in r["kernel"]],
         "shapes": b4_rows,
     }
     # The main shape of B5: llama-3.2-1b's wq (2048 -> 2048) at rank 16 over

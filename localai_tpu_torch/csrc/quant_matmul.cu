@@ -99,14 +99,64 @@
 // rows are a third of an int4 product's bytes). wgmma does little here:
 // its M is 64 and decode has 1-16 rows.
 //
-// B4 design. A block of 8 warps owns 32 vocab rows (4 per warp) and a tile
-// of RT h rows; it walks D in 512-column stages, staging h in shared
-// memory (padded so the lanes' 16-float reads hit distinct banks). In a
-// stage lane l reads 16 contiguous bytes of each of its warp's vocab rows
-// (one 16-byte load per row), reads each staged h row once and dots it
-// with all 4, and keeps 4 x RT partial sums; a warp shuffle reduces them
-// at the end and the scale is applied on the write. V = 128256 gives 4008
-// blocks.
+// B4, bf16 h: unembed_mma_kernel<NT>. B4 moves the whole head once per
+// call (llama-3-8b: 525 MB of int8 at V = 128256, D = 4096), so at 3.35
+// TB/s it cannot take less than ~0.158 ms; with 1-16 rows a byte feeds at
+// most 32 FLOPs. The first, scalar kernel converted each byte to f32 and
+// FMA'd it once per row (~10 instructions a weight at 8 rows, over the ~9
+// an SM can spend on each byte it is fed) and read the head again for
+// every 8 rows. This one:
+// - Operands. Vocab rows are the M side of mma.sync m16n8k16 (bf16 in, f32
+//   accumulate), h's rows the n = 8 side: NT = 1 n-tile for 1-8 rows,
+//   NT = 2 for 9-16 (no padded 16-row half tile at decode), NT = 8 (row
+//   tiles of 64) above 16 rows, so 256 rows read the head 4 times. A warp
+//   sums one 16-row vocab tile at a time and converts each A fragment once
+//   for all its n-tiles.
+// - Weights straight to registers. Each head byte is used by one warp only,
+//   so it never passes through shared memory: in a 64-column chunk lane
+//   (g, t) loads bytes 16t..16t+15 of vocab rows g and g + 8, one 16-byte
+//   streaming load each (ld.global.nc, no L1 line: the head is 10x the L2).
+//   Word s of a load feeds k16 step s: its bytes 0-1 are A's k slots
+//   (2t, 2t + 1), bytes 2-3 slots (2t + 8, 2t + 9). The sum over k does not
+//   care which slot holds which column as long as B uses the same map, so
+//   B's fragment for step s is the 8 contiguous bytes h[n][16t + 4s .. +3]
+//   of a staged h row.
+// - Loads in flight, whole lines. A warp keeps a register ring of S chunks
+//   (UnembedRing: 8, or 4 beside NT = 8's accumulators) and asks for L of a
+//   row's consecutive chunks back to back (4: 256 bytes of each row; 2 with
+//   NT = 8), S - L chunks ahead of the one it multiplies: 64 KB an SM in
+//   flight at 16 warps. Measured against each other on the card, one chunk
+//   a row at a time was the slowest, four the fastest; a 256-byte L2
+//   prefetch hint lost to the 128-byte one, and 8 warps a block to 16.
+// - Integers exact, scale outside. Every int8 value is exact in bf16: the
+//   biased byte (q ^ 0x80) goes into the mantissa of f32 2^23, one FADD
+//   removes 2^23 + 128, and a prmt packs two such f32 (two bytes of one
+//   word: one vocab row) into bf16x2. The raw integers multiply h; s[v]
+//   scales the finished f32 sum on the store, as the TPU kernel's _emit.
+// - h in shared memory. One persistent block of 16 warps an SM (the plan's
+//   `blocks`, ops/quant_matmul.qunembed_plan) stages its h rows as bf16
+//   once, rows padded by 4 bf16 so that a warp's 8-byte reads hit distinct
+//   banks, and walks a contiguous range of vocab tiles. Where h does not
+//   fit (more than 16 rows, or a very wide D) it is staged in k-slices, the
+//   block's warps meeting at each slice while the weight loads of their
+//   next chunks are already in flight.
+// - Shapes. Any V (the ragged vocab tile is masked), D % 16 == 0 (a last
+//   chunk of 16, 32 or 48 columns: masked lanes load zeros and the staged h
+//   is zero past D), any h alignment (16-byte staging loads when aligned).
+// - Determinism. No split-K, no atomics: one warp sums a vocab tile over
+//   the chunks in order. For N <= 16 that order depends on D only, and NT
+//   = 1 and 2 do the same arithmetic for a row, so a row's logits have the
+//   same bits whether it decodes alone or beside 15 others.
+// Left for later: a Marlin-style offline repack of the head (longer runs
+// of a row a load, fewer prmt), bf16 scales, a TMA ring fed by a producer
+// warp.
+//
+// B4, f32 h: unembed_kernel<RT>, the first kernel unchanged (a bf16
+// operand would round h, and the f32 checks need exact f32 products): a
+// block of 8 warps owns 32 vocab rows and RT h rows, walks D in 512-column
+// stages with h staged in shared memory, lane l dots 16 contiguous bytes of
+// each of its warp's 4 vocab rows with every staged h row in f32, and a
+// warp shuffle reduces the sums; the scale is applied on the write.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -127,7 +177,6 @@ constexpr int kHSeg = 20;               // 16 floats + 4 pad: bank-conflict-free
 enum Form { kFlat = 0, kGrouped = 1, kInt4 = 2 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 
 // Byte c of w as a signed int8, in f32.
@@ -307,9 +356,9 @@ qmm_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ w,
   }
 }
 
-template <typename XT, int RT>
+template <int RT>
 __global__ void __launch_bounds__(kThreads)
-unembed_kernel(const XT* __restrict__ h, const int8_t* __restrict__ q,
+unembed_kernel(const float* __restrict__ h, const int8_t* __restrict__ q,
                const float* __restrict__ s, float* __restrict__ out, int N, int D, int V) {
   __shared__ __align__(16) float hs[RT][(kHStage / 16) * kHSeg];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -327,7 +376,7 @@ unembed_kernel(const XT* __restrict__ h, const int8_t* __restrict__ q,
     for (int i = threadIdx.x; i < RT * kHStage; i += kThreads) {
       const int r = i / kHStage, e = i % kHStage, k = k0 + e;
       hs[r][(e / 16) * kHSeg + e % 16] =
-          (r0 + r < N && k < D) ? to_f32(h[(int64_t)(r0 + r) * D + k]) : 0.f;
+          (r0 + r < N && k < D) ? h[(int64_t)(r0 + r) * D + k] : 0.f;
     }
     __syncthreads();
     const int k = k0 + lane * 16;
@@ -868,22 +917,222 @@ int qmm_rows(const void* x, const void* w, const void* s, const void* z, void* o
   return qmm_form<XT, 8>(x, w, s, z, out, N, IN, OUT, form, st);
 }
 
-template <typename XT, int RT>
+template <int RT>
 int launch_unembed(const void* h, const void* q, const void* s, void* out, int N, int D, int V,
                    cudaStream_t stream) {
   const int per_block = kWarps * kVocabPerWarp;
   const dim3 grid((V + per_block - 1) / per_block, (N + RT - 1) / RT);
-  unembed_kernel<XT, RT><<<grid, kThreads, 0, stream>>>(
-      static_cast<const XT*>(h), static_cast<const int8_t*>(q), static_cast<const float*>(s),
+  unembed_kernel<RT><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(h), static_cast<const int8_t*>(q), static_cast<const float*>(s),
       static_cast<float*>(out), N, D, V);
   return (int)cudaGetLastError();
 }
 
-template <typename XT>
 int unembed_rows(const void* h, const void* q, const void* s, void* out, int N, int D, int V,
                  cudaStream_t st) {
-  if (N == 1) return launch_unembed<XT, 1>(h, q, s, out, N, D, V, st);
-  return launch_unembed<XT, 8>(h, q, s, out, N, D, V, st);
+  if (N == 1) return launch_unembed<1>(h, q, s, out, N, D, V, st);
+  return launch_unembed<8>(h, q, s, out, N, D, V, st);
+}
+
+
+// ------------------------------------------------------------------------ //
+// B4, bf16 h: mma.sync tiles over vocab rows, the head streamed once into
+// registers, h staged in shared memory by persistent blocks
+// ------------------------------------------------------------------------ //
+
+constexpr int kUnembedWarps = 16;
+constexpr int kUnembedThreads = 32 * kUnembedWarps;
+constexpr int kChunk = 64;  // head columns a chunk: one 16-byte load a lane and vocab row
+constexpr int kHPad = 4;    // bf16 past each staged h row: a warp's 8-byte reads hit 32 banks
+
+// A warp's register ring: S chunks, loaded L at a time (L consecutive
+// chunks of a row back to back, so the row's lines are asked for together),
+// S - L of them in flight while the rest are used. NT = 8 keeps a smaller
+// ring beside its 32 accumulators.
+template <int NT>
+struct UnembedRing {
+  static constexpr int S = NT == 8 ? 4 : 8;
+  static constexpr int L = NT == 8 ? 2 : 4;
+  static_assert(S % L == 0 && S >= 2 * L, "whole groups, one in flight beside one in use");
+};
+
+// 16 head bytes, streamed: read once, so no L1 line; L2 fetches the whole
+// 128-byte line.
+__device__ __forceinline__ uint4 ldg_stream(const int8_t* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.L2::128B.v4.u32 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
+}
+
+// Bytes c and c + 1 of w (signed int8 already XORed with 0x80) as bf16x2,
+// byte c in the low half, exact (see bytes_bf16x2).
+__device__ __forceinline__ uint32_t pair_bf16x2(uint32_t w, int c) {
+  const float fa = __uint_as_float(prmt(w, 0x4B000000u, 0x7650u | c)) - 8388736.f;
+  const float fb = __uint_as_float(prmt(w, 0x4B000000u, 0x7650u | (c + 1))) - 8388736.f;
+  return prmt(__float_as_uint(fa), __float_as_uint(fb), 0x7632u);
+}
+
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int s) {
+  return s == 0 ? v.x : s == 1 ? v.y : s == 2 ? v.z : v.w;
+}
+
+// h rows r0 .. r0 + RT and columns k0 .. k0 + ks into hs (row pitch `pitch`
+// bf16), zero past N and D; 16-byte loads when h is 16-byte aligned.
+template <int RT>
+__device__ __forceinline__ void stage_h(bf16* hs, int pitch, const bf16* __restrict__ h, int N,
+                                        int D, int r0, int k0, int ks, bool vec) {
+  const int per_row = ks / 8;
+  for (int i = threadIdx.x; i < RT * per_row; i += kUnembedThreads) {
+    const int r = i / per_row, kc = (i % per_row) * 8, k = k0 + kc;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r0 + r < N && k < D) {  // D % 16 == 0: the 8 columns are all in or all out
+      const bf16* src = h + (int64_t)(r0 + r) * D + k;
+      if (vec) {
+        v = *reinterpret_cast<const uint4*>(src);
+      } else {
+        const uint16_t* e = reinterpret_cast<const uint16_t*>(src);
+        v = make_uint4(e[0] | (uint32_t)e[1] << 16, e[2] | (uint32_t)e[3] << 16,
+                       e[4] | (uint32_t)e[5] << 16, e[6] | (uint32_t)e[7] << 16);
+      }
+    }
+    uint2* dst = reinterpret_cast<uint2*>(hs + r * pitch + kc);  // rows are 8-byte aligned
+    dst[0] = make_uint2(v.x, v.y);
+    dst[1] = make_uint2(v.z, v.w);
+  }
+}
+
+// One 64-column chunk of the warp's vocab tile against its NT n-tiles:
+// wa[0] / wa[1] are the lane's 16 bytes of vocab rows g / g + 8, hb the
+// lane's staged h at (row g, the chunk's column 16t).
+template <int NT>
+__device__ __forceinline__ void unembed_chunk(const uint4 (&wa)[2], const bf16* hb, int pitch,
+                                              float (&acc)[NT][4]) {
+#pragma unroll
+  for (int st = 0; st < 4; ++st) {
+    const uint32_t w0 = word_of(wa[0], st) ^ 0x80808080u;
+    const uint32_t w8 = word_of(wa[1], st) ^ 0x80808080u;
+    const uint32_t a[4] = {pair_bf16x2(w0, 0), pair_bf16x2(w8, 0), pair_bf16x2(w0, 2),
+                           pair_bf16x2(w8, 2)};
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      // h[n][16t + 4st .. +1] for k slots (2t, 2t + 1), +2 .. +3 for (2t + 8, 2t + 9)
+      const uint2 b = *reinterpret_cast<const uint2*>(hb + n * 8 * pitch + 4 * st);
+      mma_bf16(acc[n], a, b.x, b.y);
+    }
+  }
+}
+
+// Block b of `gridDim.x` walks the 16-row vocab tiles
+// [b * tiles / blocks, (b + 1) * tiles / blocks), its warps taking
+// consecutive tiles of each round (ops/quant_matmul.UnembedPlan).
+template <int NT>
+__global__ void __launch_bounds__(kUnembedThreads, 1)
+unembed_mma_kernel(const bf16* __restrict__ h, const int8_t* __restrict__ q,
+                   const float* __restrict__ s, float* __restrict__ out, int N, int D, int V,
+                   int k_slice) {
+  constexpr int S = UnembedRing<NT>::S, L = UnembedRing<NT>::L;
+  constexpr int RT = 8 * NT;
+  extern __shared__ __align__(16) unsigned char smem_unembed[];
+  bf16* hs = reinterpret_cast<bf16*>(smem_unembed);  // [RT][pitch]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int pitch = k_slice + kHPad;
+  const int r0 = blockIdx.y * RT;
+  const int nch = (D + kChunk - 1) / kChunk;
+  const int cps = k_slice / kChunk;  // chunks a staged slice
+  const bool streamed = cps < nch;   // h is staged again for every slice of every round
+  const int tiles = (V + 15) / 16;
+  const int tb = (int)((int64_t)blockIdx.x * tiles / gridDim.x);
+  const int te = (int)((int64_t)(blockIdx.x + 1) * tiles / gridDim.x);
+  const bool vec_h = (reinterpret_cast<uintptr_t>(h) & 15) == 0;
+  const bf16* hb = hs + g * pitch + 16 * t;
+  bool staged = false;
+
+  // Every warp of the block runs the same rounds and chunks (they meet at
+  // the staging barriers); a warp past the block's range loads nothing.
+  for (int t0 = tb; t0 < te; t0 += kUnembedWarps) {
+    const int tile = t0 + warp;
+    const bool active = tile < te;
+    const int v0 = tile * 16;
+    const int8_t* qrow[2];  // the lane's vocab rows g and g + 8, at its column 16t
+    bool vok[2];
+    float sc[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int v = v0 + g + 8 * r;
+      vok[r] = active && v < V;
+      qrow[r] = q + (vok[r] ? (int64_t)v * D + 16 * t : 0);
+      sc[r] = vok[r] ? s[v] : 0.f;
+    }
+    auto load = [&](uint4(&dst)[2], int c) {
+      const bool kin = c < nch && c * kChunk + 16 * t < D;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        dst[r] = make_uint4(0u, 0u, 0u, 0u);
+        if (kin && vok[r]) dst[r] = ldg_stream(qrow[r] + (int64_t)c * kChunk);
+      }
+    };
+
+    float acc[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    uint4 wa[S][2];
+#pragma unroll
+    for (int i = 0; i < S - L; ++i) load(wa[i], i);
+    int cin = 0;  // the chunk's place in the staged slice (block-uniform, like c)
+    for (int c0 = 0; c0 < nch; c0 += S) {
+#pragma unroll
+      for (int i = 0; i < S; ++i) {
+        const int c = c0 + i;
+        if (c < nch) {
+          if (cin == cps) cin = 0;
+          if (cin == 0 && (streamed || !staged)) {
+            __syncthreads();  // every warp is done with the previous slice
+            stage_h<RT>(hs, pitch, h, N, D, r0, c * kChunk, k_slice, vec_h);
+            __syncthreads();
+            staged = true;
+          }
+          if (i % L == 0)  // the next group, into the slots of the group just used
+#pragma unroll
+            for (int l = 0; l < L; ++l) load(wa[(i + S - L + l) % S], c + S - L + l);
+          if (active) unembed_chunk<NT>(wa[i], hb + cin * kChunk, pitch, acc);
+          ++cin;
+        }
+      }
+    }
+
+    // acc[n][2r + e]: vocab row v0 + g + 8r, h row r0 + 8n + 2t + e.
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (!vok[r]) continue;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int row = r0 + 8 * n + 2 * t + e;
+          if (row < N) out[(int64_t)row * V + v0 + g + 8 * r] = acc[n][2 * r + e] * sc[r];
+        }
+    }
+  }
+}
+
+template <int NT>
+int launch_unembed_mma(const void* h, const void* q, const void* s, void* out, int N, int D,
+                       int V, int k_slice, int blocks, cudaStream_t stream) {
+  auto kern = unembed_mma_kernel<NT>;
+  const int smem = 8 * NT * (k_slice + kHPad) * (int)sizeof(bf16);
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(blocks, (N + 8 * NT - 1) / (8 * NT));
+  kern<<<grid, kUnembedThreads, smem, stream>>>(
+      static_cast<const bf16*>(h), static_cast<const int8_t*>(q), static_cast<const float*>(s),
+      static_cast<float*>(out), N, D, V, k_slice);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -926,13 +1175,21 @@ extern "C" int quant_matmul(const void* x, const void* w, const void* s, const v
 }
 
 // h [N, D] (h_dtype 0 = float32, 1 = bfloat16), q [V, D] int8 with D % 16
-// == 0 and 16-byte aligned rows, s [V] f32, out [N, V] f32.
+// == 0 and 16-byte aligned rows, s [V] f32, out [N, V] f32. bf16 h takes
+// the plan of ops/quant_matmul.qunembed_plan: row_tile 8, 16 or 64; k_slice
+// a multiple of 64; `blocks` persistent blocks a row tile. f32 h ignores the
+// plan. Returns 0 or the cudaError_t of the failed launch.
 extern "C" int quant_unembed(const void* h, const void* q, const void* s, void* out, int N,
-                             int D, int V, int h_dtype, void* stream) {
+                             int D, int V, int h_dtype, int row_tile, int k_slice, int blocks,
+                             void* stream) {
   if (N <= 0 || V <= 0) return 0;
   if (D <= 0 || D % 16) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (h_dtype == 0) return unembed_rows<float>(h, q, s, out, N, D, V, st);
-  if (h_dtype == 1) return unembed_rows<__nv_bfloat16>(h, q, s, out, N, D, V, st);
+  if (h_dtype == 0) return unembed_rows(h, q, s, out, N, D, V, st);
+  if (h_dtype != 1 || k_slice <= 0 || k_slice % kChunk || blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  if (row_tile == 8) return launch_unembed_mma<1>(h, q, s, out, N, D, V, k_slice, blocks, st);
+  if (row_tile == 16) return launch_unembed_mma<2>(h, q, s, out, N, D, V, k_slice, blocks, st);
+  if (row_tile == 64) return launch_unembed_mma<8>(h, q, s, out, N, D, V, k_slice, blocks, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -41,7 +41,7 @@ LIBRARIES = {
     "quant_matmul": (
         "quant_matmul.cu",
         {"quant_matmul": ([_P] * 7 + [_I] * 10 + [_P], _I),
-         "quant_unembed": ([_P] * 4 + [_I] * 4 + [_P], _I)},
+         "quant_unembed": ([_P] * 4 + [_I] * 7 + [_P], _I)},
     ),
     "lora_matmul": (
         "lora_matmul.cu",

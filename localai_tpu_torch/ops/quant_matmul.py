@@ -24,6 +24,10 @@ pair per device, grown when a product needs more and never allocated per
 call. The port issues every product in order on one stream, which is what
 makes one workspace per device safe.
 
+B4 on bf16 h runs persistent blocks over the vocab tiles by the plan of
+`qunembed_plan`, also a plain function of the shapes and the SM count; it
+never splits the reduction, so it needs no workspace.
+
 The dispatchers `dispatch_matmul` / `dispatch_unembed` take decode-shape
 calls (at most QUANT_KERNEL_MAX_ROWS float rows) and return None for the
 rest, which models/quant.py serves with its dequantize-then-matmul forms,
@@ -93,6 +97,46 @@ def qmm_plan(n_in: int, n_out: int, n_rows: int, sm_count: int) -> QmmPlan:
     slice_groups = -(-slice_groups // _STAGE_GROUPS) * _STAGE_GROUPS
     splits = -(-groups // slice_groups)
     return QmmPlan(row_tile, block_cols, splits, slice_groups * KERNEL_GROUP)
+
+
+# B4's bf16 kernel (csrc/quant_matmul.cu, unembed_mma_kernel): warps a
+# persistent block, head columns a chunk, bf16 of padding after each staged
+# h row, and the shared memory the staged h may take (of the 227 KB a block
+# can have).
+UNEMBED_WARPS = 16
+_UNEMBED_CHUNK = 64
+_UNEMBED_HPAD = 4
+UNEMBED_SMEM_BYTES = 200 * 1024
+
+
+class UnembedPlan(NamedTuple):
+    """How B4's bf16 kernel cuts h [N, D] @ q[V, D]ᵀ into blocks."""
+
+    row_tile: int  # h rows a block: 8 or 16 (N <= 16), else 64
+    k_slice: int   # h columns staged at a time: all of D (whole chunks of 64) where it fits
+    blocks: int    # persistent blocks per row tile, each over a contiguous range of tiles
+
+    def tile_range(self, block: int, n_vocab: int) -> range:
+        """The 16-row vocab tiles block `block` walks, as the kernel computes
+        them (a warp sums one tile at a time)."""
+        tiles = -(-n_vocab // 16)
+        return range(block * tiles // self.blocks, (block + 1) * tiles // self.blocks)
+
+
+def qunembed_plan(n_vocab: int, d: int, n_rows: int, sm_count: int) -> UnembedPlan:
+    """The plan of B4's bf16 kernel. Up to 16 rows it depends on
+    (n_vocab, d) only but for the row tile (8 or 16), which does not change
+    a row's arithmetic: one block an SM, h staged once where 16 rows of it
+    fit. Above 16 rows, 64-row tiles with h staged in k-slices, the SMs
+    shared among the row tiles. A warp sums a tile over the chunks of d in
+    order whatever the plan; no plan splits the reduction."""
+    row_tile = 8 if n_rows <= 8 else 16 if n_rows <= 16 else 64
+    smem_rows = max(row_tile, 16)
+    fit = (UNEMBED_SMEM_BYTES // (2 * smem_rows) - _UNEMBED_HPAD) // _UNEMBED_CHUNK
+    k_slice = min(-(-d // _UNEMBED_CHUNK), fit) * _UNEMBED_CHUNK
+    row_tiles = -(-n_rows // row_tile)
+    blocks = min(-(-(-(-n_vocab // 16)) // UNEMBED_WARPS), max(1, sm_count // row_tiles))
+    return UnembedPlan(row_tile, k_slice, max(1, blocks))
 
 
 # device index -> (f32 partials, int32 counters), grown on demand
@@ -277,11 +321,15 @@ def qunembed(h: torch.Tensor, w: dict) -> torch.Tensor:
     N, D = h.shape
     V = w["q"].shape[0]
     out = torch.empty((N, V), dtype=torch.float32, device=h.device)
+    plan = UnembedPlan(0, 0, 0)  # f32 h: the scalar kernel takes no plan
+    if h.dtype == torch.bfloat16:
+        plan = qunembed_plan(V, D, N, kernels.sm_count(h.device))
     lib = kernels.load("quant_matmul")
     with torch.cuda.device(h.device):
         rc = lib.quant_unembed(
             h.data_ptr(), w["q"].data_ptr(), w["s"].data_ptr(), out.data_ptr(), N, D, V,
-            _DTYPE_CODE[h.dtype], torch.cuda.current_stream(h.device).cuda_stream,
+            _DTYPE_CODE[h.dtype], plan.row_tile, plan.k_slice, plan.blocks,
+            torch.cuda.current_stream(h.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"quant_unembed kernel launch failed: CUDA error {rc}")

@@ -48,7 +48,7 @@ def _top(events, key: str, n: int) -> list[tuple[str, int, float]]:
 # Names of the port's own kernels (csrc/*.cu), listed apart from the top
 # kernels so that each one's device time shows however small it is.
 PORT_KERNELS = ("flash_prefill", "paged_mma_kernel", "paged_scalar_kernel", "qmm_kernel",
-                "qmm_mma_kernel", "unembed_kernel", "lora_group_kernel")
+                "qmm_mma_kernel", "unembed_kernel", "unembed_mma_kernel", "lora_group_kernel")
 
 
 def _profile(label: str, fn, steps: int = 1) -> dict:

@@ -471,15 +471,19 @@ def test_qmm_workspace_is_reused_across_products(card):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("V, D", [(1000, 64), (128256, 4096)])
+# (1000, 80): a ragged vocab tile and a last chunk of 16 columns.
+@pytest.mark.parametrize("V, D", [(1000, 64), (1000, 80), (128256, 4096)])
 def test_unembed_kernel_matches_plain_version(card, V, D, dtype):
+    """Against the plain version at 1-256 rows (1-16: one and two n-tiles of
+    the bf16 kernel; 64 and 256: 64-row tiles); launched again, the same
+    bits; up to 16 bf16 rows, each row launched alone, the same bits."""
     from localai_tpu_torch.ops.quant_matmul import qunembed, qunembed_plain
 
     g = torch.Generator(device="cuda").manual_seed(V + D)
     w = torch.randn(V, D, generator=g, device="cuda") * 0.02
     s = torch.clamp(w.abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-9)
     head = {"q": torch.clamp(torch.round(w / s), -127, 127).to(torch.int8), "s": s}
-    for N in (1, 8, 256):
+    for N in (1, 8, 16, 64, 256):
         h = torch.randn(N, D, generator=g, device="cuda").to(dtype)
         before = qunembed.launches
         got = qunembed(h, head)
@@ -489,6 +493,32 @@ def test_unembed_kernel_matches_plain_version(card, V, D, dtype):
         assert got.dtype == torch.float32 and got.shape == (N, V)
         # f32 arithmetic on both sides (bf16 h widens exactly): summation order.
         assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+        assert torch.equal(got, qunembed(h, head))
+        if dtype == torch.bfloat16 and N <= 16:
+            for i in range(N):
+                assert torch.equal(got[i:i + 1], qunembed(h[i:i + 1].contiguous(), head)), (N, i)
+
+
+@pytest.mark.cuda
+def test_unembed_kernel_takes_an_unaligned_h_and_refuses_d_off_16(card):
+    """bf16 h that is not 16-byte aligned is staged with 2-byte loads (the
+    same bits as an aligned copy); D % 16 != 0 raises ValueError."""
+    from localai_tpu_torch.ops.quant_matmul import qunembed
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    V, D = 300, 96
+    w = torch.randn(V, D, generator=g, device="cuda") * 0.02
+    s = torch.clamp(w.abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-9)
+    head = {"q": torch.clamp(torch.round(w / s), -127, 127).to(torch.int8), "s": s}
+    h = torch.randn(4, D, generator=g, device="cuda").to(torch.bfloat16)
+    shifted = torch.empty(4 * D + 1, dtype=torch.bfloat16, device="cuda")[1:].view(4, D)
+    shifted.copy_(h)
+    assert shifted.data_ptr() % 16
+    assert torch.equal(qunembed(shifted, head), qunembed(h, head))
+    w40 = w[:, :40].contiguous()
+    head40 = {"q": torch.clamp(torch.round(w40 / s), -127, 127).to(torch.int8), "s": s}
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        qunembed(h[:, :40].contiguous(), head40)
 
 
 @pytest.mark.cuda
