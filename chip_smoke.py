@@ -65,9 +65,20 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 11. lora 8b int8 — llama-3-8b int8 with 4 tenants and 4 adapter-less
    requests through Engine.submit (B1, B2, B3, B4 and B5 on one path);
    then the small f32 model's paged engine with three tenants and a null
-   row on the card against the same engine on the CPU.
-In 5, 6, 8, 10 and 11 the kernel launch counters, zeroed just before each
-run, show that the path went through the kernels.
+   row on the card against the same engine on the CPU;
+12. graphs — the decode block as one CUDA graph per shape: the paged
+   engine of phase 6 (llama-3.2-1b, 8 layers; run right after phase 6)
+   and of phase 8 (llama-3-8b int4 + fp8, all 32 layers; right after
+   phase 8) each serve phase 6's requests twice on fresh engines, after
+   warmup(): once replaying the graphs warmup captured, once with the
+   engine's graph step swapped for its eager block body. Ids (greedy and
+   seeded) and kernel launch counts must be identical; the phase prints
+   the graphs captured, the capture seconds, the graph pool's bytes and
+   both runs' decode tok/s and host ms per step.
+In 5, 6, 8, 10, 11 and 12 the kernel launch counters, zeroed just before
+each run, show that the path went through the kernels; a graph replay
+counts the launches its capture recorded. Every decode block of those
+runs is a graph capture or replay (the eager run of phase 12 aside).
 
 The last lines are the kernels' JSON record, the card's `nvidia-smi` name
 and power limit, and the result line
@@ -912,11 +923,13 @@ def phase_quant_model(gen: torch.Generator) -> dict:
 # 5. engine, 6. paged engine
 # --------------------------------------------------------------------------- #
 
-def _serve(eng, plens: list[int], max_new: int = 64, adapters=None) -> dict:
+def _serve(eng, plens: list[int], max_new: int = 64, adapters=None,
+           keep_ids: bool = False) -> dict:
     """Submit one request per prompt length (half greedy, half seeded top-p;
     request i with the runtime LoRA adapter adapters[i], if given) and
     stream them all; the kernel counters go to 0 just before the run and
-    are read just after it."""
+    are read just after it. With keep_ids the result carries every
+    request's token ids."""
     from localai_tpu_torch.engine.engine import GenRequest
     from localai_tpu_torch.models import quant
     from localai_tpu_torch.ops import quant_matmul
@@ -997,24 +1010,44 @@ def _serve(eng, plens: list[int], max_new: int = 64, adapters=None) -> dict:
     def delta(k):
         return int(metrics[k] - m0[k])
 
-    return dict(requests=len(reqs), completion_tokens=completion, wall_s=wall,
-                ttft_ms_p50=statistics.median(ttfts) * 1e3, ttft_ms_max=max(ttfts) * 1e3,
-                decode_tok_s=(eng._decode_tokens - tok0) / (eng._decode_time - dt0),
-                e2e_tok_s=completion / wall,
-                admissions=delta("admissions"),
-                decode_blocks=delta("decode_blocks"),
-                decode_steps=delta("decode_steps"),
-                prefill_chunks=delta("prefill_chunks"),
-                prefill_chunks_interleaved=delta("prefill_chunks_interleaved"),
-                chunked_admits=delta("chunked_admits"),
-                kv_pages_peak=int(metrics["kv_pages_peak"]),
-                kv_preemptions=delta("kv_preemptions"),
-                weight_bytes=int(metrics["weight_bytes"]),
-                dequant_rows_min=min((r for r, _f in dequant_rows), default=None),
-                dequant_small_float_calls=sum(f and r <= 256 for r, f in dequant_rows),
-                adapter_refs=refs,
-                adapter_metrics={k: v for k, v in metrics.items() if k.startswith("adapter")},
-                launches=launches)
+    out = dict(requests=len(reqs), completion_tokens=completion, wall_s=wall,
+               ttft_ms_p50=statistics.median(ttfts) * 1e3, ttft_ms_max=max(ttfts) * 1e3,
+               decode_tok_s=(eng._decode_tokens - tok0) / (eng._decode_time - dt0),
+               # Host wall time of the decode blocks, per decode step.
+               decode_ms_per_step=(eng._decode_time - dt0) * 1e3
+               / max(delta("decode_steps"), 1),
+               e2e_tok_s=completion / wall,
+               admissions=delta("admissions"),
+               decode_blocks=delta("decode_blocks"),
+               decode_steps=delta("decode_steps"),
+               decode_graphs=int(metrics["decode_graphs"]),
+               decode_graph_captures=delta("decode_graph_captures"),
+               decode_graph_replays=delta("decode_graph_replays"),
+               prefill_chunks=delta("prefill_chunks"),
+               prefill_chunks_interleaved=delta("prefill_chunks_interleaved"),
+               chunked_admits=delta("chunked_admits"),
+               kv_pages_peak=int(metrics["kv_pages_peak"]),
+               kv_preemptions=delta("kv_preemptions"),
+               weight_bytes=int(metrics["weight_bytes"]),
+               dequant_rows_min=min((r for r, _f in dequant_rows), default=None),
+               dequant_small_float_calls=sum(f and r <= 256 for r, f in dequant_rows),
+               adapter_refs=refs,
+               adapter_metrics={k: v for k, v in metrics.items() if k.startswith("adapter")},
+               launches=launches)
+    if keep_ids:
+        out["ids"] = [[e.token_id for e in evs if e.kind == "token"] for _f, evs in results]
+    return out
+
+
+def _check_graphs(label: str, out: dict) -> None:
+    """Every decode block of the run went through a CUDA graph: captured at
+    its shape's first block (which runs the body eagerly first) and
+    replayed from then on."""
+    blocks = out["decode_blocks"]
+    graphs = out["decode_graph_captures"] + out["decode_graph_replays"]
+    check(blocks > 0 and graphs == blocks,
+          f"{label}: {blocks} decode blocks, {out['decode_graph_captures']} captures + "
+          f"{out['decode_graph_replays']} replays")
 
 
 def phase_engine(cfg, params) -> dict:
@@ -1029,6 +1062,7 @@ def phase_engine(cfg, params) -> dict:
           f"flash kernel launches {n['flash_prefill']} != {L} layers x "
           f"{out['admissions']} admissions")
     check(n["paged_attention"] == 0, "the dense engine launched the paged kernel")
+    _check_graphs("dense engine", out)
     log("[engine llama-3.2-1b dense, 8 layers] " + json.dumps(out))
     return out
 
@@ -1058,6 +1092,7 @@ def phase_paged_engine(cfg, params, small, p_small) -> dict:
     check(out["chunked_admits"] == 4 and out["prefill_chunks"] == 2 + 3 + 6 + 7,
           f"chunked admissions {out['chunked_admits']}, chunks {out['prefill_chunks']}")
     check(out["prefill_chunks_interleaved"] > 0, "no prefill chunk ran between decode blocks")
+    _check_graphs("paged engine", out)
     log("[engine llama-3.2-1b paged, 8 layers] " + json.dumps(out))
 
     # The small f32 model: paged + chunked engine against the dense engine.
@@ -1120,6 +1155,7 @@ def phase_quant_engines(model: dict, small, p_small, p_small_cpu) -> dict:
         del eng
         log(f"[engine llama-3-8b {label}] " + json.dumps(out))
         _check_quant_launches(label, cfg.num_layers, out)
+        _check_graphs(label, out)
         runs[label] = out
     torch.cuda.empty_cache()
 
@@ -1142,6 +1178,93 @@ def phase_quant_engines(model: dict, small, p_small, p_small_cpu) -> dict:
         f"{texts['cuda'] == texts['cpu']}")
     check(texts["cuda"] == texts["cpu"], "small int4 + fp8 engine: card ids differ from the CPU's")
     return runs
+
+
+# --------------------------------------------------------------------------- #
+# 12. graphs: the decode block as a CUDA graph against its eager body
+# --------------------------------------------------------------------------- #
+
+def _graph_pool_bytes(pool) -> int | None:
+    """Bytes the allocator holds in one graph memory pool (its segments in
+    the allocator's snapshot), or None when the snapshot does not say."""
+    total, seen = 0, False
+    for seg in torch.cuda.memory_snapshot():
+        if "segment_pool_id" not in seg:
+            return None
+        seen = True
+        if tuple(seg["segment_pool_id"]) == tuple(pool):
+            total += seg["total_size"]
+    return total if seen else None
+
+
+def _first_difference(a: list, b: list, block_sizes) -> str:
+    """Where two requests' ids first differ: the token, and the step inside
+    the decode block that drew it when blocks run the largest size."""
+    for r, (x, y) in enumerate(zip(a, b)):
+        for t, (u, v) in enumerate(zip(x, y)):
+            if u != v:
+                where = "the admission" if t == 0 else \
+                    f"decode step {(t - 1) % max(block_sizes)} of a block"
+                return f"request {r} token {t} ({where}): graph {u}, eager {v}"
+    return "lengths differ"
+
+
+def phase_graphs(label: str, cfg, params, **kw) -> dict:
+    """The same PAGED_PROMPTS requests (half greedy, half seeded top-p)
+    served twice on fresh engines: once as the engine runs them (every
+    decode block a CUDA graph: warmup() captures every shape, serving
+    replays), and once with the engine's graph step swapped for a direct
+    call of the eager block body. Ids and kernel launch counts must be
+    identical."""
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig
+    from localai_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    runs = {}
+    for mode in ("graph", "eager"):
+        eng = Engine(cfg, params, ByteTokenizer(cfg.vocab_size), device="cuda",
+                     engine_cfg=EngineConfig(**PAGED_ENGINE, **kw))
+        with contextlib.ExitStack() as stack:
+            if mode == "eager":
+                stack.enter_context(swapped(eng, "_decode_block", eng._block_body))
+            t0 = time.monotonic()
+            eng.warmup()
+            warm_s = time.monotonic() - t0
+            m = eng.metrics()
+            pool = None if eng._graph_pool is None else _graph_pool_bytes(eng._graph_pool)
+            out = _serve(eng, PAGED_PROMPTS, keep_ids=True)
+        out.update(warmup_s=warm_s, graphs=int(m["decode_graphs"]),
+                   capture_s=m["decode_graph_capture_s"], graph_pool_bytes=pool)
+        runs[mode] = out
+        del eng
+        torch.cuda.empty_cache()
+    g, e = runs["graph"], runs["eager"]
+    summary = {
+        "graphs": g["graphs"], "capture_s": g["capture_s"], "warmup_s": g["warmup_s"],
+        "eager_warmup_s": e["warmup_s"], "graph_pool_bytes": g["graph_pool_bytes"],
+        "decode_tok_s": {"graph": g["decode_tok_s"], "eager": e["decode_tok_s"]},
+        "decode_ms_per_step": {"graph": g["decode_ms_per_step"],
+                               "eager": e["decode_ms_per_step"]},
+        "decode_steps": {"graph": g["decode_steps"], "eager": e["decode_steps"]},
+        "ids_equal": g["ids"] == e["ids"], "launches_equal": g["launches"] == e["launches"],
+        "launches": g["launches"],
+    }
+    log(f"[graphs {label}] " + json.dumps(summary))
+    check(g["ids"] == e["ids"], f"graphs {label}: graph ids differ from the eager body's: "
+                                + _first_difference(g["ids"], e["ids"],
+                                                    PAGED_ENGINE["block_sizes"]))
+    check(g["launches"] == e["launches"],
+          f"graphs {label}: launches {g['launches']} with graphs, {e['launches']} eager")
+    # Warmup captured every shape: serving only replays.
+    check(g["graphs"] == 3 * len(PAGED_ENGINE["block_sizes"]) and g["decode_graph_captures"] == 0
+          and g["decode_graph_replays"] == g["decode_blocks"],
+          f"graphs {label}: {g['graphs']} graphs after warmup, {g['decode_graph_captures']} "
+          f"captured while serving, {g['decode_graph_replays']} replays of "
+          f"{g['decode_blocks']} blocks")
+    check(e["graphs"] == 0 and e["decode_graph_replays"] == 0,
+          f"graphs {label}: the eager run replayed graphs")
+    for out in runs.values():
+        del out["ids"]
+    return {"summary": summary, **runs}
 
 
 # --------------------------------------------------------------------------- #
@@ -1571,6 +1694,8 @@ def phase_lora_http() -> dict:
             check(launches == steps * L * 4 and launches > 0,
                   f"lora_http: {launches} B5 launches != {steps} decode steps x {L} layers x 4")
             check(texts[0] != texts[8], "lora_http: tenant0's greedy output equals the base's")
+            _check_graphs("lora_http", {k: int(m1[k] - m0[k]) for k in (
+                "decode_blocks", "decode_graph_captures", "decode_graph_replays")})
             refs = [int(r) for r in eng._adapter_refs]
             check(not any(refs), f"lora_http: adapter pins left at the end: {refs}")
             dt_s = eng._decode_time - dt0
@@ -1661,6 +1786,7 @@ def phase_lora_8b(qmodel: dict, small, p_small, p_small_cpu) -> dict:
         del eng
     log("[lora_8b llama-3-8b int8, 4 tenants] " + json.dumps(out))
     _check_quant_launches("lora_8b", L, out, chunks=(2, 2 + 6))
+    _check_graphs("lora_8b", out)
     n = out["launches"]
     # q / v share x (one launch), o and down one each: 3 launches a layer.
     check(n["lora_bgmv"] == out["decode_steps"] * L * 3 and n["lora_bgmv"] > 0,
@@ -1706,9 +1832,9 @@ def main() -> None:
     t_start = time.monotonic()
     seconds = {}
 
-    def timed(label, fn, *args):
+    def timed(label, fn, *args, **kw):
         t0 = time.monotonic()
-        out = fn(*args)
+        out = fn(*args, **kw)
         seconds[label] = round(time.monotonic() - t0, 1)
         log(f"[phase {label}] {seconds[label]}s")
         return out
@@ -1723,16 +1849,22 @@ def main() -> None:
     dense = timed("engine", phase_engine, model["cfg"], model["params"])
     paged = timed("paged_engine", phase_paged_engine, model["cfg"], model["params"],
                   model["small"], model["p_small"])
+    graphs_1b = timed("graphs_1b", phase_graphs, "llama-3.2-1b paged, 8 layers",
+                      model["cfg"], model["params"])
     del model["params"]
     torch.cuda.empty_cache()
     qmodel = timed("quant_model", phase_quant_model, gen)
     qruns = timed("quant_engines", phase_quant_engines, qmodel, model["small"],
                   model["p_small"], model["p_small_cpu"])
+    graphs_8b = timed("graphs_8b", phase_graphs, "llama-3-8b int4 + fp8 paged", qmodel["cfg"],
+                      qmodel["int4"], kv_cache_dtype="fp8", kv_scale=2.0)
     lora_rows, lora_groups = timed("lora_kernels", phase_lora_kernels, gen)
     lora_http = timed("lora_http", phase_lora_http)
     lora_8b = timed("lora_8b", phase_lora_8b, qmodel, model["small"], model["p_small"],
                     model["p_small_cpu"])
-    runs = {"dense_engine": dense, "paged_engine": paged, **qruns, "lora_8b_int8": lora_8b}
+    runs = {"dense_engine": dense, "paged_engine": paged, **qruns, "lora_8b_int8": lora_8b,
+            "graphs_1b": graphs_1b["graph"], "graphs_1b_eager": graphs_1b["eager"],
+            "graphs_8b": graphs_8b["graph"], "graphs_8b_eager": graphs_8b["eager"]}
     by_path = {k: {path: out["launches"][k] for path, out in runs.items()}
                for k in ("flash_prefill", "paged_attention", "quant_matmul", "quant_unembed",
                          "lora_bgmv")}

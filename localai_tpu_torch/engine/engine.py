@@ -10,7 +10,12 @@ number of KV-cache slots by one loop thread ("engine-loop"):
 - Decode runs in N-step blocks: the sampled tokens stay on the device
   from step to step, the block's KV rows ride a block-local window that is
   written to the cache once at the end, and the block's tokens come back
-  to the host in ONE device-to-host copy.
+  to the host in ONE device-to-host copy. The block body reads and writes
+  only persistent device buffers; on the card it runs as one CUDA graph
+  per shape (sampler variant, block size, dense read window or paged,
+  LoRA stacks), captured at the shape's first block or by `warmup()` and
+  replayed from then on (the reference's jitted block cache). On the CPU
+  the body runs eagerly.
 - Each block picks the cheapest sampler its active slots allow: greedy,
   simple (unfiltered categorical) or filtered (top-k / top-p / min-p).
 - With `kv_pages > 0` the cache is one shared page pool: device memory
@@ -45,14 +50,19 @@ number of KV-cache slots by one loop thread ("engine-loop"):
   request ends with exactly one terminal event (done or error) on every
   exit path: finish, cancel, stop(), a failed dispatch, loop death.
 
-Each slot samples from its own torch.Generator, seeded from the request's
-seed (or from the OS when it has none), so a seeded request gives the same
-bytes whatever else shares the batch.
+Sampling noise is a pure function of the slot's seed (the request's, or
+one drawn from the OS when it has none), kept on the device, and of the
+position of the token being drawn (ops/sampling.gumbel_noise). A seeded
+request therefore gives the same bytes whatever else shares the batch,
+whatever the block size, chunking or preemption, and a block holds no
+generator state, so it can be captured. The reference's threefry streams
+are not reproduced.
 
-Not ported yet (ROADMAP Queue A): pipelined dispatch and CUDA graphs,
-the prefix cache, the host swap tier (preemption always recomputes),
-hierarchical page tables, chunked prefill over a dense cache, grammar,
-logprobs, speculative decoding, fork / n>1, tp, deadlines.
+Not ported yet (ROADMAP Queue A): CUDA graphs of admission and prefill
+chunks and pipelined dispatch, the prefix cache, the host swap tier
+(preemption always recomputes), hierarchical page tables, chunked prefill
+over a dense cache, grammar, logprobs, speculative decoding, fork / n>1,
+tp, deadlines.
 """
 
 from __future__ import annotations
@@ -69,6 +79,7 @@ from typing import Any, Iterator, Optional
 import numpy as np
 import torch
 
+from localai_tpu_torch import kernels
 from localai_tpu_torch.device import resolve_device
 from localai_tpu_torch.engine.weights import load_lora_factors, lora_target_dims
 from localai_tpu_torch.models import llama
@@ -132,8 +143,8 @@ class EngineConfig:
     max_slots: int = 8
     max_seq: int = 2048
     min_prefill_bucket: int = 32
-    # Seeds the idle slots' generators (a slot takes its request's seed at
-    # admission).
+    # Seeds of the idle slots' sampling noise (a slot takes its request's
+    # seed at admission).
     base_seed: int = 0
     # Decode-block sizes the scheduler chooses from: bigger blocks amortize
     # the per-block host work, smaller ones bound end-of-request overshoot.
@@ -207,7 +218,7 @@ class GenRequest:
     adapter: Optional[str] = None
     # Set by the engine on a request it requeued after preempting it: what
     # the re-admitted slot restores (generated tokens, streamed text, the
-    # sampler's generator state). Callers leave it None.
+    # sampling seed). Callers leave it None.
     resume: Optional[dict] = None
 
 
@@ -337,7 +348,10 @@ class Engine:
         self.bias = torch.zeros((B, V), dtype=torch.float32, device=dev)
         self.d_tokens = torch.zeros((B,), dtype=torch.int64, device=dev)
         self.d_positions = torch.zeros((B,), dtype=torch.int64, device=dev)
-        self.generators = [self._generator(ecfg.base_seed + i) for i in range(B)]
+        # Each slot's sampling seed (a draw's noise is a pure function of
+        # the seed and the drawn token's position) and its host mirror.
+        self.d_seed = torch.arange(B, dtype=torch.int64, device=dev) + ecfg.base_seed
+        self.h_seed = np.arange(B, dtype=np.int64) + ecfg.base_seed
         # Host state (loop thread only).
         self.slots: list[Optional[_Slot]] = [None] * B
         self.h_active = np.zeros((B,), bool)
@@ -380,6 +394,32 @@ class Engine:
         self._lora_keys: tuple = ()
         self._lora_rank = 0
         self.h_adapter = np.zeros((B,), np.int32)
+        # The decode block's operands and result live in fixed device
+        # buffers, so a captured graph of the block body replays on them:
+        # the control pack [8, B] (the active row, then _SAMPLING_FIELDS),
+        # the page table [B, MP], the adapter rows [B] and the sampled ids
+        # [n, B]. Each block copies its host rows in from pinned staging
+        # tensors (loop thread only).
+        pin = dev.type == "cuda"
+        MP = self.h_ptable.shape[1]
+        self._h_pack = torch.zeros((1 + len(_SAMPLING_FIELDS), B), dtype=torch.float32,
+                                   pin_memory=pin)
+        self._h_ptable = torch.zeros((B, MP), dtype=torch.int32, pin_memory=pin)
+        self._h_adapter = torch.zeros((B,), dtype=torch.int32, pin_memory=pin)
+        self._b_pack = torch.zeros(self._h_pack.shape, dtype=torch.float32, device=dev)
+        self._b_ptable = torch.full((B, MP), self._scratch_page, dtype=torch.int32, device=dev)
+        self._b_adapter = torch.zeros((B,), dtype=torch.int32, device=dev)
+        self._b_out = torch.zeros((max(ecfg.block_sizes), B), dtype=torch.int64, device=dev)
+        # CUDA graphs of the block body (_block_key -> (graph, launch counts
+        # of one replay, the kernel workspaces it captured)), all in one
+        # memory pool while any of them lives: blocks replay one at a time
+        # on one stream.
+        self._graph_cache: dict[tuple, tuple] = {}
+        self._graph_pool = None
+        self._graph_stream = None
+        self.m_graph_captures = 0
+        self.m_graph_replays = 0
+        self.m_graph_capture_s = 0.0
         self.m_adapter_fetches = 0
         self.m_adapter_promotes = 0
         self.m_adapter_evictions = 0
@@ -425,12 +465,8 @@ class Engine:
         elif C:
             raise NotImplementedError(
                 "prefill_chunk > 0 with a dense cache needs prefill_tail, which is not "
-                "ported yet (ROADMAP Queue A items 3 and 7); use kv_pages > 0")
-
-    def _generator(self, seed: int) -> torch.Generator:
-        g = torch.Generator(device=self.device)
-        g.manual_seed(int(seed))
-        return g
+                "ported yet (ROADMAP Queue A item 3, main-path engine completeness); use "
+                "kv_pages > 0")
 
     # ------------------------------------------------------------------ #
     # Public surface
@@ -532,6 +568,10 @@ class Engine:
             "kv_pages_grown": float(self.m_kv_pages_grown),
             "kv_preemptions": float(self.m_kv_preemptions),
             "weight_bytes": float(self._weight_bytes()),
+            "decode_graphs": float(len(self._graph_cache)),
+            "decode_graph_captures": float(self.m_graph_captures),
+            "decode_graph_replays": float(self.m_graph_replays),
+            "decode_graph_capture_s": float(self.m_graph_capture_s),
             "admit_wait_ms": float(self._admit_wait_ewma * 1000.0),
             "loop_dead": 1.0 if self._loop_dead is not None else 0.0,
         }
@@ -714,30 +754,31 @@ class Engine:
 
     def _request_controls(self, group):
         """Host-side sampling rows [7, m], logit-bias rows [m, V] and one
-        generator per request; a preempted request continues its saved
-        generator state."""
+        sampling seed per request [m] int64; a preempted request keeps the
+        seed it had."""
         m, V = len(group), self.cfg.vocab_size
         samp = np.zeros((len(_SAMPLING_FIELDS), m), np.float32)
         bias_rows = np.zeros((m, V), np.float32)
-        gens = []
+        seeds = np.zeros((m,), np.int64)
         for j, (r, _h) in enumerate(group):
             for fi, k in enumerate(_SAMPLING_FIELDS):
                 samp[fi, j] = getattr(r, k)
             for tid, bval in r.logit_bias.items():
                 if 0 <= int(tid) < V:
                     bias_rows[j, int(tid)] = bval
-            # Unseeded requests draw a random seed (reference default -1).
-            g = self._generator(r.seed & 0x7FFFFFFF if r.seed is not None
-                                else int.from_bytes(os.urandom(4), "little") & 0x7FFFFFFF)
             if r.resume is not None:
-                g.set_state(r.resume["gen_state"])
-            gens.append(g)
-        return samp, bias_rows, gens
+                seeds[j] = r.resume["seed"]
+            elif r.seed is not None:
+                seeds[j] = r.seed & 0x7FFFFFFF
+            else:  # unseeded requests draw a random seed (reference default -1)
+                seeds[j] = int.from_bytes(os.urandom(4), "little") & 0x7FFFFFFF
+        return samp, bias_rows, seeds
 
-    def _install_first(self, logits, prompt, lens, samp, bias_rows, gens, slot_ids):
-        """Sample each admitted prompt's first token and install the slots'
-        device state: penalty counts (prompt + first token), bias row, the
-        token and its position. prompt [m, S] right-padded to lens [m].
+    def _install_first(self, logits, prompt, lens, samp, bias_rows, seeds, slot_ids):
+        """Sample each admitted prompt's first token (its noise keyed by the
+        token's position, lens) and install the slots' device state:
+        penalty counts (prompt + first token), bias row, the token, its
+        position and the seed. prompt [m, S] right-padded to lens [m].
         Returns the first tokens [m] on the device."""
         m, V = prompt.shape[0], self.cfg.vocab_size
         dev = self.device
@@ -751,22 +792,23 @@ class Engine:
         if tok_v < V:
             bias_rows[:, tok_v:] = NEG_INF
         sp = _sampling_params(torch.from_numpy(samp).to(dev))
-        toks = sample(logits, [g if t > 0 else None for g, t in zip(gens, samp[0])],
-                      sp, rows, bias_rows)
+        d_seeds = torch.from_numpy(seeds).to(dev)
+        toks = sample(logits, d_seeds, lens, sp, rows, bias_rows)
         rows[torch.arange(m, device=dev), toks] += 1
         sl = torch.as_tensor(slot_ids, dtype=torch.int64, device=dev)
         self.counts[sl] = rows
         self.bias[sl] = bias_rows
         self.d_tokens[sl] = toks
         self.d_positions[sl] = lens
+        self.d_seed[sl] = d_seeds
         return toks
 
     def _claim_slot(self, s: int, request: GenRequest, handle: RequestHandle,
-                    generator: torch.Generator, t_admit: float) -> None:
+                    seed: int, t_admit: float) -> None:
         """Host state of a freshly admitted slot (after its admission ran)."""
         for k in _SAMPLING_FIELDS:
             self.h_sampling[k][s] = getattr(request, k)
-        self.generators[s] = generator
+        self.h_seed[s] = seed
         n = len(request.prompt_ids)
         self.slots[s] = _Slot(request=request, handle=handle, prompt_len=n, scheduled=1,
                               sched_rows=n, t_submit=handle.t_submit, t_admit=t_admit)
@@ -810,7 +852,7 @@ class Engine:
         for j, (r, _h) in enumerate(group):
             prompt[j, : len(r.prompt_ids)] = r.prompt_ids
             lens[j] = len(r.prompt_ids)
-        samp, bias_rows, gens = self._request_controls(group)
+        samp, bias_rows, seeds = self._request_controls(group)
         dev = self.device
         table_rows = None
         if self._paged:
@@ -835,7 +877,8 @@ class Engine:
                                                 kv_scale=self._kv_scales)
                 else:
                     llama.write_prefill_to_cache(self.cache, ks[:, j:j + 1], vs[:, j:j + 1], s)
-            toks = self._install_first(logits, d_prompt, d_lens, samp, bias_rows, gens, slot_ids)
+            toks = self._install_first(logits, d_prompt, d_lens, samp, bias_rows, seeds,
+                                       slot_ids)
             toks_host = toks.tolist()  # the admission's one device-to-host copy
         except Exception:
             if self._paged:
@@ -846,7 +889,7 @@ class Engine:
         # Claim the slots only after a successful admission, so a failed
         # one leaves no slot state behind.
         for j, ((r, handle), s) in enumerate(zip(group, slot_ids)):
-            self._claim_slot(s, r, handle, gens[j], t0)
+            self._claim_slot(s, r, handle, int(seeds[j]), t0)
             # The pin passes to the slot; _release drops it from here on.
             self.h_adapter[s], adapter_rows[j] = adapter_rows[j], 0
         for j, s in enumerate(slot_ids):
@@ -879,15 +922,14 @@ class Engine:
         return sizes[-1]
 
     def _run_block(self) -> bool:
-        """One n-step decode block: grow the pages it writes, dispatch, one
-        host copy, then stream. Returns False, having dispatched nothing,
-        when the page pool cannot cover the block's growth."""
+        """One n-step decode block: grow the pages it writes, stage the
+        control rows, run the body (a graph replay on the card), one host
+        copy, then stream. Returns False, having dispatched nothing, when
+        the page pool cannot cover the block's growth."""
         n = self._pick_block_size()
         if not self._grow_for_decode(n):
             return False
         t0 = time.monotonic()
-        cfg, B, S = self.cfg, self.ecfg.max_slots, self.ecfg.max_seq
-        dev = self.device
         act = self.h_active.copy()
         hs = self.h_sampling
         idx = np.flatnonzero(act)
@@ -895,66 +937,20 @@ class Engine:
         needs_filter = bool(np.any(sampled & (
             (hs["top_k"][idx] > 0) | (hs["top_p"][idx] < 1) | (hs["min_p"][idx] > 0))))
         variant = "filtered" if needs_filter else ("simple" if sampled.any() else "greedy")
-        ptable = None
-        read_cache = self.cache
-        if self._paged:
-            # Each slot walks its own pages, bounded by its own position.
-            ptable = torch.from_numpy(self.h_ptable).to(dev)
-        else:
+        win = 0
+        if not self._paged:
             # Read-side KV window: the smallest power of two (>= 256)
             # covering every active slot's pre-block rows; the cache holds
             # nothing the block reads past it, so attention streams less.
+            S = self.ecfg.max_seq
             maxpos = max(self.slots[i].prompt_len + self.slots[i].scheduled for i in idx)
             win = self._KV_WIN_MIN
             while win < min(maxpos, S):
                 win *= 2
-            if win < S:
-                read_cache = llama.KVCache(k=self.cache.k[:, :, :win], v=self.cache.v[:, :, :win])
-
-        pack = np.stack([act.astype(np.float32)] + [hs[k] for k in _SAMPLING_FIELDS])
-        d_pack = torch.from_numpy(pack).to(dev)  # the block's control rows, one copy
-        active = d_pack[0] > 0
-        act_i32 = active.to(torch.int32)
-        sp = _sampling_params(d_pack[1:])
-        gens = [self.generators[i] if act[i] and hs["temperature"][i] > 0 else None
-                for i in range(B)]
-        shape = (cfg.num_layers, B, n, cfg.num_kv_heads, cfg.head_dim_)
-        local_k = torch.zeros(shape, dtype=self._local_dtype, device=dev)
-        local_v = torch.zeros(shape, dtype=self._local_dtype, device=dev)
-        tokens, positions = self.d_tokens, self.d_positions
-        if self._paged:
-            # Idle slots walk no pages (limit 0) and write into SCRATCH.
-            positions = torch.where(active, positions, 0)
-        start_pos = positions
-        out = torch.empty((n, B), dtype=torch.int64, device=dev)
-        # Every slot's adapter row (0 for adapter-less and idle slots), one
-        # copy per block; once any adapter is resident every block carries it.
-        lora = None
-        if self._lora_tree is not None:
-            lora = (self._lora_tree, torch.from_numpy(self.h_adapter.copy()).to(dev))
-        for step in range(n):
-            logits, local_k, local_v = llama.decode_step_windowed(
-                cfg, self.params, tokens, positions, read_cache, local_k, local_v, step,
-                ptable=ptable, kv_scale=self._kv_scales, lora=lora)
-            if variant == "greedy":
-                nxt = sample_greedy(logits, sp, self.counts, self.bias)
-            elif variant == "simple":
-                nxt = sample_simple(logits, gens, sp, self.counts, self.bias)
-            else:
-                nxt = sample(logits, gens, sp, self.counts, self.bias)
-            update_counts(self.counts, nxt, act_i32)
-            nxt = torch.where(active, nxt, 0)
-            out[step] = nxt
-            # Clamp so idle / overshooting slots stay inside their own rows.
-            positions = torch.clamp(positions + 1, max=S - 1)
-            tokens = nxt
-        if self._paged:
-            llama.write_block_to_pool(self.cache, ptable, local_k, local_v, start_pos,
-                                      kv_scale=self._kv_scales)
-        else:
-            llama.write_block_to_cache(self.cache, local_k, local_v, start_pos)
-        self.d_tokens, self.d_positions = tokens, positions
-        toks = out.cpu().numpy()  # the block's one device-to-host copy
+            win = min(win, S)
+        self._stage_block(act)
+        self._decode_block(n, variant, win)
+        toks = self._b_out[:n].cpu().numpy()  # the block's one device-to-host copy
         self.m_blocks += 1
         self.m_decode_steps += n
         for i in idx:
@@ -970,6 +966,216 @@ class Engine:
         self._decode_tokens += consumed
         self._decode_time += time.monotonic() - t0
         return True
+
+    def _stage_block(self, act: np.ndarray) -> None:
+        """Copy a block's host control rows into the body's device buffers,
+        in place, from pinned memory: the active row and the sampling
+        fields, the page table, the adapter rows. The previous block's
+        copies are done: each block ends with a host read of its ids."""
+        pack = self._h_pack.numpy()
+        pack[0] = act
+        for fi, k in enumerate(_SAMPLING_FIELDS):
+            pack[fi + 1] = self.h_sampling[k]
+        self._b_pack.copy_(self._h_pack, non_blocking=True)
+        if self._paged:
+            self._h_ptable.numpy()[:] = self.h_ptable
+            self._b_ptable.copy_(self._h_ptable, non_blocking=True)
+        if self._lora_tree is not None:
+            self._h_adapter.numpy()[:] = self.h_adapter
+            self._b_adapter.copy_(self._h_adapter, non_blocking=True)
+
+    def _block_key(self, n: int, variant: str, win: int) -> tuple:
+        """What fixes a block's graph (the reference's block-cache key):
+        the sampler variant, n, the dense read window (0 on a paged pool)
+        and, once adapters are resident, the stacks' (keys, rows, rank)."""
+        lora = None
+        if self._lora_tree is not None:
+            rows = next(iter(self._lora_tree.values()))["a"].shape[1]
+            lora = (self._lora_keys, rows, self._lora_rank)
+        return (variant, n, win, lora)
+
+    def _decode_block(self, n: int, variant: str, win: int) -> None:
+        """Run the block body on the staged buffers: eagerly on the CPU; on
+        the card as the CUDA graph of its shape, captured at the shape's
+        first block and replayed from then on. A failed capture or replay
+        raises (the loop fails the block's requests)."""
+        if self.device.type != "cuda":
+            self._block_body(n, variant, win)
+            return
+        key = self._block_key(n, variant, win)
+        entry = self._graph_cache.get(key)
+        if entry is None:
+            self._capture_block(key, n, variant, win)
+        else:
+            kernels.replay_counted(entry[0], entry[1])
+            self.m_graph_replays += 1
+
+    def _capture_block(self, key: tuple, n: int, variant: str, win: int) -> None:
+        """A shape's first block on the card. The body runs eagerly on the
+        capture stream first: that run is the real block, and it does what
+        must not happen inside a capture (loading the kernel libraries,
+        creating cuBLAS handles and the stream's workspace, setting kernel
+        attributes, growing the split workspaces to this shape). Then the
+        body is captured, which executes nothing. The graph keeps the
+        workspaces it captured alive, and the replays add the launches its
+        wrappers counted during the capture."""
+        t0 = time.monotonic()
+        if self._graph_stream is None:
+            self._graph_stream = torch.cuda.Stream(self.device)
+        if not self._graph_cache:
+            # A pool lives while a graph captured into it does: once the
+            # last one is dropped (_lora_rebuild), captures need a new pool.
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        stream = self._graph_stream
+        current = torch.cuda.current_stream(self.device)
+        stream.wait_stream(current)
+        graph = torch.cuda.CUDAGraph()
+
+        def capture() -> None:
+            graph.capture_begin(pool=self._graph_pool, capture_error_mode="thread_local")
+            try:
+                self._block_body(n, variant, win)
+            finally:
+                graph.capture_end()
+
+        with torch.cuda.stream(stream):
+            self._block_body(n, variant, win)
+            torch.cuda.synchronize(self.device)  # as torch.cuda.graph does before a capture
+            deltas = kernels.captured_counts(capture)
+        current.wait_stream(stream)
+        self._graph_cache[key] = (graph, deltas, kernels.live_workspaces())
+        self.m_graph_captures += 1
+        self.m_graph_capture_s += time.monotonic() - t0
+
+    def _block_body(self, n: int, variant: str, win: int) -> None:
+        """n decode steps over every slot, on persistent device buffers
+        only: it reads the staged controls (_b_pack, _b_ptable, _b_adapter),
+        the tokens, positions and seeds, counts, bias, the cache and the
+        params, and writes the counts, the cache (once, at the end), the
+        tokens and positions (in place) and the ids (_b_out[:n]). Idle
+        slots are masked; on a paged pool they walk no pages (limit 0) and
+        write into SCRATCH. `win` < max_seq reads a dense cache through
+        that window. No host sync."""
+        cfg, B, S = self.cfg, self.ecfg.max_slots, self.ecfg.max_seq
+        dev = self.device
+        active = self._b_pack[0] > 0
+        act_i32 = active.to(torch.int32)
+        sp = _sampling_params(self._b_pack[1:])
+        ptable = None
+        read_cache = self.cache
+        if self._paged:
+            ptable = self._b_ptable
+        elif win < S:
+            read_cache = llama.KVCache(k=self.cache.k[:, :, :win], v=self.cache.v[:, :, :win])
+        shape = (cfg.num_layers, B, n, cfg.num_kv_heads, cfg.head_dim_)
+        local_k = torch.zeros(shape, dtype=self._local_dtype, device=dev)
+        local_v = torch.zeros(shape, dtype=self._local_dtype, device=dev)
+        tokens, positions = self.d_tokens, self.d_positions
+        if self._paged:
+            positions = torch.where(active, positions, 0)
+        start_pos = positions
+        lora = None if self._lora_tree is None else (self._lora_tree, self._b_adapter)
+        for step in range(n):
+            logits, local_k, local_v = llama.decode_step_windowed(
+                cfg, self.params, tokens, positions, read_cache, local_k, local_v, step,
+                ptable=ptable, kv_scale=self._kv_scales, lora=lora)
+            # The drawn token sits at positions + 1: its noise is keyed there.
+            if variant == "greedy":
+                nxt = sample_greedy(logits, sp, self.counts, self.bias)
+            elif variant == "simple":
+                nxt = sample_simple(logits, self.d_seed, positions + 1, sp, self.counts,
+                                    self.bias)
+            else:
+                nxt = sample(logits, self.d_seed, positions + 1, sp, self.counts, self.bias)
+            update_counts(self.counts, nxt, act_i32)
+            nxt = torch.where(active, nxt, 0)
+            self._b_out[step] = nxt
+            # Clamp so idle / overshooting slots stay inside their own rows.
+            positions = torch.clamp(positions + 1, max=S - 1)
+            tokens = nxt
+        if self._paged:
+            llama.write_block_to_pool(self.cache, ptable, local_k, local_v, start_pos,
+                                      kv_scale=self._kv_scales)
+        else:
+            llama.write_block_to_cache(self.cache, local_k, local_v, start_pos)
+        self.d_tokens.copy_(tokens)
+        self.d_positions.copy_(positions)
+
+    # ------------------------------------------------------------------ #
+    # Warmup (the reference's Engine.warmup)
+    # ------------------------------------------------------------------ #
+
+    def warmup(self, prompt_len: int = 8) -> None:
+        """Run every serving shape once before traffic arrives: one
+        admission of each power-of-two group size up to max_slots at
+        `prompt_len`'s bucket, then every decode-block shape the scheduler
+        can pick (each of block_sizes x the three sampler variants, and on
+        a dense cache every read window at block_sizes[0]), so on the card
+        every block graph is captured here and serving only replays. Then
+        one 2-token generate through the loop.
+
+        Runs against the live state with every slot idle (call it before
+        traffic): throwaway writes land in idle rows or SCRATCH, and the
+        per-slot device rows (counts, bias, tokens, positions, seeds) are
+        put back as they were. The reference's grammar and logprobs
+        programs wait for their ports."""
+        if any(s is not None for s in self.slots) or self._pending:
+            raise RuntimeError("warmup() needs an idle engine: call it before traffic")
+        state = (self.counts, self.bias, self.d_tokens, self.d_positions, self.d_seed)
+        saved = [t.clone() for t in state]
+        bucket = self._bucket_for(prompt_len)
+        m = 1
+        while m <= self.ecfg.max_slots:
+            self._warm_admit(m, bucket)
+            m *= 2
+        S = self.ecfg.max_seq
+        variants = ("greedy", "simple", "filtered")
+        for n in self.ecfg.block_sizes:
+            for variant in variants:
+                self._warm_block(n, variant, 0 if self._paged else S)
+        if not self._paged:
+            w = self._KV_WIN_MIN
+            while w < S:
+                for variant in variants:
+                    self._warm_block(self.ecfg.block_sizes[0], variant, w)
+                w *= 2
+        _, ev = self.generate([1] * prompt_len, max_new_tokens=2)
+        if ev.kind != "done":
+            raise RuntimeError(f"warmup generate ended with {ev.kind}: {ev.error}")
+        for t, old in zip(state, saved):
+            t.copy_(old)
+
+    def _warm_admit(self, m: int, bucket: int) -> None:
+        """One throwaway admission of m one-token prompts into slots
+        0..m-1: KV into those idle rows (dense) or SCRATCH (paged)."""
+        dev = self.device
+        prompt = torch.zeros((m, bucket), dtype=torch.int64, device=dev)
+        lens = torch.ones((m,), dtype=torch.int64, device=dev)
+        lora = None
+        if self._lora_tree is not None:
+            lora = (self._lora_tree, torch.zeros((m,), dtype=torch.int32, device=dev))
+        logits, ks, vs = llama.prefill(self.cfg, self.params, prompt, lens, lora=lora)
+        scratch = torch.full((max(self._max_pages, 1),), self._scratch_page, dtype=torch.int32,
+                             device=dev)
+        for j in range(m):
+            if self._paged:
+                llama.write_prefill_to_pool(self.cache, scratch, ks, vs, j,
+                                            kv_scale=self._kv_scales)
+            else:
+                llama.write_prefill_to_cache(self.cache, ks[:, j:j + 1], vs[:, j:j + 1], j)
+        samp = np.zeros((len(_SAMPLING_FIELDS), m), np.float32)
+        samp[_SAMPLING_FIELDS.index("top_p")] = 1.0
+        samp[_SAMPLING_FIELDS.index("repeat_penalty")] = 1.0
+        toks = self._install_first(logits, prompt, lens, samp,
+                                   np.zeros((m, self.cfg.vocab_size), np.float32),
+                                   np.zeros((m,), np.int64), list(range(m)))
+        toks.cpu()
+
+    def _warm_block(self, n: int, variant: str, win: int) -> None:
+        """One decode block of this shape with every slot idle."""
+        self._stage_block(np.zeros_like(self.h_active))
+        self._decode_block(n, variant, win)
+        self._b_out[:n].cpu()
 
     # ------------------------------------------------------------------ #
     # Paged KV pool: page allocator (loop thread only)
@@ -1194,16 +1400,16 @@ class Engine:
         request, handle, s = st["request"], st["handle"], st["slot"]
         ids = st["ids"]
         logits = self._dispatch_chunk(st, len(ids) - st["offset"], with_logits=True)
-        samp, bias_rows, gens = self._request_controls([(request, handle)])
+        samp, bias_rows, seeds = self._request_controls([(request, handle)])
         dev = self.device
         full = torch.as_tensor(np.asarray([ids], np.int64)).to(dev)
         toks = self._install_first(logits, full, torch.tensor([len(ids)], device=dev),
-                                   samp, bias_rows, gens, [s])
+                                   samp, bias_rows, seeds, [s])
         tok = int(toks.tolist()[0])  # the admission's one device-to-host copy
         # Publish the real table: blocks from here on read and write it.
         self.h_ptable[s] = st["table_row"]
         self.m_chunked_admits += 1
-        self._claim_slot(s, request, handle, gens[0], st["t0"])
+        self._claim_slot(s, request, handle, int(seeds[0]), st["t0"])
         self._post_first(s, tok)
 
     # ------------------------------------------------------------------ #
@@ -1230,7 +1436,7 @@ class Engine:
             "t_submit": slot.t_submit,
             "t_admit": slot.t_admit,
             "t_first": slot.t_first,
-            "gen_state": self.generators[victim].get_state(),
+            "seed": int(self.h_seed[victim]),
         }
         resume_req = dataclasses.replace(
             r, prompt_ids=list(r.prompt_ids) + list(slot.generated), resume=rec)
@@ -1440,6 +1646,8 @@ class Engine:
                 b[:, :ona, :orank, :] = o["b"]
             new_tree[key] = {"a": a, "b": b}
         self._lora_tree = new_tree
+        # Graphs that captured the old stacks would read freed memory.
+        self._graph_cache = {k: v for k, v in self._graph_cache.items() if k[3] is None}
         self._lora_keys = keys
         self._lora_rank = rank
         while len(self._adapter_rows) < na:

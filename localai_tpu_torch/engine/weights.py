@@ -22,9 +22,10 @@ into the weights (on the host before quantizing, in the loader's case).
 The factors and deltas are formed in numpy f32 in the JAX package's order,
 so both packages get the same bytes.
 
-Not ported yet: GGUF checkpoints (ROADMAP Queue A item 13), MoE and
-DeepSeek checkpoints (item 16), Phi-3's fused qkv / gate_up tensors in a
-checkpoint (item 3; in an adapter they split).
+Not ported yet: GGUF checkpoints (ROADMAP Queue A item 5, checkpoint
+formats), MoE and DeepSeek checkpoints (item 10, other decoder families),
+Phi-3's fused qkv / gate_up tensors in a checkpoint (item 5, checkpoint
+formats; in an adapter they split).
 """
 
 from __future__ import annotations
@@ -87,7 +88,8 @@ def params_from_numpy(cfg: ArchConfig, tree: Params, device=None) -> Params:
     check_supported(cfg)
     if "dense_layers" in tree or "router" in tree.get("layers", {}):
         raise NotImplementedError(
-            "mixture-of-experts trees are not ported yet (ROADMAP Queue A item 16)")
+            "mixture-of-experts trees are not ported yet (ROADMAP Queue A item 10, "
+            "other decoder families)")
     device = resolve_device(device)
     dt = torch_dtype(cfg.dtype)
 
@@ -211,7 +213,7 @@ def load_hf_checkpoint(cfg: ArchConfig, ckpt_dir: str, device=None,
     if any(isinstance(li, tuple) for per_layer in lora_deltas.values() for li in per_layer):
         raise NotImplementedError(
             "LoRA deltas for mixture-of-experts projections are not ported yet "
-            "(ROADMAP Queue A item 16)")
+            "(ROADMAP Queue A item 10, other decoder families)")
 
     def merge_lora(our: str, i: int, t: torch.Tensor) -> torch.Tensor:
         """Layer i's tensor plus its adapters' delta, added in f32 and
@@ -299,7 +301,8 @@ def arch_from_hf_config(ckpt_dir: str) -> ArchConfig:
     model_type = hf.get("model_type", "llama")
     if model_type in ("deepseek_v2", "deepseek_v3"):
         raise NotImplementedError(
-            "DeepSeek (MLA) configs are not ported yet (ROADMAP Queue A item 16)")
+            "DeepSeek (MLA) configs are not ported yet (ROADMAP Queue A item 10, "
+            "other decoder families)")
     rope_scaling = hf.get("rope_scaling") or {}
     scaling_type = rope_scaling.get("rope_type") or rope_scaling.get("type")
     if scaling_type == "su":

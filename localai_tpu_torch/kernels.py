@@ -52,6 +52,8 @@ LIBRARIES = {
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 _sm_counts: dict[int, int] = {}
+# Every workspace store `grow_workspace` has filled (ids of the dicts).
+_stores: dict[int, dict] = {}
 
 
 def nvcc_path() -> str:
@@ -143,6 +145,7 @@ def grow_workspace(store: dict, device, n_floats: int, n_counters: int):
     import torch
 
     idx = device.index if device.index is not None else torch.cuda.current_device()
+    _stores[id(store)] = store
     ws, cnt = store.get(idx, (None, None))
     if ws is None or ws.numel() < n_floats:
         ws = torch.empty(max(n_floats, 1), dtype=torch.float32, device=device)
@@ -160,3 +163,52 @@ def sm_count(device) -> int:
     if idx not in _sm_counts:
         _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
     return _sm_counts[idx]
+
+
+def live_workspaces() -> list:
+    """Every workspace and counter tensor the stores hold now. A CUDA graph
+    captures their addresses, so its owner keeps these alive: a later call
+    that grows a store replaces the tensor, and the graph must not write
+    into memory handed to someone else."""
+    return [t for store in _stores.values() for pair in store.values() for t in pair]
+
+
+def _counters() -> tuple:
+    """(holder, attribute) of every host-side launch counter on the decode
+    path: the five kernel wrappers' launches and the dequantize-then-matmul
+    routes' calls."""
+    from localai_tpu_torch.models import quant
+    from localai_tpu_torch.ops import flash, lora_matmul, paged_flash, quant_matmul
+
+    return ((flash.flash_prefill_attention, "launches"),
+            (paged_flash.paged_partials_rows, "launches"),
+            (quant_matmul.qmm, "launches"),
+            (quant_matmul.qunembed, "launches"),
+            (lora_matmul.lora_bgmv_group, "launches"),
+            (quant.matmul, "dequant_calls"),
+            (quant.unembed_matmul, "dequant_calls"))
+
+
+def _add_counts(deltas) -> None:
+    for (holder, attr), d in zip(_counters(), deltas):
+        setattr(holder, attr, getattr(holder, attr) + d)
+
+
+def captured_counts(capture) -> tuple:
+    """Run `capture()`, a CUDA graph capture: the wrappers it calls count
+    launches that did not happen. Take each counter's increase back off and
+    return the increases, which `replay_counted` adds on every replay."""
+    before = tuple(getattr(h, a) for h, a in _counters())
+    try:
+        capture()
+    finally:
+        deltas = tuple(getattr(h, a) - b for (h, a), b in zip(_counters(), before))
+        _add_counts(tuple(-d for d in deltas))
+    return deltas
+
+
+def replay_counted(graph, deltas) -> None:
+    """Replay a captured graph and count the launches it replays, as the
+    wrappers would have counted them."""
+    graph.replay()
+    _add_counts(deltas)

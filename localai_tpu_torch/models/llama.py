@@ -34,9 +34,10 @@
   sliding windows) chosen from ArchConfig.
 
 Not ported yet, and rejected with NotImplementedError: MoE and MLA layers
-(ROADMAP Queue A item 16), sequence-parallel ring attention and tp meshes
-(item 20), m-rope (item 19), and sink+window decode
-and hierarchical page tables (item 15).
+(ROADMAP Queue A item 10, other decoder families), sequence-parallel ring
+attention and tp meshes (item 14, multi-GPU), m-rope (item 13, satellite
+engines and models), and sink+window decode and hierarchical page tables
+(item 9, long context).
 
 The cache, the pool and the block-local windows are updated IN PLACE (the
 JAX package returns new arrays): that saves a full copy of each per call.
@@ -76,16 +77,19 @@ def check_supported(cfg: ArchConfig) -> None:
     """Raise for the architecture features this port does not serve yet."""
     if cfg.is_moe:
         raise NotImplementedError(
-            "mixture-of-experts layers are not ported yet (ROADMAP Queue A item 16)")
+            "mixture-of-experts layers are not ported yet (ROADMAP Queue A item 10, "
+            "other decoder families)")
     if cfg.is_mla:
         raise NotImplementedError(
-            "multi-head latent attention is not ported yet (ROADMAP Queue A item 16)")
+            "multi-head latent attention is not ported yet (ROADMAP Queue A item 10, "
+            "other decoder families)")
     if cfg.mrope_section:
         raise NotImplementedError(
-            "m-rope (Qwen2-VL) is not ported yet (ROADMAP Queue A item 19)")
+            "m-rope (Qwen2-VL) is not ported yet (ROADMAP Queue A item 13, satellite "
+            "engines and models)")
     if cfg.attention_window or cfg.attention_sink:
         raise NotImplementedError(
-            "sink+window decode is not ported yet (ROADMAP Queue A item 15)")
+            "sink+window decode is not ported yet (ROADMAP Queue A item 9, long context)")
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -322,7 +326,8 @@ def _mlp_out(cfg: ArchConfig, lp: Params, x: torch.Tensor, lora=None) -> torch.T
 def _check_params(params: Params) -> None:
     if "dense_layers" in params or "router" in params["layers"]:
         raise NotImplementedError(
-            "mixture-of-experts layers are not ported yet (ROADMAP Queue A item 16)")
+            "mixture-of-experts layers are not ported yet (ROADMAP Queue A item 10, "
+            "other decoder families)")
     for name, t in [*params["layers"].items(), ("lm_head", params.get("lm_head"))]:
         if isinstance(t, dict) and not is_quantized(t):
             raise ValueError(f"{name}: a dict leaf must be a quantized weight, got keys "

@@ -23,7 +23,8 @@ package's integers and scales bit for bit: the torch ones those of its
 compiled quantize_params, the numpy ones those of its numpy loader path.
 
 Not ported yet: GGUF ingestion (engine/gguf.py) and `init_params_quantized`
-(ROADMAP Queue A item 5), and the MoE forms (Queue A item 10).
+(ROADMAP Queue A item 5, checkpoint formats), and the MoE forms (Queue A
+item 10, other decoder families).
 """
 
 from __future__ import annotations

@@ -38,7 +38,7 @@ every call in order on one stream, which is what makes one workspace per
 device safe.
 
 Not ported yet: hierarchical tables and the sink/swin cold-middle skip
-(ROADMAP Queue A item 15).
+(ROADMAP Queue A item 9, long context).
 """
 
 from __future__ import annotations
@@ -146,10 +146,12 @@ def reject_unported(sink: int = 0, swin: int = 0, mesh=None) -> None:
     """Raise for the paged-attention features the port does not serve."""
     if sink or swin:
         raise NotImplementedError(
-            "sink+window paged attention is not ported yet (ROADMAP Queue A item 15)")
+            "sink+window paged attention is not ported yet (ROADMAP Queue A item 9, "
+            "long context)")
     if mesh is not None:
         raise NotImplementedError(
-            "tensor-parallel paged attention is not ported yet (ROADMAP Queue A item 20)")
+            "tensor-parallel paged attention is not ported yet (ROADMAP Queue A item 14, "
+            "multi-GPU)")
 
 
 def _window_of(window: int, sliding) -> int:

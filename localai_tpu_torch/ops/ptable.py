@@ -5,7 +5,7 @@ A FLAT table `table[..., MP] int32` maps a slot's page COLUMN j (rows
 [j·page, (j+1)·page) of its context) to a pool page id. The JAX package
 also has a hierarchical `(l1, l0)` layout for million-token slots; the port
 takes flat tables only and rejects the pair with NotImplementedError
-(ROADMAP Queue A item 15).
+(ROADMAP Queue A item 9, long context).
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ def _flat(table) -> torch.Tensor:
     if is_hier(table):
         raise NotImplementedError(
             "hierarchical (l1, l0) page tables are not ported yet "
-            "(ROADMAP Queue A item 15)")
+            "(ROADMAP Queue A item 9, long context)")
     return table
 
 

@@ -367,7 +367,7 @@ def dispatch_moe_mm(x, w: dict, sub: str):
     """The MoE variants of B3 come with the MoE port."""
     raise NotImplementedError(
         "quantized mixture-of-experts matmuls are not ported yet (ROADMAP Queue A item 10, "
-        "with Queue B part 1 item 3)")
+        "other decoder families, with Queue B part 1 item 3)")
 
 
 def dispatch_unembed(h: torch.Tensor, w: dict):

@@ -63,7 +63,7 @@ def rope_frequencies(cfg: ArchConfig, device=None) -> torch.Tensor:
         table = cfg.rope_long_factor if use_long else cfg.rope_short_factor
         if table is None:
             raise ValueError("rope_scaling 'longrope' requires long/short factor tables")
-        ext = torch.tensor(table, dtype=torch.float32, device=device)
+        ext = _factor_table(tuple(table), device)
         if ext.shape[0] != hd // 2:
             raise ValueError(
                 f"longrope factor table has {ext.shape[0]} entries, head_dim "
@@ -73,6 +73,19 @@ def rope_frequencies(cfg: ArchConfig, device=None) -> torch.Tensor:
     elif cfg.rope_scaling not in (None, ""):
         raise ValueError(f"unknown rope_scaling {cfg.rope_scaling!r}")
     return inv_freq
+
+
+# LongRoPE factor tables on their devices, made once: a decode block reads
+# them inside a CUDA graph capture, where a host-to-device copy may not run.
+_FACTOR_TABLES: dict[tuple, torch.Tensor] = {}
+
+
+def _factor_table(table: tuple, device) -> torch.Tensor:
+    key = (table, str(torch.device(device) if device is not None else "cpu"))
+    ext = _FACTOR_TABLES.get(key)
+    if ext is None:
+        ext = _FACTOR_TABLES[key] = torch.tensor(table, dtype=torch.float32, device=device)
+    return ext
 
 
 def rope_frequencies_local(cfg: ArchConfig, device=None) -> torch.Tensor | None:

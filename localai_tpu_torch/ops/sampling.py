@@ -5,18 +5,21 @@ call serves a batch of heterogeneous requests. The filter chain follows
 llama.cpp's order — top-k, then top-p, then min-p on the unscaled logits,
 temperature last — over a partial top-`num_candidates` candidate set.
 
-Randomness comes from one `torch.Generator` per row (None for rows that do
-not sample). Each sampled row draws one [V] vector of uniforms per call,
-whatever the variant, so a request's stream of random numbers depends only
-on its seed and its own step count, never on its neighbours in the batch
-or on which sampler variant the batch ran. A draw is a Gumbel-max over the
-tempered logits (categorical sampling without a sort); the filtered path
-uses the same noise at its candidates' vocabulary ids.
+Randomness is counter-based: the noise of row b at column v is a pure
+function of (seeds[b], positions[b], v), an integer hash computed with
+tensor ops (`gumbel_noise`). The engine keeps one seed per slot on the
+device and keys each draw by the position of the token being drawn, so a
+request's draws depend only on its seed and on each token's index in its
+sequence, never on its neighbours in the batch, the sampler variant, the
+block size, chunking or preemption; and a decode block that samples holds
+no host state and can be captured in a CUDA graph. A draw is a Gumbel-max
+over the tempered logits (categorical sampling without a sort); the
+filtered path uses the same noise at its candidates' vocabulary ids.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence
+from typing import NamedTuple
 
 import torch
 
@@ -95,18 +98,44 @@ def _filter_sorted(sorted_logits: torch.Tensor, params: SamplingParams) -> torch
     return torch.where(keep, sorted_logits, NEG_INF)
 
 
-def gumbel_noise(
-    generators: Sequence[Optional[torch.Generator]], vocab: int, device
-) -> torch.Tensor:
-    """[B, V] standard Gumbel noise, one [V] draw from each row's generator;
-    rows without a generator get zeros (they do not sample)."""
-    noise = torch.zeros((len(generators), vocab), dtype=torch.float32, device=device)
-    tiny = torch.finfo(torch.float32).tiny
-    for b, g in enumerate(generators):
-        if g is not None:
-            u = torch.rand(vocab, generator=g, device=device).clamp_(min=tiny)
-            noise[b] = -torch.log(-torch.log(u))
-    return noise
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for int64 x in [0, 2^32) and a 32-bit constant c,
+    as two products below 2^48, so no int64 product overflows."""
+    lo = x * (c & 0xFFFF)
+    hi = (x * (c >> 16)) & 0xFFFF
+    return (lo + (hi << 16)) & _M32
+
+
+def _fmix32(h: torch.Tensor) -> torch.Tensor:
+    """murmur3's 32-bit finalizer on int64 tensors holding 32-bit values."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def noise_bits(seeds: torch.Tensor, positions: torch.Tensor, vocab: int) -> torch.Tensor:
+    """[B, V] int64 holding 32-bit hashes of (seeds[b], positions[b], v).
+    The seed is mixed in alone first, so neighbouring seeds give unrelated
+    rows; every step keeps 32 bits, so the bits are the same on every
+    device."""
+    s = _fmix32((seeds.to(torch.int64) & _M32) ^ 0x9E3779B9)
+    row = _fmix32((s + _mul32(positions.to(torch.int64) & _M32, 0x27D4EB2F)) & _M32)
+    cols = _mul32(torch.arange(vocab, dtype=torch.int64, device=seeds.device), 0x165667B1)
+    return _fmix32(row[:, None] ^ cols[None, :])
+
+
+def gumbel_noise(seeds: torch.Tensor, positions: torch.Tensor, vocab: int) -> torch.Tensor:
+    """[B, V] f32 standard Gumbel noise, a pure function of each row's seed
+    [B] and the position [B] of the token it draws: the top 24 bits of
+    `noise_bits` give a uniform in (0, 1) (k + 1/2 over 2^23, exact in f32),
+    then -log(-log(u))."""
+    u = ((noise_bits(seeds, positions, vocab) >> 9).to(torch.float32) + 0.5) * (1.0 / (1 << 23))
+    return -torch.log(-torch.log(u))
 
 
 def _prepare(logits, params, counts, logit_bias):
@@ -120,7 +149,8 @@ def _prepare(logits, params, counts, logit_bias):
 
 def sample(
     logits: torch.Tensor,  # [B, V] any float dtype
-    generators: Sequence[Optional[torch.Generator]],  # [B] per-row RNG or None
+    seeds: torch.Tensor,  # [B] int64 per-row seed
+    positions: torch.Tensor,  # [B] int64 position of the token each row draws
     params: SamplingParams,
     counts: torch.Tensor | None = None,  # [B, V] i32
     logit_bias: torch.Tensor | None = None,  # [B, V] f32
@@ -134,7 +164,7 @@ def sample(
     logits = _prepare(logits, params, counts, logit_bias)
     greedy_tok = torch.argmax(logits, dim=-1)
     temp = torch.clamp(params.temperature, min=1e-6)[:, None]
-    noise = gumbel_noise(generators, logits.shape[-1], logits.device)
+    noise = gumbel_noise(seeds, positions, logits.shape[-1])
 
     K = min(num_candidates, logits.shape[-1])
     sorted_logits, sorted_idx = torch.topk(logits, K, dim=-1)
@@ -151,7 +181,8 @@ def sample(
 
 def sample_simple(
     logits: torch.Tensor,  # [B, V]
-    generators: Sequence[Optional[torch.Generator]],
+    seeds: torch.Tensor,  # [B] int64
+    positions: torch.Tensor,  # [B] int64
     params: SamplingParams,
     counts: torch.Tensor | None = None,
     logit_bias: torch.Tensor | None = None,
@@ -160,7 +191,7 @@ def sample_simple(
     logits = _prepare(logits, params, counts, logit_bias)
     greedy_tok = torch.argmax(logits, dim=-1)
     temp = torch.clamp(params.temperature, min=1e-6)[:, None]
-    noise = gumbel_noise(generators, logits.shape[-1], logits.device)
+    noise = gumbel_noise(seeds, positions, logits.shape[-1])
     free_tok = torch.argmax(logits / temp + noise, dim=-1)
     return torch.where(params.temperature <= 0.0, greedy_tok, free_tok)
 

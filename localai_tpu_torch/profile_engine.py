@@ -10,16 +10,19 @@ Builds the engine on random bf16 weights (quantized on the card with
 quantized paged decode step; `--lora 8` registers 8 runtime LoRA tenants,
 rank 16 on q_proj / v_proj with lora_alpha = r, and gives each admitted
 slot one of them, so the decode block runs the ragged LoRA kernel on every
-layer) and drives its device paths
-directly on this thread (no loop thread): one fused admission of `--slots`
-prompts of `--prompt` tokens, then one decode block of `--steps` steps over
-those slots. With `--paged` it then does the same on a paged KV pool
-(page 128) and adds one 512-token prefill chunk at offset 1024 (the paged
-kernel walks the 1024 resident rows). Prints, per path, the host wall time
-of an unprofiled run, the summed device time of its kernels under the
-profiler, the device busy share (their ratio), the device launches per
-step, the kernels and host ops that take the most time, and the device
-time of each of the port's own kernels (B1-B5). Needs a GPU.
+layer), runs `Engine.warmup()` (which captures every decode block's CUDA
+graph) and drives its device paths directly on this thread (the loop
+thread stopped): one fused admission of `--slots` prompts of `--prompt`
+tokens, then one decode block of `--steps` steps over those slots, as the
+engine runs it (a graph replay) and with its eager block body in the same
+call. With `--paged` it then does the same on a paged KV pool (page 128)
+and adds one 512-token prefill chunk at offset 1024 (the paged kernel
+walks the 1024 resident rows). Prints, per path, the host wall time of an
+unprofiled run, the summed device time of its kernels under the profiler,
+the device busy share (their ratio), the device kernels per step (a
+replay counts the kernels its graph runs), the kernels and host ops that
+take the most time, and the device time of each of the port's own kernels
+(B1-B5). Needs a GPU.
 """
 
 from __future__ import annotations
@@ -130,7 +133,24 @@ def main(argv=None) -> None:
                                              kv_cache_dtype=args.kv_cache_dtype, **kw))
         for i, d in enumerate(tenants):
             eng.register_adapter(f"t{i}", d)
+            # Resident before warmup, so it captures the blocks' LoRA shapes.
+            eng._adapter_unpin(eng._adapter_acquire(f"t{i}"))
+        t0 = time.monotonic()
+        eng.warmup()
+        eng.stop()  # this thread drives the engine from here on
+        m = eng.metrics()
+        print(json.dumps({"warmup_s": time.monotonic() - t0, "graphs": m["decode_graphs"],
+                          "capture_s": m["decode_graph_capture_s"]}), flush=True)
         return eng
+
+    def blocks(eng, label):
+        """The decode block as the engine runs it, then its eager body."""
+        _profile(f"{label} (graph replay)", eng._run_block, args.steps)
+        eng._decode_block = eng._block_body
+        try:
+            _profile(f"{label} (eager body)", eng._run_block, args.steps)
+        finally:
+            del eng._decode_block
 
     def admitter(eng):
         bucket = eng._bucket_for(args.prompt)
@@ -164,7 +184,7 @@ def main(argv=None) -> None:
                       "slots": args.slots, "prompt": args.prompt, "bucket": bucket,
                       "steps": args.steps, "lora_tenants": args.lora}), flush=True)
     _profile(f"admission m={args.slots} bucket={bucket}", admit)
-    _profile(f"decode block n={args.steps} slots={args.slots}", eng._run_block, args.steps)
+    blocks(eng, f"decode block n={args.steps} slots={args.slots}")
     if not args.paged:
         return
     del eng
@@ -172,8 +192,7 @@ def main(argv=None) -> None:
     peng = make_engine(kv_pages=args.slots * 16, kv_page_size=128, prefill_chunk=512)
     padmit, _ = admitter(peng)
     padmit()
-    _profile(f"paged decode block n={args.steps} slots={args.slots} page=128",
-             peng._run_block, args.steps)
+    blocks(peng, f"paged decode block n={args.steps} slots={args.slots} page=128")
     peng._release(slots[-1])  # its slot and pages take the chunked admission
     ids = torch.randint(0, 256, (1536,), generator=gen).tolist()
     assert peng._chunk_start(GenRequest(prompt_ids=ids, max_new_tokens=16), RequestHandle())

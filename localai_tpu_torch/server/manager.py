@@ -9,7 +9,8 @@ one shared engine with the adapter registered as a runtime LoRA tenant, so
 N tenants cost one set of base weights.
 
 Not ported yet: the watchdog, crash-only quarantine and config watcher
-(ROADMAP Queue A item 17), and every backend but `llama` (item 19).
+(ROADMAP Queue A item 11, runtime, observability and faults), and every
+backend but `llama` (item 13, satellite engines and models).
 """
 
 from __future__ import annotations
@@ -288,7 +289,8 @@ class ModelManager:
         if cfg.backend != "llama":
             raise UnsupportedBackendError(
                 f"model {cfg.name!r}: backend {cfg.backend!r} is not ported yet "
-                "(ROADMAP Queue A item 19); the port serves the llama backend")
+                "(ROADMAP Queue A item 13, satellite engines and models); the port "
+                "serves the llama backend")
         switched = [f"{k}={getattr(cfg, k)!r}" for k in _ROUTE_SWITCHES
                     if getattr(cfg, k) != "auto"]
         if switched:

@@ -11,7 +11,8 @@ independent clones, each its own request.
 A request field the port cannot honour yet gets HTTP 400 naming it, never
 silent neglect: tools / functions, grammar, a JSON response_format,
 logprobs, best_of > 1, deadline_s and image content (ROADMAP Queue A items
-8, 10, 12 and 19).
+3, main-path engine completeness; 6, grammar decode on the card; 7, tree
+sampling and logprobs; 13, satellite engines and models).
 """
 
 from __future__ import annotations
@@ -44,31 +45,34 @@ def _reject_unported(body: dict[str, Any], chat: bool) -> None:
         raise ApiError(400, f"{field!r} is not supported by this server yet "
                             f"(ROADMAP Queue A item {item})")
 
+    grammar = "6, grammar decode on the card"
+    logprobs = "7, tree sampling and logprobs"
+
     tools = body.get("tools") or body.get("functions")
     if tools and body.get("tool_choice") != "none":
-        unported("tools" if body.get("tools") else "functions", "10")
+        unported("tools" if body.get("tools") else "functions", grammar)
     if body.get("grammar"):
-        unported("grammar", "10")
+        unported("grammar", grammar)
     rf = body.get("response_format") or {}
     if isinstance(rf, dict) and rf.get("type") in ("json_object", "json_schema"):
-        unported("response_format", "10")
+        unported("response_format", grammar)
     lp = body.get("logprobs")
     if lp not in (None, False, 0):
-        unported("logprobs", "12")
+        unported("logprobs", logprobs)
     if chat and body.get("top_logprobs"):
-        unported("top_logprobs", "12")
+        unported("top_logprobs", logprobs)
     bo = body.get("best_of")
     if bo is not None and bo != 1:
-        unported("best_of", "12")
+        unported("best_of", logprobs)
     if body.get("deadline_s"):
-        unported("deadline_s", "8")
+        unported("deadline_s", "3, main-path engine completeness")
     if chat:
         for m in body.get("messages") or []:
             content = m.get("content") if isinstance(m, dict) else None
             if isinstance(content, list) and any(
                     isinstance(p, dict) and p.get("type") in ("image_url", "input_image")
                     for p in content):
-                unported("image content", "19")
+                unported("image content", "13, satellite engines and models")
 
 
 class OpenAIApi:

@@ -144,15 +144,18 @@ def test_greedy_samplers_match_jax():
     keys = jax.random.split(jax.random.key(0), B)
     ref_full = np.asarray(jsamp.sample(args_j[0], keys, jp, args_j[2], args_j[3]))
     np.testing.assert_array_equal(ref_full, ref)
-    gens = [None] * B
+    seeds, positions = _seeds(0, B)
     np.testing.assert_array_equal(
-        tsamp.sample(args_t[0], gens, tp, args_t[2], args_t[3]).numpy(), ref)
+        tsamp.sample(args_t[0], seeds, positions, tp, args_t[2], args_t[3]).numpy(), ref)
     np.testing.assert_array_equal(
-        tsamp.sample_simple(args_t[0], gens, tp, args_t[2], args_t[3]).numpy(), ref)
+        tsamp.sample_simple(args_t[0], seeds, positions, tp, args_t[2], args_t[3]).numpy(),
+        ref)
 
 
-def _gens(seed, B):
-    return [torch.Generator().manual_seed(seed + b) for b in range(B)]
+def _seeds(seed, B, position=7):
+    """Per-row seeds seed + b, every row drawing the token at `position`."""
+    return (torch.arange(B, dtype=torch.int64) + seed,
+            torch.full((B,), position, dtype=torch.int64))
 
 
 def test_seeded_sampling_is_reproducible_and_respects_filters():
@@ -160,30 +163,32 @@ def test_seeded_sampling_is_reproducible_and_respects_filters():
     B, V = 6, 200
     logits = torch.from_numpy(rng.standard_normal((B, V)).astype(np.float32) * 2)
     p = tsamp.SamplingParams.make(B, temperature=1.0)
-    a = tsamp.sample(logits, _gens(3, B), p)
-    b = tsamp.sample(logits, _gens(3, B), p)
+    a = tsamp.sample(logits, *_seeds(3, B), p)
+    b = tsamp.sample(logits, *_seeds(3, B), p)
     assert torch.equal(a, b)
-    # Unfiltered rows: the simple sampler consumes the same noise.
-    assert torch.equal(tsamp.sample_simple(logits, _gens(3, B), p), a)
+    # Unfiltered rows: the simple sampler uses the same noise.
+    assert torch.equal(tsamp.sample_simple(logits, *_seeds(3, B), p), a)
     # top_k=1 keeps only the argmax, whatever the noise.
     p1 = tsamp.SamplingParams.make(B, temperature=1.0, top_k=1)
-    assert torch.equal(tsamp.sample(logits, _gens(9, B), p1), logits.argmax(-1))
+    assert torch.equal(tsamp.sample(logits, *_seeds(9, B), p1), logits.argmax(-1))
     # top_k=3: every draw lands in the row's top 3.
     p3 = tsamp.SamplingParams.make(B, temperature=5.0, top_k=3)
     top3 = logits.topk(3, dim=-1).indices
     for seed in range(5):
-        tok = tsamp.sample(logits, _gens(seed * 10, B), p3)
+        tok = tsamp.sample(logits, *_seeds(seed * 10, B), p3)
         assert (top3 == tok[:, None]).any(-1).all()
 
 
 def test_sample_distribution_follows_softmax():
-    # 2000 single-row draws of a 4-way categorical at temperature 1.
+    # 2000 single-row draws of a 4-way categorical at temperature 1, one
+    # seed, one draw per token position.
     logits = torch.tensor([[2.0, 1.0, 0.0, -1.0]])
     p = tsamp.SamplingParams.make(1, temperature=1.0)
-    g = torch.Generator().manual_seed(0)
+    seed = torch.zeros((1,), dtype=torch.int64)
     hits = np.zeros(4)
-    for _ in range(2000):
-        hits[int(tsamp.sample_simple(logits, [g], p)[0])] += 1
+    for pos in range(2000):
+        position = torch.full((1,), pos, dtype=torch.int64)
+        hits[int(tsamp.sample_simple(logits, seed, position, p)[0])] += 1
     want = torch.softmax(logits[0], -1).numpy()
     np.testing.assert_allclose(hits / 2000, want, atol=0.04)
 

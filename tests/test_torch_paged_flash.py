@@ -197,10 +197,11 @@ def test_cpu_tensors_take_the_plain_version():
 
 def test_unported_paged_features_raise():
     q, kp, vp, table, lim = _t(*_inputs(1, 2, None, 4, 2, 32, 16, 2, [5, 9]))
-    for kw, item in ((dict(sink=4, swin=8), "15"), (dict(mesh=object()), "20")):
+    for kw, item in ((dict(sink=4, swin=8), "9, long context"),
+                     (dict(mesh=object()), "14, multi-GPU")):
         with pytest.raises(NotImplementedError, match=f"Queue A item {item}"):
             ta.paged_partials(q, kp, vp, table, lim, **kw)
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(NotImplementedError, match="item 9, long context"):
         ptable.width((table, table))
     cols = torch.tensor([[1, 0], [0, 1]])
     assert ptable.gather_cols(table, cols).tolist() == [

@@ -103,5 +103,5 @@ def test_bridge_rejects_unported_trees():
     cfg = get_arch("tiny")
     tree = jax.tree.map(np.asarray, jl.init_params(cfg, jax.random.key(0)))
     tree["layers"]["router"] = np.ones((cfg.num_layers, cfg.hidden_size, 4), np.float32)
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(NotImplementedError, match="item 10, other decoder families"):
         tw.params_from_numpy(cfg, tree, device="cpu")
