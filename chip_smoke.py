@@ -75,10 +75,36 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    seeded) and kernel launch counts must be identical; the phase prints
    the graphs captured, the capture seconds, the graph pool's bytes and
    both runs' decode tok/s and host ms per step.
-In 5, 6, 8, 10, 11 and 12 the kernel launch counters, zeroed just before
-each run, show that the path went through the kernels; a graph replay
-counts the launches its capture recorded. Every decode block of those
-runs is a graph capture or replay (the eager run of phase 12 aside).
+13. moe kernels — B3's expert form (every expert of a mixture-of-experts
+   projection in one launch) against its plain version at mixtral-8x7b's
+   shapes: gate / up [8, 4096, 14336] with x shared by the experts, down
+   [8, 14336, 4096] with one x row per expert; flat int8, grouped int8
+   and int4; bf16 and f32 x; 1, 8, 16, 64 and 256 rows; bit-identical when
+   launched again and, up to 16 rows, for each row alone; times beside a
+   bf16 torch.bmm on the dequantized stack and the dequantize-then-matmul
+   route;
+14. mixtral — mixtral-8x7b at full width and depth (32 layers), seeded
+   random weights made int4 on the card layer by layer (bf16 would not
+   fit): a 256-row prefill through the kernels, each of its 32 MoE layers
+   held to the dequantize-then-matmul route on the same input (within 5 %
+   of the layer's largest output; the two free-running prefills' logits
+   and the share of tokens whose top-2 experts differ, layer by layer,
+   are printed: routing is discrete, so bf16 rounding flips some tokens'
+   experts and the runs part), then phase 12's graph-against-eager run on
+   a paged bf16 pool with phase 6's requests (B3 = 7 x 32 = 224 launches a decode step,
+   96 of them the expert form; B4 one a step; B2 32 a step), the device
+   time of one decode step (a graph replay) against the weights' byte
+   floor, two admissions' times, the weight bytes and the peak memory;
+15. mixtral int8 — the same model in int8 at full width, 8 of its 32
+   layers (cut for time), through the paged engine: the flat form;
+16. moe small — a small f32 mixtral-family model's paged engine on the
+   card against the same engine on the CPU, unquantized (the exact top-k
+   route) and int4 (the expert form's f32 kernel).
+In 5, 6, 8, 10, 11, 12, 14 and 15 the kernel launch counters, zeroed just
+before each run, show that the path went through the kernels; a graph
+replay counts the launches its capture recorded. Every decode block of
+those runs is a graph capture or replay (the eager runs of phases 12 and
+14 aside).
 
 The last lines are the kernels' JSON record, the card's `nvidia-smi` name
 and power limit, and the result line
@@ -89,6 +115,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import importlib.util
 import json
 import re
@@ -100,6 +127,7 @@ import tempfile
 import threading
 import time
 
+import numpy as np
 import torch
 
 # The card's published peaks (H100 SXM data sheet, dense): bf16 tensor-core
@@ -523,11 +551,12 @@ QMM_FORMS = ("int8", "grouped_int8", "int4")
 
 
 def _grouped_int8(w, group=32):
-    """Group-wise symmetric int8 (GGUF q8_0's layout), quantized here: the
-    serving path's quantizers make the flat int8 and int4 forms only."""
-    g = w.shape[0] // group
-    wg = w.float().reshape(g, group, w.shape[1])
-    s = torch.clamp(wg.abs().amax(dim=1, keepdim=True) / 127.0, min=1e-9)
+    """Group-wise symmetric int8 (GGUF q8_0's layout) over the in (-2) axis,
+    leading (expert) axes kept, quantized here: the serving path's
+    quantizers make the flat int8 and int4 forms only."""
+    g = w.shape[-2] // group
+    wg = w.float().reshape(*w.shape[:-2], g, group, w.shape[-1])
+    s = torch.clamp(wg.abs().amax(dim=-2, keepdim=True) / 127.0, min=1e-9)
     return {"gq": torch.clamp(torch.round(wg / s), -127, 127).to(torch.int8), "gs": s}
 
 
@@ -544,6 +573,45 @@ def _qmm_work(form, N, n_in, n_out, x_elt) -> tuple[float, float]:
 def _bound(flops, nbytes, dtype) -> tuple[float, str]:
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _hold_b3(label: str, run, plain, x, bf16_mm, dequant, work, plan, **keys) -> dict:
+    """One B3 row: the kernel `run(x)` against its plain version (f32 x:
+    summation order only, 1e-4 x max|out|; bf16 x: both sides round the f32
+    sum once to bf16, so they may differ by one bf16 step, 2^-7 of the
+    value, plus that term), a second launch bit-identical and, up to 16
+    rows, each row launched alone bit-identical; flushed times of the
+    kernel, the plain version, `bf16_mm()` and `dequant(x)` with the kernel
+    route off, and the bound of `work` = (FLOPs, bytes)."""
+    dt, N = x.dtype, x.shape[0]
+    out = run(x)
+    torch.cuda.synchronize()
+    want = plain(x)
+    scale = plain(x.float()).abs().max().item()
+    err = (out.float() - want.float()).abs()
+    if dt == torch.float32:
+        ok = err.max().item() <= 1e-4 * scale
+    else:
+        ok = bool((err <= 2.0**-7 * want.float().abs() + 1e-4 * scale).all())
+    ok = ok and bool(torch.isfinite(out).all())
+    repeat_equal = torch.equal(out, run(x))
+    rows_alone_equal = (all(torch.equal(out[i:i + 1], run(x[i:i + 1])) for i in range(N))
+                        if N <= 16 else None)
+    ms = cuda_time_cold_ms(lambda: run(x), 20)
+    plain_ms = cuda_time_cold_ms(lambda: plain(x), 3)
+    bf16_ms = cuda_time_cold_ms(bf16_mm, 20)
+    with _dequant_route():
+        dequant_ms = cuda_time_cold_ms(lambda: dequant(x), 20)
+    bound_ms, bound_by = _bound(*work, dt)
+    row = dict(**keys, dtype=str(dt).replace("torch.", ""), max_abs_err=err.max().item(),
+               out_max=scale, repeat_equal=repeat_equal, rows_alone_equal=rows_alone_equal,
+               ok=ok and repeat_equal and rows_alone_equal is not False, ms=ms,
+               plain_ms=plain_ms, bf16_ms=bf16_ms, dequant_ms=dequant_ms, bound_ms=bound_ms,
+               bound_frac=bound_ms / ms, bound_by=bound_by, plan=plan)
+    log(f"[kernel {label}] {json.dumps(row)}")
+    check(row["ok"], f"{label} disagrees with its plain version or is not bit-identical on a "
+                     f"repeat / a row alone at {row}")
+    return row
 
 
 def phase_quant_kernels(gen: torch.Generator) -> tuple[list[dict], list[dict]]:
@@ -563,7 +631,6 @@ def phase_quant_kernels(gen: torch.Generator) -> tuple[list[dict], list[dict]]:
 
     # f32 x: summation order only. bf16 x: both sides round the f32 sum once
     # to bf16, so they may differ by one bf16 step (2^-7 of the value).
-    rel_f32, rel_bf16 = 1e-4, 2.0**-7
     # The 16- and 64-row inputs draw from their own generator, so the later
     # phases see the inputs they always saw.
     gen_added = torch.Generator(device="cuda").manual_seed(7)
@@ -578,41 +645,14 @@ def phase_quant_kernels(gen: torch.Generator) -> tuple[list[dict], list[dict]]:
                 for N in (1, 8, 16, 64, 256):
                     g = gen if N in (1, 8, 256) else gen_added
                     x = torch.randn(N, n_in, generator=g, device="cuda").to(dt)
-                    out = qmm(x, qw)
-                    torch.cuda.synchronize()
-                    want = qmm_plain(x, qw)
-                    scale = qmm_plain(x.float(), qw).abs().max().item()
-                    err = (out.float() - want.float()).abs()
-                    if dt == torch.float32:
-                        ok = err.max().item() <= rel_f32 * scale
-                    else:
-                        ok = bool((err <= rel_bf16 * want.float().abs() + rel_f32 * scale).all())
-                    ok = ok and bool(torch.isfinite(out).all())
-                    repeat_equal = torch.equal(out, qmm(x, qw))
-                    rows_alone_equal = (all(torch.equal(out[i:i + 1], qmm(x[i:i + 1], qw))
-                                            for i in range(N)) if N <= 16 else None)
                     xb = x.to(torch.bfloat16)
-                    ms = cuda_time_cold_ms(lambda: qmm(x, qw), 20)
-                    plain_ms = cuda_time_cold_ms(lambda: qmm_plain(x, qw), 3)
-                    bf16_ms = cuda_time_cold_ms(lambda: torch.matmul(xb, w_bf16), 20)
-                    with _dequant_route():
-                        dequant_ms = cuda_time_cold_ms(lambda: quant.matmul(x, qw), 20)
-                    bound_ms, bound_by = _bound(*_qmm_work(form, N, n_in, n_out, dt.itemsize),
-                                                dt)
                     plan = (qmm_plan(n_in, n_out, N, kernels.sm_count(x.device))._asdict()
                             if dt == torch.bfloat16 else None)
-                    row = dict(shape=[N, n_in, n_out], form=form,
-                               dtype=str(dt).replace("torch.", ""),
-                               max_abs_err=err.max().item(), out_max=scale,
-                               repeat_equal=repeat_equal, rows_alone_equal=rows_alone_equal,
-                               ok=ok and repeat_equal and rows_alone_equal is not False,
-                               ms=ms, plain_ms=plain_ms, bf16_ms=bf16_ms, dequant_ms=dequant_ms,
-                               bound_ms=bound_ms, bound_frac=bound_ms / ms, bound_by=bound_by,
-                               plan=plan)
-                    log(f"[kernel quant_matmul] {json.dumps(row)}")
-                    check(row["ok"], f"quant_matmul disagrees with its plain version or is not "
-                                     f"bit-identical on a repeat / a row alone at {row}")
-                    b3.append(row)
+                    b3.append(_hold_b3(
+                        "quant_matmul", lambda v: qmm(v, qw), lambda v: qmm_plain(v, qw), x,
+                        lambda: torch.matmul(xb, w_bf16), lambda v: quant.matmul(v, qw),
+                        _qmm_work(form, N, n_in, n_out, dt.itemsize), plan,
+                        shape=[N, n_in, n_out], form=form))
             del qw, w_bf16
     b4 = []
     # llama-3-8b's head, then a ragged one (V not a multiple of a 16-row
@@ -820,6 +860,7 @@ def _dequant_route():
 
     stack = contextlib.ExitStack()
     stack.enter_context(swapped(quant_matmul, "dispatch_matmul", lambda x, w: None))
+    stack.enter_context(swapped(quant_matmul, "dispatch_moe_mm", lambda x, w, sub: None))
     stack.enter_context(swapped(quant_matmul, "dispatch_unembed", lambda h, w: None))
     return stack
 
@@ -956,9 +997,10 @@ def _serve(eng, plens: list[int], max_new: int = 64, adapters=None,
             evs.append(ev)
         results[i] = (first, evs)
 
-    # Rows of every quantized product the kernels did not take.
+    # Rows of every quantized product the kernels did not take (an expert
+    # product's rows counted without its expert axis).
     dequant_rows = []
-    dispatch = quant_matmul.dispatch_matmul
+    dispatch, dispatch_moe = quant_matmul.dispatch_matmul, quant_matmul.dispatch_moe_mm
 
     def recording(x, w):
         y = dispatch(x, w)
@@ -966,17 +1008,26 @@ def _serve(eng, plens: list[int], max_new: int = 64, adapters=None,
             dequant_rows.append((quant_matmul._rows(x), x.is_floating_point()))
         return y
 
+    def recording_moe(x, w, sub):
+        y = dispatch_moe(x, w, sub)
+        if y is None:
+            tail = 2 if sub == quant_matmul.MOE_PER_EXPERT else 1
+            dequant_rows.append((quant_matmul._rows(x, tail), x.is_floating_point()))
+        return y
+
     # The main path's run: counts go to 0 just before, are read just after.
     flash_prefill_attention.launches = 0
     paged_partials_rows.launches = 0
     quant_matmul.qmm.launches = quant_matmul.qunembed.launches = 0
+    quant_matmul.qmm_moe.launches = quant.moe_matmul.dequant_calls = 0
     quant.matmul.dequant_calls = quant.unembed_matmul.dequant_calls = 0
     lora_bgmv_group.launches = 0
     # Engine counters are read as differences over this run.
     m0, tok0, dt0 = eng.metrics(), eng._decode_tokens, eng._decode_time
     t0 = time.monotonic()
     threads = []
-    with swapped(quant_matmul, "dispatch_matmul", recording):
+    with swapped(quant_matmul, "dispatch_matmul", recording), \
+            swapped(quant_matmul, "dispatch_moe_mm", recording_moe):
         for i, r in enumerate(reqs):
             h = eng.submit(r)
             th = threading.Thread(target=consume, args=(i, h, time.monotonic()))
@@ -988,8 +1039,10 @@ def _serve(eng, plens: list[int], max_new: int = 64, adapters=None,
     launches = {"flash_prefill": flash_prefill_attention.launches,
                 "paged_attention": paged_partials_rows.launches,
                 "quant_matmul": quant_matmul.qmm.launches,
+                "quant_matmul_moe": quant_matmul.qmm_moe.launches,
                 "quant_unembed": quant_matmul.qunembed.launches,
                 "matmul_dequant_calls": quant.matmul.dequant_calls,
+                "moe_dequant_calls": quant.moe_matmul.dequant_calls,
                 "unembed_dequant_calls": quant.unembed_matmul.dequant_calls,
                 "lora_bgmv": lora_bgmv_group.launches}
     metrics = eng.metrics()
@@ -1115,16 +1168,27 @@ def phase_paged_engine(cfg, params, small, p_small) -> dict:
 
 
 
-def _check_quant_launches(label: str, L: int, out: dict, chunks=(4, 2 + 3 + 6 + 7)) -> None:
+def _check_quant_launches(label: str, L: int, out: dict, chunks=(4, 2 + 3 + 6 + 7),
+                          experts: int = 0) -> None:
     """The launch identities of a quantized paged engine run; `chunks` is
-    the run's (chunked admissions, prefill chunks)."""
+    the run's (chunked admissions, prefill chunks), `experts` the model's
+    experts a layer (0: a dense MLP)."""
     n = out["launches"]
     passes = out["admissions"] + out["prefill_chunks"]
-    check(n["quant_matmul"] > 0 and n["quant_matmul"] + n["matmul_dequant_calls"]
+    b3 = n["quant_matmul"] + n["quant_matmul_moe"]
+    check(n["quant_matmul"] > 0 and b3 + n["matmul_dequant_calls"] + n["moe_dequant_calls"]
           == 7 * L * (out["decode_steps"] + passes),
-          f"{label}: B3 launches {n['quant_matmul']} + dequant-route calls "
-          f"{n['matmul_dequant_calls']} != 7 x {L} layers x ({out['decode_steps']} decode "
+          f"{label}: B3 launches {b3} + dequant-route calls {n['matmul_dequant_calls']} + "
+          f"{n['moe_dequant_calls']} != 7 x {L} layers x ({out['decode_steps']} decode "
           f"steps + {passes} prefill passes)")
+    # An MoE model's three expert projections a layer (every pass), a dense
+    # model's none.
+    moe = n["quant_matmul_moe"] + n["moe_dequant_calls"]
+    check(moe == (3 * L * (out["decode_steps"] + passes) if experts else 0)
+          and (n["quant_matmul_moe"] > 0) == bool(experts),
+          f"{label}: {n['quant_matmul_moe']} expert-form launches + {n['moe_dequant_calls']} "
+          f"dequant-route expert products for {L} layers x ({out['decode_steps']} decode "
+          f"steps + {passes} passes), experts={experts}")
     check(out["dequant_small_float_calls"] == 0,
           f"{label}: {out['dequant_small_float_calls']} dequant-route calls at <= 256 rows")
     check(n["quant_unembed"] == out["decode_steps"] + out["admissions"] + out["chunked_admits"]
@@ -1209,13 +1273,14 @@ def _first_difference(a: list, b: list, block_sizes) -> str:
     return "lengths differ"
 
 
-def phase_graphs(label: str, cfg, params, **kw) -> dict:
+def phase_graphs(label: str, cfg, params, probe=None, **kw) -> dict:
     """The same PAGED_PROMPTS requests (half greedy, half seeded top-p)
     served twice on fresh engines: once as the engine runs them (every
     decode block a CUDA graph: warmup() captures every shape, serving
     replays), and once with the engine's graph step swapped for a direct
     call of the eager block body. Ids and kernel launch counts must be
-    identical."""
+    identical. `probe(engine)`, if given, measures the graph-mode engine
+    after its run; its result is the run's "probe"."""
     from localai_tpu_torch.engine.engine import Engine, EngineConfig
     from localai_tpu_torch.engine.tokenizer import ByteTokenizer
 
@@ -1232,6 +1297,8 @@ def phase_graphs(label: str, cfg, params, **kw) -> dict:
             m = eng.metrics()
             pool = None if eng._graph_pool is None else _graph_pool_bytes(eng._graph_pool)
             out = _serve(eng, PAGED_PROMPTS, keep_ids=True)
+            if probe is not None and mode == "graph":
+                out["probe"] = probe(eng)
         out.update(warmup_s=warm_s, graphs=int(m["decode_graphs"]),
                    capture_s=m["decode_graph_capture_s"], graph_pool_bytes=pool)
         runs[mode] = out
@@ -1822,6 +1889,251 @@ def phase_lora_8b(qmodel: dict, small, p_small, p_small_cpu) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# 13. moe kernels: B3's expert form at mixtral-8x7b's shapes
+# --------------------------------------------------------------------------- #
+
+# (einsum, experts, in, out): gate / up with x shared by the experts, down
+# with one x row per expert.
+MOE_SHAPES = [("...d,edf->...ef", 8, 4096, 14336), ("...ef,efd->...ed", 8, 14336, 4096)]
+
+
+def phase_moe_kernels() -> list[dict]:
+    """B3's expert form held as phase 3 holds B3 (`_hold_b3`) at every
+    form, x dtype and row count of the mixtral path, beside a bf16
+    torch.bmm on the dequantized stack (`bf16_ms`: the matmul the quantized
+    kernel has to beat) and models/quant.moe_matmul with the kernel route
+    off (`dequant_ms`)."""
+    from localai_tpu_torch import kernels
+    from localai_tpu_torch.models import quant
+    from localai_tpu_torch.ops.quant_matmul import MOE_SHARED, qmm_moe, qmm_moe_plain, qmm_plan
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rows = []
+    for sub, E, n_in, n_out in MOE_SHAPES:
+        w = torch.randn(E, n_in, n_out, generator=gen, device="cuda") * 0.02
+        for form in QMM_FORMS:
+            qw = {"int8": quant.quantize_tensor, "grouped_int8": _grouped_int8,
+                  "int4": quant.quantize_tensor_g4}[form](w)
+            w_bf16 = quant.dequantize_tensor(qw).to(torch.bfloat16)  # [E, in, out]
+            for dt in (torch.bfloat16, torch.float32):
+                for N in (1, 8, 16, 64, 256):
+                    xshape = (N, n_in) if sub == MOE_SHARED else (N, E, n_in)
+                    x = torch.randn(xshape, generator=gen, device="cuda").to(dt)
+                    xb = x.to(torch.bfloat16)
+                    xe = (xb.unsqueeze(0).expand(E, N, n_in) if sub == MOE_SHARED
+                          else xb.transpose(0, 1))
+                    # Every expert's payload and scales, x and the output, once.
+                    flops, wbytes = _qmm_work(form, 1, n_in, n_out, 0)
+                    work = (E * N * flops,
+                            E * wbytes + dt.itemsize * (x.numel() + N * E * n_out))
+                    plan = (qmm_plan(n_in, n_out, N, kernels.sm_count(x.device), E)._asdict()
+                            if dt == torch.bfloat16 else None)
+                    rows.append(_hold_b3(
+                        "quant_matmul_moe", lambda v: qmm_moe(v, qw, sub),
+                        lambda v: qmm_moe_plain(v, qw, sub), x, lambda: torch.bmm(xe, w_bf16),
+                        lambda v: quant.moe_matmul(v, qw, sub), work, plan,
+                        sub=sub, shape=[N, E, n_in, n_out], form=form))
+            del qw, w_bf16
+        del w
+    torch.cuda.empty_cache()
+    return rows
+
+
+# --------------------------------------------------------------------------- #
+# 14. mixtral int4, 15. mixtral int8, 16. the small MoE model card vs CPU
+# --------------------------------------------------------------------------- #
+
+def _moe_probe(eng) -> dict:
+    """The graph-mode engine after its run: the device time of a decode
+    step (one replay of the 16-step greedy block's graph over the staged
+    controls, all slots idle: the attention walks no pages, every weight
+    is still read) against the byte floor of the quantized weights it
+    reads, and the wall time of two fused admissions (the kernels' route
+    at 1 x 128 rows, the dequantize-then-matmul route at 8 x 512)."""
+    eng._stage_block(np.zeros_like(eng.h_active))
+    graph = eng._graph_cache[eng._block_key(16, "greedy", 0)][0]
+    step_ms = cuda_time_ms(graph.replay, reps=5, warmup=1) / 16
+    wbytes = sum(t.numel() * t.element_size() for w in
+                 [*eng.params["layers"].values(), eng.params.get("lm_head")]
+                 if isinstance(w, dict) for t in w.values())
+    admit_ms = {}
+    for m, bucket in ((1, 128), (8, 512)):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        eng._warm_admit(m, bucket)
+        admit_ms[f"{m}x{bucket}"] = (time.monotonic() - t0) * 1e3
+    return dict(device_ms_per_step=step_ms, quantized_weight_bytes=wbytes,
+                byte_floor_ms=wbytes / PEAK_BYTES * 1e3, admission_ms=admit_ms)
+
+
+def phase_mixtral(gen: torch.Generator) -> dict:
+    """mixtral-8x7b int4 at full width and depth: the quantized random init,
+    a 256-row prefill through the kernels with every MoE layer held to the
+    dequantize-then-matmul route on the same input, then phase 12's
+    graph-against-eager run with the MoE launch identities and the probe
+    above."""
+    from localai_tpu_torch.models import get_arch, llama, quant
+    from localai_tpu_torch.ops.quant_matmul import qmm_moe
+
+    cfg = get_arch("mixtral-8x7b")
+    L = cfg.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = quant.init_params_quantized(cfg, seed=0, mode="int4", device="cuda")
+    torch.cuda.synchronize()
+    init = dict(init_s=time.monotonic() - t0,
+                allocated_gib=torch.cuda.memory_allocated() / 2**30,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"[mixtral-8x7b int4] random weights made int4 on the card: {json.dumps(init)}")
+    toks = torch.randint(0, cfg.vocab_size, (2, 128), generator=gen, device="cuda")
+    lens = torch.tensor([128, 91], device="cuda")
+    moe_dense, route = llama._moe_dense, llama._moe_route
+
+    def run(record):
+        """The 256-row prefill, recording each MoE layer's (params, input)
+        and each router call's top-k ids."""
+        layers, sels = [], []
+
+        def dense(cfg_, lp, x):
+            layers.append((lp, x))
+            return moe_dense(cfg_, lp, x)
+
+        def routing(cfg_, lp, x):
+            w, sel = route(cfg_, lp, x)
+            sels.append(sel)
+            return w, sel
+
+        with swapped(llama, "_moe_dense", dense), swapped(llama, "_moe_route", routing):
+            logits = llama.prefill(cfg, params, toks, lens)[0]
+        record.update(layers=layers, sels=sels)
+        return logits
+
+    kern, deq = {}, {}
+    before = (quant.matmul.dequant_calls + quant.moe_matmul.dequant_calls, qmm_moe.launches)
+    logits = run(kern)
+    routed = quant.matmul.dequant_calls + quant.moe_matmul.dequant_calls - before[0]
+    moe_launches = qmm_moe.launches - before[1]
+    with _dequant_route():
+        ref = run(deq)
+    check(bool(torch.isfinite(logits).all()) and logits.shape == (2, cfg.vocab_size),
+          "mixtral prefill logits not finite / wrong shape")
+    check(routed == 0 and moe_launches == 3 * L,
+          f"mixtral int4 prefill: {routed} dequant-route products, {moe_launches} expert launches")
+    # Each MoE layer on the same input through both routes (the kernels'
+    # input of the free run): the routing is then the same on both sides,
+    # and the layers differ by bf16 rounding only (the dequant route rounds
+    # the dequantized weights and its group sums of x to bf16).
+    layer_err = []
+    for lp, x in kern["layers"]:
+        y = moe_dense(cfg, lp, x)
+        with _dequant_route():
+            y_ref = moe_dense(cfg, lp, x)
+        layer_err.append((y.float() - y_ref.float()).abs().max().item()
+                         / y_ref.float().abs().max().item())
+    # The free runs: each route feeds its own layers. Routing is discrete,
+    # so once rounding flips a token's top-2 somewhere, that token's path
+    # differs from there on; the logits are recorded, not held to a bound.
+    live = torch.arange(128, device="cuda")[None, :] < lens[:, None]  # [2, 128]
+    flips = [((a != b).any(-1) & live).float().sum().item() / live.sum().item()
+             for a, b in zip(kern["sels"], deq["sels"])]
+    err, scale = (logits - ref).abs().max().item(), ref.abs().max().item()
+    prefill = dict(rows=256, max_abs_err=err, max_abs_logit=scale, dequant_calls=routed,
+                   expert_launches=moe_launches,
+                   top1_agree=(logits.argmax(-1) == ref.argmax(-1)).float().mean().item(),
+                   layer_rel_err_max=max(layer_err), layer_rel_err=layer_err,
+                   first_layer_routing_differs=next((i for i, f in enumerate(flips) if f), None),
+                   routing_differs_share=flips)
+    log(f"[mixtral-8x7b int4] 256-row prefill, kernels vs dequant route: {json.dumps(prefill)}")
+    # Every layer, same input, bf16 on both sides: 5 % of the layer's
+    # largest output (phase 4's bf16 bound); a wrong kernel errs by the
+    # output's own size.
+    check(max(layer_err) <= 0.05, f"mixtral int4: an MoE layer's kernel route differs from "
+                                  f"the dequant route by {max(layer_err)} of its largest output")
+    del logits, ref, kern, deq
+    runs = phase_graphs("mixtral-8x7b int4 paged", cfg, params, probe=_moe_probe)
+    for mode in ("graph", "eager"):
+        _check_quant_launches(f"mixtral {mode}", L, runs[mode], experts=cfg.num_experts)
+    _check_graphs("mixtral graph", runs["graph"])
+    probe = runs["graph"]["probe"]
+    summary = dict(init=init, prefill=prefill, weight_bytes=runs["graph"]["weight_bytes"],
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   b3_per_decode_step=7 * L, expert_launches_per_decode_step=3 * L, **probe,
+                   decode_ms_per_step=runs["graph"]["decode_ms_per_step"],
+                   decode_tok_s=runs["graph"]["decode_tok_s"],
+                   ttft_ms_p50=runs["graph"]["ttft_ms_p50"])
+    log(f"[mixtral-8x7b int4 paged] {json.dumps(summary)}")
+    del params
+    torch.cuda.empty_cache()
+    return {"summary": summary, **runs}
+
+
+MIXTRAL_INT8_LAYERS = 8  # of 32: the int8 run is cut for time
+
+
+def phase_mixtral_int8() -> dict:
+    """mixtral-8x7b int8 (the flat form) at full width, 8 of 32 layers,
+    through the paged engine with phase 6's requests."""
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig
+    from localai_tpu_torch.engine.tokenizer import ByteTokenizer
+    from localai_tpu_torch.models import get_arch, quant
+
+    cfg = dataclasses.replace(get_arch("mixtral-8x7b"), num_layers=MIXTRAL_INT8_LAYERS)
+    params = quant.init_params_quantized(cfg, seed=1, mode="int8", device="cuda")
+    eng = Engine(cfg, params, ByteTokenizer(cfg.vocab_size), device="cuda",
+                 engine_cfg=EngineConfig(**PAGED_ENGINE))
+    out = _serve(eng, PAGED_PROMPTS)
+    del eng, params
+    log(f"[mixtral-8x7b int8, {cfg.num_layers} layers] " + json.dumps(out))
+    _check_quant_launches("mixtral int8", cfg.num_layers, out, experts=cfg.num_experts)
+    _check_graphs("mixtral int8", out)
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe_small() -> dict:
+    """A small f32 mixtral-family model (head_dim 64, so B1 serves it), its
+    paged + chunked engine on the card against the same engine on the CPU:
+    unquantized experts (the exact top-k route) and int4 (B3's expert form,
+    the f32 kernel). Greedy ids must be equal."""
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig, GenRequest
+    from localai_tpu_torch.engine.tokenizer import ByteTokenizer
+    from localai_tpu_torch.models import get_arch, llama
+    from localai_tpu_torch.ops.quant_matmul import qmm_moe
+
+    small = dataclasses.replace(get_arch("tiny-moe"), name="tiny-moe-d64", hidden_size=256,
+                                intermediate_size=512, num_heads=4, num_kv_heads=2,
+                                dtype="float32")
+    p_cpu = llama.init_params(small, seed=2, device="cpu")
+    p_gpu = {k: ({n: t.cuda() for n, t in v.items()} if isinstance(v, dict) else v.cuda())
+             for k, v in p_cpu.items()}
+    out = {}
+    for mode in ("", "int4"):
+        texts = {}
+        for dev, p in (("cuda", p_gpu), ("cpu", p_cpu)):
+            before = qmm_moe.launches
+            e = Engine(small, p, ByteTokenizer(small.vocab_size), device=dev, quantization=mode,
+                       engine_cfg=EngineConfig(max_slots=2, max_seq=256, block_sizes=(8,),
+                                               kv_pages=16, kv_page_size=64, prefill_chunk=64))
+            try:
+                hs = [e.submit(GenRequest(prompt_ids=[(j * m) % 250 + 1 for j in range(n_)],
+                                          max_new_tokens=24, ignore_eos=True))
+                      for n_, m in ((150, 7), (3, 1), (70, 3), (200, 11))]
+                texts[dev] = [[ev.token_id for ev in h if ev.kind == "token"] for h in hs]
+            finally:
+                e.stop()
+            if dev == "cuda":
+                out[f"{mode or 'plain'}_expert_launches"] = qmm_moe.launches - before
+        equal = texts["cuda"] == texts["cpu"]
+        out[f"{mode or 'plain'}_ids_equal"] = equal
+        log(f"[engine tiny-moe-d64 f32 {mode or 'unquantized'}] card greedy ids equal the "
+            f"CPU's: {equal}")
+        check(equal, f"small MoE engine {mode or 'unquantized'}: card ids differ from the CPU's")
+    check(out["plain_expert_launches"] == 0 and out["int4_expert_launches"] > 0,
+          f"small MoE engine: expert-form launches {out}")
+    return out
+
+
 def _compact(row: dict, keys) -> dict:
     return {k: row[k] for k in keys}
 
@@ -1862,12 +2174,21 @@ def main() -> None:
     lora_http = timed("lora_http", phase_lora_http)
     lora_8b = timed("lora_8b", phase_lora_8b, qmodel, model["small"], model["p_small"],
                     model["p_small_cpu"])
+    del qmodel, model
+    gc.collect()
+    torch.cuda.empty_cache()  # mixtral's 35 GB of int4 weights come next
+    moe_rows = timed("moe_kernels", phase_moe_kernels)
+    mixtral = timed("mixtral", phase_mixtral, gen)
+    mixtral_int8 = timed("mixtral_int8", phase_mixtral_int8)
+    moe_small = timed("moe_small", phase_moe_small)
     runs = {"dense_engine": dense, "paged_engine": paged, **qruns, "lora_8b_int8": lora_8b,
             "graphs_1b": graphs_1b["graph"], "graphs_1b_eager": graphs_1b["eager"],
-            "graphs_8b": graphs_8b["graph"], "graphs_8b_eager": graphs_8b["eager"]}
+            "graphs_8b": graphs_8b["graph"], "graphs_8b_eager": graphs_8b["eager"],
+            "mixtral_int4": mixtral["graph"], "mixtral_int4_eager": mixtral["eager"],
+            "mixtral_int8_8_layers": mixtral_int8}
     by_path = {k: {path: out["launches"][k] for path, out in runs.items()}
-               for k in ("flash_prefill", "paged_attention", "quant_matmul", "quant_unembed",
-                         "lora_bgmv")}
+               for k in ("flash_prefill", "paged_attention", "quant_matmul", "quant_matmul_moe",
+                         "quant_unembed", "lora_bgmv")}
     by_path["lora_bgmv"]["lora_http"] = lora_http["tenants"]["lora_bgmv_launches"]
     # The main shape of B1: llama-3.2-1b's 8 x 2048 admission with every row
     # at full length, so the kernel, SDPA and the bound count the same work.
@@ -1959,6 +2280,45 @@ def main() -> None:
                                 "bound_ms"))
                    for r in b3_rows],
     }
+    # The main shape of B3's expert form: mixtral-8x7b's gate at a decode
+    # block of 8 slots, int4 experts, bf16 x.
+    moe_main = next(r for r in moe_rows if r["shape"] == [8, 8, 4096, 14336]
+                    and r["form"] == "int4" and r["dtype"] == "bfloat16")
+    moe_record = {
+        "name": "quant_matmul_moe",
+        "route": "cuda",
+        "source": "localai_tpu_torch/csrc/quant_matmul.cu",
+        "replaces": "localai_tpu/ops/quant_matmul.py:109",
+        "tpu_kernel": "localai_tpu/ops/quant_matmul.py::_qmm_kernel (expert grid, "
+                      "_plain_moe_mm :281)",
+        "kernel": "qmm_mma_kernel<FORM, MT, NT> / qmm_kernel<float, RT, FORM> with the "
+                  "expert axis (ops/quant_matmul.qmm_moe)",
+        "launches": sum(by_path["quant_matmul_moe"].values()),
+        "launches_by_path": {k: v for k, v in by_path["quant_matmul_moe"].items() if v},
+        "shape": {"N": 8, "E": 8, "in": 4096, "out": 14336, "form": "int4",
+                  "dtype": "bfloat16", "einsum": "...d,edf->...ef"},
+        "max_abs_err": moe_main["max_abs_err"],
+        "tol": "f32 x: 1e-4 x max|out|; bf16 x: 2^-7 x |out| + 1e-4 x max|out|",
+        "ok": all(r["ok"] for r in moe_rows),
+        "ms": moe_main["ms"],
+        "kernel_ms": moe_main["ms"],
+        "plain_ms": moe_main["plain_ms"],
+        "bound_ms": moe_main["bound_ms"],
+        "bound_by": moe_main["bound_by"],
+        "bf16_ms": moe_main["bf16_ms"],
+        "dequant_ms": moe_main["dequant_ms"],
+        "library_ms": None,  # no one PyTorch call takes the packed int8 / int4 expert stacks
+        "repeat_equal": all(r["repeat_equal"] for r in moe_rows),
+        "rows_alone_equal": all(r["rows_alone_equal"] is not False for r in moe_rows),
+        # The same nine tensor-core and six scalar instances as quant_matmul's
+        # record: the expert axis is one more argument, not another instance.
+        "ptxas": [r for r in usage["quant_matmul"] if "qmm" in r["kernel"]],
+        "mixtral": mixtral["summary"],
+        "moe_small": moe_small,
+        "shapes": [_compact(r, ("sub", "shape", "form", "dtype", "ms", "bf16_ms", "dequant_ms",
+                                "bound_ms"))
+                   for r in moe_rows],
+    }
     b4_main = next(r for r in b4_rows if r["shape"] == [8, 128256, 4096]
                    and r["dtype"] == "bfloat16")
     unembed_record = {
@@ -2040,8 +2400,8 @@ def main() -> None:
     }
     log(f"[phases] {json.dumps(seconds)}")
     log(f"[done] all phases passed in {time.monotonic() - t_start:.1f}s")
-    print(json.dumps({"kernels": [flash_record, paged_record, quant_record, unembed_record,
-                                  lora_record]}))
+    print(json.dumps({"kernels": [flash_record, paged_record, quant_record, moe_record,
+                                  unembed_record, lora_record]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),

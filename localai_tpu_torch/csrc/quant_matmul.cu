@@ -2,10 +2,11 @@
 // dequant-matmul (B3) and the int8 unembed (B4).
 //
 // B3 replaces the TPU kernel localai_tpu/ops/quant_matmul.py::_qmm_kernel
-// (launched by _qmm_call, quant_matmul.py:246) for its three dense forms.
-// Same function: out[n, o] = sum_k x[n, k] * w[k, o] for x [N, IN] (f32 or
-// bf16, N <= 256 on the serving path), accumulated in f32, written in x's
-// dtype, with the weight in one of:
+// (launched by _qmm_call, quant_matmul.py:246) for its three forms, over
+// its whole grid (expert, out tile, k chunk). Same function:
+// out[n, o] = sum_k x[n, k] * w[k, o] for x [N, IN] (f32 or bf16, N <= 256
+// on the serving path), accumulated in f32, written in x's dtype, with the
+// weight in one of:
 //   form 0, flat int8:    q [IN, OUT] int8, s [OUT] f32; the scale is applied
 //                         once to the finished sum (the TPU kernel's _emit);
 //   form 1, grouped int8: gq [G, gs, OUT] int8, gs [G, OUT] f32; each group's
@@ -16,6 +17,16 @@
 //                         value = nibble * s - z, so a group adds
 //                         s * sum(x * nibble) - z * sum(x) (the zero point's
 //                         rank-1 correction).
+//
+// The expert form (E > 1: the mixture-of-experts layer's projections,
+// _plain_moe_mm / dispatch_moe_mm, quant_matmul.py:281, :452) stacks E such
+// weights [E, ...] and computes out[n, e, o] = sum_k x_e[n, k] * w_e[k, o]
+// into out [N, E, OUT], with x shared by every expert (x [N, IN]: Mixtral's
+// gate and up, "...d,edf->...ef") or one x per expert (x [N, E, IN], read
+// in place with an expert stride: down, "...ef,efd->...ed"). The expert is
+// one more block coordinate (struct Experts below): every tile, split and
+// sum is the 2-D product's on that expert's operands, so a row's bits do
+// not depend on E, on the other rows, or on the other experts.
 //
 // B4 replaces localai_tpu/ops/quant_matmul.py::_unembed_kernel (launched by
 // _plain_unembed, quant_matmul.py:326): logits[n, v] = (h[n] . q[v]) * s[v]
@@ -71,18 +82,21 @@
 //   are padded by 16 bytes: a warp's 4 weight rows and ldmatrix's 8 x rows
 //   hit distinct banks. A stage's groups are unrolled into one stretch of
 //   code, so the loads and conversions of one group overlap another's mma.
-// - Split-K, one launch. The grid is (column tiles, k-splits, row tiles);
-//   the wrapper's plan (ops/quant_matmul.qmm_plan) picks the split count
-//   so that the grid fills the SMs twice over, in k-slices of whole stages.
-//   With one split a block writes bf16 out directly. With more, each writes
-//   its f32 partial tile to a workspace, fences, and bumps a per-tile
-//   counter; the last block to arrive sums the splits in order 0..S-1
-//   (8 loads in flight a thread), applies the flat scale, writes bf16, and
-//   resets the counter to 0. The workspace and counters are the wrapper's,
-//   one per device: the port issues every product in order on one stream,
-//   so one product's partials are never live beside another's.
+// - Split-K, one launch. The grid is (column tiles, k-splits, experts x row
+//   tiles); the wrapper's plan (ops/quant_matmul.qmm_plan) picks the split
+//   count so that the grid fills the SMs twice over, in k-slices of whole
+//   stages. With one split a block writes bf16 out directly. With more,
+//   each writes its f32 partial tile to a workspace, fences, and bumps a
+//   per-tile counter; the last block to arrive sums the splits in order
+//   0..S-1 (8 loads in flight a thread), applies the flat scale, writes
+//   bf16, and resets the counter to 0. Experts multiply the output tiles,
+//   so at decode the plan rarely splits an expert product (Mixtral's gate /
+//   up: 112 column tiles x 8 experts = 896 blocks against 2 x 132 SMs). The
+//   workspace and counters are the wrapper's, one per device: the port
+//   issues every product in order on one stream, so one product's partials
+//   are never live beside another's.
 // - Determinism. Launches repeat bit for bit. For N <= 16 the plan and the
-//   order of every sum depend only on (IN, OUT, form), not on N (NT = 1
+//   order of every sum depend only on (E, IN, OUT, form), not on N (NT = 1
 //   and NT = 2 do the same arithmetic for a row), so a row's bits do not
 //   depend on how many rows decode beside it.
 //
@@ -176,6 +190,29 @@ constexpr int kHSeg = 20;               // 16 floats + 4 pad: bank-conflict-free
 
 enum Form { kFlat = 0, kGrouped = 1, kInt4 = 2 };
 
+// B3's expert axis (E = 1 for the 2-D product). The grid's row-tile axis
+// runs over E x row_tiles: block row b is expert b / row_tiles, row tile
+// b % row_tiles. Each operand is offset by its expert's stride: x by x_exp
+// elements (0 for a shared x [N, IN], IN for a per-expert x [N, E, IN] whose
+// rows are x_row = E * IN apart), the payload by w_exp bytes, the scales and
+// zero points by s_exp floats, and the output [N, E, OUT] by OUT, its rows
+// o_row = E * OUT apart.
+struct Experts {
+  int row_tiles;
+  int64_t x_row, x_exp, o_row, w_exp, s_exp;
+};
+
+Experts expert_axis(int N, int IN, int OUT, int E, int x_per_expert, int form, int row_tile) {
+  Experts ax;
+  ax.row_tiles = (N + row_tile - 1) / row_tile;
+  ax.x_row = x_per_expert ? (int64_t)E * IN : IN;
+  ax.x_exp = x_per_expert ? IN : 0;
+  ax.o_row = (int64_t)E * OUT;
+  ax.w_exp = (int64_t)(form == kInt4 ? IN / 2 : IN) * OUT;
+  ax.s_exp = form == kFlat ? OUT : (int64_t)(IN / kGroup) * OUT;
+  return ax;
+}
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 
@@ -218,7 +255,7 @@ template <typename XT, int RT, int FORM>
 __global__ void __launch_bounds__(kThreads)
 qmm_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ w,
            const float* __restrict__ s, const float* __restrict__ z, XT* __restrict__ out,
-           int N, int IN, int OUT) {
+           int N, int IN, int OUT, Experts ax) {
   // The x stage (+ the int4 per-group x sums), then the warps' sums.
   constexpr int kSmem = (RT * kStage + RT * kWarps) > (kWarps * RT * kBlockCols)
                             ? (RT * kStage + RT * kWarps)
@@ -228,8 +265,14 @@ qmm_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ w,
   float* xsum = xs + RT * kStage;    // [RT][kWarps], int4 only
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r0 = blockIdx.y * RT;
+  const int e = blockIdx.y / ax.row_tiles;
+  const int r0 = (blockIdx.y % ax.row_tiles) * RT;
   const int col = blockIdx.x * kBlockCols + lane * kCols;
+  x += e * ax.x_exp;
+  w += e * ax.w_exp;
+  s += e * ax.s_exp;
+  if (FORM == kInt4) z += e * ax.s_exp;
+  out += (int64_t)e * OUT;
   const bool col_ok = col < OUT;  // OUT % 4 == 0: a lane's columns are all in or all out
 
   float acc[RT][kCols];
@@ -242,7 +285,7 @@ qmm_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ w,
     __syncthreads();  // the previous stage has been consumed
     for (int i = threadIdx.x; i < RT * kStage; i += kThreads) {
       const int r = i / kStage, k = k0 + i % kStage;
-      xs[i] = (r0 + r < N && k < IN) ? to_f32(x[(int64_t)(r0 + r) * IN + k]) : 0.f;
+      xs[i] = (r0 + r < N && k < IN) ? to_f32(x[(r0 + r) * ax.x_row + k]) : 0.f;
     }
     __syncthreads();
     if (FORM == kInt4) {
@@ -352,7 +395,7 @@ qmm_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ w,
 #pragma unroll
     for (int w8 = 0; w8 < kWarps; ++w8) v += red[(w8 * RT + r) * kBlockCols + c];
     if (FORM == kFlat) v *= s[o];
-    store(out + (int64_t)(r0 + r) * OUT + o, v);
+    store(out + (r0 + r) * ax.o_row + o, v);
   }
 }
 
@@ -675,7 +718,7 @@ __global__ void __launch_bounds__(kMmaThreads)
 qmm_mma_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ w,
                const float* __restrict__ s, const float* __restrict__ z, bf16* __restrict__ out,
                float* __restrict__ ws, int* __restrict__ counters, int N, int IN, int OUT,
-               int k_slice) {
+               int k_slice, Experts ax) {
   using T = QmmTile<FORM, MT, NT>;
   extern __shared__ __align__(128) unsigned char smem_mma[];
   __shared__ int is_last;
@@ -683,8 +726,14 @@ qmm_mma_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ w,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int S = gridDim.y;
-  const int tile = blockIdx.z * gridDim.x + blockIdx.x;
-  const int c0 = blockIdx.x * T::kBO, r0 = blockIdx.z * T::kRT;
+  const int tile = blockIdx.z * gridDim.x + blockIdx.x;  // (expert, row tile, column tile)
+  const int e = blockIdx.z / ax.row_tiles;
+  const int c0 = blockIdx.x * T::kBO, r0 = (blockIdx.z % ax.row_tiles) * T::kRT;
+  x += e * ax.x_exp;
+  w += e * ax.w_exp;
+  s += e * ax.s_exp;
+  if constexpr (FORM == kInt4) z += e * ax.s_exp;
+  out += (int64_t)e * OUT;
   const int kbeg = blockIdx.y * k_slice, kend = min(kbeg + k_slice, IN);
   const int n_stages = (kend - kbeg + T::kIn - 1) / T::kIn;
   // The lane's 2 * MT output columns start here in the block's tile; A-row g
@@ -731,7 +780,7 @@ qmm_mma_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ w,
       const int r = i / (T::kIn / 8), kc = (i % (T::kIn / 8)) * 8;
       const bool ok = r0 + r < N && k0 + kc < kend;
       cp_async16(base + T::kWBytes + T::kSBytes + T::kZBytes + (r * T::kXPitch + kc) * 2,
-                 x + (ok ? (int64_t)(r0 + r) * IN + k0 + kc : 0), ok);
+                 x + (ok ? (r0 + r) * ax.x_row + k0 + kc : 0), ok);
     }
   };
 
@@ -785,7 +834,7 @@ qmm_mma_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ w,
           v[2 * j] = acc[j][n][h] * sf[2 * j];
           v[2 * j + 1] = acc[j][n][2 + h] * sf[2 * j + 1];
         }
-        store_bf16<MT>(out + (int64_t)row * OUT + col, v);
+        store_bf16<MT>(out + row * ax.o_row + col, v);
       }
     return;
   }
@@ -851,25 +900,26 @@ qmm_mma_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ w,
       o[2] *= f.z;
       o[3] *= f.w;
     }
-    store_bf16<2>(out + (int64_t)(r0 + r) * OUT + c0 + c, o);
+    store_bf16<2>(out + (r0 + r) * ax.o_row + c0 + c, o);
   }
   if (threadIdx.x == 0) counters[tile] = 0;  // every split has counted: ready for the next product
 }
 
 template <int FORM, int MT, int NT>
 int launch_qmm_mma(const void* x, const void* w, const void* s, const void* z, void* out,
-                   void* ws, void* counters, int N, int IN, int OUT, int splits, int k_slice,
-                   cudaStream_t stream) {
+                   void* ws, void* counters, int N, int IN, int OUT, int E, int xpe, int splits,
+                   int k_slice, cudaStream_t stream) {
   using T = QmmTile<FORM, MT, NT>;
   auto kern = qmm_mma_kernel<FORM, MT, NT>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((OUT + T::kBO - 1) / T::kBO, splits, (N + T::kRT - 1) / T::kRT);
+  const Experts ax = expert_axis(N, IN, OUT, E, xpe, FORM, T::kRT);
+  const dim3 grid((OUT + T::kBO - 1) / T::kBO, splits, E * ax.row_tiles);
   kern<<<grid, kMmaThreads, T::kSmem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const uint8_t*>(w), static_cast<const float*>(s),
       static_cast<const float*>(z), static_cast<bf16*>(out), static_cast<float*>(ws),
-      static_cast<int*>(counters), N, IN, OUT, k_slice);
+      static_cast<int*>(counters), N, IN, OUT, k_slice, ax);
   return (int)cudaGetLastError();
 }
 
@@ -877,44 +927,46 @@ int launch_qmm_mma(const void* x, const void* w, const void* s, const void* z, v
 // columns, 64 rows on 64 columns.
 template <int FORM>
 int qmm_mma_tile(const void* x, const void* w, const void* s, const void* z, void* out,
-                 void* ws, void* counters, int N, int IN, int OUT, int row_tile, int block_cols,
-                 int splits, int k_slice, cudaStream_t st) {
+                 void* ws, void* counters, int N, int IN, int OUT, int E, int xpe, int row_tile,
+                 int block_cols, int splits, int k_slice, cudaStream_t st) {
   if (row_tile == 8 && block_cols == 128)
-    return launch_qmm_mma<FORM, 2, 1>(x, w, s, z, out, ws, counters, N, IN, OUT, splits,
-                                      k_slice, st);
+    return launch_qmm_mma<FORM, 2, 1>(x, w, s, z, out, ws, counters, N, IN, OUT, E, xpe,
+                                      splits, k_slice, st);
   if (row_tile == 16 && block_cols == 128)
-    return launch_qmm_mma<FORM, 2, 2>(x, w, s, z, out, ws, counters, N, IN, OUT, splits,
-                                      k_slice, st);
+    return launch_qmm_mma<FORM, 2, 2>(x, w, s, z, out, ws, counters, N, IN, OUT, E, xpe,
+                                      splits, k_slice, st);
   if (row_tile == 64 && block_cols == 64)
-    return launch_qmm_mma<FORM, 1, 8>(x, w, s, z, out, ws, counters, N, IN, OUT, splits,
-                                      k_slice, st);
+    return launch_qmm_mma<FORM, 1, 8>(x, w, s, z, out, ws, counters, N, IN, OUT, E, xpe,
+                                      splits, k_slice, st);
   return (int)cudaErrorInvalidValue;
 }
 
 template <typename XT, int RT, int FORM>
 int launch_qmm(const void* x, const void* w, const void* s, const void* z, void* out, int N,
-               int IN, int OUT, cudaStream_t stream) {
-  const dim3 grid((OUT + kBlockCols - 1) / kBlockCols, (N + RT - 1) / RT);
+               int IN, int OUT, int E, int xpe, cudaStream_t stream) {
+  const Experts ax = expert_axis(N, IN, OUT, E, xpe, FORM, RT);
+  const dim3 grid((OUT + kBlockCols - 1) / kBlockCols, E * ax.row_tiles);
   qmm_kernel<XT, RT, FORM><<<grid, kThreads, 0, stream>>>(
       static_cast<const XT*>(x), static_cast<const uint8_t*>(w), static_cast<const float*>(s),
-      static_cast<const float*>(z), static_cast<XT*>(out), N, IN, OUT);
+      static_cast<const float*>(z), static_cast<XT*>(out), N, IN, OUT, ax);
   return (int)cudaGetLastError();
 }
 
 template <typename XT, int RT>
 int qmm_form(const void* x, const void* w, const void* s, const void* z, void* out, int N,
-             int IN, int OUT, int form, cudaStream_t st) {
-  if (form == kFlat) return launch_qmm<XT, RT, kFlat>(x, w, s, z, out, N, IN, OUT, st);
-  if (form == kGrouped) return launch_qmm<XT, RT, kGrouped>(x, w, s, z, out, N, IN, OUT, st);
-  if (form == kInt4) return launch_qmm<XT, RT, kInt4>(x, w, s, z, out, N, IN, OUT, st);
+             int IN, int OUT, int E, int xpe, int form, cudaStream_t st) {
+  if (form == kFlat) return launch_qmm<XT, RT, kFlat>(x, w, s, z, out, N, IN, OUT, E, xpe, st);
+  if (form == kGrouped)
+    return launch_qmm<XT, RT, kGrouped>(x, w, s, z, out, N, IN, OUT, E, xpe, st);
+  if (form == kInt4) return launch_qmm<XT, RT, kInt4>(x, w, s, z, out, N, IN, OUT, E, xpe, st);
   return (int)cudaErrorInvalidValue;
 }
 
 template <typename XT>
 int qmm_rows(const void* x, const void* w, const void* s, const void* z, void* out, int N,
-             int IN, int OUT, int form, cudaStream_t st) {
-  if (N == 1) return qmm_form<XT, 1>(x, w, s, z, out, N, IN, OUT, form, st);
-  return qmm_form<XT, 8>(x, w, s, z, out, N, IN, OUT, form, st);
+             int IN, int OUT, int E, int xpe, int form, cudaStream_t st) {
+  if (N == 1) return qmm_form<XT, 1>(x, w, s, z, out, N, IN, OUT, E, xpe, form, st);
+  return qmm_form<XT, 8>(x, w, s, z, out, N, IN, OUT, E, xpe, form, st);
 }
 
 template <int RT>
@@ -1140,37 +1192,43 @@ int launch_unembed_mma(const void* h, const void* q, const void* s, void* out, i
 // Plain C entry points, loaded with ctypes. x_dtype: 0 = float32,
 // 1 = bfloat16 (x and out share it). form: 0 flat int8 (s [OUT]), 1 grouped
 // int8, 2 packed int4 (s, z [G, OUT]); gs: the group size of forms 1 and 2,
-// which must be 32. The caller guarantees OUT % 4 == 0, 4-byte aligned
+// which must be 32. E experts (1 for the 2-D product): the weight, scales
+// and zero points are E stacked per-expert operands, out is [N, E, OUT],
+// and x is [N, IN] shared by every expert (x_per_expert 0) or [N, E, IN]
+// (x_per_expert 1). The caller guarantees OUT % 4 == 0, 4-byte aligned
 // weights and 16-byte aligned scales. bf16 x also needs OUT % 16 == 0,
 // IN % 8 == 0 and 16-byte aligned x and weights (cp.async), and the plan of
 // ops/quant_matmul.qmm_plan: row_tile / block_cols one of 8 / 128, 16 / 128,
 // 64 / 64; `splits` k-slices of k_slice in-rows (a multiple of 32) that
 // cover IN, none empty; with splits > 1, ws holds splits x tiles x row_tile
-// x block_cols f32 and counters one zeroed int per output tile. f32 x
-// ignores the plan. Returns 0 or the cudaError_t of the failed launch.
+// x block_cols f32 and counters one zeroed int per output tile, where the
+// tiles count every expert's. f32 x ignores the plan. Returns 0 or the
+// cudaError_t of the failed launch.
 extern "C" int quant_matmul(const void* x, const void* w, const void* s, const void* z,
-                            void* out, void* ws, void* counters, int N, int IN, int OUT,
-                            int form, int gs, int x_dtype, int row_tile, int block_cols,
-                            int splits, int k_slice, void* stream) {
+                            void* out, void* ws, void* counters, int N, int IN, int OUT, int E,
+                            int x_per_expert, int form, int gs, int x_dtype, int row_tile,
+                            int block_cols, int splits, int k_slice, void* stream) {
   if (N <= 0 || OUT <= 0) return 0;
-  if (IN <= 0 || OUT % kCols) return (int)cudaErrorInvalidValue;
+  if (IN <= 0 || OUT % kCols || E < 1 || (x_per_expert != 0 && x_per_expert != 1))
+    return (int)cudaErrorInvalidValue;
   if (form != kFlat && (gs != kGroup || IN % kGroup)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_dtype == 0) return qmm_rows<float>(x, w, s, z, out, N, IN, OUT, form, st);
+  const int xpe = x_per_expert;
+  if (x_dtype == 0) return qmm_rows<float>(x, w, s, z, out, N, IN, OUT, E, xpe, form, st);
   if (x_dtype != 1) return (int)cudaErrorInvalidValue;
   if (OUT % 16 || IN % 8 || splits < 1 || k_slice <= 0 || k_slice % kGroup ||
       (int64_t)(splits - 1) * k_slice >= IN || (int64_t)splits * k_slice < IN ||
       (splits > 1 && (ws == nullptr || counters == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (form == kFlat)
-    return qmm_mma_tile<kFlat>(x, w, s, z, out, ws, counters, N, IN, OUT, row_tile, block_cols,
-                               splits, k_slice, st);
+    return qmm_mma_tile<kFlat>(x, w, s, z, out, ws, counters, N, IN, OUT, E, xpe, row_tile,
+                               block_cols, splits, k_slice, st);
   if (form == kGrouped)
-    return qmm_mma_tile<kGrouped>(x, w, s, z, out, ws, counters, N, IN, OUT, row_tile,
+    return qmm_mma_tile<kGrouped>(x, w, s, z, out, ws, counters, N, IN, OUT, E, xpe, row_tile,
                                   block_cols, splits, k_slice, st);
   if (form == kInt4)
-    return qmm_mma_tile<kInt4>(x, w, s, z, out, ws, counters, N, IN, OUT, row_tile, block_cols,
-                               splits, k_slice, st);
+    return qmm_mma_tile<kInt4>(x, w, s, z, out, ws, counters, N, IN, OUT, E, xpe, row_tile,
+                               block_cols, splits, k_slice, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -99,8 +99,8 @@ log = logging.getLogger("localai_tpu_torch.engine")
 
 class AdapterError(RuntimeError):
     """A multi-tenant LoRA adapter operation failed: an unknown adapter
-    name, a name rebound to another source, or every device adapter row
-    pinned by an active request."""
+    name, a name rebound to another source, a mixture-of-experts base, or
+    every device adapter row pinned by an active request."""
 
 
 class QueueFullError(RuntimeError):
@@ -1570,7 +1570,12 @@ class Engine:
         and promoted into the device stacks at the first admission that
         names it. Idempotent for the same (dir, weight); rebinding a name to
         another source raises AdapterError (a tenant's identity stays fixed
-        while its requests may be in flight)."""
+        while its requests may be in flight), and so does a mixture-of-experts
+        base, as in the JAX package: runtime adapters serve dense bases."""
+        if self.cfg.is_moe:
+            raise AdapterError(
+                f"runtime LoRA adapters serve dense llama-family bases only ({self.cfg.name} "
+                "is MoE) — merge at load via `lora_adapters` instead")
         with self._adapter_lock:
             prev = self._adapter_registry.get(name)
             if prev is not None:

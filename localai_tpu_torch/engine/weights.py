@@ -22,10 +22,15 @@ into the weights (on the host before quantizing, in the loader's case).
 The factors and deltas are formed in numpy f32 in the JAX package's order,
 so both packages get the same bytes.
 
+Mixtral checkpoints load too: `block_sparse_moe.gate` becomes the router
+[L, D, E] and `block_sparse_moe.experts.{e}.w1 / w3 / w2` the expert
+stacks w_gate / w_up / w_down [L, E, in, out], quantized on load like the
+dense matmul weights.
+
 Not ported yet: GGUF checkpoints (ROADMAP Queue A item 5, checkpoint
-formats), MoE and DeepSeek checkpoints (item 10, other decoder families),
-Phi-3's fused qkv / gate_up tensors in a checkpoint (item 5, checkpoint
-formats; in an adapter they split).
+formats), DeepSeek checkpoints and LoRA merged into experts (item 10,
+other decoder families), Phi-3's fused qkv / gate_up tensors in a
+checkpoint (item 5, checkpoint formats; in an adapter they split).
 """
 
 from __future__ import annotations
@@ -70,6 +75,15 @@ _LAYER_MAP = {
     "w_down": ("mlp.down_proj.weight", True),
 }
 
+# Mixtral's sparse-MoE block: the router and each expert's w1 / w3 / w2
+# (gate / up / down), stacked over experts ({e} is the expert index).
+_MOE_LAYER_MAP = {
+    "router": ("block_sparse_moe.gate.weight", True),
+    "w_gate": ("block_sparse_moe.experts.{e}.w1.weight", True),
+    "w_up": ("block_sparse_moe.experts.{e}.w3.weight", True),
+    "w_down": ("block_sparse_moe.experts.{e}.w2.weight", True),
+}
+
 
 def _np_to_tensor(arr: np.ndarray) -> torch.Tensor:
     """numpy → CPU tensor, including numpy's bfloat16 extension dtype."""
@@ -86,10 +100,10 @@ def params_from_numpy(cfg: ArchConfig, tree: Params, device=None) -> Params:
     leaves go to cfg.dtype; a quantized weight keeps its int8 / uint8
     payload and its f32 scales."""
     check_supported(cfg)
-    if "dense_layers" in tree or "router" in tree.get("layers", {}):
+    if "dense_layers" in tree or "shared_gate" in tree.get("layers", {}):
         raise NotImplementedError(
-            "mixture-of-experts trees are not ported yet (ROADMAP Queue A item 10, "
-            "other decoder families)")
+            "deepseek-family trees (a dense-layer prefix, shared experts) are not ported yet "
+            "(ROADMAP Queue A item 10, other decoder families)")
     device = resolve_device(device)
     dt = torch_dtype(cfg.dtype)
 
@@ -181,7 +195,7 @@ def load_hf_checkpoint(cfg: ArchConfig, ckpt_dir: str, device=None,
                        quantize: str = "",
                        lora: list[tuple[str, float]] | None = None) -> Params:
     """Load an HF-format Llama-family checkpoint (bf16 / f16 / f32 tensors;
-    llama, mistral, qwen2 and gemma layouts)
+    llama, mistral, qwen2, gemma and mixtral layouts)
     into the stacked tensor dict on `device`, in cfg.dtype. Each stacked
     tensor is allocated on the device once and filled layer by layer, so the
     host holds one layer's tensor at a time.
@@ -241,11 +255,20 @@ def load_hf_checkpoint(cfg: ArchConfig, ckpt_dir: str, device=None,
             return quantize_tensor_np_g4(arr)
         return quantize_tensor_np(arr, axis)
 
-    def stack(our: str, suffix: str, transpose: bool, can_quant: bool = False):
+    def stack(our: str, suffix: str, transpose: bool, can_quant: bool = False,
+              experts: int = 0):
         quantized = do_quant and can_quant
 
+        def read(i: int) -> torch.Tensor:
+            if experts:  # [E, in, out]: one tensor per expert in the checkpoint
+                t = torch.stack([grab(f"model.layers.{i}.{suffix.format(e=e)}", transpose)
+                                 for e in range(experts)])
+            else:
+                t = grab(f"model.layers.{i}.{suffix}", transpose)
+            return merge_lora(our, i, t)
+
         def layer(i: int) -> dict[str, torch.Tensor]:
-            t = merge_lora(our, i, grab(f"model.layers.{i}.{suffix}", transpose))
+            t = read(i)
             if quantized:  # payloads stay int8 / uint8, scales f32
                 return {k: _np_to_tensor(v) for k, v in quant(t).items()}
             return {"w": t.to(dt)}
@@ -266,10 +289,18 @@ def load_hf_checkpoint(cfg: ArchConfig, ckpt_dir: str, device=None,
     if cfg.qk_norm:
         layer_map["q_norm"] = ("self_attn.q_norm.weight", False)
         layer_map["k_norm"] = ("self_attn.k_norm.weight", False)
+    if cfg.is_moe:
+        for our in ("w_gate", "w_up", "w_down"):
+            layer_map.pop(our)
     layers: Params = {}
     for our, (suffix, transpose) in layer_map.items():
         if f"model.layers.0.{suffix}" in reader:  # optional: qkv bias
             layers[our] = stack(our, suffix, transpose, can_quant=our in QUANT_LAYER_KEYS)
+    if cfg.is_moe:
+        layers["router"] = stack("router", *_MOE_LAYER_MAP["router"])
+        for our in ("w_gate", "w_up", "w_down"):
+            layers[our] = stack(our, *_MOE_LAYER_MAP[our], can_quant=True,
+                                experts=cfg.num_experts)
 
     def put(name: str) -> torch.Tensor:
         return grab(name, False).to(device=device, dtype=dt)

@@ -40,7 +40,7 @@ LIBRARIES = {
     ),
     "quant_matmul": (
         "quant_matmul.cu",
-        {"quant_matmul": ([_P] * 7 + [_I] * 10 + [_P], _I),
+        {"quant_matmul": ([_P] * 7 + [_I] * 12 + [_P], _I),
          "quant_unembed": ([_P] * 4 + [_I] * 7 + [_P], _I)},
     ),
     "lora_matmul": (
@@ -175,17 +175,19 @@ def live_workspaces() -> list:
 
 def _counters() -> tuple:
     """(holder, attribute) of every host-side launch counter on the decode
-    path: the five kernel wrappers' launches and the dequantize-then-matmul
-    routes' calls."""
+    path: the kernel wrappers' launches (B3's expert form counts apart) and
+    the dequantize-then-matmul routes' calls."""
     from localai_tpu_torch.models import quant
     from localai_tpu_torch.ops import flash, lora_matmul, paged_flash, quant_matmul
 
     return ((flash.flash_prefill_attention, "launches"),
             (paged_flash.paged_partials_rows, "launches"),
             (quant_matmul.qmm, "launches"),
+            (quant_matmul.qmm_moe, "launches"),
             (quant_matmul.qunembed, "launches"),
             (lora_matmul.lora_bgmv_group, "launches"),
             (quant.matmul, "dequant_calls"),
+            (quant.moe_matmul, "dequant_calls"),
             (quant.unembed_matmul, "dequant_calls"))
 
 

@@ -1,5 +1,5 @@
-"""Llama-family decoder (Llama 2/3, Mistral, Qwen2, TinyLlama) in PyTorch
-(localai_tpu/models/llama.py, dense branch).
+"""Llama-family decoder (Llama 2/3, Mistral, Qwen2, TinyLlama; Mixtral's
+sparse-MoE MLP) in PyTorch (localai_tpu/models/llama.py).
 
 - Parameters are a dict of stacked per-layer tensors ([L, ...] leading
   axis, matmul weights W [in, out]) — the JAX package's tree, so weights
@@ -32,12 +32,18 @@
 - GQA, RoPE (every scaling family), RMSNorm, SwiGLU / GeGLU, optional qkv
   bias (Qwen2) and the gemma flags (softcaps, sandwich norms, q/k norms,
   sliding windows) chosen from ArchConfig.
+- Mixture-of-experts MLP, mixtral family (top-k of the router's logits,
+  softmaxed; expert stacks [L, E, in, out] beside a router [L, D, E]):
+  quantized experts take `_moe_dense` (every expert on every row, B3's
+  expert form at decode), plain ones `_moe_ragged` (each row through its
+  own top-k experts), as in the JAX package.
 
-Not ported yet, and rejected with NotImplementedError: MoE and MLA layers
-(ROADMAP Queue A item 10, other decoder families), sequence-parallel ring
-attention and tp meshes (item 14, multi-GPU), m-rope (item 13, satellite
-engines and models), and sink+window decode and hierarchical page tables
-(item 9, long context).
+Not ported yet, and rejected with NotImplementedError: the deepseek MoE
+family (its router, shared experts, a dense-layer prefix) and MLA layers
+(ROADMAP Queue A item 10, other decoder families), expert-parallel
+capacity dispatch, sequence-parallel ring attention and tp meshes (item
+14, multi-GPU), m-rope (item 13, satellite engines and models), and
+sink+window decode and hierarchical page tables (item 9, long context).
 
 The cache, the pool and the block-local windows are updated IN PLACE (the
 JAX package returns new arrays): that saves a full copy of each per call.
@@ -52,7 +58,7 @@ import torch.nn.functional as F
 
 from localai_tpu_torch.device import resolve_device
 from localai_tpu_torch.models.config import ArchConfig
-from localai_tpu_torch.models.quant import is_quantized, matmul, unembed_matmul
+from localai_tpu_torch.models.quant import is_quantized, matmul, moe_matmul, unembed_matmul
 from localai_tpu_torch.ops import ptable as _pt
 from localai_tpu_torch.ops.lora_matmul import lora_deltas
 from localai_tpu_torch.ops.attention import (
@@ -63,6 +69,7 @@ from localai_tpu_torch.ops.attention import (
     prefill_attention,
 )
 from localai_tpu_torch.ops.norm import rms_norm
+from localai_tpu_torch.ops.quant_matmul import MOE_PER_EXPERT, MOE_SHARED
 from localai_tpu_torch.ops.rope import (
     apply_rope,
     rope_frequencies,
@@ -75,10 +82,12 @@ Params = dict[str, Any]
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise for the architecture features this port does not serve yet."""
-    if cfg.is_moe:
+    if cfg.is_moe and (cfg.moe_family != "mixtral" or cfg.n_shared_experts
+                       or cfg.first_k_dense):
         raise NotImplementedError(
-            "mixture-of-experts layers are not ported yet (ROADMAP Queue A item 10, "
-            "other decoder families)")
+            "only mixtral-family mixture-of-experts layers are ported: the deepseek "
+            "family (its router, shared experts, a dense-layer prefix) is not yet "
+            "(ROADMAP Queue A item 10, other decoder families)")
     if cfg.is_mla:
         raise NotImplementedError(
             "multi-head latent attention is not ported yet (ROADMAP Queue A item 10, "
@@ -141,54 +150,59 @@ class KVCache(NamedTuple):
         )
 
 
+def param_specs(cfg: ArchConfig) -> dict:
+    """The parameter tree's leaves as (shape, "normal" | "ones" | "zeros"),
+    {"layers": {name: ...}} for the stacked layer tensors, in the order
+    init_params draws them: the JAX package's tree structure."""
+    check_supported(cfg)
+    L, D, F_ = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
+    H, K, Hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    layers = {"attn_norm": ((L, D), "ones"), "mlp_norm": ((L, D), "ones"),
+              "wq": ((L, D, H * Hd), "normal"), "wk": ((L, D, K * Hd), "normal"),
+              "wv": ((L, D, K * Hd), "normal"), "wo": ((L, H * Hd, D), "normal")}
+    if cfg.post_norms:
+        layers["post_attn_norm"] = layers["post_ffw_norm"] = ((L, D), "ones")
+    if cfg.qk_norm:
+        layers["q_norm"] = layers["k_norm"] = ((L, Hd), "ones")
+    if cfg.attn_qkv_bias:
+        layers["bq"] = ((L, H * Hd), "zeros")
+        layers["bk"] = layers["bv"] = ((L, K * Hd), "zeros")
+    if cfg.is_moe:  # mixtral: expert stacks [L, E, in, out] beside the router
+        E, Fm = cfg.num_experts, cfg.moe_inter_size
+        layers["router"] = ((L, D, E), "normal")
+        layers["w_gate"] = layers["w_up"] = ((L, E, D, Fm), "normal")
+        layers["w_down"] = ((L, E, Fm, D), "normal")
+    else:
+        layers["w_gate"] = layers["w_up"] = ((L, D, F_), "normal")
+        layers["w_down"] = ((L, F_, D), "normal")
+    specs = {"embed": ((cfg.vocab_size, D), "normal"), "layers": layers,
+             "final_norm": ((D,), "ones")}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ((cfg.vocab_size, D), "normal")
+    return specs
+
+
 def init_params(cfg: ArchConfig, seed: int = 0, scale: float = 0.02,
                 device=None) -> Params:
     """Random init (normal · scale) with the JAX package's tree structure,
     drawn from a torch.Generator seeded with `seed` on `device`."""
-    check_supported(cfg)
     device = resolve_device(device)
     dt = torch_dtype(cfg.dtype)
-    L, D, F_ = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
-    H, K, Hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
 
-    def rnd(*shape):
+    def leaf(shape, kind):
+        if kind == "ones":
+            return torch.ones(shape, dtype=dt, device=device)
+        if kind == "zeros":
+            return torch.zeros(shape, dtype=dt, device=device)
         w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
         return (w * scale).to(dt)
 
-    def ones(*shape):
-        return torch.ones(shape, dtype=dt, device=device)
-
-    layers: Params = {
-        "attn_norm": ones(L, D),
-        "mlp_norm": ones(L, D),
-        "wq": rnd(L, D, H * Hd),
-        "wk": rnd(L, D, K * Hd),
-        "wv": rnd(L, D, K * Hd),
-        "wo": rnd(L, H * Hd, D),
-    }
-    if cfg.post_norms:
-        layers["post_attn_norm"] = ones(L, D)
-        layers["post_ffw_norm"] = ones(L, D)
-    if cfg.qk_norm:
-        layers["q_norm"] = ones(L, Hd)
-        layers["k_norm"] = ones(L, Hd)
-    if cfg.attn_qkv_bias:
-        layers["bq"] = torch.zeros((L, H * Hd), dtype=dt, device=device)
-        layers["bk"] = torch.zeros((L, K * Hd), dtype=dt, device=device)
-        layers["bv"] = torch.zeros((L, K * Hd), dtype=dt, device=device)
-    layers["w_gate"] = rnd(L, D, F_)
-    layers["w_up"] = rnd(L, D, F_)
-    layers["w_down"] = rnd(L, F_, D)
-    params: Params = {
-        "embed": rnd(cfg.vocab_size, D),
-        "layers": layers,
-        "final_norm": ones(D),
-    }
-    if not cfg.tie_embeddings:
-        params["lm_head"] = rnd(cfg.vocab_size, D)
-    return params
+    specs = param_specs(cfg)
+    layers = {name: leaf(*spec) for name, spec in specs.pop("layers").items()}
+    params = {name: leaf(*spec) for name, spec in specs.items()}
+    return {"embed": params.pop("embed"), "layers": layers, **params}
 
 
 def _layer(params: Params, li: int) -> Params:
@@ -306,8 +320,76 @@ def _attn_out(cfg: ArchConfig, lp: Params, attn_flat: torch.Tensor,
     return a
 
 
+def _moe_route(cfg: ArchConfig, lp: Params, x: torch.Tensor):
+    """Mixtral's router: the top-k of the logits x @ router (in x's dtype,
+    then f32), softmaxed over the k. Returns (weights [..., k] f32, sel
+    [..., k] int64). Ties go to the lower expert id, as jax.lax.top_k
+    breaks them: a stable descending sort, whose order is the same on the
+    CPU and the card, eager and in a graph (torch.topk's is unspecified)."""
+    if cfg.moe_family != "mixtral":
+        raise NotImplementedError(
+            f"the {cfg.moe_family} router is not ported yet: it goes with MLA (ROADMAP "
+            "Queue A item 10, other decoder families)")
+    logits = (x @ lp["router"]).float()  # [..., E]
+    sel = torch.sort(logits, dim=-1, descending=True, stable=True).indices
+    sel = sel[..., :cfg.num_experts_per_token]
+    return torch.softmax(torch.gather(logits, -1, sel), dim=-1), sel
+
+
+def _moe_dense(cfg: ArchConfig, lp: Params, x: torch.Tensor) -> torch.Tensor:
+    """All-experts MoE: every expert runs on every row (B3's expert form at
+    decode, one launch a projection; the dequantize-then-matmul forms
+    above 256 rows) and the rows combine their top-k experts' outputs by
+    routing weight, in f32. The JAX package's route for quantized
+    experts."""
+    weights, sel = _moe_route(cfg, lp, x)
+    combine = torch.zeros((*sel.shape[:-1], cfg.num_experts), dtype=torch.float32,
+                          device=x.device).scatter_add_(-1, sel, weights)  # [..., E]
+    gate = _act(cfg, moe_matmul(x, lp["w_gate"], MOE_SHARED))
+    up = moe_matmul(x, lp["w_up"], MOE_SHARED)
+    expert_out = moe_matmul(gate * up, lp["w_down"], MOE_PER_EXPERT)  # [..., E, D]
+    return torch.einsum("...ed,...e->...d", expert_out.float(), combine).to(x.dtype)
+
+
+def _expert_rows(xs: torch.Tensor, w: torch.Tensor, eid: torch.Tensor) -> torch.Tensor:
+    """Row m of xs [M, in] times its own expert's w[eid[m]] (w [E, in, out])
+    → [M, out]: lax.ragged_dot's function in fixed shapes, every expert's
+    product of the rows and then each row's own, so nothing reads a group
+    size back to the host and a decode block can be captured as a graph."""
+    every = torch.einsum("mi,eio->emo", xs, w)  # [E, M, out]
+    return every[eid, torch.arange(xs.shape[0], device=xs.device)]
+
+
+def _moe_ragged(cfg: ArchConfig, lp: Params, x: torch.Tensor) -> torch.Tensor:
+    """Exact top-k MoE for plain expert weights (the JAX package's
+    sort + lax.ragged_dot route): each (row, choice) pair runs its expert's
+    SwiGLU, and a row adds its k outputs times their routing weights in
+    f32, in choice order. The pairs stay in row-major order (no sort: the
+    fixed-shape `_expert_rows` needs no expert-contiguous groups), so the
+    sum over k is the same on the CPU and the card."""
+    k = cfg.num_experts_per_token
+    lead, D = x.shape[:-1], x.shape[-1]
+    xf = x.reshape(-1, D)
+    weights, sel = _moe_route(cfg, lp, xf)  # [N, k]
+    xg = xf.repeat_interleave(k, dim=0)  # [N·k, D]: row n's choices side by side
+    eid = sel.reshape(-1)
+    gate = _act(cfg, _expert_rows(xg, lp["w_gate"], eid))
+    up = _expert_rows(xg, lp["w_up"], eid)
+    dn = _expert_rows((gate * up).to(xg.dtype), lp["w_down"], eid)  # [N·k, D]
+    y = (dn.float() * weights.reshape(-1, 1)).reshape(-1, k, D).sum(dim=1)
+    return y.reshape(*lead, D).to(x.dtype)
+
+
 def _mlp(cfg: ArchConfig, lp: Params, x: torch.Tensor, lora=None) -> torch.Tensor:
-    """Dense SwiGLU / GeGLU MLP."""
+    """SwiGLU / GeGLU MLP, dense or mixture-of-experts ("router" in the
+    layer): quantized expert stacks take the all-experts `_moe_dense`, plain
+    ones the exact top-k `_moe_ragged`, as the JAX package picks. Runtime
+    LoRA serves dense layers only (the engine refuses adapters on an MoE
+    base)."""
+    if "router" in lp:
+        if isinstance(lp["w_gate"], dict):
+            return _moe_dense(cfg, lp, x)
+        return _moe_ragged(cfg, lp, x)
     gate, up = _lora_add(lora, ("w_gate", "w_up"), x,
                          [matmul(x, lp["w_gate"]), matmul(x, lp["w_up"])])
     gu = _act(cfg, gate) * up
@@ -323,11 +405,15 @@ def _mlp_out(cfg: ArchConfig, lp: Params, x: torch.Tensor, lora=None) -> torch.T
     return m
 
 
-def _check_params(params: Params) -> None:
-    if "dense_layers" in params or "router" in params["layers"]:
+def _check_params(cfg: ArchConfig, params: Params) -> None:
+    if "dense_layers" in params or "shared_gate" in params["layers"]:
         raise NotImplementedError(
-            "mixture-of-experts layers are not ported yet (ROADMAP Queue A item 10, "
-            "other decoder families)")
+            "deepseek-family trees (a dense-layer prefix, shared experts) are not ported yet "
+            "(ROADMAP Queue A item 10, other decoder families)")
+    if ("router" in params["layers"]) != cfg.is_moe:
+        raise ValueError(f"{cfg.name}: the tree's layers "
+                         f"{'have' if 'router' in params['layers'] else 'lack'} a router, the "
+                         f"config has {cfg.num_experts} experts")
     for name, t in [*params["layers"].items(), ("lm_head", params.get("lm_head"))]:
         if isinstance(t, dict) and not is_quantized(t):
             raise ValueError(f"{name}: a dict leaf must be a quantized weight, got keys "
@@ -345,7 +431,7 @@ def _forward_hidden(
     """Shared full-sequence forward. Returns (h [B,S,D] after the final
     norm, length_mask [B,S], (ks, vs) [L,B,S,K,Hd] or None)."""
     check_supported(cfg)
-    _check_params(params)
+    _check_params(cfg, params)
     B, S = tokens.shape
     dev = tokens.device
     inv_freq = rope_frequencies(cfg, dev)
@@ -420,7 +506,7 @@ def decode_step_windowed(
     adapter-less slots).
     Returns (logits [B, V] f32, local_k, local_v)."""
     check_supported(cfg)
-    _check_params(params)
+    _check_params(cfg, params)
     B = tokens.shape[0]
     dev = tokens.device
     inv_freq = rope_frequencies(cfg, dev)
@@ -604,7 +690,7 @@ def prefill_chunk_paged(
     Returns (last_logits [B, V] f32, or None when with_logits is False, and
     the pool)."""
     check_supported(cfg)
-    _check_params(params)
+    _check_params(cfg, params)
     B, T = tokens.shape
     dev = tokens.device
     inv_freq = rope_frequencies(cfg, dev)

@@ -15,16 +15,21 @@ Representations consumed by `matmul` / `unembed_matmul`:
   (low nibbles = first gs/2 elements); value = nibble * gs - gz (mode
   "int4").
 - the lm_head {"q": int8 [V, D], "s": f32 [V, 1]}, used transposed.
+- mixture-of-experts stacks: each of the first three with a leading expert
+  axis ([E, in, out] → q [E, in, out], s [E, 1, out]; gq / g4 [E, G, ...]),
+  consumed by `moe_matmul` in the layer's two einsum shapes.
 
 Decode-shape calls go to the fused kernels (ops/quant_matmul: B3 and B4 on
 the card); everything else takes the dequantize-then-matmul forms here,
 which are the JAX package's XLA forms. The quantizers give the JAX
 package's integers and scales bit for bit: the torch ones those of its
 compiled quantize_params, the numpy ones those of its numpy loader path.
+`init_params_quantized` builds a random tree straight in the quantized
+form, one layer at a time, so a model whose bf16 weights would not fit
+(mixtral-8x7b on one 80 GB card) never exists in bf16.
 
-Not ported yet: GGUF ingestion (engine/gguf.py) and `init_params_quantized`
-(ROADMAP Queue A item 5, checkpoint formats), and the MoE forms (Queue A
-item 10, other decoder families).
+Not ported yet: GGUF ingestion (engine/gguf.py; ROADMAP Queue A item 5,
+checkpoint formats).
 """
 
 from __future__ import annotations
@@ -120,6 +125,42 @@ def matmul(x: torch.Tensor, w) -> torch.Tensor:
 matmul.dequant_calls = 0
 
 
+def _moe_grouped_mm(x: torch.Tensor, w: dict, sub: str) -> torch.Tensor:
+    """Grouped int8 / int4 expert stacks [E, G, gs(, packed), out] in the
+    two MoE einsum shapes: dequantized in x's dtype, one einsum, the int4
+    zero point as the rank-1 correction (the JAX package scales each
+    group's partial sum instead, which differs only in rounding)."""
+    qv = _grouped_values(w, x.dtype)  # [E, G, gs, out]
+    e, g, gs, n_out = qv.shape
+    out = torch.einsum(sub, x, (qv * w["gs"].to(x.dtype)).reshape(e, g * gs, n_out))
+    if "gz" in w:
+        xsum = x.reshape(*x.shape[:-1], g, gs).sum(dim=-1)  # [..., (E,) G]
+        xg = "...eg" if sub == quant_matmul.MOE_PER_EXPERT else "...g"
+        out = out - torch.einsum(f"{xg},egn->...en", xsum, w["gz"].to(x.dtype)[..., 0, :])
+    return out
+
+
+def moe_matmul(x: torch.Tensor, w, sub: str) -> torch.Tensor:
+    """Every expert's product for the mixture-of-experts layer's two einsum
+    shapes (ops/quant_matmul.MOE_SHARED, MOE_PER_EXPERT), plain or quantized
+    expert stacks w [E, in, out]. Quantized decode-shape calls go to B3's
+    expert form (one launch for every expert); the rest take the
+    dequantize-then-matmul forms, counted in `moe_matmul.dequant_calls`."""
+    if isinstance(w, dict):
+        y = quant_matmul.dispatch_moe_mm(x, w, sub)
+        if y is not None:
+            return y
+        moe_matmul.dequant_calls += 1
+        if "q" in w:
+            return torch.einsum(sub, x, w["q"].to(x.dtype)) * w["s"].to(x.dtype)[..., 0, :]
+        return _moe_grouped_mm(x, w, sub)
+    return torch.einsum(sub, x, w)
+
+
+# Quantized expert products served by the dequantize-then-matmul forms.
+moe_matmul.dequant_calls = 0
+
+
 def is_quantized(w) -> bool:
     return isinstance(w, dict) and ("q" in w or "gq" in w or "g4" in w)
 
@@ -174,19 +215,23 @@ def dequantize_tensor(w) -> torch.Tensor:
     return vals.reshape(*lead, g * gs, n_out)
 
 
+def _quantizer(mode: str):
+    if mode == "int8":
+        return quantize_tensor
+    if mode == "int4":
+        return quantize_tensor_g4
+    raise ValueError(f"unsupported quantization mode {mode!r}")
+
+
 def quantize_params(cfg, params: Params, mode: str = "int8") -> Params:
     """Quantize a llama-family param tree's matmul weights where they lie.
     Each stacked weight is quantized one layer at a time (the reductions
-    never cross layers, so the result equals a whole-stack pass) to bound
-    the f32 temporaries."""
+    never cross layers or experts, so the result equals a whole-stack pass)
+    to bound the f32 temporaries; an expert stack [L, E, in, out] gives
+    s [L, E, 1, out] and gq / g4 [L, E, G, ...]."""
     if mode in ("", "none", None):
         return params
-    if mode == "int8":
-        qfn = quantize_tensor
-    elif mode == "int4":
-        qfn = quantize_tensor_g4
-    else:
-        raise ValueError(f"unsupported quantization mode {mode!r}")
+    qfn = _quantizer(mode)
     out = dict(params)
     layers = dict(params["layers"])
     for key in QUANT_LAYER_KEYS:
@@ -200,6 +245,53 @@ def quantize_params(cfg, params: Params, mode: str = "int8") -> Params:
         # the scale lands on the vocab axis.
         out["lm_head"] = _int8_over(params["lm_head"].float(), -1)  # q [V, D], s [V, 1]
     return out
+
+
+def init_params_quantized(cfg, seed: int = 0, scale: float = 0.02, mode: str = "int8",
+                          device=None) -> Params:
+    """Random init that lands in the quantized form: the tree of
+    `quantize_params(cfg, init_params(cfg), mode)` (same keys, shapes and
+    dtypes), built leaf by leaf on `device`. Each matmul stack is drawn
+    (normal · scale, f32, from a torch.Generator seeded with `seed`) and
+    quantized one layer at a time into its preallocated stacked payload and
+    scales, so device memory peaks at the quantized tree plus one layer's
+    f32 weight (mixtral-8x7b int4: ~35 GB, where bf16 would need 93 GB).
+    Its values are not the JAX package's `init_params_quantized`'s."""
+    from localai_tpu_torch.device import resolve_device
+    from localai_tpu_torch.models.llama import param_specs, torch_dtype
+
+    qfn = _quantizer(mode)
+    device = resolve_device(device)
+    dt = torch_dtype(cfg.dtype)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def normal(shape):
+        return torch.randn(shape, generator=gen, dtype=torch.float32, device=device) * scale
+
+    def leaf(name: str, shape, kind: str):
+        if kind == "ones":
+            return torch.ones(shape, dtype=dt, device=device)
+        if kind == "zeros":
+            return torch.zeros(shape, dtype=dt, device=device)
+        if name == "lm_head" and not cfg.tie_embeddings:
+            return _int8_over(normal(shape), -1)  # q [V, D], s [V, 1]
+        if name not in QUANT_LAYER_KEYS:
+            return normal(shape).to(dt)
+        stack = None
+        for li in range(shape[0]):
+            part = qfn(normal(shape[1:]))
+            if stack is None:
+                stack = {k: torch.empty((shape[0], *v.shape), dtype=v.dtype, device=device)
+                         for k, v in part.items()}
+            for k, v in part.items():
+                stack[k][li].copy_(v)
+        return stack
+
+    specs = param_specs(cfg)
+    return {name: ({k: leaf(k, shape, kind) for k, (shape, kind) in spec.items()}
+                   if name == "layers" else leaf(name, *spec))
+            for name, spec in specs.items()}
 
 
 def unembed_matmul(h: torch.Tensor, w) -> torch.Tensor:

@@ -16,6 +16,12 @@ Weight forms (models/quant.py):
 - packed int4    {"g4": [G, gs/2, out] u8, "gs", "gz": [G, 1, out] f32}
   (low nibble = first gs/2 in-rows of the group; value = nibble·s − z)
 - unembed        {"q": [V, D] i8, "s": [V, 1] f32}, used transposed.
+- the expert form: each of the three with a leading expert axis [E, ...],
+  for the mixture-of-experts layer's two products (`qmm_moe`): x [N, in]
+  shared by every expert ("...d,edf->...ef", gate and up) or x [N, E, in],
+  one row per expert ("...ef,efd->...ed", down), out [N, E, out]. One
+  launch covers every expert (the TPU kernel's grid over (expert, out
+  tile, k chunk)).
 
 B3 on bf16 x splits the reduction across blocks by the plan of
 `qmm_plan`, a plain function of the shapes and the card's SM count; the
@@ -28,9 +34,9 @@ B4 on bf16 h runs persistent blocks over the vocab tiles by the plan of
 `qunembed_plan`, also a plain function of the shapes and the SM count; it
 never splits the reduction, so it needs no workspace.
 
-The dispatchers `dispatch_matmul` / `dispatch_unembed` take decode-shape
-calls (at most QUANT_KERNEL_MAX_ROWS float rows) and return None for the
-rest, which models/quant.py serves with its dequantize-then-matmul forms,
+The dispatchers `dispatch_matmul` / `dispatch_moe_mm` / `dispatch_unembed`
+take decode-shape calls (at most QUANT_KERNEL_MAX_ROWS float rows) and
+return None for the rest, which models/quant.py serves with its dequantize-then-matmul forms,
 exactly where the JAX package leaves its Pallas kernels for XLA.
 """
 
@@ -59,16 +65,18 @@ _STAGE_GROUPS = 4
 
 
 class QmmPlan(NamedTuple):
-    """How B3's bf16 kernel cuts x [N, in] @ w [in, out] into blocks."""
+    """How B3's bf16 kernel cuts x [N, in] @ w [in, out] (for each of
+    `experts` stacked weights) into blocks."""
 
     row_tile: int    # rows of x a block: 8 or 16 (N <= 16), else 64
     block_cols: int  # output columns a block: 128, or 64 with 64-row tiles
     splits: int      # blocks that share one output tile, each over its own k-slice
     k_slice: int     # in-rows a split walks: whole groups of 32; the last split may be short
+    experts: int = 1  # stacked weights, one product each in the same launch
 
     def tiles(self, n_rows: int, n_out: int) -> int:
-        """Output tiles, each with its own split counter."""
-        return -(-n_out // self.block_cols) * -(-n_rows // self.row_tile)
+        """Output tiles of every expert, each with its own split counter."""
+        return self.experts * -(-n_out // self.block_cols) * -(-n_rows // self.row_tile)
 
     def workspace_floats(self, n_rows: int, n_out: int) -> int:
         """f32 partials the splits of one product write (none unsplit)."""
@@ -77,26 +85,28 @@ class QmmPlan(NamedTuple):
         return self.tiles(n_rows, n_out) * self.splits * self.row_tile * self.block_cols
 
 
-def qmm_plan(n_in: int, n_out: int, n_rows: int, sm_count: int) -> QmmPlan:
+def qmm_plan(n_in: int, n_out: int, n_rows: int, sm_count: int,
+             n_experts: int = 1) -> QmmPlan:
     """The split plan of B3's bf16 kernel. Up to 16 rows (every decode
-    batch) the plan depends on (n_in, n_out) only, so a row's sums run in
-    the same order whatever the batch; 8 and 16 rows differ in the row tile
-    alone, which does not change a row's arithmetic. The split count is the
-    least that gives _BLOCKS_PER_SM blocks per SM, within k-slices of at
-    least _MIN_SLICE_GROUPS groups and whole stages; no split is empty."""
+    batch) the plan depends on (n_experts, n_in, n_out) only, so a row's
+    sums run in the same order whatever the batch; 8 and 16 rows differ in
+    the row tile alone, which does not change a row's arithmetic. The split
+    count is the least that gives _BLOCKS_PER_SM blocks per SM over every
+    expert's tiles, within k-slices of at least _MIN_SLICE_GROUPS groups and
+    whole stages; no split is empty."""
     if n_rows <= 16:
         row_tile, block_cols, row_tiles = (8 if n_rows <= 8 else 16), 128, 1
     else:
         row_tile, block_cols = 64, 64
         row_tiles = -(-n_rows // row_tile)
-    tiles = -(-n_out // block_cols) * row_tiles
+    tiles = n_experts * -(-n_out // block_cols) * row_tiles
     groups = -(-n_in // KERNEL_GROUP)
     want = -(-_BLOCKS_PER_SM * sm_count // tiles)
     splits = max(1, min(want, groups // _MIN_SLICE_GROUPS))
     slice_groups = -(-groups // splits)
     slice_groups = -(-slice_groups // _STAGE_GROUPS) * _STAGE_GROUPS
     splits = -(-groups // slice_groups)
-    return QmmPlan(row_tile, block_cols, splits, slice_groups * KERNEL_GROUP)
+    return QmmPlan(row_tile, block_cols, splits, slice_groups * KERNEL_GROUP, n_experts)
 
 
 # B4's bf16 kernel (csrc/quant_matmul.cu, unembed_mma_kernel): warps a
@@ -184,14 +194,44 @@ def qmm_plain(x: torch.Tensor, w: dict) -> torch.Tensor:
     return acc.to(x.dtype)
 
 
+# The two einsum shapes of the mixture-of-experts layer (JAX _moe_dense).
+MOE_SHARED = "...d,edf->...ef"      # x [..., in] shared by every expert
+MOE_PER_EXPERT = "...ef,efd->...ed"  # x [..., E, in], one row per expert
+
+
+def qmm_moe_plain(x: torch.Tensor, w: dict, sub: str) -> torch.Tensor:
+    """Plain version of B3's expert form: x [..., in] (MOE_SHARED) or
+    [..., E, in] (MOE_PER_EXPERT) by the stacked quantized w [E, ...] →
+    [..., E, out] in x.dtype, with qmm_plain's arithmetic on every expert:
+    f32 products, the flat scale on the finished sum, grouped scales on the
+    values, the int4 zero point as the rank-1 correction."""
+    if sub not in (MOE_SHARED, MOE_PER_EXPERT):
+        raise ValueError(f"unsupported MoE einsum {sub!r}")
+    xe = "...ei" if sub == MOE_PER_EXPERT else "...i"
+    xf = x.float()
+    if "q" in w:
+        acc = torch.einsum(f"{xe},eio->...eo", xf, w["q"].float())
+        return (acc * w["s"].float()[:, 0, :]).to(x.dtype)
+    vals = _grouped_values(w, torch.float32)  # [E, G, gs, out]
+    E, G, gs, out = vals.shape
+    acc = torch.einsum(f"{xe},eio->...eo", xf,
+                       (vals * w["gs"].float()).reshape(E, G * gs, out))
+    if "gz" in w:
+        xs = xf.reshape(*xf.shape[:-1], G, gs).sum(dim=-1)  # [..., (E,) G]
+        xg = "...eg" if sub == MOE_PER_EXPERT else "...g"
+        acc = acc - torch.einsum(f"{xg},ego->...eo", xs, w["gz"].float()[:, :, 0, :])
+    return acc.to(x.dtype)
+
+
 def qunembed_plain(h: torch.Tensor, w: dict) -> torch.Tensor:
     """Plain version of B4: h [N, D] @ qᵀ · s → f32 logits [N, V]."""
     return (h.float() @ w["q"].float().t()) * w["s"].float()[:, 0]
 
 
-def _check_common(x, leaves, name: str) -> None:
-    if x.dim() != 2:
-        raise ValueError(f"{name}: x must be [rows, in], got {tuple(x.shape)}")
+def _check_common(x, leaves, name: str, x_dims: int = 2) -> None:
+    if x.dim() != x_dims:
+        want = "[rows, in]" if x_dims == 2 else "[rows, experts, in]"
+        raise ValueError(f"{name}: x must be {want}, got {tuple(x.shape)}")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"{name}: x must be one of {list(_DTYPE_CODE)}, got {x.dtype}")
     if x.shape[0] > QUANT_KERNEL_MAX_ROWS:
@@ -206,72 +246,77 @@ def _check_common(x, leaves, name: str) -> None:
         raise ValueError(f"{name}: x must be contiguous")
 
 
-def _check_qmm_args(x, w: dict) -> tuple[int, int, int]:
-    """(form code, out, group size) after checking what the kernel takes."""
+def _check_qmm_args(x, w: dict, experts: int = 0, per_expert: bool = False,
+                    name: str = "qmm") -> tuple[int, int, int]:
+    """(form code, out, group size) after checking what the kernel takes.
+    experts = 0: the 2-D form (x [N, in], w [in, out]); else the expert
+    form, w stacked [experts, ...], x [N, in] or, per_expert, [N, E, in]."""
     key = _payload_key(w)
     pay = w[key]
     leaves = [(k, w[k]) for k in (key, "s", "gs", "gz") if k in w]
-    _check_common(x, leaves, "qmm")
-    n_in = x.shape[1]
+    _check_common(x, leaves, name, 3 if per_expert else 2)
+    n_in = x.shape[-1]
+    if per_expert and x.shape[1] != experts:
+        raise ValueError(f"{name}: x has {x.shape[1]} experts, the weight {experts}")
+    lead = (experts,) if experts else ()
     if key == "q":
-        if pay.dim() != 2 or pay.dtype != torch.int8 or pay.shape[0] != n_in:
-            raise ValueError(f"qmm: flat weight must be int8 [{n_in}, out], got "
+        if (pay.dim() != 2 + len(lead) or pay.dtype != torch.int8
+                or tuple(pay.shape[:-1]) != (*lead, n_in)):
+            raise ValueError(f"{name}: flat weight must be int8 {[*lead, n_in, 'out']}, got "
                              f"{pay.dtype} {tuple(pay.shape)}")
-        out, gs = pay.shape[1], 0
-        scales = {"s": (1, out)}
+        out, gs = pay.shape[-1], 0
+        scales = {"s": (*lead, 1, out)}
     else:
         want = torch.uint8 if key == "g4" else torch.int8
-        if pay.dim() != 3 or pay.dtype != want:
-            raise ValueError(f"qmm: {key} must be {want} [G, rows, out], got "
+        if pay.dim() != 3 + len(lead) or pay.dtype != want or tuple(pay.shape[:len(lead)]) != lead:
+            raise ValueError(f"{name}: {key} must be {want} {[*lead, 'G', 'rows', 'out']}, got "
                              f"{pay.dtype} {tuple(pay.shape)}")
-        G, rows, out = pay.shape
+        G, rows, out = pay.shape[-3:]
         gs = rows * 2 if key == "g4" else rows
         if G * gs != n_in:
-            raise ValueError(f"qmm: {G} groups of {gs} do not cover in = {n_in}")
+            raise ValueError(f"{name}: {G} groups of {gs} do not cover in = {n_in}")
         if gs != KERNEL_GROUP:
-            raise ValueError(f"qmm: group size {gs} not supported by the kernel "
+            raise ValueError(f"{name}: group size {gs} not supported by the kernel "
                              f"(needs {KERNEL_GROUP})")
-        scales = {"gs": (G, 1, out)}
+        scales = {"gs": (*lead, G, 1, out)}
         if key == "g4":
-            scales["gz"] = (G, 1, out)
-    for name, shape in scales.items():
-        t = w.get(name)
+            scales["gz"] = (*lead, G, 1, out)
+    for sname, shape in scales.items():
+        t = w.get(sname)
         if t is None or t.dtype != torch.float32 or tuple(t.shape) != shape:
-            raise ValueError(f"qmm: {name} must be float32 {list(shape)}")
+            raise ValueError(f"{name}: {sname} must be float32 {list(shape)}")
         if t.data_ptr() % 16:  # read as float4
-            raise ValueError(f"qmm: {name} must be 16-byte aligned")
+            raise ValueError(f"{name}: {sname} must be 16-byte aligned")
     if out % 4:
-        raise ValueError(f"qmm: out = {out} must be a multiple of 4 (32-bit weight loads)")
+        raise ValueError(f"{name}: out = {out} must be a multiple of 4 (32-bit weight loads)")
     if pay.data_ptr() % 4:
-        raise ValueError("qmm: the weight must be 4-byte aligned")
+        raise ValueError(f"{name}: the weight must be 4-byte aligned")
     if x.dtype == torch.bfloat16:  # the tensor-core kernel's 16-byte cp.async copies
         if out % 16:
-            raise ValueError(f"qmm: bf16 x needs out = {out} to be a multiple of 16 "
+            raise ValueError(f"{name}: bf16 x needs out = {out} to be a multiple of 16 "
                              "(16-byte weight rows)")
         if pay.data_ptr() % 16:
-            raise ValueError(f"qmm: bf16 x needs the weight {key} 16-byte aligned")
+            raise ValueError(f"{name}: bf16 x needs the weight {key} 16-byte aligned")
         if n_in % 8 or x.data_ptr() % 16:
-            raise ValueError(f"qmm: bf16 x needs x 16-byte aligned with in = {n_in} "
+            raise ValueError(f"{name}: bf16 x needs x 16-byte aligned with in = {n_in} "
                              "a multiple of 8")
     return _FORM_CODE[key], out, gs
 
 
-def qmm(x: torch.Tensor, w: dict) -> torch.Tensor:
-    """x [N, in] @ the quantized weight w → [N, out] in x.dtype: the CUDA
-    kernel for tensors on the card, the plain version on the CPU."""
-    if x.device.type == "cpu":
-        return qmm_plain(x, w)
-    if x.device.type != "cuda":
-        raise ValueError(f"qmm: unsupported device {x.device}")
-    form, out_dim, gs = _check_qmm_args(x, w)
-    N, n_in = x.shape
-    out = torch.empty((N, out_dim), dtype=x.dtype, device=x.device)
+def _launch_qmm(x, w: dict, form: int, out_dim: int, gs: int, experts: int = 0,
+                per_expert: bool = False) -> torch.Tensor:
+    """One launch of B3 on checked arguments: out [N, out] (experts = 0,
+    the 2-D form) or [N, experts, out]."""
+    N, n_in = x.shape[0], x.shape[-1]
+    shape = (N, experts, out_dim) if experts else (N, out_dim)
+    experts = max(experts, 1)
+    out = torch.empty(shape, dtype=x.dtype, device=x.device)
     s = w["s"] if form == 0 else w["gs"]
     z = w.get("gz")
     ws = cnt = None
     plan = QmmPlan(0, 0, 1, 0)  # f32 x: the scalar kernel takes no plan
     if x.dtype == torch.bfloat16:
-        plan = qmm_plan(n_in, out_dim, N, kernels.sm_count(x.device))
+        plan = qmm_plan(n_in, out_dim, N, kernels.sm_count(x.device), experts)
         if plan.splits > 1:
             ws, cnt = kernels.grow_workspace(_workspaces, x.device,
                                              plan.workspace_floats(N, out_dim),
@@ -282,17 +327,53 @@ def qmm(x: torch.Tensor, w: dict) -> torch.Tensor:
             x.data_ptr(), w[_payload_key(w)].data_ptr(), s.data_ptr(),
             None if z is None else z.data_ptr(), out.data_ptr(),
             None if ws is None else ws.data_ptr(), None if cnt is None else cnt.data_ptr(),
-            N, n_in, out_dim, form, gs, _DTYPE_CODE[x.dtype], plan.row_tile, plan.block_cols,
-            plan.splits, plan.k_slice, torch.cuda.current_stream(x.device).cuda_stream,
+            N, n_in, out_dim, experts, int(per_expert), form, gs, _DTYPE_CODE[x.dtype],
+            plan.row_tile, plan.block_cols, plan.splits, plan.k_slice,
+            torch.cuda.current_stream(x.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"quant_matmul kernel launch failed: CUDA error {rc}")
+    return out
+
+
+def qmm(x: torch.Tensor, w: dict) -> torch.Tensor:
+    """x [N, in] @ the quantized weight w → [N, out] in x.dtype: the CUDA
+    kernel for tensors on the card, the plain version on the CPU."""
+    if x.device.type == "cpu":
+        return qmm_plain(x, w)
+    if x.device.type != "cuda":
+        raise ValueError(f"qmm: unsupported device {x.device}")
+    form, out_dim, gs = _check_qmm_args(x, w)
+    out = _launch_qmm(x, w, form, out_dim, gs)
     qmm.launches += 1
     return out
 
 
 # Launches of the CUDA kernel (the plain CPU route does not count).
 qmm.launches = 0
+
+
+def qmm_moe(x: torch.Tensor, w: dict, sub: str) -> torch.Tensor:
+    """B3's expert form: x [N, in] (MOE_SHARED) or [N, E, in]
+    (MOE_PER_EXPERT) by the stacked quantized w [E, ...] → [N, E, out] in
+    x.dtype, every expert in one launch of the CUDA kernel for tensors on
+    the card; the plain version on the CPU."""
+    if x.device.type == "cpu":
+        return qmm_moe_plain(x, w, sub)
+    if x.device.type != "cuda":
+        raise ValueError(f"qmm_moe: unsupported device {x.device}")
+    if sub not in (MOE_SHARED, MOE_PER_EXPERT):
+        raise ValueError(f"qmm_moe: unsupported MoE einsum {sub!r}")
+    per_expert = sub == MOE_PER_EXPERT
+    experts = w[_payload_key(w)].shape[0]
+    form, out_dim, gs = _check_qmm_args(x, w, experts, per_expert, "qmm_moe")
+    out = _launch_qmm(x, w, form, out_dim, gs, experts, per_expert)
+    qmm_moe.launches += 1
+    return out
+
+
+# Launches of the expert form (the plain CPU route does not count).
+qmm_moe.launches = 0
 
 
 def _check_unembed_args(h, w: dict) -> None:
@@ -364,10 +445,18 @@ def dispatch_matmul(x: torch.Tensor, w: dict):
 
 
 def dispatch_moe_mm(x, w: dict, sub: str):
-    """The MoE variants of B3 come with the MoE port."""
-    raise NotImplementedError(
-        "quantized mixture-of-experts matmuls are not ported yet (ROADMAP Queue A item 10, "
-        "other decoder families, with Queue B part 1 item 3)")
+    """Fused x @ every expert's w for the mixture-of-experts layer's two
+    einsum shapes (MOE_SHARED: x [..., in] → [..., E, out]; MOE_PER_EXPERT:
+    x [..., E, in] → [..., E, out]), or None: prefill-scale rows (counted
+    without the expert axis), a non-float x, another einsum."""
+    if sub not in (MOE_SHARED, MOE_PER_EXPERT):
+        return None
+    tail = 2 if sub == MOE_PER_EXPERT else 1
+    if not _engaged(x, tail):
+        return None
+    lead = x.shape[:-tail]
+    y = qmm_moe(x.reshape(-1, *x.shape[-tail:]).contiguous(), w, sub)
+    return y.reshape(*lead, *y.shape[1:])
 
 
 def dispatch_unembed(h: torch.Tensor, w: dict):

@@ -4,13 +4,14 @@
         [--slots 8] [--prompt 500] [--steps 16] [--paged]
         [--quant int8|int4] [--kv-cache-dtype fp8|fp8_e5m2] [--lora N]
 
-Builds the engine on random bf16 weights (quantized on the card with
-`--quant`, the KV cache stored in fp8 with `--kv-cache-dtype`; e.g.
-`--arch llama-3-8b --quant int4 --kv-cache-dtype fp8 --paged` profiles a
-quantized paged decode step; `--lora 8` registers 8 runtime LoRA tenants,
-rank 16 on q_proj / v_proj with lora_alpha = r, and gives each admitted
-slot one of them, so the decode block runs the ragged LoRA kernel on every
-layer), runs `Engine.warmup()` (which captures every decode block's CUDA
+Builds the engine on random bf16 weights (with `--quant`, random weights
+made int8 / int4 on the card one layer at a time, so `--arch mixtral-8x7b
+--quant int4 --paged` fits one card; the KV cache stored in fp8 with
+`--kv-cache-dtype`; e.g. `--arch llama-3-8b --quant int4 --kv-cache-dtype
+fp8 --paged` profiles a quantized paged decode step; `--lora 8` registers
+8 runtime LoRA tenants, rank 16 on q_proj / v_proj with lora_alpha = r,
+and gives each admitted slot one of them, so the decode block runs the
+ragged LoRA kernel on every layer), runs `Engine.warmup()` (which captures every decode block's CUDA
 graph) and drives its device paths directly on this thread (the loop
 thread stopped): one fused admission of `--slots` prompts of `--prompt`
 tokens, then one decode block of `--steps` steps over those slots, as the
@@ -113,13 +114,13 @@ def main(argv=None) -> None:
     from localai_tpu_torch.engine.weights import random_lora_adapter
     from localai_tpu_torch.models import get_arch
     from localai_tpu_torch.models.llama import init_params
-    from localai_tpu_torch.models.quant import quantize_params
+    from localai_tpu_torch.models.quant import init_params_quantized
 
     cfg = get_arch(args.arch)
-    params = init_params(cfg, seed=0, device="cuda")
     if args.quant:
-        params = quantize_params(cfg, params, args.quant)
-        torch.cuda.empty_cache()
+        params = init_params_quantized(cfg, seed=0, mode=args.quant, device="cuda")
+    else:
+        params = init_params(cfg, seed=0, device="cuda")
     gen = torch.Generator().manual_seed(0)
     slots = list(range(args.slots))
     tmp = tempfile.TemporaryDirectory()

@@ -280,11 +280,13 @@ class ModelManager:
 
     def _load(self, cfg: ModelConfig) -> LoadedModel:
         """Load a llama-backend model: a preset name draws random weights
-        from seed 0 on the device, a directory is read as an HF checkpoint
-        (quantized and LoRA-merged on the host as it is read)."""
+        from seed 0 on the device (straight into the quantized form with
+        `quantization`), a directory is read as an HF checkpoint (quantized
+        and LoRA-merged on the host as it is read)."""
         from localai_tpu_torch.engine.weights import arch_from_hf_config, load_hf_checkpoint
         from localai_tpu_torch.models.config import PRESETS, get_arch
         from localai_tpu_torch.models.llama import init_params
+        from localai_tpu_torch.models.quant import init_params_quantized
 
         if cfg.backend != "llama":
             raise UnsupportedBackendError(
@@ -322,6 +324,12 @@ class ModelManager:
                                         quantize=cfg.quantization, lora=lora or None)
             for adir, w in lora:
                 log.info("model %s: merged lora adapter %s (weight=%.2f)", cfg.name, adir, w)
+        elif cfg.quantization and cfg.quantization != "none":
+            # A preset with quantization is drawn straight into the quantized
+            # form, one layer at a time, so a model whose bf16 weights would
+            # not fit (mixtral-8x7b) still loads.
+            params = init_params_quantized(arch, seed=0, mode=cfg.quantization,
+                                           device=self.device)
         else:
             params = init_params(arch, seed=0, device=self.device)
         engine = Engine(

@@ -350,10 +350,11 @@ QMM_SHAPES = [(96, 80), (4096, 1024), (4096, 4096), (4096, 14336), (14336, 4096)
 
 
 def _grouped_int8(w, group=32):
-    """Group-wise symmetric int8 (GGUF q8_0's layout): {"gq", "gs"}."""
-    g = w.shape[0] // group
-    wg = w.float().reshape(g, group, w.shape[1])
-    s = torch.clamp(wg.abs().amax(dim=1, keepdim=True) / 127.0, min=1e-9)
+    """Group-wise symmetric int8 (GGUF q8_0's layout) over the in (-2) axis,
+    leading axes kept: {"gq", "gs"}."""
+    g = w.shape[-2] // group
+    wg = w.float().reshape(*w.shape[:-2], g, group, w.shape[-1])
+    s = torch.clamp(wg.abs().amax(dim=-2, keepdim=True) / 127.0, min=1e-9)
     return {"gq": torch.clamp(torch.round(wg / s), -127, 127).to(torch.int8), "gs": s}
 
 
@@ -551,6 +552,105 @@ def test_quant_cuda_tensors_never_take_the_plain_route(card, monkeypatch):
         qm.qmm(x[0].half(), quant.quantize_tensor(w))
     with pytest.raises(ValueError, match="at most"):
         qm.qmm(torch.zeros(300, 64, device="cuda"), quant.quantize_tensor(w))
+
+
+# B3's expert form: (sub, E, in, out). Mixtral-8x7b's gate / up (x shared
+# by the 8 experts) and down (one x row per expert; two k-splits at decode),
+# then small ragged shapes (a partial column tile, three int4 groups).
+MOE_SHAPES = [("...d,edf->...ef", 8, 4096, 14336), ("...ef,efd->...ed", 8, 14336, 4096),
+              ("...d,edf->...ef", 4, 96, 80), ("...ef,efd->...ed", 3, 96, 80)]
+
+
+def _moe_case(g, sub, E, n_in, n_out, form, N, dtype):
+    qw = _quantized(form, torch.randn(E, n_in, n_out, generator=g, device="cuda") * 0.02)
+    xshape = (N, n_in) if sub == "...d,edf->...ef" else (N, E, n_in)
+    return qw, torch.randn(xshape, generator=g, device="cuda").to(dtype)
+
+
+def _assert_moe_close(got, x, qw, sub):
+    """_assert_qmm_close's tolerance on every expert's product."""
+    from localai_tpu_torch.ops.quant_matmul import qmm_moe_plain
+
+    want = qmm_moe_plain(x, qw, sub)
+    assert got.dtype == x.dtype and got.shape == want.shape
+    scale = qmm_moe_plain(x.float(), qw, sub).abs().max().item()
+    err = (got.float() - want.float()).abs()
+    if x.dtype == torch.float32:
+        assert err.max().item() <= 1e-4 * scale
+    else:
+        assert (err <= 2.0**-7 * want.float().abs() + 1e-4 * scale).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["int8", "grouped_int8", "int4"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("sub, E, n_in, n_out", MOE_SHAPES)
+def test_qmm_moe_kernel_matches_plain_version(card, sub, E, n_in, n_out, dtype, form):
+    """Every expert in one launch, against the plain version; the output
+    [N, E, out] lands in the layout the MoE combine reads."""
+    from localai_tpu_torch.ops.quant_matmul import qmm_moe
+
+    g = torch.Generator(device="cuda").manual_seed(E + n_in + n_out)
+    for N in (1, 3, 8, 13, 16, 64, 256):
+        qw, x = _moe_case(g, sub, E, n_in, n_out, form, N, dtype)
+        before = qmm_moe.launches
+        got = qmm_moe(x, qw, sub)
+        torch.cuda.synchronize()
+        assert qmm_moe.launches == before + 1
+        assert got.shape == (N, E, n_out)
+        _assert_moe_close(got, x, qw, sub)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["int8", "grouped_int8", "int4"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("sub, E, n_in, n_out", MOE_SHAPES)
+def test_qmm_moe_kernel_is_deterministic_per_row(card, sub, E, n_in, n_out, dtype, form):
+    """Launched again, the same bits; up to 16 rows, every row the same bits
+    as that row launched alone (the plan depends on (E, in, out) only)."""
+    from localai_tpu_torch.ops.quant_matmul import qmm_moe
+
+    g = torch.Generator(device="cuda").manual_seed(3 * E + n_in + n_out)
+    for N in (8, 13, 64):
+        qw, x = _moe_case(g, sub, E, n_in, n_out, form, N, dtype)
+        got = qmm_moe(x, qw, sub)
+        assert torch.equal(got, qmm_moe(x, qw, sub))
+        if N <= 16:
+            for i in range(N):
+                assert torch.equal(got[i:i + 1], qmm_moe(x[i:i + 1].contiguous(), qw, sub)), (N, i)
+
+
+@pytest.mark.cuda
+def test_moe_cuda_tensors_never_take_the_plain_route(card, monkeypatch):
+    """The MoE layer's quantized products launch the expert form (one launch
+    a projection) and never the plain version; what the kernel does not
+    take raises."""
+    from localai_tpu_torch.models import quant
+    from localai_tpu_torch.ops import quant_matmul as qm
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a plain quantized matmul ran on CUDA tensors")
+
+    monkeypatch.setattr(qm, "qmm_moe_plain", refuse)
+    monkeypatch.setattr(qm, "qmm_plain", refuse)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    w = torch.randn(4, 64, 96, generator=g, device="cuda")
+    x = torch.randn(2, 3, 64, generator=g, device="cuda").to(torch.bfloat16)
+    xe = torch.randn(2, 3, 4, 96, generator=g, device="cuda").to(torch.bfloat16)
+    wd = torch.randn(4, 96, 64, generator=g, device="cuda")
+    before = qm.qmm_moe.launches, qm.qmm.launches
+    for form in ("int8", "grouped_int8", "int4"):
+        assert quant.moe_matmul(x, _quantized(form, w), qm.MOE_SHARED).shape == (2, 3, 4, 96)
+        assert quant.moe_matmul(xe, _quantized(form, wd), qm.MOE_PER_EXPERT).shape == \
+            (2, 3, 4, 64)
+    torch.cuda.synchronize()
+    assert (qm.qmm_moe.launches, qm.qmm.launches) == (before[0] + 6, before[1])
+    with pytest.raises(ValueError, match="experts"):
+        qm.qmm_moe(xe[0, :, :3].contiguous(), _quantized("int8", wd), qm.MOE_PER_EXPERT)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        qm.qmm_moe(x[0], _quantized("int8", w[..., :88].contiguous()), qm.MOE_SHARED)
+    with pytest.raises(ValueError, match="at most"):
+        qm.qmm_moe(torch.zeros(300, 64, device="cuda"), _quantized("int8", w), qm.MOE_SHARED)
 
 
 # --------------------------------------------------------------------------- #

@@ -268,9 +268,11 @@ def test_a_lora_rebuild_drops_the_graphs_of_the_old_stacks(weights):
 COUNTERS = ((flash.flash_prefill_attention, "launches"),
             (paged_flash.paged_partials_rows, "launches"),
             (quant_matmul.qmm, "launches"),
+            (quant_matmul.qmm_moe, "launches"),
             (quant_matmul.qunembed, "launches"),
             (lora_matmul.lora_bgmv_group, "launches"),
             (quant.matmul, "dequant_calls"),
+            (quant.moe_matmul, "dequant_calls"),
             (quant.unembed_matmul, "dequant_calls"))
 
 
@@ -295,7 +297,7 @@ def counters():
 
 
 def test_replays_add_the_counts_their_capture_took_back(counters):
-    bumps = (0, 2, 7, 1, 3, 0, 1)
+    bumps = (0, 2, 7, 3, 1, 3, 0, 2, 1)
 
     def capture():  # what the wrappers count while a block is captured
         for (h, a), d in zip(COUNTERS, bumps):

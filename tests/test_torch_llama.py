@@ -138,8 +138,8 @@ def test_write_block_to_cache_clamps_overshoot():
     assert (cache.k[:, 1, :6] == 0).all()
 
 
-@pytest.mark.parametrize("kw", [{"num_experts": 4}, {"kv_lora_rank": 32},
-                                {"mrope_section": (2, 3, 3)}])
+@pytest.mark.parametrize("kw", [{"num_experts": 4, "moe_family": "deepseek"},
+                                {"kv_lora_rank": 32}, {"mrope_section": (2, 3, 3)}])
 def test_unported_features_raise(kw):
     cfg = _cfg(**kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

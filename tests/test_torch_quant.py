@@ -138,9 +138,11 @@ def test_dispatch_splits_by_rows_and_dtype():
     assert tqm.dispatch_matmul(x[:0], w) is None
     stacked = {k: v[None] for k, v in w.items()}  # an expert axis: the MoE form
     assert tqm.dispatch_matmul(x[0], stacked) is None
+    # The MoE dispatch serves the stacked form: its plain version on the CPU.
+    assert torch.equal(tqm.dispatch_moe_mm(x, stacked, "...d,edf->...ef"),
+                       tqm.qmm_moe_plain(x.reshape(256, 64), stacked, "...d,edf->...ef")
+                       .reshape(4, 64, 1, 32))
     assert tqm.qmm.launches == launches  # the CPU never launches
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tqm.dispatch_moe_mm(x, stacked, "...d,edf->...ef")
     with pytest.raises(ValueError, match="unsupported device"):
         tqm.qmm(x[0].to("meta"), w)
 

@@ -102,6 +102,6 @@ def test_arch_from_hf_config_matches_jax(tmp_path):
 def test_bridge_rejects_unported_trees():
     cfg = get_arch("tiny")
     tree = jax.tree.map(np.asarray, jl.init_params(cfg, jax.random.key(0)))
-    tree["layers"]["router"] = np.ones((cfg.num_layers, cfg.hidden_size, 4), np.float32)
+    tree["dense_layers"] = dict(tree["layers"])  # deepseek's dense-layer prefix
     with pytest.raises(NotImplementedError, match="item 10, other decoder families"):
         tw.params_from_numpy(cfg, tree, device="cpu")
