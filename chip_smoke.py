@@ -20,7 +20,13 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    the paged decode and chunked-prefill shapes, on fp8 pools with a
    per-head kv_scale, at G = 7, on pages of 16 and 48 rows with limits at
    split edges, and for a 4-token verify (every output bit-identical when
-   launched again and for each slot alone), B3 dequant-matmul at llama-3-8b's projection shapes
+   launched again and for each slot alone); then B2's long-context forms,
+   a hierarchical table (table pages of 128) under the sink 128 + window
+   4096 skip, at llama-3.2-1b's decode shape for contexts up to 131072, a
+   512-token chunk at offset 65536 and one slot at a 1,048,576-token
+   limit whose pool holds only the pages it visits: hierarchical equal to
+   flat and a spilled table (skipped columns at SCRATCH) equal to the hot
+   one bit for bit, timed beside the same slots walked in full; B3 dequant-matmul at llama-3-8b's projection shapes
    (flat int8, grouped int8, packed int4; bf16 and f32 x; 1, 8, 16, 64 and
    256 rows; every output bit-identical when launched again, and up to 16
    rows for each row alone) and B4 int8 unembed at llama-3-8b's head and a
@@ -99,8 +105,17 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    layers (cut for time), through the paged engine: the flat form;
 16. moe small — a small f32 mixtral-family model's paged engine on the
    card against the same engine on the CPU, unquantized (the exact top-k
-   route) and int4 (the expert form's f32 kernel).
-In 5, 6, 8, 10, 11, 12, 14 and 15 the kernel launch counters, zeroed just
+   route) and int4 (the expert form's f32 kernel);
+17. long context (run right after phase 12's 1b pair) — llama-3.2-1b at
+   full width and depth (16 layers, bf16) serves one 130,000-token prompt
+   and 32 greedy tokens through Engine.submit, after warmup(), on the
+   reference ladder's long-context engine (pages of 128, chunks of 512,
+   sink 128, window 4096): first with flat tables and every page hot,
+   then with table pages of 128 entries and a 2 GiB cold-page spill
+   budget. The ids must be identical and pages must spill within the
+   budget; the phase prints the device ms of each prefill chunk along the
+   prompt, the TTFT, decode tok/s, peak memory and the pages spilled.
+In 5, 6, 8, 10, 11, 12, 14, 15 and 17 the kernel launch counters, zeroed just
 before each run, show that the path went through the kernels; a graph
 replay counts the launches its capture recorded. Every decode block of
 those runs is a graph capture or replay (the eager runs of phases 12 and
@@ -404,23 +419,37 @@ def phase_kernels(gen: torch.Generator) -> list[dict]:
     return rows
 
 
-def _paged_work(qpos, limits, K, D, MP, page, elt, window) -> tuple[float, float]:
+def _paged_work(qpos, limits, K, D, MP, page, elt, window, sink=0, swin=0,
+                span=0) -> tuple[float, float]:
     """(FLOPs, bytes) the paged-partials function needs on this data: QKᵀ
-    and PV over the unmasked (row, key) pairs; the live K/V rows (each
-    slot's min(limit, MP·page)) read once, q rows, table, limits and query
-    positions read once, acc, m and l written once."""
+    and PV over the unmasked (row, key) pairs of the rows each slot visits
+    (its live rows, min(limit, MP·page); under the sink + window skip only
+    the sink pages and the window's: ops/paged_flash.walk_rows); those K/V
+    rows read once, the table entries of the visited pages (and with a
+    hierarchical table the directory entries above them), q rows, limits
+    and query positions read once, acc, m and l written once."""
     import numpy as np
 
+    from localai_tpu_torch.ops.paged_flash import walk_rows
+
     B, QR = qpos.shape
-    lim = np.minimum(np.maximum(limits, 0), MP * page)
-    if window:
-        g = np.arange(int(lim.max()) if B else 0)
-        pairs = sum(int(((g[None, :] < lim[b]) & (qpos[b][:, None] - g[None, :] < window)).sum())
-                    for b in range(B))
-    else:
-        pairs = int(QR * lim.sum())
+    pairs = rows = entries = 0
+    for b in range(B):
+        n_v, sink_rows, gap = walk_rows(int(limits[b]), int(qpos[b].min()), page, MP, sink, swin)
+        g = np.arange(n_v)
+        g = np.where(g < sink_rows, g, g + gap)  # the real rows visited
+        ok = np.ones((QR, n_v), bool)
+        dist = qpos[b][:, None].astype(np.int64) - g[None, :]
+        if window:
+            ok &= dist < window
+        if swin:
+            ok &= (g[None, :] < sink) | (dist < swin)
+        pairs += int(ok.sum())
+        rows += n_v
+        cols = np.unique(g // page)
+        entries += len(cols) + (len(np.unique(cols // span)) if span else 0)
     flops = 4.0 * D * K * pairs
-    nbytes = (2 * elt * int(lim.sum()) * K * D + 4 * B * K * QR * D + 4 * B * MP + 4 * B
+    nbytes = (2 * elt * rows * K * D + 4 * B * K * QR * D + 4 * entries + 4 * B
               + 4 * B * QR + 4 * B * K * QR * (D + 2))
     return flops, nbytes
 
@@ -540,6 +569,138 @@ def phase_paged_kernels(gen: torch.Generator) -> list[dict]:
                          f"repeat bit-identical={repeat_equal}, "
                          f"slots alone bit-identical={alone_equal}")
         rows.append(row)
+    return rows + _long_context_kernel_rows()
+
+
+def _hier_of(table: torch.Tensor, span: int, scratch: int):
+    """A flat table [B, MP] as the engine's hierarchical pair: l0 row 0 the
+    table page of SCRATCH entries, then each slot's table pages in order;
+    l1 the directories [B, MP / span]."""
+    B, MP = table.shape
+    l0 = torch.cat([torch.full((1, span), scratch, dtype=torch.int32, device=table.device),
+                    table.reshape(B * MP // span, span)])
+    l1 = 1 + torch.arange(B * MP // span, dtype=torch.int32, device=table.device)
+    return l1.reshape(B, MP // span).contiguous(), l0.contiguous()
+
+
+# The long-context engine of the reference's ladder (bench.py:2099-2118):
+# pages of 128, sink 128, window 4096, table pages of 128 entries.
+LONG_SINK, LONG_WINDOW, LONG_SPAN = 128, 4096, 128
+
+
+def _long_context_kernel_rows() -> list[dict]:
+    """B2's long-context forms against the plain version, on the card:
+    llama-3.2-1b's decode shape (B = 8, K = 8, G = 4, D = 64, pages of
+    128) at contexts up to 131072 and a 512-token chunk at offset 65536
+    (past the window), each on a hierarchical table under the sink +
+    window skip; then one slot at a 1,048,576-token limit whose pool holds
+    only the pages it visits and SCRATCH. Each holds the hierarchical table
+    to the flat one and a spilled table (skipped columns at SCRATCH) to the
+    hot one bit for bit, repeats and slots alone bit for bit, and times the
+    kernel, the plain version, and the same slots walked in full without
+    the skip. The bound counts the visited rows' bytes only."""
+    import numpy as np
+
+    from localai_tpu_torch import kernels
+    from localai_tpu_torch.ops.paged_flash import (
+        paged_partials_plain, paged_partials_rows, plan_for, walk_rows)
+
+    tol = 2e-4  # as the other B2 rows: f32 on both sides
+    g = torch.Generator(device="cuda").manual_seed(13)
+    sms = kernels.sm_count(torch.device("cuda"))
+    sink, swin, span = LONG_SINK, LONG_WINDOW, LONG_SPAN
+    rows = []
+    for name, B, T, MP, limits in (
+            ("decode_128k_hier_skip", 8, 1, 1024, "ragged"),
+            ("chunk_512_past_window_hier_skip", 1, 512, 1024, [65536]),
+            ("decode_1m_hier_skip", 1, 1, 8192, [1 << 20])):
+        K, G, D, page = 8, 4, 64, 128
+        QR = G * T
+        if limits == "ragged":  # one full slot, one idle slot, the rest random
+            limits = torch.randint(1, MP * page + 1, (B,), generator=g, device="cuda").tolist()
+            limits[0], limits[1] = MP * page, 0
+        lim = torch.tensor(limits, dtype=torch.int32, device="cuda")
+        qpos = (lim[:, None] + torch.arange(QR, device="cuda")[None, :] // G).to(torch.int32)
+        walks = [walk_rows(n, n, page, MP, sink, swin) for n in limits]
+        million = MP * page > 131072
+        if million:
+            # The pool holds the pages the slot visits, then SCRATCH; every
+            # other column of the table points at SCRATCH.
+            n_v, sink_rows, gap = walks[0]
+            cols = sorted({c // page for c in range(sink_rows)}
+                          | set(range((sink_rows + gap) // page, -(-limits[0] // page))))
+            P = len(cols) + 1
+            table = torch.full((1, MP), P - 1, dtype=torch.int32, device="cuda")
+            table[0, cols] = torch.arange(len(cols), dtype=torch.int32, device="cuda")
+        else:
+            P = B * MP + 1
+            table = torch.randperm(P - 1, generator=g, device="cuda")[: B * MP]
+            table = table.reshape(B, MP).to(torch.int32).contiguous()
+        kp = torch.randn(P, page, K, D, generator=g, device="cuda").to(torch.bfloat16)
+        vp = torch.randn(P, page, K, D, generator=g, device="cuda").to(torch.bfloat16)
+        qr = torch.randn(B, K, QR, D, generator=g, device="cuda") / D**0.5
+        hier = _hier_of(table, span, P - 1)
+        spilled = table.clone()
+        for b, (n_v, sink_rows, gap) in enumerate(walks):
+            spilled[b, sink_rows // page:(sink_rows + gap) // page] = P - 1
+        args = (qr, qpos, kp, vp, hier, lim, 0.0, 0, None, sink, swin)
+        before = paged_partials_rows.launches
+        acc, m, l = out = paged_partials_rows(*args)
+        torch.cuda.synchronize()
+        launched = paged_partials_rows.launches - before
+        racc, rm, rl = paged_partials_plain(*args)
+        live = lim > 0
+        o_err = (acc / l.clamp(min=1e-30)[..., None] - racc / rl.clamp(min=1e-30)[..., None])
+        o_err = o_err[live].abs().max().item()
+        m_err = (m - rm)[live].abs().max().item()
+        l_rel = ((l - rl)[live].abs() / rl[live]).max().item()
+
+        def same(x, y):
+            return all(torch.equal(a, c) for a, c in zip(x, y))
+
+        hier_equal_flat = same(out, paged_partials_rows(qr, qpos, kp, vp, table, lim, 0.0, 0,
+                                                         None, sink, swin))
+        spilled_equal_hot = same(out, paged_partials_rows(
+            qr, qpos, kp, vp, _hier_of(spilled, span, P - 1), lim, 0.0, 0, None, sink, swin))
+        repeat_equal = same(out, paged_partials_rows(*args))
+        alone_equal = all(same([a[b:b + 1] for a in out], paged_partials_rows(
+            qr[b:b + 1], qpos[b:b + 1], kp, vp, (hier[0][b:b + 1], hier[1]), lim[b:b + 1],
+            0.0, 0, None, sink, swin)) for b in range(B))
+        plan = plan_for(qr, kp, hier, sms)
+        ms = cuda_time_cold_ms(lambda: paged_partials_rows(*args), 20)
+        plain_ms = cuda_time_cold_ms(lambda: paged_partials_plain(*args), 3)
+        # The same slots walked in full (no skip; every row attended): what
+        # a slot costs without the window. The 1M slot's pool holds too few
+        # pages for that.
+        full_ms = None if million else cuda_time_cold_ms(
+            lambda: paged_partials_rows(qr, qpos, kp, vp, hier, lim), 20)
+        flops, nbytes = _paged_work(qpos.cpu().numpy(), np.asarray(limits), K, D, MP, page, 2,
+                                    0, sink, swin, span)
+        t_ops, t_bytes = flops / PEAK_FLOPS[torch.bfloat16] * 1e3, nbytes / PEAK_BYTES * 1e3
+        row = dict(shape=name, form="hierarchical table + sink/window skip", B=B, H=G * K, K=K,
+                   QR=QR, D=D, page=page, MP=MP, span=span, sink=sink, swin=swin, pool_pages=P,
+                   pool_dtype="bfloat16", limits=limits,
+                   visited_rows=[w[0] for w in walks], launches=launched,
+                   max_abs_err=o_err, m_err=m_err, l_rel_err=l_rel, tol=tol,
+                   hier_equal_flat=hier_equal_flat, spilled_equal_hot=spilled_equal_hot,
+                   repeat_equal=repeat_equal, alone_equal=alone_equal,
+                   ok=max(o_err, m_err, l_rel) <= tol and hier_equal_flat and spilled_equal_hot
+                   and repeat_equal and alone_equal and launched == 1
+                   and bool(torch.isfinite(acc).all()),
+                   plan={**plan._asdict(), "grid": [plan.splits, K * -(-QR // plan.row_tile), B]},
+                   ms=ms, plain_ms=plain_ms, full_walk_ms=full_ms, library_ms=None,
+                   bound_ms=max(t_ops, t_bytes), bound_frac=max(t_ops, t_bytes) / ms,
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   bound_basis="FLOPs over the bf16 tensor-core peak, the visited rows' bytes "
+                               "over HBM")
+        log(f"[kernel paged_attention long] {json.dumps(row)}")
+        check(row["ok"], f"paged_attention {name}: acc/l err {o_err}, m err {m_err}, l rel err "
+                         f"{l_rel} (tol {tol}), hier = flat {hier_equal_flat}, spilled = hot "
+                         f"{spilled_equal_hot}, repeat {repeat_equal}, alone {alone_equal}, "
+                         f"launches {launched}")
+        rows.append(row)
+        del kp, vp, out, acc, racc
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1242,6 +1403,109 @@ def phase_quant_engines(model: dict, small, p_small, p_small_cpu) -> dict:
         f"{texts['cuda'] == texts['cpu']}")
     check(texts["cuda"] == texts["cpu"], "small int4 + fp8 engine: card ids differ from the CPU's")
     return runs
+
+
+# --------------------------------------------------------------------------- #
+# 17. long context: llama-3.2-1b serving a 130,000-token prompt
+# --------------------------------------------------------------------------- #
+
+# The reference ladder's long-context engine (bench.py:2099-2118) at
+# llama-3.2-1b's max_position: two slots, pages of 128, chunks of 512,
+# sink 128 + window 4096; the hierarchical + spill engine adds table pages
+# of 128 entries and a 2 GiB host budget for cold pages.
+LONG_ENGINE = dict(max_slots=2, max_seq=131072, kv_pages=131072 // 128 + 8, kv_page_size=128,
+                   prefill_chunk=512, attention_sink=LONG_SINK, attention_window=LONG_WINDOW,
+                   block_sizes=(16, 4, 1))
+LONG_SPILL = dict(kv_l1_span=LONG_SPAN, kv_spill_bytes=2 << 30)
+LONG_PROMPT, LONG_NEW = 130_000, 32
+
+
+def phase_long_context() -> dict:
+    """llama-3.2-1b at full width and depth (16 layers, bf16, seeded random
+    weights) serves one 130,000-token prompt and 32 greedy tokens through
+    Engine.submit, first on the flat all-hot windowed engine, then on the
+    hierarchical + spill one. The ids must be identical, cold pages must
+    spill within the budget, and B2 must have run for every layer of every
+    chunk and decode step. Prints the device ms of each chunk (from CUDA
+    events around it: flat along the prompt, since each chunk walks the
+    sink and the window only), the TTFT, decode tok/s and peak memory."""
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig
+    from localai_tpu_torch.engine.tokenizer import ByteTokenizer
+    from localai_tpu_torch.models import get_arch, llama
+
+    gc.collect()  # what earlier phases left unreferenced goes first
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()  # what earlier phases still hold
+    cfg = get_arch("llama-3.2-1b")
+    params = llama.init_params(cfg, seed=5, device="cuda")
+    runs = {}
+    for label, kw in (("flat", {}), ("hier_spill", LONG_SPILL)):
+        torch.cuda.reset_peak_memory_stats()
+        eng = Engine(cfg, params, ByteTokenizer(cfg.vocab_size), device="cuda",
+                     engine_cfg=EngineConfig(**LONG_ENGINE, **kw))
+        chunks = []
+        dispatch = eng._dispatch_chunk
+
+        def timed(st, n, with_logits=False, dispatch=dispatch, chunks=chunks):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = dispatch(st, n, with_logits)
+            b.record()
+            chunks.append((st["offset"], a, b))
+            return out
+
+        eng._dispatch_chunk = timed
+        t0 = time.monotonic()
+        eng.warmup()  # every decode-block graph captured before the request
+        warm_s = time.monotonic() - t0
+        chunks.clear()
+        torch.cuda.synchronize()
+        out = _serve(eng, [LONG_PROMPT], max_new=LONG_NEW, keep_ids=True)
+        m = eng.metrics()
+        torch.cuda.synchronize()
+        ms = [a.elapsed_time(b) for _off, a, b in chunks]
+        L, n = cfg.num_layers, out["launches"]
+        check(n["paged_attention"] == L * (out["decode_steps"] + out["prefill_chunks"])
+              and out["prefill_chunks"] == -(-LONG_PROMPT // 512) and n["flash_prefill"] == 0,
+              f"long context {label}: B2 launches {n['paged_attention']} != {L} layers x "
+              f"({out['decode_steps']} decode steps + {out['prefill_chunks']} chunks), "
+              f"flash {n['flash_prefill']}")
+        _check_graphs(f"long context {label}", out)
+        tenth = max(1, len(ms) // 10)
+        out.update(
+            engine={**LONG_ENGINE, **kw}, prompt_tokens=LONG_PROMPT, warmup_s=warm_s,
+            chunk_ms_first_tenth=statistics.mean(ms[:tenth]),
+            chunk_ms_last_tenth=statistics.mean(ms[-tenth:]),
+            chunk_ms_median=statistics.median(ms), chunk_ms_max=max(ms),
+            chunk_ms_by_offset={str(off): round(x, 3) for (off, _a, _b), x in
+                                list(zip(chunks, ms))[::32]},
+            # This phase's peak: the weights, the engine's pool, graphs and
+            # workspaces, and the run's transients (spill gathers included).
+            peak_memory_bytes=torch.cuda.max_memory_allocated() - before,
+            kv_pages_spilled=int(m["kv_pages_spilled"]),
+            kv_spill_bytes_out=int(m["kv_spill_bytes_out"]),
+            kv_spill_skips=int(m["kv_spill_skips"]))
+        log(f"[long_context {label}] " + json.dumps({k: v for k, v in out.items() if k != "ids"}))
+        runs[label] = out
+        del eng, dispatch, timed  # the pool goes before the next engine's
+        gc.collect()
+        torch.cuda.empty_cache()
+    flat, spl = runs["flat"], runs["hier_spill"]
+    summary = {k: {label: r[k] for label, r in runs.items()} for k in (
+        "ttft_ms_p50", "decode_tok_s", "chunk_ms_first_tenth", "chunk_ms_last_tenth",
+        "chunk_ms_median", "chunk_ms_max", "peak_memory_bytes", "kv_pages_spilled",
+        "kv_spill_bytes_out", "prefill_chunks", "decode_steps")}
+    summary["ids_equal"] = flat["ids"] == spl["ids"]
+    log("[long_context llama-3.2-1b, 16 layers] " + json.dumps(summary))
+    check(flat["ids"] == spl["ids"],
+          "long context: the hierarchical + spill engine's ids differ from the flat engine's")
+    check(flat["kv_pages_spilled"] == 0 and 0 < spl["kv_pages_spilled"]
+          and spl["kv_spill_bytes_out"] <= LONG_SPILL["kv_spill_bytes"],
+          f"long context: spilled pages {spl['kv_pages_spilled']} "
+          f"({spl['kv_spill_bytes_out']} bytes; budget {LONG_SPILL['kv_spill_bytes']})")
+    for out in runs.values():
+        del out["ids"]
+    return {"summary": summary, **runs}
 
 
 # --------------------------------------------------------------------------- #
@@ -2165,6 +2429,7 @@ def main() -> None:
                       model["cfg"], model["params"])
     del model["params"]
     torch.cuda.empty_cache()
+    long_context = timed("long_context", phase_long_context)
     qmodel = timed("quant_model", phase_quant_model, gen)
     qruns = timed("quant_engines", phase_quant_engines, qmodel, model["small"],
                   model["p_small"], model["p_small_cpu"])
@@ -2185,7 +2450,9 @@ def main() -> None:
             "graphs_1b": graphs_1b["graph"], "graphs_1b_eager": graphs_1b["eager"],
             "graphs_8b": graphs_8b["graph"], "graphs_8b_eager": graphs_8b["eager"],
             "mixtral_int4": mixtral["graph"], "mixtral_int4_eager": mixtral["eager"],
-            "mixtral_int8_8_layers": mixtral_int8}
+            "mixtral_int8_8_layers": mixtral_int8,
+            "long_context_flat": long_context["flat"],
+            "long_context_hier_spill": long_context["hier_spill"]}
     by_path = {k: {path: out["launches"][k] for path, out in runs.items()}
                for k in ("flash_prefill", "paged_attention", "quant_matmul", "quant_matmul_moe",
                          "quant_unembed", "lora_bgmv")}
@@ -2219,8 +2486,10 @@ def main() -> None:
         "ragged": _compact(ragged_row, ("shape", "lengths", "ms", "plain_ms", "bound_ms")),
         "shapes": rows,
     }
-    # The main shape of B2: llama-3.2-1b paged decode, 8 slots, D = 64.
+    # The main shape of B2: llama-3.2-1b paged decode, 8 slots, D = 64; its
+    # long-context forms are the rows with a "form".
     paged_main = paged_rows[0]
+    long_rows = [r for r in paged_rows if "form" in r]
     paged_record = {
         "name": "paged_attention",
         "route": "cuda",
@@ -2244,6 +2513,19 @@ def main() -> None:
         "alone_equal": all(r["alone_equal"] for r in paged_rows),
         # ptxas: registers, spill bytes, static shared memory of each instance.
         "ptxas": [r for r in usage["paged_attention"] if "paged_" in r["kernel"]],
+        # The hierarchical (l1, l0) tables and the sink + window skip: each
+        # form's times against its bound, its plain version and the same
+        # slots walked in full, and the 130k-token engine runs.
+        "long_context": {
+            "forms": [_compact(r, ("shape", "form", "B", "QR", "MP", "span", "sink", "swin",
+                                   "visited_rows", "ms", "plain_ms", "full_walk_ms",
+                                   "bound_ms", "bound_by", "library_ms", "max_abs_err",
+                                   "hier_equal_flat", "spilled_equal_hot"))
+                      for r in long_rows],
+            "hier_equal_flat": all(r["hier_equal_flat"] for r in long_rows),
+            "spilled_equal_hot": all(r["spilled_equal_hot"] for r in long_rows),
+            "engine": long_context["summary"],
+        },
         "shapes": paged_rows,
     }
     # The main shape of B3: llama-3-8b's w_gate at a decode block of 8 slots,

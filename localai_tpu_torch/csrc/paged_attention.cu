@@ -1,18 +1,34 @@
 // Ragged paged-attention partials for Hopper (sm_90a).
 //
 // Replaces the TPU kernel localai_tpu/ops/paged_flash.py::_ragged_paged_kernel
-// (launched by _paged_partials_rows, paged_flash.py:289). Same function:
-// for each slot b, kv head kh and query row r, the online-softmax partials
-// of q[b, kh, r] against the rows g < limits[b] of the slot's context,
-// where row g lives in pool page table[b, g / page] at offset g % page:
+// (launched by _paged_partials_rows, paged_flash.py:289), both of its
+// table layouts and its sink + window skip. Same function: for each slot
+// b, kv head kh and query row r, the online-softmax partials of
+// q[b, kh, r] against the rows g < limits[b] of the slot's context, where
+// row g lives in pool page tab(b, g / page) at offset g % page:
+//   tab(b, j) = table[b, j]                          (flat table, span 0)
+//   tab(b, j) = l0[table[b, j / span], j % span]    (hierarchical: table is
+//               the L1 directory [B, MP / span] of table-page ids into the
+//               global l0 [NTP, span]; both indices clamped)
 //   s = q . k_g          (q rows arrive in f32 with 1/sqrt(D) applied)
 //   s = softcap * tanh(s / softcap)          when softcap > 0, before masking
 //   g is masked when g >= limits[b], or when window > 0 and
 //     qpos[b, r] - g >= window (the layer's sliding flag is a runtime
-//     operand: the wrapper passes window 0 for a global layer)
+//     operand: the wrapper passes window 0 for a global layer), or when
+//     swin > 0 and neither g < sink nor qpos[b, r] - g < swin (the
+//     engine's sink + window)
 //   m = max over unmasked s, l = sum exp(s - m), acc = sum exp(s - m) v_g
+// With swin > 0 the slot never reads its cold middle: it walks the
+// virtual rows [0, n_v), virtual row v being real row v below the sink
+// pages (sink_cols = ceil(sink / page)) and v + gap above them, where
+// win_lo = clamp((qmin - swin + 1) / page, sink_cols, n_live) from the
+// smallest query position qmin of the slot's whole qpos row, and gap =
+// (win_lo - sink_cols) * page (ops/paged_flash.walk_rows). Every skipped
+// row is masked for every query row, so the skip is exact, and pages it
+// never reads may point at SCRATCH (spilled to the host).
 // Inputs: q [B, K, QR, D] f32, pools [P, page, K, D] bf16, f32, fp8 e4m3
-// or fp8 e5m2 (one layer's slice), table [B, MP] int32, limits [B] int32,
+// or fp8 e5m2 (one layer's slice), table [B, MP] int32 or L1 [B, MP / span]
+// with l0 [NTP, span] int32, limits [B] int32,
 // qpos [B, QR] int32, and for fp8 pools kv_scale [2, K] f32 or null (all
 // ones): such a pool stores value / scale. The K scale of head kh is folded
 // into its q rows (s = (ksc q) . k_stored) and the V scale multiplies the
@@ -36,10 +52,11 @@
 //   sets the most splits a slot may use and a unit of rows (a multiple of
 //   the 64-row key tile); it depends on the capacity, the page, K, QR, D,
 //   the pool type and the SM count, never on B or on the limits. Each slot
-//   cuts its own live rows into splits of the fewest whole units that keep
-//   it within `splits`: a short context spreads over as many blocks as a
-//   long one, in short splits, and a slot's partials depend on its own
-//   limit alone, never on what else is in the batch. A block whose split
+//   cuts its own visited (virtual) rows into splits of the fewest whole
+//   units that keep it within `splits`: a short context, or a long one
+//   whose middle is skipped, spreads over as many blocks as a full one, in
+//   short splits, and a slot's partials depend on its own limit and query
+//   positions alone, never on what else is in the batch. A block whose split
 //   starts at or past its slot's live rows exits at once; split 0 of a
 //   slot with none writes the empty partial.
 //   A slot whose live rows fit one split writes its outputs directly.
@@ -53,8 +70,10 @@
 //   64 key rows of K and V arrive by 16-byte cp.async.cg in a two-stage
 //   shared-memory ring, so one tile is in flight while the other is
 //   computed. Each chunk's source row is resolved through the split's
-//   slice of the page table, staged in shared memory once, so pages
-//   smaller than a tile (down to one row) work. bf16 tiles land XOR-
+//   slice of the page table (virtual columns resolved to real ones, then
+//   through one or two table levels), staged in shared memory once, so
+//   pages smaller than a tile (down to one row) work, and the walk never
+//   touches the directory again. bf16 tiles land XOR-
 //   swizzled by row (ldmatrix reads 8 rows from 8 bank groups). fp8 tiles
 //   land as stored; after each barrier the block widens the tile exactly to
 //   bf16, two values at a time (__nv_cvt_fp8x2_to_halfraw2, then f32 and
@@ -197,17 +216,64 @@ __device__ void emit_tile(float* st_m, const float* st_l, const float* st_acc, i
   if (threadIdx.x == 0) *counter = 0;  // every live split has counted: ready for the next call
 }
 
-// Where a block stands, from its slot's limit: the slot's live rows, its
-// split's rows [sb, se), the number of live splits, and its output rows.
+// The page table of either layout: `t` is the flat table [B, stride] or
+// the L1 directory [B, stride] of table-page ids into l0 [ntp, span].
+struct Table {
+  const int* t;
+  const int* l0;  // null for a flat table
+  int stride, span, ntp, P;
+};
+
+// Pool page of column `col` (< the logical width) of slot b, clamped into
+// the pool as the flat id always was.
+__device__ __forceinline__ int page_id(const Table& T, int b, int col) {
+  const int* row = T.t + (int64_t)b * T.stride;
+  int id;
+  if (T.l0) {
+    const int tp = min(max(row[col / T.span], 0), T.ntp - 1);
+    id = T.l0[(int64_t)tp * T.span + col % T.span];
+  } else {
+    id = row[col];
+  }
+  return min(max(id, 0), T.P - 1);
+}
+
+// The smallest of a slot's query positions, over its whole qpos row (so
+// every row tile of the slot walks the same columns). Every thread of the
+// block calls it; nThreads is a multiple of 32, at most 1024.
+template <int nThreads>
+__device__ int slot_qmin(const int* __restrict__ qrow, int QR) {
+  __shared__ int red[32];
+  int v = 0x7fffffff;
+  for (int i = threadIdx.x; i < QR; i += nThreads) v = min(v, qrow[i]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, off));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = red[0];
+#pragma unroll
+  for (int w = 1; w < nThreads / 32; ++w) v = min(v, red[w]);
+  return v;
+}
+
+// Where a block stands, from its slot's limit and smallest query position:
+// the slot's visited (virtual) rows, its split's virtual rows [sb, se), the
+// number of live splits, its output rows, and the map of the skip (virtual
+// row v is real row v < sink_rows ? v : v + gap; gap 0 without the skip).
 struct Where {
   int b, kh, r0, rows, n_rows, n_live, sb, se;
+  int sink_rows, gap;
   int64_t row0;  // first output row in [B*K*QR]
   int tile;      // (b, kh, row tile): counter and workspace index
+  __device__ __forceinline__ int real(int v) const { return v < sink_rows ? v : v + gap; }
+  __device__ __forceinline__ int real_col(int vc, int page) const {
+    return vc * page < sink_rows ? vc : vc + gap / page;
+  }
 };
 
 template <int QT>
-__device__ __forceinline__ Where where(int limit, int KH, int QR, int MP, int page,
-                                       int splits, int unit) {
+__device__ __forceinline__ Where where(int limit, int qmin, int KH, int QR, int MP, int page,
+                                       int splits, int unit, int sink, int swin) {
   Where w;
   const int row_tiles = (QR + QT - 1) / QT;
   w.b = blockIdx.z;
@@ -215,7 +281,20 @@ __device__ __forceinline__ Where where(int limit, int KH, int QR, int MP, int pa
   const int rt = blockIdx.y % row_tiles;
   w.r0 = rt * QT;
   w.rows = min(QT, QR - w.r0);
-  w.n_rows = min(max(limit, 0), MP * page);
+  const int real_rows = min(max(limit, 0), MP * page);
+  w.sink_rows = real_rows;
+  w.gap = 0;
+  if (swin > 0) {  // ops/paged_flash.walk_rows
+    const int n_live = (real_rows + page - 1) / page;
+    const int sink_cols = min(sink > 0 ? (sink + page - 1) / page : 0, n_live);
+    const int lo = qmin - swin + 1;
+    const int win_lo = max(min(lo > 0 ? lo / page : 0, n_live), sink_cols);
+    w.sink_rows = sink_cols * page;
+    w.gap = (win_lo - sink_cols) * page;
+  }
+  // The window's part [win_lo * page, real_rows) is empty when the
+  // queries are a window past the last, partial page: the sink pages remain.
+  w.n_rows = min(real_rows, max(real_rows - w.gap, w.sink_rows));
   // The fewest whole units a split that keep the slot within `splits`
   // splits (ops/paged_flash.PagedPlan.split_rows), from this slot's rows.
   const int units = (w.n_rows + unit - 1) / unit;
@@ -257,15 +336,17 @@ constexpr int scalar_smem_floats() {
 template <int D, int QT>
 __global__ void __launch_bounds__(kThreads)
 paged_scalar_kernel(const float* __restrict__ q, const float* __restrict__ k_pool,
-                    const float* __restrict__ v_pool, const int* __restrict__ table,
+                    const float* __restrict__ v_pool, const Table T,
                     const int* __restrict__ limits, const int* __restrict__ qpos,
                     float* __restrict__ acc_out, float* __restrict__ m_out,
                     float* __restrict__ l_out, float* __restrict__ ws, int* __restrict__ counters,
-                    int KH, int QR, int P, int page, int MP, int window, float softcap,
-                    int splits, int unit) {
+                    int KH, int QR, int page, int MP, int window, float softcap, int sink,
+                    int swin, int splits, int unit) {
   static_assert(D % 32 == 0 && QT % 4 == 0, "tile shape");
   constexpr int NC = D / 32;  // value columns per lane
-  const Where w = where<QT>(limits[blockIdx.z], KH, QR, MP, page, splits, unit);
+  const int qmin = swin > 0 ? slot_qmin<kThreads>(qpos + (int64_t)blockIdx.z * QR, QR) : 0;
+  const Where w = where<QT>(limits[blockIdx.z], qmin, KH, QR, MP, page, splits, unit, sink,
+                            swin);
   if ((int)blockIdx.x >= w.n_live) return;
   extern __shared__ float smem[];
   float* qs = smem;                            // [QT][D]
@@ -284,7 +365,6 @@ paged_scalar_kernel(const float* __restrict__ q, const float* __restrict__ k_poo
     qp[threadIdx.x] = threadIdx.x < w.rows ? qpos[(int64_t)w.b * QR + w.r0 + threadIdx.x] : 0;
   __syncthreads();
 
-  const int* trow = table + (int64_t)w.b * MP;
   const int64_t pool_row = (int64_t)KH * D;  // elements between pool rows
   float* pw = ps + warp * kKeys * QT;
 
@@ -298,14 +378,15 @@ paged_scalar_kernel(const float* __restrict__ q, const float* __restrict__ k_poo
   }
 
   for (int t0 = w.sb + warp * kKeys; t0 < w.se; t0 += kWarps * kKeys) {
-    const int g = t0 + lane;
-    const bool live = g < w.se;
+    const int v = t0 + lane;  // this lane's virtual row
+    const int g = w.real(v);  // and its real row
+    const bool live = v < w.se;
     long long off = 0;  // this lane's row in the pool, as an element offset
     float s[QT];
 #pragma unroll
     for (int r = 0; r < QT; ++r) s[r] = 0.f;
     if (live) {
-      const int pid = min(max(trow[g / page], 0), P - 1);
+      const int pid = page_id(T, w.b, g / page);
       off = ((long long)pid * page + g % page) * pool_row + (long long)w.kh * D;
       const float* kr = k_pool + off;
 #pragma unroll 2
@@ -333,7 +414,8 @@ paged_scalar_kernel(const float* __restrict__ q, const float* __restrict__ k_poo
     for (int r = 0; r < QT; ++r) {
       float x = s[r];
       if (softcap > 0.f) x = softcap * tanhf(x / softcap);  // before the mask
-      const bool ok = live && (window <= 0 || qp[r] - g < window);
+      const bool ok = live && (window <= 0 || qp[r] - g < window) &&
+                      (swin <= 0 || g < sink || qp[r] - g < swin);
       x = ok ? x : kNegInf;
       const float m_new = fmaxf(m[r], warp_max(x));
       const float alpha = expf(fmaxf(m[r] - m_new, -80.f));
@@ -510,18 +592,20 @@ struct MmaTile {
 template <typename T, int D, int WK>
 __global__ void __launch_bounds__(kMmaThreads)
 paged_mma_kernel(const float* __restrict__ q, const T* __restrict__ k_pool,
-                 const T* __restrict__ v_pool, const int* __restrict__ table,
+                 const T* __restrict__ v_pool, const Table tb,
                  const int* __restrict__ limits, const int* __restrict__ qpos,
                  const float* __restrict__ kv_scale, float* __restrict__ acc_out,
                  float* __restrict__ m_out, float* __restrict__ l_out, float* __restrict__ ws,
-                 int* __restrict__ counters, int KH, int QR, int P, int page, int MP, int window,
-                 float softcap, int splits, int unit) {
+                 int* __restrict__ counters, int KH, int QR, int page, int MP, int window,
+                 float softcap, int sink, int swin, int splits, int unit) {
   using Tl = MmaTile<T, D, WK>;
   constexpr int QT = Tl::QT, NKW = Tl::NKW;
   constexpr int KD = D / 16;    // k-steps of Q.K^T; d-tile pairs of P.V
   constexpr int NT = NKW / 8;   // 8-key n-tiles of a warp's S
   constexpr int DT = D / 8;     // 8-column d-tiles of acc
-  const Where w = where<QT>(limits[blockIdx.z], KH, QR, MP, page, splits, unit);
+  const int qmin = swin > 0 ? slot_qmin<kMmaThreads>(qpos + (int64_t)blockIdx.z * QR, QR) : 0;
+  const Where w = where<QT>(limits[blockIdx.z], qmin, KH, QR, MP, page, splits, unit, sink,
+                            swin);
   if ((int)blockIdx.x >= w.n_live) return;
 
   extern __shared__ __align__(128) unsigned char smem_mma[];
@@ -529,20 +613,19 @@ paged_mma_kernel(const float* __restrict__ q, const T* __restrict__ k_pool,
   const uint32_t ring = qlo + Tl::kQ;         // stage s: K at ring + 2 s kRawTile, V after it
   const uint32_t cvt = ring + Tl::kRing;      // fp8: the current K tile, V after it
   int* qp = reinterpret_cast<int*>(smem_mma + Tl::kMain);  // [QT]
-  int* tab = qp + QT;                         // page ids of the split's pages
+  int* tab = qp + QT;                         // page ids of the split's (virtual) columns
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tig = lane & 3;    // mma fragment row group, lane in quad
   const float ksc = Tl::kFp8 && kv_scale ? kv_scale[w.kh] : 1.f;
   const float vsc = Tl::kFp8 && kv_scale ? kv_scale[KH + w.kh] : 1.f;
   const int n_tiles = (w.se - w.sb + kKeyTile - 1) / kKeyTile;  // 0 for an idle slot
-  const int pbase = w.sb / page;
+  const int pbase = w.sb / page;  // the split's first virtual column
 
   // The split's page ids, the query positions, and q * ksc as bf16 hi + lo.
-  const int* trow = table + (int64_t)w.b * MP;
   const int n_tab = n_tiles ? (w.se - 1) / page - pbase + 1 : 0;
   for (int i = threadIdx.x; i < n_tab; i += kMmaThreads)
-    tab[i] = min(max(trow[pbase + i], 0), P - 1);
+    tab[i] = page_id(tb, w.b, w.real_col(pbase + i, page));
   if (threadIdx.x < QT)
     qp[threadIdx.x] = threadIdx.x < w.rows ? qpos[(int64_t)w.b * QR + w.r0 + threadIdx.x] : 0;
   for (int i = threadIdx.x; i < QT * D / 4; i += kMmaThreads) {
@@ -654,8 +737,10 @@ paged_mma_kernel(const float* __restrict__ q, const T* __restrict__ k_pool,
       }
     }
 
-    // Softcap, then the masks: past the live rows, outside the window.
-    const bool whole = k0 + kKeyTile <= w.se && window <= 0;
+    // Softcap, then the masks: past the visited rows, outside the layer's
+    // window, outside the sink + window (on real rows). A tile needs none
+    // only when it is whole and neither window applies.
+    const bool whole = k0 + kKeyTile <= w.se && window <= 0 && swin <= 0;
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -664,7 +749,11 @@ paged_mma_kernel(const float* __restrict__ q, const T* __restrict__ k_pool,
         if (softcap > 0.f) x = softcap * tanhf(x / softcap);
         if (!whole) {
           const int key = k0 + kw0 + nt * 8 + 2 * tig + (e & 1);
-          if (key >= w.se || (window > 0 && qpr[e >> 1] - key >= window)) x = kNegInf;
+          const int gk = w.real(key);
+          const int dist = qpr[e >> 1] - gk;
+          if (key >= w.se || (window > 0 && dist >= window) ||
+              (swin > 0 && gk >= sink && dist >= swin))
+            x = kNegInf;
         }
         s[nt][e] = x;
       }
@@ -753,12 +842,13 @@ paged_mma_kernel(const float* __restrict__ q, const T* __restrict__ k_pool,
 
 struct Args {
   const void *q, *k_pool, *v_pool;
-  const int *table, *limits, *qpos;
+  Table table;
+  const int *limits, *qpos;
   const float* kv_scale;
   void *acc, *m, *l, *ws, *counters;
-  int B, KH, QR, P, page, MP, window;
+  int B, KH, QR, page, MP, window;
   float softcap;
-  int row_tile, splits, unit;
+  int sink, swin, row_tile, splits, unit;
   cudaStream_t stream;
 };
 
@@ -776,8 +866,8 @@ int launch_scalar(const Args& a) {
       static_cast<const float*>(a.q), static_cast<const float*>(a.k_pool),
       static_cast<const float*>(a.v_pool), a.table, a.limits, a.qpos,
       static_cast<float*>(a.acc), static_cast<float*>(a.m), static_cast<float*>(a.l),
-      static_cast<float*>(a.ws), static_cast<int*>(a.counters), a.KH, a.QR, a.P, a.page, a.MP,
-      a.window, a.softcap, a.splits, a.unit);
+      static_cast<float*>(a.ws), static_cast<int*>(a.counters), a.KH, a.QR, a.page, a.MP,
+      a.window, a.softcap, a.sink, a.swin, a.splits, a.unit);
   return (int)cudaGetLastError();
 }
 
@@ -793,8 +883,8 @@ int launch_mma(const Args& a) {
       static_cast<const float*>(a.q), static_cast<const T*>(a.k_pool),
       static_cast<const T*>(a.v_pool), a.table, a.limits, a.qpos, a.kv_scale,
       static_cast<float*>(a.acc), static_cast<float*>(a.m), static_cast<float*>(a.l),
-      static_cast<float*>(a.ws), static_cast<int*>(a.counters), a.KH, a.QR, a.P, a.page, a.MP,
-      a.window, a.softcap, a.splits, a.unit);
+      static_cast<float*>(a.ws), static_cast<int*>(a.counters), a.KH, a.QR, a.page, a.MP,
+      a.window, a.softcap, a.sink, a.swin, a.splits, a.unit);
   return (int)cudaGetLastError();
 }
 
@@ -822,8 +912,12 @@ int launch_dim(const Args& a, int dtype) {
 
 // Plain C entry point, loaded with ctypes. dtype (of the pools): 0 = float32,
 // 1 = bfloat16, 2 = fp8 e4m3, 3 = fp8 e5m2. kv_scale: [2, KH] f32, or null
-// for all ones; read for fp8 pools only. window: the sliding window of this
-// layer, 0 for none. softcap: 0 for none. The plan (ops/paged_flash.paged_plan):
+// for all ones; read for fp8 pools only. The table: l0 null, span 0 and
+// table [B, MP] (stride MP) for a flat table; l0 [ntp, span] and table the
+// L1 directory [B, stride] with MP = stride * span for a hierarchical one.
+// window: the sliding window of this layer, 0 for none. softcap: 0 for
+// none. sink, swin: the sink + window skip, swin 0 for none. The plan
+// (ops/paged_flash.paged_plan):
 // row_tile 4 or 16 (f32 pools), 16 or 64 (bf16 / fp8); at most `splits`
 // (<= 64) splits a slot, each of whole `unit`s of rows (a multiple of 64),
 // a full slot's split within a 512-entry page-table slice; with splits > 1,
@@ -831,22 +925,28 @@ int launch_dim(const Args& a, int dtype) {
 // and counters one zeroed int for each. Pools must be 16-byte aligned. Returns
 // 0 or the cudaError_t of the failed launch.
 extern "C" int paged_attention(const void* q, const void* k_pool, const void* v_pool,
-                               const int* table, const int* limits, const int* qpos,
-                               const float* kv_scale, void* acc, void* m, void* l, void* ws,
-                               void* counters, int B, int KH, int QR, int D, int P, int page,
-                               int MP, int dtype, int window, float softcap, int row_tile,
-                               int splits, int unit, void* stream) {
+                               const int* table, const int* l0, const int* limits,
+                               const int* qpos, const float* kv_scale, void* acc, void* m,
+                               void* l, void* ws, void* counters, int B, int KH, int QR, int D,
+                               int P, int page, int MP, int stride, int span, int ntp,
+                               int dtype, int window, float softcap, int sink, int swin,
+                               int row_tile, int splits, int unit, void* stream) {
   if (B <= 0 || KH <= 0 || QR <= 0) return 0;
-  if (P <= 0 || page <= 0 || MP <= 0) return (int)cudaErrorInvalidValue;
+  if (P <= 0 || page <= 0 || MP <= 0 || sink < 0 || swin < 0) return (int)cudaErrorInvalidValue;
+  if (l0 ? (span <= 0 || ntp <= 0 || (int64_t)stride * span != MP) : (span != 0 || stride != MP))
+    return (int)cudaErrorInvalidValue;
   const int64_t capacity = (int64_t)MP * page;
   const int64_t widest = ((capacity + unit - 1) / max(unit, 1) + splits - 1) / max(splits, 1) *
                          unit;  // a full slot's split
-  if (splits < 1 || splits > kMaxSplits || unit <= 0 || unit % kKeyTile ||
-      widest / page + 2 > kTableSlice || (splits > 1 && (ws == nullptr || counters == nullptr)))
+  if (capacity > 0x7fffffff || splits < 1 || splits > kMaxSplits || unit <= 0 ||
+      unit % kKeyTile || widest / page + 2 > kTableSlice ||
+      (splits > 1 && (ws == nullptr || counters == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const Args a{q,  k_pool, v_pool, table, limits, qpos, kv_scale, acc,     m,        l,
-               ws, counters, B, KH, QR, P, page, MP, window, softcap, row_tile, splits,
-               unit, static_cast<cudaStream_t>(stream)};
+  const Table tb{table, l0, stride, span, ntp, P};
+  const Args a{q,       k_pool,   v_pool, tb,     limits, qpos,  kv_scale, acc,
+               m,       l,        ws,     counters, B,    KH,    QR,       page,
+               MP,      window,   softcap, sink,  swin,   row_tile, splits, unit,
+               static_cast<cudaStream_t>(stream)};
   if (D == 64) return launch_dim<64>(a, dtype);
   if (D == 128) return launch_dim<128>(a, dtype);
   return (int)cudaErrorInvalidValue;

@@ -31,6 +31,14 @@ number of KV-cache slots by one loop thread ("engine-loop"):
   writes its K/V straight into the slot's pages, the slot's table is kept
   off the decode blocks (SCRATCH) until the final chunk, and the final
   chunk samples the first token and installs the slot.
+- Long context: with `attention_window > 0` decode (and, on a paged pool,
+  the chunked-prefill prefix walk) attends only the first
+  `attention_sink` positions and the trailing window, so each chunk and
+  each decode step costs the same at any context length. `kv_l1_span > 0`
+  replaces each slot's flat page-table row with a directory of
+  refcounted table pages (ops/ptable's hierarchical pair), and
+  `kv_spill_bytes > 0` copies pages that fell behind every query's window
+  to pinned host memory and returns their device pages to the pool.
 - Weights may be quantized (`Engine(..., quantization="int8"|"int4")`
   quantizes plain params where they lie; a tree already quantized, e.g. by
   `load_hf_checkpoint(quantize=)`, is served as it is): decode-shape
@@ -59,10 +67,11 @@ generator state, so it can be captured. The reference's threefry streams
 are not reproduced.
 
 Not ported yet (ROADMAP Queue A): CUDA graphs of admission and prefill
-chunks and pipelined dispatch, the prefix cache, the host swap tier
-(preemption always recomputes), hierarchical page tables, chunked prefill
-over a dense cache, grammar, logprobs, speculative decoding, fork / n>1,
-tp, deadlines.
+chunks and pipelined dispatch, the prefix cache (and with it table-page
+sharing and the restore of spilled pages), the host swap tier (preemption
+always recomputes), chunked prefill over a dense cache, grammar, logprobs,
+speculative decoding, fork / n>1, tp and sequence-parallel prefill,
+deadlines.
 """
 
 from __future__ import annotations
@@ -85,6 +94,7 @@ from localai_tpu_torch.engine.weights import load_lora_factors, lora_target_dims
 from localai_tpu_torch.models import llama
 from localai_tpu_torch.models.config import ArchConfig
 from localai_tpu_torch.models.quant import is_prequantized, quantize_params
+from localai_tpu_torch.ops import ptable as _pt
 from localai_tpu_torch.ops.sampling import (
     NEG_INF,
     SamplingParams,
@@ -175,6 +185,24 @@ class EngineConfig:
     # images stay in an LRU under it, so registered adapters can far exceed
     # the device-resident ones (a miss re-reads the adapter from disk).
     adapter_cache_bytes: int = 64 << 20
+    # Sink + window attention: with attention_window > 0, decode (and, on a
+    # paged pool, the chunked-prefill prefix walk) attends only rows at
+    # positions < attention_sink plus rows within attention_window of the
+    # query (StreamingLLM-style, absolute rope positions). On a paged pool
+    # it needs chunked prefill with prefill_chunk <= attention_window, so
+    # every long admission takes the one masked path; models with a
+    # sliding window of their own are refused. 0 = full attention.
+    attention_sink: int = 0
+    attention_window: int = 0
+    # Host-RAM byte budget of spilled cold pages: with the window on, pages
+    # wholly behind every live query's window (and past the sink) are copied
+    # to pinned host memory and their device pages return to the pool. The
+    # images are dropped when the slot ends. 0 = no spill.
+    kv_spill_bytes: int = 0
+    # Hierarchical page tables (paged pool only): N >= 2 page ids per table
+    # page; each slot's table is a directory of ceil(max_pages / N) table
+    # pages instead of one max_pages row. 0 = flat tables.
+    kv_l1_span: int = 0
 
     def cache_dtype(self, model_dtype: torch.dtype) -> torch.dtype:
         table = {
@@ -311,6 +339,13 @@ class Engine:
         if ecfg.adapter_cache_bytes < 0:
             raise ValueError("adapter_cache_bytes must be >= 0")
         self._check_paged_config(ecfg)
+        self._check_long_context(cfg, ecfg)
+        if (cfg.attention_sink, cfg.attention_window) != (ecfg.attention_sink,
+                                                          ecfg.attention_window):
+            # The model functions read the knobs from the (frozen) ArchConfig.
+            cfg = dataclasses.replace(cfg, attention_sink=ecfg.attention_sink,
+                                      attention_window=ecfg.attention_window)
+            self.cfg = cfg
         if ecfg.kv_scale <= 0:
             raise ValueError("kv_scale must be > 0")
         if ecfg.kv_scale != 1.0 and not (ecfg.kv_pages > 0 and ecfg.kv_cache_dtype):
@@ -368,6 +403,35 @@ class Engine:
         self._free_pages: list[int] = list(range(ecfg.kv_pages))
         self._slot_pages: list[list[int]] = [[] for _ in range(B)]
         self._page_refs = np.zeros((max(ecfg.kv_pages, 1),), np.int32)
+        # Hierarchical page tables (kv_l1_span > 0): h_l1 [B, ML1] holds each
+        # slot's directory of TABLE-PAGE ids, h_l0 [NTP + 1, SPAN] the global
+        # table-page pool (row 0 = the all-SCRATCH table page every idle
+        # directory entry points at). Table pages are refcounted and copied
+        # before a write through a shared one (_ptable_set), as the
+        # reference does for the prefix cache's shared spans. NTP covers
+        # every slot's full directory twice over, so claims do not fail.
+        self._l1_span = ecfg.kv_l1_span if self._paged else 0
+        self._hier = self._l1_span > 0
+        self._ml1 = -(-max(self._max_pages, 1) // self._l1_span) if self._hier else 0
+        ntp = (B + 2) * self._ml1
+        self._scratch_tp = 0
+        self.h_l0 = np.full((ntp + 1, max(self._l1_span, 1)), self._scratch_page, np.int32)
+        self.h_l1 = np.full((B, max(self._ml1, 1)), self._scratch_tp, np.int32)
+        self._tp_free: list[int] = list(range(1, ntp + 1))
+        self._tp_refs = np.zeros((ntp + 1,), np.int32)
+        self._slot_tps: list[list[int]] = [[] for _ in range(B)]
+        # Cold-page spill: per slot {page column: (k, v) host images [L, 1,
+        # page, K, Hd]} of spilled cold pages; the slot's _slot_pages entry
+        # holds the SPILLED (-1) sentinel and its table entry SCRATCH.
+        # _spill_bytes counts the images against kv_spill_bytes; each slot's
+        # scan resumes at its cursor (query positions only grow).
+        self._slot_spill: list[dict] = [{} for _ in range(B)]
+        self._spill_cursor = np.zeros((B,), np.int64)
+        self._spill_bytes = 0
+        self._spill_on = self._paged and ecfg.attention_window > 0 and ecfg.kv_spill_bytes > 0
+        self.m_kv_pages_spilled = 0
+        self.m_kv_spill_bytes_out = 0
+        self.m_kv_spill_skips = 0
         # A decode block could not grow some slot: admissions pause until
         # growth succeeds (the youngest slot is preempted meanwhile).
         self._growth_blocked = False
@@ -397,9 +461,10 @@ class Engine:
         # The decode block's operands and result live in fixed device
         # buffers, so a captured graph of the block body replays on them:
         # the control pack [8, B] (the active row, then _SAMPLING_FIELDS),
-        # the page table [B, MP], the adapter rows [B] and the sampled ids
-        # [n, B]. Each block copies its host rows in from pinned staging
-        # tensors (loop thread only).
+        # the page table [B, MP] (hierarchical: the directories [B, ML1] and
+        # the table-page pool [NTP + 1, SPAN]), the adapter rows [B] and the
+        # sampled ids [n, B]. Each block copies its host rows in from pinned
+        # staging tensors (loop thread only).
         pin = dev.type == "cuda"
         MP = self.h_ptable.shape[1]
         self._h_pack = torch.zeros((1 + len(_SAMPLING_FIELDS), B), dtype=torch.float32,
@@ -408,6 +473,9 @@ class Engine:
         self._h_adapter = torch.zeros((B,), dtype=torch.int32, pin_memory=pin)
         self._b_pack = torch.zeros(self._h_pack.shape, dtype=torch.float32, device=dev)
         self._b_ptable = torch.full((B, MP), self._scratch_page, dtype=torch.int32, device=dev)
+        self._h_l1 = torch.zeros(self.h_l1.shape, dtype=torch.int32, pin_memory=pin)
+        self._b_l1 = torch.zeros(self.h_l1.shape, dtype=torch.int32, device=dev)
+        self._h_l0 = self._b_l0 = None
         self._b_adapter = torch.zeros((B,), dtype=torch.int32, device=dev)
         self._b_out = torch.zeros((max(ecfg.block_sizes), B), dtype=torch.int64, device=dev)
         # CUDA graphs of the block body (_block_key -> (graph, launch counts
@@ -417,6 +485,8 @@ class Engine:
         self._graph_cache: dict[tuple, tuple] = {}
         self._graph_pool = None
         self._graph_stream = None
+        if self._hier:
+            self._l0_buffers()
         self.m_graph_captures = 0
         self.m_graph_replays = 0
         self.m_graph_capture_s = 0.0
@@ -446,6 +516,42 @@ class Engine:
         self.m_kv_preemptions = 0
         self._decode_tokens = 0
         self._decode_time = 0.0
+
+    @staticmethod
+    def _check_long_context(cfg: ArchConfig, ecfg: EngineConfig) -> None:
+        """The JAX package's validation of the long-context knobs."""
+        sink, win = ecfg.attention_sink, ecfg.attention_window
+        if sink < 0 or win < 0:
+            raise ValueError("attention_sink / attention_window must be >= 0")
+        if sink and not win:
+            raise ValueError("attention_sink without attention_window is full attention "
+                             "— set attention_window > 0 (or drop the sink)")
+        if win:
+            if cfg.sliding_window:
+                raise ValueError(f"attention_window composes with full-attention models "
+                                 f"only — {cfg.name} already has an architectural "
+                                 f"sliding window")
+            if cfg.mrope_section:
+                raise ValueError("attention_window excludes m-rope (VLM) models this "
+                                 "round — text decoders only")
+            if ecfg.kv_pages > 0:
+                C0 = ecfg.prefill_chunk
+                if not C0:
+                    raise ValueError("attention_window on a paged pool requires chunked "
+                                     "prefill (prefill_chunk > 0) — long admissions must "
+                                     "run the one masked prefix-walk path")
+                if C0 > win:
+                    raise ValueError(f"prefill_chunk={C0} must be <= attention_window="
+                                     f"{win} (the in-chunk causal part must sit inside "
+                                     "the window for the mask to stay exact)")
+        if ecfg.kv_spill_bytes < 0:
+            raise ValueError("kv_spill_bytes must be >= 0")
+        if ecfg.kv_l1_span:
+            if ecfg.kv_l1_span < 2:
+                raise ValueError("kv_l1_span must be >= 2 (0 = flat table)")
+            if ecfg.kv_pages <= 0:
+                raise ValueError("kv_l1_span (hierarchical page tables) requires a paged "
+                                 "pool (kv_pages > 0)")
 
     @staticmethod
     def _check_paged_config(ecfg: EngineConfig) -> None:
@@ -567,6 +673,11 @@ class Engine:
             "kv_pages_peak": float(self.m_kv_pages_peak),
             "kv_pages_grown": float(self.m_kv_pages_grown),
             "kv_preemptions": float(self.m_kv_preemptions),
+            "kv_pages_spilled": float(self.m_kv_pages_spilled),
+            "kv_spill_bytes_out": float(self.m_kv_spill_bytes_out),
+            "spilled_pages": float(sum(len(d) for d in list(self._slot_spill))),
+            "spill_bytes": float(self._spill_bytes),
+            "kv_spill_skips": float(self.m_kv_spill_skips),
             "weight_bytes": float(self._weight_bytes()),
             "decode_graphs": float(len(self._graph_cache)),
             "decode_graph_captures": float(self.m_graph_captures),
@@ -642,6 +753,7 @@ class Engine:
                     self._fail_block(e)
             # At most one prefill chunk between two decode blocks.
             progressed = self._advance_chunked() or progressed
+            self._spill_cold_pages()
             if not progressed:
                 self._wake.wait(timeout=0.05)
                 self._wake.clear()
@@ -861,7 +973,8 @@ class Engine:
                     for s2 in slot_ids:  # the planner counted these pages
                         self._pages_free(s2)
                     raise RuntimeError("KV page pool exhausted at admission")
-            table_rows = torch.from_numpy(self.h_ptable[slot_ids]).to(dev)
+            table_rows = self._device_table(self.h_l1[slot_ids] if self._hier
+                                            else self.h_ptable[slot_ids])
         d_prompt, d_lens = torch.from_numpy(prompt).to(dev), torch.from_numpy(lens).to(dev)
         # Once any adapter is device-resident every admission carries the
         # stacks; adapter-less rows ride id 0, the exact-zero null adapter.
@@ -873,8 +986,8 @@ class Engine:
             logits, ks, vs = llama.prefill(self.cfg, self.params, d_prompt, d_lens, lora=lora)
             for j, s in enumerate(slot_ids):
                 if table_rows is not None:
-                    llama.write_prefill_to_pool(self.cache, table_rows[j], ks, vs, j,
-                                                kv_scale=self._kv_scales)
+                    llama.write_prefill_to_pool(self.cache, _pt.select_row(table_rows, j), ks,
+                                                vs, j, kv_scale=self._kv_scales)
                 else:
                     llama.write_prefill_to_cache(self.cache, ks[:, j:j + 1], vs[:, j:j + 1], s)
             toks = self._install_first(logits, d_prompt, d_lens, samp, bias_rows, seeds,
@@ -977,22 +1090,58 @@ class Engine:
         for fi, k in enumerate(_SAMPLING_FIELDS):
             pack[fi + 1] = self.h_sampling[k]
         self._b_pack.copy_(self._h_pack, non_blocking=True)
-        if self._paged:
+        if self._hier:
+            self._l0_buffers()
+            self._h_l1.numpy()[:] = self.h_l1
+            self._b_l1.copy_(self._h_l1, non_blocking=True)
+            self._h_l0.numpy()[:] = self.h_l0
+            self._b_l0.copy_(self._h_l0, non_blocking=True)
+        elif self._paged:
             self._h_ptable.numpy()[:] = self.h_ptable
             self._b_ptable.copy_(self._h_ptable, non_blocking=True)
         if self._lora_tree is not None:
             self._h_adapter.numpy()[:] = self.h_adapter
             self._b_adapter.copy_(self._h_adapter, non_blocking=True)
 
+    def _l0_buffers(self) -> None:
+        """(Re)allocate the pinned and device buffers of the table-page pool
+        to h_l0's rows. h_l0 grows only if a table-page claim finds the pool
+        empty (_tp_claim); the graphs captured on the old device buffer are
+        dropped, and the layout part of the block key moves with the rows,
+        so no replay reads past a buffer it captured."""
+        if self._b_l0 is not None and self._b_l0.shape == self.h_l0.shape:
+            return
+        pin = self.device.type == "cuda"
+        self._h_l0 = torch.zeros(self.h_l0.shape, dtype=torch.int32, pin_memory=pin)
+        self._b_l0 = torch.full(self.h_l0.shape, self._scratch_page, dtype=torch.int32,
+                                device=self.device)
+        self._graph_cache = {k: v for k, v in self._graph_cache.items()
+                             if k[4:] == self._table_key()}
+
+    def _table_key(self) -> tuple:
+        """The part of a block's key that names a hierarchical table's
+        layout (the table-page pool's rows); empty for a flat table."""
+        return (("hier", self.h_l0.shape[0]),) if self._hier else ()
+
+    def _device_table(self, rows: np.ndarray):
+        """A table operand for rows of host table rows (flat [m, MP] or
+        directories [m, ML1]); a hierarchical one carries the current
+        table-page pool."""
+        rows = torch.from_numpy(np.ascontiguousarray(rows)).to(self.device)
+        if self._hier:
+            return (rows, torch.from_numpy(self.h_l0).to(self.device))
+        return rows
+
     def _block_key(self, n: int, variant: str, win: int) -> tuple:
         """What fixes a block's graph (the reference's block-cache key):
-        the sampler variant, n, the dense read window (0 on a paged pool)
-        and, once adapters are resident, the stacks' (keys, rows, rank)."""
+        the sampler variant, n, the dense read window (0 on a paged pool),
+        once adapters are resident the stacks' (keys, rows, rank), and for
+        a hierarchical table its layout."""
         lora = None
         if self._lora_tree is not None:
             rows = next(iter(self._lora_tree.values()))["a"].shape[1]
             lora = (self._lora_keys, rows, self._lora_rank)
-        return (variant, n, win, lora)
+        return (variant, n, win, lora) + self._table_key()
 
     def _decode_block(self, n: int, variant: str, win: int) -> None:
         """Run the block body on the staged buffers: eagerly on the CPU; on
@@ -1049,7 +1198,7 @@ class Engine:
 
     def _block_body(self, n: int, variant: str, win: int) -> None:
         """n decode steps over every slot, on persistent device buffers
-        only: it reads the staged controls (_b_pack, _b_ptable, _b_adapter),
+        only: it reads the staged controls (_b_pack, the table, _b_adapter),
         the tokens, positions and seeds, counts, bias, the cache and the
         params, and writes the counts, the cache (once, at the end), the
         tokens and positions (in place) and the ids (_b_out[:n]). Idle
@@ -1064,7 +1213,7 @@ class Engine:
         ptable = None
         read_cache = self.cache
         if self._paged:
-            ptable = self._b_ptable
+            ptable = (self._b_l1, self._b_l0) if self._hier else self._b_ptable
         elif win < S:
             read_cache = llama.KVCache(k=self.cache.k[:, :, :win], v=self.cache.v[:, :, :win])
         shape = (cfg.num_layers, B, n, cfg.num_kv_heads, cfg.head_dim_)
@@ -1201,7 +1350,8 @@ class Engine:
                      shared: Optional[list[int]] = None) -> Optional[np.ndarray]:
         """Build a slot's page table: `shared` pages (one more reference
         each) followed by `n` fresh ones. Returns the slot's table row
-        [MP], or None, changing nothing, when the pool cannot cover it."""
+        ([MP] flat, its [ML1] directory hierarchical), or None, changing
+        nothing, when the pool cannot cover it."""
         if self._slot_pages[slot_idx]:
             # Overwriting a held table would leak its pages' references.
             log.error("_pages_alloc: slot %d already held %d pages — releasing them",
@@ -1214,6 +1364,8 @@ class Engine:
         self._pages_addref(shared)
         pages = shared + fresh
         self._slot_pages[slot_idx] = pages
+        if self._hier:
+            return self._ptable_build_slot(slot_idx, pages)
         # Unused tail entries stay on SCRATCH, so rows past the slot's
         # pages (block overshoot) land where nobody reads.
         row = np.full((self._max_pages,), self._scratch_page, np.int32)
@@ -1248,8 +1400,11 @@ class Engine:
     def _pages_release(self, pages: list[int]) -> None:
         """Drop one reference per page; a page returns to the free list at
         refcount 0. A double release is ignored (it would let two slots
-        claim the same page)."""
+        claim the same page); a spilled column's sentinel (-1) owns no
+        device page."""
         for p in pages:
+            if p < 0:
+                continue
             if self._page_refs[p] <= 0:
                 log.error("double release of page %d ignored", p)
                 self._page_refs[p] = 0
@@ -1270,7 +1425,11 @@ class Engine:
         if fresh is None:
             return False
         self._slot_pages[slot_idx].extend(fresh)
-        self.h_ptable[slot_idx, have:need_pages] = fresh
+        if self._hier:
+            for off, p in enumerate(fresh):
+                self._ptable_set(slot_idx, have + off, p)
+        else:
+            self.h_ptable[slot_idx, have:need_pages] = fresh
         self.m_kv_pages_grown += grow
         return True
 
@@ -1293,11 +1452,198 @@ class Engine:
         return True
 
     def _pages_free(self, slot_idx: int) -> None:
-        self._pages_release(self._slot_pages[slot_idx])
-        self._slot_pages[slot_idx] = []
         # The slot stays in every decode block's scatter until re-admitted:
         # its stale table must not alias pages handed to the next request.
-        self.h_ptable[slot_idx] = self._scratch_page
+        if self._hier:
+            self._ptable_free_slot(slot_idx)
+        else:
+            self.h_ptable[slot_idx] = self._scratch_page
+        self._pages_release(self._slot_pages[slot_idx])
+        self._slot_pages[slot_idx] = []
+        # Spilled images die with the slot (their device pages went back to
+        # the pool when they spilled); the prefix cache that would restore
+        # them is not ported.
+        self._spill_bytes -= len(self._slot_spill[slot_idx]) * self._page_bytes()
+        self._slot_spill[slot_idx] = {}
+        self._spill_cursor[slot_idx] = 0
+
+    # ------------------------------------------------------------------ #
+    # Hierarchical page tables (kv_l1_span > 0): each slot's directory of
+    # refcounted table pages (h_l1 -> rows of h_l0). The page allocator
+    # above is the same for both layouts; these keep the mapping. Sharing
+    # table pages with prefix entries waits for the prefix cache.
+    # ------------------------------------------------------------------ #
+
+    def _tp_claim(self) -> int:
+        """Claim a fresh table page (refcount 1, all-SCRATCH content). The
+        pool is sized so it cannot run dry; if it does, it grows (and the
+        next block re-keys its graph: _l0_buffers) instead of corrupting
+        state."""
+        if not self._tp_free:
+            grow = max(self._ml1, 1)
+            base = self.h_l0.shape[0]
+            self.h_l0 = np.concatenate([
+                self.h_l0, np.full((grow, self.h_l0.shape[1]), self._scratch_page, np.int32)])
+            self._tp_refs = np.concatenate([self._tp_refs, np.zeros((grow,), np.int32)])
+            self._tp_free.extend(range(base, base + grow))
+            log.error("table-page pool exhausted — grew by %d", grow)
+        tp = self._tp_free.pop()
+        self._tp_refs[tp] = 1
+        self.h_l0[tp, :] = self._scratch_page
+        return tp
+
+    def _tp_release(self, tps: list[int]) -> None:
+        """Drop one reference per table page; free at refcount 0. The
+        SCRATCH table page is never released; a double release is ignored."""
+        for tp in tps:
+            if tp == self._scratch_tp:
+                continue
+            if self._tp_refs[tp] <= 0:
+                log.error("double release of table page %d ignored", tp)
+                self._tp_refs[tp] = 0
+                continue
+            self._tp_refs[tp] -= 1
+            if self._tp_refs[tp] == 0:
+                self._tp_free.append(tp)
+
+    def _ptable_set(self, slot_idx: int, pos: int, page_id: int) -> None:
+        """Point column `pos` of a slot's directory at `page_id`, claiming
+        the table pages up to it and copying a shared one before writing
+        through it."""
+        span = self._l1_span
+        c, o = divmod(pos, span)
+        tps = self._slot_tps[slot_idx]
+        while len(tps) <= c:
+            tp_new = self._tp_claim()
+            tps.append(tp_new)
+            self.h_l1[slot_idx, len(tps) - 1] = tp_new
+        tp = tps[c]
+        if self._tp_refs[tp] > 1:
+            tp_new = self._tp_claim()
+            self.h_l0[tp_new, :] = self.h_l0[tp]
+            self._tp_release([tp])
+            tps[c] = tp_new
+            self.h_l1[slot_idx, c] = tp_new
+            tp = tp_new
+        self.h_l0[tp, o] = page_id
+
+    def _ptable_build_slot(self, slot_idx: int, pages: list[int]) -> np.ndarray:
+        """Build a slot's directory for `pages` in freshly claimed table
+        pages. Returns the slot's L1 row (the counterpart of a flat row)."""
+        if self._slot_tps[slot_idx]:
+            log.error("slot %d already held a directory — releasing it", slot_idx)
+            self._ptable_free_slot(slot_idx)
+        self.h_l1[slot_idx, :] = self._scratch_tp
+        for pos, p in enumerate(pages):
+            self._ptable_set(slot_idx, pos, p)
+        return self.h_l1[slot_idx].copy()
+
+    def _ptable_free_slot(self, slot_idx: int) -> None:
+        self._tp_release(self._slot_tps[slot_idx])
+        self._slot_tps[slot_idx] = []
+        self.h_l1[slot_idx, :] = self._scratch_tp
+
+    # ------------------------------------------------------------------ #
+    # Cold-page spill (attention_window > 0, kv_spill_bytes > 0): a page
+    # whose last row sits more than attention_window behind every query
+    # the slot can still run (and past the sink) is never attended again,
+    # since query positions only grow. Its bytes are copied to pinned host
+    # memory, its device page returns to the pool, and its table entry
+    # points at SCRATCH, which the skip never reads.
+    # ------------------------------------------------------------------ #
+
+    _SPILL_MAX_PER_TICK = 64  # pages a loop iteration: bounds one gather
+
+    def _page_bytes(self) -> int:
+        """Device bytes of one page's K and V rows over every layer."""
+        k = self.cache.k
+        return 2 * k[:, 0].numel() * k.element_size()
+
+    def _spill_cold_pages(self) -> None:
+        """Loop-thread tick: move the cold middle pages of live and chunking
+        slots to the host, at most _SPILL_MAX_PER_TICK a tick and within
+        kv_spill_bytes. A failed copy leaves that batch hot (exact either
+        way) and counts it in kv_spill_skips."""
+        if not self._spill_on:
+            return
+        page = self.ecfg.kv_page_size
+        swin = self.cfg.attention_window
+        sink_cols = -(-self.cfg.attention_sink // page) if self.cfg.attention_sink else 0
+        # Slack under the floor below: a chunk's queries start at its
+        # offset and a block's at the slot's processed rows; the margin
+        # keeps a whole chunk and a whole block of distance besides.
+        margin = self.ecfg.prefill_chunk + max(self.ecfg.block_sizes)
+        pb = self._page_bytes()
+        by_slot = {st["slot"]: st for st in self._chunkings}
+        done = 0
+        for i in range(self.ecfg.max_slots):
+            if done >= self._SPILL_MAX_PER_TICK:
+                return
+            st = by_slot.get(i)
+            if st is not None:
+                floor = st["offset"]
+            elif self.h_active[i] and self.slots[i] is not None:
+                s = self.slots[i]
+                floor = s.prompt_len + len(s.generated)
+            else:
+                continue
+            pages = self._slot_pages[i]
+            cand: list[int] = []
+            c = max(int(self._spill_cursor[i]), sink_cols)
+            while (c < len(pages) and (c + 1) * page <= floor - swin - margin
+                   and done + len(cand) < self._SPILL_MAX_PER_TICK):
+                p = pages[c]
+                if p < 0:
+                    self._spill_cursor[i] = c + 1  # already spilled
+                elif self._page_refs[p] > 1:
+                    # Another table reads it: releasing ours frees nothing.
+                    self.m_kv_spill_skips += 1
+                    self._spill_cursor[i] = c + 1
+                elif self._spill_bytes + (len(cand) + 1) * pb > self.ecfg.kv_spill_bytes:
+                    break  # budget full: retry once images are dropped
+                else:
+                    cand.append(c)
+                c += 1
+            if not cand:
+                continue
+            try:
+                hk, hv = self._pages_to_host([pages[c] for c in cand])
+            except Exception:  # noqa: BLE001 — the pages stay hot, attention stays exact
+                log.exception("cold-page spill failed (slot %d)", i)
+                self.m_kv_spill_skips += len(cand)
+                self._spill_cursor[i] = cand[-1] + 1
+                continue
+            for j, c in enumerate(cand):
+                self._slot_spill[i][c] = (hk[:, j:j + 1], hv[:, j:j + 1])
+                self._pages_release([pages[c]])
+                pages[c] = -1
+                if self._hier:
+                    self._ptable_set(i, c, self._scratch_page)
+                elif st is not None:
+                    st["table_row"][c] = self._scratch_page
+                else:
+                    self.h_ptable[i, c] = self._scratch_page
+                self._spill_cursor[i] = c + 1
+            nbytes = len(cand) * pb
+            self._spill_bytes += nbytes
+            self.m_kv_pages_spilled += len(cand)
+            self.m_kv_spill_bytes_out += nbytes
+            done += len(cand)
+
+    def _pages_to_host(self, pages: list[int]) -> tuple[torch.Tensor, torch.Tensor]:
+        """Copy pool pages to host tensors [L, n, page, K, Hd] (pinned on the
+        card). The gather and the copy go on the engine's one stream before
+        the pages are released, so no later write to a recycled page can
+        overtake them; nothing waits for the copy."""
+        idx = torch.as_tensor(pages, dtype=torch.int64, device=self.device)
+        out = []
+        for pool in (self.cache.k, self.cache.v):
+            rows = pool[:, idx]
+            host = torch.empty(rows.shape, dtype=rows.dtype,
+                               pin_memory=self.device.type == "cuda")
+            host.copy_(rows, non_blocking=True)
+            out.append(host)
+        return out[0], out[1]
 
     # ------------------------------------------------------------------ #
     # Chunked prefill (paged pool): a long prompt admits chunk by chunk,
@@ -1308,7 +1654,10 @@ class Engine:
     def _chunkable(self, request: GenRequest) -> bool:
         """Whether a prompt admits chunk by chunk. Adapter prompts never do:
         the chunk pass carries no per-slot LoRA operand (as in the JAX
-        package), so they admit single-shot."""
+        package), so they admit single-shot. Under the sink + window every
+        paged admission longer than one chunk takes the chunks' masked
+        prefix walk; shorter ones stay single-shot, exact there because
+        each query's window covers the whole prompt (chunk <= window)."""
         C = self.ecfg.prefill_chunk
         return (bool(C) and self._paged and len(request.prompt_ids) > C
                 and request.adapter is None)
@@ -1341,8 +1690,12 @@ class Engine:
             return False
         # The slot stays on SCRATCH until its final chunk: decode blocks
         # write every slot each step, and must not reach pages this
-        # prefill owns. The chunk dispatches carry the real row.
-        self.h_ptable[slot_idx] = self._scratch_page
+        # prefill owns. The chunk dispatches carry the real row (the
+        # directory row, hierarchical: table-page contents ride current).
+        if self._hier:
+            self.h_l1[slot_idx, :] = self._scratch_tp
+        else:
+            self.h_ptable[slot_idx] = self._scratch_page
         self.slots[slot_idx] = _Slot(request=request, handle=handle, prompt_len=len(ids),
                                      sched_rows=len(ids), t_submit=handle.t_submit)
         self._chunkings.append({"request": request, "handle": handle, "slot": slot_idx,
@@ -1389,7 +1742,7 @@ class Engine:
         logits, _ = llama.prefill_chunk_paged(
             self.cfg, self.params, torch.from_numpy(toks).to(dev),
             torch.tensor([len(seg)], device=dev), torch.tensor([offset], device=dev),
-            self.cache, torch.from_numpy(st["table_row"][None]).to(dev),
+            self.cache, self._device_table(st["table_row"][None]),
             with_logits=with_logits, kv_scale=self._kv_scales)
         self.m_prefill_chunks += 1
         return logits
@@ -1407,7 +1760,10 @@ class Engine:
                                    samp, bias_rows, seeds, [s])
         tok = int(toks.tolist()[0])  # the admission's one device-to-host copy
         # Publish the real table: blocks from here on read and write it.
-        self.h_ptable[s] = st["table_row"]
+        if self._hier:
+            self.h_l1[s] = st["table_row"]
+        else:
+            self.h_ptable[s] = st["table_row"]
         self.m_chunked_admits += 1
         self._claim_slot(s, request, handle, int(seeds[0]), st["t0"])
         self._post_first(s, tok)

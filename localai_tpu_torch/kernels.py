@@ -36,7 +36,7 @@ LIBRARIES = {
     ),
     "paged_attention": (
         "paged_attention.cu",
-        {"paged_attention": ([_P] * 12 + [_I] * 9 + [_F] + [_I] * 3 + [_P], _I)},
+        {"paged_attention": ([_P] * 13 + [_I] * 12 + [_F] + [_I] * 5 + [_P], _I)},
     ),
     "quant_matmul": (
         "quant_matmul.cu",

@@ -42,8 +42,12 @@ Not ported yet, and rejected with NotImplementedError: the deepseek MoE
 family (its router, shared experts, a dense-layer prefix) and MLA layers
 (ROADMAP Queue A item 10, other decoder families), expert-parallel
 capacity dispatch, sequence-parallel ring attention and tp meshes (item
-14, multi-GPU), m-rope (item 13, satellite engines and models), and
-sink+window decode and hierarchical page tables (item 9, long context).
+14, multi-GPU), and m-rope (item 13, satellite engines and models).
+
+Sink + window attention (`cfg.attention_sink` / `cfg.attention_window`,
+which the engine sets from its EngineConfig) masks decode and the
+chunked-prefill prefix walk, as in the JAX package; the paged pool's
+tables may be flat or hierarchical (ops/ptable) everywhere a table goes.
 
 The cache, the pool and the block-local windows are updated IN PLACE (the
 JAX package returns new arrays): that saves a full copy of each per call.
@@ -96,9 +100,6 @@ def check_supported(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             "m-rope (Qwen2-VL) is not ported yet (ROADMAP Queue A item 13, satellite "
             "engines and models)")
-    if cfg.attention_window or cfg.attention_sink:
-        raise NotImplementedError(
-            "sink+window decode is not ported yet (ROADMAP Queue A item 9, long context)")
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -491,7 +492,7 @@ def decode_step_windowed(
     local_k: torch.Tensor,  # [L, B, n, K, Hd] — block-local KV window
     local_v: torch.Tensor,
     step: int,  # index within the block
-    ptable: torch.Tensor | None = None,  # [B, MP] int32: `cache` is a page pool
+    ptable=None,  # [B, MP] int32 or the (l1, l0) pair: `cache` is a page pool
     kv_scale: torch.Tensor | None = None,  # [2, K] f32 per-head (k, v) pool scales
     lora=None,  # (stacked adapter factors, ids [B] int32): per-slot runtime LoRA
 ):
@@ -501,7 +502,9 @@ def decode_step_windowed(
     local_k / local_v[:, :, step] (in place), and the engine scatters the
     whole window into the cache once per block. With `ptable` the cache is
     a paged pool [L, P, page, K, Hd] and each slot reads its own pages,
-    multiplied back by `kv_scale` when the pool is scaled. With `lora` each
+    multiplied back by `kv_scale` when the pool is scaled. Every read is
+    masked by the sink + window of `cfg` (none when its window is 0). With
+    `lora` each
     slot adds its adapter's delta (the ragged kernel on the card; id 0 for
     adapter-less slots).
     Returns (logits [B, V] f32, local_k, local_v)."""
@@ -525,12 +528,14 @@ def decode_step_windowed(
                 q, cache.k[li], cache.v[li], ptable, local_k[li], local_v[li], k, v,
                 positions, step, softcap=cfg.attn_softcap,
                 window=cfg.sliding_window, sliding=_layer_sliding(cfg, li), kv_scale=kv_scale,
+                sink=cfg.attention_sink, swin=cfg.attention_window,
             )
         else:
             attn = decode_attention_windowed(
                 q, cache.k[li], cache.v[li], local_k[li], local_v[li], k, v,
                 positions, step, softcap=cfg.attn_softcap,
                 window=cfg.sliding_window, sliding=_layer_sliding(cfg, li),
+                sink=cfg.attention_sink, swin=cfg.attention_window,
             )
         h = h + _attn_out(cfg, lp, attn.reshape(B, -1), llora)
         x = rms_norm(h, lp["mlp_norm"], cfg.rms_eps)
@@ -609,8 +614,9 @@ def _pool_store(rows: torch.Tensor, pool_dtype, scale_row) -> torch.Tensor:
 
 def _scatter_rows(pool: KVCache, table, rows: torch.Tensor, ks: torch.Tensor,
                   vs: torch.Tensor, kv_scale=None) -> KVCache:
-    """pool[:, table[b, row // page], row % page] = ks[:, b, i] for every
-    rows[b, i], in place. Rows are clamped to the table's span."""
+    """pool[:, page of column row // page, row % page] = ks[:, b, i] for
+    every rows[b, i], in place, through a flat or hierarchical table
+    (ops/ptable). Rows are clamped to the table's span."""
     page = pool.k.shape[2]
     rows = torch.clamp(rows.to(torch.int64), max=_pt.width(table) * page - 1)
     pid = _pt.gather_cols(table, rows // page)
@@ -624,7 +630,7 @@ def _scatter_rows(pool: KVCache, table, rows: torch.Tensor, ks: torch.Tensor,
 
 def write_block_to_pool(
     pool: KVCache,
-    table: torch.Tensor,  # [B, MP] int32
+    table,  # [B, MP] int32 or the (l1, l0) pair
     local_k: torch.Tensor,  # [L, B, n, K, Hd]
     local_v: torch.Tensor,
     start_positions: torch.Tensor,  # [B]
@@ -641,7 +647,7 @@ def write_block_to_pool(
 
 def write_chunk_to_pool(
     pool: KVCache,
-    table: torch.Tensor,  # [B, MP] int32
+    table,  # [B, MP] int32 or the (l1, l0) pair
     new_k: torch.Tensor,  # [L, B, T, K, Hd]
     new_v: torch.Tensor,
     positions: torch.Tensor,  # [B, T] row indices
@@ -653,7 +659,7 @@ def write_chunk_to_pool(
 
 def write_prefill_to_pool(
     pool: KVCache,
-    table_row: torch.Tensor,  # [MP] int32: the destination slot's pages
+    table_row,  # [MP] int32 or ([ML1], l0): the destination slot's pages
     ks: torch.Tensor,  # [L, B_new, Sb, K, Hd] from prefill
     vs: torch.Tensor,
     j: int,  # batch row within ks / vs
@@ -675,7 +681,7 @@ def prefill_chunk_paged(
     lengths: torch.Tensor,  # [B] valid chunk lengths
     offsets: torch.Tensor,  # [B] rows already resident (the chunk starts here)
     pool: KVCache,
-    table: torch.Tensor,  # [B, MP] int32 page tables (prefix + destination pages)
+    table,  # [B, MP] int32 page tables (prefix + destination pages), or (l1, l0)
     with_logits: bool = True,
     kv_scale: torch.Tensor | None = None,  # [2, K] f32 per-head (k, v) pool scales
 ):
@@ -687,6 +693,10 @@ def prefill_chunk_paged(
     then land in the slot's pages at rows [offsets, offsets + T), in place.
     Padding rows (t >= lengths[b]) write rows past the prompt inside the
     slot's own pages; decode overwrites each before any query reads it.
+    Under the sink + window of `cfg` the prefix walk reads only the sink
+    pages and the trailing window; the in-chunk part needs no mask, since
+    the engine keeps the chunk within the window (prefill_chunk <=
+    attention_window).
     Returns (last_logits [B, V] f32, or None when with_logits is False, and
     the pool)."""
     check_supported(cfg)
@@ -718,7 +728,8 @@ def prefill_chunk_paged(
         acc, m, l = paged_prefill_partials(
             q, pool.k[li], pool.v[li], table, offsets,
             softcap=cfg.attn_softcap, window=cfg.sliding_window, sliding=sliding,
-            q_pos=positions, kv_scale=kv_scale,
+            q_pos=positions, kv_scale=kv_scale, sink=cfg.attention_sink,
+            swin=cfg.attention_window,
         )
         attn = _merge_partials_mq(q, acc, m, l, k, v, wmask, softcap=cfg.attn_softcap)
         h = h + _attn_out(cfg, lp, attn.reshape(B, T, -1).to(h.dtype))

@@ -13,6 +13,11 @@ a dense slot KV cache or a paged pool (localai_tpu/ops/attention.py).
   the CPU), merged with the block-local window and the current token by
   `_merge_partials*`. An fp8 pool may carry a per-head `kv_scale` [2, K]:
   its rows are multiplied back as they are read.
+- Sink + window (the engine's attention_sink / attention_window, 0 =
+  full attention): decode and the chunked-prefill prefix walk attend a row
+  g only if g < sink or q_pos - g < swin. On the paged pool each slot's
+  walk skips its cold middle (ops/paged_flash), on both table layouts
+  (ops/ptable: flat or the hierarchical (l1, l0) pair).
 - GQA: queries have H heads, the cache K kv heads; queries reshape to
   [B, K, H//K, ...] against the shared kv head.
 """
@@ -104,6 +109,8 @@ def decode_attention_windowed(
     softcap: float = 0.0,
     window: int = 0,
     sliding: bool | None = None,
+    sink: int = 0,  # sink + window decode: rows attended iff
+    swin: int = 0,  # gpos < sink or q_pos - gpos < swin
 ) -> torch.Tensor:
     """Decode attention over `cache[0:block_start] ⊕ local[0:step] ⊕ current`.
 
@@ -124,17 +131,24 @@ def decode_attention_windowed(
     if softcap:
         sc = softcap_scores(sc, softcap)
     valid_c = rows[None, :] < block_start[:, None]
+    dist_c = positions[:, None] - rows[None, :]
     if window and sliding:
-        valid_c = valid_c & ((positions[:, None] - rows[None, :]) < window)
+        valid_c = valid_c & (dist_c < window)
+    if swin:
+        valid_c = valid_c & ((rows[None, :] < sink) | (dist_c < swin))
     sc = torch.where(valid_c[:, None, None, :], sc, NEG_INF)
     sl = torch.einsum("bkgd,bnkd->bkgn", qf, k_local.float())
     if softcap:
         sl = softcap_scores(sl, softcap)
     lrows = torch.arange(n, device=dev)
-    valid_l = lrows < step
+    valid_l = (lrows < step)[None, :].expand(B, n)
     if window and sliding:
         valid_l = valid_l & ((step - lrows) < window)
-    sl = torch.where(valid_l[None, None, None, :], sl, NEG_INF)
+    if swin:
+        # Local row i sits at position block_start + i, distance step - i.
+        dist_l = (step - lrows)[None, :]
+        valid_l = valid_l & (((positions[:, None] - dist_l) < sink) | (dist_l < swin))
+    sl = torch.where(valid_l[:, None, None, :], sl, NEG_INF)
     cur = torch.einsum("bkgd,bkd->bkg", qf, k_new.float())[..., None]
     if softcap:
         cur = softcap_scores(cur, softcap)
@@ -208,12 +222,13 @@ def paged_partials(q, k_pool, v_pool, table, limits, softcap: float = 0.0,
                    sink: int = 0, swin: int = 0):
     """Paged decode partials over rows [0, limits[b]) of each slot's pages:
     the ragged kernel for tensors on the card, its plain version on the CPU
-    (ops/paged_flash). q [B, H, D]; returns (acc [B, K, G, D],
-    m [B, K, G, 1], l [B, K, G, 1]) f32, scale applied."""
-    paged_flash.reject_unported(sink, swin, mesh)
+    (ops/paged_flash). q [B, H, D]; table flat or hierarchical; returns
+    (acc [B, K, G, D], m [B, K, G, 1], l [B, K, G, 1]) f32, scale applied."""
+    paged_flash.reject_unported(mesh)
     return paged_flash.paged_decode_partials(q, k_pool, v_pool, table, limits,
                                              softcap=softcap, window=window,
-                                             sliding=sliding, q_pos=q_pos, kv_scale=kv_scale)
+                                             sliding=sliding, q_pos=q_pos, kv_scale=kv_scale,
+                                             sink=sink, swin=swin)
 
 
 def paged_prefill_partials(q, k_pool, v_pool, table, limits, softcap: float = 0.0,
@@ -221,19 +236,21 @@ def paged_prefill_partials(q, k_pool, v_pool, table, limits, softcap: float = 0.
                            kv_scale=None, sink: int = 0, swin: int = 0):
     """Paged partials for a prefill chunk (models/llama.prefill_chunk_paged):
     q [B, T, H, D] is the whole chunk, limits[b] the rows already resident
-    (the chunk's offset). The kernel takes the chunk in one launch."""
-    paged_flash.reject_unported(sink, swin, mesh)
+    (the chunk's offset). The kernel takes the chunk in one launch. With
+    sink/swin the prefix walk covers the sink pages and the trailing window
+    only: a long chunked prefill costs the same per chunk at any offset."""
+    paged_flash.reject_unported(mesh)
     return paged_flash.paged_prefill_partials_mq(q, k_pool, v_pool, table, limits,
                                                  softcap=softcap, window=window,
                                                  sliding=sliding, q_pos=q_pos,
-                                                 kv_scale=kv_scale)
+                                                 kv_scale=kv_scale, sink=sink, swin=swin)
 
 
 def decode_attention_windowed_paged(
     q: torch.Tensor,  # [B, H, D]
     k_pool: torch.Tensor,  # [P, page, K, D] shared page pool (one layer)
     v_pool: torch.Tensor,
-    table: torch.Tensor,  # [B, MP] int32 page ids per slot
+    table,  # [B, MP] int32 page ids per slot, or the hierarchical (l1, l0) pair
     k_local: torch.Tensor,  # [B, n, K, D] block-local window
     v_local: torch.Tensor,
     k_new: torch.Tensor,  # [B, K, D]
@@ -262,8 +279,13 @@ def decode_attention_windowed_paged(
     ev = torch.cat([v_local.float(), v_new[:, None].float()], dim=1)
     lrows = torch.arange(n, device=dev)
     mask = torch.cat([lrows < step, torch.ones((1,), dtype=torch.bool, device=dev)])
+    dist = torch.cat([step - lrows, torch.zeros((1,), dtype=lrows.dtype, device=dev)])
     if window and sliding:
-        dist = torch.cat([step - lrows, torch.zeros((1,), dtype=lrows.dtype, device=dev)])
         mask = mask & (dist < window)
     mask = mask[None, :].expand(q.shape[0], n + 1)
+    if swin:
+        # The exact mask on the local rows too: row i sits at position
+        # positions - step + i, distance step - i.
+        gpos = positions[:, None] - dist[None, :]
+        mask = mask & ((gpos < sink) | (dist[None, :] < swin))
     return _merge_partials(q, acc, m, l, ek, ev, mask, softcap=softcap)

@@ -19,10 +19,19 @@ Shapes, as in the JAX package:
   head's scale; the kernel, the same function, multiplies the head's q
   rows by the K scale and its finished acc by the V scale (it takes a
   scale with fp8 pools only);
-- table   [B, MP] int32 page ids (flat; ops/ptable);
+- table   [B, MP] int32 page ids, or the hierarchical pair (l1 [B, ML1],
+  l0 [NTP, SPAN]) int32 whose column j resolves through
+  l0[l1[b, j // SPAN], j % SPAN] (ops/ptable);
 - limits  [B] int32: rows g >= limits[b] are masked, and the walk covers
   ceil(limits[b]/page) pages clamped to MP;
-- qpos    [B, QR] int32 query positions (sliding-window distance).
+- qpos    [B, QR] int32 query positions (sliding-window distance);
+- sink, swin: the engine's sink + window (0 = off). With swin > 0 a row g
+  is attended only if g < sink or qpos - g < swin, and each slot walks
+  only the page columns [0, sink_cols) and [win_lo, n_live): the cold
+  middle, masked for every query row, is never read, so its pages may
+  point at SCRATCH (spilled). win_lo comes from the smallest query
+  position of the slot (`sink_window_cols`, the reference's
+  attention._sink_window_cols); skipping is exact.
 The partials come back as acc [B, K, QR, D], m and l [B, K, QR], f32; the
 merge with the block-local window stays in plain PyTorch
 (ops/attention._merge_partials*), one numeric tail for every route.
@@ -37,8 +46,12 @@ when a call needs more and never allocated per call. The port issues
 every call in order on one stream, which is what makes one workspace per
 device safe.
 
-Not ported yet: hierarchical tables and the sink/swin cold-middle skip
-(ROADMAP Queue A item 9, long context).
+The kernel walks each slot's visited rows as one virtual row space
+[0, n_v): virtual row v is real row v below the sink pages and v + gap
+above them (`walk_rows`), and the split plan cuts n_v, so a slot whose
+middle is skipped spreads its few visited rows over the card as a short
+context does. A flat and a hierarchical table of one capacity get the
+same plan and the same bits.
 """
 
 from __future__ import annotations
@@ -131,23 +144,55 @@ def paged_plan(capacity: int, page: int, K: int, QR: int, D: int, pool_dtype,
     return PagedPlan(kernel, row_tile, splits, _SPLIT_UNIT)
 
 
-def plan_for(qr: torch.Tensor, k_pool: torch.Tensor, table: torch.Tensor,
-             sm_count: int) -> PagedPlan:
-    """The plan of one call, from every shape it has but B."""
+def plan_for(qr: torch.Tensor, k_pool: torch.Tensor, table, sm_count: int) -> PagedPlan:
+    """The plan of one call, from every shape it has but B. The capacity is
+    the table's logical width (ops/ptable.width), so a flat table and a
+    hierarchical one of the same width get the same plan."""
     _, K, QR, D = qr.shape
     page = k_pool.shape[1]
-    return paged_plan(table.shape[-1] * page, page, K, QR, D, k_pool.dtype, sm_count)
+    return paged_plan(_pt.width(table) * page, page, K, QR, D, k_pool.dtype, sm_count)
+
+
+def sink_window_cols(limits: torch.Tensor, q_min: torch.Tensor, page: int, MP: int,
+                     sink: int, swin: int):
+    """Per-slot walk of the sink + window skip (the reference's
+    attention._sink_window_cols): page columns outside [0, sink_cols) and
+    [win_lo, n_live) can never be attended (a row is live iff g < sink or
+    q_pos - g < swin, and q_min is the smallest query position), so the
+    walk skips them. limits [B] >= 0, q_min [B]. Returns (sink_cols,
+    win_lo, n_cols) [B]: walk column j is table column
+    `j < sink_cols ? j : j + (win_lo - sink_cols)`."""
+    sink_pages = -(-sink // page) if sink else 0
+    n_live = torch.clamp((limits + page - 1) // page, max=MP)
+    sink_cols = torch.clamp(n_live, max=sink_pages)
+    win_lo = torch.minimum(torch.clamp((q_min - swin + 1) // page, min=0), n_live)
+    win_lo = torch.maximum(win_lo, sink_cols)
+    return sink_cols, win_lo, sink_cols + n_live - win_lo
+
+
+def walk_rows(limit: int, q_min: int, page: int, MP: int, sink: int = 0,
+              swin: int = 0) -> tuple[int, int, int]:
+    """One slot's walk as the kernel's `where()` forms it: (n_v, sink_rows,
+    gap). The slot walks virtual rows [0, n_v); virtual row v is real row
+    v when v < sink_rows, else v + gap. Without the skip (swin 0) n_v is
+    min(limit, MP·page) and gap 0. The split plan cuts n_v."""
+    n_rows = min(max(limit, 0), MP * page)
+    if not swin:
+        return n_rows, n_rows, 0
+    n_live = -(-n_rows // page)
+    sink_cols = min(-(-sink // page) if sink else 0, n_live)
+    win_lo = max(min(max((q_min - swin + 1) // page, 0), n_live), sink_cols)
+    gap = (win_lo - sink_cols) * page
+    # The window's part [win_lo·page, n_rows) is empty when the queries are
+    # a window past the last (partial) page: then only the sink pages remain.
+    return min(n_rows, max(n_rows - gap, sink_cols * page)), sink_cols * page, gap
 
 
 _workspaces: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}  # device index -> (partials, counters)
 
 
-def reject_unported(sink: int = 0, swin: int = 0, mesh=None) -> None:
+def reject_unported(mesh=None) -> None:
     """Raise for the paged-attention features the port does not serve."""
-    if sink or swin:
-        raise NotImplementedError(
-            "sink+window paged attention is not ported yet (ROADMAP Queue A item 9, "
-            "long context)")
     if mesh is not None:
         raise NotImplementedError(
             "tensor-parallel paged attention is not ported yet (ROADMAP Queue A item 14, "
@@ -164,32 +209,41 @@ def paged_partials_plain(
     qpos: torch.Tensor,  # [B, QR] int
     k_pool: torch.Tensor,  # [P, page, K, D]
     v_pool: torch.Tensor,
-    table: torch.Tensor,  # [B, MP] int
+    table,  # [B, MP] int, or the hierarchical (l1 [B, ML1], l0 [NTP, SPAN]) pair
     limits: torch.Tensor,  # [B] int
     softcap: float = 0.0,
     window: int = 0,  # the layer's sliding window, 0 for none
     kv_scale: torch.Tensor | None = None,  # [2, K] f32
+    sink: int = 0,
+    swin: int = 0,  # the engine's sink + window, 0 for none
 ):
     """Plain PyTorch version of the kernel: the online softmax walked one
-    table column (page) at a time for every slot, rows past each slot's
-    limit masked, pool rows multiplied by `kv_scale`. Returns
+    page column at a time for every slot, rows past each slot's limit
+    masked, pool rows multiplied by `kv_scale`. With swin > 0 each slot
+    walks only its sink and window columns (`sink_window_cols`, the
+    reference's walk) and rows are masked by their real positions. Returns
     (acc [B, K, QR, D], m [B, K, QR], l [B, K, QR])."""
-    table = _pt._flat(table)
     B, K, QR, D = qr.shape
     page = k_pool.shape[1]
-    MP = table.shape[1]
+    MP = _pt.width(table)
     dev = qr.device
     qf = qr.float()
-    lim = limits.to(device=dev, dtype=torch.int64)
+    lim = torch.clamp(limits.to(device=dev, dtype=torch.int64), min=0)
     qp = qpos.to(device=dev, dtype=torch.int64)
+    n_live = torch.clamp((lim + page - 1) // page, max=MP)
+    zero = torch.zeros_like(lim)
+    sink_cols, win_lo, n_cols = zero, zero, n_live
+    if swin:
+        sink_cols, win_lo, n_cols = sink_window_cols(lim, qp.amin(dim=1), page, MP, sink, swin)
     # The plain version may read the limits back; the kernel never does.
-    n_pages = min(-(-max(int(lim.max()), 0) // page), MP) if B else 0
+    n_iter = int(n_cols.max()) if B else 0
     m = torch.full((B, K, QR), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((B, K, QR), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, K, QR, D), dtype=torch.float32, device=dev)
     offs = torch.arange(page, device=dev)
-    for j in range(n_pages):
-        pid = table[:, j].to(torch.int64)
+    for j in range(n_iter):
+        col = torch.where(j < sink_cols, j, j + win_lo - sink_cols)  # [B] table column
+        pid = _pt.gather_cols(table, torch.clamp(col, max=MP - 1)[:, None])[:, 0].to(torch.int64)
         kp = k_pool[pid].float()  # [B, page, K, D]
         vp = v_pool[pid].float()
         if kv_scale is not None:
@@ -198,10 +252,13 @@ def paged_partials_plain(
         s = torch.einsum("bkrd,bskd->bkrs", qf, kp)
         if softcap:
             s = softcap * torch.tanh(s / softcap)  # before the mask
-        gpos = j * page + offs  # [page]
-        valid = (gpos[None, :] < lim[:, None])[:, None, None, :]  # [B, 1, 1, page]
+        gpos = col[:, None] * page + offs  # [B, page] real rows
+        valid = ((gpos < lim[:, None]) & (j < n_cols)[:, None])[:, None, None, :]
+        dist = qp[:, None, :, None] - gpos[:, None, None, :]  # [B, 1, QR, page]
         if window:
-            valid = valid & ((qp[:, None, :, None] - gpos) < window)  # [B, 1, QR, page]
+            valid = valid & (dist < window)
+        if swin:
+            valid = valid & ((gpos[:, None, None, :] < sink) | (dist < swin))
         s = torch.where(valid, s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         alpha = torch.exp(torch.clamp(m - m_new, min=-80.0))
@@ -210,6 +267,14 @@ def paged_partials_plain(
         acc = acc * alpha[..., None] + torch.einsum("bkrs,bskd->bkrd", p, vp)
         m = m_new
     return acc, m, l
+
+
+def _table_operands(table):
+    """(table or l1, l0 or None, row stride, span, NTP) of either layout."""
+    if _pt.is_hier(table):
+        l1, l0 = table
+        return l1, l0, l1.shape[-1], l0.shape[-1], l0.shape[0]
+    return table, None, table.shape[-1], 0, 0
 
 
 def _check_cuda_args(qr, qpos, k_pool, v_pool, table, limits, kv_scale) -> None:
@@ -225,12 +290,18 @@ def _check_cuda_args(qr, qpos, k_pool, v_pool, table, limits, kv_scale) -> None:
     if k_pool.dtype not in _DTYPE_CODE or v_pool.dtype != k_pool.dtype:
         raise TypeError(f"pools must share one of {list(_DTYPE_CODE)}; got "
                         f"{k_pool.dtype}, {v_pool.dtype}")
-    for name, t, shape in (("table", table, (B, table.shape[-1])), ("limits", limits, (B,)),
-                           ("qpos", qpos, (B, QR))):
+    tab, l0, stride, span, ntp = _table_operands(table)
+    checks = [("table", tab, (B, stride)), ("limits", limits, (B,)), ("qpos", qpos, (B, QR))]
+    if l0 is not None:
+        if span < 1 or ntp < 1:
+            raise ValueError(f"l0 must be [NTP >= 1, SPAN >= 1], got {tuple(l0.shape)}")
+        checks.append(("l0", l0, (ntp, span)))
+    for name, t, shape in checks:
         if t.dtype != torch.int32 or tuple(t.shape) != shape:
             raise TypeError(f"{name} must be int32 {list(shape)}, got {t.dtype} {tuple(t.shape)}")
-    for name, t in (("q rows", qr), ("k_pool", k_pool), ("v_pool", v_pool), ("table", table),
-                    ("limits", limits), ("qpos", qpos)):
+    tensors = [("q rows", qr), ("k_pool", k_pool), ("v_pool", v_pool), ("table", tab),
+               ("limits", limits), ("qpos", qpos)] + ([] if l0 is None else [("l0", l0)])
+    for name, t in tensors:
         if t.device != qr.device:
             raise ValueError(f"{name} is on {t.device}, q rows on {qr.device}")
         if not t.is_contiguous():
@@ -253,25 +324,29 @@ def paged_partials_rows(
     qpos: torch.Tensor,  # [B, QR] int32
     k_pool: torch.Tensor,  # [P, page, K, D] bf16 | f32 | fp8 e4m3 | fp8 e5m2
     v_pool: torch.Tensor,
-    table: torch.Tensor,  # [B, MP] int32
+    table,  # [B, MP] int32, or the hierarchical (l1 [B, ML1], l0 [NTP, SPAN]) int32 pair
     limits: torch.Tensor,  # [B] int32
     softcap: float = 0.0,
     window: int = 0,  # the layer's sliding window, 0 for none
     kv_scale: torch.Tensor | None = None,  # [2, K] f32, None for all ones
+    sink: int = 0,
+    swin: int = 0,  # the engine's sink + window, 0 for none
 ):
     """Paged partials (acc [B, K, QR, D], m, l [B, K, QR], f32): the CUDA
     kernel for tensors on the card, the plain version on the CPU. Reads
     nothing back to the host on the card."""
     if qr.device.type == "cpu":
         return paged_partials_plain(qr, qpos, k_pool, v_pool, table, limits, softcap, window,
-                                    kv_scale)
+                                    kv_scale, sink, swin)
     if qr.device.type != "cuda":
         raise ValueError(f"paged_partials_rows: unsupported device {qr.device}")
-    table = _pt._flat(table)
+    if sink < 0 or swin < 0:
+        raise ValueError(f"sink and swin must be >= 0, got {sink}, {swin}")
     _check_cuda_args(qr, qpos, k_pool, v_pool, table, limits, kv_scale)
+    tab, l0, stride, span, ntp = _table_operands(table)
     B, K, QR, D = qr.shape
     P, page = k_pool.shape[:2]
-    MP = table.shape[1]
+    MP = _pt.width(table)
     acc = torch.empty((B, K, QR, D), dtype=torch.float32, device=qr.device)
     m = torch.empty((B, K, QR), dtype=torch.float32, device=qr.device)
     l = torch.empty_like(m)
@@ -281,11 +356,12 @@ def paged_partials_rows(
     lib = kernels.load("paged_attention")
     with torch.cuda.device(qr.device):  # the library launches on the current device
         rc = lib.paged_attention(
-            qr.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
-            limits.data_ptr(), qpos.data_ptr(),
+            qr.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tab.data_ptr(),
+            None if l0 is None else l0.data_ptr(), limits.data_ptr(), qpos.data_ptr(),
             None if kv_scale is None else kv_scale.data_ptr(),
             acc.data_ptr(), m.data_ptr(), l.data_ptr(), ws.data_ptr(), cnt.data_ptr(),
-            B, K, QR, D, P, page, MP, _DTYPE_CODE[k_pool.dtype], int(window), float(softcap),
+            B, K, QR, D, P, page, MP, stride, span, ntp, _DTYPE_CODE[k_pool.dtype],
+            int(window), float(softcap), int(sink), int(swin),
             plan.row_tile, plan.splits, plan.unit,
             torch.cuda.current_stream(qr.device).cuda_stream,
         )
@@ -299,19 +375,24 @@ def paged_partials_rows(
 paged_partials_rows.launches = 0
 
 
-def _rows_call(qr, qpos_rows, k_pool, v_pool, table, limits, softcap, window, kv_scale):
+def _rows_call(qr, qpos_rows, k_pool, v_pool, table, limits, softcap, window, kv_scale,
+               sink, swin):
     """Cast the control operands to what the kernel takes and call it."""
     i32 = dict(device=qr.device, dtype=torch.int32)
+    if _pt.is_hier(table):
+        table = tuple(t.to(**i32).contiguous() for t in table)
+    else:
+        table = table.to(**i32).contiguous()
     return paged_partials_rows(
-        qr.contiguous(), qpos_rows.to(**i32).contiguous(), k_pool, v_pool,
-        table.to(**i32).contiguous(), limits.to(**i32).contiguous(), softcap, window, kv_scale)
+        qr.contiguous(), qpos_rows.to(**i32).contiguous(), k_pool, v_pool, table,
+        limits.to(**i32).contiguous(), softcap, window, kv_scale, sink, swin)
 
 
 def paged_decode_partials(
     q: torch.Tensor,  # [B, H, D]
     k_pool: torch.Tensor,  # [P, page, K, D]
     v_pool: torch.Tensor,
-    table: torch.Tensor,  # [B, MP] int32
+    table,  # [B, MP] int32, or the hierarchical (l1, l0) pair
     limits: torch.Tensor,  # [B] int32
     softcap: float = 0.0,
     window: int = 0,
@@ -323,7 +404,6 @@ def paged_decode_partials(
 ):
     """Decode partials: (acc [B, K, G, D], m [B, K, G, 1], l [B, K, G, 1])
     f32, the JAX package's contract."""
-    reject_unported(sink, swin)
     B, H, D = q.shape
     K = k_pool.shape[2]
     G = H // K
@@ -332,7 +412,7 @@ def paged_decode_partials(
     qr = (q.float() * (1.0 / math.sqrt(D))).reshape(B, K, G, D)
     qpos_rows = q_pos.reshape(B, 1).expand(B, G)
     acc, m, l = _rows_call(qr, qpos_rows, k_pool, v_pool, table, limits, softcap,
-                           _window_of(window, sliding), kv_scale)
+                           _window_of(window, sliding), kv_scale, sink, swin)
     return acc, m[..., None], l[..., None]
 
 
@@ -353,7 +433,6 @@ def paged_decode_partials_mq(
     """Multi-query partials, one page walk shared by all T queries (row
     r = t·G + g). Returns (acc [B, K, G, T, D], m [B, K, G, T, 1],
     l [B, K, G, T, 1])."""
-    reject_unported(sink, swin)
     B, T, H, D = q.shape
     K = k_pool.shape[2]
     G = H // K
@@ -363,7 +442,7 @@ def paged_decode_partials_mq(
           .reshape(B, T, K, G, D).permute(0, 2, 1, 3, 4).reshape(B, K, T * G, D))
     qpos_rows = torch.repeat_interleave(q_pos, G, dim=1)  # [B, T*G]
     acc, m, l = _rows_call(qr, qpos_rows, k_pool, v_pool, table, limits, softcap,
-                           _window_of(window, sliding), kv_scale)
+                           _window_of(window, sliding), kv_scale, sink, swin)
     acc = acc.reshape(B, K, T, G, D).transpose(2, 3)
     m = m.reshape(B, K, T, G).transpose(2, 3)[..., None]
     l = l.reshape(B, K, T, G).transpose(2, 3)[..., None]

@@ -3,6 +3,7 @@
     python -m localai_tpu_torch.profile_engine [--arch llama-3.2-1b]
         [--slots 8] [--prompt 500] [--steps 16] [--paged]
         [--quant int8|int4] [--kv-cache-dtype fp8|fp8_e5m2] [--lora N]
+        [--long-context]
 
 Builds the engine on random bf16 weights (with `--quant`, random weights
 made int8 / int4 on the card one layer at a time, so `--arch mixtral-8x7b
@@ -23,7 +24,13 @@ unprofiled run, the summed device time of its kernels under the profiler,
 the device busy share (their ratio), the device kernels per step (a
 replay counts the kernels its graph runs), the kernels and host ops that
 take the most time, and the device time of each of the port's own kernels
-(B1-B5). Needs a GPU.
+(B1-B5). `--long-context` profiles instead the long-context engine of
+chip_smoke.py (max_seq 131072, pages of 128, chunks of 512, sink 128 +
+window 4096, table pages of 128, a 2 GiB spill budget): one 512-token
+prefill chunk at offset 129024 of a 130,000-token admission, then, after
+its final chunk installs the slot, one decode block of `--steps` steps of
+that one slot at 130k (graph replay and eager body); the pages hold
+whatever the pool held, which the timing does not read. Needs a GPU.
 """
 
 from __future__ import annotations
@@ -105,6 +112,8 @@ def main(argv=None) -> None:
                     help="store the KV cache in fp8")
     ap.add_argument("--lora", type=int, default=0,
                     help="serve N runtime LoRA tenants (rank 16 on q/v), slot i with tenant i % N")
+    ap.add_argument("--long-context", action="store_true",
+                    help="profile a chunk and a decode block of one 130,000-token slot instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_engine needs a CUDA device")
@@ -128,10 +137,11 @@ def main(argv=None) -> None:
                for i in range(args.lora)]
 
     def make_engine(**kw):
+        ecfg = dict(max_slots=args.slots, max_seq=2048, block_sizes=(args.steps,),
+                    kv_cache_dtype=args.kv_cache_dtype)
+        ecfg.update(kw)
         eng = Engine(cfg, params, ByteTokenizer(cfg.vocab_size), device="cuda",
-                     engine_cfg=EngineConfig(max_slots=args.slots, max_seq=2048,
-                                             block_sizes=(args.steps,),
-                                             kv_cache_dtype=args.kv_cache_dtype, **kw))
+                     engine_cfg=EngineConfig(**ecfg))
         for i, d in enumerate(tenants):
             eng.register_adapter(f"t{i}", d)
             # Resident before warmup, so it captures the blocks' LoRA shapes.
@@ -171,13 +181,16 @@ def main(argv=None) -> None:
             eng._dispatch_admit(group, bucket, slots)
         return admit, bucket
 
-    eng = make_engine()
-    admit, bucket = admitter(eng)
-
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
+    if args.long_context:
+        _long_context(make_engine, gen, smi, args.steps, GenRequest, RequestHandle, cfg)
+        return
+    eng = make_engine()
+    admit, bucket = admitter(eng)
+
     print(json.dumps({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
                       "arch": cfg.name, "quant": args.quant or "bf16",
                       "kv_cache_dtype": args.kv_cache_dtype or "model",
@@ -203,6 +216,39 @@ def main(argv=None) -> None:
         st["offset"] = 1024
         peng._dispatch_chunk(st, 512)
     _profile("paged prefill chunk T=512 offset=1024", chunk)
+
+
+def _long_context(make_engine, gen, smi, steps, GenRequest, RequestHandle, cfg) -> None:
+    """The long-context engine: a chunk near the end of a 130,000-token
+    admission, then a decode block of that slot (see the module doc)."""
+    n = 130_000
+    eng = make_engine(max_slots=2, max_seq=131072, kv_pages=131072 // 128 + 8,
+                      kv_page_size=128, prefill_chunk=512, attention_sink=128,
+                      attention_window=4096, kv_l1_span=128, kv_spill_bytes=2 << 30)
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+                      "arch": cfg.name, "long_context": dict(prompt=n, chunk=512, sink=128,
+                                                             window=4096, span=128),
+                      "steps": steps}), flush=True)
+    ids = torch.randint(0, 256, (n,), generator=gen).tolist()
+    assert eng._chunk_start(GenRequest(prompt_ids=ids, max_new_tokens=10_000, ignore_eos=True),
+                            RequestHandle())
+    st = eng._chunkings[0]
+
+    def chunk():
+        st["offset"] = 129024
+        eng._dispatch_chunk(st, 512)
+    _profile("long-context prefill chunk T=512 offset=129024", chunk)
+    st["offset"] = 129536
+    eng._chunkings.pop(0)
+    eng._dispatch_chunk_final(st)  # installs the slot at position 130000
+    _profile(f"long-context decode block n={steps} slots=1 at 130000 (graph replay)",
+             eng._run_block, steps)
+    eng._decode_block = eng._block_body
+    try:
+        _profile(f"long-context decode block n={steps} slots=1 at 130000 (eager body)",
+                 eng._run_block, steps)
+    finally:
+        del eng._decode_block
 
 
 if __name__ == "__main__":

@@ -341,6 +341,8 @@ class ModelManager:
                 kv_page_headroom=cfg.kv_page_headroom, kv_cache_dtype=cfg.kv_cache_dtype,
                 kv_scale=cfg.kv_scale, prefill_chunk=cfg.prefill_chunk,
                 max_pending=cfg.max_pending, adapter_cache_bytes=cfg.adapter_cache_bytes,
+                attention_sink=cfg.attention_sink, attention_window=cfg.attention_window,
+                kv_spill_bytes=cfg.kv_spill_bytes, kv_l1_span=cfg.kv_l1_span,
             ),
         )
         engine.start()

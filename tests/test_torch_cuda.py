@@ -177,6 +177,12 @@ def test_paged_cuda_tensors_never_take_the_plain_route(card, monkeypatch):
                                vp[..., :48].contiguous(), table, lim)
     with pytest.raises(TypeError, match="table"):
         pf.paged_partials_rows(qr, qpos, kp, vp, table.long(), lim)
+    # The long-context forms launch too: a hierarchical table, the skip.
+    att.paged_partials(q, kp, vp, _hier_of(table, 2), lim, sink=4, swin=8)
+    torch.cuda.synchronize()
+    assert pf.paged_partials_rows.launches == before + 2
+    with pytest.raises(TypeError, match="l0"):
+        pf.paged_partials_rows(qr, qpos, kp, vp, (_hier_of(table, 2)[0], table.long()), lim)
 
 
 @pytest.mark.cuda
@@ -311,6 +317,67 @@ def test_paged_workspace_is_reused_across_calls(card):
         assert pf._workspaces[idx][0].data_ptr() == ws.data_ptr()
         assert not pf._workspaces[idx][1].any()
     assert pf._workspaces[idx][1].data_ptr() == cnt.data_ptr()
+
+
+def _hier_of(table, span):
+    """The flat table [B, MP] as the hierarchical pair: l0 row 0 all
+    SCRATCH-like zeros, then each slot's table pages in order."""
+    B, MP = table.shape
+    l0 = torch.cat([torch.zeros(1, span, dtype=torch.int32, device=table.device),
+                    table.reshape(B * MP // span, span)])
+    l1 = (1 + torch.arange(B * MP // span, dtype=torch.int32, device=table.device)).reshape(B, -1)
+    return l1.contiguous(), l0.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float8_e4m3fn, torch.float32])
+@pytest.mark.parametrize("span", [1, 4, 32])
+@pytest.mark.parametrize("mode", ["decode", "chunk"])
+def test_paged_kernel_hier_tables_and_skip_match_plain_version(card, mode, span, dtype):
+    """The hierarchical tables and the sink + window skip on the card: the
+    kernel launches (the counter moves) and matches its plain version; the
+    hierarchical table gives the flat table's bits, a table whose skipped
+    columns point at SCRATCH the hot table's bits, and every output is
+    bit-identical on a repeat and for each slot alone."""
+    from localai_tpu_torch.models.llama import kv_cast
+    from localai_tpu_torch.ops import paged_flash as pf
+
+    B, K, G, D, page, MP = 6, 2, 4, 64, 64, 64
+    T = 1 if mode == "decode" else 40
+    QR = G * T
+    limits = [4096 - T, 0, 1, 700, 2600, 4095 - T]
+    qr, kp, vp, table, lim = _paged_inputs(span + T, B, QR, K, D, page, MP, torch.float32,
+                                           limits)
+    scale = None
+    if dtype.itemsize == 1:
+        scale = torch.tensor([[0.5, 3.0], [2.0, 0.25]], device="cuda")
+        kp, vp = kp / scale[0][:, None], vp / scale[1][:, None]
+    kp, vp = kv_cast(kp, dtype), kv_cast(vp, dtype)
+    qpos = (lim[:, None] + torch.arange(QR, device="cuda")[None, :] // G).to(torch.int32)
+    sink, swin = 100, 1000
+    hier = _hier_of(table, span)
+    spilled = table.clone()
+    for b, n in enumerate(limits):
+        _, sink_rows, gap = pf.walk_rows(n, n, page, MP, sink, swin)
+        spilled[b, sink_rows // page:(sink_rows + gap) // page] = kp.shape[0] - 1  # SCRATCH
+    outs = {}
+    for name, tab in (("flat", table), ("hier", hier), ("spilled", _hier_of(spilled, span))):
+        before = pf.paged_partials_rows.launches
+        outs[name] = pf.paged_partials_rows(qr, qpos, kp, vp, tab, lim, 0.0, 0, scale, sink,
+                                            swin)
+        torch.cuda.synchronize()
+        assert pf.paged_partials_rows.launches == before + 1
+        again = pf.paged_partials_rows(qr, qpos, kp, vp, tab, lim, 0.0, 0, scale, sink, swin)
+        assert all(torch.equal(a, x) for a, x in zip(outs[name], again))
+    assert all(torch.equal(a, x) for a, x in zip(outs["hier"], outs["flat"]))
+    assert all(torch.equal(a, x) for a, x in zip(outs["spilled"], outs["flat"]))
+    for b in range(B):
+        alone = pf.paged_partials_rows(qr[b:b + 1], qpos[b:b + 1], kp, vp,
+                                       (hier[0][b:b + 1], hier[1]), lim[b:b + 1], 0.0, 0,
+                                       scale, sink, swin)
+        assert all(torch.equal(a[b:b + 1], x) for a, x in zip(outs["hier"], alone))
+    want = pf.paged_partials_plain(qr, qpos, kp, vp, table, lim, 0.0, 0, scale, sink, swin)
+    _assert_partials_match(outs["hier"], want, limits)
 
 
 @pytest.mark.cuda

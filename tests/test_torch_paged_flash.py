@@ -196,13 +196,21 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 def test_unported_paged_features_raise():
+    """Only the multi-GPU form still raises. The long-context forms it
+    raised for before (sink + window, hierarchical tables) now serve: the
+    sink + window walk equals the plain walk under the same mask, and a
+    hierarchical pair has its logical width."""
     q, kp, vp, table, lim = _t(*_inputs(1, 2, None, 4, 2, 32, 16, 2, [5, 9]))
-    for kw, item in ((dict(sink=4, swin=8), "9, long context"),
-                     (dict(mesh=object()), "14, multi-GPU")):
-        with pytest.raises(NotImplementedError, match=f"Queue A item {item}"):
-            ta.paged_partials(q, kp, vp, table, lim, **kw)
-    with pytest.raises(NotImplementedError, match="item 9, long context"):
-        ptable.width((table, table))
+    with pytest.raises(NotImplementedError, match="Queue A item 14, multi-GPU"):
+        ta.paged_partials(q, kp, vp, table, lim, mesh=object())
+    got = ta.paged_partials(q, kp, vp, table, lim, sink=4, swin=8)
+    qr = (q * (1.0 / 32**0.5)).reshape(2, 2, 2, 32)  # the wrapper's scaling
+    want = tpf.paged_partials_plain(qr, lim[:, None].expand(2, 2), kp, vp, table, lim,
+                                    sink=4, swin=8)
+    for g, w in zip(got, want):
+        assert torch.equal(g.reshape(w.shape), w) and torch.isfinite(g).all()
+    l0 = torch.zeros(3, 4, dtype=torch.int32)
+    assert ptable.width((table[:, :1], l0)) == 4 and ptable.is_hier((table[:, :1], l0))
     cols = torch.tensor([[1, 0], [0, 1]])
     assert ptable.gather_cols(table, cols).tolist() == [
         [table[0, 1].item(), table[0, 0].item()], [table[1, 0].item(), table[1, 1].item()]]

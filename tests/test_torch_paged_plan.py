@@ -24,6 +24,7 @@ import torch
 from localai_tpu.ops import attention as ja
 from localai_tpu_torch.models.llama import kv_cast
 from localai_tpu_torch.ops import paged_flash as tpf
+from localai_tpu_torch.ops import ptable
 
 H100_SMS = 132
 NEG_INF = -1e30
@@ -173,9 +174,12 @@ def _merge(m, l, acc, dim):
     return mx, (l * f).sum(dim), (acc * f.unsqueeze(-1)).sum(dim)
 
 
-def _slot_partials(q, qpos, k, v, n_rows, plan, softcap, window, hilo, vsc):
+def _slot_partials(q, qpos, k, v, n_rows, plan, softcap, window, hilo, vsc, real=None,
+                   sink=0, swin=0):
     """One slot's partials as the kernel forms them: q [K, QR, D] (ksc
-    applied), k / v [n_rows, K, D] f32. The slot's rows go to its splits
+    applied), k / v [n_rows, K, D] f32: the slot's visited rows, whose
+    real positions `real` [n_rows] (the identity without the sink + window
+    skip) the masks read. The slot's rows go to its splits
     (plan.split_edges); in a split, key o belongs to softmax state
     (o % span) // group: the mma kernel's 4 warps take 16 keys of each
     64-key tile when a block owns 16 rows (one state a warp), else all 64
@@ -205,8 +209,12 @@ def _slot_partials(q, qpos, k, v, n_rows, plan, softcap, window, hilo, vsc):
     if softcap:
         s = softcap * torch.tanh(s / softcap)
     ok = live[:, None, None, :].expand(n_sp, K, QR, padded)
+    gr = g if real is None else real[idx]  # the real rows the masks read
+    dist = qpos[None, None, :, None] - gr[:, None, None, :]
     if window:
-        ok = ok & ((qpos[None, None, :, None] - g[:, None, None, :]) < window)
+        ok = ok & (dist < window)
+    if swin:
+        ok = ok & ((gr[:, None, None, :] < sink) | (dist < swin))
     s = torch.where(ok, s, NEG_INF)
     shape = (n_sp, K, QR, padded // span, span // group, group)  # keys -> (tile, state, key)
     s, ok = s.reshape(shape), ok.reshape(shape)
@@ -227,12 +235,15 @@ def _slot_partials(q, qpos, k, v, n_rows, plan, softcap, window, hilo, vsc):
 
 
 def emulate(qr, qpos, k_pool, v_pool, table, limits, softcap=0.0, window=0, kv_scale=None,
-            plan=None, hilo=True, row_block=256):
+            sink=0, swin=0, plan=None, hilo=True, row_block=256):
     """The kernel's partials (acc, m, l) by its own arithmetic, on the CPU
-    (q rows in blocks of `row_block`: each row's partials are its own)."""
+    (q rows in blocks of `row_block`: each row's partials are its own).
+    Each slot walks the virtual rows of `walk_rows` (from its limit and its
+    smallest query position), resolved through a flat or hierarchical
+    table."""
     B, K, QR, D = qr.shape
     P, page = k_pool.shape[:2]
-    MP = table.shape[1]
+    MP = ptable.width(table)
     plan = plan or tpf.plan_for(qr, k_pool, table, H100_SMS)
     kf, vf = k_pool.float(), v_pool.float()  # exact widening of bf16 / fp8
     ksc = kv_scale[0] if kv_scale is not None else torch.ones(K)
@@ -241,17 +252,24 @@ def emulate(qr, qpos, k_pool, v_pool, table, limits, softcap=0.0, window=0, kv_s
     m_o = torch.full((B, K, QR), NEG_INF)
     l_o = torch.zeros(B, K, QR)
     for b in range(B):
-        n_rows = min(max(int(limits[b]), 0), MP * page)
-        g = torch.arange(n_rows)
-        pid = table[b, g // page].long().clamp(0, P - 1)
-        kb, vb = kf[pid, g % page], vf[pid, g % page]  # [n_rows, K, D]
+        n_v, sink_rows, gap = tpf.walk_rows(int(limits[b]), int(qpos[b].min()), page, MP,
+                                            sink, swin)
+        v = torch.arange(n_v)
+        g = torch.where(v < sink_rows, v, v + gap)  # real rows of the virtual ones
+        pid = ptable.gather_cols(_row_table(table, b), (g // page)[None])[0].long().clamp(0, P - 1)
+        kb, vb = kf[pid, g % page], vf[pid, g % page]  # [n_v, K, D]
         q = qr[b] * ksc[:, None, None]
         for r0 in range(0, QR, row_block):
             r1 = min(r0 + row_block, QR)
             m_o[b, :, r0:r1], l_o[b, :, r0:r1], acc_o[b, :, r0:r1] = _slot_partials(
-                q[:, r0:r1], qpos[b, r0:r1].long(), kb, vb, n_rows, plan, softcap, window,
-                hilo, vsc)
+                q[:, r0:r1], qpos[b, r0:r1].long(), kb, vb, n_v, plan, softcap, window,
+                hilo, vsc, real=g, sink=sink, swin=swin)
     return acc_o, m_o, l_o
+
+
+def _row_table(table, b):
+    """Slot b's table in the batched form of its layout."""
+    return ptable.batch_row(ptable.select_row(table, b))
 
 
 def _inputs(seed, B, K, QR, D, page, MP, dtype, limits, G=4, scaled=False):
@@ -379,3 +397,118 @@ def test_hi_lo_products_hold_the_card_tolerance(shape):
     _assert_close(emulate(*args), want, limits)
     with pytest.raises(AssertionError):
         _assert_close(emulate(*args, hilo=False), want, limits)
+
+
+# --------------------------------------------------------------------------- #
+# The sink + window skip and hierarchical tables: virtual rows
+# --------------------------------------------------------------------------- #
+
+
+def _hier_of(table, span):
+    """A flat table [B, MP] as the hierarchical pair (l1 [B, MP / span],
+    l0 [1 + B·MP / span, span]): row 0 of l0 is an all-zero table page no
+    directory uses, then each slot's table pages in order."""
+    B, MP = table.shape
+    ml1 = MP // span
+    l0 = torch.cat([torch.zeros(1, span, dtype=torch.int32), table.reshape(B * ml1, span)])
+    l1 = (1 + torch.arange(B * ml1, dtype=torch.int32)).reshape(B, ml1)
+    return l1, l0
+
+
+@pytest.mark.parametrize("limit,q_min", [(0, 0), (1, 1), (40, 40), (4096, 4096), (4096, 700),
+                                         (2500, 2496), (4095, 4095), (701, 701), (3000, 9000)])
+def test_walk_rows_visit_every_attended_row_and_skip_only_masked_ones(limit, q_min):
+    """The virtual rows of `walk_rows` are the slot's live rows minus whole
+    pages that no query at or past q_min attends (sink 40, window 700, pages
+    of 32), and they agree with `sink_window_cols`, the reference's walk."""
+    page, MP, sink, swin = 32, 128, 40, 700
+    n_v, sink_rows, gap = tpf.walk_rows(limit, q_min, page, MP, sink, swin)
+    n_rows = min(limit, MP * page)
+    v = np.arange(n_v)
+    real = np.where(v < sink_rows, v, v + gap)
+    assert sink_rows % page == 0 and gap % page == 0
+    # The sink's pages, then the window's part of the live rows (empty when
+    # the queries are a window past the last page).
+    assert set(real.tolist()) == set(range(min(sink_rows, n_rows))) | set(
+        range(sink_rows + gap, n_rows)) and len(set(real)) == n_v
+    skipped = np.setdiff1d(np.arange(n_rows), real)
+    for q in (q_min, q_min + 1, q_min + 500):  # later queries attend no skipped row
+        assert not ((skipped < sink) | (q - skipped < swin)).any()
+    attended = np.arange(n_rows)[(np.arange(n_rows) < sink) | (q_min - np.arange(n_rows) < swin)]
+    assert np.isin(attended, real).all()
+    sc, lo, nc = tpf.sink_window_cols(torch.tensor([limit]), torch.tensor([q_min]), page, MP,
+                                      sink, swin)
+    assert int(sc[0]) * page == sink_rows and (int(lo[0]) - int(sc[0])) * page == gap
+    assert int(nc[0]) * page >= n_v > (int(nc[0]) - 1) * page or n_v == int(nc[0]) == 0
+    assert tpf.walk_rows(limit, q_min, page, MP) == (n_rows, n_rows, 0)  # no skip
+
+
+@pytest.mark.parametrize("context,MP", [(131072, 1024), (1 << 20, 8192)])
+def test_plan_cuts_the_visited_rows_of_a_long_slot(context, MP):
+    """llama-3.2-1b's long-context engine (pages of 128, sink 128, window
+    4096, decode G = 4): a flat and a hierarchical table of one width get
+    one plan; a full slot visits its sink page and the window's 32 pages,
+    and the plan spreads those rows as it spreads a short context's, each
+    split's slice of virtual columns within the kernel's table slice."""
+    page, span = 128, 128
+    qr = torch.zeros(1, 8, 4, 64)
+    pool = torch.zeros(1, page, 8, 64, dtype=torch.bfloat16)
+    flat = torch.zeros(1, MP, dtype=torch.int32)
+    hier = (torch.zeros(1, MP // span, dtype=torch.int32), torch.zeros(3, span, dtype=torch.int32))
+    plan = tpf.plan_for(qr, pool, flat, H100_SMS)
+    assert tpf.plan_for(qr, pool, hier, H100_SMS) == plan
+    assert plan == tpf.paged_plan(context, page, 8, 4, 64, torch.bfloat16, H100_SMS)
+    n_v, sink_rows, gap = tpf.walk_rows(context, context, page, MP, 128, 4096)
+    assert (n_v, sink_rows) == (128 + 32 * 128, 128) and gap == context - n_v
+    edges = plan.split_edges(n_v)
+    assert len(edges) >= 8
+    assert all((b - 1) // page - a // page + 1 <= tpf._TABLE_SLICE for a, b in edges)
+
+
+SKIP_CASES = [  # (name, G, T, K, D, page, MP, dtype, limits, q ahead, sink, swin, span, window)
+    ("decode_page32", 4, 1, 2, 64, 32, 128, torch.bfloat16,
+     [4096, 0, 1, 700, 701, 2500, 4095, 40], 0, 40, 700, 4, 0),
+    ("chunk_t15", 4, 15, 2, 64, 64, 64, torch.bfloat16,
+     [4096 - 15, 0, 64, 1000, 3000, 2049, 1, 128], 0, 64, 1000, 8, 0),
+    ("decode_g7_d128", 7, 1, 2, 128, 128, 32, torch.bfloat16,
+     [4096, 0, 129, 1100, 3333, 2048, 4095, 128], 0, 128, 1024, 2, 0),
+    ("fp8_scaled", 4, 1, 2, 128, 128, 32, torch.float8_e4m3fn,
+     [4096, 0, 129, 1100, 3333, 2048, 4095, 128], 0, 128, 1024, 4, 0),
+    ("f32_page16_window", 4, 3, 2, 64, 16, 256, torch.float32,
+     [4096, 0, 20, 300, 301, 2000, 4093, 17], 0, 20, 300, 16, 250),
+    ("decode_behind", 4, 1, 2, 64, 32, 128, torch.bfloat16,  # queries past the limit
+     [4096, 0, 1, 700, 701, 2500, 4095, 40], 900, 40, 700, 4, 0),
+]
+
+
+@pytest.mark.parametrize("case", SKIP_CASES, ids=[c[0] for c in SKIP_CASES])
+def test_emulated_kernel_skip_and_hier_tables_match_plain_version(case):
+    """The kernel's walk over virtual rows, resolved through a flat and a
+    hierarchical table: each within the card's tolerance of the plain walk,
+    hierarchical equal to flat bit for bit (one plan, the same pages), and
+    a table whose skipped columns point at SCRATCH (spilled) equal to the
+    hot one bit for bit, in the emulation and in the plain walk."""
+    name, G, T, K, D, page, MP, dt, limits, ahead, sink, swin, span, window = case
+    QR = G * T
+    qr, qpos, kp, vp, table, lim, scale = _inputs(len(name) + 40, len(limits), K, QR, D, page,
+                                                  MP, dt, limits, G, scaled=dt.itemsize == 1)
+    qpos = qpos + ahead
+    hier = _hier_of(table, span)
+    kw = dict(softcap=0.0, window=window, kv_scale=scale, sink=sink, swin=swin)
+    want = tpf.paged_partials_plain(qr, qpos, kp, vp, table, lim, **kw)
+    got = emulate(qr, qpos, kp, vp, table, lim, **kw)
+    _assert_close(got, want, limits)
+    for a, b in zip(emulate(qr, qpos, kp, vp, hier, lim, **kw), got):
+        assert torch.equal(a, b)
+    for a, b in zip(tpf.paged_partials_plain(qr, qpos, kp, vp, hier, lim, **kw), want):
+        assert torch.equal(a, b)
+    # Spilled: every column the slots skip points at SCRATCH (the pool's last page).
+    spilled = table.clone()
+    for b, n in enumerate(limits):
+        n_v, sink_rows, gap = tpf.walk_rows(n, int(qpos[b].min()), page, MP, sink, swin)
+        spilled[b, sink_rows // page:(sink_rows + gap) // page] = kp.shape[0] - 1
+    for a, b in zip(emulate(qr, qpos, kp, vp, spilled, lim, **kw), got):
+        assert torch.equal(a, b)
+    for a, b in zip(tpf.paged_partials_plain(qr, qpos, kp, vp, _hier_of(spilled, span), lim,
+                                             **kw), want):
+        assert torch.equal(a, b)
