@@ -115,7 +115,26 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    budget. The ids must be identical and pages must spill within the
    budget; the phase prints the device ms of each prefill chunk along the
    prompt, the TTFT, decode tok/s, peak memory and the pages spilled.
-In 5, 6, 8, 10, 11, 12, 14, 15 and 17 the kernel launch counters, zeroed just
+18. prefix_swap (run right after 17) — the prefix cache and the host swap
+   tier on llama-3.2-1b at full width and depth (16 layers, bf16): (a) 8
+   chat conversations sharing a 1536-token system prompt, 3 turns of 64
+   tokens each carrying the earlier turns and answers, beside 4 short
+   misses, on the paged engine after warmup(), with the default prefix
+   knobs and again with prefix_cache_entries=0: hits, matched tokens,
+   TTFT of hits and misses, decode tok/s, peak memory, no graph captured
+   while serving; ids held to the miss run's (they may part only where a
+   plain prefill of the same sequence picks the hit's token or a change
+   within 2^-5 of its largest |logit| would), first-token logits within
+   that bound; (b) 8 requests on an 88-page pool that must swap (auto)
+   against a 256-page pool, ids held the same way; (c) a 16,384-token
+   prompt on the hierarchical + spill engine, then an extension: the save
+   restores the spilled pages, the entry pins table pages, the extension
+   hits with a fresh engine's ids; (d) the small f32 model on the card: hit
+   equals miss, swap equals unpressured. Then, right after phase 12's 8b
+   pair, prefix_swap_8b: llama-3-8b int4 on an fp8 pool with kv_scale 2,
+   one 1024-token hit against a miss (B2's fp8 walk over the shared pages,
+   B3, B4).
+In 5, 6, 8, 10, 11, 12, 14, 15, 17 and 18 the kernel launch counters, zeroed just
 before each run, show that the path went through the kernels; a graph
 replay counts the launches its capture recorded. Every decode block of
 those runs is a graph capture or replay (the eager runs of phases 12 and
@@ -1125,6 +1144,47 @@ def phase_quant_model(gen: torch.Generator) -> dict:
 # 5. engine, 6. paged engine
 # --------------------------------------------------------------------------- #
 
+def _serve_prompts(plens: list[int]) -> list[list[int]]:
+    """The prompts `_serve` submits: random ids from a fixed seed."""
+    gen = torch.Generator().manual_seed(3)
+    return [torch.randint(0, 256, (n,), generator=gen).tolist() for n in plens]
+
+
+def _zero_counts() -> None:
+    """Every kernel launch counter to 0 (just before a main path's run)."""
+    from localai_tpu_torch.models import quant
+    from localai_tpu_torch.ops import quant_matmul
+    from localai_tpu_torch.ops.flash import flash_prefill_attention
+    from localai_tpu_torch.ops.lora_matmul import lora_bgmv_group
+    from localai_tpu_torch.ops.paged_flash import paged_partials_rows
+
+    flash_prefill_attention.launches = 0
+    paged_partials_rows.launches = 0
+    quant_matmul.qmm.launches = quant_matmul.qunembed.launches = 0
+    quant_matmul.qmm_moe.launches = quant.moe_matmul.dequant_calls = 0
+    quant.matmul.dequant_calls = quant.unembed_matmul.dequant_calls = 0
+    lora_bgmv_group.launches = 0
+
+
+def _read_counts() -> dict:
+    """The kernel launch counters (just after a main path's run)."""
+    from localai_tpu_torch.models import quant
+    from localai_tpu_torch.ops import quant_matmul
+    from localai_tpu_torch.ops.flash import flash_prefill_attention
+    from localai_tpu_torch.ops.lora_matmul import lora_bgmv_group
+    from localai_tpu_torch.ops.paged_flash import paged_partials_rows
+
+    return {"flash_prefill": flash_prefill_attention.launches,
+            "paged_attention": paged_partials_rows.launches,
+            "quant_matmul": quant_matmul.qmm.launches,
+            "quant_matmul_moe": quant_matmul.qmm_moe.launches,
+            "quant_unembed": quant_matmul.qunembed.launches,
+            "matmul_dequant_calls": quant.matmul.dequant_calls,
+            "moe_dequant_calls": quant.moe_matmul.dequant_calls,
+            "unembed_dequant_calls": quant.unembed_matmul.dequant_calls,
+            "lora_bgmv": lora_bgmv_group.launches}
+
+
 def _serve(eng, plens: list[int], max_new: int = 64, adapters=None,
            keep_ids: bool = False) -> dict:
     """Submit one request per prompt length (half greedy, half seeded top-p;
@@ -1133,16 +1193,10 @@ def _serve(eng, plens: list[int], max_new: int = 64, adapters=None,
     are read just after it. With keep_ids the result carries every
     request's token ids."""
     from localai_tpu_torch.engine.engine import GenRequest
-    from localai_tpu_torch.models import quant
     from localai_tpu_torch.ops import quant_matmul
-    from localai_tpu_torch.ops.flash import flash_prefill_attention
-    from localai_tpu_torch.ops.lora_matmul import lora_bgmv_group
-    from localai_tpu_torch.ops.paged_flash import paged_partials_rows
 
-    gen = torch.Generator().manual_seed(3)
     reqs = []
-    for i, n in enumerate(plens):
-        ids = torch.randint(0, 256, (n,), generator=gen).tolist()
+    for i, ids in enumerate(_serve_prompts(plens)):
         sampled = i % 2 == 1
         reqs.append(GenRequest(prompt_ids=ids, max_new_tokens=max_new, ignore_eos=True,
                                temperature=0.8 if sampled else 0.0,
@@ -1177,12 +1231,7 @@ def _serve(eng, plens: list[int], max_new: int = 64, adapters=None,
         return y
 
     # The main path's run: counts go to 0 just before, are read just after.
-    flash_prefill_attention.launches = 0
-    paged_partials_rows.launches = 0
-    quant_matmul.qmm.launches = quant_matmul.qunembed.launches = 0
-    quant_matmul.qmm_moe.launches = quant.moe_matmul.dequant_calls = 0
-    quant.matmul.dequant_calls = quant.unembed_matmul.dequant_calls = 0
-    lora_bgmv_group.launches = 0
+    _zero_counts()
     # Engine counters are read as differences over this run.
     m0, tok0, dt0 = eng.metrics(), eng._decode_tokens, eng._decode_time
     t0 = time.monotonic()
@@ -1197,15 +1246,7 @@ def _serve(eng, plens: list[int], max_new: int = 64, adapters=None,
         for th in threads:
             th.join(timeout=600)
     wall = time.monotonic() - t0
-    launches = {"flash_prefill": flash_prefill_attention.launches,
-                "paged_attention": paged_partials_rows.launches,
-                "quant_matmul": quant_matmul.qmm.launches,
-                "quant_matmul_moe": quant_matmul.qmm_moe.launches,
-                "quant_unembed": quant_matmul.qunembed.launches,
-                "matmul_dequant_calls": quant.matmul.dequant_calls,
-                "moe_dequant_calls": quant.moe_matmul.dequant_calls,
-                "unembed_dequant_calls": quant.unembed_matmul.dequant_calls,
-                "lora_bgmv": lora_bgmv_group.launches}
+    launches = _read_counts()
     metrics = eng.metrics()
     refs = [int(r) for r in eng._adapter_refs]
     eng.stop()
@@ -2398,6 +2439,508 @@ def phase_moe_small() -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# 18. prefix_swap: the prefix cache and the host swap tier
+# --------------------------------------------------------------------------- #
+
+# Full-width chat traffic: 8 conversations share a 1536-token system prompt,
+# each turn adds a 48-200-token user message, 3 turns of 64 new tokens, turn
+# n + 1 = turn n's prompt + its answer + a new message; conversations 2 and 5
+# sample (top-p 0.9, temperature 0.8, seeded), the rest are greedy. Four short
+# prompts (<= 400 tokens, one chunk: single-shot through B1) miss beside them.
+PREFIX_SYS, PREFIX_CONVS, PREFIX_TURNS, PREFIX_NEW = 1536, 8, 3, 64
+PREFIX_SEEDED = (2, 5)
+PREFIX_SHORTS = [57, 180, 311, 400]
+# bf16: a hit computes its tail over stored K/V where a miss chunks the
+# prompt on another grid, so the f32 sums run in another order. A hit's
+# first-token logits must lie within 2^-5 of the largest |logit| of the
+# miss's; its ids may part from the miss's only where a plain prefill of
+# the same sequence picks the hit's token, or a change of its logits within
+# that same bound would (`_part_gap`): bf16 paths part at near ties, and
+# later in a turn the miss drifts from the plain recomputation as much as
+# the hit does.
+PREFIX_LOGIT_TOL = 2.0 ** -5
+# Swap at full width: 8 prompts whose last chunk buckets to 256 rows, so each
+# admission reserves 11 pages of 4 MiB (10 + headroom) and 256 new tokens
+# take a 12th: the 88-page pool holds every reservation and no growth, and
+# auto swaps the victims' spans (<= 48 MiB, under a quarter of 256 MiB).
+SWAP_ENGINE = dict(PAGED_ENGINE, kv_pages=88)
+SWAP_PROMPTS = [1160, 1180, 1200, 1220, 1240, 1260, 1270, 1280]
+LONG_PREFIX_ENGINE = dict(max_slots=2, max_seq=32768, kv_pages=32768 // 128 + 8,
+                          kv_page_size=128, prefill_chunk=512, attention_sink=LONG_SINK,
+                          attention_window=LONG_WINDOW, block_sizes=(16, 4, 1), **LONG_SPILL)
+
+
+def _conversations(eng, seed: int = 11) -> dict:
+    """Serve the chat traffic on `eng`: conversation 0's first turn alone
+    (it stores the system prompt), then every other turn and the short
+    prompts at once, each conversation's turns in order. Launch counters go
+    to 0 just before and are read just after. Records each request's TTFT,
+    ids, prefix match (the chunked admission's start) and first-token
+    logits (by prompt)."""
+    from localai_tpu_torch.engine.engine import GenRequest
+
+    gen = torch.Generator().manual_seed(seed)
+    sys_ids = torch.randint(0, 256, (PREFIX_SYS,), generator=gen).tolist()
+    msgs = [[torch.randint(0, 256, (int(torch.randint(48, 201, (1,), generator=gen)),),
+                           generator=gen).tolist() for _t in range(PREFIX_TURNS)]
+            for _c in range(PREFIX_CONVS)]
+    shorts = [torch.randint(0, 256, (n,), generator=gen).tolist() for n in PREFIX_SHORTS]
+    matches, firsts = {}, {}
+    chunk_start, install = eng._chunk_start, eng._install_first
+
+    def spy_start(request, handle, hit=None):
+        ok = chunk_start(request, handle, hit)
+        if ok:
+            matches[id(handle)] = eng._chunkings[-1]["offset"]
+        return ok
+
+    def spy_install(logits, prompt, lens, *a):
+        for j in range(prompt.shape[0]):
+            n = int(lens[j])
+            if n > PREFIX_SYS:
+                firsts[tuple(prompt[j, :n].tolist())] = logits[j].float().cpu()
+        return install(logits, prompt, lens, *a)
+
+    eng._chunk_start, eng._install_first = spy_start, spy_install
+    records: list = []
+    lock = threading.Lock()
+
+    def ask(prompt, conv, turn):
+        kw = (dict(temperature=0.8, top_p=0.9, seed=300 + conv) if conv in PREFIX_SEEDED
+              else {})
+        t0 = time.monotonic()
+        h = eng.submit(GenRequest(prompt_ids=prompt, max_new_tokens=PREFIX_NEW,
+                                  ignore_eos=True, **kw))
+        first, ids = None, []
+        for ev in h:
+            if ev.kind == "token":
+                first = first or time.monotonic() - t0
+                ids.append(ev.token_id)
+        check(ev.kind == "done" and len(ids) == PREFIX_NEW,
+              f"prefix_swap: conversation {conv} turn {turn} ended with {ev.kind}")
+        with lock:
+            records.append(dict(conv=conv, turn=turn, prompt=prompt, ids=ids, ttft=first,
+                                match=matches.get(id(h), 0), kw=kw))
+        return ids
+
+    def converse(conv, start):
+        prompt = sys_ids + msgs[conv][0]
+        for turn in range(PREFIX_TURNS):
+            if turn:
+                prompt = prompt + ids + msgs[conv][turn]
+            ids = start if turn == 0 and start is not None else ask(prompt, conv, turn)
+
+    _zero_counts()
+    m0, tok0, dt0 = eng.metrics(), eng._decode_tokens, eng._decode_time
+    t0 = time.monotonic()
+    first_ids = ask(sys_ids + msgs[0][0], 0, 0)
+    threads = [threading.Thread(target=converse, args=(c, first_ids if c == 0 else None))
+               for c in range(PREFIX_CONVS)]
+    threads += [threading.Thread(target=ask, args=(p, -1, 0)) for p in shorts]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.monotonic() - t0
+    launches = _read_counts()
+    m = eng.metrics()
+    check(all(not th.is_alive() for th in threads), "prefix_swap: a request never finished")
+    eng._chunk_start, eng._install_first = chunk_start, install
+    return dict(records=records, firsts=firsts, launches=launches, wall_s=wall,
+                metrics={k: m[k] - m0[k] for k in m},
+                decode_tok_s=(eng._decode_tokens - tok0) / (eng._decode_time - dt0))
+
+
+def _part_gap(cfg, params, prompt, want, got, kw) -> dict:
+    """Where `got` first parts from `want`: the choice a plain prefill of
+    the prompt and the common ids makes there (the engine's sampler on its
+    last logits, with the request's seed and the token's position), and the
+    least change of those logits, in logit units, that turns it into
+    `got`'s token (0 when it is `got`'s): greedy, the two logits' gap;
+    sampled, the gap of their scores times T (logit + T x the draw's noise)
+    when both lie in the top-p set, else how far the logits above `got`'s
+    token must fall for it to enter the set, ln(mass before it / top_p).
+    The bound is PREFIX_LOGIT_TOL of the largest |logit|."""
+    from localai_tpu_torch.models import llama
+    from localai_tpu_torch.ops.sampling import (SamplingParams, _filter_sorted, gumbel_noise,
+                                                sample)
+
+    p = next(i for i, (a, b) in enumerate(zip(want, got)) if a != b)
+    seq = list(prompt) + list(want[:p])
+    toks = torch.tensor([seq], dtype=torch.int64, device="cuda")
+    logits = llama.prefill(cfg, params, toks, torch.tensor([len(seq)], device="cuda"))[0]
+    T, top_p = kw.get("temperature", 0.0), kw.get("top_p", 1.0)
+    sp = SamplingParams.make(1, temperature=T, top_p=top_p, device="cuda")
+    seed = torch.tensor([kw.get("seed", 0)], device="cuda")
+    pos = torch.tensor([len(seq)], device="cuda")
+    a = int(sample(logits, seed, pos, sp)[0])  # the plain recomputation's choice
+    logits = logits[0].float()
+    b = got[p]
+    gap, how = float(logits[a] - logits[b]), "logits"
+    if a == b:
+        gap, how = 0.0, "the plain recomputation picks it"
+    elif T > 0:
+        sl, si = torch.topk(logits, 64)
+        kept = (_filter_sorted(sl[None], sp)[0] > -1e29).tolist()
+        rank = {int(t): r for r, t in enumerate(si.tolist())}
+        if b in rank and kept[rank[b]]:
+            g = gumbel_noise(seed, pos, logits.shape[-1])[0]
+            gap, how = float(logits[a] - logits[b] + T * (g[a] - g[b])), "scores"
+        elif b in rank:
+            before = float(torch.softmax(sl, dim=-1)[: rank[b]].sum())
+            gap, how = float(np.log(before / top_p)), "top_p"
+        else:
+            gap, how = float("inf"), "outside the candidates"
+    top2 = torch.topk(logits, 2).values
+    return dict(position=p, want=want[p], got=b, plain=a, gap=abs(gap), by=how,
+                top2_gap=float(top2[0] - top2[1]),
+                bound=PREFIX_LOGIT_TOL * float(logits.abs().max()))
+
+
+def _hold_prefix(label: str, cfg, params, hit: dict, miss: dict) -> dict:
+    """A hit run against a miss run of the same traffic: per conversation,
+    turns compared in order until the first that parts (later prompts carry
+    different answers); first-token logits compared wherever both runs
+    admitted the same prompt."""
+    by = {(r["conv"], r["turn"], tuple(r["prompt"])): r for r in miss["records"]}
+    parts, compared = [], 0
+    for conv in sorted({r["conv"] for r in hit["records"]}):
+        for r in sorted((r for r in hit["records"] if r["conv"] == conv),
+                        key=lambda r: r["turn"]):
+            m = by.get((conv, r["turn"], tuple(r["prompt"])))
+            if m is None:
+                break
+            compared += 1
+            if m["ids"] != r["ids"]:
+                part = _part_gap(cfg, params, r["prompt"], m["ids"], r["ids"], r["kw"])
+                parts.append(dict(conv=conv, turn=r["turn"], match=r["match"], **part))
+                break
+    diffs = [float((hit["firsts"][k] - v).abs().max()) / float(v.abs().max())
+             for k, v in miss["firsts"].items() if k in hit["firsts"]]
+    out = dict(compared=compared, parts=parts, first_logit_cmp=len(diffs),
+               first_logit_max_rel_diff=max(diffs, default=None))
+    log(f"[{label} hold] " + json.dumps(out))
+    check(diffs and max(diffs) <= PREFIX_LOGIT_TOL,
+          f"{label}: first-token logits of hits and misses differ by "
+          f"{max(diffs, default=None)} of the largest |logit| (tol {PREFIX_LOGIT_TOL})")
+    for part in parts:
+        check(part["gap"] <= part["bound"],
+              f"{label}: a hit's ids part from the miss's away from a near tie: {part}")
+    return out
+
+
+def _ttfts(records, hits: bool) -> dict:
+    xs = [r["ttft"] * 1e3 for r in records if (r["match"] > 0) == hits]
+    return dict(n=len(xs), p50_ms=statistics.median(xs) if xs else None,
+                max_ms=max(xs, default=None))
+
+
+def _prefix_launches(label: str, L: int, run: dict) -> None:
+    """B1 = layers x single-shot admissions, B2 = layers x (decode steps +
+    prefill chunks), both above 0: every hit ran its tail as chunks through
+    B2, every short miss through B1."""
+    n, m = run["launches"], run["metrics"]
+    check(n["flash_prefill"] == L * m["admissions"] and n["flash_prefill"] > 0,
+          f"{label}: B1 launches {n['flash_prefill']} != {L} x {m['admissions']} admissions")
+    check(n["paged_attention"] == L * (m["decode_steps"] + m["prefill_chunks"])
+          and n["paged_attention"] > 0,
+          f"{label}: B2 launches {n['paged_attention']} != {L} x ({m['decode_steps']} steps + "
+          f"{m['prefill_chunks']} chunks)")
+
+
+def _tiny_exact(small, p_small) -> dict:
+    """The small f32 model on the card: a chat on the dense and the chunked
+    paged engine with and without the cache, and two growing requests on a
+    12-page pool (swap) against an ample pool: identical ids."""
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig, GenRequest
+    from localai_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    def engine(**kw):
+        return Engine(small, p_small, ByteTokenizer(small.vocab_size), device="cuda",
+                      engine_cfg=EngineConfig(max_slots=2, max_seq=256, block_sizes=(8,),
+                                              min_prefill_bucket=16, **kw))
+
+    def run(eng, prompt, n=10, **kw):
+        return [e.token_id for e in eng.submit(GenRequest(
+            prompt_ids=prompt, max_new_tokens=n, ignore_eos=True, **kw)) if e.kind == "token"]
+
+    sys_ids = [(j * 7) % 250 + 1 for j in range(70)]
+    out = {}
+    for layout, kw in (("dense", {}), ("paged", dict(kv_pages=40, kv_page_size=16,
+                                                     prefill_chunk=32))):
+        got = []
+        for entries in (8, 0):
+            eng = engine(prefix_cache_entries=entries, **kw)
+            try:
+                a = sys_ids + [3, 5, 8]
+                ids = [run(eng, a), run(eng, sys_ids + [21, 34], temperature=0.8, top_p=0.9,
+                                        seed=7)]
+                ids.append(run(eng, a + ids[0] + [9, 10]))
+                got.append((ids, eng.metrics()["prefix_hits"]))
+            finally:
+                eng.stop()
+        out[f"hit_equals_miss_{layout}"] = got[0][0] == got[1][0]
+        check(got[0][0] == got[1][0] and got[0][1] == 2 and got[1][1] == 0,
+              f"prefix_swap tiny f32 {layout}: hit ids differ from miss ids, or hits {got}")
+    pa, pb = [(j * 7) % 250 + 1 for j in range(40)], [(j * 3) % 250 + 1 for j in range(41)]
+    swaps = {}
+    for pages in (40, 12):
+        eng = engine(kv_pages=pages, kv_page_size=16, prefix_cache_entries=0,
+                     kv_preempt="swap")
+        try:
+            ha = eng.submit(GenRequest(prompt_ids=pa, max_new_tokens=100, ignore_eos=True))
+            time.sleep(0.05)  # pa is older: pb is the victim
+            hb = eng.submit(GenRequest(prompt_ids=pb, max_new_tokens=100, ignore_eos=True,
+                                       temperature=0.9, top_p=0.9, seed=1234))
+            swaps[pages] = ([[e.token_id for e in h if e.kind == "token"] for h in (ha, hb)],
+                            eng.metrics()["kv_preempt_swaps"])
+        finally:
+            eng.stop()
+    out["swap_equals_unpressured"] = swaps[12][0] == swaps[40][0]
+    out["tiny_swaps"] = swaps[12][1]
+    check(swaps[12][0] == swaps[40][0] and swaps[12][1] > 0,
+          f"prefix_swap tiny f32: swapped ids differ or no swap ({swaps[12][1]} swaps)")
+    return out
+
+
+def phase_prefix_swap(small, p_small) -> dict:
+    """llama-3.2-1b at full width and depth (16 layers, bf16, seeded random
+    weights, ByteTokenizer), after warmup(): (a) the chat traffic on the
+    paged engine (pages of 128, chunks of 512, default prefix knobs), then
+    the same traffic with prefix_cache_entries=0; (b) 8 requests of
+    1024-1500 tokens and 256 new tokens each on a 96-page pool (auto swaps
+    spans up to 64 MiB) against a 256-page one; (c) a 16,384-token prompt on
+    the hierarchical + spill engine (sink 128, window 4096), then a request
+    extending it: its save restores the spilled pages, its entry pins table
+    pages, and the extension hits, with the ids of an engine without the
+    cache; (d) the small f32 model's exact checks."""
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig, GenRequest
+    from localai_tpu_torch.engine.tokenizer import ByteTokenizer
+    from localai_tpu_torch.models import get_arch, llama
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    cfg = get_arch("llama-3.2-1b")
+    L = cfg.num_layers
+    params = llama.init_params(cfg, seed=7, device="cuda")
+    out = {}
+    # (a) chat traffic, hit against miss.
+    runs = {}
+    for label, entries in (("hit", 8), ("miss", 0)):
+        torch.cuda.reset_peak_memory_stats()
+        eng = Engine(cfg, params, ByteTokenizer(cfg.vocab_size), device="cuda",
+                     engine_cfg=EngineConfig(**PAGED_ENGINE, prefix_cache_entries=entries))
+        eng.warmup()
+        graphs = eng.metrics()["decode_graphs"]
+        run = _conversations(eng)
+        m = eng.metrics()
+        eng.stop()
+        run["peak_memory_bytes"] = torch.cuda.max_memory_allocated() - before
+        _prefix_launches(f"prefix_swap chat {label}", L, run)
+        rm = run["metrics"]
+        check(m["decode_graphs"] == graphs and rm["decode_graph_captures"] == 0
+              and rm["decode_graph_replays"] == rm["decode_blocks"] > 0,
+              f"prefix_swap chat {label}: graphs {graphs} -> {m['decode_graphs']}, "
+              f"{rm['decode_graph_replays']} replays of {rm['decode_blocks']} blocks")
+        runs[label] = run
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    hit, miss = runs["hit"], runs["miss"]
+    hm = hit["metrics"]
+    check(hm["prefix_hits"] >= PREFIX_CONVS - 1 and miss["metrics"]["prefix_hits"] == 0,
+          f"prefix_swap chat: {hm['prefix_hits']} hits with the cache")
+    chat = dict(
+        hold=_hold_prefix("prefix_swap chat", cfg, params, hit, miss),
+        prefix_hits=int(hm["prefix_hits"]), prefix_tokens=int(hm["prefix_tokens"]),
+        prefix_host_hits=int(hm["prefix_host_hits"]),
+        prefix_entries=int(hm["prefix_entries"]), kv_swap_bytes_out=int(hm["kv_swap_bytes_out"]),
+        ttft_hit=_ttfts(hit["records"], True), ttft_miss_in_hit_run=_ttfts(hit["records"], False),
+        ttft_miss_run=_ttfts(miss["records"], False),
+        decode_tok_s={k: r["decode_tok_s"] for k, r in runs.items()},
+        wall_s={k: r["wall_s"] for k, r in runs.items()},
+        peak_memory_bytes={k: r["peak_memory_bytes"] for k, r in runs.items()},
+        prefill_chunks={k: int(r["metrics"]["prefill_chunks"]) for k, r in runs.items()},
+        launches={k: r["launches"] for k, r in runs.items()})
+    log("[prefix_swap chat llama-3.2-1b, 16 layers] " + json.dumps(chat))
+    out["chat"], out["chat_hit_run"] = chat, {k: v for k, v in hit.items()
+                                             if k not in ("records", "firsts")}
+    out["chat_miss_run"] = {k: v for k, v in miss.items() if k not in ("records", "firsts")}
+    # (b) swap at full width, against recompute on the same pool and an
+    # ample pool.
+    swap = {}
+    for label, kw in (("pressured", SWAP_ENGINE),
+                      ("recompute", dict(SWAP_ENGINE, kv_preempt="recompute")),
+                      ("ample", PAGED_ENGINE)):
+        eng = Engine(cfg, params, ByteTokenizer(cfg.vocab_size), device="cuda",
+                     engine_cfg=EngineConfig(**kw))
+        r = _serve(eng, SWAP_PROMPTS, max_new=256, keep_ids=True)
+        m = eng.metrics()
+        r.update(kv_preempt_swaps=int(m["kv_preempt_swaps"]),
+                 kv_preempt_recomputes=int(m["kv_preempt_recomputes"]),
+                 kv_swap_bytes_out=int(m["kv_swap_bytes_out"]),
+                 kv_swap_bytes_in=int(m["kv_swap_bytes_in"]))
+        swap[label] = r
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    p, rc, a = swap["pressured"], swap["recompute"], swap["ample"]
+    check(p["kv_preempt_swaps"] > 0 and p["kv_preempt_recomputes"] == 0,
+          f"prefix_swap swap: {p['kv_preempt_swaps']} swaps of {p['kv_preemptions']} "
+          "preemptions")
+    check(rc["kv_preempt_swaps"] == 0, "prefix_swap swap: the recompute run swapped")
+    for r in (p, rc):
+        _check_graphs("prefix_swap swap", r)
+        check(r["launches"]["paged_attention"] == L * (r["decode_steps"] + r["prefill_chunks"]),
+              f"prefix_swap swap: B2 launches {r['launches']['paged_attention']}")
+    prompts = _serve_prompts(SWAP_PROMPTS)
+    parts = []
+    for label, r in (("swap", p), ("recompute", rc)):
+        for i, (want, got) in enumerate(zip(a["ids"], r["ids"])):
+            if want != got:
+                kw = dict(temperature=0.8, top_p=0.9, seed=100 + i) if i % 2 else {}
+                parts.append(dict(run=label, request=i,
+                                  **_part_gap(cfg, params, prompts[i], want, got, kw)))
+    log("[prefix_swap swap parts] " + json.dumps(parts))
+    for part in parts:
+        check(part["gap"] <= part["bound"],
+              f"prefix_swap swap: ids part from the unpressured run's away from a tie: {part}")
+    swap_sum = dict(ids_equal={"swap": p["ids"] == a["ids"], "recompute": rc["ids"] == a["ids"]},
+                    parts=parts,
+                    **{k: {lb: r[k] for lb, r in swap.items()} for k in (
+                        "kv_preemptions", "kv_preempt_swaps", "kv_preempt_recomputes",
+                        "kv_swap_bytes_out", "kv_swap_bytes_in", "kv_pages_peak", "wall_s",
+                        "decode_tok_s", "prefill_chunks", "ttft_ms_max")})
+    log("[prefix_swap swap llama-3.2-1b, 16 layers] " + json.dumps(swap_sum))
+    for r in swap.values():
+        del r["ids"]
+    out["swap"], out["swap_runs"] = swap_sum, swap
+    # (c) long context: restore the spilled pages at the save, then hit.
+    gen = torch.Generator().manual_seed(13)
+    long_prompt = torch.randint(0, 256, (16384,), generator=gen).tolist()
+    ext = torch.randint(0, 256, (40,), generator=gen).tolist()
+    long = {}
+    for label, entries in (("hit", 8), ("fresh", 0)):
+        eng = Engine(cfg, params, ByteTokenizer(cfg.vocab_size), device="cuda",
+                     engine_cfg=EngineConfig(**LONG_PREFIX_ENGINE, prefix_cache_entries=entries))
+        if entries:  # the first turn: its save restores the spilled pages
+            long["first"] = [e.token_id for e in eng.submit(GenRequest(
+                prompt_ids=long_prompt, max_new_tokens=32, ignore_eos=True)) if e.kind == "token"]
+        prompt2 = long_prompt + long["first"] + ext
+        _zero_counts()
+        m0 = eng.metrics()
+        t0 = time.monotonic()
+        h = eng.submit(GenRequest(prompt_ids=prompt2, max_new_tokens=32, ignore_eos=True))
+        ttft, ids = None, []
+        for ev in h:
+            if ev.kind == "token":
+                ttft = ttft or time.monotonic() - t0
+                ids.append(ev.token_id)
+        n = _read_counts()
+        m = eng.metrics()
+        d = {k: m[k] - m0[k] for k in m}
+        check(n["paged_attention"] == L * (d["decode_steps"] + d["prefill_chunks"])
+              and n["paged_attention"] > 0,
+              f"prefix_swap long {label}: B2 launches {n['paged_attention']}")
+        long[label] = dict(ids=ids, ttft_ms=ttft * 1e3, launches=n,
+                           prefill_chunks=int(d["prefill_chunks"]),
+                           prefix_hits=int(m["prefix_hits"]), prefix_tokens=int(m["prefix_tokens"]),
+                           kv_pages_spilled=int(m["kv_pages_spilled"]),
+                           kv_pages_restored=int(m["kv_pages_restored"]),
+                           entry_tps=sum(len(e.get("tps", [])) for e in eng._prefix_entries))
+        eng.stop()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    lh, lf = long["hit"], long["fresh"]
+    long_sum = dict(ids_equal=lh["ids"] == lf["ids"],
+                    **{k: {"hit": lh[k], "fresh": lf[k]} for k in (
+                        "ttft_ms", "prefill_chunks", "prefix_hits", "prefix_tokens",
+                        "kv_pages_spilled", "kv_pages_restored", "entry_tps")})
+    log("[prefix_swap long llama-3.2-1b, 16 layers] " + json.dumps(long_sum))
+    check(lh["kv_pages_spilled"] > 0 and lh["kv_pages_restored"] > 0 and lh["entry_tps"] > 0
+          and lh["prefix_hits"] == 1 and lh["prefix_tokens"] >= 16384 and lf["prefix_hits"] == 0,
+          f"prefix_swap long: no restore-then-hit: {long_sum}")
+    check(lh["ids"] == lf["ids"], "prefix_swap long: the hit's ids differ from a fresh engine's")
+    out["long"] = long_sum
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (d) exact on the card.
+    out["tiny"] = _tiny_exact(small, p_small)
+    log("[prefix_swap tiny-d64 f32] " + json.dumps(out["tiny"]))
+    return out
+
+
+def phase_prefix_8b(qmodel: dict) -> dict:
+    """llama-3-8b int4 on an fp8 pool with kv_scale 2 (phase 8's engine):
+    a 1100-token prompt, then one sharing its first 1024 tokens, on an
+    engine with the cache and on one without. The hit's tail chunk walks
+    the shared fp8 pages through B2, its products go through B3 and its
+    first token through B4; its ids are held to the miss's as in the chat
+    run."""
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig, GenRequest
+    from localai_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    cfg, params = qmodel["cfg"], qmodel["int4"]
+    L = cfg.num_layers
+    gen = torch.Generator().manual_seed(17)
+    base = torch.randint(0, 256, (1100,), generator=gen).tolist()
+    second = base[:1024] + torch.randint(0, 256, (60,), generator=gen).tolist()
+    runs = {}
+    for label, entries in (("hit", 8), ("miss", 0)):
+        eng = Engine(cfg, params, ByteTokenizer(cfg.vocab_size), device="cuda",
+                     engine_cfg=EngineConfig(**PAGED_ENGINE, kv_cache_dtype="fp8", kv_scale=2.0,
+                                             prefix_cache_entries=entries))
+        firsts, install = {}, eng._install_first
+
+        def spy(logits, prompt, lens, *a, firsts=firsts, install=install):
+            firsts[tuple(prompt[0, :int(lens[0])].tolist())] = logits[0].float().cpu()
+            return install(logits, prompt, lens, *a)
+
+        eng._install_first = spy
+        list(eng.submit(GenRequest(prompt_ids=base, max_new_tokens=16, ignore_eos=True)))
+        _zero_counts()
+        m0 = eng.metrics()
+        t0 = time.monotonic()
+        ttft, ids = None, []
+        for ev in eng.submit(GenRequest(prompt_ids=second, max_new_tokens=32, ignore_eos=True)):
+            if ev.kind == "token":
+                ttft = ttft or time.monotonic() - t0
+                ids.append(ev.token_id)
+        n = _read_counts()
+        m = eng.metrics()
+        d = {k: m[k] - m0[k] for k in m}
+        eng.stop()
+        check(n["paged_attention"] == L * (d["decode_steps"] + d["prefill_chunks"])
+              and n["quant_matmul"] > 0 and n["quant_unembed"] > 0,
+              f"prefix_8b {label}: launches {n}")
+        runs[label] = dict(ids=ids, ttft_ms=ttft * 1e3, launches=n,
+                           prefix_hits=int(d["prefix_hits"]), prefix_tokens=int(d["prefix_tokens"]),
+                           prefill_chunks=int(d["prefill_chunks"]),
+                           first=firsts[tuple(second)])
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    h, m = runs["hit"], runs["miss"]
+    check(h["prefix_hits"] == 1 and h["prefix_tokens"] == 1024 and m["prefix_hits"] == 0,
+          f"prefix_8b: hits {h['prefix_hits']} ({h['prefix_tokens']} tokens)")
+    rel = float((h["first"] - m["first"]).abs().max()) / float(m["first"].abs().max())
+    check(rel <= PREFIX_LOGIT_TOL, f"prefix_8b: first-token logits differ by {rel} of the "
+                                   f"largest |logit|")
+    part = None
+    if h["ids"] != m["ids"]:
+        part = _part_gap(cfg, params, second, m["ids"], h["ids"], {})
+        check(part["gap"] <= part["bound"], f"prefix_8b: ids part away from a tie: {part}")
+    out = dict(ids_equal=h["ids"] == m["ids"], part=part, first_logit_rel_diff=rel,
+               **{k: {"hit": h[k], "miss": m[k]} for k in (
+                   "ttft_ms", "prefix_hits", "prefix_tokens", "prefill_chunks", "launches")})
+    log("[prefix_swap llama-3-8b int4 + fp8] " + json.dumps(out))
+    return out
+
+
 def _compact(row: dict, keys) -> dict:
     return {k: row[k] for k in keys}
 
@@ -2430,11 +2973,13 @@ def main() -> None:
     del model["params"]
     torch.cuda.empty_cache()
     long_context = timed("long_context", phase_long_context)
+    prefix = timed("prefix_swap", phase_prefix_swap, model["small"], model["p_small"])
     qmodel = timed("quant_model", phase_quant_model, gen)
     qruns = timed("quant_engines", phase_quant_engines, qmodel, model["small"],
                   model["p_small"], model["p_small_cpu"])
     graphs_8b = timed("graphs_8b", phase_graphs, "llama-3-8b int4 + fp8 paged", qmodel["cfg"],
                       qmodel["int4"], kv_cache_dtype="fp8", kv_scale=2.0)
+    prefix_8b = timed("prefix_swap_8b", phase_prefix_8b, qmodel)
     lora_rows, lora_groups = timed("lora_kernels", phase_lora_kernels, gen)
     lora_http = timed("lora_http", phase_lora_http)
     lora_8b = timed("lora_8b", phase_lora_8b, qmodel, model["small"], model["p_small"],
@@ -2452,7 +2997,13 @@ def main() -> None:
             "mixtral_int4": mixtral["graph"], "mixtral_int4_eager": mixtral["eager"],
             "mixtral_int8_8_layers": mixtral_int8,
             "long_context_flat": long_context["flat"],
-            "long_context_hier_spill": long_context["hier_spill"]}
+            "long_context_hier_spill": long_context["hier_spill"],
+            "prefix_chat_hit": prefix["chat_hit_run"], "prefix_chat_miss": prefix["chat_miss_run"],
+            "prefix_swap_pressured": prefix["swap_runs"]["pressured"],
+            "prefix_swap_recompute": prefix["swap_runs"]["recompute"],
+            "prefix_swap_ample": prefix["swap_runs"]["ample"],
+            "prefix_8b_hit": {"launches": prefix_8b["launches"]["hit"]},
+            "prefix_8b_miss": {"launches": prefix_8b["launches"]["miss"]}}
     by_path = {k: {path: out["launches"][k] for path, out in runs.items()}
                for k in ("flash_prefill", "paged_attention", "quant_matmul", "quant_matmul_moe",
                          "quant_unembed", "lora_bgmv")}
@@ -2526,6 +3077,9 @@ def main() -> None:
             "spilled_equal_hot": all(r["spilled_equal_hot"] for r in long_rows),
             "engine": long_context["summary"],
         },
+        # Prefix hits walk shared pages from the match, swaps restore pages.
+        "prefix_swap": {"chat": prefix["chat"], "swap": prefix["swap"], "long": prefix["long"],
+                        "tiny": prefix["tiny"], "llama_3_8b_int4_fp8": prefix_8b},
         "shapes": paged_rows,
     }
     # The main shape of B3: llama-3-8b's w_gate at a decode block of 8 slots,

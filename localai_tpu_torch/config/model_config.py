@@ -130,11 +130,11 @@ class ModelConfig:
     # env var overrides.
     kv_page_headroom: int = 1
     # Mid-decode pool-exhaustion policy: swap | recompute | auto (see
-    # EngineConfig.kv_preempt). LOCALAI_KV_PREEMPT env var overrides.
+    # EngineConfig.kv_preempt). The port reads no environment override.
     kv_preempt: str = "auto"
     # Host-RAM budget for preempt-swap images + spilled prefix-cache spans
-    # (the prefix cache's second level). 0 disables the tier.
-    # LOCALAI_KV_SWAP_BYTES env var overrides.
+    # (the prefix cache's second level). 0 disables the tier. The port
+    # reads no environment override.
     kv_swap_bytes: int = 256 << 20
     # KV-cache storage dtype (reference: cache_type_k/cache_type_v →
     # CacheTypeKey/Value, backend.proto:261-262). "fp8" halves KV HBM — 2x

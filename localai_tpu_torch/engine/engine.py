@@ -22,10 +22,21 @@ number of KV-cache slots by one loop thread ("engine-loop"):
   scales with live context, not slots × max_seq. Admission reserves the
   prompt's pages plus `kv_page_headroom`; each decode block first grows
   every active slot's page table on the host, and when the pool cannot
-  cover the growth the youngest slot is preempted by recompute (its pages
-  freed, prompt + generated requeued at the head under the same handle,
-  its sampler state kept). Decode attention walks each slot's own pages
-  (the ragged paged-attention kernel on the card).
+  cover the growth (after evicting prefix spans) the youngest slot is
+  preempted (kv_preempt): swapped to pinned host memory and restored byte
+  for byte at re-admission, or recomputed (prompt + generated requeued at
+  the head under the same handle, its sampler state kept). Decode
+  attention walks each slot's own pages (the ragged paged-attention
+  kernel on the card).
+- Prefix cache (`prefix_cache_entries`): an admission whose prompt shares
+  a prefix with a stored span (a system prompt, the earlier turns of a
+  chat) prefills only its tail. A dense hit copies the span's rows into
+  the slot and runs `prefill_tail` against them; a paged hit maps the
+  span's pages read-only into the slot's table (copy on write, table
+  pages too) and runs the tail as chunks from the page-aligned match, so
+  B2's prefix walk reads the shared pages in place. Spans evicted for pool
+  pressure go to the pinned host tier (`kv_swap_bytes`) and swap back in
+  at a later hit.
 - With `prefill_chunk > 0` (paged pool only) prompts longer than a chunk
   admit chunk by chunk: at most one chunk runs between decode blocks, each
   writes its K/V straight into the slot's pages, the slot's table is kept
@@ -67,11 +78,12 @@ generator state, so it can be captured. The reference's threefry streams
 are not reproduced.
 
 Not ported yet (ROADMAP Queue A): CUDA graphs of admission and prefill
-chunks and pipelined dispatch, the prefix cache (and with it table-page
-sharing and the restore of spilled pages), the host swap tier (preemption
-always recomputes), chunked prefill over a dense cache, grammar, logprobs,
-speculative decoding, fork / n>1, tp and sequence-parallel prefill,
-deadlines.
+chunks and pipelined dispatch, chunked prefill over a dense cache,
+grammar, logprobs, speculative decoding, fork / n>1, tp and
+sequence-parallel prefill, deadlines, and the export and import of
+prefix spans between replicas (the cluster). The reference's
+prefix_admit_async_compile has no counterpart: a cached admission runs
+eagerly and compiles nothing.
 """
 
 from __future__ import annotations
@@ -203,6 +215,32 @@ class EngineConfig:
     # page; each slot's table is a directory of ceil(max_pages / N) table
     # pages instead of one max_pages row. 0 = flat tables.
     kv_l1_span: int = 0
+    # Prefix cache (the reference's cache_prompt): an LRU of prefilled K/V
+    # spans keyed by token prefixes. An admission whose prompt shares a
+    # stored span's prefix (a system prompt, the earlier turns of a chat)
+    # prefills only its tail. Dense entries are device copies of the rows;
+    # paged entries hold references on the slot's full pages, which later
+    # admissions map read-only. 0 disables.
+    prefix_cache_entries: int = 8
+    # Shortest prefix, in tokens, that is saved or matched: shorter ones
+    # cost less to prefill again than to keep.
+    prefix_cache_min: int = 32
+    # Device bytes of stored spans. Eviction honours whichever of this and
+    # prefix_cache_entries trips first; a larger span is not saved.
+    prefix_cache_bytes: int = 1 << 30
+    # What a decode block does when page growth finds the pool empty, once
+    # prefix spans are evicted: preempt the youngest slot and
+    #   "swap"      copy its pages to the host tier (kv_swap_bytes) and
+    #               restore them byte for byte at re-admission;
+    #   "recompute" drop them and re-admit prompt + generated through the
+    #               ordinary prefill;
+    #   "auto"      swap when the span fits a quarter of kv_swap_bytes,
+    #               else recompute.
+    kv_preempt: str = "auto"
+    # Pinned host-RAM budget shared by preemption swap images and prefix
+    # spans evicted from the pool (the prefix cache's host tier, which a
+    # later hit swaps back in). 0 disables the tier: preemption recomputes.
+    kv_swap_bytes: int = 256 << 20
 
     def cache_dtype(self, model_dtype: torch.dtype) -> torch.dtype:
         table = {
@@ -338,6 +376,8 @@ class Engine:
             raise ValueError("max_pending must be >= 0 (0 = unbounded)")
         if ecfg.adapter_cache_bytes < 0:
             raise ValueError("adapter_cache_bytes must be >= 0")
+        if ecfg.kv_preempt not in ("swap", "recompute", "auto"):
+            raise ValueError(f"kv_preempt={ecfg.kv_preempt!r}: use swap|recompute|auto")
         self._check_paged_config(ecfg)
         self._check_long_context(cfg, ecfg)
         if (cfg.attention_sink, cfg.attention_window) != (ecfg.attention_sink,
@@ -407,13 +447,15 @@ class Engine:
         # slot's directory of TABLE-PAGE ids, h_l0 [NTP + 1, SPAN] the global
         # table-page pool (row 0 = the all-SCRATCH table page every idle
         # directory entry points at). Table pages are refcounted and copied
-        # before a write through a shared one (_ptable_set), as the
-        # reference does for the prefix cache's shared spans. NTP covers
-        # every slot's full directory twice over, so claims do not fail.
+        # before a write through a shared one (_ptable_set): prefix entries
+        # pin the table pages covering their spans, and a hit maps the full
+        # ones into its directory. NTP covers a full directory for every
+        # slot and every prefix entry, plus copies in flight, so claims do
+        # not fail.
         self._l1_span = ecfg.kv_l1_span if self._paged else 0
         self._hier = self._l1_span > 0
         self._ml1 = -(-max(self._max_pages, 1) // self._l1_span) if self._hier else 0
-        ntp = (B + 2) * self._ml1
+        ntp = (B + max(ecfg.prefix_cache_entries, 0) + 2) * self._ml1
         self._scratch_tp = 0
         self.h_l0 = np.full((ntp + 1, max(self._l1_span, 1)), self._scratch_page, np.int32)
         self.h_l1 = np.full((B, max(self._ml1, 1)), self._scratch_tp, np.int32)
@@ -432,6 +474,25 @@ class Engine:
         self.m_kv_pages_spilled = 0
         self.m_kv_spill_bytes_out = 0
         self.m_kv_spill_skips = 0
+        self.m_kv_pages_restored = 0
+        # Prefix cache, most recently used first. A device-tier entry is
+        # {"key": int32 tokens, "valid": rows} plus, dense, "pb" rows of
+        # "k" / "v" [L, 1, pb, K, Hd] copies, or, paged, the "pages" it
+        # holds a reference on (and, hierarchical, the table pages "tps").
+        # Host-tier entries (paged only: spans evicted for pool pressure)
+        # hold pinned images "hk" / "hv" [L, n, page, K, Hd] and their
+        # "bytes"; _host_bytes counts them and the swap images of queued
+        # preempted requests against kv_swap_bytes.
+        self._prefix_entries: list[dict] = []
+        self._prefix_host: list[dict] = []
+        self._host_bytes = 0
+        self.m_prefix_hits = 0
+        self.m_prefix_tokens = 0
+        self.m_prefix_host_hits = 0
+        self.m_kv_preempt_swaps = 0
+        self.m_kv_preempt_recomputes = 0
+        self.m_kv_swap_bytes_out = 0
+        self.m_kv_swap_bytes_in = 0
         # A decode block could not grow some slot: admissions pause until
         # growth succeeds (the youngest slot is preempted meanwhile).
         self._growth_blocked = False
@@ -570,9 +631,9 @@ class Engine:
                                  f"kv_page_size={ecfg.kv_page_size}")
         elif C:
             raise NotImplementedError(
-                "prefill_chunk > 0 with a dense cache needs prefill_tail, which is not "
-                "ported yet (ROADMAP Queue A item 3, main-path engine completeness); use "
-                "kv_pages > 0")
+                "prefill_chunk > 0 with a dense cache is not ported yet: prefill_tail serves "
+                "dense prefix hits, but chunks over a slot's rows wait for ROADMAP Queue A "
+                "item 3 (main-path engine completeness); use kv_pages > 0")
 
     # ------------------------------------------------------------------ #
     # Public surface
@@ -599,8 +660,22 @@ class Engine:
                 slot.handle._q.put(TokenEvent(kind="done", finish_reason="stop"))
         with self._pending_lock:
             pending, self._pending = list(self._pending), deque()
-        for _req, handle in pending:
+        for req, handle in pending:
+            self._resume_discard(req)
             handle._q.put(TokenEvent(kind="done", finish_reason="stop"))
+
+    def clear_prefix_cache(self) -> None:
+        """Drop every prefix entry of both tiers, returning their pages and
+        table pages. Needs a stopped engine (or the loop thread): the
+        cache is loop-thread state."""
+        if self._thread is not None and threading.current_thread() is not self._thread:
+            raise RuntimeError("clear_prefix_cache() needs a stopped engine")
+        for entry in self._prefix_entries:
+            self._prefix_drop(entry)
+        self._prefix_entries = []
+        for entry in self._prefix_host:
+            self._host_bytes -= entry["bytes"]
+        self._prefix_host = []
 
     def submit(self, request: GenRequest) -> RequestHandle:
         if not request.prompt_ids:
@@ -678,6 +753,17 @@ class Engine:
             "spilled_pages": float(sum(len(d) for d in list(self._slot_spill))),
             "spill_bytes": float(self._spill_bytes),
             "kv_spill_skips": float(self.m_kv_spill_skips),
+            "kv_pages_restored": float(self.m_kv_pages_restored),
+            "prefix_hits": float(self.m_prefix_hits),
+            "prefix_tokens": float(self.m_prefix_tokens),
+            "prefix_host_hits": float(self.m_prefix_host_hits),
+            "prefix_entries": float(len(self._prefix_entries)),
+            "prefix_host_entries": float(len(self._prefix_host)),
+            "kv_preempt_swaps": float(self.m_kv_preempt_swaps),
+            "kv_preempt_recomputes": float(self.m_kv_preempt_recomputes),
+            "kv_swap_bytes_out": float(self.m_kv_swap_bytes_out),
+            "kv_swap_bytes_in": float(self.m_kv_swap_bytes_in),
+            "kv_host_tier_bytes": float(self._host_bytes),
             "weight_bytes": float(self._weight_bytes()),
             "decode_graphs": float(len(self._graph_cache)),
             "decode_graph_captures": float(self.m_graph_captures),
@@ -731,7 +817,8 @@ class Engine:
                 if slot is not None:
                     slot.handle._q.put(TokenEvent(kind="error", error=err))
                     self._release(i)
-            for _req, handle in pending:
+            for req, handle in pending:
+                self._resume_discard(req)
                 handle._q.put(TokenEvent(kind="error", error=err))
 
     def _loop(self) -> None:
@@ -778,7 +865,8 @@ class Engine:
             for item in self._pending:
                 (dropped if item[1].cancelled.is_set() else kept).append(item)
             self._pending = kept
-        for _req, handle in dropped:
+        for req, handle in dropped:
+            self._resume_discard(req)
             handle._q.put(TokenEvent(kind="done", finish_reason="stop"))
 
     def _finish_cancelled(self) -> None:
@@ -801,10 +889,12 @@ class Engine:
 
     def _admit_pending(self) -> bool:
         """Admit pending requests into free slots: one fused admission per
-        group of same-bucket prompts at the queue head, or the start of one
-        chunked admission. On the paged pool a group takes only the pages
-        the pool has now (backpressure), and nothing is admitted while a
-        live slot waits on page growth."""
+        group of same-bucket prompts at the queue head, the start of one
+        chunked admission (a long prompt, or any prefix hit on a paged
+        pool), a dense prefix hit's tail prefill, or the swap-in of a
+        preempted request. On the paged pool a group takes only the pages
+        the pool has now, after evicting prefix spans (backpressure), and
+        nothing is admitted while a live slot waits on page growth."""
         admitted = False
         if self._growth_blocked:
             return admitted
@@ -815,24 +905,40 @@ class Engine:
             group: list[tuple[GenRequest, RequestHandle]] = []
             bucket = 0
             pages_planned = 0
-            chunk_item = None
+            chunk_item = swap_item = hit_item = None
             with self._pending_lock:
                 while self._pending and len(group) < len(free):
                     request, handle = self._pending[0]
                     if handle.cancelled.is_set():
                         self._pending.popleft()
+                        self._resume_discard(request)
                         handle._q.put(TokenEvent(kind="done", finish_reason="stop"))
                         continue
-                    if self._chunkable(request):
-                        # Long prompts leave the queue before bucketing; a
-                        # group already gathered dispatches first.
+                    if request.resume is not None and request.resume.get("mode") == "swap":
+                        # A swap resume has no prefill to batch: alone.
                         if not group:
-                            chunk_item = self._pending.popleft()
+                            swap_item = self._pending.popleft()
+                        break
+                    hit = (self._prefix_find(request.prompt_ids)
+                           if self._cached_admit_ok(request) else None)
+                    if self._chunkable(request, hit[1] if hit else 0):
+                        # Long prompts and paged hits leave the queue before
+                        # bucketing; a group already gathered dispatches first.
+                        if not group:
+                            chunk_item = (self._pending.popleft(), hit)
+                        break
+                    if hit is not None:  # dense cache: the tail prefills alone
+                        if not group:
+                            hit_item = (self._pending.popleft(), hit)
                         break
                     if request.adapter is not None and group:
                         break  # adapter requests admit alone: dispatch the group first
                     if self._paged:
                         need = self._pages_needed(request)
+                        if pages_planned + need > len(self._free_pages):
+                            # A cached span can be prefilled again; a queued
+                            # request cannot be served otherwise.
+                            self._prefix_evict_for_pages(pages_planned + need)
                         if pages_planned + need > len(self._free_pages):
                             break  # pool backpressure — wait for a finish
                         pages_planned += need
@@ -845,11 +951,34 @@ class Engine:
                         # Alone, so a fetch / promote failure fails exactly
                         # one tenant's request.
                         break
+            if swap_item is not None:
+                request, handle = swap_item
+                need = self._resume_swap_pages(request)
+                if len(self._free_pages) < need:
+                    self._prefix_evict_for_pages(need)
+                if (len(self._free_pages) >= need
+                        and self._dispatch_resume_swap(request, handle, free[0])):
+                    self._note_admitted(handle)
+                    admitted = True
+                    continue
+                with self._pending_lock:
+                    self._pending.appendleft(swap_item)
+                return admitted  # pool backpressure — wait for a finish
             if chunk_item is not None:
-                request, handle = chunk_item
-                if not self._chunk_start(request, handle):
+                (request, handle), hit = chunk_item
+                if not self._chunk_start(request, handle, hit):
                     return admitted  # pool backpressure — requeued at the head
                 self._note_admitted(handle)
+                admitted = True
+                continue
+            if hit_item is not None:
+                (request, handle), (entry, match_len) = hit_item
+                self._note_admitted(handle)
+                try:
+                    self._dispatch_admit_cached(request, handle, free[0], entry, match_len)
+                except Exception as e:  # noqa: BLE001 — surface to the caller, keep serving
+                    log.exception("cached admission failed")
+                    handle._q.put(TokenEvent(kind="error", error=f"{type(e).__name__}: {e}"))
                 admitted = True
                 continue
             if not group:
@@ -1005,6 +1134,9 @@ class Engine:
             self._claim_slot(s, r, handle, int(seeds[j]), t0)
             # The pin passes to the slot; _release drops it from here on.
             self.h_adapter[s], adapter_rows[j] = adapter_rows[j], 0
+        for (r, _h), s in zip(group, slot_ids):
+            # Before the first token posts: it may finish and free the slot.
+            self._admission_save(s, r)
         for j, s in enumerate(slot_ids):
             self._post_first(s, int(toks_host[j]))
 
@@ -1346,12 +1478,15 @@ class Engine:
         cap = max(base, self._pages_worst(request))
         return min(base + self.ecfg.kv_page_headroom, cap)
 
-    def _pages_alloc(self, slot_idx: int, n: int,
-                     shared: Optional[list[int]] = None) -> Optional[np.ndarray]:
-        """Build a slot's page table: `shared` pages (one more reference
-        each) followed by `n` fresh ones. Returns the slot's table row
-        ([MP] flat, its [ML1] directory hierarchical), or None, changing
-        nothing, when the pool cannot cover it."""
+    def _pages_alloc(self, slot_idx: int, n: int, shared: Optional[list[int]] = None,
+                     shared_tps: Optional[list[int]] = None) -> Optional[np.ndarray]:
+        """Build a slot's page table: `shared` pages (a prefix span, one
+        more reference each, never written by the slot: its writes land
+        past the span) followed by `n` fresh ones. Hierarchical, the full
+        table pages of `shared_tps` (the span's entry's) map by reference.
+        Returns the slot's table row ([MP] flat, its [ML1] directory
+        hierarchical), or None, changing nothing, when the pool cannot
+        cover it."""
         if self._slot_pages[slot_idx]:
             # Overwriting a held table would leak its pages' references.
             log.error("_pages_alloc: slot %d already held %d pages — releasing them",
@@ -1365,7 +1500,7 @@ class Engine:
         pages = shared + fresh
         self._slot_pages[slot_idx] = pages
         if self._hier:
-            return self._ptable_build_slot(slot_idx, pages)
+            return self._ptable_build_slot(slot_idx, pages, shared_tps, len(shared))
         # Unused tail entries stay on SCRATCH, so rows past the slot's
         # pages (block overshoot) land where nobody reads.
         row = np.full((self._max_pages,), self._scratch_page, np.int32)
@@ -1421,6 +1556,8 @@ class Engine:
         grow = need_pages - have
         if grow <= 0:
             return True
+        if len(self._free_pages) < grow:
+            self._prefix_evict_for_pages(grow)
         fresh = self._pages_claim(grow)
         if fresh is None:
             return False
@@ -1461,8 +1598,7 @@ class Engine:
         self._pages_release(self._slot_pages[slot_idx])
         self._slot_pages[slot_idx] = []
         # Spilled images die with the slot (their device pages went back to
-        # the pool when they spilled); the prefix cache that would restore
-        # them is not ported.
+        # the pool when they spilled; a prefix save restores them first).
         self._spill_bytes -= len(self._slot_spill[slot_idx]) * self._page_bytes()
         self._slot_spill[slot_idx] = {}
         self._spill_cursor[slot_idx] = 0
@@ -1470,8 +1606,9 @@ class Engine:
     # ------------------------------------------------------------------ #
     # Hierarchical page tables (kv_l1_span > 0): each slot's directory of
     # refcounted table pages (h_l1 -> rows of h_l0). The page allocator
-    # above is the same for both layouts; these keep the mapping. Sharing
-    # table pages with prefix entries waits for the prefix cache.
+    # above is the same for both layouts; these keep the mapping. Prefix
+    # entries pin the table pages over their spans, and a hit maps the
+    # full ones by reference (copy on write).
     # ------------------------------------------------------------------ #
 
     def _tp_claim(self) -> int:
@@ -1513,30 +1650,74 @@ class Engine:
         span = self._l1_span
         c, o = divmod(pos, span)
         tps = self._slot_tps[slot_idx]
+        # A chunking slot's directory rides its chunk state, not h_l1.
+        st = next((st for st in self._chunkings if st["slot"] == slot_idx), None)
+        l1 = st["table_row"] if st is not None else self.h_l1[slot_idx]
         while len(tps) <= c:
             tp_new = self._tp_claim()
             tps.append(tp_new)
-            self.h_l1[slot_idx, len(tps) - 1] = tp_new
+            l1[len(tps) - 1] = tp_new
         tp = tps[c]
         if self._tp_refs[tp] > 1:
             tp_new = self._tp_claim()
             self.h_l0[tp_new, :] = self.h_l0[tp]
             self._tp_release([tp])
             tps[c] = tp_new
-            self.h_l1[slot_idx, c] = tp_new
+            l1[c] = tp_new
             tp = tp_new
         self.h_l0[tp, o] = page_id
 
-    def _ptable_build_slot(self, slot_idx: int, pages: list[int]) -> np.ndarray:
-        """Build a slot's directory for `pages` in freshly claimed table
-        pages. Returns the slot's L1 row (the counterpart of a flat row)."""
+    def _table_set(self, slot_idx: int, col: int, page_id: int) -> None:
+        """Point one column of a live or chunking slot's table at
+        `page_id`, in whichever table it rides."""
+        if self._hier:
+            self._ptable_set(slot_idx, col, page_id)
+            return
+        st = next((st for st in self._chunkings if st["slot"] == slot_idx), None)
+        (st["table_row"] if st is not None else self.h_ptable[slot_idx])[col] = page_id
+
+    def _ptable_build_slot(self, slot_idx: int, pages: list[int],
+                           shared_tps: Optional[list[int]] = None,
+                           n_shared: int = 0) -> np.ndarray:
+        """Build a slot's directory for `pages`: the whole table pages of
+        the leading `n_shared` shared pages reuse `shared_tps` (the donor
+        entry's, one more reference each), the rest go into freshly
+        claimed ones. Returns the slot's L1 row (the counterpart of a flat
+        row)."""
         if self._slot_tps[slot_idx]:
             log.error("slot %d already held a directory — releasing it", slot_idx)
             self._ptable_free_slot(slot_idx)
         self.h_l1[slot_idx, :] = self._scratch_tp
-        for pos, p in enumerate(pages):
-            self._ptable_set(slot_idx, pos, p)
+        full = min(n_shared // self._l1_span, len(shared_tps or []))
+        for c in range(full):
+            tp = shared_tps[c]
+            self._tp_refs[tp] += 1
+            self._slot_tps[slot_idx].append(tp)
+            self.h_l1[slot_idx, c] = tp
+        for pos in range(full * self._l1_span, len(pages)):
+            self._ptable_set(slot_idx, pos, pages[pos])
         return self.h_l1[slot_idx].copy()
+
+    def _entry_tps(self, slot_idx: int, n_pages: int) -> list[int]:
+        """The slot's table pages covering its first n_pages pages, one
+        more reference each: a prefix entry's half of directory sharing.
+        A later write through one of them copies it first (_ptable_set)."""
+        tps = self._slot_tps[slot_idx][: -(-n_pages // self._l1_span)]
+        for tp in tps:
+            self._tp_refs[tp] += 1
+        return list(tps)
+
+    def _entry_tps_for_pages(self, pages: list[int]) -> list[int]:
+        """Fresh table pages mapping an entry's page list (a span swapped
+        back in from the host tier, which no slot's directory holds)."""
+        span = self._l1_span
+        tps = []
+        for c in range(-(-len(pages) // span)):
+            tp = self._tp_claim()
+            part = pages[c * span: (c + 1) * span]
+            self.h_l0[tp, : len(part)] = part
+            tps.append(tp)
+        return tps
 
     def _ptable_free_slot(self, slot_idx: int) -> None:
         self._tp_release(self._slot_tps[slot_idx])
@@ -1556,8 +1737,7 @@ class Engine:
 
     def _page_bytes(self) -> int:
         """Device bytes of one page's K and V rows over every layer."""
-        k = self.cache.k
-        return 2 * k[:, 0].numel() * k.element_size()
+        return self._prefix_span_bytes(self.ecfg.kv_page_size)
 
     def _spill_cold_pages(self) -> None:
         """Loop-thread tick: move the cold middle pages of live and chunking
@@ -1617,12 +1797,7 @@ class Engine:
                 self._slot_spill[i][c] = (hk[:, j:j + 1], hv[:, j:j + 1])
                 self._pages_release([pages[c]])
                 pages[c] = -1
-                if self._hier:
-                    self._ptable_set(i, c, self._scratch_page)
-                elif st is not None:
-                    st["table_row"][c] = self._scratch_page
-                else:
-                    self.h_ptable[i, c] = self._scratch_page
+                self._table_set(i, c, self._scratch_page)
                 self._spill_cursor[i] = c + 1
             nbytes = len(cand) * pb
             self._spill_bytes += nbytes
@@ -1636,14 +1811,14 @@ class Engine:
         the pages are released, so no later write to a recycled page can
         overtake them; nothing waits for the copy."""
         idx = torch.as_tensor(pages, dtype=torch.int64, device=self.device)
-        out = []
-        for pool in (self.cache.k, self.cache.v):
-            rows = pool[:, idx]
-            host = torch.empty(rows.shape, dtype=rows.dtype,
-                               pin_memory=self.device.type == "cuda")
-            host.copy_(rows, non_blocking=True)
-            out.append(host)
-        return out[0], out[1]
+        return self._to_host(self.cache.k[:, idx]), self._to_host(self.cache.v[:, idx])
+
+    def _to_host(self, t: torch.Tensor) -> torch.Tensor:
+        """A host copy of a device tensor, pinned on the card, copied on
+        the engine's stream without waiting."""
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=self.device.type == "cuda")
+        host.copy_(t, non_blocking=True)
+        return host
 
     # ------------------------------------------------------------------ #
     # Chunked prefill (paged pool): a long prompt admits chunk by chunk,
@@ -1651,39 +1826,66 @@ class Engine:
     # final chunk also samples the first token and installs the slot.
     # ------------------------------------------------------------------ #
 
-    def _chunkable(self, request: GenRequest) -> bool:
-        """Whether a prompt admits chunk by chunk. Adapter prompts never do:
-        the chunk pass carries no per-slot LoRA operand (as in the JAX
-        package), so they admit single-shot. Under the sink + window every
-        paged admission longer than one chunk takes the chunks' masked
-        prefix walk; shorter ones stay single-shot, exact there because
-        each query's window covers the whole prompt (chunk <= window)."""
+    def _chunkable(self, request: GenRequest, match_len: int = 0) -> bool:
+        """Whether a prompt admits chunk by chunk. Every prefix hit on a
+        paged pool does (its chunks start at the page-aligned match, and
+        B2's prefix walk reads the shared pages in place), as does a prompt
+        longer than prefill_chunk. Adapter prompts never do: the chunk pass
+        carries no per-slot LoRA operand (as in the JAX package), so they
+        admit single-shot. Under the sink + window every paged admission
+        longer than one chunk takes the chunks' masked prefix walk; shorter
+        misses stay single-shot, exact there because each query's window
+        covers the whole prompt (chunk <= window)."""
+        if not self._paged or request.adapter is not None:
+            return False
         C = self.ecfg.prefill_chunk
-        return (bool(C) and self._paged and len(request.prompt_ids) > C
-                and request.adapter is None)
+        return bool(match_len) or (bool(C) and len(request.prompt_ids) > C)
 
-    def _chunk_admit_rows(self, total_len: int) -> int:
-        """Rows a chunked admission writes: whole mid chunks of C tokens
-        and the final tail's bucket (padding included)."""
-        C = self.ecfg.prefill_chunk
-        mids, rem = 0, total_len
+    def _chunk_len(self) -> int:
+        """Tokens a chunk prefills: prefill_chunk, or with chunking off (a
+        paged prefix hit) the whole tail as one final chunk."""
+        return self.ecfg.prefill_chunk or self.ecfg.max_seq
+
+    def _chunk_admit_rows(self, total_len: int, match_len: int = 0) -> int:
+        """Rows a chunked admission covers: the matched prefix, whole mid
+        chunks and the final tail's bucket (padding included)."""
+        C = self._chunk_len()
+        mids, rem = 0, total_len - match_len
         while rem > C:
             rem -= C
             mids += 1
-        return mids * C + self._bucket_for(max(rem, 1))
+        return match_len + mids * C + self._bucket_for(max(rem, 1))
 
-    def _chunk_start(self, request: GenRequest, handle: RequestHandle) -> bool:
+    def _chunk_start(self, request: GenRequest, handle: RequestHandle,
+                     hit: Optional[tuple] = None) -> bool:
         """Reserve a slot and the pages the chunks write (plus headroom) and
-        queue the chunked admission. Returns False, with the request back
-        at the queue head, when the pool cannot cover it."""
+        queue the chunked admission. A prefix hit (entry, match_len) maps
+        the span's pages read-only ahead of fresh ones and starts the
+        chunks at match_len; a host-tier span is swapped back in first, and
+        degrades to a miss when the pool cannot take it. Returns False,
+        with the request back at the queue head, when the pool cannot cover
+        the admission."""
         ids = request.prompt_ids
         slot_idx = next(i for i, s in enumerate(self.slots) if s is None)
+        entry, match_len = hit if hit is not None else (None, 0)
+        if entry is not None and "hk" in entry:
+            entry = self._prefix_promote(entry)
+        if entry is not None and not any(e is entry for e in self._prefix_entries):
+            entry = None  # not promoted, or evicted since the find
+        if entry is None:
+            match_len = 0
         page = self.ecfg.kv_page_size
-        rows = self._chunk_admit_rows(len(ids))
-        base = -(-rows // page)
+        shared = entry["pages"][: match_len // page] if entry is not None else []
+        rows = self._chunk_admit_rows(len(ids), match_len)
+        base = -(-rows // page) - len(shared)
         worst = max(rows, min(len(ids) + request.max_new_tokens, self.ecfg.max_seq))
-        cap = max(base, -(-worst // page))
-        table_row = self._pages_alloc(slot_idx, min(base + self.ecfg.kv_page_headroom, cap))
+        cap = max(base, -(-worst // page) - len(shared))
+        fresh = min(base + self.ecfg.kv_page_headroom, cap)
+        if len(self._free_pages) < fresh:
+            self._prefix_evict_for_pages(fresh, protect=[entry] if entry is not None else [])
+        table_row = self._pages_alloc(
+            slot_idx, fresh, shared=shared,
+            shared_tps=entry.get("tps") if entry is not None else None)
         if table_row is None:
             with self._pending_lock:
                 self._pending.appendleft((request, handle))
@@ -1696,10 +1898,14 @@ class Engine:
             self.h_l1[slot_idx, :] = self._scratch_tp
         else:
             self.h_ptable[slot_idx] = self._scratch_page
+        if entry is not None:
+            self._prefix_bump(entry)
+            self.m_prefix_hits += 1
+            self.m_prefix_tokens += match_len
         self.slots[slot_idx] = _Slot(request=request, handle=handle, prompt_len=len(ids),
                                      sched_rows=len(ids), t_submit=handle.t_submit)
         self._chunkings.append({"request": request, "handle": handle, "slot": slot_idx,
-                                "ids": ids, "offset": 0, "t0": time.monotonic(),
+                                "ids": ids, "offset": match_len, "t0": time.monotonic(),
                                 "table_row": table_row})
         return True
 
@@ -1716,7 +1922,7 @@ class Engine:
             return True
         if self.h_active.any():
             self.m_chunks_interleaved += 1
-        C = self.ecfg.prefill_chunk
+        C = self._chunk_len()
         try:
             if len(st["ids"]) - st["offset"] > C:
                 self._dispatch_chunk(st, C)
@@ -1766,26 +1972,423 @@ class Engine:
             self.h_ptable[s] = st["table_row"]
         self.m_chunked_admits += 1
         self._claim_slot(s, request, handle, int(seeds[0]), st["t0"])
+        self._admission_save(s, request)
         self._post_first(s, tok)
 
     # ------------------------------------------------------------------ #
-    # Preemption by recompute
+    # Prefix cache (loop thread only): an LRU of prefilled K/V spans keyed
+    # by token prefixes. Dense entries copy the slot's rows; paged entries
+    # hold references on its full pages (copy on write: a slot maps them
+    # read-only and writes only rows past the span) and, hierarchical, on
+    # the table pages covering them. Spans evicted for pool pressure move
+    # to the pinned host tier, and a later hit swaps them back in.
+    # ------------------------------------------------------------------ #
+
+    @property
+    def _prefix_enabled(self) -> bool:
+        return self.ecfg.prefix_cache_entries > 0
+
+    @staticmethod
+    def _cached_admit_ok(request: GenRequest) -> bool:
+        """Adapter requests never use the prefix cache, in either
+        direction: their wk / wv deltas make the K/V rows the tenant's."""
+        return request.adapter is None
+
+    def _prefix_span_bytes(self, rows: int) -> int:
+        """Device bytes of `rows` K and V rows over every layer, in the
+        cache's storage dtype."""
+        k = self.cache.k
+        return 2 * k.shape[0] * rows * k.shape[-2] * k.shape[-1] * k.element_size()
+
+    def _prefix_find(self, prompt_ids: list[int]) -> Optional[tuple[dict, int]]:
+        """The longest common prefix with a stored span, as (entry,
+        match_len), or None. On a paged pool the match rounds down to a
+        page (a slot writes only fresh pages). At least one tail token is
+        left to prefill; a match under prefix_cache_min, or whose tail does
+        not fit behind it, is a miss. The host tier wins only with a
+        strictly longer match, since it must be swapped in first."""
+        if not self._prefix_enabled or len(prompt_ids) < 2:
+            return None
+        prompt = np.asarray(prompt_ids, np.int32)
+        cap = len(prompt_ids) - 1
+        best, best_len = None, 0
+        for tier in (self._prefix_entries, self._prefix_host):
+            for entry in tier:
+                n = min(entry["valid"], cap, len(entry["key"]))
+                if n <= best_len:
+                    continue
+                eq = entry["key"][:n] == prompt[:n]
+                match = n if eq.all() else int(np.argmin(eq))
+                if self._paged:
+                    match -= match % self.ecfg.kv_page_size
+                if match > best_len:
+                    best, best_len = entry, match
+        if best is None or best_len < max(self.ecfg.prefix_cache_min, 1):
+            return None
+        if best_len + self._bucket_for(len(prompt_ids) - best_len) > self.ecfg.max_seq:
+            return None
+        return best, best_len
+
+    def _prefix_bump(self, entry: dict) -> None:
+        """Move a device-tier entry to the front of the LRU."""
+        for idx, e in enumerate(self._prefix_entries):
+            if e is entry:
+                self._prefix_entries.insert(0, self._prefix_entries.pop(idx))
+                return
+
+    def _admission_save(self, slot_idx: int, request: GenRequest) -> None:
+        """Save an admitted slot's prompt rows, if they extend the stored
+        coverage by at least prefix_cache_min tokens."""
+        if self._cached_admit_ok(request):
+            self._prefix_save(slot_idx, request.prompt_ids, len(request.prompt_ids),
+                              min_extend=self.ecfg.prefix_cache_min)
+
+    def _prefix_save(self, slot_idx: int, key_tokens, valid_len: int,
+                     min_extend: int = 0) -> None:
+        """Store the slot's rows [0, valid_len) under `key_tokens`: after an
+        admission (the prompt, min_extend = prefix_cache_min: a span that
+        barely extends a stored one is not worth its copy) and at finish
+        (prompt + generated, the next turn's prefix, min_extend = 0). A
+        paged entry takes a reference on the slot's full pages below
+        valid_len and copies nothing; a slot with spilled cold pages gets
+        them back first, and on pool pressure the save is skipped."""
+        if not self._prefix_enabled or valid_len < self.ecfg.prefix_cache_min:
+            return
+        if self._paged:
+            n_pages = valid_len // self.ecfg.kv_page_size
+            valid_len = n_pages * self.ecfg.kv_page_size
+            if valid_len < self.ecfg.prefix_cache_min or n_pages == 0:
+                return
+            if n_pages * self._page_bytes() > self.ecfg.prefix_cache_bytes:
+                return
+        key = np.asarray(key_tokens, np.int32)[:valid_len]
+        if min_extend:
+            cov = 0
+            for e in self._prefix_entries:
+                n = min(e["valid"], valid_len)
+                if n <= cov:
+                    continue
+                eq = e["key"][:n] == key[:n]
+                cov = max(cov, n if eq.all() else int(np.argmin(eq)))
+            if cov and valid_len - cov < min_extend:
+                return
+        if self._paged and self._slot_spill[slot_idx] and not self._restore_spilled(slot_idx):
+            return
+        # An entry covering the span makes it redundant; the entries it
+        # covers go.
+        kept = []
+        for e in self._prefix_entries:
+            n = min(len(key), e["valid"])
+            if e["valid"] >= valid_len and (e["key"][:n] == key[:n]).all():
+                return
+            if e["valid"] <= valid_len and (e["key"][:e["valid"]] == key[:e["valid"]]).all():
+                self._prefix_drop(e)
+                continue
+            kept.append(e)
+        keep_h = []
+        for e in self._prefix_host:
+            if e["valid"] <= valid_len and (e["key"][:e["valid"]] == key[:e["valid"]]).all():
+                self._host_bytes -= e["bytes"]
+                continue
+            keep_h.append(e)
+        self._prefix_host = keep_h
+        if self._paged:
+            pages = self._slot_pages[slot_idx][:n_pages]
+            self._pages_addref(pages)
+            entry = {"key": key, "valid": valid_len, "pages": list(pages)}
+            if self._hier:
+                entry["tps"] = self._entry_tps(slot_idx, n_pages)
+            sizes = [len(e["pages"]) * self._page_bytes() for e in [entry] + kept]
+        else:
+            pb = self._bucket_for(valid_len)
+            if self._prefix_span_bytes(pb) > self.ecfg.prefix_cache_bytes:
+                self._prefix_entries = kept
+                return
+            entry = {"key": key, "valid": valid_len, "pb": pb,
+                     "k": self.cache.k[:, slot_idx:slot_idx + 1, :pb].clone(),
+                     "v": self.cache.v[:, slot_idx:slot_idx + 1, :pb].clone()}
+            sizes = [self._prefix_span_bytes(e["pb"]) for e in [entry] + kept]
+        kept.insert(0, entry)
+        # The LRU bounds: prefix_cache_entries, then prefix_cache_bytes.
+        cut = min(len(kept), self.ecfg.prefix_cache_entries)
+        total = 0
+        for idx in range(cut):
+            total += sizes[idx]
+            if total > self.ecfg.prefix_cache_bytes:
+                cut = idx
+                break
+        for e in kept[cut:]:
+            self._prefix_drop(e)
+        self._prefix_entries = kept[:cut]
+
+    def _prefix_drop(self, entry: dict) -> None:
+        """Release a device-tier entry's page and table-page references (a
+        dense entry's copies are simply freed)."""
+        if entry.get("pages"):
+            self._pages_release(entry["pages"])
+            entry["pages"] = []
+        if entry.get("tps"):
+            self._tp_release(entry["tps"])
+            entry["tps"] = []
+
+    def _prefix_evict_for_pages(self, need: int, protect: Optional[list] = None) -> None:
+        """Evict least recently used entries, spilling each to the host
+        tier, until `need` pages are free or only `protect`ed entries (the
+        ones this admission maps) remain. A live request outranks a span:
+        a span can be prefilled again."""
+        if not self._paged:
+            return
+        protect = protect or []
+        idx = len(self._prefix_entries) - 1
+        while len(self._free_pages) < need and idx >= 0:
+            e = self._prefix_entries[idx]
+            if not any(e is p for p in protect):
+                self._prefix_spill(e)
+                self._prefix_drop(e)
+                self._prefix_entries.pop(idx)
+            idx -= 1
+
+    def _prefix_spill(self, entry: dict) -> None:
+        """Copy an evicted span's pages to the host tier, within
+        kv_swap_bytes (making room by dropping its oldest spans)."""
+        pages = entry.get("pages")
+        if not pages or self.ecfg.kv_swap_bytes <= 0:
+            return
+        nbytes = len(pages) * self._page_bytes()
+        if not self._host_make_room(nbytes):
+            return
+        hk, hv = self._pages_to_host(pages)
+        self._prefix_host.insert(0, {"key": entry["key"], "valid": entry["valid"],
+                                     "hk": hk, "hv": hv, "bytes": nbytes})
+        self._host_bytes += nbytes
+        self.m_kv_swap_bytes_out += nbytes
+
+    def _prefix_promote(self, hentry: dict) -> Optional[dict]:
+        """Swap a host-tier span back into fresh pages and make it a
+        device-tier entry again. Returns the entry, or None (the span goes
+        back to the host tier) when the pool cannot take it now: the hit
+        then degrades to a miss."""
+        npg = hentry["hk"].shape[1]
+        # Out of the tier first, so the evictions below cannot drop it.
+        self._prefix_host = [e for e in self._prefix_host if e is not hentry]
+        self._host_bytes -= hentry["bytes"]
+        if len(self._free_pages) < npg:
+            self._prefix_evict_for_pages(npg)
+        pages = self._pages_claim(npg)
+        if pages is None:
+            self._prefix_host.insert(0, hentry)
+            self._host_bytes += hentry["bytes"]
+            return None
+        self._pages_from_host(pages, hentry["hk"], hentry["hv"])
+        entry = {"key": hentry["key"], "valid": hentry["valid"], "pages": pages}
+        if self._hier:
+            entry["tps"] = self._entry_tps_for_pages(pages)
+        self._prefix_entries.insert(0, entry)
+        while len(self._prefix_entries) > self.ecfg.prefix_cache_entries:
+            dead = self._prefix_entries.pop()
+            self._prefix_spill(dead)
+            self._prefix_drop(dead)
+        self.m_kv_swap_bytes_in += hentry["bytes"]
+        self.m_prefix_host_hits += 1
+        return entry
+
+    def _host_make_room(self, need: int) -> bool:
+        """Fit `need` bytes into kv_swap_bytes by dropping the oldest host
+        spans. Swap images of queued preempted requests are state, not
+        cache: they are never dropped."""
+        if need > self.ecfg.kv_swap_bytes:
+            return False
+        while self._host_bytes + need > self.ecfg.kv_swap_bytes and self._prefix_host:
+            self._host_bytes -= self._prefix_host.pop()["bytes"]
+        return self._host_bytes + need <= self.ecfg.kv_swap_bytes
+
+    def _dispatch_admit_cached(self, request: GenRequest, handle: RequestHandle,
+                               slot_idx: int, entry: dict, match_len: int) -> None:
+        """A prefix hit on the dense cache: the span's rows go into the
+        slot, the tail prefills against them (llama.prefill_tail), its rows
+        follow the span, and the first token is sampled with the penalty
+        counts of the whole prompt (the JAX package's cached admission)."""
+        t0 = time.monotonic()
+        ids = request.prompt_ids
+        tail = ids[match_len:]
+        dev = self.device
+        toks = np.zeros((1, self._bucket_for(len(tail))), np.int64)
+        toks[0, : len(tail)] = tail
+        logits, tks, tvs = llama.prefill_tail(
+            self.cfg, self.params, torch.from_numpy(toks).to(dev),
+            torch.tensor([len(tail)], device=dev), torch.tensor([match_len], device=dev),
+            entry["k"], entry["v"])
+        llama.write_rows_to_cache(self.cache, slot_idx, entry["k"], entry["v"], 0)
+        llama.write_rows_to_cache(self.cache, slot_idx, tks, tvs, match_len)
+        samp, bias_rows, seeds = self._request_controls([(request, handle)])
+        full = torch.as_tensor(np.asarray([ids], np.int64)).to(dev)
+        first = self._install_first(logits, full, torch.tensor([len(ids)], device=dev),
+                                    samp, bias_rows, seeds, [slot_idx])
+        tok = int(first.tolist()[0])  # the admission's one device-to-host copy
+        self._prefix_bump(entry)
+        self.m_prefix_hits += 1
+        self.m_prefix_tokens += match_len
+        self._claim_slot(slot_idx, request, handle, int(seeds[0]), t0)
+        self._admission_save(slot_idx, request)
+        self._post_first(slot_idx, tok)
+
+    # ------------------------------------------------------------------ #
+    # Host swap tier: page images in pinned host memory. Copies go on the
+    # engine's one stream: an image is gathered on the device before its
+    # pages are released (no later write to a recycled page overtakes
+    # it), and a swap-in lands before the next block; the host never
+    # reads an image itself.
+    # ------------------------------------------------------------------ #
+
+    def _restore_spilled(self, slot_idx: int) -> bool:
+        """Bring a slot's spilled cold pages back into fresh pages, byte for
+        byte (a prefix save pins only device pages). Returns False when the
+        pool cannot take them now."""
+        images = self._slot_spill[slot_idx]
+        if not images:
+            return True
+        need = len(images)
+        if len(self._free_pages) < need:
+            self._prefix_evict_for_pages(need)
+        fresh = self._pages_claim(need)
+        if fresh is None:
+            return False
+        cols = sorted(images)
+        self._pages_from_host(fresh, [images[c][0] for c in cols],
+                              [images[c][1] for c in cols])
+        pages = self._slot_pages[slot_idx]
+        for p, c in zip(fresh, cols):
+            pages[c] = p
+            self._table_set(slot_idx, c, p)
+        self._spill_bytes -= need * self._page_bytes()
+        self._slot_spill[slot_idx] = {}
+        self._spill_cursor[slot_idx] = 0
+        self.m_kv_pages_restored += need
+        return True
+
+    def _pages_from_host(self, pages: list[int], hk, hv) -> None:
+        """Write host images (one tensor [L, n, page, K, Hd], or a list of
+        them covering `pages` in order) into pool pages, as stored."""
+        idx = torch.as_tensor(pages, dtype=torch.int64, device=self.device)
+        for pool, img in ((self.cache.k, hk), (self.cache.v, hv)):
+            parts = img if isinstance(img, list) else [img]
+            pool[:, idx] = torch.cat([t.to(self.device, non_blocking=True) for t in parts], dim=1)
+
+    def _swap_out_slot_span(self, slot_idx: int, n_live: int):
+        """A swap image of the slot's first n_live pages, its spilled cold
+        pages spliced in from their host images on the device (not
+        restored to the pool first)."""
+        pages = self._slot_pages[slot_idx][:n_live]
+        if all(p >= 0 for p in pages):
+            return self._pages_to_host(pages)
+        idx = torch.as_tensor([p if p >= 0 else self._scratch_page for p in pages],
+                              dtype=torch.int64, device=self.device)
+        out = []
+        for pool, side in ((self.cache.k, 0), (self.cache.v, 1)):
+            rows = pool[:, idx]
+            for c, img in self._slot_spill[slot_idx].items():
+                if c < n_live:
+                    rows[:, c] = img[side][:, 0].to(self.device, non_blocking=True)
+            out.append(self._to_host(rows))
+        return out[0], out[1]
+
+    def _resume_swap_pages(self, request: GenRequest) -> int:
+        """Pages a queued swap resume takes: its image's plus headroom,
+        within the request's worst case."""
+        rec = request.resume
+        n_live = rec["hk"].shape[1]
+        worst = -(-min(rec["orig_prompt_len"] + request.max_new_tokens, self.ecfg.max_seq)
+                  // self.ecfg.kv_page_size)
+        return min(n_live + self.ecfg.kv_page_headroom, max(n_live, worst))
+
+    def _resume_discard(self, request: GenRequest) -> None:
+        """Give back a queued swap resume's host bytes (it was cancelled or
+        drained)."""
+        rec = request.resume
+        if rec is not None and rec.get("bytes"):
+            self._host_bytes -= rec["bytes"]
+            rec["bytes"] = 0
+            rec.pop("hk", None)
+            rec.pop("hv", None)
+
+    def _dispatch_resume_swap(self, request: GenRequest, handle: RequestHandle,
+                              slot_idx: int) -> bool:
+        """Re-admit a swap-preempted request: pages, the image back into
+        them, the slot's device rows (penalty counts, bias, last token, its
+        position, seed) and host state. No prefill and no sample: the slot
+        decodes on from where it stopped. Returns False when the pool
+        cannot cover it (nothing changed); a failed adapter re-pin ends the
+        request with an error event."""
+        rec = request.resume
+        row_a = 0
+        if request.adapter:
+            try:
+                row_a = self._adapter_acquire(request.adapter)
+            except Exception as e:  # noqa: BLE001 — fail one tenant only
+                log.exception("adapter re-pin failed on swap resume")
+                self._resume_discard(request)
+                handle._q.put(TokenEvent(kind="error", error=f"{type(e).__name__}: {e}"))
+                return True
+        if self._pages_alloc(slot_idx, self._resume_swap_pages(request)) is None:
+            self._adapter_unpin(row_a)
+            return False
+        n_live = rec["hk"].shape[1]
+        self._pages_from_host(self._slot_pages[slot_idx][:n_live], rec["hk"], rec["hv"])
+        dev = self.device
+        self.counts[slot_idx] = rec["counts"].to(dev, non_blocking=True)
+        self.bias[slot_idx] = rec["bias"].to(dev, non_blocking=True)
+        self.d_tokens[slot_idx] = rec["d_tok"]
+        self.d_positions[slot_idx] = rec["d_pos"]
+        self.d_seed[slot_idx] = rec["seed"]
+        for k in _SAMPLING_FIELDS:
+            self.h_sampling[k][slot_idx] = getattr(request, k)
+        self.h_seed[slot_idx] = rec["seed"]
+        orig = dataclasses.replace(
+            request, prompt_ids=list(request.prompt_ids[: rec["orig_prompt_len"]]), resume=None)
+        self.slots[slot_idx] = _Slot(
+            request=orig, handle=handle, prompt_len=rec["orig_prompt_len"],
+            generated=list(rec["generated"]), emitted_len=rec["emitted_len"],
+            scheduled=len(rec["generated"]), sched_rows=rec["d_pos"],
+            t_submit=rec["t_submit"], t_admit=rec["t_admit"], t_first=rec["t_first"])
+        self.h_active[slot_idx] = True
+        self.h_adapter[slot_idx] = row_a
+        self._host_bytes -= rec["bytes"]
+        self.m_kv_swap_bytes_in += rec["bytes"]
+        return True
+
+    # ------------------------------------------------------------------ #
+    # Preemption: swap or recompute
     # ------------------------------------------------------------------ #
 
     def _preempt_youngest(self) -> None:
         """Free the youngest live slot's pages so growth-blocked older slots
         can go on. The victim's request is requeued at the head as prompt +
-        generated, under the same handle and with no terminal event; its
-        re-admission recomputes the KV and continues the stream
-        (_apply_resume), re-pinning its adapter (maybe into another row).
-        Recompute is the only policy: the host swap tier is not ported."""
+        generated, under the same handle and with no terminal event, and
+        continues the stream when re-admitted. kv_preempt picks how: a
+        swap copies its live pages (spilled ones spliced in) and device
+        rows to the host tier, and the swap-in restores them byte for
+        byte; a recompute re-admits through the prefill (_apply_resume).
+        A swap falls back to recompute when kv_swap_bytes is 0 or the host
+        tier cannot make room. The adapter is re-pinned either way (maybe
+        into another row). Noise is a pure function of (seed, position),
+        so the seed is all the sampler state a slot needs back."""
         live = [i for i, s in enumerate(self.slots) if s is not None and self.h_active[i]]
         if not live:
             return
         victim = max(live, key=lambda i: (self.slots[i].t_submit, i))
         slot = self.slots[victim]
         r = slot.request
+        ctx_rows = slot.prompt_len + len(slot.generated)
+        n_live = min(-(-ctx_rows // self.ecfg.kv_page_size), len(self._slot_pages[victim]))
+        span_bytes = n_live * self._page_bytes()
+        policy = self.ecfg.kv_preempt
+        if policy == "auto":
+            policy = "swap" if span_bytes * 4 <= self.ecfg.kv_swap_bytes else "recompute"
+        if policy == "swap" and (self.ecfg.kv_swap_bytes <= 0
+                                 or not self._host_make_room(span_bytes)):
+            policy = "recompute"
         rec = {
+            "mode": policy,
             "orig_prompt_len": slot.prompt_len,
             "generated": list(slot.generated),
             "emitted_len": slot.emitted_len,
@@ -1794,6 +2397,17 @@ class Engine:
             "t_first": slot.t_first,
             "seed": int(self.h_seed[victim]),
         }
+        if policy == "swap":
+            hk, hv = self._swap_out_slot_span(victim, n_live)
+            rec.update(hk=hk, hv=hv, bytes=span_bytes,
+                       counts=self._to_host(self.counts[victim]),
+                       bias=self._to_host(self.bias[victim]),
+                       d_tok=int(self.d_tokens[victim]), d_pos=int(self.d_positions[victim]))
+            self._host_bytes += span_bytes
+            self.m_kv_swap_bytes_out += span_bytes
+            self.m_kv_preempt_swaps += 1
+        else:
+            self.m_kv_preempt_recomputes += 1
         resume_req = dataclasses.replace(
             r, prompt_ids=list(r.prompt_ids) + list(slot.generated), resume=rec)
         self.m_kv_preemptions += 1
@@ -1802,8 +2416,7 @@ class Engine:
             self._pending.appendleft((resume_req, slot.handle))
         # _growth_blocked stays set: the freed pages go to the starved
         # slots first, not straight back to the victim at the queue head.
-        log.info("preempted slot %d (recompute, %d rows)", victim,
-                 slot.prompt_len + len(slot.generated))
+        log.info("preempted slot %d (%s, %d rows)", victim, policy, ctx_rows)
 
     def _apply_resume(self, slot_idx: int) -> None:
         """Turn a freshly admitted slot that is a preempted request back
@@ -1890,6 +2503,16 @@ class Engine:
 
     def _finish(self, slot_idx: int, reason: str) -> None:
         slot = self.slots[slot_idx]
+        if self._cached_admit_ok(slot.request):
+            # The rows of the prompt and of every generated token but the
+            # last are written (a token's row lands when it is fed back):
+            # the next turn of a chat starts with them. A span with
+            # generated rows is new and always saved; one without is the
+            # admission's span again and takes its bar.
+            valid = slot.prompt_len + max(0, len(slot.generated) - 1)
+            self._prefix_save(slot_idx, list(slot.request.prompt_ids) + slot.generated, valid,
+                              min_extend=0 if valid > slot.prompt_len
+                              else self.ecfg.prefix_cache_min)
         now = time.monotonic()
         t_first = slot.t_first or now
         h = slot.handle

@@ -8,13 +8,16 @@ sparse-MoE MLP) in PyTorch (localai_tpu/models/llama.py).
 - Entry points: `prefill` (causal attention over a bucketed prompt),
   `decode_step_windowed` (one token per slot inside an N-step decode block
   whose rows ride a block-local KV window; the cache is written once per
-  block) and `prefill_chunk_paged` (one chunk of a long prompt, written
-  straight into the slot's pages).
+  block), `prefill_chunk_paged` (one chunk of a long prompt, written
+  straight into the slot's pages) and `prefill_tail` (a prompt's tail
+  against cached prefix K/V: a dense prefix hit).
 - Two cache layouts: a dense slot cache [L, B, S, K, Hd]
   (`write_block_to_cache`, `write_prefill_to_cache`) and a paged pool
   [L, P, page, K, Hd] shared by every slot through per-slot page tables
   (`paged_cache_zeros`, `write_block_to_pool`, `write_chunk_to_pool`,
   `write_prefill_to_pool`); only the attention call differs between them.
+  The prefix cache's row movers are `write_rows_to_cache`,
+  `write_rows_to_pool` (rows from any start row) and `gather_pages`.
   Either may be stored in fp8 (e4m3 / e5m2); a paged pool may also carry a
   per-head `kv_scale` [2, K] f32, so it stores value / scale and every
   reader multiplies back (`_pool_store`). Writes into fp8 go through
@@ -483,6 +486,79 @@ def prefill(
     return _unembed(cfg, params, last), ks, vs
 
 
+def prefill_tail(
+    cfg: ArchConfig,
+    params: Params,
+    tokens: torch.Tensor,  # [B, T] tail tokens, right-padded
+    lengths: torch.Tensor,  # [B] valid tail lengths
+    offsets: torch.Tensor,  # [B] cached-prefix lengths (the tail starts here)
+    prefix_k: torch.Tensor,  # [L, B, P, K, Hd] cached prefix KV; rows >= offsets[b] ignored
+    prefix_v: torch.Tensor,
+):
+    """Prefill a prompt tail against cached prefix K/V: the compute half of
+    the prefix cache. Tail token t attends the prefix rows [0, offsets[b])
+    plus the tail causally, in one softmax over both (plain PyTorch, f32
+    scores, the JAX package's XLA numerics); RoPE positions start at the
+    offset, so the result is the whole prompt's prefill. Sliding layers and
+    softcaps are applied as in `prefill`. Returns (last_logits [B, V] f32,
+    tail_ks [L, B, T, K, Hd], tail_vs)."""
+    check_supported(cfg)
+    _check_params(cfg, params)
+    B, T = tokens.shape
+    P = prefix_k.shape[2]
+    dev = tokens.device
+    inv_freq = rope_frequencies(cfg, dev)
+    inv_local = rope_frequencies_local(cfg, dev)
+    offsets = offsets.to(device=dev, dtype=torch.int64)
+    lengths = lengths.to(device=dev, dtype=torch.int64)
+    tpos = torch.arange(T, device=dev)
+    positions = offsets[:, None] + tpos[None, :]  # [B, T] global
+    length_mask = tpos[None, :] < lengths[:, None]
+    causal = tpos[None, :] <= tpos[:, None]  # [T, T]
+    win_dist = tpos[:, None] - tpos[None, :]
+    pvalid = torch.arange(P, device=dev)[None, :] < offsets[:, None]  # [B, P]
+    scale = cfg.head_dim_ ** -0.5
+    h = _embed(cfg, params, tokens)  # [B, T, D]
+    new_k, new_v = [], []
+    for li in range(cfg.num_layers):
+        lp = _layer(params, li)
+        sliding = _layer_sliding(cfg, li)
+        x = rms_norm(h, lp["attn_norm"], cfg.rms_eps)
+        inv = _layer_inv_freq(cfg, inv_freq, inv_local, li)
+        q, k, v = _attn_proj_qkv(cfg, lp, x)  # q [B,T,H,Hd], k/v [B,T,K,Hd]
+        q = apply_rope(q, positions, inv)
+        k = apply_rope(k, positions, inv)
+        kc, vc = prefix_k[li].float(), prefix_v[li].float()  # [B, P, K, Hd]
+        Kh = kc.shape[2]
+        G = q.shape[2] // Kh
+        qf = (q.float() * scale).reshape(B, T, Kh, G, cfg.head_dim_)
+        sc = torch.einsum("btkgd,bskd->bkgts", qf, kc)
+        sw = torch.einsum("btkgd,bukd->bkgtu", qf, k.float())
+        if cfg.attn_softcap:
+            sc = cfg.attn_softcap * torch.tanh(sc / cfg.attn_softcap)
+            sw = cfg.attn_softcap * torch.tanh(sw / cfg.attn_softcap)
+        pmask = pvalid[:, None, :]  # [B, 1, P]
+        cmask = causal
+        if cfg.sliding_window and sliding:
+            dist = positions[:, :, None] - torch.arange(P, device=dev)[None, None, :]
+            pmask = pmask & (dist < cfg.sliding_window)
+            cmask = cmask & (win_dist < cfg.sliding_window)
+        sc = torch.where(pmask[:, None, None], sc, -1e30)
+        wmask = cmask[None] & length_mask[:, None, :]  # [B, T, T]
+        sw = torch.where(wmask[:, None, None], sw, -1e30)
+        probs = torch.softmax(torch.cat([sc, sw], dim=-1), dim=-1)
+        attn = (torch.einsum("bkgts,bskd->btkgd", probs[..., :P], vc)
+                + torch.einsum("bkgtu,bukd->btkgd", probs[..., P:], v.float()))
+        h = h + _attn_out(cfg, lp, attn.reshape(B, T, -1).to(h.dtype))
+        x = rms_norm(h, lp["mlp_norm"], cfg.rms_eps)
+        h = h + _mlp_out(cfg, lp, x)
+        new_k.append(k)
+        new_v.append(v)
+    h = rms_norm(h, params["final_norm"], cfg.rms_eps)
+    last = h[torch.arange(B, device=dev), torch.clamp(lengths - 1, min=0)]  # [B, D]
+    return _unembed(cfg, params, last), torch.stack(new_k), torch.stack(new_v)
+
+
 def decode_step_windowed(
     cfg: ArchConfig,
     params: Params,
@@ -581,6 +657,24 @@ def write_prefill_to_cache(
     return cache
 
 
+def write_rows_to_cache(
+    cache: KVCache,
+    slot: int,  # destination slot
+    ks: torch.Tensor,  # [L, 1, T, K, Hd]
+    vs: torch.Tensor,
+    start_row: int,  # first destination row
+) -> KVCache:
+    """Write T contiguous rows from `start_row` into one dense slot, in
+    place: a cached span at row 0, or a prefix hit's tail rows after it.
+    Rows past the slot's end are dropped (the JAX package's
+    dynamic_update_slice clamps the start instead; the engine never writes
+    past max_seq)."""
+    n = max(0, min(ks.shape[2], cache.k.shape[2] - start_row))
+    cache.k[:, slot, start_row:start_row + n] = kv_cast(ks[:, 0, :n], cache.k.dtype)
+    cache.v[:, slot, start_row:start_row + n] = kv_cast(vs[:, 0, :n], cache.v.dtype)
+    return cache
+
+
 # --------------------------------------------------------------------------- #
 # Paged KV cache (page pool + per-slot page tables — ops/attention.py paged)
 # --------------------------------------------------------------------------- #
@@ -672,6 +766,38 @@ def write_prefill_to_pool(
     rows = torch.arange(Sb, device=ks.device)[None, :]
     return _scatter_rows(pool, _pt.batch_row(table_row), rows, ks[:, j:j + 1], vs[:, j:j + 1],
                          kv_scale)
+
+
+def write_rows_to_pool(
+    pool: KVCache,
+    table_row,  # [MP] int32 or ([ML1], l0): the destination slot's pages
+    ks: torch.Tensor,  # [L, 1, R, K, Hd]
+    vs: torch.Tensor,
+    start_row: int,  # first destination row
+    kv_scale=None,  # [2, K] f32 → pool rows store value / scale
+) -> KVCache:
+    """Scatter R contiguous rows from `start_row` into one slot's pages, in
+    place (rows that start mid-page, such as a prefix hit's tail). Rows
+    past the table's span clamp to its last row, as in the JAX package."""
+    rows = start_row + torch.arange(ks.shape[2], device=ks.device)[None, :]
+    return _scatter_rows(pool, _pt.batch_row(table_row), rows, ks, vs, kv_scale)
+
+
+def gather_pages(
+    pool: KVCache,
+    pages: torch.Tensor,  # [NP] int page ids (SCRATCH-padded past the span)
+    kv_scale=None,  # [2, K] f32 → rows come back dequantized (value · scale)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """A page list as contiguous K/V rows [L, 1, NP·page, K, Hd]: the dense
+    prefix operand `prefill_tail` reads. A scaled pool's rows come back as
+    f32 values, an unscaled pool's in its storage dtype."""
+    pages = pages.to(device=pool.k.device, dtype=torch.int64)
+    k, v = pool.k[:, pages], pool.v[:, pages]  # [L, NP, page, K, Hd]
+    if kv_scale is not None:
+        k = k.float() * kv_scale[0][:, None]
+        v = v.float() * kv_scale[1][:, None]
+    L, NP, page, K, Hd = k.shape
+    return k.reshape(L, 1, NP * page, K, Hd), v.reshape(L, 1, NP * page, K, Hd)
 
 
 def prefill_chunk_paged(

@@ -298,6 +298,9 @@ class ModelManager:
         if switched:
             log.warning("model %s: %s ignored — the port has no kernel route switch; its "
                         "kernels always run on the card", cfg.name, ", ".join(switched))
+        if "prefix_admit_async_compile" in cfg.options:
+            log.warning("model %s: prefix_admit_async_compile ignored — the port's cached "
+                        "admission runs eagerly and compiles nothing", cfg.name)
         t0 = time.monotonic()
         ckpt_dir: Optional[str] = None
         if cfg.model in PRESETS:
@@ -339,6 +342,7 @@ class ModelManager:
                 max_slots=cfg.max_slots, max_seq=cfg.context_size,
                 kv_pages=cfg.kv_pages, kv_page_size=cfg.kv_page_size,
                 kv_page_headroom=cfg.kv_page_headroom, kv_cache_dtype=cfg.kv_cache_dtype,
+                kv_preempt=cfg.kv_preempt, kv_swap_bytes=cfg.kv_swap_bytes,
                 kv_scale=cfg.kv_scale, prefill_chunk=cfg.prefill_chunk,
                 max_pending=cfg.max_pending, adapter_cache_bytes=cfg.adapter_cache_bytes,
                 attention_sink=cfg.attention_sink, attention_window=cfg.attention_window,

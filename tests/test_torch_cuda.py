@@ -927,3 +927,92 @@ def test_lora_launch_allocates_only_its_outputs_and_keeps_no_state(card):
             assert (y[ids == 0] == 0).all()
     again = lm.lora_bgmv_group(x[:9], pairs, ids9)
     assert all(torch.equal(y, z) for y, z in zip(first, again))
+
+
+# --------------------------------------------------------------------------- #
+# Prefix cache and swap tier on the card (tiny f32 engines)
+# --------------------------------------------------------------------------- #
+
+def _tiny_engine(**kw):
+    import dataclasses
+
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig
+    from localai_tpu_torch.engine.tokenizer import ByteTokenizer
+    from localai_tpu_torch.models import get_arch, llama
+
+    # Head dim 64, which B1 serves (tiny's is 16).
+    cfg = dataclasses.replace(get_arch("tiny"), name="tiny-d64", hidden_size=256,
+                              intermediate_size=512, num_heads=4, num_kv_heads=2,
+                              dtype="float32")
+    params = llama.init_params(cfg, 0, device="cuda")
+    ecfg = dict(max_slots=2, max_seq=256, min_prefill_bucket=16, block_sizes=(8,))
+    ecfg.update(kw)
+    return Engine(cfg, params, ByteTokenizer(cfg.vocab_size), device="cuda",
+                  engine_cfg=EngineConfig(**ecfg))
+
+
+def _tiny_ids(eng, prompt, n=10, **kw):
+    from localai_tpu_torch.engine.engine import GenRequest
+
+    evs = list(eng.submit(GenRequest(prompt_ids=prompt, max_new_tokens=n, ignore_eos=True,
+                                     **kw)))
+    assert evs[-1].kind == "done"
+    return [e.token_id for e in evs if e.kind == "token"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", [{}, dict(kv_pages=40, kv_page_size=16, prefill_chunk=32),
+                                    dict(kv_pages=40, kv_page_size=16, kv_l1_span=2)],
+                         ids=["dense", "chunked", "hier"])
+def test_prefix_hits_equal_misses_and_add_no_graph(card, layout):
+    """f32 on the card: a chat's hits give the ids its misses give; after
+    warmup() the hits capture no graph (mapping shared pages changes table
+    contents only), and every decode block replays."""
+    sys_ids = [(j * 7) % 250 + 1 for j in range(70)]
+    outs = []
+    for entries in (8, 0):
+        eng = _tiny_engine(prefix_cache_entries=entries, **layout)
+        try:
+            eng.warmup()
+            graphs = eng.metrics()["decode_graphs"]
+            a = sys_ids + [3, 5, 8]
+            ids = [_tiny_ids(eng, a), _tiny_ids(eng, sys_ids + [21, 34], temperature=0.8,
+                                                top_p=0.9, seed=7)]
+            ids.append(_tiny_ids(eng, a + ids[0] + [9, 10]))
+            m = eng.metrics()
+            assert m["decode_graphs"] == graphs and m["decode_graph_captures"] == graphs
+            assert m["decode_graph_replays"] == m["decode_blocks"] > 0
+            assert m["prefix_hits"] == (2 if entries else 0)
+            outs.append(ids)
+        finally:
+            eng.stop()
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.cuda
+def test_swap_preemption_restores_pages_on_the_card(card):
+    """f32 on the card: a 12-page pool swaps the younger of two growing
+    requests to pinned host memory and back; both end with the ids of a
+    40-page pool, greedy and seeded."""
+    import time
+
+    from localai_tpu_torch.engine.engine import GenRequest
+
+    pa, pb = [(j * 7) % 250 + 1 for j in range(40)], [(j * 3) % 250 + 1 for j in range(41)]
+    got = {}
+    for pages in (40, 12):
+        eng = _tiny_engine(kv_pages=pages, kv_page_size=16, prefix_cache_entries=0,
+                           kv_preempt="swap")
+        try:
+            ha = eng.submit(GenRequest(prompt_ids=pa, max_new_tokens=100, ignore_eos=True))
+            time.sleep(0.05)
+            hb = eng.submit(GenRequest(prompt_ids=pb, max_new_tokens=100, ignore_eos=True,
+                                       temperature=0.9, top_p=0.9, seed=1234))
+            got[pages] = [[e.token_id for e in h if e.kind == "token"] for h in (ha, hb)]
+            m = eng.metrics()
+            if pages == 12:
+                assert m["kv_preempt_swaps"] > 0
+                assert m["kv_swap_bytes_in"] == m["kv_swap_bytes_out"]
+        finally:
+            eng.stop()
+    assert got[12] == got[40]

@@ -43,8 +43,11 @@ def weights():
 
 
 def _windowed(cfg, tp, paged=True, start=True, **kw):
+    # Without the prefix cache, as the JAX engine here runs: the windowed
+    # prefix hit and the restore of spilled pages before a save have their
+    # own tests (test_torch_prefix_cache.py).
     ecfg = dict(max_slots=2, max_seq=1024, min_prefill_bucket=16, block_sizes=(8,),
-                kv_page_size=PAGE, **WINDOW)
+                kv_page_size=PAGE, prefix_cache_entries=0, **WINDOW)
     if paged:
         ecfg.update(kv_pages=24, prefill_chunk=128)
     ecfg.update(kw)
@@ -207,7 +210,7 @@ def test_windowed_preemption_drops_spilled_images(weights):
     its spilled images are dropped with its pages, both requests finish
     with the ids each gets alone, and the pool is whole at quiesce."""
     cfg, _, tp = weights
-    kw = dict(attention_window=128, prefill_chunk=64, kv_l1_span=4)
+    kw = dict(attention_window=128, prefill_chunk=64, kv_l1_span=4, kv_preempt="recompute")
     budget = 3 * 2 * 64 * 2 * 16 * 4 * 2  # three pages of tiny's f32 K and V
     prompts = [SHORT[:100], [(j * 5) % 251 + 3 for j in range(120)]]
     alone = _windowed(cfg, tp, kv_spill_bytes=budget, kv_pages=40, **kw)

@@ -292,7 +292,8 @@ def test_engine_greedy_ids_match_jax_engine(models, mode, paged):
     jeng = JaxEngine(cfg, jp, JaxByteTokenizer(cfg.vocab_size), quantization=quantization,
                      engine_cfg=JaxEngineConfig(prefix_cache_entries=0, **kw))
     teng = Engine(cfg, tp, ByteTokenizer(cfg.vocab_size), device="cpu",
-                  quantization=quantization, engine_cfg=EngineConfig(**kw))
+                  quantization=quantization,
+                  engine_cfg=EngineConfig(prefix_cache_entries=0, **kw))
     try:
         assert _greedy(teng, GenRequest) == _greedy(jeng, JaxGenRequest)
         m = teng.metrics()

@@ -160,8 +160,11 @@ def test_paged_decode_blocks_match_jax_and_dense(weights):
 # --------------------------------------------------------------------------- #
 
 def _engine(tp, cfg, start=True, **kw):
+    # Without the prefix cache and with recompute preemption, as the JAX
+    # engines here run: both have their own tests (test_torch_prefix_cache.py,
+    # test_torch_swap.py).
     defaults = dict(max_slots=2, max_seq=256, min_prefill_bucket=16, block_sizes=(8,),
-                    kv_page_size=64)
+                    kv_page_size=64, prefix_cache_entries=0, kv_preempt="recompute")
     defaults.update(kw)
     eng = Engine(cfg, tp, ByteTokenizer(cfg.vocab_size), engine_cfg=EngineConfig(**defaults),
                  device="cpu")

@@ -61,7 +61,8 @@ def test_engine_greedy_ids_match_jax_engine(weights, quantization, kw):
     jeng = JaxEngine(cfg, jp, JaxByteTokenizer(cfg.vocab_size), quantization=quantization,
                      engine_cfg=JaxEngineConfig(prefix_cache_entries=0, **BASE, **kw))
     teng = Engine(cfg, tp, ByteTokenizer(cfg.vocab_size), device="cpu",
-                  quantization=quantization, engine_cfg=EngineConfig(**BASE, **kw))
+                  quantization=quantization,
+                  engine_cfg=EngineConfig(prefix_cache_entries=0, **BASE, **kw))
     try:
         want = _greedy(jeng, JaxGenRequest)
         got = _greedy(teng, GenRequest)
