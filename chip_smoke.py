@@ -134,7 +134,25 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    pair, prefix_swap_8b: llama-3-8b int4 on an fp8 pool with kv_scale 2,
    one 1024-token hit against a miss (B2's fp8 walk over the shared pages,
    B3, B4).
-In 5, 6, 8, 10, 11, 12, 14, 15, 17 and 18 the kernel launch counters, zeroed just
+19. grammar (run right after 18) — grammar-constrained decoding on
+   llama-3.2-1b at full width and depth (16 layers, bf16) with the
+   synthetic byte tokenizer on phase 18's paged engine (prefix cache off,
+   so a round and its unconstrained batch admit alike): ops/grammar's mask
+   and advance on the card bit-equal to the CPU for an [8, 128256] batch in
+   "fast" and "walk" mode; the two schemas' table builds and copies to the
+   card; warmup(grammar=True) after prewarming both; round A (4 requests on
+   a fast schema, 2 greedy and 2 seeded, beside 4 unconstrained), round B
+   (the same prompts on the ~678-state tool schema: walk mode), round C (2
+   on schemas never prewarmed: the host candidate walk, beside 2
+   unconstrained), each beside the same batch unconstrained (decode tok/s
+   of each). Every constrained text is a legal prefix (a whole value when
+   it stopped); after every block of A and B each DFA slot's device state
+   equals a numpy walk of its ids; A and B capture no graph; the
+   unconstrained ids equal their runs without constrained neighbours, or
+   part at a near tie (as in 18) or, in C, where the same batch alone in
+   one-step blocks (the schedule a host-walk slot imposes) parts alike. Then the port's server: a required tool
+   call whole and streamed, a json_schema reply and a GBNF completion.
+In 5, 6, 8, 10, 11, 12, 14, 15, 17, 18 and 19 the kernel launch counters, zeroed just
 before each run, show that the path went through the kernels; a graph
 replay counts the launches its capture recorded. Every decode block of
 those runs is a graph capture or replay (the eager runs of phases 12 and
@@ -2941,6 +2959,411 @@ def phase_prefix_8b(qmodel: dict) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# 19. grammar: constrained decoding and tool calling
+# --------------------------------------------------------------------------- #
+
+# test_grammar_dfa.py's SCHEMAS[1] (a small automaton: "fast" mode, one
+# gather of an [S, V] next-state table a step) and TOOL_SCHEMA (~678
+# states: "walk" mode, the token's char classes walked through [S, C]).
+GRAMMAR_SCHEMAS = {
+    "fast": {"type": "object", "properties": {"a": {"type": "integer"},
+                                              "b": {"type": "boolean"}},
+             "required": ["a", "b"]},
+    "walk": {"type": "object", "required": ["name", "arguments"], "properties": {
+        "name": {"enum": ["get_weather", "search_web"]},
+        "arguments": {"type": "object", "required": ["location"], "properties": {
+            "location": {"type": "string"}, "unit": {"enum": ["celsius", "fahrenheit"]},
+            "days": {"type": "integer"}}}}},
+}
+# Never prewarmed, one per request of round C: a schema's first request
+# always takes the host candidate walk (its tables build off the loop).
+GRAMMAR_NOVEL = [{"type": "object", "properties": {key: {"type": "integer"},
+                                                   "ok": {"type": "boolean"}},
+                  "required": [key, "ok"]} for key in ("id", "count")]
+GRAMMAR_NEW = 128
+GRAMMAR_TOOL = [{"type": "function", "function": {
+    "name": "get_weather", "description": "The weather in a unit",
+    "parameters": {"type": "object", "properties": {"unit": {"enum": ["celsius", "fahrenheit"]}},
+                   "required": ["unit"]}}}]
+GRAMMAR_GBNF = 'root ::= ("yes" | "no" | [0-9]+ " apples") "."'
+
+
+def _grammar_prompts(seed: int, n: int, longest: int = 1200) -> list[list[int]]:
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randint(0, 256, (int(torch.randint(200, longest + 1, (1,), generator=gen)),),
+                          generator=gen).tolist() for _ in range(n)]
+
+
+def _grammar_ok(schema, text: str, finish: str) -> bool:
+    """A legal prefix of the schema's language; a whole value when the
+    request ended with "stop"."""
+    from localai_tpu_torch.functions.jsonschema import JsonSchemaMachine
+
+    if not JsonSchemaMachine(schema).feed_text(text):
+        return False
+    if finish == "stop":
+        try:
+            json.loads(text)
+        except ValueError:
+            return False
+    return True
+
+
+def _grammar_round(eng, prompts, schemas) -> dict:
+    """Serve one request per prompt at once (request i under schemas[i], None
+    = unconstrained; even i greedy, odd i seeded top-p 0.9 at T 0.8),
+    GRAMMAR_NEW tokens each. After every decode block each live DFA slot's
+    device state is held against a numpy walk of its emitted ids through
+    the host tables. Launch counters go to 0 just before the run and are
+    read just after."""
+    from localai_tpu_torch.engine.engine import GenRequest
+    from localai_tpu_torch.functions.jsonschema import GrammarConstraint
+    from localai_tpu_torch.ops.grammar import dfa_state_after
+
+    run = eng._run_block
+    held = {"blocks": 0, "slots": 0, "bad": []}
+
+    def checked():
+        ok = run()
+        gs = eng.d_gstate.cpu().tolist()
+        held["blocks"] += 1
+        for i, s in enumerate(eng.slots):
+            if s is not None and eng.h_active[i] and s.dfa:
+                held["slots"] += 1
+                want = dfa_state_after(eng._dfa["host"], s.generated)
+                if gs[i] != want:
+                    held["bad"].append((i, gs[i], want))
+        return ok
+
+    reqs = [GenRequest(prompt_ids=p, max_new_tokens=GRAMMAR_NEW,
+                       grammar=GrammarConstraint(sc) if sc is not None else None,
+                       **(dict(temperature=0.8, top_p=0.9, seed=200 + i) if i % 2 else {}))
+            for i, (p, sc) in enumerate(zip(prompts, schemas))]
+    results: list = [None] * len(reqs)
+
+    def consume(i, h):
+        results[i] = list(h)
+
+    _zero_counts()
+    m0, tok0, dt0 = eng.metrics(), eng._decode_tokens, eng._decode_time
+    eng._run_block = checked
+    t0 = time.monotonic()
+    try:
+        threads = []
+        for i, r in enumerate(reqs):
+            th = threading.Thread(target=consume, args=(i, eng.submit(r)))
+            th.start()
+            threads.append(th)
+        for th in threads:
+            th.join(timeout=600)
+    finally:
+        del eng._run_block
+    wall = time.monotonic() - t0
+    launches = _read_counts()
+    m = eng.metrics()
+    check(all(not th.is_alive() for th in threads), "grammar: a request never finished")
+    out = dict(ids=[], texts=[], finish=[], launches=launches, wall_s=wall,
+               decode_tok_s=(eng._decode_tokens - tok0) / max(eng._decode_time - dt0, 1e-9),
+               decode_ms_per_step=(eng._decode_time - dt0) * 1e3
+               / max(m["decode_steps"] - m0["decode_steps"], 1),
+               held_blocks=held["blocks"], held_slot_states=held["slots"],
+               held_bad=held["bad"][:8],
+               metrics={k: m[k] - m0.get(k, 0.0) for k in (
+                   "admissions", "decode_blocks", "decode_steps", "prefill_chunks",
+                   "chunked_admits", "prefix_hits", "decode_graph_captures",
+                   "decode_graph_replays", "grammar_dfa_tokens", "tokens_generated")
+                   if k in m})
+    for i, evs in enumerate(results):
+        check(evs[-1].kind == "done", f"grammar: request {i} ended with {evs[-1].kind}: "
+                                      f"{evs[-1].error}")
+        out["ids"].append([e.token_id for e in evs if e.kind == "token"])
+        out["texts"].append("".join(e.text for e in evs))
+        out["finish"].append(evs[-1].finish_reason)
+    return out
+
+
+def _grammar_http() -> dict:
+    """The port's server on llama-3.2-1b (16 layers, the synthetic byte
+    tokenizer): a tool call required of one tool, whole and streamed, a
+    json_schema response format and a GBNF grammar on /v1/completions
+    (streamed), their schemas prewarmed on the served engine. EOS gets +50
+    and the space tokens -50, so a reply is compact and ends once its
+    grammar is complete."""
+    from localai_tpu_torch.functions.gbnf import CompiledGrammar, GbnfConstraint
+    from localai_tpu_torch.functions.jsonschema import tool_call_schema
+
+    bias = {str(t): -50.0 for t in range(128256) if t % 95 == 0 and t not in (256, 257, 258)}
+    bias["257"] = 50.0
+    msgs = [{"role": "user", "content": "What is the weather in Paris?"}]
+    reqs = [
+        ("/v1/chat/completions", {"messages": msgs, "tools": GRAMMAR_TOOL,
+                                  "tool_choice": "required", "max_tokens": 160}),
+        ("/v1/chat/completions", {"messages": msgs, "tools": GRAMMAR_TOOL,
+                                  "tool_choice": "required", "max_tokens": 160, "stream": True}),
+        ("/v1/chat/completions", {"messages": msgs, "max_tokens": 160, "response_format": {
+            "type": "json_schema", "json_schema": {"schema": GRAMMAR_SCHEMAS["fast"]}}}),
+        ("/v1/completions", {"prompt": "How many?", "grammar": GRAMMAR_GBNF, "max_tokens": 32,
+                             "stream": True}),
+    ]
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        _write_models_dir(root, tenants=False)
+        manager, server, base = _start_server(root)
+        try:
+            warm = _http(base, "/v1/completions", {"model": "llama-1b", "prompt": "warm up",
+                                                   "max_tokens": 2}, time.monotonic())
+            check(warm["status"] == 200, f"grammar http: warm request {warm}")
+            eng = manager.peek("llama-1b").engine
+            for schema in (tool_call_schema(GRAMMAR_TOOL), GRAMMAR_SCHEMAS["fast"],
+                           {"__gbnf__": GRAMMAR_GBNF}):
+                check(eng.prewarm_grammar(schema), f"grammar http: no DFA for {schema}")
+            m0 = eng.metrics()
+            _zero_counts()
+            results = [_http(base, path, {"model": "llama-1b", "logit_bias": bias, **body},
+                             time.monotonic()) for path, body in reqs]
+            launches = _read_counts()
+            m1 = eng.metrics()
+            generated = int(m1["tokens_generated"] - m0["tokens_generated"])
+            out["grammar_dfa_tokens"] = int(m1.get("grammar_dfa_tokens", 0)
+                                            - m0.get("grammar_dfa_tokens", 0))
+        finally:
+            server.shutdown()
+            manager.shutdown()
+    usage_sum, replies = 0, []
+    for i, ((path, body), res) in enumerate(zip(reqs, results)):
+        check(res["status"] == 200, f"grammar http: request {i} got HTTP {res['status']}: "
+                                    f"{res.get('body')}")
+        if body.get("stream"):
+            check(res["frames"][-1] == "[DONE]", f"grammar http: stream {i} did not end in [DONE]")
+            chunks = [json.loads(f) for f in res["frames"][:-1]]
+            check(not any("error" in c for c in chunks), f"grammar http: stream {i} errored")
+            choices = [c["choices"][0] for c in chunks]
+            deltas = [c.get("delta", c) for c in choices]
+            text = "".join(d.get("content") or d.get("text") or "" for d in deltas)
+            calls = [t for d in deltas for t in d.get("tool_calls") or []]
+            finish, usage = choices[-1]["finish_reason"], chunks[-1]["usage"]
+            if "tools" not in body:  # every token streams as its own chunk
+                ntok = sum(1 for c in choices if c["finish_reason"] is None
+                           and ("text" in c or "content" in c.get("delta", {})))
+                check(usage["completion_tokens"] == ntok,
+                      f"grammar http: stream {i}: {ntok} token chunks, usage {usage}")
+        else:
+            c = res["body"]["choices"][0]
+            msg = c.get("message") or {}
+            text = msg.get("content") or c.get("text") or ""
+            calls, finish, usage = msg.get("tool_calls") or [], c["finish_reason"], \
+                res["body"]["usage"]
+        usage_sum += usage["completion_tokens"]
+        if "tools" in body:
+            check(finish == "tool_calls" and calls,
+                  f"grammar http: request {i} ended {finish!r} with calls {calls}, text {text!r}")
+        if finish == "tool_calls":
+            for call in calls:
+                args = json.loads(call["function"]["arguments"])
+                check(call["function"]["name"] == "get_weather"
+                      and args.get("unit") in ("celsius", "fahrenheit"),
+                      f"grammar http: request {i}: call {call}")
+        elif "response_format" in body:
+            check(_grammar_ok(GRAMMAR_SCHEMAS["fast"], text, finish),
+                  f"grammar http: json_schema reply {text!r} ({finish})")
+        elif "grammar" in body:
+            g = GbnfConstraint(CompiledGrammar(GRAMMAR_GBNF))
+            check(g.advance(text) and (finish != "stop" or g.complete()),
+                  f"grammar http: GBNF reply {text!r} ({finish})")
+        replies.append(dict(path=path, stream=bool(body.get("stream")), finish=finish,
+                            text=text[:120], calls=[c["function"] for c in calls],
+                            completion_tokens=usage["completion_tokens"]))
+    check(usage_sum == generated, f"grammar http: usage sums to {usage_sum}, the engine "
+                                  f"generated {generated}")
+    check(launches["flash_prefill"] > 0 and launches["paged_attention"] > 0,
+          f"grammar http: launches {launches}")
+    out.update(replies=replies, launches=launches)
+    return out
+
+
+def phase_grammar() -> dict:
+    """llama-3.2-1b at full width and depth (16 layers, bf16, seeded random
+    weights) with the synthetic byte tokenizer (every id a printable
+    character, so the masks are dense) on phase 18's paged engine without
+    the prefix cache: ops/grammar
+    on the card against the CPU for an [8, 128256] batch in both modes; the
+    table builds and their copies to the card; warmup(grammar=True) after
+    prewarming both schemas; then rounds A (4 requests on the fast schema,
+    4 unconstrained), B (the same prompts on the walk schema) and C (2 on
+    schemas never prewarmed: the host walk, 2 unconstrained), each beside the
+    same batch unconstrained; then the port's server."""
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig
+    from localai_tpu_torch.engine.tokenizer import SyntheticByteTokenizer
+    from localai_tpu_torch.functions import dfa as dfa_mod
+    from localai_tpu_torch.models import get_arch, llama
+    from localai_tpu_torch.ops import grammar
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_arch("llama-3.2-1b")
+    L, V = cfg.num_layers, cfg.vocab_size
+    params = llama.init_params(cfg, seed=7, device="cuda")
+    tok = SyntheticByteTokenizer(V)
+    # The prefix cache off: a round and its unconstrained batch then admit
+    # every prompt by the same chunk grid (a hit's would differ in bf16).
+    eng = Engine(cfg, params, tok, device="cuda",
+                 engine_cfg=EngineConfig(**PAGED_ENGINE, prefix_cache_entries=0))
+    out: dict = {"tables": {}}
+    tables = {}
+    for mode, schema in GRAMMAR_SCHEMAS.items():
+        t0 = time.monotonic()
+        check(eng.prewarm_grammar(schema), f"grammar: {mode} schema has no DFA")
+        build_s = time.monotonic() - t0
+        tables[mode] = dfa_mod.tables_for(schema, eng._token_strings(), set(tok.eos_ids), V,
+                                          tokenizer_id=eng._tok_fingerprint(), cached_only=True)
+        layout = eng._dfa_layout(tables[mode])
+        check(layout[0] == mode, f"grammar: the {mode} schema compiled to {layout}")
+        out["tables"][mode] = dict(states=int(tables[mode].trans.shape[0]),
+                                   classes=int(tables[mode].trans.shape[1]), layout=list(layout),
+                                   build_s=build_s)
+    # ops/grammar: the card's bits against the CPU's.
+    g = torch.Generator().manual_seed(19)
+    bits = {}
+    for mode, tt in tables.items():
+        S1 = tt.trans.shape[0]
+        state = torch.randint(0, S1, (8,), generator=g, dtype=torch.int32)
+        legal = np.unpackbits(tt.mask_bits[state.numpy()], axis=1, bitorder="little")[:, :V]
+        toks = torch.tensor([int(np.flatnonzero(r)[k * 997 % max(int(r.sum()), 1)])
+                             if r.any() else 0 for k, r in enumerate(legal)])
+        table = torch.from_numpy(tt.next_tok if mode == "fast" else tt.trans)
+        cls, mask = torch.from_numpy(tt.tok_cls), torch.from_numpy(tt.mask_bits)
+
+        def both(fn):
+            return fn("cuda").cpu(), fn("cpu")
+
+        a = both(lambda d: grammar.dfa_allowed(mask.to(d), state.to(d), V))
+        n = both(lambda d: grammar.dfa_advance(mode, table.to(d), cls.to(d), state.to(d),
+                                               toks.to(d)))
+        bits[mode] = dict(allowed_equal=bool(torch.equal(*a)), advance_equal=bool(torch.equal(*n)),
+                          shape=list(a[0].shape))
+        check(torch.equal(*a) and torch.equal(*n) and list(a[0].shape) == [8, V],
+              f"grammar: ops/grammar {mode} on the card differs from the CPU: {bits[mode]}")
+    out["ops_bits"] = bits
+    t0 = time.monotonic()
+    eng.warmup(grammar=True)
+    out["warmup_s"] = time.monotonic() - t0
+    out["graphs_after_warmup"] = int(eng.metrics()["decode_graphs"])
+    for mode, schema in GRAMMAR_SCHEMAS.items():  # in place: the buffers are at size
+        layout = eng._dfa_layout(tables[mode])
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        eng._dfa_install(dfa_mod.schema_key(schema), tables[mode], layout)
+        torch.cuda.synchronize()
+        out["tables"][mode]["copy_ms"] = (time.monotonic() - t0) * 1e3
+    out["buffer_dims"] = list(eng._g_dims)
+    eng.start()
+    # Prompts of 200-1200 tokens: in A and B two of the constrained and two
+    # of the unconstrained admit single-shot (B1), the others in chunks.
+    ab_prompts, c_prompts = _grammar_prompts(22, 8), _grammar_prompts(23, 4)
+    rounds = {}
+    for label, prompts, schemas in (
+            ("A", ab_prompts, [GRAMMAR_SCHEMAS["fast"]] * 4 + [None] * 4),
+            ("B", ab_prompts, [GRAMMAR_SCHEMAS["walk"]] * 4 + [None] * 4),
+            ("C", c_prompts, GRAMMAR_NOVEL + [None] * 2),
+            ("AB_plain", ab_prompts, [None] * 8),
+            ("C_plain", c_prompts, [None] * 4),
+            ("C_plain_1", c_prompts, [None] * 4)):
+        if label == "C_plain_1":
+            # Every block one step: the schedule a live host-walk slot
+            # imposes on its neighbours.
+            eng._pick_block_size = lambda: 1
+        try:
+            r = _grammar_round(eng, prompts, schemas)
+        finally:
+            eng.__dict__.pop("_pick_block_size", None)
+        rounds[label] = r
+        rm = r["metrics"]
+        check(r["launches"]["flash_prefill"] == L * rm["admissions"]
+              and r["launches"]["paged_attention"] == L * (rm["decode_steps"]
+                                                          + rm["prefill_chunks"])
+              and r["launches"]["paged_attention"] > 0,
+              f"grammar {label}: launches {r['launches']} for {rm}")
+        check(rm["decode_graph_captures"] + rm["decode_graph_replays"] == rm["decode_blocks"] > 0,
+              f"grammar {label}: {rm}")
+        for i, sc in enumerate(schemas):
+            if sc is not None:
+                check(_grammar_ok(sc, r["texts"][i], r["finish"][i]),
+                      f"grammar {label}: request {i} ({r['finish'][i]}) is not in its "
+                      f"language: {r['texts'][i]!r}")
+        check(not r["held_bad"], f"grammar {label}: device DFA states != the host walk: "
+                                 f"{r['held_bad']}")
+    for label in ("A", "B"):
+        rm = rounds[label]["metrics"]
+        check(rm.get("grammar_dfa_tokens", 0) > 0 and rounds[label]["held_slot_states"] > 0,
+              f"grammar {label}: the DFA did not serve: {rm}")
+        check(rm["decode_graph_captures"] == 0, f"grammar {label}: captured while serving: {rm}")
+    check(rounds["C"]["metrics"].get("grammar_dfa_tokens", 0) == 0,
+          f"grammar C: the never-prewarmed schema rode the DFA: {rounds['C']['metrics']}")
+    # The unconstrained requests against the same requests served with no
+    # constrained neighbours. In bf16 a decode step's logits depend on the
+    # block it runs in (its rows split between the pool, read by B2, and
+    # the block's local window), so they may part at a near tie of a plain
+    # prefill, or, in C, where the same batch alone in one-step blocks (what
+    # a live host-walk slot imposes) parts the same way.
+    parts = []
+    for label, plain, first in (("A", "AB_plain", 4), ("B", "AB_plain", 4), ("C", "C_plain", 2)):
+        prompts = ab_prompts if plain == "AB_plain" else c_prompts
+        for i in range(first, len(prompts)):
+            want, got = rounds[plain]["ids"][i], rounds[label]["ids"][i]
+            if want != got:
+                kw = dict(temperature=0.8, top_p=0.9, seed=200 + i) if i % 2 else {}
+                part = dict(round=label, request=i,
+                            **_part_gap(cfg, params, prompts[i], want, got, kw))
+                one_step = rounds["C_plain_1"]["ids"][i] if label == "C" else []
+                part["one_step_parts_alike"] = one_step[:part["position"] + 1] == \
+                    got[:part["position"] + 1]
+                parts.append(part)
+    for part in parts:
+        check(part["gap"] <= part["bound"] or part["one_step_parts_alike"],
+              f"grammar: an unconstrained request parts from its run alone away from a tie "
+              f"(and not as one-step blocks part): {part}")
+    # Device ms a decode step: one replay of a block's graph (every slot
+    # idle: the same layers, the mask and step computed for every row),
+    # plain against the fast and the walk DFA; the host walk's one-step
+    # block with its candidates.
+    eng._stage_block(np.zeros_like(eng.h_active))
+    step_ms = {}
+    for label, dfa in (("plain", False), ("fast", "fast"), ("walk", "walk")):
+        for variant in ("greedy", "filtered"):
+            graph = eng._graph_cache[eng._block_key(16, variant, 0, dfa)][0]
+            step_ms[f"{label}_{variant}"] = cuda_time_ms(graph.replay, reps=5, warmup=1) / 16
+    for label, dfa in (("host_walk", False), ("host_walk_beside_walk", "walk")):
+        graph = eng._graph_cache[eng._block_key(1, "grammar", 0, dfa)][0]
+        step_ms[label] = cuda_time_ms(graph.replay, reps=20, warmup=2)
+    graph = eng._graph_cache[eng._block_key(1, "filtered", 0)][0]
+    step_ms["plain_filtered_one_step"] = cuda_time_ms(graph.replay, reps=20, warmup=2)
+    eng.stop()
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["http"] = _grammar_http()
+    summary = dict(
+        tables=out["tables"], ops_bits=bits, warmup_s=out["warmup_s"],
+        graphs_after_warmup=out["graphs_after_warmup"], buffer_dims=out["buffer_dims"],
+        device_ms_per_step=step_ms,
+        decode_tok_s={k: r["decode_tok_s"] for k, r in rounds.items()},
+        decode_ms_per_step={k: r["decode_ms_per_step"] for k, r in rounds.items()},
+        wall_s={k: r["wall_s"] for k, r in rounds.items()},
+        metrics={k: r["metrics"] for k, r in rounds.items()},
+        held={k: (r["held_blocks"], r["held_slot_states"]) for k, r in rounds.items()},
+        finish={k: r["finish"] for k, r in rounds.items()},
+        texts={k: [t[:80] for t, s in zip(r["texts"], r["finish"])][:4]
+               for k, r in rounds.items() if k in ("A", "B", "C")},
+        unconstrained_parts=parts,
+        http=out["http"]["replies"])
+    log("[grammar llama-3.2-1b, 16 layers] " + json.dumps(summary))
+    out["summary"] = summary
+    out["runs"] = {f"grammar_{k}": {"launches": r["launches"]} for k, r in rounds.items()}
+    out["runs"]["grammar_http"] = {"launches": out["http"]["launches"]}
+    return out
+
+
 def _compact(row: dict, keys) -> dict:
     return {k: row[k] for k in keys}
 
@@ -2974,6 +3397,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     long_context = timed("long_context", phase_long_context)
     prefix = timed("prefix_swap", phase_prefix_swap, model["small"], model["p_small"])
+    grammar = timed("grammar", phase_grammar)
     qmodel = timed("quant_model", phase_quant_model, gen)
     qruns = timed("quant_engines", phase_quant_engines, qmodel, model["small"],
                   model["p_small"], model["p_small_cpu"])
@@ -3003,7 +3427,8 @@ def main() -> None:
             "prefix_swap_recompute": prefix["swap_runs"]["recompute"],
             "prefix_swap_ample": prefix["swap_runs"]["ample"],
             "prefix_8b_hit": {"launches": prefix_8b["launches"]["hit"]},
-            "prefix_8b_miss": {"launches": prefix_8b["launches"]["miss"]}}
+            "prefix_8b_miss": {"launches": prefix_8b["launches"]["miss"]},
+            **grammar["runs"]}
     by_path = {k: {path: out["launches"][k] for path, out in runs.items()}
                for k in ("flash_prefill", "paged_attention", "quant_matmul", "quant_matmul_moe",
                          "quant_unembed", "lora_bgmv")}
@@ -3080,6 +3505,9 @@ def main() -> None:
         # Prefix hits walk shared pages from the match, swaps restore pages.
         "prefix_swap": {"chat": prefix["chat"], "swap": prefix["swap"], "long": prefix["long"],
                         "tiny": prefix["tiny"], "llama_3_8b_int4_fp8": prefix_8b},
+        # Constrained admissions (B1, or B2 chunks) and DFA / host-walk decode
+        # blocks on the paged pool.
+        "grammar": grammar["summary"],
         "shapes": paged_rows,
     }
     # The main shape of B3: llama-3-8b's w_gate at a decode block of 8 slots,

@@ -64,6 +64,22 @@ number of KV-cache slots by one loop thread ("engine-loop"):
   product (the ragged LoRA kernel on the card for decode rows, id 0 = the
   null adapter for adapter-less rows). Adapter requests admit alone and
   single-shot; a pinned device row is never evicted.
+- Grammar-constrained decoding (`GenRequest.grammar`: a JSON-schema
+  GrammarConstraint or a GbnfConstraint, functions/): a schema that
+  compiles to a token-level DFA (functions/dfa.py) runs on the device. Its
+  tables sit in persistent device buffers, the first token is masked to
+  the start state's legal set, and every decode block masks each
+  constrained slot's logits to its state's row and advances the state
+  after sampling (ops/grammar.py), inside the block's graph and at full
+  depth: "fast" mode gathers an [S, V] next-state table (automata of at
+  most 256 states), "walk" mode walks the token's char classes. Other
+  slots ride the FREE state unmasked. The rest (a schema still compiling
+  on its daemon thread, a second schema while the first has live slots,
+  a recursive grammar, a resumed request) take the host candidate walk:
+  one-step blocks that also return each slot's top 64 ids, from which the
+  host picks the best legal token; a pick other than the sampled token
+  replaces the slot's next input (d_tokens). Grammar requests admit
+  alone; preemption takes a grammar slot last, and always recomputes it.
 - Streaming is UTF-8-safe incremental detokenization with stop-sequence
   hold-back; every generated token posts exactly one event, and every
   request ends with exactly one terminal event (done or error) on every
@@ -79,11 +95,12 @@ are not reproduced.
 
 Not ported yet (ROADMAP Queue A): CUDA graphs of admission and prefill
 chunks and pipelined dispatch, chunked prefill over a dense cache,
-grammar, logprobs, speculative decoding, fork / n>1, tp and
-sequence-parallel prefill, deadlines, and the export and import of
-prefix spans between replicas (the cluster). The reference's
-prefix_admit_async_compile has no counterpart: a cached admission runs
-eagerly and compiles nothing.
+logprobs, speculative decoding, fork / n>1, tp and sequence-parallel
+prefill, deadlines, and the export and import of prefix spans between
+replicas (the cluster, with its mid-stream grammar failover). The
+reference's prefix_admit_async_compile has no counterpart: a cached
+admission runs eagerly and compiles nothing; nor has its
+LOCALAI_GRAMMAR_DFA switch: the port reads no environment variable.
 """
 
 from __future__ import annotations
@@ -106,6 +123,11 @@ from localai_tpu_torch.engine.weights import load_lora_factors, lora_target_dims
 from localai_tpu_torch.models import llama
 from localai_tpu_torch.models.config import ArchConfig
 from localai_tpu_torch.models.quant import is_prequantized, quantize_params
+from localai_tpu_torch.functions import dfa as dfa_mod
+from localai_tpu_torch.functions.dfa import MAX_TOK_LEN
+from localai_tpu_torch.functions.gbnf import GbnfConstraint
+from localai_tpu_torch.functions.jsonschema import GrammarConstraint
+from localai_tpu_torch.ops import grammar as _gr
 from localai_tpu_torch.ops import ptable as _pt
 from localai_tpu_torch.ops.sampling import (
     NEG_INF,
@@ -282,6 +304,12 @@ class GenRequest:
     # Name of a registered runtime LoRA adapter (Engine.register_adapter)
     # applied unmerged to this request; None = the base model.
     adapter: Optional[str] = None
+    # Grammar-constrained decoding (functions.jsonschema.GrammarConstraint
+    # or functions.gbnf.GbnfConstraint): every emitted token keeps the text
+    # a legal prefix, and EOS is legal only once the grammar is complete.
+    # The object is this request's own machine (the host walk advances it).
+    # Penalty counts track the sampled, not an overridden, token.
+    grammar: Optional[Any] = None
     # Set by the engine on a request it requeued after preempting it: what
     # the re-admitted slot restores (generated tokens, streamed text, the
     # sampling seed). Callers leave it None.
@@ -347,12 +375,20 @@ class _Slot:
     t_submit: float = 0.0
     t_admit: float = 0.0
     t_first: float = 0.0
+    # The grammar runs on the device DFA in this mode ("fast" | "walk"), or
+    # False: no grammar, or the host candidate walk.
+    dfa: Any = False
 
 
 class Engine:
     """Persistent multi-slot generation engine for one loaded model."""
 
     _KV_WIN_MIN = 256  # smallest read-side KV window (doubles up to max_seq)
+    GRAMMAR_TOPK = 64  # candidates a host-walk step returns per slot
+    # Device DFA buffers grow through these buckets (states, char classes),
+    # so one captured graph serves every table set that fits.
+    _DFA_STATE_BUCKETS = (64, 256, 1024, 3073)
+    _DFA_CLASS_BUCKETS = (128, 256)
 
     def __init__(
         self,
@@ -427,6 +463,26 @@ class Engine:
         # the seed and the drawn token's position) and its host mirror.
         self.d_seed = torch.arange(B, dtype=torch.int64, device=dev) + ecfg.base_seed
         self.h_seed = np.arange(B, dtype=np.int64) + ecfg.base_seed
+        # Grammar: each slot's DFA state (row 0 = FREE) and whether it is
+        # DFA-constrained (h_gmask, staged with every block). The active
+        # table set (_dfa: key, mode, host tables) lives in the grow-only
+        # device buffers _g_mask [S, ceil(V/8)] u8, _g_trans [S, C] i16,
+        # _g_next [S_fast, V] i16 and _g_cls [V, MAX_TOK_LEN] i16, whose
+        # sizes _g_dims (S, C, S_fast) are part of a DFA block's graph key.
+        self.d_gstate = torch.zeros((B,), dtype=torch.int32, device=dev)
+        self.h_gmask = np.zeros((B,), np.float32)
+        self._dfa: Optional[dict] = None
+        self._dfa_building: set = set()  # schema keys compiling off-thread
+        self._g_dims = (0, 0, 0)
+        self._g_mask = self._g_trans = self._g_next = self._g_cls = None
+        # Buffer sizes and modes of the prewarmed schemas: warmup(grammar=
+        # True) grows the buffers to them and captures those DFA blocks.
+        self._dfa_want = (0, 0, 0)
+        self._dfa_warm_modes: set = set()
+        self._tok_strs: Optional[list[str]] = None
+        self._tok_fp: Optional[str] = None
+        self._fc_buckets: Optional[dict] = None
+        self.m_dfa_tokens = 0
         # Host state (loop thread only).
         self.slots: list[Optional[_Slot]] = [None] * B
         self.h_active = np.zeros((B,), bool)
@@ -521,14 +577,16 @@ class Engine:
         self.h_adapter = np.zeros((B,), np.int32)
         # The decode block's operands and result live in fixed device
         # buffers, so a captured graph of the block body replays on them:
-        # the control pack [8, B] (the active row, then _SAMPLING_FIELDS),
-        # the page table [B, MP] (hierarchical: the directories [B, ML1] and
-        # the table-page pool [NTP + 1, SPAN]), the adapter rows [B] and the
-        # sampled ids [n, B]. Each block copies its host rows in from pinned
-        # staging tensors (loop thread only).
+        # the control pack [9, B] (the active row, _SAMPLING_FIELDS, the
+        # grammar-DFA row), the page table [B, MP] (hierarchical: the
+        # directories [B, ML1] and the table-page pool [NTP + 1, SPAN]), the
+        # adapter rows [B] and the sampled ids [n, B], followed (a host-walk
+        # block) by each slot's top GRAMMAR_TOPK ids [K, B] from row _tk_row.
+        # Each block copies its host rows in from pinned staging tensors
+        # (loop thread only).
         pin = dev.type == "cuda"
         MP = self.h_ptable.shape[1]
-        self._h_pack = torch.zeros((1 + len(_SAMPLING_FIELDS), B), dtype=torch.float32,
+        self._h_pack = torch.zeros((2 + len(_SAMPLING_FIELDS), B), dtype=torch.float32,
                                    pin_memory=pin)
         self._h_ptable = torch.zeros((B, MP), dtype=torch.int32, pin_memory=pin)
         self._h_adapter = torch.zeros((B,), dtype=torch.int32, pin_memory=pin)
@@ -538,7 +596,9 @@ class Engine:
         self._b_l1 = torch.zeros(self.h_l1.shape, dtype=torch.int32, device=dev)
         self._h_l0 = self._b_l0 = None
         self._b_adapter = torch.zeros((B,), dtype=torch.int32, device=dev)
-        self._b_out = torch.zeros((max(ecfg.block_sizes), B), dtype=torch.int64, device=dev)
+        self._tk_row = max(ecfg.block_sizes)
+        self._b_out = torch.zeros((self._tk_row + min(self.GRAMMAR_TOPK, V), B),
+                                  dtype=torch.int64, device=dev)
         # CUDA graphs of the block body (_block_key -> (graph, launch counts
         # of one replay, the kernel workspaces it captured)), all in one
         # memory pool while any of them lives: blocks replay one at a time
@@ -663,6 +723,10 @@ class Engine:
         for req, handle in pending:
             self._resume_discard(req)
             handle._q.put(TokenEvent(kind="done", finish_reason="stop"))
+        if self._tok_fp is not None:
+            # Tables prewarm pinned against this tokenizer can never hit
+            # again once the model is gone.
+            dfa_mod.unpin(self._tok_fp)
 
     def clear_prefix_cache(self) -> None:
         """Drop every prefix entry of both tiers, returning their pages and
@@ -703,6 +767,8 @@ class Engine:
             if not known:
                 raise AdapterError(f"unknown adapter {request.adapter!r} — "
                                    "register_adapter() first")
+        if request.grammar is not None:
+            self._token_strings()  # built here, not on the engine loop
         handle = RequestHandle()
         handle.t_submit = time.monotonic()
         # The dead check and the append share _pending_lock with the loop's
@@ -772,6 +838,8 @@ class Engine:
             "admit_wait_ms": float(self._admit_wait_ewma * 1000.0),
             "loop_dead": 1.0 if self._loop_dead is not None else 0.0,
         }
+        if self.m_dfa_tokens:
+            out["grammar_dfa_tokens"] = float(self.m_dfa_tokens)
         with self._adapter_lock:
             n_adapters = len(self._adapter_registry)
         if n_adapters or self._lora_tree is not None:
@@ -931,8 +999,9 @@ class Engine:
                         if not group:
                             hit_item = (self._pending.popleft(), hit)
                         break
-                    if request.adapter is not None and group:
-                        break  # adapter requests admit alone: dispatch the group first
+                    alone = request.adapter is not None or request.grammar is not None
+                    if alone and group:
+                        break  # adapter and grammar requests admit alone: the group first
                     if self._paged:
                         need = self._pages_needed(request)
                         if pages_planned + need > len(self._free_pages):
@@ -947,9 +1016,10 @@ class Engine:
                         break  # different bucket — next round
                     bucket = b
                     group.append(self._pending.popleft())
-                    if request.adapter is not None:
-                        # Alone, so a fetch / promote failure fails exactly
-                        # one tenant's request.
+                    if alone:
+                        # An adapter request alone, so a fetch / promote
+                        # failure fails exactly one tenant's request; a
+                        # grammar one, so its first token gets its mask.
                         break
             if swap_item is not None:
                 request, handle = swap_item
@@ -1015,12 +1085,18 @@ class Engine:
                 seeds[j] = int.from_bytes(os.urandom(4), "little") & 0x7FFFFFFF
         return samp, bias_rows, seeds
 
-    def _install_first(self, logits, prompt, lens, samp, bias_rows, seeds, slot_ids):
+    def _install_first(self, logits, prompt, lens, samp, bias_rows, seeds, slot_ids,
+                       route=None):
         """Sample each admitted prompt's first token (its noise keyed by the
         token's position, lens) and install the slots' device state:
         penalty counts (prompt + first token), bias row, the token, its
         position and the seed. prompt [m, S] right-padded to lens [m].
-        Returns the first tokens [m] on the device."""
+        `route` is the grammar's (_grammar_route): a DFA mode masks the
+        draw to the start state's legal set (the stored bias row stays
+        unmasked) and sets each slot's DFA state to the state after its
+        token; "host" also returns the top GRAMMAR_TOPK ids of logits +
+        bias [m, K] for the host walk. Returns (first tokens [m], those ids
+        or None), on the device."""
         m, V = prompt.shape[0], self.cfg.vocab_size
         dev = self.device
         valid = (torch.arange(prompt.shape[1], device=dev)[None, :] < lens[:, None]).to(torch.int32)
@@ -1034,7 +1110,17 @@ class Engine:
             bias_rows[:, tok_v:] = NEG_INF
         sp = _sampling_params(torch.from_numpy(samp).to(dev))
         d_seeds = torch.from_numpy(seeds).to(dev)
-        toks = sample(logits, d_seeds, lens, sp, rows, bias_rows)
+        dfa = route if route in ("fast", "walk") else False
+        draw_rows = bias_rows
+        if dfa:
+            host = self._dfa["host"]
+            legal = np.unpackbits(host.mask_bits[host.init_state], bitorder="little")[:V]
+            gmask0 = np.where(legal.astype(bool), 0.0, NEG_INF).astype(np.float32)
+            draw_rows = bias_rows + torch.from_numpy(gmask0).to(dev)[None, :]
+        toks = sample(logits, d_seeds, lens, sp, rows, draw_rows)
+        tk = None
+        if route == "host":
+            tk = torch.topk(logits.float() + bias_rows, min(self.GRAMMAR_TOPK, V), dim=-1).indices
         rows[torch.arange(m, device=dev), toks] += 1
         sl = torch.as_tensor(slot_ids, dtype=torch.int64, device=dev)
         self.counts[sl] = rows
@@ -1042,22 +1128,42 @@ class Engine:
         self.d_tokens[sl] = toks
         self.d_positions[sl] = lens
         self.d_seed[sl] = d_seeds
-        return toks
+        if dfa:
+            init = torch.full((m,), self._dfa["host"].init_state, dtype=torch.int32, device=dev)
+            self.d_gstate[sl] = _gr.dfa_advance(dfa, self._dfa_table(dfa), self._g_cls, init,
+                                                toks)
+        return toks, tk
+
+    @staticmethod
+    def _first_host(toks: torch.Tensor, tk: Optional[torch.Tensor]):
+        """The admission's one device-to-host copy: the first tokens [m] and
+        the host walk's candidates [m, K] (None without them)."""
+        if tk is None:
+            return toks.tolist(), None
+        both = torch.cat([toks[:, None], tk], dim=1).cpu().numpy()
+        return both[:, 0].tolist(), both[:, 1:]
 
     def _claim_slot(self, s: int, request: GenRequest, handle: RequestHandle,
-                    seed: int, t_admit: float) -> None:
+                    seed: int, t_admit: float, route=None) -> None:
         """Host state of a freshly admitted slot (after its admission ran)."""
         for k in _SAMPLING_FIELDS:
             self.h_sampling[k][s] = getattr(request, k)
         self.h_seed[s] = seed
         n = len(request.prompt_ids)
+        dfa = route if route in ("fast", "walk") else False
         self.slots[s] = _Slot(request=request, handle=handle, prompt_len=n, scheduled=1,
-                              sched_rows=n, t_submit=handle.t_submit, t_admit=t_admit)
+                              sched_rows=n, t_submit=handle.t_submit, t_admit=t_admit, dfa=dfa)
         self._apply_resume(s)
         self.h_active[s] = True
+        self.h_gmask[s] = 1.0 if dfa else 0.0
 
-    def _post_first(self, s: int, tok: int) -> None:
+    def _post_first(self, s: int, tok: int, cands=None) -> None:
+        """Post an admitted slot's first token; a host-walk slot first picks
+        its grammar's token from the sampled one and `cands`."""
         slot = self.slots[s]
+        tok = self._grammar_pick(s, tok, cands, admission=True)
+        if tok is None:
+            return
         if not slot.t_first:  # a resumed request keeps its first-token time
             slot.t_first = time.monotonic()
         self.m_prompt_tokens += slot.prompt_len
@@ -1104,6 +1210,8 @@ class Engine:
                     raise RuntimeError("KV page pool exhausted at admission")
             table_rows = self._device_table(self.h_l1[slot_ids] if self._hier
                                             else self.h_ptable[slot_ids])
+        # A grammar request admits alone (_admit_pending).
+        route = self._grammar_route(group[0][0]) if m == 1 else None
         d_prompt, d_lens = torch.from_numpy(prompt).to(dev), torch.from_numpy(lens).to(dev)
         # Once any adapter is device-resident every admission carries the
         # stacks; adapter-less rows ride id 0, the exact-zero null adapter.
@@ -1119,9 +1227,9 @@ class Engine:
                                                 vs, j, kv_scale=self._kv_scales)
                 else:
                     llama.write_prefill_to_cache(self.cache, ks[:, j:j + 1], vs[:, j:j + 1], s)
-            toks = self._install_first(logits, d_prompt, d_lens, samp, bias_rows, seeds,
-                                       slot_ids)
-            toks_host = toks.tolist()  # the admission's one device-to-host copy
+            toks, tk = self._install_first(logits, d_prompt, d_lens, samp, bias_rows, seeds,
+                                           slot_ids, route)
+            toks_host, cands = self._first_host(toks, tk)
         except Exception:
             if self._paged:
                 for s in slot_ids:
@@ -1131,14 +1239,14 @@ class Engine:
         # Claim the slots only after a successful admission, so a failed
         # one leaves no slot state behind.
         for j, ((r, handle), s) in enumerate(zip(group, slot_ids)):
-            self._claim_slot(s, r, handle, int(seeds[j]), t0)
+            self._claim_slot(s, r, handle, int(seeds[j]), t0, route)
             # The pin passes to the slot; _release drops it from here on.
             self.h_adapter[s], adapter_rows[j] = adapter_rows[j], 0
         for (r, _h), s in zip(group, slot_ids):
             # Before the first token posts: it may finish and free the slot.
             self._admission_save(s, r)
         for j, s in enumerate(slot_ids):
-            self._post_first(s, int(toks_host[j]))
+            self._post_first(s, int(toks_host[j]), None if cands is None else cands[j])
 
     # ------------------------------------------------------------------ #
     # Decode blocks
@@ -1171,7 +1279,12 @@ class Engine:
         control rows, run the body (a graph replay on the card), one host
         copy, then stream. Returns False, having dispatched nothing, when
         the page pool cannot cover the block's growth."""
-        n = self._pick_block_size()
+        # A live host-walk slot makes every block one step, "grammar": the
+        # filtered sampler plus each slot's candidates, for the host to pick
+        # from before the next step. DFA slots need nothing of the host.
+        grammar = self._legacy_grammar_active()
+        dfa = self._dfa["mode"] if self._dfa_grammar_active() else False
+        n = 1 if grammar else self._pick_block_size()
         if not self._grow_for_decode(n):
             return False
         t0 = time.monotonic()
@@ -1182,8 +1295,12 @@ class Engine:
         needs_filter = bool(np.any(sampled & (
             (hs["top_k"][idx] > 0) | (hs["top_p"][idx] < 1) | (hs["min_p"][idx] > 0))))
         variant = "filtered" if needs_filter else ("simple" if sampled.any() else "greedy")
+        if grammar:
+            variant = "grammar"
         win = 0
-        if not self._paged:
+        if not self._paged and (grammar or dfa):
+            win = self.ecfg.max_seq  # constrained blocks read the whole cache
+        elif not self._paged:
             # Read-side KV window: the smallest power of two (>= 256)
             # covering every active slot's pre-block rows; the cache holds
             # nothing the block reads past it, so attention streams less.
@@ -1194,10 +1311,17 @@ class Engine:
                 win *= 2
             win = min(win, S)
         self._stage_block(act)
-        self._decode_block(n, variant, win)
-        toks = self._b_out[:n].cpu().numpy()  # the block's one device-to-host copy
+        self._decode_block(n, variant, win, dfa)
+        cands = None
+        if grammar:  # the block's one device-to-host copy: ids and candidates
+            out = self._b_out.cpu().numpy()
+            toks, cands = out[:n], out[self._tk_row:].T
+        else:
+            toks = self._b_out[:n].cpu().numpy()  # the block's one device-to-host copy
         self.m_blocks += 1
         self.m_decode_steps += n
+        if dfa:
+            self.m_dfa_tokens += n * int((self.h_gmask * act).sum())
         for i in idx:
             self.slots[i].scheduled += n
             self.slots[i].sched_rows += n
@@ -1206,8 +1330,12 @@ class Engine:
             for i in idx:
                 if self.slots[i] is None:
                     continue  # finished earlier in this block
+                tok = self._grammar_pick(int(i), int(toks[step, i]),
+                                         None if cands is None else cands[i])
+                if tok is None:
+                    continue
                 consumed += 1
-                self._post_token(int(i), int(toks[step, i]))
+                self._post_token(int(i), tok)
         self._decode_tokens += consumed
         self._decode_time += time.monotonic() - t0
         return True
@@ -1221,6 +1349,7 @@ class Engine:
         pack[0] = act
         for fi, k in enumerate(_SAMPLING_FIELDS):
             pack[fi + 1] = self.h_sampling[k]
+        pack[1 + len(_SAMPLING_FIELDS)] = self.h_gmask
         self._b_pack.copy_(self._h_pack, non_blocking=True)
         if self._hier:
             self._l0_buffers()
@@ -1248,7 +1377,7 @@ class Engine:
         self._b_l0 = torch.full(self.h_l0.shape, self._scratch_page, dtype=torch.int32,
                                 device=self.device)
         self._graph_cache = {k: v for k, v in self._graph_cache.items()
-                             if k[4:] == self._table_key()}
+                             if tuple(e for e in k[4:] if e[0] == "hier") == self._table_key()}
 
     def _table_key(self) -> tuple:
         """The part of a block's key that names a hierarchical table's
@@ -1264,34 +1393,36 @@ class Engine:
             return (rows, torch.from_numpy(self.h_l0).to(self.device))
         return rows
 
-    def _block_key(self, n: int, variant: str, win: int) -> tuple:
+    def _block_key(self, n: int, variant: str, win: int, dfa=False) -> tuple:
         """What fixes a block's graph (the reference's block-cache key):
         the sampler variant, n, the dense read window (0 on a paged pool),
-        once adapters are resident the stacks' (keys, rows, rank), and for
-        a hierarchical table its layout."""
+        once adapters are resident the stacks' (keys, rows, rank), for a
+        hierarchical table its layout, and with DFA slots live the mode and
+        the sizes of the table buffers (_g_dims)."""
         lora = None
         if self._lora_tree is not None:
             rows = next(iter(self._lora_tree.values()))["a"].shape[1]
             lora = (self._lora_keys, rows, self._lora_rank)
-        return (variant, n, win, lora) + self._table_key()
+        return ((variant, n, win, lora) + self._table_key()
+                + ((("dfa", dfa) + self._g_dims,) if dfa else ()))
 
-    def _decode_block(self, n: int, variant: str, win: int) -> None:
+    def _decode_block(self, n: int, variant: str, win: int, dfa=False) -> None:
         """Run the block body on the staged buffers: eagerly on the CPU; on
         the card as the CUDA graph of its shape, captured at the shape's
         first block and replayed from then on. A failed capture or replay
         raises (the loop fails the block's requests)."""
         if self.device.type != "cuda":
-            self._block_body(n, variant, win)
+            self._block_body(n, variant, win, dfa)
             return
-        key = self._block_key(n, variant, win)
+        key = self._block_key(n, variant, win, dfa)
         entry = self._graph_cache.get(key)
         if entry is None:
-            self._capture_block(key, n, variant, win)
+            self._capture_block(key, n, variant, win, dfa)
         else:
             kernels.replay_counted(entry[0], entry[1])
             self.m_graph_replays += 1
 
-    def _capture_block(self, key: tuple, n: int, variant: str, win: int) -> None:
+    def _capture_block(self, key: tuple, n: int, variant: str, win: int, dfa=False) -> None:
         """A shape's first block on the card. The body runs eagerly on the
         capture stream first: that run is the real block, and it does what
         must not happen inside a capture (loading the kernel libraries,
@@ -1315,12 +1446,12 @@ class Engine:
         def capture() -> None:
             graph.capture_begin(pool=self._graph_pool, capture_error_mode="thread_local")
             try:
-                self._block_body(n, variant, win)
+                self._block_body(n, variant, win, dfa)
             finally:
                 graph.capture_end()
 
         with torch.cuda.stream(stream):
-            self._block_body(n, variant, win)
+            self._block_body(n, variant, win, dfa)
             torch.cuda.synchronize(self.device)  # as torch.cuda.graph does before a capture
             deltas = kernels.captured_counts(capture)
         current.wait_stream(stream)
@@ -1328,7 +1459,7 @@ class Engine:
         self.m_graph_captures += 1
         self.m_graph_capture_s += time.monotonic() - t0
 
-    def _block_body(self, n: int, variant: str, win: int) -> None:
+    def _block_body(self, n: int, variant: str, win: int, dfa=False) -> None:
         """n decode steps over every slot, on persistent device buffers
         only: it reads the staged controls (_b_pack, the table, _b_adapter),
         the tokens, positions and seeds, counts, bias, the cache and the
@@ -1336,12 +1467,21 @@ class Engine:
         tokens and positions (in place) and the ids (_b_out[:n]). Idle
         slots are masked; on a paged pool they walk no pages (limit 0) and
         write into SCRATCH. `win` < max_seq reads a dense cache through
-        that window. No host sync."""
-        cfg, B, S = self.cfg, self.ecfg.max_slots, self.ecfg.max_seq
+        that window. With `dfa` (the active table set's mode) slots whose
+        grammar row of the pack is set sample from their DFA state's legal
+        tokens and advance d_gstate; the others ride the FREE state. The
+        "grammar" variant (n = 1) samples as "filtered" and also writes
+        each slot's top GRAMMAR_TOPK ids of logits + bias to _b_out from
+        row _tk_row. No host sync."""
+        cfg, B, S, V = self.cfg, self.ecfg.max_slots, self.ecfg.max_seq, self.cfg.vocab_size
         dev = self.device
+        nf = len(_SAMPLING_FIELDS)
         active = self._b_pack[0] > 0
         act_i32 = active.to(torch.int32)
-        sp = _sampling_params(self._b_pack[1:])
+        sp = _sampling_params(self._b_pack[1:1 + nf])
+        if dfa:
+            gs = torch.where(self._b_pack[1 + nf] > 0, self.d_gstate, 0)
+            gtable = self._dfa_table(dfa)
         ptable = None
         read_cache = self.cache
         if self._paged:
@@ -1360,17 +1500,26 @@ class Engine:
             logits, local_k, local_v = llama.decode_step_windowed(
                 cfg, self.params, tokens, positions, read_cache, local_k, local_v, step,
                 ptable=ptable, kv_scale=self._kv_scales, lora=lora)
+            slogits = logits
+            if dfa:
+                slogits = torch.where(_gr.dfa_allowed(self._g_mask, gs, V), logits, NEG_INF)
             # The drawn token sits at positions + 1: its noise is keyed there.
             if variant == "greedy":
-                nxt = sample_greedy(logits, sp, self.counts, self.bias)
+                nxt = sample_greedy(slogits, sp, self.counts, self.bias)
             elif variant == "simple":
-                nxt = sample_simple(logits, self.d_seed, positions + 1, sp, self.counts,
+                nxt = sample_simple(slogits, self.d_seed, positions + 1, sp, self.counts,
                                     self.bias)
             else:
-                nxt = sample(logits, self.d_seed, positions + 1, sp, self.counts, self.bias)
+                nxt = sample(slogits, self.d_seed, positions + 1, sp, self.counts, self.bias)
             update_counts(self.counts, nxt, act_i32)
+            if dfa:
+                gs = torch.where(active, _gr.dfa_advance(dfa, gtable, self._g_cls, gs, nxt), gs)
             nxt = torch.where(active, nxt, 0)
             self._b_out[step] = nxt
+            if variant == "grammar":
+                K = self._b_out.shape[0] - self._tk_row
+                self._b_out[self._tk_row:] = torch.topk(logits.float() + self.bias, K,
+                                                        dim=-1).indices.T
             # Clamp so idle / overshooting slots stay inside their own rows.
             positions = torch.clamp(positions + 1, max=S - 1)
             tokens = nxt
@@ -1381,12 +1530,14 @@ class Engine:
             llama.write_block_to_cache(self.cache, local_k, local_v, start_pos)
         self.d_tokens.copy_(tokens)
         self.d_positions.copy_(positions)
+        if dfa:
+            self.d_gstate.copy_(gs)
 
     # ------------------------------------------------------------------ #
     # Warmup (the reference's Engine.warmup)
     # ------------------------------------------------------------------ #
 
-    def warmup(self, prompt_len: int = 8) -> None:
+    def warmup(self, prompt_len: int = 8, grammar: bool = False) -> None:
         """Run every serving shape once before traffic arrives: one
         admission of each power-of-two group size up to max_slots at
         `prompt_len`'s bucket, then every decode-block shape the scheduler
@@ -1395,14 +1546,22 @@ class Engine:
         every block graph is captured here and serving only replays. Then
         one 2-token generate through the loop.
 
+        grammar=True then also runs the one-step host-walk ("grammar")
+        block and a {"type": "boolean"} request through the host walk (or
+        its DFA, once built), and, for each mode of the schemas
+        prewarm_grammar compiled, grows the DFA table buffers to them and
+        runs every DFA block shape, so serving those schemas captures
+        nothing.
+
         Runs against the live state with every slot idle (call it before
         traffic): throwaway writes land in idle rows or SCRATCH, and the
-        per-slot device rows (counts, bias, tokens, positions, seeds) are
-        put back as they were. The reference's grammar and logprobs
-        programs wait for their ports."""
+        per-slot device rows (counts, bias, tokens, positions, seeds, DFA
+        states) are put back as they were. The reference's logprobs
+        programs wait for their port."""
         if any(s is not None for s in self.slots) or self._pending:
             raise RuntimeError("warmup() needs an idle engine: call it before traffic")
-        state = (self.counts, self.bias, self.d_tokens, self.d_positions, self.d_seed)
+        state = (self.counts, self.bias, self.d_tokens, self.d_positions, self.d_seed,
+                 self.d_gstate)
         saved = [t.clone() for t in state]
         bucket = self._bucket_for(prompt_len)
         m = 1
@@ -1423,6 +1582,23 @@ class Engine:
         _, ev = self.generate([1] * prompt_len, max_new_tokens=2)
         if ev.kind != "done":
             raise RuntimeError(f"warmup generate ended with {ev.kind}: {ev.error}")
+        if grammar:
+            self._token_strings()  # built here, not on the engine loop
+            full = 0 if self._paged else S  # constrained blocks read the whole cache
+            self._warm_block(1, "grammar", full)
+            # Before the DFA blocks: a cached boolean table set may grow the
+            # buffers, and a growth drops the graphs captured on them.
+            _, ev = self.generate([1] * prompt_len, max_new_tokens=4,
+                                  grammar=GrammarConstraint({"type": "boolean"}))
+            if ev.kind != "done":
+                raise RuntimeError(f"warmup grammar generate ended with {ev.kind}: {ev.error}")
+            if self._dfa_warm_modes:
+                self._dfa_buffers(*self._dfa_want)
+            for mode in sorted(self._dfa_warm_modes):
+                for n in self.ecfg.block_sizes:
+                    for variant in variants:
+                        self._warm_block(n, variant, full, mode)
+                self._warm_block(1, "grammar", full, mode)
         for t, old in zip(state, saved):
             t.copy_(old)
 
@@ -1447,16 +1623,16 @@ class Engine:
         samp = np.zeros((len(_SAMPLING_FIELDS), m), np.float32)
         samp[_SAMPLING_FIELDS.index("top_p")] = 1.0
         samp[_SAMPLING_FIELDS.index("repeat_penalty")] = 1.0
-        toks = self._install_first(logits, prompt, lens, samp,
-                                   np.zeros((m, self.cfg.vocab_size), np.float32),
-                                   np.zeros((m,), np.int64), list(range(m)))
+        toks, _ = self._install_first(logits, prompt, lens, samp,
+                                      np.zeros((m, self.cfg.vocab_size), np.float32),
+                                      np.zeros((m,), np.int64), list(range(m)))
         toks.cpu()
 
-    def _warm_block(self, n: int, variant: str, win: int) -> None:
+    def _warm_block(self, n: int, variant: str, win: int, dfa=False) -> None:
         """One decode block of this shape with every slot idle."""
         self._stage_block(np.zeros_like(self.h_active))
-        self._decode_block(n, variant, win)
-        self._b_out[:n].cpu()
+        self._decode_block(n, variant, win, dfa)
+        self._b_out.cpu()
 
     # ------------------------------------------------------------------ #
     # Paged KV pool: page allocator (loop thread only)
@@ -1961,19 +2137,20 @@ class Engine:
         logits = self._dispatch_chunk(st, len(ids) - st["offset"], with_logits=True)
         samp, bias_rows, seeds = self._request_controls([(request, handle)])
         dev = self.device
+        route = self._grammar_route(request)
         full = torch.as_tensor(np.asarray([ids], np.int64)).to(dev)
-        toks = self._install_first(logits, full, torch.tensor([len(ids)], device=dev),
-                                   samp, bias_rows, seeds, [s])
-        tok = int(toks.tolist()[0])  # the admission's one device-to-host copy
+        toks, tk = self._install_first(logits, full, torch.tensor([len(ids)], device=dev),
+                                       samp, bias_rows, seeds, [s], route)
+        toks_host, cands = self._first_host(toks, tk)
         # Publish the real table: blocks from here on read and write it.
         if self._hier:
             self.h_l1[s] = st["table_row"]
         else:
             self.h_ptable[s] = st["table_row"]
         self.m_chunked_admits += 1
-        self._claim_slot(s, request, handle, int(seeds[0]), st["t0"])
+        self._claim_slot(s, request, handle, int(seeds[0]), st["t0"], route)
         self._admission_save(s, request)
-        self._post_first(s, tok)
+        self._post_first(s, int(toks_host[0]), None if cands is None else cands[0])
 
     # ------------------------------------------------------------------ #
     # Prefix cache (loop thread only): an LRU of prefilled K/V spans keyed
@@ -2221,16 +2398,17 @@ class Engine:
         llama.write_rows_to_cache(self.cache, slot_idx, entry["k"], entry["v"], 0)
         llama.write_rows_to_cache(self.cache, slot_idx, tks, tvs, match_len)
         samp, bias_rows, seeds = self._request_controls([(request, handle)])
+        route = self._grammar_route(request)
         full = torch.as_tensor(np.asarray([ids], np.int64)).to(dev)
-        first = self._install_first(logits, full, torch.tensor([len(ids)], device=dev),
-                                    samp, bias_rows, seeds, [slot_idx])
-        tok = int(first.tolist()[0])  # the admission's one device-to-host copy
+        first, tk = self._install_first(logits, full, torch.tensor([len(ids)], device=dev),
+                                        samp, bias_rows, seeds, [slot_idx], route)
+        toks_host, cands = self._first_host(first, tk)
         self._prefix_bump(entry)
         self.m_prefix_hits += 1
         self.m_prefix_tokens += match_len
-        self._claim_slot(slot_idx, request, handle, int(seeds[0]), t0)
+        self._claim_slot(slot_idx, request, handle, int(seeds[0]), t0, route)
         self._admission_save(slot_idx, request)
-        self._post_first(slot_idx, tok)
+        self._post_first(slot_idx, int(toks_host[0]), None if cands is None else cands[0])
 
     # ------------------------------------------------------------------ #
     # Host swap tier: page images in pinned host memory. Copies go on the
@@ -2373,20 +2551,33 @@ class Engine:
         into another row). Noise is a pure function of (seed, position),
         so the seed is all the sampler state a slot needs back."""
         live = [i for i, s in enumerate(self.slots) if s is not None and self.h_active[i]]
-        if not live:
+        # A grammar slot goes last, and always recomputes: a swap could not
+        # restore its DFA state into a table set that may have changed.
+        cands = [i for i in live if self.slots[i].request.grammar is None]
+        grammar_victim = not cands
+        cands = cands or live
+        if not cands:
             return
-        victim = max(live, key=lambda i: (self.slots[i].t_submit, i))
+        victim = max(cands, key=lambda i: (self.slots[i].t_submit, i))
         slot = self.slots[victim]
         r = slot.request
         ctx_rows = slot.prompt_len + len(slot.generated)
         n_live = min(-(-ctx_rows // self.ecfg.kv_page_size), len(self._slot_pages[victim]))
         span_bytes = n_live * self._page_bytes()
         policy = self.ecfg.kv_preempt
-        if policy == "auto":
+        if grammar_victim:
+            policy = "recompute"
+        elif policy == "auto":
             policy = "swap" if span_bytes * 4 <= self.ecfg.kv_swap_bytes else "recompute"
         if policy == "swap" and (self.ecfg.kv_swap_bytes <= 0
                                  or not self._host_make_room(span_bytes)):
             policy = "recompute"
+        if grammar_victim and slot.dfa:
+            # The device DFA never advanced the host machine: replay the
+            # generated tokens, so the resume (host walk: a resume never
+            # takes the DFA) goes on from the right state.
+            for tok in slot.generated:
+                self._grammar_advance(r.grammar, int(tok))
         rec = {
             "mode": policy,
             "orig_prompt_len": slot.prompt_len,
@@ -2437,6 +2628,247 @@ class Engine:
         slot.t_submit, slot.t_admit, slot.t_first = rec["t_submit"], rec["t_admit"], rec["t_first"]
 
     # ------------------------------------------------------------------ #
+    # Grammar-constrained decoding: the device DFA (functions/dfa.py tables
+    # in persistent buffers, ops/grammar.py in the block) and the host
+    # candidate walk.
+    # ------------------------------------------------------------------ #
+
+    def _token_strings(self) -> list[str]:
+        if self._tok_strs is None:
+            self._tok_strs = self.tokenizer.token_strings()
+        return self._tok_strs
+
+    def _token_str(self, tok: int) -> str:
+        strs = self._token_strings()
+        return strs[tok] if 0 <= tok < len(strs) else ""
+
+    def _tok_fingerprint(self) -> str:
+        """A stable identity of the tokenizer's string table for the table
+        cache (an id() may be reused after collection and alias two
+        tokenizers' tables)."""
+        if self._tok_fp is None:
+            import hashlib
+
+            strs = self._token_strings()
+            h = hashlib.md5()
+            h.update(str(len(strs)).encode())
+            for t in strs:
+                h.update(t.encode("utf-8", "surrogateescape"))
+                h.update(b"\x00")
+            self._tok_fp = h.hexdigest()
+        return self._tok_fp
+
+    def _legacy_grammar_active(self) -> bool:
+        """Some live slot's grammar takes the host candidate walk."""
+        return any(self.h_active[i] and s is not None and s.request.grammar is not None
+                   and not s.dfa for i, s in enumerate(self.slots))
+
+    def _dfa_grammar_active(self) -> bool:
+        return any(self.h_active[i] and s is not None and s.dfa
+                   for i, s in enumerate(self.slots))
+
+    def prewarm_grammar(self, schema: Any) -> bool:
+        """Compile a schema's tables now (pinned in the table cache), so its
+        first request already runs on the device DFA; an uncached schema
+        otherwise builds off-thread while its first request host-walks. A
+        later warmup(grammar=True) grows the device buffers to it and
+        captures its DFA blocks. Returns whether the DFA will serve it."""
+        tables = dfa_mod.tables_for(
+            schema, self._token_strings(), set(self.tokenizer.eos_ids), self.cfg.vocab_size,
+            tokenizer_id=self._tok_fingerprint(), pin=True)
+        layout = self._dfa_layout(tables) if tables is not None else None
+        if layout is None:
+            return False
+        mode, S_pad, C_pad = layout
+        self._dfa_want = (max(self._dfa_want[0], S_pad), max(self._dfa_want[1], C_pad),
+                          max(self._dfa_want[2], S_pad if mode == "fast" else 0))
+        self._dfa_warm_modes.add(mode)
+        return True
+
+    def _grammar_route(self, request: GenRequest) -> Optional[str]:
+        """How an admission serves the request's grammar: None (none), the
+        device DFA's mode, or "host" (the candidate walk). A resumed
+        request keeps the host walk: its machine carries the state a fresh
+        DFA start would lose."""
+        if request.grammar is None:
+            return None
+        if request.resume is None:
+            tables = self._dfa_for(request)
+            if tables is not None:
+                return tables["mode"]
+        return "host"
+
+    def _dfa_for(self, request: GenRequest) -> Optional[dict]:
+        """The active table set for this request's grammar, or None (host
+        walk). One set is active at a time, and it changes only while no
+        DFA slot is live (their states index it): a second concurrent
+        schema host-walks. An uncached schema builds on a daemon thread
+        while this request host-walks; the loop never compiles one."""
+        schema = getattr(request.grammar, "schema", None)
+        if (isinstance(schema, dict) and "__gbnf__" in schema
+                and not isinstance(request.grammar, GbnfConstraint)):
+            # Only a GbnfConstraint carries the marker: a user's JSON schema
+            # holding that key would desync the device and host machines.
+            return None
+        key = dfa_mod.schema_key(schema)
+        if self._dfa is not None and self._dfa["key"] == key:
+            return self._dfa
+        if self._dfa_grammar_active():
+            return None
+        tok_strs = self._token_strings()
+        if key in self._dfa_building:
+            return None
+        fp, V = self._tok_fingerprint(), self.cfg.vocab_size
+        eos = set(self.tokenizer.eos_ids)
+        if not dfa_mod.is_cached(schema, fp, V):
+            self._dfa_building.add(key)
+
+            def build() -> None:
+                try:
+                    dfa_mod.tables_for(schema, tok_strs, eos, V, tokenizer_id=fp)
+                finally:
+                    self._dfa_building.discard(key)
+                    self._wake.set()
+
+            threading.Thread(target=build, daemon=True, name="grammar-dfa-build").start()
+            return None
+        # cached_only: an entry evicted since the check host-walks this
+        # request rather than make the loop the builder.
+        tables = dfa_mod.tables_for(schema, tok_strs, eos, V, tokenizer_id=fp, cached_only=True)
+        layout = self._dfa_layout(tables) if tables is not None else None
+        if layout is None:
+            return None
+        self._dfa_install(key, tables, layout)
+        log.info("grammar DFA ready: %s mode, %d states, schema %.60s...", layout[0],
+                 tables.trans.shape[0], key)
+        return self._dfa
+
+    def _dfa_layout(self, tables) -> Optional[tuple]:
+        """(mode, states bucket, class bucket) of a table set, or None when
+        it exceeds the largest bucket."""
+        S1, C = tables.trans.shape
+        S_pad = next((b for b in self._DFA_STATE_BUCKETS if b >= S1), None)
+        C_pad = next((b for b in self._DFA_CLASS_BUCKETS if b >= C), None)
+        if S_pad is None or C_pad is None:
+            return None
+        return ("fast" if tables.next_tok is not None else "walk"), S_pad, C_pad
+
+    def _dfa_buffers(self, S: int, C: int, S_fast: int) -> None:
+        """Grow the device table buffers to at least (S, C, S_fast) rows:
+        mask and transitions of S states, C classes, a next-token table of
+        S_fast states. A growth allocates new buffers, empties them (the
+        FREE row only), drops the graphs captured on the old ones and the
+        active set (the next _dfa_for copies it in again); the new sizes
+        re-key DFA blocks. Loop thread or an idle engine only."""
+        want = (max(self._g_dims[0], S), max(self._g_dims[1], C), max(self._g_dims[2], S_fast))
+        if want == self._g_dims:
+            return
+        V, dev = self.cfg.vocab_size, self.device
+        self._g_mask = torch.zeros((want[0], -(-V // 8)), dtype=torch.uint8, device=dev)
+        self._g_mask[0] = 0xFF  # FREE: every token legal
+        self._g_trans = torch.zeros(want[:2], dtype=torch.int16, device=dev)
+        self._g_next = (torch.zeros((want[2], V), dtype=torch.int16, device=dev)
+                        if want[2] else None)
+        if self._g_cls is None:
+            self._g_cls = torch.full((V, MAX_TOK_LEN), -1, dtype=torch.int16, device=dev)
+        self._g_dims = want
+        self._dfa = None
+        self._graph_cache = {k: v for k, v in self._graph_cache.items()
+                             if all(e[0] != "dfa" for e in k[4:])}
+
+    def _dfa_install(self, key: str, tables, layout: tuple) -> None:
+        """Make a table set the active one: copy it into the device buffers
+        in place (grown first if it does not fit). Only while no DFA slot
+        is live."""
+        mode, S_pad, C_pad = layout
+        self._dfa_buffers(S_pad, C_pad, S_pad if mode == "fast" else 0)
+        S1, C = tables.trans.shape
+        self._g_mask.zero_()
+        self._g_mask[:S1] = torch.from_numpy(tables.mask_bits).to(self.device)
+        self._g_trans.zero_()
+        self._g_trans[:S1, :C] = torch.from_numpy(tables.trans).to(self.device)
+        if mode == "fast":
+            self._g_next.zero_()
+            self._g_next[:S1] = torch.from_numpy(tables.next_tok).to(self.device)
+        self._g_cls.copy_(torch.from_numpy(tables.tok_cls))
+        self._dfa = {"key": key, "mode": mode, "host": tables}
+
+    def _dfa_table(self, mode: str) -> torch.Tensor:
+        """The transition buffer a mode reads: next_tok (fast) or trans."""
+        return self._g_next if mode == "fast" else self._g_trans
+
+    def _first_char_buckets(self) -> dict[str, list[int]]:
+        """Token ids by first character (once per tokenizer): the host
+        walk's last resort scans only the buckets its machine allows."""
+        if self._fc_buckets is None:
+            buckets: dict[str, list[int]] = {}
+            eos = set(self.tokenizer.eos_ids)
+            for tok in range(self.cfg.vocab_size):
+                if tok in eos:
+                    continue
+                t = self._token_str(tok)
+                if t:
+                    buckets.setdefault(t[0], []).append(tok)
+            self._fc_buckets = buckets
+        return self._fc_buckets
+
+    def _grammar_pick(self, slot_idx: int, tok: int, cands, admission: bool = False):
+        """The token a slot emits for the sampled `tok`: itself, or for a
+        host-walk slot its grammar's choice from `cands` (then the slot's
+        next input; the penalty counts keep the sampled token). None when
+        the grammar admits no token: the request ends with an error."""
+        slot = self.slots[slot_idx]
+        if slot.request.grammar is None or slot.dfa:
+            return tok
+        chosen = self._grammar_choose(slot.request, tok, cands)
+        if chosen is None:
+            where = "this model's vocabulary" if admission else "the candidate set"
+            slot.handle._q.put(TokenEvent(kind="error",
+                                          error=f"grammar admits no token from {where}"))
+            self._release(slot_idx)
+            return None
+        if chosen != tok:
+            self.d_tokens[slot_idx] = chosen
+        return chosen
+
+    def _grammar_choose(self, request: GenRequest, sampled: int, candidates) -> Optional[int]:
+        """The best grammar-legal token: the sampled one if legal (keeps
+        temperature sampling while the model follows the grammar), else
+        the candidates in probability order, else a scan of the
+        first-character buckets the machine allows; EOS is legal only once
+        the grammar is complete. Advances the machine past the pick."""
+        g = request.grammar
+        complete = g.complete()
+        eos = self.tokenizer.eos_ids
+
+        def ok(t: int) -> bool:
+            if t in eos:
+                return complete
+            return g.allowed(self._token_str(t))
+
+        if ok(sampled):
+            self._grammar_advance(g, sampled)
+            return sampled
+        for t in np.asarray(candidates).tolist():
+            if t != sampled and ok(t):
+                self._grammar_advance(g, int(t))
+                return int(t)
+        for c, toks in self._first_char_buckets().items():
+            if not g.allowed(c):
+                continue
+            for t in toks:
+                if g.allowed(self._token_str(t)):
+                    self._grammar_advance(g, t)
+                    return t
+        if complete:
+            return next(iter(eos), None)
+        return None
+
+    def _grammar_advance(self, g, tok: int) -> None:
+        if tok not in self.tokenizer.eos_ids:
+            g.advance(self._token_str(tok))
+
+    # ------------------------------------------------------------------ #
     # Token bookkeeping / streaming
     # ------------------------------------------------------------------ #
 
@@ -2470,6 +2902,11 @@ class Engine:
             if cut is not None:
                 new = text[slot.emitted_len: cut]
                 finish = "stop"
+        if (finish is None and r.grammar is not None and not slot.dfa
+                and r.grammar.strictly_complete()):
+            # Host walk: the text can no longer be extended. A DFA slot ends
+            # by sampling EOS, the only legal token in such a state.
+            finish = "stop"
         if finish is None and (
             len(slot.generated) >= r.max_new_tokens
             or slot.prompt_len + len(slot.generated) >= self.ecfg.max_seq
@@ -2533,6 +2970,7 @@ class Engine:
         error, stop, preemption, loop death) comes through here."""
         self.slots[slot_idx] = None
         self.h_active[slot_idx] = False
+        self.h_gmask[slot_idx] = 0.0
         self._slot_release_adapter(slot_idx)
         if self._chunkings:
             self._chunkings = [st for st in self._chunkings if st["slot"] != slot_idx]

@@ -1,5 +1,5 @@
 """Compute ops: norms, rotary embeddings, attention, sampling, quantized
-matmuls, LoRA deltas.
+matmuls, LoRA deltas, the grammar automaton's mask and step.
 
 Plain PyTorch on tensors of the JAX package's layouts; the prefill flash
 attention (ops/flash.py), the paged attention partials (ops/paged_flash.py),

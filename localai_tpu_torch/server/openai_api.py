@@ -6,13 +6,22 @@ the usage in the last chunk, or whole), `/v1/models`, `/v1/models/{id}`,
 `/readyz`, `/healthz`, `/version`. The `model` field (or the query, or a
 bearer token naming a model) selects a model or a virtual model; a virtual
 model carries its tenant's adapter into every request. `n > 1` runs as
-independent clones, each its own request.
+independent clones, each its own request with its own grammar machine.
+
+Constrained decoding and tool calling, as the JAX server serves them: chat
+`tools` (or the legacy `functions`) add a tools prompt, and the reply's
+JSON or `<function=...>` calls come back as `tool_calls` (finish_reason
+"tool_calls"), whole or streamed (a stream buffers a reply whose first
+character is one of `{[<`); `tool_choice` "required" or naming a tool
+constrains the reply to a call's schema, "none" drops the tools;
+`response_format` json_object / json_schema constrains it to JSON; a GBNF
+`grammar` (chat and completions) takes precedence over both. The engine
+runs the constraint on the device DFA or the host candidate walk.
 
 A request field the port cannot honour yet gets HTTP 400 naming it, never
-silent neglect: tools / functions, grammar, a JSON response_format,
-logprobs, best_of > 1, deadline_s and image content (ROADMAP Queue A items
-3, main-path engine completeness; 6, grammar decode on the card; 7, tree
-sampling and logprobs; 13, satellite engines and models).
+silent neglect: logprobs, best_of > 1, deadline_s and image content
+(ROADMAP Queue A items 3, main-path engine completeness; 7, tree sampling
+and logprobs; 13, satellite engines and models).
 """
 
 from __future__ import annotations
@@ -21,11 +30,14 @@ import queue
 import threading
 import time
 import uuid
-from typing import Any, Iterator, Optional
+from typing import Any, Callable, Iterator, Optional
 
 from localai_tpu_torch import __version__
 from localai_tpu_torch.config import LoraConfigError, Usecase
 from localai_tpu_torch.engine.engine import AdapterError, GenRequest, QueueFullError
+from localai_tpu_torch.functions import parse_function_calls, tools_prompt_for
+from localai_tpu_torch.functions.gbnf import CompiledGrammar, GbnfConstraint, GbnfParseError
+from localai_tpu_torch.functions.jsonschema import GrammarConstraint, tool_call_schema
 from localai_tpu_torch.server.app import ApiError, Request, Response, Router, SSEStream
 from localai_tpu_torch.server.finetune import finetune, needs_finetune
 from localai_tpu_torch.server.manager import LoadedModel, ModelManager, UnsupportedBackendError
@@ -45,17 +57,8 @@ def _reject_unported(body: dict[str, Any], chat: bool) -> None:
         raise ApiError(400, f"{field!r} is not supported by this server yet "
                             f"(ROADMAP Queue A item {item})")
 
-    grammar = "6, grammar decode on the card"
     logprobs = "7, tree sampling and logprobs"
 
-    tools = body.get("tools") or body.get("functions")
-    if tools and body.get("tool_choice") != "none":
-        unported("tools" if body.get("tools") else "functions", grammar)
-    if body.get("grammar"):
-        unported("grammar", grammar)
-    rf = body.get("response_format") or {}
-    if isinstance(rf, dict) and rf.get("type") in ("json_object", "json_schema"):
-        unported("response_format", grammar)
     lp = body.get("logprobs")
     if lp not in (None, False, 0):
         unported("logprobs", logprobs)
@@ -73,6 +76,87 @@ def _reject_unported(body: dict[str, Any], chat: bool) -> None:
                     isinstance(p, dict) and p.get("type") in ("image_url", "input_image")
                     for p in content):
                 unported("image content", "13, satellite engines and models")
+
+
+def _gbnf_factory(body: dict[str, Any]) -> Optional[Callable[[], Any]]:
+    """A factory of machines for a raw `grammar` (GBNF) field, or None. A
+    malformed grammar, or one too deep to parse, is a 400."""
+    text = body.get("grammar")
+    if not (isinstance(text, str) and text.strip()):
+        return None
+    try:
+        compiled = CompiledGrammar(text)
+    except (GbnfParseError, RecursionError, MemoryError) as e:
+        raise ApiError(400, f"invalid grammar: {e}") from None
+    return lambda: GbnfConstraint(compiled)
+
+
+def _chat_tools(body: dict[str, Any]) -> tuple[list, Optional[Callable[[], Any]]]:
+    """The tools a chat request offers (legacy `functions` included; none
+    under tool_choice "none") and the factory of its grammar machines:
+    json_object / json_schema response formats, a call of the tools
+    tool_choice requires or names (an unknown name is a 400), and a GBNF
+    `grammar`, which takes precedence over both. A factory, not a machine:
+    each request (each n > 1 clone) advances its own."""
+    tools = body.get("tools") or []
+    if body.get("functions"):  # the legacy field
+        tools = [{"type": "function", "function": f} for f in body["functions"]]
+    tool_choice = body.get("tool_choice")
+    if tool_choice == "none":
+        tools = []
+    make = None
+    rf = body.get("response_format") or {}
+    if isinstance(rf, dict) and rf.get("type") == "json_object":
+        make = lambda: GrammarConstraint({"type": "object"})  # noqa: E731
+    elif isinstance(rf, dict) and rf.get("type") == "json_schema":
+        schema = (rf.get("json_schema") or {}).get("schema") or {}
+        make = lambda: GrammarConstraint(schema)  # noqa: E731
+    if tools and (tool_choice == "required" or isinstance(tool_choice, dict)):
+        selected = tools
+        if isinstance(tool_choice, dict):
+            fname = (tool_choice.get("function") or {}).get("name")
+            selected = [t for t in tools if (t.get("function") or {}).get("name") == fname]
+            if not selected:
+                raise ApiError(400, f"tool_choice names unknown function {fname!r}")
+        schema = tool_call_schema(selected)
+        make = lambda: GrammarConstraint(schema)  # noqa: E731
+    return tools, _gbnf_factory(body) or make
+
+
+class _ToolStream:
+    """One streamed choice of a chat request that offers tools: a reply
+    whose first non-blank character is one of `{[<` is buffered and parsed
+    for calls at the end (a tool_calls delta, finish_reason "tool_calls");
+    any other reply streams as it comes."""
+
+    def __init__(self, cfg) -> None:
+        self.cfg = cfg
+        self.parts: list[str] = []
+        self.emitted = 0
+        self.buffering: Optional[bool] = None
+
+    def token(self, text: str) -> list[dict]:
+        self.parts.append(text)
+        if self.buffering is None:
+            head = "".join(self.parts).lstrip()
+            if head:
+                self.buffering = head[0] in "{[<"
+        if self.buffering is False:
+            out = "".join(self.parts[self.emitted:])
+            self.emitted = len(self.parts)
+            return [{"content": out}]
+        return []
+
+    def final(self, finish: str) -> tuple[list[dict], str]:
+        text = "".join(self.parts)
+        if self.buffering:
+            calls = parse_function_calls(text, self.cfg)
+            if calls:
+                return [{"tool_calls": [{**c, "index": i} for i, c in enumerate(calls)]}], \
+                    "tool_calls"
+            return ([{"content": text}] if text else []), finish
+        tail = "".join(self.parts[self.emitted:])
+        return ([{"content": tail}] if tail else []), finish
 
 
 class OpenAIApi:
@@ -281,9 +365,11 @@ class OpenAIApi:
 
     def _stream(self, lm: LoadedModel, lease, handles: list, base: dict, first, token_chunk,
                 final_chunk, extra_usage: bool) -> SSEStream:
-        """The SSE body shared by both routes: `first` chunks, one chunk per
-        token event, then one final chunk per choice with the usage on the
-        last. A failed choice cancels its siblings and ends the stream."""
+        """The SSE body shared by both routes: `first` chunks, the chunks
+        `token_chunk(index, text)` makes of each token event (a list, maybe
+        empty), then per choice the chunks `final_chunk(index, finish)`
+        makes, the usage on the very last. A failed choice cancels its
+        siblings and ends the stream."""
         def cancel_all() -> None:
             for h in handles:
                 h.cancel()
@@ -295,7 +381,8 @@ class OpenAIApi:
                 finals: list[Any] = [None] * len(handles)
                 for idx, ev in self._merge_streams(handles):
                     if ev.kind == "token":
-                        yield {**base, "choices": [token_chunk(idx, ev.text)]}
+                        for c in token_chunk(idx, ev.text):
+                            yield {**base, "choices": [c]}
                     elif ev.kind == "error":
                         cancel_all()
                         yield {"error": {"message": ev.error, "type": "server_error"}}
@@ -307,10 +394,12 @@ class OpenAIApi:
                 for idx, final in enumerate(finals):
                     if final is None:
                         continue
-                    out = {**base, "choices": [final_chunk(idx, final.finish_reason)]}
-                    if idx == len(finals) - 1:
-                        out["usage"] = self._sum_usage(done, extra_usage)
-                    yield out
+                    chunks = final_chunk(idx, final.finish_reason)
+                    for k, c in enumerate(chunks):
+                        out = {**base, "choices": [c]}
+                        if idx == len(finals) - 1 and k == len(chunks) - 1:
+                            out["usage"] = self._sum_usage(done, extra_usage)
+                        yield out
             finally:
                 lease.release()
 
@@ -348,13 +437,24 @@ class OpenAIApi:
             lease.release()  # idempotent
             raise
 
+    def _gens(self, lm: LoadedModel, body: dict[str, Any], ids: list[int], n: int,
+              make_grammar, extra_stop=None) -> list:
+        """n clones of the request, each with its own grammar machine."""
+        def one() -> GenRequest:
+            g = self._gen_request(lm, body, ids, extra_stop=extra_stop)
+            g.grammar = make_grammar() if make_grammar else None
+            return g
+        return self._clones(one, n)
+
     def _chat_inner(self, req: Request, lm: LoadedModel, lease, body: dict[str, Any]):
-        prompt = lm.evaluator.template_messages(body["messages"])
+        tools, make_grammar = _chat_tools(body)
+        prompt = lm.evaluator.template_messages(
+            body["messages"], tools_prompt=tools_prompt_for(tools) if tools else "")
         add_bos = not lm.cfg.template.use_tokenizer_template
         ids = lm.engine.tokenizer.encode(prompt, add_bos=add_bos)
         n = self._n_choices(body)
-        gens = self._clones(
-            lambda: self._gen_request(lm, body, ids, extra_stop=lm.evaluator.stop_sequences()), n)
+        gens = self._gens(lm, body, ids, n, make_grammar,
+                          extra_stop=lm.evaluator.stop_sequences())
         rid = f"chatcmpl-{uuid.uuid4().hex[:28]}"
         created = _now()
         model_name = lm.cfg.name
@@ -363,21 +463,42 @@ class OpenAIApi:
             handles = self._submit_all(lm, gens)
             base = {"id": rid, "object": "chat.completion.chunk", "created": created,
                     "model": model_name, "system_fingerprint": _fingerprint()}
+
+            def choice(i: int, delta: dict, finish=None) -> dict:
+                return {"index": i, "delta": delta, "finish_reason": finish}
+
+            if tools:
+                states = [_ToolStream(lm.cfg) for _ in range(n)]
+
+                def token_chunk(i: int, text: str) -> list[dict]:
+                    return [choice(i, d) for d in states[i].token(text)]
+
+                def final_chunk(i: int, finish: str) -> list[dict]:
+                    deltas, finish = states[i].final(finish)
+                    return [choice(i, d) for d in deltas] + [choice(i, {}, finish)]
+            else:
+                def token_chunk(i: int, text: str) -> list[dict]:
+                    return [choice(i, {"content": text})]
+
+                def final_chunk(i: int, finish: str) -> list[dict]:
+                    return [choice(i, {}, finish)]
+
             return self._stream(
                 lm, lease, handles, base,
-                first=[{"index": i, "delta": {"role": "assistant", "content": ""},
-                        "finish_reason": None} for i in range(n)],
-                token_chunk=lambda i, text: {"index": i, "delta": {"content": text},
-                                             "finish_reason": None},
-                final_chunk=lambda i, finish: {"index": i, "delta": {}, "finish_reason": finish},
-                extra_usage=extra_usage)
+                first=[choice(i, {"role": "assistant", "content": ""}) for i in range(n)],
+                token_chunk=token_chunk, final_chunk=final_chunk, extra_usage=extra_usage)
         results = self._run_all(lm, lease, gens)
         choices = []
         for idx, (text, final) in enumerate(results):
             if needs_finetune(lm.cfg):
                 text = finetune(lm.cfg, prompt, text)
-            choices.append({"index": idx, "message": {"role": "assistant", "content": text},
-                            "finish_reason": final.finish_reason})
+            message: dict[str, Any] = {"role": "assistant", "content": text}
+            finish = final.finish_reason
+            calls = parse_function_calls(text, lm.cfg) if tools else []
+            if calls:
+                message = {"role": "assistant", "content": None, "tool_calls": calls}
+                finish = "tool_calls"
+            choices.append({"index": idx, "message": message, "finish_reason": finish})
         return Response(body={
             "id": rid, "object": "chat.completion", "created": created, "model": model_name,
             "system_fingerprint": _fingerprint(), "choices": choices,
@@ -406,12 +527,13 @@ class OpenAIApi:
     def _completion_inner(self, req: Request, lm: LoadedModel, lease, body: dict[str, Any],
                           prompts: list[str]):
         n = self._n_choices(body)
+        make_grammar = _gbnf_factory(body)
         gens, templated = [], []
         for p in prompts:
             t = lm.evaluator.template_completion(p)
             templated.append(t)
             ids = lm.engine.tokenizer.encode(t, add_bos=True)
-            gens.extend(self._clones(lambda: self._gen_request(lm, body, ids), n))
+            gens.extend(self._gens(lm, body, ids, n, make_grammar))
         rid = f"cmpl-{uuid.uuid4().hex[:28]}"
         created = _now()
         extra_usage = "extra-usage" in req.headers
@@ -421,8 +543,8 @@ class OpenAIApi:
                     "model": lm.cfg.name}
             return self._stream(
                 lm, lease, handles, base, first=[],
-                token_chunk=lambda i, text: {"index": i, "text": text, "finish_reason": None},
-                final_chunk=lambda i, finish: {"index": i, "text": "", "finish_reason": finish},
+                token_chunk=lambda i, text: [{"index": i, "text": text, "finish_reason": None}],
+                final_chunk=lambda i, finish: [{"index": i, "text": "", "finish_reason": finish}],
                 extra_usage=extra_usage)
         results = self._run_all(lm, lease, gens)
         choices = []

@@ -1016,3 +1016,168 @@ def test_swap_preemption_restores_pages_on_the_card(card):
         finally:
             eng.stop()
     assert got[12] == got[40]
+
+
+# --------------------------------------------------------------------------- #
+# Grammar-constrained decoding on the card (tiny f32 engines)
+# --------------------------------------------------------------------------- #
+
+# test_grammar_dfa.py's SCHEMAS[1] (a "fast" automaton) and TOOL_SCHEMA
+# (~678 states: "walk"), written out: this file imports no JAX test module.
+GRAMMAR_SCHEMAS = {
+    "fast": {"type": "object", "properties": {"a": {"type": "integer"},
+                                              "b": {"type": "boolean"}},
+             "required": ["a", "b"]},
+    "walk": {"type": "object", "required": ["name", "arguments"], "properties": {
+        "name": {"enum": ["get_weather", "search_web"]},
+        "arguments": {"type": "object", "required": ["location"], "properties": {
+            "location": {"type": "string"}, "unit": {"enum": ["celsius", "fahrenheit"]},
+            "days": {"type": "integer"}}}}},
+}
+
+
+def _grammar_serve(eng, mode, eager):
+    """Two requests under `mode`'s schema beside one unconstrained, with
+    every block's DFA states held against a host walk of each DFA slot's
+    emitted ids. Returns the three id lists."""
+    from localai_tpu_torch.engine.engine import GenRequest
+    from localai_tpu_torch.functions.jsonschema import GrammarConstraint
+    from localai_tpu_torch.ops.grammar import dfa_state_after
+
+    if eager:
+        eng._decode_block = eng._block_body
+    run = eng._run_block
+    held = []
+
+    def checked():
+        ok = run()
+        gs = eng.d_gstate.cpu().tolist()
+        for i, s in enumerate(eng.slots):
+            if s is not None and eng.h_active[i] and s.dfa:
+                held.append(gs[i] == dfa_state_after(eng._dfa["host"], s.generated))
+        return ok
+
+    eng._run_block = checked
+    schema = GRAMMAR_SCHEMAS[mode]
+    hs = [eng.submit(GenRequest(prompt_ids=[5 + i, 9, 40], max_new_tokens=48,
+                                grammar=GrammarConstraint(schema),
+                                **(dict(temperature=0.8, top_p=0.9, seed=3) if i else {})))
+          for i in range(2)]
+    hs.append(eng.submit(GenRequest(prompt_ids=[1, 2, 3], max_new_tokens=40, ignore_eos=True)))
+    out = []
+    for h in hs:
+        evs = list(h)
+        assert evs[-1].kind == "done", evs[-1]
+        out.append([e.token_id for e in evs if e.kind == "token"])
+    assert held and all(held)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fast", "walk"])
+def test_dfa_block_graph_equals_the_eager_body(card, mode):
+    """A DFA block captured as a graph gives the eager body's ids and DFA
+    states; after warmup(grammar=True) on a prewarmed schema serving it
+    captures nothing."""
+    outs = {}
+    for eager in (False, True):
+        eng = _tiny_engine(kv_pages=40, kv_page_size=16, max_slots=4)
+        try:
+            assert eng.prewarm_grammar(GRAMMAR_SCHEMAS[mode])
+            eng.warmup(grammar=True)
+            graphs = eng.metrics()["decode_graph_captures"]
+            dfa0 = eng.m_dfa_tokens
+            outs[eager] = _grammar_serve(eng, mode, eager)
+            assert eng.m_dfa_tokens > dfa0 and eng._dfa["mode"] == mode
+            if not eager:
+                assert eng.metrics()["decode_graph_captures"] == graphs
+        finally:
+            eng.stop()
+    assert outs[False] == outs[True]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn", ["allowed", "advance_fast", "advance_walk"])
+def test_ops_grammar_gives_the_cpus_bits(card, fn):
+    from localai_tpu_torch.engine.tokenizer import SyntheticByteTokenizer
+    from localai_tpu_torch.functions.dfa import build_token_tables, compile_schema_dfa
+    from localai_tpu_torch.ops import grammar
+
+    V = 32000
+    mode = fn.split("_")[-1] if fn != "allowed" else "walk"
+    tok = SyntheticByteTokenizer(V)
+    tables = build_token_tables(compile_schema_dfa(GRAMMAR_SCHEMAS[mode]), tok.token_strings(),
+                                set(tok.eos_ids), V)
+    g = torch.Generator().manual_seed(1)
+    state = torch.randint(0, tables.trans.shape[0], (8,), generator=g, dtype=torch.int32)
+    toks = torch.randint(0, V, (8,), generator=g)
+    mask = torch.from_numpy(tables.mask_bits)
+    table = torch.from_numpy(tables.next_tok if mode == "fast" else tables.trans)
+    cls = torch.from_numpy(tables.tok_cls)
+
+    def run(dev):
+        if fn == "allowed":
+            return grammar.dfa_allowed(mask.to(dev), state.to(dev), V).cpu()
+        return grammar.dfa_advance(mode, table.to(dev), cls.to(dev), state.to(dev),
+                                   toks.to(dev)).cpu()
+
+    assert torch.equal(run("cuda"), run("cpu"))
+
+
+@pytest.mark.cuda
+def test_host_walk_block_candidates_are_the_topk_of_its_logits(card):
+    """A host-walk ("grammar") block's candidates, replayed from its graph,
+    equal the eager body's, and the eager body's are torch.topk of the
+    step's logits + bias."""
+    from localai_tpu_torch.engine import engine as engine_mod
+    from localai_tpu_torch.engine.engine import GenRequest
+    from localai_tpu_torch.functions.gbnf import GbnfConstraint
+
+    # test_gbnf.py's ARITH (center-recursive: no DFA, so the host walk).
+    recursive = r"""
+root  ::= (expr "=" ws term "\n")+
+expr  ::= term ([-+*/] term)*
+term  ::= ident | num | "(" ws expr ")" ws
+ident ::= [a-z] [a-z0-9_]* ws
+num   ::= [0-9]+ ws
+ws    ::= [ \t\n]*
+"""
+    cands = {}
+    for eager in (False, True):
+        eng = _tiny_engine(max_slots=2)
+        logits_seen = []
+        sample = engine_mod.sample
+        try:
+            if eager:
+                eng._decode_block = eng._block_body
+
+                def spy(logits, *a, **kw):
+                    logits_seen.append(logits.float().clone())
+                    return sample(logits, *a, **kw)
+
+                engine_mod.sample = spy
+            else:
+                eng.warmup(grammar=True)
+            run, rows = eng._run_block, []
+
+            def record():
+                ok = run()
+                rows.append(eng._b_out[eng._tk_row:].T.cpu().clone())
+                if eager:
+                    want = torch.topk(logits_seen[-1] + eng.bias, rows[-1].shape[1], dim=-1)
+                    assert torch.equal(rows[-1], want.indices.cpu())
+                return ok
+
+            eng._run_block = record
+            dfa0 = eng.m_dfa_tokens  # warmup's boolean request may ride a DFA
+            h = eng.submit(GenRequest(prompt_ids=[7, 8, 9], max_new_tokens=12,
+                                      grammar=GbnfConstraint(recursive)))
+            evs = list(h)
+            assert evs[-1].kind == "done"
+            assert eng.m_dfa_tokens == dfa0 and rows
+            cands[eager] = ([e.token_id for e in evs if e.kind == "token"], rows)
+        finally:
+            engine_mod.sample = sample
+            eng.stop()
+    assert cands[False][0] == cands[True][0]
+    assert all(torch.equal(a, b) for a, b in zip(cands[False][1], cands[True][1]))

@@ -4,8 +4,11 @@ chatml-template model, a virtual model with a LoRA adapter, and a virtual
 model on a base that merges adapters), both servers on ephemeral ports,
 the same request JSON to each. Greedy content bytes, finish reasons and
 usage counts match; so do the model list and the status codes of errors.
-Fields the port does not honour yet get a 400 naming them. Last, `python
--m localai_tpu_torch run --device cpu` starts and answers /readyz."""
+Tools, legacy functions, tool_choice, JSON response formats and GBNF
+grammars give the JAX server's statuses, content bytes, finish reasons and
+tool calls, whole and streamed. Fields the port does not honour yet get a
+400 naming them. Last, `python -m localai_tpu_torch run --device cpu`
+starts and answers /readyz."""
 
 import dataclasses
 import json
@@ -30,6 +33,7 @@ from localai_tpu.server import Router as JaxRouter
 from localai_tpu.server import create_server as jax_create_server
 from localai_tpu.server.openai_api import OpenAIApi as JaxOpenAIApi
 from localai_tpu_torch.config import ApplicationConfig
+from localai_tpu_torch.functions.jsonschema import tool_call_schema
 from localai_tpu_torch.models import get_arch
 from localai_tpu_torch.server import ModelManager, OpenAIApi, Router, create_server
 
@@ -51,6 +55,8 @@ def _models_dir(root):
         {"name": "merged-base", "model": "ckpt", "lora_adapters": ["adapters/t1"], **common},
         {"name": "tenant-on-merged", "base_model": "merged-base", "adapter": "adapters/t0",
          **common},
+        # Room for a tools prompt (a byte a token) and a whole call.
+        {"name": "tiny-long", "model": "ckpt", **common, "context_size": 1024},
     ]
     for d in docs:
         (root / f"{d['name']}.yaml").write_text(yaml.safe_dump(d))
@@ -74,7 +80,8 @@ def servers(tmp_path_factory):
     tr = Router()
     OpenAIApi(tm).register(tr)
     ts = create_server(app, tr)
-    yield {"jax": _serve(js), "port": _serve(ts), "dir": d, "port_manager": tm}
+    yield {"jax": _serve(js), "port": _serve(ts), "dir": d, "port_manager": tm,
+           "jax_manager": jm}
     for s in (js, ts):
         s.shutdown()
     jm.shutdown()
@@ -167,11 +174,97 @@ def test_model_list_and_error_statuses_match(servers):
     assert _call(servers["port"], "/v1/models/nope")[0] == 404
 
 
+TOOLS = [{"type": "function", "function": {"name": "f"}},
+         {"type": "function", "function": {"name": "get_weather", "parameters": {
+             "type": "object", "properties": {"unit": {"enum": ["c", "f"]}},
+             "required": ["unit"]}}}]
+# Whitespace tokens held back, so a constrained reply reaches its end.
+NO_WS = {"logit_bias": {str(t): -100 for t in (9, 10, 13, 32)}}
+
+
+def _schema(payload):
+    """The schema the servers constrain a chat payload to, or None."""
+    if payload.get("grammar"):
+        return {"__gbnf__": payload["grammar"]}
+    choice = payload.get("tool_choice")
+    if choice == "required":
+        return tool_call_schema(payload["tools"])
+    if isinstance(choice, dict):
+        return tool_call_schema([t for t in payload["tools"]
+                                 if t["function"]["name"] == choice["function"]["name"]])
+    rf = payload.get("response_format") or {}
+    if rf.get("type") == "json_object":
+        return {"type": "object"}
+    return None
+
+
+def _reply(status, body, stream):
+    """(content, finish_reason, [(tool name, arguments)], usage) of a reply."""
+    if status != 200:
+        return status
+    if not stream:
+        c = body["choices"][0]
+        key = "message" if "message" in c else None
+        text = c["message"]["content"] if key else c["text"]
+        calls = [(t["function"]["name"], json.loads(t["function"]["arguments"]))
+                 for t in (c["message"].get("tool_calls") or [])] if key else []
+        return text, c["finish_reason"], calls, body["usage"]
+    chunks = _sse(body)
+    text, calls = "", []
+    for ch in chunks:
+        d = ch["choices"][0].get("delta", ch["choices"][0])
+        text += d.get("content") or d.get("text") or ""
+        calls += [(t["function"]["name"], json.loads(t["function"]["arguments"]))
+                  for t in d.get("tool_calls") or []]
+    return text, chunks[-1]["choices"][0]["finish_reason"], calls, chunks[-1]["usage"]
+
+
+@pytest.mark.parametrize("path, extra", [
+    ("/v1/chat/completions", {"tools": TOOLS[:1]}),
+    ("/v1/chat/completions", {"functions": [{"name": "f"}]}),
+    ("/v1/chat/completions", {"grammar": 'root ::= "a" [a-z]*'}),
+    ("/v1/chat/completions", {"response_format": {"type": "json_object"}, **NO_WS}),
+    ("/v1/chat/completions", {"tools": TOOLS[1:], "tool_choice": "required", "stream": True,
+                              **NO_WS}),
+    ("/v1/chat/completions", {"tools": TOOLS, "tool_choice": {
+        "type": "function", "function": {"name": "get_weather"}}, **NO_WS}),
+    ("/v1/chat/completions", {"tools": TOOLS, "tool_choice": {
+        "type": "function", "function": {"name": "nope"}}}),
+    ("/v1/chat/completions", {"grammar": 'root ::= "a'}),
+    ("/v1/completions", {"grammar": 'root ::= [0-9]+ "." [0-9]'}),
+], ids=["tools", "functions", "grammar", "response_format", "tools-required-stream",
+        "tool-choice-named", "tool-choice-unknown", "grammar-malformed", "completion-grammar"])
+def test_tools_and_grammar_match_jax_server(servers, path, extra):
+    model = "tiny-long" if extra.get("tool_choice") else "tiny-plain"
+    payload = {"model": model, **(CHAT if "chat" in path else {"prompt": "x"}),
+               "max_tokens": 96 if model == "tiny-long" else 48, **extra}
+    schema = _schema(payload)
+    if schema is not None:
+        # Both engines serve the schema the same way: from its compiled DFA
+        # (an uncached one would host-walk on whichever side had not built
+        # it yet), or, a schema with no DFA ({"type": "object"}), by the
+        # host walk on both.
+        dfa = set()
+        for side in ("jax", "port"):
+            _call(servers[side], path, {"model": model, "prompt": "x", "max_tokens": 1,
+                                        "messages": CHAT["messages"]})
+            dfa.add(servers[f"{side}_manager"].peek(model).engine.prewarm_grammar(schema))
+        assert len(dfa) == 1
+    out = {side: _reply(*_call(servers[side], path, payload), payload.get("stream"))
+           for side in ("jax", "port")}
+    assert out["port"] == out["jax"], out
+    if "nope" in json.dumps(extra) or extra.get("grammar") == 'root ::= "a':
+        assert out["port"] == 400
+    else:
+        assert out["port"][1] in ("stop", "length", "tool_calls")
+    if model == "tiny-long" and "nope" not in json.dumps(extra):
+        # A call's schema is short and closed: the reply is a whole call.
+        assert out["port"][1] == "tool_calls" and out["port"][2]
+        assert all(n == "get_weather" and a in ({"unit": "c"}, {"unit": "f"})
+                   for n, a in out["port"][2]), out["port"][2]
+
+
 @pytest.mark.parametrize("path, extra, field", [
-    ("/v1/chat/completions", {"tools": [{"type": "function", "function": {"name": "f"}}]}, "tools"),
-    ("/v1/chat/completions", {"functions": [{"name": "f"}]}, "functions"),
-    ("/v1/chat/completions", {"grammar": "root ::= \"a\""}, "grammar"),
-    ("/v1/chat/completions", {"response_format": {"type": "json_object"}}, "response_format"),
     ("/v1/chat/completions", {"logprobs": True}, "logprobs"),
     ("/v1/completions", {"logprobs": 2}, "logprobs"),
     ("/v1/completions", {"best_of": 3}, "best_of"),
