@@ -152,7 +152,32 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    part at a near tie (as in 18) or, in C, where the same batch alone in
    one-step blocks (the schedule a host-walk slot imposes) parts alike. Then the port's server: a required tool
    call whole and streamed, a json_schema reply and a GBNF completion.
-In 5, 6, 8, 10, 11, 12, 14, 15, 17, 18 and 19 the kernel launch counters, zeroed just
+20. tree (run right after 19) — tree sampling, logprobs, deadlines and
+   dense chunking on llama-3.2-1b at full width and depth (16 layers,
+   bf16, the synthetic byte tokenizer): (a) 4 prompts of 200-1200 tokens,
+   each an n = 4 group of seeded top-p requests, through Engine.submit_fork
+   on phase 6's paged engine (prefix cache on) after warmup(logprobs=True),
+   then the same 16 requests as clones on a fresh engine: 12 branches
+   forked, none cloned, no write through a page another slot shares, every
+   page back; each branch's bytes equal its clone's or part at a near tie
+   (as in 18); group TTFT against the clones'; (b) best_of 8 on a
+   1024-token prompt on pages of 64 rows: peak pages <= 1.5 x one
+   request's; (c) 8 logprob requests (top 5) beside 8 plain ones: their
+   ids equal the same requests' without logprobs or part at a near tie,
+   every logprob within 2 x 2^-5 of the position's largest |logit| of a
+   teacher-forced plain forward, top-5 ids equal but at near ties; the
+   device ms a step of a 16-step logprob block's graph against a plain
+   one; (d) 8 busy slots: 4 requests shed by queue_timeout_s 0.5 with the
+   reference's error, an active deadline_s ends its slot, cancel_all ends
+   the rest, every page back; (e) a 3500-token prompt in 512-token chunks
+   over a dense cache against its single-shot admission (ids equal or a
+   near tie); the small f32 model: fork = clone and dense chunked = single
+   shot, exactly; (f) the port's server: chat logprobs whole and streamed,
+   completions logprobs, n 2 of best_of 4 (forked), /v1/tokenize,
+   /v1/edits, a body deadline_s on the saturated model (an error naming
+   deadline_s) and a model YAML naming a draft model (a 501 naming ROADMAP
+   item 8).
+In 5, 6, 8, 10, 11, 12, 14, 15, 17, 18, 19 and 20 the kernel launch counters, zeroed just
 before each run, show that the path went through the kernels; a graph
 replay counts the launches its capture recorded. Every decode block of
 those runs is a graph capture or replay (the eager runs of phases 12 and
@@ -3364,6 +3389,550 @@ def phase_grammar() -> dict:
     return out
 
 
+TREE_NEW = 64
+TREE_LENS = [200, 500, 800, 1200]  # two single-shot primaries (B1), two chunked (B2)
+# A logprob from a decode block against log_softmax of a plain prefill of
+# the same sequence: |Δ logprob| <= |Δ logit| + |Δ logsumexp| <= 2 x the
+# largest logit change, and the bf16 logits of a decode step and of a
+# prefill differ by at most PREFIX_LOGIT_TOL of the largest |logit| (18).
+TREE_LP_TOL = 2 * PREFIX_LOGIT_TOL
+# best_of memory on pages of 64 rows: a branch's own rows (the boundary
+# page's copy or its first decode page) take one page, as one page of the
+# reference's 16-row pages does; at 128 rows 8 private pages would weigh
+# 1.8x a 1024-token prompt's 9.
+TREE_BEST_OF = dict(max_slots=8, max_seq=2048, kv_pages=64, kv_page_size=64,
+                    prefill_chunk=512, block_sizes=(16, 4, 1), prefix_cache_entries=0)
+
+
+def _tree_prompts(seed: int, lens: list[int]) -> list[list[int]]:
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randint(0, 256, (n,), generator=gen).tolist() for n in lens]
+
+
+def _guard_shared_writes(eng) -> list:
+    """Watch every write of `eng` (decode blocks, prefill chunks, a fork's
+    boundary-page copies) for a page whose refcount is above 1: a page
+    another slot or a prefix entry shares. Returns the list violations go
+    to."""
+    bad: list = []
+    page = eng.ecfg.kv_page_size
+    block, chunk, fork = eng._decode_block, eng._dispatch_chunk, eng._dispatch_fork
+
+    def rows(slot_idx, lo, hi, pages):
+        for c in range(lo // page, min((hi - 1) // page + 1, len(pages))):
+            if pages[c] >= 0 and eng._page_refs[pages[c]] > 1:
+                bad.append((slot_idx, c, int(eng._page_refs[pages[c]])))
+
+    def guarded_block(n, *a):
+        for i, s in enumerate(eng.slots):
+            if s is not None and eng.h_active[i]:
+                budget = max(min(n, eng._remaining(s)), 0)
+                rows(i, s.sched_rows, s.sched_rows + budget, eng._slot_pages[i])
+        return block(n, *a)
+
+    def guarded_chunk(st, n, with_logits=False):
+        seg = min(n, len(st["ids"]) - st["offset"])
+        width = eng._bucket_for(seg) if with_logits else n
+        rows(st["slot"], st["offset"], st["offset"] + width, eng._slot_pages[st["slot"]])
+        return chunk(st, n, with_logits)
+
+    def guarded_fork(prompt_ids, forked, copies, *a):
+        bad.extend(("copy", b) for _a, b in copies if eng._page_refs[b] != 1)
+        return fork(prompt_ids, forked, copies, *a)
+
+    eng._decode_block, eng._dispatch_chunk = guarded_block, guarded_chunk
+    eng._dispatch_fork = guarded_fork
+    return bad
+
+
+def _pool_clean(eng, label: str) -> None:
+    """Once idle: no refcount below 0, and the free list plus the prefix
+    entries' pages are the whole pool."""
+    deadline = time.monotonic() + 30
+    while any(s is not None for s in eng.slots) or eng._pending:
+        check(time.monotonic() < deadline, f"{label}: the engine did not go idle")
+        time.sleep(0.01)
+    held = {p for e in eng._prefix_entries for p in e["pages"]}
+    check(bool((eng._page_refs >= 0).all()), f"{label}: a page refcount went negative")
+    check(len(eng._free_pages) + len(held) == eng.ecfg.kv_pages,
+          f"{label}: {len(eng._free_pages)} free + {len(held)} cached of "
+          f"{eng.ecfg.kv_pages} pages")
+
+
+def _tree_round(eng, groups: list[tuple[list[int], int]], fork: bool, wave: int = 2) -> dict:
+    """Serve choice groups (prompt, seed base) of 4 seeded top-p requests,
+    `wave` groups at a time (8 slots: a wave's branches all find a slot),
+    through submit_fork or as 4 independent submits. Launch counters go to
+    0 just before and are read just after. Returns each request's ids and
+    TTFT, each group's TTFT (its last branch's first token), the metric
+    deltas and the launches."""
+    from localai_tpu_torch.engine.engine import GenRequest
+
+    ids, ttft = {}, {}
+    _zero_counts()
+    m0 = eng.metrics()
+    t_run = time.monotonic()
+    for w in range(0, len(groups), wave):
+        threads = []
+        for g in range(w, min(w + wave, len(groups))):
+            prompt, seed = groups[g]
+            reqs = [GenRequest(prompt_ids=prompt, max_new_tokens=TREE_NEW, ignore_eos=True,
+                               temperature=0.8, top_p=0.9, seed=seed + i) for i in range(4)]
+            t0 = time.monotonic()
+            hs = eng.submit_fork(reqs) if fork else [eng.submit(r) for r in reqs]
+
+            def consume(key, h, t0):
+                first, toks = None, []
+                for ev in h:
+                    if ev.kind == "token":
+                        first = first or time.monotonic() - t0
+                        toks.append(ev.token_id)
+                    elif ev.kind == "error":
+                        toks = None
+                ids[key], ttft[key] = toks, first
+
+            for i, h in enumerate(hs):
+                th = threading.Thread(target=consume, args=((g, i), h, t0))
+                th.start()
+                threads.append(th)
+        for th in threads:
+            th.join(timeout=600)
+        check(all(not th.is_alive() for th in threads), "tree: a request never finished")
+    wall = time.monotonic() - t_run
+    launches = _read_counts()
+    m1 = eng.metrics()
+    for key, toks in ids.items():
+        check(toks is not None and len(toks) == TREE_NEW, f"tree: request {key} ended short")
+    group_ttft = [max(ttft[(g, i)] for i in range(4)) * 1e3 for g in range(len(groups))]
+    return dict(ids=ids, ttft_ms={k: v * 1e3 for k, v in ttft.items()},
+                group_ttft_ms=group_ttft, wall_s=wall, launches=launches,
+                metrics={k: m1[k] - m0.get(k, 0.0) for k in m1})
+
+
+def _tree_launches(label: str, L: int, run: dict, paged: bool = True) -> None:
+    """B1 = layers x single-shot admissions; B2 = layers x (decode steps +
+    prefill chunks) on a paged pool, 0 on a dense cache."""
+    rm, la = run["metrics"], run["launches"]
+    b2 = L * (rm["decode_steps"] + rm["prefill_chunks"]) if paged else 0
+    check(la["flash_prefill"] == L * rm["admissions"] and la["paged_attention"] == b2
+          and (la["paged_attention"] > 0) == paged and la["flash_prefill"] > 0,
+          f"{label}: launches {la} for {rm}")
+    check(rm["decode_graph_captures"] + rm["decode_graph_replays"] == rm["decode_blocks"] > 0,
+          f"{label}: decode blocks not all graphs: {rm}")
+
+
+def _teacher_hold(cfg, params, prompt, evs, k: int = 5) -> dict:
+    """Every event's logprob and top-k against log_softmax of one plain
+    forward over prompt + ids (bf16, teacher-forced): |Δ| within
+    TREE_LP_TOL of the position's largest |logit|; top-k ids equal, or
+    swapped where the teacher's two logprobs lie within that bound."""
+    from localai_tpu_torch.models import llama
+
+    toks = [e.token_id for e in evs]
+    seq = torch.tensor([list(prompt) + toks[:-1]], dtype=torch.int64, device="cuda")
+    with torch.no_grad():
+        h, _m, _kv = llama._forward_hidden(cfg, params, seq,
+                                           torch.tensor([seq.shape[1]], device="cuda"),
+                                           collect_kv=False)
+        logits = llama._unembed(cfg, params, h[0, len(prompt) - 1:]).float()
+    logp = torch.log_softmax(logits, dim=-1)
+    worst, swaps = 0.0, 0
+    for p, e in enumerate(evs):
+        bound = TREE_LP_TOL * float(logits[p].abs().max())
+        d = abs(float(logp[p, e.token_id]) - e.logprob)
+        worst = max(worst, d / bound)
+        check(d <= bound, f"tree logprobs: position {p}: {e.logprob} against the teacher's "
+                          f"{float(logp[p, e.token_id])} (bound {bound})")
+        want = torch.topk(logp[p], k).indices.tolist()
+        for (gi, gv), wi in zip(e.top_logprobs, want):
+            worst = max(worst, abs(float(logp[p, gi]) - gv) / bound)
+            if gi != wi:
+                swaps += 1
+                check(abs(float(logp[p, gi] - logp[p, wi])) <= bound,
+                      f"tree logprobs: position {p}: top ids {e.top_logprobs} against {want}")
+    return dict(positions=len(evs), worst_err_over_bound=worst, top_swaps=swaps)
+
+
+def _tree_tiny(small, p_small) -> dict:
+    """The small f32 model on the card: seeded fork bytes equal the clones'
+    on a paged engine, and dense chunked ids equal single-shot ids,
+    exactly."""
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig, GenRequest
+    from localai_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    def engine(**kw):
+        return Engine(small, p_small, ByteTokenizer(small.vocab_size), device="cuda",
+                      engine_cfg=EngineConfig(max_slots=8, max_seq=256, min_prefill_bucket=16,
+                                              block_sizes=(8, 1), **kw))
+
+    out = {}
+    prompt = [(j * 11) % 250 + 1 for j in range(45)]
+    runs = {}
+    for fork in (True, False):
+        eng = engine(kv_pages=64, kv_page_size=16)
+        try:
+            reqs = [GenRequest(prompt_ids=prompt, max_new_tokens=16, ignore_eos=True,
+                               temperature=0.9, top_k=24, seed=900 + i) for i in range(4)]
+            hs = eng.submit_fork(reqs) if fork else [eng.submit(r) for r in reqs]
+            runs[fork] = ([[e.token_id for e in h if e.kind == "token"] for h in hs],
+                          eng.m_forks)
+        finally:
+            eng.stop()
+    out["fork_equals_clone"] = runs[True][0] == runs[False][0]
+    check(out["fork_equals_clone"] and runs[True][1] == 3,
+          f"tree tiny f32: fork ids {runs[True]} differ from the clones' {runs[False]}")
+    long = [(j * 17) % 250 + 1 for j in range(200)]
+    ids = {}
+    for chunk in (32, 0):
+        eng = engine(prefill_chunk=chunk)
+        try:
+            ids[chunk] = [e.token_id for e in eng.submit(GenRequest(
+                prompt_ids=long, max_new_tokens=16, ignore_eos=True)) if e.kind == "token"]
+        finally:
+            eng.stop()
+    out["dense_chunked_equals_single"] = ids[32] == ids[0]
+    check(ids[32] == ids[0], f"tree tiny f32: dense chunked ids {ids[32]} != {ids[0]}")
+    return out
+
+
+def _tree_http() -> dict:
+    """The port's server on llama-3.2-1b (16 layers, the synthetic byte
+    tokenizer, the paged engine): chat logprobs (top 5) whole and streamed,
+    completions logprobs 3, n 2 of best_of 4, /v1/tokenize, /v1/edits; a
+    body deadline_s on the saturated model; a model YAML naming a draft
+    model."""
+    import yaml
+
+    msgs = [{"role": "user", "content": "Tell me about the sea."}]
+    reqs = [
+        ("/v1/chat/completions", {"messages": msgs, "max_tokens": 16, "ignore_eos": True,
+                                  "logprobs": True, "top_logprobs": 5}),
+        ("/v1/chat/completions", {"messages": msgs, "max_tokens": 16, "ignore_eos": True,
+                                  "logprobs": True, "top_logprobs": 5, "stream": True}),
+        ("/v1/completions", {"prompt": "Once upon a time", "max_tokens": 16,
+                             "ignore_eos": True, "logprobs": 3}),
+        ("/v1/chat/completions", {"messages": msgs, "max_tokens": 16, "ignore_eos": True,
+                                  "n": 2, "best_of": 4, "temperature": 0.8, "seed": 3}),
+        ("/v1/tokenize", {"content": "hello world"}),
+        ("/v1/edits", {"instruction": "Fix the spelling", "input": "helo wrld",
+                       "max_tokens": 8, "ignore_eos": True}),
+    ]
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as root:
+        _write_models_dir(root, tenants=False)
+        with open(f"{root}/llama-1b-draft.yaml", "w") as f:
+            yaml.safe_dump({**LORA_BASE_YAML, "name": "llama-1b-draft", "draft_model": "tiny"},
+                           f)
+        manager, server, base = _start_server(root)
+        try:
+            warm = _http(base, "/v1/completions", {"model": "llama-1b", "prompt": "warm up",
+                                                   "max_tokens": 2}, time.monotonic())
+            check(warm["status"] == 200, f"tree http: warm request {warm}")
+            eng = manager.peek("llama-1b").engine
+            m0 = eng.metrics()
+            _zero_counts()
+            results = [_http(base, path, {"model": "llama-1b", **body}, time.monotonic())
+                       for path, body in reqs]
+            launches = _read_counts()
+            m1 = eng.metrics()
+            # Every slot busy, then a body deadline: shed from the queue.
+            from localai_tpu_torch.engine.engine import GenRequest
+
+            busy = [eng.submit(GenRequest(prompt_ids=[5, 6, 7], max_new_tokens=3000,
+                                          ignore_eos=True)) for _ in range(8)]
+            for h in busy:
+                check(next(iter(h)).kind == "token", "tree http: a busy request failed")
+            shed = _http(base, "/v1/chat/completions",
+                         {"model": "llama-1b", "messages": msgs, "max_tokens": 4,
+                          "deadline_s": 0.5}, time.monotonic())
+            eng.cancel_all()
+            for h in busy:
+                list(h)
+            draft = _http(base, "/v1/chat/completions",
+                          {"model": "llama-1b-draft", "messages": msgs, "max_tokens": 4},
+                          time.monotonic())
+        finally:
+            server.shutdown()
+            manager.shutdown()
+    replies = []
+    for i, ((path, body), res) in enumerate(zip(reqs, results)):
+        check(res["status"] == 200, f"tree http: request {i} ({path}) got HTTP "
+                                    f"{res['status']}: {res.get('body')}")
+        if body.get("stream"):
+            check(res["frames"][-1] == "[DONE]", f"tree http: stream {i} did not end in [DONE]")
+            chunks = [json.loads(f) for f in res["frames"][:-1]]
+            toks = [c["choices"][0] for c in chunks if c["choices"][0].get("logprobs")]
+            check(len(toks) == chunks[-1]["usage"]["completion_tokens"] == 16
+                  and all(len(c["logprobs"]["content"][0]["top_logprobs"]) == 5 for c in toks),
+                  f"tree http: stream {i}: {len(toks)} chunks with logprobs")
+            replies.append(dict(path=path, stream=True, tokens=len(toks)))
+            continue
+        b = res["body"]
+        if path == "/v1/tokenize":
+            check(b["tokens"] and all(isinstance(t, int) for t in b["tokens"]),
+                  f"tree http: tokenize {b}")
+            replies.append(dict(path=path, tokens=len(b["tokens"])))
+            continue
+        if path == "/v1/edits":
+            replies.append(dict(path=path, usage=b["usage"]))
+            continue
+        choices = b["choices"]
+        if "best_of" in body:
+            check(len(choices) == 2 and b["usage"]["completion_tokens"] == 4 * 16,
+                  f"tree http: best_of reply {b['usage']}, {len(choices)} choices")
+        elif "messages" in body:
+            content = choices[0]["logprobs"]["content"]
+            check(len(content) == 16 and all(len(e["top_logprobs"]) == 5
+                                             and e["logprob"] <= 0 for e in content),
+                  f"tree http: chat logprobs {content[:2]}")
+        else:
+            lp = choices[0]["logprobs"]
+            check(len(lp["tokens"]) == len(lp["token_logprobs"]) == 16
+                  and lp["text_offset"] == sorted(lp["text_offset"]),
+                  f"tree http: completion logprobs {lp}")
+        replies.append(dict(path=path, choices=len(choices), usage=b["usage"]))
+    check(m1["fork_branches"] - m0["fork_branches"] == 3,
+          f"tree http: best_of 4 forked {m1['fork_branches'] - m0['fork_branches']} branches")
+    check(shed["status"] == 500 and "(deadline_s)" in shed["body"],
+          f"tree http: deadline on a saturated model: {shed}")
+    check(draft["status"] == 501 and "item 8, speculative decoding" in draft["body"],
+          f"tree http: draft_model YAML: {draft}")
+    check(launches["flash_prefill"] > 0 and launches["paged_attention"] > 0,
+          f"tree http: launches {launches}")
+    out.update(replies=replies, launches=launches, shed=shed["body"][:160],
+               draft=draft["body"][:160])
+    return out
+
+
+def phase_tree(small, p_small) -> dict:
+    """Tree sampling, logprobs, deadlines and dense chunking on
+    llama-3.2-1b at full width and depth (16 layers, bf16, seeded random
+    weights, the synthetic byte tokenizer): (a) 4 prompts of 200-1200
+    tokens, each an n = 4 group of seeded top-p requests, through
+    submit_fork on the paged engine after warmup(logprobs=True), then as
+    16 clones on a fresh engine: each branch's bytes equal its clone's or
+    part at a near tie, 12 forks and no clone fallback, no slot writes a
+    page another shares, every page back; (b) best_of 8 on a 1024-token
+    prompt: peak pages <= 1.5 x one request's; (c) 8 logprob requests
+    (top 5) beside 8 plain ones: the same ids without logprobs (or a near
+    tie), every logprob and top 5 against a teacher-forced plain forward,
+    and the device ms of a 16-step logprob block against a plain one; (d)
+    on 8 busy slots, 4 requests shed by queue_timeout_s, an active deadline,
+    then cancel_all; (e) a 3500-token prompt in 512-token chunks over a
+    dense cache against its single-shot admission; the small f32 model's
+    exact checks; (f) the port's server."""
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig, GenRequest
+    from localai_tpu_torch.engine.tokenizer import SyntheticByteTokenizer
+    from localai_tpu_torch.models import get_arch, llama
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_arch("llama-3.2-1b")
+    L, V = cfg.num_layers, cfg.vocab_size
+    params = llama.init_params(cfg, seed=7, device="cuda")
+    tok = SyntheticByteTokenizer(V)
+    out: dict = {"runs": {}}
+
+    def engine(**kw):
+        return Engine(cfg, params, tok, device="cuda", engine_cfg=EngineConfig(
+            **{**PAGED_ENGINE, **kw}))
+
+    # (a) fork against clone.
+    prompts = _tree_prompts(31, TREE_LENS)
+    groups = [(p, 500 + 10 * g) for g, p in enumerate(prompts)]
+    fe = engine()
+    t0 = time.monotonic()
+    fe.warmup(logprobs=True)
+    out["warmup_s"] = time.monotonic() - t0
+    out["graphs_after_warmup"] = int(fe.metrics()["decode_graphs"])
+    bad = _guard_shared_writes(fe)
+    fork = _tree_round(fe, groups, fork=True)
+    _pool_clean(fe, "tree fork")
+    ce = engine()
+    ce.warmup()
+    clone = _tree_round(ce, groups, fork=False)
+    ce.stop()
+    del ce
+    fm = fork["metrics"]
+    check(fm["fork_branches"] == 12 and fm["fork_clone_fallbacks"] == 0,
+          f"tree: {fm['fork_branches']} forks, {fm['fork_clone_fallbacks']} clone fallbacks")
+    check(not bad, f"tree: writes through shared pages: {bad[:8]}")
+    check(fm["decode_graph_captures"] == 0, f"tree: fork run captured graphs: {fm}")
+    _tree_launches("tree fork", L, fork)
+    _tree_launches("tree clone", L, clone)
+    parts = []
+    for key, want in clone["ids"].items():
+        got = fork["ids"][key]
+        if got != want:
+            g, i = key
+            kw = dict(temperature=0.8, top_p=0.9, seed=groups[g][1] + i)
+            part = dict(group=g, branch=i, **_part_gap(cfg, params, prompts[g], want, got, kw))
+            parts.append(part)
+            check(part["gap"] <= part["bound"],
+                  f"tree: a forked branch parts from its clone away from a near tie: {part}")
+    out["fork"] = dict(
+        equal=sum(fork["ids"][k] == clone["ids"][k] for k in clone["ids"]), parts=parts,
+        group_ttft_ms=fork["group_ttft_ms"], clone_group_ttft_ms=clone["group_ttft_ms"],
+        admissions=(fm["admissions"], clone["metrics"]["admissions"]),
+        chunked_admits=(fm["chunked_admits"], clone["metrics"]["chunked_admits"]),
+        prefill_chunks=(fm["prefill_chunks"], clone["metrics"]["prefill_chunks"]),
+        prefix_hits=(fm["prefix_hits"], clone["metrics"]["prefix_hits"]),
+        launches=(fork["launches"], clone["launches"]), wall_s=(fork["wall_s"],
+                                                                clone["wall_s"]))
+    out["runs"]["tree_fork"] = {"launches": fork["launches"]}
+    out["runs"]["tree_clone"] = {"launches": clone["launches"]}
+    # (c) logprobs beside plain requests, on the fork engine.
+    lp_prompts = _tree_prompts(37, [300, 450, 600, 750, 900, 1050, 1150, 1250])
+    plain_prompts = _tree_prompts(41, [250, 400, 550, 700, 850, 1000, 1100, 1200])
+
+    def lp_round(with_lp: bool) -> dict:
+        from localai_tpu_torch.engine.engine import GenRequest as G
+
+        res: dict = {}
+        _zero_counts()
+        m0 = fe.metrics()
+        hs = []
+        for i, p in enumerate(lp_prompts):
+            kw = dict(temperature=0.8, top_p=0.9, seed=700 + i) if i % 2 else {}
+            hs.append((("lp", i), fe.submit(G(prompt_ids=p, max_new_tokens=TREE_NEW,
+                                              ignore_eos=True, logprobs=5 if with_lp else 0,
+                                              **kw)), kw))
+        if with_lp:
+            for i, p in enumerate(plain_prompts):
+                hs.append((("plain", i), fe.submit(G(prompt_ids=p, max_new_tokens=TREE_NEW,
+                                                     ignore_eos=True)), {}))
+        for key, h, kw in hs:
+            evs = [e for e in h if e.kind == "token"]
+            check(len(evs) == TREE_NEW, f"tree logprobs: request {key} ended short")
+            res[key] = (evs, kw)
+        m1 = fe.metrics()
+        return dict(res=res, launches=_read_counts(),
+                    metrics={k: m1[k] - m0.get(k, 0.0) for k in m1})
+
+    with_lp, without = lp_round(True), lp_round(False)
+    check(with_lp["metrics"]["decode_graph_captures"] == 0,
+          f"tree logprobs: captured while serving: {with_lp['metrics']}")
+    _tree_launches("tree logprobs", L, with_lp)
+    holds, lp_parts = [], []
+    for i, p in enumerate(lp_prompts):
+        evs, kw = with_lp["res"][("lp", i)]
+        check(all(e.logprob is not None and len(e.top_logprobs) == 5 for e in evs),
+              f"tree logprobs: request {i} lacks logprobs")
+        check(all(e.logprob is None for e in with_lp["res"][("plain", i)][0]),
+              "tree logprobs: a plain request carries logprobs")
+        holds.append(_teacher_hold(cfg, params, p, evs))
+        got = [e.token_id for e in evs]
+        want = [e.token_id for e in without["res"][("lp", i)][0]]
+        if got != want:
+            part = dict(request=i, **_part_gap(cfg, params, p, want, got, kw))
+            lp_parts.append(part)
+            check(part["gap"] <= part["bound"],
+                  f"tree logprobs: ids with logprobs part from without away from a tie: {part}")
+    # Device ms a step: one replay of a 16-step block's graph, every slot idle.
+    fe._stage_block(np.zeros_like(fe.h_active))
+    step_ms = {}
+    for variant in ("greedy", "filtered"):
+        for lp in (False, True):
+            graph = fe._graph_cache[fe._block_key(16, variant, 0, False, lp)][0]
+            step_ms[f"{variant}{'_lp' if lp else ''}"] = cuda_time_ms(graph.replay, reps=5,
+                                                                      warmup=1) / 16
+    out["logprobs"] = dict(held=holds, parts=lp_parts, device_ms_per_step=step_ms,
+                           equal=len(lp_prompts) - len(lp_parts))
+    out["runs"]["tree_logprobs"] = {"launches": with_lp["launches"]}
+    fe.stop()
+    del fe
+    # (b) best_of 8 pages.
+    bo_prompt = _tree_prompts(43, [1024])[0]
+    peaks = {}
+    for label, n, fork_it in (("one", 1, True), ("best_of_8", 8, True), ("clones_8", 8, False)):
+        be = engine(**TREE_BEST_OF)
+        try:
+            reqs = [GenRequest(prompt_ids=bo_prompt, max_new_tokens=TREE_NEW, ignore_eos=True,
+                               temperature=0.8, top_p=0.9, seed=800 + i) for i in range(n)]
+            hs = be.submit_fork(reqs) if fork_it else [be.submit(r) for r in reqs]
+            for h in hs:
+                check(sum(e.kind == "token" for e in h) == TREE_NEW, "tree best_of: short")
+            peaks[label] = (int(be.metrics()["kv_pages_peak"]), be.m_forks)
+        finally:
+            be.stop()
+    check(peaks["best_of_8"][1] == 7 and peaks["best_of_8"][0] <= 1.5 * peaks["one"][0],
+          f"tree best_of: pages {peaks}")
+    out["best_of_pages"] = peaks
+    # (d) deadlines on 8 busy slots.
+    de = engine(queue_timeout_s=0.5, prefix_cache_entries=0)
+    try:
+        busy = [de.submit(GenRequest(prompt_ids=[5, 6, 7 + i], max_new_tokens=3000,
+                                     ignore_eos=True)) for i in range(8)]
+        for h in busy:
+            check(next(iter(h)).kind == "token", "tree deadlines: a busy request failed")
+        shed = [de.submit(GenRequest(prompt_ids=[9, 9, i], max_new_tokens=8)) for i in range(4)]
+        errs = [list(h)[-1] for h in shed]
+        want = "request timed out after 0.5s in queue (queue_timeout_s) — server saturated"
+        check(all(e.kind == "error" and e.error == want for e in errs)
+              and de.metrics()["queue_timeouts"] == 4,
+              f"tree deadlines: queue timeouts {[e.error for e in errs]}")
+        busy[0].cancel()
+        list(busy[0])
+        t0 = time.monotonic()
+        late = list(de.submit(GenRequest(prompt_ids=[11, 12, 13], max_new_tokens=3000,
+                                         ignore_eos=True, deadline_s=1.0)))
+        late_s = time.monotonic() - t0
+        check(late[-1].kind == "done" and late[-1].finish_reason == "stop"
+              and late[-1].completion_tokens < 3000 and de.metrics()["deadline_expired"] == 1,
+              f"tree deadlines: active deadline ended {late[-1]}")
+        n = de.cancel_all()
+        ends = [list(h)[-1].kind for h in busy[1:]]
+        check(n >= 7 and ends == ["done"] * 7, f"tree deadlines: cancel_all {n}, {ends}")
+        _pool_clean(de, "tree deadlines")
+    finally:
+        de.stop()
+    out["deadlines"] = dict(queue_timeouts=4, active_deadline_s=late_s,
+                            active_tokens=late[-1].completion_tokens, cancel_all=n)
+    # (e) dense chunking.
+    long_prompt = _tree_prompts(47, [3500])[0]
+    dense = {}
+    for label, chunk in (("chunked", 512), ("single", 0)):
+        eng = Engine(cfg, params, tok, device="cuda", engine_cfg=EngineConfig(
+            max_slots=2, max_seq=4096, prefill_chunk=chunk, block_sizes=(16, 4, 1)))
+        try:
+            _zero_counts()
+            m0 = eng.metrics()
+            t0 = time.monotonic()
+            evs = [e for e in eng.submit(GenRequest(prompt_ids=long_prompt,
+                                                    max_new_tokens=TREE_NEW, ignore_eos=True))
+                   if e.kind == "token"]
+            m1 = eng.metrics()
+            dense[label] = dict(ids=[e.token_id for e in evs], wall_s=time.monotonic() - t0,
+                                launches=_read_counts(),
+                                metrics={k: m1[k] - m0.get(k, 0.0) for k in m1})
+        finally:
+            eng.stop()
+        out["runs"][f"tree_dense_{label}"] = {"launches": dense[label]["launches"]}
+    dm = dense["chunked"]["metrics"]
+    check(dm["chunked_admits"] == 1 and dm["prefill_chunks"] == 7
+          and dense["chunked"]["launches"]["flash_prefill"] == 0
+          and dense["single"]["launches"]["flash_prefill"] == L,
+          f"tree dense chunks: {dm}, launches {dense['chunked']['launches']}")
+    dparts = []
+    if dense["chunked"]["ids"] != dense["single"]["ids"]:
+        dparts.append(_part_gap(cfg, params, long_prompt, dense["single"]["ids"],
+                                dense["chunked"]["ids"], {}))
+        check(dparts[0]["gap"] <= dparts[0]["bound"],
+              f"tree dense chunks: ids part from single-shot away from a tie: {dparts[0]}")
+    out["dense_chunks"] = dict(parts=dparts, wall_s={k: v["wall_s"] for k, v in dense.items()},
+                               equal=not dparts)
+    out["tiny"] = _tree_tiny(small, p_small)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["http"] = _tree_http()
+    out["runs"]["tree_http"] = {"launches": out["http"]["launches"]}
+    summary = {k: v for k, v in out.items() if k not in ("runs", "http")}
+    summary["http"] = out["http"]["replies"]
+    log("[tree llama-3.2-1b, 16 layers] " + json.dumps(summary))
+    out["summary"] = summary
+    return out
+
 def _compact(row: dict, keys) -> dict:
     return {k: row[k] for k in keys}
 
@@ -3398,6 +3967,7 @@ def main() -> None:
     long_context = timed("long_context", phase_long_context)
     prefix = timed("prefix_swap", phase_prefix_swap, model["small"], model["p_small"])
     grammar = timed("grammar", phase_grammar)
+    tree = timed("tree", phase_tree, model["small"], model["p_small"])
     qmodel = timed("quant_model", phase_quant_model, gen)
     qruns = timed("quant_engines", phase_quant_engines, qmodel, model["small"],
                   model["p_small"], model["p_small_cpu"])
@@ -3428,7 +3998,7 @@ def main() -> None:
             "prefix_swap_ample": prefix["swap_runs"]["ample"],
             "prefix_8b_hit": {"launches": prefix_8b["launches"]["hit"]},
             "prefix_8b_miss": {"launches": prefix_8b["launches"]["miss"]},
-            **grammar["runs"]}
+            **grammar["runs"], **tree["runs"]}
     by_path = {k: {path: out["launches"][k] for path, out in runs.items()}
                for k in ("flash_prefill", "paged_attention", "quant_matmul", "quant_matmul_moe",
                          "quant_unembed", "lora_bgmv")}
@@ -3508,6 +4078,9 @@ def main() -> None:
         # Constrained admissions (B1, or B2 chunks) and DFA / host-walk decode
         # blocks on the paged pool.
         "grammar": grammar["summary"],
+        # Fork branches decode over their primary's shared pages; logprob
+        # blocks (the top-20 epilogue in the graph).
+        "tree": tree["summary"],
         "shapes": paged_rows,
     }
     # The main shape of B3: llama-3-8b's w_gate at a decode block of 8 slots,

@@ -1,5 +1,5 @@
 """Serving engine (PyTorch): the resident engine, weights and tokenizers.
 
 Import the modules directly (`localai_tpu_torch.engine.engine`,
-`.weights`, `.tokenizer`).
+`.weights`, `.tokenizer`, `.runtime`).
 """

@@ -37,11 +37,29 @@ number of KV-cache slots by one loop thread ("engine-loop"):
   B2's prefix walk reads the shared pages in place. Spans evicted for pool
   pressure go to the pinned host tier (`kv_swap_bytes`) and swap back in
   at a later hit.
-- With `prefill_chunk > 0` (paged pool only) prompts longer than a chunk
-  admit chunk by chunk: at most one chunk runs between decode blocks, each
-  writes its K/V straight into the slot's pages, the slot's table is kept
-  off the decode blocks (SCRATCH) until the final chunk, and the final
-  chunk samples the first token and installs the slot.
+- With `prefill_chunk > 0` prompts longer than a chunk admit chunk by
+  chunk: at most one chunk runs between decode blocks. On a paged pool
+  each writes its K/V straight into the slot's pages and the slot's table
+  is kept off the decode blocks (SCRATCH) until the final chunk; on a
+  dense cache each runs `prefill_tail` over the slot's written rows and
+  writes its rows after them, and the slot's carried position is pinned
+  at max_seq - 1 so the decode blocks' idle writes land past them. The
+  final chunk samples the first token and installs the slot.
+- Logprobs (`GenRequest.logprobs` = N): every token event carries the
+  sampled token's logprob and the top N of log_softmax(logits + bias),
+  the model's distribution before penalties, temperature and the grammar
+  mask. A decode block with such a slot computes the top LOGPROB_TOPK in
+  its graph and brings them back in its one host read.
+- Tree sampling: `submit_fork(requests)` admits a group of same-prompt
+  requests (n > 1, best_of) with ONE prefill; each branch then addrefs
+  the primary's full prompt pages, gets a private copy of its partly
+  filled last page and samples its own first token from the primary's
+  final logits, so a seeded branch gives the bytes its clone would.
+  Branches that cannot fork (no free slot, pool pressure) and dense
+  engines clone. `fork(handle, n)` forks a live stream mid-way.
+- Bounded admission: `queue_timeout_s` sheds requests left pending that
+  long, `deadline_s` (per request or the engine default) sheds pending and
+  cancels active ones; `cancel_all()` ends every request.
 - Long context: with `attention_window > 0` decode (and, on a paged pool,
   the chunked-prefill prefix walk) attends only the first
   `attention_sink` positions and the trailing window, so each chunk and
@@ -94,17 +112,20 @@ generator state, so it can be captured. The reference's threefry streams
 are not reproduced.
 
 Not ported yet (ROADMAP Queue A): CUDA graphs of admission and prefill
-chunks and pipelined dispatch, chunked prefill over a dense cache,
-logprobs, speculative decoding, fork / n>1, tp and sequence-parallel
-prefill, deadlines, and the export and import of prefix spans between
-replicas (the cluster, with its mid-stream grammar failover). The
-reference's prefix_admit_async_compile has no counterpart: a cached
-admission runs eagerly and compiles nothing; nor has its
-LOCALAI_GRAMMAR_DFA switch: the port reads no environment variable.
+chunks and pipelined dispatch (item 1), speculative decoding with its
+`decode_step` and `processed_logprobs` (item 8), the event journal
+(item 11), the export and import of prefix spans between replicas (the
+cluster, with its mid-stream grammar failover; item 12), rerank's
+`sequence_logprob` (item 13), tp and sequence-parallel prefill (item
+14). The reference's prefix_admit_async_compile has no counterpart: a
+cached admission runs eagerly and compiles nothing; nor have its
+LOCALAI_GRAMMAR_DFA, LOCALAI_QUEUE_TIMEOUT, LOCALAI_DEADLINE and
+LOCALAI_FORK_SAMPLING switches: the port reads no environment variable.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import logging
 import os
@@ -119,6 +140,7 @@ import torch
 
 from localai_tpu_torch import kernels
 from localai_tpu_torch.device import resolve_device
+from localai_tpu_torch.engine.runtime import DeadlineIndex
 from localai_tpu_torch.engine.weights import load_lora_factors, lora_target_dims
 from localai_tpu_torch.models import llama
 from localai_tpu_torch.models.config import ArchConfig
@@ -263,6 +285,18 @@ class EngineConfig:
     # spans evicted from the pool (the prefix cache's host tier, which a
     # later hit swaps back in). 0 disables the tier: preemption recomputes.
     kv_swap_bytes: int = 256 << 20
+    # Bounded admission: a request still pending after queue_timeout_s
+    # seconds is shed with an error event (it would be admitted into a
+    # saturated engine only to blow its caller's timeout anyway).
+    # deadline_s is the end-to-end deadline of requests that carry none of
+    # their own (GenRequest.deadline_s): past it a pending request is shed
+    # and an active one cancelled. 0 disables each.
+    queue_timeout_s: float = 0.0
+    deadline_s: float = 0.0
+    # Tree sampling: submit_fork() admits a same-prompt group with one
+    # prefill and forks the slot per branch (paged pools only). False
+    # admits every branch as its own clone (the same bytes, N prefills).
+    fork_sampling: bool = True
 
     def cache_dtype(self, model_dtype: torch.dtype) -> torch.dtype:
         table = {
@@ -310,6 +344,20 @@ class GenRequest:
     # The object is this request's own machine (the host walk advances it).
     # Penalty counts track the sampled, not an overridden, token.
     grammar: Optional[Any] = None
+    # Top-N logprobs per generated token (0 = off, at most LOGPROB_TOPK):
+    # every token event carries the sampled token's logprob and the top N
+    # alternatives of log_softmax(logits + bias), the model's distribution
+    # before penalties, temperature and the grammar mask (OpenAI's).
+    logprobs: int = 0
+    # End-to-end deadline in seconds from submit(): pending past it, the
+    # request is shed with an error event; active, it is cancelled. 0 =
+    # the engine default (EngineConfig.deadline_s), which may be 0 too.
+    deadline_s: float = 0.0
+    # Set by submit_fork() on a group's primary: [(branch request, branch
+    # handle), ...] forked off its slot right after its prefill. Every path
+    # that ends a pending primary also ends or requeues these. Callers
+    # leave it None.
+    fork_group: Optional[list] = None
     # Set by the engine on a request it requeued after preempting it: what
     # the re-admitted slot restores (generated tokens, streamed text, the
     # sampling seed). Callers leave it None.
@@ -329,6 +377,9 @@ class TokenEvent:
     timing_prompt_processing: float = 0.0  # seconds, admission → first token
     timing_token_generation: float = 0.0
     timing_queue_wait: float = 0.0  # seconds, submit → admission
+    # Filled on "token" when the request asked for logprobs.
+    logprob: Optional[float] = None
+    top_logprobs: Optional[list] = None  # [(token_id, logprob)] descending
 
 
 class RequestHandle:
@@ -339,6 +390,8 @@ class RequestHandle:
         self.cancelled = threading.Event()
         self.t_submit: float = 0.0
         self.t_admit: float = 0.0
+        # Absolute monotonic deadline (submit + deadline_s), or None.
+        self.deadline: Optional[float] = None
 
     def __iter__(self) -> Iterator[TokenEvent]:
         while True:
@@ -385,6 +438,7 @@ class Engine:
 
     _KV_WIN_MIN = 256  # smallest read-side KV window (doubles up to max_seq)
     GRAMMAR_TOPK = 64  # candidates a host-walk step returns per slot
+    LOGPROB_TOPK = 20  # OpenAI caps top_logprobs at 20
     # Device DFA buffers grow through these buckets (states, char classes),
     # so one captured graph serves every table set that fits.
     _DFA_STATE_BUCKETS = (64, 256, 1024, 3073)
@@ -410,6 +464,8 @@ class Engine:
             raise ValueError("block_sizes must be positive")
         if ecfg.max_pending < 0:
             raise ValueError("max_pending must be >= 0 (0 = unbounded)")
+        if ecfg.queue_timeout_s < 0 or ecfg.deadline_s < 0:
+            raise ValueError("queue_timeout_s / deadline_s must be >= 0")
         if ecfg.adapter_cache_bytes < 0:
             raise ValueError("adapter_cache_bytes must be >= 0")
         if ecfg.kv_preempt not in ("swap", "recompute", "auto"):
@@ -581,9 +637,12 @@ class Engine:
         # grammar-DFA row), the page table [B, MP] (hierarchical: the
         # directories [B, ML1] and the table-page pool [NTP + 1, SPAN]), the
         # adapter rows [B] and the sampled ids [n, B], followed (a host-walk
-        # block) by each slot's top GRAMMAR_TOPK ids [K, B] from row _tk_row.
-        # Each block copies its host rows in from pinned staging tensors
-        # (loop thread only).
+        # block) by each slot's top GRAMMAR_TOPK ids [K, B] from row _tk_row
+        # and (a logprob block) from row _lp_row, per step, the sampled
+        # token's logprob, the top LOGPROB_TOPK ids and their logprobs
+        # [1 + 2 * LK, B] (logprobs as the bits of f32, _f2i). Each block
+        # copies its host rows in from pinned staging tensors (loop thread
+        # only).
         pin = dev.type == "cuda"
         MP = self.h_ptable.shape[1]
         self._h_pack = torch.zeros((2 + len(_SAMPLING_FIELDS), B), dtype=torch.float32,
@@ -597,7 +656,10 @@ class Engine:
         self._h_l0 = self._b_l0 = None
         self._b_adapter = torch.zeros((B,), dtype=torch.int32, device=dev)
         self._tk_row = max(ecfg.block_sizes)
-        self._b_out = torch.zeros((self._tk_row + min(self.GRAMMAR_TOPK, V), B),
+        self._lk = min(self.LOGPROB_TOPK, V)
+        self._lp_w = 1 + 2 * self._lk
+        self._lp_row = self._tk_row + min(self.GRAMMAR_TOPK, V)
+        self._b_out = torch.zeros((self._lp_row + self._tk_row * self._lp_w, B),
                                   dtype=torch.int64, device=dev)
         # CUDA graphs of the block body (_block_key -> (graph, launch counts
         # of one replay, the kernel workspaces it captured)), all in one
@@ -622,6 +684,13 @@ class Engine:
         self._thread: Optional[threading.Thread] = None
         self._loop_dead: Optional[str] = None
         self._admit_wait_ewma = 0.0
+        # Deadlines and queue-timeout expiries of submitted requests: the
+        # loop's wait wakes at the earliest.
+        self._deadlines = DeadlineIndex()
+        # Mid-stream forks staged by fork() for the loop: (source handle,
+        # seeds, branch handles).
+        self._fork_requests: list[tuple] = []
+        self._fork_lock = threading.Lock()
         # Counters.
         self.m_prompt_tokens = 0
         self.m_generated_tokens = 0
@@ -635,6 +704,10 @@ class Engine:
         self.m_kv_pages_peak = 0
         self.m_kv_pages_grown = 0
         self.m_kv_preemptions = 0
+        self.m_queue_timeouts = 0
+        self.m_deadline_expired = 0
+        self.m_forks = 0  # branches admitted by forking a slot
+        self.m_fork_clone_fallbacks = 0  # branches that admitted as clones
         self._decode_tokens = 0
         self._decode_time = 0.0
 
@@ -689,11 +762,6 @@ class Engine:
             if ecfg.kv_page_size < 1 or ecfg.max_seq % ecfg.kv_page_size:
                 raise ValueError(f"max_seq={ecfg.max_seq} must divide by "
                                  f"kv_page_size={ecfg.kv_page_size}")
-        elif C:
-            raise NotImplementedError(
-                "prefill_chunk > 0 with a dense cache is not ported yet: prefill_tail serves "
-                "dense prefix hits, but chunks over a slot's rows wait for ROADMAP Queue A "
-                "item 3 (main-path engine completeness); use kv_pages > 0")
 
     # ------------------------------------------------------------------ #
     # Public surface
@@ -718,11 +786,19 @@ class Engine:
         for slot in self.slots:
             if slot is not None:
                 slot.handle._q.put(TokenEvent(kind="done", finish_reason="stop"))
+                # A chunking fork primary's branches end with it.
+                self._fork_group_fail(slot.request, TokenEvent(kind="done", finish_reason="stop"))
         with self._pending_lock:
             pending, self._pending = list(self._pending), deque()
         for req, handle in pending:
             self._resume_discard(req)
             handle._q.put(TokenEvent(kind="done", finish_reason="stop"))
+            self._fork_group_fail(req, TokenEvent(kind="done", finish_reason="stop"))
+        with self._fork_lock:
+            staged, self._fork_requests = self._fork_requests, []
+        for _src, _seeds, handles in staged:
+            for bh in handles:
+                bh._q.put(TokenEvent(kind="done", finish_reason="stop"))
         if self._tok_fp is not None:
             # Tables prewarm pinned against this tokenizer can never hit
             # again once the model is gone.
@@ -767,10 +843,9 @@ class Engine:
             if not known:
                 raise AdapterError(f"unknown adapter {request.adapter!r} — "
                                    "register_adapter() first")
-        if request.grammar is not None:
+        if request.grammar is not None or request.logprobs > 0:
             self._token_strings()  # built here, not on the engine loop
-        handle = RequestHandle()
-        handle.t_submit = time.monotonic()
+        handle = self._new_handle(request)
         # The dead check and the append share _pending_lock with the loop's
         # set-dead-and-drain: a submit either sees the death or is drained.
         with self._pending_lock:
@@ -788,8 +863,54 @@ class Engine:
         self.start()
         return handle
 
+    def _new_handle(self, request: GenRequest) -> RequestHandle:
+        """A request's handle, its deadline (the request's, else the
+        engine default) and queue-timeout expiry pushed on the index the
+        loop's wait reads."""
+        handle = RequestHandle()
+        handle.t_submit = time.monotonic()
+        deadline_s = request.deadline_s or self.ecfg.deadline_s
+        if deadline_s > 0:
+            handle.deadline = handle.t_submit + deadline_s
+            self._deadlines.push(handle.deadline)
+        if self.ecfg.queue_timeout_s > 0:
+            self._deadlines.push(handle.t_submit + self.ecfg.queue_timeout_s)
+        return handle
+
     def generate(self, prompt_ids: list[int], **kw) -> tuple[str, TokenEvent]:
         return self.submit(GenRequest(prompt_ids=list(prompt_ids), **kw)).result()
+
+    def token_text(self, tok: int) -> str:
+        """The string of one token id (logprob entries of the API)."""
+        return self._token_str(tok)
+
+    def cancel_all(self) -> int:
+        """Cancel every active and pending request (and the branches of
+        pending fork groups); returns how many. The loop posts their
+        terminal events; with no live loop thread (never started, stopped,
+        dead) the pending ones are drained here, so no result() hangs."""
+        n = 0
+        with self._pending_lock:
+            for req, handle in self._pending:
+                handle.cancel()
+                n += 1
+                for _r, bh in (req.fork_group or ()):
+                    bh.cancel()
+                    n += 1
+        for slot in list(self.slots):
+            if slot is not None:
+                slot.handle.cancel()
+                n += 1
+        self._wake.set()
+        loop = self._thread
+        if loop is None or not loop.is_alive():
+            with self._pending_lock:
+                pending, self._pending = list(self._pending), deque()
+            for req, handle in pending:
+                self._resume_discard(req)
+                handle._q.put(TokenEvent(kind="done", finish_reason="stop"))
+                self._fork_group_fail(req, TokenEvent(kind="done", finish_reason="stop"))
+        return n
 
     @property
     def is_dead(self) -> bool:
@@ -814,6 +935,10 @@ class Engine:
             "kv_pages_peak": float(self.m_kv_pages_peak),
             "kv_pages_grown": float(self.m_kv_pages_grown),
             "kv_preemptions": float(self.m_kv_preemptions),
+            "queue_timeouts": float(self.m_queue_timeouts),
+            "deadline_expired": float(self.m_deadline_expired),
+            "fork_branches": float(self.m_forks),
+            "fork_clone_fallbacks": float(self.m_fork_clone_fallbacks),
             "kv_pages_spilled": float(self.m_kv_pages_spilled),
             "kv_spill_bytes_out": float(self.m_kv_spill_bytes_out),
             "spilled_pages": float(sum(len(d) for d in list(self._slot_spill))),
@@ -884,15 +1009,25 @@ class Engine:
             for i, slot in enumerate(self.slots):
                 if slot is not None:
                     slot.handle._q.put(TokenEvent(kind="error", error=err))
+                    self._fork_group_fail(slot.request, TokenEvent(kind="error", error=err))
                     self._release(i)
             for req, handle in pending:
                 self._resume_discard(req)
                 handle._q.put(TokenEvent(kind="error", error=err))
+                self._fork_group_fail(req, TokenEvent(kind="error", error=err))
+            with self._fork_lock:
+                staged, self._fork_requests = self._fork_requests, []
+            for _src, _seeds, handles in staged:
+                for bh in handles:
+                    bh._q.put(TokenEvent(kind="error", error=err))
 
     def _loop(self) -> None:
         while not self._shutdown.is_set():
+            self._deadlines.due(time.monotonic())  # pops what expired
             self._purge_pending()
+            self._enforce_deadlines()
             self._finish_cancelled()
+            self._service_forks()
             if self._growth_blocked and not self.h_active.any():
                 # The growth-starved slots are gone: nothing waits on pages.
                 self._growth_blocked = False
@@ -910,7 +1045,10 @@ class Engine:
             progressed = self._advance_chunked() or progressed
             self._spill_cold_pages()
             if not progressed:
-                self._wake.wait(timeout=0.05)
+                # Wake at the earliest deadline, so an idle engine still
+                # sheds a pending request on time.
+                due = self._deadlines.next_due() - time.monotonic()
+                self._wake.wait(timeout=min(0.05, max(due, 0.0)))
                 self._wake.clear()
 
     def _fail_block(self, e: Exception) -> None:
@@ -923,19 +1061,60 @@ class Engine:
                 self._release(i)
 
     def _purge_pending(self) -> None:
-        """Drop cancelled entries from the pending queue, one terminal
-        event each (admission only looks at the queue head, and only when a
-        slot is free)."""
+        """Drop cancelled, deadline-expired and queue-timed-out entries
+        from the pending queue, one terminal event each (admission only
+        looks at the queue head, and only when a slot is free: a saturated
+        engine would otherwise hold their callers' streams open)."""
         if not self._pending:
             return
         with self._pending_lock:
+            now = time.monotonic()
+            qt = self.ecfg.queue_timeout_s
             kept, dropped = deque(), []
-            for item in self._pending:
-                (dropped if item[1].cancelled.is_set() else kept).append(item)
+            for request, handle in self._pending:
+                if handle.cancelled.is_set():
+                    dropped.append((request, handle, None))
+                elif handle.deadline is not None and now > handle.deadline:
+                    dropped.append((request, handle, "deadline"))
+                elif qt > 0 and handle.t_submit > 0 and now - handle.t_submit > qt:
+                    dropped.append((request, handle, "queue-timeout"))
+                else:
+                    kept.append((request, handle))
             self._pending = kept
-        for req, handle in dropped:
-            self._resume_discard(req)
-            handle._q.put(TokenEvent(kind="done", finish_reason="stop"))
+        for request, handle, why in dropped:
+            self._resume_discard(request)
+            if why is None:
+                handle._q.put(TokenEvent(kind="done", finish_reason="stop"))
+                # A cancelled fork primary's live branches requeue as
+                # independents (each pays its own prefill).
+                self._fork_group_requeue(request)
+                continue
+            if why == "deadline":
+                self.m_deadline_expired += 1
+                waited = now - handle.t_submit if handle.t_submit else 0.0
+                err = f"deadline exceeded after {waited:.1f}s in queue (deadline_s)"
+            else:
+                self.m_queue_timeouts += 1
+                err = (f"request timed out after {self.ecfg.queue_timeout_s:.1f}s in queue "
+                       f"(queue_timeout_s) — server saturated")
+            handle.cancel()  # a racing admission must not serve it anyway
+            handle._q.put(TokenEvent(kind="error", error=err))
+            # An expired fork primary takes its whole group down: the
+            # branches share its prompt, deadline pressure and fate.
+            self._fork_group_fail(request, TokenEvent(kind="error", error=err))
+
+    def _enforce_deadlines(self) -> None:
+        """Cancel live slots whose deadline has passed. An active slot ends
+        right after (_finish_cancelled), a chunking one at its next chunk
+        boundary (_advance_chunked); both release their pages."""
+        now = time.monotonic()
+        for slot in self.slots:
+            if slot is None:
+                continue
+            h = slot.handle
+            if h.deadline is not None and now > h.deadline and not h.cancelled.is_set():
+                self.m_deadline_expired += 1
+                h.cancel()
 
     def _finish_cancelled(self) -> None:
         """Active slots whose caller cancelled end now (nothing is in
@@ -973,7 +1152,10 @@ class Engine:
             group: list[tuple[GenRequest, RequestHandle]] = []
             bucket = 0
             pages_planned = 0
-            chunk_item = swap_item = hit_item = None
+            chunk_item = swap_item = hit_item = fork_item = None
+            # Cancelled fork primaries requeue their live branches once the
+            # lock is released (_fork_group_requeue takes it).
+            requeue_forks: list[GenRequest] = []
             with self._pending_lock:
                 while self._pending and len(group) < len(free):
                     request, handle = self._pending[0]
@@ -981,6 +1163,8 @@ class Engine:
                         self._pending.popleft()
                         self._resume_discard(request)
                         handle._q.put(TokenEvent(kind="done", finish_reason="stop"))
+                        if request.fork_group:
+                            requeue_forks.append(request)
                         continue
                     if request.resume is not None and request.resume.get("mode") == "swap":
                         # A swap resume has no prefill to batch: alone.
@@ -995,13 +1179,20 @@ class Engine:
                         if not group:
                             chunk_item = (self._pending.popleft(), hit)
                         break
+                    if request.fork_group is not None:
+                        # A fork primary admits alone: its branches claim
+                        # more slots right after its prefill.
+                        if not group:
+                            fork_item = self._pending.popleft()
+                        break
                     if hit is not None:  # dense cache: the tail prefills alone
                         if not group:
                             hit_item = (self._pending.popleft(), hit)
                         break
-                    alone = request.adapter is not None or request.grammar is not None
+                    alone = (request.adapter is not None or request.grammar is not None
+                             or request.logprobs > 0)
                     if alone and group:
-                        break  # adapter and grammar requests admit alone: the group first
+                        break  # adapter, grammar and logprob requests admit alone
                     if self._paged:
                         need = self._pages_needed(request)
                         if pages_planned + need > len(self._free_pages):
@@ -1019,8 +1210,11 @@ class Engine:
                     if alone:
                         # An adapter request alone, so a fetch / promote
                         # failure fails exactly one tenant's request; a
-                        # grammar one, so its first token gets its mask.
+                        # grammar one, so its first token gets its mask; a
+                        # logprob one as the reference's variant split.
                         break
+            for req in requeue_forks:
+                self._fork_group_requeue(req)
             if swap_item is not None:
                 request, handle = swap_item
                 need = self._resume_swap_pages(request)
@@ -1039,6 +1233,11 @@ class Engine:
                 if not self._chunk_start(request, handle, hit):
                     return admitted  # pool backpressure — requeued at the head
                 self._note_admitted(handle)
+                admitted = True
+                continue
+            if fork_item is not None:
+                if not self._dispatch_fork_primary(fork_item, free[0]):
+                    return admitted  # pool backpressure — requeued at the head
                 admitted = True
                 continue
             if hit_item is not None:
@@ -1086,7 +1285,7 @@ class Engine:
         return samp, bias_rows, seeds
 
     def _install_first(self, logits, prompt, lens, samp, bias_rows, seeds, slot_ids,
-                       route=None):
+                       route=None, with_lp=False):
         """Sample each admitted prompt's first token (its noise keyed by the
         token's position, lens) and install the slots' device state:
         penalty counts (prompt + first token), bias row, the token, its
@@ -1095,8 +1294,11 @@ class Engine:
         draw to the start state's legal set (the stored bias row stays
         unmasked) and sets each slot's DFA state to the state after its
         token; "host" also returns the top GRAMMAR_TOPK ids of logits +
-        bias [m, K] for the host walk. Returns (first tokens [m], those ids
-        or None), on the device."""
+        bias [m, K] for the host walk. `with_lp` also returns each first
+        token's logprob [m], the top LOGPROB_TOPK ids [m, LK] and their
+        logprobs of log_softmax(logits + bias) (unmasked by the grammar).
+        Returns (first tokens [m], those ids or None, the logprobs or
+        None), on the device."""
         m, V = prompt.shape[0], self.cfg.vocab_size
         dev = self.device
         valid = (torch.arange(prompt.shape[1], device=dev)[None, :] < lens[:, None]).to(torch.int32)
@@ -1121,6 +1323,7 @@ class Engine:
         tk = None
         if route == "host":
             tk = torch.topk(logits.float() + bias_rows, min(self.GRAMMAR_TOPK, V), dim=-1).indices
+        lp = self._logprobs(logits, bias_rows, toks) if with_lp else None
         rows[torch.arange(m, device=dev), toks] += 1
         sl = torch.as_tensor(slot_ids, dtype=torch.int64, device=dev)
         self.counts[sl] = rows
@@ -1132,16 +1335,47 @@ class Engine:
             init = torch.full((m,), self._dfa["host"].init_state, dtype=torch.int32, device=dev)
             self.d_gstate[sl] = _gr.dfa_advance(dfa, self._dfa_table(dfa), self._g_cls, init,
                                                 toks)
-        return toks, tk
+        return toks, tk, lp
+
+    def _logprobs(self, logits: torch.Tensor, bias: torch.Tensor, toks: torch.Tensor):
+        """(the tokens' logprobs [m], top LOGPROB_TOPK ids [m, LK], their
+        logprobs [m, LK]) of log_softmax(logits + bias): the reference's
+        logprob epilogue, before penalties, temperature and grammar."""
+        logp = torch.log_softmax(logits.float() + bias, dim=-1)
+        vals, ids = torch.topk(logp, self._lk, dim=-1)
+        return logp.gather(1, toks[:, None].to(torch.int64))[:, 0], ids, vals
 
     @staticmethod
-    def _first_host(toks: torch.Tensor, tk: Optional[torch.Tensor]):
-        """The admission's one device-to-host copy: the first tokens [m] and
-        the host walk's candidates [m, K] (None without them)."""
-        if tk is None:
-            return toks.tolist(), None
-        both = torch.cat([toks[:, None], tk], dim=1).cpu().numpy()
-        return both[:, 0].tolist(), both[:, 1:]
+    def _f2i(x: torch.Tensor) -> torch.Tensor:
+        """f32 values as int64 holding their bits, to ride an id buffer."""
+        return x.float().contiguous().view(torch.int32).to(torch.int64)
+
+    @staticmethod
+    def _i2f(a: np.ndarray) -> np.ndarray:
+        """The host inverse of _f2i."""
+        return np.ascontiguousarray(a).astype(np.int32).view(np.float32)
+
+    def _first_host(self, toks: torch.Tensor, tk: Optional[torch.Tensor], lp=None):
+        """The admission's one device-to-host copy: the first tokens [m],
+        the host walk's candidates [m, K] and the logprobs [(token's, ids
+        [LK], values [LK])] per row (None without them)."""
+        parts = [toks[:, None]]
+        if tk is not None:
+            parts.append(tk)
+        if lp is not None:
+            parts += [self._f2i(lp[0][:, None]), lp[1], self._f2i(lp[2])]
+        if len(parts) == 1:
+            return toks.tolist(), None, None
+        both = torch.cat(parts, dim=1).cpu().numpy()
+        cands = lps = None
+        k = 1
+        if tk is not None:
+            cands, k = both[:, 1:1 + tk.shape[1]], 1 + tk.shape[1]
+        if lp is not None:
+            lk = self._lk
+            lps = [(float(self._i2f(row[k:k + 1])[0]), row[k + 1:k + 1 + lk],
+                    self._i2f(row[k + 1 + lk:k + 1 + 2 * lk])) for row in both]
+        return both[:, 0].tolist(), cands, lps
 
     def _claim_slot(self, s: int, request: GenRequest, handle: RequestHandle,
                     seed: int, t_admit: float, route=None) -> None:
@@ -1157,9 +1391,10 @@ class Engine:
         self.h_active[s] = True
         self.h_gmask[s] = 1.0 if dfa else 0.0
 
-    def _post_first(self, s: int, tok: int, cands=None) -> None:
-        """Post an admitted slot's first token; a host-walk slot first picks
-        its grammar's token from the sampled one and `cands`."""
+    def _post_first(self, s: int, tok: int, cands=None, lp=None) -> None:
+        """Post an admitted slot's first token (with its logprobs `lp`, if
+        any); a host-walk slot first picks its grammar's token from the
+        sampled one and `cands`."""
         slot = self.slots[s]
         tok = self._grammar_pick(s, tok, cands, admission=True)
         if tok is None:
@@ -1167,7 +1402,7 @@ class Engine:
         if not slot.t_first:  # a resumed request keeps its first-token time
             slot.t_first = time.monotonic()
         self.m_prompt_tokens += slot.prompt_len
-        self._post_token(s, tok)
+        self._post_token(s, tok, lp)
 
     def _dispatch_admit(self, group, bucket: int, slot_ids: list[int]) -> None:
         m = len(group)
@@ -1210,8 +1445,9 @@ class Engine:
                     raise RuntimeError("KV page pool exhausted at admission")
             table_rows = self._device_table(self.h_l1[slot_ids] if self._hier
                                             else self.h_ptable[slot_ids])
-        # A grammar request admits alone (_admit_pending).
+        # Grammar and logprob requests admit alone (_admit_pending).
         route = self._grammar_route(group[0][0]) if m == 1 else None
+        with_lp = m == 1 and group[0][0].logprobs > 0
         d_prompt, d_lens = torch.from_numpy(prompt).to(dev), torch.from_numpy(lens).to(dev)
         # Once any adapter is device-resident every admission carries the
         # stacks; adapter-less rows ride id 0, the exact-zero null adapter.
@@ -1227,9 +1463,9 @@ class Engine:
                                                 vs, j, kv_scale=self._kv_scales)
                 else:
                     llama.write_prefill_to_cache(self.cache, ks[:, j:j + 1], vs[:, j:j + 1], s)
-            toks, tk = self._install_first(logits, d_prompt, d_lens, samp, bias_rows, seeds,
-                                           slot_ids, route)
-            toks_host, cands = self._first_host(toks, tk)
+            toks, tk, lp = self._install_first(logits, d_prompt, d_lens, samp, bias_rows, seeds,
+                                               slot_ids, route, with_lp)
+            toks_host, cands, lps = self._first_host(toks, tk, lp)
         except Exception:
             if self._paged:
                 for s in slot_ids:
@@ -1245,8 +1481,11 @@ class Engine:
         for (r, _h), s in zip(group, slot_ids):
             # Before the first token posts: it may finish and free the slot.
             self._admission_save(s, r)
+        if group[0][0].fork_group is not None:  # a fork primary admits alone
+            self._fork_after_admit(slot_ids[0], group[0][0], logits, route)
         for j, s in enumerate(slot_ids):
-            self._post_first(s, int(toks_host[j]), None if cands is None else cands[j])
+            self._post_first(s, int(toks_host[j]), None if cands is None else cands[j],
+                             None if lps is None else lps[j])
 
     # ------------------------------------------------------------------ #
     # Decode blocks
@@ -1284,6 +1523,9 @@ class Engine:
         # from before the next step. DFA slots need nothing of the host.
         grammar = self._legacy_grammar_active()
         dfa = self._dfa["mode"] if self._dfa_grammar_active() else False
+        # A live logprob slot adds the logprob epilogue (its own graphs).
+        lp = any(self.h_active[i] and s is not None and s.request.logprobs > 0
+                 for i, s in enumerate(self.slots))
         n = 1 if grammar else self._pick_block_size()
         if not self._grow_for_decode(n):
             return False
@@ -1311,11 +1553,16 @@ class Engine:
                 win *= 2
             win = min(win, S)
         self._stage_block(act)
-        self._decode_block(n, variant, win, dfa)
-        cands = None
-        if grammar:  # the block's one device-to-host copy: ids and candidates
-            out = self._b_out.cpu().numpy()
-            toks, cands = out[:n], out[self._tk_row:].T
+        self._decode_block(n, variant, win, dfa, lp)
+        cands = lps = None
+        if grammar or lp:  # the block's one device-to-host copy: ids, candidates, logprobs
+            out = self._b_out[:self._lp_row + n * self._lp_w if lp else self._lp_row]
+            out = out.cpu().numpy()
+            toks = out[:n]
+            if grammar:
+                cands = out[self._tk_row:self._lp_row].T
+            if lp:
+                lps = out[self._lp_row:].reshape(n, self._lp_w, -1)
         else:
             toks = self._b_out[:n].cpu().numpy()  # the block's one device-to-host copy
         self.m_blocks += 1
@@ -1335,7 +1582,12 @@ class Engine:
                 if tok is None:
                     continue
                 consumed += 1
-                self._post_token(int(i), tok)
+                tlp = None
+                if lps is not None:
+                    col, lk = lps[step, :, i], self._lk
+                    tlp = (float(self._i2f(col[:1])[0]), col[1:1 + lk],
+                           self._i2f(col[1 + lk:1 + 2 * lk]))
+                self._post_token(int(i), tok, tlp)
         self._decode_tokens += consumed
         self._decode_time += time.monotonic() - t0
         return True
@@ -1393,36 +1645,39 @@ class Engine:
             return (rows, torch.from_numpy(self.h_l0).to(self.device))
         return rows
 
-    def _block_key(self, n: int, variant: str, win: int, dfa=False) -> tuple:
+    def _block_key(self, n: int, variant: str, win: int, dfa=False, lp=False) -> tuple:
         """What fixes a block's graph (the reference's block-cache key):
         the sampler variant, n, the dense read window (0 on a paged pool),
         once adapters are resident the stacks' (keys, rows, rank), for a
-        hierarchical table its layout, and with DFA slots live the mode and
-        the sizes of the table buffers (_g_dims)."""
+        hierarchical table its layout, with DFA slots live the mode and
+        the sizes of the table buffers (_g_dims), and the logprob
+        epilogue."""
         lora = None
         if self._lora_tree is not None:
             rows = next(iter(self._lora_tree.values()))["a"].shape[1]
             lora = (self._lora_keys, rows, self._lora_rank)
         return ((variant, n, win, lora) + self._table_key()
-                + ((("dfa", dfa) + self._g_dims,) if dfa else ()))
+                + ((("dfa", dfa) + self._g_dims,) if dfa else ())
+                + ((("lp",),) if lp else ()))
 
-    def _decode_block(self, n: int, variant: str, win: int, dfa=False) -> None:
+    def _decode_block(self, n: int, variant: str, win: int, dfa=False, lp=False) -> None:
         """Run the block body on the staged buffers: eagerly on the CPU; on
         the card as the CUDA graph of its shape, captured at the shape's
         first block and replayed from then on. A failed capture or replay
         raises (the loop fails the block's requests)."""
         if self.device.type != "cuda":
-            self._block_body(n, variant, win, dfa)
+            self._block_body(n, variant, win, dfa, lp)
             return
-        key = self._block_key(n, variant, win, dfa)
+        key = self._block_key(n, variant, win, dfa, lp)
         entry = self._graph_cache.get(key)
         if entry is None:
-            self._capture_block(key, n, variant, win, dfa)
+            self._capture_block(key, n, variant, win, dfa, lp)
         else:
             kernels.replay_counted(entry[0], entry[1])
             self.m_graph_replays += 1
 
-    def _capture_block(self, key: tuple, n: int, variant: str, win: int, dfa=False) -> None:
+    def _capture_block(self, key: tuple, n: int, variant: str, win: int, dfa=False,
+                       lp=False) -> None:
         """A shape's first block on the card. The body runs eagerly on the
         capture stream first: that run is the real block, and it does what
         must not happen inside a capture (loading the kernel libraries,
@@ -1446,12 +1701,12 @@ class Engine:
         def capture() -> None:
             graph.capture_begin(pool=self._graph_pool, capture_error_mode="thread_local")
             try:
-                self._block_body(n, variant, win, dfa)
+                self._block_body(n, variant, win, dfa, lp)
             finally:
                 graph.capture_end()
 
         with torch.cuda.stream(stream):
-            self._block_body(n, variant, win, dfa)
+            self._block_body(n, variant, win, dfa, lp)
             torch.cuda.synchronize(self.device)  # as torch.cuda.graph does before a capture
             deltas = kernels.captured_counts(capture)
         current.wait_stream(stream)
@@ -1459,7 +1714,7 @@ class Engine:
         self.m_graph_captures += 1
         self.m_graph_capture_s += time.monotonic() - t0
 
-    def _block_body(self, n: int, variant: str, win: int, dfa=False) -> None:
+    def _block_body(self, n: int, variant: str, win: int, dfa=False, lp=False) -> None:
         """n decode steps over every slot, on persistent device buffers
         only: it reads the staged controls (_b_pack, the table, _b_adapter),
         the tokens, positions and seeds, counts, bias, the cache and the
@@ -1472,7 +1727,9 @@ class Engine:
         tokens and advance d_gstate; the others ride the FREE state. The
         "grammar" variant (n = 1) samples as "filtered" and also writes
         each slot's top GRAMMAR_TOPK ids of logits + bias to _b_out from
-        row _tk_row. No host sync."""
+        row _tk_row. With `lp` each step also writes the sampled tokens'
+        logprobs and the top LOGPROB_TOPK of log_softmax(logits + bias) (the
+        unmasked distribution) from row _lp_row. No host sync."""
         cfg, B, S, V = self.cfg, self.ecfg.max_slots, self.ecfg.max_seq, self.cfg.vocab_size
         dev = self.device
         nf = len(_SAMPLING_FIELDS)
@@ -1517,9 +1774,15 @@ class Engine:
             nxt = torch.where(active, nxt, 0)
             self._b_out[step] = nxt
             if variant == "grammar":
-                K = self._b_out.shape[0] - self._tk_row
-                self._b_out[self._tk_row:] = torch.topk(logits.float() + self.bias, K,
-                                                        dim=-1).indices.T
+                K = self._lp_row - self._tk_row
+                self._b_out[self._tk_row:self._lp_row] = torch.topk(
+                    logits.float() + self.bias, K, dim=-1).indices.T
+            if lp:
+                tok_lp, ids, vals = self._logprobs(logits, self.bias, nxt)
+                r0, lk = self._lp_row + step * self._lp_w, self._lk
+                self._b_out[r0] = self._f2i(tok_lp)
+                self._b_out[r0 + 1:r0 + 1 + lk] = ids.T
+                self._b_out[r0 + 1 + lk:r0 + 1 + 2 * lk] = self._f2i(vals).T
             # Clamp so idle / overshooting slots stay inside their own rows.
             positions = torch.clamp(positions + 1, max=S - 1)
             tokens = nxt
@@ -1537,7 +1800,8 @@ class Engine:
     # Warmup (the reference's Engine.warmup)
     # ------------------------------------------------------------------ #
 
-    def warmup(self, prompt_len: int = 8, grammar: bool = False) -> None:
+    def warmup(self, prompt_len: int = 8, grammar: bool = False,
+               logprobs: bool = False) -> None:
         """Run every serving shape once before traffic arrives: one
         admission of each power-of-two group size up to max_slots at
         `prompt_len`'s bucket, then every decode-block shape the scheduler
@@ -1553,11 +1817,14 @@ class Engine:
         runs every DFA block shape, so serving those schemas captures
         nothing.
 
+        logprobs=True then also runs every block shape with the logprob
+        epilogue and a 2-token logprob request, so serving a logprob
+        request captures nothing.
+
         Runs against the live state with every slot idle (call it before
         traffic): throwaway writes land in idle rows or SCRATCH, and the
         per-slot device rows (counts, bias, tokens, positions, seeds, DFA
-        states) are put back as they were. The reference's logprobs
-        programs wait for their port."""
+        states) are put back as they were."""
         if any(s is not None for s in self.slots) or self._pending:
             raise RuntimeError("warmup() needs an idle engine: call it before traffic")
         state = (self.counts, self.bias, self.d_tokens, self.d_positions, self.d_seed,
@@ -1570,18 +1837,19 @@ class Engine:
             m *= 2
         S = self.ecfg.max_seq
         variants = ("greedy", "simple", "filtered")
-        for n in self.ecfg.block_sizes:
-            for variant in variants:
-                self._warm_block(n, variant, 0 if self._paged else S)
-        if not self._paged:
-            w = self._KV_WIN_MIN
-            while w < S:
+        for lp in (False, True) if logprobs else (False,):
+            for n in self.ecfg.block_sizes:
                 for variant in variants:
-                    self._warm_block(self.ecfg.block_sizes[0], variant, w)
-                w *= 2
-        _, ev = self.generate([1] * prompt_len, max_new_tokens=2)
-        if ev.kind != "done":
-            raise RuntimeError(f"warmup generate ended with {ev.kind}: {ev.error}")
+                    self._warm_block(n, variant, 0 if self._paged else S, lp=lp)
+            if not self._paged:
+                w = self._KV_WIN_MIN
+                while w < S:
+                    for variant in variants:
+                        self._warm_block(self.ecfg.block_sizes[0], variant, w, lp=lp)
+                    w *= 2
+            _, ev = self.generate([1] * prompt_len, max_new_tokens=2, logprobs=int(lp))
+            if ev.kind != "done":
+                raise RuntimeError(f"warmup generate ended with {ev.kind}: {ev.error}")
         if grammar:
             self._token_strings()  # built here, not on the engine loop
             full = 0 if self._paged else S  # constrained blocks read the whole cache
@@ -1623,15 +1891,15 @@ class Engine:
         samp = np.zeros((len(_SAMPLING_FIELDS), m), np.float32)
         samp[_SAMPLING_FIELDS.index("top_p")] = 1.0
         samp[_SAMPLING_FIELDS.index("repeat_penalty")] = 1.0
-        toks, _ = self._install_first(logits, prompt, lens, samp,
+        toks, _, _ = self._install_first(logits, prompt, lens, samp,
                                       np.zeros((m, self.cfg.vocab_size), np.float32),
                                       np.zeros((m,), np.int64), list(range(m)))
         toks.cpu()
 
-    def _warm_block(self, n: int, variant: str, win: int, dfa=False) -> None:
+    def _warm_block(self, n: int, variant: str, win: int, dfa=False, lp=False) -> None:
         """One decode block of this shape with every slot idle."""
         self._stage_block(np.zeros_like(self.h_active))
-        self._decode_block(n, variant, win, dfa)
+        self._decode_block(n, variant, win, dfa, lp)
         self._b_out.cpu()
 
     # ------------------------------------------------------------------ #
@@ -1997,25 +2265,29 @@ class Engine:
         return host
 
     # ------------------------------------------------------------------ #
-    # Chunked prefill (paged pool): a long prompt admits chunk by chunk,
-    # one chunk between two decode blocks. Mid chunks write K/V only; the
-    # final chunk also samples the first token and installs the slot.
+    # Chunked prefill: a long prompt admits chunk by chunk, one chunk
+    # between two decode blocks. Mid chunks write K/V only; the final chunk
+    # also samples the first token and installs the slot.
     # ------------------------------------------------------------------ #
 
     def _chunkable(self, request: GenRequest, match_len: int = 0) -> bool:
         """Whether a prompt admits chunk by chunk. Every prefix hit on a
         paged pool does (its chunks start at the page-aligned match, and
         B2's prefix walk reads the shared pages in place), as does a prompt
-        longer than prefill_chunk. Adapter prompts never do: the chunk pass
-        carries no per-slot LoRA operand (as in the JAX package), so they
-        admit single-shot. Under the sink + window every paged admission
-        longer than one chunk takes the chunks' masked prefix walk; shorter
-        misses stay single-shot, exact there because each query's window
-        covers the whole prompt (chunk <= window)."""
-        if not self._paged or request.adapter is not None:
+        whose uncached tail is longer than prefill_chunk (on a dense cache a
+        hit with a shorter tail takes the cached single-shot path). Adapter
+        prompts never do: the chunk pass carries no per-slot LoRA operand
+        (as in the JAX package), so they admit single-shot. Under the sink +
+        window every paged admission longer than one chunk takes the
+        chunks' masked prefix walk; shorter misses stay single-shot, exact
+        there because each query's window covers the whole prompt (chunk <=
+        window)."""
+        if request.adapter is not None:
             return False
         C = self.ecfg.prefill_chunk
-        return bool(match_len) or (bool(C) and len(request.prompt_ids) > C)
+        if self._paged:
+            return bool(match_len) or (bool(C) and len(request.prompt_ids) > C)
+        return bool(C) and len(request.prompt_ids) - match_len > C
 
     def _chunk_len(self) -> int:
         """Tokens a chunk prefills: prefill_chunk, or with chunking off (a
@@ -2050,6 +2322,37 @@ class Engine:
             entry = None  # not promoted, or evicted since the find
         if entry is None:
             match_len = 0
+        table_row = None
+        if self._paged:
+            table_row = self._chunk_pages(request, handle, slot_idx, entry, match_len)
+            if table_row is None:
+                return False
+        else:
+            # Dense: pin the idle slot's carried position at S - 1 first, so
+            # the decode blocks' idle writes land past the rows the chunks
+            # write; a hit's span seeds the slot's rows, which the chunks
+            # then read as their prefix.
+            self.d_positions[slot_idx] = self.ecfg.max_seq - 1
+            if entry is not None:
+                llama.write_rows_to_cache(self.cache, slot_idx, entry["k"], entry["v"], 0)
+        if entry is not None:
+            self._prefix_bump(entry)
+            self.m_prefix_hits += 1
+            self.m_prefix_tokens += match_len
+        self.slots[slot_idx] = _Slot(request=request, handle=handle, prompt_len=len(ids),
+                                     sched_rows=len(ids), t_submit=handle.t_submit)
+        self._chunkings.append({"request": request, "handle": handle, "slot": slot_idx,
+                                "ids": ids, "offset": match_len, "t0": time.monotonic(),
+                                "table_row": table_row})
+        return True
+
+    def _chunk_pages(self, request: GenRequest, handle: RequestHandle, slot_idx: int,
+                     entry: Optional[dict], match_len: int) -> Optional[np.ndarray]:
+        """A paged chunked admission's table: the hit's span read-only,
+        then fresh pages for the rows the chunks write (plus headroom).
+        None, with the request back at the queue head, when the pool cannot
+        cover it."""
+        ids = request.prompt_ids
         page = self.ecfg.kv_page_size
         shared = entry["pages"][: match_len // page] if entry is not None else []
         rows = self._chunk_admit_rows(len(ids), match_len)
@@ -2065,7 +2368,7 @@ class Engine:
         if table_row is None:
             with self._pending_lock:
                 self._pending.appendleft((request, handle))
-            return False
+            return None
         # The slot stays on SCRATCH until its final chunk: decode blocks
         # write every slot each step, and must not reach pages this
         # prefill owns. The chunk dispatches carry the real row (the
@@ -2074,16 +2377,7 @@ class Engine:
             self.h_l1[slot_idx, :] = self._scratch_tp
         else:
             self.h_ptable[slot_idx] = self._scratch_page
-        if entry is not None:
-            self._prefix_bump(entry)
-            self.m_prefix_hits += 1
-            self.m_prefix_tokens += match_len
-        self.slots[slot_idx] = _Slot(request=request, handle=handle, prompt_len=len(ids),
-                                     sched_rows=len(ids), t_submit=handle.t_submit)
-        self._chunkings.append({"request": request, "handle": handle, "slot": slot_idx,
-                                "ids": ids, "offset": match_len, "t0": time.monotonic(),
-                                "table_row": table_row})
-        return True
+        return table_row
 
     def _advance_chunked(self) -> bool:
         """Run the next chunk of the oldest chunked admission. Returns
@@ -2094,6 +2388,7 @@ class Engine:
         slot_idx = st["slot"]
         if st["handle"].cancelled.is_set():
             st["handle"]._q.put(TokenEvent(kind="done", finish_reason="stop"))
+            self._fork_group_requeue(st["request"])
             self._release(slot_idx)
             return True
         if self.h_active.any():
@@ -2108,24 +2403,41 @@ class Engine:
                 self._dispatch_chunk_final(st)
         except Exception as e:  # noqa: BLE001 — fail the request, keep serving
             log.exception("chunked prefill dispatch failed (slot %d)", slot_idx)
-            st["handle"]._q.put(TokenEvent(kind="error", error=f"{type(e).__name__}: {e}"))
+            ev = TokenEvent(kind="error", error=f"{type(e).__name__}: {e}")
+            st["handle"]._q.put(ev)
+            self._fork_group_fail(st["request"], ev)
             self._release(slot_idx)
         return True
 
     def _dispatch_chunk(self, st: dict, n: int, with_logits: bool = False):
         """Prefill `n` tokens of a chunked admission at its offset against
-        the rows already in its pages, writing theirs (the final tail is
-        bucketed). Returns the last token's logits [1, V], or None."""
+        the rows already written for it, writing theirs (the final tail is
+        bucketed). Paged, through its pages (B2's prefix walk); dense,
+        `prefill_tail` over the slot's rows up to the read window
+        _bucket_for(offset), its rows written after them, and the slot's
+        carried position pinned at S - 1 again. Returns the last token's
+        logits [1, V], or None."""
         offset = st["offset"]
         seg = st["ids"][offset: offset + n]
         toks = np.zeros((1, self._bucket_for(len(seg)) if with_logits else n), np.int64)
         toks[0, : len(seg)] = seg
         dev = self.device
-        logits, _ = llama.prefill_chunk_paged(
-            self.cfg, self.params, torch.from_numpy(toks).to(dev),
-            torch.tensor([len(seg)], device=dev), torch.tensor([offset], device=dev),
-            self.cache, self._device_table(st["table_row"][None]),
-            with_logits=with_logits, kv_scale=self._kv_scales)
+        d_toks = torch.from_numpy(toks).to(dev)
+        d_len, d_off = torch.tensor([len(seg)], device=dev), torch.tensor([offset], device=dev)
+        if self._paged:
+            logits, _ = llama.prefill_chunk_paged(
+                self.cfg, self.params, d_toks, d_len, d_off,
+                self.cache, self._device_table(st["table_row"][None]),
+                with_logits=with_logits, kv_scale=self._kv_scales)
+        else:
+            s, pwin = st["slot"], self._bucket_for(max(offset, 1))
+            logits, tks, tvs = llama.prefill_tail(
+                self.cfg, self.params, d_toks, d_len, d_off,
+                self.cache.k[:, s:s + 1, :pwin], self.cache.v[:, s:s + 1, :pwin])
+            llama.write_rows_to_cache(self.cache, s, tks, tvs, offset)
+            self.d_positions[s] = self.ecfg.max_seq - 1
+            if not with_logits:
+                logits = None
         self.m_prefill_chunks += 1
         return logits
 
@@ -2139,18 +2451,391 @@ class Engine:
         dev = self.device
         route = self._grammar_route(request)
         full = torch.as_tensor(np.asarray([ids], np.int64)).to(dev)
-        toks, tk = self._install_first(logits, full, torch.tensor([len(ids)], device=dev),
-                                       samp, bias_rows, seeds, [s], route)
-        toks_host, cands = self._first_host(toks, tk)
+        toks, tk, lp = self._install_first(logits, full, torch.tensor([len(ids)], device=dev),
+                                           samp, bias_rows, seeds, [s], route,
+                                           request.logprobs > 0)
+        toks_host, cands, lps = self._first_host(toks, tk, lp)
         # Publish the real table: blocks from here on read and write it.
         if self._hier:
             self.h_l1[s] = st["table_row"]
-        else:
+        elif self._paged:
             self.h_ptable[s] = st["table_row"]
         self.m_chunked_admits += 1
         self._claim_slot(s, request, handle, int(seeds[0]), st["t0"], route)
         self._admission_save(s, request)
-        self._post_first(s, int(toks_host[0]), None if cands is None else cands[0])
+        if request.fork_group is not None:
+            self._fork_after_admit(s, request, logits, route)
+        self._post_first(s, int(toks_host[0]), None if cands is None else cands[0],
+                         None if lps is None else lps[0])
+
+    # ------------------------------------------------------------------ #
+    # Tree sampling: a same-prompt group (n > 1, best_of) admits ONE
+    # prefill and forks the primary's slot per branch: each branch takes a
+    # reference on the full prompt pages (whole table pages too), a private
+    # copy of the partly filled boundary page, and samples its own first
+    # token from the primary's final logits by the clone admission's own
+    # recipe (_install_first). fork() forks a live stream mid-way.
+    # ------------------------------------------------------------------ #
+
+    def _fork_supported(self, requests: list[GenRequest]) -> bool:
+        """Whether a group can admit by forking: a paged pool with
+        fork_sampling, and every branch agreeing on what shapes the
+        prompt's K/V and the first token's mask (the adapter, the logit
+        bias, grammar or none). Resumed requests clone."""
+        if not (self._paged and self.ecfg.fork_sampling):
+            return False
+        r0 = requests[0]
+        b0 = r0.logit_bias or {}
+        g0 = r0.grammar is not None
+        for r in requests:
+            if r.resume is not None or r.adapter != r0.adapter:
+                return False
+            if (r.logit_bias or {}) != b0 or (r.grammar is not None) != g0:
+                return False
+        return True
+
+    def _pages_fork_need(self, request: GenRequest) -> int:
+        """Fresh pages one forked branch claims: its copy of the partly
+        filled boundary page (if the prompt does not end on a page) plus
+        decode headroom, never past what it could write beyond the shared
+        span. The rest it shares with the primary."""
+        page = self.ecfg.kv_page_size
+        plen = len(request.prompt_ids)
+        partial = 1 if plen % page else 0
+        cap = max(partial, self._pages_worst(request) - plen // page)
+        return min(partial + self.ecfg.kv_page_headroom, cap)
+
+    def submit_fork(self, requests: list[GenRequest]) -> list[RequestHandle]:
+        """Admit a group of same-prompt requests with ONE prefill: the
+        first is the primary and takes the ordinary admission (single-shot,
+        chunked or a prefix hit); the rest fork off its slot right after
+        its prefill. An engine or group that cannot fork (dense cache,
+        fork_sampling off, mixed adapters / bias / grammar) submits N
+        independent requests: the same outputs, N prefills. Returns one
+        handle per request, in order."""
+        if not requests:
+            return []
+        if len(requests) == 1:
+            return [self.submit(requests[0])]
+        p0 = list(requests[0].prompt_ids)
+        for r in requests[1:]:
+            if list(r.prompt_ids) != p0:
+                raise ValueError("submit_fork requires identical prompts across the group")
+        if not self._fork_supported(requests):
+            return [self.submit(r) for r in requests]
+        branches = []
+        limit = self.ecfg.max_seq - 1
+        for r in requests[1:]:
+            ids = list(r.prompt_ids)
+            if len(ids) > limit:  # submit()'s truncation, as the primary's
+                ids = [ids[0]] + ids[-(limit - 1):]
+            rr = dataclasses.replace(r, prompt_ids=ids, fork_group=None)
+            branches.append((rr, self._new_handle(rr)))
+        primary = dataclasses.replace(requests[0], fork_group=branches)
+        try:
+            h0 = self.submit(primary)
+        except BaseException as e:
+            # The branch handles never reach the loop: close them here.
+            for _r, bh in branches:
+                bh._q.put(TokenEvent(kind="error", error=f"fork submit failed: {e}"))
+            raise
+        if self._loop_dead is not None:
+            # submit() saw a dead loop and errored the primary; nothing
+            # will ever detach the group. A duplicate terminal is harmless.
+            for _r, bh in branches:
+                bh._q.put(TokenEvent(kind="error", error=self._loop_dead))
+        return [h0] + [bh for _r, bh in branches]
+
+    def _fork_group_fail(self, request: GenRequest, event: TokenEvent) -> None:
+        """A fork primary's terminal event goes to every branch handle (the
+        branches never reach _pending, so no other path would close them)."""
+        group = request.fork_group
+        if not group:
+            return
+        request.fork_group = None
+        for _r, h in group:
+            h._q.put(dataclasses.replace(event))
+
+    def _fork_group_requeue(self, request: GenRequest) -> None:
+        """The fork primary was cancelled before its admission: its live
+        branches requeue as independent requests (each pays its own
+        prefill), cancelled ones get their terminal event. Takes
+        _pending_lock."""
+        group = request.fork_group
+        if not group:
+            return
+        request.fork_group = None
+        live = []
+        for r, h in group:
+            if h.cancelled.is_set():
+                h._q.put(TokenEvent(kind="done", finish_reason="stop"))
+            else:
+                live.append((r, h))
+        if not live:
+            return
+        with self._pending_lock:
+            dead = self._loop_dead
+            if dead is None:
+                self._pending.extend(live)
+        if dead is not None:
+            for _r, h in live:
+                h._q.put(TokenEvent(kind="error", error=dead))
+            return
+        self._wake.set()
+
+    def _dispatch_fork_primary(self, item: tuple, slot_idx: int) -> bool:
+        """A fork primary's single-shot admission, budgeting the pages of
+        the whole tree when the pool can ever hold it. Returns False, with
+        the primary back at the queue head, on pool backpressure; a failed
+        admission fails the whole group."""
+        request, handle = item
+        need = self._pages_needed(request)
+        tree = need + sum(self._pages_fork_need(r) for r, _h in request.fork_group)
+        if tree <= self.ecfg.kv_pages:
+            need = tree
+        if need > len(self._free_pages):
+            self._prefix_evict_for_pages(need)
+        if need > len(self._free_pages):
+            with self._pending_lock:
+                self._pending.appendleft(item)
+            return False
+        self._note_admitted(handle)
+        try:
+            self._dispatch_admit([item], self._bucket_for(len(request.prompt_ids)), [slot_idx])
+        except Exception as e:  # noqa: BLE001 — surface to callers, keep serving
+            log.exception("fork primary admission failed")
+            ev = TokenEvent(kind="error", error=f"{type(e).__name__}: {e}")
+            handle._q.put(ev)
+            self._fork_group_fail(request, ev)
+        return True
+
+    def _fork_after_admit(self, src: int, request: GenRequest, logits: torch.Tensor,
+                          route=None) -> None:
+        """Admit the primary's branches by forking its freshly admitted
+        slot, before anything else touches it: each branch references the
+        full prompt pages (and, hierarchical, the whole table pages over
+        them), gets a private copy of the boundary page, and samples its
+        first token from the primary's final logits [1, V]. Branches that
+        cannot fork (no free slot, pool pressure, an adapter pin failure, a
+        failed dispatch) admit as clones through _pending."""
+        branches, request.fork_group = request.fork_group, None
+        if not branches:
+            return
+        page = self.ecfg.kv_page_size
+        plen = len(request.prompt_ids)
+        nfull, partial = divmod(plen, page)
+        src_pages = list(self._slot_pages[src])
+        clones, forked, copies = [], [], []
+        taken: set[int] = set()
+        for r, h in branches:
+            if h.cancelled.is_set():
+                h._q.put(TokenEvent(kind="done", finish_reason="stop"))
+                continue
+            dst = next((i for i, s in enumerate(self.slots) if s is None and i not in taken),
+                       None)
+            if dst is None:
+                clones.append((r, h))
+                continue
+            need = self._pages_fork_need(r)
+            if len(self._free_pages) < need:
+                self._prefix_evict_for_pages(need)
+            row = self._pages_alloc(dst, need, shared=src_pages[:nfull],
+                                    shared_tps=self._slot_tps[src] if self._hier else None)
+            if row is None:
+                clones.append((r, h))
+                continue
+            arow = 0
+            if r.adapter:
+                try:
+                    arow = self._adapter_acquire(r.adapter)
+                except Exception:  # noqa: BLE001 — this branch clones
+                    self._pages_free(dst)
+                    clones.append((r, h))
+                    continue
+            if partial:
+                copies.append((src_pages[nfull], self._slot_pages[dst][nfull]))
+            taken.add(dst)
+            forked.append((dst, r, h, arow))
+        if forked:
+            try:
+                self._dispatch_fork(request.prompt_ids, forked, copies, logits, route)
+                self.m_forks += len(forked)
+            except Exception:  # noqa: BLE001 — degrade to clones, keep serving
+                log.exception("fork dispatch failed: %d branches admit as clones",
+                              len(forked))
+                for dst, r, h, arow in forked:
+                    if self.slots[dst] is not None:
+                        self._release(dst)
+                    else:
+                        self._pages_free(dst)
+                        self._adapter_unpin(arow)
+                    clones.append((r, h))
+        if clones:
+            self.m_fork_clone_fallbacks += len(clones)
+            with self._pending_lock:
+                self._pending.extend(clones)
+            self._wake.set()
+
+    def _dispatch_fork(self, prompt_ids: list[int], forked: list, copies: list,
+                       logits: torch.Tensor, route) -> None:
+        """Device work and slot installs of a fork set: the boundary-page
+        copies first (on the one stream, before any block writes a copy),
+        then each branch's first token by the clone admission's recipe on
+        the primary's logits (its own seed, noise keyed by the prompt
+        length, penalty counts of the prompt), one host read, the slots."""
+        dev = self.device
+        if copies:
+            sidx = torch.as_tensor([a for a, _b in copies], dtype=torch.int64, device=dev)
+            didx = torch.as_tensor([b for _a, b in copies], dtype=torch.int64, device=dev)
+            for pool in (self.cache.k, self.cache.v):
+                pool[:, didx] = pool[:, sidx]
+        nb = len(forked)
+        group = [(r, h) for _d, r, h, _a in forked]
+        dsts = [d for d, _r, _h, _a in forked]
+        samp, bias_rows, seeds = self._request_controls(group)
+        prompt = torch.as_tensor(np.asarray([prompt_ids] * nb, np.int64)).to(dev)
+        lens = torch.full((nb,), len(prompt_ids), dtype=torch.int64, device=dev)
+        with_lp = any(r.logprobs > 0 for r, _h in group)
+        toks, tk, lp = self._install_first(logits.expand(nb, -1).contiguous(), prompt, lens,
+                                           samp, bias_rows, seeds, dsts, route, with_lp)
+        toks_host, cands, lps = self._first_host(toks, tk, lp)
+        t0 = time.monotonic()
+        for j, (dst, r, h, arow) in enumerate(forked):
+            self._note_admitted(h)
+            self._claim_slot(dst, r, h, int(seeds[j]), t0, route)
+            self.h_adapter[dst] = arow
+        for j, dst in enumerate(dsts):
+            if self.slots[dst] is not None:
+                self._post_first(dst, int(toks_host[j]), None if cands is None else cands[j],
+                                 None if lps is None else lps[j])
+
+    def fork(self, handle: RequestHandle, n: int = 1,
+             seeds: Optional[list] = None) -> list[RequestHandle]:
+        """Fork a live stream `n` ways at its current position: each branch
+        inherits the prompt and the generation so far (paged: the K/V
+        shared by page references, the boundary page copied) and decodes on
+        with a seed of its own. Branch streams carry only the tokens after
+        the fork. Runs on the loop thread between its iterations; a source
+        that is no active stream by then gives each branch an error event.
+        A dense engine requeues prompt + generation as a fresh request. A
+        mid-stream fork has no clone to equal: no clone continues a
+        stream. Thread-safe."""
+        if n < 1:
+            raise ValueError("fork n must be >= 1")
+        if seeds is not None and len(seeds) != n:
+            raise ValueError(f"fork got {len(seeds)} seeds for n={n}")
+        out = []
+        for _ in range(n):
+            bh = RequestHandle()
+            bh.t_submit = time.monotonic()
+            out.append(bh)
+        entry = (handle, list(seeds) if seeds is not None else [None] * n, out)
+        with self._fork_lock:
+            self._fork_requests.append(entry)
+        # After the append: a loop that died drained the staged forks under
+        # _fork_lock after setting _loop_dead, so a live read means ours is
+        # still ahead of any drain.
+        dead = self._loop_dead
+        if dead is not None:
+            with self._fork_lock:
+                self._fork_requests = [e for e in self._fork_requests if e is not entry]
+            for bh in out:
+                bh._q.put(TokenEvent(kind="error", error=dead))
+            return out
+        self._wake.set()
+        return out
+
+    def _service_forks(self) -> None:
+        """Run the mid-stream forks fork() staged (loop thread, between
+        iterations: nothing is in flight, so every live slot's device rows
+        match its host state)."""
+        if not self._fork_requests:
+            return
+        with self._fork_lock:
+            staged, self._fork_requests = self._fork_requests, []
+        for src_handle, seeds, handles in staged:
+            src = next((i for i, s in enumerate(self.slots)
+                        if s is not None and s.handle is src_handle and self.h_active[i]), None)
+            if src is None:
+                for bh in handles:
+                    bh._q.put(TokenEvent(kind="error",
+                                         error="fork source is not an active stream"))
+                continue
+            self._fork_midstream(src, seeds, handles)
+
+    def _fork_midstream(self, src: int, seeds: list, handles: list) -> None:
+        """Fork one live slot. Paged: reference the full pages below the
+        boundary (the rows written so far), copy the boundary page, copy
+        the slot's device rows (counts, bias, token, position, DFA state)
+        and give the branch a seed mixed from the source's and a salt.
+        Dense: prompt + generation requeue as a fresh request whose stream
+        continues from the fork point."""
+        slot = self.slots[src]
+        req0 = slot.request
+        gen = list(slot.generated)
+        boundary = slot.prompt_len + max(0, len(gen) - 1)
+        page = self.ecfg.kv_page_size
+        for j, bh in enumerate(handles):
+            seed = seeds[j]
+            salt = (int(seed) & 0x7FFFFFFF if seed is not None
+                    else int.from_bytes(os.urandom(4), "little") & 0x7FFFFFFF)
+            rg = copy.deepcopy(req0.grammar) if req0.grammar is not None else None
+            if not self._paged:
+                r = dataclasses.replace(
+                    req0, prompt_ids=list(req0.prompt_ids) + gen, fork_group=None, resume=None,
+                    grammar=rg, seed=int(seed) if seed is not None else req0.seed,
+                    max_new_tokens=max(1, req0.max_new_tokens - len(gen)))
+                with self._pending_lock:
+                    self._pending.append((r, bh))
+                self.m_fork_clone_fallbacks += 1
+                self._wake.set()
+                continue
+            dst = next((i for i, s in enumerate(self.slots) if s is None), None)
+            nfull, partial = divmod(boundary, page)
+            src_pages = list(self._slot_pages[src])
+            need = min((1 if partial else 0) + self.ecfg.kv_page_headroom,
+                       max(1 if partial else 0, self._pages_worst(req0) - nfull))
+            row = None
+            if dst is not None:
+                if len(self._free_pages) < need:
+                    self._prefix_evict_for_pages(need)
+                row = self._pages_alloc(dst, need, shared=src_pages[:nfull],
+                                        shared_tps=self._slot_tps[src] if self._hier else None)
+            if row is None:
+                bh._q.put(TokenEvent(kind="error", error="fork failed: no slot/page capacity"))
+                continue
+            arow = 0
+            if req0.adapter:
+                try:
+                    arow = self._adapter_acquire(req0.adapter)
+                except Exception:  # noqa: BLE001 — fail this branch only
+                    self._pages_free(dst)
+                    bh._q.put(TokenEvent(kind="error", error="fork failed: adapter pin"))
+                    continue
+            if partial:
+                sp, dp = src_pages[nfull], self._slot_pages[dst][nfull]
+                for pool in (self.cache.k, self.cache.v):
+                    pool[:, dp] = pool[:, sp]
+            for t in (self.counts, self.bias, self.d_tokens, self.d_positions, self.d_gstate):
+                t[dst] = t[src]
+            new_seed = (int(self.h_seed[src]) * 1000003 + salt) & 0x7FFFFFFF
+            self.d_seed[dst] = new_seed
+            self.h_seed[dst] = new_seed
+            r = dataclasses.replace(req0, prompt_ids=list(req0.prompt_ids), fork_group=None,
+                                    resume=None, grammar=rg,
+                                    seed=int(seed) if seed is not None else req0.seed)
+            for k in _SAMPLING_FIELDS:
+                self.h_sampling[k][dst] = getattr(r, k)
+            ns = _Slot(request=r, handle=bh, prompt_len=slot.prompt_len, generated=list(gen),
+                       emitted_len=slot.emitted_len, scheduled=len(gen), sched_rows=boundary,
+                       t_submit=bh.t_submit, dfa=slot.dfa)
+            ns.t_admit = ns.t_first = time.monotonic()
+            self.slots[dst] = ns
+            self.h_active[dst] = True
+            self.h_gmask[dst] = self.h_gmask[src]
+            self.h_adapter[dst] = arow
+            self.m_forks += 1
+            self._note_admitted(bh)
 
     # ------------------------------------------------------------------ #
     # Prefix cache (loop thread only): an LRU of prefilled K/V spans keyed
@@ -2400,15 +3085,17 @@ class Engine:
         samp, bias_rows, seeds = self._request_controls([(request, handle)])
         route = self._grammar_route(request)
         full = torch.as_tensor(np.asarray([ids], np.int64)).to(dev)
-        first, tk = self._install_first(logits, full, torch.tensor([len(ids)], device=dev),
-                                        samp, bias_rows, seeds, [slot_idx], route)
-        toks_host, cands = self._first_host(first, tk)
+        first, tk, lp = self._install_first(logits, full, torch.tensor([len(ids)], device=dev),
+                                            samp, bias_rows, seeds, [slot_idx], route,
+                                            request.logprobs > 0)
+        toks_host, cands, lps = self._first_host(first, tk, lp)
         self._prefix_bump(entry)
         self.m_prefix_hits += 1
         self.m_prefix_tokens += match_len
         self._claim_slot(slot_idx, request, handle, int(seeds[0]), t0, route)
         self._admission_save(slot_idx, request)
-        self._post_first(slot_idx, int(toks_host[0]), None if cands is None else cands[0])
+        self._post_first(slot_idx, int(toks_host[0]), None if cands is None else cands[0],
+                         None if lps is None else lps[0])
 
     # ------------------------------------------------------------------ #
     # Host swap tier: page images in pinned host memory. Copies go on the
@@ -2872,13 +3559,27 @@ class Engine:
     # Token bookkeeping / streaming
     # ------------------------------------------------------------------ #
 
-    def _post_token(self, slot_idx: int, tok: int) -> None:
-        """Append one generated token to a slot: stream text, check stops."""
+    def _post_token(self, slot_idx: int, tok: int, lp=None) -> None:
+        """Append one generated token to a slot: stream text, check stops.
+        `lp`, for a logprob request, is this step's (the sampled token's
+        logprob, top LOGPROB_TOPK ids, their logprobs)."""
         slot = self.slots[slot_idx]
         r, handle = slot.request, slot.handle
         if handle.cancelled.is_set():
             self._finish(slot_idx, "stop")
             return
+        logprob = top_logprobs = None
+        if lp is not None and r.logprobs > 0:
+            tok_lp, lp_ids, lp_vals = lp
+            logprob = float(tok_lp)
+            ids = [int(i) for i in lp_ids]
+            if r.grammar is not None and not slot.dfa:
+                # The host walk may replace the sampled token: the emitted
+                # one's logprob comes from the top list when it is there.
+                # (A DFA slot samples from its mask: its token is emitted.)
+                logprob = float(lp_vals[ids.index(tok)]) if tok in ids else None
+            top_logprobs = [(i, float(v)) for i, v in zip(ids[:r.logprobs],
+                                                          lp_vals[:r.logprobs])]
         is_eos = (not r.ignore_eos) and tok in self.tokenizer.eos_ids
         if not is_eos:
             slot.generated.append(tok)
@@ -2934,7 +3635,8 @@ class Engine:
             # Every generated token posts exactly one event, even when all
             # its bytes are held back; an EOS posts only to flush held text.
             slot.emitted_len += len(new)
-            handle._q.put(TokenEvent(kind="token", text=new, token_id=tok))
+            handle._q.put(TokenEvent(kind="token", text=new, token_id=tok, logprob=logprob,
+                                     top_logprobs=top_logprobs))
         if finish is not None:
             self._finish(slot_idx, finish)
 

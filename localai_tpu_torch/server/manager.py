@@ -10,11 +10,15 @@ N tenants cost one set of base weights.
 
 Not ported yet: the watchdog, crash-only quarantine and config watcher
 (ROADMAP Queue A item 11, runtime, observability and faults), and every
-backend but `llama` (item 13, satellite engines and models).
+backend but `llama` (item 13, satellite engines and models). No YAML or
+server knob is dropped in silence: the bounded-admission and fork knobs
+reach the engine, a knob of an unported item fails the load (or, for the
+server's, its startup) naming the item, and the multi-GPU ones warn.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import logging
 import os
@@ -39,9 +43,45 @@ log = logging.getLogger("localai_tpu_torch.manager")
 # always launch their kernels on the card.
 _ROUTE_SWITCHES = ("paged_kernel", "quant_kernel", "lora_kernel")
 
+# Model knobs of ROADMAP Queue A items not ported yet: set away from its
+# default, one fails the load naming its item.
+_UNPORTED_MODEL_KNOBS = (
+    (("draft_model", "n_draft", "spec_mode", "self_draft_layers", "spec_accept_ewma",
+      "spec_draft_buckets"), "8, speculative decoding"),
+    (("trace_journal_events",), "11, runtime, observability and faults"),
+)
+# Server knobs of items not ported yet: set, one fails the server's startup.
+_UNPORTED_APP_KNOBS = (
+    (("postmortem_dir",), "11, runtime, observability and faults"),
+    (("cluster_replicas", "cluster_peers"), "12, cluster"),
+)
+
+
+def _non_default(obj, keys) -> list[str]:
+    """`key=value` of each dataclass field in `keys` set away from its
+    default."""
+    fields = {f.name: f for f in dataclasses.fields(obj)}
+    out = []
+    for k in keys:
+        f = fields[k]
+        default = f.default_factory() if f.default is dataclasses.MISSING else f.default
+        if getattr(obj, k) != default:
+            out.append(f"{k}={getattr(obj, k)!r}")
+    return out
+
+
+def check_app_knobs(app_cfg: ApplicationConfig) -> None:
+    """Server startup refuses a server knob of an unported item."""
+    for keys, item in _UNPORTED_APP_KNOBS:
+        bad = [f"{k}={getattr(app_cfg, k)!r}" for k in keys if getattr(app_cfg, k)]
+        if bad:
+            raise UnsupportedBackendError(
+                f"{', '.join(bad)}: not ported yet (ROADMAP Queue A item {item}) — unset it")
+
 
 class UnsupportedBackendError(NotImplementedError):
-    """A model config names a backend the port does not serve yet."""
+    """A model config names a backend the port does not serve yet, or sets
+    a knob of a module it has not ported."""
 
 
 class LoadedModel:
@@ -115,6 +155,7 @@ class Lease:
 class ModelManager:
     def __init__(self, app_cfg: ApplicationConfig,
                  config_loader: Optional[ModelConfigLoader] = None, device="cuda"):
+        check_app_knobs(app_cfg)
         self.device = resolve_device(device)
         self.app_cfg = app_cfg
         self.configs = config_loader or ModelConfigLoader(app_cfg.models_dir)
@@ -301,6 +342,20 @@ class ModelManager:
         if "prefix_admit_async_compile" in cfg.options:
             log.warning("model %s: prefix_admit_async_compile ignored — the port's cached "
                         "admission runs eagerly and compiles nothing", cfg.name)
+        for keys, item in _UNPORTED_MODEL_KNOBS:
+            bad = _non_default(cfg, keys)
+            if bad:
+                raise UnsupportedBackendError(
+                    f"model {cfg.name!r}: {', '.join(bad)} not ported yet (ROADMAP Queue A "
+                    f"item {item}) — remove it from the model config")
+        # The reference acts on these only across devices, and degrades a
+        # tp the devices cannot hold: one warning each.
+        multi = _non_default(cfg, ("sp_prefill",))
+        if cfg.tensor_parallel > 1:
+            multi.insert(0, f"tensor_parallel={cfg.tensor_parallel!r}")
+        for knob in multi:
+            log.warning("model %s: %s ignored — the port serves one GPU (ROADMAP Queue A "
+                        "item 14, multi-GPU)", cfg.name, knob)
         t0 = time.monotonic()
         ckpt_dir: Optional[str] = None
         if cfg.model in PRESETS:
@@ -347,6 +402,8 @@ class ModelManager:
                 max_pending=cfg.max_pending, adapter_cache_bytes=cfg.adapter_cache_bytes,
                 attention_sink=cfg.attention_sink, attention_window=cfg.attention_window,
                 kv_spill_bytes=cfg.kv_spill_bytes, kv_l1_span=cfg.kv_l1_span,
+                queue_timeout_s=cfg.queue_timeout_s, deadline_s=cfg.deadline_s,
+                fork_sampling=cfg.fork_sampling,
             ),
         )
         engine.start()

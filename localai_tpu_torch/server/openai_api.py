@@ -2,11 +2,18 @@
 of localai_tpu/server/openai_api.py).
 
 Routes: `/v1/chat/completions` and `/v1/completions` (streamed as SSE with
-the usage in the last chunk, or whole), `/v1/models`, `/v1/models/{id}`,
-`/readyz`, `/healthz`, `/version`. The `model` field (or the query, or a
-bearer token naming a model) selects a model or a virtual model; a virtual
-model carries its tenant's adapter into every request. `n > 1` runs as
-independent clones, each its own request with its own grammar machine.
+the usage in the last chunk, or whole), `/v1/edits`, `/v1/tokenize`,
+`/v1/models`, `/v1/models/{id}`, `/readyz`, `/healthz`, `/version`. The
+`model` field (or the query, or a bearer token naming a model) selects a
+model or a virtual model; a virtual model carries its tenant's adapter into
+every request. `n > 1` and `best_of` run as one choice group: one request
+per branch, each with its own grammar machine and seed (seed + i), which a
+paged engine admits with one prefill (`Engine.submit_fork`) and any other
+as independent clones. `best_of > n` ranks the branches by cumulative
+logprob (ties in submission order) and returns the top n. `logprobs` /
+`top_logprobs` (chat) and `logprobs` (completions) return each token's
+logprob and its top alternatives, whole and streamed. `deadline_s` in a
+body, else the model's, bounds a request end to end.
 
 Constrained decoding and tool calling, as the JAX server serves them: chat
 `tools` (or the legacy `functions`) add a tools prompt, and the reply's
@@ -19,9 +26,8 @@ constrains the reply to a call's schema, "none" drops the tools;
 runs the constraint on the device DFA or the host candidate walk.
 
 A request field the port cannot honour yet gets HTTP 400 naming it, never
-silent neglect: logprobs, best_of > 1, deadline_s and image content
-(ROADMAP Queue A items 3, main-path engine completeness; 7, tree sampling
-and logprobs; 13, satellite engines and models).
+silent neglect: image content (ROADMAP Queue A item 13, satellite engines
+and models).
 """
 
 from __future__ import annotations
@@ -51,31 +57,16 @@ def _fingerprint() -> str:
     return f"localai-tpu-torch-{__version__}"
 
 
-def _reject_unported(body: dict[str, Any], chat: bool) -> None:
-    """400 for every request field the port cannot honour yet."""
-    def unported(field: str, item: str) -> None:
-        raise ApiError(400, f"{field!r} is not supported by this server yet "
-                            f"(ROADMAP Queue A item {item})")
-
-    logprobs = "7, tree sampling and logprobs"
-
-    lp = body.get("logprobs")
-    if lp not in (None, False, 0):
-        unported("logprobs", logprobs)
-    if chat and body.get("top_logprobs"):
-        unported("top_logprobs", logprobs)
-    bo = body.get("best_of")
-    if bo is not None and bo != 1:
-        unported("best_of", logprobs)
-    if body.get("deadline_s"):
-        unported("deadline_s", "3, main-path engine completeness")
-    if chat:
-        for m in body.get("messages") or []:
-            content = m.get("content") if isinstance(m, dict) else None
-            if isinstance(content, list) and any(
-                    isinstance(p, dict) and p.get("type") in ("image_url", "input_image")
-                    for p in content):
-                unported("image content", "13, satellite engines and models")
+def _reject_unported(body: dict[str, Any]) -> None:
+    """400 for every request field the port cannot honour yet: image
+    content of a chat message."""
+    for m in body.get("messages") or []:
+        content = m.get("content") if isinstance(m, dict) else None
+        if isinstance(content, list) and any(
+                isinstance(p, dict) and p.get("type") in ("image_url", "input_image")
+                for p in content):
+            raise ApiError(400, "'image content' is not supported by this server yet "
+                                "(ROADMAP Queue A item 13, satellite engines and models)")
 
 
 def _gbnf_factory(body: dict[str, Any]) -> Optional[Callable[[], Any]]:
@@ -171,6 +162,9 @@ class OpenAIApi:
             r.add("POST", f"{prefix}/chat/completions", self.chat)
             r.add("POST", f"{prefix}/completions", self.completion)
             r.add("GET", f"{prefix}/models", self.list_models)
+            r.add("POST", f"{prefix}/edits", self.edit)
+        r.add("POST", "/v1/tokenize", self.tokenize)
+        r.add("POST", "/tokenize", self.tokenize)
         r.add("GET", "/v1/models/:name", self.get_model)
         r.add("GET", "/healthz", self.health)
         r.add("GET", "/readyz", self.health)
@@ -220,13 +214,16 @@ class OpenAIApi:
             raise ApiError(501, str(e), "server_error") from None
 
     @staticmethod
-    def _submit_all(lm: LoadedModel, gens: list) -> list:
+    def _submit_all(lm: LoadedModel, gens: list, group: int = 1) -> list:
         """Submit every GenRequest: a full queue is 429 + Retry-After, an
-        adapter error 400; handles already submitted are cancelled."""
+        adapter error 400; handles already submitted are cancelled. With
+        `group` > 1 each run of `group` same-prompt requests (one choice
+        group) goes through one `submit_fork`: a single prefill on a paged
+        engine, independent clones otherwise (the same outputs)."""
         handles = []
         try:
-            for g in gens:
-                handles.append(lm.engine.submit(g))
+            for k in range(0, len(gens), group):
+                handles.extend(lm.engine.submit_fork(gens[k:k + group]))
         except QueueFullError as e:
             for h in handles:
                 h.cancel()
@@ -271,6 +268,8 @@ class OpenAIApi:
             logit_bias=logit_bias,
             # vLLM-style extension: fixed-length generations for benchmarks.
             ignore_eos=bool(body.get("ignore_eos", False)),
+            # End to end: the body's deadline, else the model's.
+            deadline_s=float(pick("deadline_s", cfg.deadline_s)),
             # A virtual model resolves to its base's engine + this tenant.
             adapter=getattr(lm, "adapter", None),
         )
@@ -287,9 +286,40 @@ class OpenAIApi:
         return n
 
     @staticmethod
+    def _best_of(body: dict[str, Any], n: int) -> int:
+        """The validated `best_of` branch count: best_of branches off one
+        prefill, ranked by cumulative logprob, the top n returned. n when
+        absent; a stream cannot rank after the fact, so best_of > n on a
+        stream is a client error (OpenAI's semantics)."""
+        bo = body.get("best_of")
+        if bo is None:
+            return n
+        try:
+            bo = int(bo)
+        except (TypeError, ValueError):
+            raise ApiError(400, "best_of must be an integer") from None
+        if bo < n:
+            raise ApiError(400, "best_of must be >= n")
+        if bo > 64:
+            raise ApiError(400, "best_of must be between n and 64")
+        if bo > n and body.get("stream"):
+            raise ApiError(400, "best_of > n cannot be used with streaming")
+        return bo
+
+    @staticmethod
+    def _select_best(results: list, n: int) -> list:
+        """best_of ranking of one choice group: the highest cumulative
+        token logprob first (ties keep submission order), the top n."""
+        def score(r) -> float:
+            return sum(ev.logprob for ev in r[1] if ev.logprob is not None)
+
+        order = sorted(range(len(results)), key=lambda i: (-score(results[i]), i))
+        return [results[i] for i in order[:n]]
+
+    @staticmethod
     def _clones(gens_for, n: int) -> list:
-        """n independent requests; a given seed is offset per clone so the
-        choices differ."""
+        """n requests of one choice group; a given seed is offset per
+        branch so the choices differ."""
         gens = []
         for i in range(n):
             g = gens_for()
@@ -297,6 +327,64 @@ class OpenAIApi:
                 g.seed = int(g.seed) + i
             gens.append(g)
         return gens
+
+    @staticmethod
+    def _chat_logprobs(body: dict[str, Any]) -> int:
+        """A chat request's logprobs: 0 = off, else the top N to return."""
+        if not body.get("logprobs"):
+            return 0
+        top = body.get("top_logprobs")
+        top = 1 if top is None else int(top)
+        if top < 0 or top > 20:
+            raise ApiError(400, "top_logprobs must be between 0 and 20")
+        return max(top, 1)
+
+    @staticmethod
+    def _completion_lp(body: dict[str, Any]) -> int:
+        """A completions request's logprobs: 0 = off, else the top N."""
+        lp = body.get("logprobs")
+        if lp is None or lp is False:
+            return 0
+        lp = 1 if lp is True else int(lp)
+        if lp < 0 or lp > 20:
+            raise ApiError(400, "logprobs must be between 0 and 20")
+        return lp
+
+    @staticmethod
+    def _lp_entry(lm: LoadedModel, ev) -> dict[str, Any]:
+        """One OpenAI chat logprobs content entry from a token event."""
+        s = lm.engine.token_text(ev.token_id)
+        return {
+            "token": s,
+            "logprob": ev.logprob,
+            "bytes": list(s.encode("utf-8")),
+            "top_logprobs": [
+                {"token": lm.engine.token_text(i), "logprob": v,
+                 "bytes": list(lm.engine.token_text(i).encode("utf-8"))}
+                for i, v in (ev.top_logprobs or [])
+            ],
+        }
+
+    def _chat_lp_content(self, lm: LoadedModel, tok_events: list) -> dict[str, Any]:
+        return {"content": [self._lp_entry(lm, ev) for ev in tok_events
+                            if ev.logprob is not None]}
+
+    @staticmethod
+    def _completion_lp_block(lm: LoadedModel, toks: list, offset0: int) -> dict[str, Any]:
+        """The legacy completions logprobs block of one choice."""
+        tokens, token_lps, tops, offsets = [], [], [], []
+        off = offset0
+        for ev in toks:
+            if ev.logprob is None:
+                continue
+            s = lm.engine.token_text(ev.token_id)
+            tokens.append(s)
+            token_lps.append(ev.logprob)
+            tops.append({lm.engine.token_text(i): v for i, v in (ev.top_logprobs or [])})
+            offsets.append(off)
+            off += len(s)
+        return {"tokens": tokens, "token_logprobs": token_lps, "top_logprobs": tops,
+                "text_offset": offsets}
 
     @staticmethod
     def _merge_streams(handles: list) -> Iterator[tuple[int, Any]]:
@@ -323,18 +411,20 @@ class OpenAIApi:
             yield idx, ev
 
     @staticmethod
-    def _collect(handle) -> tuple[str, Any]:
-        """Drain one handle → (text, final event)."""
+    def _collect(handle) -> tuple[str, list, Any]:
+        """Drain one handle → (text, token events, final event)."""
         parts: list[str] = []
+        toks: list = []
         final = None
         for ev in handle:
             if ev.kind == "token":
                 parts.append(ev.text)
+                toks.append(ev)
             elif ev.kind == "error":
                 raise ApiError(500, ev.error, "server_error")
             else:
                 final = ev
-        return "".join(parts), final
+        return "".join(parts), toks, final
 
     def _note_request_metrics(self, model_name: str, finals: list) -> None:
         """Per-model lifecycle histograms from the terminal events' timings."""
@@ -366,7 +456,7 @@ class OpenAIApi:
     def _stream(self, lm: LoadedModel, lease, handles: list, base: dict, first, token_chunk,
                 final_chunk, extra_usage: bool) -> SSEStream:
         """The SSE body shared by both routes: `first` chunks, the chunks
-        `token_chunk(index, text)` makes of each token event (a list, maybe
+        `token_chunk(index, event)` makes of each token event (a list, maybe
         empty), then per choice the chunks `final_chunk(index, finish)`
         makes, the usage on the very last. A failed choice cancels its
         siblings and ends the stream."""
@@ -381,7 +471,7 @@ class OpenAIApi:
                 finals: list[Any] = [None] * len(handles)
                 for idx, ev in self._merge_streams(handles):
                     if ev.kind == "token":
-                        for c in token_chunk(idx, ev.text):
+                        for c in token_chunk(idx, ev):
                             yield {**base, "choices": [c]}
                     elif ev.kind == "error":
                         cancel_all()
@@ -405,10 +495,11 @@ class OpenAIApi:
 
         return SSEStream(events(), on_disconnect=cancel_all)
 
-    def _run_all(self, lm: LoadedModel, lease, gens: list) -> list:
-        """Submit and drain every request → [(text, final event)]."""
+    def _run_all(self, lm: LoadedModel, lease, gens: list, group: int = 1) -> list:
+        """Submit (choice groups of `group`) and drain every request →
+        [(text, token events, final event)]."""
         try:
-            handles = self._submit_all(lm, gens)
+            handles = self._submit_all(lm, gens, group)
             try:
                 results = [self._collect(h) for h in handles]
             except BaseException:
@@ -417,7 +508,7 @@ class OpenAIApi:
                 raise
         finally:
             lease.release()
-        self._note_request_metrics(lm.cfg.name, [r[1] for r in results])
+        self._note_request_metrics(lm.cfg.name, [r[2] for r in results])
         return results
 
     # ------------------------------------------------------------------ #
@@ -429,7 +520,7 @@ class OpenAIApi:
         messages = body.get("messages")
         if not messages or not isinstance(messages, list):
             raise ApiError(400, "messages is required and must be a non-empty array")
-        _reject_unported(body, chat=True)
+        _reject_unported(body)
         lm, lease = self._resolve(req, Usecase.CHAT)
         try:
             return self._chat_inner(req, lm, lease, body)
@@ -438,13 +529,19 @@ class OpenAIApi:
             raise
 
     def _gens(self, lm: LoadedModel, body: dict[str, Any], ids: list[int], n: int,
-              make_grammar, extra_stop=None) -> list:
-        """n clones of the request, each with its own grammar machine."""
+              make_grammar, lp_n: int, extra_stop=None) -> list:
+        """One choice group of the request: `bo` = best_of branches (n when
+        absent), each with its own grammar machine; best_of > n ranks by
+        cumulative logprob, so it asks for logprobs whatever the client
+        asked (the response carries them only if the client did)."""
+        bo = self._best_of(body, n)
+
         def one() -> GenRequest:
             g = self._gen_request(lm, body, ids, extra_stop=extra_stop)
             g.grammar = make_grammar() if make_grammar else None
+            g.logprobs = lp_n if bo == n else max(lp_n, 1)
             return g
-        return self._clones(one, n)
+        return self._clones(one, bo)
 
     def _chat_inner(self, req: Request, lm: LoadedModel, lease, body: dict[str, Any]):
         tools, make_grammar = _chat_tools(body)
@@ -453,32 +550,36 @@ class OpenAIApi:
         add_bos = not lm.cfg.template.use_tokenizer_template
         ids = lm.engine.tokenizer.encode(prompt, add_bos=add_bos)
         n = self._n_choices(body)
-        gens = self._gens(lm, body, ids, n, make_grammar,
+        lp_n = self._chat_logprobs(body)
+        gens = self._gens(lm, body, ids, n, make_grammar, lp_n,
                           extra_stop=lm.evaluator.stop_sequences())
         rid = f"chatcmpl-{uuid.uuid4().hex[:28]}"
         created = _now()
         model_name = lm.cfg.name
         extra_usage = "extra-usage" in req.headers
         if body.get("stream"):
-            handles = self._submit_all(lm, gens)
+            handles = self._submit_all(lm, gens, group=len(gens))
             base = {"id": rid, "object": "chat.completion.chunk", "created": created,
                     "model": model_name, "system_fingerprint": _fingerprint()}
 
-            def choice(i: int, delta: dict, finish=None) -> dict:
-                return {"index": i, "delta": delta, "finish_reason": finish}
+            def choice(i: int, delta: dict, finish=None, ev=None) -> dict:
+                c = {"index": i, "delta": delta, "finish_reason": finish}
+                if lp_n and ev is not None and ev.logprob is not None:
+                    c["logprobs"] = {"content": [self._lp_entry(lm, ev)]}
+                return c
 
             if tools:
                 states = [_ToolStream(lm.cfg) for _ in range(n)]
 
-                def token_chunk(i: int, text: str) -> list[dict]:
-                    return [choice(i, d) for d in states[i].token(text)]
+                def token_chunk(i: int, ev) -> list[dict]:
+                    return [choice(i, d, ev=ev) for d in states[i].token(ev.text)]
 
                 def final_chunk(i: int, finish: str) -> list[dict]:
                     deltas, finish = states[i].final(finish)
                     return [choice(i, d) for d in deltas] + [choice(i, {}, finish)]
             else:
-                def token_chunk(i: int, text: str) -> list[dict]:
-                    return [choice(i, {"content": text})]
+                def token_chunk(i: int, ev) -> list[dict]:
+                    return [choice(i, {"content": ev.text}, ev=ev)]
 
                 def final_chunk(i: int, finish: str) -> list[dict]:
                     return [choice(i, {}, finish)]
@@ -487,9 +588,14 @@ class OpenAIApi:
                 lm, lease, handles, base,
                 first=[choice(i, {"role": "assistant", "content": ""}) for i in range(n)],
                 token_chunk=token_chunk, final_chunk=final_chunk, extra_usage=extra_usage)
-        results = self._run_all(lm, lease, gens)
+        results = self._run_all(lm, lease, gens, group=len(gens))
+        # Usage counts every branch (the client paid for best_of of them);
+        # the choices are the ranked top n.
+        all_finals = [r[2] for r in results]
+        if len(results) > n:
+            results = self._select_best(results, n)
         choices = []
-        for idx, (text, final) in enumerate(results):
+        for idx, (text, toks, final) in enumerate(results):
             if needs_finetune(lm.cfg):
                 text = finetune(lm.cfg, prompt, text)
             message: dict[str, Any] = {"role": "assistant", "content": text}
@@ -498,15 +604,18 @@ class OpenAIApi:
             if calls:
                 message = {"role": "assistant", "content": None, "tool_calls": calls}
                 finish = "tool_calls"
-            choices.append({"index": idx, "message": message, "finish_reason": finish})
+            c: dict[str, Any] = {"index": idx, "message": message, "finish_reason": finish}
+            if lp_n:
+                c["logprobs"] = self._chat_lp_content(lm, toks)
+            choices.append(c)
         return Response(body={
             "id": rid, "object": "chat.completion", "created": created, "model": model_name,
             "system_fingerprint": _fingerprint(), "choices": choices,
-            "usage": self._sum_usage([r[1] for r in results], extra_usage),
+            "usage": self._sum_usage(all_finals, extra_usage),
         })
 
     # ------------------------------------------------------------------ #
-    # Completion
+    # Completion / edit
     # ------------------------------------------------------------------ #
 
     def completion(self, req: Request) -> Response | SSEStream:
@@ -516,7 +625,6 @@ class OpenAIApi:
             prompts = [prompts]
         if not prompts or not all(isinstance(p, str) for p in prompts):
             raise ApiError(400, "prompt must be a string or array of strings")
-        _reject_unported(body, chat=False)
         lm, lease = self._resolve(req, Usecase.COMPLETION)
         try:
             return self._completion_inner(req, lm, lease, body, prompts)
@@ -527,38 +635,87 @@ class OpenAIApi:
     def _completion_inner(self, req: Request, lm: LoadedModel, lease, body: dict[str, Any],
                           prompts: list[str]):
         n = self._n_choices(body)
+        lp_n = self._completion_lp(body)
         make_grammar = _gbnf_factory(body)
         gens, templated = [], []
         for p in prompts:
             t = lm.evaluator.template_completion(p)
             templated.append(t)
             ids = lm.engine.tokenizer.encode(t, add_bos=True)
-            gens.extend(self._gens(lm, body, ids, n, make_grammar))
+            gens.extend(self._gens(lm, body, ids, n, make_grammar, lp_n))
+        bo = len(gens) // len(prompts)  # each prompt's choice group
         rid = f"cmpl-{uuid.uuid4().hex[:28]}"
         created = _now()
         extra_usage = "extra-usage" in req.headers
         if body.get("stream"):
-            handles = self._submit_all(lm, gens)
+            handles = self._submit_all(lm, gens, group=bo)
             base = {"id": rid, "object": "text_completion", "created": created,
                     "model": lm.cfg.name}
+
+            def token_chunk(i: int, ev) -> list[dict]:
+                c: dict[str, Any] = {"index": i, "text": ev.text, "finish_reason": None}
+                if lp_n and ev.logprob is not None:
+                    c["logprobs"] = self._completion_lp_block(lm, [ev], 0)
+                return [c]
+
             return self._stream(
-                lm, lease, handles, base, first=[],
-                token_chunk=lambda i, text: [{"index": i, "text": text, "finish_reason": None}],
+                lm, lease, handles, base, first=[], token_chunk=token_chunk,
                 final_chunk=lambda i, finish: [{"index": i, "text": "", "finish_reason": finish}],
                 extra_usage=extra_usage)
-        results = self._run_all(lm, lease, gens)
+        results = self._run_all(lm, lease, gens, group=bo)
+        all_finals = [r[2] for r in results]
+        if bo > n:
+            results = [r for k in range(0, len(results), bo)
+                       for r in self._select_best(results[k:k + bo], n)]
         choices = []
-        for idx, (text, final) in enumerate(results):
+        for idx, (text, toks, final) in enumerate(results):
             prompt = prompts[idx // n]
             if needs_finetune(lm.cfg):
                 text = finetune(lm.cfg, templated[idx // n], text)
+            offset0 = 0
             if body.get("echo") and not lm.cfg.echo:
                 text = prompt + text
-            choices.append({"index": idx, "text": text, "finish_reason": final.finish_reason})
+                offset0 = len(prompt)
+            c: dict[str, Any] = {"index": idx, "text": text, "finish_reason": final.finish_reason}
+            if lp_n:
+                c["logprobs"] = self._completion_lp_block(lm, toks, offset0)
+            choices.append(c)
         return Response(body={
             "id": rid, "object": "text_completion", "created": created, "model": lm.cfg.name,
-            "choices": choices, "usage": self._sum_usage([r[1] for r in results], extra_usage),
+            "choices": choices, "usage": self._sum_usage(all_finals, extra_usage),
         })
+
+    def edit(self, req: Request) -> Response:
+        body = req.body or {}
+        instruction = body.get("instruction", "")
+        if not instruction:
+            raise ApiError(400, "instruction is required")
+        lm, lease = self._resolve(req, Usecase.EDIT)
+        try:
+            prompt = lm.evaluator.template_edit(instruction, body.get("input", ""))
+            ids = lm.engine.tokenizer.encode(prompt, add_bos=True)
+            g = self._gen_request(lm, body, ids)
+            text, final = self._submit_all(lm, [g])[0].result()
+        finally:
+            lease.release()
+        self._note_request_metrics(lm.cfg.name, [final])
+        if needs_finetune(lm.cfg):
+            text = finetune(lm.cfg, prompt, text)
+        return Response(body={
+            "object": "edit", "created": _now(),
+            "choices": [{"index": 0, "text": text}],
+            "usage": self._sum_usage([final], "extra-usage" in req.headers),
+        })
+
+    def tokenize(self, req: Request) -> Response:
+        body = req.body or {}
+        content = body.get("content", "")
+        lm, lease = self._resolve(req, Usecase.TOKENIZE)
+        try:
+            ids = lm.engine.tokenizer.encode(content)
+        finally:
+            lease.release()
+        return Response(body={"tokens": ids})
 
     # ------------------------------------------------------------------ #
     # Introspection

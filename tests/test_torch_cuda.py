@@ -1162,7 +1162,7 @@ ws    ::= [ \t\n]*
 
             def record():
                 ok = run()
-                rows.append(eng._b_out[eng._tk_row:].T.cpu().clone())
+                rows.append(eng._b_out[eng._tk_row:eng._lp_row].T.cpu().clone())
                 if eager:
                     want = torch.topk(logits_seen[-1] + eng.bias, rows[-1].shape[1], dim=-1)
                     assert torch.equal(rows[-1], want.indices.cpu())

@@ -273,7 +273,7 @@ def test_paged_rejects_request_larger_than_pool(weights):
     (dict(kv_pages=4, kv_page_size=48), ValueError, "divide"),
     (dict(kv_pages=4, prefill_chunk=48), ValueError, "power of two"),
     (dict(kv_pages=4, prefill_chunk=8), ValueError, "min_prefill_bucket"),
-    (dict(kv_pages=0, prefill_chunk=64), NotImplementedError, "prefill_tail"),
+    (dict(kv_pages=0, prefill_chunk=48), ValueError, "power of two"),  # dense chunks too
     (dict(kv_pages=4, kv_page_size=0), ValueError, "divide"),
     (dict(kv_pages=4, kv_page_headroom=-1), ValueError, "headroom"),
     (dict(kv_pages=4, prefill_chunk=-1), ValueError, "power of two"),

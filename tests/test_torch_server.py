@@ -6,9 +6,14 @@ the same request JSON to each. Greedy content bytes, finish reasons and
 usage counts match; so do the model list and the status codes of errors.
 Tools, legacy functions, tool_choice, JSON response formats and GBNF
 grammars give the JAX server's statuses, content bytes, finish reasons and
-tool calls, whole and streamed. Fields the port does not honour yet get a
-400 naming them. Last, `python -m localai_tpu_torch run --device cpu`
-starts and answers /readyz."""
+tool calls, whole and streamed. Chat and completions logprobs (whole and
+streamed), best_of ranking and its errors, `deadline_s` on a saturated
+model, /v1/tokenize and /v1/edits give the JAX server's JSON (logprobs
+within 1e-4). Image content, which the port does not honour yet, gets a
+400 naming it. Every YAML knob group the port has not ported fails the
+load (or the server's startup) naming its ROADMAP item, or warns; the
+bounded-admission and fork knobs reach the engine. Last, `python -m
+localai_tpu_torch run --device cpu` starts and answers /readyz."""
 
 import dataclasses
 import json
@@ -84,6 +89,43 @@ def servers(tmp_path_factory):
            "jax_manager": jm}
     for s in (js, ts):
         s.shutdown()
+    jm.shutdown()
+    tm.shutdown()
+
+
+@pytest.fixture(scope="module")
+def f32(tmp_path_factory):
+    """Both servers on one f32 model (`tiny` as saved, loaded in f32 on
+    both sides: the loaders' arch is widened while the engines load), so
+    logprobs agree within 1e-4."""
+    import localai_tpu.engine.weights as jw
+    import localai_tpu_torch.engine.weights as tw
+
+    root = tmp_path_factory.mktemp("models_f32")
+    cfg = dataclasses.replace(get_arch("tiny"), dtype="float32")
+    save_hf_checkpoint(cfg, jl.init_params(cfg, jax.random.key(0)), str(root / "ckpt"))
+    (root / "tiny-f32.yaml").write_text(yaml.safe_dump(
+        {"name": "tiny-f32", "model": "ckpt", "context_size": 2048, "max_slots": 4,
+         "max_tokens": 12, "temperature": 0.0}))
+    app = dict(address="127.0.0.1", port=0, models_dir=str(root))
+    jm, tm = JaxModelManager(JaxAppConfig(**app)), ModelManager(ApplicationConfig(**app),
+                                                                 device="cpu")
+    saved = jw.arch_from_hf_config, tw.arch_from_hf_config
+    jw.arch_from_hf_config = lambda d: dataclasses.replace(saved[0](d), dtype="float32")
+    tw.arch_from_hf_config = lambda d: dataclasses.replace(saved[1](d), dtype="float32")
+    try:
+        for m in (jm, tm):
+            assert "float32" in str(m.get("tiny-f32").engine.params["embed"].dtype)
+    finally:
+        jw.arch_from_hf_config, tw.arch_from_hf_config = saved
+    jr, tr = JaxRouter(), Router()
+    JaxOpenAIApi(jm).register(jr)
+    OpenAIApi(tm).register(tr)
+    js = jax_create_server(JaxAppConfig(**app), jr)
+    ts = create_server(ApplicationConfig(**app), tr)
+    yield {"jax": _serve(js), "port": _serve(ts), "jax_manager": jm, "port_manager": tm}
+    for srv in (js, ts):
+        srv.shutdown()
     jm.shutdown()
     tm.shutdown()
 
@@ -265,10 +307,6 @@ def test_tools_and_grammar_match_jax_server(servers, path, extra):
 
 
 @pytest.mark.parametrize("path, extra, field", [
-    ("/v1/chat/completions", {"logprobs": True}, "logprobs"),
-    ("/v1/completions", {"logprobs": 2}, "logprobs"),
-    ("/v1/completions", {"best_of": 3}, "best_of"),
-    ("/v1/chat/completions", {"deadline_s": 5}, "deadline_s"),
     ("/v1/chat/completions", {"messages": [{"role": "user", "content": [
         {"type": "image_url", "image_url": {"url": "data:image/png;base64,AA=="}}]}]},
      "image content"),
@@ -277,6 +315,217 @@ def test_unported_fields_are_rejected(servers, path, extra, field):
     payload = {"model": "tiny-plain", **(CHAT if "chat" in path else {"prompt": "x"}), **extra}
     status, body = _call(servers["port"], path, payload)
     assert status == 400 and field in body["error"]["message"], body
+
+
+def _close(a, b, path="$"):
+    """Equal JSON, floats within 1e-4."""
+    if isinstance(a, float) or isinstance(b, float):
+        assert abs(a - b) <= 1e-4, (path, a, b)
+    elif isinstance(a, dict):
+        assert sorted(a) == sorted(b), (path, sorted(a), sorted(b))
+        for k in a:
+            _close(a[k], b[k], f"{path}.{k}")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), (path, len(a), len(b))
+        for i, (x, y) in enumerate(zip(a, b)):
+            _close(x, y, f"{path}[{i}]")
+    else:
+        assert a == b, (path, a, b)
+
+
+def _choices(body, stream):
+    """The choices of a reply (a stream's chunks' choices, in order), with
+    what differs between the servers by design dropped: ids, times."""
+    if not stream:
+        return body["choices"], body["usage"]
+    chunks = _sse(body)
+    return [c for ch in chunks for c in ch["choices"]], chunks[-1]["usage"]
+
+
+@pytest.mark.parametrize("path, extra", [
+    ("/v1/chat/completions", {"logprobs": True, "top_logprobs": 5}),
+    ("/v1/chat/completions", {"logprobs": True, "top_logprobs": 5, "stream": True}),
+    ("/v1/chat/completions", {"logprobs": True}),
+    ("/v1/completions", {"logprobs": 3}),
+    ("/v1/completions", {"logprobs": 3, "stream": True, "echo": True}),
+    ("/v1/chat/completions", {"logprobs": True, "top_logprobs": 21}),
+    ("/v1/completions", {"logprobs": 21}),
+], ids=["chat", "chat-stream", "chat-top-default", "completion", "completion-stream",
+        "chat-top-21", "completion-21"])
+def test_logprobs_match_jax_server(f32, path, extra):
+    servers = f32
+    payload = {"model": "tiny-f32", **(CHAT if "chat" in path else {
+        "prompt": "once upon", "max_tokens": 8, "ignore_eos": True}), **extra}
+    out = {}
+    for side in ("jax", "port"):
+        status, body = _call(servers[side], path, payload)
+        out[side] = status if status != 200 else _choices(body, extra.get("stream"))
+    if isinstance(out["jax"], int):
+        assert out["port"] == out["jax"] == 400
+        return
+    _close(out["port"], out["jax"])
+    choices = out["port"][0]
+    lps = [c["logprobs"] for c in choices if c.get("logprobs")]
+    assert lps, choices
+    if "chat" in path:
+        tops = [e["top_logprobs"] for lp in lps for e in lp["content"]]
+        assert tops and all(len(t) == extra.get("top_logprobs", 1) for t in tops)
+    else:
+        # A map by token text: ids with one text (bytes of no character) merge.
+        assert all(1 <= len(t) <= 3 for lp in lps for t in lp["top_logprobs"])
+
+
+@pytest.mark.parametrize("path, payload", [
+    ("/v1/chat/completions", {"n": 2, "best_of": 3, "logprobs": True, "top_logprobs": 2}),
+    ("/v1/completions", {"n": 1, "best_of": 3, "prompt": ["a b", "c d"], "logprobs": 1}),
+], ids=["chat", "completion-2-prompts"])
+def test_greedy_best_of_matches_jax_server(f32, path, payload):
+    """Greedy best_of: every branch ties, so the first n in submission
+    order; choices, logprobs and usage (over every branch) as the JAX
+    server's."""
+    body = {"model": "tiny-f32", **(CHAT if "chat" in path else {"max_tokens": 8,
+                                                                  "ignore_eos": True}),
+            **payload}
+    out = {}
+    for side in ("jax", "port"):
+        status, reply = _call(f32[side], path, body)
+        assert status == 200, reply
+        out[side] = (reply["choices"], reply["usage"])
+    _close(out["port"], out["jax"])
+    groups = len(payload.get("prompt", [0]))
+    assert len(out["port"][0]) == payload["n"] * groups
+    assert out["port"][1]["completion_tokens"] == payload["best_of"] * groups * body["max_tokens"]
+
+
+@pytest.mark.parametrize("path", ["/v1/chat/completions", "/v1/completions"])
+def test_seeded_best_of_returns_the_top_ranked_branches(f32, path):
+    """best_of 4, n 2 (seeds 5..8, one per branch) returns the two branches
+    of n 4 (the same seeds) with the highest cumulative logprob, in rank
+    order. (The port's sampling noise is not the JAX package's threefry
+    stream, so seeded bytes are held to the port's own branches.)"""
+    body = {"model": "tiny-f32", **(CHAT if "chat" in path else {
+        "prompt": "once upon", "max_tokens": 8, "ignore_eos": True}),
+        "temperature": 0.9, "seed": 5}
+    key = "message" if "chat" in path else "text"
+
+    def text(c):
+        return c["message"]["content"] if key == "message" else c["text"]
+
+    status, best = _call(f32["port"], path, {**body, "n": 2, "best_of": 4})
+    assert status == 200, best
+    status, every = _call(f32["port"], path, {**body, "n": 4, "logprobs": True}
+                          if "chat" in path else {**body, "n": 4, "logprobs": 1})
+    assert status == 200, every
+
+    def score(c):
+        lp = c["logprobs"]
+        return sum(e["logprob"] for e in lp["content"]) if "content" in lp \
+            else sum(lp["token_logprobs"])
+
+    ranked = sorted(range(4), key=lambda i: (-score(every["choices"][i]), i))
+    assert [text(c) for c in best["choices"]] == [text(every["choices"][i])
+                                                  for i in ranked[:2]]
+    assert len({text(c) for c in every["choices"]}) > 1  # the seeds gave different branches
+    assert best["usage"] == every["usage"]
+
+
+@pytest.mark.parametrize("payload", [
+    {"best_of": 3, "n": 2, "stream": True},
+    {"best_of": 1, "n": 2},
+    {"best_of": 65},
+    {"best_of": "x"},
+], ids=["stream", "below-n", "above-64", "not-int"])
+def test_best_of_errors_match_jax_server(servers, payload):
+    body = {"model": "tiny-plain", **CHAT, **payload}
+    out = {side: _call(servers[side], "/v1/chat/completions", body)
+           for side in ("jax", "port")}
+    assert out["port"][0] == out["jax"][0] == 400
+    assert out["port"][1]["error"]["message"] == out["jax"][1]["error"]["message"]
+
+
+def test_tokenize_and_edits_match_jax_server(servers):
+    for path, payload in (("/v1/tokenize", {"content": "hello there, world"}),
+                          ("/tokenize", {"content": "abc"}),
+                          ("/v1/edits", {"instruction": "fix it", "input": "helo",
+                                         "max_tokens": 6, "ignore_eos": True}),
+                          ("/edits", {"instruction": "", "input": "x"})):
+        out = {}
+        for side in ("jax", "port"):
+            status, body = _call(servers[side], path, {"model": "tiny-plain", **payload})
+            body.pop("created", None)
+            out[side] = (status, body)
+        assert out["port"] == out["jax"], path
+        assert out["port"][0] == (400 if not payload.get("instruction", "x") else 200)
+
+
+def test_deadline_on_a_saturated_model_matches_jax_server(f32):
+    """Every slot busy: a request whose body carries deadline_s is shed from
+    the queue with the engine's error, which names deadline_s."""
+    from localai_tpu.engine.engine import GenRequest as JaxGenRequest
+    from localai_tpu_torch.engine.engine import GenRequest
+
+    servers, out = f32, {}
+    for side, gen in (("jax", JaxGenRequest), ("port", GenRequest)):
+        eng = servers[f"{side}_manager"].get("tiny-f32").engine
+        busy = [eng.submit(gen(prompt_ids=[1, 2, 3], max_new_tokens=100_000, ignore_eos=True))
+                for _ in range(4)]
+        try:
+            status, body = _call(servers[side], "/v1/chat/completions",
+                                 {"model": "tiny-f32", **CHAT, "deadline_s": 0.3})
+        finally:
+            eng.cancel_all()
+            for h in busy:
+                list(h)
+        out[side] = (status, body["error"]["message"].split(" after ")[0],
+                     "(deadline_s)" in body["error"]["message"])
+    assert out["port"] == out["jax"] == (500, "deadline exceeded", True)
+
+
+def _knob_manager(root, doc, **app):
+    (root / "m.yaml").write_text(yaml.safe_dump({
+        "name": "m", "model": "tiny", "context_size": 128, "max_slots": 2, **doc}))
+    return ModelManager(ApplicationConfig(models_dir=str(root), **app), device="cpu")
+
+
+@pytest.mark.parametrize("doc, app, expect", [
+    ({"queue_timeout_s": 2.5, "deadline_s": 5.0, "fork_sampling": False, "kv_pages": 8,
+      "kv_page_size": 16}, {}, "wired"),
+    ({"draft_model": "tiny"}, {}, "item 8, speculative decoding"),
+    ({"spec_mode": "prompt_lookup"}, {}, "item 8, speculative decoding"),
+    ({"n_draft": 3}, {}, "item 8, speculative decoding"),
+    ({"trace_journal_events": 128}, {}, "item 11, runtime, observability and faults"),
+    ({}, {"postmortem_dir": "/tmp/pm"}, "item 11, runtime, observability and faults"),
+    ({}, {"cluster_replicas": 2}, "item 12, cluster"),
+    ({}, {"cluster_peers": ["http://h:1"]}, "item 12, cluster"),
+    ({"tensor_parallel": 2}, {}, "warn tensor_parallel=2"),
+    ({"sp_prefill": False}, {}, "warn sp_prefill=False"),
+], ids=["wired", "draft_model", "spec_mode", "n_draft", "trace_journal", "postmortem_dir",
+        "cluster_replicas", "cluster_peers", "tensor_parallel", "sp_prefill"])
+def test_no_yaml_knob_is_dropped_in_silence(tmp_path, caplog, doc, app, expect):
+    from localai_tpu_torch.server.manager import UnsupportedBackendError
+
+    if app:
+        with pytest.raises(UnsupportedBackendError, match=expect):
+            _knob_manager(tmp_path, doc, **app)
+        return
+    tm = _knob_manager(tmp_path, doc)
+    try:
+        if expect.startswith("item"):
+            with pytest.raises(UnsupportedBackendError, match=expect):
+                tm.get("m")
+            return
+        with caplog.at_level("WARNING", logger="localai_tpu_torch.manager"):
+            ecfg = tm.get("m").engine.ecfg
+        if expect == "wired":
+            assert (ecfg.queue_timeout_s, ecfg.deadline_s, ecfg.fork_sampling) == (2.5, 5.0,
+                                                                                  False)
+            assert not [r for r in caplog.records if r.levelname == "WARNING"]
+        else:
+            knob = expect.split(" ", 1)[1]
+            msgs = [r.getMessage() for r in caplog.records if knob in r.getMessage()]
+            assert len(msgs) == 1 and "item 14, multi-GPU" in msgs[0], msgs
+    finally:
+        tm.shutdown()
 
 
 def _free_port() -> int:
