@@ -177,7 +177,28 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    /v1/edits, a body deadline_s on the saturated model (an error naming
    deadline_s) and a model YAML naming a draft model (a 501 naming ROADMAP
    item 8).
-In 5, 6, 8, 10, 11, 12, 14, 15, 17, 18, 19 and 20 the kernel launch counters, zeroed just
+21. gguf (run last) — GGUF checkpoints: a spec-derived writer here packs
+   two files with random block payloads (scales sized for a weight spread
+   of 0.02) and the published shapes and layouts of tensor types:
+   llama-3.2-1b at full depth as a Q4_K_M file (q4_K, attn_v and ffn_down
+   q6_K in alternate layers, q6_K embeddings, tied) and llama-3-8b as a
+   Q8_0 file with an untied q8_0 output.weight, 8 of its 32 layers (cut
+   for time), both with llama-3's gpt2-type BPE metadata (128256 tokens:
+   256 byte symbols, synthetic merges, 256 control tokens; llama-bpe
+   pre-tokenizer; bos / eos; chat template). Each is parsed and repacked
+   (timed); B3 on every projection of layer 0 in the loader's forms (g4
+   with per-group zero points, gq) against its plain version (bf16 x) and
+   the dequantize-then-matmul route (f32 x), B4 on the 8b head likewise;
+   the synthesized tokenizer runs the native BPE engine, equal to the HF
+   tokenizer on the canaries, a chat prompt and 20,000 characters (µs a
+   character of each). The 1b file is served by the port's HTTP server
+   from a YAML `model: <file>.gguf` (8 concurrent chats, half streamed,
+   half greedy, 64 tokens; B3 in both forms, B1, B2); then each file's
+   engine against an engine on its dequantized dense bf16 tree (greedy ids
+   equal up to a near tie; the 8b run carries B4). Prints the file bytes,
+   the parse-and-repack seconds, the device bytes a weight of each form,
+   TTFT p50 and decode tok/s.
+In 5, 6, 8, 10, 11, 12, 14, 15, 17, 18, 19, 20 and 21 the kernel launch counters, zeroed just
 before each run, show that the path went through the kernels; a graph
 replay counts the launches its capture recorded. Every decode block of
 those runs is a graph capture or replay (the eager runs of phases 12 and
@@ -195,9 +216,11 @@ import dataclasses
 import gc
 import importlib.util
 import json
+import os
 import re
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -287,7 +310,8 @@ def phase_device() -> tuple[str, str]:
     log(f"[device] {name} count={torch.cuda.device_count()} nvidia-smi: {smi} "
         f"torch={torch.__version__} cuda={torch.version.cuda}")
     probe = {m: importlib.util.find_spec(m) is not None
-             for m in ("yaml", "jinja2", "safetensors", "tokenizers", "transformers", "triton")}
+             for m in ("yaml", "jinja2", "safetensors", "tokenizers", "transformers", "triton",
+                       "regex")}
     probe["ninja"] = shutil.which("ninja") is not None or importlib.util.find_spec("ninja") is not None
     log("[env-probe] " + json.dumps(probe, sort_keys=True))
     return name, smi
@@ -1204,6 +1228,8 @@ def _zero_counts() -> None:
     flash_prefill_attention.launches = 0
     paged_partials_rows.launches = 0
     quant_matmul.qmm.launches = quant_matmul.qunembed.launches = 0
+    quant_matmul.qmm.launches_q = quant_matmul.qmm.launches_gq = 0
+    quant_matmul.qmm.launches_g4 = 0
     quant_matmul.qmm_moe.launches = quant.moe_matmul.dequant_calls = 0
     quant.matmul.dequant_calls = quant.unembed_matmul.dequant_calls = 0
     lora_bgmv_group.launches = 0
@@ -1220,6 +1246,10 @@ def _read_counts() -> dict:
     return {"flash_prefill": flash_prefill_attention.launches,
             "paged_attention": paged_partials_rows.launches,
             "quant_matmul": quant_matmul.qmm.launches,
+            # B3's 2-D launches by weight form: flat int8, grouped int8, int4.
+            "quant_matmul_q": quant_matmul.qmm.launches_q,
+            "quant_matmul_gq": quant_matmul.qmm.launches_gq,
+            "quant_matmul_g4": quant_matmul.qmm.launches_g4,
             "quant_matmul_moe": quant_matmul.qmm_moe.launches,
             "quant_unembed": quant_matmul.qunembed.launches,
             "matmul_dequant_calls": quant.matmul.dequant_calls,
@@ -3933,6 +3963,518 @@ def phase_tree(small, p_small) -> dict:
     out["summary"] = summary
     return out
 
+# --------------------------------------------------------------------------- #
+# 21. gguf: a spec-derived GGUF writer, its two files, the served model
+# --------------------------------------------------------------------------- #
+
+# The ggml tensor types the writer packs: name -> (type id, weights a block,
+# bytes a block), from the public GGUF spec (ggml.h / gguf.md).
+GGUF_TYPES = {"F32": (0, 1, 4), "Q8_0": (8, 32, 34), "Q4_K": (12, 256, 144),
+              "Q6_K": (14, 256, 210)}
+# Each quantized type's block layout (ggml-common.h) and the f16 scale fields
+# the writer sets over random bytes: every other byte of a block stays
+# random, and each scale is drawn (x 0.75-1.25 a block) so a weight's spread
+# is about init_params' 0.02. q8_0: w = d·q, q int8 (spread ~74·d); q4_K:
+# w = d·sc·q − dmin·m, sc and m 6-bit, q 4-bit (spread ~258·d with dmin =
+# 7.5·d, which centres it); q6_K: w = d·sc·(q − 32), sc int8, q 6-bit
+# (spread ~1369·d).
+GGUF_BLOCKS = {
+    "Q8_0": (np.dtype([("d", "<f2"), ("qs", "i1", (32,))]), {"d": 0.02 / 74}),
+    "Q4_K": (np.dtype([("d", "<f2"), ("dmin", "<f2"), ("scales", "u1", (12,)),
+                       ("qs", "u1", (128,))]),
+             {"d": 0.02 / 258, "dmin": 7.5 * 0.02 / 258}),
+    "Q6_K": (np.dtype([("ql", "u1", (128,)), ("qh", "u1", (64,)), ("scales", "i1", (16,)),
+                       ("d", "<f2")]), {"d": 0.02 / 1369}),
+}
+# llama-3's 256 control tokens follow its 128000 regular ones: these by
+# name (offset from the first), the rest <|reserved_special_token_k|>.
+LLAMA3_SPECIALS = {0: "<|begin_of_text|>", 1: "<|end_of_text|>", 4: "<|finetune_right_pad_id|>",
+                   6: "<|start_header_id|>", 7: "<|end_header_id|>", 8: "<|eom_id|>",
+                   9: "<|eot_id|>", 10: "<|python_tag|>"}
+# Meta-Llama-3-8B-Instruct's published chat template.
+LLAMA3_CHAT_TEMPLATE = (
+    "{% set loop_messages = messages %}{% for message in loop_messages %}"
+    "{% set content = '<|start_header_id|>' + message['role'] + '<|end_header_id|>\n\n'"
+    "+ message['content'] | trim + '<|eot_id|>' %}{% if loop.index0 == 0 %}"
+    "{% set content = bos_token + content %}{% endif %}{{ content }}{% endfor %}"
+    "{% if add_generation_prompt %}{{ '<|start_header_id|>assistant<|end_header_id|>\n\n' }}"
+    "{% endif %}")
+
+
+def _gguf_str(s: str) -> bytes:
+    b = s.encode("utf-8")
+    return struct.pack("<Q", len(b)) + b
+
+
+def _gguf_kv(key: str, v) -> bytes:
+    """One metadata pair: bool, u32, f32, string, or an array of strings or
+    i32 (the value types of the GGUF spec)."""
+    if isinstance(v, bool):
+        body = struct.pack("<IB", 7, v)
+    elif isinstance(v, int):
+        body = struct.pack("<II", 4, v)
+    elif isinstance(v, float):
+        body = struct.pack("<If", 6, v)
+    elif isinstance(v, str):
+        body = struct.pack("<I", 8) + _gguf_str(v)
+    elif v and isinstance(v[0], str):
+        body = struct.pack("<IIQ", 9, 8, len(v)) + b"".join(_gguf_str(s) for s in v)
+    else:
+        body = struct.pack("<IIQ", 9, 5, len(v)) + np.asarray(v, "<i4").tobytes()
+    return _gguf_str(key) + body
+
+
+def _gguf_payload(tname: str, n: int, rng) -> bytes:
+    """n weights of type tname: F32 ones (the norms), or random blocks with
+    their scales set as GGUF_BLOCKS says."""
+    if tname == "F32":
+        return np.ones(n, "<f4").tobytes()
+    dt, scales = GGUF_BLOCKS[tname]
+    nb = n // GGUF_TYPES[tname][1]
+    blocks = np.frombuffer(rng.bytes(nb * dt.itemsize), dt).copy()
+    for field, s in scales.items():
+        blocks[field] = (s * rng.uniform(0.75, 1.25, nb)).astype(np.float16)
+    return blocks.tobytes()
+
+
+def write_gguf(path: str, kv: dict, tensors: list, seed: int = 0) -> int:
+    """A GGUF v3 file: the header, `kv`, the tensor infos of `tensors` =
+    [(name, ggml type, ne)] (ne[0] the contiguous in axis), then each
+    tensor's payload (from a numpy generator seeded with `seed`) at 32-byte
+    alignment, written one tensor at a time. Returns the file's bytes."""
+    align = 32
+    rng = np.random.default_rng(seed)
+    head = struct.pack("<IIQQ", 0x46554747, 3, len(tensors), len(kv))
+    head += b"".join(_gguf_kv(k, v) for k, v in kv.items())
+    offset, sizes = 0, []
+    for name, tname, ne in tensors:
+        tid, blk, bsz = GGUF_TYPES[tname]
+        n = int(np.prod(ne))
+        sizes.append(n)
+        head += _gguf_str(name) + struct.pack(f"<I{len(ne)}QIQ", len(ne), *ne, tid, offset)
+        offset += -(-(n // blk * bsz) // align) * align
+    with open(path, "wb") as f:
+        f.write(head + b"\0" * (-len(head) % align))
+        for (_name, tname, _ne), n in zip(tensors, sizes):
+            raw = _gguf_payload(tname, n, rng)
+            f.write(raw + b"\0" * (-len(raw) % align))
+    return os.path.getsize(path)
+
+
+def _byte_symbols() -> list[str]:
+    """GPT-2's byte-level alphabet in the order llama-3's first 256 ids take
+    it: the printable bytes' own characters first, then the others'."""
+    bs = list(range(33, 127)) + list(range(0xA1, 0xAD)) + list(range(0xAE, 0x100))
+    cs = [chr(c) for c in bs]
+    cs += [chr(256 + n) for n in range(256 - len(bs))]
+    return cs
+
+
+def gguf_vocab(n_vocab: int, seed: int = 0) -> tuple[list[str], list[str], list[int]]:
+    """A gpt2-type BPE vocabulary of n_vocab tokens in llama-3's layout: the
+    256 byte symbols, tokens made by deterministic synthetic merges of
+    earlier tokens (older ones drawn more often, at most 16 symbols a
+    token), then 256 control tokens. Returns (tokens, merges, token types)."""
+    specials, k = [], 0
+    for i in range(256):
+        name = LLAMA3_SPECIALS.get(i)
+        if name is None:
+            name, k = f"<|reserved_special_token_{k}|>", k + 1
+        specials.append(name)
+    regular = n_vocab - 256
+    tokens = _byte_symbols()
+    seen = set(tokens) | set(specials)
+    merges = []
+    rng = np.random.default_rng(seed)
+    while len(tokens) < regular:
+        for u, v in rng.random((4096, 2)) ** 3:
+            a, b = tokens[int(u * len(tokens))], tokens[int(v * len(tokens))]
+            if len(a) + len(b) <= 16 and a + b not in seen:
+                seen.add(a + b)
+                tokens.append(a + b)
+                merges.append(f"{a} {b}")
+                if len(tokens) == regular:
+                    break
+    return tokens + specials, merges, [1] * regular + [3] * 256
+
+
+def _gguf_type(plan: str, key: str, layer: int) -> str:
+    """The ggml type of a weight in a file laid out as `plan`: "q8_0", or
+    "q4_k_m" (llama.cpp's Q4_K_M: q4_K, with attn_v and ffn_down in q6_K
+    in alternate layers, so those two keys mix types, and q6_K embeddings
+    and head)."""
+    if plan == "q8_0":
+        return "Q8_0"
+    if key in ("token_embd", "output") or (key in ("attn_v", "ffn_down") and layer % 2 == 0):
+        return "Q6_K"
+    return "Q4_K"
+
+
+def write_gguf_model(path: str, cfg, layers: int, plan: str, seed: int = 0) -> int:
+    """A llama-family GGUF at cfg's widths with `layers` decoder layers,
+    laid out as `plan`, with llama-3's tokenizer metadata (gguf_vocab, the
+    llama-bpe pre-tokenizer, bos / eos, chat template) and its rope scaling;
+    an untied cfg gets an `output.weight`. Returns the file's bytes."""
+    D, F, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    Hd, Kd = cfg.num_heads * cfg.head_dim_, cfg.num_kv_heads * cfg.head_dim_
+    tokens, merges, types = gguf_vocab(V, seed)
+    kv = {"general.architecture": "llama", "general.name": cfg.name, "llama.block_count": layers,
+          "llama.context_length": cfg.max_position, "llama.embedding_length": D,
+          "llama.feed_forward_length": F, "llama.attention.head_count": cfg.num_heads,
+          "llama.attention.head_count_kv": cfg.num_kv_heads,
+          "llama.attention.layer_norm_rms_epsilon": float(cfg.rms_eps),
+          "llama.rope.freq_base": float(cfg.rope_theta),
+          "llama.rope.dimension_count": cfg.head_dim_, "llama.vocab_size": V,
+          "tokenizer.ggml.model": "gpt2", "tokenizer.ggml.pre": "llama-bpe",
+          "tokenizer.ggml.tokens": tokens, "tokenizer.ggml.token_type": types,
+          "tokenizer.ggml.merges": merges, "tokenizer.ggml.bos_token_id": V - 256,
+          "tokenizer.ggml.eos_token_id": V - 256 + 9, "tokenizer.ggml.add_bos_token": True,
+          "tokenizer.chat_template": LLAMA3_CHAT_TEMPLATE}
+    if cfg.rope_scaling == "llama3":
+        kv["llama.rope.scaling.factor"] = float(cfg.rope_scaling_factor)
+        kv["llama.rope.scaling.original_context_length"] = cfg.rope_original_max_position
+    tensors = [("token_embd.weight", _gguf_type(plan, "token_embd", 0), (D, V))]
+    for i in range(layers):
+        for key, ne in (("attn_norm", (D,)), ("attn_q", (D, Hd)), ("attn_k", (D, Kd)),
+                        ("attn_v", (D, Kd)), ("attn_output", (Hd, D)), ("ffn_norm", (D,)),
+                        ("ffn_gate", (D, F)), ("ffn_up", (D, F)), ("ffn_down", (F, D))):
+            tname = "F32" if len(ne) == 1 else _gguf_type(plan, key, i)
+            tensors.append((f"blk.{i}.{key}.weight", tname, ne))
+    tensors.append(("output_norm.weight", "F32", (D,)))
+    if not cfg.tie_embeddings:
+        tensors.append(("output.weight", _gguf_type(plan, "output", 0), (D, V)))
+    return write_gguf(path, kv, tensors, seed)
+
+
+# The two files: llama-3.2-1b at full depth as a Q4_K_M file (tied
+# embeddings, as published), and llama-3-8b as a Q8_0 file with an untied
+# output.weight, 8 of its 32 layers (cut for time).
+GGUF_FILES = (("llama-3.2-1b", 16, "q4_k_m"), ("llama-3-8b", 8, "q8_0"))
+GGUF_YAML = {"context_size": 4096, "max_slots": 8, "kv_pages": 256, "kv_page_size": 128,
+             "prefill_chunk": 512, "max_tokens": 64,
+             "template": {"use_tokenizer_template": True}}
+GGUF_CHAT_CHARS = [120, 400, 900, 1600, 2400, 3200, 250, 1200]
+
+
+def _gguf_text(n_chars: int, seed: int) -> str:
+    """Deterministic text of n_chars: random words, digits, punctuation,
+    contractions, non-ASCII (Greek, Cyrillic, CJK, an emoji), tabs and
+    newlines."""
+    import random
+
+    rnd = random.Random(seed)
+    pool = ["the", "model", "serves", "tokens", "GGUF", "llama", "Ωμέγα", "мир", "你好", "🙂",
+            "don't", "we've", "x*2", "(a, b)", "123", "4567", "\n", "\t", "  ", "#"]
+    letters = "abcdefghijklmnopqrstuvwxyzABCDEFGH0123456789.,;!?'"
+    words, n = [], 0
+    while n < n_chars:
+        w = (rnd.choice(pool) if rnd.random() < 0.4
+             else "".join(rnd.choice(letters) for _ in range(rnd.randint(1, 9))))
+        words.append(w)
+        n += len(w) + 1
+    return " ".join(words)[:n_chars]
+
+
+def _hold_gguf_layer(label: str, tree: dict, plan: str, gen: torch.Generator) -> list[dict]:
+    """B3 on every quantized projection of layer 0 as the loader repacked
+    it: 8 bf16 rows against its plain version (_hold_b3's bounds and
+    times), and 8 f32 rows against the dequantize-then-matmul route (the
+    f32 bound of the B3 rows, 1e-4 x max|out|)."""
+    from localai_tpu_torch import kernels
+    from localai_tpu_torch.models import quant
+    from localai_tpu_torch.ops.quant_matmul import qmm, qmm_plain, qmm_plan
+
+    rows = []
+    gkeys = {"wq": "attn_q", "wk": "attn_k", "wv": "attn_v", "wo": "attn_output",
+             "w_gate": "ffn_gate", "w_up": "ffn_up", "w_down": "ffn_down"}
+    for key in quant.QUANT_LAYER_KEYS:
+        w = {k: torch.from_numpy(np.ascontiguousarray(v[0])).cuda()
+             for k, v in tree["layers"][key].items()}
+        form = "g4" if "g4" in w else "gq"
+        G, _r, n_out = w[form].shape
+        n_in = G * 32
+        wb = quant.dequantize_tensor(w).to(torch.bfloat16)
+        x = torch.randn(8, n_in, generator=gen, device="cuda").to(torch.bfloat16)
+        plan_b3 = qmm_plan(n_in, n_out, 8, kernels.sm_count(x.device))._asdict()
+        row = _hold_b3(f"quant_matmul gguf {label}", lambda v: qmm(v, w),
+                       lambda v: qmm_plain(v, w), x, lambda: torch.matmul(x, wb),
+                       lambda v: quant.matmul(v, w),
+                       _qmm_work("int4" if form == "g4" else "grouped_int8", 8, n_in, n_out, 2),
+                       plan_b3, shape=[8, n_in, n_out], form=form, key=key,
+                       ggml_type=_gguf_type(plan, gkeys[key], 0))
+        x32 = x.float()
+        out = qmm(x32, w)
+        with _dequant_route():
+            ref = quant.matmul(x32, w)
+        err, scale = (out - ref).abs().max().item(), ref.abs().max().item()
+        row.update(dequant_route_f32_err=err, dequant_route_f32_max=scale)
+        log(f"[gguf {label} {key} {form}] f32 x: kernel vs dequantize-then-matmul route "
+            f"max_abs_err={err:.3e} (max |out| {scale:.3e})")
+        check(err <= 1e-4 * scale, f"gguf {label} {key}: the f32 kernel differs from the "
+                                   f"dequant route by {err} (max {scale})")
+        rows.append(row)
+        del w, wb
+    return rows
+
+
+def _hold_gguf_head(tree: dict, gen: torch.Generator) -> dict:
+    """B4 on the int8 head the loader made of output.weight: 8 bf16 rows
+    against its plain version (_hold_unembed), and 8 f32 rows against the
+    dequantize-then-matmul route (1e-4 x max|logit|)."""
+    from localai_tpu_torch.models import quant
+    from localai_tpu_torch.ops.quant_matmul import qunembed
+
+    head = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+            for k, v in tree["lm_head"].items()}
+    head_bf16 = (head["q"].float() * head["s"]).to(torch.bfloat16)
+    h = torch.randn(8, head["q"].shape[1], generator=gen, device="cuda").to(torch.bfloat16)
+    row = _hold_unembed(h, head, head_bf16)
+    out = qunembed(h.float(), head)
+    with _dequant_route():
+        ref = quant.unembed_matmul(h.float(), head)
+    err, scale = (out - ref).abs().max().item(), ref.abs().max().item()
+    row.update(dequant_route_f32_err=err, dequant_route_f32_max=scale)
+    log(f"[gguf head] f32 h: kernel vs dequantize-then-matmul route max_abs_err={err:.3e} "
+        f"(max |logit| {scale:.3e})")
+    check(err <= 1e-4 * scale, f"gguf head: the f32 kernel differs from the dequant route by "
+                               f"{err} (max {scale})")
+    return row
+
+
+def _hold_gguf_tokenizer(tok_dir: str) -> dict:
+    """The synthesized tokenizer: the native BPE engine is on, and its ids
+    equal the HF tokenizer's on the canaries, a chat prompt with control
+    tokens and a 20,000-character text; host µs a character of each."""
+    from localai_tpu_torch.engine.bpe_fast import _CANARIES
+    from localai_tpu_torch.engine.tokenizer import HFTokenizer
+
+    t0 = time.monotonic()
+    tok = HFTokenizer(tok_dir)
+    load_s = time.monotonic() - t0
+    check(tok.native_bpe, "gguf: the native BPE encoder is off for the synthesized tokenizer")
+    big = _gguf_text(20000, 17)
+    chat = tok.apply_chat_template([{"role": "user", "content": _gguf_text(300, 5)}])
+    for text in [*_CANARIES, chat, big]:
+        got, want = tok.encode(text), tok._tok.encode(text, add_special_tokens=False)
+        check(got == want, f"gguf: native BPE ids differ from the HF tokenizer's on "
+                           f"{text[:40]!r}: {got[:8]} != {want[:8]}")
+    tok._fast._piece_cache.clear()
+    t0 = time.perf_counter()
+    ids = tok._fast.encode(big)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tok._tok.encode(big, add_special_tokens=False)
+    hf_s = time.perf_counter() - t0
+    out = dict(vocab=tok.vocab_size, load_s=load_s, chars=len(big), ids=len(ids),
+               native_us_per_char=native_s / len(big) * 1e6,
+               hf_us_per_char=hf_s / len(big) * 1e6, chat_prompt_ids=len(tok.encode(chat)))
+    log("[gguf tokenizer] " + json.dumps(out))
+    return out
+
+
+def _dense_of(params: dict) -> dict:
+    """The dequantized dense tree of a quantized one: each quantized leaf
+    back to [.., in, out] (the head [V, D]) in bf16, on the card."""
+    from localai_tpu_torch.models import quant
+
+    def deq(w):
+        return quant.dequantize_tensor(w).to(torch.bfloat16) if quant.is_quantized(w) else w
+
+    out = {k: deq(v) for k, v in params.items() if k != "layers"}
+    out["layers"] = {k: deq(v) for k, v in params["layers"].items()}
+    return out
+
+
+def _gguf_against_dense(label: str, cfg, params: dict, plens: list[int], new: int) -> dict:
+    """The GGUF engine (params as loaded) against an engine on the
+    dequantized dense bf16 tree: the same requests (_serve: half greedy,
+    half seeded), each greedy request's ids equal or parting at a near tie
+    (_part_gap's bound on the dense model's logits). Returns the GGUF run."""
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig
+    from localai_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    def engine(p):
+        return Engine(cfg, p, ByteTokenizer(cfg.vocab_size), device="cuda",
+                      engine_cfg=EngineConfig(**PAGED_ENGINE))
+
+    run = _serve(engine(params), plens, max_new=new, keep_ids=True)
+    dense = _dense_of(params)
+    ref = _serve(engine(dense), plens, max_new=new, keep_ids=True)
+    parts = []
+    prompts = _serve_prompts(plens)
+    for i in range(0, len(plens), 2):  # the greedy requests
+        want, got = ref["ids"][i], run["ids"][i]
+        if want != got:
+            gap = _part_gap(cfg, dense, prompts[i], want, got, {})
+            check(gap["gap"] <= gap["bound"], f"gguf {label}: greedy request {i} parts from "
+                                              f"the dense tree's at {gap}")
+            parts.append(gap)
+    run["greedy_vs_dense"] = dict(requests=len(range(0, len(plens), 2)), parted=parts,
+                                  dense_weight_bytes=ref["weight_bytes"])
+    del dense
+    torch.cuda.empty_cache()
+    return run
+
+
+def _form_bytes(params: dict) -> dict:
+    """Device bytes a weight of each grouped form (payload, scales, zero
+    points) over the layer stacks, and the weights of each."""
+    acc = {}
+    for w in params["layers"].values():
+        if isinstance(w, dict) and ("g4" in w or "gq" in w):
+            form = "g4" if "g4" in w else "gq"
+            n = w[form].numel() * (2 if form == "g4" else 1)
+            b = sum(t.numel() * t.element_size() for t in w.values())
+            tot = acc.setdefault(form, [0, 0])
+            tot[0], tot[1] = tot[0] + b, tot[1] + n
+    return {f: dict(weights=n, bytes=b, bytes_per_weight=b / n) for f, (b, n) in acc.items()}
+
+
+def phase_gguf(gen: torch.Generator) -> dict:
+    """GGUF checkpoints through the port: the two files written here, each
+    parsed and repacked (timed) and held layer by layer (B3 in its g4 and
+    gq forms, B4 on the 8b head); the 1b file's synthesized tokenizer
+    through the native BPE engine; the 1b file served by the port's HTTP
+    server from a YAML `model: <file>.gguf` (8 concurrent chats, half
+    streamed, half greedy, 64 tokens; B3 launched in both forms); the 8b
+    file through Engine.submit (B4 on the path); each against its
+    dequantized dense tree."""
+    import yaml
+
+    from localai_tpu_torch.engine.gguf import load_gguf_checkpoint
+    from localai_tpu_torch.engine.weights import params_from_numpy
+    from localai_tpu_torch.models import get_arch
+
+    out = {"files": {}}
+    root = tempfile.mkdtemp(prefix="gguf-")
+    try:
+        trees = {}
+        for name, layers, plan in GGUF_FILES:
+            cfg = get_arch(name)
+            path = f"{root}/{name}-{plan}.gguf"
+            t0 = time.monotonic()
+            nbytes = write_gguf_model(path, cfg, layers, plan)
+            write_s = time.monotonic() - t0
+            t0 = time.monotonic()
+            arch, tree, tok_dir = load_gguf_checkpoint(path)
+            parse_s = time.monotonic() - t0
+            widths = ("vocab_size", "hidden_size", "intermediate_size", "num_heads",
+                      "num_kv_heads", "head_dim_", "rope_theta", "rope_scaling",
+                      "rope_scaling_factor", "tie_embeddings")
+            check(all(getattr(arch, k) == getattr(cfg, k) for k in widths)
+                  and arch.num_layers == layers,
+                  f"gguf {name}: the file's arch {arch} is not {name}'s widths")
+            trees[name] = (arch, tree, tok_dir, path)
+            out["files"][name] = dict(layers=layers, plan=plan, file_bytes=nbytes,
+                                      write_s=write_s, parse_and_repack_s=parse_s,
+                                      tokenizer_dir=tok_dir is not None)
+            log(f"[gguf {name} {plan}] " + json.dumps(out["files"][name]))
+            out.setdefault("b3_rows", []).extend(_hold_gguf_layer(name, tree, plan, gen))
+        out["b4_row"] = _hold_gguf_head(trees["llama-3-8b"][1], gen)
+        out["tokenizer"] = _hold_gguf_tokenizer(trees["llama-3.2-1b"][2])
+
+        # The 1b file served over HTTP from its YAML.
+        with open(f"{root}/gguf-1b.yaml", "w") as f:
+            yaml.safe_dump({"name": "gguf-1b", "model": "llama-3.2-1b-q4_k_m.gguf", **GGUF_YAML},
+                           f)
+        manager, server, base = _start_server(root)
+        try:
+            t0 = time.monotonic()
+            eng = manager.get("gguf-1b").engine
+            load_s = time.monotonic() - t0
+            check(eng.tokenizer.native_bpe, "gguf-1b: the served tokenizer is not native BPE")
+            t0 = time.monotonic()
+            eng.warmup()  # every decode-block shape captured before traffic
+            warmup_s = time.monotonic() - t0
+            warm = [("/v1/chat/completions", "gguf-1b",
+                     {"model": "gguf-1b", "max_tokens": 4, "ignore_eos": True,
+                      "messages": [{"role": "user", "content": "warm up"}]})]
+            results, _ = _http_batch(base, warm)
+            check(results[0]["status"] == 200, f"gguf-1b warm request: {results[0]}")
+            reqs = []
+            for i, n in enumerate(GGUF_CHAT_CHARS):
+                greedy = i % 2 == 0
+                reqs.append(("/v1/chat/completions", "gguf-1b", {
+                    "model": "gguf-1b", "max_tokens": 64, "ignore_eos": True,
+                    "stream": i % 4 in (1, 2), "temperature": 0.0 if greedy else 0.8,
+                    "top_p": 1.0 if greedy else 0.9, "seed": 100 + i,
+                    "messages": [{"role": "user", "content": _gguf_text(n, 100 + i)}]}))
+            m0, tok0, dt0 = eng.metrics(), eng._decode_tokens, eng._decode_time
+            _zero_counts()
+            results, wall = _http_batch(base, reqs)
+            n = _read_counts()
+            m1 = eng.metrics()
+            _texts, ttfts = _check_http_results("gguf-1b", reqs, results)
+            steps = int(m1["decode_steps"] - m0["decode_steps"])
+            _check_graphs("gguf-1b", {k: int(m1[k] - m0[k]) for k in (
+                "decode_blocks", "decode_graph_captures", "decode_graph_replays")})
+            check(n["quant_matmul_g4"] > 0 and n["quant_matmul_gq"] > 0
+                  and n["quant_matmul_q"] == 0 and n["flash_prefill"] > 0
+                  and n["paged_attention"] > 0,
+                  f"gguf-1b: the served path missed a kernel or a form: {n}")
+            # Every decode step runs the 7 products of each layer through B3:
+            # wv and w_down in gq, the other 5 in g4.
+            L = eng.cfg.num_layers
+            check(n["quant_matmul_gq"] >= 2 * L * steps and n["quant_matmul_g4"] >= 5 * L * steps,
+                  f"gguf-1b: B3 launches {n} for {steps} decode steps x {L} layers")
+            dt_s = eng._decode_time - dt0
+            out["http"] = dict(requests=len(reqs), wall_s=wall, load_s=load_s, warmup_s=warmup_s,
+                               ttft_ms_p50=statistics.median(ttfts) * 1e3,
+                               ttft_ms_max=max(ttfts) * 1e3,
+                               decode_tok_s=(eng._decode_tokens - tok0) / dt_s,
+                               decode_steps=steps,
+                               admissions=int(m1["admissions"] - m0["admissions"]),
+                               prefill_chunks=int(m1["prefill_chunks"] - m0["prefill_chunks"]),
+                               weight_bytes=int(m1["weight_bytes"]),
+                               file_bytes=out["files"]["llama-3.2-1b"]["file_bytes"],
+                               forms=_form_bytes(eng.params), launches=n)
+            log("[gguf llama-3.2-1b http] " + json.dumps(out["http"]))
+        finally:
+            server.shutdown()
+            manager.shutdown()
+        torch.cuda.empty_cache()
+
+        # Each file's engine against its dequantized dense tree; the 8b run
+        # is the path with B4 (an untied head).
+        for name, layers, plan in GGUF_FILES:
+            arch, tree = trees.pop(name)[:2]
+            params = params_from_numpy(arch, tree, device="cuda")
+            del tree
+            run = _gguf_against_dense(name, arch, params, [20, 100, 300, 700, 1500, 20, 100, 300],
+                                      32)
+            n = run["launches"]
+            form = "g4" if plan == "q4_k_m" else "gq"
+            check(n[f"quant_matmul_{form}"] > 0 and n["quant_matmul_gq"] > 0
+                  and n["flash_prefill"] > 0 and n["paged_attention"] > 0,
+                  f"gguf {name} engine: a kernel or a form did not run: {n}")
+            check(arch.tie_embeddings or n["quant_unembed"] > 0,
+                  f"gguf {name} engine: B4 did not run on the untied head: {n}")
+            _check_graphs(f"gguf {name}", run)
+            run["forms"] = _form_bytes(params)
+            run.pop("ids")
+            out[f"engine_{name}"] = run
+            log(f"[gguf {name} engine] " + json.dumps(run))
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gq = next(r for r in out["b3_rows"] if r["form"] == "gq" and r["shape"] == [8, 4096, 14336])
+    out["summary"] = dict(
+        files={k: {kk: v[kk] for kk in ("file_bytes", "parse_and_repack_s")}
+               for k, v in out["files"].items()},
+        http={k: out["http"][k] for k in ("ttft_ms_p50", "decode_tok_s", "weight_bytes",
+                                          "file_bytes", "forms")},
+        gq_8b_gate=_compact(gq, ("shape", "ms", "plain_ms", "bf16_ms", "dequant_ms", "bound_ms",
+                                 "bound_frac", "max_abs_err")),
+        tokenizer={k: out["tokenizer"][k] for k in ("native_us_per_char", "hf_us_per_char")},
+        greedy_vs_dense={k: len(out[f"engine_{k}"]["greedy_vs_dense"]["parted"])
+                         for k, _l, _p in GGUF_FILES})
+    log("[gguf summary] " + json.dumps(out["summary"]))
+    return out
+
+
+
 def _compact(row: dict, keys) -> dict:
     return {k: row[k] for k in keys}
 
@@ -3985,6 +4527,9 @@ def main() -> None:
     mixtral = timed("mixtral", phase_mixtral, gen)
     mixtral_int8 = timed("mixtral_int8", phase_mixtral_int8)
     moe_small = timed("moe_small", phase_moe_small)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gguf = timed("gguf", phase_gguf, gen)
     runs = {"dense_engine": dense, "paged_engine": paged, **qruns, "lora_8b_int8": lora_8b,
             "graphs_1b": graphs_1b["graph"], "graphs_1b_eager": graphs_1b["eager"],
             "graphs_8b": graphs_8b["graph"], "graphs_8b_eager": graphs_8b["eager"],
@@ -3998,10 +4543,13 @@ def main() -> None:
             "prefix_swap_ample": prefix["swap_runs"]["ample"],
             "prefix_8b_hit": {"launches": prefix_8b["launches"]["hit"]},
             "prefix_8b_miss": {"launches": prefix_8b["launches"]["miss"]},
-            **grammar["runs"], **tree["runs"]}
+            **grammar["runs"], **tree["runs"], "gguf_http_llama_3_2_1b": gguf["http"],
+            "gguf_engine_llama_3_2_1b": gguf["engine_llama-3.2-1b"],
+            "gguf_engine_llama_3_8b": gguf["engine_llama-3-8b"]}
     by_path = {k: {path: out["launches"][k] for path, out in runs.items()}
                for k in ("flash_prefill", "paged_attention", "quant_matmul", "quant_matmul_moe",
-                         "quant_unembed", "lora_bgmv")}
+                         "quant_unembed", "lora_bgmv", "quant_matmul_q", "quant_matmul_gq",
+                         "quant_matmul_g4")}
     by_path["lora_bgmv"]["lora_http"] = lora_http["tenants"]["lora_bgmv_launches"]
     # The main shape of B1: llama-3.2-1b's 8 x 2048 admission with every row
     # at full length, so the kernel, SDPA and the bound count the same work.
@@ -4095,6 +4643,11 @@ def main() -> None:
         "tpu_kernel": "localai_tpu/ops/quant_matmul.py::_qmm_kernel",
         "launches": sum(by_path["quant_matmul"].values()),
         "launches_by_path": by_path["quant_matmul"],
+        # B3's 2-D launches by weight form over every path: flat int8 (the
+        # port's own int8), grouped int8 (GGUF q8_0 and the regridded types),
+        # packed int4 (the port's int4, GGUF q4_0 / q4_K).
+        "launches_by_form": {f: sum(by_path[f"quant_matmul_{f}"].values())
+                             for f in ("q", "gq", "g4")},
         "shape": {"N": 8, "in": 4096, "out": 14336, "form": "int4", "dtype": "bfloat16"},
         "max_abs_err": b3_main["max_abs_err"],
         "tol": "f32 x: 1e-4 x max|out|; bf16 x: 2^-7 x |out| + 1e-4 x max|out|",
@@ -4116,6 +4669,14 @@ def main() -> None:
         "shapes": [_compact(r, ("shape", "form", "dtype", "ms", "bf16_ms", "dequant_ms",
                                 "bound_ms"))
                    for r in b3_rows],
+        # Layer 0 of the two GGUF files as the loader repacked them (g4 with
+        # per-group zero points from q4_K, gq from q8_0 and regridded q6_K),
+        # and the served runs.
+        "gguf": {"summary": gguf["summary"],
+                 "layer_rows": [_compact(r, ("key", "ggml_type", "form", "shape", "ms", "plain_ms",
+                                             "bf16_ms", "dequant_ms", "bound_ms", "max_abs_err",
+                                             "dequant_route_f32_err"))
+                                for r in gguf["b3_rows"]]},
     }
     # The main shape of B3's expert form: mixtral-8x7b's gate at a decode
     # block of 8 slots, int4 experts, bf16 x.
@@ -4186,6 +4747,10 @@ def main() -> None:
         # ptxas: registers, spill bytes, static shared memory of each instance
         # (the tensor-core instances take h as dynamic shared memory).
         "ptxas": [r for r in usage["quant_matmul"] if "unembed" in r["kernel"]],
+        # The int8 head of the llama-3-8b GGUF's q8_0 output.weight.
+        "gguf_head": _compact(gguf["b4_row"], ("shape", "dtype", "ms", "plain_ms", "bf16_ms",
+                                                "bound_ms", "max_abs_err",
+                                                "dequant_route_f32_err")),
         "shapes": b4_rows,
     }
     # The main shape of B5: llama-3.2-1b's wq (2048 -> 2048) at rank 16 over

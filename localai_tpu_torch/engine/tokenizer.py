@@ -1,11 +1,12 @@
-"""Tokenizer abstraction (a copy of localai_tpu/engine/tokenizer.py without
-the native BPE encode fast path).
+"""Tokenizer abstraction (a copy of localai_tpu/engine/tokenizer.py).
 
 Two implementations behind one small interface:
 
 - `HFTokenizer`: wraps a local HuggingFace tokenizer directory (the reference's
   `use_tokenizer_template` path hands templating/tokenization to the backend,
   backend/python/vllm/backend.py chat-template usage; here it is first-class).
+  Byte-level BPE vocabularies encode through the native C++ merge engine
+  (engine/bpe_fast.py), held to the HF tokenizer on a canary suite first.
 - `ByteTokenizer`: dependency-free byte-level tokenizer used for tests and
   synthetic benchmarks — no downloads needed in an egress-free environment.
 
@@ -96,6 +97,11 @@ class HFTokenizer:
 
         self._tok = AutoTokenizer.from_pretrained(path, local_files_only=True)
         self.vocab_size = len(self._tok)
+        # Native C++ BPE encode hot path (self-validated: None on a mismatch
+        # or for a tokenizer that is not byte-level BPE; a failed build raises).
+        from localai_tpu_torch.engine.bpe_fast import FastBPE
+
+        self._fast = FastBPE.for_hf_dir(path, self._tok)
         self.bos_id = self._tok.bos_token_id
         eos = self._tok.eos_token_id
         eos_ids = [eos] if isinstance(eos, int) else list(eos or [])
@@ -106,8 +112,16 @@ class HFTokenizer:
                 eos_ids.append(tid)
         self.eos_ids = tuple(eos_ids)
 
+    @property
+    def native_bpe(self) -> bool:
+        """Whether encode() runs the native BPE engine."""
+        return self._fast is not None
+
     def encode(self, text: str, add_bos: bool = False) -> list[int]:
-        ids = self._tok.encode(text, add_special_tokens=False)
+        if self._fast is not None:
+            ids = self._fast.encode(text)
+        else:
+            ids = self._tok.encode(text, add_special_tokens=False)
         if add_bos and self.bos_id is not None:
             ids = [self.bos_id] + ids
         return ids

@@ -27,10 +27,13 @@ Mixtral checkpoints load too: `block_sparse_moe.gate` becomes the router
 stacks w_gate / w_up / w_down [L, E, in, out], quantized on load like the
 dense matmul weights.
 
-Not ported yet: GGUF checkpoints (ROADMAP Queue A item 5, checkpoint
-formats), DeepSeek checkpoints and LoRA merged into experts (item 10,
-other decoder families), Phi-3's fused qkv / gate_up tensors in a
-checkpoint (item 5, checkpoint formats; in an adapter they split).
+Phi-3's fused `qkv_proj` / `gate_up_proj` tensors split into the per-head
+weights by row blocks as they are read (`_FusedReader`), so a fused
+checkpoint loads, quantizes and merges adapters exactly like its unfused
+twin. GGUF files load through engine/gguf.py.
+
+Not ported yet: DeepSeek checkpoints and LoRA merged into experts (ROADMAP
+Queue A item 10, other decoder families).
 """
 
 from __future__ import annotations
@@ -191,14 +194,72 @@ class _ShardReader:
         return self._open[fname].get(name)
 
 
+def _fused_parts(cfg: ArchConfig) -> dict[str, tuple[str, list[int], int]]:
+    """Per-layer tensor name -> (the Phi-3 fused tensor holding it, the row
+    sizes of the fused tensor's blocks, the block's index)."""
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    qkv, gate_up = [H * hd, K * hd, K * hd], [cfg.intermediate_size] * 2
+    return {
+        "self_attn.q_proj.weight": ("self_attn.qkv_proj.weight", qkv, 0),
+        "self_attn.k_proj.weight": ("self_attn.qkv_proj.weight", qkv, 1),
+        "self_attn.v_proj.weight": ("self_attn.qkv_proj.weight", qkv, 2),
+        "mlp.gate_proj.weight": ("mlp.gate_up_proj.weight", gate_up, 0),
+        "mlp.up_proj.weight": ("mlp.gate_up_proj.weight", gate_up, 1),
+    }
+
+
+class _FusedReader:
+    """A shard reader that also serves the per-head names of Phi-3's fused
+    tensors, each a row block of its fused [out, in] tensor (the JAX
+    loader's split). The loader walks key by key, so a fused tensor's
+    other blocks are wanted much later: each fused tensor is read once and
+    its siblings' blocks are kept until they are asked for."""
+
+    def __init__(self, reader: _ShardReader, cfg: ArchConfig):
+        self.reader = reader
+        self.parts = _fused_parts(cfg)
+        self._kept: dict[str, torch.Tensor] = {}
+
+    def _source(self, name: str):
+        for suffix, (fused_suffix, sizes, idx) in self.parts.items():
+            if name.endswith(suffix):
+                prefix = name[: -len(suffix)]
+                if prefix + fused_suffix in self.reader:
+                    return prefix, fused_suffix, sizes, idx
+        return None
+
+    def __contains__(self, name: str) -> bool:
+        return name in self.reader or self._source(name) is not None
+
+    def get(self, name: str) -> torch.Tensor:
+        if name in self.reader:
+            return self.reader.get(name)
+        kept = self._kept.pop(name, None)
+        if kept is not None:
+            return kept
+        src = self._source(name)
+        if src is None:
+            raise KeyError(name)
+        prefix, fused_suffix, sizes, idx = src
+        fused = self.reader.get(prefix + fused_suffix)
+        if fused.shape[0] != sum(sizes):
+            raise ValueError(f"{prefix + fused_suffix}: {fused.shape[0]} rows, the config's "
+                             f"blocks {sizes} need {sum(sizes)}")
+        offs = np.cumsum([0, *sizes])
+        for suffix, (fsuf, _sizes, i) in self.parts.items():
+            if fsuf == fused_suffix and i != idx:
+                self._kept[prefix + suffix] = fused[offs[i]: offs[i + 1]]
+        return fused[offs[idx]: offs[idx + 1]]
+
+
 def load_hf_checkpoint(cfg: ArchConfig, ckpt_dir: str, device=None,
                        quantize: str = "",
                        lora: list[tuple[str, float]] | None = None) -> Params:
     """Load an HF-format Llama-family checkpoint (bf16 / f16 / f32 tensors;
-    llama, mistral, qwen2, gemma and mixtral layouts)
-    into the stacked tensor dict on `device`, in cfg.dtype. Each stacked
-    tensor is allocated on the device once and filled layer by layer, so the
-    host holds one layer's tensor at a time.
+    llama, mistral, qwen2, gemma, phi-3 with its fused qkv / gate_up, and
+    mixtral layouts) into the stacked tensor dict on `device`, in
+    cfg.dtype. Each stacked tensor is allocated on the device once and
+    filled layer by layer, so the host holds one layer's tensor at a time.
 
     `quantize="int8"` / `"int4"` quantizes the matmul weights on the host
     as they are read: int8 per-channel or int4 group-32 for the layer
@@ -213,7 +274,7 @@ def load_hf_checkpoint(cfg: ArchConfig, ckpt_dir: str, device=None,
     do_quant = quantize in ("int8", "int4")
     device = resolve_device(device)
     dt = torch_dtype(cfg.dtype)
-    reader = _ShardReader(ckpt_dir)
+    reader = _FusedReader(_ShardReader(ckpt_dir), cfg)
     lora_deltas: dict[str, dict[Any, np.ndarray]] = {}
     for adir, w in lora or []:
         for our, per_layer in load_lora_deltas(adir, w, cfg).items():

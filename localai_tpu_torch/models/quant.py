@@ -28,8 +28,8 @@ compiled quantize_params, the numpy ones those of its numpy loader path.
 form, one layer at a time, so a model whose bf16 weights would not fit
 (mixtral-8x7b on one 80 GB card) never exists in bf16.
 
-Not ported yet: GGUF ingestion (engine/gguf.py; ROADMAP Queue A item 5,
-checkpoint formats).
+GGUF files arrive already in these forms (engine/gguf.py): q4_0 / q4_K as
+g4 with per-group zero points, q8_0 and the regridded types as gq.
 """
 
 from __future__ import annotations

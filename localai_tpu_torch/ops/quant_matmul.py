@@ -346,11 +346,14 @@ def qmm(x: torch.Tensor, w: dict) -> torch.Tensor:
     form, out_dim, gs = _check_qmm_args(x, w)
     out = _launch_qmm(x, w, form, out_dim, gs)
     qmm.launches += 1
+    by_form = "launches_" + _payload_key(w)
+    setattr(qmm, by_form, getattr(qmm, by_form) + 1)
     return out
 
 
-# Launches of the CUDA kernel (the plain CPU route does not count).
-qmm.launches = 0
+# Launches of the CUDA kernel (the plain CPU route does not count), in all
+# and by weight form: flat int8, grouped int8, packed int4.
+qmm.launches = qmm.launches_q = qmm.launches_gq = qmm.launches_g4 = 0
 
 
 def qmm_moe(x: torch.Tensor, w: dict, sub: str) -> torch.Tensor:

@@ -2,7 +2,8 @@
 virtual models (the LLM part of localai_tpu/server/manager.py).
 
 One manager owns every engine of the process, all on one device. "Loading"
-reads a checkpoint (or draws a preset's random weights) onto the device and
+reads a checkpoint (an HF safetensors directory or a GGUF file), or draws a
+preset's random weights, onto the device and
 starts an engine; "evicting" stops the engine and drops its tensors. A
 virtual model (`base_model` + `adapter` in its YAML) resolves to its base's
 one shared engine with the adapter registered as a runtime LoRA tenant, so
@@ -323,8 +324,15 @@ class ModelManager:
         """Load a llama-backend model: a preset name draws random weights
         from seed 0 on the device (straight into the quantized form with
         `quantization`), a directory is read as an HF checkpoint (quantized
-        and LoRA-merged on the host as it is read)."""
-        from localai_tpu_torch.engine.weights import arch_from_hf_config, load_hf_checkpoint
+        and LoRA-merged on the host as it is read), and a `.gguf` file keeps
+        its quantized tensors in B3's grouped forms (engine/gguf.py) with
+        the tokenizer its metadata spells."""
+        from localai_tpu_torch.engine.gguf import load_gguf_checkpoint
+        from localai_tpu_torch.engine.weights import (
+            arch_from_hf_config,
+            load_hf_checkpoint,
+            params_from_numpy,
+        )
         from localai_tpu_torch.models.config import PRESETS, get_arch
         from localai_tpu_torch.models.llama import init_params
         from localai_tpu_torch.models.quant import init_params_quantized
@@ -358,7 +366,13 @@ class ModelManager:
                         "item 14, multi-GPU)", cfg.name, knob)
         t0 = time.monotonic()
         ckpt_dir: Optional[str] = None
-        if cfg.model in PRESETS:
+        gguf_tree = gguf_tok_dir = None
+        if cfg.model.endswith(".gguf"):
+            path = self._resolve_ckpt_dir(cfg.model)
+            if not os.path.isfile(path):
+                raise FileNotFoundError(f"model {cfg.name!r}: {path!r} not found")
+            arch, gguf_tree, gguf_tok_dir = load_gguf_checkpoint(path)
+        elif cfg.model in PRESETS:
             arch = get_arch(cfg.model)
         else:
             ckpt_dir = self._resolve_ckpt_dir(cfg.model)
@@ -369,14 +383,21 @@ class ModelManager:
             arch = arch_from_hf_config(ckpt_dir)
         arch = _apply_rope_overrides(arch, cfg)
 
-        tok_path = cfg.tokenizer or ckpt_dir
+        tok_path = cfg.tokenizer or gguf_tok_dir or ckpt_dir
         if tok_path and tok_path != "synthetic-bytes" and not _has_tokenizer_files(tok_path):
             tok_path = None
         tokenizer = load_tokenizer(tok_path, vocab_size=arch.vocab_size)
         if cfg.lora_adapters and ckpt_dir is None:
+            # GGUF payloads are already quantized: there is no bf16 tensor
+            # to merge a delta into.
             raise ValueError(f"model {cfg.name!r}: lora_adapters require an HF safetensors "
-                             "checkpoint (not a synthetic preset)")
-        if ckpt_dir is not None:
+                             "checkpoint (not GGUF or a synthetic preset)")
+        if gguf_tree is not None:
+            # The file's forms are served as they are: the engine quantizes
+            # only a tree with no quantized matmul weight (an F16 / BF16 file).
+            params = params_from_numpy(arch, gguf_tree, device=self.device)
+            del gguf_tree
+        elif ckpt_dir is not None:
             lora = self._parse_lora_entries(cfg)
             params = load_hf_checkpoint(arch, ckpt_dir, device=self.device,
                                         quantize=cfg.quantization, lora=lora or None)

@@ -1181,3 +1181,49 @@ ws    ::= [ \t\n]*
             eng.stop()
     assert cands[False][0] == cands[True][0]
     assert all(torch.equal(a, b) for a, b in zip(cands[False][1], cands[True][1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("plan", ["q4_k_m", "q8_0"])
+def test_gguf_forms_match_plain_version(card, tmp_path, plan, dtype):
+    """B3 on every projection of a GGUF file's first layer as the loader
+    repacked it (g4 with per-group zero points from q4_K; gq from q8_0 and
+    the regridded q6_K), counted by form, and B4 on an untied q8_0 head."""
+    import numpy as np
+
+    import chip_smoke
+    from localai_tpu_torch.engine.gguf import load_gguf_checkpoint
+    from localai_tpu_torch.models.config import ArchConfig
+    from localai_tpu_torch.ops import quant_matmul as qm
+
+    cfg = ArchConfig(name="g", vocab_size=1024, hidden_size=256, intermediate_size=512,
+                     num_layers=2, num_heads=4, num_kv_heads=2, head_dim=64,
+                     tie_embeddings=plan == "q4_k_m")
+    path = str(tmp_path / "m.gguf")
+    chip_smoke.write_gguf_model(path, cfg, 2, plan)
+    _arch, tree, _tok = load_gguf_checkpoint(path)
+    g = torch.Generator().manual_seed(3)
+    forms = set()
+    for key, w in tree["layers"].items():
+        if not isinstance(w, dict):
+            continue
+        wd = {k: torch.from_numpy(np.ascontiguousarray(v[0])).cuda() for k, v in w.items()}
+        form = "g4" if "g4" in wd else "gq"
+        forms.add(form)
+        x = torch.randn(8, wd[form].shape[0] * 32, generator=g).to(device="cuda", dtype=dtype)
+        before = getattr(qm.qmm, "launches_" + form)
+        out = qm.qmm(x, wd)
+        assert getattr(qm.qmm, "launches_" + form) == before + 1, key
+        ref = qm.qmm_plain(x, wd).float()
+        scale = ref.abs().max().item()
+        err = (out.float() - ref).abs()
+        bound = 1e-4 * scale if dtype == torch.float32 else 2.0**-7 * ref.abs() + 1e-4 * scale
+        assert bool((err <= bound).all()), key
+    assert forms == ({"g4", "gq"} if plan == "q4_k_m" else {"gq"})
+    if plan == "q8_0":
+        head = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+                for k, v in tree["lm_head"].items()}
+        h = torch.randn(8, 256, generator=g).to(device="cuda", dtype=dtype)
+        ref = qm.qunembed_plain(h, head)
+        assert (qm.qunembed(h, head) - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()

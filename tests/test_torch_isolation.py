@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of it (nor chip_smoke.py)
-imports jax or the JAX package, and its entry points refuse to fall back to
-the CPU when no device was asked for and no GPU exists."""
+imports jax, the JAX package or ml_dtypes (its bf16 casts are torch's), and
+its entry points refuse to fall back to the CPU when no device was asked
+for and no GPU exists."""
 
 import ast
 import pathlib
@@ -9,7 +10,7 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "localai_tpu")
+FORBIDDEN = ("jax", "jaxlib", "localai_tpu", "ml_dtypes")
 
 
 def _port_files():
@@ -34,7 +35,8 @@ def test_port_never_imports_jax_or_the_jax_package():
             "localai_tpu_torch/config/app_config.py", "localai_tpu_torch/config/model_config.py",
             "localai_tpu_torch/templates/evaluator.py", "localai_tpu_torch/server/app.py",
             "localai_tpu_torch/server/manager.py", "localai_tpu_torch/server/openai_api.py",
-            "localai_tpu_torch/__main__.py"} <= names
+            "localai_tpu_torch/__main__.py", "localai_tpu_torch/engine/gguf.py",
+            "localai_tpu_torch/engine/bpe_fast.py", "localai_tpu_torch/native.py"} <= names
     bad = [
         (str(p.relative_to(ROOT)), mod)
         for p in files

@@ -105,3 +105,52 @@ def test_bridge_rejects_unported_trees():
     tree["dense_layers"] = dict(tree["layers"])  # deepseek's dense-layer prefix
     with pytest.raises(NotImplementedError, match="item 10, other decoder families"):
         tw.params_from_numpy(cfg, tree, device="cpu")
+
+
+def _fuse_phi3(src: str, dst: str, cfg) -> None:
+    """The Phi-3 layout of an HF checkpoint dir: each layer's q / k / v rows
+    in one `qkv_proj`, its gate / up rows in one `gate_up_proj`."""
+    import shutil
+
+    from safetensors.torch import save_file
+
+    f = SafetensorsFile(os.path.join(src, "model.safetensors"))
+    t = {k: f.get(k) for k in f.keys()}
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        t[p + "self_attn.qkv_proj.weight"] = torch.cat(
+            [t.pop(p + f"self_attn.{x}_proj.weight") for x in "qkv"])
+        t[p + "mlp.gate_up_proj.weight"] = torch.cat(
+            [t.pop(p + "mlp.gate_proj.weight"), t.pop(p + "mlp.up_proj.weight")])
+    os.makedirs(dst)
+    save_file({k: v.contiguous() for k, v in t.items()}, os.path.join(dst, "model.safetensors"))
+    shutil.copy(os.path.join(src, "config.json"), dst)
+
+
+@pytest.mark.parametrize("mode", ["plain", "int8", "lora"])
+def test_phi3_fused_checkpoint_loads_like_its_unfused_twin_and_the_jax_loader(tmp_path, mode):
+    cfg = get_arch("tiny")  # 4 heads, 2 kv heads: q / k / v blocks of unequal rows
+    jw.save_hf_checkpoint(cfg, jl.init_params(cfg, jax.random.key(5)), str(tmp_path / "twin"))
+    _fuse_phi3(str(tmp_path / "twin"), str(tmp_path / "fused"), cfg)
+    kw = {}
+    if mode == "int8":
+        kw["quantize"] = "int8"
+    elif mode == "lora":
+        adapter = tw.random_lora_adapter(cfg, str(tmp_path / "adapter"), 4, 8, seed=2,
+                                         targets=("wq", "wk", "wv", "w_gate", "w_up"))
+        kw["lora"] = [(adapter, 0.5)]
+    fused = tw.load_hf_checkpoint(cfg, str(tmp_path / "fused"), device="cpu", **kw)
+    twin = tw.load_hf_checkpoint(cfg, str(tmp_path / "twin"), device="cpu", **kw)
+    ref = jw.load_hf_checkpoint(cfg, str(tmp_path / "fused"), **kw)
+
+    def walk(a, b, r, path):
+        if isinstance(a, dict):
+            assert sorted(a) == sorted(b) == sorted(r), path
+            for k in a:
+                walk(a[k], b[k], r[k], f"{path}/{k}")
+        else:
+            assert a.dtype == b.dtype and torch.equal(a, b), path
+            np.testing.assert_array_equal(a.float().numpy(), _np(r), err_msg=path)
+
+    walk(fused, twin, ref, "")
+    assert (mode == "int8") == isinstance(fused["layers"]["wq"], dict)
