@@ -175,8 +175,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    shot, exactly; (f) the port's server: chat logprobs whole and streamed,
    completions logprobs, n 2 of best_of 4 (forked), /v1/tokenize,
    /v1/edits, a body deadline_s on the saturated model (an error naming
-   deadline_s) and a model YAML naming a draft model (a 501 naming ROADMAP
-   item 8).
+   deadline_s) and a model YAML naming a draft model (llama-3.2-1b: the
+   reply served through speculative rounds).
 21. gguf (run last) — GGUF checkpoints: a spec-derived writer here packs
    two files with random block payloads (scales sized for a weight spread
    of 0.02) and the published shapes and layouts of tensor types:
@@ -577,6 +577,10 @@ def phase_paged_kernels(gen: torch.Generator) -> list[dict]:
         ("decode_page48", 8, 4, 1, 8, 64, 48, 84, torch.bfloat16,
          [4032, 0, 384, 383, 385, 2049, 47, 3000], 0.0, 0),
         ("verify_t4", 8, 4, 4, 8, 128, 128, 32, torch.bfloat16, "ragged", 0.0, 0),
+        # llama-3-8b's speculative verify chunks on its fp8 pool: kb + 1 = 3
+        # and 6 tokens (n_draft 5's buckets), T*G = 12 and 24 rows a kv head.
+        ("verify_t3", 8, 4, 3, 8, 128, 128, 32, torch.float8_e4m3fn, "ragged", 0.0, 0),
+        ("verify_t6", 8, 4, 6, 8, 128, 128, 32, torch.float8_e4m3fn, "ragged", 0.0, 0),
     ]
     gen_added = torch.Generator(device="cuda").manual_seed(8)
     sms = kernels.sm_count(torch.device("cuda"))
@@ -2268,6 +2272,260 @@ def phase_lora_8b(qmodel: dict, small, p_small, p_small_cpu) -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# 12c. speculative decoding on llama-3-8b int4 + fp8 pool
+# --------------------------------------------------------------------------- #
+
+# The JAX package's bench workload for speculation (bench.py, spec rows):
+# request i repeats (i*13 + j) % 17 + 60 and carries a +24 logit bias on
+# token (i*7) % 200 + 30, greedy.
+SPEC_PROMPT_LEN = 128
+SPEC_NEW = 64
+SPEC_MODES = ("prompt_lookup", "self_draft", "draft_model")
+SPEC_SELF_LAYERS = 8
+SPEC_N_DRAFT = 5
+
+
+def _spec_requests(bs: int) -> list:
+    from localai_tpu_torch.engine.engine import GenRequest
+
+    return [GenRequest(prompt_ids=[(i * 13 + j) % 17 + 60 for j in range(SPEC_PROMPT_LEN)],
+                       max_new_tokens=SPEC_NEW, ignore_eos=True,
+                       logit_bias={(i * 7) % 200 + 30: 24.0})
+            for i in range(bs)]
+
+
+def _spec_serve(eng, bs: int) -> dict:
+    """One batch of the workload through Engine.submit: the kernel counters
+    go to 0 just before the run and are read just after it."""
+    reqs = _spec_requests(bs)
+    _zero_counts()
+    m0, tok0, dt0 = eng.metrics(), eng._decode_tokens, eng._decode_time
+    t0 = time.monotonic()
+    handles = [eng.submit(r) for r in reqs]
+    evs = [list(h) for h in handles]
+    wall = time.monotonic() - t0
+    launches = _read_counts()
+    m1 = eng.metrics()
+    for i, e in enumerate(evs):
+        check(e[-1].kind == "done" and sum(ev.kind == "token" for ev in e) == SPEC_NEW,
+              f"spec request {i} ended with {e[-1].kind}: {e[-1].error}")
+
+    def delta(k):
+        return int(m1.get(k, 0) - m0.get(k, 0))
+
+    dt = eng._decode_time - dt0
+    out = dict(bs=bs, wall_s=wall, completion_tokens=bs * SPEC_NEW,
+               e2e_tok_s=bs * SPEC_NEW / wall, decode_tok_s=(eng._decode_tokens - tok0) / dt,
+               admissions=delta("admissions"), decode_blocks=delta("decode_blocks"),
+               decode_steps=delta("decode_steps"), prefill_chunks=delta("prefill_chunks"),
+               decode_graph_captures=delta("decode_graph_captures"),
+               decode_graph_replays=delta("decode_graph_replays"),
+               spec_dispatches=delta("spec_dispatches"), spec_rounds=delta("spec_rounds"),
+               spec_tokens_accepted=delta("spec_tokens_accepted"),
+               spec_tokens_drafted=delta("spec_tokens_drafted"),
+               spec_draft_syncs=delta("spec_draft_syncs"),
+               spec_draft_prefills=delta("spec_draft_prefills"),
+               launches=launches,
+               ids=[[ev.token_id for ev in e if ev.kind == "token"] for e in evs])
+    scored = out["spec_tokens_drafted"] + out["spec_rounds"]
+    out["spec_accept_rate"] = out["spec_tokens_accepted"] / scored if scored else 0.0
+    out["tokens_per_slot_round"] = (out["spec_tokens_accepted"] / out["spec_rounds"]
+                                    if out["spec_rounds"] else 0.0)
+    return out
+
+
+def _spec_replay_ms(eng, mode: str) -> float:
+    """Device ms of one replay of a graph the warmup captured, every slot
+    idle (each weight is read, the attention walks no pages): a mode's
+    kb = n_draft greedy round at the serving window, or the plain engine's
+    16-step greedy block over 16 (a step)."""
+    B = eng.ecfg.max_slots
+    eng._stage_block(np.zeros_like(eng.h_active), np.zeros((B,), np.int32),
+                     np.zeros((B, SPEC_N_DRAFT), np.int64) if mode == "prompt_lookup" else None)
+    if mode == "off":
+        graph = eng._graph_cache[eng._block_key(16, "greedy", 0)][0]
+        return cuda_time_ms(graph.replay, reps=5, warmup=1) / 16
+    win = 0 if mode == "prompt_lookup" else eng._KV_WIN_MIN
+    graph = eng._graph_cache[eng._spec_key(mode, SPEC_N_DRAFT, "greedy", win)][0]
+    return cuda_time_ms(graph.replay, reps=5, warmup=1)
+
+
+def _spec_small(small, p_small, p_small_cpu) -> dict:
+    """The small f32 model's spec engines on the card against the same
+    engines on the CPU, paged and dense: the pinned-bias prompt (greedy,
+    under a LoRA tenant in the model-free modes, whose verify rows take
+    B5), a seeded top-k request on a mildly biased repetitive prompt (the
+    stochastic accept test) and two plain greedy prompts; max_seq 512, so
+    the dense rounds read a 256-row window. Equal ids, and rounds on the
+    card."""
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig, GenRequest
+    from localai_tpu_torch.engine.tokenizer import ByteTokenizer
+    from localai_tpu_torch.engine.weights import random_lora_adapter
+    from localai_tpu_torch.models import llama
+
+    dcfg = dataclasses.replace(small, name="tiny-d64-draft", num_layers=1)
+    d_cpu = llama.init_params(dcfg, seed=9, device="cpu")
+    d_gpu = {k: ({n: t.cuda() for n, t in v.items()} if isinstance(v, dict) else v.cuda())
+             for k, v in d_cpu.items()}
+    sampled = dict(temperature=0.8, top_k=40, seed=5)
+    reqs = [([10] + [77] * 30, {77: 25.0}, {}),
+            ([(j * 3) % 250 + 1 for j in range(40)] + [9] * 12, {9: 3.0}, sampled),
+            ([(j * 7) % 250 + 1 for j in range(70)], {}, {}), ([3, 1, 4, 1, 5], {}, {})]
+    layouts = {"paged": dict(kv_pages=16, kv_page_size=64), "dense": {}}
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        adir = random_lora_adapter(small, f"{root}/s0", 8, 16, ("wq", "wv", "w_down"), seed=30,
+                                   scale=0.05)
+        for layout, pool in layouts.items():
+            for mode in SPEC_MODES:
+                label = f"small spec {layout} {mode}"
+                ids, runs = {}, {}
+                for dev, p, dp in (("cuda", p_small, d_gpu), ("cpu", p_small_cpu, d_cpu)):
+                    kw = (dict(draft_cfg=dcfg, draft_params=dp, n_draft=SPEC_N_DRAFT)
+                          if mode == "draft_model" else {})
+                    e = Engine(small, p, ByteTokenizer(small.vocab_size), device=dev,
+                               engine_cfg=EngineConfig(max_slots=4, max_seq=512,
+                                                       block_sizes=(8,), spec_mode=mode,
+                                                       **pool), **kw)
+                    adapter = None
+                    if mode != "draft_model":
+                        e.register_adapter("s0", adir)
+                        adapter = "s0"
+                    try:
+                        if dev == "cuda":
+                            _zero_counts()
+                        hs = [e.submit(GenRequest(prompt_ids=pr, max_new_tokens=24,
+                                                  ignore_eos=True, logit_bias=b,
+                                                  adapter=adapter if i == 0 else None, **skw))
+                              for i, (pr, b, skw) in enumerate(reqs)]
+                        ids[dev] = [[ev.token_id for ev in h if ev.kind == "token"] for h in hs]
+                        if dev == "cuda":
+                            launches = _read_counts()
+                        m = e.metrics()
+                        runs[dev] = dict(spec_rounds=int(m["spec_rounds"]),
+                                         spec_accept_rate=m["spec_accept_rate"])
+                    finally:
+                        e.stop()
+                check(ids["cuda"] == ids["cpu"], f"{label}: card ids differ from the CPU's")
+                check(runs["cuda"]["spec_rounds"] > 0, f"{label}: no round on the card")
+                check(launches["flash_prefill"] > 0
+                      and (launches["paged_attention"] > 0) == (layout == "paged"),
+                      f"{label}: a kernel of the path did not run: {launches}")
+                check(mode == "draft_model" or launches["lora_bgmv"] > 0,
+                      f"{label}: the tenant's rows never reached B5: {launches}")
+                out[f"{layout}_{mode}"] = dict(card_equals_cpu=True, **runs["cuda"],
+                                               launches=launches)
+    log(f"[spec tiny-d64 f32] card ids equal the CPU's, paged and dense, in every mode: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def phase_spec(qmodel: dict, small, p_small, p_small_cpu) -> dict:
+    """Speculative decoding on llama-3-8b int4 (32 layers, full width) over
+    the fp8 paged pool (PAGED_ENGINE, kv_scale 2): the plain engine, then
+    prompt_lookup, self_draft (its first 8 layers) and draft_model
+    (llama-3.2-1b bf16, full width and depth, seeded random weights), each
+    warmed up (every round shape captured) and then serving the pinned-bias
+    workload at bs 1 and bs 8. Greedy ids must equal the plain engine's
+    (or part at a near tie: _part_gap with the request's bias); every
+    round is a graph replay; B2 launches = layers x (plain steps + rounds +
+    chunks), B1 = layers x single-shot admissions + the draft's layers x its
+    prefills; then the small f32 spec engines, card against CPU."""
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig
+    from localai_tpu_torch.engine.tokenizer import ByteTokenizer
+    from localai_tpu_torch.models import get_arch, llama
+
+    cfg, params = qmodel["cfg"], qmodel["int4"]
+    L = cfg.num_layers
+    dcfg = get_arch("llama-3.2-1b")
+    dparams = llama.init_params(dcfg, seed=1, device="cuda")
+    ecfg = dict(PAGED_ENGINE, kv_cache_dtype="fp8", kv_scale=2.0)
+    out = {"runs": {}, "modes": {}}
+    plain_ids = {}
+    for mode in ("off",) + SPEC_MODES:
+        kw = {}
+        if mode == "draft_model":
+            kw = dict(draft_cfg=dcfg, draft_params=dparams, n_draft=SPEC_N_DRAFT)
+        eng = Engine(cfg, params, ByteTokenizer(cfg.vocab_size), device="cuda",
+                     engine_cfg=EngineConfig(**ecfg, spec_mode=mode,
+                                             self_draft_layers=SPEC_SELF_LAYERS), **kw)
+        try:
+            t0 = time.monotonic()
+            eng.warmup()
+            rec = dict(warmup_s=time.monotonic() - t0,
+                       graphs_after_warmup=len(eng._graph_cache))
+            for bs in (1, 8):
+                run = _spec_serve(eng, bs)
+                ids = run.pop("ids")
+                n = run["launches"]
+                label = f"spec {mode} bs{bs}"
+                check(run["decode_graph_captures"] == 0 and run["decode_graph_replays"]
+                      == run["decode_blocks"] > 0,
+                      f"{label}: {run['decode_graph_captures']} captures after warmup(), "
+                      f"{run['decode_graph_replays']} replays of {run['decode_blocks']} blocks")
+                # A prefix hit (bs 8's request 0 repeats bs 1's prompt) admits
+                # by chunks, which walk the pool too.
+                check(n["paged_attention"] == L * (run["decode_steps"] + run["spec_dispatches"]
+                                                   + run["prefill_chunks"]),
+                      f"{label}: B2 launches {n['paged_attention']} != {L} layers x "
+                      f"({run['decode_steps']} plain steps + {run['spec_dispatches']} rounds + "
+                      f"{run['prefill_chunks']} chunks)")
+                check(n["flash_prefill"] == L * run["admissions"]
+                      + dcfg.num_layers * run["spec_draft_prefills"],
+                      f"{label}: B1 launches {n['flash_prefill']} != {L} x {run['admissions']} "
+                      f"admissions + {dcfg.num_layers} x {run['spec_draft_prefills']} draft "
+                      f"prefills")
+                check(n["quant_matmul"] > 0 and n["quant_unembed"] > 0,
+                      f"{label}: B3 / B4 did not run: {n}")
+                if mode == "off":
+                    plain_ids[bs] = ids
+                else:
+                    check(run["spec_dispatches"] > 0 and run["spec_tokens_drafted"] > 0,
+                          f"{label}: no round ran")
+                    parts = []
+                    for i, (want, got) in enumerate(zip(plain_ids[bs], ids)):
+                        if want != got:
+                            r = _spec_requests(bs)[i]
+                            gap = _part_gap(cfg, params, r.prompt_ids, want, got,
+                                            {"logit_bias": r.logit_bias})
+                            check(gap["gap"] <= gap["bound"],
+                                  f"{label}: request {i} parts from the plain engine at {gap}")
+                            parts.append(gap)
+                    run["parted_from_plain"] = parts
+                rec[f"bs{bs}"] = run
+                out["runs"][f"spec_8b_{mode}_bs{bs}"] = run
+                log(f"[spec llama-3-8b int4 fp8 {mode} bs{bs}] " + json.dumps(run))
+            rec["replay_ms"] = _spec_replay_ms(eng, mode)
+            rec["graphs"] = len(eng._graph_cache)
+            out["modes"][mode] = rec
+        finally:
+            eng.stop()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    del dparams
+    torch.cuda.empty_cache()
+    step_ms = out["modes"]["off"]["replay_ms"]
+    summary = {"plain": {"ms_per_step_replay": step_ms,
+                         **{f"decode_tok_s_bs{bs}": out["modes"]["off"][f"bs{bs}"]["decode_tok_s"]
+                            for bs in (1, 8)}}}
+    for mode in SPEC_MODES:
+        rec = out["modes"][mode]
+        summary[mode] = dict(
+            ms_per_round_replay=rec["replay_ms"], round_over_step=rec["replay_ms"] / step_ms,
+            warmup_s=rec["warmup_s"], graphs=rec["graphs"],
+            **{f"{k}_bs{bs}": rec[f"bs{bs}"][k] for bs in (1, 8)
+               for k in ("tokens_per_slot_round", "spec_accept_rate", "decode_tok_s",
+                         "spec_dispatches", "decode_graph_replays")},
+            **{f"speedup_bs{bs}": rec[f"bs{bs}"]["decode_tok_s"]
+               / summary["plain"][f"decode_tok_s_bs{bs}"] for bs in (1, 8)})
+    out["small"] = _spec_small(small, p_small, p_small_cpu)
+    out["summary"] = summary
+    log("[spec summary] " + json.dumps(summary))
+    return out
+
+
+# --------------------------------------------------------------------------- #
 # 13. moe kernels: B3's expert form at mixtral-8x7b's shapes
 # --------------------------------------------------------------------------- #
 
@@ -2634,7 +2892,8 @@ def _part_gap(cfg, params, prompt, want, got, kw) -> dict:
     sampled, the gap of their scores times T (logit + T x the draw's noise)
     when both lie in the top-p set, else how far the logits above `got`'s
     token must fall for it to enter the set, ln(mass before it / top_p).
-    The bound is PREFIX_LOGIT_TOL of the largest |logit|."""
+    A `logit_bias` in kw is added to the logits first. The bound is
+    PREFIX_LOGIT_TOL of the largest |logit|."""
     from localai_tpu_torch.models import llama
     from localai_tpu_torch.ops.sampling import (SamplingParams, _filter_sorted, gumbel_noise,
                                                 sample)
@@ -2643,6 +2902,8 @@ def _part_gap(cfg, params, prompt, want, got, kw) -> dict:
     seq = list(prompt) + list(want[:p])
     toks = torch.tensor([seq], dtype=torch.int64, device="cuda")
     logits = llama.prefill(cfg, params, toks, torch.tensor([len(seq)], device="cuda"))[0]
+    for tok, b in (kw.get("logit_bias") or {}).items():  # the request's bias, as the engine adds it
+        logits[:, int(tok)] += b
     T, top_p = kw.get("temperature", 0.0), kw.get("top_p", 1.0)
     sp = SamplingParams.make(1, temperature=T, top_p=top_p, device="cuda")
     seed = torch.tensor([kw.get("seed", 0)], device="cuda")
@@ -3630,7 +3891,8 @@ def _tree_http() -> dict:
     tokenizer, the paged engine): chat logprobs (top 5) whole and streamed,
     completions logprobs 3, n 2 of best_of 4, /v1/tokenize, /v1/edits; a
     body deadline_s on the saturated model; a model YAML naming a draft
-    model."""
+    model (the same preset, seeded apart: the YAML's speculative knobs reach
+    the engine, and a greedy chat is served through its rounds)."""
     import yaml
 
     msgs = [{"role": "user", "content": "Tell me about the sea."}]
@@ -3651,8 +3913,8 @@ def _tree_http() -> dict:
     with tempfile.TemporaryDirectory() as root:
         _write_models_dir(root, tenants=False)
         with open(f"{root}/llama-1b-draft.yaml", "w") as f:
-            yaml.safe_dump({**LORA_BASE_YAML, "name": "llama-1b-draft", "draft_model": "tiny"},
-                           f)
+            yaml.safe_dump({**LORA_BASE_YAML, "name": "llama-1b-draft",
+                            "draft_model": "llama-3.2-1b", "n_draft": 4}, f)
         manager, server, base = _start_server(root)
         try:
             warm = _http(base, "/v1/completions", {"model": "llama-1b", "prompt": "warm up",
@@ -3678,9 +3940,17 @@ def _tree_http() -> dict:
             eng.cancel_all()
             for h in busy:
                 list(h)
-            draft = _http(base, "/v1/chat/completions",
-                          {"model": "llama-1b-draft", "messages": msgs, "max_tokens": 4},
+            greedy = {"messages": msgs, "max_tokens": 16, "ignore_eos": True,
+                      "temperature": 0.0}
+            plain = _http(base, "/v1/chat/completions", {"model": "llama-1b", **greedy},
                           time.monotonic())
+            draft = _http(base, "/v1/chat/completions", {"model": "llama-1b-draft", **greedy},
+                          time.monotonic())
+            check(draft["status"] == 200 and plain["status"] == 200,
+                  f"tree http: draft_model YAML: {draft}, plain: {plain['status']}")
+            deng = manager.peek("llama-1b-draft").engine
+            draft["spec"] = {k: v for k, v in deng.metrics().items() if k.startswith("spec_")}
+            draft["n_draft"] = deng.n_draft
         finally:
             server.shutdown()
             manager.shutdown()
@@ -3725,12 +3995,15 @@ def _tree_http() -> dict:
           f"tree http: best_of 4 forked {m1['fork_branches'] - m0['fork_branches']} branches")
     check(shed["status"] == 500 and "(deadline_s)" in shed["body"],
           f"tree http: deadline on a saturated model: {shed}")
-    check(draft["status"] == 501 and "item 8, speculative decoding" in draft["body"],
+    check(draft["body"]["usage"]["completion_tokens"] == 16
+          and draft["n_draft"] == 4 and draft["spec"]["spec_dispatches"] > 0,
           f"tree http: draft_model YAML: {draft}")
     check(launches["flash_prefill"] > 0 and launches["paged_attention"] > 0,
           f"tree http: launches {launches}")
     out.update(replies=replies, launches=launches, shed=shed["body"][:160],
-               draft=draft["body"][:160])
+               draft=dict(spec=draft["spec"], content_equals_plain=(
+                   draft["body"]["choices"][0]["message"]["content"]
+                   == plain["body"]["choices"][0]["message"]["content"])))
     return out
 
 
@@ -3959,6 +4232,7 @@ def phase_tree(small, p_small) -> dict:
     out["runs"]["tree_http"] = {"launches": out["http"]["launches"]}
     summary = {k: v for k, v in out.items() if k not in ("runs", "http")}
     summary["http"] = out["http"]["replies"]
+    summary["http_draft_model"] = out["http"]["draft"]
     log("[tree llama-3.2-1b, 16 layers] " + json.dumps(summary))
     out["summary"] = summary
     return out
@@ -4520,6 +4794,8 @@ def main() -> None:
     lora_http = timed("lora_http", phase_lora_http)
     lora_8b = timed("lora_8b", phase_lora_8b, qmodel, model["small"], model["p_small"],
                     model["p_small_cpu"])
+    spec = timed("spec", phase_spec, qmodel, model["small"], model["p_small"],
+                 model["p_small_cpu"])
     del qmodel, model
     gc.collect()
     torch.cuda.empty_cache()  # mixtral's 35 GB of int4 weights come next
@@ -4543,7 +4819,9 @@ def main() -> None:
             "prefix_swap_ample": prefix["swap_runs"]["ample"],
             "prefix_8b_hit": {"launches": prefix_8b["launches"]["hit"]},
             "prefix_8b_miss": {"launches": prefix_8b["launches"]["miss"]},
-            **grammar["runs"], **tree["runs"], "gguf_http_llama_3_2_1b": gguf["http"],
+            **grammar["runs"], **tree["runs"], **spec["runs"],
+            **{f"spec_small_{k}": v for k, v in spec["small"].items()},
+            "gguf_http_llama_3_2_1b": gguf["http"],
             "gguf_engine_llama_3_2_1b": gguf["engine_llama-3.2-1b"],
             "gguf_engine_llama_3_8b": gguf["engine_llama-3-8b"]}
     by_path = {k: {path: out["launches"][k] for path, out in runs.items()}
@@ -4629,6 +4907,9 @@ def main() -> None:
         # Fork branches decode over their primary's shared pages; logprob
         # blocks (the top-20 epilogue in the graph).
         "tree": tree["summary"],
+        # Speculative rounds: the verify chunk's T·G query rows a kv head
+        # through the multi-query form (rows "verify_t3" / "verify_t6").
+        "spec": spec["summary"],
         "shapes": paged_rows,
     }
     # The main shape of B3: llama-3-8b's w_gate at a decode block of 8 slots,

@@ -98,6 +98,20 @@ number of KV-cache slots by one loop thread ("engine-loop"):
   host picks the best legal token; a pick other than the sampled token
   replaces the slot's next input (d_tokens). Grammar requests admit
   alone; preemption takes a grammar slot last, and always recomputes it.
+- Speculative decoding (`spec_mode`, docs/SPECULATIVE.md): a draft model
+  (`Engine(draft_cfg=, draft_params=, n_draft=)`), prompt lookup (n-gram
+  drafts from each slot's own history, on the host) or self-draft (the
+  target's first layers) proposes up to n_draft tokens a slot; one
+  `decode_chunk` of the target scores them all, and an accept scan keeps
+  the output exactly the target's: greedy ids equal the plain engine's,
+  sampled ones follow its distribution (accept with probability
+  min(1, p/q), else draw from the residual, on noise streams of their own:
+  ops/sampling.verify_step). Each slot's draft length follows its
+  acceptance EWMA, bucketed into `spec_draft_buckets`; a round in which no
+  slot drafts is a plain block. A round is one CUDA graph per shape on the
+  card, like a decode block. Logprob and host-walk grammar slots take plain
+  blocks; a draft model refuses adapters, always recomputes on preemption
+  and clones fork groups.
 - Streaming is UTF-8-safe incremental detokenization with stop-sequence
   hold-back; every generated token posts exactly one event, and every
   request ends with exactly one terminal event (done or error) on every
@@ -112,15 +126,15 @@ generator state, so it can be captured. The reference's threefry streams
 are not reproduced.
 
 Not ported yet (ROADMAP Queue A): CUDA graphs of admission and prefill
-chunks and pipelined dispatch (item 1), speculative decoding with its
-`decode_step` and `processed_logprobs` (item 8), the event journal
-(item 11), the export and import of prefix spans between replicas (the
-cluster, with its mid-stream grammar failover; item 12), rerank's
+chunks and pipelined dispatch (item 1), the event journal (item 11), the
+export and import of prefix spans between replicas (the cluster, with
+its mid-stream grammar failover; item 12), rerank's
 `sequence_logprob` (item 13), tp and sequence-parallel prefill (item
 14). The reference's prefix_admit_async_compile has no counterpart: a
 cached admission runs eagerly and compiles nothing; nor have its
-LOCALAI_GRAMMAR_DFA, LOCALAI_QUEUE_TIMEOUT, LOCALAI_DEADLINE and
-LOCALAI_FORK_SAMPLING switches: the port reads no environment variable.
+LOCALAI_GRAMMAR_DFA, LOCALAI_QUEUE_TIMEOUT, LOCALAI_DEADLINE,
+LOCALAI_FORK_SAMPLING and LOCALAI_SPEC_* switches: the port reads no
+environment variable.
 """
 
 from __future__ import annotations
@@ -140,6 +154,7 @@ import torch
 
 from localai_tpu_torch import kernels
 from localai_tpu_torch.device import resolve_device
+from localai_tpu_torch.engine import speclookup
 from localai_tpu_torch.engine.runtime import DeadlineIndex
 from localai_tpu_torch.engine.weights import load_lora_factors, lora_target_dims
 from localai_tpu_torch.models import llama
@@ -153,11 +168,15 @@ from localai_tpu_torch.ops import grammar as _gr
 from localai_tpu_torch.ops import ptable as _pt
 from localai_tpu_torch.ops.sampling import (
     NEG_INF,
+    STREAM_DRAFT,
     SamplingParams,
+    gumbel_noise,
+    processed_logprobs,
     sample,
     sample_greedy,
     sample_simple,
     update_counts,
+    verify_step,
 )
 
 log = logging.getLogger("localai_tpu_torch.engine")
@@ -297,6 +316,27 @@ class EngineConfig:
     # prefill and forks the slot per branch (paged pools only). False
     # admits every branch as its own clone (the same bytes, N prefills).
     fork_sampling: bool = True
+    # Speculative decoding (docs/SPECULATIVE.md), the draft source:
+    #   "off"           plain decode blocks only;
+    #   "draft_model"   a separate draft checkpoint (the Engine's draft_cfg,
+    #                   draft_params and n_draft);
+    #   "prompt_lookup" per-slot n-gram matches over prompt + output, mined
+    #                   on the host (engine/speclookup.py);
+    #   "self_draft"    the target's own first self_draft_layers layers and
+    #                   head, over a dense scratch KV of those layers;
+    #   "auto"          draft_model when a draft is given, else off (the
+    #                   model-free modes are opt-in: they change which noise
+    #                   a sampled request draws).
+    spec_mode: str = "auto"
+    # self_draft's layer count; 0 = num_layers // 4 (at least 1).
+    self_draft_layers: int = 0
+    # How far a slot's acceptance EWMA moves toward each round's accepted /
+    # drafted ratio; the EWMA sets the slot's next draft length (cold slots
+    # draft 0 and ride the plain blocks).
+    spec_accept_ewma: float = 0.4
+    # A round's draft window is the smallest of these covering its longest
+    # per-slot draft (one graph per bucket); () = {0, n_draft // 2, n_draft}.
+    spec_draft_buckets: tuple[int, ...] = ()
 
     def cache_dtype(self, model_dtype: torch.dtype) -> torch.dtype:
         table = {
@@ -443,6 +483,15 @@ class Engine:
     # so one captured graph serves every table set that fits.
     _DFA_STATE_BUCKETS = (64, 256, 1024, 3073)
     _DFA_CLASS_BUCKETS = (128, 256)
+    # Acceptance-aware speculation: a slot whose acceptance EWMA falls below
+    # the floor drafts 0 (plain decode); every PROBE_EVERY cold rounds it
+    # tries the smallest nonzero bucket, so a stream that turned
+    # predictable warms back up. A model-free plan in which no slot drafts
+    # caps the plain block at REPLAN_BLOCK steps, so the scheduler plans
+    # again soon.
+    _SPEC_EWMA_FLOOR = 0.15
+    _SPEC_PROBE_EVERY = 32
+    _SPEC_REPLAN_BLOCK = 16
 
     def __init__(
         self,
@@ -452,6 +501,9 @@ class Engine:
         engine_cfg: Optional[EngineConfig] = None,
         device=None,
         quantization: str = "",
+        draft_cfg: Optional[ArchConfig] = None,
+        draft_params: Any = None,
+        n_draft: int = 5,
     ) -> None:
         llama.check_supported(cfg)
         self.device = resolve_device(device)
@@ -478,6 +530,7 @@ class Engine:
             cfg = dataclasses.replace(cfg, attention_sink=ecfg.attention_sink,
                                       attention_window=ecfg.attention_window)
             self.cfg = cfg
+        cfg = self._check_spec(cfg, draft_cfg, n_draft)
         if ecfg.kv_scale <= 0:
             raise ValueError("kv_scale must be > 0")
         if ecfg.kv_scale != 1.0 and not (ecfg.kv_pages > 0 and ecfg.kv_cache_dtype):
@@ -494,6 +547,42 @@ class Engine:
         self.params = params
         B, S, V = ecfg.max_slots, ecfg.max_seq, cfg.vocab_size
         dev = self.device
+        # Speculative decoding's device state: the draft model's dense cache
+        # (d_cache) or the self-draft scratch over the target's first layers
+        # (sd_cache), [L_draft, B, S, K, Hd] in the draft's dtype. A slot's
+        # rows are brought up to date before a round whenever they lag its
+        # position (h_dsync: the position they hold rows below, -1 = none):
+        # a new slot, or plain blocks in between.
+        self.draft_cfg = draft_cfg
+        self.draft_params = None
+        self.d_cache = self.sd_cache = None
+        if draft_cfg is not None:
+            llama.check_supported(draft_cfg)
+            if draft_params["embed"].device.type != self.device.type:
+                raise ValueError(f"draft params live on {draft_params['embed'].device}, "
+                                 f"engine device is {self.device}")
+            self.draft_params = draft_params
+            self.d_cache = llama.KVCache.zeros(draft_cfg, B, S, device=dev)
+        if self._spec_mode == "self_draft":
+            self.sd_cache = llama.KVCache.zeros(dataclasses.replace(
+                cfg, num_layers=cfg.self_draft_layers), B, S, device=dev)
+        self.h_dsync = np.full((B,), -1, np.int64)
+        # Acceptance-aware scheduling (loop thread only): each slot's EWMA of
+        # accepted / drafted (optimistic start), its last draft length and
+        # probe counter, and its prompt-lookup suffix index ((slot, index,
+        # tokens fed) or None).
+        self.h_accept_ewma = np.ones((B,), np.float32)
+        self.h_draft_len = np.zeros((B,), np.int32)
+        self._spec_probe = np.zeros((B,), np.int32)
+        self._lookup: list[Optional[tuple]] = [None] * B
+        self.m_spec_rounds = 0  # slot rounds that emitted
+        self.m_spec_dispatches = 0  # rounds run
+        self.m_spec_accepted = 0
+        self.m_spec_drafted = 0
+        self.m_spec_draft_len = 0.0
+        self.m_spec_dlen_hist: dict[int, int] = {}
+        self.m_spec_syncs = 0  # slots whose draft rows were brought up to date
+        self.m_spec_draft_prefills = 0  # draft-model prefill calls of those syncs
         # Device state, one row per slot; the cache is dense [L, B, S, K, Hd]
         # or the page pool [L, kv_pages + 1, page, K, Hd].
         self._paged = ecfg.kv_pages > 0
@@ -633,9 +722,10 @@ class Engine:
         self.h_adapter = np.zeros((B,), np.int32)
         # The decode block's operands and result live in fixed device
         # buffers, so a captured graph of the block body replays on them:
-        # the control pack [9, B] (the active row, _SAMPLING_FIELDS, the
-        # grammar-DFA row), the page table [B, MP] (hierarchical: the
-        # directories [B, ML1] and the table-page pool [NTP + 1, SPAN]), the
+        # the control pack [10, B] (the active row, _SAMPLING_FIELDS, the
+        # grammar-DFA row, a speculative round's draft lengths), the page
+        # table [B, MP] (hierarchical: the directories [B, ML1] and the
+        # table-page pool [NTP + 1, SPAN]), the
         # adapter rows [B] and the sampled ids [n, B], followed (a host-walk
         # block) by each slot's top GRAMMAR_TOPK ids [K, B] from row _tk_row
         # and (a logprob block) from row _lp_row, per step, the sampled
@@ -645,7 +735,7 @@ class Engine:
         # only).
         pin = dev.type == "cuda"
         MP = self.h_ptable.shape[1]
-        self._h_pack = torch.zeros((2 + len(_SAMPLING_FIELDS), B), dtype=torch.float32,
+        self._h_pack = torch.zeros((3 + len(_SAMPLING_FIELDS), B), dtype=torch.float32,
                                    pin_memory=pin)
         self._h_ptable = torch.zeros((B, MP), dtype=torch.int32, pin_memory=pin)
         self._h_adapter = torch.zeros((B,), dtype=torch.int32, pin_memory=pin)
@@ -659,8 +749,13 @@ class Engine:
         self._lk = min(self.LOGPROB_TOPK, V)
         self._lp_w = 1 + 2 * self._lk
         self._lp_row = self._tk_row + min(self.GRAMMAR_TOPK, V)
-        self._b_out = torch.zeros((self._lp_row + self._tk_row * self._lp_w, B),
+        self._b_out = torch.zeros((max(self._lp_row + self._tk_row * self._lp_w,
+                                       self._spec_buckets[-1] + 2), B),
                                   dtype=torch.int64, device=dev)
+        # A prompt-lookup round's drafts [B, kmax], staged like the pack.
+        self._h_drafts = torch.zeros((B, self._spec_buckets[-1]), dtype=torch.int64,
+                                     pin_memory=pin)
+        self._b_drafts = torch.zeros(self._h_drafts.shape, dtype=torch.int64, device=dev)
         # CUDA graphs of the block body (_block_key -> (graph, launch counts
         # of one replay, the kernel workspaces it captured)), all in one
         # memory pool while any of them lives: blocks replay one at a time
@@ -746,6 +841,60 @@ class Engine:
             if ecfg.kv_pages <= 0:
                 raise ValueError("kv_l1_span (hierarchical page tables) requires a paged "
                                  "pool (kv_pages > 0)")
+
+    def _check_spec(self, cfg: ArchConfig, draft_cfg: Optional[ArchConfig],
+                    n_draft: int) -> ArchConfig:
+        """The JAX package's validation of the speculative knobs (its
+        texts): sets the resolved mode, n_draft and the draft-length
+        buckets, and returns cfg with self_draft_layers set for self_draft
+        (the one static object the layer helpers receive)."""
+        ecfg = self.ecfg
+        self.n_draft = max(1, int(n_draft))
+        if draft_cfg is not None and draft_cfg.vocab_size != cfg.vocab_size:
+            raise ValueError(f"draft model vocab ({draft_cfg.vocab_size}) must match the "
+                             f"target vocab ({cfg.vocab_size})")
+        mode = ecfg.spec_mode
+        if mode not in ("off", "auto", "draft_model", "prompt_lookup", "self_draft"):
+            raise ValueError(f"spec_mode={mode!r}: use "
+                             "off|draft_model|prompt_lookup|self_draft|auto")
+        if mode == "auto":
+            mode = "draft_model" if draft_cfg is not None else "off"
+        if mode == "draft_model" and draft_cfg is None:
+            raise ValueError("spec_mode=draft_model needs a draft checkpoint "
+                             "(draft_model in the model YAML / draft_cfg+draft_params)")
+        if mode in ("prompt_lookup", "self_draft") and draft_cfg is not None:
+            raise ValueError(f"spec_mode={mode} is model-free — the configured draft "
+                             "model would sit dead in HBM; drop draft_model or use "
+                             "spec_mode=draft_model")
+        if mode == "self_draft":
+            if cfg.is_moe or cfg.is_mla or cfg.first_k_dense:
+                raise ValueError(
+                    "spec_mode=self_draft needs a homogeneous dense layer stack "
+                    f"({cfg.name} is {'MoE' if cfg.is_moe else 'MLA/dense-prefix'}) — use "
+                    "prompt_lookup instead")
+            kl = ecfg.self_draft_layers or max(1, cfg.num_layers // 4)
+            if not 1 <= kl < cfg.num_layers:
+                raise ValueError(f"self_draft_layers={kl} must be in [1, "
+                                 f"num_layers={cfg.num_layers})")
+            if cfg.self_draft_layers != kl:
+                cfg = dataclasses.replace(cfg, self_draft_layers=kl)
+                self.cfg = cfg
+        self._spec_mode = mode
+        if not 0.0 < ecfg.spec_accept_ewma <= 1.0:
+            raise ValueError("spec_accept_ewma must be in (0, 1]")
+        raw = ecfg.spec_draft_buckets
+        if raw:
+            buckets = sorted({int(b) for b in raw if int(b) >= 0} | {0})
+        else:
+            buckets = sorted({0, self.n_draft // 2, self.n_draft})
+        if mode != "off" and buckets[-1] < 1:
+            raise ValueError(f"spec_draft_buckets={raw} needs at least one bucket >= 1")
+        self._spec_buckets = tuple(buckets)
+        if ecfg.attention_window and (mode != "off" or draft_cfg is not None):
+            raise ValueError("attention_window excludes speculative decoding this round "
+                             "— the verify chunk has no windowed+sink variant; drop "
+                             "spec_mode/draft_model or the window")
+        return cfg
 
     @staticmethod
     def _check_paged_config(ecfg: EngineConfig) -> None:
@@ -838,6 +987,9 @@ class Engine:
             # Fail fast on tenant identity; the fetch / promote happens at
             # admission on the loop thread (and may still fail there, as an
             # error event: disk, every device row pinned).
+            if self.draft_cfg is not None:
+                raise AdapterError("adapter requests are not supported with a separate "
+                                   "draft model — use model-free spec_mode instead")
             with self._adapter_lock:
                 known = request.adapter in self._adapter_registry
             if not known:
@@ -965,6 +1117,26 @@ class Engine:
         }
         if self.m_dfa_tokens:
             out["grammar_dfa_tokens"] = float(self.m_dfa_tokens)
+        if self._spec_mode != "off":
+            # accept_rate = emitted / scored (the drafts and one bonus or
+            # residual draw a slot round); spec_rounds counts slot rounds
+            # that emitted, spec_dispatches the rounds run; the histogram
+            # counts each active slot's planned draft length.
+            out["spec_rounds"] = float(self.m_spec_rounds)
+            out["spec_dispatches"] = float(self.m_spec_dispatches)
+            out["spec_tokens_accepted"] = float(self.m_spec_accepted)
+            out["spec_tokens_drafted"] = float(self.m_spec_drafted)
+            out["spec_accept_rate"] = (
+                self.m_spec_accepted / max(1, self.m_spec_drafted + self.m_spec_rounds)
+                if self.m_spec_rounds else 0.0)
+            out["spec_draft_len"] = float(self.m_spec_draft_len)
+            out["spec_draft_syncs"] = float(self.m_spec_syncs)
+            out["spec_draft_prefills"] = float(self.m_spec_draft_prefills)
+            act = self.h_active.copy()
+            out["spec_accept_ewma"] = (float(self.h_accept_ewma[act].mean())
+                                       if act.any() else 1.0)
+            for k, v in sorted(dict(self.m_spec_dlen_hist).items()):
+                out[f"spec_draft_len_hist_{k}"] = float(v)
         with self._adapter_lock:
             n_adapters = len(self._adapter_registry)
         if n_adapters or self._lora_tree is not None:
@@ -1527,6 +1699,23 @@ class Engine:
         lp = any(self.h_active[i] and s is not None and s.request.logprobs > 0
                  for i, s in enumerate(self.slots))
         n = 1 if grammar else self._pick_block_size()
+        # Speculative decoding: a round whenever some slot drafts. Logprob
+        # and host-walk grammar slots take plain blocks (so does a draft
+        # model with DFA slots, as in the reference).
+        smode = self._spec_mode
+        if (smode != "off" and not grammar and not lp
+                and not (smode == "draft_model" and dfa)):
+            plan = self._spec_plan(smode)
+            if plan is not None:
+                return self._run_spec_round(smode, *plan, dfa)
+            if smode in ("prompt_lookup", "self_draft"):
+                # Nothing to draft now: keep the plain block short, so the
+                # scheduler plans again soon (a stream may turn repetitive
+                # mid-flight, and a long block would sail past the match).
+                for bs in sorted(self.ecfg.block_sizes, reverse=True):
+                    if bs <= self._SPEC_REPLAN_BLOCK:
+                        n = min(n, bs)
+                        break
         if not self._grow_for_decode(n):
             return False
         t0 = time.monotonic()
@@ -1592,17 +1781,23 @@ class Engine:
         self._decode_time += time.monotonic() - t0
         return True
 
-    def _stage_block(self, act: np.ndarray) -> None:
+    def _stage_block(self, act: np.ndarray, dlens: Optional[np.ndarray] = None,
+                     drafts: Optional[np.ndarray] = None) -> None:
         """Copy a block's host control rows into the body's device buffers,
         in place, from pinned memory: the active row and the sampling
-        fields, the page table, the adapter rows. The previous block's
-        copies are done: each block ends with a host read of its ids."""
+        fields (and a round's draft lengths), the page table, the adapter
+        rows, a prompt-lookup round's drafts. The previous block's copies
+        are done: each block ends with a host read of its ids."""
         pack = self._h_pack.numpy()
         pack[0] = act
         for fi, k in enumerate(_SAMPLING_FIELDS):
             pack[fi + 1] = self.h_sampling[k]
         pack[1 + len(_SAMPLING_FIELDS)] = self.h_gmask
+        pack[2 + len(_SAMPLING_FIELDS)] = 0 if dlens is None else dlens
         self._b_pack.copy_(self._h_pack, non_blocking=True)
+        if drafts is not None:
+            self._h_drafts.numpy()[:, :drafts.shape[1]] = drafts
+            self._b_drafts.copy_(self._h_drafts, non_blocking=True)
         if self._hier:
             self._l0_buffers()
             self._h_l1.numpy()[:] = self.h_l1
@@ -1661,24 +1856,27 @@ class Engine:
                 + ((("lp",),) if lp else ()))
 
     def _decode_block(self, n: int, variant: str, win: int, dfa=False, lp=False) -> None:
-        """Run the block body on the staged buffers: eagerly on the CPU; on
-        the card as the CUDA graph of its shape, captured at the shape's
-        first block and replayed from then on. A failed capture or replay
-        raises (the loop fails the block's requests)."""
+        """Run the block body on the staged buffers (`_graph_run`)."""
+        self._graph_run(self._block_key(n, variant, win, dfa, lp),
+                        lambda: self._block_body(n, variant, win, dfa, lp))
+
+    def _graph_run(self, key: tuple, body) -> None:
+        """Run a body of persistent buffers (a decode block, a speculative
+        round): eagerly on the CPU; on the card as the CUDA graph of its
+        key, captured at the key's first run and replayed from then on. A
+        failed capture or replay raises (the loop fails the requests)."""
         if self.device.type != "cuda":
-            self._block_body(n, variant, win, dfa, lp)
+            body()
             return
-        key = self._block_key(n, variant, win, dfa, lp)
         entry = self._graph_cache.get(key)
         if entry is None:
-            self._capture_block(key, n, variant, win, dfa, lp)
+            self._capture_block(key, body)
         else:
             kernels.replay_counted(entry[0], entry[1])
             self.m_graph_replays += 1
 
-    def _capture_block(self, key: tuple, n: int, variant: str, win: int, dfa=False,
-                       lp=False) -> None:
-        """A shape's first block on the card. The body runs eagerly on the
+    def _capture_block(self, key: tuple, body) -> None:
+        """A key's first run on the card. The body runs eagerly on the
         capture stream first: that run is the real block, and it does what
         must not happen inside a capture (loading the kernel libraries,
         creating cuBLAS handles and the stream's workspace, setting kernel
@@ -1701,12 +1899,12 @@ class Engine:
         def capture() -> None:
             graph.capture_begin(pool=self._graph_pool, capture_error_mode="thread_local")
             try:
-                self._block_body(n, variant, win, dfa, lp)
+                body()
             finally:
                 graph.capture_end()
 
         with torch.cuda.stream(stream):
-            self._block_body(n, variant, win, dfa, lp)
+            body()
             torch.cuda.synchronize(self.device)  # as torch.cuda.graph does before a capture
             deltas = kernels.captured_counts(capture)
         current.wait_stream(stream)
@@ -1806,16 +2004,17 @@ class Engine:
         admission of each power-of-two group size up to max_slots at
         `prompt_len`'s bucket, then every decode-block shape the scheduler
         can pick (each of block_sizes x the three sampler variants, and on
-        a dense cache every read window at block_sizes[0]), so on the card
-        every block graph is captured here and serving only replays. Then
-        one 2-token generate through the loop.
+        a dense cache every read window at block_sizes[0]) and, with
+        speculation on, every round shape (_warm_rounds), so on the card
+        every block and round graph is captured here and serving only
+        replays. Then one 2-token generate through the loop.
 
         grammar=True then also runs the one-step host-walk ("grammar")
         block and a {"type": "boolean"} request through the host walk (or
         its DFA, once built), and, for each mode of the schemas
         prewarm_grammar compiled, grows the DFA table buffers to them and
-        runs every DFA block shape, so serving those schemas captures
-        nothing.
+        runs every DFA block shape (and, model-free speculation on, every
+        DFA round shape), so serving those schemas captures nothing.
 
         logprobs=True then also runs every block shape with the logprob
         epilogue and a 2-token logprob request, so serving a logprob
@@ -1847,6 +2046,8 @@ class Engine:
                     for variant in variants:
                         self._warm_block(self.ecfg.block_sizes[0], variant, w, lp=lp)
                     w *= 2
+            if not lp:
+                self._warm_rounds()
             _, ev = self.generate([1] * prompt_len, max_new_tokens=2, logprobs=int(lp))
             if ev.kind != "done":
                 raise RuntimeError(f"warmup generate ended with {ev.kind}: {ev.error}")
@@ -1867,6 +2068,8 @@ class Engine:
                     for variant in variants:
                         self._warm_block(n, variant, full, mode)
                 self._warm_block(1, "grammar", full, mode)
+                if self._spec_mode in ("prompt_lookup", "self_draft"):
+                    self._warm_rounds(mode)
         for t, old in zip(state, saved):
             t.copy_(old)
 
@@ -1901,6 +2104,360 @@ class Engine:
         self._stage_block(np.zeros_like(self.h_active))
         self._decode_block(n, variant, win, dfa, lp)
         self._b_out.cpu()
+
+    # ------------------------------------------------------------------ #
+    # Speculative decoding (docs/SPECULATIVE.md): per-slot draft lengths
+    # from each slot's acceptance EWMA, one round (draft, verify, accept)
+    # per dispatch, run as the CUDA graph of its shape on the card.
+    # ------------------------------------------------------------------ #
+
+    def _slot_pos(self, i: int) -> int:
+        """The position of slot i's current token (its last generated one,
+        the next input): the rows below it are written."""
+        s = self.slots[i]
+        return s.prompt_len + len(s.generated) - 1
+
+    def _spec_len_for(self, i: int, kmax: int) -> int:
+        """The EWMA's draft length for one active slot (probe bookkeeping
+        happens when the plan commits): below the floor a cold slot drafts
+        0 until its probe counter retries the smallest nonzero bucket."""
+        a = float(self.h_accept_ewma[i])
+        if a < self._SPEC_EWMA_FLOOR:
+            if self._spec_probe[i] >= self._SPEC_PROBE_EVERY:
+                for b in self._spec_buckets:
+                    if b > 0:
+                        return min(b, kmax)
+            return 0
+        return max(1, min(kmax, int(round(a * kmax))))
+
+    def _lookup_propose(self, i: int, kmax: int) -> list:
+        """Slot i's draft from its suffix index, built at the slot's first
+        plan and fed only the history appended since (prompt first, then
+        the generated tokens)."""
+        slot = self.slots[i]
+        st = self._lookup[i]
+        if st is None or st[0] is not slot:
+            st = (slot, speclookup.SuffixIndex(), 0)
+        _s, ix, fed = st
+        prompt = slot.request.prompt_ids
+        total = len(prompt) + len(slot.generated)
+        if fed < total:
+            if fed < len(prompt):
+                ix.extend(prompt[fed:])
+                fed = len(prompt)
+            ix.extend(slot.generated[fed - len(prompt):])
+            fed = total
+        self._lookup[i] = (slot, ix, fed)
+        return ix.propose(kmax)
+
+    def _spec_plan(self, mode: str):
+        """Plan one round: each active slot's draft length from its EWMA
+        (for prompt lookup, no longer than its match; never past what its
+        token budget can use), the window bucketed up to the smallest
+        covering entry of the buckets. Returns (kb, dlens [B], drafts
+        [B, kb] or None), or None when no slot drafts (the caller runs a
+        plain block). The reference waits while earlier dispatches are in
+        flight, since a suffix mined from a lagging history is stale; the
+        port reads each block's ids before it plans the next, so its host
+        history is always current and it never waits."""
+        B = self.ecfg.max_slots
+        kmax = self._spec_buckets[-1]
+        dlens = np.zeros((B,), np.int32)
+        drafts = np.zeros((B, kmax), np.int64) if mode == "prompt_lookup" else None
+        live = [i for i in range(B) if self.h_active[i] and self.slots[i] is not None]
+        for i in live:
+            want = min(self._spec_len_for(i, kmax), max(self._remaining(self.slots[i]) - 1, 0))
+            if mode == "prompt_lookup" and want > 0:
+                prop = self._lookup_propose(i, kmax)
+                want = min(want, len(prop))
+                drafts[i, :want] = prop[:want]
+            dlens[i] = want
+        for i in live:
+            if dlens[i] == 0:
+                if self.h_accept_ewma[i] < self._SPEC_EWMA_FLOOR:
+                    self._spec_probe[i] += 1
+            elif self.h_accept_ewma[i] < self._SPEC_EWMA_FLOOR:
+                self._spec_probe[i] = 0  # the probe fired: one trial round
+            self.m_spec_dlen_hist[int(dlens[i])] = self.m_spec_dlen_hist.get(int(dlens[i]), 0) + 1
+        need = int(dlens.max())
+        if need == 0:
+            return None
+        kb = next(b for b in self._spec_buckets if b >= need)
+        return kb, dlens, (drafts[:, :kb] if drafts is not None else None)
+
+    def _spec_sync(self, idx) -> None:
+        """Bring the draft's dense cache up to date below each active slot's
+        position where its rows lag (a new slot, a resumed one, plain blocks
+        since its last round). self_draft copies the target's rows of its
+        first layers (gather_pages on a pool, fp8 rows dequantized with the
+        kv scales): they are what the early exit would have written.
+        draft_model prefills the draft over the slot's history (the flash
+        kernel on the card), slots of one bucket in one call. The reference
+        fuses a draft prefill into every admission program and syncs the
+        self-draft scratch once per slot generation; this one path serves
+        fresh, chunked, prefix-hit and resumed admissions alike."""
+        lag = [int(i) for i in idx if self.h_dsync[i] != self._slot_pos(i)]
+        if not lag:
+            return
+        self.m_spec_syncs += len(lag)
+        dev = self.device
+        if self._spec_mode == "self_draft":
+            kl = self.cfg.self_draft_layers
+            sd = self.sd_cache
+            for i in lag:
+                p = self._slot_pos(i)
+                if self._paged:
+                    n = -(-p // self.ecfg.kv_page_size)
+                    pages = torch.tensor(self._slot_pages[i][:n], dtype=torch.int64)
+                    k, v = llama.gather_pages(llama.KVCache(self.cache.k[:kl], self.cache.v[:kl]),
+                                              pages, self._kv_scales)
+                    k, v = k[:, 0], v[:, 0]
+                else:
+                    k, v = self.cache.k[:kl, i], self.cache.v[:kl, i]
+                sd.k[:, i, :p] = k[:, :p].to(sd.k.dtype)
+                sd.v[:, i, :p] = v[:, :p].to(sd.v.dtype)
+                self.h_dsync[i] = p
+            return
+        by_bucket: dict[int, list[int]] = {}
+        for i in lag:
+            by_bucket.setdefault(self._bucket_for(self._slot_pos(i)), []).append(i)
+        for bucket, group in by_bucket.items():
+            toks = np.zeros((len(group), bucket), np.int64)
+            lens = np.zeros((len(group),), np.int64)
+            for j, i in enumerate(group):
+                p = self._slot_pos(i)
+                s = self.slots[i]
+                toks[j, :p] = (list(s.request.prompt_ids) + s.generated)[:p]
+                lens[j] = p
+            self.m_spec_draft_prefills += 1
+            _, ks, vs = llama.prefill(self.draft_cfg, self.draft_params,
+                                      torch.from_numpy(toks).to(dev), torch.from_numpy(lens).to(dev))
+            for j, i in enumerate(group):
+                llama.write_rows_to_cache(self.d_cache, i, ks[:, j:j + 1], vs[:, j:j + 1], 0)
+                self.h_dsync[i] = int(lens[j])
+
+    def _spec_window(self, mode: str, kb: int, idx) -> int:
+        """A round's dense read window: the smallest power of two (>= 256)
+        covering every active slot's rows through its window, or max_seq.
+        It bounds the reads of the dense caches (the target's, the
+        draft's); 0 on a paged pool with no draft cache."""
+        if self._paged and mode == "prompt_lookup":
+            return 0
+        S = self.ecfg.max_seq
+        need = max(self._slot_pos(int(i)) for i in idx) + kb + 1
+        w = self._KV_WIN_MIN
+        while w < min(need, S):
+            w *= 2
+        return min(w, S)
+
+    def _spec_key(self, mode: str, kb: int, variant: str, win: int, dfa=False) -> tuple:
+        """A round's graph key, laid out as `_block_key`'s (the LoRA part
+        fourth, tagged tuples after): the mode and sampler variant, the
+        window kb, the dense read window, the LoRA stacks (model-free modes
+        only), the table layout and the DFA buffers."""
+        lora = None
+        if self._lora_tree is not None and mode != "draft_model":
+            rows = next(iter(self._lora_tree.values()))["a"].shape[1]
+            lora = (self._lora_keys, rows, self._lora_rank)
+        return ((("spec", mode, variant), kb, win, lora) + self._table_key()
+                + ((("dfa", dfa) + self._g_dims,) if dfa else ()))
+
+    def _decode_round(self, mode: str, kb: int, variant: str, win: int, dfa=False) -> None:
+        """Run a round body on the staged buffers (`_graph_run`)."""
+        self._graph_run(self._spec_key(mode, kb, variant, win, dfa),
+                        lambda: self._spec_body(mode, kb, variant, win, dfa))
+
+    def _spec_body(self, mode: str, kb: int, variant: str, win: int, dfa=False) -> None:
+        """One speculative round over every slot, on persistent buffers
+        only (the reference's _get_spec_block):
+
+        1. the draft window: prompt lookup's kb drafts from _b_drafts, or
+           kb decode_steps of the draft (the draft model, or the target's
+           first layers over the scratch) sampling from its processed
+           distribution q at the round-start counts, then one step for its
+           K/V row only (a fully accepted window's next round reads it);
+        2. one decode_chunk of the target over the current token and the kb
+           drafts (B2's multi-query form on a pool);
+        3. the accept scan, counts updated token by token: slot b tests
+           draft t while t < its draft length (pack row 9) and then draws a
+           bonus token from p; a rejection draws from the residual and ends
+           the slot's window. "greedy" (no sampled slot) reduces the test
+           to argmax agreement; "sampled" is the exact stochastic test
+           (ops/sampling.verify_step). DFA slots (model-free modes) mask p
+           to their state's legal set and advance per emitted token.
+
+        Writes the emitted ids (-1 past a slot's window) to _b_out[:kb+1]
+        and their count to _b_out[kb+1]; the tokens, positions, counts,
+        cache, draft cache and DFA states advance in place. Idle slots are
+        masked; on a pool they sit at position 0 and write into SCRATCH.
+        `win` < max_seq reads the dense caches through that window. No
+        host sync."""
+        cfg, B, S, V = self.cfg, self.ecfg.max_slots, self.ecfg.max_seq, self.cfg.vocab_size
+        dev = self.device
+        nf = len(_SAMPLING_FIELDS)
+        pack = self._b_pack
+        active = pack[0] > 0
+        sp = _sampling_params(pack[1:1 + nf])
+        dlen = pack[2 + nf].to(torch.int64)
+        if dfa:
+            gs = torch.where(pack[1 + nf] > 0, self.d_gstate, 0)
+            gtable = self._dfa_table(dfa)
+        ptable = None
+        if self._paged:
+            ptable = (self._b_l1, self._b_l0) if self._hier else self._b_ptable
+        rows = win if 0 < win < S else 0
+        tokens, positions, seeds = self.d_tokens, self.d_positions, self.d_seed
+        if self._paged:
+            positions = torch.where(active, positions, 0)
+        qlogs = None
+        if mode == "prompt_lookup":
+            chunk = torch.cat([tokens[:, None], self._b_drafts[:, :kb]], dim=1)
+        else:
+            if mode == "self_draft":
+                dcfg, dparams = llama.self_draft_view(cfg, self.params)
+                dcache = self.sd_cache
+            else:
+                dcfg, dparams, dcache = self.draft_cfg, self.draft_params, self.d_cache
+            cur, drafted, qlogs = tokens, [], []
+            for i in range(kb):
+                pos_i = torch.clamp(positions + i, max=S - 1)
+                logits, _ = llama.decode_step(dcfg, dparams, cur, pos_i, dcache, read_rows=rows)
+                if variant == "greedy":
+                    cur = sample_greedy(logits, sp, self.counts, self.bias)
+                else:
+                    ql = processed_logprobs(logits, sp, self.counts, self.bias)
+                    cur = torch.argmax(ql + gumbel_noise(seeds, pos_i + 1, V, STREAM_DRAFT), dim=-1)
+                    qlogs.append(ql)
+                drafted.append(cur)
+            llama.decode_step(dcfg, dparams, cur, torch.clamp(positions + kb, max=S - 1), dcache,
+                              with_logits=False, read_rows=rows)
+            chunk = torch.stack([tokens] + drafted, dim=1)
+        pos_chunk = torch.clamp(positions[:, None] + torch.arange(kb + 1, device=dev)[None, :],
+                                max=S - 1)
+        lora = None
+        if self._lora_tree is not None and mode != "draft_model":
+            lora = (self._lora_tree, self._b_adapter)
+        logits_all, _ = llama.decode_chunk(cfg, self.params, chunk, pos_chunk, self.cache,
+                                           ptable=ptable, kv_scale=self._kv_scales, lora=lora,
+                                           read_rows=0 if self._paged else rows)
+        still = torch.ones((B,), dtype=torch.bool, device=dev)
+        cur_tok = tokens
+        acc = torch.zeros((B,), dtype=torch.int64, device=dev)
+        for t in range(kb + 1):
+            lt = logits_all[:, t]
+            if dfa:
+                lt = torch.where(_gr.dfa_allowed(self._g_mask, gs, V), lt, NEG_INF)
+            x = chunk[:, min(t + 1, kb)]
+            bonus = dlen <= t
+            if variant == "greedy":
+                tok = sample_greedy(lt, sp, self.counts, self.bias)
+                take = (x == tok) & ~bonus
+            else:
+                pl = processed_logprobs(lt, sp, self.counts, self.bias)
+                ql = qlogs[min(t, kb - 1)] if qlogs else None
+                take, tok = verify_step(pl, x, ql, bonus, seeds, positions + t + 1)
+            emit = still & active
+            update_counts(self.counts, tok, emit.to(torch.int32))
+            if dfa:
+                gs = torch.where(emit, _gr.dfa_advance(dfa, gtable, self._g_cls, gs, tok), gs)
+            cur_tok = torch.where(emit, tok, cur_tok)
+            acc = acc + emit.to(torch.int64)
+            self._b_out[t] = torch.where(emit, tok, -1)
+            still = still & take
+        self._b_out[kb + 1] = acc
+        self.d_tokens.copy_(torch.where(active, cur_tok, tokens))
+        self.d_positions.copy_(torch.clamp(positions + acc, max=S - 1))
+        if dfa:
+            self.d_gstate.copy_(gs)
+
+    def _run_spec_round(self, mode: str, kb: int, dlens: np.ndarray,
+                        drafts: Optional[np.ndarray], dfa=False) -> bool:
+        """One speculative round: grow the pages of kb + 1 rows, bring the
+        draft caches up to date, stage the controls (and prompt lookup's
+        drafts), run the round (a graph replay on the card), one host copy,
+        then post the emitted tokens and fold each slot's accepted /
+        drafted ratio into its EWMA. Returns False, having dispatched
+        nothing, when the pool cannot cover the growth."""
+        if not self._grow_for_decode(kb + 1):
+            return False
+        t0 = time.monotonic()
+        act = self.h_active.copy()
+        idx = np.flatnonzero(act)
+        if mode != "prompt_lookup":
+            self._spec_sync(idx)
+        pos0 = {int(i): self._slot_pos(int(i)) for i in idx}
+        variant = "sampled" if np.any(self.h_sampling["temperature"][idx] > 0) else "greedy"
+        win = self._spec_window(mode, kb, idx)
+        self._stage_block(act, dlens, drafts)
+        self._decode_round(mode, kb, variant, win, dfa)
+        out = self._b_out[:kb + 2].cpu().numpy()  # the round's one device-to-host copy
+        toks, acc = out[:kb + 1], out[kb + 1]
+        self.m_blocks += 1
+        self.m_spec_dispatches += 1
+        self.h_draft_len[idx] = dlens[idx]
+        self.m_spec_draft_len = float(dlens[idx].sum()) / max(1, len(idx))
+        if dfa:
+            self.m_dfa_tokens += int(sum(acc[i] for i in idx if self.h_gmask[i]))
+        for i in idx:
+            self.slots[i].scheduled += int(acc[i])
+            self.slots[i].sched_rows += int(acc[i])
+            if mode != "prompt_lookup":
+                self.h_dsync[i] = pos0[int(i)] + int(acc[i])
+        emitted = np.zeros((self.ecfg.max_slots,), np.int64)
+        for t in range(kb + 1):
+            for i in idx:
+                if self.slots[i] is None:
+                    continue  # finished earlier in this round
+                tok = int(toks[t, i])
+                if tok < 0:
+                    continue
+                emitted[i] += 1
+                self._post_token(int(i), tok)
+        consumed = int(emitted.sum())
+        self.m_spec_rounds += int((emitted > 0).sum())
+        self.m_spec_accepted += consumed
+        self._decode_tokens += consumed
+        # A round always emits one token that is no draft (the bonus or the
+        # residual draw), so a slot accepted emitted - 1 of its drafts.
+        alpha = self.ecfg.spec_accept_ewma
+        for i in idx:
+            if emitted[i] == 0:
+                continue
+            self.m_spec_drafted += int(dlens[i])
+            if dlens[i] > 0 and self.slots[i] is not None:
+                ratio = (emitted[i] - 1) / float(dlens[i])
+                self.h_accept_ewma[i] = (1.0 - alpha) * self.h_accept_ewma[i] + alpha * ratio
+        self._decode_time += time.monotonic() - t0
+        return True
+
+    def _warm_round(self, kb: int, variant: str, win: int, dfa=False) -> None:
+        """One speculative round of this shape with every slot idle."""
+        B = self.ecfg.max_slots
+        drafts = np.zeros((B, kb), np.int64) if self._spec_mode == "prompt_lookup" else None
+        self._stage_block(np.zeros_like(self.h_active), np.zeros((B,), np.int32), drafts)
+        self._decode_round(self._spec_mode, kb, variant, win, dfa)
+        self._b_out.cpu()
+
+    def _warm_rounds(self, dfa=False) -> None:
+        """Every round shape the scheduler can pick: each nonzero bucket,
+        both sampler variants, and every dense read window (0 alone on a
+        pool with no draft cache)."""
+        if self._spec_mode == "off":
+            return
+        S = self.ecfg.max_seq
+        wins = [0]
+        if not (self._paged and self._spec_mode == "prompt_lookup"):
+            wins, w = [], self._KV_WIN_MIN
+            while w < S:
+                wins.append(w)
+                w *= 2
+            wins.append(S)
+        for kb in self._spec_buckets:
+            if kb == 0:
+                continue
+            for variant in ("greedy", "sampled"):
+                for w in wins:
+                    self._warm_round(kb, variant, w, dfa)
 
     # ------------------------------------------------------------------ #
     # Paged KV pool: page allocator (loop thread only)
@@ -2481,8 +3038,9 @@ class Engine:
         """Whether a group can admit by forking: a paged pool with
         fork_sampling, and every branch agreeing on what shapes the
         prompt's K/V and the first token's mask (the adapter, the logit
-        bias, grammar or none). Resumed requests clone."""
-        if not (self._paged and self.ecfg.fork_sampling):
+        bias, grammar or none). Resumed requests clone, and so does every
+        group of an engine with a draft model, as in the reference."""
+        if not (self._paged and self.ecfg.fork_sampling) or self.draft_cfg is not None:
             return False
         r0 = requests[0]
         b0 = r0.logit_bias or {}
@@ -3252,7 +3810,11 @@ class Engine:
         n_live = min(-(-ctx_rows // self.ecfg.kv_page_size), len(self._slot_pages[victim]))
         span_bytes = n_live * self._page_bytes()
         policy = self.ecfg.kv_preempt
-        if grammar_victim:
+        if grammar_victim or self.draft_cfg is not None:
+            # A draft model's dense cache has no swap image: recompute (its
+            # rows are prefilled again before the slot's next round). The
+            # model-free modes swap: the self-draft scratch syncs from the
+            # restored pages.
             policy = "recompute"
         elif policy == "auto":
             policy = "swap" if span_bytes * 4 <= self.ecfg.kv_swap_bytes else "recompute"
@@ -3673,6 +4235,12 @@ class Engine:
         self.slots[slot_idx] = None
         self.h_active[slot_idx] = False
         self.h_gmask[slot_idx] = 0.0
+        # The next slot starts optimistic, with no suffix index and no
+        # draft rows.
+        self.h_accept_ewma[slot_idx] = 1.0
+        self._spec_probe[slot_idx] = 0
+        self._lookup[slot_idx] = None
+        self.h_dsync[slot_idx] = -1
         self._slot_release_adapter(slot_idx)
         if self._chunkings:
             self._chunkings = [st for st in self._chunkings if st["slot"] != slot_idx]
@@ -3690,7 +4258,14 @@ class Engine:
         names it. Idempotent for the same (dir, weight); rebinding a name to
         another source raises AdapterError (a tenant's identity stays fixed
         while its requests may be in flight), and so does a mixture-of-experts
-        base, as in the JAX package: runtime adapters serve dense bases."""
+        base, as in the JAX package: runtime adapters serve dense bases. An
+        engine with a draft model refuses adapters too (the draft would
+        decode without the delta); the model-free modes serve them."""
+        if self.draft_cfg is not None:
+            raise AdapterError(
+                "runtime LoRA adapters are not supported with a separate draft model — "
+                "the draft would decode without the delta; model-free speculation "
+                "(spec_mode=prompt_lookup/self_draft) serves adapter tenants")
         if self.cfg.is_moe:
             raise AdapterError(
                 f"runtime LoRA adapters serve dense llama-family bases only ({self.cfg.name} "

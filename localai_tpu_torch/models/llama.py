@@ -10,7 +10,11 @@ sparse-MoE MLP) in PyTorch (localai_tpu/models/llama.py).
   whose rows ride a block-local KV window; the cache is written once per
   block), `prefill_chunk_paged` (one chunk of a long prompt, written
   straight into the slot's pages) and `prefill_tail` (a prompt's tail
-  against cached prefix K/V: a dense prefix hit).
+  against cached prefix K/V: a dense prefix hit). Speculative decoding
+  adds `decode_step` (one step on a dense cache: a draft model's, or the
+  self-draft scratch over `self_draft_view`, the target's first layers)
+  and `decode_chunk` (the verify pass: T tokens a slot, logits at every
+  position).
 - Two cache layouts: a dense slot cache [L, B, S, K, Hd]
   (`write_block_to_cache`, `write_prefill_to_cache`) and a paged pool
   [L, P, page, K, Hd] shared by every slot through per-slot page tables
@@ -58,6 +62,7 @@ JAX package returns new arrays): that saves a full copy of each per call.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, NamedTuple
 
 import torch
@@ -620,6 +625,175 @@ def decode_step_windowed(
         local_v[li, :, step] = kv_cast(v, local_v.dtype)
     h = rms_norm(h, params["final_norm"], cfg.rms_eps)
     return _unembed(cfg, params, h), local_k, local_v
+
+
+def decode_step(
+    cfg: ArchConfig,
+    params: Params,
+    tokens: torch.Tensor,  # [B] current token per slot
+    positions: torch.Tensor,  # [B] its position
+    cache: KVCache,  # dense [L, B, S, K, Hd]
+    with_logits: bool = True,
+    read_rows: int = 0,  # > 0: attention reads only the cache's first rows
+):
+    """One decode step on a dense cache, the speculative draft's step (a
+    draft model's cache, or the self-draft scratch): each layer attends the
+    rows [0, positions) plus the current token and writes the token's row
+    at positions, in place. Plain PyTorch attention (the JAX package's XLA
+    numerics: decode_attention_windowed with an empty block window is its
+    decode_attention_appended). with_logits=False skips the unembed (a
+    step run for its K/V rows only); read_rows > 0 (which must cover every
+    position) reads only the cache's first read_rows rows. Returns (logits
+    [B, V] f32 or None, cache)."""
+    check_supported(cfg)
+    _check_params(cfg, params)
+    B = tokens.shape[0]
+    dev = tokens.device
+    inv_freq = rope_frequencies(cfg, dev)
+    inv_local = rope_frequencies_local(cfg, dev)
+    rows = torch.arange(B, device=dev)
+    pos = positions.to(torch.int64)
+    h = _embed(cfg, params, tokens)  # [B, D]
+    empty = cache.k.new_zeros((B, 0, cfg.num_kv_heads, cfg.head_dim_))
+    for li in range(cfg.num_layers):
+        lp = _layer(params, li)
+        x = rms_norm(h, lp["attn_norm"], cfg.rms_eps)
+        inv = _layer_inv_freq(cfg, inv_freq, inv_local, li)
+        q, k, v = _attn_proj_qkv(cfg, lp, x)  # q [B,H,Hd], k/v [B,K,Hd]
+        q = apply_rope(q[:, None], pos[:, None], inv)[:, 0]
+        k = apply_rope(k[:, None], pos[:, None], inv)[:, 0]
+        kc, vc = cache.k[li], cache.v[li]
+        if read_rows:
+            kc, vc = kc[:, :read_rows], vc[:, :read_rows]
+        attn = decode_attention_windowed(
+            q, kc, vc, empty, empty, k, v, pos, 0,
+            softcap=cfg.attn_softcap, window=cfg.sliding_window,
+            sliding=_layer_sliding(cfg, li),
+        )
+        h = h + _attn_out(cfg, lp, attn.reshape(B, -1))
+        x = rms_norm(h, lp["mlp_norm"], cfg.rms_eps)
+        h = h + _mlp_out(cfg, lp, x)
+        cache.k[li, rows, pos] = kv_cast(k, cache.k.dtype)
+        cache.v[li, rows, pos] = kv_cast(v, cache.v.dtype)
+    if not with_logits:
+        return None, cache
+    h = rms_norm(h, params["final_norm"], cfg.rms_eps)
+    return _unembed(cfg, params, h), cache
+
+
+def self_draft_view(cfg: ArchConfig, params: Params):
+    """The early-exit draft of spec_mode=self_draft: the target's first
+    `cfg.self_draft_layers` layers with the shared embedding, final norm
+    and head. The layer stacks are sliced [:k] (views: no second copy of
+    any weight, quantized leaves and scales included). Returns
+    (draft_cfg with num_layers = k, draft_params)."""
+    k = cfg.self_draft_layers
+    assert 0 < k < cfg.num_layers, "the engine validates self_draft_layers"
+    view = {name: leaf for name, leaf in params.items() if name != "layers"}
+    view["layers"] = {name: ({kk: v[:k] for kk, v in t.items()} if isinstance(t, dict)
+                             else t[:k])
+                      for name, t in params["layers"].items()}
+    return dataclasses.replace(cfg, num_layers=k), view
+
+
+def decode_chunk(
+    cfg: ArchConfig,
+    params: Params,
+    tokens: torch.Tensor,  # [B, T] the window's tokens per slot
+    positions: torch.Tensor,  # [B, T] their positions (contiguous per slot)
+    cache: KVCache,
+    ptable=None,  # [B, MP] int32 or the (l1, l0) pair: `cache` is a page pool
+    kv_scale: torch.Tensor | None = None,  # [2, K] f32 per-head (k, v) pool scales
+    lora=None,  # (stacked adapter factors, ids [B] int32): per-slot runtime LoRA
+    read_rows: int = 0,  # dense: > 0 reads only the cache's first rows
+):
+    """T tokens a slot in one pass, the verify pass of speculative
+    decoding: returns the logits of all T positions and writes the T rows.
+    Token t attends the slot's rows before the window (< positions[b, 0])
+    plus the window causally (and the model's sliding mask). On a page
+    pool the prefix walk is the ragged kernel's multi-query form
+    (ops/attention.paged_prefill_partials, limits = the window start) merged
+    with the window by `_merge_partials_mq`, and the rows go through the
+    table (`write_chunk_to_pool`); on a dense cache the scores are plain
+    PyTorch, as the JAX package's are plain XLA (read_rows > 0, covering
+    every window start, reads only the first rows). The projections run on
+    the B·T rows as one 2-D batch, so quantized weights take the fused
+    kernels and `lora` the ragged LoRA kernel, each row with its slot's
+    adapter. Returns (logits [B, T, V] f32, cache)."""
+    check_supported(cfg)
+    _check_params(cfg, params)
+    B, T = tokens.shape
+    H, Hd = cfg.num_heads, cfg.head_dim_
+    dev = tokens.device
+    inv_freq = rope_frequencies(cfg, dev)
+    inv_local = rope_frequencies_local(cfg, dev)
+    positions = positions.to(device=dev, dtype=torch.int64)
+    tpos = torch.arange(T, device=dev)
+    causal = tpos[None, :] <= tpos[:, None]  # [T, T]
+    win_dist = tpos[:, None] - tpos[None, :]  # in-window distance t - u
+    scale = Hd ** -0.5
+    if lora is not None:
+        lora = (lora[0], lora[1][:, None].expand(B, T).reshape(-1))  # row b·T + t: slot b
+    h = _embed(cfg, params, tokens.reshape(-1))  # [B·T, D]
+    new_k, new_v = [], []
+    for li in range(cfg.num_layers):
+        lp = _layer(params, li)
+        llora = _layer_lora(lora, li)
+        sliding = _layer_sliding(cfg, li)
+        x = rms_norm(h, lp["attn_norm"], cfg.rms_eps)
+        inv = _layer_inv_freq(cfg, inv_freq, inv_local, li)
+        q, k, v = _attn_proj_qkv(cfg, lp, x, llora)
+        q = apply_rope(q.reshape(B, T, H, Hd), positions, inv)
+        k = apply_rope(k.reshape(B, T, -1, Hd), positions, inv)
+        v = v.reshape(B, T, -1, Hd)
+        wmask = causal
+        if cfg.sliding_window and sliding:
+            wmask = wmask & (win_dist < cfg.sliding_window)
+        if ptable is not None:
+            acc, m, l = paged_prefill_partials(
+                q, cache.k[li], cache.v[li], ptable, positions[:, 0],
+                softcap=cfg.attn_softcap, window=cfg.sliding_window, sliding=sliding,
+                q_pos=positions, kv_scale=kv_scale,
+            )
+            attn = _merge_partials_mq(q, acc, m, l, k, v, wmask[None].expand(B, T, T),
+                                      softcap=cfg.attn_softcap)
+        else:
+            kc, vc = cache.k[li], cache.v[li]
+            if read_rows:
+                kc, vc = kc[:, :read_rows], vc[:, :read_rows]
+            kc, vc = kc.float(), vc.float()  # [B, S, K, Hd]
+            S, Kh = kc.shape[1], kc.shape[2]
+            qf = (q.float() * scale).reshape(B, T, Kh, H // Kh, Hd)
+            sc = torch.einsum("btkgd,bskd->bkgts", qf, kc)
+            sw = torch.einsum("btkgd,bukd->bkgtu", qf, k.float())
+            if cfg.attn_softcap:
+                sc = cfg.attn_softcap * torch.tanh(sc / cfg.attn_softcap)
+                sw = cfg.attn_softcap * torch.tanh(sw / cfg.attn_softcap)
+            # The cache's rows before the window (later rows are stale).
+            srows = torch.arange(S, device=dev)
+            prefix = srows[None, None, :] < positions[:, :1, None]  # [B, 1, S]
+            if cfg.sliding_window and sliding:
+                prefix = prefix & ((positions[:, :, None] - srows[None, None, :])
+                                   < cfg.sliding_window)
+            sc = torch.where(prefix[:, None, None], sc, -1e30)
+            sw = torch.where(wmask, sw, -1e30)
+            probs = torch.softmax(torch.cat([sc, sw], dim=-1), dim=-1)
+            attn = (torch.einsum("bkgts,bskd->btkgd", probs[..., :S], vc)
+                    + torch.einsum("bkgtu,bukd->btkgd", probs[..., S:], v.float()))
+        h = h + _attn_out(cfg, lp, attn.reshape(B * T, -1).to(h.dtype), llora)
+        x = rms_norm(h, lp["mlp_norm"], cfg.rms_eps)
+        h = h + _mlp_out(cfg, lp, x, llora)
+        new_k.append(k)
+        new_v.append(v)
+    ks, vs = torch.stack(new_k), torch.stack(new_v)  # [L, B, T, K, Hd]
+    if ptable is not None:
+        write_chunk_to_pool(cache, ptable, ks, vs, positions, kv_scale)
+    else:
+        bi = torch.arange(B, device=dev)[:, None].expand(B, T)
+        cache.k[:, bi, positions] = kv_cast(ks, cache.k.dtype)
+        cache.v[:, bi, positions] = kv_cast(vs, cache.v.dtype)
+    h = rms_norm(h, params["final_norm"], cfg.rms_eps)
+    return _unembed(cfg, params, h).reshape(B, T, -1), cache
 
 
 def write_block_to_cache(

@@ -234,9 +234,11 @@ def paged_partials(q, k_pool, v_pool, table, limits, softcap: float = 0.0,
 def paged_prefill_partials(q, k_pool, v_pool, table, limits, softcap: float = 0.0,
                            window: int = 0, sliding=None, q_pos=None, mesh=None,
                            kv_scale=None, sink: int = 0, swin: int = 0):
-    """Paged partials for a prefill chunk (models/llama.prefill_chunk_paged):
-    q [B, T, H, D] is the whole chunk, limits[b] the rows already resident
-    (the chunk's offset). The kernel takes the chunk in one launch. With
+    """Paged partials for a prefill chunk (models/llama.prefill_chunk_paged)
+    or a speculative verify window (models/llama.decode_chunk): q [B, T, H,
+    D] is the whole chunk, limits[b] the rows already resident (the chunk's
+    offset). The kernel takes the chunk in one launch (the multi-query form,
+    one page walk for all T queries). With
     sink/swin the prefix walk covers the sink pages and the trailing window
     only: a long chunked prefill costs the same per chunk at any offset."""
     paged_flash.reject_unported(mesh)

@@ -440,7 +440,7 @@ def paged_decode_partials_mq(
         q_pos = limits.reshape(B, 1).expand(B, T)
     qr = ((q.float() * (1.0 / math.sqrt(D)))
           .reshape(B, T, K, G, D).permute(0, 2, 1, 3, 4).reshape(B, K, T * G, D))
-    qpos_rows = torch.repeat_interleave(q_pos, G, dim=1)  # [B, T*G]
+    qpos_rows = q_pos[:, :, None].expand(B, T, G).reshape(B, T * G)  # row t·G + g
     acc, m, l = _rows_call(qr, qpos_rows, k_pool, v_pool, table, limits, softcap,
                            _window_of(window, sliding), kv_scale, sink, swin)
     acc = acc.reshape(B, K, T, G, D).transpose(2, 3)

@@ -3,7 +3,7 @@
     python -m localai_tpu_torch.profile_engine [--arch llama-3.2-1b]
         [--slots 8] [--prompt 500] [--steps 16] [--paged]
         [--quant int8|int4] [--kv-cache-dtype fp8|fp8_e5m2] [--lora N]
-        [--long-context]
+        [--long-context] [--spec prompt_lookup|self_draft|draft_model]
 
 Builds the engine on random bf16 weights (with `--quant`, random weights
 made int8 / int4 on the card one layer at a time, so `--arch mixtral-8x7b
@@ -30,7 +30,14 @@ window 4096, table pages of 128, a 2 GiB spill budget): one 512-token
 prefill chunk at offset 129024 of a 130,000-token admission, then, after
 its final chunk installs the slot, one decode block of `--steps` steps of
 that one slot at 130k (graph replay and eager body); the pages hold
-whatever the pool held, which the timing does not read. Needs a GPU.
+whatever the pool held, which the timing does not read. `--spec MODE`
+then profiles one speculative round of that draft source on an engine of
+the same layout (paged with `--paged`; n_draft 5, self_draft on a
+quarter of the target's layers, a llama-3.2-1b bf16 draft model), every
+slot drafting the full window, as the engine runs it (a
+graph replay) and its eager round body; a prompt-lookup round's drafts
+are placeholders (a round's cost does not depend on what it accepts).
+Needs a GPU.
 """
 
 from __future__ import annotations
@@ -114,6 +121,8 @@ def main(argv=None) -> None:
                     help="serve N runtime LoRA tenants (rank 16 on q/v), slot i with tenant i % N")
     ap.add_argument("--long-context", action="store_true",
                     help="profile a chunk and a decode block of one 130,000-token slot instead")
+    ap.add_argument("--spec", choices=("prompt_lookup", "self_draft", "draft_model"), default="",
+                    help="then profile one speculative round of this draft source")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_engine needs a CUDA device")
@@ -136,12 +145,12 @@ def main(argv=None) -> None:
     tenants = [random_lora_adapter(cfg, f"{tmp.name}/t{i}", 16, 16, seed=i)
                for i in range(args.lora)]
 
-    def make_engine(**kw):
+    def make_engine(draft=None, **kw):
         ecfg = dict(max_slots=args.slots, max_seq=2048, block_sizes=(args.steps,),
                     kv_cache_dtype=args.kv_cache_dtype)
         ecfg.update(kw)
         eng = Engine(cfg, params, ByteTokenizer(cfg.vocab_size), device="cuda",
-                     engine_cfg=EngineConfig(**ecfg))
+                     engine_cfg=EngineConfig(**ecfg), **(draft or {}))
         for i, d in enumerate(tenants):
             eng.register_adapter(f"t{i}", d)
             # Resident before warmup, so it captures the blocks' LoRA shapes.
@@ -199,9 +208,15 @@ def main(argv=None) -> None:
                       "steps": args.steps, "lora_tenants": args.lora}), flush=True)
     _profile(f"admission m={args.slots} bucket={bucket}", admit)
     blocks(eng, f"decode block n={args.steps} slots={args.slots}")
-    if not args.paged:
-        return
     del eng
+    if args.paged:
+        _paged(make_engine, admitter, blocks, gen, slots, args, GenRequest, RequestHandle)
+    if args.spec:
+        _spec_round(make_engine, admitter, slots, args, cfg)
+
+
+def _paged(make_engine, admitter, blocks, gen, slots, args, GenRequest, RequestHandle) -> None:
+    """A paged decode block and a 512-token chunk (see the module doc)."""
     # Pages for every slot's whole context.
     peng = make_engine(kv_pages=args.slots * 16, kv_page_size=128, prefill_chunk=512)
     padmit, _ = admitter(peng)
@@ -216,6 +231,40 @@ def main(argv=None) -> None:
         st["offset"] = 1024
         peng._dispatch_chunk(st, 512)
     _profile("paged prefill chunk T=512 offset=1024", chunk)
+
+
+def _spec_round(make_engine, admitter, slots, args, cfg) -> None:
+    """One speculative round of every slot drafting n_draft tokens, as the
+    engine runs it and as its eager body (see the module doc)."""
+    import numpy as np
+
+    from localai_tpu_torch.models import get_arch
+    from localai_tpu_torch.models.llama import init_params
+
+    kw = dict(spec_mode=args.spec, self_draft_layers=max(1, cfg.num_layers // 4))
+    if args.paged:
+        kw.update(kv_pages=args.slots * 16, kv_page_size=128, prefill_chunk=512)
+    if args.spec == "draft_model":
+        dcfg = get_arch("llama-3.2-1b")
+        kw["draft"] = dict(draft_cfg=dcfg, draft_params=init_params(dcfg, seed=1, device="cuda"),
+                           n_draft=5)
+    eng = make_engine(**kw)
+    admit, _ = admitter(eng)
+    admit()
+    kb = eng._spec_buckets[-1]
+    dlens = np.zeros((args.slots,), np.int32)
+    dlens[slots] = kb
+    drafts = np.zeros((args.slots, kb), np.int64) if args.spec == "prompt_lookup" else None
+
+    def round_():
+        eng._run_spec_round(args.spec, kb, dlens, drafts)
+    label = f"{args.spec} round kb={kb} slots={args.slots}{' paged' if args.paged else ''}"
+    _profile(f"{label} (graph replay)", round_)
+    eng._decode_round = eng._spec_body
+    try:
+        _profile(f"{label} (eager body)", round_)
+    finally:
+        del eng._decode_round
 
 
 def _long_context(make_engine, gen, smi, steps, GenRequest, RequestHandle, cfg) -> None:

@@ -12,8 +12,9 @@ N tenants cost one set of base weights.
 Not ported yet: the watchdog, crash-only quarantine and config watcher
 (ROADMAP Queue A item 11, runtime, observability and faults), and every
 backend but `llama` (item 13, satellite engines and models). No YAML or
-server knob is dropped in silence: the bounded-admission and fork knobs
-reach the engine, a knob of an unported item fails the load (or, for the
+server knob is dropped in silence: the bounded-admission, fork and
+speculative-decoding knobs reach the engine (a `draft_model` loads from a
+preset or a checkpoint dir beside the target), a knob of an unported item fails the load (or, for the
 server's, its startup) naming the item, and the multi-GPU ones warn.
 """
 
@@ -47,8 +48,6 @@ _ROUTE_SWITCHES = ("paged_kernel", "quant_kernel", "lora_kernel")
 # Model knobs of ROADMAP Queue A items not ported yet: set away from its
 # default, one fails the load naming its item.
 _UNPORTED_MODEL_KNOBS = (
-    (("draft_model", "n_draft", "spec_mode", "self_draft_layers", "spec_accept_ewma",
-      "spec_draft_buckets"), "8, speculative decoding"),
     (("trace_journal_events",), "11, runtime, observability and faults"),
 )
 # Server knobs of items not ported yet: set, one fails the server's startup.
@@ -411,6 +410,20 @@ class ModelManager:
                                            device=self.device)
         else:
             params = init_params(arch, seed=0, device=self.device)
+        draft_arch = draft_params = None
+        if cfg.draft_model and cfg.spec_mode in ("prompt_lookup", "self_draft"):
+            # The model-free modes draft from the target's own weights or
+            # the token streams: the checkpoint would sit dead in memory.
+            log.info("model %s: spec_mode=%s is model-free — skipping draft checkpoint %s",
+                     cfg.name, cfg.spec_mode, cfg.draft_model)
+        elif cfg.draft_model:
+            if cfg.draft_model in PRESETS:
+                draft_arch = get_arch(cfg.draft_model)
+                draft_params = init_params(draft_arch, seed=1, device=self.device)
+            else:
+                dd = self._resolve_ckpt_dir(cfg.draft_model)
+                draft_arch = arch_from_hf_config(dd)
+                draft_params = load_hf_checkpoint(draft_arch, dd, device=self.device)
         engine = Engine(
             arch, params, tokenizer, device=self.device,
             quantization="" if cfg.quantization == "none" else cfg.quantization,
@@ -424,8 +437,12 @@ class ModelManager:
                 attention_sink=cfg.attention_sink, attention_window=cfg.attention_window,
                 kv_spill_bytes=cfg.kv_spill_bytes, kv_l1_span=cfg.kv_l1_span,
                 queue_timeout_s=cfg.queue_timeout_s, deadline_s=cfg.deadline_s,
-                fork_sampling=cfg.fork_sampling,
+                fork_sampling=cfg.fork_sampling, spec_mode=cfg.spec_mode,
+                self_draft_layers=cfg.self_draft_layers,
+                spec_accept_ewma=cfg.spec_accept_ewma,
+                spec_draft_buckets=tuple(cfg.spec_draft_buckets),
             ),
+            draft_cfg=draft_arch, draft_params=draft_params, n_draft=cfg.n_draft,
         )
         engine.start()
         log.info("loaded model %s (arch=%s, %s) in %.1fs", cfg.name, arch.name, self.device,

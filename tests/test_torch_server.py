@@ -490,9 +490,9 @@ def _knob_manager(root, doc, **app):
 @pytest.mark.parametrize("doc, app, expect", [
     ({"queue_timeout_s": 2.5, "deadline_s": 5.0, "fork_sampling": False, "kv_pages": 8,
       "kv_page_size": 16}, {}, "wired"),
-    ({"draft_model": "tiny"}, {}, "item 8, speculative decoding"),
-    ({"spec_mode": "prompt_lookup"}, {}, "item 8, speculative decoding"),
-    ({"n_draft": 3}, {}, "item 8, speculative decoding"),
+    ({"draft_model": "tiny"}, {}, "spec"),
+    ({"spec_mode": "prompt_lookup"}, {}, "spec"),
+    ({"n_draft": 3}, {}, "spec"),
     ({"trace_journal_events": 128}, {}, "item 11, runtime, observability and faults"),
     ({}, {"postmortem_dir": "/tmp/pm"}, "item 11, runtime, observability and faults"),
     ({}, {"cluster_replicas": 2}, "item 12, cluster"),
@@ -515,7 +515,18 @@ def test_no_yaml_knob_is_dropped_in_silence(tmp_path, caplog, doc, app, expect):
                 tm.get("m")
             return
         with caplog.at_level("WARNING", logger="localai_tpu_torch.manager"):
-            ecfg = tm.get("m").engine.ecfg
+            eng = tm.get("m").engine
+            ecfg = eng.ecfg
+        if expect == "spec":
+            # The speculative knobs reach the engine: the mode, n_draft and
+            # (from a preset) the draft model.
+            mode = doc.get("spec_mode", "draft_model" if "draft_model" in doc else "off")
+            assert (ecfg.spec_mode, eng._spec_mode) == (doc.get("spec_mode", "auto"), mode)
+            assert eng.n_draft == doc.get("n_draft", 5)
+            assert eng._spec_buckets == tuple(sorted({0, eng.n_draft // 2, eng.n_draft}))
+            assert (eng.draft_cfg.name if eng.draft_cfg else None) == doc.get("draft_model")
+            assert not [r for r in caplog.records if r.levelname == "WARNING"]
+            return
         if expect == "wired":
             assert (ecfg.queue_timeout_s, ecfg.deadline_s, ecfg.fork_sampling) == (2.5, 5.0,
                                                                                   False)
