@@ -89,16 +89,17 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    launched again and, up to 16 rows, for each row alone; times beside a
    bf16 torch.bmm on the dequantized stack and the dequantize-then-matmul
    route;
-14. mixtral — mixtral-8x7b at full width and depth (32 layers), seeded
+14. mixtral — mixtral-8x7b at full width, 16 of its 32 layers (cut for
+   time since the deepseek phases joined the run), seeded
    random weights made int4 on the card layer by layer (bf16 would not
-   fit): a 256-row prefill through the kernels, each of its 32 MoE layers
+   fit at full depth): a 256-row prefill through the kernels, each of its 16 MoE layers
    held to the dequantize-then-matmul route on the same input (within 5 %
    of the layer's largest output; the two free-running prefills' logits
    and the share of tokens whose top-2 experts differ, layer by layer,
    are printed: routing is discrete, so bf16 rounding flips some tokens'
    experts and the runs part), then phase 12's graph-against-eager run on
-   a paged bf16 pool with phase 6's requests (B3 = 7 x 32 = 224 launches a decode step,
-   96 of them the expert form; B4 one a step; B2 32 a step), the device
+   a paged bf16 pool with phase 6's requests (B3 = 7 x 16 = 112 launches a decode step,
+   48 of them the expert form; B4 one a step; B2 16 a step), the device
    time of one decode step (a graph replay) against the weights' byte
    floor, two admissions' times, the weight bytes and the peak memory;
 15. mixtral int8 — the same model in int8 at full width, 8 of its 32
@@ -182,7 +183,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    of 0.02) and the published shapes and layouts of tensor types:
    llama-3.2-1b at full depth as a Q4_K_M file (q4_K, attn_v and ffn_down
    q6_K in alternate layers, q6_K embeddings, tied) and llama-3-8b as a
-   Q8_0 file with an untied q8_0 output.weight, 8 of its 32 layers (cut
+   Q8_0 file with an untied q8_0 output.weight, 4 of its 32 layers (cut
    for time), both with llama-3's gpt2-type BPE metadata (128256 tokens:
    256 byte symbols, synthetic merges, 256 control tokens; llama-bpe
    pre-tokenizer; bos / eos; chat template). Each is parsed and repacked
@@ -198,7 +199,35 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    equal up to a near tie; the 8b run carries B4). Prints the file bytes,
    the parse-and-repack seconds, the device bytes a weight of each form,
    TTFT p50 and decode tok/s.
-In 5, 6, 8, 10, 11, 12, 14, 15, 17, 18, 19, 20 and 21 the kernel launch counters, zeroed just
+22. deepseek (run after 16, before 21) — the DeepSeek family and B2's
+   latent form. (a) latent_kernels: the paged kernel's latent form (one kv
+   head, D = 576, the pool passed as K and V) against its plain version at
+   deepseek-v2-lite's decode (8 slots, 16 heads, pages of 128, limits 1
+   to 4096, several at split edges), a 6-token verify (QR = 96), a
+   512-token chunk at offset 1024 (QR = 8192), bf16 and e4m3 pools at
+   kv_scale 2, a hierarchical table under sink 128 + window 4096 at a
+   16384-row limit, and tiny-mla's f32 form at D = 48: tol 2e-4,
+   bit-identical relaunched and slot by slot, ms, plain ms and bound.
+   (b) deepseek: deepseek-v2-lite bf16 at full width and depth (27
+   layers, seeded random weights drawn on the card): one 3000-token
+   prompt's dense full-rank prefill against its absorbed paged chunks
+   (the same choice up to a near tie); phase 6's mix on the paged config
+   after warmup(), graphs against the eager body (ids and launches equal,
+   B2's latent form 27 launches a decode step), then a follow-up sharing
+   request 5's first 1536 tokens (a prefix hit whose tail chunk walks the
+   shared latent pages); the dense engine on the same traffic (ids equal
+   or parting at a near tie); TTFT, tok/s, a step's device ms from a
+   graph replay, B2's share, weight and latent bytes, peak memory, and
+   the every-expert route's bytes a step beside the active experts'.
+   (c) deepseek_http: a YAML `model: deepseek-v2-lite` answers 4
+   concurrent chats, half streamed (200s, [DONE]). (d) deepseek_int4:
+   int4 at 8 of 27 layers through the paged engine (B3, its expert form
+   at E = 64, B4, B2's latent form by their launch identities). (e)
+   deepseek_small: tiny-mla f32, dense, paged and prompt_lookup engines,
+   card ids equal to CPU ids. Phase 13 (moe_kernels) also holds B3's
+   expert form at deepseek-v2-lite's expert shapes (E = 64, int8 / int4,
+   1-256 rows).
+In 5, 6, 8, 10, 11, 12, 14, 15, 17, 18, 19, 20, 21 and 22 the kernel launch counters, zeroed just
 before each run, show that the path went through the kernels; a graph
 replay counts the launches its capture recorded. Every decode block of
 those runs is a graph capture or replay (the eager runs of phases 12 and
@@ -374,10 +403,13 @@ def phase_build() -> dict[str, list[dict]]:
     b2 = [r for r in usage["paged_attention"] if "paged_" in r["kernel"]]
     log(f"[build:paged_attention] instances: {json.dumps(b2)}")
     check(sum("paged_mma_kernel" in r["kernel"] for r in b2) == 12
-          and sum("paged_scalar_kernel" in r["kernel"] for r in b2) == 4,
-          f"expected 12 paged_mma_kernel and 4 paged_scalar_kernel instances, found {b2}")
+          and sum("paged_scalar_kernel" in r["kernel"] for r in b2) == 6
+          and sum("paged_latent_kernel" in r["kernel"] for r in b2) == 3,
+          f"expected 12 paged_mma_kernel, 6 paged_scalar_kernel and 3 paged_latent_kernel "
+          f"instances, found {b2}")
     check(all(r.get("spill_stores", 1) == 0 and r.get("spill_loads", 1) == 0 for r in b2
-              if "paged_mma_kernel" in r["kernel"]), f"a paged_mma_kernel instance spills: {b2}")
+              if "paged_mma_kernel" in r["kernel"] or "paged_latent_kernel" in r["kernel"]),
+          f"a tensor-core paged_attention instance spills: {b2}")
     mma = [r for r in usage["quant_matmul"] if "qmm_mma_kernel" in r["kernel"]]
     log(f"[build:quant_matmul] tensor-core instances: {json.dumps(mma)}")
     check(len(mma) == 9, f"expected 9 qmm_mma_kernel instances in the ptxas log, found {len(mma)}")
@@ -506,14 +538,15 @@ def phase_kernels(gen: torch.Generator) -> list[dict]:
 
 
 def _paged_work(qpos, limits, K, D, MP, page, elt, window, sink=0, swin=0,
-                span=0) -> tuple[float, float]:
+                span=0, latent=False) -> tuple[float, float]:
     """(FLOPs, bytes) the paged-partials function needs on this data: QKᵀ
     and PV over the unmasked (row, key) pairs of the rows each slot visits
     (its live rows, min(limit, MP·page); under the sink + window skip only
     the sink pages and the window's: ops/paged_flash.walk_rows); those K/V
     rows read once, the table entries of the visited pages (and with a
     hierarchical table the directory entries above them), q rows, limits
-    and query positions read once, acc, m and l written once."""
+    and query positions read once, acc, m and l written once. The latent
+    form reads each row once for both products (K is V)."""
     import numpy as np
 
     from localai_tpu_torch.ops.paged_flash import walk_rows
@@ -535,7 +568,7 @@ def _paged_work(qpos, limits, K, D, MP, page, elt, window, sink=0, swin=0,
         cols = np.unique(g // page)
         entries += len(cols) + (len(np.unique(cols // span)) if span else 0)
     flops = 4.0 * D * K * pairs
-    nbytes = (2 * elt * rows * K * D + 4 * B * K * QR * D + 4 * entries + 4 * B
+    nbytes = ((1 if latent else 2) * elt * rows * K * D + 4 * B * K * QR * D + 4 * entries + 4 * B
               + 4 * B * QR + 4 * B * K * QR * (D + 2))
     return flops, nbytes
 
@@ -1230,7 +1263,7 @@ def _zero_counts() -> None:
     from localai_tpu_torch.ops.paged_flash import paged_partials_rows
 
     flash_prefill_attention.launches = 0
-    paged_partials_rows.launches = 0
+    paged_partials_rows.launches = paged_partials_rows.latent_launches = 0
     quant_matmul.qmm.launches = quant_matmul.qunembed.launches = 0
     quant_matmul.qmm.launches_q = quant_matmul.qmm.launches_gq = 0
     quant_matmul.qmm.launches_g4 = 0
@@ -1249,6 +1282,8 @@ def _read_counts() -> dict:
 
     return {"flash_prefill": flash_prefill_attention.launches,
             "paged_attention": paged_partials_rows.launches,
+            # B2's latent form (MLA: one kv head, D = 576 or 48).
+            "paged_attention_latent": paged_partials_rows.latent_launches,
             "quant_matmul": quant_matmul.qmm.launches,
             # B3's 2-D launches by weight form: flat int8, grouped int8, int4.
             "quant_matmul_q": quant_matmul.qmm.launches_q,
@@ -1263,17 +1298,18 @@ def _read_counts() -> dict:
 
 
 def _serve(eng, plens: list[int], max_new: int = 64, adapters=None,
-           keep_ids: bool = False) -> dict:
+           keep_ids: bool = False, prompts=None, stop: bool = True) -> dict:
     """Submit one request per prompt length (half greedy, half seeded top-p;
     request i with the runtime LoRA adapter adapters[i], if given) and
     stream them all; the kernel counters go to 0 just before the run and
     are read just after it. With keep_ids the result carries every
-    request's token ids."""
+    request's token ids. `prompts`, if given, replaces the random prompts
+    of `plens`; with stop=False the engine keeps running for another run."""
     from localai_tpu_torch.engine.engine import GenRequest
     from localai_tpu_torch.ops import quant_matmul
 
     reqs = []
-    for i, ids in enumerate(_serve_prompts(plens)):
+    for i, ids in enumerate(prompts or _serve_prompts(plens)):
         sampled = i % 2 == 1
         reqs.append(GenRequest(prompt_ids=ids, max_new_tokens=max_new, ignore_eos=True,
                                temperature=0.8 if sampled else 0.0,
@@ -1326,7 +1362,8 @@ def _serve(eng, plens: list[int], max_new: int = 64, adapters=None,
     launches = _read_counts()
     metrics = eng.metrics()
     refs = [int(r) for r in eng._adapter_refs]
-    eng.stop()
+    if stop:
+        eng.stop()
     check(all(not th.is_alive() for th in threads), "engine: a request never finished")
     completion, ttfts = 0, []
     for i, (first, evs) in enumerate(results):
@@ -1360,6 +1397,7 @@ def _serve(eng, plens: list[int], max_new: int = 64, adapters=None,
                chunked_admits=delta("chunked_admits"),
                kv_pages_peak=int(metrics["kv_pages_peak"]),
                kv_preemptions=delta("kv_preemptions"),
+               prefix_hits=delta("prefix_hits"),
                weight_bytes=int(metrics["weight_bytes"]),
                dequant_rows_min=min((r for r, _f in dequant_rows), default=None),
                dequant_small_float_calls=sum(f and r <= 256 for r, f in dequant_rows),
@@ -1655,14 +1693,20 @@ def _first_difference(a: list, b: list, block_sizes) -> str:
     return "lengths differ"
 
 
-def phase_graphs(label: str, cfg, params, probe=None, **kw) -> dict:
+def phase_graphs(label: str, cfg, params, probe=None, prompts=None, keep_ids=False,
+                 follow=None, max_new=64, **kw) -> dict:
     """The same PAGED_PROMPTS requests (half greedy, half seeded top-p)
     served twice on fresh engines: once as the engine runs them (every
     decode block a CUDA graph: warmup() captures every shape, serving
     replays), and once with the engine's graph step swapped for a direct
     call of the eager block body. Ids and kernel launch counts must be
     identical. `probe(engine)`, if given, measures the graph-mode engine
-    after its run; its result is the run's "probe"."""
+    after its run; its result is the run's "probe". `prompts` replaces the
+    random prompts of PAGED_PROMPTS; with keep_ids the runs keep their ids.
+    `follow`, a list of prompts, is served as a second run on the same
+    engine once the first is done (its result is the run's "follow"), so
+    it can hit the prefix cache the first run filled. Each request asks for
+    `max_new` tokens."""
     from localai_tpu_torch.engine.engine import Engine, EngineConfig
     from localai_tpu_torch.engine.tokenizer import ByteTokenizer
 
@@ -1678,7 +1722,10 @@ def phase_graphs(label: str, cfg, params, probe=None, **kw) -> dict:
             warm_s = time.monotonic() - t0
             m = eng.metrics()
             pool = None if eng._graph_pool is None else _graph_pool_bytes(eng._graph_pool)
-            out = _serve(eng, PAGED_PROMPTS, keep_ids=True)
+            out = _serve(eng, PAGED_PROMPTS, max_new=max_new, keep_ids=True, prompts=prompts,
+                         stop=follow is None)
+            if follow is not None:
+                out["follow"] = _serve(eng, [], max_new=max_new, keep_ids=True, prompts=follow)
             if probe is not None and mode == "graph":
                 out["probe"] = probe(eng)
         out.update(warmup_s=warm_s, graphs=int(m["decode_graphs"]),
@@ -1697,6 +1744,11 @@ def phase_graphs(label: str, cfg, params, probe=None, **kw) -> dict:
         "ids_equal": g["ids"] == e["ids"], "launches_equal": g["launches"] == e["launches"],
         "launches": g["launches"],
     }
+    if follow is not None:
+        check(g["follow"]["ids"] == e["follow"]["ids"]
+              and g["follow"]["launches"] == e["follow"]["launches"],
+              f"graphs {label}: the follow-up run's ids or launches differ between graph "
+              f"and eager: {g['follow']['launches']} / {e['follow']['launches']}")
     log(f"[graphs {label}] " + json.dumps(summary))
     check(g["ids"] == e["ids"], f"graphs {label}: graph ids differ from the eager body's: "
                                 + _first_difference(g["ids"], e["ids"],
@@ -1711,8 +1763,9 @@ def phase_graphs(label: str, cfg, params, probe=None, **kw) -> dict:
           f"{g['decode_blocks']} blocks")
     check(e["graphs"] == 0 and e["decode_graph_replays"] == 0,
           f"graphs {label}: the eager run replayed graphs")
-    for out in runs.values():
-        del out["ids"]
+    if not keep_ids:
+        for out in runs.values():
+            del out["ids"]
     return {"summary": summary, **runs}
 
 
@@ -2026,10 +2079,11 @@ def _http_batch(base: str, reqs) -> tuple[list[dict], float]:
     return results, time.monotonic() - t0
 
 
-def _check_http_results(label: str, reqs, results) -> tuple[list[str], list[float]]:
+def _check_http_results(label: str, reqs, results,
+                        n_tokens: int = 64) -> tuple[list[str], list[float]]:
     """Every response 200, every stream ends in [DONE], completion tokens =
-    the tokens streamed (64). Returns each request's text and the streams'
-    TTFTs."""
+    the tokens streamed (n_tokens). Returns each request's text and the
+    streams' TTFTs."""
     texts, ttfts = [], []
     for i, ((_path, _model, body), res) in enumerate(zip(reqs, results)):
         check(res["status"] == 200, f"{label}: request {i} got HTTP {res['status']}: "
@@ -2045,12 +2099,12 @@ def _check_http_results(label: str, reqs, results) -> tuple[list[str], list[floa
             usage = chunks[-1]["usage"]
             text = "".join(c.get("text") or c.get("delta", {}).get("content", "") for c in toks)
             ttfts.append(res["ttft"])
-            check(usage["completion_tokens"] == len(toks) == 64,
+            check(usage["completion_tokens"] == len(toks) == n_tokens,
                   f"{label}: stream {i}: {len(toks)} token chunks, usage {usage}")
         else:
             c = res["body"]["choices"][0]
             text = c["message"]["content"] if "message" in c else c["text"]
-            check(res["body"]["usage"]["completion_tokens"] == 64,
+            check(res["body"]["usage"]["completion_tokens"] == n_tokens,
                   f"{label}: request {i}: usage {res['body']['usage']}")
         texts.append(text)
     return texts, ttfts
@@ -2532,11 +2586,16 @@ def phase_spec(qmodel: dict, small, p_small, p_small_cpu) -> dict:
 # (einsum, experts, in, out): gate / up with x shared by the experts, down
 # with one x row per expert.
 MOE_SHAPES = [("...d,edf->...ef", 8, 4096, 14336), ("...ef,efd->...ed", 8, 14336, 4096)]
+# deepseek-v2-lite's experts (E = 64: gate / up 2048 x 1408, down 1408 x
+# 2048), int8 and int4, bf16 x, at a decode row, a decode block of 8 slots,
+# a 6-token verify of 8 slots (48 rows) and the kernels' 256-row limit.
+DEEPSEEK_MOE_SHAPES = [("...d,edf->...ef", 64, 2048, 1408), ("...ef,efd->...ed", 64, 1408, 2048)]
 
 
 def phase_moe_kernels() -> list[dict]:
     """B3's expert form held as phase 3 holds B3 (`_hold_b3`) at every
-    form, x dtype and row count of the mixtral path, beside a bf16
+    form, x dtype and row count of the mixtral path, and at
+    deepseek-v2-lite's experts (DEEPSEEK_MOE_SHAPES), beside a bf16
     torch.bmm on the dequantized stack (`bf16_ms`: the matmul the quantized
     kernel has to beat) and models/quant.moe_matmul with the kernel route
     off (`dequant_ms`)."""
@@ -2546,14 +2605,18 @@ def phase_moe_kernels() -> list[dict]:
 
     gen = torch.Generator(device="cuda").manual_seed(13)
     rows = []
-    for sub, E, n_in, n_out in MOE_SHAPES:
+    cases = ([(sh, QMM_FORMS, (torch.bfloat16, torch.float32), (1, 8, 16, 64, 256))
+              for sh in MOE_SHAPES]
+             + [(sh, ("int8", "int4"), (torch.bfloat16,), (1, 8, 48, 256))
+                for sh in DEEPSEEK_MOE_SHAPES])
+    for (sub, E, n_in, n_out), forms, dtypes, counts in cases:
         w = torch.randn(E, n_in, n_out, generator=gen, device="cuda") * 0.02
-        for form in QMM_FORMS:
+        for form in forms:
             qw = {"int8": quant.quantize_tensor, "grouped_int8": _grouped_int8,
                   "int4": quant.quantize_tensor_g4}[form](w)
             w_bf16 = quant.dequantize_tensor(qw).to(torch.bfloat16)  # [E, in, out]
-            for dt in (torch.bfloat16, torch.float32):
-                for N in (1, 8, 16, 64, 256):
+            for dt in dtypes:
+                for N in counts:
                     xshape = (N, n_in) if sub == MOE_SHARED else (N, E, n_in)
                     x = torch.randn(xshape, generator=gen, device="cuda").to(dt)
                     xb = x.to(torch.bfloat16)
@@ -2603,8 +2666,14 @@ def _moe_probe(eng) -> dict:
                 byte_floor_ms=wbytes / PEAK_BYTES * 1e3, admission_ms=admit_ms)
 
 
+# of 32: the int4 run is cut for time (32 until the deepseek phases joined
+# the run).
+MIXTRAL_INT4_LAYERS = 16
+
+
 def phase_mixtral(gen: torch.Generator) -> dict:
-    """mixtral-8x7b int4 at full width and depth: the quantized random init,
+    """mixtral-8x7b int4 at full width, MIXTRAL_INT4_LAYERS of its 32 layers
+    (cut for time): the quantized random init,
     a 256-row prefill through the kernels with every MoE layer held to the
     dequantize-then-matmul route on the same input, then phase 12's
     graph-against-eager run with the MoE launch identities and the probe
@@ -2612,7 +2681,7 @@ def phase_mixtral(gen: torch.Generator) -> dict:
     from localai_tpu_torch.models import get_arch, llama, quant
     from localai_tpu_torch.ops.quant_matmul import qmm_moe
 
-    cfg = get_arch("mixtral-8x7b")
+    cfg = dataclasses.replace(get_arch("mixtral-8x7b"), num_layers=MIXTRAL_INT4_LAYERS)
     L = cfg.num_layers
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
@@ -2621,7 +2690,8 @@ def phase_mixtral(gen: torch.Generator) -> dict:
     init = dict(init_s=time.monotonic() - t0,
                 allocated_gib=torch.cuda.memory_allocated() / 2**30,
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-    log(f"[mixtral-8x7b int4] random weights made int4 on the card: {json.dumps(init)}")
+    log(f"[mixtral-8x7b int4, {L} layers] random weights made int4 on the card: "
+        f"{json.dumps(init)}")
     toks = torch.randint(0, cfg.vocab_size, (2, 128), generator=gen, device="cuda")
     lens = torch.tensor([128, 91], device="cuda")
     moe_dense, route = llama._moe_dense, llama._moe_route
@@ -2891,9 +2961,13 @@ def _part_gap(cfg, params, prompt, want, got, kw) -> dict:
     `got`'s token (0 when it is `got`'s): greedy, the two logits' gap;
     sampled, the gap of their scores times T (logit + T x the draw's noise)
     when both lie in the top-p set, else how far the logits above `got`'s
-    token must fall for it to enter the set, ln(mass before it / top_p).
-    A `logit_bias` in kw is added to the logits first. The bound is
-    PREFIX_LOGIT_TOL of the largest |logit|."""
+    token must fall for it to enter the set, ln(mass before it / top_p),
+    and with `got`'s token outside the sampler's 64 candidates the least
+    raise of its logit that makes the sampler pick it; or, where less, the
+    least lowering of the plain choice's logit that does (it leaves the
+    top-p set, or its score falls below `got`'s). A `logit_bias` in kw is
+    added to the logits first. The bound is PREFIX_LOGIT_TOL of the
+    largest |logit|."""
     from localai_tpu_torch.models import llama
     from localai_tpu_torch.ops.sampling import (SamplingParams, _filter_sorted, gumbel_noise,
                                                 sample)
@@ -2915,6 +2989,25 @@ def _part_gap(cfg, params, prompt, want, got, kw) -> dict:
     if a == b:
         gap, how = 0.0, "the plain recomputation picks it"
     elif T > 0:
+        def least_move(tok: int, sign: float) -> float:
+            """The least move of tok's logit (up for sign 1, down for -1)
+            after which the sampler picks got's token, bisected below the
+            first doubling from 1 that does; inf past 1e4."""
+            def picks(d: float) -> bool:
+                moved = logits.clone()
+                moved[tok] += sign * d
+                return int(sample(moved[None], seed, pos, sp)[0]) == b
+
+            lo, hi = 0.0, 1.0
+            while hi < 1e4 and not picks(hi):
+                lo, hi = hi, hi * 2
+            if not picks(hi):
+                return float("inf")
+            for _ in range(32):
+                mid = (lo + hi) / 2
+                lo, hi = (lo, mid) if picks(mid) else (mid, hi)
+            return hi
+
         sl, si = torch.topk(logits, 64)
         kept = (_filter_sorted(sl[None], sp)[0] > -1e29).tolist()
         rank = {int(t): r for r, t in enumerate(si.tolist())}
@@ -2925,7 +3018,10 @@ def _part_gap(cfg, params, prompt, want, got, kw) -> dict:
             before = float(torch.softmax(sl, dim=-1)[: rank[b]].sum())
             gap, how = float(np.log(before / top_p)), "top_p"
         else:
-            gap, how = float("inf"), "outside the candidates"
+            gap, how = least_move(b, 1.0), "raise into the candidates"
+        lower = least_move(a, -1.0)
+        if lower < abs(gap):
+            gap, how = lower, "lowering the plain choice"
     top2 = torch.topk(logits, 2).values
     return dict(position=p, want=want[p], got=b, plain=a, gap=abs(gap), by=how,
                 top2_gap=float(top2[0] - top2[1]),
@@ -2936,8 +3032,17 @@ def _hold_prefix(label: str, cfg, params, hit: dict, miss: dict) -> dict:
     """A hit run against a miss run of the same traffic: per conversation,
     turns compared in order until the first that parts (later prompts carry
     different answers); first-token logits compared wherever both runs
-    admitted the same prompt."""
+    admitted the same prompt. Where a part's gap from the bf16 plain
+    recomputation passes its bound and the weights are plain, an f32
+    recomputation of the same weights is a second witness: the hit's
+    token holds if it lies within the bound of the f32 choice. (Sampled
+    draws over random weights' flat logits can part the bf16 reference
+    from both runs: on llama-3.2-1b seed 9 it chose a third token, 0.62
+    logit from the hit's, where f32 chose the hit's token.)"""
     by = {(r["conv"], r["turn"], tuple(r["prompt"])): r for r in miss["records"]}
+    plain = all(isinstance(t, torch.Tensor) for stack in params.values()
+                for t in (stack.values() if isinstance(stack, dict) else [stack]))
+    p32 = None
     parts, compared = [], 0
     for conv in sorted({r["conv"] for r in hit["records"]}):
         for r in sorted((r for r in hit["records"] if r["conv"] == conv),
@@ -2948,8 +3053,15 @@ def _hold_prefix(label: str, cfg, params, hit: dict, miss: dict) -> dict:
             compared += 1
             if m["ids"] != r["ids"]:
                 part = _part_gap(cfg, params, r["prompt"], m["ids"], r["ids"], r["kw"])
+                if part["gap"] > part["bound"] and plain:
+                    if p32 is None:
+                        p32 = {k: ({n: t.float() for n, t in v.items()} if isinstance(v, dict)
+                                   else v.float()) for k, v in params.items()}
+                    part["f32_witness"] = _part_gap(dataclasses.replace(cfg, dtype="float32"),
+                                                    p32, r["prompt"], m["ids"], r["ids"], r["kw"])
                 parts.append(dict(conv=conv, turn=r["turn"], match=r["match"], **part))
                 break
+    del p32
     diffs = [float((hit["firsts"][k] - v).abs().max()) / float(v.abs().max())
              for k, v in miss["firsts"].items() if k in hit["firsts"]]
     out = dict(compared=compared, parts=parts, first_logit_cmp=len(diffs),
@@ -2959,7 +3071,8 @@ def _hold_prefix(label: str, cfg, params, hit: dict, miss: dict) -> dict:
           f"{label}: first-token logits of hits and misses differ by "
           f"{max(diffs, default=None)} of the largest |logit| (tol {PREFIX_LOGIT_TOL})")
     for part in parts:
-        check(part["gap"] <= part["bound"],
+        w = part.get("f32_witness")
+        check(part["gap"] <= part["bound"] or (w is not None and w["gap"] <= w["bound"]),
               f"{label}: a hit's ids part from the miss's away from a near tie: {part}")
     return out
 
@@ -3038,29 +3151,15 @@ def _tiny_exact(small, p_small) -> dict:
     return out
 
 
-def phase_prefix_swap(small, p_small) -> dict:
-    """llama-3.2-1b at full width and depth (16 layers, bf16, seeded random
-    weights, ByteTokenizer), after warmup(): (a) the chat traffic on the
-    paged engine (pages of 128, chunks of 512, default prefix knobs), then
-    the same traffic with prefix_cache_entries=0; (b) 8 requests of
-    1024-1500 tokens and 256 new tokens each on a 96-page pool (auto swaps
-    spans up to 64 MiB) against a 256-page one; (c) a 16,384-token prompt on
-    the hierarchical + spill engine (sink 128, window 4096), then a request
-    extending it: its save restores the spilled pages, its entry pins table
-    pages, and the extension hits, with the ids of an engine without the
-    cache; (d) the small f32 model's exact checks."""
-    from localai_tpu_torch.engine.engine import Engine, EngineConfig, GenRequest
+def _prefix_chat(cfg, params, before: int) -> dict:
+    """The chat traffic on the paged engine after warmup(), with the default
+    prefix knobs (hit) and with prefix_cache_entries=0 (miss): launch
+    identities, graphs replayed, hits, and the hit run held to the miss run
+    (`_hold_prefix`)."""
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig
     from localai_tpu_torch.engine.tokenizer import ByteTokenizer
-    from localai_tpu_torch.models import get_arch, llama
 
-    gc.collect()
-    torch.cuda.empty_cache()
-    before = torch.cuda.memory_allocated()
-    cfg = get_arch("llama-3.2-1b")
     L = cfg.num_layers
-    params = llama.init_params(cfg, seed=7, device="cuda")
-    out = {}
-    # (a) chat traffic, hit against miss.
     runs = {}
     for label, entries in (("hit", 8), ("miss", 0)):
         torch.cuda.reset_peak_memory_stats()
@@ -3098,10 +3197,35 @@ def phase_prefix_swap(small, p_small) -> dict:
         peak_memory_bytes={k: r["peak_memory_bytes"] for k, r in runs.items()},
         prefill_chunks={k: int(r["metrics"]["prefill_chunks"]) for k, r in runs.items()},
         launches={k: r["launches"] for k, r in runs.items()})
-    log("[prefix_swap chat llama-3.2-1b, 16 layers] " + json.dumps(chat))
-    out["chat"], out["chat_hit_run"] = chat, {k: v for k, v in hit.items()
-                                             if k not in ("records", "firsts")}
-    out["chat_miss_run"] = {k: v for k, v in miss.items() if k not in ("records", "firsts")}
+    log(f"[prefix_swap chat {cfg.name}, {L} layers] " + json.dumps(chat))
+    return {"chat": chat,
+            **{f"chat_{k}_run": {n: v for n, v in r.items() if n not in ("records", "firsts")}
+               for k, r in runs.items()}}
+
+
+def phase_prefix_swap(small, p_small) -> dict:
+    """llama-3.2-1b at full width and depth (16 layers, bf16, seeded random
+    weights, ByteTokenizer), after warmup(): (a) the chat traffic on the
+    paged engine (pages of 128, chunks of 512, default prefix knobs), then
+    the same traffic with prefix_cache_entries=0 (`_prefix_chat`); (b) 8
+    requests of 1024-1500 tokens and 256 new tokens each on a 96-page pool
+    (auto swaps spans up to 64 MiB) against a 256-page one; (c) a
+    16,384-token prompt on the hierarchical + spill engine (sink 128,
+    window 4096), then a request extending it: its save restores the
+    spilled pages, its entry pins table pages, and the extension hits, with
+    the ids of an engine without the cache; (d) the small f32 model's exact
+    checks."""
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig, GenRequest
+    from localai_tpu_torch.engine.tokenizer import ByteTokenizer
+    from localai_tpu_torch.models import get_arch, llama
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    cfg = get_arch("llama-3.2-1b")
+    L = cfg.num_layers
+    params = llama.init_params(cfg, seed=7, device="cuda")
+    out = _prefix_chat(cfg, params, before)
     # (b) swap at full width, against recompute on the same pool and an
     # ample pool.
     swap = {}
@@ -4422,8 +4546,9 @@ def write_gguf_model(path: str, cfg, layers: int, plan: str, seed: int = 0) -> i
 
 # The two files: llama-3.2-1b at full depth as a Q4_K_M file (tied
 # embeddings, as published), and llama-3-8b as a Q8_0 file with an untied
-# output.weight, 8 of its 32 layers (cut for time).
-GGUF_FILES = (("llama-3.2-1b", 16, "q4_k_m"), ("llama-3-8b", 8, "q8_0"))
+# output.weight, 4 of its 32 layers (cut for time: 8 until the deepseek
+# phases joined the run).
+GGUF_FILES = (("llama-3.2-1b", 16, "q4_k_m"), ("llama-3-8b", 4, "q8_0"))
 GGUF_YAML = {"context_size": 4096, "max_slots": 8, "kv_pages": 256, "kv_page_size": 128,
              "prefill_chunk": 512, "max_tokens": 64,
              "template": {"use_tokenizer_template": True}}
@@ -4461,7 +4586,7 @@ def _hold_gguf_layer(label: str, tree: dict, plan: str, gen: torch.Generator) ->
     rows = []
     gkeys = {"wq": "attn_q", "wk": "attn_k", "wv": "attn_v", "wo": "attn_output",
              "w_gate": "ffn_gate", "w_up": "ffn_up", "w_down": "ffn_down"}
-    for key in quant.QUANT_LAYER_KEYS:
+    for key in gkeys:
         w = {k: torch.from_numpy(np.ascontiguousarray(v[0])).cuda()
              for k, v in tree["layers"][key].items()}
         form = "g4" if "g4" in w else "gq"
@@ -4753,6 +4878,465 @@ def _compact(row: dict, keys) -> dict:
     return {k: row[k] for k in keys}
 
 
+# --------------------------------------------------------------------------- #
+# deepseek: B2's latent form and deepseek-v2-lite at full width and depth
+# --------------------------------------------------------------------------- #
+
+def _hold_latent(label: str, g, B, T, D, page, MP, dt, limits, kv_scale=None, hier_span=0,
+                 sink=0, swin=0) -> dict:
+    """B2's latent form (K = 1, the pool passed as K and V) against its
+    plain version on the card at one shape: QR = 16 heads x T tokens a
+    slot (4 heads at D = 48, tiny-mla's), query positions limit + t. Every
+    output must agree within the B2 tolerance and be bit-identical when
+    launched again and for each slot alone."""
+    from localai_tpu_torch import kernels
+    from localai_tpu_torch.models.llama import kv_cast
+    from localai_tpu_torch.ops.paged_flash import (
+        paged_partials_plain, paged_partials_rows, plan_for)
+
+    tol = 2e-4
+    G = 16 if D == 576 else 4
+    QR = G * T
+    P = B * MP + 1
+    lim = torch.tensor(limits, dtype=torch.int32, device="cuda")
+    qr = torch.randn(B, 1, QR, D, generator=g, device="cuda") / D**0.5
+    pool = torch.randn(P, page, 1, D, generator=g, device="cuda")
+    if kv_scale is not None:
+        kv_scale = torch.full((2, 1), float(kv_scale), device="cuda")
+        pool = pool / kv_scale[0][:, None]
+    pool = kv_cast(pool, dt)
+    flat = torch.randperm(P - 1, generator=g, device="cuda")[: B * MP]
+    flat = flat.reshape(B, MP).to(torch.int32).contiguous()
+    table = _hier_of(flat, hier_span, P - 1) if hier_span else flat
+    qpos = (lim[:, None] + torch.arange(QR, device="cuda")[None, :] // G).to(torch.int32)
+    args = (qr, qpos, pool, pool, table, lim, 0.0, 0, kv_scale, sink, swin)
+    acc, m, l = paged_partials_rows(*args)
+    torch.cuda.synchronize()
+    racc, rm, rl = paged_partials_plain(*args)
+    o_err = (acc / l.clamp(min=1e-30)[..., None]
+             - racc / rl.clamp(min=1e-30)[..., None]).abs().max().item()
+    m_err = (m - rm).abs().max().item()
+    l_rel = ((l - rl).abs() / rl).max().item()
+    again = paged_partials_rows(*args)
+    repeat_equal = all(torch.equal(a, b) for a, b in zip((acc, m, l), again))
+
+    def slot(b):
+        tb = (table[0][b:b + 1], table[1]) if hier_span else table[b:b + 1]
+        return paged_partials_rows(qr[b:b + 1], qpos[b:b + 1], pool, pool, tb, lim[b:b + 1],
+                                   0.0, 0, kv_scale, sink, swin)
+
+    alone_equal = all(all(torch.equal(a[b:b + 1], x) for a, x in zip((acc, m, l), slot(b)))
+                      for b in range(B))
+    plan = plan_for(qr, pool, table, kernels.sm_count(torch.device("cuda")))
+    ms = cuda_time_cold_ms(lambda: paged_partials_rows(*args), 20)
+    plain_ms = cuda_time_cold_ms(lambda: paged_partials_plain(*args), 2)
+    flops, nbytes = _paged_work(qpos.cpu().numpy(), np.asarray(limits), 1, D, MP, page,
+                                dt.itemsize, 0, sink, swin, hier_span, latent=True)
+    nbytes += 0 if kv_scale is None else 8
+    rate = torch.float32 if dt == torch.float32 else torch.bfloat16
+    t_ops, t_bytes = flops / PEAK_FLOPS[rate] * 1e3, nbytes / PEAK_BYTES * 1e3
+    row = dict(shape=label, B=B, H=G, K=1, QR=QR, D=D, page=page, MP=MP,
+               pool_dtype=str(dt).replace("torch.", ""), limits=limits,
+               kv_scale=None if kv_scale is None else kv_scale.tolist(),
+               table="hier" if hier_span else "flat", sink=sink, swin=swin,
+               max_abs_err=o_err, m_err=m_err, l_rel_err=l_rel, tol=tol,
+               repeat_equal=repeat_equal, alone_equal=alone_equal,
+               ok=max(o_err, m_err, l_rel) <= tol and repeat_equal and alone_equal
+               and bool(torch.isfinite(acc).all()),
+               plan={**plan._asdict(), "grid": [plan.splits, -(-QR // plan.row_tile), B]},
+               ms=ms, plain_ms=plain_ms, library_ms=None,
+               bound_ms=max(t_ops, t_bytes), bound_frac=max(t_ops, t_bytes) / ms,
+               bound_by="operations" if t_ops >= t_bytes else "bytes")
+    log(f"[kernel paged_attention latent] {json.dumps(row)}")
+    check(row["ok"], f"B2's latent form disagrees with its plain version at {label} "
+                     f"D={D} {row['pool_dtype']}: acc/l err {o_err}, m err {m_err}, l rel err "
+                     f"{l_rel} (tol {tol}), repeat bit-identical={repeat_equal}, slots alone "
+                     f"bit-identical={alone_equal}")
+    return row
+
+
+def phase_latent_kernels() -> list[dict]:
+    """B2's latent form at deepseek-v2-lite's shapes (K = 1, D = 576, 16
+    heads, pages of 128, a 4096-row table): decode over 8 slots with limits
+    from 1 to 4096, several at split edges (multiples of 128 rows) or one
+    row either side; a 6-token verify (QR = 96); a 512-token chunk at
+    offset 1024 (QR = 8192); the decode and the chunk again on e4m3 pools
+    stored at kv_scale 2; a hierarchical table (table pages of 16 entries)
+    under the sink 128 + window 4096 skip at a 16384-row limit; and
+    tiny-mla's f32 form at D = 48 (decode and a 3-token verify)."""
+    g = torch.Generator(device="cuda").manual_seed(19)
+    edges = [4096, 1, 128, 127, 129, 2048, 3001, 256]
+    ragged = [4096, 1024, 640, 1, 2900, 128, 1025, 3500]
+    return [
+        _hold_latent("decode", g, 8, 1, 576, 128, 32, torch.bfloat16, edges),
+        _hold_latent("verify_t6", g, 8, 6, 576, 128, 32, torch.bfloat16, ragged),
+        _hold_latent("prefill_chunk", g, 1, 512, 576, 128, 32, torch.bfloat16, [1024]),
+        _hold_latent("decode_fp8", g, 8, 1, 576, 128, 32, torch.float8_e4m3fn, edges,
+                     kv_scale=2.0),
+        _hold_latent("prefill_chunk_fp8", g, 1, 512, 576, 128, 32, torch.float8_e4m3fn,
+                     [1024], kv_scale=2.0),
+        _hold_latent("decode_hier_sink_window", g, 2, 1, 576, 128, 128, torch.bfloat16,
+                     [16384, 5000], hier_span=16, sink=128, swin=4096),
+        _hold_latent("decode_f32_d48", g, 4, 1, 48, 16, 16, torch.float32, [256, 1, 100, 17]),
+        _hold_latent("verify_f32_d48", g, 4, 3, 48, 16, 16, torch.float32, [200, 16, 3, 250]),
+    ]
+
+
+# The shared prefix of the deepseek follow-up request: request 5's first
+# 1536 tokens (3 pages of 128 x 4 = 12 pages), then a tail of its own.
+DEEPSEEK_SHARED = 1536
+DEEPSEEK_TAIL = 400
+DEEPSEEK_INT4_LAYERS = 8  # of 27: the int4 run is cut for time
+DEEPSEEK_NEW = 32  # tokens a request of the bf16 runs (64 elsewhere): the run's time
+# The paged chunks' prefill logits (absorbed MLA through B2's latent form)
+# may sit at most this many times farther from the dense prefill's
+# (full-rank MLA) than the dense prefill of the same prompt in a batch of
+# two does (bf16 rounding alone). On an H100 the two read 4.6 % and 2.3 %
+# of the largest |logit| (a ratio of 2.0); a few per cent of error in the
+# absorbed path's scale fold, kv_scale or unlatent would exceed 3x.
+DEEPSEEK_PAGED_SPREAD = 3.0
+
+
+def _deepseek_follow() -> list[list[int]]:
+    """The follow-up prompt: request 5's first DEEPSEEK_SHARED tokens and a
+    new tail, so its admission hits the prefix cache and its tail's chunk
+    walks the shared latent pages through B2's latent form."""
+    gen = torch.Generator().manual_seed(31)
+    shared = _serve_prompts(PAGED_PROMPTS)[5][:DEEPSEEK_SHARED]
+    return [shared + torch.randint(0, 256, (DEEPSEEK_TAIL,), generator=gen).tolist()]
+
+
+def _check_deepseek_launches(label: str, cfg, out: dict, quantized: bool) -> None:
+    """The launch identities of a deepseek paged engine run: B2's latent
+    form once a layer a decode step and a prefill chunk (admissions of at
+    most one chunk take the full-rank dense prefill, no B2); with quantized
+    weights also B3 (6 two-dimensional products a layer a pass: the q,
+    latent and output projections, and the dense MLP or the shared
+    experts), its expert form (3 a MoE layer a pass) and B4 (each pass
+    with logits)."""
+    L, n = cfg.num_layers, out["launches"]
+    steps, passes = out["decode_steps"], out["admissions"] + out["prefill_chunks"]
+    check(n["paged_attention_latent"] == L * (steps + out["prefill_chunks"])
+          and n["paged_attention"] == 0 and n["flash_prefill"] == 0,
+          f"{label}: B2 latent launches {n['paged_attention_latent']} != {L} x ({steps} + "
+          f"{out['prefill_chunks']}); per-head B2 {n['paged_attention']}, B1 "
+          f"{n['flash_prefill']}")
+    if not quantized:
+        check(n["quant_matmul"] == n["quant_matmul_moe"] == 0, f"{label}: B3 ran on bf16 weights")
+        return
+    b3 = n["quant_matmul"] + n["matmul_dequant_calls"]
+    check(n["quant_matmul"] > 0 and b3 == 6 * L * (steps + passes),
+          f"{label}: B3 launches {n['quant_matmul']} + dequant calls "
+          f"{n['matmul_dequant_calls']} != 6 x {L} x ({steps} + {passes})")
+    moe = n["quant_matmul_moe"] + n["moe_dequant_calls"]
+    check(n["quant_matmul_moe"] > 0 and moe == 3 * (L - cfg.first_k_dense) * (steps + passes),
+          f"{label}: expert launches {n['quant_matmul_moe']} + dequant {n['moe_dequant_calls']}"
+          f" != 3 x {L - cfg.first_k_dense} x ({steps} + {passes})")
+    check(out["dequant_small_float_calls"] == 0,
+          f"{label}: {out['dequant_small_float_calls']} dequant-route calls at <= 256 rows")
+    check(n["quant_unembed"] == steps + out["admissions"] + out["chunked_admits"],
+          f"{label}: B4 launches {n['quant_unembed']}")
+
+
+def _deepseek_expert_bytes(cfg, params, gen) -> dict:
+    """Bytes of the routed experts' weights one decode step reads: the
+    every-expert route (`_expert_rows`, the served decode route) reads all
+    E experts of every MoE layer; a route that gathered only the active
+    experts would read those the batch's 8 tokens select, counted here
+    from one eager decode step of 8 random tokens."""
+    from localai_tpu_torch.models import llama
+
+    route, sels = llama._moe_route, []
+
+    def recording(cfg_, lp, x):
+        w, sel = route(cfg_, lp, x)
+        sels.append(sel)
+        return w, sel
+
+    cache = llama.KVCache.zeros(cfg, 8, 16, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (8,), generator=gen, device="cuda")
+    with swapped(llama, "_moe_route", recording):
+        llama.decode_step(cfg, params, toks, torch.zeros(8, dtype=torch.int64, device="cuda"),
+                          cache)
+    per_expert = sum(params["layers"][k][0, 0].numel() * params["layers"][k].element_size()
+                     for k in ("w_gate", "w_up", "w_down"))
+    active = [int(torch.unique(s).numel()) for s in sels]
+    every = len(sels) * cfg.num_experts * per_expert
+    return dict(every_expert_bytes=every, every_expert_floor_ms=every / PEAK_BYTES * 1e3,
+                active_experts_per_layer=active,
+                active_expert_bytes=sum(active) * per_expert,
+                active_expert_floor_ms=sum(active) * per_expert / PEAK_BYTES * 1e3)
+
+
+def phase_deepseek(latent_rows: list[dict]) -> dict:
+    """deepseek-v2-lite at full width and depth (27 layers: one dense, 26
+    MoE of 64 routed experts, top 6, and 2 shared; MLA with a 512 + 64
+    latent) in bf16, seeded random weights drawn on the card: (1) one
+    3000-token prompt's last logits, full-rank dense prefill against the
+    absorbed paged chunks, within the near-tie bound; (2) phase 6's prompts
+    (DEEPSEEK_NEW new tokens each, to hold the run's time) through the
+    paged engine after warmup(), graphs against the eager body
+    (ids and launches identical; B2's latent form 27 launches a decode
+    step), then a follow-up sharing request 5's first 1536 tokens, a prefix
+    hit whose tail walks the shared latent pages; (3) the dense engine on
+    the same traffic: ids equal to the paged engine's or parting at a near
+    tie; (4) the decode step's device time from a graph replay, B2's
+    share, the weight and latent bytes, and the every-expert route's
+    bytes a step beside the active experts' floor."""
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig
+    from localai_tpu_torch.engine.tokenizer import ByteTokenizer
+    from localai_tpu_torch.models import get_arch, llama
+
+    cfg = get_arch("deepseek-v2-lite")
+    L = cfg.num_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    wbytes = sum(t.numel() * t.element_size() for stack in ("layers", "dense_layers")
+                 for t in params[stack].values()) + sum(
+        params[k].numel() * params[k].element_size() for k in ("embed", "final_norm", "lm_head"))
+    init = dict(init_s=time.monotonic() - t0, weight_bytes=wbytes,
+                allocated_gib=torch.cuda.memory_allocated() / 2**30,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"[deepseek-v2-lite bf16] random weights on the card: {json.dumps(init)}")
+    gen = torch.Generator(device="cuda").manual_seed(19)
+
+    # (1) dense prefill against the paged chunks, one 3000-token prompt.
+    prompt = _serve_prompts(PAGED_PROMPTS)[5]
+    n, C, page = len(prompt), PAGED_ENGINE["prefill_chunk"], PAGED_ENGINE["kv_page_size"]
+    toks = torch.tensor([prompt], device="cuda")
+    dense_logits = llama.prefill(cfg, params, toks, torch.tensor([n], device="cuda"))[0]
+    MP = -(-n // page)
+    pool = llama.paged_cache_zeros(cfg, MP + 1, page, device="cuda")
+    table = torch.arange(MP, dtype=torch.int32, device="cuda")[None]
+    for off in range(0, n, C):
+        part = toks[:, off:off + C]
+        pad = C - part.shape[1]
+        chunk = torch.nn.functional.pad(part, (0, pad))
+        paged_logits, pool = llama.prefill_chunk_paged(
+            cfg, params, chunk, torch.tensor([part.shape[1]], device="cuda"),
+            torch.tensor([off], device="cuda"), pool, table, with_logits=off + C >= n)
+    del pool
+    # The same dense prefill with the prompt in a batch of two (other matmul
+    # shapes, the same function): the spread bf16 rounding alone gives.
+    other = torch.randint(0, 256, (1, n), generator=gen, device="cuda")
+    batch_logits = llama.prefill(cfg, params, torch.cat([toks, other]),
+                                 torch.tensor([n, n], device="cuda"))[0][:1]
+    scale = float(dense_logits.abs().max())
+    a, b = int(dense_logits.argmax()), int(paged_logits.argmax())
+    pre = dict(tokens=n, chunks=-(-n // C),
+               max_rel_diff=float((paged_logits - dense_logits).abs().max()) / scale,
+               batch_max_rel_diff=float((batch_logits - dense_logits).abs().max()) / scale,
+               argmax_equal=a == b,
+               # The dense logits' gap between the two choices (0 when equal).
+               choice_gap=float(dense_logits[0, a] - dense_logits[0, b]),
+               bound=PREFIX_LOGIT_TOL * scale)
+    log(f"[deepseek-v2-lite prefill dense vs paged] {json.dumps(pre)}")
+    check(bool(torch.isfinite(dense_logits).all()) and dense_logits.shape == (1, cfg.vocab_size)
+          and bool(torch.isfinite(paged_logits).all()),
+          "deepseek prefill logits not finite / wrong shape")
+    # bf16 paths (full-rank against absorbed, 27 layers) give different
+    # logits: they must sit within DEEPSEEK_PAGED_SPREAD times the spread
+    # a batch of two gives, and the choice must agree up to a near tie.
+    check(pre["max_rel_diff"] <= DEEPSEEK_PAGED_SPREAD * pre["batch_max_rel_diff"],
+          f"deepseek: the paged chunks' logits sit farther from the dense prefill's than "
+          f"{DEEPSEEK_PAGED_SPREAD} x a batch of two's spread: {pre}")
+    check(pre["choice_gap"] <= pre["bound"],
+          f"deepseek: the paged chunks' choice parts from the dense prefill's away from a "
+          f"near tie: {pre}")
+    experts = _deepseek_expert_bytes(cfg, params, gen)
+    del dense_logits, paged_logits, batch_logits
+
+    # (2) the paged engine: graphs against the eager body, and a prefix hit.
+    follow = _deepseek_follow()
+
+    def probe(eng):
+        eng._stage_block(np.zeros_like(eng.h_active))
+        graph = eng._graph_cache[eng._block_key(16, "greedy", 0)][0]
+        return dict(device_ms_per_step=cuda_time_ms(graph.replay, reps=3, warmup=1) / 16)
+
+    runs = phase_graphs("deepseek-v2-lite bf16 paged", cfg, params, probe=probe, keep_ids=True,
+                        follow=follow, max_new=DEEPSEEK_NEW)
+    for mode in ("graph", "eager"):
+        _check_deepseek_launches(f"deepseek {mode}", cfg, runs[mode], quantized=False)
+        _check_deepseek_launches(f"deepseek {mode} follow-up", cfg, runs[mode]["follow"],
+                                 quantized=False)
+    _check_graphs("deepseek graph", runs["graph"])
+    hit = runs["graph"]["follow"]
+    check(hit["prefix_hits"] == 1 and hit["prefill_chunks"] >= 1,
+          f"deepseek: the follow-up request did not hit the shared prefix: {hit['prefix_hits']} "
+          f"hits, {hit['prefill_chunks']} chunks")
+
+    # (3) the dense engine on the same traffic.
+    eng = Engine(cfg, params, ByteTokenizer(cfg.vocab_size), device="cuda",
+                 engine_cfg=EngineConfig(max_slots=8, max_seq=4096, block_sizes=(16, 4, 1)))
+    dense = _serve(eng, PAGED_PROMPTS, max_new=DEEPSEEK_NEW, keep_ids=True, stop=False)
+    dense["follow"] = _serve(eng, [], max_new=DEEPSEEK_NEW, keep_ids=True, prompts=follow)
+    del eng
+    torch.cuda.empty_cache()
+    check(dense["launches"]["paged_attention_latent"] == 0,
+          "deepseek dense engine: B2 ran on a dense cache")
+    prompts = _serve_prompts(PAGED_PROMPTS) + follow
+    paged_ids = runs["graph"]["ids"] + runs["graph"]["follow"]["ids"]
+    dense_ids = dense["ids"] + dense["follow"]["ids"]
+    parts = []
+    for i, (a, b) in enumerate(zip(dense_ids, paged_ids)):
+        if a == b:
+            continue
+        kw = (dict(temperature=0.8, top_p=0.9, seed=100 + i) if i % 2 == 1 and i < 10
+              else dict(temperature=0.0, seed=100 + i) if i < 10 else dict(seed=100))
+        parts.append(dict(request=i, **_part_gap(cfg, params, prompts[i], a, b, kw)))
+    log(f"[deepseek-v2-lite paged vs dense ids] {json.dumps(dict(requests=len(paged_ids), parts=parts))}")
+    for part in parts:
+        check(part["gap"] <= part["bound"],
+              f"deepseek: the paged engine's ids part from the dense engine's away from a "
+              f"near tie: {part}")
+
+    g = runs["graph"]
+    latent_decode = next(r for r in latent_rows if r["shape"] == "decode"
+                         and r["pool_dtype"] == "bfloat16")
+    step_ms = g["probe"]["device_ms_per_step"]
+    summary = dict(
+        init=init, prefill=pre, **experts,
+        weight_bytes=g["weight_bytes"], kv_bytes_per_token=L * cfg.cache_k_dim * 2,
+        per_head_kv_bytes_per_token=L * cfg.num_heads * (cfg.qk_head_dim + cfg.v_head_dim) * 2,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        ttft_ms_p50=g["ttft_ms_p50"], ttft_ms_max=g["ttft_ms_max"],
+        decode_tok_s=g["decode_tok_s"], decode_ms_per_step=g["decode_ms_per_step"],
+        device_ms_per_step_idle_replay=step_ms,
+        # A microbench product, not a reading of the served step: 27 x the
+        # decode row of phase latent_kernels (limits 1-4096) over an idle
+        # slots' replay. B2's traced share of a served step comes from
+        # profile_engine.py --arch deepseek-v2-lite --paged.
+        b2_latent_microbench_ms_x_layers=L * latent_decode["ms"],
+        b2_latent_microbench_over_idle_replay=L * latent_decode["ms"] / step_ms,
+        b2_latent_launches_per_decode_step=L,
+        prefix_hit=dict(ttft_ms=hit["ttft_ms_p50"], prefix_hits=hit["prefix_hits"],
+                        chunks=hit["prefill_chunks"]),
+        dense_engine=dict(decode_tok_s=dense["decode_tok_s"], ttft_ms_p50=dense["ttft_ms_p50"]),
+        ids_parting=len(parts), graphs=runs["summary"])
+    log(f"[deepseek-v2-lite bf16 paged] {json.dumps(summary)}")
+    e = runs["eager"]
+    del params, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"summary": summary, "graph": g, "eager": e, "dense": dense}
+
+
+def phase_deepseek_int4() -> dict:
+    """deepseek-v2-lite int4 at full width, 8 of its 27 layers (cut for
+    time), drawn straight into the quantized form, through the paged
+    engine with phase 6's requests: B3 (the q, latent and output
+    projections, the dense MLP and the shared experts), B3's expert form at
+    E = 64, B4 (the int8 head) and B2's latent form, each by its launch
+    identity."""
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig
+    from localai_tpu_torch.engine.tokenizer import ByteTokenizer
+    from localai_tpu_torch.models import get_arch, quant
+
+    cfg = dataclasses.replace(get_arch("deepseek-v2-lite"), num_layers=DEEPSEEK_INT4_LAYERS)
+    params = quant.init_params_quantized(cfg, seed=2, mode="int4", device="cuda")
+    eng = Engine(cfg, params, ByteTokenizer(cfg.vocab_size), device="cuda",
+                 engine_cfg=EngineConfig(**PAGED_ENGINE))
+    out = _serve(eng, PAGED_PROMPTS)
+    del eng, params
+    torch.cuda.empty_cache()
+    log(f"[deepseek-v2-lite int4, {cfg.num_layers} layers] " + json.dumps(out))
+    _check_deepseek_launches("deepseek int4", cfg, out, quantized=True)
+    _check_graphs("deepseek int4", out)
+    return out
+
+
+def phase_deepseek_small() -> dict:
+    """tiny-mla (DeepSeek-V3-shaped: q-lora, sigmoid router with a selection
+    bias, group-limited top-k, a shared expert, a dense first layer; a
+    latent of 32 + 16) in f32 on the card against the CPU: the dense
+    engine, the paged + chunked engine (B2's f32 latent form at D = 48) and
+    prompt_lookup on the paged pool. Greedy ids must be equal."""
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig, GenRequest
+    from localai_tpu_torch.engine.tokenizer import ByteTokenizer
+    from localai_tpu_torch.models import get_arch, llama
+
+    cfg = dataclasses.replace(get_arch("tiny-mla"), dtype="float32")
+    p_cpu = llama.init_params(cfg, seed=0, scale=0.06, device="cpu")
+    p_cpu["layers"]["router_bias"] = torch.randn(
+        p_cpu["layers"]["router_bias"].shape, generator=torch.Generator().manual_seed(5)) * 0.05
+    p_gpu = {k: ({kk: vv.cuda() for kk, vv in v.items()} if isinstance(v, dict) else v.cuda())
+             for k, v in p_cpu.items()}
+    base = dict(max_slots=4, max_seq=256, min_prefill_bucket=16, block_sizes=(8,))
+    paged = dict(kv_pages=40, kv_page_size=16, prefill_chunk=32)
+    layouts = {"dense": {}, "paged": paged, "prompt_lookup": dict(paged, spec_mode="prompt_lookup")}
+    prompts = [([65, 66, 67], {}), (list(range(40, 140)), {}), ([5, 6] * 30, {}),
+               ([10] + [77] * 20, {77: 25.0})]
+    out = {}
+    for name, kw in layouts.items():
+        ids = {}
+        for dev, p in (("cpu", p_cpu), ("cuda", p_gpu)):
+            eng = Engine(cfg, p, ByteTokenizer(cfg.vocab_size), device=dev,
+                         engine_cfg=EngineConfig(**base, **kw))
+            eng.start()
+            if dev == "cuda":
+                _zero_counts()
+            ids[dev] = [[e.token_id for e in eng.submit(GenRequest(
+                prompt_ids=pr, max_new_tokens=24, ignore_eos=True, logit_bias=b))
+                if e.kind == "token"] for pr, b in prompts]
+            if dev == "cuda":
+                launches = _read_counts()
+            m = eng.metrics()
+            eng.stop()
+        out[name] = dict(ids_equal=ids["cpu"] == ids["cuda"],
+                         latent_launches=launches["paged_attention_latent"],
+                         spec_rounds=m.get("spec_rounds", 0.0))
+        check(ids["cpu"] == ids["cuda"], f"tiny-mla {name}: card ids differ from CPU ids")
+        check((launches["paged_attention_latent"] > 0) == (name != "dense"),
+              f"tiny-mla {name}: {launches['paged_attention_latent']} latent B2 launches")
+        if name == "prompt_lookup":
+            check(m["spec_rounds"] > 0, "tiny-mla prompt_lookup: no speculative round ran")
+    log(f"[deepseek tiny-mla card vs cpu] {json.dumps(out)}")
+    return out
+
+
+def phase_deepseek_http() -> dict:
+    """The port's server with a YAML `model: deepseek-v2-lite` (27 layers,
+    bf16, seeded random weights, the paged pool): 4 concurrent chats of
+    100-400 characters, half streamed, each 16 tokens (short: the run's
+    time); every response 200, every stream ending in [DONE]."""
+    import random
+
+    import yaml
+
+    rnd = random.Random(19)
+    reqs = []
+    for i in range(4):
+        text = "".join(rnd.choice("abcdefghijklmnopqrstuvwxyz ") for _ in range(100 * (i + 1)))
+        reqs.append(("/v1/chat/completions", "deepseek",
+                     {"model": "deepseek", "messages": [{"role": "user", "content": text}],
+                      "max_tokens": 16, "ignore_eos": True, "stream": i % 2 == 1,
+                      "temperature": 0.0 if i < 2 else 0.8, "seed": 7 + i}))
+    with tempfile.TemporaryDirectory() as root:
+        with open(f"{root}/deepseek.yaml", "w") as f:
+            yaml.safe_dump({"name": "deepseek", "model": "deepseek-v2-lite",
+                            "context_size": 4096, "max_slots": 8, "kv_pages": 256,
+                            "kv_page_size": 128, "prefill_chunk": 512, "max_tokens": 16,
+                            "tokenizer": "synthetic-bytes"}, f)
+        manager, server, base = _start_server(root)
+        try:
+            results, wall = _http_batch(base, reqs)
+            _texts, ttfts = _check_http_results("deepseek_http", reqs, results, n_tokens=16)
+        finally:
+            server.shutdown()
+            manager.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = dict(requests=len(reqs), statuses=[r["status"] for r in results], wall_s=wall,
+               stream_ttft_ms=[t * 1e3 for t in ttfts])
+    log(f"[deepseek_http] {json.dumps(out)}")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
@@ -4805,6 +5389,13 @@ def main() -> None:
     moe_small = timed("moe_small", phase_moe_small)
     gc.collect()
     torch.cuda.empty_cache()
+    latent_rows = timed("latent_kernels", phase_latent_kernels)
+    deepseek = timed("deepseek", phase_deepseek, latent_rows)
+    deepseek_http = timed("deepseek_http", phase_deepseek_http)
+    deepseek_int4 = timed("deepseek_int4", phase_deepseek_int4)
+    deepseek_small = timed("deepseek_small", phase_deepseek_small)
+    gc.collect()
+    torch.cuda.empty_cache()
     gguf = timed("gguf", phase_gguf, gen)
     runs = {"dense_engine": dense, "paged_engine": paged, **qruns, "lora_8b_int8": lora_8b,
             "graphs_1b": graphs_1b["graph"], "graphs_1b_eager": graphs_1b["eager"],
@@ -4823,11 +5414,15 @@ def main() -> None:
             **{f"spec_small_{k}": v for k, v in spec["small"].items()},
             "gguf_http_llama_3_2_1b": gguf["http"],
             "gguf_engine_llama_3_2_1b": gguf["engine_llama-3.2-1b"],
-            "gguf_engine_llama_3_8b": gguf["engine_llama-3-8b"]}
-    by_path = {k: {path: out["launches"][k] for path, out in runs.items()}
-               for k in ("flash_prefill", "paged_attention", "quant_matmul", "quant_matmul_moe",
-                         "quant_unembed", "lora_bgmv", "quant_matmul_q", "quant_matmul_gq",
-                         "quant_matmul_g4")}
+            "gguf_engine_llama_3_8b": gguf["engine_llama-3-8b"],
+            "deepseek_v2_lite": deepseek["graph"], "deepseek_v2_lite_eager": deepseek["eager"],
+            "deepseek_v2_lite_prefix_hit": deepseek["graph"]["follow"],
+            "deepseek_v2_lite_dense": deepseek["dense"],
+            "deepseek_v2_lite_int4_8_layers": deepseek_int4}
+    by_path = {k: {path: out["launches"].get(k, 0) for path, out in runs.items()}
+               for k in ("flash_prefill", "paged_attention", "paged_attention_latent",
+                         "quant_matmul", "quant_matmul_moe", "quant_unembed", "lora_bgmv",
+                         "quant_matmul_q", "quant_matmul_gq", "quant_matmul_g4")}
     by_path["lora_bgmv"]["lora_http"] = lora_http["tenants"]["lora_bgmv_launches"]
     # The main shape of B1: llama-3.2-1b's 8 x 2048 admission with every row
     # at full length, so the kernel, SDPA and the bound count the same work.
@@ -5081,10 +5676,48 @@ def main() -> None:
                                 "bmm2_gathered_ms", "bound_ms", "max_abs_err"))
                    for r in lora_groups],
     }
+    # The main shape of B2's latent form: deepseek-v2-lite's decode, 8 slots,
+    # 16 heads on one latent head of 576, bf16 pool.
+    latent_main = next(r for r in latent_rows if r["shape"] == "decode"
+                       and r["pool_dtype"] == "bfloat16")
+    latent_record = {
+        "name": "paged_attention_latent",
+        "route": "cuda",
+        "source": "localai_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "localai_tpu/ops/paged_flash.py:78",
+        "tpu_kernel": "localai_tpu/ops/paged_flash.py::_ragged_paged_kernel, its MLA form (one "
+                      "kv head, D = 576, K and V one pool: localai_tpu/models/llama.py:1015)",
+        "kernel": "paged_latent_kernel<T> (bf16 / fp8 pools, D = 576); "
+                  "paged_scalar_kernel<48, QT> (f32 pools, tiny-mla)",
+        "launches": sum(by_path["paged_attention_latent"].values()),
+        "launches_by_path": {k: v for k, v in by_path["paged_attention_latent"].items() if v},
+        "shape": {k: latent_main[k] for k in ("shape", "B", "H", "K", "QR", "D", "page", "MP")},
+        "max_abs_err": max(r["max_abs_err"] for r in latent_rows),
+        "tol": latent_main["tol"],
+        "ok": all(r["ok"] for r in latent_rows),
+        "ms": latent_main["ms"],
+        "kernel_ms": latent_main["ms"],
+        "plain_ms": latent_main["plain_ms"],
+        "bound_ms": latent_main["bound_ms"],
+        "bound_by": latent_main["bound_by"],
+        "library_ms": None,  # no one PyTorch call computes partials over a page table
+        "repeat_equal": all(r["repeat_equal"] for r in latent_rows),
+        "alone_equal": all(r["alone_equal"] for r in latent_rows),
+        "ptxas": [r for r in usage["paged_attention"] if "paged_latent_kernel" in r["kernel"]
+                  or "paged_scalar_kernel<48" in r["kernel"]],
+        "deepseek_v2_lite": deepseek["summary"],
+        "deepseek_int4_8_layers": _compact(deepseek_int4, (
+            "decode_tok_s", "decode_ms_per_step", "ttft_ms_p50", "weight_bytes", "launches")),
+        "deepseek_http": deepseek_http,
+        "tiny_mla_card_vs_cpu": deepseek_small,
+        "shapes": [_compact(r, ("shape", "QR", "D", "pool_dtype", "table", "ms", "plain_ms",
+                                "bound_ms", "bound_by", "max_abs_err", "plan"))
+                   for r in latent_rows],
+    }
     log(f"[phases] {json.dumps(seconds)}")
     log(f"[done] all phases passed in {time.monotonic() - t_start:.1f}s")
-    print(json.dumps({"kernels": [flash_record, paged_record, quant_record, moe_record,
-                                  unembed_record, lora_record]}))
+    print(json.dumps({"kernels": [flash_record, paged_record, latent_record, quant_record,
+                                  moe_record, unembed_record, lora_record]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),

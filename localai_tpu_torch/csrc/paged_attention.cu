@@ -98,6 +98,31 @@
 //   warps split the split's rows in 32-row tiles, a lane owning a key row
 //   read straight from the pool, and the warps' states combine in shared
 //   memory. f32 pools serve the small test models, not the serving path.
+//   A head width that is not a multiple of 32 (48: tiny-mla's latent)
+//   leaves the lanes past D idle in the value columns.
+//
+// The latent form (multi-head latent attention, DeepSeek-V2/V3): one kv
+// head, D = kv_lora_rank + rope = 576, and K and V are the same pool (the
+// latent rows serve as both operands; the caller lifts the first
+// kv_lora_rank columns of acc back to per-head values). QR = 16 query rows
+// a token (the heads) at decode, T * 16 for a verify window or a prefill
+// chunk. paged_latent_kernel<T> (bf16 / fp8 pools) keeps every other part
+// of the contract above (plan, splits, tables, masks, merge) and differs in
+// what 576 columns force:
+// - Registers. 16 query rows x 576 f32 accumulators would be 288 registers
+//   a lane in one warp. Eight warps split the work both ways instead: for
+//   S = Q.K^T warp w owns keys [8w, 8w + 8) of each 64-key tile over all
+//   576 columns; the scores go through shared memory, where the block's
+//   256 threads run the online softmax (16 a row) and leave p as bf16 hi +
+//   lo; for acc += P.V warp w owns columns [72w, 72w + 72) (9 d-tiles, 36
+//   accumulators a lane) over all 64 keys. One softmax state a row, kept
+//   in shared memory, so the warps' columns need no combining.
+// - Shared memory. K and V are the same rows, so each key tile is loaded
+//   once and read by both products: a two-stage ring of 64 x 576 bf16
+//   tiles (72 KB each; fp8 tiles are 36 KB, widened into one bf16 tile)
+//   plus q hi + lo takes ~190 KB, the opt-in dynamic shared memory.
+// - Grid. One kv head gives one (slot, head) pair a slot, so the plan's
+//   split count (up to 16 at decode) is what spreads a batch over the SMs.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -342,8 +367,8 @@ paged_scalar_kernel(const float* __restrict__ q, const float* __restrict__ k_poo
                     float* __restrict__ l_out, float* __restrict__ ws, int* __restrict__ counters,
                     int KH, int QR, int page, int MP, int window, float softcap, int sink,
                     int swin, int splits, int unit) {
-  static_assert(D % 32 == 0 && QT % 4 == 0, "tile shape");
-  constexpr int NC = D / 32;  // value columns per lane
+  static_assert(D % 8 == 0 && QT % 4 == 0, "tile shape");
+  constexpr int NC = (D + 31) / 32;  // value columns per lane; lanes past D idle
   const int qmin = swin > 0 ? slot_qmin<kThreads>(qpos + (int64_t)blockIdx.z * QR, QR) : 0;
   const Where w = where<QT>(limits[blockIdx.z], qmin, KH, QR, MP, page, splits, unit, sink,
                             swin);
@@ -437,7 +462,7 @@ paged_scalar_kernel(const float* __restrict__ q, const float* __restrict__ k_poo
       const float* vr = v_pool + offj;
       float vv[NC];
 #pragma unroll
-      for (int c = 0; c < NC; ++c) vv[c] = vr[lane + 32 * c];
+      for (int c = 0; c < NC; ++c) vv[c] = lane + 32 * c < D ? vr[lane + 32 * c] : 0.f;
       const float4* pj = reinterpret_cast<const float4*>(pw + j * QT);
 #pragma unroll
       for (int i = 0; i < QT / 4; ++i) {
@@ -459,7 +484,8 @@ paged_scalar_kernel(const float* __restrict__ q, const float* __restrict__ k_poo
       wl[warp * QT + r] = l[r];
     }
 #pragma unroll
-    for (int c = 0; c < NC; ++c) wacc[(warp * QT + r) * D + lane + 32 * c] = acc[r][c];
+    for (int c = 0; c < NC; ++c)
+      if (lane + 32 * c < D) wacc[(warp * QT + r) * D + lane + 32 * c] = acc[r][c];
   }
   __syncthreads();
   emit_tile<kWarps, QT, D, kThreads>(wm, wl, wacc, w.rows, 1.f, blockIdx.x, w.n_live,
@@ -840,6 +866,282 @@ paged_mma_kernel(const float* __restrict__ q, const T* __restrict__ k_pool,
                                     l_out + w.row0);
 }
 
+// ------------------------------------------------------------------------ //
+// The latent form: one kv head of 576 columns, K and V one pool
+// ------------------------------------------------------------------------ //
+
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t addr, uint32_t& r0, uint32_t& r1) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(addr));
+}
+
+constexpr int kLatentD = 576;
+constexpr int kLatentWarps = 8;
+constexpr int kLatentThreads = 32 * kLatentWarps;
+
+template <typename T>
+struct LatentTile {
+  static constexpr int D = kLatentD;
+  static constexpr bool kFp8 = sizeof(T) == 1;
+  static constexpr int QT = 16;                      // query rows a block
+  static constexpr int KPW = kKeyTile / kLatentWarps;  // keys a warp scores: 8
+  static constexpr int CPW = D / kLatentWarps;       // value columns a warp owns: 72
+  static constexpr int DTW = CPW / 8;                // its 8-column d-tiles: 9
+  static constexpr int kRowChunks = D * (int)sizeof(T) / 16;  // 16-byte chunks a stored row
+  static constexpr int kRawTile = kKeyTile * D * (int)sizeof(T);  // one tile as stored
+  static constexpr int kTile = kKeyTile * D * 2;     // one tile in bf16
+  static constexpr int kQ = QT * D * 2;              // q hi (and again q lo), bf16
+  static constexpr int kRing = kStages * kRawTile;   // one tile a stage: K is V
+  static constexpr int kCvt = kFp8 ? kTile : 0;      // the current tile, widened
+  static constexpr int kS = QT * kKeyTile * 4;       // a tile's scores, f32
+  static constexpr int kP = QT * kKeyTile * 2;       // p hi (and again p lo), bf16
+  static constexpr int kWalk = 2 * kQ + kRing + kCvt + kS + 2 * kP;
+  static constexpr int kStates = QT * (2 + D) * 4;   // emit's m, l, acc over the walk's space
+  static constexpr int kMain = kWalk > kStates ? kWalk : kStates;
+  // Then the rows' m, l and rescale factor, the query positions, the table slice.
+  static constexpr int kSmem = kMain + 4 * QT * 4 + kTableSlice * 4;
+  static_assert(CPW % 8 == 0 && KPW == 8, "a warp owns whole d-tiles and one n-tile");
+  static_assert(kRawTile % (16 * kLatentThreads) == 0, "every thread copies the same chunks");
+  static_assert(kMain % 16 == 0 && kSmem <= 227 * 1024, "shared memory");
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kLatentThreads)
+paged_latent_kernel(const float* __restrict__ q, const T* __restrict__ pool, const Table tb,
+                    const int* __restrict__ limits, const int* __restrict__ qpos,
+                    const float* __restrict__ kv_scale, float* __restrict__ acc_out,
+                    float* __restrict__ m_out, float* __restrict__ l_out,
+                    float* __restrict__ ws, int* __restrict__ counters, int QR, int page, int MP,
+                    int window, float softcap, int sink, int swin, int splits, int unit) {
+  using Tl = LatentTile<T>;
+  constexpr int D = Tl::D, QT = Tl::QT;
+  const int qmin =
+      swin > 0 ? slot_qmin<kLatentThreads>(qpos + (int64_t)blockIdx.z * QR, QR) : 0;
+  const Where w = where<QT>(limits[blockIdx.z], qmin, 1, QR, MP, page, splits, unit, sink, swin);
+  if ((int)blockIdx.x >= w.n_live) return;
+
+  extern __shared__ __align__(128) unsigned char smem_lat[];
+  const uint32_t qhi = smem_u32(smem_lat), qlo = qhi + Tl::kQ;  // [QT][D] swizzled
+  const uint32_t ring = qlo + Tl::kQ;      // stage s at ring + s kRawTile
+  const uint32_t cvt = ring + Tl::kRing;   // fp8: the current tile, widened
+  float* sS = reinterpret_cast<float*>(smem_lat + 2 * Tl::kQ + Tl::kRing + Tl::kCvt);  // [QT][64]
+  const uint32_t phi = smem_u32(sS) + Tl::kS, plo = phi + Tl::kP;  // [QT][64] swizzled
+  float* row_m = reinterpret_cast<float*>(smem_lat + Tl::kMain);  // [QT]
+  float* row_l = row_m + QT;                                       // [QT]
+  float* row_a = row_l + QT;                                       // [QT] this tile's rescale
+  int* qp = reinterpret_cast<int*>(row_a + QT);                    // [QT]
+  int* tab = qp + QT;  // page ids of the split's (virtual) columns
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const float ksc = Tl::kFp8 && kv_scale ? kv_scale[0] : 1.f;
+  const float vsc = Tl::kFp8 && kv_scale ? kv_scale[1] : 1.f;
+  const int n_tiles = (w.se - w.sb + kKeyTile - 1) / kKeyTile;
+  const int pbase = w.sb / page;
+
+  const int n_tab = n_tiles ? (w.se - 1) / page - pbase + 1 : 0;
+  for (int i = threadIdx.x; i < n_tab; i += kLatentThreads)
+    tab[i] = page_id(tb, w.b, w.real_col(pbase + i, page));
+  if (threadIdx.x < QT) {
+    qp[threadIdx.x] = threadIdx.x < w.rows ? qpos[(int64_t)w.b * QR + w.r0 + threadIdx.x] : 0;
+    row_m[threadIdx.x] = kNegInf;
+    row_l[threadIdx.x] = 0.f;
+  }
+  for (int i = threadIdx.x; i < QT * D / 4; i += kLatentThreads) {
+    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < w.rows) {
+      const float* qr = q + (w.row0 + r) * D + c;
+      x = make_float4(qr[0], qr[1], qr[2], qr[3]);
+    }
+    uint32_t h0, l0, h1, l1;
+    split_bf16x2(x.x * ksc, x.y * ksc, h0, l0);
+    split_bf16x2(x.z * ksc, x.w * ksc, h1, l1);
+    const uint32_t at = swz<D>(r, c / 8) + (c % 8) * 2;
+    asm volatile("st.shared.v2.u32 [%0], {%1, %2};\n" ::"r"(qhi + at), "r"(h0), "r"(h1));
+    asm volatile("st.shared.v2.u32 [%0], {%1, %2};\n" ::"r"(qlo + at), "r"(l0), "r"(l1));
+  }
+  __syncthreads();
+
+  auto load_tile = [&](int j) {
+    if (j < n_tiles) {
+      const uint32_t st = ring + (j % kStages) * Tl::kRawTile;
+      const int k0 = w.sb + j * kKeyTile;
+#pragma unroll
+      for (int u = 0; u < kKeyTile * Tl::kRowChunks / kLatentThreads; ++u) {
+        const int i = threadIdx.x + u * kLatentThreads;
+        const int r = i / Tl::kRowChunks, c = i % Tl::kRowChunks;
+        const int gr = k0 + r;
+        const bool ok = gr < w.se;
+        int64_t off = 0;
+        if (ok) off = ((int64_t)tab[gr / page - pbase] * page + gr % page) * D;
+        const uint32_t at = Tl::kFp8 ? (uint32_t)(r * Tl::kRowChunks + c) * 16 : swz<D>(r, c);
+        cp_async16(st + at, reinterpret_cast<const char*>(pool + off) + c * 16, ok);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int j = 0; j < kStages - 1; ++j) load_tile(j);
+
+  const int kw0 = warp * Tl::KPW;   // this warp's keys in a tile
+  const int dt0 = warp * Tl::DTW;   // this warp's first d-tile
+  float acc[Tl::DTW][4];
+#pragma unroll
+  for (int dt = 0; dt < Tl::DTW; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
+  // The softmax: 16 threads a row, 4 keys each.
+  const int srow = threadIdx.x >> 4, skey = (threadIdx.x & 15) * 4;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = w.sb + t * kKeyTile;
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    load_tile(t + kStages - 1);
+    uint32_t kt = ring + (t % kStages) * Tl::kRawTile;
+    if constexpr (Tl::kFp8) {
+      const unsigned char* raw = smem_lat + (kt - qhi);
+      for (int i = threadIdx.x; i < kKeyTile * Tl::kRowChunks; i += kLatentThreads) {
+        const int r = i / Tl::kRowChunks, c = i % Tl::kRowChunks;
+        const uint4 in = *reinterpret_cast<const uint4*>(raw + i * 16);
+        uint4 lo, hi;
+        widen16<Fp8Kind<T>::I>(in, lo, hi);
+        unsigned char* dst = smem_lat + (cvt - qhi);
+        *reinterpret_cast<uint4*>(dst + swz<D>(r, 2 * c)) = lo;
+        *reinterpret_cast<uint4*>(dst + swz<D>(r, 2 * c + 1)) = hi;
+      }
+      __syncthreads();
+      kt = cvt;
+    }
+
+    // S: this warp's 8 keys against the 16 rows, over all 576 columns.
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 6
+    for (int kd2 = 0; kd2 < D / 32; ++kd2) {  // two 16-column k-steps an ldmatrix of K
+      uint32_t bk[4];
+      ldsm_x4(kt + swz<D>(kw0 + (lane & 7), kd2 * 4 + (lane >> 3)), bk);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t ah[4], al[4];
+        const uint32_t qa =
+            swz<D>((lane & 7) + ((lane >> 3) & 1) * 8, (kd2 * 2 + h) * 2 + (lane >> 4));
+        ldsm_x4(qhi + qa, ah);
+        ldsm_x4(qlo + qa, al);
+        mma_bf16(s, ah, bk[2 * h], bk[2 * h + 1]);
+        mma_bf16(s, al, bk[2 * h], bk[2 * h + 1]);
+      }
+    }
+    const bool whole = k0 + kKeyTile <= w.se && window <= 0 && swin <= 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[e];
+      if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+      const int r = g + (e >> 1) * 8, kl = kw0 + 2 * tig + (e & 1);
+      if (!whole) {
+        const int key = k0 + kl;
+        const int gk = w.real(key);
+        const int dist = qp[r] - gk;
+        if (key >= w.se || (window > 0 && dist >= window) ||
+            (swin > 0 && gk >= sink && dist >= swin))
+          x = kNegInf;
+      }
+      sS[r * kKeyTile + kl] = x;
+    }
+    __syncthreads();
+
+    // Online softmax of the tile's 64 keys, row srow: p as bf16 hi + lo.
+    {
+      const float4 x4 = *reinterpret_cast<const float4*>(sS + srow * kKeyTile + skey);
+      const float xs[4] = {x4.x, x4.y, x4.z, x4.w};
+      float mx = fmaxf(fmaxf(xs[0], xs[1]), fmaxf(xs[2], xs[3]));
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_old = row_m[srow];
+      const float m_new = fmaxf(m_old, mx);
+      const float ml = m_new * kLog2e;
+      float p[4], sum = 0.f;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        p[u] = xs[u] == kNegInf ? 0.f : fast_exp2(fmaf(xs[u], kLog2e, -ml));
+        sum += p[u];
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      uint32_t h0, l0, h1, l1;
+      split_bf16x2(p[0], p[1], h0, l0);
+      split_bf16x2(p[2], p[3], h1, l1);
+      const uint32_t at = swz<kKeyTile>(srow, skey / 8) + (skey % 8) * 2;
+      asm volatile("st.shared.v2.u32 [%0], {%1, %2};\n" ::"r"(phi + at), "r"(h0), "r"(h1));
+      asm volatile("st.shared.v2.u32 [%0], {%1, %2};\n" ::"r"(plo + at), "r"(l0), "r"(l1));
+      __syncwarp();  // every lane of the row has read row_m
+      if ((threadIdx.x & 15) == 0) {
+        const float alpha = fast_exp2((m_old - m_new) * kLog2e);
+        row_m[srow] = m_new;
+        row_l[srow] = row_l[srow] * alpha + sum;
+        row_a[srow] = alpha;
+      }
+    }
+    __syncthreads();
+
+    // acc = acc * alpha + (p hi + p lo).V over this warp's 72 columns.
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float alpha = row_a[g + hh * 8];
+#pragma unroll
+      for (int dt = 0; dt < Tl::DTW; ++dt) {
+        acc[dt][2 * hh] *= alpha;
+        acc[dt][2 * hh + 1] *= alpha;
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < kKeyTile / 16; ++kk) {
+      uint32_t ph[4], pl[4];
+      const uint32_t pa = swz<kKeyTile>((lane & 7) + ((lane >> 3) & 1) * 8, kk * 2 + (lane >> 4));
+      ldsm_x4(phi + pa, ph);
+      ldsm_x4(plo + pa, pl);
+      const int vrow = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+      for (int dp = 0; dp < Tl::DTW / 2; ++dp) {
+        uint32_t bv[4];
+        ldsm_x4_trans(kt + swz<D>(vrow, dt0 + 2 * dp + (lane >> 4)), bv);
+        mma_bf16(acc[2 * dp], ph, bv[0], bv[1]);
+        mma_bf16(acc[2 * dp], pl, bv[0], bv[1]);
+        mma_bf16(acc[2 * dp + 1], ph, bv[2], bv[3]);
+        mma_bf16(acc[2 * dp + 1], pl, bv[2], bv[3]);
+      }
+      if constexpr (Tl::DTW % 2) {
+        uint32_t b0, b1;
+        ldsm_x2_trans(kt + swz<D>(vrow, dt0 + Tl::DTW - 1), b0, b1);
+        mma_bf16(acc[Tl::DTW - 1], ph, b0, b1);
+        mma_bf16(acc[Tl::DTW - 1], pl, b0, b1);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the walk's shared memory becomes emit's states
+
+  float* st_m = reinterpret_cast<float*>(smem_lat);
+  float* st_l = st_m + QT;
+  float* st_acc = st_l + QT;
+  if (threadIdx.x < QT) {
+    st_m[threadIdx.x] = row_m[threadIdx.x];
+    st_l[threadIdx.x] = row_l[threadIdx.x];
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+    for (int dt = 0; dt < Tl::DTW; ++dt)
+      *reinterpret_cast<float2*>(st_acc + (g + hh * 8) * D + (dt0 + dt) * 8 + 2 * tig) =
+          make_float2(acc[dt][2 * hh], acc[dt][2 * hh + 1]);
+  __syncthreads();
+  emit_tile<1, QT, D, kLatentThreads>(st_m, st_l, st_acc, w.rows, vsc, blockIdx.x, w.n_live,
+                                      ws + (int64_t)w.tile * splits * QT * (D + 2),
+                                      counters + w.tile, acc_out + w.row0 * D, m_out + w.row0,
+                                      l_out + w.row0);
+}
+
 struct Args {
   const void *q, *k_pool, *v_pool;
   Table table;
@@ -888,6 +1190,23 @@ int launch_mma(const Args& a) {
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_latent(const Args& a) {
+  using Tl = LatentTile<T>;
+  if (a.row_tile != Tl::QT || a.KH != 1 || a.k_pool != a.v_pool) return (int)cudaErrorInvalidValue;
+  auto kern = paged_latent_kernel<T>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::kSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid(a.splits, (a.QR + Tl::QT - 1) / Tl::QT, a.B);
+  kern<<<grid, kLatentThreads, Tl::kSmem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const T*>(a.k_pool), a.table, a.limits,
+      a.qpos, a.kv_scale, static_cast<float*>(a.acc), static_cast<float*>(a.m),
+      static_cast<float*>(a.l), static_cast<float*>(a.ws), static_cast<int*>(a.counters),
+      a.QR, a.page, a.MP, a.window, a.softcap, a.sink, a.swin, a.splits, a.unit);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int D>
 int launch_pool(const Args& a) {
   if (a.row_tile == 16) return launch_mma<T, D, 4>(a);
@@ -916,9 +1235,10 @@ int launch_dim(const Args& a, int dtype) {
 // table [B, MP] (stride MP) for a flat table; l0 [ntp, span] and table the
 // L1 directory [B, stride] with MP = stride * span for a hierarchical one.
 // window: the sliding window of this layer, 0 for none. softcap: 0 for
-// none. sink, swin: the sink + window skip, swin 0 for none. The plan
-// (ops/paged_flash.paged_plan):
-// row_tile 4 or 16 (f32 pools), 16 or 64 (bf16 / fp8); at most `splits`
+// none. sink, swin: the sink + window skip, swin 0 for none. D: 64 or 128,
+// or at KH = 1 the latent forms, 576 (bf16 / fp8, with v_pool == k_pool)
+// and 48 (f32). The plan (ops/paged_flash.paged_plan):
+// row_tile 4 or 16 (f32 pools), 16 or 64 (bf16 / fp8), 16 (latent); at most `splits`
 // (<= 64) splits a slot, each of whole `unit`s of rows (a multiple of 64),
 // a full slot's split within a 512-entry page-table slice; with splits > 1,
 // ws holds splits x row_tile x (D + 2) f32 for each (slot, head, row tile)
@@ -949,5 +1269,14 @@ extern "C" int paged_attention(const void* q, const void* k_pool, const void* v_
                static_cast<cudaStream_t>(stream)};
   if (D == 64) return launch_dim<64>(a, dtype);
   if (D == 128) return launch_dim<128>(a, dtype);
+  // The latent forms, one kv head: D 576 (bf16 / fp8, K and V one pool) and 48 (f32).
+  if (KH != 1) return (int)cudaErrorInvalidValue;
+  if (D == kLatentD && dtype == 1) return launch_latent<bf16>(a);
+  if (D == kLatentD && dtype == 2) return launch_latent<__nv_fp8_e4m3>(a);
+  if (D == kLatentD && dtype == 3) return launch_latent<__nv_fp8_e5m2>(a);
+  if (D == 48 && dtype == 0) {
+    if (row_tile == 4) return launch_scalar<48, 4>(a);
+    if (row_tile == 16) return launch_scalar<48, 16>(a);
+  }
   return (int)cudaErrorInvalidValue;
 }

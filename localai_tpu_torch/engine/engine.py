@@ -597,7 +597,7 @@ class Engine:
         self._kv_scales = None
         self._local_dtype = cache_dtype
         if ecfg.kv_scale != 1.0:
-            self._kv_scales = torch.full((2, cfg.num_kv_heads), float(ecfg.kv_scale),
+            self._kv_scales = torch.full((2, cfg.cache_kv_heads), float(ecfg.kv_scale),
                                          dtype=torch.float32, device=dev)
             self._local_dtype = model_dtype
         self.counts = torch.zeros((B, V), dtype=torch.int32, device=dev)
@@ -1943,9 +1943,9 @@ class Engine:
             ptable = (self._b_l1, self._b_l0) if self._hier else self._b_ptable
         elif win < S:
             read_cache = llama.KVCache(k=self.cache.k[:, :, :win], v=self.cache.v[:, :, :win])
-        shape = (cfg.num_layers, B, n, cfg.num_kv_heads, cfg.head_dim_)
-        local_k = torch.zeros(shape, dtype=self._local_dtype, device=dev)
-        local_v = torch.zeros(shape, dtype=self._local_dtype, device=dev)
+        shape = (cfg.num_layers, B, n, cfg.cache_kv_heads)
+        local_k = torch.zeros((*shape, cfg.cache_k_dim), dtype=self._local_dtype, device=dev)
+        local_v = torch.zeros((*shape, cfg.cache_v_dim), dtype=self._local_dtype, device=dev)
         tokens, positions = self.d_tokens, self.d_positions
         if self._paged:
             positions = torch.where(active, positions, 0)
@@ -2817,6 +2817,8 @@ class Engine:
     def _to_host(self, t: torch.Tensor) -> torch.Tensor:
         """A host copy of a device tensor, pinned on the card, copied on
         the engine's stream without waiting."""
+        if t.numel() == 0:  # MLA's zero-width V: nothing to pin or copy
+            return torch.empty(t.shape, dtype=t.dtype)
         host = torch.empty(t.shape, dtype=t.dtype, pin_memory=self.device.type == "cuda")
         host.copy_(t, non_blocking=True)
         return host
@@ -3416,9 +3418,10 @@ class Engine:
 
     def _prefix_span_bytes(self, rows: int) -> int:
         """Device bytes of `rows` K and V rows over every layer, in the
-        cache's storage dtype."""
-        k = self.cache.k
-        return 2 * k.shape[0] * rows * k.shape[-2] * k.shape[-1] * k.element_size()
+        cache's storage dtype (under MLA the latent K row alone: V is
+        zero-width)."""
+        k, v = self.cache.k, self.cache.v
+        return k.shape[0] * rows * k.shape[-2] * (k.shape[-1] + v.shape[-1]) * k.element_size()
 
     def _prefix_find(self, prompt_ids: list[int]) -> Optional[tuple[dict, int]]:
         """The longest common prefix with a stored span, as (entry,
@@ -4266,10 +4269,11 @@ class Engine:
                 "runtime LoRA adapters are not supported with a separate draft model — "
                 "the draft would decode without the delta; model-free speculation "
                 "(spec_mode=prompt_lookup/self_draft) serves adapter tenants")
-        if self.cfg.is_moe:
+        if self.cfg.is_mla or self.cfg.is_moe:
             raise AdapterError(
                 f"runtime LoRA adapters serve dense llama-family bases only ({self.cfg.name} "
-                "is MoE) — merge at load via `lora_adapters` instead")
+                f"is {'MLA' if self.cfg.is_mla else 'MoE'}) — merge at load via "
+                "`lora_adapters` instead")
         with self._adapter_lock:
             prev = self._adapter_registry.get(name)
             if prev is not None:

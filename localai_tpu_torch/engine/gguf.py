@@ -21,8 +21,9 @@ values already rounded to bf16 (round to nearest even, by a torch cast), so
 the device cast to bf16 is exact and an f32 arch sees the same values.
 
 Not ported yet: the DeepSeek (deepseek2) tree loader. Its metadata is read,
-and the load stops in `check_supported` (ROADMAP Queue A item 10, other
-decoder families).
+and `load_gguf_params` refuses the tree before any tensor is read (ROADMAP
+Queue A item 10, other decoder families: its one GGUF leftover). A DeepSeek
+model serves from an HF checkpoint (engine/weights.py).
 """
 
 from __future__ import annotations
@@ -518,8 +519,8 @@ def _arch_from_deepseek2_gguf(gf: GGUFFile, k):
     the reference serves these GGUFs via the llama.cpp backend). llama.cpp
     treats deepseek2 as a NORM-rope (pair-interleaved) arch with unpermuted
     HF-layout tensors, so rope_interleave=True routes the same column
-    de-interleave the HF loader applies. The port reads it; serving it
-    waits for ROADMAP Queue A item 10 (`check_supported` says so)."""
+    de-interleave the HF loader applies. The port reads it; loading its
+    tree waits for ROADMAP Queue A item 10 (`load_gguf_params` says so)."""
     n_heads = int(k("attention.head_count", 16))
     rope_dim = int(k("rope.dimension_count", 64))
     key_len = int(k("attention.key_length", 192))
@@ -746,9 +747,14 @@ def load_gguf_params(gf: GGUFFile, arch: ArchConfig) -> dict:
     for q4_0/q4_K/q8_0); embeddings/norms dequantize to bf16 values (float32
     numpy, see the module docstring); lm_head goes to per-channel int8 (the
     unembed path's form). All host-side numpy; `params_from_numpy` puts it
-    on the device. An arch the port does not serve yet raises first.
+    on the device. An arch the port does not serve yet raises first, and so
+    does a DeepSeek file, whose tree this loader does not build yet.
     """
     check_supported(arch)
+    if arch.is_mla or arch.moe_family == "deepseek":
+        raise NotImplementedError(
+            "the GGUF DeepSeek (deepseek2) tree loader is not ported yet (ROADMAP Queue A item "
+            "10, other decoder families); load the model's HF checkpoint instead")
     L = arch.num_layers
     layers: dict[str, Any] = {}
     # llama.cpp's convert script permutes q/k rows ONLY for the llama family

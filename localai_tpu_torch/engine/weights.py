@@ -32,8 +32,14 @@ weights by row blocks as they are read (`_FusedReader`), so a fused
 checkpoint loads, quantizes and merges adapters exactly like its unfused
 twin. GGUF files load through engine/gguf.py.
 
-Not ported yet: DeepSeek checkpoints and LoRA merged into experts (ROADMAP
-Queue A item 10, other decoder families).
+DeepSeek-V2/V3 checkpoints (`deepseek_v2` / `deepseek_v3` configs) load
+into the two-stack MLA / MoE tree (`_load_deepseek`): the rope columns
+de-interleaved (V2 always, V3 per `rope_interleave`), `kv_b_proj` split per
+head into w_kb / w_vb, the router's `e_score_correction_bias`, the shared
+experts and the dense-layer prefix.
+
+Not ported yet: LoRA merged into expert projections or into a DeepSeek
+tree (ROADMAP Queue A item 10, other decoder families).
 """
 
 from __future__ import annotations
@@ -101,23 +107,22 @@ def params_from_numpy(cfg: ArchConfig, tree: Params, device=None) -> Params:
     np.asarray accepts) → the port's tensor dict on `device`. Same names
     and layout; used to run both packages on the same weights. Float
     leaves go to cfg.dtype; a quantized weight keeps its int8 / uint8
-    payload and its f32 scales."""
+    payload and its f32 scales, and DeepSeek's `router_bias` stays f32. A
+    DeepSeek tree's two stacks ("dense_layers" beside "layers") cross as
+    they are."""
     check_supported(cfg)
-    if "dense_layers" in tree or "shared_gate" in tree.get("layers", {}):
-        raise NotImplementedError(
-            "deepseek-family trees (a dense-layer prefix, shared experts) are not ported yet "
-            "(ROADMAP Queue A item 10, other decoder families)")
     device = resolve_device(device)
     dt = torch_dtype(cfg.dtype)
 
-    def conv(x):
+    def conv(x, name=""):
         if is_quantized(x):
             return {k: _np_to_tensor(np.asarray(v)).to(device) for k, v in x.items()}
         if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
-        return _np_to_tensor(np.asarray(x)).to(device=device, dtype=dt)
+            return {k: conv(v, k) for k, v in x.items()}
+        t = _np_to_tensor(np.asarray(x)).to(device=device)
+        return t.float() if name == "router_bias" else t.to(dt)
 
-    return {k: conv(v) for k, v in tree.items()}
+    return {k: conv(v, k) for k, v in tree.items()}
 
 
 # --------------------------------------------------------------------------- #
@@ -316,10 +321,30 @@ def load_hf_checkpoint(cfg: ArchConfig, ckpt_dir: str, device=None,
             return quantize_tensor_np_g4(arr)
         return quantize_tensor_np(arr, axis)
 
-    def stack(our: str, suffix: str, transpose: bool, can_quant: bool = False,
-              experts: int = 0):
+    def fill(read, layers, can_quant: bool = False, out_dtype=None):
+        """The stack of read(i) over `layers`, allocated on the device
+        once and filled layer by layer: quantized (payloads int8 / uint8,
+        scales f32) when the load quantizes and the key may be, else in
+        out_dtype (cfg.dtype by default)."""
         quantized = do_quant and can_quant
 
+        def layer(i: int) -> dict[str, torch.Tensor]:
+            t = read(i)
+            if quantized:
+                return {k: _np_to_tensor(v) for k, v in quant(t).items()}
+            return {"w": t.to(out_dtype or dt)}
+
+        layers = list(layers)
+        first = layer(layers[0])
+        out = {k: torch.empty((len(layers), *v.shape), dtype=v.dtype, device=device)
+               for k, v in first.items()}
+        for j, i in enumerate(layers):
+            for k, v in (first if j == 0 else layer(i)).items():
+                out[k][j].copy_(v)
+        return out if quantized else out["w"]
+
+    def stack(our: str, suffix: str, transpose: bool, can_quant: bool = False,
+              experts: int = 0):
         def read(i: int) -> torch.Tensor:
             if experts:  # [E, in, out]: one tensor per expert in the checkpoint
                 t = torch.stack([grab(f"model.layers.{i}.{suffix.format(e=e)}", transpose)
@@ -328,19 +353,28 @@ def load_hf_checkpoint(cfg: ArchConfig, ckpt_dir: str, device=None,
                 t = grab(f"model.layers.{i}.{suffix}", transpose)
             return merge_lora(our, i, t)
 
-        def layer(i: int) -> dict[str, torch.Tensor]:
-            t = read(i)
-            if quantized:  # payloads stay int8 / uint8, scales f32
-                return {k: _np_to_tensor(v) for k, v in quant(t).items()}
-            return {"w": t.to(dt)}
+        return fill(read, range(cfg.num_layers), can_quant)
 
-        first = layer(0)
-        out = {k: torch.empty((cfg.num_layers, *v.shape), dtype=v.dtype, device=device)
-               for k, v in first.items()}
-        for i in range(cfg.num_layers):
-            for k, v in (first if i == 0 else layer(i)).items():
-                out[k][i].copy_(v)
-        return out if quantized else out["w"]
+    def put(name: str) -> torch.Tensor:
+        return grab(name, False).to(device=device, dtype=dt)
+
+    def head(params: Params) -> Params:
+        if not cfg.tie_embeddings:
+            if "lm_head.weight" in reader and do_quant:  # int8 over D: scales per vocab row
+                params["lm_head"] = {k: _np_to_tensor(v).to(device) for k, v in
+                                     quant(grab("lm_head.weight", False), axis=-1).items()}
+            elif "lm_head.weight" in reader:
+                params["lm_head"] = put("lm_head.weight")
+            else:  # some checkpoints tie without declaring it
+                params["lm_head"] = params["embed"]
+        return params
+
+    if cfg.is_mla:
+        if lora_deltas:
+            raise NotImplementedError(
+                "LoRA merged into a DeepSeek checkpoint is not ported yet (ROADMAP Queue A "
+                "item 10, other decoder families)")
+        return head(_load_deepseek(cfg, grab, fill, put))
 
     layer_map = dict(_LAYER_MAP)
     if cfg.post_norms:
@@ -363,22 +397,109 @@ def load_hf_checkpoint(cfg: ArchConfig, ckpt_dir: str, device=None,
             layers[our] = stack(our, *_MOE_LAYER_MAP[our], can_quant=True,
                                 experts=cfg.num_experts)
 
-    def put(name: str) -> torch.Tensor:
-        return grab(name, False).to(device=device, dtype=dt)
+    return head({
+        "embed": put("model.embed_tokens.weight"),
+        "layers": layers,
+        "final_norm": put("model.norm.weight"),
+    })
 
+
+def _deinterleave(t: torch.Tensor, rot: int, block: int) -> torch.Tensor:
+    """The rope columns of an [in, out] weight whose output axis is blocks
+    of `block` columns, the last `rot` of each rotary, moved from HF
+    deepseek's pair-interleaved order (2i, 2i+1) to the half-split order
+    the port's one rope implementation rotates (the JAX loader's
+    _deinterleave)."""
+    out = t.reshape(t.shape[0], -1, block).clone()
+    rope = out[..., block - rot:]
+    out[..., block - rot:] = torch.cat([rope[..., 0::2], rope[..., 1::2]], dim=-1)
+    return out.reshape(t.shape[0], -1)
+
+
+def _load_deepseek(cfg: ArchConfig, grab, fill, put) -> Params:
+    """A DeepSeek-V2/V3 checkpoint → the two-stack MLA / MoE tree (the JAX
+    loader's _load_deepseek). q through the optional lora bottleneck
+    (q_a / q_b) or q_proj; kv_a_proj_with_mqa gives the [kv_lora_rank |
+    k_pe] latent; kv_b_proj [H·(n+v), r] splits per head into w_kb / w_vb
+    (HF's [out, in] orientation, never quantized); mlp.gate (and its
+    e_score_correction_bias, kept f32) routes mlp.experts.{e}.*, with the
+    always-on mlp.shared_experts.*; the first first_k_dense layers carry a
+    plain mlp and go to params["dense_layers"]. Without the lm_head, which
+    the caller adds."""
+    H = cfg.num_heads
+    n, rot, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    r = cfg.kv_lora_rank
+    kd = cfg.first_k_dense if cfg.is_moe else 0
+    L = cfg.num_layers
+
+    def stack(suffix: str, lo: int, hi: int, transpose: bool, can_quant: bool = False,
+              rope_block: int = 0, experts: int = 0, out_dtype=None):
+        def read(i: int) -> torch.Tensor:
+            if experts:
+                return torch.stack([grab(f"model.layers.{i}.{suffix.format(e=e)}", transpose)
+                                    for e in range(experts)])
+            t = grab(f"model.layers.{i}.{suffix}", transpose)
+            if rope_block and cfg.rope_interleave:
+                t = _deinterleave(t, rot, rope_block)
+            return t
+
+        return fill(read, range(lo, hi), can_quant, out_dtype)
+
+    def kv_b(lo: int, hi: int, part: slice) -> torch.Tensor:
+        def read(i: int) -> torch.Tensor:
+            kb = grab(f"model.layers.{i}.self_attn.kv_b_proj.weight", False)
+            return kb.reshape(H, n + vd, r)[:, part]
+
+        return fill(read, range(lo, hi))
+
+    def attn_stack(lo: int, hi: int) -> Params:
+        out: Params = {
+            "attn_norm": stack("input_layernorm.weight", lo, hi, False),
+            "mlp_norm": stack("post_attention_layernorm.weight", lo, hi, False),
+        }
+        if cfg.q_lora_rank:
+            out["wq_a"] = stack("self_attn.q_a_proj.weight", lo, hi, True, True)
+            out["q_norm_a"] = stack("self_attn.q_a_layernorm.weight", lo, hi, False)
+            out["wq_b"] = stack("self_attn.q_b_proj.weight", lo, hi, True, True,
+                                rope_block=n + rot)
+        else:
+            out["wq"] = stack("self_attn.q_proj.weight", lo, hi, True, True, rope_block=n + rot)
+        # wkv_a's output is one pseudo-head of r + rot columns, the last rot rotary.
+        out["wkv_a"] = stack("self_attn.kv_a_proj_with_mqa.weight", lo, hi, True, True,
+                             rope_block=r + rot)
+        out["kv_norm"] = stack("self_attn.kv_a_layernorm.weight", lo, hi, False)
+        out["w_kb"] = kv_b(lo, hi, slice(0, n))
+        out["w_vb"] = kv_b(lo, hi, slice(n, n + vd))
+        out["wo"] = stack("self_attn.o_proj.weight", lo, hi, True, True)
+        return out
+
+    mlp = (("w_gate", "gate_proj"), ("w_up", "up_proj"), ("w_down", "down_proj"))
+    layers = attn_stack(kd, L)
+    if cfg.is_moe:
+        layers["router"] = stack("mlp.gate.weight", kd, L, True)
+        if cfg.router_bias:
+            layers["router_bias"] = stack("mlp.gate.e_score_correction_bias", kd, L, False,
+                                          out_dtype=torch.float32)
+        for our, suffix in mlp:
+            layers[our] = stack(f"mlp.experts.{{e}}.{suffix}.weight", kd, L, True, True,
+                                experts=cfg.num_experts)
+        if cfg.n_shared_experts:
+            for our, suffix in mlp:
+                layers[f"shared_{our[2:]}"] = stack(f"mlp.shared_experts.{suffix}.weight",
+                                                    kd, L, True, True)
+    else:
+        for our, suffix in mlp:
+            layers[our] = stack(f"mlp.{suffix}.weight", 0, L, True, True)
     params: Params = {
         "embed": put("model.embed_tokens.weight"),
         "layers": layers,
         "final_norm": put("model.norm.weight"),
     }
-    if not cfg.tie_embeddings:
-        if "lm_head.weight" in reader and do_quant:  # int8 over D: scales per vocab row
-            params["lm_head"] = {k: _np_to_tensor(v).to(device) for k, v in
-                                 quant(grab("lm_head.weight", False), axis=-1).items()}
-        elif "lm_head.weight" in reader:
-            params["lm_head"] = put("lm_head.weight")
-        else:  # some checkpoints tie without declaring it
-            params["lm_head"] = params["embed"]
+    if kd:
+        dense = attn_stack(0, kd)
+        for our, suffix in mlp:
+            dense[our] = stack(f"mlp.{suffix}.weight", 0, kd, True, True)
+        params["dense_layers"] = dense
     return params
 
 
@@ -391,10 +512,6 @@ def arch_from_hf_config(ckpt_dir: str) -> ArchConfig:
     if isinstance(hf.get("text_config"), dict):
         hf = {**hf, **hf["text_config"]}  # multimodal wrappers nest the decoder
     model_type = hf.get("model_type", "llama")
-    if model_type in ("deepseek_v2", "deepseek_v3"):
-        raise NotImplementedError(
-            "DeepSeek (MLA) configs are not ported yet (ROADMAP Queue A item 10, "
-            "other decoder families)")
     rope_scaling = hf.get("rope_scaling") or {}
     scaling_type = rope_scaling.get("rope_type") or rope_scaling.get("type")
     if scaling_type == "su":
@@ -433,6 +550,9 @@ def arch_from_hf_config(ckpt_dir: str) -> ArchConfig:
             )
     act = hf.get("hidden_activation") or hf.get("hidden_act") or "silu"
     softcaps = gemma2 or gemma3
+    if model_type in ("deepseek_v2", "deepseek_v3"):
+        return _deepseek_arch(hf, model_type, rope_scaling, scaling_type, orig_pos, max_position,
+                              attn_factor)
     return ArchConfig(
         name=hf.get("_name_or_path", model_type) or model_type,
         vocab_size=hf["vocab_size"],
@@ -471,6 +591,70 @@ def arch_from_hf_config(ckpt_dir: str) -> ArchConfig:
         sliding_pattern=sliding_pattern,
         num_experts=hf.get("num_local_experts", 0),
         num_experts_per_token=hf.get("num_experts_per_tok", 2),
+    )
+
+
+def _deepseek_arch(hf: dict, model_type: str, rope_scaling: dict, scaling_type, orig_pos: int,
+                   max_position: int, attn_factor) -> ArchConfig:
+    """The deepseek_v2 / deepseek_v3 branch of `arch_from_hf_config` (the
+    JAX package's). Under yarn the cos / sin attention factor (mscale over
+    mscale_all_dim) and DeepseekV3Attention's extra softmax-scale term
+    yarn_get_mscale(factor, mscale_all_dim)² collapse to
+    yarn_get_mscale(factor, mscale), which rope_query_amp squares."""
+    v3 = model_type == "deepseek_v3"
+    if scaling_type == "yarn":
+        factor = float(rope_scaling.get("factor", 1.0))
+
+        def _gm(m):
+            return 0.1 * m * math.log(factor) + 1.0 if factor > 1 else 1.0
+
+        af = rope_scaling.get("attention_factor")
+        msad = rope_scaling.get("mscale_all_dim")
+        if af is not None:
+            attn_factor = float(af) * (_gm(float(msad)) if msad else 1.0)
+        elif rope_scaling.get("mscale") is not None and msad:
+            attn_factor = _gm(float(rope_scaling["mscale"]))
+        else:
+            attn_factor = None  # rope_query_amp's default 0.1·ln(factor) + 1
+    return ArchConfig(
+        name=hf.get("_name_or_path", model_type) or model_type,
+        vocab_size=hf["vocab_size"],
+        hidden_size=hf["hidden_size"],
+        intermediate_size=hf["intermediate_size"],
+        num_layers=hf["num_hidden_layers"],
+        num_heads=hf["num_attention_heads"],
+        num_kv_heads=hf.get("num_key_value_heads", hf["num_attention_heads"]),
+        head_dim=hf.get("qk_rope_head_dim", 64),
+        rope_theta=hf.get("rope_theta", 10000.0),
+        rope_scaling=scaling_type,
+        rope_scaling_factor=rope_scaling.get("factor", 1.0),
+        rope_original_max_position=orig_pos,
+        rope_beta_fast=float(rope_scaling.get("beta_fast", 32.0)),
+        rope_beta_slow=float(rope_scaling.get("beta_slow", 1.0)),
+        rope_attn_factor=float(attn_factor) if attn_factor is not None else None,
+        max_position=max_position,
+        rms_eps=hf.get("rms_norm_eps", 1e-6),
+        tie_embeddings=hf.get("tie_word_embeddings", False),
+        num_experts=hf.get("n_routed_experts") or 0,
+        num_experts_per_token=hf.get("num_experts_per_tok") or 2,
+        moe_family="deepseek",
+        first_k_dense=(hf.get("first_k_dense_replace", 0) if hf.get("n_routed_experts") else 0),
+        n_shared_experts=hf.get("n_shared_experts") or 0,
+        moe_intermediate_size=hf.get("moe_intermediate_size"),
+        routed_scaling_factor=hf.get("routed_scaling_factor", 1.0),
+        scoring_func="sigmoid" if v3 else hf.get("scoring_func", "softmax"),
+        router_bias=v3,
+        norm_topk_prob=bool(hf.get("norm_topk_prob", False)),
+        n_group=hf.get("n_group") or 1,
+        topk_group=hf.get("topk_group") or 1,
+        kv_lora_rank=hf["kv_lora_rank"],
+        q_lora_rank=hf.get("q_lora_rank"),
+        qk_nope_head_dim=hf.get("qk_nope_head_dim", 128),
+        qk_rope_head_dim=hf.get("qk_rope_head_dim", 64),
+        v_head_dim=hf.get("v_head_dim", 128),
+        # V2 applies complex (pair-interleaved) rope unconditionally; V3
+        # checkpoints carry the flag (default true).
+        rope_interleave=True if not v3 else bool(hf.get("rope_interleave", True)),
     )
 
 

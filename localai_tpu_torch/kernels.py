@@ -175,14 +175,15 @@ def live_workspaces() -> list:
 
 def _counters() -> tuple:
     """(holder, attribute) of every host-side launch counter on the decode
-    path: the kernel wrappers' launches (B3's expert form counts apart, and
-    B3's 2-D launches also by weight form) and
+    path: the kernel wrappers' launches (B2's latent form and B3's expert
+    form count apart, and B3's 2-D launches also by weight form) and
     the dequantize-then-matmul routes' calls."""
     from localai_tpu_torch.models import quant
     from localai_tpu_torch.ops import flash, lora_matmul, paged_flash, quant_matmul
 
     return ((flash.flash_prefill_attention, "launches"),
             (paged_flash.paged_partials_rows, "launches"),
+            (paged_flash.paged_partials_rows, "latent_launches"),
             (quant_matmul.qmm, "launches"),
             (quant_matmul.qmm, "launches_q"),
             (quant_matmul.qmm, "launches_gq"),

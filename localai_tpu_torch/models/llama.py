@@ -39,17 +39,29 @@ sparse-MoE MLP) in PyTorch (localai_tpu/models/llama.py).
 - GQA, RoPE (every scaling family), RMSNorm, SwiGLU / GeGLU, optional qkv
   bias (Qwen2) and the gemma flags (softcaps, sandwich norms, q/k norms,
   sliding windows) chosen from ArchConfig.
-- Mixture-of-experts MLP, mixtral family (top-k of the router's logits,
-  softmaxed; expert stacks [L, E, in, out] beside a router [L, D, E]):
-  quantized experts take `_moe_dense` (every expert on every row, B3's
-  expert form at decode), plain ones `_moe_ragged` (each row through its
-  own top-k experts), as in the JAX package.
+- Mixture-of-experts MLP (expert stacks [L, E, in, out] beside a router
+  [L, D, E]): mixtral's router (top-k of the logits, softmaxed) or
+  DeepSeek-V2/V3's (softmax or sigmoid scores, a selection bias,
+  group-limited top-k, `routed_scaling_factor`), with DeepSeek's
+  always-on shared experts. Quantized experts take `_moe_dense` (every
+  expert on every row, B3's expert form at decode), plain ones
+  `_moe_ragged` (each row through its own top-k experts), as in the JAX
+  package.
+- DeepSeek's dense-layer prefix: the first `first_k_dense` layers live in
+  params["dense_layers"] (plain MLP), the MoE layers in params["layers"];
+  `_layer` hands layer li its slice of the right stack.
+- Multi-head latent attention (DeepSeek-V2/V3, cfg.is_mla): the cache
+  holds ONE latent row a token, [RMSNorm(c_kv) | RoPE(k_pe)] of width
+  kv_lora_rank + qk_rope_head_dim, as a single kv head whose V is
+  zero-width. Prefill runs full-rank MHA on the dense path; decode,
+  verify, chunks and tails score the absorbed query against the latent
+  rows, which serve as both K and V (B2's latent form on the paged pool),
+  and W_vb lifts the result back to per-head values.
 
-Not ported yet, and rejected with NotImplementedError: the deepseek MoE
-family (its router, shared experts, a dense-layer prefix) and MLA layers
-(ROADMAP Queue A item 10, other decoder families), expert-parallel
-capacity dispatch, sequence-parallel ring attention and tp meshes (item
-14, multi-GPU), and m-rope (item 13, satellite engines and models).
+Not ported yet, and rejected with NotImplementedError: expert-parallel
+capacity dispatch, sequence-parallel ring attention and tp meshes (ROADMAP
+Queue A item 14, multi-GPU), and m-rope (item 13, satellite engines and
+models).
 
 Sink + window attention (`cfg.attention_sink` / `cfg.attention_window`,
 which the engine sets from its EngineConfig) masks decode and the
@@ -63,6 +75,7 @@ JAX package returns new arrays): that saves a full copy of each per call.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, NamedTuple
 
 import torch
@@ -81,7 +94,11 @@ from localai_tpu_torch.ops.attention import (
     prefill_attention,
 )
 from localai_tpu_torch.ops.norm import rms_norm
-from localai_tpu_torch.ops.quant_matmul import MOE_PER_EXPERT, MOE_SHARED
+from localai_tpu_torch.ops.quant_matmul import (
+    MOE_PER_EXPERT,
+    MOE_SHARED,
+    QUANT_KERNEL_MAX_ROWS,
+)
 from localai_tpu_torch.ops.rope import (
     apply_rope,
     rope_frequencies,
@@ -94,16 +111,8 @@ Params = dict[str, Any]
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise for the architecture features this port does not serve yet."""
-    if cfg.is_moe and (cfg.moe_family != "mixtral" or cfg.n_shared_experts
-                       or cfg.first_k_dense):
-        raise NotImplementedError(
-            "only mixtral-family mixture-of-experts layers are ported: the deepseek "
-            "family (its router, shared experts, a dense-layer prefix) is not yet "
-            "(ROADMAP Queue A item 10, other decoder families)")
-    if cfg.is_mla:
-        raise NotImplementedError(
-            "multi-head latent attention is not ported yet (ROADMAP Queue A item 10, "
-            "other decoder families)")
+    if cfg.is_moe and cfg.moe_family not in ("mixtral", "deepseek"):
+        raise ValueError(f"unknown mixture-of-experts family {cfg.moe_family!r}")
     if cfg.mrope_section:
         raise NotImplementedError(
             "m-rope (Qwen2-VL) is not ported yet (ROADMAP Queue A item 13, satellite "
@@ -142,7 +151,9 @@ def kv_cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 class KVCache(NamedTuple):
     """Slot KV cache: k, v [L, B_slots, S_max, K_heads, head_dim], or a
-    page pool [L, P, page, K_heads, head_dim] (`paged_cache_zeros`)."""
+    page pool [L, P, page, K_heads, head_dim] (`paged_cache_zeros`). Under
+    MLA k holds the latent rows [..., 1, kv_lora_rank + rope] and v is
+    zero-width: the cfg's cache_kv_heads / cache_k_dim / cache_v_dim."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -152,23 +163,40 @@ class KVCache(NamedTuple):
               device=None) -> "KVCache":
         dtype = torch_dtype(cfg.dtype) if dtype is None else dtype
         device = resolve_device(device)
-        shape = (cfg.num_layers, num_slots, max_seq, cfg.num_kv_heads, cfg.head_dim_)
-        return KVCache(
-            k=torch.zeros(shape, dtype=dtype, device=device),
-            v=torch.zeros(shape, dtype=dtype, device=device),
-        )
+        return _cache_zeros(cfg, (cfg.num_layers, num_slots, max_seq), dtype, device)
 
 
-def param_specs(cfg: ArchConfig) -> dict:
-    """The parameter tree's leaves as (shape, "normal" | "ones" | "zeros"),
-    {"layers": {name: ...}} for the stacked layer tensors, in the order
-    init_params draws them: the JAX package's tree structure."""
-    check_supported(cfg)
-    L, D, F_ = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
+def _cache_zeros(cfg: ArchConfig, lead: tuple, dtype, device) -> KVCache:
+    base = (*lead, cfg.cache_kv_heads)
+    return KVCache(k=torch.zeros((*base, cfg.cache_k_dim), dtype=dtype, device=device),
+                   v=torch.zeros((*base, cfg.cache_v_dim), dtype=dtype, device=device))
+
+
+def _attn_specs(cfg: ArchConfig, L: int) -> dict:
+    """Attention and norm leaves of a stack of L layers, standard or MLA
+    (the JAX package's _init_attn_layers)."""
+    D = cfg.hidden_size
     H, K, Hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
-    layers = {"attn_norm": ((L, D), "ones"), "mlp_norm": ((L, D), "ones"),
-              "wq": ((L, D, H * Hd), "normal"), "wk": ((L, D, K * Hd), "normal"),
-              "wv": ((L, D, K * Hd), "normal"), "wo": ((L, H * Hd, D), "normal")}
+    layers = {"attn_norm": ((L, D), "ones"), "mlp_norm": ((L, D), "ones")}
+    if cfg.is_mla:
+        r, rot = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+        n, vd = cfg.qk_nope_head_dim, cfg.v_head_dim
+        if cfg.q_lora_rank:
+            layers["wq_a"] = ((L, D, cfg.q_lora_rank), "normal")
+            layers["q_norm_a"] = ((L, cfg.q_lora_rank), "ones")
+            layers["wq_b"] = ((L, cfg.q_lora_rank, H * (n + rot)), "normal")
+        else:
+            layers["wq"] = ((L, D, H * (n + rot)), "normal")
+        layers["wkv_a"] = ((L, D, r + rot), "normal")
+        layers["kv_norm"] = ((L, r), "ones")
+        # HF kv_b_proj [H·(n+v), r] split per head, in HF's [out, in]
+        # orientation: the absorbed einsums contract the shared r axis.
+        layers["w_kb"] = ((L, H, n, r), "normal")
+        layers["w_vb"] = ((L, H, vd, r), "normal")
+        layers["wo"] = ((L, H * vd, D), "normal")
+        return layers
+    layers.update({"wq": ((L, D, H * Hd), "normal"), "wk": ((L, D, K * Hd), "normal"),
+                   "wv": ((L, D, K * Hd), "normal"), "wo": ((L, H * Hd, D), "normal")})
     if cfg.post_norms:
         layers["post_attn_norm"] = layers["post_ffw_norm"] = ((L, D), "ones")
     if cfg.qk_norm:
@@ -176,19 +204,50 @@ def param_specs(cfg: ArchConfig) -> dict:
     if cfg.attn_qkv_bias:
         layers["bq"] = ((L, H * Hd), "zeros")
         layers["bk"] = layers["bv"] = ((L, K * Hd), "zeros")
-    if cfg.is_moe:  # mixtral: expert stacks [L, E, in, out] beside the router
+    return layers
+
+
+def _dense_mlp_specs(cfg: ArchConfig, L: int) -> dict:
+    D, F_ = cfg.hidden_size, cfg.intermediate_size
+    return {"w_gate": ((L, D, F_), "normal"), "w_up": ((L, D, F_), "normal"),
+            "w_down": ((L, F_, D), "normal")}
+
+
+def param_specs(cfg: ArchConfig) -> dict:
+    """The parameter tree's leaves as (shape, "normal" | "ones" | "zeros"
+    | "zeros_f32"), {"layers": {name: ...}} for the stacked layer tensors
+    and, for a DeepSeek dense-layer prefix, {"dense_layers": {...}}: the
+    JAX package's tree structure."""
+    check_supported(cfg)
+    L, D = cfg.num_layers, cfg.hidden_size
+    kd = cfg.first_k_dense if cfg.is_moe else 0
+    Lm = L - kd
+    layers = _attn_specs(cfg, Lm)
+    if cfg.is_moe:  # expert stacks [L, E, in, out] beside the router
         E, Fm = cfg.num_experts, cfg.moe_inter_size
-        layers["router"] = ((L, D, E), "normal")
-        layers["w_gate"] = layers["w_up"] = ((L, E, D, Fm), "normal")
-        layers["w_down"] = ((L, E, Fm, D), "normal")
+        layers["router"] = ((Lm, D, E), "normal")
+        if cfg.router_bias:
+            layers["router_bias"] = ((Lm, E), "zeros_f32")
+        layers["w_gate"] = layers["w_up"] = ((Lm, E, D, Fm), "normal")
+        layers["w_down"] = ((Lm, E, Fm, D), "normal")
+        if cfg.n_shared_experts:
+            Fs = cfg.n_shared_experts * Fm
+            layers["shared_gate"] = layers["shared_up"] = ((Lm, D, Fs), "normal")
+            layers["shared_down"] = ((Lm, Fs, D), "normal")
     else:
-        layers["w_gate"] = layers["w_up"] = ((L, D, F_), "normal")
-        layers["w_down"] = ((L, F_, D), "normal")
+        layers.update(_dense_mlp_specs(cfg, L))
     specs = {"embed": ((cfg.vocab_size, D), "normal"), "layers": layers,
              "final_norm": ((D,), "ones")}
+    if kd:
+        specs["dense_layers"] = {**_attn_specs(cfg, kd), **_dense_mlp_specs(cfg, kd)}
     if not cfg.tie_embeddings:
         specs["lm_head"] = ((cfg.vocab_size, D), "normal")
     return specs
+
+
+_STACKS = ("layers", "dense_layers")
+# Leaves of more elements than this (4 GiB of f32) are drawn layer by layer.
+_WHOLE_DRAW = 1 << 30
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, scale: float = 0.02,
@@ -205,20 +264,44 @@ def init_params(cfg: ArchConfig, seed: int = 0, scale: float = 0.02,
             return torch.ones(shape, dtype=dt, device=device)
         if kind == "zeros":
             return torch.zeros(shape, dtype=dt, device=device)
-        w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-        return (w * scale).to(dt)
+        if kind == "zeros_f32":  # the router's selection bias stays f32
+            return torch.zeros(shape, dtype=torch.float32, device=device)
+        if math.prod(shape) <= _WHOLE_DRAW:
+            w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+            return (w * scale).to(dt)
+        # A large stack is drawn one layer at a time: the f32 draw of a
+        # whole expert stack would double the peak (19 GB for
+        # deepseek-v2-lite's w_gate beside its 31 GB of weights).
+        out = torch.empty(shape, dtype=dt, device=device)
+        for li in range(shape[0]):
+            w = torch.randn(shape[1:], generator=gen, dtype=torch.float32, device=device)
+            out[li] = (w * scale).to(dt)
+        return out
 
+    # The layer stack is drawn first, then the other leaves in spec order.
     specs = param_specs(cfg)
-    layers = {name: leaf(*spec) for name, spec in specs.pop("layers").items()}
-    params = {name: leaf(*spec) for name, spec in specs.items()}
+    layers = {k: leaf(*v) for k, v in specs.pop("layers").items()}
+    params = {name: ({k: leaf(*v) for k, v in spec.items()} if name in _STACKS
+                     else leaf(*spec))
+              for name, spec in specs.items()}
     return {"embed": params.pop("embed"), "layers": layers, **params}
+
+
+def _n_dense(params: Params) -> int:
+    """Layers in the tree's dense-layer prefix (0 without one)."""
+    dense = params.get("dense_layers")
+    return 0 if dense is None else dense["attn_norm"].shape[0]
 
 
 def _layer(params: Params, li: int) -> Params:
     """Layer li's slice of every stacked tensor, quantized dicts leaf by
-    leaf ({"q": [L, in, out], "s": [L, 1, out]} → layer li's views)."""
-    return {name: ({k: v[li] for k, v in t.items()} if isinstance(t, dict) else t[li])
-            for name, t in params["layers"].items()}
+    leaf ({"q": [L, in, out], "s": [L, 1, out]} → layer li's views). With a
+    dense-layer prefix, layers [0, first_k_dense) read params["dense_layers"]
+    and the rest params["layers"], shifted down by the prefix."""
+    kd = _n_dense(params)
+    stack, i = (params["dense_layers"], li) if li < kd else (params["layers"], li - kd)
+    return {name: ({k: v[i] for k, v in t.items()} if isinstance(t, dict) else t[i])
+            for name, t in stack.items()}
 
 
 def _layer_sliding(cfg: ArchConfig, li: int) -> bool | None:
@@ -329,20 +412,60 @@ def _attn_out(cfg: ArchConfig, lp: Params, attn_flat: torch.Tensor,
     return a
 
 
+def _top_idx(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest of x along its last axis, largest first;
+    ties go to the lower index, as jax.lax.top_k breaks them: a stable
+    descending sort, whose order is the same on the CPU and the card, eager
+    and in a graph (torch.topk's is unspecified)."""
+    return torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
+
+
 def _moe_route(cfg: ArchConfig, lp: Params, x: torch.Tensor):
-    """Mixtral's router: the top-k of the logits x @ router (in x's dtype,
-    then f32), softmaxed over the k. Returns (weights [..., k] f32, sel
-    [..., k] int64). Ties go to the lower expert id, as jax.lax.top_k
-    breaks them: a stable descending sort, whose order is the same on the
-    CPU and the card, eager and in a graph (torch.topk's is unspecified)."""
-    if cfg.moe_family != "mixtral":
-        raise NotImplementedError(
-            f"the {cfg.moe_family} router is not ported yet: it goes with MLA (ROADMAP "
-            "Queue A item 10, other decoder families)")
+    """Top-k router: (weights [..., k] f32, sel [..., k] int64). Mixtral's
+    is the top-k of the logits x @ router (in x's dtype, then f32),
+    softmaxed over the k; the deepseek family takes `_deepseek_route`."""
+    if cfg.moe_family == "deepseek":
+        return _deepseek_route(cfg, lp, x)
     logits = (x @ lp["router"]).float()  # [..., E]
-    sel = torch.sort(logits, dim=-1, descending=True, stable=True).indices
-    sel = sel[..., :cfg.num_experts_per_token]
+    sel = _top_idx(logits, cfg.num_experts_per_token)
     return torch.softmax(torch.gather(logits, -1, sel), dim=-1), sel
+
+
+def _deepseek_route(cfg: ArchConfig, lp: Params, x: torch.Tensor):
+    """DeepSeek-V2/V3's router (HF DeepseekV2MoEGate / DeepseekV3TopkRouter):
+    every expert scored in f32, softmax (V2) or sigmoid (V3); the selection
+    adds the learned `router_bias` but the weights are the unbiased scores;
+    with n_group > 1 only the topk_group best groups compete (V2 scores a
+    group by its max, V3 by the sum of its top 2). The weights come back
+    renormalized when norm_topk_prob, and scaled by routed_scaling_factor:
+    the softmax route's normalization replaces the scaling, the sigmoid
+    route does both. Ties go to the lower id, in the groups and the
+    experts alike."""
+    E, k = cfg.num_experts, cfg.num_experts_per_token
+    logits = x.float() @ lp["router"].float()  # [..., E]
+    sigmoid = cfg.scoring_func == "sigmoid"
+    scores = torch.sigmoid(logits) if sigmoid else torch.softmax(logits, dim=-1)
+    choice = scores + lp["router_bias"].float() if "router_bias" in lp else scores
+    if cfg.n_group > 1:
+        g = cfg.n_group
+        cg = choice.reshape(*choice.shape[:-1], g, E // g)
+        if sigmoid:  # V3: a group's score is the sum of its top-2 biased scores
+            top2 = torch.sort(cg, dim=-1, descending=True, stable=True).values
+            gscore = top2[..., 0] + top2[..., 1]
+        else:  # V2's group-limited greedy: the group's max
+            gscore = cg.amax(dim=-1)
+        gidx = _top_idx(gscore, cfg.topk_group)  # [..., topk_group]
+        keep = torch.zeros_like(gscore, dtype=torch.bool).scatter_(-1, gidx, True)
+        choice = torch.where(keep.repeat_interleave(E // g, dim=-1), choice, 0.0)
+    sel = _top_idx(choice, k)
+    weights = torch.gather(scores, -1, sel)
+    if cfg.norm_topk_prob and k > 1:
+        weights = weights / (weights.sum(dim=-1, keepdim=True) + 1e-20)
+        if sigmoid:
+            weights = weights * cfg.routed_scaling_factor
+    else:
+        weights = weights * cfg.routed_scaling_factor
+    return weights, sel
 
 
 def _moe_dense(cfg: ArchConfig, lp: Params, x: torch.Tensor) -> torch.Tensor:
@@ -364,41 +487,87 @@ def _expert_rows(xs: torch.Tensor, w: torch.Tensor, eid: torch.Tensor) -> torch.
     """Row m of xs [M, in] times its own expert's w[eid[m]] (w [E, in, out])
     → [M, out]: lax.ragged_dot's function in fixed shapes, every expert's
     product of the rows and then each row's own, so nothing reads a group
-    size back to the host and a decode block can be captured as a graph."""
-    every = torch.einsum("mi,eio->emo", xs, w)  # [E, M, out]
+    size back to the host and a decode block can be captured as a graph.
+    One batched matmul over the experts with the rows broadcast: an einsum
+    of this signature folds E into the output columns and copies the whole
+    stack into that layout first (three times the weight bytes a call)."""
+    every = torch.bmm(xs.unsqueeze(0).expand(w.shape[0], -1, -1), w)  # [E, M, out]
     return every[eid, torch.arange(xs.shape[0], device=xs.device)]
 
 
-def _moe_ragged(cfg: ArchConfig, lp: Params, x: torch.Tensor) -> torch.Tensor:
+def _sorted_expert_rows(xg: torch.Tensor, lp: Params, cfg: ArchConfig,
+                        eid: torch.Tensor) -> torch.Tensor:
+    """The expert SwiGLU of each pair row xg[m] through expert eid[m],
+    computing only each pair's own expert: the pairs are stably sorted by
+    expert, each expert's contiguous group goes through its weights (one
+    matmul a projection, lax.ragged_dot's function), and the outputs come
+    back in pair order. The group sizes are read back to the host, so
+    this serves eager calls only (admissions and chunks)."""
+    order = torch.argsort(eid, stable=True)
+    counts = torch.bincount(eid, minlength=cfg.num_experts).tolist()
+    xs = xg[order]
+    outs, lo = [], 0
+    for e, c in enumerate(counts):
+        if c:
+            seg = xs[lo:lo + c]
+            gu = _act(cfg, seg @ lp["w_gate"][e]) * (seg @ lp["w_up"][e])
+            outs.append(gu.to(xs.dtype) @ lp["w_down"][e])
+            lo += c
+    dn = torch.empty((xg.shape[0], lp["w_down"].shape[-1]), dtype=xg.dtype, device=xg.device)
+    dn[order] = torch.cat(outs)
+    return dn
+
+
+# Above this many rows an eager `_moe_ragged` computes only each pair's
+# own expert (the sorted route); at or below it, every expert's product of
+# the rows. The threshold is B3's (ops/quant_matmul.QUANT_KERNEL_MAX_ROWS).
+MOE_SORTED_MIN_ROWS = QUANT_KERNEL_MAX_ROWS
+
+
+def _moe_ragged(cfg: ArchConfig, lp: Params, x: torch.Tensor, eager: bool = False) -> torch.Tensor:
     """Exact top-k MoE for plain expert weights (the JAX package's
     sort + lax.ragged_dot route): each (row, choice) pair runs its expert's
     SwiGLU, and a row adds its k outputs times their routing weights in
-    f32, in choice order. The pairs stay in row-major order (no sort: the
-    fixed-shape `_expert_rows` needs no expert-contiguous groups), so the
-    sum over k is the same on the CPU and the card."""
+    f32, in choice order. The pairs go through `_expert_rows` (fixed
+    shapes, no host read, so decode blocks and verify rounds of any row
+    count can be captured as graphs). `eager` is the caller's word that it
+    runs outside a graph (admissions and prefill chunks): above
+    MOE_SORTED_MIN_ROWS rows such a call takes `_sorted_expert_rows`,
+    E / k times less work (10.7x at 64 experts, top 6). Both give each
+    pair the same row product, so the sum over k is the same on either
+    route."""
     k = cfg.num_experts_per_token
     lead, D = x.shape[:-1], x.shape[-1]
     xf = x.reshape(-1, D)
     weights, sel = _moe_route(cfg, lp, xf)  # [N, k]
     xg = xf.repeat_interleave(k, dim=0)  # [N·k, D]: row n's choices side by side
     eid = sel.reshape(-1)
-    gate = _act(cfg, _expert_rows(xg, lp["w_gate"], eid))
-    up = _expert_rows(xg, lp["w_up"], eid)
-    dn = _expert_rows((gate * up).to(xg.dtype), lp["w_down"], eid)  # [N·k, D]
+    if eager and xf.shape[0] > MOE_SORTED_MIN_ROWS:
+        dn = _sorted_expert_rows(xg, lp, cfg, eid)
+    else:
+        gate = _act(cfg, _expert_rows(xg, lp["w_gate"], eid))
+        up = _expert_rows(xg, lp["w_up"], eid)
+        dn = _expert_rows((gate * up).to(xg.dtype), lp["w_down"], eid)  # [N·k, D]
     y = (dn.float() * weights.reshape(-1, 1)).reshape(-1, k, D).sum(dim=1)
     return y.reshape(*lead, D).to(x.dtype)
 
 
-def _mlp(cfg: ArchConfig, lp: Params, x: torch.Tensor, lora=None) -> torch.Tensor:
+def _mlp(cfg: ArchConfig, lp: Params, x: torch.Tensor, lora=None,
+         eager: bool = False) -> torch.Tensor:
     """SwiGLU / GeGLU MLP, dense or mixture-of-experts ("router" in the
-    layer): quantized expert stacks take the all-experts `_moe_dense`, plain
-    ones the exact top-k `_moe_ragged`, as the JAX package picks. Runtime
-    LoRA serves dense layers only (the engine refuses adapters on an MoE
-    base)."""
+    layer, so a DeepSeek dense-prefix layer takes the plain branch):
+    quantized expert stacks take the all-experts `_moe_dense`, plain ones
+    the exact top-k `_moe_ragged`, as the JAX package picks; DeepSeek's
+    MoE layers add the always-on shared-expert MLP. Runtime LoRA serves
+    dense layers only (the engine refuses adapters on an MoE base).
+    `eager`: the caller runs outside a CUDA graph (see `_moe_ragged`)."""
     if "router" in lp:
-        if isinstance(lp["w_gate"], dict):
-            return _moe_dense(cfg, lp, x)
-        return _moe_ragged(cfg, lp, x)
+        y = (_moe_dense(cfg, lp, x) if isinstance(lp["w_gate"], dict)
+             else _moe_ragged(cfg, lp, x, eager))
+        if "shared_gate" in lp:
+            sg = _act(cfg, matmul(x, lp["shared_gate"]))
+            y = y + matmul(sg * matmul(x, lp["shared_up"]), lp["shared_down"]).to(x.dtype)
+        return y
     gate, up = _lora_add(lora, ("w_gate", "w_up"), x,
                          [matmul(x, lp["w_gate"]), matmul(x, lp["w_up"])])
     gu = _act(cfg, gate) * up
@@ -406,24 +575,142 @@ def _mlp(cfg: ArchConfig, lp: Params, x: torch.Tensor, lora=None) -> torch.Tenso
     return down.to(x.dtype)
 
 
-def _mlp_out(cfg: ArchConfig, lp: Params, x: torch.Tensor, lora=None) -> torch.Tensor:
+def _mlp_out(cfg: ArchConfig, lp: Params, x: torch.Tensor, lora=None,
+             eager: bool = False) -> torch.Tensor:
     """MLP + optional gemma-2 post-feedforward sandwich norm."""
-    m = _mlp(cfg, lp, x, lora)
+    m = _mlp(cfg, lp, x, lora, eager)
     if cfg.post_norms:
         m = rms_norm(m, lp["post_ffw_norm"], cfg.rms_eps)
     return m
 
 
+# --------------------------------------------------------------------------- #
+# Multi-head latent attention (DeepSeek-V2/V3; the JAX package's MLA helpers)
+#
+# Prefill runs full-rank: per-head k = [W_kb·c_kv | rope(k_pe)] and
+# v = W_vb·c_kv. Every other entry point runs the absorbed identity
+# q·k = [W_kbᵀ q_nope | q_pe]·[c_kv | k_pe]: attention is MQA against the
+# cached latent rows, which also serve as the value operand (the output's
+# first kv_lora_rank dims are probs·c_kv, which W_vb lifts back to per-head
+# values). One latent row a token is all the cache holds.
+# --------------------------------------------------------------------------- #
+
+
+def _mla_q(cfg: ArchConfig, lp: Params, x: torch.Tensor) -> torch.Tensor:
+    """Query projection [..., H, qk_head_dim] (nope | rope, before the
+    rope), through the q-lora bottleneck (V3) or direct (V2-Lite)."""
+    if cfg.q_lora_rank:
+        ql = rms_norm(matmul(x, lp["wq_a"]), lp["q_norm_a"], cfg.rms_eps)
+        q = matmul(ql, lp["wq_b"])
+    else:
+        q = matmul(x, lp["wq"])
+    return q.reshape(*x.shape[:-1], cfg.num_heads, cfg.qk_head_dim)
+
+
+def _mla_rows(cfg: ArchConfig, lp: Params, x: torch.Tensor, positions: torch.Tensor,
+              inv: torch.Tensor) -> torch.Tensor:
+    """Latent cache rows [B, T, 1, r+rot] = [RMSNorm(c_kv) | RoPE(k_pe)] of
+    x [B, T, D] at positions [B, T]: all that MLA writes to the cache."""
+    r = cfg.kv_lora_rank
+    ckv = matmul(x, lp["wkv_a"])  # [B, T, r+rot]
+    c = rms_norm(ckv[..., :r], lp["kv_norm"], cfg.rms_eps)
+    k_pe = apply_rope(ckv[..., None, r:], positions, inv)  # [B, T, 1, rot]
+    return torch.cat([c[..., None, :], k_pe], dim=-1)
+
+
+def _mla_full_qkv(cfg: ArchConfig, lp: Params, x: torch.Tensor, positions: torch.Tensor,
+                  inv: torch.Tensor):
+    """Full-rank projections for prefill: x [B, T, D] → (q, k [B, T, H, Dq],
+    v [B, T, H, Dq] zero-padded from v_head_dim, rows [B, T, 1, r+rot]).
+    The attention op keeps q's head width, so v rides zero-padded and the
+    caller slices [..., :v_head_dim]."""
+    H = cfg.num_heads
+    n, rot, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    r = cfg.kv_lora_rank
+    q = _mla_q(cfg, lp, x)
+    q = torch.cat([q[..., :n], apply_rope(q[..., n:], positions, inv)], dim=-1)
+    amp = rope_query_amp(cfg)
+    if amp != 1.0:
+        q = q * float(amp)
+    rows = _mla_rows(cfg, lp, x, positions, inv)
+    c, k_pe = rows[..., 0, :r], rows[..., :, r:]  # [B, T, r], [B, T, 1, rot]
+    k_nope = torch.einsum("btr,hnr->bthn", c, lp["w_kb"]).to(x.dtype)
+    k = torch.cat([k_nope, k_pe.expand(*k_pe.shape[:2], H, rot).to(x.dtype)], dim=-1)
+    v = torch.einsum("btr,hvr->bthv", c, lp["w_vb"]).to(x.dtype)
+    v = F.pad(v, (0, cfg.qk_head_dim - vd))
+    return q, k, v, rows
+
+
+def _mla_absorbed_q(cfg: ArchConfig, lp: Params, x: torch.Tensor, positions: torch.Tensor,
+                    inv: torch.Tensor) -> torch.Tensor:
+    """Absorbed query [B, T, H, r+rot] that scores the latent rows directly.
+    The attention ops scale by the operand width (r+rot), so the ratio
+    sqrt((r+rot)/qk_head_dim) is folded in here, with the rope scaling's
+    amplitude, to give the true 1/sqrt(qk_head_dim) softmax scale."""
+    n = cfg.qk_nope_head_dim
+    q = _mla_q(cfg, lp, x)
+    q_pe = apply_rope(q[..., n:], positions, inv)
+    q_lat = torch.einsum("bthn,hnr->bthr", q[..., :n], lp["w_kb"]).to(x.dtype)
+    q_eff = torch.cat([q_lat, q_pe.to(x.dtype)], dim=-1)
+    scale = ((cfg.kv_lora_rank + cfg.qk_rope_head_dim) / cfg.qk_head_dim) ** 0.5
+    # The factor is rounded to x's dtype first, as the JAX package's is.
+    return q_eff * torch.tensor(scale * rope_query_amp(cfg), dtype=x.dtype).item()
+
+
+def _mla_unlatent(cfg: ArchConfig, lp: Params, attn: torch.Tensor) -> torch.Tensor:
+    """Absorbed attention output [..., H, r+rot] → per-head values
+    [..., H·v_head_dim] through W_vb (the deferred value up-projection)."""
+    lat = attn[..., :cfg.kv_lora_rank]
+    out = torch.einsum("...hr,hvr->...hv", lat, lp["w_vb"].to(lat.dtype))
+    return out.reshape(*attn.shape[:-2], -1)
+
+
+def _mla_step_rows(cfg: ArchConfig, lp: Params, x: torch.Tensor, positions: torch.Tensor,
+                   inv: torch.Tensor):
+    """One token a slot (x [B, D], positions [B]): the absorbed query
+    [B, H, r+rot] and the latent row [B, 1, r+rot]."""
+    x1, p1 = x[:, None], positions[:, None]
+    return (_mla_absorbed_q(cfg, lp, x1, p1, inv)[:, 0],
+            _mla_rows(cfg, lp, x1, p1, inv)[:, 0])
+
+
+def _mla_latent_attention(q_eff: torch.Tensor, prefix: torch.Tensor, pvalid: torch.Tensor,
+                          rows: torch.Tensor, wmask: torch.Tensor) -> torch.Tensor:
+    """Absorbed attention of q_eff [B, T, H, De] over dense latent prefix
+    rows [B, P, 1, De] (valid where pvalid [B, 1|T, P]) and the window's own
+    rows [B, T, 1, De] (causal mask wmask, broadcastable to [B, 1, T, T]),
+    one softmax over both, in f32 (the JAX package's XLA numerics).
+    Returns [B, T, H, De] f32."""
+    De = q_eff.shape[-1]
+    qf = q_eff.float() / De ** 0.5
+    kcf = prefix[..., 0, :].float()  # [B, P, De]
+    rf = rows[..., 0, :].float()  # [B, T, De]
+    sc = torch.einsum("bthd,bsd->bhts", qf, kcf)
+    sc = torch.where(pvalid[:, None], sc, -1e30)
+    sw = torch.einsum("bthd,bud->bhtu", qf, rf)
+    sw = torch.where(wmask, sw, -1e30)
+    P = kcf.shape[1]
+    probs = torch.softmax(torch.cat([sc, sw], dim=-1), dim=-1)
+    return (torch.einsum("bhts,bsd->bthd", probs[..., :P], kcf)
+            + torch.einsum("bhtu,bud->bthd", probs[..., P:], rf))
+
+
 def _check_params(cfg: ArchConfig, params: Params) -> None:
-    if "dense_layers" in params or "shared_gate" in params["layers"]:
-        raise NotImplementedError(
-            "deepseek-family trees (a dense-layer prefix, shared experts) are not ported yet "
-            "(ROADMAP Queue A item 10, other decoder families)")
     if ("router" in params["layers"]) != cfg.is_moe:
         raise ValueError(f"{cfg.name}: the tree's layers "
                          f"{'have' if 'router' in params['layers'] else 'lack'} a router, the "
                          f"config has {cfg.num_experts} experts")
-    for name, t in [*params["layers"].items(), ("lm_head", params.get("lm_head"))]:
+    kd = cfg.first_k_dense if cfg.is_moe else 0
+    if _n_dense(params) != kd:
+        raise ValueError(f"{cfg.name}: the tree has {_n_dense(params)} dense-prefix layers, "
+                         f"the config {kd}")
+    if ("wkv_a" in params["layers"]) != cfg.is_mla:
+        raise ValueError(f"{cfg.name}: the tree's attention is "
+                         f"{'MLA' if 'wkv_a' in params['layers'] else 'per-head'}, the "
+                         f"config's kv_lora_rank is {cfg.kv_lora_rank}")
+    leaves = [*params["layers"].items(), *params.get("dense_layers", {}).items(),
+              ("lm_head", params.get("lm_head"))]
+    for name, t in leaves:
         if isinstance(t, dict) and not is_quantized(t):
             raise ValueError(f"{name}: a dict leaf must be a quantized weight, got keys "
                              f"{sorted(t)}")
@@ -438,7 +725,11 @@ def _forward_hidden(
     lora=None,  # (stacked adapter factors, ids [B]): per-row runtime LoRA
 ):
     """Shared full-sequence forward. Returns (h [B,S,D] after the final
-    norm, length_mask [B,S], (ks, vs) [L,B,S,K,Hd] or None)."""
+    norm, length_mask [B,S], (ks, vs) [L,B,S,K,Hd] or None). Under MLA the
+    attention is full-rank MHA on the dense path (no `lengths`, so no flash
+    kernel: B1 takes head widths 64 / 128 and MLA's qk width is 192, as
+    the JAX package's Pallas kernel tiles 128 lanes), and the K/V rows are
+    the latents (rows, rows[..., :0])."""
     check_supported(cfg)
     _check_params(cfg, params)
     B, S = tokens.shape
@@ -456,17 +747,22 @@ def _forward_hidden(
         llora = _layer_lora(lora, li)
         x = rms_norm(h, lp["attn_norm"], cfg.rms_eps)
         inv = _layer_inv_freq(cfg, inv_freq, inv_local, li)
-        q, k, v = _attn_proj_qkv(cfg, lp, x, llora)
-        q = apply_rope(q, positions, inv)
-        k = apply_rope(k, positions, inv)
-        attn = prefill_attention(
-            q, k, v, length_mask, lengths,
-            softcap=cfg.attn_softcap, window=cfg.sliding_window,
-            sliding=_layer_sliding(cfg, li),
-        )
+        if cfg.is_mla:
+            q, k, v, rows = _mla_full_qkv(cfg, lp, x, positions, inv)
+            attn = prefill_attention(q, k, v, length_mask)[..., :cfg.v_head_dim]
+            k, v = rows, rows[..., :0]
+        else:
+            q, k, v = _attn_proj_qkv(cfg, lp, x, llora)
+            q = apply_rope(q, positions, inv)
+            k = apply_rope(k, positions, inv)
+            attn = prefill_attention(
+                q, k, v, length_mask, lengths,
+                softcap=cfg.attn_softcap, window=cfg.sliding_window,
+                sliding=_layer_sliding(cfg, li),
+            )
         h = h + _attn_out(cfg, lp, attn.reshape(B, S, -1), llora)
         x = rms_norm(h, lp["mlp_norm"], cfg.rms_eps)
-        h = h + _mlp_out(cfg, lp, x, llora)
+        h = h + _mlp_out(cfg, lp, x, llora, eager=True)
         if collect_kv:
             ks.append(k)
             vs.append(v)
@@ -530,6 +826,19 @@ def prefill_tail(
         sliding = _layer_sliding(cfg, li)
         x = rms_norm(h, lp["attn_norm"], cfg.rms_eps)
         inv = _layer_inv_freq(cfg, inv_freq, inv_local, li)
+        if cfg.is_mla:
+            # The absorbed identity holds for the tail's own tokens too, so
+            # both segments score in latent space.
+            q_eff = _mla_absorbed_q(cfg, lp, x, positions, inv)  # [B, T, H, De]
+            rows = _mla_rows(cfg, lp, x, positions, inv)  # [B, T, 1, De]
+            wm = causal[None, None] & length_mask[:, None, None, :]
+            attn = _mla_latent_attention(q_eff, prefix_k[li], pvalid[:, None], rows, wm)
+            h = h + _attn_out(cfg, lp, _mla_unlatent(cfg, lp, attn.to(h.dtype)))
+            x = rms_norm(h, lp["mlp_norm"], cfg.rms_eps)
+            h = h + _mlp_out(cfg, lp, x, eager=True)
+            new_k.append(rows)
+            new_v.append(rows[..., :0])
+            continue
         q, k, v = _attn_proj_qkv(cfg, lp, x)  # q [B,T,H,Hd], k/v [B,T,K,Hd]
         q = apply_rope(q, positions, inv)
         k = apply_rope(k, positions, inv)
@@ -556,7 +865,7 @@ def prefill_tail(
                 + torch.einsum("bkgtu,bukd->btkgd", probs[..., P:], v.float()))
         h = h + _attn_out(cfg, lp, attn.reshape(B, T, -1).to(h.dtype))
         x = rms_norm(h, lp["mlp_norm"], cfg.rms_eps)
-        h = h + _mlp_out(cfg, lp, x)
+        h = h + _mlp_out(cfg, lp, x, eager=True)
         new_k.append(k)
         new_v.append(v)
     h = rms_norm(h, params["final_norm"], cfg.rms_eps)
@@ -601,6 +910,23 @@ def decode_step_windowed(
         llora = _layer_lora(lora, li)
         x = rms_norm(h, lp["attn_norm"], cfg.rms_eps)
         inv = _layer_inv_freq(cfg, inv_freq, inv_local, li)
+        if cfg.is_mla:
+            # The latent rides as both K and V (the JAX package's MLA
+            # branch: no softcap, sliding window or sink + window).
+            q_eff, rows = _mla_step_rows(cfg, lp, x, positions, inv)
+            lk = local_k[li]
+            if ptable is not None:
+                attn = decode_attention_windowed_paged(
+                    q_eff, cache.k[li], cache.k[li], ptable, lk, lk, rows, rows, positions,
+                    step, kv_scale=kv_scale)
+            else:
+                attn = decode_attention_windowed(q_eff, cache.k[li], cache.k[li], lk, lk,
+                                                 rows, rows, positions, step)
+            h = h + _attn_out(cfg, lp, _mla_unlatent(cfg, lp, attn))
+            x = rms_norm(h, lp["mlp_norm"], cfg.rms_eps)
+            h = h + _mlp_out(cfg, lp, x)
+            local_k[li, :, step] = kv_cast(rows, local_k.dtype)
+            continue
         q, k, v = _attn_proj_qkv(cfg, lp, x, llora)  # q [B,H,Hd], k/v [B,K,Hd]
         q = apply_rope(q[:, None], positions[:, None], inv)[:, 0]
         k = apply_rope(k[:, None], positions[:, None], inv)[:, 0]
@@ -654,22 +980,28 @@ def decode_step(
     rows = torch.arange(B, device=dev)
     pos = positions.to(torch.int64)
     h = _embed(cfg, params, tokens)  # [B, D]
-    empty = cache.k.new_zeros((B, 0, cfg.num_kv_heads, cfg.head_dim_))
+    empty = cache.k.new_zeros((B, 0, *cache.k.shape[3:]))
     for li in range(cfg.num_layers):
         lp = _layer(params, li)
         x = rms_norm(h, lp["attn_norm"], cfg.rms_eps)
         inv = _layer_inv_freq(cfg, inv_freq, inv_local, li)
-        q, k, v = _attn_proj_qkv(cfg, lp, x)  # q [B,H,Hd], k/v [B,K,Hd]
-        q = apply_rope(q[:, None], pos[:, None], inv)[:, 0]
-        k = apply_rope(k[:, None], pos[:, None], inv)[:, 0]
         kc, vc = cache.k[li], cache.v[li]
         if read_rows:
             kc, vc = kc[:, :read_rows], vc[:, :read_rows]
-        attn = decode_attention_windowed(
-            q, kc, vc, empty, empty, k, v, pos, 0,
-            softcap=cfg.attn_softcap, window=cfg.sliding_window,
-            sliding=_layer_sliding(cfg, li),
-        )
+        if cfg.is_mla:  # the latent as both K and V
+            q, k = _mla_step_rows(cfg, lp, x, pos, inv)
+            v = k[..., :0]
+            attn = decode_attention_windowed(q, kc, kc, empty, empty, k, k, pos, 0)
+            attn = _mla_unlatent(cfg, lp, attn)
+        else:
+            q, k, v = _attn_proj_qkv(cfg, lp, x)  # q [B,H,Hd], k/v [B,K,Hd]
+            q = apply_rope(q[:, None], pos[:, None], inv)[:, 0]
+            k = apply_rope(k[:, None], pos[:, None], inv)[:, 0]
+            attn = decode_attention_windowed(
+                q, kc, vc, empty, empty, k, v, pos, 0,
+                softcap=cfg.attn_softcap, window=cfg.sliding_window,
+                sliding=_layer_sliding(cfg, li),
+            )
         h = h + _attn_out(cfg, lp, attn.reshape(B, -1))
         x = rms_norm(h, lp["mlp_norm"], cfg.rms_eps)
         h = h + _mlp_out(cfg, lp, x)
@@ -742,6 +1074,30 @@ def decode_chunk(
         sliding = _layer_sliding(cfg, li)
         x = rms_norm(h, lp["attn_norm"], cfg.rms_eps)
         inv = _layer_inv_freq(cfg, inv_freq, inv_local, li)
+        if cfg.is_mla:
+            # The absorbed verify window: q_eff scores the latent prefix and
+            # the window's fresh latent rows, and the values come back out
+            # of the same latents.
+            xb = x.reshape(B, T, -1)
+            q_eff = _mla_absorbed_q(cfg, lp, xb, positions, inv)  # [B, T, H, De]
+            rows = _mla_rows(cfg, lp, xb, positions, inv)  # [B, T, 1, De]
+            if ptable is not None:
+                acc, m, l = paged_prefill_partials(
+                    q_eff, cache.k[li], cache.k[li], ptable, positions[:, 0],
+                    q_pos=positions, kv_scale=kv_scale)
+                attn = _merge_partials_mq(q_eff, acc, m, l, rows, rows,
+                                          causal[None].expand(B, T, T))
+            else:
+                kc = cache.k[li][:, :read_rows] if read_rows else cache.k[li]
+                prefix = torch.arange(kc.shape[1], device=dev)[None, None, :] < positions[:, :1, None]
+                attn = _mla_latent_attention(q_eff, kc, prefix, rows,
+                                             causal[None, None]).to(h.dtype)
+            h = h + _attn_out(cfg, lp, _mla_unlatent(cfg, lp, attn).reshape(B * T, -1))
+            x = rms_norm(h, lp["mlp_norm"], cfg.rms_eps)
+            h = h + _mlp_out(cfg, lp, x)
+            new_k.append(rows)
+            new_v.append(rows[..., :0])
+            continue
         q, k, v = _attn_proj_qkv(cfg, lp, x, llora)
         q = apply_rope(q.reshape(B, T, H, Hd), positions, inv)
         k = apply_rope(k.reshape(B, T, -1, Hd), positions, inv)
@@ -863,11 +1219,7 @@ def paged_cache_zeros(cfg: ArchConfig, num_pages: int, page_size: int, dtype=Non
     unassigned table entry points."""
     dtype = torch_dtype(cfg.dtype) if dtype is None else dtype
     device = resolve_device(device)
-    shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads, cfg.head_dim_)
-    return KVCache(
-        k=torch.zeros(shape, dtype=dtype, device=device),
-        v=torch.zeros(shape, dtype=dtype, device=device),
-    )
+    return _cache_zeros(cfg, (cfg.num_layers, num_pages, page_size), dtype, device)
 
 
 def _pool_store(rows: torch.Tensor, pool_dtype, scale_row) -> torch.Tensor:
@@ -1019,10 +1371,25 @@ def prefill_chunk_paged(
         sliding = _layer_sliding(cfg, li)
         x = rms_norm(h, lp["attn_norm"], cfg.rms_eps)
         inv = _layer_inv_freq(cfg, inv_freq, inv_local, li)
+        wmask = causal[None] & length_mask[:, None, :]  # [B, T, T]
+        if cfg.is_mla:
+            # The absorbed chunk: q_eff scores the latent prefix pages (B2's
+            # latent form) and the chunk's fresh latent rows.
+            q_eff = _mla_absorbed_q(cfg, lp, x, positions, inv)  # [B, T, H, De]
+            rows = _mla_rows(cfg, lp, x, positions, inv)  # [B, T, 1, De]
+            acc, m, l = paged_prefill_partials(
+                q_eff, pool.k[li], pool.k[li], table, offsets, q_pos=positions,
+                kv_scale=kv_scale)
+            attn = _merge_partials_mq(q_eff, acc, m, l, rows, rows, wmask)
+            h = h + _attn_out(cfg, lp, _mla_unlatent(cfg, lp, attn))
+            x = rms_norm(h, lp["mlp_norm"], cfg.rms_eps)
+            h = h + _mlp_out(cfg, lp, x, eager=True)
+            new_k.append(rows)
+            new_v.append(rows[..., :0])
+            continue
         q, k, v = _attn_proj_qkv(cfg, lp, x)  # q [B,T,H,Hd], k/v [B,T,K,Hd]
         q = apply_rope(q, positions, inv)
         k = apply_rope(k, positions, inv)
-        wmask = causal[None] & length_mask[:, None, :]  # [B, T, T]
         if cfg.sliding_window and sliding:
             wmask = wmask & (win_dist[None] < cfg.sliding_window)
         acc, m, l = paged_prefill_partials(
@@ -1034,7 +1401,7 @@ def prefill_chunk_paged(
         attn = _merge_partials_mq(q, acc, m, l, k, v, wmask, softcap=cfg.attn_softcap)
         h = h + _attn_out(cfg, lp, attn.reshape(B, T, -1).to(h.dtype))
         x = rms_norm(h, lp["mlp_norm"], cfg.rms_eps)
-        h = h + _mlp_out(cfg, lp, x)
+        h = h + _mlp_out(cfg, lp, x, eager=True)
         new_k.append(k)
         new_v.append(v)
     write_chunk_to_pool(pool, table, torch.stack(new_k), torch.stack(new_v), positions,

@@ -44,8 +44,14 @@ from localai_tpu_torch.ops import quant_matmul
 Params = dict[str, Any]
 
 # Dense matmul weights that are quantized; embeddings stay in the model
-# dtype (gather path).
-QUANT_LAYER_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+# dtype (gather path). MLA's latent up-projections w_kb / w_vb stay
+# unquantized (einsum paths, small beside the experts), as in the JAX
+# package.
+QUANT_LAYER_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+                    "wq_a", "wq_b", "wkv_a",
+                    "shared_gate", "shared_up", "shared_down")
+# The stacked-layer subtrees: DeepSeek trees add the dense-layer prefix.
+STACKS = ("layers", "dense_layers")
 
 GROUP_SIZE = 32  # GGUF q4_0 / q8_0 blocks
 
@@ -198,8 +204,8 @@ def quantize_tensor_np_g4(arr, group: int = GROUP_SIZE) -> dict:
 
 
 def is_prequantized(params: Params) -> bool:
-    layers = params.get("layers") or {}
-    return any(isinstance(layers.get(k), dict) for k in QUANT_LAYER_KEYS)
+    return any(isinstance((params.get(stack) or {}).get(k), dict)
+               for stack in STACKS for k in QUANT_LAYER_KEYS)
 
 
 def dequantize_tensor(w) -> torch.Tensor:
@@ -224,22 +230,26 @@ def _quantizer(mode: str):
 
 
 def quantize_params(cfg, params: Params, mode: str = "int8") -> Params:
-    """Quantize a llama-family param tree's matmul weights where they lie.
-    Each stacked weight is quantized one layer at a time (the reductions
-    never cross layers or experts, so the result equals a whole-stack pass)
-    to bound the f32 temporaries; an expert stack [L, E, in, out] gives
-    s [L, E, 1, out] and gq / g4 [L, E, G, ...]."""
+    """Quantize a llama-family param tree's matmul weights where they lie,
+    in both stacks of a DeepSeek tree. Each stacked weight is quantized one
+    layer at a time (the reductions never cross layers or experts, so the
+    result equals a whole-stack pass) to bound the f32 temporaries; an
+    expert stack [L, E, in, out] gives s [L, E, 1, out] and gq / g4
+    [L, E, G, ...]."""
     if mode in ("", "none", None):
         return params
     qfn = _quantizer(mode)
     out = dict(params)
-    layers = dict(params["layers"])
-    for key in QUANT_LAYER_KEYS:
-        if key in layers:
-            parts = [qfn(w) for w in layers[key]]
-            layers[key] = {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
-            del parts
-    out["layers"] = layers
+    for stack in STACKS:
+        if stack not in params:
+            continue
+        layers = dict(params[stack])
+        for key in QUANT_LAYER_KEYS:
+            if key in layers:
+                parts = [qfn(w) for w in layers[key]]
+                layers[key] = {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
+                del parts
+        out[stack] = layers
     if "lm_head" in params and not cfg.tie_embeddings:
         # lm_head [V, D] is used transposed (h @ W.T): quantize over D so
         # the scale lands on the vocab axis.
@@ -274,6 +284,8 @@ def init_params_quantized(cfg, seed: int = 0, scale: float = 0.02, mode: str = "
             return torch.ones(shape, dtype=dt, device=device)
         if kind == "zeros":
             return torch.zeros(shape, dtype=dt, device=device)
+        if kind == "zeros_f32":
+            return torch.zeros(shape, dtype=torch.float32, device=device)
         if name == "lm_head" and not cfg.tie_embeddings:
             return _int8_over(normal(shape), -1)  # q [V, D], s [V, 1]
         if name not in QUANT_LAYER_KEYS:
@@ -290,7 +302,7 @@ def init_params_quantized(cfg, seed: int = 0, scale: float = 0.02, mode: str = "
 
     specs = param_specs(cfg)
     return {name: ({k: leaf(k, shape, kind) for k, (shape, kind) in spec.items()}
-                   if name == "layers" else leaf(name, *spec))
+                   if name in STACKS else leaf(name, *spec))
             for name, spec in specs.items()}
 
 

@@ -46,6 +46,15 @@ when a call needs more and never allocated per call. The port issues
 every call in order on one stream, which is what makes one workspace per
 device safe.
 
+The latent form (multi-head latent attention, models/llama.py's MLA
+branches): one kv head (K = 1) whose rows are the latents, D =
+kv_lora_rank + rope, and the same pool passed as K and V. The kernel takes
+it at D = 576 (deepseek-v2-lite, deepseek-r1) for bf16 and fp8 pools, its
+own `paged_latent_kernel` reading each key tile once for both products,
+and at D = 48 (tiny-mla) for f32 pools, on the scalar kernel
+(`LATENT_FORMS`, K = 1 only). At D = 576 the CUDA wrapper requires v_pool
+to be k_pool. The plain version takes any D.
+
 The kernel walks each slot's visited rows as one virtual row space
 [0, n_v): virtual row v is real row v below the sink pages and v + gap
 above them (`walk_rows`), and the split plan cuts n_v, so a slot whose
@@ -66,6 +75,9 @@ from localai_tpu_torch.ops import ptable as _pt
 
 NEG_INF = -1e30
 PAGED_HEAD_DIMS = (64, 128)
+# The latent forms (K = 1 only): head dim -> the pool types the kernel takes.
+LATENT_FORMS = {576: (torch.bfloat16, torch.float8_e4m3fn, torch.float8_e5m2),
+                48: (torch.float32,)}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2,
                torch.float8_e5m2: 3}
 
@@ -88,8 +100,8 @@ _MAX_SPLITS = 64
 class PagedPlan(NamedTuple):
     """How B2 cuts q rows [B, K, QR, D] over a table of capacity MP·page."""
 
-    kernel: str    # "mma" (bf16 / fp8 pools) or "scalar" (f32 pools)
-    row_tile: int  # q rows a block: mma 16 (QR <= 16) or 64; scalar 4 (QR <= 4) or 16
+    kernel: str    # "mma" (bf16 / fp8 pools), "latent" (D 576) or "scalar" (f32 pools)
+    row_tile: int  # q rows a block: mma 16 (QR <= 16) or 64; latent 16; scalar 4 (QR <= 4) or 16
     splits: int    # most splits a slot uses: the grid's blocks for each (slot, head, row tile)
     unit: int      # rows; a slot's splits are whole units (whole key tiles)
 
@@ -117,6 +129,11 @@ class PagedPlan(NamedTuple):
         return self.tiles(B, K, QR) * self.splits * self.row_tile * (D + 2)
 
 
+def is_latent(K: int, D: int, pool_dtype) -> bool:
+    """Whether (K, D, pool type) is one of the kernel's latent forms."""
+    return K == 1 and pool_dtype in LATENT_FORMS.get(D, ())
+
+
 def paged_plan(capacity: int, page: int, K: int, QR: int, D: int, pool_dtype,
                sm_count: int) -> PagedPlan:
     """The split plan of B2. It depends on the table's capacity (MP·page),
@@ -126,10 +143,14 @@ def paged_plan(capacity: int, page: int, K: int, QR: int, D: int, pool_dtype,
     is the least that gives one block an SM for one slot, at most
     _MOST_SPLITS, raised until a full slot's split spans at most
     _TABLE_SLICE - 2 pages (a table too wide for _MAX_SPLITS at its page
-    size raises)."""
-    if pool_dtype not in _DTYPE_CODE or D not in PAGED_HEAD_DIMS:
-        raise ValueError(f"no plan for a {pool_dtype} pool at head dim {D}")
-    if pool_dtype == torch.float32:
+    size raises). The latent forms (`is_latent`) plan like any other: at
+    D = 576 the kernel's row tile is 16 rows (one token's 16 heads at
+    decode)."""
+    if pool_dtype not in _DTYPE_CODE or not (D in PAGED_HEAD_DIMS or is_latent(K, D, pool_dtype)):
+        raise ValueError(f"no plan for a {pool_dtype} pool at head dim {D} with {K} kv heads")
+    if D == 576:
+        kernel, row_tile = "latent", 16
+    elif pool_dtype == torch.float32:
         kernel, row_tile = "scalar", (4 if QR <= 4 else 16)
     else:
         kernel, row_tile = "mma", (16 if QR <= 16 else 64)
@@ -283,8 +304,12 @@ def _check_cuda_args(qr, qpos, k_pool, v_pool, table, limits, kv_scale) -> None:
     B, K, QR, D = qr.shape
     if k_pool.shape != v_pool.shape or k_pool.shape[2] != K or k_pool.shape[3] != D:
         raise ValueError(f"pool shape {tuple(k_pool.shape)} does not match q rows {tuple(qr.shape)}")
-    if D not in PAGED_HEAD_DIMS:
-        raise ValueError(f"head dim {D} not supported by the kernel (needs {PAGED_HEAD_DIMS})")
+    if D not in PAGED_HEAD_DIMS and not is_latent(K, D, k_pool.dtype):
+        raise ValueError(f"head dim {D} with {K} kv heads and a {k_pool.dtype} pool is not "
+                         f"supported by the kernel (needs {PAGED_HEAD_DIMS}, or at one kv head "
+                         f"the latent forms {LATENT_FORMS})")
+    if D == 576 and v_pool.data_ptr() != k_pool.data_ptr():
+        raise ValueError("the latent form reads K and V from one pool: v_pool must be k_pool")
     if qr.dtype != torch.float32:
         raise TypeError(f"q rows must be float32, got {qr.dtype}")
     if k_pool.dtype not in _DTYPE_CODE or v_pool.dtype != k_pool.dtype:
@@ -367,12 +392,17 @@ def paged_partials_rows(
         )
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA error {rc}")
-    paged_partials_rows.launches += 1
+    if is_latent(K, D, k_pool.dtype):
+        paged_partials_rows.latent_launches += 1
+    else:
+        paged_partials_rows.launches += 1
     return acc, m, l
 
 
-# Launches of the CUDA kernel (the plain CPU route does not count).
+# Launches of the CUDA kernel (the plain CPU route does not count): the
+# per-head forms and, apart, the latent forms.
 paged_partials_rows.launches = 0
+paged_partials_rows.latent_launches = 0
 
 
 def _rows_call(qr, qpos_rows, k_pool, v_pool, table, limits, softcap, window, kv_scale,

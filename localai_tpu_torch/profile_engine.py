@@ -30,7 +30,12 @@ window 4096, table pages of 128, a 2 GiB spill budget): one 512-token
 prefill chunk at offset 129024 of a 130,000-token admission, then, after
 its final chunk installs the slot, one decode block of `--steps` steps of
 that one slot at 130k (graph replay and eager body); the pages hold
-whatever the pool held, which the timing does not read. `--spec MODE`
+whatever the pool held, which the timing does not read. For a
+mixture-of-experts arch (`--arch mixtral-8x7b`, `--arch deepseek-v2-lite`:
+MLA's latent pool takes B2's latent form) `--paged` also prints the MoE
+layers' share of the paged decode block's device time: the eager body's
+summed kernel time as it is and with every MoE MLP (routed and shared
+experts) replaced by zeros of its output's shape. `--spec MODE`
 then profiles one speculative round of that draft source on an engine of
 the same layout (paged with `--paged`; n_draft 5, self_draft on a
 quarter of the target's layers, a llama-3.2-1b bf16 draft model), every
@@ -65,8 +70,9 @@ def _top(events, key: str, n: int) -> list[tuple[str, int, float]]:
 
 # Names of the port's own kernels (csrc/*.cu), listed apart from the top
 # kernels so that each one's device time shows however small it is.
-PORT_KERNELS = ("flash_prefill", "paged_mma_kernel", "paged_scalar_kernel", "qmm_kernel",
-                "qmm_mma_kernel", "unembed_kernel", "unembed_mma_kernel", "lora_group_kernel")
+PORT_KERNELS = ("flash_prefill", "paged_mma_kernel", "paged_latent_kernel",
+                "paged_scalar_kernel", "qmm_kernel", "qmm_mma_kernel", "unembed_kernel",
+                "unembed_mma_kernel", "lora_group_kernel")
 
 
 def _profile(label: str, fn, steps: int = 1) -> dict:
@@ -224,6 +230,8 @@ def _paged(make_engine, admitter, blocks, gen, slots, args, GenRequest, RequestH
     blocks(peng, f"paged decode block n={args.steps} slots={args.slots} page=128")
     peng._release(slots[-1])  # its slot and pages take the chunked admission
     ids = torch.randint(0, 256, (1536,), generator=gen).tolist()
+    if peng.cfg.is_moe:
+        _moe_share(peng, args.steps)
     assert peng._chunk_start(GenRequest(prompt_ids=ids, max_new_tokens=16), RequestHandle())
     st = peng._chunkings[0]
 
@@ -231,6 +239,36 @@ def _paged(make_engine, admitter, blocks, gen, slots, args, GenRequest, RequestH
         st["offset"] = 1024
         peng._dispatch_chunk(st, 512)
     _profile("paged prefill chunk T=512 offset=1024", chunk)
+
+
+def _moe_share(eng, steps: int) -> None:
+    """The MoE layers' share of a decode block's device time: the summed
+    device time of the eager block body's kernels (`_profile`) as it is,
+    and with `_mlp` of every MoE layer returning zeros (the attention,
+    norms and head run as before, on other values of the same shapes)."""
+    from localai_tpu_torch.models import llama
+
+    mlp = llama._mlp
+
+    def no_moe(cfg, lp, x, lora=None, eager=False):
+        return torch.zeros_like(x) if "router" in lp else mlp(cfg, lp, x, lora, eager)
+
+    eng._decode_block = eng._block_body
+    try:
+        full = _profile(f"paged decode block n={steps} (eager body)", eng._run_block,
+                        steps)["device_ms"]
+        llama._mlp = no_moe
+        try:
+            rest = _profile(f"paged decode block n={steps} (eager body, MoE MLPs zeroed)",
+                            eng._run_block, steps)["device_ms"]
+        finally:
+            llama._mlp = mlp
+    finally:
+        del eng._decode_block
+    print(json.dumps({"path": f"paged decode block n={steps}: the MoE layers' share",
+                      "device_ms": full, "device_ms_without_moe": rest,
+                      "moe_ms_per_step": (full - rest) / steps,
+                      "moe_share": (full - rest) / full}), flush=True)
 
 
 def _spec_round(make_engine, admitter, slots, args, cfg) -> None:

@@ -157,6 +157,32 @@ def test_paged_kernel_matches_plain_version(card, mode, page, D, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D,dtype", [(576, torch.bfloat16), (576, torch.float8_e4m3fn),
+                                     (48, torch.float32)])
+@pytest.mark.parametrize("QR", [16, 96])  # decode (16 heads), a 6-token verify
+def test_paged_latent_form_matches_plain_version(card, QR, D, dtype):
+    """B2's latent form (one kv head, the pool passed as K and V) against
+    its plain version; at D = 576 it refuses a V pool that is not K's."""
+    from localai_tpu_torch.ops import paged_flash as pf
+
+    B, page, MP = 4, 128, 16
+    limits = [2048, 0, 1000 + page // 2, 37]
+    qr, kp, _vp, table, lim = _paged_inputs(D + QR, B, QR, 1, D, page, MP, torch.float32,
+                                            limits)
+    pool = kp.to(dtype)
+    qpos = (lim[:, None] + torch.arange(QR, device="cuda")[None, :] // 16).to(torch.int32)
+    before = pf.paged_partials_rows.latent_launches
+    got = pf.paged_partials_rows(qr, qpos, pool, pool, table, lim)
+    torch.cuda.synchronize()
+    assert pf.paged_partials_rows.latent_launches == before + 1
+    _assert_partials_match(got, pf.paged_partials_plain(qr, qpos, pool, pool, table, lim),
+                           limits)
+    if D == 576:
+        with pytest.raises(ValueError, match="v_pool must be k_pool"):
+            pf.paged_partials_rows(qr, qpos, pool, pool.clone(), table, lim)
+
+
+@pytest.mark.cuda
 def test_paged_cuda_tensors_never_take_the_plain_route(card, monkeypatch):
     from localai_tpu_torch.ops import attention as att
     from localai_tpu_torch.ops import paged_flash as pf
@@ -718,6 +744,50 @@ def test_moe_cuda_tensors_never_take_the_plain_route(card, monkeypatch):
         qm.qmm_moe(x[0], _quantized("int8", w[..., :88].contiguous()), qm.MOE_SHARED)
     with pytest.raises(ValueError, match="at most"):
         qm.qmm_moe(torch.zeros(300, 64, device="cuda"), _quantized("int8", w), qm.MOE_SHARED)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", [
+    dict(max_slots=264, block_sizes=(4,)),
+    dict(max_slots=64, block_sizes=(4,), kv_pages=80, kv_page_size=16,
+         spec_mode="prompt_lookup")], ids=["block_264_rows", "verify_384_rows"])
+def test_plain_moe_bodies_above_256_rows_capture(card, layout):
+    """f32 tiny MoE with plain experts: decode blocks of 264 rows and
+    verify rounds of up to 64 x 6 rows are captured by warmup() and
+    replayed (their MoE layers take the fixed-shape route, no host read);
+    the greedy ids of a 300-token prompt (a sorted-route admission) and a
+    pinned-bias prompt equal the CPU engine's."""
+    import dataclasses
+
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig
+    from localai_tpu_torch.engine.tokenizer import ByteTokenizer
+    from localai_tpu_torch.models import get_arch, llama
+
+    cfg = dataclasses.replace(get_arch("tiny-moe"), name="tiny-moe-d64", hidden_size=256,
+                              intermediate_size=512, num_heads=4, num_kv_heads=2,
+                              dtype="float32")
+    params = llama.init_params(cfg, 0, device="cpu")
+    prompts = [([(j * 7) % 250 + 1 for j in range(300)], {}), ([10] + [77] * 20, {77: 25.0})]
+    ids = {}
+    for dev in ("cuda", "cpu"):
+        p = params if dev == "cpu" else {
+            k: ({n: t.cuda() for n, t in v.items()} if isinstance(v, dict) else v.cuda())
+            for k, v in params.items()}
+        eng = Engine(cfg, p, ByteTokenizer(cfg.vocab_size), device=dev,
+                     engine_cfg=EngineConfig(max_seq=512, min_prefill_bucket=16,
+                                             prefix_cache_entries=0, **layout))
+        try:
+            if dev == "cuda":
+                eng.warmup()
+                graphs = eng.metrics()["decode_graph_captures"]
+            ids[dev] = [_tiny_ids(eng, pr, n=8, logit_bias=b) for pr, b in prompts]
+            if dev == "cuda":
+                m = eng.metrics()
+                assert m["decode_graph_captures"] == graphs > 0
+                assert m["decode_graph_replays"] > 0
+        finally:
+            eng.stop()
+    assert ids["cuda"] == ids["cpu"]
 
 
 # --------------------------------------------------------------------------- #

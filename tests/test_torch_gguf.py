@@ -306,8 +306,9 @@ def test_arch_from_gguf_is_the_jax_packages(tmp_path, files, case):
         _meta_gguf(path, arch, extra, names)
         pa, ja = pg.arch_from_gguf(pg.GGUFFile(path)), jg.arch_from_gguf(jg.GGUFFile(path))
         assert _asdict(pa) == _asdict(ja)
-        if case == "deepseek2":  # read, then refused before any tensor is
+        if case == "deepseek2":  # read, then refused by the loader before any tensor is
             assert pa.is_mla and pa.moe_family == "deepseek"
+            pg.check_supported(pa)  # the model itself is served
             with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 10, other "
                                                           "decoder families"):
                 pg.load_gguf_checkpoint(path)

@@ -368,9 +368,23 @@ def test_quantized_init_tree_equals_quantize_params_tree(arch, mode):
 
 
 def test_unported_moe_families_raise():
+    """The deepseek router, shared experts and a dense-layer prefix, each on
+    tiny-moe, are ported: each builds the JAX package's tree (keys and
+    shapes) and its prefill logits match the JAX package's."""
+    toks = np.random.default_rng(2).integers(0, 256, (2, 16)).astype(np.int32)
+    lens = np.asarray([16, 5], np.int32)
     for kw in ({"moe_family": "deepseek"}, {"n_shared_experts": 1}, {"first_k_dense": 1}):
-        with pytest.raises(NotImplementedError, match="item 10, other decoder families"):
-            tl.init_params(_cfg(**kw), device="cpu")
+        cfg = _cfg(**kw)
+        jp = jl.init_params(cfg, jax.random.key(0))
+        tp = tl.init_params(cfg, device="cpu")
+        want = jax.tree_util.tree_flatten_with_path(jp)[0]
+        got = jax.tree_util.tree_flatten_with_path(tp)[0]
+        assert [(jax.tree_util.keystr(p), tuple(v.shape)) for p, v in got] == \
+            [(jax.tree_util.keystr(p), v.shape) for p, v in want], kw
+        bridged = tw.params_from_numpy(cfg, jax.tree.map(np.asarray, jp), device="cpu")
+        jlog, _, _ = jl.prefill(cfg, jp, jnp.asarray(toks), jnp.asarray(lens))
+        tlog, _, _ = tl.prefill(cfg, bridged, torch.from_numpy(toks), torch.from_numpy(lens))
+        np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=LOGIT_ATOL, rtol=0)
     # A tree whose layers lack a router does not serve a MoE config.
     cfg = _cfg()
     dense = tl.init_params(dataclasses.replace(cfg, num_experts=0), device="cpu")

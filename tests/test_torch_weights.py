@@ -100,11 +100,19 @@ def test_arch_from_hf_config_matches_jax(tmp_path):
 
 
 def test_bridge_rejects_unported_trees():
-    cfg = get_arch("tiny")
+    """The bridge takes a DeepSeek two-stack tree (the dense-layer prefix
+    beside the MoE stack) as it is: both stacks cross leaf for leaf, the
+    router's selection bias stays f32."""
+    cfg = dataclasses.replace(get_arch("tiny-mla"), dtype="bfloat16")
     tree = jax.tree.map(np.asarray, jl.init_params(cfg, jax.random.key(0)))
-    tree["dense_layers"] = dict(tree["layers"])  # deepseek's dense-layer prefix
-    with pytest.raises(NotImplementedError, match="item 10, other decoder families"):
-        tw.params_from_numpy(cfg, tree, device="cpu")
+    out = tw.params_from_numpy(cfg, tree, device="cpu")
+    assert set(out) == set(tree) and "dense_layers" in out
+    for stack in ("layers", "dense_layers"):
+        assert set(out[stack]) == set(tree[stack])
+        for k, v in tree[stack].items():
+            want = torch.float32 if k == "router_bias" else torch.bfloat16
+            assert tuple(out[stack][k].shape) == v.shape and out[stack][k].dtype == want, k
+            assert np.array_equal(out[stack][k].float().numpy(), np.asarray(v, np.float32)), k
 
 
 def _fuse_phi3(src: str, dst: str, cfg) -> None:
