@@ -89,17 +89,18 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    launched again and, up to 16 rows, for each row alone; times beside a
    bf16 torch.bmm on the dequantized stack and the dequantize-then-matmul
    route;
-14. mixtral — mixtral-8x7b at full width, 16 of its 32 layers (cut for
-   time since the deepseek phases joined the run), seeded
+14. mixtral — mixtral-8x7b at full width, 8 of its 32 layers (cut for
+   time: 16 when the deepseek phases joined the run, 8 since phase 23
+   did), seeded
    random weights made int4 on the card layer by layer (bf16 would not
-   fit at full depth): a 256-row prefill through the kernels, each of its 16 MoE layers
+   fit at full depth): a 256-row prefill through the kernels, each of its MoE layers
    held to the dequantize-then-matmul route on the same input (within 5 %
    of the layer's largest output; the two free-running prefills' logits
    and the share of tokens whose top-2 experts differ, layer by layer,
    are printed: routing is discrete, so bf16 rounding flips some tokens'
    experts and the runs part), then phase 12's graph-against-eager run on
-   a paged bf16 pool with phase 6's requests (B3 = 7 x 16 = 112 launches a decode step,
-   48 of them the expert form; B4 one a step; B2 16 a step), the device
+   a paged bf16 pool with phase 6's requests (B3 = 7 x 8 = 56 launches a decode step,
+   24 of them the expert form; B4 one a step; B2 8 a step), the device
    time of one decode step (a graph replay) against the weights' byte
    floor, two admissions' times, the weight bytes and the peak memory;
 15. mixtral int8 — the same model in int8 at full width, 8 of its 32
@@ -181,9 +182,9 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 21. gguf (run last) — GGUF checkpoints: a spec-derived writer here packs
    two files with random block payloads (scales sized for a weight spread
    of 0.02) and the published shapes and layouts of tensor types:
-   llama-3.2-1b at full depth as a Q4_K_M file (q4_K, attn_v and ffn_down
-   q6_K in alternate layers, q6_K embeddings, tied) and llama-3-8b as a
-   Q8_0 file with an untied q8_0 output.weight, 4 of its 32 layers (cut
+   llama-3.2-1b as a Q4_K_M file, 8 of its 16 layers (q4_K, attn_v and
+   ffn_down q6_K in alternate layers, q6_K embeddings, tied) and llama-3-8b as a
+   Q8_0 file with an untied q8_0 output.weight, 2 of its 32 layers (cut
    for time), both with llama-3's gpt2-type BPE metadata (128256 tokens:
    256 byte symbols, synthetic merges, 256 control tokens; llama-bpe
    pre-tokenizer; bos / eos; chat template). Each is parsed and repacked
@@ -208,12 +209,13 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    kv_scale 2, a hierarchical table under sink 128 + window 4096 at a
    16384-row limit, and tiny-mla's f32 form at D = 48: tol 2e-4,
    bit-identical relaunched and slot by slot, ms, plain ms and bound.
-   (b) deepseek: deepseek-v2-lite bf16 at full width and depth (27
-   layers, seeded random weights drawn on the card): one 3000-token
+   (b) deepseek: deepseek-v2-lite bf16 at full width, 14 of its 27
+   layers (cut for time since phase 23 joined; seeded random weights drawn
+   on the card): one 3000-token
    prompt's dense full-rank prefill against its absorbed paged chunks
    (the same choice up to a near tie); phase 6's mix on the paged config
    after warmup(), graphs against the eager body (ids and launches equal,
-   B2's latent form 27 launches a decode step), then a follow-up sharing
+   B2's latent form 14 launches a decode step), then a follow-up sharing
    request 5's first 1536 tokens (a prefix hit whose tail chunk walks the
    shared latent pages); the dense engine on the same traffic (ids equal
    or parting at a near tie); TTFT, tok/s, a step's device ms from a
@@ -227,7 +229,38 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    card ids equal to CPU ids. Phase 13 (moe_kernels) also holds B3's
    expert form at deepseek-v2-lite's expert shapes (E = 64, int8 / int4,
    1-256 rows).
-In 5, 6, 8, 10, 11, 12, 14, 15, 17, 18, 19, 20, 21 and 22 the kernel launch counters, zeroed just
+23. observe (run after 20) — the runtime, observability and fault layer
+   on llama-3.2-1b at full width and depth (16 layers, bf16) on the paged
+   config, served by ModelManager and the port's HTTP server with the
+   journal on (4096 events), trace_fence, a postmortem directory and a
+   profile directory: (a) 8 concurrent chats, 4 with a client W3C
+   traceparent: /debug/trace of each response id has the client's trace
+   id, spans tiling submit -> terminal, and an admission -> first token
+   span within 5 ms of the response's timing_prompt_processing; B1 and B2
+   by their launch identities; (b) /debug/timeline parses as Chrome trace
+   JSON, every decode block's window carries a fenced device ms in (0, the
+   window's wall] and every window's phase vector sums to at most its
+   wall; (c) /debug/profile {"seconds": 2} during 8 streaming chats (a
+   second window meanwhile gets 409): the exported trace holds B2's
+   launches from graph replays and B1's from admissions inside the window,
+   and the first chats' logprob blocks capture a graph inside it; (d) the
+   journal's cost: 8-slot rounds of 96 tokens as graph replays, journal on
+   and off, five each interleaved (gate: on <= 2 x off + 50 ms); (e)
+   faults on the served weights (a swapping pool of 40 pages, prefix cache
+   off): device_dispatch and control_commit on a block shape not yet
+   captured and on a replay, then three seeds of a FaultSchedule over
+   device_dispatch, control_commit, page_alloc and host_swap with 16
+   requests each: every request ends within OBSERVE_DEADLINE_S, the pool
+   is accounted at quiesce, one fault_<site> journal event per injected
+   fault; (f) engine_loop faults kill the loop three times under
+   restart_budget 2 (the dying requests mid-admission, chunking 3000-token
+   prompts): two transparent restarts, then a 503 with Retry-After
+   until the quarantine expires; each death's postmortem names its dead
+   requests and the loop_dead gauge carries its path before the reap;
+   allocated memory after the third restart within 5 % of the first's; a
+   fourth death with no traffic is reaped by the watchdog. Prints one
+   {"observe": ...} line.
+In 5, 6, 8, 10, 11, 12, 14, 15, 17, 18, 19, 20, 21, 22 and 23 the kernel launch counters, zeroed just
 before each run, show that the path went through the kernels; a graph
 replay counts the launches its capture recorded. Every decode block of
 those runs is a graph capture or replay (the eager runs of phases 12 and
@@ -2336,6 +2369,10 @@ SPEC_PROMPT_LEN = 128
 SPEC_NEW = 64
 SPEC_MODES = ("prompt_lookup", "self_draft", "draft_model")
 SPEC_SELF_LAYERS = 8
+# Of llama-3-8b's 32 layers the spec phase's target keeps its first 16
+# (cut for the run's time when the observe phase joined; every layer's
+# width kept): self_draft drafts with 8 of them.
+SPEC_LAYERS = 16
 SPEC_N_DRAFT = 5
 
 
@@ -2474,9 +2511,18 @@ def _spec_small(small, p_small, p_small_cpu) -> dict:
     return out
 
 
+def _first_layers(cfg, params: dict, n: int):
+    """cfg and params cut to their first n layers (views of the stacked
+    layer tensors; embedding, final norm and head kept)."""
+    def cut(t):
+        return {k: cut(v) for k, v in t.items()} if isinstance(t, dict) else t[:n]
+    return dataclasses.replace(cfg, num_layers=n), {**params, "layers": cut(params["layers"])}
+
+
 def phase_spec(qmodel: dict, small, p_small, p_small_cpu) -> dict:
-    """Speculative decoding on llama-3-8b int4 (32 layers, full width) over
-    the fp8 paged pool (PAGED_ENGINE, kv_scale 2): the plain engine, then
+    """Speculative decoding on llama-3-8b int4 (full width, the first
+    SPEC_LAYERS of its 32 layers) over the fp8 paged pool (PAGED_ENGINE,
+    kv_scale 2): the plain engine, then
     prompt_lookup, self_draft (its first 8 layers) and draft_model
     (llama-3.2-1b bf16, full width and depth, seeded random weights), each
     warmed up (every round shape captured) and then serving the pinned-bias
@@ -2489,7 +2535,7 @@ def phase_spec(qmodel: dict, small, p_small, p_small_cpu) -> dict:
     from localai_tpu_torch.engine.tokenizer import ByteTokenizer
     from localai_tpu_torch.models import get_arch, llama
 
-    cfg, params = qmodel["cfg"], qmodel["int4"]
+    cfg, params = _first_layers(qmodel["cfg"], qmodel["int4"], SPEC_LAYERS)
     L = cfg.num_layers
     dcfg = get_arch("llama-3.2-1b")
     dparams = llama.init_params(dcfg, seed=1, device="cuda")
@@ -2668,7 +2714,7 @@ def _moe_probe(eng) -> dict:
 
 # of 32: the int4 run is cut for time (32 until the deepseek phases joined
 # the run).
-MIXTRAL_INT4_LAYERS = 16
+MIXTRAL_INT4_LAYERS = 8
 
 
 def phase_mixtral(gen: torch.Generator) -> dict:
@@ -4544,11 +4590,11 @@ def write_gguf_model(path: str, cfg, layers: int, plan: str, seed: int = 0) -> i
     return write_gguf(path, kv, tensors, seed)
 
 
-# The two files: llama-3.2-1b at full depth as a Q4_K_M file (tied
-# embeddings, as published), and llama-3-8b as a Q8_0 file with an untied
-# output.weight, 4 of its 32 layers (cut for time: 8 until the deepseek
-# phases joined the run).
-GGUF_FILES = (("llama-3.2-1b", 16, "q4_k_m"), ("llama-3-8b", 4, "q8_0"))
+# The two files: llama-3.2-1b as a Q4_K_M file (tied embeddings, as
+# published), 8 of its 16 layers, and llama-3-8b as a Q8_0 file with an
+# untied output.weight, 2 of its 32 layers (cut for time: 16 and 8 until
+# the deepseek phases joined the run, 16 and 4 until the observe phase did).
+GGUF_FILES = (("llama-3.2-1b", 8, "q4_k_m"), ("llama-3-8b", 2, "q8_0"))
 GGUF_YAML = {"context_size": 4096, "max_slots": 8, "kv_pages": 256, "kv_page_size": 128,
              "prefill_chunk": 512, "max_tokens": 64,
              "template": {"use_tokenizer_template": True}}
@@ -4987,6 +5033,9 @@ def phase_latent_kernels() -> list[dict]:
 DEEPSEEK_SHARED = 1536
 DEEPSEEK_TAIL = 400
 DEEPSEEK_INT4_LAYERS = 8  # of 27: the int4 run is cut for time
+# of 27: the bf16 run is cut for time since the observe phase joined the run
+# (its one dense layer and 13 of its MoE layers; every layer's shapes kept).
+DEEPSEEK_LAYERS = 14
 DEEPSEEK_NEW = 32  # tokens a request of the bf16 runs (64 elsewhere): the run's time
 # The paged chunks' prefill logits (absorbed MLA through B2's latent form)
 # may sit at most this many times farther from the dense prefill's
@@ -5069,14 +5118,15 @@ def _deepseek_expert_bytes(cfg, params, gen) -> dict:
 
 
 def phase_deepseek(latent_rows: list[dict]) -> dict:
-    """deepseek-v2-lite at full width and depth (27 layers: one dense, 26
-    MoE of 64 routed experts, top 6, and 2 shared; MLA with a 512 + 64
-    latent) in bf16, seeded random weights drawn on the card: (1) one
+    """deepseek-v2-lite at full width, DEEPSEEK_LAYERS of its 27 layers
+    (one dense, the rest MoE of 64 routed experts, top 6, and 2 shared; MLA
+    with a 512 + 64 latent) in bf16, seeded random weights drawn on the
+    card: (1) one
     3000-token prompt's last logits, full-rank dense prefill against the
     absorbed paged chunks, within the near-tie bound; (2) phase 6's prompts
     (DEEPSEEK_NEW new tokens each, to hold the run's time) through the
     paged engine after warmup(), graphs against the eager body
-    (ids and launches identical; B2's latent form 27 launches a decode
+    (ids and launches identical; B2's latent form once a layer a decode
     step), then a follow-up sharing request 5's first 1536 tokens, a prefix
     hit whose tail walks the shared latent pages; (3) the dense engine on
     the same traffic: ids equal to the paged engine's or parting at a near
@@ -5087,7 +5137,7 @@ def phase_deepseek(latent_rows: list[dict]) -> dict:
     from localai_tpu_torch.engine.tokenizer import ByteTokenizer
     from localai_tpu_torch.models import get_arch, llama
 
-    cfg = get_arch("deepseek-v2-lite")
+    cfg = dataclasses.replace(get_arch("deepseek-v2-lite"), num_layers=DEEPSEEK_LAYERS)
     L = cfg.num_layers
     gc.collect()
     torch.cuda.empty_cache()
@@ -5138,7 +5188,7 @@ def phase_deepseek(latent_rows: list[dict]) -> dict:
     check(bool(torch.isfinite(dense_logits).all()) and dense_logits.shape == (1, cfg.vocab_size)
           and bool(torch.isfinite(paged_logits).all()),
           "deepseek prefill logits not finite / wrong shape")
-    # bf16 paths (full-rank against absorbed, 27 layers) give different
+    # bf16 paths (full-rank against absorbed, every layer) give different
     # logits: they must sit within DEEPSEEK_PAGED_SPREAD times the spread
     # a batch of two gives, and the choice must agree up to a near tie.
     check(pre["max_rel_diff"] <= DEEPSEEK_PAGED_SPREAD * pre["batch_max_rel_diff"],
@@ -5207,7 +5257,7 @@ def phase_deepseek(latent_rows: list[dict]) -> dict:
         ttft_ms_p50=g["ttft_ms_p50"], ttft_ms_max=g["ttft_ms_max"],
         decode_tok_s=g["decode_tok_s"], decode_ms_per_step=g["decode_ms_per_step"],
         device_ms_per_step_idle_replay=step_ms,
-        # A microbench product, not a reading of the served step: 27 x the
+        # A microbench product, not a reading of the served step: L x the
         # decode row of phase latent_kernels (limits 1-4096) over an idle
         # slots' replay. B2's traced share of a served step comes from
         # profile_engine.py --arch deepseek-v2-lite --paged.
@@ -5337,6 +5387,636 @@ def phase_deepseek_http() -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# 23. observe: the journal, traces, timeline, profile windows, faults,
+#     crash-only restart and quarantine on llama-3.2-1b (16 layers, bf16)
+# --------------------------------------------------------------------------- #
+
+OBSERVE_YAML = dict(LORA_BASE_YAML, name="obs-1b", trace_journal_events=4096)
+# Chat contents of the traced requests (the synthetic byte tokenizer: one
+# token a character): two chunked admissions, the rest single-shot.
+OBSERVE_CHATS = [60, 200, 400, 900, 60, 200, 400, 1400]
+OBSERVE_NEW = 32
+# Journal cost: rounds of 8 requests of 20 tokens, 96 new tokens each (the
+# JAX package's 96-token round), journal on and off interleaved.
+OBSERVE_COST_ROUNDS = 5
+OBSERVE_COST_NEW = 96
+# The fault sweep: three seeds of 16 requests on a swapping pool, the
+# sites of the main path's dispatch, commit, allocator and swap tier.
+OBSERVE_FAULT_SEEDS = (1, 2, 3)
+OBSERVE_FAULT_SITES = ("device_dispatch", "control_commit", "page_alloc", "host_swap")
+OBSERVE_FAULT_RATES = {"device_dispatch": 0.03, "control_commit": 0.05, "page_alloc": 0.1,
+                       "host_swap": 0.5}
+# Two chunks a prompt, 5 pages an admission (no headroom): 8 slots fill the
+# 40-page pool, and every request outgrows its pages within its 96 new
+# tokens, so growth preempts (and swaps) the youngest slot.
+OBSERVE_FAULT_ENGINE = dict(PAGED_ENGINE, kv_pages=40, kv_page_headroom=0,
+                            prefix_cache_entries=0)
+OBSERVE_FAULT_PROMPTS = [560, 570, 580, 590, 600, 610, 620, 640] * 2
+OBSERVE_FAULT_NEW = 96
+OBSERVE_DEADLINE_S = 180.0  # every request of a fault run ends within this
+# Supervision: two restarts, then the third death in the window quarantines.
+OBSERVE_APP = dict(restart_budget=2, restart_window_s=600.0, quarantine_s=2.0)
+
+
+def _http_call(base: str, method: str, path: str, payload=None, headers=None,
+               timeout: float = 300.0) -> tuple[int, dict, object]:
+    """(status, headers, parsed JSON or text) of one HTTP call."""
+    import urllib.error
+    import urllib.request
+
+    data = json.dumps(payload).encode() if payload is not None else None
+    req = urllib.request.Request(base + path, data=data, method=method,
+                                 headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            raw, status, hdrs = r.read(), r.status, dict(r.headers)
+    except urllib.error.HTTPError as e:
+        raw, status, hdrs = e.read(), e.code, dict(e.headers)
+    try:
+        return status, hdrs, json.loads(raw)
+    except ValueError:
+        return status, hdrs, raw.decode()
+
+
+def _obs_text(n: int, seed: int) -> str:
+    import random
+
+    rnd = random.Random(seed)
+    return "".join(rnd.choice("abcdefghijklmnopqrstuvwxyz ") for _ in range(n))
+
+
+def _obs_traces(base: str, eng) -> dict:
+    """8 concurrent chats, 4 with a client traceparent: each response's
+    /debug/trace span tree, trace id and TTFT; B1 / B2 by their launch
+    identities over the run."""
+    from localai_tpu_torch.observe.trace import new_traceparent, parse_traceparent
+
+    results: list = [None] * len(OBSERVE_CHATS)
+    tps = [new_traceparent() if i % 2 == 0 else "" for i in range(len(OBSERVE_CHATS))]
+
+    def one(i: int, n: int) -> None:
+        body = {"model": "obs-1b", "max_tokens": OBSERVE_NEW, "ignore_eos": True,
+                "messages": [{"role": "user", "content": _obs_text(n, i)}],
+                "temperature": 0.0 if i % 2 == 0 else 0.8, "top_p": 1.0 if i % 2 == 0 else 0.9,
+                "seed": 300 + i}
+        headers = {"Extra-Usage": "1", **({"traceparent": tps[i]} if tps[i] else {})}
+        t0 = time.monotonic()
+        results[i] = _http_call(base, "POST", "/v1/chat/completions", body, headers) + (
+            time.monotonic() - t0,)
+
+    _zero_counts()
+    m0 = eng.metrics()
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=one, args=(i, n)) for i, n in enumerate(OBSERVE_CHATS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    chats_s = time.monotonic() - t0
+    launches = _read_counts()
+    m1 = eng.metrics()
+    check(all(not th.is_alive() for th in threads), "observe traces: a chat never finished")
+    delta = {k: int(m1[k] - m0[k]) for k in ("admissions", "decode_steps", "prefill_chunks",
+                                            "decode_blocks", "decode_graph_captures",
+                                            "decode_graph_replays", "chunked_admits")}
+    L = eng.cfg.num_layers
+    check(launches["paged_attention"] == L * (delta["decode_steps"] + delta["prefill_chunks"])
+          and launches["paged_attention"] > 0,
+          f"observe traces: B2 launches {launches['paged_attention']} != {L} x "
+          f"({delta['decode_steps']} steps + {delta['prefill_chunks']} chunks)")
+    check(launches["flash_prefill"] == L * delta["admissions"] and launches["flash_prefill"] > 0,
+          f"observe traces: B1 launches {launches['flash_prefill']} != {L} x "
+          f"{delta['admissions']} admissions")
+    _check_graphs("observe traces", delta)
+    rows = []
+    for i, (status, _h, body, wall) in enumerate(results):
+        check(status == 200, f"observe traces: chat {i} got HTTP {status}: {body}")
+        rid = body["id"]
+        st, _h2, tr = _http_call(base, "GET", f"/debug/trace/{rid}")
+        check(st == 200, f"observe traces: /debug/trace/{rid} answered {st}")
+        leg = tr["legs"][-1]
+        spans = {s["name"]: s["duration_ms"] for s in leg["spans"]}
+        tiled = sum(s["duration_ms"] for s in leg["spans"])
+        row = dict(request_id=rid, trace_id=tr["trace_ids"][0], client=bool(tps[i]),
+                   complete=leg["complete"], terminal_events=leg["terminal_events"],
+                   spans=[s["name"] for s in leg["spans"]], wall_ms=leg["wall_ms"],
+                   tiled_ms=tiled, ttft_ms=spans.get("queue", 0.0) + spans.get("admit", 0.0),
+                   admit_ms=spans.get("admit", 0.0),
+                   timing_prompt_processing_ms=body["usage"]["timing_prompt_processing"] * 1e3,
+                   client_wall_ms=wall * 1e3)
+        rows.append(row)
+        if tps[i]:
+            check(row["trace_id"] == parse_traceparent(tps[i])[0],
+                  f"observe traces: {rid}'s trace id is not the client's: {row}")
+        check(row["complete"] and row["terminal_events"] == 1
+              and row["spans"][:3] == ["queue", "admit", "decode"],
+              f"observe traces: {rid}'s span tree: {row}")
+        # The spans tile submit -> terminal (each duration rounded to 1 µs).
+        check(abs(tiled - row["wall_ms"]) <= 0.002 * len(leg["spans"]) + 1e-6,
+              f"observe traces: {rid}'s spans do not tile its wall: {row}")
+        check(abs(row["admit_ms"] - row["timing_prompt_processing_ms"]) <= 5.0,
+              f"observe traces: {rid}'s admission -> first token {row['admit_ms']:.3f} ms "
+              f"against the response's timing_prompt_processing "
+              f"{row['timing_prompt_processing_ms']:.3f} ms")
+        check(row["ttft_ms"] <= row["client_wall_ms"],
+              f"observe traces: {rid}'s TTFT past the client's wall: {row}")
+    out = dict(requests=len(rows), client_traceparents=sum(bool(t) for t in tps), **delta,
+               chats_s=chats_s, trace_reads_s=time.monotonic() - t0 - chats_s,
+               client_wall_ms=[round(r["client_wall_ms"], 1) for r in rows],
+               launches={k: v for k, v in launches.items() if v},
+               ttft_ms_p50=statistics.median(r["ttft_ms"] for r in rows),
+               max_admit_vs_timing_ms=max(abs(r["admit_ms"] - r["timing_prompt_processing_ms"])
+                                          for r in rows),
+               max_tile_gap_ms=max(abs(r["tiled_ms"] - r["wall_ms"]) for r in rows))
+    log("[observe traces] " + json.dumps(out))
+    out["run"] = dict(launches=launches, **delta)
+    return out
+
+
+def _obs_timeline(base: str) -> dict:
+    """/debug/timeline as Chrome trace JSON: every decode block's window
+    carries a fenced device ms in (0, the window's wall], and every window's
+    phase vector sums to at most its wall (the time since the last window)."""
+    st, _h, tl = _http_call(base, "GET", "/debug/timeline")
+    check(st == 200 and isinstance(tl, dict) and isinstance(tl.get("traceEvents"), list),
+          f"observe timeline: /debug/timeline answered {st}")
+    evs = [e for e in tl["traceEvents"] if e.get("ph") in ("X", "i")]
+    for e in evs:
+        check({"name", "pid", "tid", "ts", "args"} <= set(e) and e["ts"] >= 0,
+              f"observe timeline: not a Chrome trace event: {e}")
+        e["t_us"] = e["ts"] + e.get("dur", 0.0)  # the journal's stamp
+    evs.sort(key=lambda e: (e["args"]["seq"] < 0, e["args"]["seq"]))
+    windows = [e for e in evs if e["name"] == "loop_iter"]
+    blocks = [e for e in evs if e["name"] == "decode_block"]
+    check(windows and blocks, "observe timeline: no loop_iter or decode_block events")
+    fenced, over = [], []
+    for prev, w in zip(windows, windows[1:]):
+        wall_ms = (w["t_us"] - prev["t_us"]) / 1e3
+        total = sum(w["args"].get("phases", {}).values())
+        if total > wall_ms + 0.01:
+            over.append((w["args"]["seq"], total, wall_ms))
+    check(not over, f"observe timeline: windows whose phases exceed their wall: {over[:5]}")
+    by_seq = [(w["args"]["seq"], w) for w in windows]
+    for b in blocks:
+        w = next((w for s, w in by_seq if s > b["args"]["seq"]), None)
+        if w is None:
+            continue
+        wall_ms = sum(w["args"].get("phases", {}).values())
+        fenced.append((w["args"]["b"], wall_ms))
+        check(0.0 < w["args"]["b"] <= wall_ms + 0.01,
+              f"observe timeline: decode block {b['args']['seq']}'s fenced device ms "
+              f"{w['args']['b']} outside (0, its window's {wall_ms:.3f} ms]")
+    out = dict(events=len(tl["traceEvents"]), windows=len(windows), blocks=len(blocks),
+               fenced_blocks=len(fenced),
+               fenced_ms_p50=statistics.median(f for f, _w in fenced),
+               fenced_over_window_p50=statistics.median(f / w for f, w in fenced),
+               bytes=len(json.dumps(tl)))
+    log("[observe timeline] " + json.dumps(out))
+    return out
+
+
+def _obs_profile(base: str, eng, prof_dir: str) -> dict:
+    """/debug/profile {"seconds": 2} while streaming chats run: a concurrent
+    window gets 409; the exported trace holds B2's launches from graph
+    replays and B1's from admissions inside the window; the first chats'
+    logprob blocks capture their graph inside it."""
+    res: dict = {}
+
+    def profile() -> None:
+        res["profile"] = _http_call(base, "POST", "/debug/profile", {"seconds": 2})
+
+    chats: list = [None] * 8
+
+    def chat(i: int) -> None:
+        # The first batch asks for logprobs: its blocks' graph (the logprob
+        # epilogue's key) is captured inside the window.
+        body = {"model": "obs-1b", "max_tokens": 64, "ignore_eos": True, "stream": True,
+                "temperature": 0.7, "seed": 500 + i,
+                "messages": [{"role": "user", "content": _obs_text(300, 50 + i)}],
+                **({"logprobs": True, "top_logprobs": 2} if i < 4 else {})}
+        chats[i] = _http(base, "/v1/chat/completions", body, time.monotonic())
+
+    m0 = eng.metrics()
+    threads = [threading.Thread(target=profile)]
+    threads[0].start()
+    time.sleep(0.3)
+    res["concurrent"] = _http_call(base, "POST", "/debug/profile", {"seconds": 0.5})
+    for batch in ((0, 1, 2, 3), (4, 5, 6, 7)):  # the second batch replays
+        ts = [threading.Thread(target=chat, args=(i,)) for i in batch]
+        for th in ts:
+            th.start()
+        threads += ts
+        time.sleep(0.6)
+    for th in threads:
+        th.join(timeout=300)
+    m1 = eng.metrics()
+    t_parse = time.monotonic()
+    check(res["concurrent"][0] == 409,
+          f"observe profile: a concurrent window answered {res['concurrent'][0]}, not 409")
+    st, _h, body = res["profile"]
+    check(st == 200 and os.path.isfile(body.get("file", "")),
+          f"observe profile: /debug/profile answered {st}: {body}")
+    ok = [c is not None and c["status"] == 200 and c["frames"][-1] == "[DONE]"
+          and not any('"error"' in f for f in c["frames"]) for c in chats]
+    with open(body["file"]) as f:
+        trace = json.load(f)
+    kernels = [e for e in trace.get("traceEvents", []) if e.get("cat") == "kernel"]
+    names = [e.get("name", "") for e in kernels]
+    cpu_ops = [e for e in trace.get("traceEvents", []) if e.get("cat") == "cpu_op"]
+    out = dict(file_bytes=os.path.getsize(body["file"]), seconds=body["seconds"],
+               events=len(trace.get("traceEvents", [])), kernel_events=len(kernels),
+               cpu_op_events=len(cpu_ops),
+               cpu_op_threads=len({e.get("tid") for e in cpu_ops}),
+               b2_kernels=sum("paged_" in n for n in names),
+               b1_kernels=sum("flash_prefill" in n for n in names),
+               graph_launches=sum(e.get("name") == "cudaGraphLaunch"
+                                  for e in trace.get("traceEvents", [])),
+               captures_in_window=int(m1["decode_graph_captures"] - m0["decode_graph_captures"]),
+               replays_in_window=int(m1["decode_graph_replays"] - m0["decode_graph_replays"]),
+               chats_ok=sum(ok), chats=len(chats), parse_s=time.monotonic() - t_parse)
+    out["capture_under_profiler_works"] = out["captures_in_window"] > 0 and all(ok)
+    log("[observe profile] " + json.dumps(out))
+    check(out["b2_kernels"] > 0 and out["replays_in_window"] > 0,
+          f"observe profile: no B2 launch from a graph replay in the window's trace: {out}")
+    check(out["b1_kernels"] > 0, f"observe profile: no B1 launch in the window's trace: {out}")
+    return out
+
+
+def _obs_journal_cost(eng) -> dict:
+    """The 1b's paged decode with 8 slots, as graph replays: rounds of 8
+    seeded top-p requests (96 new tokens), the journal on and off (None, as the
+    JAX package's test sets it), five of each interleaved. The JAX test's
+    gate: on <= 2 x off + 50 ms."""
+    from localai_tpu_torch.engine.engine import GenRequest
+
+    prompts = [[(7 * i + j) % 250 + 1 for j in range(20)] for i in range(8)]
+
+    def round_() -> tuple[float, float]:
+        m0, dt0 = eng.metrics(), eng._decode_time
+        t0 = time.monotonic()
+        # Seeded top-p: the sampler of the traced chats, whose 64-step
+        # block the engine captured already.
+        hs = [eng.submit(GenRequest(prompt_ids=p, max_new_tokens=OBSERVE_COST_NEW,
+                                    ignore_eos=True, temperature=0.8, top_p=0.9, seed=i))
+              for i, p in enumerate(prompts)]
+        for h in hs:
+            check(list(h)[-1].kind == "done", "observe journal cost: a request failed")
+        wall = time.monotonic() - t0
+        steps = eng.metrics()["decode_steps"] - m0["decode_steps"]
+        return wall, (eng._decode_time - dt0) * 1e3 / max(steps, 1)
+
+    saved = eng._journal
+    warm = round_()  # every shape captured before timing
+    on, off = [], []
+    for _ in range(OBSERVE_COST_ROUNDS):
+        eng._journal = None
+        off.append(round_())
+        eng._journal = saved
+        on.append(round_())
+    eng._journal = saved
+    med = {k: statistics.median(w for w, _s in v) for k, v in (("on", on), ("off", off))}
+    out = dict(round_s_on=med["on"], round_s_off=med["off"], ratio=med["on"] / med["off"],
+               spread_s_on=max(w for w, _ in on) - min(w for w, _ in on),
+               spread_s_off=max(w for w, _ in off) - min(w for w, _ in off),
+               step_ms_on=statistics.median(s for _w, s in on),
+               step_ms_off=statistics.median(s for _w, s in off),
+               rounds=OBSERVE_COST_ROUNDS, new_tokens=OBSERVE_COST_NEW, slots=len(prompts),
+               warm_round_s=warm[0], rounds_s_on=[w for w, _ in on],
+               rounds_s_off=[w for w, _ in off])
+    log("[observe journal cost] " + json.dumps(out))
+    check(med["on"] <= 2.0 * med["off"] + 0.05,
+          f"observe journal cost: a round with the journal on takes more than 2 x off + 50 ms: "
+          f"{out}")
+    return out
+
+
+def _obs_quiesced(eng, label: str) -> None:
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline:
+        with eng._pending_lock:
+            busy = bool(eng._pending)
+        if not busy and not any(s is not None for s in eng.slots) and not eng._chunkings:
+            break
+        time.sleep(0.02)
+    time.sleep(0.05)
+    check(len(eng._free_pages) == eng.ecfg.kv_pages and eng._host_bytes == 0
+          and not any(eng._slot_pages),
+          f"{label}: the pool is not accounted at quiesce: {len(eng._free_pages)} of "
+          f"{eng.ecfg.kv_pages} pages free, host tier {eng._host_bytes} bytes")
+
+
+def _obs_faults(params, cfg, tokenizer) -> dict:
+    """Faults on the main path's engine (the served weights, a pool that
+    swaps, prefix cache off): device_dispatch and control_commit each on a
+    block shape not yet captured and on a replay (the requests fail, no
+    graph is half built, the stream leaves capture mode, the same requests
+    then give the same ids); then three seeds of a FaultSchedule over the
+    dispatch, commit, allocator and swap sites with 16 requests each (a
+    pool that preempts and swaps):
+    every request ends, the pool is accounted, one fault_<site> journal
+    event per injected fault."""
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig, GenRequest
+    from localai_tpu_torch.testing import faults
+
+    def fresh():
+        e = Engine(cfg, params, tokenizer, device="cuda",
+                   engine_cfg=EngineConfig(**OBSERVE_FAULT_ENGINE))
+        e.start()
+        return e
+
+    # One request: its admission fires device_dispatch twice (calls 1-2),
+    # its first block a third time.
+    short = [[(11 + j) % 250 + 1 for j in range(100)]]
+
+    def run(e, reqs):
+        hs = [e.submit(r) for r in reqs]
+        evs = [list(h) for h in hs]
+        return [ev[-1].kind for ev in evs], [[x.token_id for x in ev if x.kind == "token"]
+                                             for ev in evs]
+
+    greedy = [GenRequest(prompt_ids=p, max_new_tokens=20, ignore_eos=True) for p in short]
+    t_seams = time.monotonic()
+    eng = fresh()
+    seams = {}
+    try:
+        for when, site, after in (("uncaptured", "device_dispatch", 2),
+                                  ("uncaptured", "control_commit", 0),
+                                  ("clean", None, 0),
+                                  ("replay", "device_dispatch", 2),
+                                  ("replay", "control_commit", 0),
+                                  ("again", None, 0)):
+            g0 = eng.metrics()["decode_graph_captures"]
+            if site is None:
+                kinds, ids = run(eng, greedy)
+            else:
+                with faults.active(faults.ChaosScript(0, [faults.ChaosPhase(site, after)],
+                                                      threads={eng._thread.ident})):
+                    kinds, ids = run(eng, greedy)
+            g1 = eng.metrics()["decode_graph_captures"]
+            _obs_quiesced(eng, f"observe faults {when} {site}")
+            key = f"{when}_{site}" if site else when
+            seams[key] = dict(kinds=kinds, captures=int(g1 - g0), graphs=len(eng._graph_cache))
+            check(not torch.cuda.is_current_stream_capturing(),
+                  f"observe faults {key}: the stream is left capturing")
+            if site is None:
+                check(kinds == ["done"], f"observe faults {key}: {kinds}")
+                seams[key]["ids"] = ids
+            else:
+                check(kinds == ["error"] and g1 == g0,
+                      f"observe faults {key}: {kinds}, {g1 - g0} captures")
+        check(seams["clean"]["captures"] > 0 and seams["again"]["captures"] == 0
+              and seams["again"]["ids"] == seams["clean"]["ids"],
+              f"observe faults: the engine after the faults gives other ids or captures: "
+              f"{ {k: (v['kinds'], v['captures']) for k, v in seams.items()} }")
+        for v in seams.values():
+            v.pop("ids", None)
+    finally:
+        eng.stop()
+        eng.drop_device_state()
+    seams_s = time.monotonic() - t_seams
+    sweeps = []
+    for seed in OBSERVE_FAULT_SEEDS:
+        eng = fresh()
+        try:
+            sched = faults.FaultSchedule(seed, rate=0.05, sites=OBSERVE_FAULT_SITES,
+                                         max_faults=6, site_rates=OBSERVE_FAULT_RATES,
+                                         threads={eng._thread.ident})
+            gen = torch.Generator().manual_seed(seed)
+            reqs = [GenRequest(prompt_ids=torch.randint(0, 256, (n,), generator=gen).tolist(),
+                               max_new_tokens=OBSERVE_FAULT_NEW, ignore_eos=True,
+                               temperature=0.0 if i % 2 == 0 else 0.8, top_p=0.9, seed=i)
+                    for i, n in enumerate(OBSERVE_FAULT_PROMPTS)]
+            kinds: list = [None] * len(reqs)
+
+            def drain(i, h):
+                kinds[i] = list(h)[-1].kind
+
+            t0 = time.monotonic()
+            with faults.active(sched):
+                threads = [threading.Thread(target=drain, args=(i, eng.submit(r)))
+                           for i, r in enumerate(reqs)]
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join(timeout=max(1.0, OBSERVE_DEADLINE_S - (time.monotonic() - t0)))
+                wall = time.monotonic() - t0
+                check(all(not th.is_alive() for th in threads) and wall <= OBSERVE_DEADLINE_S,
+                      f"observe faults seed {seed}: a request did not end within "
+                      f"{OBSERVE_DEADLINE_S} s")
+                _obs_quiesced(eng, f"observe faults seed {seed}")
+            snap = eng.journal.snapshot()
+            journaled = {s: sum(e["event"] == f"fault_{s}" for e in snap)
+                         for s in OBSERVE_FAULT_SITES}
+            fired = {s: sched.fired[s] for s in OBSERVE_FAULT_SITES}
+            m = eng.metrics()
+            row = dict(seed=seed, requests=len(reqs), done=kinds.count("done"),
+                       error=kinds.count("error"), wall_s=wall, fired=fired,
+                       calls={s: sched.calls[s] for s in OBSERVE_FAULT_SITES},
+                       preemptions=int(m["kv_preemptions"]),
+                       swaps=int(m["kv_preempt_swaps"]), captures=int(m["decode_graph_captures"]))
+            sweeps.append(row)
+            check(all(k in ("done", "error") for k in kinds),
+                  f"observe faults seed {seed}: {kinds}")
+            check(journaled == fired,
+                  f"observe faults seed {seed}: journal {journaled} != injected {fired}")
+        finally:
+            eng.stop()
+            eng.drop_device_state()
+    check(sum(r["fired"][s] for r in sweeps for s in OBSERVE_FAULT_SITES) > 0
+          and sum(r["preemptions"] for r in sweeps) > 0,
+          f"observe faults: the three seeds injected no fault or never preempted: {sweeps}")
+    out = dict(seams=seams, seams_s=seams_s, sweeps=sweeps,
+               fired_by_site={s: sum(r["fired"][s] for r in sweeps) for s in OBSERVE_FAULT_SITES})
+    log("[observe faults] " + json.dumps(out))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _obs_memory() -> dict:
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return dict(allocated_gib=torch.cuda.memory_allocated() / 2**30,
+                reserved_gib=torch.cuda.memory_reserved() / 2**30)
+
+
+def _obs_restarts(base: str, manager, pm_dir: str) -> dict:
+    """engine_loop faults kill the served engine's loop three times with a
+    restart budget of 2: each death leaves a postmortem naming the dead
+    requests and the loop_dead gauge's postmortem label before the reap;
+    the first two restart transparently, the third quarantines (503 with
+    Retry-After) until the quarantine expires; memory after each restart.
+    Last, a fourth death with no traffic: the watchdog reaps it."""
+    from localai_tpu_torch.engine.engine import GenRequest
+    from localai_tpu_torch.testing import faults
+
+    chat = {"model": "obs-1b", "max_tokens": 8, "ignore_eos": True,
+            "messages": [{"role": "user", "content": "after the death"}]}
+
+    def kill(eng, cycle: int, traffic: bool) -> dict:
+        # The dying requests are mid-admission: 3000-token prompts whose
+        # chunks hold slots and pages (a restarted engine would otherwise
+        # spend the kill capturing its first 64-step block's graph).
+        hs = []
+        if traffic:
+            hs = [eng.submit(GenRequest(prompt_ids=[(cycle * 31 + i * 7 + j) % 250 + 1
+                                                    for j in range(3000)],
+                                        max_new_tokens=64, ignore_eos=True,
+                                        request_id=f"death-{cycle}-{i}")) for i in range(2)]
+            deadline = time.monotonic() + 60
+            while time.monotonic() < deadline and sum(
+                    s is not None for s in eng.slots) < 2:
+                time.sleep(0.002)
+        with faults.active(faults.FaultSchedule(cycle, rate=1.0, sites=("engine_loop",),
+                                                max_faults=1, threads={eng._thread.ident})):
+            eng._wake.set()
+            deadline = time.monotonic() + 60
+            while not eng.is_dead and time.monotonic() < deadline:
+                time.sleep(0.01)
+            check(eng.is_dead, f"observe restart {cycle}: the engine_loop fault did not kill it")
+            eng._thread.join(timeout=60)
+        kinds = [list(h)[-1].kind for h in hs]
+        check(all(k == "error" for k in kinds), f"observe restart {cycle}: {kinds}")
+        check(len(eng._free_pages) == eng.ecfg.kv_pages and eng._host_bytes == 0,
+              f"observe restart {cycle}: the dead engine's pool is not released")
+        pm_path = eng.postmortem_path
+        check(pm_path.startswith(pm_dir) and os.path.isfile(pm_path),
+              f"observe restart {cycle}: no postmortem in {pm_dir}: {pm_path!r}")
+        with open(pm_path) as f:
+            pm = json.load(f)
+        named = {s["rid"] for s in pm["slots"]} | set(pm["pending"])
+        want = {f"death-{cycle}-{i}" for i in range(len(hs))}
+        check(want <= named and pm["pool"]["free_pages"] == eng.ecfg.kv_pages,
+              f"observe restart {cycle}: the postmortem names {sorted(named)}, not {sorted(want)}")
+        st, _h, metrics = _http_call(base, "GET", "/metrics")
+        line = f'localai_engine_loop_dead{{model="obs-1b",postmortem="{pm_path}"}} 1.0'
+        check(st == 200 and line in metrics,
+              f"observe restart {cycle}: /metrics lacks the loop_dead gauge's postmortem label")
+        return dict(postmortem=os.path.basename(pm_path), dead_requests=sorted(named),
+                    journal_tail=len(pm["journal"]), postmortem_bytes=os.path.getsize(pm_path))
+
+    def settle(old) -> None:
+        deadline = time.monotonic() + 60  # the reaped engine's teardown thread
+        while old.params is not None and time.monotonic() < deadline:
+            time.sleep(0.05)
+
+    cycles = []
+    for cycle in (1, 2, 3):
+        old = manager.get("obs-1b").engine
+        t_kill = time.monotonic()
+        row = dict(cycle=cycle, **kill(old, cycle, traffic=True))
+        row["kill_s"] = time.monotonic() - t_kill
+        t0 = time.monotonic()
+        st, hdrs, body = _http_call(base, "POST", "/v1/chat/completions", chat)
+        row.update(status=st, chat_after_death_s=time.monotonic() - t0)
+        if cycle < 3:
+            check(st == 200, f"observe restart {cycle}: HTTP {st} after the death: {body}")
+        else:
+            row["retry_after"] = hdrs.get("Retry-After")
+            check(st == 503 and int(hdrs.get("Retry-After", "0")) >= 1,
+                  f"observe restart 3: HTTP {st} (Retry-After {hdrs.get('Retry-After')}), "
+                  f"not a 503 quarantine: {body}")
+            time.sleep(OBSERVE_APP["quarantine_s"] + 0.5)
+            st, _h, body = _http_call(base, "POST", "/v1/chat/completions", chat)
+            row["status_after_quarantine"] = st
+            check(st == 200, f"observe restart 3: HTTP {st} once the quarantine expired")
+        t_settle = time.monotonic()
+        settle(old)
+        del old
+        row.update(_obs_memory(), stats=manager.restart_stats("obs-1b"),
+                   settle_s=time.monotonic() - t_settle)
+        log("[observe restart] " + json.dumps(row))
+        cycles.append(row)
+    check(abs(cycles[2]["allocated_gib"] - cycles[0]["allocated_gib"])
+          <= 0.05 * cycles[0]["allocated_gib"],
+          f"observe restart: allocated memory after the third cycle "
+          f"{cycles[2]['allocated_gib']:.3f} GiB is not within 5 % of the first's "
+          f"{cycles[0]['allocated_gib']:.3f}")
+    # A death with no traffic: the watchdog reaps it.
+    old = manager.get("obs-1b").engine
+    kill(old, 4, traffic=False)
+    manager.app_cfg.watchdog_interval_s = 0.2
+    manager.app_cfg.watchdog_busy_timeout_s = 3600.0
+    t0 = time.monotonic()
+    manager.ensure_watchdog()
+    while manager.peek("obs-1b") is not None and time.monotonic() - t0 < 30:
+        time.sleep(0.05)
+    reaped_s = time.monotonic() - t0
+    check(manager.peek("obs-1b") is None, "observe: the watchdog never reaped the dead engine")
+    settle(old)
+    del old
+    stats = manager.restart_stats("obs-1b")
+    check(stats["restarts_total"] == 4, f"observe: restart stats {stats}")
+    return dict(cycles=cycles, watchdog_reap_s=reaped_s, stats=stats,
+                memory_after=_obs_memory())
+
+
+def phase_observe() -> dict:
+    """llama-3.2-1b bf16 at full width and depth (16 layers) on the paged
+    config, served by ModelManager and the port's HTTP server with the
+    journal (4096 events), trace_fence, a postmortem directory and a
+    profile directory: traces, the timeline, a profile window, the
+    journal's cost, faults, and crash-only restart and quarantine."""
+    import yaml
+
+    from localai_tpu_torch.config import ApplicationConfig
+    from localai_tpu_torch.server import ModelManager, OpenAIApi, Router, create_server
+
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        pm_dir, prof_dir = f"{root}/postmortems", f"{root}/profiles"
+        with open(f"{root}/obs-1b.yaml", "w") as f:
+            yaml.safe_dump(OBSERVE_YAML, f)
+        app = ApplicationConfig(address="127.0.0.1", port=0, models_dir=root,
+                                trace_fence=True, postmortem_dir=pm_dir, profile_dir=prof_dir,
+                                **OBSERVE_APP)
+        manager = ModelManager(app, device="cuda")
+        router = Router()
+        OpenAIApi(manager).register(router)
+        server = create_server(app, router)
+        threading.Thread(target=server.serve_forever, daemon=True, name="http").start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        seconds = {}
+
+        def part(name, fn, *args):
+            t0 = time.monotonic()
+            out[name] = fn(*args)
+            seconds[name] = round(time.monotonic() - t0, 1)
+
+        try:
+            t0 = time.monotonic()
+            eng = manager.get("obs-1b").engine
+            seconds["load"] = round(time.monotonic() - t0, 1)
+            check(eng._trace_fence and eng.journal.capacity == 4096
+                  and eng.ecfg.postmortem_dir == pm_dir,
+                  "observe: the server's observability settings did not reach the engine")
+            part("traces", _obs_traces, base, eng)
+            part("timeline", _obs_timeline, base)
+            part("profile", _obs_profile, base, eng, prof_dir)
+            part("journal_cost", _obs_journal_cost, eng)
+            st, _h, sysinfo = _http_call(base, "GET", "/system")
+            check(st == 200 and sysinfo["sysinfo"]["device_count"] >= 1
+                  and sysinfo["backends"]["obs-1b"]["loop_dead"] == 0.0,
+                  f"observe: /system answered {st}")
+            out["system"] = dict(devices=sysinfo["devices"],
+                                 memory_free_gib=sysinfo["sysinfo"]["devices"][0][
+                                     "memory_free_bytes"] / 2**30)
+            part("faults", _obs_faults, eng.params, eng.cfg, eng.tokenizer)
+            del eng
+            part("restarts", _obs_restarts, base, manager, pm_dir)
+            out["seconds"] = seconds
+        finally:
+            server.shutdown()
+            manager.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary = {k: {kk: vv for kk, vv in v.items() if kk != "run"} for k, v in out.items()}
+    log(json.dumps({"observe": summary}))
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
@@ -5368,6 +6048,7 @@ def main() -> None:
     prefix = timed("prefix_swap", phase_prefix_swap, model["small"], model["p_small"])
     grammar = timed("grammar", phase_grammar)
     tree = timed("tree", phase_tree, model["small"], model["p_small"])
+    observe = timed("observe", phase_observe)
     qmodel = timed("quant_model", phase_quant_model, gen)
     qruns = timed("quant_engines", phase_quant_engines, qmodel, model["small"],
                   model["p_small"], model["p_small_cpu"])
@@ -5418,7 +6099,8 @@ def main() -> None:
             "deepseek_v2_lite": deepseek["graph"], "deepseek_v2_lite_eager": deepseek["eager"],
             "deepseek_v2_lite_prefix_hit": deepseek["graph"]["follow"],
             "deepseek_v2_lite_dense": deepseek["dense"],
-            "deepseek_v2_lite_int4_8_layers": deepseek_int4}
+            "deepseek_v2_lite_int4_8_layers": deepseek_int4,
+            "observe_1b": observe["traces"]["run"]}
     by_path = {k: {path: out["launches"].get(k, 0) for path, out in runs.items()}
                for k in ("flash_prefill", "paged_attention", "paged_attention_latent",
                          "quant_matmul", "quant_matmul_moe", "quant_unembed", "lora_bgmv",

@@ -4,7 +4,8 @@ Reference: core/config/application_config.go (461 LoC, functional AppOption
 pattern fed by ~70 kong CLI flags with env aliases, core/cli/run.go:23-120).
 Here: one dataclass, populated from env vars (LOCALAI_*) and/or CLI args.
 These are deployment settings (address, port, models dir, keys, cluster
-knobs); none of them routes kernel work. The port has no model gallery, so
+knobs, the journal, fence, profile and fault-schedule switches); none of
+them routes kernel work. The port has no model gallery, so
 `galleries` is empty unless LOCALAI_GALLERIES names some.
 """
 
@@ -104,6 +105,19 @@ class ApplicationConfig:
     # snapshot). "" = a stable tempdir child. Forwarded to every engine
     # through the manager; LOCALAI_POSTMORTEM_DIR overrides either way.
     postmortem_dir: str = ""
+    # Observability and faults (docs/OBSERVABILITY.md), the variables the
+    # JAX engine and server read themselves; the port reads them here
+    # only. trace_journal (LOCALAI_TRACE_JOURNAL) overrides every model's
+    # trace_journal_events (None = each model's own); trace_fence
+    # (LOCALAI_TRACE_FENCE) turns on fenced device times in every engine;
+    # profile_dir (LOCALAI_PROFILE) allows /debug/profile capture windows
+    # into that directory; faults (LOCALAI_FAULTS, "seed:7,rate:0.05,
+    # max:4,sites:a|b") arms a seeded fault schedule at ModelManager
+    # construction.
+    trace_journal: Optional[int] = None
+    trace_fence: bool = False
+    profile_dir: str = ""
+    faults: str = ""
 
     cors: bool = True
     metrics: bool = True
@@ -182,6 +196,10 @@ class ApplicationConfig:
             num_processes=_env("LOCALAI_NUM_PROCESSES", cls.num_processes, int),
             process_id=_env("LOCALAI_PROCESS_ID", cls.process_id, int),
             postmortem_dir=_env("LOCALAI_POSTMORTEM_DIR", cls.postmortem_dir),
+            trace_journal=_env("LOCALAI_TRACE_JOURNAL", cls.trace_journal, int),
+            trace_fence=_env("LOCALAI_TRACE_FENCE", cls.trace_fence, bool),
+            profile_dir=_env("LOCALAI_PROFILE", cls.profile_dir),
+            faults=_env("LOCALAI_FAULTS", cls.faults),
             cors=_env("LOCALAI_CORS", True, bool),
             metrics=not _env("LOCALAI_DISABLE_METRICS", False, bool),
             debug=_env("LOCALAI_DEBUG", False, bool),

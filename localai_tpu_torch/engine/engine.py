@@ -116,6 +116,19 @@ number of KV-cache slots by one loop thread ("engine-loop"):
   hold-back; every generated token posts exactly one event, and every
   request ends with exactly one terminal event (done or error) on every
   exit path: finish, cancel, stop(), a failed dispatch, loop death.
+- Observability (observe/): the loop owns a bounded event journal
+  (`trace_journal_events`; `journal`), appended lock-free at every
+  lifecycle step and coalesced once a loop window with its host-phase
+  vector (engine/runtime.LoopPhases); a request with a `request_id` or a
+  `traceparent` records a span tree in observe/trace.STORE, ended by its
+  one terminal event. With `trace_fence` each block's device time comes
+  from a CUDA event pair read after the block's own host read. When the
+  loop dies, every pool page and host-tier byte is released before any
+  caller unblocks, and a postmortem JSON (journal tail, host state only)
+  goes to `postmortem_dir` (`postmortem_path`).
+- Fault sites (testing/faults): one `faults.fire(site)` at each seam the
+  JAX package hooks, all in host code before a graph capture or replay; a
+  seeded FaultSchedule drives the containment paths.
 
 Sampling noise is a pure function of the slot's seed (the request's, or
 one drawn from the OS when it has none), kept on the device, and of the
@@ -126,15 +139,18 @@ generator state, so it can be captured. The reference's threefry streams
 are not reproduced.
 
 Not ported yet (ROADMAP Queue A): CUDA graphs of admission and prefill
-chunks and pipelined dispatch (item 1), the event journal (item 11), the
+chunks and pipelined dispatch with its control stager (item 1), the
 export and import of prefix spans between replicas (the cluster, with
-its mid-stream grammar failover; item 12), rerank's
-`sequence_logprob` (item 13), tp and sequence-parallel prefill (item
-14). The reference's prefix_admit_async_compile has no counterpart: a
-cached admission runs eagerly and compiles nothing; nor have its
+its mid-stream grammar failover, its fault sites and journal events; item
+12), rerank's `sequence_logprob` (item 13), tp and sequence-parallel
+prefill with the `collective_dispatch` fault site (item 14). The
+reference's prefix_admit_async_compile has no counterpart: a cached
+admission runs eagerly and compiles nothing; nor have its
 LOCALAI_GRAMMAR_DFA, LOCALAI_QUEUE_TIMEOUT, LOCALAI_DEADLINE,
-LOCALAI_FORK_SAMPLING and LOCALAI_SPEC_* switches: the port reads no
-environment variable.
+LOCALAI_FORK_SAMPLING and LOCALAI_SPEC_* switches: the engine reads no
+environment variable (the server's LOCALAI_TRACE_JOURNAL,
+LOCALAI_TRACE_FENCE and LOCALAI_POSTMORTEM_DIR arrive through
+config/app_config.py and the manager).
 """
 
 from __future__ import annotations
@@ -155,7 +171,7 @@ import torch
 from localai_tpu_torch import kernels
 from localai_tpu_torch.device import resolve_device
 from localai_tpu_torch.engine import speclookup
-from localai_tpu_torch.engine.runtime import DeadlineIndex
+from localai_tpu_torch.engine.runtime import DeadlineIndex, LoopPhases
 from localai_tpu_torch.engine.weights import load_lora_factors, lora_target_dims
 from localai_tpu_torch.models import llama
 from localai_tpu_torch.models.config import ArchConfig
@@ -164,6 +180,10 @@ from localai_tpu_torch.functions import dfa as dfa_mod
 from localai_tpu_torch.functions.dfa import MAX_TOK_LEN
 from localai_tpu_torch.functions.gbnf import GbnfConstraint
 from localai_tpu_torch.functions.jsonschema import GrammarConstraint
+from localai_tpu_torch.observe import postmortem as opostmortem
+from localai_tpu_torch.observe import trace as otrace
+from localai_tpu_torch.observe.fence import DeviceFence
+from localai_tpu_torch.observe.journal import EventJournal
 from localai_tpu_torch.ops import grammar as _gr
 from localai_tpu_torch.ops import ptable as _pt
 from localai_tpu_torch.ops.sampling import (
@@ -178,6 +198,7 @@ from localai_tpu_torch.ops.sampling import (
     update_counts,
     verify_step,
 )
+from localai_tpu_torch.testing import faults
 
 log = logging.getLogger("localai_tpu_torch.engine")
 
@@ -212,6 +233,23 @@ _SAMPLING_FIELDS = (
     "presence_penalty",
     "frequency_penalty",
 )
+
+
+# One side stream a device for every engine's first runs and graph
+# captures, and a lock that keeps two engines' captures off it at once.
+# cuBLAS keeps a workspace for every (handle, stream) it has run on (32 MiB
+# on Hopper) for the life of the process: a stream of each engine's own
+# would leak one workspace for every engine a crash-only restart loads.
+_CAPTURE_STREAMS: dict = {}
+_CAPTURE_LOCK = threading.Lock()
+
+
+def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    with _CAPTURE_LOCK:
+        stream = _CAPTURE_STREAMS.get(device)
+        if stream is None:
+            stream = _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+        return stream
 
 
 def _sampling_params(rows: torch.Tensor) -> SamplingParams:
@@ -337,6 +375,22 @@ class EngineConfig:
     # A round's draft window is the smallest of these covering its longest
     # per-slot draft (one graph per bucket); () = {0, n_draft // 2, n_draft}.
     spec_draft_buckets: tuple[int, ...] = ()
+    # Request-lifecycle event journal: capacity (in events) of the loop's
+    # preallocated ring — queued / admitted / chunk / decode-block /
+    # preempt / swap / resume / prefix-hit / terminal events plus one
+    # coalesced record a loop window. Appends are lock-free from the loop
+    # thread, O(1) and never touch the device. 0 disables the journal (and
+    # with it /debug/timeline and the postmortem's journal tail).
+    trace_journal_events: int = 4096
+    # Fenced per-block device time: each decode block or round is
+    # bracketed by a CUDA event pair whose elapsed time (read after the
+    # block's own host read, so no extra synchronisation) rides the
+    # journal's loop_iter record. A measurement mode; 0.0 on the CPU.
+    trace_fence: bool = False
+    # Flight-recorder directory: where the dying loop writes its
+    # postmortem JSON (journal tail + host-state snapshot). "" = a stable
+    # tempdir child (observe/postmortem.default_dir).
+    postmortem_dir: str = ""
 
     def cache_dtype(self, model_dtype: torch.dtype) -> torch.dtype:
         table = {
@@ -393,6 +447,13 @@ class GenRequest:
     # request is shed with an error event; active, it is cancelled. 0 =
     # the engine default (EngineConfig.deadline_s), which may be 0 too.
     deadline_s: float = 0.0
+    # Request-lifecycle tracing: a caller-visible request id (the OpenAI
+    # response id at the HTTP layer) keys the span tree at
+    # /debug/trace/{request_id}; traceparent is the W3C header value the
+    # trace id comes from. Both empty = untraced (library callers pay
+    # nothing but a journal id).
+    request_id: str = ""
+    traceparent: str = ""
     # Set by submit_fork() on a group's primary: [(branch request, branch
     # handle), ...] forked off its slot right after its prefill. Every path
     # that ends a pending primary also ends or requeues these. Callers
@@ -422,16 +483,39 @@ class TokenEvent:
     top_logprobs: Optional[list] = None  # [(token_id, logprob)] descending
 
 
+class _EventQueue(queue.Queue):
+    """Token-event queue that mirrors TERMINAL events into the request's
+    trace. Every path that ends a stream — finish, cancel, deadline sweeps,
+    loop death, stop() — puts its terminal event here, so each traced
+    request records exactly one terminal (RequestTrace.terminal is
+    idempotent; stop()'s duplicate done events are ignored). Untraced
+    requests pay one attribute check per event."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.trace: Optional[otrace.RequestTrace] = None
+
+    def put(self, item, *args, **kwargs):
+        tr = self.trace
+        if tr is not None and getattr(item, "kind", None) in ("done", "error"):
+            tr.terminal(item)
+        super().put(item, *args, **kwargs)
+
+
 class RequestHandle:
     """Streaming consumer side of a submitted request."""
 
     def __init__(self) -> None:
-        self._q: "queue.Queue[TokenEvent]" = queue.Queue()
+        self._q: _EventQueue = _EventQueue()
         self.cancelled = threading.Event()
         self.t_submit: float = 0.0
         self.t_admit: float = 0.0
         # Absolute monotonic deadline (submit + deadline_s), or None.
         self.deadline: Optional[float] = None
+        # The journal's request id (the request's request_id, else one
+        # made from the handle) and the span tree (None = untraced).
+        self.rid: str = ""
+        self.trace: Optional[otrace.RequestTrace] = None
 
     def __iter__(self) -> Iterator[TokenEvent]:
         while True:
@@ -522,6 +606,8 @@ class Engine:
             raise ValueError("adapter_cache_bytes must be >= 0")
         if ecfg.kv_preempt not in ("swap", "recompute", "auto"):
             raise ValueError(f"kv_preempt={ecfg.kv_preempt!r}: use swap|recompute|auto")
+        if ecfg.trace_journal_events < 0:
+            raise ValueError("trace_journal_events must be >= 0 (0 = off)")
         self._check_paged_config(ecfg)
         self._check_long_context(cfg, ecfg)
         if (cfg.attention_sink, cfg.attention_window) != (ecfg.attention_sink,
@@ -805,6 +891,19 @@ class Engine:
         self.m_fork_clone_fallbacks = 0  # branches that admitted as clones
         self._decode_tokens = 0
         self._decode_time = 0.0
+        # Observability: the loop-owned event journal (None = off), the
+        # fence's CUDA event pair, the per-iteration host-phase accumulator
+        # of the coalesced loop_iter record, and the path of the flight-
+        # recorder dump (set when the loop dies).
+        self._journal = (EventJournal(ecfg.trace_journal_events)
+                         if ecfg.trace_journal_events > 0 else None)
+        self._trace_fence = bool(ecfg.trace_fence)
+        self._fence = DeviceFence(self.device) if self._trace_fence else None
+        self._last_fence_ms = 0.0
+        self._phases = LoopPhases()
+        self._postmortem_path = ""
+        self.m_loop_host_ms = 0.0
+        self.m_loop_blocks = 0
 
     @staticmethod
     def _check_long_context(cfg: ArchConfig, ecfg: EngineConfig) -> None:
@@ -953,6 +1052,24 @@ class Engine:
             # again once the model is gone.
             dfa_mod.unpin(self._tok_fp)
 
+    def drop_device_state(self) -> None:
+        """Drop every reference this (stopped) engine holds on device
+        memory — weights, caches, prefix copies, adapter stacks and the
+        captured graphs with their private pool — so the memory returns to
+        the allocator now, not whenever the engine object is collected (a
+        manager reaping a dead engine loads its successor meanwhile)."""
+        if self._thread is not None and self._thread.is_alive():
+            raise RuntimeError("drop_device_state() needs a stopped engine")
+        self._graph_cache = {}
+        self._graph_pool = self._graph_stream = None
+        self.params = self.draft_params = None
+        self.cache = self.d_cache = self.sd_cache = None
+        self._prefix_entries = []
+        self._prefix_host = []
+        self._lora_tree = None
+        self._dfa = None
+        self._g_mask = self._g_trans = self._g_next = self._g_cls = None
+
     def clear_prefix_cache(self) -> None:
         """Drop every prefix entry of both tiers, returning their pages and
         table pages. Needs a stopped engine (or the loop thread): the
@@ -1000,27 +1117,43 @@ class Engine:
         handle = self._new_handle(request)
         # The dead check and the append share _pending_lock with the loop's
         # set-dead-and-drain: a submit either sees the death or is drained.
-        with self._pending_lock:
-            dead = self._loop_dead
-            if dead is None:
-                if self.ecfg.max_pending and len(self._pending) >= self.ecfg.max_pending:
-                    self.m_queue_shed += 1
-                    raise QueueFullError(len(self._pending), self.ecfg.max_pending,
-                                         max(1.0, self._admit_wait_ewma))
-                self._pending.append((request, handle))
+        try:
+            with self._pending_lock:
+                dead = self._loop_dead
+                if dead is None:
+                    if self.ecfg.max_pending and len(self._pending) >= self.ecfg.max_pending:
+                        self.m_queue_shed += 1
+                        raise QueueFullError(len(self._pending), self.ecfg.max_pending,
+                                             max(1.0, self._admit_wait_ewma))
+                    self._pending.append((request, handle))
+        except QueueFullError as e:
+            # The handle never reaches a consumer: its trace ends here.
+            if handle.trace is not None:
+                handle.trace.terminal(TokenEvent(kind="error", error=str(e)))
+            raise
         if dead is not None:
             handle._q.put(TokenEvent(kind="error", error=dead))
             return handle
+        self._jstage("queued", rid=handle.rid, a=float(len(request.prompt_ids)))
         self._wake.set()
         self.start()
         return handle
 
     def _new_handle(self, request: GenRequest) -> RequestHandle:
-        """A request's handle, its deadline (the request's, else the
-        engine default) and queue-timeout expiry pushed on the index the
-        loop's wait reads."""
+        """A request's handle: its journal id and (with a request_id or a
+        traceparent) its span tree in observe/trace.STORE, its deadline
+        (the request's, else the engine default) and queue-timeout expiry
+        pushed on the index the loop's wait reads."""
         handle = RequestHandle()
         handle.t_submit = time.monotonic()
+        handle.rid = request.request_id or f"h{id(handle):x}"
+        if request.request_id or request.traceparent:
+            tr = otrace.RequestTrace(handle.rid, traceparent=request.traceparent,
+                                     engine=self.cfg.name)
+            handle.trace = tr
+            handle._q.trace = tr
+            otrace.STORE.register(tr)
+            tr.note("queued", prompt_tokens=len(request.prompt_ids))
         deadline_s = request.deadline_s or self.ecfg.deadline_s
         if deadline_s > 0:
             handle.deadline = handle.t_submit + deadline_s
@@ -1114,7 +1247,18 @@ class Engine:
             "decode_graph_capture_s": float(self.m_graph_capture_s),
             "admit_wait_ms": float(self._admit_wait_ewma * 1000.0),
             "loop_dead": 1.0 if self._loop_dead is not None else 0.0,
+            # Host ms the loop windows that dispatched a block spent outside
+            # their wait phase (the journal's loop_iter records).
+            "loop_blocks": float(self.m_loop_blocks),
+            "loop_host_ms_total": float(self.m_loop_host_ms),
+            "loop_host_overhead_per_block_ms": float(
+                self.m_loop_host_ms / max(self.m_loop_blocks, 1)),
         }
+        if self._journal is not None:
+            # Journal health: events recorded, and cross-thread events a
+            # stalled writer dropped.
+            out["journal_events"] = float(self._journal.n)
+            out["journal_dropped"] = float(self._journal.dropped_staged)
         if self.m_dfa_tokens:
             out["grammar_dfa_tokens"] = float(self.m_dfa_tokens)
         if self._spec_mode != "off":
@@ -1149,6 +1293,85 @@ class Engine:
             out["adapter_evictions"] = float(self.m_adapter_evictions)
         return out
 
+    # ------------------------------------------------------------------ #
+    # Lifecycle journal, traces, postmortem
+    # ------------------------------------------------------------------ #
+
+    @property
+    def journal(self) -> Optional[EventJournal]:
+        """The engine's event journal (None when trace_journal_events=0);
+        /debug/timeline renders it as a Perfetto-loadable trace."""
+        return self._journal
+
+    @property
+    def postmortem_path(self) -> str:
+        """Path of the flight-recorder dump written when the loop died
+        ("" while alive); rides the loop_dead gauge labels."""
+        return self._postmortem_path
+
+    def _jnote(self, event: str, rid: str = "", slot: int = -1,
+               a: float = 0.0, b: float = 0.0, phases=None) -> None:
+        """Loop-thread journal append (lock-free; no-op when disabled).
+        `phases` (loop_iter only) is the LOOP_PHASES-ordered ms vector."""
+        j = self._journal
+        if j is not None:
+            j.append(event, rid=rid, slot=slot, a=a, b=b, phases=phases)
+
+    def _jstage(self, event: str, rid: str = "", slot: int = -1,
+                a: float = 0.0, b: float = 0.0) -> None:
+        """Cross-thread journal emit (submit): staged into the journal's
+        sidecar, drained by the loop thread in order."""
+        j = self._journal
+        if j is not None:
+            j.stage(event, rid=rid, slot=slot, a=a, b=b)
+
+    def _jnote_fault(self, e: BaseException) -> None:
+        """Journal an injected fault under its site's event type
+        (fault_<site>); real failures journal as "error" only."""
+        if not isinstance(e, faults.InjectedFault):
+            return
+        msg = str(e)
+        for site in faults.SITES:
+            if f"at {site} " in msg:
+                self._jnote("fault_" + site)
+                return
+
+    def _write_postmortem(self, reason: str, live: list, pending_rids: list) -> str:
+        """Flight-recorder dump of a dead loop: the journal tail and a
+        snapshot of host state only (no device read, so it survives a
+        poisoned CUDA context). Runs on the dying loop thread, after the
+        pool was released and the terminal events posted."""
+        j = self._journal
+        payload = {
+            "reason": reason,
+            "engine": self.cfg.name,
+            "wall_time": time.time(),
+            "slots": [
+                {"slot": i, "rid": rid, "generated": gen, "prompt_len": plen}
+                for i, rid, gen, plen in live
+            ],
+            "pending": list(pending_rids),
+            "pending_depth": len(pending_rids),
+            "pool": {
+                "kv_pages": int(self.ecfg.kv_pages),
+                "free_pages": len(self._free_pages),
+                "host_tier_bytes": int(self._host_bytes),
+                "spilled_pages": int(sum(len(d) for d in self._slot_spill)),
+                "spill_bytes": int(self._spill_bytes),
+                "prefix_entries": len(self._prefix_entries),
+                "prefix_host_entries": len(self._prefix_host),
+            },
+            "config": {
+                "max_slots": self.ecfg.max_slots,
+                "max_seq": self.ecfg.max_seq,
+                "kv_page_size": self.ecfg.kv_page_size,
+                "prefill_chunk": self.ecfg.prefill_chunk,
+                "tensor_parallel": 1,
+            },
+            "journal": j.snapshot(last=512) if j is not None else [],
+        }
+        return opostmortem.write(self.ecfg.postmortem_dir, self.cfg.name, payload)
+
     def _weight_bytes(self) -> int:
         """Bytes of the parameters on the device (payloads and scales)."""
         def size(t) -> int:
@@ -1169,7 +1392,10 @@ class Engine:
 
     def _loop_guard(self) -> None:
         """Run the loop; if it dies, fail every live and pending request
-        with an error event instead of leaving its caller blocked."""
+        with an error event instead of leaving its caller blocked. The pool
+        and the host tier are released BEFORE any terminal event posts (a
+        caller that unblocks may assert at once that the pool is fully
+        accounted), and the postmortem is written from host state only."""
         try:
             self._loop()
         except BaseException as e:  # noqa: BLE001 — terminal: report and drain
@@ -1178,55 +1404,141 @@ class Engine:
             with self._pending_lock:
                 self._loop_dead = err
                 pending, self._pending = list(self._pending), deque()
-            for i, slot in enumerate(self.slots):
-                if slot is not None:
-                    slot.handle._q.put(TokenEvent(kind="error", error=err))
-                    self._fork_group_fail(slot.request, TokenEvent(kind="error", error=err))
-                    self._release(i)
-            for req, handle in pending:
-                self._resume_discard(req)
-                handle._q.put(TokenEvent(kind="error", error=err))
-                self._fork_group_fail(req, TokenEvent(kind="error", error=err))
+            # The dying request set, captured before the teardown clears
+            # it: the postmortem names exactly what was live and pending.
+            live_slots = [(i, s) for i, s in enumerate(self.slots) if s is not None]
+            live_snapshot = [(i, s.handle.rid, len(s.generated), s.prompt_len)
+                             for i, s in live_slots]
+            pending_rids = [h.rid for _r, h in pending]
+            try:
+                for request, _handle in pending:
+                    self._resume_discard(request)
+                self._release_all_state()
+            except Exception:  # noqa: BLE001 — best effort on a dead engine
+                log.exception("post-death state release failed")
+            ev = TokenEvent(kind="error", error=err)
+            for _i, slot in live_slots:
+                slot.handle._q.put(dataclasses.replace(ev))
+                self._fork_group_fail(slot.request, ev)
+            for request, handle in pending:
+                handle._q.put(dataclasses.replace(ev))
+                self._fork_group_fail(request, ev)
             with self._fork_lock:
                 staged, self._fork_requests = self._fork_requests, []
             for _src, _seeds, handles in staged:
                 for bh in handles:
-                    bh._q.put(TokenEvent(kind="error", error=err))
+                    bh._q.put(dataclasses.replace(ev))
+            # Flight recorder: this thread is the journal's writer, so the
+            # final events and the dump race nothing.
+            try:
+                j = self._journal
+                if j is not None:
+                    j.drain_staged()
+                self._jnote("loop_dead", a=float(len(live_snapshot)),
+                            b=float(len(pending_rids)))
+                self._jnote_fault(e)
+                self._postmortem_path = self._write_postmortem(err, live_snapshot,
+                                                               pending_rids)
+                log.error("engine postmortem written to %s", self._postmortem_path)
+            except Exception:  # noqa: BLE001 — the dump must not mask the crash
+                log.exception("postmortem write failed")
+
+    def _release_all_state(self) -> None:
+        """Drop every slot's, chunked admission's and prefix entry's claim
+        on the page pool, the adapter rows and the host tier after a loop
+        death. Host bookkeeping only (no device read or sync): it must
+        work on a CUDA context a real fault poisoned."""
+        self._chunkings = []
+        self._growth_blocked = False
+        for i in range(self.ecfg.max_slots):
+            self._release(i)
+        if len(self._adapter_refs):
+            self._adapter_refs[:] = 0
+        for entry in self._prefix_entries:
+            self._prefix_drop(entry)
+        self._prefix_entries = []
+        self._prefix_host = []
+        self._host_bytes = 0
+        self._spill_bytes = 0
 
     def _loop(self) -> None:
+        ph = self._phases
         while not self._shutdown.is_set():
+            faults.fire("engine_loop")  # an injected loop death
+            ph.mark()
+            ph.iters += 1
+            did = processed = False
+            jr = self._journal
+            if jr is not None:
+                # Cross-thread events (queued) into the single-writer ring.
+                jr.drain_staged()
+            ph.lap("drain")
             self._deadlines.due(time.monotonic())  # pops what expired
             self._purge_pending()
             self._enforce_deadlines()
             self._finish_cancelled()
+            ph.lap("purge")
             self._service_forks()
+            ph.lap("housekeeping")
             if self._growth_blocked and not self.h_active.any():
                 # The growth-starved slots are gone: nothing waits on pages.
                 self._growth_blocked = False
             progressed = self._admit_pending()
+            ph.lap("admit")
             if self.h_active.any() and self._has_unscheduled():
                 progressed = True
                 try:
-                    if not self._run_block():
+                    did = self._run_block()
+                    if not did:
                         # The pool cannot cover the block's page growth:
                         # free the youngest slot's pages so the rest go on.
                         self._preempt_youngest()
+                        ph.lap("prep")
                 except Exception as e:  # noqa: BLE001 — fail requests, not the loop
                     self._fail_block(e)
+                    ph.lap("dispatch")
+                processed = did
             # At most one prefill chunk between two decode blocks.
             progressed = self._advance_chunked() or progressed
+            ph.lap("dispatch")
             self._spill_cold_pages()
+            ph.lap("housekeeping")
             if not progressed:
                 # Wake at the earliest deadline, so an idle engine still
                 # sheds a pending request on time.
                 due = self._deadlines.next_due() - time.monotonic()
                 self._wake.wait(timeout=min(0.05, max(due, 0.0)))
                 self._wake.clear()
+                ph.lap("wait")
+            self._flush_loop_iter(did, processed)
+
+    def _flush_loop_iter(self, did: bool, processed: bool) -> None:
+        """Coalesced loop_iter emission: every host millisecond lands in
+        exactly one loop_iter window, attributed by phase. A window closes
+        on a dispatched block, or after ~25 ms of quiet waiting; a pure
+        idle window is dropped, so a long-idle server never evicts the
+        lifecycle events a postmortem needs. Under trace_fence a window
+        that dispatched carries the block's fenced device ms in `b`."""
+        ph = self._phases
+        host_ms = ph.total()  # excludes the wait phase
+        if not (did or processed) and host_ms < 25.0:
+            if ph.ms["wait"] >= 1000.0:
+                ph.reset()
+            return
+        self.m_loop_host_ms += host_ms
+        if did:
+            self.m_loop_blocks += 1
+        self._jnote("loop_iter", slot=-1, a=float(int(self.h_active.sum())),
+                    b=self._last_fence_ms if (self._trace_fence and did) else host_ms,
+                    phases=ph.vector())
+        ph.reset()
 
     def _fail_block(self, e: Exception) -> None:
         """A failed decode block: one error event per active request, and
         its slot released."""
         log.exception("decode block failed")
+        self._jnote("error", a=1.0)
+        self._jnote_fault(e)
         for i, slot in enumerate(self.slots):
             if slot is not None and self.h_active[i]:
                 slot.handle._q.put(TokenEvent(kind="error", error=f"{type(e).__name__}: {e}"))
@@ -1298,6 +1610,8 @@ class Engine:
 
     def _note_admitted(self, handle: RequestHandle) -> None:
         handle.t_admit = time.monotonic()
+        if handle.trace is not None:
+            handle.trace.note("admitted")
         wait = max(0.0, handle.t_admit - handle.t_submit)
         self._admit_wait_ewma = (wait if self._admit_wait_ewma == 0.0
                                  else 0.8 * self._admit_wait_ewma + 0.2 * wait)
@@ -1392,9 +1706,19 @@ class Engine:
                 need = self._resume_swap_pages(request)
                 if len(self._free_pages) < need:
                     self._prefix_evict_for_pages(need)
-                if (len(self._free_pages) >= need
-                        and self._dispatch_resume_swap(request, handle, free[0])):
+                try:
+                    ok = (len(self._free_pages) >= need
+                          and self._dispatch_resume_swap(request, handle, free[0]))
+                except Exception as e:  # noqa: BLE001 — fail this request, keep serving
+                    self._admission_failed([swap_item], e, "swap resume")
+                    admitted = True
+                    continue
+                if ok:
                     self._note_admitted(handle)
+                    if handle.trace is not None:
+                        # A swap resume runs no admission: no first token
+                        # marks the stream back in decode.
+                        handle.trace.note("resumed")
                     admitted = True
                     continue
                 with self._pending_lock:
@@ -1402,7 +1726,13 @@ class Engine:
                 return admitted  # pool backpressure — wait for a finish
             if chunk_item is not None:
                 (request, handle), hit = chunk_item
-                if not self._chunk_start(request, handle, hit):
+                try:
+                    started = self._chunk_start(request, handle, hit)
+                except Exception as e:  # noqa: BLE001 — fail this request, keep serving
+                    self._admission_failed([(request, handle)], e, "chunked admission")
+                    admitted = True
+                    continue
+                if not started:
                     return admitted  # pool backpressure — requeued at the head
                 self._note_admitted(handle)
                 admitted = True
@@ -1418,8 +1748,7 @@ class Engine:
                 try:
                     self._dispatch_admit_cached(request, handle, free[0], entry, match_len)
                 except Exception as e:  # noqa: BLE001 — surface to the caller, keep serving
-                    log.exception("cached admission failed")
-                    handle._q.put(TokenEvent(kind="error", error=f"{type(e).__name__}: {e}"))
+                    self._admission_failed([(request, handle)], e, "cached admission")
                 admitted = True
                 continue
             if not group:
@@ -1429,10 +1758,24 @@ class Engine:
             try:
                 self._dispatch_admit(group, bucket, free[: len(group)])
             except Exception as e:  # noqa: BLE001 — surface to callers, keep serving
-                log.exception("admission failed (m=%d)", len(group))
-                for _req, handle in group:
-                    handle._q.put(TokenEvent(kind="error", error=f"{type(e).__name__}: {e}"))
+                self._admission_failed(group, e, f"admission (m={len(group)})")
             admitted = True
+
+    def _admission_failed(self, group, e: Exception, what: str) -> None:
+        """A failed admission (nothing of it claimed, or all of it undone):
+        one error event per request, its fork branches ended with it, and a
+        queued swap image's host bytes given back."""
+        if isinstance(e, faults.InjectedFault):
+            log.warning("%s failed: %s", what, e)
+        else:
+            log.exception("%s failed", what)
+        self._jnote("error", a=float(len(group)))
+        self._jnote_fault(e)
+        ev = TokenEvent(kind="error", error=f"{type(e).__name__}: {e}")
+        for request, handle in group:
+            self._resume_discard(request)
+            handle._q.put(dataclasses.replace(ev))
+            self._fork_group_fail(request, ev)
 
     def _request_controls(self, group):
         """Host-side sampling rows [7, m], logit-bias rows [m, V] and one
@@ -1571,12 +1914,21 @@ class Engine:
         tok = self._grammar_pick(s, tok, cands, admission=True)
         if tok is None:
             return
+        tr = slot.handle.trace
         if not slot.t_first:  # a resumed request keeps its first-token time
             slot.t_first = time.monotonic()
+            self._jnote("first_token", rid=slot.handle.rid, slot=s)
+            if tr is not None:
+                tr.note("first_token")
+        elif tr is not None:
+            # A recompute resume re-admits through the prefill: the stream
+            # is back in decode.
+            tr.note("resumed")
         self.m_prompt_tokens += slot.prompt_len
         self._post_token(s, tok, lp)
 
     def _dispatch_admit(self, group, bucket: int, slot_ids: list[int]) -> None:
+        faults.fire("device_dispatch")
         m = len(group)
         t0 = time.monotonic()
         # Pin each request's adapter into a device row before anything else
@@ -1600,6 +1952,7 @@ class Engine:
 
     def _dispatch_admit_pinned(self, group, bucket: int, slot_ids: list[int],
                                adapter_rows: list[int], t0: float) -> None:
+        faults.fire("device_dispatch")
         m = len(group)
         prompt = np.zeros((m, bucket), np.int64)
         lens = np.zeros((m,), np.int64)
@@ -1610,11 +1963,14 @@ class Engine:
         dev = self.device
         table_rows = None
         if self._paged:
-            for (r, _h), s in zip(group, slot_ids):
-                if self._pages_alloc(s, self._pages_needed(r)) is None:
-                    for s2 in slot_ids:  # the planner counted these pages
-                        self._pages_free(s2)
-                    raise RuntimeError("KV page pool exhausted at admission")
+            try:
+                for (r, _h), s in zip(group, slot_ids):
+                    if self._pages_alloc(s, self._pages_needed(r)) is None:
+                        raise RuntimeError("KV page pool exhausted at admission")
+            except Exception:
+                for s2 in slot_ids:  # the planner counted these pages
+                    self._pages_free(s2)
+                raise
             table_rows = self._device_table(self.h_l1[slot_ids] if self._hier
                                             else self.h_ptable[slot_ids])
         # Grammar and logprob requests admit alone (_admit_pending).
@@ -1650,6 +2006,7 @@ class Engine:
             self._claim_slot(s, r, handle, int(seeds[j]), t0, route)
             # The pin passes to the slot; _release drops it from here on.
             self.h_adapter[s], adapter_rows[j] = adapter_rows[j], 0
+            self._jnote("admitted", rid=handle.rid, slot=s, a=float(lens[j]), b=float(m))
         for (r, _h), s in zip(group, slot_ids):
             # Before the first token posts: it may finish and free the slot.
             self._admission_save(s, r)
@@ -1690,6 +2047,7 @@ class Engine:
         control rows, run the body (a graph replay on the card), one host
         copy, then stream. Returns False, having dispatched nothing, when
         the page pool cannot cover the block's growth."""
+        faults.fire("device_dispatch")
         # A live host-walk slot makes every block one step, "grammar": the
         # filtered sampler plus each slot's candidates, for the host to pick
         # from before the next step. DFA slots need nothing of the host.
@@ -1741,8 +2099,10 @@ class Engine:
             while win < min(maxpos, S):
                 win *= 2
             win = min(win, S)
+        self._phases.lap("prep")
         self._stage_block(act)
-        self._decode_block(n, variant, win, dfa, lp)
+        self._phases.lap("commit")
+        self._fenced(n, lambda: self._decode_block(n, variant, win, dfa, lp))
         cands = lps = None
         if grammar or lp:  # the block's one device-to-host copy: ids, candidates, logprobs
             out = self._b_out[:self._lp_row + n * self._lp_w if lp else self._lp_row]
@@ -1754,6 +2114,7 @@ class Engine:
                 lps = out[self._lp_row:].reshape(n, self._lp_w, -1)
         else:
             toks = self._b_out[:n].cpu().numpy()  # the block's one device-to-host copy
+        self._read_fence()
         self.m_blocks += 1
         self.m_decode_steps += n
         if dfa:
@@ -1779,7 +2140,29 @@ class Engine:
                 self._post_token(int(i), tok, tlp)
         self._decode_tokens += consumed
         self._decode_time += time.monotonic() - t0
+        self._phases.lap("process")
         return True
+
+    def _fenced(self, n: int, run) -> None:
+        """Run a block's or round's device work (`run`: a graph replay, or
+        the first run and capture of its shape) between the fence's CUDA
+        events, and journal its decode_block (a = n, b = host dispatch
+        ms). The fault sites of a block all fire before this: nothing
+        raises between a capture's begin and end but the body itself."""
+        t0 = time.monotonic()
+        fence = self._fence
+        if fence is not None:
+            fence.begin()
+        run()
+        if fence is not None:
+            fence.end()
+        self._jnote("decode_block", slot=-1, a=float(n), b=(time.monotonic() - t0) * 1000.0)
+        self._phases.lap("dispatch")
+
+    def _read_fence(self) -> None:
+        """After the block's host read: its fenced device ms (0.0 without
+        trace_fence, or on the CPU)."""
+        self._last_fence_ms = self._fence.elapsed_ms() if self._fence is not None else 0.0
 
     def _stage_block(self, act: np.ndarray, dlens: Optional[np.ndarray] = None,
                      drafts: Optional[np.ndarray] = None) -> None:
@@ -1788,6 +2171,7 @@ class Engine:
         fields (and a round's draft lengths), the page table, the adapter
         rows, a prompt-lookup round's drafts. The previous block's copies
         are done: each block ends with a host read of its ids."""
+        faults.fire("control_commit")
         pack = self._h_pack.numpy()
         pack[0] = act
         for fi, k in enumerate(_SAMPLING_FIELDS):
@@ -1886,14 +2270,13 @@ class Engine:
         wrappers counted during the capture."""
         t0 = time.monotonic()
         if self._graph_stream is None:
-            self._graph_stream = torch.cuda.Stream(self.device)
+            self._graph_stream = _capture_stream(self.device)
         if not self._graph_cache:
             # A pool lives while a graph captured into it does: once the
             # last one is dropped (_lora_rebuild), captures need a new pool.
             self._graph_pool = torch.cuda.graph_pool_handle()
         stream = self._graph_stream
         current = torch.cuda.current_stream(self.device)
-        stream.wait_stream(current)
         graph = torch.cuda.CUDAGraph()
 
         def capture() -> None:
@@ -1903,7 +2286,8 @@ class Engine:
             finally:
                 graph.capture_end()
 
-        with torch.cuda.stream(stream):
+        with _CAPTURE_LOCK, torch.cuda.stream(stream):
+            stream.wait_stream(current)
             body()
             torch.cuda.synchronize(self.device)  # as torch.cuda.graph does before a capture
             deltas = kernels.captured_counts(capture)
@@ -2378,6 +2762,7 @@ class Engine:
         then post the emitted tokens and fold each slot's accepted /
         drafted ratio into its EWMA. Returns False, having dispatched
         nothing, when the pool cannot cover the growth."""
+        faults.fire("spec_verify")
         if not self._grow_for_decode(kb + 1):
             return False
         t0 = time.monotonic()
@@ -2388,9 +2773,14 @@ class Engine:
         pos0 = {int(i): self._slot_pos(int(i)) for i in idx}
         variant = "sampled" if np.any(self.h_sampling["temperature"][idx] > 0) else "greedy"
         win = self._spec_window(mode, kb, idx)
+        self._phases.lap("prep")
         self._stage_block(act, dlens, drafts)
-        self._decode_round(mode, kb, variant, win, dfa)
+        self._phases.lap("commit")
+        self._fenced(kb + 1, lambda: self._decode_round(mode, kb, variant, win, dfa))
+        drafted = int(dlens[idx].sum())
+        self._jnote("spec_draft", a=float(drafted), b=float(kb))
         out = self._b_out[:kb + 2].cpu().numpy()  # the round's one device-to-host copy
+        self._read_fence()
         toks, acc = out[:kb + 1], out[kb + 1]
         self.m_blocks += 1
         self.m_spec_dispatches += 1
@@ -2427,7 +2817,9 @@ class Engine:
             if dlens[i] > 0 and self.slots[i] is not None:
                 ratio = (emitted[i] - 1) / float(dlens[i])
                 self.h_accept_ewma[i] = (1.0 - alpha) * self.h_accept_ewma[i] + alpha * ratio
+        self._jnote("spec_verify", a=float(drafted), b=float(consumed))
         self._decode_time += time.monotonic() - t0
+        self._phases.lap("process")
         return True
 
     def _warm_round(self, kb: int, variant: str, win: int, dfa=False) -> None:
@@ -2488,6 +2880,9 @@ class Engine:
         Returns the slot's table row ([MP] flat, its [ML1] directory
         hierarchical), or None, changing nothing, when the pool cannot
         cover it."""
+        # An injected allocator failure fires before any mutation, so the
+        # pool stays exactly accounted across it.
+        faults.fire("page_alloc")
         if self._slot_pages[slot_idx]:
             # Overwriting a held table would leak its pages' references.
             log.error("_pages_alloc: slot %d already held %d pages — releasing them",
@@ -2788,9 +3183,12 @@ class Engine:
             if not cand:
                 continue
             try:
+                faults.fire("page_spill")
                 hk, hv = self._pages_to_host([pages[c] for c in cand])
-            except Exception:  # noqa: BLE001 — the pages stay hot, attention stays exact
-                log.exception("cold-page spill failed (slot %d)", i)
+            except Exception as e:  # noqa: BLE001 — the pages stay hot, attention stays exact
+                self._jnote_fault(e)
+                if not isinstance(e, faults.InjectedFault):
+                    log.exception("cold-page spill failed (slot %d)", i)
                 self.m_kv_spill_skips += len(cand)
                 self._spill_cursor[i] = cand[-1] + 1
                 continue
@@ -2805,6 +3203,7 @@ class Engine:
             self.m_kv_pages_spilled += len(cand)
             self.m_kv_spill_bytes_out += nbytes
             done += len(cand)
+            self._jnote("page_spill", slot=i, a=float(len(cand)), b=float(nbytes))
 
     def _pages_to_host(self, pages: list[int]) -> tuple[torch.Tensor, torch.Tensor]:
         """Copy pool pages to host tensors [L, n, page, K, Hd] (pinned on the
@@ -2898,12 +3297,18 @@ class Engine:
             self._prefix_bump(entry)
             self.m_prefix_hits += 1
             self.m_prefix_tokens += match_len
+            self._note_prefix_hit(handle, slot_idx, match_len)
         self.slots[slot_idx] = _Slot(request=request, handle=handle, prompt_len=len(ids),
                                      sched_rows=len(ids), t_submit=handle.t_submit)
         self._chunkings.append({"request": request, "handle": handle, "slot": slot_idx,
                                 "ids": ids, "offset": match_len, "t0": time.monotonic(),
                                 "table_row": table_row})
         return True
+
+    def _note_prefix_hit(self, handle: RequestHandle, slot_idx: int, match_len: int) -> None:
+        self._jnote("prefix_hit", rid=handle.rid, slot=slot_idx, a=float(match_len))
+        if handle.trace is not None:
+            handle.trace.note("prefix_hit", matched_tokens=match_len)
 
     def _chunk_pages(self, request: GenRequest, handle: RequestHandle, slot_idx: int,
                      entry: Optional[dict], match_len: int) -> Optional[np.ndarray]:
@@ -2962,6 +3367,8 @@ class Engine:
                 self._dispatch_chunk_final(st)
         except Exception as e:  # noqa: BLE001 — fail the request, keep serving
             log.exception("chunked prefill dispatch failed (slot %d)", slot_idx)
+            self._jnote("error", a=1.0)
+            self._jnote_fault(e)
             ev = TokenEvent(kind="error", error=f"{type(e).__name__}: {e}")
             st["handle"]._q.put(ev)
             self._fork_group_fail(st["request"], ev)
@@ -2976,6 +3383,7 @@ class Engine:
         _bucket_for(offset), its rows written after them, and the slot's
         carried position pinned at S - 1 again. Returns the last token's
         logits [1, V], or None."""
+        faults.fire("device_dispatch")
         offset = st["offset"]
         seg = st["ids"][offset: offset + n]
         toks = np.zeros((1, self._bucket_for(len(seg)) if with_logits else n), np.int64)
@@ -2998,6 +3406,8 @@ class Engine:
             if not with_logits:
                 logits = None
         self.m_prefill_chunks += 1
+        if not with_logits:
+            self._jnote("chunk", rid=st["handle"].rid, slot=st["slot"], a=float(n))
         return logits
 
     def _dispatch_chunk_final(self, st: dict) -> None:
@@ -3021,6 +3431,7 @@ class Engine:
             self.h_ptable[s] = st["table_row"]
         self.m_chunked_admits += 1
         self._claim_slot(s, request, handle, int(seeds[0]), st["t0"], route)
+        self._jnote("admitted", rid=handle.rid, slot=s, a=float(len(ids)), b=1.0)
         self._admission_save(s, request)
         if request.fork_group is not None:
             self._fork_after_admit(s, request, logits, route)
@@ -3090,7 +3501,9 @@ class Engine:
             if len(ids) > limit:  # submit()'s truncation, as the primary's
                 ids = [ids[0]] + ids[-(limit - 1):]
             rr = dataclasses.replace(r, prompt_ids=ids, fork_group=None)
-            branches.append((rr, self._new_handle(rr)))
+            bh = self._new_handle(rr)
+            self._jstage("queued", rid=bh.rid, a=float(len(ids)))
+            branches.append((rr, bh))
         primary = dataclasses.replace(requests[0], fork_group=branches)
         try:
             h0 = self.submit(primary)
@@ -3163,10 +3576,7 @@ class Engine:
         try:
             self._dispatch_admit([item], self._bucket_for(len(request.prompt_ids)), [slot_idx])
         except Exception as e:  # noqa: BLE001 — surface to callers, keep serving
-            log.exception("fork primary admission failed")
-            ev = TokenEvent(kind="error", error=f"{type(e).__name__}: {e}")
-            handle._q.put(ev)
-            self._fork_group_fail(request, ev)
+            self._admission_failed([item], e, "fork primary admission")
         return True
 
     def _fork_after_admit(self, src: int, request: GenRequest, logits: torch.Tensor,
@@ -3199,8 +3609,18 @@ class Engine:
             need = self._pages_fork_need(r)
             if len(self._free_pages) < need:
                 self._prefix_evict_for_pages(need)
-            row = self._pages_alloc(dst, need, shared=src_pages[:nfull],
-                                    shared_tps=self._slot_tps[src] if self._hier else None)
+            try:
+                # An injected fork failure (or allocator fault): the branch
+                # degrades to a clone admission, the journal records it.
+                faults.fire("slot_fork")
+                row = self._pages_alloc(dst, need, shared=src_pages[:nfull],
+                                        shared_tps=self._slot_tps[src] if self._hier else None)
+            except Exception as e:  # noqa: BLE001 — this branch clones
+                self._jnote_fault(e)
+                if not isinstance(e, faults.InjectedFault):
+                    log.exception("fork allocation failed: the branch admits as a clone")
+                clones.append((r, h))
+                continue
             if row is None:
                 clones.append((r, h))
                 continue
@@ -3208,7 +3628,8 @@ class Engine:
             if r.adapter:
                 try:
                     arow = self._adapter_acquire(r.adapter)
-                except Exception:  # noqa: BLE001 — this branch clones
+                except Exception as e:  # noqa: BLE001 — this branch clones
+                    self._jnote_fault(e)
                     self._pages_free(dst)
                     clones.append((r, h))
                     continue
@@ -3218,11 +3639,13 @@ class Engine:
             forked.append((dst, r, h, arow))
         if forked:
             try:
-                self._dispatch_fork(request.prompt_ids, forked, copies, logits, route)
+                self._dispatch_fork(request.prompt_ids, forked, copies, logits, route, src)
                 self.m_forks += len(forked)
-            except Exception:  # noqa: BLE001 — degrade to clones, keep serving
+            except Exception as e:  # noqa: BLE001 — degrade to clones, keep serving
                 log.exception("fork dispatch failed: %d branches admit as clones",
                               len(forked))
+                self._jnote("error", a=float(len(forked)))
+                self._jnote_fault(e)
                 for dst, r, h, arow in forked:
                     if self.slots[dst] is not None:
                         self._release(dst)
@@ -3237,12 +3660,13 @@ class Engine:
             self._wake.set()
 
     def _dispatch_fork(self, prompt_ids: list[int], forked: list, copies: list,
-                       logits: torch.Tensor, route) -> None:
+                       logits: torch.Tensor, route, src: int) -> None:
         """Device work and slot installs of a fork set: the boundary-page
         copies first (on the one stream, before any block writes a copy),
         then each branch's first token by the clone admission's recipe on
         the primary's logits (its own seed, noise keyed by the prompt
-        length, penalty counts of the prompt), one host read, the slots."""
+        length, penalty counts of the prompt), one host read, the slots.
+        `src` is the primary's slot (the branches' forked journal events)."""
         dev = self.device
         if copies:
             sidx = torch.as_tensor([a for a, _b in copies], dtype=torch.int64, device=dev)
@@ -3264,6 +3688,9 @@ class Engine:
             self._note_admitted(h)
             self._claim_slot(dst, r, h, int(seeds[j]), t0, route)
             self.h_adapter[dst] = arow
+            self._jnote("forked", rid=h.rid, slot=dst, a=float(len(prompt_ids)), b=float(src))
+            if h.trace is not None:
+                h.trace.note("forked", source_slot=src)
         for j, dst in enumerate(dsts):
             if self.slots[dst] is not None:
                 self._post_first(dst, int(toks_host[j]), None if cands is None else cands[j],
@@ -3288,6 +3715,7 @@ class Engine:
         for _ in range(n):
             bh = RequestHandle()
             bh.t_submit = time.monotonic()
+            bh.rid = f"h{id(bh):x}"
             out.append(bh)
         entry = (handle, list(seeds) if seeds is not None else [None] * n, out)
         with self._fork_lock:
@@ -3359,8 +3787,15 @@ class Engine:
             if dst is not None:
                 if len(self._free_pages) < need:
                     self._prefix_evict_for_pages(need)
-                row = self._pages_alloc(dst, need, shared=src_pages[:nfull],
-                                        shared_tps=self._slot_tps[src] if self._hier else None)
+                try:
+                    row = self._pages_alloc(dst, need, shared=src_pages[:nfull],
+                                            shared_tps=self._slot_tps[src] if self._hier
+                                            else None)
+                except Exception as e:  # noqa: BLE001 — fail this branch only
+                    self._jnote_fault(e)
+                    bh._q.put(TokenEvent(kind="error",
+                                         error=f"fork failed: {type(e).__name__}: {e}"))
+                    continue
             if row is None:
                 bh._q.put(TokenEvent(kind="error", error="fork failed: no slot/page capacity"))
                 continue
@@ -3368,7 +3803,8 @@ class Engine:
             if req0.adapter:
                 try:
                     arow = self._adapter_acquire(req0.adapter)
-                except Exception:  # noqa: BLE001 — fail this branch only
+                except Exception as e:  # noqa: BLE001 — fail this branch only
+                    self._jnote_fault(e)
                     self._pages_free(dst)
                     bh._q.put(TokenEvent(kind="error", error="fork failed: adapter pin"))
                     continue
@@ -3396,6 +3832,7 @@ class Engine:
             self.h_adapter[dst] = arow
             self.m_forks += 1
             self._note_admitted(bh)
+            self._jnote("forked", rid=bh.rid, slot=dst, a=float(boundary), b=float(src))
 
     # ------------------------------------------------------------------ #
     # Prefix cache (loop thread only): an LRU of prefilled K/V spans keyed
@@ -3495,8 +3932,20 @@ class Engine:
                 cov = max(cov, n if eq.all() else int(np.argmin(eq)))
             if cov and valid_len - cov < min_extend:
                 return
-        if self._paged and self._slot_spill[slot_idx] and not self._restore_spilled(slot_idx):
-            return
+        if self._paged and self._slot_spill[slot_idx]:
+            # A span pins only device pages: restore the spilled ones first,
+            # or skip the save (pool pressure, a failed restore; the
+            # request is served either way, a missing span only costs a
+            # prefill later).
+            try:
+                restored = self._restore_spilled(slot_idx)
+            except Exception as e:  # noqa: BLE001 — degrade to no save
+                self._jnote_fault(e)
+                if not isinstance(e, faults.InjectedFault):
+                    log.exception("spill restore failed (slot %d)", slot_idx)
+                restored = False
+            if not restored:
+                return
         # An entry covering the span makes it redundant; the entries it
         # covers go.
         kept = []
@@ -3631,6 +4080,7 @@ class Engine:
         slot, the tail prefills against them (llama.prefill_tail), its rows
         follow the span, and the first token is sampled with the penalty
         counts of the whole prompt (the JAX package's cached admission)."""
+        faults.fire("device_dispatch")
         t0 = time.monotonic()
         ids = request.prompt_ids
         tail = ids[match_len:]
@@ -3654,6 +4104,8 @@ class Engine:
         self.m_prefix_hits += 1
         self.m_prefix_tokens += match_len
         self._claim_slot(slot_idx, request, handle, int(seeds[0]), t0, route)
+        self._note_prefix_hit(handle, slot_idx, match_len)
+        self._jnote("admitted", rid=handle.rid, slot=slot_idx, a=float(len(ids)))
         self._admission_save(slot_idx, request)
         self._post_first(slot_idx, int(toks_host[0]), None if cands is None else cands[0],
                          None if lps is None else lps[0])
@@ -3673,6 +4125,7 @@ class Engine:
         images = self._slot_spill[slot_idx]
         if not images:
             return True
+        faults.fire("page_spill")
         need = len(images)
         if len(self._free_pages) < need:
             self._prefix_evict_for_pages(need)
@@ -3690,6 +4143,8 @@ class Engine:
         self._slot_spill[slot_idx] = {}
         self._spill_cursor[slot_idx] = 0
         self.m_kv_pages_restored += need
+        self._jnote("page_restore", slot=slot_idx, a=float(need),
+                    b=float(need * self._page_bytes()))
         return True
 
     def _pages_from_host(self, pages: list[int], hk, hv) -> None:
@@ -3704,6 +4159,7 @@ class Engine:
         """A swap image of the slot's first n_live pages, its spilled cold
         pages spliced in from their host images on the device (not
         restored to the pool first)."""
+        faults.fire("host_swap")
         pages = self._slot_pages[slot_idx][:n_live]
         if all(p >= 0 for p in pages):
             return self._pages_to_host(pages)
@@ -3744,7 +4200,9 @@ class Engine:
         position, seed) and host state. No prefill and no sample: the slot
         decodes on from where it stopped. Returns False when the pool
         cannot cover it (nothing changed); a failed adapter re-pin ends the
-        request with an error event."""
+        request with an error event. A failed copy raises with nothing
+        claimed: the caller ends the request (_admission_failed)."""
+        faults.fire("host_swap")
         rec = request.resume
         row_a = 0
         if request.adapter:
@@ -3752,20 +4210,26 @@ class Engine:
                 row_a = self._adapter_acquire(request.adapter)
             except Exception as e:  # noqa: BLE001 — fail one tenant only
                 log.exception("adapter re-pin failed on swap resume")
+                self._jnote_fault(e)
                 self._resume_discard(request)
                 handle._q.put(TokenEvent(kind="error", error=f"{type(e).__name__}: {e}"))
                 return True
-        if self._pages_alloc(slot_idx, self._resume_swap_pages(request)) is None:
+        try:
+            if self._pages_alloc(slot_idx, self._resume_swap_pages(request)) is None:
+                self._adapter_unpin(row_a)
+                return False
+            n_live = rec["hk"].shape[1]
+            self._pages_from_host(self._slot_pages[slot_idx][:n_live], rec["hk"], rec["hv"])
+            dev = self.device
+            self.counts[slot_idx] = rec["counts"].to(dev, non_blocking=True)
+            self.bias[slot_idx] = rec["bias"].to(dev, non_blocking=True)
+            self.d_tokens[slot_idx] = rec["d_tok"]
+            self.d_positions[slot_idx] = rec["d_pos"]
+            self.d_seed[slot_idx] = rec["seed"]
+        except Exception:
+            self._pages_free(slot_idx)
             self._adapter_unpin(row_a)
-            return False
-        n_live = rec["hk"].shape[1]
-        self._pages_from_host(self._slot_pages[slot_idx][:n_live], rec["hk"], rec["hv"])
-        dev = self.device
-        self.counts[slot_idx] = rec["counts"].to(dev, non_blocking=True)
-        self.bias[slot_idx] = rec["bias"].to(dev, non_blocking=True)
-        self.d_tokens[slot_idx] = rec["d_tok"]
-        self.d_positions[slot_idx] = rec["d_pos"]
-        self.d_seed[slot_idx] = rec["seed"]
+            raise
         for k in _SAMPLING_FIELDS:
             self.h_sampling[k][slot_idx] = getattr(request, k)
         self.h_seed[slot_idx] = rec["seed"]
@@ -3780,6 +4244,7 @@ class Engine:
         self.h_adapter[slot_idx] = row_a
         self._host_bytes -= rec["bytes"]
         self.m_kv_swap_bytes_in += rec["bytes"]
+        self._jnote("swap_in", rid=handle.rid, slot=slot_idx, a=float(rec["bytes"]))
         return True
 
     # ------------------------------------------------------------------ #
@@ -3841,7 +4306,14 @@ class Engine:
             "seed": int(self.h_seed[victim]),
         }
         if policy == "swap":
-            hk, hv = self._swap_out_slot_span(victim, n_live)
+            try:
+                hk, hv = self._swap_out_slot_span(victim, n_live)
+            except Exception as e:  # noqa: BLE001 — a failed swap-out recomputes instead
+                self._jnote_fault(e)
+                if not isinstance(e, faults.InjectedFault):
+                    log.exception("swap-out failed (slot %d): recomputing", victim)
+                policy = rec["mode"] = "recompute"
+        if policy == "swap":
             rec.update(hk=hk, hv=hv, bytes=span_bytes,
                        counts=self._to_host(self.counts[victim]),
                        bias=self._to_host(self.bias[victim]),
@@ -3854,6 +4326,11 @@ class Engine:
         resume_req = dataclasses.replace(
             r, prompt_ids=list(r.prompt_ids) + list(slot.generated), resume=rec)
         self.m_kv_preemptions += 1
+        self._jnote("preempt", rid=slot.handle.rid, slot=victim, a=float(ctx_rows))
+        if policy == "swap":
+            self._jnote("swap_out", rid=slot.handle.rid, slot=victim, a=float(span_bytes))
+        if slot.handle.trace is not None:
+            slot.handle.trace.note("preempt", policy=policy, ctx_rows=ctx_rows)
         self._release(victim)
         with self._pending_lock:
             self._pending.appendleft((resume_req, slot.handle))
@@ -3870,6 +4347,8 @@ class Engine:
         rec = slot.request.resume
         if rec is None:
             return
+        self._jnote("resume", rid=slot.handle.rid, slot=slot_idx,
+                    a=float(len(rec["generated"])))
         n = rec["orig_prompt_len"]
         slot.request = dataclasses.replace(
             slot.request, prompt_ids=list(slot.request.prompt_ids[:n]), resume=None)
@@ -4220,6 +4699,7 @@ class Engine:
         now = time.monotonic()
         t_first = slot.t_first or now
         h = slot.handle
+        self._jnote("terminal", rid=h.rid, slot=slot_idx, a=float(len(slot.generated)))
         h._q.put(TokenEvent(
             kind="done",
             finish_reason=reason,
@@ -4299,6 +4779,7 @@ class Engine:
         if entry is not None:
             self._adapter_host.move_to_end(name)
             return entry
+        faults.fire("adapter_fetch")
         rank, per_key = load_lora_factors(reg["dir"], reg["weight"], self.cfg)
         dims = lora_target_dims(self.cfg)
         L = self.cfg.num_layers
@@ -4400,6 +4881,7 @@ class Engine:
             row = self._adapter_rows.index(name)
         else:
             image = self._adapter_image(name, reg)
+            faults.fire("adapter_fetch")
             keys = tuple(sorted(set(self._lora_keys) | set(image["stacks"])))
             rank = max(self._lora_rank, image["rank"], 1)
             cap = self.ecfg.max_slots + 1

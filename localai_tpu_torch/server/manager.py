@@ -9,13 +9,23 @@ virtual model (`base_model` + `adapter` in its YAML) resolves to its base's
 one shared engine with the adapter registered as a runtime LoRA tenant, so
 N tenants cost one set of base weights.
 
-Not ported yet: the watchdog, crash-only quarantine and config watcher
-(ROADMAP Queue A item 11, runtime, observability and faults), and every
-backend but `llama` (item 13, satellite engines and models). No YAML or
-server knob is dropped in silence: the bounded-admission, fork and
-speculative-decoding knobs reach the engine (a `draft_model` loads from a
-preset or a checkpoint dir beside the target), a knob of an unported item fails the load (or, for the
-server's, its startup) naming the item, and the multi-GPU ones warn.
+Crash-only supervision, as the JAX package's manager: an engine whose loop
+died is reaped (by the next get() or the watchdog, traffic or not) and the
+next request loads a fresh one, up to `restart_budget` deaths in
+`restart_window_s`; one more quarantines the model for `quarantine_s`
+(ModelQuarantinedError, HTTP 503 with Retry-After). The watchdog also
+evicts idle and wedged models, and the config watcher evicts a model whose
+YAML changed. The `manager_load` fault site sits at the entry of a load,
+and LOCALAI_FAULTS (ApplicationConfig.faults) arms a seeded schedule at
+construction. The journal, fence and postmortem settings reach every
+engine (LOCALAI_TRACE_JOURNAL over the YAML's trace_journal_events).
+
+Not ported yet: every backend but `llama` (ROADMAP Queue A item 13,
+satellite engines and models). No YAML or server knob is dropped in
+silence: the bounded-admission, fork, speculative-decoding and
+observability knobs reach the engine (a `draft_model` loads from a preset
+or a checkpoint dir beside the target), a server knob of an unported item
+fails its startup naming the item, and the multi-GPU ones warn.
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ from localai_tpu_torch.device import resolve_device
 from localai_tpu_torch.engine.engine import Engine, EngineConfig
 from localai_tpu_torch.engine.tokenizer import load_tokenizer
 from localai_tpu_torch.templates import Evaluator
+from localai_tpu_torch.testing import faults
 
 log = logging.getLogger("localai_tpu_torch.manager")
 
@@ -45,14 +56,9 @@ log = logging.getLogger("localai_tpu_torch.manager")
 # always launch their kernels on the card.
 _ROUTE_SWITCHES = ("paged_kernel", "quant_kernel", "lora_kernel")
 
-# Model knobs of ROADMAP Queue A items not ported yet: set away from its
-# default, one fails the load naming its item.
-_UNPORTED_MODEL_KNOBS = (
-    (("trace_journal_events",), "11, runtime, observability and faults"),
-)
-# Server knobs of items not ported yet: set, one fails the server's startup.
+# Server knobs of ROADMAP Queue A items not ported yet: set, one fails the
+# server's startup naming its item.
 _UNPORTED_APP_KNOBS = (
-    (("postmortem_dir",), "11, runtime, observability and faults"),
     (("cluster_replicas", "cluster_peers"), "12, cluster"),
 )
 
@@ -84,12 +90,30 @@ class UnsupportedBackendError(NotImplementedError):
     a knob of a module it has not ported."""
 
 
+class ModelQuarantinedError(RuntimeError):
+    """The model's engine died more than restart_budget times inside
+    restart_window_s, so the manager stopped respawning it. Requests get
+    this typed error — HTTP 503 with Retry-After — instead of feeding a
+    reload / crash loop."""
+
+    def __init__(self, name: str, retry_after_s: float, deaths: int) -> None:
+        super().__init__(
+            f"model {name!r} quarantined after {deaths} engine deaths in "
+            f"its restart window — retry in ~{retry_after_s:.0f}s"
+        )
+        self.model = name
+        self.retry_after_s = max(1.0, retry_after_s)
+        self.deaths = deaths
+
+
 class LoadedModel:
     def __init__(self, cfg: ModelConfig, engine: Engine, evaluator: Evaluator):
         self.cfg = cfg
         self.engine = engine
         self.evaluator = evaluator
+        self.loaded_at = time.monotonic()
         self.last_used = time.monotonic()
+        self.busy_since: Optional[float] = None
         self.in_flight = 0
         self._lock = threading.Lock()
 
@@ -99,11 +123,15 @@ class LoadedModel:
     def acquire(self) -> None:
         with self._lock:
             self.in_flight += 1
+            if self.busy_since is None:
+                self.busy_since = time.monotonic()
             self.touch()
 
     def release(self) -> None:
         with self._lock:
             self.in_flight = max(0, self.in_flight - 1)
+            if self.in_flight == 0:
+                self.busy_since = None
             self.touch()
 
     def lease(self) -> "Lease":
@@ -163,6 +191,21 @@ class ModelManager:
         self._loaded: dict[str, LoadedModel] = {}
         self._lock = threading.Lock()
         self._loading: dict[str, threading.Event] = {}
+        # Crash-only supervision: per-model engine-death times inside the
+        # rolling restart window, lifetime totals, and the quarantine clock
+        # (a monotonic deadline; absent = clear).
+        self._death_times: dict[str, list[float]] = {}
+        self._restart_total: dict[str, int] = {}
+        self._quarantined_until: dict[str, float] = {}
+        self._quarantine_total: dict[str, int] = {}
+        faults.ensure_installed(app_cfg.faults)
+        self._wd_stop = threading.Event()
+        self._wd_thread: Optional[threading.Thread] = None
+        if app_cfg.watchdog_idle_timeout_s > 0 or app_cfg.watchdog_busy_timeout_s > 0:
+            self.ensure_watchdog()
+        self._cw_thread: Optional[threading.Thread] = None
+        if app_cfg.watch_configs:
+            self.start_config_watcher(app_cfg.config_watch_interval_s)
 
     def list_configs(self) -> list[ModelConfig]:
         return [self.configs.get(n) for n in self.configs.names()]
@@ -171,19 +214,102 @@ class ModelManager:
         with self._lock:
             return sorted(self._loaded)
 
+    @staticmethod
+    def _engine_dead(lm: LoadedModel) -> bool:
+        return bool(lm.engine.is_dead)
+
+    def _note_death_locked(self, name: str, now: float) -> None:
+        """Record one observed engine death; trip the quarantine when the
+        restart budget for the rolling window is exhausted. Caller holds
+        self._lock."""
+        window = max(0.0, self.app_cfg.restart_window_s)
+        times = [t for t in self._death_times.get(name, ()) if now - t < window]
+        times.append(now)
+        self._death_times[name] = times
+        self._restart_total[name] = self._restart_total.get(name, 0) + 1
+        budget = self.app_cfg.restart_budget
+        if budget >= 0 and len(times) > budget:
+            self._quarantined_until[name] = now + self.app_cfg.quarantine_s
+            self._quarantine_total[name] = self._quarantine_total.get(name, 0) + 1
+            log.error("model %s: %d engine deaths within %.0fs (budget %d) — quarantined "
+                      "for %.0fs", name, len(times), window, budget, self.app_cfg.quarantine_s)
+
+    def _reap_dead(self, name: str) -> bool:
+        """Evict a loaded model whose engine loop died (the in-process
+        analogue of a crashed backend process): the next get() loads a
+        fresh engine — a transparent restart — unless the restart budget
+        is exhausted, in which case the model sits in quarantine. The dead
+        engine is torn down on a thread. Returns True if one was reaped."""
+        with self._lock:
+            lm = self._loaded.get(name)
+            if lm is None or not self._engine_dead(lm):
+                return False
+            self._loaded.pop(name)
+            self._note_death_locked(name, time.monotonic())
+        pm = lm.engine.postmortem_path
+        log.warning("model %s: engine loop died (%s) — evicted for crash-only restart%s",
+                    name, lm.engine._loop_dead, f" — postmortem: {pm}" if pm else "")
+        threading.Thread(target=self._teardown, args=(lm,), daemon=True,
+                         name="model-teardown").start()
+        return True
+
+    def _check_quarantine(self, name: str) -> None:
+        with self._lock:
+            until = self._quarantined_until.get(name, 0.0)
+            now = time.monotonic()
+            if until > now:
+                deaths = len(self._death_times.get(name, ()))
+                raise ModelQuarantinedError(name, until - now, deaths)
+            if until:
+                self._quarantined_until.pop(name, None)
+
+    def restart_stats(self, name: str) -> dict:
+        """Supervision counters for one model (monitoring surface)."""
+        with self._lock:
+            now = time.monotonic()
+            return {
+                "restarts_total": self._restart_total.get(name, 0),
+                "deaths_in_window": len(self._death_times.get(name, ())),
+                "quarantines_total": self._quarantine_total.get(name, 0),
+                "quarantined_for_s": max(0.0, self._quarantined_until.get(name, 0.0) - now),
+            }
+
+    def health_gauges(self):
+        """(name, labels, value) supervision gauges for the /metrics scrape:
+        they live on the manager, not on the (replaceable) engines."""
+        with self._lock:
+            restarts = dict(self._restart_total)
+            quarantines = dict(self._quarantine_total)
+            until = dict(self._quarantined_until)
+        now = time.monotonic()
+        out = []
+        for n, c in restarts.items():
+            out.append(("localai_model_restarts", {"model": n}, float(c)))
+        for n, c in quarantines.items():
+            out.append(("localai_model_quarantines", {"model": n}, float(c)))
+            out.append(("localai_model_quarantined", {"model": n},
+                        1.0 if until.get(n, 0.0) > now else 0.0))
+        return out
+
     def get(self, name: str) -> LoadedModel:
-        """Singleflight load. Raises KeyError for unknown models; virtual
+        """Singleflight load. Raises KeyError for unknown models,
+        ModelQuarantinedError while the model's restart budget is
+        exhausted; a dead engine is reaped first and loaded again. Virtual
         models resolve to the base's shared engine with the adapter
         registered as a runtime tenant."""
         vcfg = self.configs.get(name)
         if vcfg is not None and (vcfg.base_model or vcfg.adapter):
             return self._get_virtual(name, vcfg)
         while True:
+            self._reap_dead(name)
+            self._check_quarantine(name)
             with self._lock:
                 lm = self._loaded.get(name)
-                if lm is not None:
+                if lm is not None and not self._engine_dead(lm):
                     lm.touch()
                     return lm
+                if lm is not None:
+                    continue  # died between the reap and here: reap again
                 ev = self._loading.get(name)
                 if ev is None:
                     ev = threading.Event()
@@ -267,17 +393,116 @@ class ModelManager:
         self._teardown(lm)
 
     def shutdown(self) -> None:
+        self._wd_stop.set()
         with self._lock:
             loaded = list(self._loaded.values())
             self._loaded.clear()
         for lm in loaded:
             self._teardown(lm)
 
+    # ------------------------------------------------------------------ #
+    # Config hot-reload (mtime polling of the models dir)
+    # ------------------------------------------------------------------ #
+
+    def ensure_watchdog(self) -> None:
+        """Start the watchdog thread (idempotent)."""
+        if self._wd_thread is None:
+            self._wd_thread = threading.Thread(target=self._watchdog_loop, daemon=True,
+                                               name="watchdog")
+            self._wd_thread.start()
+
+    def start_config_watcher(self, interval_s: float = 2.0) -> None:
+        if self._cw_thread is not None:
+            return
+        # Baseline taken synchronously: a change made after construction is
+        # always seen, however slow the thread is to start.
+        baseline = self._config_snapshot()
+        self._cw_thread = threading.Thread(target=self._config_watch_loop,
+                                           args=(interval_s, baseline), daemon=True,
+                                           name="config-watcher")
+        self._cw_thread.start()
+
+    def _config_snapshot(self) -> dict[str, float]:
+        out: dict[str, float] = {}
+        try:
+            for fname in os.listdir(self.app_cfg.models_dir):
+                if fname.endswith((".yaml", ".yml")):
+                    path = os.path.join(self.app_cfg.models_dir, fname)
+                    try:
+                        out[path] = os.stat(path).st_mtime
+                    except OSError:
+                        pass
+        except OSError:
+            pass
+        return out
+
+    def _config_watch_loop(self, interval_s: float, last: dict[str, float]) -> None:
+        while not self._wd_stop.wait(interval_s):
+            snap = self._config_snapshot()
+            if snap == last:
+                continue
+            last = snap
+            try:
+                self.reload_configs()
+            except Exception:  # noqa: BLE001 — a bad yaml must not kill the loop
+                log.exception("config reload failed")
+
+    def reload_configs(self) -> int:
+        """Re-read every model YAML; evict loaded models whose config changed
+        or disappeared (the next request loads them fresh). Returns the
+        number of evictions."""
+        old = {n: self.configs.get(n) for n in self.configs.names()}
+        self.configs.load_all()
+        evicted = 0
+        for name in self.loaded_names():
+            new_cfg = self.configs.get(name)
+            if new_cfg is None or new_cfg != old.get(name):
+                log.info("config for %s changed — evicting for reload", name)
+                self.unload(name, drain_s=10.0)
+                evicted += 1
+        return evicted
+
+    # ------------------------------------------------------------------ #
+    # Watchdog (reference: pkg/model/watchdog.go)
+    # ------------------------------------------------------------------ #
+
+    def _watchdog_loop(self) -> None:
+        while not self._wd_stop.wait(self.app_cfg.watchdog_interval_s):
+            try:
+                self._watchdog_tick()
+            except Exception:  # noqa: BLE001 — the watchdog must survive
+                log.exception("watchdog tick failed")
+
+    def _watchdog_tick(self, now: Optional[float] = None) -> None:
+        now = time.monotonic() if now is None else now
+        idle_t = self.app_cfg.watchdog_idle_timeout_s
+        busy_t = self.app_cfg.watchdog_busy_timeout_s
+        with self._lock:
+            snapshot = list(self._loaded.items())
+        for name, lm in snapshot:
+            if self._engine_dead(lm):
+                # Reap a dead engine now, traffic or not: its memory frees
+                # and the restart-budget clock starts from the real death.
+                self._reap_dead(name)
+                continue
+            if busy_t > 0 and lm.busy_since is not None and now - lm.busy_since > busy_t:
+                # A wedged generation would hold its slot forever: its
+                # requests are cancelled (their streams end with
+                # finish_reason stop) and the engine is evicted.
+                n = lm.engine.cancel_all()
+                log.warning("watchdog: model %s busy for >%gs — cancelled %d requests and "
+                            "evicting", name, busy_t, n)
+                self.unload(name, drain_s=5.0)
+            elif idle_t > 0 and lm.in_flight == 0 and now - lm.last_used > idle_t:
+                log.info("watchdog: model %s idle for >%gs — evicting", name, idle_t)
+                self.unload(name, drain_s=0.0)
+
+    # ------------------------------------------------------------------ #
+
     def _teardown(self, lm: LoadedModel) -> None:
         log.info("evicting model %s", lm.cfg.name)
         lm.engine.stop()
-        lm.engine.params = None
-        lm.engine.cache = None
+        lm.engine.drop_device_state()
         gc.collect()
         if self.device.type == "cuda":
             import torch
@@ -336,6 +561,7 @@ class ModelManager:
         from localai_tpu_torch.models.llama import init_params
         from localai_tpu_torch.models.quant import init_params_quantized
 
+        faults.fire("manager_load")  # an injected load failure
         if cfg.backend != "llama":
             raise UnsupportedBackendError(
                 f"model {cfg.name!r}: backend {cfg.backend!r} is not ported yet "
@@ -349,12 +575,6 @@ class ModelManager:
         if "prefix_admit_async_compile" in cfg.options:
             log.warning("model %s: prefix_admit_async_compile ignored — the port's cached "
                         "admission runs eagerly and compiles nothing", cfg.name)
-        for keys, item in _UNPORTED_MODEL_KNOBS:
-            bad = _non_default(cfg, keys)
-            if bad:
-                raise UnsupportedBackendError(
-                    f"model {cfg.name!r}: {', '.join(bad)} not ported yet (ROADMAP Queue A "
-                    f"item {item}) — remove it from the model config")
         # The reference acts on these only across devices, and degrades a
         # tp the devices cannot hold: one warning each.
         multi = _non_default(cfg, ("sp_prefill",))
@@ -441,6 +661,11 @@ class ModelManager:
                 self_draft_layers=cfg.self_draft_layers,
                 spec_accept_ewma=cfg.spec_accept_ewma,
                 spec_draft_buckets=tuple(cfg.spec_draft_buckets),
+                trace_journal_events=(cfg.trace_journal_events
+                                      if self.app_cfg.trace_journal is None
+                                      else self.app_cfg.trace_journal),
+                trace_fence=self.app_cfg.trace_fence,
+                postmortem_dir=self.app_cfg.postmortem_dir,
             ),
             draft_cfg=draft_arch, draft_params=draft_params, n_draft=cfg.n_draft,
         )

@@ -3,7 +3,14 @@ of localai_tpu/server/openai_api.py).
 
 Routes: `/v1/chat/completions` and `/v1/completions` (streamed as SSE with
 the usage in the last chunk, or whole), `/v1/edits`, `/v1/tokenize`,
-`/v1/models`, `/v1/models/{id}`, `/readyz`, `/healthz`, `/version`. The
+`/v1/models`, `/v1/models/{id}`, `/readyz`, `/healthz`, `/version`, and the
+monitoring and debug routes: `/system`, `/backend/monitor`,
+`/backend/shutdown`, `/debug/trace/{response id}` (the request's span tree,
+its trace id from the client's W3C `traceparent` header or one minted
+here), `/debug/timeline` (every engine's journal as Chrome trace JSON,
+which Perfetto loads) and `/debug/profile` (a `torch.profiler` window into
+ApplicationConfig.profile_dir; 403 without one, 409 while one runs). A
+quarantined model answers 503 with Retry-After. The
 `model` field (or the query, or a bearer token naming a model) selects a
 model or a virtual model; a virtual model carries its tenant's adapter into
 every request. `n > 1` and `best_of` run as one choice group: one request
@@ -44,9 +51,18 @@ from localai_tpu_torch.engine.engine import AdapterError, GenRequest, QueueFullE
 from localai_tpu_torch.functions import parse_function_calls, tools_prompt_for
 from localai_tpu_torch.functions.gbnf import CompiledGrammar, GbnfConstraint, GbnfParseError
 from localai_tpu_torch.functions.jsonschema import GrammarConstraint, tool_call_schema
+from localai_tpu_torch.observe import profile as oprofile
+from localai_tpu_torch.observe.timeline import chrome_trace
+from localai_tpu_torch.observe.trace import STORE, new_traceparent, parse_traceparent
 from localai_tpu_torch.server.app import ApiError, Request, Response, Router, SSEStream
 from localai_tpu_torch.server.finetune import finetune, needs_finetune
-from localai_tpu_torch.server.manager import LoadedModel, ModelManager, UnsupportedBackendError
+from localai_tpu_torch.server.manager import (
+    LoadedModel,
+    ModelManager,
+    ModelQuarantinedError,
+    UnsupportedBackendError,
+)
+from localai_tpu_torch.sysinfo import device_info, device_names, recommend_mesh
 
 
 def _now() -> int:
@@ -169,8 +185,20 @@ class OpenAIApi:
         r.add("GET", "/healthz", self.health)
         r.add("GET", "/readyz", self.health)
         r.add("GET", "/version", self.version)
-        # Engine gauges (Engine.metrics(), adapter tier included) ride the
-        # Prometheus scrape as localai_engine_*{model=...}.
+        r.add("GET", "/system", self.system)
+        r.add("GET", "/backend/monitor", self.backend_monitor)
+        r.add("POST", "/backend/monitor", self.backend_monitor)
+        r.add("POST", "/backend/shutdown", self.backend_shutdown)
+        # Request-lifecycle observability: per-request span trees (W3C
+        # traceparent carried in), the engine journals as Perfetto-loadable
+        # Chrome trace JSON, and an opt-in torch.profiler capture window.
+        r.add("GET", "/debug/trace/:request_id", self.debug_trace)
+        r.add("GET", "/debug/timeline", self.debug_timeline)
+        r.add("POST", "/debug/profile", self.debug_profile)
+        if self.manager.app_cfg.profile_dir:
+            oprofile.prepare()  # on this (the server's main) thread
+        # Engine gauges (Engine.metrics(), adapter tier included) and the
+        # manager's supervision gauges ride the Prometheus scrape.
         r.gauge_source = self.engine_gauges
 
     # ------------------------------------------------------------------ #
@@ -212,6 +240,22 @@ class OpenAIApi:
             raise ApiError(400, str(e)) from None
         except UnsupportedBackendError as e:
             raise ApiError(501, str(e), "server_error") from None
+        except ModelQuarantinedError as e:
+            # Crash-only supervision tripped its restart budget: a typed 503
+            # with the quarantine's remaining window, not a respawn loop.
+            raise ApiError(503, str(e), "server_error", retry_after=e.retry_after_s) from None
+
+    @staticmethod
+    def _tag_requests(gens: list, rid: str, traceparent: str) -> None:
+        """Stamp each GenRequest with its tracing identity: the response
+        id keys /debug/trace/{id} (choice i > 0 gets `-i`), and a
+        traceparent is minted when the client sent none (or a malformed
+        one), so every choice of a request shares one trace id."""
+        if not (traceparent and parse_traceparent(traceparent)):
+            traceparent = new_traceparent()
+        for i, g in enumerate(gens):
+            g.request_id = rid if i == 0 else f"{rid}-{i}"
+            g.traceparent = traceparent
 
     @staticmethod
     def _submit_all(lm: LoadedModel, gens: list, group: int = 1) -> list:
@@ -554,6 +598,7 @@ class OpenAIApi:
         gens = self._gens(lm, body, ids, n, make_grammar, lp_n,
                           extra_stop=lm.evaluator.stop_sequences())
         rid = f"chatcmpl-{uuid.uuid4().hex[:28]}"
+        self._tag_requests(gens, rid, req.headers.get("traceparent", ""))
         created = _now()
         model_name = lm.cfg.name
         extra_usage = "extra-usage" in req.headers
@@ -645,6 +690,7 @@ class OpenAIApi:
             gens.extend(self._gens(lm, body, ids, n, make_grammar, lp_n))
         bo = len(gens) // len(prompts)  # each prompt's choice group
         rid = f"cmpl-{uuid.uuid4().hex[:28]}"
+        self._tag_requests(gens, rid, req.headers.get("traceparent", ""))
         created = _now()
         extra_usage = "extra-usage" in req.headers
         if body.get("stream"):
@@ -695,6 +741,8 @@ class OpenAIApi:
             prompt = lm.evaluator.template_edit(instruction, body.get("input", ""))
             ids = lm.engine.tokenizer.encode(prompt, add_bos=True)
             g = self._gen_request(lm, body, ids)
+            self._tag_requests([g], f"edit-{uuid.uuid4().hex[:28]}",
+                               req.headers.get("traceparent", ""))
             text, final = self._submit_all(lm, [g])[0].result()
         finally:
             lease.release()
@@ -739,14 +787,126 @@ class OpenAIApi:
     def version(self, req: Request) -> Response:
         return Response(body={"version": __version__})
 
+    def system(self, req: Request) -> Response:
+        loaded = self.manager.loaded_names()
+        backends = {}
+        for n in loaded:
+            lm = self.manager.peek(n)  # a monitoring poll never loads a model
+            if lm is not None:
+                backends[n] = lm.engine.metrics()
+        return Response(body={
+            "backends": backends,
+            "loaded_models": loaded,
+            "configured_models": self.manager.configs.names(),
+            "devices": device_names(self.manager.device),
+            "sysinfo": device_info(self.manager.device),
+            "recommended_mesh": recommend_mesh(),
+            "uptime_s": time.time() - self.started_at,
+            "version": __version__,
+        })
+
     def engine_gauges(self):
-        """(name, labels, value) for every loaded model's Engine.metrics();
-        peek() only: a scrape never loads a model."""
+        """(name, labels, value) for every loaded model's Engine.metrics()
+        and the manager's supervision gauges; peek() only: a scrape never
+        loads a model. A dead loop's gauge carries its postmortem path."""
         out = []
         for n in self.manager.loaded_names():
             lm = self.manager.peek(n)
             if lm is None:
                 continue
-            for k, v in lm.engine.metrics().items():
-                out.append((f"localai_engine_{k}", {"model": n}, v))
+            try:
+                gauges = lm.engine.metrics()
+            except Exception:  # noqa: BLE001 — a scrape survives a dying engine
+                continue
+            for k, v in gauges.items():
+                labels = {"model": n}
+                if k == "loop_dead":
+                    pm = lm.engine.postmortem_path
+                    if pm:
+                        labels["postmortem"] = pm
+                out.append((f"localai_engine_{k}", labels, v))
+        out.extend(self.manager.health_gauges())
         return out
+
+    def backend_monitor(self, req: Request) -> Response:
+        body = req.body or {}
+        name = body.get("model") or (req.query.get("model") or [None])[0]
+        if not name:
+            raise ApiError(400, "model is required")
+        lm = self.manager.peek(name)
+        if lm is None:
+            raise ApiError(404, f"model {name!r} is not loaded")
+        return Response(body={
+            "model": name,
+            "metrics": lm.engine.metrics(),
+            "loaded_for_s": time.monotonic() - lm.loaded_at,
+            "in_flight": lm.in_flight,
+            "supervision": self.manager.restart_stats(name),
+        })
+
+    def backend_shutdown(self, req: Request) -> Response:
+        body = req.body or {}
+        name = body.get("model")
+        if not name:
+            raise ApiError(400, "model is required")
+        if not self.manager.unload(name):
+            raise ApiError(404, f"model {name!r} is not loaded")
+        return Response(body={"status": "ok"})
+
+    # ------------------------------------------------------------------ #
+    # Request-lifecycle observability
+    # ------------------------------------------------------------------ #
+
+    def debug_trace(self, req: Request) -> Response:
+        """Span tree(s) of one request id, grouped by trace id. The id is
+        the OpenAI response id (`chatcmpl-*`, `cmpl-*`, `edit-*`; `-i` for
+        choice i > 0)."""
+        rid = req.params["request_id"]
+        data = STORE.get_json(rid)
+        if data is None:
+            raise ApiError(404, f"no trace recorded for request {rid!r} (traces are kept "
+                                "for the most recent requests only)")
+        return Response(body=data)
+
+    def _engine_journals(self, model: Optional[str]) -> dict:
+        """{model name: EventJournal} of the loaded engines (peek only: a
+        debug pull never loads a model)."""
+        out: dict = {}
+        for n in self.manager.loaded_names():
+            if model and n != model:
+                continue
+            lm = self.manager.peek(n)
+            if lm is not None and lm.engine.journal is not None:
+                out[n] = lm.engine.journal
+        return out
+
+    def debug_timeline(self, req: Request) -> Response:
+        """The engine journal(s) as Chrome trace-event JSON: load the body
+        in Perfetto or chrome://tracing. `?model=` narrows to one model."""
+        model = (req.query.get("model") or [None])[0]
+        journals = self._engine_journals(model)
+        if not journals:
+            raise ApiError(404, "no event journal available"
+                           + (f" for model {model!r}" if model else "")
+                           + " — is the model loaded and trace_journal_events > 0?")
+        return Response(body=chrome_trace(journals))
+
+    def debug_profile(self, req: Request) -> Response:
+        """One torch.profiler capture window (POST {"seconds": N}) into
+        ApplicationConfig.profile_dir (LOCALAI_PROFILE): profiling perturbs
+        serving and writes traces to disk, so it is an explicit operator
+        opt-in (403 without it). A second concurrent window gets 409."""
+        prof_dir = self.manager.app_cfg.profile_dir
+        if not prof_dir:
+            raise ApiError(403, "profiling is disabled — set LOCALAI_PROFILE=<output dir> "
+                                "to allow /debug/profile capture windows")
+        seconds = float((req.body or {}).get("seconds", 1.0))
+        try:
+            result = oprofile.capture(prof_dir, seconds)
+        except RuntimeError as e:
+            raise ApiError(409, str(e)) from None
+        # Mark the window in every journal, so the timeline and the
+        # profiler's trace line up.
+        for j in self._engine_journals(None).values():
+            j.stage("profile", a=result["seconds"])
+        return Response(body={"status": "ok", **result})

@@ -1297,3 +1297,84 @@ def test_gguf_forms_match_plain_version(card, tmp_path, plan, dtype):
         h = torch.randn(8, 256, generator=g).to(device="cuda", dtype=dtype)
         ref = qm.qunembed_plain(h, head)
         assert (qm.qunembed(h, head) - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+# --------------------------------------------------------------------------- #
+# Observability and faults on the card (tiny f32 engines)
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.cuda
+def test_fence_reads_the_device_time_of_a_block(card):
+    """trace_fence: each dispatched loop window carries its block's device
+    ms from the CUDA event pair (> 0, and no longer than the window's
+    wall), read after the block's own host read."""
+    eng = _tiny_engine(trace_fence=True, kv_pages=40, kv_page_size=16)
+    try:
+        eng.start()
+        _tiny_ids(eng, [5, 6, 7, 8], n=24)
+        import time
+        time.sleep(0.1)
+        snap = eng.journal.snapshot()
+        blocks = [e for e in snap if e["event"] == "decode_block"]
+        windows = [e for e in snap if e["event"] == "loop_iter" and e["b"] > 0
+                   and "phases" in e and e["phases"].get("dispatch")]
+        assert blocks and windows
+        for w in windows:
+            wall = sum(w["phases"].values())
+            assert 0 < w["b"] <= wall + 1e-3, (w["b"], w["phases"])
+    finally:
+        eng.stop()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", ["device_dispatch", "control_commit"])
+def test_fault_before_a_first_capture_leaves_no_graph_and_no_capture(card, site):
+    """A fault on a block shape not yet captured fails that block's
+    requests before any capture begins: the stream is out of capture mode,
+    no graph entry is left half built, and the next block of the shape
+    captures and serves."""
+    from localai_tpu_torch.testing import faults
+
+    eng = _tiny_engine(kv_pages=40, kv_page_size=16)
+    try:
+        eng.start()
+        # device_dispatch fires twice in an admission, then at the block.
+        after = 2 if site == "device_dispatch" else 0
+        with faults.active(faults.ChaosScript(0, [faults.ChaosPhase(site, after_calls=after)],
+                                              threads={eng._thread.ident})):
+            from localai_tpu_torch.engine.engine import GenRequest
+
+            evs = list(eng.submit(GenRequest(prompt_ids=[5, 6, 7], max_new_tokens=10,
+                                             ignore_eos=True)))
+        assert evs[-1].kind == "error" and "InjectedFault" in evs[-1].error
+        assert torch.cuda.is_current_stream_capturing() is False
+        assert eng.metrics()["decode_graph_captures"] == 0 and not eng._graph_cache
+        assert len(eng._free_pages) == eng.ecfg.kv_pages
+        assert len(_tiny_ids(eng, [5, 6, 7], n=10)) == 10
+        assert eng.metrics()["decode_graph_captures"] == len(eng._graph_cache) > 0
+        assert sum(e["event"] == f"fault_{site}" for e in eng.journal.snapshot()) == 1
+    finally:
+        eng.stop()
+
+
+@pytest.mark.cuda
+def test_engines_loaded_and_dropped_leave_no_memory(card):
+    """A crash-only restart builds a new engine for each death: an engine
+    that served (graphs captured) and was stopped and dropped leaves no
+    device memory behind (cuBLAS keeps a workspace for each stream it ran
+    on, so every engine captures on one shared side stream)."""
+    import gc
+
+    after = []
+    for _ in range(3):
+        eng = _tiny_engine(kv_pages=40, kv_page_size=16)
+        eng.start()
+        assert len(_tiny_ids(eng, [5, 6, 7], n=12)) == 12
+        assert eng.metrics()["decode_graph_captures"] > 0
+        eng.stop()
+        eng.drop_device_state()
+        del eng
+        gc.collect()
+        torch.cuda.synchronize()
+        after.append(torch.cuda.memory_allocated())
+    assert after[2] == after[1], after

@@ -10,9 +10,9 @@ tool calls, whole and streamed. Chat and completions logprobs (whole and
 streamed), best_of ranking and its errors, `deadline_s` on a saturated
 model, /v1/tokenize and /v1/edits give the JAX server's JSON (logprobs
 within 1e-4). Image content, which the port does not honour yet, gets a
-400 naming it. Every YAML knob group the port has not ported fails the
-load (or the server's startup) naming its ROADMAP item, or warns; the
-bounded-admission and fork knobs reach the engine. Last, `python -m
+400 naming it. Every server knob group the port has not ported fails
+the server's startup naming its ROADMAP item, or warns; the
+bounded-admission, fork and observability knobs reach the engine. Last, `python -m
 localai_tpu_torch run --device cpu` starts and answers /readyz."""
 
 import dataclasses
@@ -493,8 +493,8 @@ def _knob_manager(root, doc, **app):
     ({"draft_model": "tiny"}, {}, "spec"),
     ({"spec_mode": "prompt_lookup"}, {}, "spec"),
     ({"n_draft": 3}, {}, "spec"),
-    ({"trace_journal_events": 128}, {}, "item 11, runtime, observability and faults"),
-    ({}, {"postmortem_dir": "/tmp/pm"}, "item 11, runtime, observability and faults"),
+    ({"trace_journal_events": 128}, {}, "reaches"),
+    ({}, {"postmortem_dir": "/tmp/pm"}, "reaches"),
     ({}, {"cluster_replicas": 2}, "item 12, cluster"),
     ({}, {"cluster_peers": ["http://h:1"]}, "item 12, cluster"),
     ({"tensor_parallel": 2}, {}, "warn tensor_parallel=2"),
@@ -504,11 +504,11 @@ def _knob_manager(root, doc, **app):
 def test_no_yaml_knob_is_dropped_in_silence(tmp_path, caplog, doc, app, expect):
     from localai_tpu_torch.server.manager import UnsupportedBackendError
 
-    if app:
+    if app and expect.startswith("item"):
         with pytest.raises(UnsupportedBackendError, match=expect):
             _knob_manager(tmp_path, doc, **app)
         return
-    tm = _knob_manager(tmp_path, doc)
+    tm = _knob_manager(tmp_path, doc, **app)
     try:
         if expect.startswith("item"):
             with pytest.raises(UnsupportedBackendError, match=expect):
@@ -527,7 +527,14 @@ def test_no_yaml_knob_is_dropped_in_silence(tmp_path, caplog, doc, app, expect):
             assert (eng.draft_cfg.name if eng.draft_cfg else None) == doc.get("draft_model")
             assert not [r for r in caplog.records if r.levelname == "WARNING"]
             return
-        if expect == "wired":
+        if expect == "reaches":
+            # The observability knobs reach the engine: the model's journal
+            # capacity, the server's postmortem directory.
+            assert ecfg.trace_journal_events == doc.get("trace_journal_events", 4096)
+            assert eng.journal.capacity == ecfg.trace_journal_events
+            assert ecfg.postmortem_dir == app.get("postmortem_dir", "")
+            assert not [r for r in caplog.records if r.levelname == "WARNING"]
+        elif expect == "wired":
             assert (ecfg.queue_timeout_s, ecfg.deadline_s, ecfg.fork_sampling) == (2.5, 5.0,
                                                                                   False)
             assert not [r for r in caplog.records if r.levelname == "WARNING"]
