@@ -260,7 +260,30 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    allocated memory after the third restart within 5 % of the first's; a
    fourth death with no traffic is reaped by the watchdog. Prints one
    {"observe": ...} line.
-In 5, 6, 8, 10, 11, 12, 14, 15, 17, 18, 19, 20, 21, 22 and 23 the kernel launch counters, zeroed just
+24. embed_rerank (run after 23) — embeddings, rerank, the bert backend and
+   the vector store through ModelManager and the port's HTTP server
+   (OpenAIApi, RerankApi, StoresApi): (a) llama-3.2-1b bf16 at full width
+   and depth (16 layers) on the paged config with the byte tokenizer:
+   /v1/embeddings of 16 inputs of 20-500 tokens (strings and token
+   arrays; norms within 1e-3 of 1) and /v1/rerank of 8 documents, one the
+   model's own greedy continuation of the query (among printable ASCII
+   ids, so its text encodes back to them), which must rank first; each
+   twice (B1 = 4 x 16 launches exactly); the same embeddings again while
+   8 streamed chats decode (bit-identical, and overlapping the chats); a
+   32-document rerank at bucket 2048 with its peak memory against the
+   reference's unchunked logits; then f32 witnesses of the same weights on
+   the card (each vector's cosine >= 0.999, rerank scores within 2e-2);
+   (b) tiny-d64 f32, plain and int8, `encode` and `sequence_logprob` on
+   the card (B1's, B3's and B4's f32 kernels) against the CPU within
+   1e-4; (c) bge-large (BAAI/bge-large-en-v1.5's widths: 1024, 24 layers,
+   16 heads) from a random checkpoint the port's save_hf_bert writes,
+   32 inputs embedded over HTTP, the 4 shortest held to the CPU within
+   1e-4; (d) a cross-encoder at cross-encoder/ms-marco-MiniLM-L-6-v2's
+   widths (384, 6 layers, 12 heads, one label) reranking 16 documents
+   over HTTP, held to the CPU within 1e-4; (e) a store of 100,000 x 384
+   f32 keys on the card: 100 finds at k = 10 give numpy's indices
+   (similarities within 1e-5), ms a find; /stores/* over HTTP.
+In 5, 6, 8, 10, 11, 12, 14, 15, 17, 18, 19, 20, 21, 22, 23 and 24 the kernel launch counters, zeroed just
 before each run, show that the path went through the kernels; a graph
 replay counts the launches its capture recorded. Every decode block of
 those runs is a graph capture or replay (the eager runs of phases 12 and
@@ -508,11 +531,17 @@ def phase_kernels(gen: torch.Generator) -> list[dict]:
         (3, 200, 32, 8, 128, torch.bfloat16),
         (3, 200, 32, 8, 64, torch.float32),
     ]
+    # The embed_rerank phase's forwards on the 1b: 16 embeddings at bucket
+    # 512, 32 rerank documents at bucket 2048.
+    embed_rerank = [
+        (16, 512, 32, 8, 64, torch.bfloat16),
+        (32, 2048, 32, 8, 64, torch.bfloat16),
+    ]
     # The added rows draw from their own generator, so the later phases see
     # the inputs they always saw.
     gen_added = torch.Generator(device="cuda").manual_seed(6)
     cases = ([(sh, "ragged", gen) for sh in ragged] + [(sh, "full", gen_added) for sh in full]
-             + [(sh, "ragged", gen_added) for sh in partial])
+             + [(sh, "ragged", gen_added) for sh in partial + embed_rerank])
     rows = []
     for (B, S, H, K, D, dt), mode, g in cases:
         q = torch.randn(B, S, H, D, generator=g, device="cuda").to(dt)
@@ -2039,9 +2068,11 @@ def _write_models_dir(root: str, tenants: bool) -> None:
                             "adapter": f"adapters/t{t}", "max_tokens": 64}, f)
 
 
-def _http(base: str, path: str, payload: dict, t_submit: float) -> dict:
-    """POST one request; for a stream, read the SSE frames as they come.
-    Returns status, the parsed body or the frames, and the client's TTFT."""
+def _http(base: str, path: str, payload: dict, t_submit: float,
+          stamps: list | None = None) -> dict:
+    """POST one request; for a stream, read the SSE frames as they come
+    (each frame's arrival time appended to `stamps` when given). Returns
+    status, the parsed body or the frames, and the client's TTFT."""
     import urllib.error
     import urllib.request
 
@@ -2057,6 +2088,8 @@ def _http(base: str, path: str, payload: dict, t_submit: float) -> dict:
                 if not line.startswith("data: "):
                     continue
                 frames.append(line[6:])
+                if stamps is not None:
+                    stamps.append(time.monotonic())
                 if ttft is None and line[6:] != "[DONE]":
                     c = json.loads(line[6:])["choices"][0]
                     if c.get("text") or (c.get("delta") or {}).get("content"):
@@ -6017,6 +6050,465 @@ def phase_observe() -> dict:
     return out
 
 
+# Embeddings, rerank, the bert backend and the vector store (phase 24).
+# llama-3.2-1b bf16 at full width and depth on the paged config, the byte
+# tokenizer (ASCII text round-trips to its ids), no speculation; the chats,
+# rerank and embeddings all on one model.
+EMBED_YAML = dict({k: v for k, v in LORA_BASE_YAML.items() if k != "tokenizer"},
+                  name="emb-1b", spec_mode="off",
+                  known_usecases=["chat", "completion", "embeddings", "rerank", "tokenize"])
+EMBED_LENS = [20, 45, 80, 130, 200, 290, 380, 500]  # 8 strings and 8 token arrays
+EMBED_COS_MIN = 0.999  # each bf16 vector against its f32 witness
+EMBED_NORM_TOL = 1e-3
+EMBED_CHATS = [60, 200, 400, 900, 60, 200, 400, 1400]
+EMBED_CHAT_NEW = 512  # eight 64-step blocks a chat: the embed and the rerank land between
+RERANK_CONT = 32  # tokens of the greedy continuation, and of each other document
+RERANK_TOL = 2e-2  # |bf16 score - f32 witness score|
+RERANK_LONG = (32, 1000, 1000)  # documents, query and document tokens: bucket 2048
+CARD_CPU_TOL = 1e-4  # f32 on the card against the CPU
+BGE_INPUTS = 32
+MINILM = dict(name="ms-marco-MiniLM-L-6-v2", vocab_size=30522, hidden_size=384, num_layers=6,
+              num_heads=12, intermediate_size=1536, max_position=512, num_labels=1)
+STORE_KEYS, STORE_DIM, STORE_FINDS, STORE_K = 100_000, 384, 100, 10
+STORE_SIM_TOL = 1e-5
+
+
+def _f32_tree(params: dict) -> dict:
+    return {k: (_f32_tree(v) if isinstance(v, dict) else v.float()) for k, v in params.items()}
+
+
+def _to_cuda(params: dict) -> dict:
+    return {k: (_to_cuda(v) if isinstance(v, dict) else v.cuda()) for k, v in params.items()}
+
+
+def _cosine(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+
+
+def _er_inputs(vocab: int) -> list:
+    """16 embedding inputs of 20-500 tokens: ASCII strings and token arrays
+    of random ids, interleaved."""
+    rng = np.random.default_rng(21)
+    strings = [_obs_text(n, 300 + i) for i, n in enumerate(EMBED_LENS)]
+    arrays = [rng.integers(0, vocab, n).tolist() for n in EMBED_LENS]
+    return [x for pair in zip(strings, arrays) for x in pair]
+
+
+def _er_chats(base: str, eng) -> tuple[list, list]:
+    """8 streamed greedy chats of EMBED_CHAT_NEW tokens, started now; returns
+    (threads, results) with each result's status, frames, frame arrival
+    times and end time."""
+    results: list = [None] * len(EMBED_CHATS)
+
+    def run(i, n):
+        body = {"model": "emb-1b", "messages": [{"role": "user", "content": _obs_text(n, 800 + i)}],
+                "max_tokens": EMBED_CHAT_NEW, "ignore_eos": True, "temperature": 0.0,
+                "stream": True}
+        stamps: list = []
+        res = _http(base, "/v1/chat/completions", body, time.monotonic(), stamps)
+        results[i] = dict(res, stamps=stamps, t_done=time.monotonic())
+
+    threads = [threading.Thread(target=run, args=(i, n), daemon=True)
+               for i, n in enumerate(EMBED_CHATS)]
+    for th in threads:
+        th.start()
+    return threads, results
+
+
+def _er_llama(base: str, manager) -> dict:
+    """(a) the 1b through the server: /v1/embeddings, /v1/rerank (the
+    greedy continuation among 7 random documents), the same embeddings
+    again under 8 streamed chats, a 32-document rerank at bucket 2048 (its
+    peak memory); then the f32 witnesses on the same weights."""
+    from localai_tpu_torch.engine.engine import GenRequest, pad_rows
+    from localai_tpu_torch.models import llama
+    from localai_tpu_torch.ops import attention
+    from localai_tpu_torch.ops.flash import flash_prefill_attention_plain
+
+    out: dict = {}
+    t0 = time.monotonic()
+    eng = manager.get("emb-1b").engine
+    torch.cuda.synchronize()  # the random draw is queued on the card
+    out["load_s"] = time.monotonic() - t0
+    cfg, tok = eng.cfg, eng.tokenizer
+    inputs = _er_inputs(cfg.vocab_size)
+    ids = [tok.encode(x) if isinstance(x, str) else list(x) for x in inputs]
+    check([len(i) for i in ids] == [n for n in EMBED_LENS for _ in (0, 1)],
+          "embed_rerank: input lengths")
+    # The model's own greedy continuation of the query, among printable
+    # ASCII ids (a +100 bias on each), so its text encodes back to its ids.
+    query = _obs_text(60, 400)
+    q_ids = tok.encode(query)
+    cont, final = eng.submit(GenRequest(
+        prompt_ids=q_ids, max_new_tokens=RERANK_CONT, temperature=0.0, ignore_eos=True,
+        logit_bias={i: 100.0 for i in range(32, 127)})).result()
+    check(final.kind == "done" and len(tok.encode(cont)) == RERANK_CONT,
+          f"embed_rerank: the greedy continuation {cont!r}")
+    docs = [_obs_text(RERANK_CONT, 500 + i) for i in range(7)]
+    docs.insert(5, cont)
+
+    def post(path, body):
+        t = time.monotonic()
+        st, _h, resp = _http_call(base, "POST", path, body)
+        check(st == 200, f"embed_rerank: {path} answered {st}: {resp}")
+        return resp, (time.monotonic() - t) * 1e3
+
+    # Run 1: embeddings and rerank on an idle engine, each twice (the first
+    # call at a shape pays cuBLAS's and the allocator's first-use costs).
+    _zero_counts()
+    e1, out["embed_ms_first"] = post("/v1/embeddings", {"model": "emb-1b", "input": inputs})
+    rr, out["rerank_ms_first"] = post("/v1/rerank", {"model": "emb-1b", "query": query,
+                                                      "documents": docs})
+    e1b, out["embed_ms"] = post("/v1/embeddings", {"model": "emb-1b", "input": inputs})
+    rrb, out["rerank_ms"] = post("/v1/rerank", {"model": "emb-1b", "query": query,
+                                                 "documents": docs})
+    run1 = _read_counts()
+    check(run1["flash_prefill"] == 4 * cfg.num_layers,
+          f"embed_rerank: {run1['flash_prefill']} B1 launches for two embeds and two reranks "
+          f"(want {4 * cfg.num_layers})")
+    check(e1b["data"] == e1["data"] and rrb["results"] == rr["results"],
+          "embed_rerank: a repeated embed or rerank differs")
+    vecs = [d["embedding"] for d in e1["data"]]
+    norms = [float(np.linalg.norm(v)) for v in vecs]
+    check(len(vecs) == 16 and all(len(v) == cfg.hidden_size for v in vecs)
+          and max(abs(n - 1.0) for n in norms) <= EMBED_NORM_TOL,
+          f"embed_rerank: 16 vectors of {cfg.hidden_size}, norms {norms}")
+    check(e1["usage"]["prompt_tokens"] == sum(len(i) for i in ids), "embed_rerank: usage")
+    order = [r["index"] for r in rr["results"]]
+    check(order[0] == 5, f"embed_rerank: the greedy continuation ranked {order.index(5) + 1}: "
+                         f"{rr['results']}")
+    scores = {r["index"]: r["relevance_score"] for r in rr["results"]}
+
+    # Run 2: the 32-document rerank at bucket 2048 on the idle engine (its
+    # peak memory), then the same embeddings and the same rerank while 8
+    # streamed chats decode, then the rerank warm and idle again.
+    _zero_counts()
+    n, qn, dn = RERANK_LONG
+    long_q, long_docs = _obs_text(qn, 600), [_obs_text(dn, 700 + i) for i in range(n)]
+    long_body = {"model": "emb-1b", "query": long_q, "documents": long_docs}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    rl, out["rerank32_ms_first"] = post("/rerank", long_body)
+    out["rerank32_peak_extra_gib"] = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+    threads, chats = _er_chats(base, eng)
+    # Every chat admitted and one block after: the block shapes' graph
+    # captures are behind, so the gaps below hold the calls, not them.
+    t_wait, blocks_full = time.monotonic() + 300, None
+    while time.monotonic() < t_wait:
+        if blocks_full is None and int(eng.h_active.sum()) == len(EMBED_CHATS):
+            blocks_full = eng.m_blocks
+        if blocks_full is not None and eng.m_blocks > blocks_full:
+            break
+        time.sleep(0.005)
+    active = int(eng.h_active.sum())
+    captures0 = eng.m_graph_captures
+    t_full = t_e = time.monotonic()
+    e2, out["embed_busy_ms"] = post("/v1/embeddings", {"model": "emb-1b", "input": inputs})
+    t_e2 = t_r = time.monotonic()
+    rl2, out["rerank32_busy_ms"] = post("/rerank", long_body)
+    t_r2 = time.monotonic()
+    out["captures_during_calls"] = eng.m_graph_captures - captures0
+    for th in threads:
+        th.join(timeout=600)
+    check(all(not th.is_alive() for th in threads), "embed_rerank: a chat never finished")
+    for i, c in enumerate(chats):
+        check(c["status"] == 200 and c["frames"][-1] == "[DONE]",
+              f"embed_rerank: chat {i} answered {c['status']}")
+        usage = json.loads(c["frames"][-2])["usage"]
+        check(usage["completion_tokens"] == EMBED_CHAT_NEW, f"embed_rerank: chat {i}: {usage}")
+    out["chats_active_at_embed"] = active
+    out["chats_after_embed"] = sum(c["t_done"] > t_e2 for c in chats)
+    out["chats_after_rerank32"] = sum(c["t_done"] > t_r2 for c in chats)
+    check(active > 0 and out["chats_after_embed"] > 0 and out["chats_after_rerank32"] > 0,
+          f"embed_rerank: the calls did not overlap the chats ({active} active, "
+          f"{out['chats_after_embed']} / {out['chats_after_rerank32']} ended after the "
+          f"embed / the rerank)")
+    same = [d["embedding"] for d in e2["data"]] == vecs
+    out["busy_bit_identical"] = same
+    check(same, "embed_rerank: the embeddings under 8 streamed chats differ from the idle run")
+    check(rl2["results"] == rl["results"],
+          "embed_rerank: the 32-document rerank under 8 streamed chats differs from the idle run")
+    # The chats' inter-token gaps once all are admitted: frames come a
+    # decode block at a time, so the gaps of 20 ms or more are the
+    # block-to-block ones. A gap that overlaps a call's window holds that
+    # call's forward (the loop runs it between two blocks).
+    block_gaps, embed_gaps, rerank_gaps = [], [], []
+    for c in chats:
+        st = c["stamps"][:-1]  # the [DONE] frame follows the last token's
+        for t0_, t1_ in zip(st, st[1:]):
+            if t1_ - t0_ < 0.020 or t1_ < t_full:
+                continue
+            gap = (t1_ - t0_) * 1e3
+            if t0_ <= t_e2 and t1_ >= t_e:
+                embed_gaps.append(gap)
+            elif t0_ <= t_r2 and t1_ >= t_r:
+                rerank_gaps.append(gap)
+            else:
+                block_gaps.append(gap)
+    out["chat_gap_block_ms_p50"] = float(np.median(block_gaps)) if block_gaps else None
+    out["chat_gap_block_ms_max"] = max(block_gaps, default=None)
+    out["chat_gap_embed_ms_max"] = max(embed_gaps, default=None)
+    out["chat_gap_rerank32_ms_max"] = max(rerank_gaps, default=None)
+    check(embed_gaps and rerank_gaps and block_gaps,
+          f"embed_rerank: no chat gap overlaps the busy embed ({len(embed_gaps)}) or the "
+          f"rerank ({len(rerank_gaps)}), or none lies between ({len(block_gaps)})")
+    rl3, out["rerank32_ms"] = post("/rerank", long_body)
+    run2 = _read_counts()
+    check(rl3["results"] == rl["results"], "embed_rerank: a repeated 32-document rerank differs")
+    jobs = eng.metrics()
+    out["loop_jobs"], out["loop_jobs_ms_total"] = jobs["loop_jobs"], jobs["loop_jobs_ms_total"]
+    # The same batch's forward alone (no unembed), on this thread while the
+    # loop idles: the chunked unembed's share of the call.
+    rows32 = [tok.encode(long_q) + tok.encode(d) for d in long_docs]
+    toks32, lens32 = pad_rows(rows32, 2048)
+    t32, l32 = torch.from_numpy(toks32).to(eng.device), torch.from_numpy(lens32).to(eng.device)
+    out["rerank32_forward_ms"] = cuda_time_ms(
+        lambda: llama._forward_hidden(cfg, eng.params, t32, l32, collect_kv=False), 2, warmup=1)
+    del t32, l32
+    S = 2048
+    check(eng._bucket_for(qn + dn) == S and len(rl["results"]) == n,
+          "embed_rerank: the 32-document rerank")
+    # The reference's log_softmax over [N, S-1, V] f32, and its logits beside.
+    out["rerank32_unchunked_gib"] = 2 * n * (S - 1) * cfg.vocab_size * 4 / 2**30
+    out["rerank32_chunk_bytes"] = llama.LOGPROB_CHUNK_ROWS * cfg.vocab_size * 4
+    check(run2["flash_prefill"] >= 4 * cfg.num_layers,
+          f"embed_rerank: {run2['flash_prefill']} B1 launches in the busy run")
+
+    # The f32 witnesses: the same ids through the same functions on an f32
+    # copy of the served weights, on the card, with attention on B1's plain
+    # version (no kernel of the port in the witness).
+    cfg32, p32 = dataclasses.replace(cfg, dtype="float32"), _f32_tree(eng.params)
+    toks, lens = pad_rows(ids, eng._bucket_for(max(len(i) for i in ids)))
+    dev = eng.device
+
+    def plain_attn():
+        return swapped(attention, "flash_prefill_attention", flash_prefill_attention_plain)
+
+    before = _read_counts()["flash_prefill"]
+    with plain_attn():
+        w = llama.encode(cfg32, p32, torch.from_numpy(toks).to(dev),
+                         torch.from_numpy(lens).to(dev)).cpu().numpy()
+    cos = [_cosine(v, w[i]) for i, v in enumerate(vecs)]
+    out["embed_cos_min"] = min(cos)
+    check(min(cos) >= EMBED_COS_MIN, f"embed_rerank: bf16 vs f32 cosines {cos}")
+    rows = [q_ids + tok.encode(d) for d in docs]
+    toks, lens = pad_rows(rows, eng._bucket_for(max(len(r) for r in rows)))
+    conds = torch.full((len(rows),), len(q_ids), dtype=torch.int64, device=dev)
+    with plain_attn():
+        ws = llama.sequence_logprob(cfg32, p32, torch.from_numpy(toks).to(dev),
+                                    torch.from_numpy(lens).to(dev), conds).cpu().numpy()
+    check(_read_counts()["flash_prefill"] == before, "embed_rerank: a witness launched B1")
+    out["rerank_err"] = max(abs(scores[i] - float(ws[i])) for i in range(len(docs)))
+    out["rerank_scores"] = [scores[i] for i in range(len(docs))]
+    out["rerank_witness_first"] = int(np.argmax(ws))
+    check(out["rerank_err"] <= RERANK_TOL,
+          f"embed_rerank: rerank scores {out['rerank_scores']} vs f32 {ws.tolist()}")
+    del p32
+    torch.cuda.empty_cache()
+    out["runs"] = {"embed_rerank": {"launches": run1}, "embed_rerank_busy": {"launches": run2}}
+    return out
+
+
+def _er_tiny() -> dict:
+    """(b) llama.encode and sequence_logprob on tiny-d64 f32 on the card
+    (B1's f32 kernel; int8 weights: B3 and B4's f32 kernels) against the
+    same functions on the CPU."""
+    from localai_tpu_torch.models import get_arch, llama
+    from localai_tpu_torch.models.quant import quantize_params
+
+    cfg = dataclasses.replace(get_arch("tiny"), name="tiny-d64", hidden_size=256,
+                              intermediate_size=512, num_heads=4, num_kv_heads=2,
+                              dtype="float32")
+    p_cpu = llama.init_params(cfg, seed=7, scale=0.06, device="cpu")
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 64))).long()
+    lens, conds = torch.tensor([64, 23, 1]), torch.tensor([10, 4, 0])
+    out = {}
+    for name, p in (("plain", p_cpu), ("int8", quantize_params(cfg, p_cpu, "int8"))):
+        p_gpu = _to_cuda(p)
+        want = (llama.encode(cfg, p, toks, lens), llama.sequence_logprob(cfg, p, toks, lens, conds))
+        _zero_counts()
+        got = (llama.encode(cfg, p_gpu, toks.cuda(), lens.cuda()),
+               llama.sequence_logprob(cfg, p_gpu, toks.cuda(), lens.cuda(), conds.cuda()))
+        launches = _read_counts()
+        err = max((g.cpu() - w).abs().max().item() for g, w in zip(got, want))
+        out[name] = dict(max_abs_err=err, launches=launches)
+        check(err <= CARD_CPU_TOL, f"embed_rerank tiny {name}: card vs CPU {err}")
+        check(launches["flash_prefill"] == 2 * cfg.num_layers,
+              f"embed_rerank tiny {name}: {launches['flash_prefill']} B1 launches")
+        if name == "int8":
+            check(launches["quant_matmul"] == 2 * 7 * cfg.num_layers
+                  and launches["quant_unembed"] == 1,
+                  f"embed_rerank tiny int8: B3 {launches['quant_matmul']}, "
+                  f"B4 {launches['quant_unembed']} launches")
+    return out
+
+
+def _er_bert(base: str, manager, root: str) -> dict:
+    """(c) bge-large embeds 32 inputs over HTTP, the 4 shortest held to the
+    CPU; (d) the MiniLM cross-encoder reranks 16 documents over HTTP, held
+    to the CPU."""
+    from localai_tpu_torch.engine.bert_engine import BertEngine
+    from localai_tpu_torch.engine.tokenizer import ByteTokenizer
+    from localai_tpu_torch.models import bert as B
+
+    out: dict = {}
+    t0 = time.monotonic()
+    eng = manager.get("bge-large").engine
+    torch.cuda.synchronize()
+    out["bge_load_s"] = time.monotonic() - t0
+    bcfg = eng.cfg
+    rng = np.random.default_rng(5)
+    lens = rng.integers(8, 500, BGE_INPUTS).tolist()
+    inputs = [(_obs_text(n, 900 + i) if i % 2 else rng.integers(0, bcfg.vocab_size, n).tolist())
+              for i, n in enumerate(lens)]
+    t = time.monotonic()
+    st, _h, body = _http_call(base, "POST", "/v1/embeddings", {"model": "bge-large",
+                                                               "input": inputs})
+    out["bge_batch_ms"] = (time.monotonic() - t) * 1e3
+    check(st == 200, f"embed_rerank bge-large: {st} {body}")
+    vecs = np.asarray([d["embedding"] for d in body["data"]], np.float32)
+    check(vecs.shape == (BGE_INPUTS, 1024)
+          and np.abs(np.linalg.norm(vecs, axis=-1) - 1).max() <= 1e-4,
+          f"embed_rerank bge-large: {vecs.shape}")
+    out["bge_busy_ms"] = eng.metrics()["busy_seconds"] * 1e3
+    short = sorted(range(BGE_INPUTS), key=lambda i: lens[i])[:4]
+    cpu = BertEngine(bcfg, B.load_hf_bert(bcfg, f"{root}/ckpt-bge-large", device="cpu"),
+                     ByteTokenizer(bcfg.vocab_size))
+    tok = eng.tokenizer
+    want = cpu.embed([tok.encode(inputs[i]) if isinstance(inputs[i], str) else inputs[i]
+                      for i in short])
+    out["bge_card_cpu_err"] = float(np.abs(vecs[short] - want).max())
+    check(out["bge_card_cpu_err"] <= CARD_CPU_TOL,
+          f"embed_rerank bge-large: card vs CPU {out['bge_card_cpu_err']}")
+    del cpu
+    t0 = time.monotonic()
+    ce = manager.get("minilm-reranker").engine
+    out["minilm_load_s"] = time.monotonic() - t0
+    query = _obs_text(40, 950)
+    docs = [_obs_text(int(n), 960 + i) for i, n in enumerate(rng.integers(10, 300, 16))]
+    t = time.monotonic()
+    st, _h, body = _http_call(base, "POST", "/v1/rerank", {"model": "minilm-reranker",
+                                                           "query": query, "documents": docs})
+    out["minilm_rerank_ms"] = (time.monotonic() - t) * 1e3
+    check(st == 200 and len(body["results"]) == 16, f"embed_rerank minilm: {st} {body}")
+    got = np.zeros(16, np.float32)
+    for r in body["results"]:
+        got[r["index"]] = r["relevance_score"]
+    cpu = BertEngine(ce.cfg, B.load_hf_bert(ce.cfg, f"{root}/ckpt-minilm", device="cpu"),
+                     ByteTokenizer(ce.cfg.vocab_size))
+    want = cpu.rerank(ce.tokenizer.encode(query), [ce.tokenizer.encode(d) for d in docs])
+    out["minilm_card_cpu_err"] = float(np.abs(got - want).max())
+    check(out["minilm_card_cpu_err"] <= CARD_CPU_TOL,
+          f"embed_rerank minilm: card vs CPU {out['minilm_card_cpu_err']}")
+    return out
+
+
+def _er_store(base: str, registry) -> dict:
+    """(e) 100,000 keys x 384 f32 on the card: 100 finds at k = 10 against
+    numpy (indices and order, similarities within 1e-5); ms a find. Then
+    /stores/* over HTTP on a small store."""
+    rng = np.random.default_rng(11)
+    keys = rng.standard_normal((STORE_KEYS, STORE_DIM)).astype(np.float32)
+    keys /= np.linalg.norm(keys, axis=-1, keepdims=True)
+    store = registry.get("bench")
+    t = time.monotonic()
+    store.set(keys, [str(i).encode() for i in range(STORE_KEYS)])
+    out = {"set_s": time.monotonic() - t, "device_bytes": store._dev_keys.numel() * 4}
+    check(store._dev_keys.is_cuda and out["device_bytes"] == STORE_KEYS * STORE_DIM * 4,
+          "embed_rerank store: the keys are not on the card")
+    queries = rng.standard_normal((STORE_FINDS, STORE_DIM)).astype(np.float32)
+    found = []
+    store.find(queries[0], STORE_K)  # the first call loads cuBLAS
+    torch.cuda.synchronize()
+    t = time.monotonic()
+    for q in queries:
+        found.append(store.find(q, STORE_K))
+    out["find_ms"] = (time.monotonic() - t) * 1e3 / STORE_FINDS
+    err, same = 0.0, True
+    for q, (_k, values, sims) in zip(queries, found):
+        ref = keys @ (q / np.linalg.norm(q))
+        idx = np.argsort(-ref, kind="stable")[:STORE_K]
+        same &= [int(v) for v in values] == idx.tolist()
+        err = max(err, float(np.abs(sims - ref[idx]).max()))
+    out.update(indices_equal=same, sim_err=err)
+    check(same and err <= STORE_SIM_TOL,
+          f"embed_rerank store: indices equal {same}, similarity error {err}")
+    st, _h, _b = _http_call(base, "POST", "/stores/set", {
+        "store": "http", "keys": [[1, 0, 0], [0, 1, 0], [0.6, 0.8, 0]], "values": ["a", "b", "c"]})
+    st2, _h, found_http = _http_call(base, "POST", "/stores/find", {"store": "http",
+                                                                    "key": [1, 0, 0], "topk": 2})
+    check(st == st2 == 200 and found_http["values"] == ["a", "c"],
+          f"embed_rerank store: /stores/find answered {st2} {found_http}")
+    return out
+
+
+def phase_embed_rerank() -> dict:
+    """Embeddings, rerank, the bert backend and the vector store through
+    ModelManager and the port's HTTP server (OpenAIApi, RerankApi,
+    StoresApi): (a) llama-3.2-1b, (b) tiny-d64 card vs CPU, (c)
+    bge-large, (d) the MiniLM cross-encoder, (e) the 100k-key store."""
+    import yaml
+
+    from localai_tpu_torch.config import ApplicationConfig
+    from localai_tpu_torch.models import bert as B
+    from localai_tpu_torch.server import ModelManager, OpenAIApi, Router, create_server
+    from localai_tpu_torch.server.rerank_api import RerankApi
+    from localai_tpu_torch.server.stores_api import StoresApi
+    from localai_tpu_torch.stores import StoreRegistry
+
+    out, seconds = {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.monotonic()
+        bge = B.BERT_PRESETS["bge-large"]
+        B.save_hf_bert(bge, B.init_params(bge, seed=1, device="cuda"), f"{root}/ckpt-bge-large")
+        mini = B.BertConfig(**MINILM)
+        B.save_hf_bert(mini, B.init_params(mini, seed=2, scale=0.1, device="cuda"),
+                       f"{root}/ckpt-minilm")
+        seconds["write_checkpoints"] = round(time.monotonic() - t0, 1)
+        for doc in (EMBED_YAML,
+                    {"name": "bge-large", "backend": "bert", "model": "ckpt-bge-large"},
+                    {"name": "minilm-reranker", "backend": "bert", "model": "ckpt-minilm"}):
+            with open(f"{root}/{doc['name']}.yaml", "w") as f:
+                yaml.safe_dump(doc, f)
+        app = ApplicationConfig(address="127.0.0.1", port=0, models_dir=root)
+        manager = ModelManager(app, device="cuda")
+        registry = StoreRegistry(device="cuda")
+        router = Router()
+        oai = OpenAIApi(manager)
+        oai.register(router)
+        RerankApi(manager, oai).register(router)
+        StoresApi(registry).register(router)
+        server = create_server(app, router)
+        threading.Thread(target=server.serve_forever, daemon=True, name="http").start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+
+        def part(name, fn, *args):
+            t = time.monotonic()
+            out[name] = fn(*args)
+            seconds[name] = round(time.monotonic() - t, 1)
+
+        try:
+            part("llama", _er_llama, base, manager)
+            manager.unload("emb-1b", drain_s=0.0)
+            part("tiny", _er_tiny)
+            part("bert", _er_bert, base, manager, root)
+            part("store", _er_store, base, registry)
+            out["seconds"] = seconds
+        finally:
+            server.shutdown()
+            manager.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["runs"] = {**out["llama"].pop("runs"),
+                   **{f"embed_rerank_tiny_{k}": {"launches": v["launches"]}
+                      for k, v in out["tiny"].items()}}
+    log(json.dumps({"embed_rerank": {k: v for k, v in out.items() if k != "runs"}}))
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
@@ -6049,6 +6541,7 @@ def main() -> None:
     grammar = timed("grammar", phase_grammar)
     tree = timed("tree", phase_tree, model["small"], model["p_small"])
     observe = timed("observe", phase_observe)
+    embed_rerank = timed("embed_rerank", phase_embed_rerank)
     qmodel = timed("quant_model", phase_quant_model, gen)
     qruns = timed("quant_engines", phase_quant_engines, qmodel, model["small"],
                   model["p_small"], model["p_small_cpu"])
@@ -6100,7 +6593,7 @@ def main() -> None:
             "deepseek_v2_lite_prefix_hit": deepseek["graph"]["follow"],
             "deepseek_v2_lite_dense": deepseek["dense"],
             "deepseek_v2_lite_int4_8_layers": deepseek_int4,
-            "observe_1b": observe["traces"]["run"]}
+            "observe_1b": observe["traces"]["run"], **embed_rerank["runs"]}
     by_path = {k: {path: out["launches"].get(k, 0) for path, out in runs.items()}
                for k in ("flash_prefill", "paged_attention", "paged_attention_latent",
                          "quant_matmul", "quant_matmul_moe", "quant_unembed", "lora_bgmv",
@@ -6133,6 +6626,9 @@ def main() -> None:
         "library_same_work": main_row["library_same_work"],
         # The same shape with the engine's ragged lengths (SDPA not comparable).
         "ragged": _compact(ragged_row, ("shape", "lengths", "ms", "plain_ms", "bound_ms")),
+        # Embeddings and rerank through the server: the forward at a bucket
+        # (B1 on every layer), the f32 witnesses, bert and the store.
+        "embed_rerank": {k: v for k, v in embed_rerank.items() if k != "runs"},
         "shapes": rows,
     }
     # The main shape of B2: llama-3.2-1b paged decode, 8 slots, D = 64; its

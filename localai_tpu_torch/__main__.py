@@ -1,6 +1,7 @@
 """CLI entry point: `python -m localai_tpu_torch [run|models|version]`.
 
-`run` starts the OpenAI-compatible server over the models dir. Its flags
+`run` starts the OpenAI-compatible server over the models dir, with the
+rerank (`/v1/rerank`) and vector-store (`/stores/*`) routes. Its flags
 mirror the env vars ApplicationConfig.from_env reads (LOCALAI_ADDRESS,
 LOCALAI_PORT, LOCALAI_MODELS_PATH, ...), so either style works; `--device`
 picks the engines' device (default `cuda`: the server refuses to start
@@ -76,10 +77,16 @@ def main(argv: list[str] | None = None) -> int:
     log = logging.getLogger("localai_tpu_torch")
 
     from localai_tpu_torch.server import ModelManager, OpenAIApi, Router, create_server
+    from localai_tpu_torch.server.rerank_api import RerankApi
+    from localai_tpu_torch.server.stores_api import StoresApi
+    from localai_tpu_torch.stores import StoreRegistry
 
     manager = ModelManager(app_cfg, device=args.device)
     router = Router()
-    OpenAIApi(manager).register(router)
+    oai = OpenAIApi(manager)
+    oai.register(router)
+    RerankApi(manager, oai).register(router)
+    StoresApi(StoreRegistry(device=manager.device)).register(router)
     for name in app_cfg.preload_models:
         log.info("preloading model %s", name)
         manager.get(name)

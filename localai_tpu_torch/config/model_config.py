@@ -4,7 +4,7 @@ so one models dir configures either package).
 The PyTorch port reads the same schema. It passes none of the route
 switches `paged_kernel` / `quant_kernel` / `lora_kernel` on (its wrappers
 always launch their kernels on the card; server/manager.py warns once when
-a YAML sets one), and it serves the llama backend only.
+a YAML sets one), and it serves the llama and bert backends.
 
 TPU-native rework of the reference ModelConfig (core/config/model_config.go:
 31-83 fields, :363-478 SetDefaults, :480-508 validation, :520-538 usecase

@@ -126,6 +126,11 @@ number of KV-cache slots by one loop thread ("engine-loop"):
   loop dies, every pool page and host-tier byte is released before any
   caller unblocks, and a postmortem JSON (journal tail, host state only)
   goes to `postmortem_dir` (`postmortem_path`).
+- Embeddings and rerank: `embed(ids_batch)` (mean-pooled, L2-normed
+  final hidden states) and `rerank(query_ids, docs_ids)` (each document's
+  mean log-likelihood given the query) run one eager full-sequence
+  forward at a prefill bucket, on the loop thread between two of its
+  iterations (`_on_loop`), and return numpy arrays.
 - Fault sites (testing/faults): one `faults.fire(site)` at each seam the
   JAX package hooks, all in host code before a graph capture or replay; a
   seeded FaultSchedule drives the containment paths.
@@ -142,8 +147,8 @@ Not ported yet (ROADMAP Queue A): CUDA graphs of admission and prefill
 chunks and pipelined dispatch with its control stager (item 1), the
 export and import of prefix spans between replicas (the cluster, with
 its mid-stream grammar failover, its fault sites and journal events; item
-12), rerank's `sequence_logprob` (item 13), tp and sequence-parallel
-prefill with the `collective_dispatch` fault site (item 14). The
+12), tp and sequence-parallel prefill with the `collective_dispatch`
+fault site (item 14). The
 reference's prefix_admit_async_compile has no counterpart: a cached
 admission runs eagerly and compiles nothing; nor have its
 LOCALAI_GRAMMAR_DFA, LOCALAI_QUEUE_TIMEOUT, LOCALAI_DEADLINE,
@@ -557,6 +562,31 @@ class _Slot:
     dfa: Any = False
 
 
+def pad_rows(rows: list[list[int]], S: int) -> tuple[np.ndarray, np.ndarray]:
+    """[N, S] int64 right-padded ids (each row cut to S) and their lengths."""
+    toks = np.zeros((len(rows), S), np.int64)
+    lens = np.zeros((len(rows),), np.int64)
+    for i, r in enumerate(rows):
+        r = list(r)[:S]
+        toks[i, :len(r)] = r
+        lens[i] = len(r)
+    return toks, lens
+
+
+class _LoopJob:
+    """One call another thread hands the loop thread (`Engine._on_loop`):
+    the loop runs it between two iterations and sets `done` with its
+    result or its error."""
+
+    __slots__ = ("fn", "done", "result", "error")
+
+    def __init__(self, fn) -> None:
+        self.fn = fn
+        self.done = threading.Event()
+        self.result: Any = None
+        self.error: Optional[BaseException] = None
+
+
 class Engine:
     """Persistent multi-slot generation engine for one loaded model."""
 
@@ -872,6 +902,9 @@ class Engine:
         # seeds, branch handles).
         self._fork_requests: list[tuple] = []
         self._fork_lock = threading.Lock()
+        # Embed / rerank calls staged by _on_loop for the loop thread.
+        self._jobs: list[_LoopJob] = []
+        self._job_lock = threading.Lock()
         # Counters.
         self.m_prompt_tokens = 0
         self.m_generated_tokens = 0
@@ -904,6 +937,8 @@ class Engine:
         self._postmortem_path = ""
         self.m_loop_host_ms = 0.0
         self.m_loop_blocks = 0
+        self.m_loop_jobs = 0  # _on_loop calls (embed / rerank) served
+        self.m_loop_jobs_ms = 0.0
 
     @staticmethod
     def _check_long_context(cfg: ArchConfig, ecfg: EngineConfig) -> None:
@@ -1047,6 +1082,7 @@ class Engine:
         for _src, _seeds, handles in staged:
             for bh in handles:
                 bh._q.put(TokenEvent(kind="done", finish_reason="stop"))
+        self._fail_jobs("engine stopped")
         if self._tok_fp is not None:
             # Tables prewarm pinned against this tokenizer can never hit
             # again once the model is gone.
@@ -1169,6 +1205,39 @@ class Engine:
         """The string of one token id (logprob entries of the API)."""
         return self._token_str(tok)
 
+    def embed(self, ids_batch: list[list[int]]) -> np.ndarray:
+        """Batched sentence embeddings [N, D] f32, L2-normalised: one
+        forward at the bucket of the longest row (rows cut to it), run on
+        the loop thread (`_on_loop`)."""
+        toks, lens = pad_rows(ids_batch, self._bucket_for(max(len(x) for x in ids_batch)))
+
+        def run() -> np.ndarray:
+            dev = self.device
+            out = llama.encode(self.cfg, self.params, torch.from_numpy(toks).to(dev),
+                               torch.from_numpy(lens).to(dev))
+            return out.cpu().numpy()
+        return self._on_loop(run)
+
+    def rerank(self, query_ids: list[int], docs_ids: list[list[int]]) -> np.ndarray:
+        """Relevance scores [N] f32: each document's mean conditional
+        log-likelihood given the query; higher is more relevant. The query
+        is cut to (max_seq - 1) // 2 tokens and each document to the rest
+        ([0] for an empty one), as in the reference; run on the loop thread
+        (`_on_loop`)."""
+        limit = self.ecfg.max_seq - 1
+        q = list(query_ids)[:limit // 2]
+        rows = [q + (list(d)[:limit - len(q)] or [0]) for d in docs_ids]
+        toks, lens = pad_rows(rows, self._bucket_for(max(len(r) for r in rows)))
+        conds = np.full((len(rows),), len(q), np.int64)
+
+        def run() -> np.ndarray:
+            dev = self.device
+            out = llama.sequence_logprob(
+                self.cfg, self.params, torch.from_numpy(toks).to(dev),
+                torch.from_numpy(lens).to(dev), torch.from_numpy(conds).to(dev))
+            return out.cpu().numpy()
+        return self._on_loop(run)
+
     def cancel_all(self) -> int:
         """Cancel every active and pending request (and the branches of
         pending fork groups); returns how many. The loop posts their
@@ -1253,6 +1322,10 @@ class Engine:
             "loop_host_ms_total": float(self.m_loop_host_ms),
             "loop_host_overhead_per_block_ms": float(
                 self.m_loop_host_ms / max(self.m_loop_blocks, 1)),
+            # Embed / rerank forwards the loop ran between its iterations
+            # (not in the phase vector or the host total above).
+            "loop_jobs": float(self.m_loop_jobs),
+            "loop_jobs_ms_total": float(self.m_loop_jobs_ms),
         }
         if self._journal is not None:
             # Journal health: events recorded, and cross-thread events a
@@ -1428,6 +1501,7 @@ class Engine:
             for _src, _seeds, handles in staged:
                 for bh in handles:
                     bh._q.put(dataclasses.replace(ev))
+            self._fail_jobs(err)
             # Flight recorder: this thread is the journal's writer, so the
             # final events and the dump race nothing.
             try:
@@ -1480,6 +1554,8 @@ class Engine:
             ph.lap("purge")
             self._service_forks()
             ph.lap("housekeeping")
+            if self._service_job():
+                ph.mark()  # an embed / rerank forward: not loop overhead
             if self._growth_blocked and not self.h_active.any():
                 # The growth-starved slots are gone: nothing waits on pages.
                 self._growth_blocked = False
@@ -3750,6 +3826,79 @@ class Engine:
                                          error="fork source is not an active stream"))
                 continue
             self._fork_midstream(src, seeds, handles)
+
+    def _on_loop(self, fn):
+        """fn() run on the loop thread between two of its iterations; its
+        result returned, or its error raised, to the caller.
+
+        Why the loop thread and not a lock: the loop captures and replays
+        decode blocks on the shared capture stream and grows the kernels'
+        shared split workspaces (kernels.live_workspaces) while it runs a
+        block; a forward from another thread meanwhile would race both.
+        Between iterations nothing is in flight. With no loop (never
+        started, or stopped) fn runs on the caller's thread. A loop that is
+        dead, or dies or stops while the call waits, raises its error:
+        `_fail_jobs` drains what it staged, and the wait polls the thread,
+        so no caller hangs."""
+        loop = self._thread
+        if loop is None or threading.current_thread() is loop:
+            if self._loop_dead is not None or self.params is None:
+                raise RuntimeError(self._loop_dead or "engine stopped")
+            return fn()
+        job = _LoopJob(fn)
+        with self._job_lock:
+            self._jobs.append(job)
+        # After the append, as in fork(): a loop that died drained the
+        # staged jobs under _job_lock after setting _loop_dead.
+        if self._loop_dead is not None:
+            self._fail_jobs(self._loop_dead)
+        self._wake.set()
+        while not job.done.wait(0.1):
+            if not loop.is_alive():
+                self._fail_jobs(self._loop_dead or "engine stopped")
+        if job.error is not None:
+            raise job.error
+        return job.result
+
+    def _service_job(self) -> bool:
+        """Run the oldest call `_on_loop` staged (loop thread, between
+        iterations). One an iteration: queued forwards take turns with the
+        decode blocks, so a live stream stalls for one forward at a time,
+        not for the sum of the queue. A call that raises fails its caller,
+        not the loop; if the loop dies, its guard fails the calls still
+        staged. The call's time goes to m_loop_jobs_ms, outside the phase
+        vector: it is the caller's forward, not loop overhead. Returns
+        whether a call ran."""
+        if not self._jobs:
+            return False
+        with self._job_lock:
+            if not self._jobs:
+                return False
+            job = self._jobs.pop(0)
+            more = bool(self._jobs)
+        t0 = time.monotonic()
+        try:
+            job.result = job.fn()
+        except Exception as e:  # noqa: BLE001 — the caller's error
+            job.error = e
+        except BaseException as e:
+            job.error = RuntimeError(f"engine loop died: {type(e).__name__}: {e}")
+            raise
+        finally:
+            job.done.set()
+            self.m_loop_jobs += 1
+            self.m_loop_jobs_ms += (time.monotonic() - t0) * 1000.0
+        if more:
+            self._wake.set()  # the next one after this iteration's block
+        return True
+
+    def _fail_jobs(self, reason: str) -> None:
+        """End every staged `_on_loop` call with RuntimeError(reason)."""
+        with self._job_lock:
+            staged, self._jobs = self._jobs, []
+        for job in staged:
+            job.error = RuntimeError(reason)
+            job.done.set()
 
     def _fork_midstream(self, src: int, seeds: list, handles: list) -> None:
         """Fork one live slot. Paged: reference the full pages below the

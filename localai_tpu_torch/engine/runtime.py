@@ -17,6 +17,10 @@ pipelined dispatch).
     process      the block's host read and token posting;
     housekeeping _spill_cold_pages and _service_forks;
     wait         self._wake.wait on an idle loop.
+  An embed / rerank forward the loop runs for another thread
+  (Engine._service_job) is in no phase: the reference runs it on the
+  HTTP thread, outside its loop. Its time is the engine's
+  `loop_jobs_ms_total`.
 - `DeadlineIndex` — a lazy-deletion min-heap of absolute monotonic
   deadlines. Submit pushes each request's deadline / queue-timeout
   expiry; the loop's wait wakes at the earliest one, so an idle engine

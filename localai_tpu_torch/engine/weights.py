@@ -38,8 +38,9 @@ de-interleaved (V2 always, V3 per `rope_interleave`), `kv_b_proj` split per
 head into w_kb / w_vb, the router's `e_score_correction_bias`, the shared
 experts and the dense-layer prefix.
 
-Not ported yet: LoRA merged into expert projections or into a DeepSeek
-tree (ROADMAP Queue A item 10, other decoder families).
+Not ported yet: LoRA merged into expert projections (ROADMAP Queue A
+item 10, other decoder families). Refused, as the reference's loader
+refuses it too: LoRA merged into a DeepSeek tree.
 """
 
 from __future__ import annotations
@@ -372,8 +373,8 @@ def load_hf_checkpoint(cfg: ArchConfig, ckpt_dir: str, device=None,
     if cfg.is_mla:
         if lora_deltas:
             raise NotImplementedError(
-                "LoRA merged into a DeepSeek checkpoint is not ported yet (ROADMAP Queue A "
-                "item 10, other decoder families)")
+                "LoRA merged into a DeepSeek checkpoint is not supported: the reference "
+                "refuses the same merge")
         return head(_load_deepseek(cfg, grab, fill, put))
 
     layer_map = dict(_LAYER_MAP)
@@ -918,23 +919,28 @@ _PEFT_MODULE = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj", "wv": "self_
                 "w_down": "mlp.down_proj"}
 
 
+def write_safetensors_f32(path: str, tensors: dict[str, np.ndarray]) -> None:
+    """Write `tensors` as F32 into one safetensors file (8-byte header
+    length, JSON header, raw little-endian bytes), one tensor at a time."""
+    header, off = {}, 0
+    for name, arr in tensors.items():
+        n = int(np.prod(arr.shape)) * 4
+        header[name] = {"dtype": "F32", "shape": list(arr.shape), "data_offsets": [off, off + n]}
+        off += n
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little") + head)
+        for arr in tensors.values():
+            f.write(np.ascontiguousarray(arr, dtype="<f4").tobytes())
+
+
 def save_lora_adapter(adapter_dir: str, tensors: dict[str, np.ndarray], r: int,
                       alpha: float) -> None:
     """Write a PEFT-format adapter dir: `adapter_config.json` and the
-    tensors as F32 in `adapter_model.safetensors` (8-byte header length,
-    JSON header, raw little-endian bytes)."""
+    tensors as F32 in `adapter_model.safetensors`."""
     os.makedirs(adapter_dir, exist_ok=True)
-    header, blobs, off = {}, [], 0
-    for name, arr in tensors.items():
-        raw = np.ascontiguousarray(arr, dtype="<f4").tobytes()
-        header[name] = {"dtype": "F32", "shape": list(arr.shape),
-                        "data_offsets": [off, off + len(raw)]}
-        blobs.append(raw)
-        off += len(raw)
-    head = json.dumps(header).encode()
-    head += b" " * (-len(head) % 8)
-    with open(os.path.join(adapter_dir, "adapter_model.safetensors"), "wb") as f:
-        f.write(len(head).to_bytes(8, "little") + head + b"".join(blobs))
+    write_safetensors_f32(os.path.join(adapter_dir, "adapter_model.safetensors"), tensors)
     with open(os.path.join(adapter_dir, "adapter_config.json"), "w") as f:
         json.dump({"r": int(r), "lora_alpha": float(alpha)}, f)
 

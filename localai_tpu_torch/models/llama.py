@@ -14,7 +14,9 @@ sparse-MoE MLP) in PyTorch (localai_tpu/models/llama.py).
   adds `decode_step` (one step on a dense cache: a draft model's, or the
   self-draft scratch over `self_draft_view`, the target's first layers)
   and `decode_chunk` (the verify pass: T tokens a slot, logits at every
-  position).
+  position). `encode` (mean-pooled, L2-normed embeddings) and
+  `sequence_logprob` (rerank's mean conditional log-likelihood, unembedded
+  in fixed chunks of rows) run the same full-sequence forward as prefill.
 - Two cache layouts: a dense slot cache [L, B, S, K, Hd]
   (`write_block_to_cache`, `write_prefill_to_cache`) and a paged pool
   [L, P, page, K, Hd] shared by every slot through per-slot page tables
@@ -785,6 +787,64 @@ def prefill(
     last_idx = torch.clamp(lengths.to(torch.int64) - 1, min=0)  # empty prompt reads 0
     last = h[torch.arange(h.shape[0], device=h.device), last_idx]  # [B, D]
     return _unembed(cfg, params, last), ks, vs
+
+
+def encode(
+    cfg: ArchConfig,
+    params: Params,
+    tokens: torch.Tensor,  # [B, S] int, right-padded
+    lengths: torch.Tensor,  # [B] int valid lengths
+) -> torch.Tensor:
+    """Sentence embeddings [B, D] f32: the masked mean-pool of the final
+    hidden state, L2-normalised (norm floored at 1e-9). An empty row pools
+    to zero."""
+    h, length_mask, _ = _forward_hidden(cfg, params, tokens, lengths, collect_kv=False)
+    mask = length_mask[..., None].float()
+    pooled = (h.float() * mask).sum(dim=1) / mask.sum(dim=1).clamp(min=1.0)
+    return pooled / pooled.norm(dim=-1, keepdim=True).clamp(min=1e-9)
+
+
+# Rows of logits sequence_logprob materialises at once: 256 rows keep a
+# quantized head on B4 (its ≤ 256-row dispatch), and cost 256 · V · 4 B,
+# 131 MB at V = 128256.
+LOGPROB_CHUNK_ROWS = 256
+
+
+def sequence_logprob(
+    cfg: ArchConfig,
+    params: Params,
+    tokens: torch.Tensor,  # [B, S] int, right-padded
+    lengths: torch.Tensor,  # [B] int total valid lengths
+    cond_lengths: torch.Tensor,  # [B] int: score only positions >= cond_len
+) -> torch.Tensor:
+    """Mean log P(tokens[cond:len] | tokens[:cond]) per row, [B] f32 (the
+    rerank score).
+
+    The reference unembeds every position into [B, S-1, V] f32 and takes
+    log_softmax of it all (4.19 GB at 16 × 512 on a 128256 vocab). Here
+    only the scored positions are unembedded, LOGPROB_CHUNK_ROWS at a time: each
+    chunk's f32 logits (softcapped where the config says) give the
+    target's logit minus the logsumexp. Peak extra memory is about two
+    chunks of logits, LOGPROB_CHUNK_ROWS · V · 4 B each (131 MB at
+    V = 128256), whatever the batch or the bucket. A row with no scored
+    position scores 0."""
+    h, _, _ = _forward_hidden(cfg, params, tokens, lengths, collect_kv=False)
+    B, S = tokens.shape
+    dev = tokens.device
+    pos = torch.arange(1, S, device=dev)[None, :]  # the position of each target token
+    valid = (pos >= cond_lengths.to(dev)[:, None]) & (pos < lengths.to(dev)[:, None])
+    rows = valid.reshape(-1).nonzero()[:, 0]  # h[:, :-1] rows that predict a scored token
+    hs = h[:, :-1].reshape(B * (S - 1), -1)
+    tgt = tokens[:, 1:].reshape(-1)
+    tok_lp = torch.zeros(B * (S - 1), dtype=torch.float32, device=dev)
+    chunk = LOGPROB_CHUNK_ROWS
+    for i in range(0, rows.numel(), chunk):
+        r = rows[i:i + chunk]
+        logits = _unembed(cfg, params, hs[r])  # [c, V] f32
+        picked = logits.gather(-1, tgt[r][:, None])[:, 0]
+        tok_lp[r] = picked - torch.logsumexp(logits, dim=-1)
+    n = valid.sum(dim=-1).clamp(min=1)
+    return tok_lp.reshape(B, S - 1).sum(dim=-1) / n
 
 
 def prefill_tail(

@@ -15,7 +15,7 @@ its context) to a pool page id:
 Every consumer goes through these helpers, so one code path serves both
 layouts; the engine picks one per `EngineConfig.kv_l1_span` (0 = flat).
 The reference's shard specs wait for the tp port (ROADMAP Queue A item
-14), its dirty-diff upload helpers for pipelined dispatch (item 11).
+14), its dirty-diff upload helpers for pipelined dispatch (item 1).
 """
 
 from __future__ import annotations

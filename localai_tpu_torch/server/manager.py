@@ -20,12 +20,15 @@ and LOCALAI_FAULTS (ApplicationConfig.faults) arms a seeded schedule at
 construction. The journal, fence and postmortem settings reach every
 engine (LOCALAI_TRACE_JOURNAL over the YAML's trace_journal_events).
 
-Not ported yet: every backend but `llama` (ROADMAP Queue A item 13,
-satellite engines and models). No YAML or server knob is dropped in
-silence: the bounded-admission, fork, speculative-decoding and
-observability knobs reach the engine (a `draft_model` loads from a preset
-or a checkpoint dir beside the target), a server knob of an unported item
-fails its startup naming the item, and the multi-GPU ones warn.
+Backends served: `llama` (and `rerank`, the reference's name for a llama
+model that serves rerank) and `bert` (embedders and cross-encoders,
+engine/bert_engine.py). Not ported yet: every other backend (ROADMAP
+Queue A item 13, satellite engines and models). No YAML or server knob
+is dropped in silence: the bounded-admission, fork, speculative-decoding
+and observability knobs reach the engine (a `draft_model` loads from a
+preset or a checkpoint dir beside the target), a server knob of an
+unported item fails its startup naming the item, and the multi-GPU ones
+warn.
 """
 
 from __future__ import annotations
@@ -55,6 +58,11 @@ log = logging.getLogger("localai_tpu_torch.manager")
 # YAML route switches of the JAX package. The port has none: its wrappers
 # always launch their kernels on the card.
 _ROUTE_SWITCHES = ("paged_kernel", "quant_kernel", "lora_kernel")
+
+# Backends served by the llama engine: `rerank` is the reference's name for
+# a llama model whose config serves rerank (its loader falls through to
+# the llama path).
+_LLAMA_BACKENDS = ("llama", "rerank")
 
 # Server knobs of ROADMAP Queue A items not ported yet: set, one fails the
 # server's startup naming its item.
@@ -562,11 +570,13 @@ class ModelManager:
         from localai_tpu_torch.models.quant import init_params_quantized
 
         faults.fire("manager_load")  # an injected load failure
-        if cfg.backend != "llama":
+        if cfg.backend == "bert":
+            return self._load_bert(cfg)
+        if cfg.backend not in _LLAMA_BACKENDS:
             raise UnsupportedBackendError(
                 f"model {cfg.name!r}: backend {cfg.backend!r} is not ported yet "
                 "(ROADMAP Queue A item 13, satellite engines and models); the port "
-                "serves the llama backend")
+                "serves the llama and bert backends")
         switched = [f"{k}={getattr(cfg, k)!r}" for k in _ROUTE_SWITCHES
                     if getattr(cfg, k) != "auto"]
         if switched:
@@ -673,6 +683,34 @@ class ModelManager:
         log.info("loaded model %s (arch=%s, %s) in %.1fs", cfg.name, arch.name, self.device,
                  time.monotonic() - t0)
         return LoadedModel(cfg, engine, Evaluator(cfg, tokenizer))
+
+    def _load_bert(self, cfg: ModelConfig) -> LoadedModel:
+        """A bert embedder or cross-encoder: a preset draws random f32
+        weights from seed 0 on the device, a directory is read as an HF
+        BertModel / BertForSequenceClassification checkpoint; then the
+        tokenizer (the YAML's, else the checkpoint's, else bytes)."""
+        from localai_tpu_torch.engine.bert_engine import BertEngine
+        from localai_tpu_torch.models import bert as B
+
+        t0 = time.monotonic()
+        if cfg.model in B.BERT_PRESETS:
+            bcfg = B.BERT_PRESETS[cfg.model]
+            params = B.init_params(bcfg, seed=0, device=self.device)
+            tok_path = cfg.tokenizer or None
+        else:
+            ckpt_dir = self._resolve_ckpt_dir(cfg.model)
+            if not os.path.isdir(ckpt_dir):
+                raise FileNotFoundError(
+                    f"model {cfg.name!r}: bert checkpoint {ckpt_dir!r} not found")
+            bcfg = B.bert_config_from_hf(ckpt_dir)
+            params = B.load_hf_bert(bcfg, ckpt_dir, device=self.device)
+            tok_path = cfg.tokenizer or ckpt_dir
+        if tok_path and not _has_tokenizer_files(tok_path):
+            tok_path = None
+        tokenizer = load_tokenizer(tok_path, vocab_size=bcfg.vocab_size)
+        log.info("loaded model %s (bert %s, %s) in %.1fs", cfg.name, bcfg.name, self.device,
+                 time.monotonic() - t0)
+        return LoadedModel(cfg, BertEngine(bcfg, params, tokenizer), None)
 
 
 def _apply_rope_overrides(arch, cfg):

@@ -2,7 +2,8 @@
 of localai_tpu/server/openai_api.py).
 
 Routes: `/v1/chat/completions` and `/v1/completions` (streamed as SSE with
-the usage in the last chunk, or whole), `/v1/edits`, `/v1/tokenize`,
+the usage in the last chunk, or whole), `/v1/edits`, `/v1/embeddings`
+(strings or token arrays; a llama or a bert model), `/v1/tokenize`,
 `/v1/models`, `/v1/models/{id}`, `/readyz`, `/healthz`, `/version`, and the
 monitoring and debug routes: `/system`, `/backend/monitor`,
 `/backend/shutdown`, `/debug/trace/{response id}` (the request's span tree,
@@ -179,6 +180,7 @@ class OpenAIApi:
             r.add("POST", f"{prefix}/completions", self.completion)
             r.add("GET", f"{prefix}/models", self.list_models)
             r.add("POST", f"{prefix}/edits", self.edit)
+            r.add("POST", f"{prefix}/embeddings", self.embeddings)
         r.add("POST", "/v1/tokenize", self.tokenize)
         r.add("POST", "/tokenize", self.tokenize)
         r.add("GET", "/v1/models/:name", self.get_model)
@@ -753,6 +755,44 @@ class OpenAIApi:
             "object": "edit", "created": _now(),
             "choices": [{"index": 0, "text": text}],
             "usage": self._sum_usage([final], "extra-usage" in req.headers),
+        })
+
+    def embeddings(self, req: Request) -> Response:
+        """Embeddings of a string, a token array, or a list of either
+        (`Engine.embed` on a llama model, `BertEngine.embed` on a bert
+        one). Not ported yet: the reference's relay to a `remote` backend
+        (ROADMAP Queue A item 15)."""
+        body = req.body or {}
+        inputs = body.get("input", "")
+        if isinstance(inputs, str):
+            inputs = [inputs]
+        if not isinstance(inputs, list) or not inputs:
+            raise ApiError(400, "input must be a non-empty string or array")
+        lm, lease = self._resolve(req, Usecase.EMBEDDINGS)
+        try:
+            tok = lm.engine.tokenizer
+            ids_batch: list[list[int]] = []
+            for item in inputs:
+                if isinstance(item, str):
+                    ids_batch.append(tok.encode(item) or [0])
+                elif isinstance(item, list):  # pre-tokenized input
+                    ids_batch.append([int(t) for t in item] or [0])
+                else:
+                    raise ApiError(400, "input items must be strings or token arrays")
+            # An id past the embedding table would fault the device (the
+            # reference's gather clamps it instead).
+            V = lm.engine.cfg.vocab_size
+            if any(not 0 <= t < V for ids in ids_batch for t in ids):
+                raise ApiError(400, f"input token ids must be in [0, {V})")
+            vecs = lm.engine.embed(ids_batch)
+        finally:
+            lease.release()
+        n_tokens = sum(len(x) for x in ids_batch)
+        return Response(body={
+            "object": "list", "model": lm.cfg.name,
+            "data": [{"object": "embedding", "index": i, "embedding": [float(x) for x in vec]}
+                     for i, vec in enumerate(vecs)],
+            "usage": {"prompt_tokens": n_tokens, "total_tokens": n_tokens},
         })
 
     def tokenize(self, req: Request) -> Response:
