@@ -37,7 +37,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 4. model   — a small f32 model on the card against the same model on the
    CPU (logits, 16 greedy decode steps), dense and paged (chunked prefill
    into pages, paged decode), then full-width llama-3.2-1b in bf16 with
-   seeded random weights, cut to 8 of its 16 layers for phases 4-6:
+   seeded random weights, cut to 8 of its 16 layers (as every 1b phase):
    prefill logits through the kernel against the same call through plain
    attention;
 5. engine  — the dense serving engine (submit → fused admission → decode
@@ -51,8 +51,9 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    rows (the kernels' route) and 1024 rows (the dequantize-then-matmul
    route) and 16 greedy decode steps, against the same weights through the
    dequantize-then-matmul route everywhere;
-8. quantized engines — llama-3-8b int8 on a paged bf16 pool, then int4 on
-   an fp8 (e4m3) pool with kv_scale 2, with phase 6's mix of prompts; then
+8. quantized engines — llama-3-8b (its first 16 of 32 layers, cut for
+   time) int8 on a paged bf16 pool, then int4 on an fp8 (e4m3) pool with
+   kv_scale 2, with phase 6's mix of prompts; then
    the small f32 model's int4 + fp8 paged engine on the card against the
    same engine on the CPU;
 9. lora kernels — B5 (the ragged LoRA delta) against its plain version at
@@ -62,7 +63,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    (1b q / k / v and gate / up at rank 32, 8b q / v at rank 16): null
    rows exact zeros, every row bit-identical to a launch on it alone, two
    launches bit-identical, nothing allocated but the outputs;
-10. lora http — llama-3.2-1b (16 layers, bf16) served by the port's own
+10. lora http — llama-3.2-1b (8 of 16 layers, bf16) served by the port's own
    HTTP server with 8 virtual-model tenants (PEFT adapters from a seed):
    a warm pass, then 12 concurrent chat / completion requests (half
    streamed, half greedy) to the tenants and the base, checked over HTTP
@@ -74,8 +75,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    row on the card against the same engine on the CPU;
 12. graphs — the decode block as one CUDA graph per shape: the paged
    engine of phase 6 (llama-3.2-1b, 8 layers; run right after phase 6)
-   and of phase 8 (llama-3-8b int4 + fp8, all 32 layers; right after
-   phase 8) each serve phase 6's requests twice on fresh engines, after
+   and of phase 8 (llama-3-8b int4 + fp8, its first 16 of 32 layers;
+   right after phase 8) each serve phase 6's requests twice on fresh engines, after
    warmup(): once replaying the graphs warmup captured, once with the
    engine's graph step swapped for its eager block body. Ids (greedy and
    seeded) and kernel launch counts must be identical; the phase prints
@@ -109,7 +110,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    card against the same engine on the CPU, unquantized (the exact top-k
    route) and int4 (the expert form's f32 kernel);
 17. long context (run right after phase 12's 1b pair) — llama-3.2-1b at
-   full width and depth (16 layers, bf16) serves one 130,000-token prompt
+   full width, 8 of its 16 layers (bf16), serves one 130,000-token prompt
    and 32 greedy tokens through Engine.submit, after warmup(), on the
    reference ladder's long-context engine (pages of 128, chunks of 512,
    sink 128, window 4096): first with flat tables and every page hot,
@@ -118,7 +119,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    budget; the phase prints the device ms of each prefill chunk along the
    prompt, the TTFT, decode tok/s, peak memory and the pages spilled.
 18. prefix_swap (run right after 17) — the prefix cache and the host swap
-   tier on llama-3.2-1b at full width and depth (16 layers, bf16): (a) 8
+   tier on llama-3.2-1b at full width, 8 of its 16 layers (bf16): (a) 8
    chat conversations sharing a 1536-token system prompt, 3 turns of 64
    tokens each carrying the earlier turns and answers, beside 4 short
    misses, on the paged engine after warmup(), with the default prefix
@@ -137,7 +138,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    one 1024-token hit against a miss (B2's fp8 walk over the shared pages,
    B3, B4).
 19. grammar (run right after 18) — grammar-constrained decoding on
-   llama-3.2-1b at full width and depth (16 layers, bf16) with the
+   llama-3.2-1b at full width, 8 of its 16 layers (bf16), with the
    synthetic byte tokenizer on phase 18's paged engine (prefix cache off,
    so a round and its unconstrained batch admit alike): ops/grammar's mask
    and advance on the card bit-equal to the CPU for an [8, 128256] batch in
@@ -155,7 +156,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    one-step blocks (the schedule a host-walk slot imposes) parts alike. Then the port's server: a required tool
    call whole and streamed, a json_schema reply and a GBNF completion.
 20. tree (run right after 19) — tree sampling, logprobs, deadlines and
-   dense chunking on llama-3.2-1b at full width and depth (16 layers,
+   dense chunking on llama-3.2-1b at full width, 8 of its 16 layers (
    bf16, the synthetic byte tokenizer): (a) 4 prompts of 200-1200 tokens,
    each an n = 4 group of seeded top-p requests, through Engine.submit_fork
    on phase 6's paged engine (prefix cache on) after warmup(logprobs=True),
@@ -230,7 +231,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    expert form at deepseek-v2-lite's expert shapes (E = 64, int8 / int4,
    1-256 rows).
 23. observe (run after 20) — the runtime, observability and fault layer
-   on llama-3.2-1b at full width and depth (16 layers, bf16) on the paged
+   on llama-3.2-1b at full width, 8 of its 16 layers (bf16), on the paged
    config, served by ModelManager and the port's HTTP server with the
    journal on (4096 events), trace_fence, a postmortem directory and a
    profile directory: (a) 8 concurrent chats, 4 with a client W3C
@@ -262,8 +263,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    {"observe": ...} line.
 24. embed_rerank (run after 23) — embeddings, rerank, the bert backend and
    the vector store through ModelManager and the port's HTTP server
-   (OpenAIApi, RerankApi, StoresApi): (a) llama-3.2-1b bf16 at full width
-   and depth (16 layers) on the paged config with the byte tokenizer:
+   (OpenAIApi, RerankApi, StoresApi): (a) llama-3.2-1b bf16 at full width,
+   8 of its 16 layers on the paged config with the byte tokenizer:
    /v1/embeddings of 16 inputs of 20-500 tokens (strings and token
    arrays; norms within 1e-3 of 1) and /v1/rerank of 8 documents, one the
    model's own greedy continuation of the query (among printable ASCII
@@ -283,7 +284,35 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    over HTTP, held to the CPU within 1e-4; (e) a store of 100,000 x 384
    f32 keys on the card: 100 finds at k = 10 give numpy's indices
    (similarities within 1e-5), ms a find; /stores/* over HTTP.
-In 5, 6, 8, 10, 11, 12, 14, 15, 17, 18, 19, 20, 21, 22, 23 and 24 the kernel launch counters, zeroed just
+25. vision (run after 24) — vision chat through ModelManager and the
+   port's HTTP server: (a) Qwen2-VL-2B-Instruct at full width and depth
+   in bf16 (the published config.json's widths: decoder 1536 / 28 layers /
+   12 heads / 2 kv heads / head dim 128 / m-rope sections 16, 24, 24;
+   tower depth 32, 1280 wide, 16 heads, patch 14, merge 2), `backend:
+   vlm`, from a checkpoint in the published layout written from a seed,
+   on a paged pool (pages of 128, chunks of 512) with graph decode blocks:
+   the tower at a 448 x 448 image (1024 patches, 256 merged tokens) and at
+   the processor's largest pixel budget (1120 x 896: 5120 patches, 1280
+   tokens) with its time and peak memory; the bf16 tower against the same
+   tower in f32 on the card (cosine of the merged tokens >= 0.99); prefill
+   with the image injected and m-rope through B1 against the same call on
+   B1's plain version (logits within 5 % of the largest, as phase 4); one
+   image chat (TTFT split: PNG decode, preprocess, tower, the engine);
+   the same image again (the same ids) and another image (other ids); 8
+   concurrent chats mixing images and text (200s, usage counting each
+   image's span), served with graph decode blocks and again with the eager
+   block body (the same ids); a text request's ids equal to those of the
+   same weights on a decoder without m-rope; (b) llava: the
+   clip-vit-l-336 tower (24 layers at full depth, 577 positions, projector
+   into 4096, random f32 weights) into llama-3-8b bf16 at full width and
+   depth, `backend: llava`, over HTTP (usage counting 576 image tokens,
+   the same image the same ids, another image other ids); (c) the tiny
+   f32 Qwen2-VL of the CPU tests, its decoder widened to head dim 64 for
+   B1, on the card against the CPU (prefill logits within 1e-4, greedy
+   ids of an image and a text request exact).
+   Generated ids are kept to printable ASCII (+100 on ids 32-126), so a
+   reply's text is its ids under the byte tokenizer.
+In 5, 6, 8, 10, 11, 12, 14, 15, 17, 18, 19, 20, 21, 22, 23, 24 and 25 the kernel launch counters, zeroed just
 before each run, show that the path went through the kernels; a graph
 replay counts the launches its capture recorded. Every decode block of
 those runs is a graph capture or replay (the eager runs of phases 12 and
@@ -319,6 +348,22 @@ import torch
 # rate, f32 rate outside the tensor cores, HBM bandwidth.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
+
+# llama-3.2-1b at 8 of its 16 layers: the depth every 1b phase runs (phases
+# 4-6 from the start; the others cut from 16 for the run's time once phase
+# 25 joined), registered as an arch preset so the server's YAMLs can name it.
+ONEB_LAYERS = 8
+ONEB_PRESET = "llama-3.2-1b-8l"
+
+
+def _arch_1b():
+    """llama-3.2-1b's widths at ONEB_LAYERS layers, also registered as the
+    arch preset ONEB_PRESET."""
+    from localai_tpu_torch.models.config import PRESETS, get_arch
+
+    cfg = dataclasses.replace(get_arch("llama-3.2-1b"), num_layers=ONEB_LAYERS)
+    PRESETS.setdefault(ONEB_PRESET, cfg)
+    return cfg
 
 
 def fail(msg: str) -> None:
@@ -396,7 +441,7 @@ def phase_device() -> tuple[str, str]:
         f"torch={torch.__version__} cuda={torch.version.cuda}")
     probe = {m: importlib.util.find_spec(m) is not None
              for m in ("yaml", "jinja2", "safetensors", "tokenizers", "transformers", "triton",
-                       "regex")}
+                       "regex", "PIL", "torchvision")}
     probe["ninja"] = shutil.which("ninja") is not None or importlib.util.find_spec("ninja") is not None
     log("[env-probe] " + json.dumps(probe, sort_keys=True))
     return name, smi
@@ -537,11 +582,21 @@ def phase_kernels(gen: torch.Generator) -> list[dict]:
         (16, 512, 32, 8, 64, torch.bfloat16),
         (32, 2048, 32, 8, 64, torch.bfloat16),
     ]
-    # The added rows draw from their own generator, so the later phases see
-    # the inputs they always saw.
+    # The vision phase's admissions on Qwen2-VL-2B (H 12, K 2, D 128): an
+    # image chat at bucket 512 (a 448 x 448 image's 256 tokens and the
+    # chat template) and the largest image's at bucket 2048, each row at
+    # the path's length and at full length.
+    vision = [((1, 512, 12, 2, 128, torch.bfloat16), 290),
+              ((1, 512, 12, 2, 128, torch.bfloat16), "full"),
+              ((1, 2048, 12, 2, 128, torch.bfloat16), 1314),
+              ((1, 2048, 12, 2, 128, torch.bfloat16), "full")]
+    # The added rows draw from their own generators, so the later phases
+    # see the inputs they always saw.
     gen_added = torch.Generator(device="cuda").manual_seed(6)
+    gen_vision = torch.Generator(device="cuda").manual_seed(22)
     cases = ([(sh, "ragged", gen) for sh in ragged] + [(sh, "full", gen_added) for sh in full]
-             + [(sh, "ragged", gen_added) for sh in partial + embed_rerank])
+             + [(sh, "ragged", gen_added) for sh in partial + embed_rerank]
+             + [(sh, mode, gen_vision) for sh, mode in vision])
     rows = []
     for (B, S, H, K, D, dt), mode, g in cases:
         q = torch.randn(B, S, H, D, generator=g, device="cuda").to(dt)
@@ -549,6 +604,8 @@ def phase_kernels(gen: torch.Generator) -> list[dict]:
         v = torch.randn(B, S, K, D, generator=g, device="cuda").to(dt)
         if mode == "full":
             lens = torch.full((B,), S, device="cuda", dtype=torch.int32)
+        elif isinstance(mode, int):  # the path's prompt length
+            lens = torch.full((B,), mode, device="cuda", dtype=torch.int32)
         else:  # one full row, one single-token row, the rest ragged
             lens = torch.randint(1, S + 1, (B,), generator=g, device="cuda", dtype=torch.int32)
             lens[0] = S
@@ -676,6 +733,8 @@ def phase_paged_kernels(gen: torch.Generator) -> list[dict]:
         # and 6 tokens (n_draft 5's buckets), T*G = 12 and 24 rows a kv head.
         ("verify_t3", 8, 4, 3, 8, 128, 128, 32, torch.float8_e4m3fn, "ragged", 0.0, 0),
         ("verify_t6", 8, 4, 6, 8, 128, 128, 32, torch.float8_e4m3fn, "ragged", 0.0, 0),
+        # Qwen2-VL-2B's decode (H = 12, K = 2: G = 6 at D = 128), bf16 pool.
+        ("decode_g6_qwen2vl", 8, 6, 1, 2, 128, 128, 32, torch.bfloat16, "ragged", 0.0, 0),
     ]
     gen_added = torch.Generator(device="cuda").manual_seed(8)
     sms = kernels.sm_count(torch.device("cuda"))
@@ -1159,10 +1218,9 @@ def phase_model(gen: torch.Generator) -> dict:
           f"small model paged path: {card_launches} paged kernel launches")
 
     # (b) Full-width llama-3.2-1b, bf16, random weights: the prefill through
-    # the kernel against the same call through the dense attention. The
-    # earlier slices' 1b phases (this one, 5 and 6) run 8 of its 16 layers
-    # to keep the whole script's time in hand; lora_http serves all 16.
-    cfg = dataclasses.replace(get_arch("llama-3.2-1b"), num_layers=8)
+    # the kernel against the same call through the dense attention, at 8 of
+    # its 16 layers (ONEB_LAYERS, as every 1b phase) for the run's time.
+    cfg = _arch_1b()
     t0 = time.monotonic()
     params = llama.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -1587,12 +1645,12 @@ def phase_quant_engines(model: dict, small, p_small, p_small_cpu) -> dict:
     from localai_tpu_torch.engine.engine import Engine, EngineConfig, GenRequest
     from localai_tpu_torch.engine.tokenizer import ByteTokenizer
 
-    cfg = model["cfg"]
     runs = {}
     for label, mode, kw in (("int8_engine", "int8", {}),
                             ("int4_fp8_engine", "int4", dict(kv_cache_dtype="fp8",
                                                              kv_scale=2.0))):
-        eng = Engine(cfg, model[mode], ByteTokenizer(cfg.vocab_size), device="cuda",
+        cfg, params = _first_layers(model["cfg"], model[mode], QUANT_ENGINE_LAYERS)
+        eng = Engine(cfg, params, ByteTokenizer(cfg.vocab_size), device="cuda",
                      engine_cfg=EngineConfig(**PAGED_ENGINE, **kw))
         out = _serve(eng, PAGED_PROMPTS)
         del eng
@@ -1639,7 +1697,7 @@ LONG_PROMPT, LONG_NEW = 130_000, 32
 
 
 def phase_long_context() -> dict:
-    """llama-3.2-1b at full width and depth (16 layers, bf16, seeded random
+    """llama-3.2-1b at full width, 8 of its 16 layers (bf16, seeded random
     weights) serves one 130,000-token prompt and 32 greedy tokens through
     Engine.submit, first on the flat all-hot windowed engine, then on the
     hierarchical + spill one. The ids must be identical, cold pages must
@@ -1649,12 +1707,12 @@ def phase_long_context() -> dict:
     sink and the window only), the TTFT, decode tok/s and peak memory."""
     from localai_tpu_torch.engine.engine import Engine, EngineConfig
     from localai_tpu_torch.engine.tokenizer import ByteTokenizer
-    from localai_tpu_torch.models import get_arch, llama
+    from localai_tpu_torch.models import llama
 
     gc.collect()  # what earlier phases left unreferenced goes first
     torch.cuda.empty_cache()
     before = torch.cuda.memory_allocated()  # what earlier phases still hold
-    cfg = get_arch("llama-3.2-1b")
+    cfg = _arch_1b()
     params = llama.init_params(cfg, seed=5, device="cuda")
     runs = {}
     for label, kw in (("flat", {}), ("hier_spill", LONG_SPILL)):
@@ -1714,7 +1772,7 @@ def phase_long_context() -> dict:
         "chunk_ms_median", "chunk_ms_max", "peak_memory_bytes", "kv_pages_spilled",
         "kv_spill_bytes_out", "prefill_chunks", "decode_steps")}
     summary["ids_equal"] = flat["ids"] == spl["ids"]
-    log("[long_context llama-3.2-1b, 16 layers] " + json.dumps(summary))
+    log(f"[long_context llama-3.2-1b, {ONEB_LAYERS} layers] " + json.dumps(summary))
     check(flat["ids"] == spl["ids"],
           "long context: the hierarchical + spill engine's ids differ from the flat engine's")
     check(flat["kv_pages_spilled"] == 0 and 0 < spl["kv_pages_spilled"]
@@ -2034,7 +2092,7 @@ def phase_lora_kernels(gen: torch.Generator) -> tuple[list[dict], list[dict]]:
 # 10. lora http: llama-3.2-1b tenants through the port's HTTP server
 # --------------------------------------------------------------------------- #
 
-LORA_BASE_YAML = {"name": "llama-1b", "model": "llama-3.2-1b", "context_size": 4096,
+LORA_BASE_YAML = {"name": "llama-1b", "model": ONEB_PRESET, "context_size": 4096,
                   "max_slots": 8, "kv_pages": 256, "kv_page_size": 128,
                   "prefill_chunk": 512, "max_tokens": 64,
                   # Every id decodes to one printable character, so a random
@@ -2099,12 +2157,17 @@ def _http(base: str, path: str, payload: dict, t_submit: float,
         return {"status": e.code, "body": e.read().decode()}
 
 
+# New tokens a lora_http request: one 16-step block (64 until phase 25 joined:
+# a 64-step block's graph capture on each server cost more than the run had).
+LORA_NEW = 16
+
+
 def _lora_requests() -> list[tuple[str, str, dict]]:
     """The measured batch: one request per tenant and 4 to the base, chat
     and completions, half streamed, half greedy (the rest seeded top-p 0.9
     at temperature 0.8), prompts of 20-1500 tokens (the byte tokenizer: one
-    token per character), 64 new tokens each. Request 8 repeats request 0's
-    greedy prompt on the base."""
+    token per character), LORA_NEW new tokens each. Request 8 repeats request
+    0's greedy prompt on the base."""
     import random
 
     rnd = random.Random(7)
@@ -2114,7 +2177,8 @@ def _lora_requests() -> list[tuple[str, str, dict]]:
         model = f"tenant{i}" if i < 8 else "llama-1b"
         text = "".join(rnd.choice("abcdefghijklmnopqrstuvwxyz ") for _ in range(n))
         greedy = i % 2 == 0
-        body = {"model": model, "max_tokens": 64, "ignore_eos": True, "stream": i % 4 in (1, 2),
+        body = {"model": model, "max_tokens": LORA_NEW, "ignore_eos": True,
+                "stream": i % 4 in (1, 2),
                 "temperature": 0.0 if greedy else 0.8, "top_p": 1.0 if greedy else 0.9,
                 "seed": 100 + i}
         chat = i % 3 != 2
@@ -2252,7 +2316,7 @@ def phase_lora_http() -> dict:
             results, wall = _http_batch(base, reqs)
             launches = lora_bgmv_group.launches
             m1 = eng.metrics()
-            texts, ttfts = _check_http_results("lora_http", reqs, results)
+            texts, ttfts = _check_http_results("lora_http", reqs, results, n_tokens=LORA_NEW)
             steps = int(m1["decode_steps"] - m0["decode_steps"])
             L = eng.cfg.num_layers
             # Admissions run no B5: their x is [B, S, D] (3-D), which takes
@@ -2271,7 +2335,7 @@ def phase_lora_http() -> dict:
             out["tenants"] = dict(
                 requests=len(reqs), wall_s=wall, ttft_ms_p50=statistics.median(ttfts) * 1e3,
                 ttft_ms_max=max(ttfts) * 1e3, decode_tok_s=(eng._decode_tokens - tok0) / dt_s,
-                decode_ms_per_step=dt_s / steps * 1e3, e2e_tok_s=64 * len(reqs) / wall,
+                decode_ms_per_step=dt_s / steps * 1e3, e2e_tok_s=LORA_NEW * len(reqs) / wall,
                 decode_steps=steps, admissions=int(m1["admissions"] - m0["admissions"]),
                 prefill_chunks=int(m1["prefill_chunks"] - m0["prefill_chunks"]),
                 lora_bgmv_launches=launches, adapter_refs=refs,
@@ -2294,7 +2358,8 @@ def phase_lora_http() -> dict:
             m0, tok0, dt0 = eng.metrics(), eng._decode_tokens, eng._decode_time
             lora_bgmv_group.launches = 0
             results, wall = _http_batch(base, base_reqs)
-            _texts, ttfts = _check_http_results("lora_http base", base_reqs, results)
+            _texts, ttfts = _check_http_results("lora_http base", base_reqs, results,
+                                                n_tokens=LORA_NEW)
             check(lora_bgmv_group.launches == 0 and eng._lora_tree is None,
                   "lora_http base: the tenant-less base ran the LoRA kernel")
             m1 = eng.metrics()
@@ -2305,7 +2370,7 @@ def phase_lora_http() -> dict:
                                ttft_ms_max=max(ttfts) * 1e3,
                                decode_tok_s=(eng._decode_tokens - tok0) / dt_s,
                                decode_ms_per_step=dt_s / steps * 1e3,
-                               e2e_tok_s=64 * len(base_reqs) / wall, decode_steps=steps)
+                               e2e_tok_s=LORA_NEW * len(base_reqs) / wall, decode_steps=steps)
         finally:
             server.shutdown()
             manager.shutdown()
@@ -2401,12 +2466,16 @@ def phase_lora_8b(qmodel: dict, small, p_small, p_small_cpu) -> dict:
 SPEC_PROMPT_LEN = 128
 SPEC_NEW = 64
 SPEC_MODES = ("prompt_lookup", "self_draft", "draft_model")
-SPEC_SELF_LAYERS = 8
-# Of llama-3-8b's 32 layers the spec phase's target keeps its first 16
-# (cut for the run's time when the observe phase joined; every layer's
-# width kept): self_draft drafts with 8 of them.
-SPEC_LAYERS = 16
+SPEC_SELF_LAYERS = 2
+# Of llama-3-8b's 32 layers the spec phase's target keeps its first 8 (16
+# when the observe phase joined, 8 since phase 25 did: the run's time;
+# every layer's width kept): self_draft drafts with 2 of them, the quarter
+# the JAX bench's 8 of 32 are.
+SPEC_LAYERS = 8
 SPEC_N_DRAFT = 5
+# Phases 8 and 12 serve llama-3-8b's first 16 of its 32 layers (cut for the
+# run's time when phase 25 joined; phases 7, 11 and 18's 8b run all 32).
+QUANT_ENGINE_LAYERS = 16
 
 
 def _spec_requests(bs: int) -> list:
@@ -2556,8 +2625,8 @@ def phase_spec(qmodel: dict, small, p_small, p_small_cpu) -> dict:
     """Speculative decoding on llama-3-8b int4 (full width, the first
     SPEC_LAYERS of its 32 layers) over the fp8 paged pool (PAGED_ENGINE,
     kv_scale 2): the plain engine, then
-    prompt_lookup, self_draft (its first 8 layers) and draft_model
-    (llama-3.2-1b bf16, full width and depth, seeded random weights), each
+    prompt_lookup, self_draft (its first SPEC_SELF_LAYERS layers) and draft_model
+    (llama-3.2-1b bf16, full width, 8 of its 16 layers, seeded random weights), each
     warmed up (every round shape captured) and then serving the pinned-bias
     workload at bs 1 and bs 8. Greedy ids must equal the plain engine's
     (or part at a near tie: _part_gap with the request's bias); every
@@ -2566,11 +2635,11 @@ def phase_spec(qmodel: dict, small, p_small, p_small_cpu) -> dict:
     prefills; then the small f32 spec engines, card against CPU."""
     from localai_tpu_torch.engine.engine import Engine, EngineConfig
     from localai_tpu_torch.engine.tokenizer import ByteTokenizer
-    from localai_tpu_torch.models import get_arch, llama
+    from localai_tpu_torch.models import llama
 
     cfg, params = _first_layers(qmodel["cfg"], qmodel["int4"], SPEC_LAYERS)
     L = cfg.num_layers
-    dcfg = get_arch("llama-3.2-1b")
+    dcfg = _arch_1b()
     dparams = llama.init_params(dcfg, seed=1, device="cuda")
     ecfg = dict(PAGED_ENGINE, kv_cache_dtype="fp8", kv_scale=2.0)
     out = {"runs": {}, "modes": {}}
@@ -3283,7 +3352,7 @@ def _prefix_chat(cfg, params, before: int) -> dict:
 
 
 def phase_prefix_swap(small, p_small) -> dict:
-    """llama-3.2-1b at full width and depth (16 layers, bf16, seeded random
+    """llama-3.2-1b at full width, 8 of its 16 layers (bf16, seeded random
     weights, ByteTokenizer), after warmup(): (a) the chat traffic on the
     paged engine (pages of 128, chunks of 512, default prefix knobs), then
     the same traffic with prefix_cache_entries=0 (`_prefix_chat`); (b) 8
@@ -3296,12 +3365,12 @@ def phase_prefix_swap(small, p_small) -> dict:
     checks."""
     from localai_tpu_torch.engine.engine import Engine, EngineConfig, GenRequest
     from localai_tpu_torch.engine.tokenizer import ByteTokenizer
-    from localai_tpu_torch.models import get_arch, llama
+    from localai_tpu_torch.models import llama
 
     gc.collect()
     torch.cuda.empty_cache()
     before = torch.cuda.memory_allocated()
-    cfg = get_arch("llama-3.2-1b")
+    cfg = _arch_1b()
     L = cfg.num_layers
     params = llama.init_params(cfg, seed=7, device="cuda")
     out = _prefix_chat(cfg, params, before)
@@ -3350,7 +3419,7 @@ def phase_prefix_swap(small, p_small) -> dict:
                         "kv_preemptions", "kv_preempt_swaps", "kv_preempt_recomputes",
                         "kv_swap_bytes_out", "kv_swap_bytes_in", "kv_pages_peak", "wall_s",
                         "decode_tok_s", "prefill_chunks", "ttft_ms_max")})
-    log("[prefix_swap swap llama-3.2-1b, 16 layers] " + json.dumps(swap_sum))
+    log(f"[prefix_swap swap llama-3.2-1b, {ONEB_LAYERS} layers] " + json.dumps(swap_sum))
     for r in swap.values():
         del r["ids"]
     out["swap"], out["swap_runs"] = swap_sum, swap
@@ -3396,7 +3465,7 @@ def phase_prefix_swap(small, p_small) -> dict:
                     **{k: {"hit": lh[k], "fresh": lf[k]} for k in (
                         "ttft_ms", "prefill_chunks", "prefix_hits", "prefix_tokens",
                         "kv_pages_spilled", "kv_pages_restored", "entry_tps")})
-    log("[prefix_swap long llama-3.2-1b, 16 layers] " + json.dumps(long_sum))
+    log(f"[prefix_swap long llama-3.2-1b, {ONEB_LAYERS} layers] " + json.dumps(long_sum))
     check(lh["kv_pages_spilled"] > 0 and lh["kv_pages_restored"] > 0 and lh["entry_tps"] > 0
           and lh["prefix_hits"] == 1 and lh["prefix_tokens"] >= 16384 and lf["prefix_hits"] == 0,
           f"prefix_swap long: no restore-then-hit: {long_sum}")
@@ -3603,7 +3672,7 @@ def _grammar_round(eng, prompts, schemas) -> dict:
 
 
 def _grammar_http() -> dict:
-    """The port's server on llama-3.2-1b (16 layers, the synthetic byte
+    """The port's server on llama-3.2-1b (8 of 16 layers, the synthetic byte
     tokenizer): a tool call required of one tool, whole and streamed, a
     json_schema response format and a GBNF grammar on /v1/completions
     (streamed), their schemas prewarmed on the served engine. EOS gets +50
@@ -3702,7 +3771,7 @@ def _grammar_http() -> dict:
 
 
 def phase_grammar() -> dict:
-    """llama-3.2-1b at full width and depth (16 layers, bf16, seeded random
+    """llama-3.2-1b at full width, 8 of its 16 layers (bf16, seeded random
     weights) with the synthetic byte tokenizer (every id a printable
     character, so the masks are dense) on phase 18's paged engine without
     the prefix cache: ops/grammar
@@ -3715,12 +3784,12 @@ def phase_grammar() -> dict:
     from localai_tpu_torch.engine.engine import Engine, EngineConfig
     from localai_tpu_torch.engine.tokenizer import SyntheticByteTokenizer
     from localai_tpu_torch.functions import dfa as dfa_mod
-    from localai_tpu_torch.models import get_arch, llama
+    from localai_tpu_torch.models import llama
     from localai_tpu_torch.ops import grammar
 
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_arch("llama-3.2-1b")
+    cfg = _arch_1b()
     L, V = cfg.num_layers, cfg.vocab_size
     params = llama.init_params(cfg, seed=7, device="cuda")
     tok = SyntheticByteTokenizer(V)
@@ -3876,7 +3945,7 @@ def phase_grammar() -> dict:
                for k, r in rounds.items() if k in ("A", "B", "C")},
         unconstrained_parts=parts,
         http=out["http"]["replies"])
-    log("[grammar llama-3.2-1b, 16 layers] " + json.dumps(summary))
+    log(f"[grammar llama-3.2-1b, {ONEB_LAYERS} layers] " + json.dumps(summary))
     out["summary"] = summary
     out["runs"] = {f"grammar_{k}": {"launches": r["launches"]} for k, r in rounds.items()}
     out["runs"]["grammar_http"] = {"launches": out["http"]["launches"]}
@@ -4090,7 +4159,7 @@ def _tree_tiny(small, p_small) -> dict:
 
 
 def _tree_http() -> dict:
-    """The port's server on llama-3.2-1b (16 layers, the synthetic byte
+    """The port's server on llama-3.2-1b (8 of 16 layers, the synthetic byte
     tokenizer, the paged engine): chat logprobs (top 5) whole and streamed,
     completions logprobs 3, n 2 of best_of 4, /v1/tokenize, /v1/edits; a
     body deadline_s on the saturated model; a model YAML naming a draft
@@ -4117,7 +4186,7 @@ def _tree_http() -> dict:
         _write_models_dir(root, tenants=False)
         with open(f"{root}/llama-1b-draft.yaml", "w") as f:
             yaml.safe_dump({**LORA_BASE_YAML, "name": "llama-1b-draft",
-                            "draft_model": "llama-3.2-1b", "n_draft": 4}, f)
+                            "draft_model": ONEB_PRESET, "n_draft": 4}, f)
         manager, server, base = _start_server(root)
         try:
             warm = _http(base, "/v1/completions", {"model": "llama-1b", "prompt": "warm up",
@@ -4212,7 +4281,7 @@ def _tree_http() -> dict:
 
 def phase_tree(small, p_small) -> dict:
     """Tree sampling, logprobs, deadlines and dense chunking on
-    llama-3.2-1b at full width and depth (16 layers, bf16, seeded random
+    llama-3.2-1b at full width, 8 of its 16 layers (bf16, seeded random
     weights, the synthetic byte tokenizer): (a) 4 prompts of 200-1200
     tokens, each an n = 4 group of seeded top-p requests, through
     submit_fork on the paged engine after warmup(logprobs=True), then as
@@ -4229,11 +4298,11 @@ def phase_tree(small, p_small) -> dict:
     exact checks; (f) the port's server."""
     from localai_tpu_torch.engine.engine import Engine, EngineConfig, GenRequest
     from localai_tpu_torch.engine.tokenizer import SyntheticByteTokenizer
-    from localai_tpu_torch.models import get_arch, llama
+    from localai_tpu_torch.models import llama
 
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_arch("llama-3.2-1b")
+    cfg = _arch_1b()
     L, V = cfg.num_layers, cfg.vocab_size
     params = llama.init_params(cfg, seed=7, device="cuda")
     tok = SyntheticByteTokenizer(V)
@@ -4436,7 +4505,7 @@ def phase_tree(small, p_small) -> dict:
     summary = {k: v for k, v in out.items() if k not in ("runs", "http")}
     summary["http"] = out["http"]["replies"]
     summary["http_draft_model"] = out["http"]["draft"]
-    log("[tree llama-3.2-1b, 16 layers] " + json.dumps(summary))
+    log(f"[tree llama-3.2-1b, {ONEB_LAYERS} layers] " + json.dumps(summary))
     out["summary"] = summary
     return out
 
@@ -4719,16 +4788,13 @@ def _hold_gguf_head(tree: dict, gen: torch.Generator) -> dict:
     return row
 
 
-def _hold_gguf_tokenizer(tok_dir: str) -> dict:
-    """The synthesized tokenizer: the native BPE engine is on, and its ids
-    equal the HF tokenizer's on the canaries, a chat prompt with control
-    tokens and a 20,000-character text; host µs a character of each."""
+def _hold_gguf_tokenizer(tok, load_s: float) -> dict:
+    """The synthesized tokenizer as the server loaded it (`load_s`, the
+    model's whole load): the native BPE engine is on, and its ids equal the
+    HF tokenizer's on the canaries, a chat prompt with control tokens and a
+    20,000-character text; host µs a character of each."""
     from localai_tpu_torch.engine.bpe_fast import _CANARIES
-    from localai_tpu_torch.engine.tokenizer import HFTokenizer
 
-    t0 = time.monotonic()
-    tok = HFTokenizer(tok_dir)
-    load_s = time.monotonic() - t0
     check(tok.native_bpe, "gguf: the native BPE encoder is off for the synthesized tokenizer")
     big = _gguf_text(20000, 17)
     chat = tok.apply_chat_template([{"role": "user", "content": _gguf_text(300, 5)}])
@@ -4849,7 +4915,6 @@ def phase_gguf(gen: torch.Generator) -> dict:
             log(f"[gguf {name} {plan}] " + json.dumps(out["files"][name]))
             out.setdefault("b3_rows", []).extend(_hold_gguf_layer(name, tree, plan, gen))
         out["b4_row"] = _hold_gguf_head(trees["llama-3-8b"][1], gen)
-        out["tokenizer"] = _hold_gguf_tokenizer(trees["llama-3.2-1b"][2])
 
         # The 1b file served over HTTP from its YAML.
         with open(f"{root}/gguf-1b.yaml", "w") as f:
@@ -4861,6 +4926,7 @@ def phase_gguf(gen: torch.Generator) -> dict:
             eng = manager.get("gguf-1b").engine
             load_s = time.monotonic() - t0
             check(eng.tokenizer.native_bpe, "gguf-1b: the served tokenizer is not native BPE")
+            out["tokenizer"] = _hold_gguf_tokenizer(eng.tokenizer, load_s)
             t0 = time.monotonic()
             eng.warmup()  # every decode-block shape captured before traffic
             warmup_s = time.monotonic() - t0
@@ -5068,6 +5134,8 @@ DEEPSEEK_TAIL = 400
 DEEPSEEK_INT4_LAYERS = 8  # of 27: the int4 run is cut for time
 # of 27: the bf16 run is cut for time since the observe phase joined the run
 # (its one dense layer and 13 of its MoE layers; every layer's shapes kept).
+# At 8 layers the dense engine's ids parted from the paged engine's beyond a
+# near tie on one sampled request (ROADMAP Queue C), so the cut stays at 14.
 DEEPSEEK_LAYERS = 14
 DEEPSEEK_NEW = 32  # tokens a request of the bf16 runs (64 elsewhere): the run's time
 # The paged chunks' prefill logits (absorbed MLA through B2's latent form)
@@ -5422,14 +5490,14 @@ def phase_deepseek_http() -> dict:
 
 # --------------------------------------------------------------------------- #
 # 23. observe: the journal, traces, timeline, profile windows, faults,
-#     crash-only restart and quarantine on llama-3.2-1b (16 layers, bf16)
+#     crash-only restart and quarantine on llama-3.2-1b (8 of 16 layers, bf16)
 # --------------------------------------------------------------------------- #
 
 OBSERVE_YAML = dict(LORA_BASE_YAML, name="obs-1b", trace_journal_events=4096)
 # Chat contents of the traced requests (the synthetic byte tokenizer: one
 # token a character): two chunked admissions, the rest single-shot.
 OBSERVE_CHATS = [60, 200, 400, 900, 60, 200, 400, 1400]
-OBSERVE_NEW = 32
+OBSERVE_NEW = 16  # one 16-step block a chat (32 until phase 25 joined: the run's time)
 # Journal cost: rounds of 8 requests of 20 tokens, 96 new tokens each (the
 # JAX package's 96-token round), journal on and off interleaved.
 OBSERVE_COST_ROUNDS = 5
@@ -5624,8 +5692,8 @@ def _obs_profile(base: str, eng, prof_dir: str) -> dict:
     def chat(i: int) -> None:
         # The first batch asks for logprobs: its blocks' graph (the logprob
         # epilogue's key) is captured inside the window.
-        body = {"model": "obs-1b", "max_tokens": 64, "ignore_eos": True, "stream": True,
-                "temperature": 0.7, "seed": 500 + i,
+        body = {"model": "obs-1b", "max_tokens": OBSERVE_NEW, "ignore_eos": True,
+                "stream": True, "temperature": 0.7, "seed": 500 + i,
                 "messages": [{"role": "user", "content": _obs_text(300, 50 + i)}],
                 **({"logprobs": True, "top_logprobs": 2} if i < 4 else {})}
         chats[i] = _http(base, "/v1/chat/completions", body, time.monotonic())
@@ -5987,7 +6055,7 @@ def _obs_restarts(base: str, manager, pm_dir: str) -> dict:
 
 
 def phase_observe() -> dict:
-    """llama-3.2-1b bf16 at full width and depth (16 layers) on the paged
+    """llama-3.2-1b bf16 at full width, 8 of its 16 layers, on the paged
     config, served by ModelManager and the port's HTTP server with the
     journal (4096 events), trace_fence, a postmortem directory and a
     profile directory: traces, the timeline, a profile window, the
@@ -6051,7 +6119,7 @@ def phase_observe() -> dict:
 
 
 # Embeddings, rerank, the bert backend and the vector store (phase 24).
-# llama-3.2-1b bf16 at full width and depth on the paged config, the byte
+# llama-3.2-1b bf16 at full width, 8 of its 16 layers, on the paged config, the byte
 # tokenizer (ASCII text round-trips to its ids), no speculation; the chats,
 # rerank and embeddings all on one model.
 EMBED_YAML = dict({k: v for k, v in LORA_BASE_YAML.items() if k != "tokenizer"},
@@ -6509,6 +6577,514 @@ def phase_embed_rerank() -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# 25. vision: Qwen2-VL-2B and llava over HTTP, the tiny Qwen2-VL card vs CPU
+# --------------------------------------------------------------------------- #
+
+# Qwen/Qwen2-VL-2B-Instruct's published config.json (widths, depths, rope).
+QWEN2_VL_2B = {
+    "model_type": "qwen2_vl", "architectures": ["Qwen2VLForConditionalGeneration"],
+    "vocab_size": 151936, "hidden_size": 1536, "intermediate_size": 8960,
+    "num_hidden_layers": 28, "num_attention_heads": 12, "num_key_value_heads": 2,
+    "max_position_embeddings": 32768, "rms_norm_eps": 1e-6, "rope_theta": 1000000.0,
+    "tie_word_embeddings": True, "hidden_act": "silu",
+    "rope_scaling": {"type": "mrope", "mrope_section": [16, 24, 24]},
+    "bos_token_id": 151643, "eos_token_id": 151645, "image_token_id": 151655,
+    "vision_start_token_id": 151652, "vision_end_token_id": 151653,
+    "vision_config": {"depth": 32, "embed_dim": 1280, "mlp_ratio": 4, "num_heads": 16,
+                      "in_chans": 3, "hidden_size": 1536, "patch_size": 14,
+                      "spatial_merge_size": 2, "temporal_patch_size": 2},
+}
+# The CPU tests' tiny Qwen2-VL (tests/test_torch_qwen2_vl.py), f32, its
+# decoder widened to head dim 64 (B1 takes 64 and 128; the tests' is 16).
+QWEN2_VL_TINY = {
+    "model_type": "qwen2_vl", "vocab_size": 300, "hidden_size": 256, "intermediate_size": 256,
+    "num_hidden_layers": 2, "num_attention_heads": 4, "num_key_value_heads": 2,
+    "max_position_embeddings": 512, "rms_norm_eps": 1e-6, "rope_theta": 10000.0,
+    "tie_word_embeddings": False, "hidden_act": "silu",
+    "rope_scaling": {"type": "mrope", "mrope_section": [8, 12, 12]},
+    "vision_config": {"depth": 2, "embed_dim": 32, "num_heads": 2, "mlp_ratio": 2,
+                      "in_channels": 3, "patch_size": 4, "spatial_merge_size": 2,
+                      "temporal_patch_size": 2, "hidden_size": 256},
+}
+VISION_YAML = {"name": "qwen2-vl-2b", "backend": "vlm", "model": "qwen2-vl-2b",
+               "context_size": 4096, "max_slots": 8, "kv_pages": 256, "kv_page_size": 128,
+               "prefill_chunk": 512, "template": {"family": "chatml"}}
+LLAVA_YAML = {"name": "llava-8b", "backend": "llava", "model": "llama-3-8b",
+              "options": {"vision": "clip-vit-l-336"}, "context_size": 2048, "max_slots": 4,
+              "kv_pages": 64, "kv_page_size": 128, "template": {"family": "chatml"}}
+VISION_NEW = 16  # tokens a chat
+# The 8 concurrent chats: (image (h, w) or None, text length).
+VISION_CHATS = [((448, 448), 40), (None, 200), ((336, 504), 60), (None, 700),
+                ((448, 448), 90), (None, 60), ((672, 448), 30), (None, 400)]
+ASCII_BIAS = {i: 100.0 for i in range(32, 127)}
+
+
+def _png_bytes(img: np.ndarray) -> bytes:
+    """uint8 [H, W, 3] as an 8-bit RGB PNG (filter 0 on every row)."""
+    import zlib
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    h, w = img.shape[:2]
+    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def _vision_image(h: int, w: int, seed: int) -> np.ndarray:
+    """A smooth image with noise: gradients and a seeded pattern."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    base = np.stack([x / w, y / h, (x + y) / (w + h)], axis=-1) * 160.0
+    img = base + rng.random((h, w, 3)).astype(np.float32) * 95.0
+    return img.clip(0, 255).astype(np.uint8)
+
+
+def _vision_chat(model: str, img, text: str, stream: bool = False) -> dict:
+    import base64
+
+    parts = [{"type": "text", "text": text}]
+    if img is not None:
+        uri = "data:image/png;base64," + base64.b64encode(_png_bytes(img)).decode()
+        parts.append({"type": "image_url", "image_url": {"url": uri}})
+    return {"model": model, "messages": [{"role": "user", "content": parts}],
+            "max_tokens": VISION_NEW, "temperature": 0.0, "ignore_eos": True,
+            "logit_bias": {str(k): v for k, v in ASCII_BIAS.items()}, "stream": stream}
+
+
+def _vision_post(base: str, body: dict, label: str) -> tuple[dict, float]:
+    t = time.monotonic()
+    st, _h, resp = _http_call(base, "POST", "/v1/chat/completions", body,
+                              headers={"extra-usage": "1"}, timeout=900)
+    check(st == 200, f"vision: {label} answered {st}: {str(resp)[:400]}")
+    return resp, (time.monotonic() - t) * 1e3
+
+
+def _vision_round(base: str, model: str, label: str) -> list[dict]:
+    """VISION_CHATS, all at once → [(content, usage)] in order."""
+    results: list = [None] * len(VISION_CHATS)
+
+    def run(i, img_hw, n):
+        img = None if img_hw is None else _vision_image(*img_hw, seed=40 + i)
+        body = _vision_chat(model, img, _obs_text(n, 900 + i))
+        results[i] = _http_call(base, "POST", "/v1/chat/completions", body, timeout=900)
+
+    threads = [threading.Thread(target=run, args=(i, *c), daemon=True)
+               for i, c in enumerate(VISION_CHATS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    out = []
+    for i, res in enumerate(results):
+        check(res is not None and res[0] == 200, f"vision: {label} chat {i}: {res and res[2]}")
+        out.append({"content": res[2]["choices"][0]["message"]["content"],
+                    "usage": res[2]["usage"]})
+    return out
+
+
+def _vision_qwen(base: str, manager) -> dict:
+    from localai_tpu_torch.engine.engine import Engine, GenRequest
+    from localai_tpu_torch.models import llama
+    from localai_tpu_torch.models import qwen2_vl as QV
+    from localai_tpu_torch.ops import attention
+    from localai_tpu_torch.ops.flash import flash_prefill_attention_plain
+    from localai_tpu_torch.server.images import extract_images
+
+    out: dict = {}
+    t0 = time.monotonic()
+    lm = manager.get("qwen2-vl-2b")
+    eng, vis = lm.engine, lm.vision
+    torch.cuda.synchronize()
+    out["load_s"] = time.monotonic() - t0
+    cfg = eng.cfg
+    check(vis is not None and vis.kind == "qwen2_vl" and eng._mrope and eng._paged
+          and vis.params["patch_embed.weight"].dtype == torch.bfloat16
+          and (cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_) == (28, 12, 2, 128),
+          f"vision: Qwen2-VL-2B loaded as {cfg}")
+    out["weight_bytes"] = eng.metrics()["weight_bytes"]
+    out["tower_bytes"] = sum(t.numel() * t.element_size() for t in vis.params.values())
+
+    # The tower at both images: preprocess (host), the tower (device), the
+    # peak memory over the model's; then the bf16 tower against f32.
+    towers = {}
+    for key, hw, want_n in (("448", (448, 448), 256), ("max", (1120, 896), 1280)):
+        img = _vision_image(*hw, seed=1)
+        t = time.monotonic()
+        patches, grid = QV.preprocess(vis.cfg, img)
+        pre_ms = (time.monotonic() - t) * 1e3
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        feats = vis.encode_patches(patches, grid)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+        ms = cuda_time_ms(lambda: vis.encode_patches(patches, grid), 3, warmup=1)
+        check(tuple(feats.shape) == (want_n, 1536) and bool(torch.isfinite(feats).all()),
+              f"vision: tower at {hw} gave {tuple(feats.shape)}")
+        towers[key] = {"image": list(hw), "grid": list(grid), "patches": int(patches.shape[0]),
+                       "tokens": want_n, "preprocess_ms": pre_ms, "tower_ms": ms,
+                       "peak_extra_gib": peak}
+        if key == "448":
+            dev = feats.device
+            angles = torch.from_numpy(QV._vision_rope_angles(vis.cfg, grid)).to(dev)
+            p32 = {k: v.float() for k, v in vis.params.items()}
+            with torch.inference_mode():
+                f32 = QV.vision_forward(vis.cfg, p32, torch.from_numpy(patches).to(dev), angles)
+            cos = torch.nn.functional.cosine_similarity(feats.float(), f32, dim=-1)
+            towers[key]["f32_cosine_min"] = float(cos.min())
+            towers[key]["f32_cosine_mean"] = float(cos.mean())
+            check(float(cos.min()) >= 0.99,
+                  f"vision: the bf16 tower's merged tokens against f32: cosine {float(cos.min())}")
+            del p32, f32
+    out["tower"] = towers
+    log(f"[vision qwen2-vl-2b tower] {json.dumps(towers)}")
+
+    # Prefill with the largest image injected and m-rope through B1, against
+    # the same call with B1's plain version swapped in.
+    img = _vision_image(1120, 896, seed=2)
+    feats, grid = vis.encode_with_grid(img)
+    n_img = feats.shape[0]
+    ids = [1] + [0] * n_img + list(range(40, 72))
+    pos3, delta = QV.mrope_positions_for_span(len(ids), 1, grid)
+    S = eng._bucket_for(len(ids))
+    toks = torch.zeros((1, S), dtype=torch.int64, device="cuda")
+    toks[0, :len(ids)] = torch.tensor(ids)
+    mr = np.zeros((1, 3, S), np.int64)
+    mr[0, :, :len(ids)] = pos3
+    mr[0, :, len(ids):] = pos3[:, -1:] + 1 + np.arange(S - len(ids))
+    args = (cfg, eng.params, toks, torch.tensor([len(ids)], device="cuda"))
+    kw = dict(inject=(feats[None], torch.tensor([1], device="cuda")),
+              mrope=torch.from_numpy(mr).cuda())
+    before = _read_counts()["flash_prefill"]
+    with torch.inference_mode():
+        logits, _, _ = llama.prefill(*args, **kw)
+        b1 = _read_counts()["flash_prefill"] - before
+        with swapped(attention, "flash_prefill_attention", flash_prefill_attention_plain):
+            ref, _, _ = llama.prefill(*args, **kw)
+    err, scale = float((logits - ref).abs().max()), float(ref.abs().max())
+    out["prefill_b1_vs_plain"] = {"bucket": S, "prompt": len(ids), "image_tokens": n_img,
+                                  "rope_delta": delta, "max_abs_err": err, "max_logit": scale,
+                                  "b1_launches": b1}
+    check(b1 == cfg.num_layers and err <= 0.05 * scale and bool(torch.isfinite(logits).all()),
+          f"vision: prefill with inject + m-rope through B1 against its plain version: "
+          f"{out['prefill_b1_vs_plain']}")
+
+    # 8 concurrent chats, images and text, over HTTP with graph decode
+    # blocks, first on the fresh engine: its block shapes are captured while
+    # other requests' towers run on their threads. Every response 200,
+    # usage counting each image's span.
+    runs = {}
+    _zero_counts()
+    blocks0, tok0, dt0 = eng.m_blocks, eng._decode_tokens, eng._decode_time
+    caps0, reps0 = eng.m_graph_captures, eng.m_graph_replays
+    t = time.monotonic()
+    served = _vision_round(base, "qwen2-vl-2b", "graph")
+    wall = time.monotonic() - t
+    lg = _read_counts()
+    runs["vision_qwen2_vl_2b"] = {"launches": lg}
+    blocks = eng.m_blocks - blocks0
+    caps, reps = eng.m_graph_captures - caps0, eng.m_graph_replays - reps0
+    check(blocks == caps + reps and blocks > 0,
+          f"vision: {blocks} decode blocks, {caps} captures + {reps} replays")
+    for i, ((hw, n), g) in enumerate(zip(VISION_CHATS, served)):
+        check(g["usage"]["completion_tokens"] == VISION_NEW,
+              f"vision: chat {i} usage {g['usage']}")
+        if hw is not None:
+            rh, rw = QV.smart_resize(*hw)
+            want = rh * rw // (28 * 28)
+            check(g["usage"]["prompt_tokens"] >= want + n,
+                  f"vision: chat {i} prompt_tokens {g['usage']['prompt_tokens']} < {want} + {n}")
+    check(lg["flash_prefill"] > 0 and lg["paged_attention"] > 0
+          and lg["flash_prefill"] % cfg.num_layers == 0
+          and lg["paged_attention"] % cfg.num_layers == 0,
+          f"vision: launches {lg}")
+    out["round"] = {"wall_s": wall, "blocks": blocks, "captures": caps, "replays": reps,
+                    "launches": lg, "tokens": VISION_NEW * len(VISION_CHATS),
+                    "decode_tok_s": ((eng._decode_tokens - tok0)
+                                     / max(eng._decode_time - dt0, 1e-9))}
+    log(f"[vision qwen2-vl-2b round] {json.dumps(out['round'])}")
+    # One image chat, then the same chat again: its TTFT streamed and its
+    # split (PNG decode, preprocess, tower, the engine's queue wait and
+    # admission); another image.
+    img448, other = _vision_image(448, 448, seed=3), _vision_image(448, 448, seed=4)
+    body = _vision_chat("qwen2-vl-2b", img448, "describe the picture")
+    first, first_ms = _vision_post(base, body, "the image chat")
+    again, wall = _vision_post(base, body, "the same image again")
+    stream = _http(base, "/v1/chat/completions", dict(body, stream=True), time.monotonic())
+    t = time.monotonic()
+    extract_images(body["messages"])
+    decode_ms = (time.monotonic() - t) * 1e3
+    t = time.monotonic()
+    patches, grid = QV.preprocess(vis.cfg, img448)
+    pre_ms = (time.monotonic() - t) * 1e3
+    diff, _ = _vision_post(base, _vision_chat("qwen2-vl-2b", other, "describe the picture"),
+                           "another image")
+    text_only, _ = _vision_post(base, _vision_chat("qwen2-vl-2b", None, "describe the picture"),
+                                "the text alone")
+    u, ut = again["usage"], text_only["usage"]
+    span = u["prompt_tokens"] - ut["prompt_tokens"]
+    c0, c1, c2 = (r["choices"][0]["message"]["content"] for r in (first, again, diff))
+    try:
+        import PIL  # noqa: F401
+
+        decoder = "PIL"
+    except ImportError:
+        decoder = "server/images.decode_png"
+    out["chat"] = {
+        "first_wall_ms": first_ms, "wall_ms": wall,
+        "ttft_ms_stream": (stream.get("ttft") or 0.0) * 1e3,
+        "png_decoder": decoder, "png_decode_ms": decode_ms, "preprocess_ms": pre_ms,
+        "tower_ms": towers["448"]["tower_ms"],
+        "queue_wait_ms": u.get("timing_queue_wait", 0.0) * 1e3,
+        "admission_to_first_token_ms": u.get("timing_prompt_processing", 0.0) * 1e3,
+        "decode_ms": u.get("timing_token_generation", 0.0) * 1e3,
+        "image_span": span, "same_image_same_ids": c0 == c1, "other_image_other_ids": c0 != c2,
+        "content": c0}
+    log(f"[vision qwen2-vl-2b chat] {json.dumps(out['chat'])}")
+    check(stream["status"] == 200 and span == 256 and len(c0) == VISION_NEW,
+          f"vision: the image chat: span {span}, content {c0!r}")
+    check(c0 == c1, "vision: the same image gave other ids")
+    check(c0 != c2, "vision: another image gave the same ids")
+
+    out["graph_vs_eager"] = _vision_graph_vs_eager(eng, vis, runs)
+
+    # A text request with three equal m-rope streams against the same
+    # request on the same weights with no m-rope section, each on a fresh
+    # engine of the served config: the same ids (three equal streams are
+    # plain rope, and the rope delta is 0).
+    prompt = list(range(60, 124))
+    req = GenRequest(prompt_ids=prompt, max_new_tokens=VISION_NEW, temperature=0.0,
+                     ignore_eos=True, logit_bias=ASCII_BIAS)
+    streams = np.tile(np.arange(len(prompt), dtype=np.int32), (3, 1))
+    texts = []
+    for c, r in ((cfg, dataclasses.replace(req, mrope_positions=streams)),
+                 (dataclasses.replace(cfg, mrope_section=()), req)):
+        e = Engine(c, eng.params, eng.tokenizer, engine_cfg=eng.ecfg, device="cuda")
+        try:
+            texts.append(e.submit(r).result()[0])
+        finally:
+            e.stop()
+            del e
+    out["text_equals_plain_rope"] = texts[0] == texts[1]
+    check(texts[0] == texts[1], f"vision: three equal m-rope streams {texts[0]!r} != plain "
+                                f"rope {texts[1]!r}")
+    return {"summary": out, "runs": runs}
+
+
+def _vision_requests(eng, vis) -> list:
+    """VISION_CHATS as GenRequests on the served engine's template: the
+    images' features (the tower on the card), placeholder spans after
+    BOS, m-rope streams."""
+    from localai_tpu_torch.engine.engine import GenRequest
+    from localai_tpu_torch.models import qwen2_vl as QV
+
+    reqs = []
+    for i, (hw, n) in enumerate(VISION_CHATS):
+        ids = [eng.tokenizer.bos_id] + eng.tokenizer.encode(
+            f"<|im_start|>user\n{_obs_text(n, 900 + i)}<|im_end|>\n<|im_start|>assistant\n")
+        kw = {}
+        if hw is not None:
+            feats, grid = vis.encode_with_grid(_vision_image(*hw, seed=40 + i))
+            ids = ids[:1] + [0] * feats.shape[0] + ids[1:]
+            pos3, _ = QV.mrope_positions_for_span(len(ids), 1, grid)
+            kw = dict(image_embeds=feats, image_offset=1, mrope_positions=pos3)
+        reqs.append(GenRequest(prompt_ids=ids, max_new_tokens=VISION_NEW, temperature=0.0,
+                               ignore_eos=True, logit_bias=ASCII_BIAS, **kw))
+    return reqs
+
+
+def _vision_graph_vs_eager(served, vis, runs: dict) -> dict:
+    """VISION_CHATS (built once) on two fresh engines over the served
+    weights, on the served engine's pool config: one replaying its decode
+    graphs, one running the eager block body. The requests are all queued
+    before the loop starts, so both see the same admissions and blocks;
+    ids and launches must be identical (blocks mixing image and text slots,
+    each at its own rope delta)."""
+    from localai_tpu_torch.engine.engine import Engine
+
+    reqs = _vision_requests(served, vis)
+    ids, launches, stats = {}, {}, {}
+    for mode in ("graph", "eager"):
+        eng = Engine(served.cfg, served.params, served.tokenizer, device="cuda",
+                     engine_cfg=dataclasses.replace(served.ecfg, block_sizes=(16, 4, 1)))
+        try:
+            with contextlib.ExitStack() as stack:
+                if mode == "eager":
+                    stack.enter_context(swapped(eng, "_decode_block", eng._block_body))
+                with swapped(eng, "start", lambda: None):  # queue all before the loop runs
+                    handles = [eng.submit(dataclasses.replace(r)) for r in reqs]
+                _zero_counts()
+                t = time.monotonic()
+                eng.start()
+                ids[mode] = [[e.token_id for e in h if e.kind == "token"] for h in handles]
+                stats[mode] = {"wall_s": time.monotonic() - t, "blocks": eng.m_blocks,
+                               "captures": eng.m_graph_captures,
+                               "replays": eng.m_graph_replays}
+                launches[mode] = _read_counts()
+        finally:
+            eng.stop()
+            del eng
+    runs["vision_qwen2_vl_2b_graph"] = {"launches": launches["graph"]}
+    runs["vision_qwen2_vl_2b_eager"] = {"launches": launches["eager"]}
+    out = {"ids_equal": ids["graph"] == ids["eager"],
+           "launches_equal": launches["graph"] == launches["eager"],
+           "launches": launches["graph"], **{f"{k}_{m}": v for m in stats
+                                              for k, v in stats[m].items()}}
+    log(f"[vision qwen2-vl-2b graph vs eager] {json.dumps(out)}")
+    check(all(len(x) == VISION_NEW for x in ids["graph"]), "vision: a request ended early")
+    check(out["ids_equal"], f"vision: graph ids differ from the eager body's: "
+                            f"{ids['graph']} / {ids['eager']}")
+    check(out["launches_equal"] and stats["eager"]["replays"] == 0
+          and stats["graph"]["blocks"] == stats["graph"]["captures"] + stats["graph"]["replays"],
+          f"vision: graph / eager launches {launches} or blocks {stats}")
+    return out
+
+
+def _vision_llava(base: str, manager) -> dict:
+    out: dict = {}
+    t0 = time.monotonic()
+    lm = manager.get("llava-8b")
+    eng, vis = lm.engine, lm.vision
+    torch.cuda.synchronize()
+    out["load_s"] = time.monotonic() - t0
+    check(vis is not None and vis.kind == "llava" and vis.cfg.layers == 24
+          and vis.cfg.n_patches == 576 and eng.cfg.num_layers == 32,
+          f"vision: llava loaded as {vis and vis.cfg}")
+    img = _vision_image(336, 336, seed=5)
+    pix = vis.preprocess(img).cuda()
+    from localai_tpu_torch.models.vision import encode_image
+
+    with torch.inference_mode():
+        out["tower_ms"] = cuda_time_ms(lambda: encode_image(vis.cfg, vis.params, pix), 3, warmup=1)
+    _zero_counts()
+    first, wall = _vision_post(base, _vision_chat("llava-8b", img, "describe"), "llava image")
+    again, _ = _vision_post(base, _vision_chat("llava-8b", img, "describe"), "llava again")
+    diff, _ = _vision_post(base, _vision_chat("llava-8b", _vision_image(500, 400, seed=6),
+                                              "describe"), "llava another image")
+    text, _ = _vision_post(base, _vision_chat("llava-8b", None, "describe"), "llava text")
+    launches = _read_counts()
+    c0, c1, c2 = (r["choices"][0]["message"]["content"] for r in (first, again, diff))
+    span = first["usage"]["prompt_tokens"] - text["usage"]["prompt_tokens"]
+    out.update(wall_ms=wall, image_span=span, same_image_same_ids=c0 == c1,
+               other_image_other_ids=c0 != c2, launches=launches,
+               admission_to_first_token_ms=first["usage"].get("timing_prompt_processing", 0) * 1e3,
+               content=c0)
+    log(f"[vision llava-8b] {json.dumps(out)}")
+    check(span == 576 and len(c0) == VISION_NEW, f"vision: llava span {span}, content {c0!r}")
+    check(c0 == c1 and c0 != c2, "vision: llava ids: the same image must repeat them, another "
+                                 "must change them")
+    check(launches["flash_prefill"] == 4 * 32 and launches["paged_attention"] > 0,
+          f"vision: llava launches {launches}")
+    return {"summary": out, "runs": {"vision_llava_8b": {"launches": launches}}}
+
+
+def _vision_tiny(root: str) -> dict:
+    """The CPU tests' tiny f32 Qwen2-VL on the card and on the CPU: prefill
+    logits with inject + m-rope within 1e-4, greedy ids of an image and a
+    text request exact."""
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig, GenRequest
+    from localai_tpu_torch.engine.tokenizer import ByteTokenizer
+    from localai_tpu_torch.engine.weights import arch_from_hf_config, load_hf_checkpoint
+    from localai_tpu_torch.models import llama
+    from localai_tpu_torch.models import qwen2_vl as QV
+
+    d = f"{root}/tiny-qwen2vl"
+    QV.random_hf_checkpoint(d, QWEN2_VL_TINY, seed=0, scale=0.1, device="cpu")
+    arch = dataclasses.replace(arch_from_hf_config(d), dtype="float32")
+    vc = dataclasses.replace(QV.vision_config_from_hf(d), min_pixels=8 * 8, max_pixels=1 << 28)
+    out, ids, logits = {}, {}, {}
+    img = _vision_image(48, 32, seed=7)
+    for dev in ("cuda", "cpu"):
+        params = load_hf_checkpoint(arch, d, device=dev)
+        enc = QV.Qwen2VLVisionEncoder(vc, QV.load_hf_qwen2_vl_vision(vc, d, device=dev))
+        feats, grid = enc.encode_with_grid(img)
+        prompt = [5, 7, 297] + [0] * feats.shape[0] + [298, 11, 12, 13]
+        pos3, _ = QV.mrope_positions_for_span(len(prompt), 3, grid)
+        toks = torch.zeros((1, 64), dtype=torch.int64)
+        toks[0, :len(prompt)] = torch.tensor(prompt)
+        mr = np.zeros((1, 3, 64), np.int64)
+        mr[0, :, :len(prompt)] = pos3
+        with torch.inference_mode():
+            lg, _, _ = llama.prefill(arch, params, toks.to(dev), torch.tensor([len(prompt)],
+                                                                               device=dev),
+                                     inject=(feats[None], torch.tensor([3], device=dev)),
+                                     mrope=torch.from_numpy(mr).to(dev))
+        logits[dev] = lg.cpu()
+        eng = Engine(arch, params, ByteTokenizer(300), device=dev,
+                     engine_cfg=EngineConfig(max_slots=2, max_seq=128, min_prefill_bucket=16,
+                                             kv_pages=16, kv_page_size=16))
+        try:
+            hs = [eng.submit(GenRequest(prompt_ids=prompt, image_embeds=feats, image_offset=3,
+                                        mrope_positions=pos3, max_new_tokens=12,
+                                        ignore_eos=True)),
+                  eng.submit(GenRequest(prompt_ids=list(range(5, 35)), max_new_tokens=12,
+                                        ignore_eos=True))]
+            ids[dev] = [[e.token_id for e in h if e.kind == "token"] for h in hs]
+        finally:
+            eng.stop()
+    out["logits_max_abs_err"] = float((logits["cuda"] - logits["cpu"]).abs().max())
+    out["ids_equal"] = ids["cuda"] == ids["cpu"]
+    log(f"[vision tiny qwen2-vl card vs cpu] {json.dumps(out)}")
+    check(out["logits_max_abs_err"] <= 1e-4 and out["ids_equal"],
+          f"vision: tiny Qwen2-VL card vs CPU: {out}, ids {ids}")
+    return out
+
+
+def phase_vision() -> dict:
+    """Vision chat through ModelManager and the port's HTTP server: (a)
+    Qwen2-VL-2B, (b) llava (clip-vit-l-336 into llama-3-8b), (c) the tiny
+    Qwen2-VL card vs CPU."""
+    import yaml
+
+    from localai_tpu_torch.config import ApplicationConfig
+    from localai_tpu_torch.models import qwen2_vl as QV
+    from localai_tpu_torch.server import ModelManager, OpenAIApi, Router, create_server
+
+    out, seconds = {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.monotonic()
+        QV.random_hf_checkpoint(f"{root}/qwen2-vl-2b", QWEN2_VL_2B, seed=3,
+                                dtype=torch.bfloat16, device="cuda")
+        seconds["write_checkpoint"] = round(time.monotonic() - t0, 1)
+        for doc in (VISION_YAML, LLAVA_YAML):
+            with open(f"{root}/{doc['name']}.yaml", "w") as f:
+                yaml.safe_dump(doc, f)
+        app = ApplicationConfig(address="127.0.0.1", port=0, models_dir=root)
+        manager = ModelManager(app, device="cuda")
+        router = Router()
+        OpenAIApi(manager).register(router)
+        server = create_server(app, router)
+        threading.Thread(target=server.serve_forever, daemon=True, name="http").start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+
+        def part(name, fn, *args):
+            t = time.monotonic()
+            out[name] = fn(*args)
+            seconds[name] = round(time.monotonic() - t, 1)
+
+        try:
+            part("qwen2_vl", _vision_qwen, base, manager)
+            manager.unload("qwen2-vl-2b", drain_s=0.0)
+            gc.collect()
+            torch.cuda.empty_cache()
+            part("llava", _vision_llava, base, manager)
+            manager.unload("llava-8b", drain_s=0.0)
+            part("tiny", _vision_tiny, root)
+            out["seconds"] = seconds
+        finally:
+            server.shutdown()
+            manager.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["runs"] = {**out["qwen2_vl"].pop("runs"), **out["llava"].pop("runs")}
+    log(json.dumps({"vision": {k: v for k, v in out.items() if k != "runs"}}))
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
@@ -6520,9 +7096,13 @@ def main() -> None:
         out = fn(*args, **kw)
         seconds[label] = round(time.monotonic() - t0, 1)
         log(f"[phase {label}] {seconds[label]}s")
+        # Also on stderr, whose tail a run stopped at its time limit keeps.
+        print(f"[phase {label}] {seconds[label]}s, {time.monotonic() - t_start:.1f}s in all",
+              file=sys.stderr, flush=True)
         return out
 
     name, smi = timed("device", phase_device)
+    _arch_1b()  # registers ONEB_PRESET, which the server's YAMLs name
     usage = timed("build", phase_build)
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = timed("flash_kernels", phase_kernels, gen)
@@ -6542,11 +7122,14 @@ def main() -> None:
     tree = timed("tree", phase_tree, model["small"], model["p_small"])
     observe = timed("observe", phase_observe)
     embed_rerank = timed("embed_rerank", phase_embed_rerank)
+    vision = timed("vision", phase_vision)
     qmodel = timed("quant_model", phase_quant_model, gen)
     qruns = timed("quant_engines", phase_quant_engines, qmodel, model["small"],
                   model["p_small"], model["p_small_cpu"])
-    graphs_8b = timed("graphs_8b", phase_graphs, "llama-3-8b int4 + fp8 paged", qmodel["cfg"],
-                      qmodel["int4"], kv_cache_dtype="fp8", kv_scale=2.0)
+    graphs_8b = timed("graphs_8b", phase_graphs,
+                      f"llama-3-8b int4 + fp8 paged, {QUANT_ENGINE_LAYERS} layers",
+                      *_first_layers(qmodel["cfg"], qmodel["int4"], QUANT_ENGINE_LAYERS),
+                      kv_cache_dtype="fp8", kv_scale=2.0)
     prefix_8b = timed("prefix_swap_8b", phase_prefix_8b, qmodel)
     lora_rows, lora_groups = timed("lora_kernels", phase_lora_kernels, gen)
     lora_http = timed("lora_http", phase_lora_http)
@@ -6593,7 +7176,7 @@ def main() -> None:
             "deepseek_v2_lite_prefix_hit": deepseek["graph"]["follow"],
             "deepseek_v2_lite_dense": deepseek["dense"],
             "deepseek_v2_lite_int4_8_layers": deepseek_int4,
-            "observe_1b": observe["traces"]["run"], **embed_rerank["runs"]}
+            "observe_1b": observe["traces"]["run"], **embed_rerank["runs"], **vision["runs"]}
     by_path = {k: {path: out["launches"].get(k, 0) for path, out in runs.items()}
                for k in ("flash_prefill", "paged_attention", "paged_attention_latent",
                          "quant_matmul", "quant_matmul_moe", "quant_unembed", "lora_bgmv",
@@ -6629,6 +7212,13 @@ def main() -> None:
         # Embeddings and rerank through the server: the forward at a bucket
         # (B1 on every layer), the f32 witnesses, bert and the store.
         "embed_rerank": {k: v for k, v in embed_rerank.items() if k != "runs"},
+        # Vision chat: Qwen2-VL-2B's image admissions (H 12, K 2, D 128) with
+        # the image injected and m-rope, llava's into llama-3-8b.
+        "vision": {"rows": [_compact(r, ("shape", "lengths", "ms", "plain_ms", "library_ms",
+                                         "bound_ms", "bound_by", "max_abs_err"))
+                            for r in rows if r["shape"][2:4] == [12, 2]],
+                   "qwen2_vl_2b": vision["qwen2_vl"]["summary"],
+                   "llava_8b": vision["llava"]["summary"], "tiny": vision["tiny"]},
         "shapes": rows,
     }
     # The main shape of B2: llama-3.2-1b paged decode, 8 slots, D = 64; its
@@ -6683,6 +7273,11 @@ def main() -> None:
         # Speculative rounds: the verify chunk's T·G query rows a kv head
         # through the multi-query form (rows "verify_t3" / "verify_t6").
         "spec": spec["summary"],
+        # Qwen2-VL-2B's decode blocks (G = 6 at D = 128) with image and text
+        # slots, each at its own rope delta.
+        "vision": _compact(next(r for r in paged_rows if r["shape"] == "decode_g6_qwen2vl"),
+                           ("shape", "B", "H", "K", "D", "ms", "plain_ms", "bound_ms",
+                            "bound_by", "max_abs_err", "plan")),
         "shapes": paged_rows,
     }
     # The main shape of B3: llama-3-8b's w_gate at a decode block of 8 slots,

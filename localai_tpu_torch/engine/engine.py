@@ -249,6 +249,11 @@ _CAPTURE_STREAMS: dict = {}
 _CAPTURE_LOCK = threading.Lock()
 
 
+def _multimodal(request: "GenRequest") -> bool:
+    """An image span or m-rope streams."""
+    return request.image_embeds is not None or request.mrope_positions is not None
+
+
 def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
     with _CAPTURE_LOCK:
         stream = _CAPTURE_STREAMS.get(device)
@@ -448,6 +453,17 @@ class GenRequest:
     # alternatives of log_softmax(logits + bias), the model's distribution
     # before penalties, temperature and the grammar mask (OpenAI's).
     logprobs: int = 0
+    # Multimodal (VLM): projected image features [N, hidden] (a tensor on
+    # the engine's device, or anything torch.as_tensor takes) injected over
+    # prompt_ids[image_offset : image_offset + N] at prefill (llava's
+    # semantics; the placeholder ids under the span are ignored). Image
+    # requests admit alone and single-shot, never fork and never touch the
+    # prefix cache.
+    image_embeds: Optional[Any] = None
+    image_offset: int = 0
+    # Qwen2-VL m-rope: [3, len(prompt_ids)] (t, h, w) position streams
+    # (models/qwen2_vl.mrope_positions_for_span). None = standard rope.
+    mrope_positions: Optional[Any] = None
     # End-to-end deadline in seconds from submit(): pending past it, the
     # request is shed with an error event; active, it is cancelled. 0 =
     # the engine default (EngineConfig.deadline_s), which may be 0 too.
@@ -720,6 +736,15 @@ class Engine:
         self.bias = torch.zeros((B, V), dtype=torch.float32, device=dev)
         self.d_tokens = torch.zeros((B,), dtype=torch.int64, device=dev)
         self.d_positions = torch.zeros((B,), dtype=torch.int64, device=dev)
+        # m-rope (Qwen2-VL): each slot decodes with rope at its position +
+        # its delta (max(pos3) + 1 - prompt length after an image prefill,
+        # 0 for text). The device buffer is written in place where a slot
+        # is installed, and the block body (its graph) reads it; the host
+        # mirror rides swap records. None on other models.
+        self._mrope = bool(cfg.mrope_section)
+        self.h_rope_delta = np.zeros((B,), np.int64)
+        self.d_rope_delta = (torch.zeros((B,), dtype=torch.int64, device=dev)
+                             if self._mrope else None)
         # Each slot's sampling seed (a draw's noise is a pure function of
         # the seed and the drawn token's position) and its host mirror.
         self.d_seed = torch.arange(B, dtype=torch.int64, device=dev) + ecfg.base_seed
@@ -884,6 +909,7 @@ class Engine:
         self.m_graph_captures = 0
         self.m_graph_replays = 0
         self.m_graph_capture_s = 0.0
+        self._warm_prerun = False  # set by _warm_block around its block
         self.m_adapter_fetches = 0
         self.m_adapter_promotes = 0
         self.m_adapter_evictions = 0
@@ -1136,6 +1162,7 @@ class Engine:
             raise ValueError(
                 f"request needs up to {self._pages_worst(request)} KV pages, pool has "
                 f"{self.ecfg.kv_pages}: lower max_new_tokens or grow kv_pages")
+        self._check_multimodal(request)
         if request.adapter is not None:
             # Fail fast on tenant identity; the fetch / promote happens at
             # admission on the loop thread (and may still fail there, as an
@@ -1174,6 +1201,31 @@ class Engine:
         self._wake.set()
         self.start()
         return handle
+
+    def _check_multimodal(self, request: GenRequest) -> None:
+        """The JAX package's checks of an image span and m-rope streams (its
+        texts), and the speculative refusal: rounds on an m-rope model
+        rotate at row positions (draft steps and the verify chunk take no
+        rope delta), which is wrong for an image slot."""
+        if request.image_embeds is not None:
+            if self.draft_cfg is not None:
+                raise ValueError("multimodal requests are not supported with a draft model")
+            n = len(request.image_embeds)
+            if request.image_offset < 0 or request.image_offset + n > len(request.prompt_ids):
+                raise ValueError(
+                    f"image span [{request.image_offset}, {request.image_offset + n}) "
+                    f"outside the prompt ({len(request.prompt_ids)} tokens)")
+        if request.mrope_positions is not None:
+            if self.draft_cfg is not None:
+                raise ValueError("mrope requests are not supported with a draft model")
+            p3 = np.asarray(request.mrope_positions)
+            if p3.shape != (3, len(request.prompt_ids)):
+                raise ValueError(f"mrope_positions shape {p3.shape} != (3, prompt_len)")
+        if _multimodal(request) and self._mrope and self._spec_mode != "off":
+            raise ValueError(
+                f"multimodal requests are not supported with speculative decoding "
+                f"(spec_mode={self._spec_mode}) on an m-rope model: its rounds take no "
+                f"per-slot rope delta")
 
     def _new_handle(self, request: GenRequest) -> RequestHandle:
         """A request's handle: its journal id and (with a request_id or a
@@ -1752,9 +1804,9 @@ class Engine:
                             hit_item = (self._pending.popleft(), hit)
                         break
                     alone = (request.adapter is not None or request.grammar is not None
-                             or request.logprobs > 0)
+                             or request.logprobs > 0 or _multimodal(request))
                     if alone and group:
-                        break  # adapter, grammar and logprob requests admit alone
+                        break  # adapter, grammar, logprob and image requests admit alone
                     if self._paged:
                         need = self._pages_needed(request)
                         if pages_planned + need > len(self._free_pages):
@@ -1773,7 +1825,8 @@ class Engine:
                         # An adapter request alone, so a fetch / promote
                         # failure fails exactly one tenant's request; a
                         # grammar one, so its first token gets its mask; a
-                        # logprob one as the reference's variant split.
+                        # logprob one as the reference's variant split; an
+                        # image one, whose span and streams are its own.
                         break
             for req in requeue_forks:
                 self._fork_group_requeue(req)
@@ -1876,7 +1929,7 @@ class Engine:
         return samp, bias_rows, seeds
 
     def _install_first(self, logits, prompt, lens, samp, bias_rows, seeds, slot_ids,
-                       route=None, with_lp=False):
+                       route=None, with_lp=False, rope_delta=None):
         """Sample each admitted prompt's first token (its noise keyed by the
         token's position, lens) and install the slots' device state:
         penalty counts (prompt + first token), bias row, the token, its
@@ -1888,8 +1941,9 @@ class Engine:
         bias [m, K] for the host walk. `with_lp` also returns each first
         token's logprob [m], the top LOGPROB_TOPK ids [m, LK] and their
         logprobs of log_softmax(logits + bias) (unmasked by the grammar).
-        Returns (first tokens [m], those ids or None, the logprobs or
-        None), on the device."""
+        On an m-rope model it also sets each slot's rope delta (`rope_delta`
+        [m] host ints; 0 for every slot without it). Returns (first tokens
+        [m], those ids or None, the logprobs or None), on the device."""
         m, V = prompt.shape[0], self.cfg.vocab_size
         dev = self.device
         valid = (torch.arange(prompt.shape[1], device=dev)[None, :] < lens[:, None]).to(torch.int32)
@@ -1922,6 +1976,10 @@ class Engine:
         self.d_tokens[sl] = toks
         self.d_positions[sl] = lens
         self.d_seed[sl] = d_seeds
+        if self._mrope:
+            deltas = np.zeros((m,), np.int64) if rope_delta is None else np.asarray(rope_delta)
+            self.h_rope_delta[slot_ids] = deltas
+            self.d_rope_delta[sl] = torch.from_numpy(deltas).to(dev)
         if dfa:
             init = torch.full((m,), self._dfa["host"].init_state, dtype=torch.int32, device=dev)
             self.d_gstate[sl] = _gr.dfa_advance(dfa, self._dfa_table(dfa), self._g_cls, init,
@@ -2059,8 +2117,11 @@ class Engine:
         if self._lora_tree is not None:
             lora = (self._lora_tree,
                     torch.from_numpy(np.asarray(adapter_rows, np.int32)).to(dev))
+        # Image requests admit alone (_admit_pending).
+        inject, mrope, rope_delta = self._multimodal_args(group[0][0], bucket, m)
         try:
-            logits, ks, vs = llama.prefill(self.cfg, self.params, d_prompt, d_lens, lora=lora)
+            logits, ks, vs = llama.prefill(self.cfg, self.params, d_prompt, d_lens, lora=lora,
+                                           inject=inject, mrope=mrope)
             for j, s in enumerate(slot_ids):
                 if table_rows is not None:
                     llama.write_prefill_to_pool(self.cache, _pt.select_row(table_rows, j), ks,
@@ -2068,7 +2129,7 @@ class Engine:
                 else:
                     llama.write_prefill_to_cache(self.cache, ks[:, j:j + 1], vs[:, j:j + 1], s)
             toks, tk, lp = self._install_first(logits, d_prompt, d_lens, samp, bias_rows, seeds,
-                                               slot_ids, route, with_lp)
+                                               slot_ids, route, with_lp, rope_delta)
             toks_host, cands, lps = self._first_host(toks, tk, lp)
         except Exception:
             if self._paged:
@@ -2091,6 +2152,33 @@ class Engine:
         for j, s in enumerate(slot_ids):
             self._post_first(s, int(toks_host[j]), None if cands is None else cands[j],
                              None if lps is None else lps[j])
+
+    def _multimodal_args(self, request: GenRequest, bucket: int, m: int):
+        """An admission's `inject` ((embeds [1, N, D], offsets [1]) on the
+        device) and `mrope` ([1, 3, bucket]: the prompt's streams, the
+        padding continuing each one, which attention masks anyway), and the
+        slot's rope delta [1] (max(pos3) + 1 - the original prompt length:
+        a recompute resume re-prefills its generated tokens too, and its
+        streams continue over them as the padding does). (None, None, None)
+        for a group without them."""
+        if m != 1 or not _multimodal(request):
+            return None, None, None
+        dev = self.device
+        inject = mrope = rope_delta = None
+        if request.image_embeds is not None:
+            embeds = torch.as_tensor(request.image_embeds, device=dev)
+            inject = (embeds[None], torch.tensor([request.image_offset], device=dev))
+        if request.mrope_positions is not None:
+            p3 = np.asarray(request.mrope_positions, np.int64)
+            L3 = p3.shape[1]
+            full = np.zeros((1, 3, bucket), np.int64)
+            full[0, :, :L3] = p3
+            if bucket > L3:
+                last = p3[:, -1] if L3 else np.zeros((3,), np.int64)
+                full[0, :, L3:] = last[:, None] + 1 + np.arange(bucket - L3)[None, :]
+            mrope = torch.from_numpy(full).to(dev)
+            rope_delta = [int(p3.max()) + 1 - L3]
+        return inject, mrope, rope_delta
 
     # ------------------------------------------------------------------ #
     # Decode blocks
@@ -2316,34 +2404,41 @@ class Engine:
                 + ((("lp",),) if lp else ()))
 
     def _decode_block(self, n: int, variant: str, win: int, dfa=False, lp=False) -> None:
-        """Run the block body on the staged buffers (`_graph_run`)."""
+        """Run the block body on the staged buffers (`_graph_run`); under
+        _warm_block a capture's eager run is one step of it."""
+        prerun = ((lambda: self._block_body(1, variant, win, dfa, lp))
+                  if self._warm_prerun else None)
         self._graph_run(self._block_key(n, variant, win, dfa, lp),
-                        lambda: self._block_body(n, variant, win, dfa, lp))
+                        lambda: self._block_body(n, variant, win, dfa, lp), prerun)
 
-    def _graph_run(self, key: tuple, body) -> None:
+    def _graph_run(self, key: tuple, body, prerun=None) -> None:
         """Run a body of persistent buffers (a decode block, a speculative
         round): eagerly on the CPU; on the card as the CUDA graph of its
         key, captured at the key's first run and replayed from then on. A
-        failed capture or replay raises (the loop fails the requests)."""
+        failed capture or replay raises (the loop fails the requests).
+        `prerun` (warmup's) stands in for the body's eager run before a
+        capture."""
         if self.device.type != "cuda":
             body()
             return
         entry = self._graph_cache.get(key)
         if entry is None:
-            self._capture_block(key, body)
+            self._capture_block(key, body, prerun)
         else:
             kernels.replay_counted(entry[0], entry[1])
             self.m_graph_replays += 1
 
-    def _capture_block(self, key: tuple, body) -> None:
+    def _capture_block(self, key: tuple, body, prerun=None) -> None:
         """A key's first run on the card. The body runs eagerly on the
         capture stream first: that run is the real block, and it does what
         must not happen inside a capture (loading the kernel libraries,
         creating cuBLAS handles and the stream's workspace, setting kernel
-        attributes, growing the split workspaces to this shape). Then the
-        body is captured, which executes nothing. The graph keeps the
-        workspaces it captured alive, and the replays add the launches its
-        wrappers counted during the capture."""
+        attributes, growing the split workspaces to this shape). A
+        `prerun` runs in its place where the block's results are thrown
+        away (warmup: a one-step block of the same operations and shapes).
+        Then the body is captured, which executes nothing. The graph keeps
+        the workspaces it captured alive, and the replays add the launches
+        its wrappers counted during the capture."""
         t0 = time.monotonic()
         if self._graph_stream is None:
             self._graph_stream = _capture_stream(self.device)
@@ -2364,7 +2459,7 @@ class Engine:
 
         with _CAPTURE_LOCK, torch.cuda.stream(stream):
             stream.wait_stream(current)
-            body()
+            (prerun or body)()
             torch.cuda.synchronize(self.device)  # as torch.cuda.graph does before a capture
             deltas = kernels.captured_counts(capture)
         current.wait_stream(stream)
@@ -2414,7 +2509,7 @@ class Engine:
         for step in range(n):
             logits, local_k, local_v = llama.decode_step_windowed(
                 cfg, self.params, tokens, positions, read_cache, local_k, local_v, step,
-                ptable=ptable, kv_scale=self._kv_scales, lora=lora)
+                ptable=ptable, kv_scale=self._kv_scales, lora=lora, rope_delta=self.d_rope_delta)
             slogits = logits
             if dfa:
                 slogits = torch.where(_gr.dfa_allowed(self._g_mask, gs, V), logits, NEG_INF)
@@ -2560,9 +2655,17 @@ class Engine:
         toks.cpu()
 
     def _warm_block(self, n: int, variant: str, win: int, dfa=False, lp=False) -> None:
-        """One decode block of this shape with every slot idle."""
+        """One decode block of this shape with every slot idle. Its capture
+        on the card runs one step eagerly first, not n: every step runs the
+        same operations on the same weights, pool and slots (only the
+        block-local KV rows grow with n), and nothing reads a throwaway
+        block's results."""
         self._stage_block(np.zeros_like(self.h_active))
-        self._decode_block(n, variant, win, dfa, lp)
+        self._warm_prerun = True
+        try:
+            self._decode_block(n, variant, win, dfa, lp)
+        finally:
+            self._warm_prerun = False
         self._b_out.cpu()
 
     # ------------------------------------------------------------------ #
@@ -3316,8 +3419,8 @@ class Engine:
         chunks' masked prefix walk; shorter misses stay single-shot, exact
         there because each query's window covers the whole prompt (chunk <=
         window)."""
-        if request.adapter is not None:
-            return False
+        if request.adapter is not None or _multimodal(request):
+            return False  # image prompts too: their span and streams cover the whole prompt
         C = self.ecfg.prefill_chunk
         if self._paged:
             return bool(match_len) or (bool(C) and len(request.prompt_ids) > C)
@@ -3535,7 +3638,7 @@ class Engine:
         b0 = r0.logit_bias or {}
         g0 = r0.grammar is not None
         for r in requests:
-            if r.resume is not None or r.adapter != r0.adapter:
+            if r.resume is not None or r.adapter != r0.adapter or _multimodal(r):
                 return False
             if (r.logit_bias or {}) != b0 or (r.grammar is not None) != g0:
                 return False
@@ -3961,8 +4064,11 @@ class Engine:
                 sp, dp = src_pages[nfull], self._slot_pages[dst][nfull]
                 for pool in (self.cache.k, self.cache.v):
                     pool[:, dp] = pool[:, sp]
-            for t in (self.counts, self.bias, self.d_tokens, self.d_positions, self.d_gstate):
-                t[dst] = t[src]
+            for t in (self.counts, self.bias, self.d_tokens, self.d_positions, self.d_gstate,
+                      self.d_rope_delta):
+                if t is not None:
+                    t[dst] = t[src]
+            self.h_rope_delta[dst] = self.h_rope_delta[src]
             new_seed = (int(self.h_seed[src]) * 1000003 + salt) & 0x7FFFFFFF
             self.d_seed[dst] = new_seed
             self.h_seed[dst] = new_seed
@@ -3999,8 +4105,12 @@ class Engine:
     @staticmethod
     def _cached_admit_ok(request: GenRequest) -> bool:
         """Adapter requests never use the prefix cache, in either
-        direction: their wk / wv deltas make the K/V rows the tenant's."""
-        return request.adapter is None
+        direction: their wk / wv deltas make the K/V rows the tenant's.
+        Nor do image requests: their placeholder ids are zeros, so a span
+        keyed by them would hand one image's rows to a request with the
+        same text and another image (and m-rope rows are rotated by their
+        streams, not by their row positions)."""
+        return request.adapter is None and not _multimodal(request)
 
     def _prefix_span_bytes(self, rows: int) -> int:
         """Device bytes of `rows` K and V rows over every layer, in the
@@ -4375,6 +4485,9 @@ class Engine:
             self.d_tokens[slot_idx] = rec["d_tok"]
             self.d_positions[slot_idx] = rec["d_pos"]
             self.d_seed[slot_idx] = rec["seed"]
+            if self._mrope:
+                self.h_rope_delta[slot_idx] = rec["rope_delta"]
+                self.d_rope_delta[slot_idx] = rec["rope_delta"]
         except Exception:
             self._pages_free(slot_idx)
             self._adapter_unpin(row_a)
@@ -4446,6 +4559,7 @@ class Engine:
                 self._grammar_advance(r.grammar, int(tok))
         rec = {
             "mode": policy,
+            "rope_delta": int(self.h_rope_delta[victim]),
             "orig_prompt_len": slot.prompt_len,
             "generated": list(slot.generated),
             "emitted_len": slot.emitted_len,

@@ -188,6 +188,21 @@ class _ShardReader:
     def __init__(self, ckpt_dir: str):
         self.dir = ckpt_dir
         self.weight_map = _index(ckpt_dir)
+        # Multimodal wrappers (Qwen2-VL): transformers 4.57 nests the decoder
+        # under model.language_model.* and the tower under model.visual.*,
+        # where published checkpoints use model.* / visual.*. Both
+        # spellings address either layout; real names win on collision.
+        self._alias: dict[str, str] = {}
+        for name in list(self.weight_map):
+            if name.startswith("model.language_model."):
+                short = "model." + name[len("model.language_model."):]
+            elif name.startswith("model.visual."):
+                short = name[len("model."):]
+            else:
+                continue
+            if short not in self.weight_map:
+                self._alias[short] = name
+                self.weight_map[short] = self.weight_map[name]
         self._open: dict[str, SafetensorsFile] = {}
 
     def __contains__(self, name: str) -> bool:
@@ -197,7 +212,7 @@ class _ShardReader:
         fname = self.weight_map[name]
         if fname not in self._open:
             self._open[fname] = SafetensorsFile(os.path.join(self.dir, fname))
-        return self._open[fname].get(name)
+        return self._open[fname].get(self._alias.get(name, name))
 
 
 def _fused_parts(cfg: ArchConfig) -> dict[str, tuple[str, list[int], int]]:
@@ -920,19 +935,29 @@ _PEFT_MODULE = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj", "wv": "self_
 
 
 def write_safetensors_f32(path: str, tensors: dict[str, np.ndarray]) -> None:
-    """Write `tensors` as F32 into one safetensors file (8-byte header
-    length, JSON header, raw little-endian bytes), one tensor at a time."""
+    """Write `tensors` as F32 into one safetensors file."""
+    write_safetensors(path, {k: tuple(v.shape) for k, v in tensors.items()}, torch.float32,
+                      lambda k: torch.from_numpy(np.asarray(tensors[k], np.float32)))
+
+
+def write_safetensors(path: str, shapes: dict[str, tuple], dtype: torch.dtype,
+                      make) -> None:
+    """Write one safetensors file of `shapes` (name → shape), all in `dtype`
+    (F32 or BF16), each tensor made by make(name) when its turn comes, so
+    only one is held at a time."""
+    st, size = {torch.float32: ("F32", 4), torch.bfloat16: ("BF16", 2)}[dtype]
     header, off = {}, 0
-    for name, arr in tensors.items():
-        n = int(np.prod(arr.shape)) * 4
-        header[name] = {"dtype": "F32", "shape": list(arr.shape), "data_offsets": [off, off + n]}
+    for name, shape in shapes.items():
+        n = math.prod(shape) * size
+        header[name] = {"dtype": st, "shape": list(shape), "data_offsets": [off, off + n]}
         off += n
     head = json.dumps(header).encode()
     head += b" " * (-len(head) % 8)
     with open(path, "wb") as f:
         f.write(len(head).to_bytes(8, "little") + head)
-        for arr in tensors.values():
-            f.write(np.ascontiguousarray(arr, dtype="<f4").tobytes())
+        for name in shapes:
+            t = make(name).detach().to(dtype).contiguous().cpu()
+            f.write((t.view(torch.int16) if dtype == torch.bfloat16 else t).numpy().tobytes())
 
 
 def save_lora_adapter(adapter_dir: str, tensors: dict[str, np.ndarray], r: int,

@@ -103,9 +103,11 @@ from localai_tpu_torch.ops.quant_matmul import (
 )
 from localai_tpu_torch.ops.rope import (
     apply_rope,
+    mrope_angles,
     rope_frequencies,
     rope_frequencies_local,
     rope_query_amp,
+    rope_rotate,
 )
 
 Params = dict[str, Any]
@@ -115,10 +117,6 @@ def check_supported(cfg: ArchConfig) -> None:
     """Raise for the architecture features this port does not serve yet."""
     if cfg.is_moe and cfg.moe_family not in ("mixtral", "deepseek"):
         raise ValueError(f"unknown mixture-of-experts family {cfg.moe_family!r}")
-    if cfg.mrope_section:
-        raise NotImplementedError(
-            "m-rope (Qwen2-VL) is not ported yet (ROADMAP Queue A item 13, satellite "
-            "engines and models)")
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -725,13 +723,20 @@ def _forward_hidden(
     lengths: torch.Tensor,  # [B] int valid lengths
     collect_kv: bool,
     lora=None,  # (stacked adapter factors, ids [B]): per-row runtime LoRA
+    inject=None,  # (embeds [B, N, D], offsets [B]): VLM image features
+    mrope=None,  # [B, 3, S] (t, h, w) position streams: Qwen2-VL m-rope
 ):
     """Shared full-sequence forward. Returns (h [B,S,D] after the final
     norm, length_mask [B,S], (ks, vs) [L,B,S,K,Hd] or None). Under MLA the
     attention is full-rank MHA on the dense path (no `lengths`, so no flash
     kernel: B1 takes head widths 64 / 128 and MLA's qk width is 192, as
     the JAX package's Pallas kernel tiles 128 lanes), and the K/V rows are
-    the latents (rows, rows[..., :0])."""
+    the latents (rows, rows[..., :0]). `inject` overwrites each row's
+    placeholder span [offset, offset + N) of the embeddings with projected
+    image features (the start clamped so the span fits, as XLA's
+    dynamic_update_slice); `mrope` rotates q and k of every layer by the
+    section-selected stream angles (ops/rope.mrope_angles) in place of the
+    row positions."""
     check_supported(cfg)
     _check_params(cfg, params)
     B, S = tokens.shape
@@ -741,8 +746,21 @@ def _forward_hidden(
     pos = torch.arange(S, device=dev)
     positions = pos[None, :].expand(B, S)
     length_mask = pos[None, :] < lengths[:, None]
+    mrope_ang = None
+    if mrope is not None:
+        if not cfg.mrope_section:
+            raise ValueError("mrope positions passed but cfg.mrope_section empty")
+        if inv_local is not None:
+            raise ValueError("mrope + per-layer local rope is unsupported")
+        mrope_ang = mrope_angles(mrope, inv_freq, tuple(cfg.mrope_section))
 
     h = _embed(cfg, params, tokens)  # [B, S, D]
+    if inject is not None:
+        embeds, offsets = inject
+        N = embeds.shape[1]
+        start = torch.clamp(offsets.to(torch.int64), 0, S - N)
+        idx = (start[:, None] + torch.arange(N, device=dev))[..., None].expand(B, N, h.shape[-1])
+        h = h.scatter(1, idx, embeds.to(h.dtype))
     ks, vs = [], []
     for li in range(cfg.num_layers):
         lp = _layer(params, li)
@@ -755,8 +773,12 @@ def _forward_hidden(
             k, v = rows, rows[..., :0]
         else:
             q, k, v = _attn_proj_qkv(cfg, lp, x, llora)
-            q = apply_rope(q, positions, inv)
-            k = apply_rope(k, positions, inv)
+            if mrope_ang is not None:
+                q = rope_rotate(q, mrope_ang)
+                k = rope_rotate(k, mrope_ang)
+            else:
+                q = apply_rope(q, positions, inv)
+                k = apply_rope(k, positions, inv)
             attn = prefill_attention(
                 q, k, v, length_mask, lengths,
                 softcap=cfg.attn_softcap, window=cfg.sliding_window,
@@ -779,11 +801,15 @@ def prefill(
     tokens: torch.Tensor,  # [B, S] int, right-padded
     lengths: torch.Tensor,  # [B] int valid lengths
     lora=None,  # (stacked adapter factors, ids [B]): per-row runtime LoRA
+    inject=None,  # (embeds [B, N, D], offsets [B]): VLM image features
+    mrope=None,  # [B, 3, S] m-rope position streams (Qwen2-VL)
 ):
     """Prompt processing. Returns (last_logits [B, V] f32, k [L,B,S,K,Hd], v).
     With `lora` each row adds its adapter's delta; x is 3-D here, so every
-    delta takes the gather form (ops/lora_matmul.lora_deltas)."""
-    h, _, (ks, vs) = _forward_hidden(cfg, params, tokens, lengths, collect_kv=True, lora=lora)
+    delta takes the gather form (ops/lora_matmul.lora_deltas). `inject` and
+    `mrope` as _forward_hidden."""
+    h, _, (ks, vs) = _forward_hidden(cfg, params, tokens, lengths, collect_kv=True, lora=lora,
+                                     inject=inject, mrope=mrope)
     last_idx = torch.clamp(lengths.to(torch.int64) - 1, min=0)  # empty prompt reads 0
     last = h[torch.arange(h.shape[0], device=h.device), last_idx]  # [B, D]
     return _unembed(cfg, params, last), ks, vs
@@ -945,6 +971,7 @@ def decode_step_windowed(
     ptable=None,  # [B, MP] int32 or the (l1, l0) pair: `cache` is a page pool
     kv_scale: torch.Tensor | None = None,  # [2, K] f32 per-head (k, v) pool scales
     lora=None,  # (stacked adapter factors, ids [B] int32): per-slot runtime LoRA
+    rope_delta: torch.Tensor | None = None,  # [B] int: m-rope's per-slot offset
 ):
     """One step of a decode block with a block-local KV window.
 
@@ -956,7 +983,10 @@ def decode_step_windowed(
     masked by the sink + window of `cfg` (none when its window is 0). With
     `lora` each
     slot adds its adapter's delta (the ragged kernel on the card; id 0 for
-    adapter-less slots).
+    adapter-less slots). With `rope_delta` q and k rotate at positions +
+    rope_delta while the rows stay at positions: after a Qwen2-VL image
+    prefill the three m-rope streams are equal and offset from the row
+    index by a per-request constant, so plain rope there is exact.
     Returns (logits [B, V] f32, local_k, local_v)."""
     check_supported(cfg)
     _check_params(cfg, params)
@@ -964,6 +994,7 @@ def decode_step_windowed(
     dev = tokens.device
     inv_freq = rope_frequencies(cfg, dev)
     inv_local = rope_frequencies_local(cfg, dev)
+    rope_pos = positions if rope_delta is None else positions + rope_delta
     h = _embed(cfg, params, tokens)  # [B, D]
     for li in range(cfg.num_layers):
         lp = _layer(params, li)
@@ -988,8 +1019,8 @@ def decode_step_windowed(
             local_k[li, :, step] = kv_cast(rows, local_k.dtype)
             continue
         q, k, v = _attn_proj_qkv(cfg, lp, x, llora)  # q [B,H,Hd], k/v [B,K,Hd]
-        q = apply_rope(q[:, None], positions[:, None], inv)[:, 0]
-        k = apply_rope(k[:, None], positions[:, None], inv)[:, 0]
+        q = apply_rope(q[:, None], rope_pos[:, None], inv)[:, 0]
+        k = apply_rope(k[:, None], rope_pos[:, None], inv)[:, 0]
         if ptable is not None:
             attn = decode_attention_windowed_paged(
                 q, cache.k[li], cache.v[li], ptable, local_k[li], local_v[li], k, v,

@@ -136,3 +136,22 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, inv_freq: torch.Tensor)
     """Rotate half-pairs. x: [..., seq, heads, head_dim], positions: [..., seq]."""
     angles = positions[..., :, None].float() * inv_freq  # [..., seq, hd/2]
     return rope_rotate(x, angles)
+
+
+def mrope_angles(pos3: torch.Tensor, inv_freq: torch.Tensor, sections: tuple) -> torch.Tensor:
+    """Qwen2-VL multimodal rope angles [B, S, head_dim/2] for rope_rotate.
+
+    pos3 [B, 3, S] carries the (temporal, height, width) position streams of
+    each token; `sections` (e.g. (16, 24, 24), summing to head_dim/2) gives
+    each frequency index to one stream, as HF Qwen2VLAttention's split of
+    its duplicated cos / sin tables reduces to. Text-only prompts (all three
+    streams equal) reduce exactly to apply_rope, which is what makes plain
+    rope at a per-slot position delta exact in decode after an image
+    prefill."""
+    if sum(sections) != inv_freq.shape[0]:
+        raise ValueError(f"mrope sections {tuple(sections)} do not sum to "
+                         f"head_dim/2 = {inv_freq.shape[0]}")
+    axis_of = torch.repeat_interleave(torch.arange(3, device=pos3.device),
+                                      torch.as_tensor(sections, device=pos3.device))
+    pos_sel = pos3.index_select(1, axis_of)  # [B, hd/2, S]
+    return pos_sel.transpose(1, 2).float() * inv_freq

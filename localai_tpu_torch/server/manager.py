@@ -21,8 +21,10 @@ construction. The journal, fence and postmortem settings reach every
 engine (LOCALAI_TRACE_JOURNAL over the YAML's trace_journal_events).
 
 Backends served: `llama` (and `rerank`, the reference's name for a llama
-model that serves rerank) and `bert` (embedders and cross-encoders,
-engine/bert_engine.py). Not ported yet: every other backend (ROADMAP
+model that serves rerank), `vlm` / `llava` / `multimodal` (a llama engine
+with a vision tower: a Qwen2-VL checkpoint's own, or a llava tower from
+`options.vision` or the checkpoint) and `bert` (embedders and
+cross-encoders, engine/bert_engine.py). Not ported yet: every other backend (ROADMAP
 Queue A item 13, satellite engines and models). No YAML or server knob
 is dropped in silence: the bounded-admission, fork, speculative-decoding
 and observability knobs reach the engine (a `draft_model` loads from a
@@ -61,8 +63,9 @@ _ROUTE_SWITCHES = ("paged_kernel", "quant_kernel", "lora_kernel")
 
 # Backends served by the llama engine: `rerank` is the reference's name for
 # a llama model whose config serves rerank (its loader falls through to
-# the llama path).
-_LLAMA_BACKENDS = ("llama", "rerank")
+# the llama path); `llava` / `vlm` / `multimodal` attach a vision tower.
+_VLM_BACKENDS = ("llava", "vlm", "multimodal")
+_LLAMA_BACKENDS = ("llama", "rerank", *_VLM_BACKENDS)
 
 # Server knobs of ROADMAP Queue A items not ported yet: set, one fails the
 # server's startup naming its item.
@@ -119,6 +122,9 @@ class LoadedModel:
         self.cfg = cfg
         self.engine = engine
         self.evaluator = evaluator
+        # The vision tower of a vlm backend (models/vision.VisionEncoder or
+        # models/qwen2_vl.Qwen2VLVisionEncoder), else None.
+        self.vision = None
         self.loaded_at = time.monotonic()
         self.last_used = time.monotonic()
         self.busy_since: Optional[float] = None
@@ -242,24 +248,29 @@ class ModelManager:
             log.error("model %s: %d engine deaths within %.0fs (budget %d) — quarantined "
                       "for %.0fs", name, len(times), window, budget, self.app_cfg.quarantine_s)
 
-    def _reap_dead(self, name: str) -> bool:
+    def _reap_dead(self, name: str, teardown: bool = True) -> Optional[LoadedModel]:
         """Evict a loaded model whose engine loop died (the in-process
         analogue of a crashed backend process): the next get() loads a
         fresh engine — a transparent restart — unless the restart budget
-        is exhausted, in which case the model sits in quarantine. The dead
-        engine is torn down on a thread. Returns True if one was reaped."""
+        is exhausted, in which case the model sits in quarantine. Returns
+        the reaped model (None if there was none), which is torn down on a
+        thread here, or by the caller with `teardown=False`."""
         with self._lock:
             lm = self._loaded.get(name)
             if lm is None or not self._engine_dead(lm):
-                return False
+                return None
             self._loaded.pop(name)
             self._note_death_locked(name, time.monotonic())
         pm = lm.engine.postmortem_path
         log.warning("model %s: engine loop died (%s) — evicted for crash-only restart%s",
                     name, lm.engine._loop_dead, f" — postmortem: {pm}" if pm else "")
+        if teardown:
+            self._start_teardown(lm)
+        return lm
+
+    def _start_teardown(self, lm: LoadedModel) -> None:
         threading.Thread(target=self._teardown, args=(lm,), daemon=True,
                          name="model-teardown").start()
-        return True
 
     def _check_quarantine(self, name: str) -> None:
         with self._lock:
@@ -309,8 +320,16 @@ class ModelManager:
         if vcfg is not None and (vcfg.base_model or vcfg.adapter):
             return self._get_virtual(name, vcfg)
         while True:
-            self._reap_dead(name)
-            self._check_quarantine(name)
+            # The quarantine a reap trips is checked before the dead engine's
+            # teardown starts: Thread.start() waits for the new thread, whose
+            # gc.collect() holds the GIL for as long as the heap takes, and
+            # a check after it could find a short quarantine already over.
+            reaped = self._reap_dead(name, teardown=False)
+            try:
+                self._check_quarantine(name)
+            finally:
+                if reaped is not None:
+                    self._start_teardown(reaped)
             with self._lock:
                 lm = self._loaded.get(name)
                 if lm is not None and not self._engine_dead(lm):
@@ -511,6 +530,7 @@ class ModelManager:
         log.info("evicting model %s", lm.cfg.name)
         lm.engine.stop()
         lm.engine.drop_device_state()
+        lm.vision = None  # the tower's weights go with the engine's
         gc.collect()
         if self.device.type == "cuda":
             import torch
@@ -576,7 +596,7 @@ class ModelManager:
             raise UnsupportedBackendError(
                 f"model {cfg.name!r}: backend {cfg.backend!r} is not ported yet "
                 "(ROADMAP Queue A item 13, satellite engines and models); the port "
-                "serves the llama and bert backends")
+                "serves the llama, vlm (llava / multimodal) and bert backends")
         switched = [f"{k}={getattr(cfg, k)!r}" for k in _ROUTE_SWITCHES
                     if getattr(cfg, k) != "auto"]
         if switched:
@@ -679,10 +699,49 @@ class ModelManager:
             ),
             draft_cfg=draft_arch, draft_params=draft_params, n_draft=cfg.n_draft,
         )
+        lm = LoadedModel(cfg, engine, Evaluator(cfg, tokenizer))
+        vlm = cfg.backend in _VLM_BACKENDS
+        if vlm:
+            try:
+                lm.vision = self._load_vision(cfg, arch, ckpt_dir)
+            except BaseException:
+                engine.stop()
+                raise
         engine.start()
-        log.info("loaded model %s (arch=%s, %s) in %.1fs", cfg.name, arch.name, self.device,
-                 time.monotonic() - t0)
-        return LoadedModel(cfg, engine, Evaluator(cfg, tokenizer))
+        log.info("loaded model %s (arch=%s, %s%s) in %.1fs", cfg.name, arch.name, self.device,
+                 " +vision" if vlm else "", time.monotonic() - t0)
+        return lm
+
+    def _load_vision(self, cfg: ModelConfig, arch, ckpt_dir: Optional[str]):
+        """The tower of a vlm backend, as the JAX manager attaches it: a
+        Qwen2-VL checkpoint's own (native resolution + m-rope), else the
+        `options.vision` preset (random weights from a torch generator,
+        seed 2: not the JAX package's draw) or the checkpoint's llava
+        tower. The projector must land in the decoder's width."""
+        from localai_tpu_torch.models import qwen2_vl as QV
+        from localai_tpu_torch.models import vision as V
+
+        varch = cfg.options.get("vision", "")
+        if ckpt_dir is not None and QV.is_qwen2_vl_dir(ckpt_dir):
+            qcfg = QV.vision_config_from_hf(ckpt_dir)
+            if qcfg.hidden_size != arch.hidden_size:
+                raise ValueError(f"qwen2-vl merger dim {qcfg.hidden_size} != LLM "
+                                 f"hidden {arch.hidden_size}")
+            return QV.Qwen2VLVisionEncoder(
+                qcfg, QV.load_hf_qwen2_vl_vision(qcfg, ckpt_dir, device=self.device))
+        if varch in V.VISION_PRESETS:
+            vcfg = V.VISION_PRESETS[varch]
+            vparams = V.init_params(vcfg, seed=2, device=self.device)
+        elif ckpt_dir is not None:
+            vcfg = V.vision_config_from_hf(ckpt_dir)
+            vparams = V.load_hf_vision(vcfg, ckpt_dir, device=self.device)
+        else:
+            raise ValueError(f"model {cfg.name!r}: vlm backend needs options.vision "
+                             f"(preset) or a checkpoint with a vision tower")
+        if vcfg.llm_dim != arch.hidden_size:
+            raise ValueError(f"vision projector dim {vcfg.llm_dim} != LLM hidden "
+                             f"{arch.hidden_size}")
+        return V.VisionEncoder(vcfg, vparams)
 
     def _load_bert(self, cfg: ModelConfig) -> LoadedModel:
         """A bert embedder or cross-encoder: a preset draws random f32

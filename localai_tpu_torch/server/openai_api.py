@@ -33,9 +33,12 @@ constrains the reply to a call's schema, "none" drops the tools;
 `grammar` (chat and completions) takes precedence over both. The engine
 runs the constraint on the device DFA or the host candidate walk.
 
-A request field the port cannot honour yet gets HTTP 400 naming it, never
-silent neglect: image content (ROADMAP Queue A item 13, satellite engines
-and models).
+Vision chat, as the JAX server serves it: the first `image_url` data URI
+of a chat (server/images.py) goes through the model's tower (a `vlm`,
+`llava` or `multimodal` backend), and its features fill a span of
+placeholder ids right after BOS; a Qwen2-VL tower also yields the grid the
+m-rope streams come from. A model without a tower ignores the image. An
+image format this server has no decoder for is a 400 naming it.
 """
 
 from __future__ import annotations
@@ -52,11 +55,13 @@ from localai_tpu_torch.engine.engine import AdapterError, GenRequest, QueueFullE
 from localai_tpu_torch.functions import parse_function_calls, tools_prompt_for
 from localai_tpu_torch.functions.gbnf import CompiledGrammar, GbnfConstraint, GbnfParseError
 from localai_tpu_torch.functions.jsonschema import GrammarConstraint, tool_call_schema
+from localai_tpu_torch.models.qwen2_vl import mrope_positions_for_span
 from localai_tpu_torch.observe import profile as oprofile
 from localai_tpu_torch.observe.timeline import chrome_trace
 from localai_tpu_torch.observe.trace import STORE, new_traceparent, parse_traceparent
 from localai_tpu_torch.server.app import ApiError, Request, Response, Router, SSEStream
 from localai_tpu_torch.server.finetune import finetune, needs_finetune
+from localai_tpu_torch.server.images import ImageDecodeError, extract_images
 from localai_tpu_torch.server.manager import (
     LoadedModel,
     ModelManager,
@@ -72,18 +77,6 @@ def _now() -> int:
 
 def _fingerprint() -> str:
     return f"localai-tpu-torch-{__version__}"
-
-
-def _reject_unported(body: dict[str, Any]) -> None:
-    """400 for every request field the port cannot honour yet: image
-    content of a chat message."""
-    for m in body.get("messages") or []:
-        content = m.get("content") if isinstance(m, dict) else None
-        if isinstance(content, list) and any(
-                isinstance(p, dict) and p.get("type") in ("image_url", "input_image")
-                for p in content):
-            raise ApiError(400, "'image content' is not supported by this server yet "
-                                "(ROADMAP Queue A item 13, satellite engines and models)")
 
 
 def _gbnf_factory(body: dict[str, Any]) -> Optional[Callable[[], Any]]:
@@ -566,7 +559,6 @@ class OpenAIApi:
         messages = body.get("messages")
         if not messages or not isinstance(messages, list):
             raise ApiError(400, "messages is required and must be a non-empty array")
-        _reject_unported(body)
         lm, lease = self._resolve(req, Usecase.CHAT)
         try:
             return self._chat_inner(req, lm, lease, body)
@@ -589,6 +581,31 @@ class OpenAIApi:
             return g
         return self._clones(one, bo)
 
+    @staticmethod
+    def _image_span(lm: LoadedModel, body: dict[str, Any], ids: list[int], add_bos: bool):
+        """The chat's first image through the model's tower: (ids with a
+        placeholder span of zeros right after BOS, (features, offset, m-rope
+        streams or None)). Without an image or a tower: (ids, (None, 0,
+        None))."""
+        try:
+            images = extract_images(body["messages"])
+        except ImageDecodeError as e:
+            raise ApiError(400, str(e)) from None
+        vision = lm.vision
+        if not images or vision is None:
+            return ids, (None, 0, None)
+        offset = 1 if (add_bos and ids) else 0
+        grid = None
+        if vision.kind == "qwen2_vl":
+            embeds, grid = vision.encode_with_grid(images[0])
+        else:
+            embeds = vision.encode(images[0])
+        ids = ids[:offset] + [0] * embeds.shape[0] + ids[offset:]
+        mrope = None
+        if grid is not None:
+            mrope, _delta = mrope_positions_for_span(len(ids), offset, grid, merge=vision.merge)
+        return ids, (embeds, offset, mrope)
+
     def _chat_inner(self, req: Request, lm: LoadedModel, lease, body: dict[str, Any]):
         tools, make_grammar = _chat_tools(body)
         prompt = lm.evaluator.template_messages(
@@ -597,8 +614,11 @@ class OpenAIApi:
         ids = lm.engine.tokenizer.encode(prompt, add_bos=add_bos)
         n = self._n_choices(body)
         lp_n = self._chat_logprobs(body)
+        ids, image = self._image_span(lm, body, ids, add_bos)
         gens = self._gens(lm, body, ids, n, make_grammar, lp_n,
                           extra_stop=lm.evaluator.stop_sequences())
+        for g in gens:
+            g.image_embeds, g.image_offset, g.mrope_positions = image
         rid = f"chatcmpl-{uuid.uuid4().hex[:28]}"
         self._tag_requests(gens, rid, req.headers.get("traceparent", ""))
         created = _now()

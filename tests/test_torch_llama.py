@@ -141,14 +141,10 @@ def test_write_block_to_cache_clamps_overshoot():
 @pytest.mark.parametrize("kw", [{"num_experts": 4, "moe_family": "deepseek"},
                                 {"kv_lora_rank": 32}, {"mrope_section": (2, 3, 3)}])
 def test_unported_features_raise(kw):
-    """m-rope still raises, naming its ROADMAP item. The deepseek MoE family
-    and MLA, ported since, build the JAX package's tree: the same keys,
+    """The deepseek MoE family, MLA and m-rope, each refused by an earlier
+    slice and ported since, build the JAX package's tree: the same keys,
     shapes and dtypes, leaf for leaf."""
     cfg = _cfg(**kw)
-    if cfg.mrope_section:
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 13"):
-            tl.init_params(cfg, device="cpu")
-        return
     want = jax.tree_util.tree_flatten_with_path(jl.init_params(cfg, jax.random.key(0)))[0]
     got = jax.tree_util.tree_flatten_with_path(tl.init_params(cfg, device="cpu"))[0]
     assert [jax.tree_util.keystr(p) for p, _ in got] == [jax.tree_util.keystr(p) for p, _ in want]

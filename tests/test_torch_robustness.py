@@ -276,7 +276,7 @@ def _serves(lm):
 
 
 def test_manager_restarts_then_quarantines(tmp_path):
-    mgr = _manager(tmp_path, restart_budget=1, restart_window_s=60.0, quarantine_s=1.0)
+    mgr = _manager(tmp_path, restart_budget=1, restart_window_s=60.0, quarantine_s=3.0)
     try:
         lm = mgr.get("m")
         assert _serves(lm)
@@ -293,7 +293,10 @@ def test_manager_restarts_then_quarantines(tmp_path):
             mgr.get("m")
         assert exc.value.retry_after_s >= 1 and exc.value.deaths == 2
         assert mgr.restart_stats("m")["quarantines_total"] == 1
-        time.sleep(1.1)
+        deadline = time.monotonic() + 30
+        while mgr.restart_stats("m")["quarantined_for_s"] > 0 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert mgr.restart_stats("m")["quarantined_for_s"] == 0
         assert _serves(mgr.get("m"))  # the quarantine expired
     finally:
         mgr.shutdown()
