@@ -69,7 +69,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    streamed, half greedy) to the tenants and the base, checked over HTTP
    (B5 launches = decode steps x layers x 4 groups);
    then the same 12 to a base with no tenants (the tenancy cost);
-11. lora 8b int8 — llama-3-8b int8 with 4 tenants and 4 adapter-less
+11. lora 8b int8 — llama-3-8b int8 (its first 16 of 32 layers) with 4 tenants and 4 adapter-less
    requests through Engine.submit (B1, B2, B3, B4 and B5 on one path);
    then the small f32 model's paged engine with three tenants and a null
    row on the card against the same engine on the CPU;
@@ -134,7 +134,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    restores the spilled pages, the entry pins table pages, the extension
    hits with a fresh engine's ids; (d) the small f32 model on the card: hit
    equals miss, swap equals unpressured. Then, right after phase 12's 8b
-   pair, prefix_swap_8b: llama-3-8b int4 on an fp8 pool with kv_scale 2,
+   pair, prefix_swap_8b: llama-3-8b int4 (its first 16 of 32 layers) on an fp8 pool with kv_scale 2,
    one 1024-token hit against a miss (B2's fp8 walk over the shared pages,
    B3, B4).
 19. grammar (run right after 18) — grammar-constrained decoding on
@@ -222,8 +222,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    or parting at a near tie); TTFT, tok/s, a step's device ms from a
    graph replay, B2's share, weight and latent bytes, peak memory, and
    the every-expert route's bytes a step beside the active experts'.
-   (c) deepseek_http: a YAML `model: deepseek-v2-lite` answers 4
-   concurrent chats, half streamed (200s, [DONE]). (d) deepseek_int4:
+   (c) deepseek_http: a YAML naming deepseek-v2-lite at 14 of its 27
+   layers answers 4 concurrent chats, half streamed (200s, [DONE]). (d) deepseek_int4:
    int4 at 8 of 27 layers through the paged engine (B3, its expert form
    at E = 64, B4, B2's latent form by their launch identities). (e)
    deepseek_small: tiny-mla f32, dense, paged and prompt_lookup engines,
@@ -312,7 +312,28 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    ids of an image and a text request exact).
    Generated ids are kept to printable ASCII (+100 on ids 32-126), so a
    reply's text is its ids under the byte tokenizer.
-In 5, 6, 8, 10, 11, 12, 14, 15, 17, 18, 19, 20, 21, 22, 23, 24 and 25 the kernel launch counters, zeroed just
+26. service (run after 25) — out-of-process backends and the service
+   surfaces through the CLI's app (every layer the port registers) on the
+   card: llama-3.2-1b (8 of 16 layers, bf16) written once to an HF
+   checkpoint, imported through /models/import-uri and served in this
+   process; a `subprocess` model whose child (`python -m
+   localai_tpu_torch run --device cuda`) serves the same checkpoint on the
+   card: spawn to ready, the first chat through the parent, warm chats and
+   streams through the relay against the same ones straight to the child
+   (the relay's cost in ms), greedy ids through the relay = straight from
+   the child = the in-process model's, a stream, /v1/embeddings and
+   /v1/tokenize relayed; SIGKILL of the child mid-stream: an error frame
+   ends that stream, the in-process model still answers, the next request
+   respawns the child (respawns 1) with the same ids, the card's free
+   memory (before the spawn, with the child up, after the kill) shows the
+   dead child's memory back, no kernel library rebuilt by the child; a
+   `remote` model on this server's own port (the in-process ids) and one
+   on a dead port (502, the server survives); a gallery install of a tiny
+   f32 checkpoint over local HTTP, served on the card; one
+   /mcp/v1/chat/completions against a stub MCP server on loopback through
+   the 1b engine.
+In 5, 6, 8, 10, 11, 12, 14, 15, 17, 18, 19, 20, 21, 22, 23, 24, 25 and 26 (the parent's
+engines; the child's launches are its own) the kernel launch counters, zeroed just
 before each run, show that the path went through the kernels; a graph
 replay counts the launches its capture recorded. Every decode block of
 those runs is a graph capture or replay (the eager runs of phases 12 and
@@ -328,11 +349,13 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import hashlib
 import importlib.util
 import json
 import os
 import re
 import shutil
+import socket
 import statistics
 import struct
 import subprocess
@@ -2402,10 +2425,10 @@ def phase_lora_8b(qmodel: dict, small, p_small, p_small_cpu) -> dict:
     from localai_tpu_torch.engine.tokenizer import ByteTokenizer
     from localai_tpu_torch.engine.weights import random_lora_adapter
 
-    cfg = qmodel["cfg"]
+    cfg, params = _first_layers(qmodel["cfg"], qmodel["int8"], QUANT_ENGINE_LAYERS)
     L = cfg.num_layers
     with tempfile.TemporaryDirectory() as root:
-        eng = Engine(cfg, qmodel["int8"], ByteTokenizer(cfg.vocab_size), device="cuda",
+        eng = Engine(cfg, params, ByteTokenizer(cfg.vocab_size), device="cuda",
                      engine_cfg=EngineConfig(**PAGED_ENGINE))
         for t in range(4):  # rank 16 on q / v / o / down: B5 at 14336 -> 4096
             eng.register_adapter(f"t{t}", random_lora_adapter(
@@ -2418,7 +2441,7 @@ def phase_lora_8b(qmodel: dict, small, p_small, p_small_cpu) -> dict:
         plens = [20, 300, 700, 1500, 20, 100, 700, 3000]
         out = _serve(eng, plens, adapters=["t0", "t1", "t2", "t3", None, None, None, None])
         del eng
-    log("[lora_8b llama-3-8b int8, 4 tenants] " + json.dumps(out))
+    log(f"[lora_8b llama-3-8b int8, {L} layers, 4 tenants] " + json.dumps(out))
     _check_quant_launches("lora_8b", L, out, chunks=(2, 2 + 6))
     _check_graphs("lora_8b", out)
     n = out["launches"]
@@ -2473,8 +2496,9 @@ SPEC_SELF_LAYERS = 2
 # the JAX bench's 8 of 32 are.
 SPEC_LAYERS = 8
 SPEC_N_DRAFT = 5
-# Phases 8 and 12 serve llama-3-8b's first 16 of its 32 layers (cut for the
-# run's time when phase 25 joined; phases 7, 11 and 18's 8b run all 32).
+# Phases 8, 11, 12 and prefix_swap_8b serve llama-3-8b's first 16 of its 32
+# layers (cut for the run's time: 8 and 12 when phase 25 joined, 11 and
+# prefix_swap_8b when phase 26 did; phase 7 runs all 32).
 QUANT_ENGINE_LAYERS = 16
 
 
@@ -3490,7 +3514,7 @@ def phase_prefix_8b(qmodel: dict) -> dict:
     from localai_tpu_torch.engine.engine import Engine, EngineConfig, GenRequest
     from localai_tpu_torch.engine.tokenizer import ByteTokenizer
 
-    cfg, params = qmodel["cfg"], qmodel["int4"]
+    cfg, params = _first_layers(qmodel["cfg"], qmodel["int4"], QUANT_ENGINE_LAYERS)
     L = cfg.num_layers
     gen = torch.Generator().manual_seed(17)
     base = torch.randint(0, 256, (1100,), generator=gen).tolist()
@@ -5137,6 +5161,7 @@ DEEPSEEK_INT4_LAYERS = 8  # of 27: the int4 run is cut for time
 # At 8 layers the dense engine's ids parted from the paged engine's beyond a
 # near tie on one sampled request (ROADMAP Queue C), so the cut stays at 14.
 DEEPSEEK_LAYERS = 14
+DEEPSEEK_PRESET = "deepseek-v2-lite-14l"  # deepseek_http's YAML names it
 DEEPSEEK_NEW = 32  # tokens a request of the bf16 runs (64 elsewhere): the run's time
 # The paged chunks' prefill logits (absorbed MLA through B2's latent form)
 # may sit at most this many times farther from the dense prefill's
@@ -5451,13 +5476,20 @@ def phase_deepseek_small() -> dict:
 
 
 def phase_deepseek_http() -> dict:
-    """The port's server with a YAML `model: deepseek-v2-lite` (27 layers,
-    bf16, seeded random weights, the paged pool): 4 concurrent chats of
-    100-400 characters, half streamed, each 16 tokens (short: the run's
-    time); every response 200, every stream ending in [DONE]."""
+    """The port's server with a YAML naming deepseek-v2-lite at
+    DEEPSEEK_LAYERS of its 27 layers (registered as the preset
+    DEEPSEEK_PRESET; 27 until phase 26 joined: the run's time; bf16, seeded
+    random weights, the paged pool): 4 concurrent chats of 100-400
+    characters, half streamed, each 16 tokens (short: the run's time); every
+    response 200, every stream ending in [DONE]."""
     import random
 
     import yaml
+
+    from localai_tpu_torch.models.config import PRESETS, get_arch
+
+    PRESETS.setdefault(DEEPSEEK_PRESET, dataclasses.replace(get_arch("deepseek-v2-lite"),
+                                                            num_layers=DEEPSEEK_LAYERS))
 
     rnd = random.Random(19)
     reqs = []
@@ -5469,7 +5501,7 @@ def phase_deepseek_http() -> dict:
                       "temperature": 0.0 if i < 2 else 0.8, "seed": 7 + i}))
     with tempfile.TemporaryDirectory() as root:
         with open(f"{root}/deepseek.yaml", "w") as f:
-            yaml.safe_dump({"name": "deepseek", "model": "deepseek-v2-lite",
+            yaml.safe_dump({"name": "deepseek", "model": DEEPSEEK_PRESET,
                             "context_size": 4096, "max_slots": 8, "kv_pages": 256,
                             "kv_page_size": 128, "prefill_chunk": 512, "max_tokens": 16,
                             "tokenizer": "synthetic-bytes"}, f)
@@ -5485,6 +5517,284 @@ def phase_deepseek_http() -> dict:
     out = dict(requests=len(reqs), statuses=[r["status"] for r in results], wall_s=wall,
                stream_ttft_ms=[t * 1e3 for t in ttfts])
     log(f"[deepseek_http] {json.dumps(out)}")
+    return out
+
+
+def _route_margins(cfg, lp, x) -> dict:
+    """The deepseek router's view of the last row of x: the selected
+    experts (ascending), and the margin between the k-th and (k+1)-th
+    selection scores (softmax, plus the bias where there is one)."""
+    from localai_tpu_torch.models import llama
+
+    row = x.reshape(-1, x.shape[-1])[-1:]
+    scores = torch.softmax(row.float() @ lp["router"].float(), dim=-1)[0]
+    if "router_bias" in lp:
+        scores = scores + lp["router_bias"].float()
+    k = cfg.num_experts_per_token
+    top = torch.sort(scores, descending=True, stable=True)
+    sel = sorted(int(i) for i in llama._top_idx(scores[None], k)[0])
+    return dict(sel=sel, margin=float(top.values[k - 1] - top.values[k]),
+                kth=float(top.values[k - 1]))
+
+
+def diagnose_deepseek_parting(layers: int = 8) -> dict:
+    """Why the dense and paged deepseek engines' ids part at `layers`
+    layers (ROADMAP Queue C). (1) phase deepseek's traffic through a paged
+    engine (graphs, after warmup) and a dense engine at `layers` layers,
+    each parting held by `_part_gap` as the phase holds it; (2) for each
+    parting request, the step that produced the parting token computed on
+    one row four ways: the dense engine's path (full-rank prefill of the
+    common ids but the last, then one absorbed decode step on the dense
+    cache), the paged engine's (512-token chunks into pages through B2's
+    latent form, then one paged decode step), a plain bf16 prefill of the
+    common ids, and the same prefill on f32 weights; per path the last
+    row's expert choice in every MoE layer with its k-th / (k+1)-th score
+    margin, and the logits' distance from the f32 witness; (3) the paged
+    step again, with the dense step's expert choice forced at the first
+    layer where the two choose apart: if that alone brings the logits to
+    the dense step's, the parting is a routing near tie."""
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig
+    from localai_tpu_torch.engine.tokenizer import ByteTokenizer
+    from localai_tpu_torch.models import get_arch, llama
+
+    cfg = dataclasses.replace(get_arch("deepseek-v2-lite"), num_layers=layers)
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    follow = _deepseek_follow()
+    prompts = _serve_prompts(PAGED_PROMPTS) + follow
+
+    eng = Engine(cfg, params, ByteTokenizer(cfg.vocab_size), device="cuda",
+                 engine_cfg=EngineConfig(**PAGED_ENGINE))
+    eng.warmup()
+    paged = _serve(eng, PAGED_PROMPTS, max_new=DEEPSEEK_NEW, keep_ids=True, stop=False)
+    paged_follow = _serve(eng, [], max_new=DEEPSEEK_NEW, keep_ids=True, prompts=follow)
+    del eng
+    eng = Engine(cfg, params, ByteTokenizer(cfg.vocab_size), device="cuda",
+                 engine_cfg=EngineConfig(max_slots=8, max_seq=4096, block_sizes=(16, 4, 1)))
+    dense = _serve(eng, PAGED_PROMPTS, max_new=DEEPSEEK_NEW, keep_ids=True, stop=False)
+    dense_follow = _serve(eng, [], max_new=DEEPSEEK_NEW, keep_ids=True, prompts=follow)
+    del eng
+    torch.cuda.empty_cache()
+    paged_ids = paged["ids"] + paged_follow["ids"]
+    dense_ids = dense["ids"] + dense_follow["ids"]
+
+    route = llama._deepseek_route
+    n_dense = cfg.first_k_dense
+
+    def recorded(step, force=None):
+        """step() with every MoE layer's route of the last row recorded;
+        `force` = (MoE layer, experts) replaces that layer's selection."""
+        recs = []
+
+        def rec(cfg_, lp, x):
+            recs.append(_route_margins(cfg_, lp, x))
+            w, sel = route(cfg_, lp, x)
+            if force is not None and len(recs) - 1 == force[0]:
+                scores = torch.softmax(x.float() @ lp["router"].float(), dim=-1)
+                sel = torch.tensor(force[1], device=sel.device).expand_as(sel).contiguous()
+                w = torch.gather(scores, -1, sel)
+                if cfg_.norm_topk_prob and sel.shape[-1] > 1:
+                    w = w / (w.sum(dim=-1, keepdim=True) + 1e-20)
+                else:
+                    w = w * cfg_.routed_scaling_factor
+            return w, sel
+
+        with swapped(llama, "_deepseek_route", rec):
+            out = step()
+        return out[0][0].float(), recs
+
+    p32 = {k: ({kk: vv.float() for kk, vv in v.items()} if isinstance(v, dict) else v.float())
+           for k, v in params.items()}
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    C, page = PAGED_ENGINE["prefill_chunk"], PAGED_ENGINE["kv_page_size"]
+    L = cfg.num_layers
+    parts = []
+    for i, (want, got) in enumerate(zip(dense_ids, paged_ids)):
+        if want == got:
+            continue
+        kw = (dict(temperature=0.8, top_p=0.9, seed=100 + i) if i % 2 == 1 and i < 10
+              else dict(temperature=0.0, seed=100 + i) if i < 10 else dict(seed=100))
+        gap = _part_gap(cfg, params, prompts[i], want, got, kw)
+        p = gap["position"]
+        seq = list(prompts[i]) + list(want[:p])  # the step's input: seq[-1] at len - 1
+        n = len(seq) - 1
+        toks = torch.tensor([seq], device="cuda")
+        tok, pos = toks[:, -1], torch.tensor([n], device="cuda")
+
+        def window():
+            return dict(local_k=torch.zeros((L, 1, 1, 1, cfg.cache_k_dim), dtype=torch.bfloat16,
+                                            device="cuda"),
+                        local_v=torch.zeros((L, 1, 1, 1, cfg.cache_v_dim), dtype=torch.bfloat16,
+                                            device="cuda"))
+
+        # The dense engine's path: full-rank prefill, then an absorbed step.
+        _lg, ks, vs = llama.prefill(cfg, params, toks[:, :n], torch.tensor([n], device="cuda"))
+        cache = llama.KVCache.zeros(cfg, 1, n + 16, device="cuda")
+        llama.write_prefill_to_cache(cache, ks, vs, 0)
+        del ks, vs
+        # The paged engine's path: chunks into pages (B2's latent form), then
+        # a paged step.
+        MP = -(-(n + 1) // page)
+        pool = llama.paged_cache_zeros(cfg, MP + 1, page, device="cuda")
+        table = torch.arange(MP, dtype=torch.int32, device="cuda")[None]
+        for off in range(0, n, C):
+            part = toks[:, off:min(off + C, n)]
+            chunk = torch.nn.functional.pad(part, (0, C - part.shape[1]))
+            _lg, pool = llama.prefill_chunk_paged(
+                cfg, params, chunk, torch.tensor([part.shape[1]], device="cuda"),
+                torch.tensor([off], device="cuda"), pool, table, with_logits=False)
+
+        def dense_step():
+            return llama.decode_step_windowed(cfg, params, tok, pos, cache, step=0, **window())
+
+        def paged_step():
+            return llama.decode_step_windowed(cfg, params, tok, pos, pool, step=0,
+                                              ptable=table, **window())
+
+        def plain(c, prm):
+            return lambda: llama.prefill(c, prm, toks, torch.tensor([n + 1], device="cuda"))
+
+        runs = {}
+        for name, fn in (("dense_step", dense_step), ("paged_step", paged_step),
+                         ("plain_bf16", plain(cfg, params)), ("plain_f32", plain(cfg32, p32))):
+            logits, recs = recorded(fn)
+            runs[name] = dict(logits=logits, routes=recs)
+        f32 = runs["plain_f32"]["logits"]
+        f32_routes = runs["plain_f32"]["routes"]
+        summary = {name: dict(max_abs_from_f32=float((r["logits"] - f32).abs().max()),
+                              choice=int(r["logits"].argmax()),
+                              moe_layers_choosing_as_f32=sum(
+                                  a["sel"] == b["sel"] for a, b in zip(r["routes"], f32_routes)))
+                   for name, r in runs.items()}
+        d_routes, p_routes = runs["dense_step"]["routes"], runs["paged_step"]["routes"]
+        flips = [dict(moe_layer=j, layer=j + n_dense, dense_sel=a["sel"], paged_sel=b["sel"],
+                      dense_margin=a["margin"], paged_margin=b["margin"], kth=a["kth"],
+                      f32_sel=f32_routes[j]["sel"], f32_margin=f32_routes[j]["margin"])
+                 for j, (a, b) in enumerate(zip(d_routes, p_routes)) if a["sel"] != b["sel"]]
+        forced = None
+        if flips:
+            j = flips[0]["moe_layer"]
+            lf, _r = recorded(paged_step, force=(j, flips[0]["dense_sel"]))
+            dl = runs["dense_step"]["logits"]
+            forced = dict(moe_layer=j, max_abs_from_dense_step=float((lf - dl).abs().max()),
+                          unforced_max_abs_from_dense_step=float(
+                              (runs["paged_step"]["logits"] - dl).abs().max()),
+                          choice=int(lf.argmax()))
+        del cache, pool
+        parts.append(dict(request=i, prompt_tokens=len(prompts[i]), part=gap,
+                          logit_scale_f32=float(f32.abs().max()), paths=summary, flips=flips,
+                          forced=forced,
+                          min_margin_dense=min(r["margin"] for r in d_routes),
+                          min_margin_paged=min(r["margin"] for r in p_routes)))
+        log(f"[deepseek parting {layers} layers, request {i}] {json.dumps(parts[-1])}")
+    out = dict(layers=layers, requests=len(paged_ids), parting=[p["request"] for p in parts],
+               parts=parts)
+    log(f"[deepseek parting {layers} layers] {json.dumps(out)}")
+    del params, p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def diagnose_deepseek_engine_step(layers: int = 8, request: int = 9) -> dict:
+    """The served step behind a parting (ROADMAP Queue C): phase deepseek's
+    traffic through the paged and the dense engine at `layers` layers, each
+    with its decode blocks run eagerly (the graph's body, whose ids the
+    phase holds equal to the graphs'), recording the logits row, token,
+    seed and sampling fields of `request`'s slot at its first decode step.
+    Each row is held against a plain prefill of the same ids on f32 weights,
+    and re-sampled with the request's seed and position: whether the
+    engine's pick follows from its own logits, how far those logits sit
+    from the witness, and where the sampler's candidate (top 64) and top-p
+    cuts fall for each path's logits, with both picks' ranks and noise."""
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig
+    from localai_tpu_torch.engine.tokenizer import ByteTokenizer
+    from localai_tpu_torch.models import get_arch, llama
+    from localai_tpu_torch.ops.sampling import SamplingParams, _filter_sorted, gumbel_noise, sample
+
+    cfg = dataclasses.replace(get_arch("deepseek-v2-lite"), num_layers=layers)
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    prompts = _serve_prompts(PAGED_PROMPTS)
+    n = len(prompts[request])
+    kw = (dict(temperature=0.8, top_p=0.9, seed=100 + request) if request % 2 == 1
+          else dict(temperature=0.0, seed=100 + request))
+    orig = llama.decode_step_windowed
+    runs = {}
+    for label, ecfg in (("paged", EngineConfig(**PAGED_ENGINE)),
+                        ("dense", EngineConfig(max_slots=8, max_seq=4096,
+                                               block_sizes=(16, 4, 1)))):
+        eng = Engine(cfg, params, ByteTokenizer(cfg.vocab_size), device="cuda", engine_cfg=ecfg)
+        seen = []
+
+        def rec(cfg_, params_, tokens, positions, *a, **k):
+            out = orig(cfg_, params_, tokens, positions, *a, **k)
+            hit = (positions == n).nonzero()
+            if hit.numel():
+                r = int(hit[0, 0])
+                seen.append(dict(row=r, logits=out[0][r].float().clone(), token=int(tokens[r]),
+                                 seed=int(eng.d_seed[r]),
+                                 fields=[float(v) for v in eng._b_pack[1:8, r]],
+                                 counts=int(eng.counts[r].sum()),
+                                 bias_nonzero=int((eng.bias[r] != 0).sum())))
+            return out
+
+        with swapped(eng, "_decode_block", eng._block_body), \
+                swapped(llama, "decode_step_windowed", rec):
+            eng.warmup()
+            out = _serve(eng, PAGED_PROMPTS, max_new=DEEPSEEK_NEW, keep_ids=True)
+        del eng
+        torch.cuda.empty_cache()
+        check(len(seen) == 1, f"{label}: {len(seen)} decode steps at position {n}")
+        runs[label] = dict(ids=out["ids"][request], **seen[0])
+    ids = runs["dense"]["ids"]
+    seq = prompts[request] + ids[:1]
+    toks = torch.tensor([seq], device="cuda")
+    lens = torch.tensor([len(seq)], device="cuda")
+    p32 = {k: ({kk: vv.float() for kk, vv in v.items()} if isinstance(v, dict) else v.float())
+           for k, v in params.items()}
+    f32 = llama.prefill(dataclasses.replace(cfg, dtype="float32"), p32, toks, lens)[0][0].float()
+    del p32
+    bf16 = llama.prefill(cfg, params, toks, lens)[0][0].float()
+    sp = SamplingParams.make(1, temperature=kw["temperature"], top_p=kw.get("top_p", 1.0),
+                             device="cuda")
+    seed, pos = torch.tensor([kw["seed"]], device="cuda"), torch.tensor([n + 1], device="cuda")
+
+    def pick(logits):
+        return int(sample(logits[None], seed, pos, sp)[0])
+
+    picks = sorted({runs["paged"]["ids"][1], runs["dense"]["ids"][1]})
+
+    def nucleus(logits):
+        """Where the sampler's cuts fall: its 64 candidates (top-k by
+        logit), the top-p set among them, each pick's rank, whether it is
+        kept, and the logit margins at both cuts."""
+        sl, si = torch.topk(logits, 65)
+        kept = _filter_sorted(sl[None, :64], sp)[0] > -1e29
+        nk = int(kept.sum())
+        rank = {int(t): r for r, t in enumerate(si.tolist())}
+        g = gumbel_noise(seed, pos, logits.shape[-1])[0]
+        return dict(kept=nk, candidate_cut_margin=float(sl[63] - sl[64]),
+                    top_p_cut_margin=float(sl[nk - 1] - sl[nk]) if nk < 64 else None,
+                    spread_of_candidates=float(sl[0] - sl[63]),
+                    picks={str(t): dict(rank=rank.get(t), kept=bool(rank.get(t, 99) < nk),
+                                        noise=float(g[t]), logit=float(logits[t]))
+                           for t in picks})
+
+    out = dict(layers=layers, request=request, prompt_tokens=n, sampling=kw,
+               f32_pick=pick(f32), plain_bf16_pick=pick(bf16),
+               plain_bf16_max_abs_from_f32=float((bf16 - f32).abs().max()),
+               f32_scale=float(f32.abs().max()), f32_nucleus=nucleus(f32),
+               plain_bf16_nucleus=nucleus(bf16))
+    for label, r in runs.items():
+        lg = r.pop("logits")
+        out[label] = dict(r, served_second_id=r["ids"][1], ids=r["ids"][:4],
+                          repick_with_request_seed=pick(lg),
+                          max_abs_from_f32=float((lg - f32).abs().max()),
+                          top2_gap=float(torch.topk(lg, 2).values.diff().abs()[0]),
+                          nucleus=nucleus(lg))
+    log(f"[deepseek engine step {layers} layers, request {request}] {json.dumps(out)}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -7085,6 +7395,354 @@ def phase_vision() -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# 26. service: out-of-process backends and the service surfaces
+# --------------------------------------------------------------------------- #
+
+# The served 1b of the earlier phases (8 of 16 layers, the paged pool,
+# chunks of 512), read from a checkpoint written once to disk, so the
+# parent and its child load the same bf16 bytes. No tokenizer key: the
+# checkpoint holds no tokenizer files, so both take the byte tokenizer,
+# and requests carry ASCII_BIAS, so a reply's text is its ids.
+SERVICE_YAML = dict({k: v for k, v in LORA_BASE_YAML.items()
+                     if k not in ("name", "model", "tokenizer")}, embeddings=True)
+SERVICE_NEW = 16  # tokens a chat (one 16-step block)
+SERVICE_KILL_NEW = 512  # tokens the stream killed mid-decode asks for
+SERVICE_REPS = 3  # warm chats through the relay and straight to the child, alternated
+SERVICE_TEXT = "the service phase asks every backend the same question " * 4
+# The card memory a live child must hold (its 1.5 GB of weights alone),
+# and how much of its memory may be missing after its death.
+SERVICE_CHILD_MIN_BYTES = 1 << 30
+SERVICE_RETURN_TOL_BYTES = 256 << 20
+
+
+class _StubMcp:
+    """An MCP server on loopback (JSON-RPC over HTTP) with one `add` tool;
+    counts the methods it was asked."""
+
+    def __init__(self):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self.methods: list[str] = []
+        outer = self
+
+        class H(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def do_POST(self):  # noqa: N802
+                req = json.loads(self.rfile.read(int(self.headers.get("Content-Length") or 0)))
+                outer.methods.append(req.get("method"))
+                result = {"tools": [{"name": "add", "description": "Add two integers",
+                                     "inputSchema": {"type": "object"}}]} \
+                    if req.get("method") == "tools/list" else {}
+                body = json.dumps({"jsonrpc": "2.0", "id": req.get("id"),
+                                   "result": result}).encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), H)
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}/mcp"
+        threading.Thread(target=self.server.serve_forever, daemon=True).start()
+
+
+def _serve_dir(path: str):
+    """A stdlib HTTP server over `path` on loopback (the local gallery)."""
+    import functools
+    from http.server import SimpleHTTPRequestHandler, ThreadingHTTPServer
+
+    class Quiet(SimpleHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), functools.partial(Quiet, directory=path))
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return server, f"http://127.0.0.1:{server.server_address[1]}"
+
+
+def _service_body(model: str, n: int = SERVICE_NEW, stream: bool = False) -> dict:
+    return {"model": model, "messages": [{"role": "user", "content": SERVICE_TEXT}],
+            "max_tokens": n, "temperature": 0.0, "ignore_eos": True, "stream": stream,
+            "logit_bias": {str(k): v for k, v in ASCII_BIAS.items()}}
+
+
+def _service_chat(base: str, model: str, label: str) -> tuple[str, float]:
+    """One greedy chat: (its text = its ids, wall ms)."""
+    t = time.monotonic()
+    st, _h, r = _http_call(base, "POST", "/v1/chat/completions", _service_body(model),
+                           timeout=900)
+    ms = (time.monotonic() - t) * 1e3
+    check(st == 200, f"service: {label} answered {st}: {str(r)[:400]}")
+    text = r["choices"][0]["message"]["content"]
+    check(len(text) == SERVICE_NEW and all(32 <= ord(c) < 127 for c in text),
+          f"service: {label}: {len(text)} characters, not {SERVICE_NEW} printable ids")
+    return text, ms
+
+
+def _service_stream(base: str, model: str, label: str) -> tuple[str, float]:
+    """One greedy streamed chat: (its text, TTFT ms)."""
+    res = _http(base, "/v1/chat/completions", _service_body(model, stream=True),
+                time.monotonic())
+    check(res["status"] == 200 and res["frames"][-1] == "[DONE]",
+          f"service: {label} stream answered {res['status']}")
+    chunks = [json.loads(f) for f in res["frames"][:-1]]
+    check(not any("error" in c for c in chunks), f"service: {label} stream errored")
+    text = "".join((c["choices"][0].get("delta") or {}).get("content") or "" for c in chunks)
+    return text, res["ttft"] * 1e3
+
+
+def _free_card_bytes() -> int:
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return int(torch.cuda.mem_get_info()[0])
+
+
+def phase_service() -> dict:
+    """Out-of-process backends and the service surfaces through the CLI's
+    app (`__main__.build_app`: every layer the port registers) on the card:
+    the 8-layer 1b written once to a checkpoint, imported through
+    /models/import-uri (file://) and served in this process; a `subprocess`
+    model whose child serves the same checkpoint on the card (spawn to
+    ready, the first chat through the parent, warm chats through the relay
+    against the same chats straight to the child: the relay's cost in ms,
+    wall and streamed TTFT; the child's ids equal to the relay's and to the
+    in-process model's; a stream, /v1/embeddings and /v1/tokenize relayed);
+    SIGKILL of the child mid-stream (an error frame ends that stream, the
+    in-process model still answers, the next request respawns the child
+    with the same ids, the dead child's card memory comes back, no kernel
+    library rebuilt); a `remote` model on this server's own port and one on
+    a dead port (502, the server survives); a gallery install over local
+    HTTP served on the card; one /mcp/v1/chat/completions against a stub
+    MCP server through the 1b engine."""
+    import signal
+    import urllib.request
+
+    import yaml
+
+    from localai_tpu_torch.__main__ import build_app
+    from localai_tpu_torch.config import ApplicationConfig
+    from localai_tpu_torch.engine.remote import SubprocessEngine
+    from localai_tpu_torch.engine.weights import save_hf_checkpoint
+    from localai_tpu_torch.kernels import BUILD_DIR
+    from localai_tpu_torch.models import get_arch, llama
+    from localai_tpu_torch.server import create_server
+
+    seconds = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.monotonic()
+        models, ckpt, gdir = f"{root}/models", f"{root}/llama-1b", f"{root}/gallery"
+        os.makedirs(models)
+        cfg = get_arch(ONEB_PRESET)
+        params = llama.init_params(cfg, seed=0, device="cuda")
+        save_hf_checkpoint(cfg, params, ckpt)
+        del params
+        # The gallery's model: tiny-d64's widths (head dim 64, which B1 takes).
+        tiny = dataclasses.replace(get_arch("tiny"), hidden_size=256, intermediate_size=512,
+                                   num_heads=4, num_kv_heads=2, dtype="float32")
+        save_hf_checkpoint(tiny, llama.init_params(tiny, seed=5, device="cuda"), f"{gdir}/tiny")
+        torch.cuda.empty_cache()
+        seconds["write_checkpoints"] = round(time.monotonic() - t0, 1)
+        gallery_srv, gurl = _serve_dir(gdir)
+        files = [{"filename": f, "uri": f"{gurl}/tiny/{f}",
+                  "sha256": hashlib.sha256(open(f"{gdir}/tiny/{f}", "rb").read()).hexdigest()}
+                 for f in sorted(os.listdir(f"{gdir}/tiny"))]
+        with open(f"{gdir}/index.yaml", "w") as f:
+            yaml.safe_dump([{"name": "tiny-gallery", "description": "tiny-d64", "files": files,
+                             "overrides": {"context_size": 256, "max_slots": 2,
+                                           "max_tokens": 8}}], f)
+        mcp = _StubMcp()
+        dead = socket.socket()
+        dead.bind(("127.0.0.1", 0))
+        dead_port = dead.getsockname()[1]
+        dead.close()  # nothing listens there
+        child = dict(SERVICE_YAML, name="child-1b", model=ckpt)
+        for name, doc in (("child-1b", {"model": "subprocess", "backend": "subprocess",
+                                        "embeddings": True, "options": {"child": child}}),
+                          ("dead-remote", {"model": "remote", "backend": "remote",
+                                           "options": {"url": f"http://127.0.0.1:{dead_port}"}})):
+            with open(f"{models}/{name}.yaml", "w") as f:
+                yaml.safe_dump({"name": name, **doc}, f)
+        app = ApplicationConfig(address="127.0.0.1", port=0, models_dir=models,
+                                galleries=[{"name": "local", "url": f"{gurl}/index.yaml"}],
+                                runtime_settings_path=f"{models}/runtime_settings.json")
+        manager, router, jobs = build_app(app, device="cuda")
+        jobs.start()
+        server = create_server(app, router)
+        threading.Thread(target=server.serve_forever, daemon=True, name="http").start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        eng = None
+        try:
+            # (a) the in-process model, through /models/import-uri.
+            t0 = time.monotonic()
+            st, _h, r = _http_call(base, "POST", "/models/import-uri", {
+                "uri": f"file://{ckpt}", "name": "local-1b",
+                "preferences": dict(SERVICE_YAML, options={
+                    "mcp": {"remote": [{"name": "stub", "url": mcp.url}]}})})
+            check(st == 201 and r["status"] == "installed", f"service: import-uri {st}: {r}")
+            with open(f"{models}/self-remote.yaml", "w") as f:
+                yaml.safe_dump({"name": "self-remote", "model": "remote", "backend": "remote",
+                                "options": {"url": base, "remote_model": "local-1b"}}, f)
+            st, _h, r = _http_call(base, "POST", "/models/reload", {})
+            check(st == 200 and "self-remote" in r["models"], f"service: reload {st}: {r}")
+            _zero_counts()
+            local_text, local_first_ms = _service_chat(base, "local-1b", "local-1b (first)")
+            seconds["local_first_chat"] = round(time.monotonic() - t0, 1)
+
+            # (b) the subprocess model.
+            free_before = _free_card_bytes()
+            builds = {p.name: p.stat().st_mtime_ns for p in BUILD_DIR.glob("*.so")}
+            eng = manager.get("child-1b").engine
+            check(isinstance(eng, SubprocessEngine) and eng.pid is None,
+                  "service: child-1b is not an unspawned subprocess engine")
+            t0 = time.monotonic()
+            first_text, first_ms = _service_chat(base, "child-1b", "child-1b (first)")
+            seconds["child_first_chat"] = round(time.monotonic() - t0, 1)
+            spawn_s = eng.m_spawn_s
+            free_with = _free_card_bytes()
+            direct = eng.base_url
+            walls, ttfts = {"relay": [], "direct": []}, {"relay": [], "direct": []}
+            for _ in range(SERVICE_REPS):
+                for via, b, model in (("relay", base, "child-1b"), ("direct", direct, "child-1b")):
+                    text, ms = _service_chat(b, model, f"child-1b {via}")
+                    check(text == first_text, f"service: child-1b {via} ids {text!r} != "
+                                              f"{first_text!r}")
+                    walls[via].append(ms)
+                    text, ttft = _service_stream(b, model, f"child-1b {via}")
+                    check(text == first_text, f"service: child-1b {via} streamed ids differ")
+                    ttfts[via].append(ttft)
+            check(first_text == local_text, f"service: the child's ids {first_text!r} differ "
+                                            f"from the in-process model's {local_text!r}")
+            relayed = {}
+            for path, body in (("/v1/embeddings", {"input": [SERVICE_TEXT, [72, 105, 33]]}),
+                               ("/v1/tokenize", {"content": SERVICE_TEXT})):
+                st, _h, via = _http_call(base, "POST", path, {"model": "child-1b", **body})
+                st2, _h, dr = _http_call(direct, "POST", path, {"model": "child-1b", **body})
+                check(st == st2 == 200 and via == dr, f"service: {path} relayed {st}, direct "
+                                                      f"{st2}, bodies equal {via == dr}")
+                relayed[path] = True
+            emb = _http_call(base, "POST", "/v1/embeddings",
+                             {"model": "child-1b", "input": SERVICE_TEXT})[2]
+            vec = np.asarray(emb["data"][0]["embedding"])
+            check(np.isfinite(vec).all() and abs(np.linalg.norm(vec) - 1) < 1e-3,
+                  "service: the relayed embedding is not a finite unit vector")
+
+            # (c) SIGKILL mid-stream.
+            req = urllib.request.Request(
+                base + "/v1/chat/completions",
+                data=json.dumps(_service_body("child-1b", SERVICE_KILL_NEW, True)).encode(),
+                headers={"Content-Type": "application/json"})
+            frames, killed_at = [], None
+            pid = eng.pid
+            with urllib.request.urlopen(req, timeout=300) as r:
+                for line in r:
+                    line = line.decode().strip()
+                    if not line.startswith("data: "):
+                        continue
+                    frames.append(line[6:])
+                    if killed_at is None and len(frames) >= 5:
+                        os.kill(pid, signal.SIGKILL)
+                        killed_at = len(frames)
+            err = [json.loads(f)["error"] for f in frames[:-1] if "error" in json.loads(f)]
+            check(frames[-1] == "[DONE]" and len(err) == 1 and err[0].get("code") == 502
+                  and len(frames) - 2 < SERVICE_KILL_NEW,
+                  f"service: the killed stream did not end with an error frame "
+                  f"({len(frames)} frames, errors {err})")
+            eng._proc.wait(timeout=60)
+            # The driver frees a dead process's memory as it reaps it.
+            for _ in range(100):
+                free_after = _free_card_bytes()
+                if free_after >= free_before - SERVICE_RETURN_TOL_BYTES:
+                    break
+                time.sleep(0.1)
+            again, _ms = _service_chat(base, "local-1b", "local-1b after the kill")
+            check(again == local_text, "service: the in-process model's ids changed")
+            t0 = time.monotonic()
+            respawned, _ms = _service_chat(base, "child-1b", "child-1b (respawned)")
+            seconds["respawn_chat"] = round(time.monotonic() - t0, 1)
+            check(eng.m_respawns == 1 and eng.pid not in (None, pid),
+                  f"service: respawns {eng.m_respawns}, pid {eng.pid} (was {pid})")
+            check(respawned == first_text, "service: the respawned child's ids differ")
+            check(free_before - free_with >= SERVICE_CHILD_MIN_BYTES,
+                  f"service: the live child held only {free_before - free_with} bytes")
+            check(free_after >= free_before - SERVICE_RETURN_TOL_BYTES,
+                  f"service: {free_before - free_after} bytes of the dead child's memory "
+                  f"did not come back")
+            check({p.name: p.stat().st_mtime_ns for p in BUILD_DIR.glob("*.so")} == builds,
+                  "service: the child rebuilt a kernel library")
+
+            # (d) remotes: this server's own port, and a dead one.
+            text, _ms = _service_chat(base, "self-remote", "self-remote")
+            check(text == local_text, "service: self-remote ids differ from local-1b's")
+            st, _h, r = _http_call(base, "POST", "/v1/chat/completions",
+                                   _service_body("dead-remote"))
+            check(st == 502, f"service: the dead remote answered {st}: {r}")
+            check(_service_chat(base, "local-1b", "local-1b after the 502")[0] == local_text,
+                  "service: the server did not survive the dead remote")
+
+            # (e) a gallery install over local HTTP, served on the card; MCP.
+            t0 = time.monotonic()
+            st, _h, r = _http_call(base, "POST", "/models/apply", {"id": "local@tiny-gallery"})
+            check(st == 200, f"service: /models/apply {st}: {r}")
+            job = {}
+            for _ in range(600):
+                job = _http_call(base, "GET", r["status"])[2]
+                if job.get("processed"):
+                    break
+                time.sleep(0.05)
+            check(job.get("status") == "done", f"service: the gallery job ended {job}")
+            st, _h, g = _http_call(base, "POST", "/v1/chat/completions", {
+                "model": "tiny-gallery", "messages": [{"role": "user", "content": "hi"}],
+                "max_tokens": 8, "ignore_eos": True, "temperature": 0.0})
+            check(st == 200 and g["usage"]["completion_tokens"] == 8,
+                  f"service: the installed gallery model answered {st}: {g}")
+            check(manager.peek("tiny-gallery").engine.device.type == "cuda",
+                  "service: the gallery model is not on the card")
+            seconds["gallery"] = round(time.monotonic() - t0, 1)
+            st, _h, m = _http_call(base, "POST", "/mcp/v1/chat/completions",
+                                   {**_service_body("local-1b"), "stream": False})
+            check(st == 200 and m["agent"]["iterations"] >= 1
+                  and "tools/list" in mcp.methods,
+                  f"service: MCP chat {st}: {str(m)[:300]}, stub saw {mcp.methods}")
+            launches = _read_counts()
+            check(launches["flash_prefill"] > 0 and launches["paged_attention"] > 0,
+                  f"service: the in-process models did not launch B1 / B2: {launches}")
+        except SystemExit:
+            log_path = f"{models}/.subprocess-child-1b/child.log"
+            if os.path.exists(log_path):  # the child's own account of a failure
+                print(open(log_path).read()[-4000:], file=sys.stderr, flush=True)
+            raise
+        finally:
+            server.shutdown()
+            jobs.stop()
+            manager.shutdown()
+            gallery_srv.shutdown()
+            mcp.server.shutdown()
+        check(eng._proc is None, "service: the manager's shutdown left the child running")
+        gc.collect()
+        torch.cuda.empty_cache()
+    med = statistics.median
+    out = dict(
+        spawn_to_ready_s=spawn_s, respawn_to_ready_s=eng.m_spawn_s,
+        child_first_chat_ms=first_ms, local_first_chat_ms=local_first_ms,
+        relay_wall_ms=walls["relay"], direct_wall_ms=walls["direct"],
+        relay_cost_ms=med(walls["relay"]) - med(walls["direct"]),
+        relay_ttft_ms=ttfts["relay"], direct_ttft_ms=ttfts["direct"],
+        relay_ttft_cost_ms=med(ttfts["relay"]) - med(ttfts["direct"]),
+        relayed=relayed, killed_after_frames=killed_at, killed_stream_frames=len(frames),
+        card_free_gib={"before_spawn": free_before / 2**30, "child_up": free_with / 2**30,
+                       "after_kill": free_after / 2**30},
+        child_card_gib=(free_before - free_with) / 2**30,
+        returned_gib=(free_after - free_with) / 2**30,
+        mcp_methods=sorted(set(mcp.methods)), seconds=seconds, launches=launches)
+    log(f"[service] {json.dumps(out)}")
+    return {"summary": out, "run": {"launches": launches}}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
@@ -7123,6 +7781,7 @@ def main() -> None:
     observe = timed("observe", phase_observe)
     embed_rerank = timed("embed_rerank", phase_embed_rerank)
     vision = timed("vision", phase_vision)
+    service = timed("service", phase_service)
     qmodel = timed("quant_model", phase_quant_model, gen)
     qruns = timed("quant_engines", phase_quant_engines, qmodel, model["small"],
                   model["p_small"], model["p_small_cpu"])
@@ -7176,7 +7835,10 @@ def main() -> None:
             "deepseek_v2_lite_prefix_hit": deepseek["graph"]["follow"],
             "deepseek_v2_lite_dense": deepseek["dense"],
             "deepseek_v2_lite_int4_8_layers": deepseek_int4,
-            "observe_1b": observe["traces"]["run"], **embed_rerank["runs"], **vision["runs"]}
+            "observe_1b": observe["traces"]["run"], **embed_rerank["runs"], **vision["runs"],
+            # The parent's in-process models of the service phase; its
+            # subprocess child's launches happen in the child, not counted here.
+            "service_parent": service["run"]}
     by_path = {k: {path: out["launches"].get(k, 0) for path, out in runs.items()}
                for k in ("flash_prefill", "paged_attention", "paged_attention_latent",
                          "quant_matmul", "quant_matmul_moe", "quant_unembed", "lora_bgmv",

@@ -1,7 +1,14 @@
 """CLI entry point: `python -m localai_tpu_torch [run|models|version]`.
 
 `run` starts the OpenAI-compatible server over the models dir, with the
-rerank (`/v1/rerank`) and vector-store (`/stores/*`) routes. Its flags
+layers the JAX CLI registers, in its order: rerank (`/v1/rerank`), the
+vector store (`/stores/*`), the model gallery (`/models/available`,
+`apply`, `jobs`, `galleries`, `delete`), MCP chat with the agent jobs
+(`/mcp/v1/chat/completions`, `/agent-jobs/*`; the jobs' scheduler starts
+here and stops on shutdown), settings (`/settings`), model import and
+edit (`/models/import`, ...), OpenAPI (`/swagger`, `/swagger.json`) and
+the web UI (`/`). The audio, image, realtime and p2p layers are not
+ported yet (ROADMAP Queue A items 13 (c), 13 (d) and 12). Its flags
 mirror the env vars ApplicationConfig.from_env reads (LOCALAI_ADDRESS,
 LOCALAI_PORT, LOCALAI_MODELS_PATH, ...), so either style works; `--device`
 picks the engines' device (default `cuda`: the server refuses to start
@@ -12,6 +19,7 @@ from __future__ import annotations
 
 import argparse
 import logging
+import os
 import signal
 import sys
 
@@ -35,6 +43,44 @@ def _build_parser() -> argparse.ArgumentParser:
     models.add_argument("--models-path", default=None)
     sub.add_parser("version", help="print version")
     return p
+
+
+def build_app(app_cfg, device="cuda"):
+    """The manager, the router with every API layer the port serves
+    registered (in the JAX CLI's order), and the agent-jobs service, not
+    yet started."""
+    from localai_tpu_torch.gallery import Gallery, GalleryService
+    from localai_tpu_torch.server import ModelManager, OpenAIApi, Router
+    from localai_tpu_torch.server.gallery_api import GalleryApi
+    from localai_tpu_torch.server.mcp_api import McpApi, make_job_runner
+    from localai_tpu_torch.server.models_api import ModelsApi
+    from localai_tpu_torch.server.openapi import register_openapi
+    from localai_tpu_torch.server.rerank_api import RerankApi
+    from localai_tpu_torch.server.settings_api import SettingsApi
+    from localai_tpu_torch.server.stores_api import StoresApi
+    from localai_tpu_torch.server.webui import register_webui
+    from localai_tpu_torch.services import AgentJobService
+    from localai_tpu_torch.stores import StoreRegistry
+
+    manager = ModelManager(app_cfg, device=device)
+    router = Router()
+    oai = OpenAIApi(manager)
+    oai.register(router)
+    RerankApi(manager, oai).register(router)
+    StoresApi(StoreRegistry(device=manager.device)).register(router)
+    gallery_service = GalleryService(
+        app_cfg.models_dir, config_loader=manager.configs,
+        galleries=[Gallery(name=g["name"], url=g["url"]) for g in app_cfg.galleries],
+        hf_endpoint=app_cfg.hf_endpoint)
+    GalleryApi(gallery_service, manager=manager).register(router)
+    jobs = AgentJobService(os.path.join(app_cfg.models_dir, "agent_jobs.json"),
+                           make_job_runner(manager))
+    McpApi(manager, oai, jobs=jobs).register(router)
+    SettingsApi(app_cfg, manager).register(router)
+    ModelsApi(manager).register(router)
+    register_openapi(router)
+    register_webui(router)
+    return manager, router, jobs
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -72,21 +118,18 @@ def main(argv: list[str] | None = None) -> int:
     if args.debug:
         overrides["debug"] = True
     app_cfg = ApplicationConfig.from_env(**overrides)
+    if not app_cfg.runtime_settings_path:
+        app_cfg.runtime_settings_path = os.path.join(app_cfg.models_dir,
+                                                     "runtime_settings.json")
+    app_cfg.apply_runtime_settings()
     logging.basicConfig(level=logging.DEBUG if app_cfg.debug else logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s %(message)s")
     log = logging.getLogger("localai_tpu_torch")
 
-    from localai_tpu_torch.server import ModelManager, OpenAIApi, Router, create_server
-    from localai_tpu_torch.server.rerank_api import RerankApi
-    from localai_tpu_torch.server.stores_api import StoresApi
-    from localai_tpu_torch.stores import StoreRegistry
+    from localai_tpu_torch.server import create_server
 
-    manager = ModelManager(app_cfg, device=args.device)
-    router = Router()
-    oai = OpenAIApi(manager)
-    oai.register(router)
-    RerankApi(manager, oai).register(router)
-    StoresApi(StoreRegistry(device=manager.device)).register(router)
+    manager, router, jobs = build_app(app_cfg, device=args.device)
+    jobs.start()
     for name in app_cfg.preload_models:
         log.info("preloading model %s", name)
         manager.get(name)
@@ -94,6 +137,7 @@ def main(argv: list[str] | None = None) -> int:
 
     def _stop(signum, frame):
         log.info("shutting down")
+        jobs.stop()
         manager.shutdown()
         raise SystemExit(0)
 

@@ -4,9 +4,13 @@ Reference: core/config/application_config.go (461 LoC, functional AppOption
 pattern fed by ~70 kong CLI flags with env aliases, core/cli/run.go:23-120).
 Here: one dataclass, populated from env vars (LOCALAI_*) and/or CLI args.
 These are deployment settings (address, port, models dir, keys, cluster
-knobs, the journal, fence, profile and fault-schedule switches); none of
-them routes kernel work. The port has no model gallery, so
-`galleries` is empty unless LOCALAI_GALLERIES names some.
+knobs, the journal, fence, profile and fault-schedule switches, the
+galleries and the model hub); none of them routes kernel work. Without
+LOCALAI_GALLERIES, from_env lists the packaged starter gallery
+(`localai-tpu`, a file:// URL of localai_tpu_torch/gallery/index.yaml), as
+the JAX package does. The Hugging Face endpoint of hf:// and
+huggingface:// installs is LOCALAI_HF_ENDPOINT here (the JAX package's
+downloader reads HF_ENDPOINT itself).
 """
 
 from __future__ import annotations
@@ -60,6 +64,9 @@ class ApplicationConfig:
     # Model galleries: [{"name": ..., "url": ...}] (reference: run.go
     # --galleries flag / GALLERIES env, JSON-encoded).
     galleries: list[dict] = dataclasses.field(default_factory=list)
+    # The Hugging Face hub that hf:// and huggingface:// installs fetch
+    # from: a mirror or a local server replaces it.
+    hf_endpoint: str = "https://huggingface.co"
 
     # Cluster scheduling (docs/CLUSTER.md). cluster_role declares
     # this process's place in a disaggregated fleet (prefill|decode|mixed;
@@ -204,6 +211,7 @@ class ApplicationConfig:
             metrics=not _env("LOCALAI_DISABLE_METRICS", False, bool),
             debug=_env("LOCALAI_DEBUG", False, bool),
             machine_tag=_env("LOCALAI_MACHINE_TAG", ""),
+            hf_endpoint=_env("LOCALAI_HF_ENDPOINT", cls.hf_endpoint),
         )
         keys = os.environ.get("LOCALAI_API_KEY", "")
         if keys:
@@ -219,6 +227,12 @@ class ApplicationConfig:
             import json
 
             cfg.galleries = json.loads(galleries)
+        else:
+            # The packaged starter gallery (the reference ships
+            # gallery/index.yaml as its default, core/cli/run.go).
+            from localai_tpu_torch.gallery import builtin_gallery_url
+
+            cfg.galleries = [{"name": "localai-tpu", "url": builtin_gallery_url()}]
         for k, v in overrides.items():
             setattr(cfg, k, v)
         return cfg

@@ -960,6 +960,50 @@ def write_safetensors(path: str, shapes: dict[str, tuple], dtype: torch.dtype,
             f.write((t.view(torch.int16) if dtype == torch.bfloat16 else t).numpy().tobytes())
 
 
+def save_hf_checkpoint(cfg: ArchConfig, params: Params, ckpt_dir: str) -> None:
+    """Write a plain llama-family tree (llama, mistral, qwen2 layouts: no
+    MoE, no MLA, no gemma norms, no quantized leaf) as an HF checkpoint,
+    `config.json` and one `model.safetensors` in the tree's dtype (bf16 or
+    f32), one tensor at a time off the device. The names, transposes and
+    config are those of the JAX package's save_hf_checkpoint, so either
+    package's loader reads it back bit for bit."""
+    if cfg.is_moe or cfg.is_mla or cfg.post_norms or cfg.qk_norm or cfg.norm_plus_one \
+            or cfg.embed_scale or any(map(is_quantized, [*params["layers"].values(),
+                                                             params.get("lm_head")])):
+        raise ValueError(f"{cfg.name}: save_hf_checkpoint writes plain llama-family trees only")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    layers = params["layers"]
+    make: dict[str, Any] = {}
+    for our, (suffix, transpose) in _LAYER_MAP.items():
+        if our in layers:
+            for i in range(cfg.num_layers):
+                make[f"model.layers.{i}.{suffix}"] = (
+                    lambda t=layers[our], i=i, tr=transpose: t[i].T if tr else t[i])
+    make["model.embed_tokens.weight"] = lambda: params["embed"]
+    make["model.norm.weight"] = lambda: params["final_norm"]
+    if not cfg.tie_embeddings and "lm_head" in params:
+        make["lm_head.weight"] = lambda: params["lm_head"]
+    shapes = {k: tuple(fn().shape) for k, fn in make.items()}
+    write_safetensors(os.path.join(ckpt_dir, "model.safetensors"), shapes,
+                      params["embed"].dtype, lambda k: make[k]())
+    hf = {"model_type": "qwen2" if cfg.attn_qkv_bias else "llama",
+          "hidden_act": "gelu_pytorch_tanh" if cfg.activation == "gelu_tanh" else "silu",
+          "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+          "intermediate_size": cfg.intermediate_size, "num_hidden_layers": cfg.num_layers,
+          "num_attention_heads": cfg.num_heads, "num_key_value_heads": cfg.num_kv_heads,
+          "head_dim": cfg.head_dim, "rope_theta": cfg.rope_theta,
+          "max_position_embeddings": cfg.max_position, "rms_norm_eps": cfg.rms_eps,
+          "tie_word_embeddings": cfg.tie_embeddings}
+    if cfg.rope_scaling:
+        hf["rope_scaling"] = {"rope_type": cfg.rope_scaling, "factor": cfg.rope_scaling_factor,
+                              "low_freq_factor": cfg.rope_low_freq_factor,
+                              "high_freq_factor": cfg.rope_high_freq_factor,
+                              "original_max_position_embeddings":
+                                  cfg.rope_original_max_position}
+    with open(os.path.join(ckpt_dir, "config.json"), "w") as f:
+        json.dump(hf, f, indent=1)
+
+
 def save_lora_adapter(adapter_dir: str, tensors: dict[str, np.ndarray], r: int,
                       alpha: float) -> None:
     """Write a PEFT-format adapter dir: `adapter_config.json` and the

@@ -5,7 +5,8 @@ into a shared library with a plain C interface and loaded with `ctypes`;
 nothing includes PyTorch's headers, so a build takes seconds. Libraries
 land in `_build/` (listed in .gitignore) under a name that carries a hash of
 the source and the flags, so an edited source rebuilds and an unchanged one
-is built once per checkout. Nothing here runs at import: the first call of
+is built once per checkout; a process that finds a library built (a
+subprocess backend's child, after its parent) loads it without nvcc. Nothing here runs at import: the first call of
 a kernel's wrapper builds and loads its library.
 """
 
@@ -99,8 +100,12 @@ def _finish_build(name: str, started) -> str:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name} (rc={proc.returncode}):\n{out}")
-    os.replace(tmp, target)  # atomic: a concurrent build sees all or nothing
-    target.with_suffix(".log").write_text(out)
+    # Both renames are atomic, so processes that build at once (a server
+    # and its subprocess backend's child) each see whole files or none.
+    os.replace(tmp, target)
+    log_tmp = tmp.with_suffix(".log")
+    log_tmp.write_text(out)
+    os.replace(log_tmp, target.with_suffix(".log"))
     return out
 
 

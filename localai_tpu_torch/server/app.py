@@ -216,11 +216,15 @@ class Router:
         # startup, before create_server() spawns handler threads; handlers
         # only read it
         self.routes: list[tuple[str, re.Pattern, Handler]] = []
+        # The (method, pattern, handler) triples as declared: the OpenAPI
+        # document is built from them (server/openapi.py).
+        self.declared: list[tuple[str, str, Handler]] = []
 
     def add(self, method: str, pattern: str, handler: Handler) -> None:
         """Pattern params as `:name` segments, e.g. `/models/jobs/:uuid`."""
         regex = re.sub(r":(\w+)", r"(?P<\1>[^/]+)", pattern)
         self.routes.append((method.upper(), re.compile(f"^{regex}$"), handler))
+        self.declared.append((method.upper(), pattern, handler))
 
     def match(self, method: str, path: str) -> Optional[tuple[Handler, dict[str, str]]]:
         for m, rx, h in self.routes:

@@ -23,14 +23,20 @@ engine (LOCALAI_TRACE_JOURNAL over the YAML's trace_journal_events).
 Backends served: `llama` (and `rerank`, the reference's name for a llama
 model that serves rerank), `vlm` / `llava` / `multimodal` (a llama engine
 with a vision tower: a Qwen2-VL checkpoint's own, or a llava tower from
-`options.vision` or the checkpoint) and `bert` (embedders and
-cross-encoders, engine/bert_engine.py). Not ported yet: every other backend (ROADMAP
-Queue A item 13, satellite engines and models). No YAML or server knob
-is dropped in silence: the bounded-admission, fork, speculative-decoding
-and observability knobs reach the engine (a `draft_model` loads from a
-preset or a checkpoint dir beside the target), a server knob of an
-unported item fails its startup naming the item, and the multi-GPU ones
-warn.
+`options.vision` or the checkpoint), `bert` (embedders and
+cross-encoders, engine/bert_engine.py), and the out-of-process `remote`
+(a relay to another server, options.url) and `subprocess` (a supervised
+child server of this package on the manager's device, in
+`<models_dir>/.subprocess-<name>`; engine/remote.py). Reap, restart and
+quarantine act on in-process engines only: an out-of-process engine never
+reports dead, and a subprocess's death is its child's exit, which the next
+request's respawn handles; unloading one stops its child. Not ported yet:
+every other backend (ROADMAP Queue A item 13, satellite engines and
+models). No YAML or server knob is dropped in silence: the
+bounded-admission, fork, speculative-decoding and observability knobs
+reach the engine (a `draft_model` loads from a preset or a checkpoint dir
+beside the target), a server knob of an unported item fails its startup
+naming the item, and the multi-GPU ones warn.
 """
 
 from __future__ import annotations
@@ -230,7 +236,9 @@ class ModelManager:
 
     @staticmethod
     def _engine_dead(lm: LoadedModel) -> bool:
-        return bool(lm.engine.is_dead)
+        """Crash-only death probe: an engine without a loop of its own (an
+        out-of-process backend) never reports dead."""
+        return bool(getattr(lm.engine, "is_dead", False))
 
     def _note_death_locked(self, name: str, now: float) -> None:
         """Record one observed engine death; trip the quarantine when the
@@ -590,13 +598,16 @@ class ModelManager:
         from localai_tpu_torch.models.quant import init_params_quantized
 
         faults.fire("manager_load")  # an injected load failure
-        if cfg.backend == "bert":
-            return self._load_bert(cfg)
+        loader = {"bert": self._load_bert, "remote": self._load_remote,
+                  "subprocess": self._load_subprocess}.get(cfg.backend)
+        if loader is not None:
+            return loader(cfg)
         if cfg.backend not in _LLAMA_BACKENDS:
             raise UnsupportedBackendError(
                 f"model {cfg.name!r}: backend {cfg.backend!r} is not ported yet "
                 "(ROADMAP Queue A item 13, satellite engines and models); the port "
-                "serves the llama, vlm (llava / multimodal) and bert backends")
+                "serves the llama, vlm (llava / multimodal), bert, remote and "
+                "subprocess backends")
         switched = [f"{k}={getattr(cfg, k)!r}" for k in _ROUTE_SWITCHES
                     if getattr(cfg, k) != "auto"]
         if switched:
@@ -770,6 +781,33 @@ class ModelManager:
         log.info("loaded model %s (bert %s, %s) in %.1fs", cfg.name, bcfg.name, self.device,
                  time.monotonic() - t0)
         return LoadedModel(cfg, BertEngine(bcfg, params, tokenizer), None)
+
+    def _load_remote(self, cfg: ModelConfig) -> LoadedModel:
+        from localai_tpu_torch.engine.remote import RemoteEngine
+
+        url = cfg.options.get("url")
+        if not url:
+            raise ValueError(f"model {cfg.name!r}: backend remote needs options.url")
+        eng = RemoteEngine(url, remote_model=cfg.options.get("remote_model", ""),
+                           api_key=cfg.options.get("api_key", ""))
+        return LoadedModel(cfg, eng, None)
+
+    def _load_subprocess(self, cfg: ModelConfig) -> LoadedModel:
+        """A child server of this package owns the model (options.child is
+        its YAML; else the model, context, token and slot settings of this
+        one), on this manager's device. Nothing spawns here: the first
+        request does."""
+        from localai_tpu_torch.engine.remote import SubprocessEngine
+
+        child = dict(cfg.options.get("child") or {})
+        if not child:
+            child = {"model": cfg.model, "context_size": cfg.context_size,
+                     "max_tokens": cfg.max_tokens, "max_slots": cfg.max_slots}
+        eng = SubprocessEngine(
+            cfg.name, child,
+            workdir=os.path.join(self.app_cfg.models_dir, f".subprocess-{cfg.name}"),
+            device=str(self.device), env_extra=cfg.options.get("env") or {})
+        return LoadedModel(cfg, eng, None)
 
 
 def _apply_rope_overrides(arch, cfg):

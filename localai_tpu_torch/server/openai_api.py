@@ -39,6 +39,13 @@ of a chat (server/images.py) goes through the model's tower (a `vlm`,
 placeholder ids right after BOS; a Qwen2-VL tower also yields the grid the
 m-rope streams come from. A model without a tower ignores the image. An
 image format this server has no decoder for is a 400 naming it.
+
+A `remote` or `subprocess` model (engine/remote.py) is served by another
+process: chat, completions, embeddings and tokenize relay its request
+there as it came (`_proxy_remote`), a stream frame by frame as the peer
+writes them. A peer that cannot be reached answers 502, and one that dies
+mid-stream ends the stream with an error frame; this server goes on
+serving its other models.
 """
 
 from __future__ import annotations
@@ -46,12 +53,14 @@ from __future__ import annotations
 import queue
 import threading
 import time
+import urllib.error
 import uuid
 from typing import Any, Callable, Iterator, Optional
 
 from localai_tpu_torch import __version__
 from localai_tpu_torch.config import LoraConfigError, Usecase
 from localai_tpu_torch.engine.engine import AdapterError, GenRequest, QueueFullError
+from localai_tpu_torch.engine.remote import RemoteEngine
 from localai_tpu_torch.functions import parse_function_calls, tools_prompt_for
 from localai_tpu_torch.functions.gbnf import CompiledGrammar, GbnfConstraint, GbnfParseError
 from localai_tpu_torch.functions.jsonschema import GrammarConstraint, tool_call_schema
@@ -239,6 +248,64 @@ class OpenAIApi:
             # Crash-only supervision tripped its restart budget: a typed 503
             # with the quarantine's remaining window, not a respawn loop.
             raise ApiError(503, str(e), "server_error", retry_after=e.retry_after_s) from None
+
+    def _proxy_remote(self, req: Request, lm: LoadedModel, lease) -> Response | SSEStream:
+        """Relay a request to an out-of-process backend (backend `remote` or
+        `subprocess`; reference: every backend is a separate gRPC process,
+        initializers.go:50-154). The request's own budget (body deadline_s,
+        else the model's) bounds the proxy's socket. The peer's HTTP errors
+        come back as they are; a peer that cannot be reached is a 502."""
+        eng = lm.engine
+        stream = bool((req.body or {}).get("stream"))
+        try:
+            deadline = float((req.body or {}).get("deadline_s") or lm.cfg.deadline_s or 0.0)
+        except (TypeError, ValueError):
+            deadline = 0.0
+        try:
+            resp = eng.request(req.path, req.body, method=req.method, deadline_s=deadline)
+        except urllib.error.HTTPError as e:
+            body = e.read()
+            lease.release()
+            return Response(status=e.code, body=body,
+                            content_type=e.headers.get("Content-Type", "application/json"))
+        except Exception as e:  # noqa: BLE001
+            lease.release()
+            raise ApiError(502, f"remote backend failed: {e}", "server_error") from None
+        if stream and "event-stream" in (resp.headers.get("Content-Type") or ""):
+            def events() -> Iterator[Any]:
+                # One frame out per frame in: readline returns as soon as the
+                # peer's chunk holding the line arrives. A stream that ends
+                # without the peer's [DONE] was cut (a truncated chunked body
+                # reads as a plain end).
+                done, failure = False, "the stream ended without [DONE]"
+                try:
+                    for raw in resp:
+                        line = raw.decode("utf-8", "replace").strip()
+                        if line.startswith("data: "):
+                            payload = line[6:]
+                            if payload == "[DONE]":  # the writer adds its own
+                                done = True
+                            else:
+                                yield payload
+                except Exception as e:  # noqa: BLE001 — the peer died mid-stream
+                    failure = f"{type(e).__name__}: {e}"
+                finally:
+                    resp.close()
+                    lease.release()
+                if not done:
+                    yield {"error": {"message": f"remote backend failed mid-stream: {failure}",
+                                     "type": "server_error", "code": 502}}
+
+            return SSEStream(events(), on_disconnect=resp.close)
+        try:
+            data = resp.read()
+        except Exception as e:  # noqa: BLE001 — the peer died mid-answer
+            raise ApiError(502, f"remote backend failed: {e}", "server_error") from None
+        finally:
+            resp.close()
+            lease.release()
+        return Response(body=data,
+                        content_type=resp.headers.get("Content-Type", "application/json"))
 
     @staticmethod
     def _tag_requests(gens: list, rid: str, traceparent: str) -> None:
@@ -560,6 +627,8 @@ class OpenAIApi:
         if not messages or not isinstance(messages, list):
             raise ApiError(400, "messages is required and must be a non-empty array")
         lm, lease = self._resolve(req, Usecase.CHAT)
+        if isinstance(lm.engine, RemoteEngine):
+            return self._proxy_remote(req, lm, lease)
         try:
             return self._chat_inner(req, lm, lease, body)
         except BaseException:
@@ -693,6 +762,8 @@ class OpenAIApi:
         if not prompts or not all(isinstance(p, str) for p in prompts):
             raise ApiError(400, "prompt must be a string or array of strings")
         lm, lease = self._resolve(req, Usecase.COMPLETION)
+        if isinstance(lm.engine, RemoteEngine):
+            return self._proxy_remote(req, lm, lease)
         try:
             return self._completion_inner(req, lm, lease, body, prompts)
         except BaseException:
@@ -780,8 +851,7 @@ class OpenAIApi:
     def embeddings(self, req: Request) -> Response:
         """Embeddings of a string, a token array, or a list of either
         (`Engine.embed` on a llama model, `BertEngine.embed` on a bert
-        one). Not ported yet: the reference's relay to a `remote` backend
-        (ROADMAP Queue A item 15)."""
+        one; a `remote` or `subprocess` model relays the request)."""
         body = req.body or {}
         inputs = body.get("input", "")
         if isinstance(inputs, str):
@@ -789,6 +859,8 @@ class OpenAIApi:
         if not isinstance(inputs, list) or not inputs:
             raise ApiError(400, "input must be a non-empty string or array")
         lm, lease = self._resolve(req, Usecase.EMBEDDINGS)
+        if isinstance(lm.engine, RemoteEngine):
+            return self._proxy_remote(req, lm, lease)
         try:
             tok = lm.engine.tokenizer
             ids_batch: list[list[int]] = []
@@ -819,6 +891,8 @@ class OpenAIApi:
         body = req.body or {}
         content = body.get("content", "")
         lm, lease = self._resolve(req, Usecase.TOKENIZE)
+        if isinstance(lm.engine, RemoteEngine):
+            return self._proxy_remote(req, lm, lease)
         try:
             ids = lm.engine.tokenizer.encode(content)
         finally:
