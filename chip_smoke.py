@@ -37,12 +37,12 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 4. model   — a small f32 model on the card against the same model on the
    CPU (logits, 16 greedy decode steps), dense and paged (chunked prefill
    into pages, paged decode), then full-width llama-3.2-1b in bf16 with
-   seeded random weights, cut to 8 of its 16 layers (as every 1b phase):
+   seeded random weights, cut to 4 of its 16 layers (as every 1b phase):
    prefill logits through the kernel against the same call through plain
    attention;
 5. engine  — the dense serving engine (submit → fused admission → decode
    blocks → streamed events) answers mixed requests on llama-3.2-1b
-   (8 layers);
+   (4 layers);
 6. paged engine — the same model on a paged KV pool with chunked prefill
    (long prompts chunk, decode blocks run between chunks), then the small
    f32 model's paged engine against its dense engine;
@@ -63,7 +63,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    (1b q / k / v and gate / up at rank 32, 8b q / v at rank 16): null
    rows exact zeros, every row bit-identical to a launch on it alone, two
    launches bit-identical, nothing allocated but the outputs;
-10. lora http — llama-3.2-1b (8 of 16 layers, bf16) served by the port's own
+10. lora http — llama-3.2-1b (4 of 16 layers, bf16) served by the port's own
    HTTP server with 8 virtual-model tenants (PEFT adapters from a seed):
    a warm pass, then 12 concurrent chat / completion requests (half
    streamed, half greedy) to the tenants and the base, checked over HTTP
@@ -74,7 +74,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    then the small f32 model's paged engine with three tenants and a null
    row on the card against the same engine on the CPU;
 12. graphs — the decode block as one CUDA graph per shape: the paged
-   engine of phase 6 (llama-3.2-1b, 8 layers; run right after phase 6)
+   engine of phase 6 (llama-3.2-1b, 4 layers; run right after phase 6)
    and of phase 8 (llama-3-8b int4 + fp8, its first 16 of 32 layers;
    right after phase 8) each serve phase 6's requests twice on fresh engines, after
    warmup(): once replaying the graphs warmup captured, once with the
@@ -110,7 +110,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    card against the same engine on the CPU, unquantized (the exact top-k
    route) and int4 (the expert form's f32 kernel);
 17. long context (run right after phase 12's 1b pair) — llama-3.2-1b at
-   full width, 8 of its 16 layers (bf16), serves one 130,000-token prompt
+   full width, 4 of its 16 layers (bf16), serves one 130,000-token prompt
    and 32 greedy tokens through Engine.submit, after warmup(), on the
    reference ladder's long-context engine (pages of 128, chunks of 512,
    sink 128, window 4096): first with flat tables and every page hot,
@@ -119,7 +119,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    budget; the phase prints the device ms of each prefill chunk along the
    prompt, the TTFT, decode tok/s, peak memory and the pages spilled.
 18. prefix_swap (run right after 17) — the prefix cache and the host swap
-   tier on llama-3.2-1b at full width, 8 of its 16 layers (bf16): (a) 8
+   tier on llama-3.2-1b at full width, 4 of its 16 layers (bf16): (a) 8
    chat conversations sharing a 1536-token system prompt, 3 turns of 64
    tokens each carrying the earlier turns and answers, beside 4 short
    misses, on the paged engine after warmup(), with the default prefix
@@ -138,7 +138,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    one 1024-token hit against a miss (B2's fp8 walk over the shared pages,
    B3, B4).
 19. grammar (run right after 18) — grammar-constrained decoding on
-   llama-3.2-1b at full width, 8 of its 16 layers (bf16), with the
+   llama-3.2-1b at full width, 4 of its 16 layers (bf16), with the
    synthetic byte tokenizer on phase 18's paged engine (prefix cache off,
    so a round and its unconstrained batch admit alike): ops/grammar's mask
    and advance on the card bit-equal to the CPU for an [8, 128256] batch in
@@ -156,7 +156,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    one-step blocks (the schedule a host-walk slot imposes) parts alike. Then the port's server: a required tool
    call whole and streamed, a json_schema reply and a GBNF completion.
 20. tree (run right after 19) — tree sampling, logprobs, deadlines and
-   dense chunking on llama-3.2-1b at full width, 8 of its 16 layers (
+   dense chunking on llama-3.2-1b at full width, 4 of its 16 layers (
    bf16, the synthetic byte tokenizer): (a) 4 prompts of 200-1200 tokens,
    each an n = 4 group of seeded top-p requests, through Engine.submit_fork
    on phase 6's paged engine (prefix cache on) after warmup(logprobs=True),
@@ -183,13 +183,13 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 21. gguf (run last) — GGUF checkpoints: a spec-derived writer here packs
    two files with random block payloads (scales sized for a weight spread
    of 0.02) and the published shapes and layouts of tensor types:
-   llama-3.2-1b as a Q4_K_M file, 8 of its 16 layers (q4_K, attn_v and
+   llama-3.2-1b as a Q4_K_M file, 4 of its 16 layers (q4_K, attn_v and
    ffn_down q6_K in alternate layers, q6_K embeddings, tied) and llama-3-8b as a
    Q8_0 file with an untied q8_0 output.weight, 2 of its 32 layers (cut
    for time), both with llama-3's gpt2-type BPE metadata (128256 tokens:
    256 byte symbols, synthetic merges, 256 control tokens; llama-bpe
    pre-tokenizer; bos / eos; chat template). Each is parsed and repacked
-   (timed); B3 on every projection of layer 0 in the loader's forms (g4
+   (timed; the HTTP load reuses the parse); B3 on every projection of layer 0 in the loader's forms (g4
    with per-group zero points, gq) against its plain version (bf16 x) and
    the dequantize-then-matmul route (f32 x), B4 on the 8b head likewise;
    the synthesized tokenizer runs the native BPE engine, equal to the HF
@@ -231,7 +231,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    expert form at deepseek-v2-lite's expert shapes (E = 64, int8 / int4,
    1-256 rows).
 23. observe (run after 20) — the runtime, observability and fault layer
-   on llama-3.2-1b at full width, 8 of its 16 layers (bf16), on the paged
+   on llama-3.2-1b at full width, 4 of its 16 layers (bf16), on the paged
    config, served by ModelManager and the port's HTTP server with the
    journal on (4096 events), trace_fence, a postmortem directory and a
    profile directory: (a) 8 concurrent chats, 4 with a client W3C
@@ -264,7 +264,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 24. embed_rerank (run after 23) — embeddings, rerank, the bert backend and
    the vector store through ModelManager and the port's HTTP server
    (OpenAIApi, RerankApi, StoresApi): (a) llama-3.2-1b bf16 at full width,
-   8 of its 16 layers on the paged config with the byte tokenizer:
+   4 of its 16 layers on the paged config with the byte tokenizer:
    /v1/embeddings of 16 inputs of 20-500 tokens (strings and token
    arrays; norms within 1e-3 of 1) and /v1/rerank of 8 documents, one the
    model's own greedy continuation of the query (among printable ASCII
@@ -332,8 +332,34 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    f32 checkpoint over local HTTP, served on the card; one
    /mcp/v1/chat/completions against a stub MCP server on loopback through
    the 1b engine.
-In 5, 6, 8, 10, 11, 12, 14, 15, 17, 18, 19, 20, 21, 22, 23, 24, 25 and 26 (the parent's
-engines; the child's launches are its own) the kernel launch counters, zeroed just
+27. gguf_deepseek (run after 21) — a deepseek2 GGUF written from llama.cpp's
+   layout at deepseek-v2-lite's full widths (4 of its 27 layers: the dense
+   layer and 3 MoE layers; seeded random payloads mixed as a Q4_K_M file
+   mixes them: q4_K / q8_0 experts, q6_K / q8_0 attention, a q6_K head):
+   write and parse timed, the tree's forms (grouped int8 experts for B3's
+   `gq` expert form, per-channel int8 head for B4), 8 requests through
+   Engine.submit on the paged engine with graphs held to the dequantized
+   bf16 tree (_part_gap's rule), then 4 chats over HTTP from a YAML
+   `model: <file>.gguf`; each run's launches: B2's latent form, B3's gq
+   expert form, B4. Phase 13 holds the gq expert form at E = 64.
+28. expert_lora (run after 27) — a mixtral-8x7b HF checkpoint at full width
+   (1 of 32 layers) with a rank-16 PEFT adapter on every expert's w1 / w3
+   / w2 and on q_proj / v_proj, loaded int4 with the adapter merged: every
+   merged int4 payload equal, bit for bit, to the pre-merged checkpoint's
+   quantized as the loader does; 8 greedy requests through B3's expert
+   form on both trees give the same ids.
+29. audio (run after 28) — the port's audio and realtime layers on the
+   card: whisper-large-v3 (full width and depth, bf16, a random checkpoint
+   written by save_hf_whisper) over /v1/audio/transcriptions on 30 s and
+   75 s of formant speech (1 and 3 chunks), its encoder held to the f32
+   witness by cosine and its greedy ids equal or parting at a near tie;
+   a VITS voice at MMS-TTS-eng's widths and tts-base over /v1/audio/speech
+   and /v1/audio/speech/stream, the VITS waveform held to a CPU f32
+   witness under the same noise; /v1/vad with the packaged learned VAD;
+   one realtime round trip (server VAD, whisper, the 4-layer 1b's turn
+   through B1 and B2, the VITS voice's pcm16), timed from the commit.
+In 5, 6, 8, 10, 11, 12, 14, 15, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28 and 29 (the
+parent's engines; the child's launches are its own) the kernel launch counters, zeroed just
 before each run, show that the path went through the kernels; a graph
 replay counts the launches its capture recorded. Every decode block of
 those runs is a graph capture or replay (the eager runs of phases 12 and
@@ -372,11 +398,12 @@ import torch
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 
-# llama-3.2-1b at 8 of its 16 layers: the depth every 1b phase runs (phases
-# 4-6 from the start; the others cut from 16 for the run's time once phase
-# 25 joined), registered as an arch preset so the server's YAMLs can name it.
-ONEB_LAYERS = 8
-ONEB_PRESET = "llama-3.2-1b-8l"
+# llama-3.2-1b at 4 of its 16 layers: the depth every 1b phase runs (phases
+# 4-6 at 8 from the start, the others cut from 16 to 8 for the run's time
+# once phase 25 joined, all to 4 once phases 27-29 did), registered as an
+# arch preset so the server's YAMLs can name it.
+ONEB_LAYERS = 4
+ONEB_PRESET = "llama-3.2-1b-4l"
 
 
 def _arch_1b():
@@ -1247,7 +1274,7 @@ def phase_model(gen: torch.Generator) -> dict:
     t0 = time.monotonic()
     params = llama.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
-    log(f"[model llama-3.2-1b, 8 layers] random bf16 weights in {time.monotonic() - t0:.1f}s, "
+    log(f"[model llama-3.2-1b, {ONEB_LAYERS} layers] random bf16 weights in {time.monotonic() - t0:.1f}s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     B, S = 2, 512
     toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")
@@ -1268,10 +1295,10 @@ def phase_model(gen: torch.Generator) -> dict:
     ids = _greedy_decode(cfg, params, logits, ks, vs, lens, 16, "cuda")
     ref_ids = _greedy_decode(cfg, params, ref, rks, rvs, lens, 16, "cuda")
     agree = sum(a == b for x, y in zip(ids, ref_ids) for a, b in zip(x, y)) / (16 * B)
-    log(f"[model llama-3.2-1b bf16, 8 layers] kernel vs dense prefill: logits max_abs_err={err:.4f} "
+    log(f"[model llama-3.2-1b bf16, {ONEB_LAYERS} layers] kernel vs dense prefill: logits max_abs_err={err:.4f} "
         f"(max |logit| {scale:.3f}), top-1 agreement={top1:.2f}, greedy ids over 16 steps "
         f"agree {agree:.2f}; kernel-path ids row0={[x[0] for x in ids]}")
-    # bf16 activations through 8 layers: the two attentions round at
+    # bf16 activations through the layers: the two attentions round at
     # different places; allow 5% of the largest logit.
     check(err <= 0.05 * scale, f"llama-3.2-1b prefill logits differ by {err} (max {scale})")
     return {"params": params, "cfg": cfg, "small": small, "p_small": p_gpu, "p_small_cpu": p_cpu}
@@ -1576,7 +1603,7 @@ def phase_engine(cfg, params) -> dict:
           f"{out['admissions']} admissions")
     check(n["paged_attention"] == 0, "the dense engine launched the paged kernel")
     _check_graphs("dense engine", out)
-    log("[engine llama-3.2-1b dense, 8 layers] " + json.dumps(out))
+    log(f"[engine llama-3.2-1b dense, {ONEB_LAYERS} layers] " + json.dumps(out))
     return out
 
 
@@ -1606,7 +1633,7 @@ def phase_paged_engine(cfg, params, small, p_small) -> dict:
           f"chunked admissions {out['chunked_admits']}, chunks {out['prefill_chunks']}")
     check(out["prefill_chunks_interleaved"] > 0, "no prefill chunk ran between decode blocks")
     _check_graphs("paged engine", out)
-    log("[engine llama-3.2-1b paged, 8 layers] " + json.dumps(out))
+    log(f"[engine llama-3.2-1b paged, {ONEB_LAYERS} layers] " + json.dumps(out))
 
     # The small f32 model: paged + chunked engine against the dense engine.
     texts = {}
@@ -1720,7 +1747,7 @@ LONG_PROMPT, LONG_NEW = 130_000, 32
 
 
 def phase_long_context() -> dict:
-    """llama-3.2-1b at full width, 8 of its 16 layers (bf16, seeded random
+    """llama-3.2-1b at full width, 4 of its 16 layers (bf16, seeded random
     weights) serves one 130,000-token prompt and 32 greedy tokens through
     Engine.submit, first on the flat all-hot windowed engine, then on the
     hierarchical + spill one. The ids must be identical, cold pages must
@@ -2263,15 +2290,26 @@ def _check_http_results(label: str, reqs, results,
     return texts, ttfts
 
 
-def _start_server(root: str):
+def _start_server(root: str, audio: bool = False):
+    """The port's server over the models dir `root` in a thread: the OpenAI
+    layer, and with `audio` the audio and realtime layers."""
     from localai_tpu_torch.config import ApplicationConfig
     from localai_tpu_torch.server import ModelManager, OpenAIApi, Router, create_server
+    from localai_tpu_torch.server.audio_api import AudioApi
+    from localai_tpu_torch.server.realtime_api import RealtimeApi
 
     app = ApplicationConfig(address="127.0.0.1", port=0, models_dir=root)
     manager = ModelManager(app, device="cuda")
     router = Router()
-    OpenAIApi(manager).register(router)
+    oai = OpenAIApi(manager)
+    oai.register(router)
+    rt = None
+    if audio:
+        AudioApi(manager, oai).register(router)
+        rt = RealtimeApi(manager, oai)
+        rt.register(router)
     server = create_server(app, router)
+    server.realtime = rt  # its per-append VAD record (realtime_api.RealtimeApi.vad_ms)
     threading.Thread(target=server.serve_forever, daemon=True, name="http").start()
     return manager, server, f"http://127.0.0.1:{server.server_address[1]}"
 
@@ -2496,10 +2534,11 @@ SPEC_SELF_LAYERS = 2
 # the JAX bench's 8 of 32 are.
 SPEC_LAYERS = 8
 SPEC_N_DRAFT = 5
-# Phases 8, 11, 12 and prefix_swap_8b serve llama-3-8b's first 16 of its 32
-# layers (cut for the run's time: 8 and 12 when phase 25 joined, 11 and
-# prefix_swap_8b when phase 26 did; phase 7 runs all 32).
-QUANT_ENGINE_LAYERS = 16
+# Phases 8, 11, 12 and prefix_swap_8b serve llama-3-8b's first 8 of its 32
+# layers (cut for the run's time: to 16, 8 and 12 when phase 25 joined, 11
+# and prefix_swap_8b when phase 26 did; all four to 8 when phases 27-29 did;
+# phase 7 runs all 32).
+QUANT_ENGINE_LAYERS = 8
 
 
 def _spec_requests(bs: int) -> list:
@@ -2650,7 +2689,7 @@ def phase_spec(qmodel: dict, small, p_small, p_small_cpu) -> dict:
     SPEC_LAYERS of its 32 layers) over the fp8 paged pool (PAGED_ENGINE,
     kv_scale 2): the plain engine, then
     prompt_lookup, self_draft (its first SPEC_SELF_LAYERS layers) and draft_model
-    (llama-3.2-1b bf16, full width, 8 of its 16 layers, seeded random weights), each
+    (llama-3.2-1b bf16, full width, 4 of its 16 layers, seeded random weights), each
     warmed up (every round shape captured) and then serving the pinned-bias
     workload at bs 1 and bs 8. Greedy ids must equal the plain engine's
     (or part at a near tie: _part_gap with the request's bias); every
@@ -2760,7 +2799,8 @@ def phase_spec(qmodel: dict, small, p_small, p_small_cpu) -> dict:
 MOE_SHAPES = [("...d,edf->...ef", 8, 4096, 14336), ("...ef,efd->...ed", 8, 14336, 4096)]
 # deepseek-v2-lite's experts (E = 64: gate / up 2048 x 1408, down 1408 x
 # 2048), int8 and int4, bf16 x, at a decode row, a decode block of 8 slots,
-# a 6-token verify of 8 slots (48 rows) and the kernels' 256-row limit.
+# a 6-token verify of 8 slots (48 rows) and the kernels' 256-row limit; and
+# grouped int8 (a deepseek2 GGUF's experts) at 8 and 48 rows.
 DEEPSEEK_MOE_SHAPES = [("...d,edf->...ef", 64, 2048, 1408), ("...ef,efd->...ed", 64, 1408, 2048)]
 
 
@@ -2780,6 +2820,9 @@ def phase_moe_kernels() -> list[dict]:
     cases = ([(sh, QMM_FORMS, (torch.bfloat16, torch.float32), (1, 8, 16, 64, 256))
               for sh in MOE_SHAPES]
              + [(sh, ("int8", "int4"), (torch.bfloat16,), (1, 8, 48, 256))
+                for sh in DEEPSEEK_MOE_SHAPES]
+             # A deepseek2 GGUF's experts: grouped int8 per expert (phase gguf_deepseek).
+             + [(sh, ("grouped_int8",), (torch.bfloat16,), (8, 48))
                 for sh in DEEPSEEK_MOE_SHAPES])
     for (sub, E, n_in, n_out), forms, dtypes, counts in cases:
         w = torch.randn(E, n_in, n_out, generator=gen, device="cuda") * 0.02
@@ -2839,8 +2882,8 @@ def _moe_probe(eng) -> dict:
 
 
 # of 32: the int4 run is cut for time (32 until the deepseek phases joined
-# the run).
-MIXTRAL_INT4_LAYERS = 8
+# the run, 8 until phases 27-29 did).
+MIXTRAL_INT4_LAYERS = 4
 
 
 def phase_mixtral(gen: torch.Generator) -> dict:
@@ -3376,7 +3419,7 @@ def _prefix_chat(cfg, params, before: int) -> dict:
 
 
 def phase_prefix_swap(small, p_small) -> dict:
-    """llama-3.2-1b at full width, 8 of its 16 layers (bf16, seeded random
+    """llama-3.2-1b at full width, 4 of its 16 layers (bf16, seeded random
     weights, ByteTokenizer), after warmup(): (a) the chat traffic on the
     paged engine (pages of 128, chunks of 512, default prefix knobs), then
     the same traffic with prefix_cache_entries=0 (`_prefix_chat`); (b) 8
@@ -3696,7 +3739,7 @@ def _grammar_round(eng, prompts, schemas) -> dict:
 
 
 def _grammar_http() -> dict:
-    """The port's server on llama-3.2-1b (8 of 16 layers, the synthetic byte
+    """The port's server on llama-3.2-1b (4 of 16 layers, the synthetic byte
     tokenizer): a tool call required of one tool, whole and streamed, a
     json_schema response format and a GBNF grammar on /v1/completions
     (streamed), their schemas prewarmed on the served engine. EOS gets +50
@@ -3795,7 +3838,7 @@ def _grammar_http() -> dict:
 
 
 def phase_grammar() -> dict:
-    """llama-3.2-1b at full width, 8 of its 16 layers (bf16, seeded random
+    """llama-3.2-1b at full width, 4 of its 16 layers (bf16, seeded random
     weights) with the synthetic byte tokenizer (every id a printable
     character, so the masks are dense) on phase 18's paged engine without
     the prefix cache: ops/grammar
@@ -4183,7 +4226,7 @@ def _tree_tiny(small, p_small) -> dict:
 
 
 def _tree_http() -> dict:
-    """The port's server on llama-3.2-1b (8 of 16 layers, the synthetic byte
+    """The port's server on llama-3.2-1b (4 of 16 layers, the synthetic byte
     tokenizer, the paged engine): chat logprobs (top 5) whole and streamed,
     completions logprobs 3, n 2 of best_of 4, /v1/tokenize, /v1/edits; a
     body deadline_s on the saturated model; a model YAML naming a draft
@@ -4305,7 +4348,7 @@ def _tree_http() -> dict:
 
 def phase_tree(small, p_small) -> dict:
     """Tree sampling, logprobs, deadlines and dense chunking on
-    llama-3.2-1b at full width, 8 of its 16 layers (bf16, seeded random
+    llama-3.2-1b at full width, 4 of its 16 layers (bf16, seeded random
     weights, the synthetic byte tokenizer): (a) 4 prompts of 200-1200
     tokens, each an n = 4 group of seeded top-p requests, through
     submit_fork on the paged engine after warmup(logprobs=True), then as
@@ -4540,7 +4583,9 @@ def phase_tree(small, p_small) -> dict:
 # The ggml tensor types the writer packs: name -> (type id, weights a block,
 # bytes a block), from the public GGUF spec (ggml.h / gguf.md).
 GGUF_TYPES = {"F32": (0, 1, 4), "Q8_0": (8, 32, 34), "Q4_K": (12, 256, 144),
-              "Q6_K": (14, 256, 210)}
+              "Q6_K": (14, 256, 210),
+              # F32 holding a normal draw x 0.05 (F32 itself holds ones: the norms).
+              "F32N": (0, 1, 4)}
 # Each quantized type's block layout (ggml-common.h) and the f16 scale fields
 # the writer sets over random bytes: every other byte of a block stays
 # random, and each scale is drawn (x 0.75-1.25 a block) so a weight's spread
@@ -4599,6 +4644,8 @@ def _gguf_payload(tname: str, n: int, rng) -> bytes:
     their scales set as GGUF_BLOCKS says."""
     if tname == "F32":
         return np.ones(n, "<f4").tobytes()
+    if tname == "F32N":
+        return (rng.standard_normal(n) * 0.05).astype("<f4").tobytes()
     dt, scales = GGUF_BLOCKS[tname]
     nb = n // GGUF_TYPES[tname][1]
     blocks = np.frombuffer(rng.bytes(nb * dt.itemsize), dt).copy()
@@ -4716,11 +4763,102 @@ def write_gguf_model(path: str, cfg, layers: int, plan: str, seed: int = 0) -> i
     return write_gguf(path, kv, tensors, seed)
 
 
+def _deepseek_gguf_type(key: str, layer: int) -> str:
+    """The ggml type of a weight in the deepseek2 file of phase
+    gguf_deepseek, mixed as a Q4_K_M file mixes them: routed experts in
+    q4_K (gate / up; q8_0 in every third layer) with ffn_down_exps in q8_0
+    (its 1408-wide rows are no whole number of K-quant blocks, as the
+    dense ffn_down's 10944 are not), attention in q6_K / q8_0, the shared
+    experts and the dense MLP in q4_K / q6_K, embeddings and head in
+    q6_K, norms and the router in F32."""
+    if key in ("ffn_down_exps", "ffn_down", "attn_kv_a_mqa", "attn_output"):
+        return "Q8_0"
+    if key in ("ffn_gate_exps", "ffn_up_exps"):
+        return "Q8_0" if layer % 3 == 2 else "Q4_K"
+    if key in ("ffn_gate_shexp", "ffn_up_shexp", "ffn_gate", "ffn_up"):
+        return "Q4_K"
+    return "Q6_K"
+
+
+def write_gguf_deepseek(path: str, cfg, layers: int, types=_deepseek_gguf_type,
+                        seed: int = 0, vocab: bool = True) -> int:
+    """A DeepSeek GGUF in llama.cpp's deepseek2 layout at cfg's widths with
+    `layers` blocks (the first cfg.first_k_dense dense, the rest MoE with
+    fused `_exps` stacks and `_shexp` shared experts; attn_q or the q-lora
+    pair attn_q_a / attn_q_b; exp_probs_b when cfg.router_bias), each
+    weight of ggml type types(key, layer) ("F32N": a random F32 draw), with
+    deepseek2 metadata (cfg's rope, router and MLA settings) and, when
+    `vocab`, gguf_vocab's tokenizer. Returns the file's bytes."""
+    D, V, E = cfg.hidden_size, cfg.vocab_size, cfg.num_experts
+    H, r, rot = cfg.num_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    n, vd, qr = cfg.qk_nope_head_dim, cfg.v_head_dim, cfg.q_lora_rank
+    Fm, kd = cfg.moe_inter_size, cfg.first_k_dense
+    a = "deepseek2"
+    kv = {"general.architecture": a, "general.name": cfg.name, f"{a}.block_count": layers,
+          f"{a}.context_length": cfg.max_position, f"{a}.embedding_length": D,
+          f"{a}.feed_forward_length": cfg.intermediate_size,
+          f"{a}.attention.head_count": H, f"{a}.attention.head_count_kv": H,
+          f"{a}.attention.layer_norm_rms_epsilon": float(cfg.rms_eps),
+          f"{a}.attention.kv_lora_rank": r, f"{a}.attention.key_length": n + rot,
+          f"{a}.attention.value_length": vd, f"{a}.rope.dimension_count": rot,
+          f"{a}.rope.freq_base": float(cfg.rope_theta), f"{a}.vocab_size": V,
+          f"{a}.expert_count": E, f"{a}.expert_used_count": cfg.num_experts_per_token,
+          f"{a}.expert_shared_count": cfg.n_shared_experts,
+          f"{a}.expert_feed_forward_length": Fm,
+          f"{a}.expert_weights_scale": float(cfg.routed_scaling_factor),
+          f"{a}.expert_weights_norm": bool(cfg.norm_topk_prob),
+          f"{a}.expert_gating_func": 2 if cfg.scoring_func == "sigmoid" else 1,
+          f"{a}.expert_group_count": cfg.n_group, f"{a}.expert_group_used_count": cfg.topk_group,
+          f"{a}.leading_dense_block_count": kd}
+    if qr:
+        kv[f"{a}.attention.q_lora_rank"] = qr
+    if vocab:
+        tokens, merges, ttypes = gguf_vocab(V, seed)
+        kv.update({"tokenizer.ggml.model": "gpt2", "tokenizer.ggml.pre": "llama-bpe",
+                   "tokenizer.ggml.tokens": tokens, "tokenizer.ggml.token_type": ttypes,
+                   "tokenizer.ggml.merges": merges, "tokenizer.ggml.bos_token_id": V - 256,
+                   "tokenizer.ggml.eos_token_id": V - 256 + 9,
+                   "tokenizer.ggml.add_bos_token": True,
+                   "tokenizer.chat_template": LLAMA3_CHAT_TEMPLATE})
+    tensors = [("token_embd.weight", types("token_embd", 0), (D, V))]
+    for i in range(layers):
+        mats = [("attn_norm", (D,)), ("ffn_norm", (D,)), ("attn_kv_a_norm", (r,))]
+        if qr:
+            mats += [("attn_q_a", (D, qr)), ("attn_q_a_norm", (qr,)),
+                     ("attn_q_b", (qr, H * (n + rot)))]
+        else:
+            mats.append(("attn_q", (D, H * (n + rot))))
+        mats += [("attn_kv_a_mqa", (D, r + rot)), ("attn_kv_b", (r, H * (n + vd))),
+                 ("attn_output", (H * vd, D))]
+        if i < kd:
+            F = cfg.intermediate_size
+            mats += [("ffn_gate", (D, F)), ("ffn_up", (D, F)), ("ffn_down", (F, D))]
+        else:
+            S = Fm * cfg.n_shared_experts
+            mats += [("ffn_gate_inp", (D, E)), ("ffn_gate_exps", (D, Fm, E)),
+                     ("ffn_up_exps", (D, Fm, E)), ("ffn_down_exps", (Fm, D, E))]
+            if S:
+                mats += [("ffn_gate_shexp", (D, S)), ("ffn_up_shexp", (D, S)),
+                         ("ffn_down_shexp", (S, D))]
+        for key, ne in mats:
+            tname = "F32" if len(ne) == 1 else types(key, i)
+            if key == "ffn_gate_inp" and tname not in ("F32", "F32N"):
+                tname = "F32N"  # llama.cpp keeps the router in F32
+            tensors.append((f"blk.{i}.{key}.weight", tname, ne))
+        if i >= kd and cfg.router_bias:
+            tensors.append((f"blk.{i}.exp_probs_b.bias", "F32N", (E,)))
+    tensors.append(("output_norm.weight", "F32", (D,)))
+    if not cfg.tie_embeddings:
+        tensors.append(("output.weight", types("output", 0), (D, V)))
+    return write_gguf(path, kv, tensors, seed)
+
+
 # The two files: llama-3.2-1b as a Q4_K_M file (tied embeddings, as
-# published), 8 of its 16 layers, and llama-3-8b as a Q8_0 file with an
+# published), 4 of its 16 layers, and llama-3-8b as a Q8_0 file with an
 # untied output.weight, 2 of its 32 layers (cut for time: 16 and 8 until
-# the deepseek phases joined the run, 16 and 4 until the observe phase did).
-GGUF_FILES = (("llama-3.2-1b", 8, "q4_k_m"), ("llama-3-8b", 2, "q8_0"))
+# the deepseek phases joined the run, 16 and 4 until the observe phase did,
+# the 1b's 8 until phases 27-29 did).
+GGUF_FILES = (("llama-3.2-1b", 4, "q4_k_m"), ("llama-3-8b", 2, "q8_0"))
 GGUF_YAML = {"context_size": 4096, "max_slots": 8, "kv_pages": 256, "kv_page_size": 128,
              "prefill_chunk": 512, "max_tokens": 64,
              "template": {"use_tokenizer_template": True}}
@@ -4853,11 +4991,13 @@ def _dense_of(params: dict) -> dict:
     return out
 
 
-def _gguf_against_dense(label: str, cfg, params: dict, plens: list[int], new: int) -> dict:
+def _gguf_against_dense(label: str, cfg, params: dict, plens: list[int], new: int,
+                        probe=None) -> dict:
     """The GGUF engine (params as loaded) against an engine on the
     dequantized dense bf16 tree: the same requests (_serve: half greedy,
     half seeded), each greedy request's ids equal or parting at a near tie
-    (_part_gap's bound on the dense model's logits). Returns the GGUF run."""
+    (_part_gap's bound on the dense model's logits). Returns the GGUF run,
+    with `probe(engine)`'s result after it as "probe" when given."""
     from localai_tpu_torch.engine.engine import Engine, EngineConfig
     from localai_tpu_torch.engine.tokenizer import ByteTokenizer
 
@@ -4865,7 +5005,11 @@ def _gguf_against_dense(label: str, cfg, params: dict, plens: list[int], new: in
         return Engine(cfg, p, ByteTokenizer(cfg.vocab_size), device="cuda",
                       engine_cfg=EngineConfig(**PAGED_ENGINE))
 
-    run = _serve(engine(params), plens, max_new=new, keep_ids=True)
+    eng = engine(params)
+    run = _serve(eng, plens, max_new=new, keep_ids=True)
+    if probe is not None:
+        run["probe"] = probe(eng)
+    del eng
     dense = _dense_of(params)
     ref = _serve(engine(dense), plens, max_new=new, keep_ids=True)
     parts = []
@@ -4909,6 +5053,7 @@ def phase_gguf(gen: torch.Generator) -> dict:
     dequantized dense tree."""
     import yaml
 
+    from localai_tpu_torch.engine import gguf as load_gguf_module
     from localai_tpu_torch.engine.gguf import load_gguf_checkpoint
     from localai_tpu_torch.engine.weights import params_from_numpy
     from localai_tpu_torch.models import get_arch
@@ -4946,8 +5091,12 @@ def phase_gguf(gen: torch.Generator) -> dict:
                            f)
         manager, server, base = _start_server(root)
         try:
+            # The manager's loader is handed the parse above (the file is the
+            # same): load_s is the card, the tokenizer and the engine.
             t0 = time.monotonic()
-            eng = manager.get("gguf-1b").engine
+            parsed = trees["llama-3.2-1b"][:3]
+            with swapped(load_gguf_module, "load_gguf_checkpoint", lambda _p: parsed):
+                eng = manager.get("gguf-1b").engine
             load_s = time.monotonic() - t0
             check(eng.tokenizer.native_bpe, "gguf-1b: the served tokenizer is not native BPE")
             out["tokenizer"] = _hold_gguf_tokenizer(eng.tokenizer, load_s)
@@ -5800,7 +5949,7 @@ def diagnose_deepseek_engine_step(layers: int = 8, request: int = 9) -> dict:
 
 # --------------------------------------------------------------------------- #
 # 23. observe: the journal, traces, timeline, profile windows, faults,
-#     crash-only restart and quarantine on llama-3.2-1b (8 of 16 layers, bf16)
+#     crash-only restart and quarantine on llama-3.2-1b (4 of 16 layers, bf16)
 # --------------------------------------------------------------------------- #
 
 OBSERVE_YAML = dict(LORA_BASE_YAML, name="obs-1b", trace_journal_events=4096)
@@ -6365,7 +6514,7 @@ def _obs_restarts(base: str, manager, pm_dir: str) -> dict:
 
 
 def phase_observe() -> dict:
-    """llama-3.2-1b bf16 at full width, 8 of its 16 layers, on the paged
+    """llama-3.2-1b bf16 at full width, 4 of its 16 layers, on the paged
     config, served by ModelManager and the port's HTTP server with the
     journal (4096 events), trace_fence, a postmortem directory and a
     profile directory: traces, the timeline, a profile window, the
@@ -6429,7 +6578,7 @@ def phase_observe() -> dict:
 
 
 # Embeddings, rerank, the bert backend and the vector store (phase 24).
-# llama-3.2-1b bf16 at full width, 8 of its 16 layers, on the paged config, the byte
+# llama-3.2-1b bf16 at full width, 4 of its 16 layers, on the paged config, the byte
 # tokenizer (ASCII text round-trips to its ids), no speculation; the chats,
 # rerank and embeddings all on one model.
 EMBED_YAML = dict({k: v for k, v in LORA_BASE_YAML.items() if k != "tokenizer"},
@@ -7399,14 +7548,19 @@ def phase_vision() -> dict:
 # 26. service: out-of-process backends and the service surfaces
 # --------------------------------------------------------------------------- #
 
-# The served 1b of the earlier phases (8 of 16 layers, the paged pool,
-# chunks of 512), read from a checkpoint written once to disk, so the
-# parent and its child load the same bf16 bytes. No tokenizer key: the
+# The served 1b of the earlier phases (the paged pool, chunks of 512) at
+# SERVICE_LAYERS of its 16 layers, read from a checkpoint written once to
+# disk, so the parent and its child load the same bf16 bytes. No tokenizer key: the
 # checkpoint holds no tokenizer files, so both take the byte tokenizer,
 # and requests carry ASCII_BIAS, so a reply's text is its ids.
 SERVICE_YAML = dict({k: v for k, v in LORA_BASE_YAML.items()
                      if k not in ("name", "model", "tokenizer")}, embeddings=True)
 SERVICE_NEW = 16  # tokens a chat (one 16-step block)
+# 8, not ONEB_LAYERS: the phase holds the child's greedy ids equal to the
+# in-process engine's, whose admissions batch differently; at 4 layers the
+# random 1b's top two ASCII-biased logits sit within that rounding (its
+# first token parted on the card).
+SERVICE_LAYERS = 8
 SERVICE_KILL_NEW = 512  # tokens the stream killed mid-decode asks for
 SERVICE_REPS = 3  # warm chats through the relay and straight to the child, alternated
 SERVICE_TEXT = "the service phase asks every backend the same question " * 4
@@ -7500,10 +7654,44 @@ def _free_card_bytes() -> int:
     return int(torch.cuda.mem_get_info()[0])
 
 
+def _service_parting_probe(lm) -> dict:
+    """The service chat's first greedy choice on the 1b at ONEB_LAYERS (init
+    seed 0, as the phase's checkpoint): at that depth a subprocess child's
+    first token once parted from the in-process engine's (ROADMAP Queue
+    C), so the phase serves SERVICE_LAYERS. The prompt ids are the chat's
+    (the served model's template and tokenizer); the logits a plain bf16
+    prefill's and its f32 witness's, each with the chat's ASCII bias: the
+    top two tokens and their gap, beside PREFIX_LOGIT_TOL of the largest
+    unbiased |logit| (the near-tie bound, without the bias's 100 in it)."""
+    from localai_tpu_torch.models import get_arch, llama
+
+    cfg = dataclasses.replace(get_arch(ONEB_PRESET), num_layers=ONEB_LAYERS)
+    prompt = lm.evaluator.template_messages(_service_body("probe")["messages"])
+    ids = lm.engine.tokenizer.encode(prompt, add_bos=not lm.cfg.template.use_tokenizer_template)
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    out = {"layers": ONEB_LAYERS, "prompt_tokens": len(ids)}
+    for label, c, p in (("bf16", cfg, params),
+                        ("f32", dataclasses.replace(cfg, dtype="float32"), _f32_tree(params))):
+        with torch.no_grad():
+            logits = llama.prefill(c, p, torch.tensor([ids], device="cuda"),
+                                   torch.tensor([len(ids)], device="cuda"))[0][0].float()
+        bound = PREFIX_LOGIT_TOL * float(logits.abs().max())
+        for t, b in ASCII_BIAS.items():
+            logits[t] += b
+        top = torch.topk(logits, 2)
+        out[label] = dict(top2=[lm.engine.tokenizer.decode([int(t)]) for t in top.indices],
+                          gap=float(top.values[0] - top.values[1]), bound=bound)
+        del p
+    del params
+    torch.cuda.empty_cache()
+    log(f"[service parting probe] {json.dumps(out)}")
+    return out
+
+
 def phase_service() -> dict:
     """Out-of-process backends and the service surfaces through the CLI's
     app (`__main__.build_app`: every layer the port registers) on the card:
-    the 8-layer 1b written once to a checkpoint, imported through
+    the 4-layer 1b written once to a checkpoint, imported through
     /models/import-uri (file://) and served in this process; a `subprocess`
     model whose child serves the same checkpoint on the card (spawn to
     ready, the first chat through the parent, warm chats through the relay
@@ -7537,7 +7725,7 @@ def phase_service() -> dict:
         t0 = time.monotonic()
         models, ckpt, gdir = f"{root}/models", f"{root}/llama-1b", f"{root}/gallery"
         os.makedirs(models)
-        cfg = get_arch(ONEB_PRESET)
+        cfg = dataclasses.replace(get_arch(ONEB_PRESET), num_layers=SERVICE_LAYERS)
         params = llama.init_params(cfg, seed=0, device="cuda")
         save_hf_checkpoint(cfg, params, ckpt)
         del params
@@ -7711,6 +7899,7 @@ def phase_service() -> dict:
             launches = _read_counts()
             check(launches["flash_prefill"] > 0 and launches["paged_attention"] > 0,
                   f"service: the in-process models did not launch B1 / B2: {launches}")
+            probe = _service_parting_probe(manager.get("local-1b"))
         except SystemExit:
             log_path = f"{models}/.subprocess-child-1b/child.log"
             if os.path.exists(log_path):  # the child's own account of a failure
@@ -7738,9 +7927,1035 @@ def phase_service() -> dict:
                        "after_kill": free_after / 2**30},
         child_card_gib=(free_before - free_with) / 2**30,
         returned_gib=(free_after - free_with) / 2**30,
-        mcp_methods=sorted(set(mcp.methods)), seconds=seconds, launches=launches)
+        mcp_methods=sorted(set(mcp.methods)), seconds=seconds, launches=launches,
+        parting_probe=probe)
     log(f"[service] {json.dumps(out)}")
     return {"summary": out, "run": {"launches": launches}}
+
+
+# --------------------------------------------------------------------------- #
+# 34. gguf_deepseek: a deepseek2 GGUF through B3's gq expert form, B2's latent
+#     form and B4; 35. expert_lora: LoRA merged into mixtral's experts
+# --------------------------------------------------------------------------- #
+
+# deepseek-v2-lite at full width, 4 of its 27 layers: the dense layer and 3 MoE
+# layers (cut for the run's time: the file's write and parse are host-bound).
+GGUF_DEEPSEEK_LAYERS = 4
+GGUF_DEEPSEEK_PROMPTS = [20, 100, 300, 700, 1500, 20, 100, 300]
+GGUF_DEEPSEEK_NEW = 32  # tokens a request of the Engine.submit run
+GGUF_DEEPSEEK_HTTP_NEW = 16  # tokens a chat of the HTTP run
+
+
+def _check_gguf_deepseek_launches(label: str, cfg, out: dict, n: dict) -> None:
+    """The kernel identities of a deepseek2 GGUF run: B2's latent form once
+    a layer a decode step and a prefill chunk; B3's expert form (or its
+    dequant route above 256 rows) 3 a MoE layer a pass, in its `gq` form;
+    B4 once a pass with logits; no 2-D B3 product (the file's attention
+    and dense MLP load as bf16)."""
+    L, kd = cfg.num_layers, cfg.first_k_dense
+    steps, passes = out["decode_steps"], out["admissions"] + out["prefill_chunks"]
+    check(n["paged_attention_latent"] == L * (steps + out["prefill_chunks"])
+          and n["paged_attention"] == 0 and n["flash_prefill"] == 0,
+          f"{label}: B2 latent launches {n['paged_attention_latent']} != {L} x ({steps} + "
+          f"{out['prefill_chunks']})")
+    moe = n["quant_matmul_moe"] + n["moe_dequant_calls"]
+    check(n["quant_matmul_moe"] > 0 and moe == 3 * (L - kd) * (steps + passes),
+          f"{label}: expert launches {n['quant_matmul_moe']} + dequant {n['moe_dequant_calls']}"
+          f" != 3 x {L - kd} x ({steps} + {passes})")
+    check(n["quant_matmul"] == 0, f"{label}: a 2-D B3 product ran on a bf16 weight: {n}")
+    check(n["quant_unembed"] == steps + out["admissions"] + out["chunked_admits"],
+          f"{label}: B4 launches {n['quant_unembed']}")
+
+
+def phase_gguf_deepseek() -> dict:
+    """A deepseek2 GGUF at deepseek-v2-lite's full widths, GGUF_DEEPSEEK_LAYERS
+    of its 27 layers, its types mixed as a Q4_K_M file mixes them
+    (_deepseek_gguf_type), written from llama.cpp's layout with seeded
+    random payloads: the write and the parse timed; the tree's forms
+    checked (experts in grouped int8 per expert, B3's `gq` expert form,
+    the head in per-channel int8 for B4); 8 requests through Engine.submit
+    on the paged engine with graphs, held against the dequantized bf16
+    tree with _part_gap's rule (_gguf_against_dense); then the file served
+    over HTTP from a YAML `model: <file>.gguf` (4 chats, half streamed),
+    the parse reused."""
+    import yaml
+
+    from localai_tpu_torch.engine import gguf as G
+    from localai_tpu_torch.engine.weights import params_from_numpy
+    from localai_tpu_torch.models import get_arch
+
+    cfg = get_arch("deepseek-v2-lite")
+    root = tempfile.mkdtemp(prefix="gguf-ds-")
+    out: dict = {}
+    try:
+        path = f"{root}/deepseek-v2-lite-q4_k_m.gguf"
+        t0 = time.monotonic()
+        nbytes = write_gguf_deepseek(path, cfg, GGUF_DEEPSEEK_LAYERS, seed=5)
+        write_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        parsed = G.load_gguf_checkpoint(path)
+        parse_s = time.monotonic() - t0
+        arch, tree, tok_dir = parsed
+        widths = ("vocab_size", "hidden_size", "intermediate_size", "num_heads", "kv_lora_rank",
+                  "qk_nope_head_dim", "qk_rope_head_dim", "v_head_dim", "num_experts",
+                  "num_experts_per_token", "n_shared_experts", "moe_inter_size",
+                  "first_k_dense", "q_lora_rank", "tie_embeddings")
+        check(all(getattr(arch, k) == getattr(cfg, k) for k in widths) and arch.is_mla
+              and arch.num_layers == GGUF_DEEPSEEK_LAYERS and tok_dir is not None,
+              f"gguf_deepseek: the file's arch {arch} is not deepseek-v2-lite's widths")
+        E, D, F, M = cfg.num_experts, cfg.hidden_size, cfg.moe_inter_size, GGUF_DEEPSEEK_LAYERS - 1
+        lay = tree["layers"]
+        check(sorted(lay["w_gate"]) == ["gq", "gs"]
+              and lay["w_gate"]["gq"].shape == (M, E, D // 32, 32, F)
+              and lay["w_down"]["gs"].shape == (M, E, F // 32, 1, D)
+              and sorted(tree["lm_head"]) == ["q", "s"],
+              f"gguf_deepseek: tree forms {({k: getattr(v, 'shape', None) for k, v in lay['w_gate'].items()})}")
+        t0 = time.monotonic()
+        params = params_from_numpy(arch, tree, device="cuda")
+        put_s = time.monotonic() - t0
+        out["file"] = dict(layers=GGUF_DEEPSEEK_LAYERS, file_bytes=nbytes, write_s=write_s,
+                           parse_and_repack_s=parse_s, to_card_s=put_s,
+                           forms=_form_bytes(params))
+        log(f"[gguf_deepseek file] {json.dumps(out['file'])}")
+        run = _gguf_against_dense("deepseek-v2-lite", arch, params, GGUF_DEEPSEEK_PROMPTS,
+                                  GGUF_DEEPSEEK_NEW, probe=_moe_probe)
+        # The served rate of 8 slots from one graph replay's device time a step
+        # (the run's own decode_tok_s includes its blocks' first captures).
+        run["device_tok_s_8_slots"] = 8e3 / run["probe"]["device_ms_per_step"]
+        _check_graphs("gguf_deepseek", run)
+        _check_gguf_deepseek_launches("gguf_deepseek engine", arch, run, run["launches"])
+        run.pop("ids")
+        out["engine"] = run
+        log(f"[gguf_deepseek engine] {json.dumps(run)}")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # The same file over HTTP from its YAML (the manager's loader handed
+        # the parse above: the file is the same).
+        with open(f"{root}/ds-gguf.yaml", "w") as f:
+            yaml.safe_dump({"name": "ds-gguf", "model": os.path.basename(path), **GGUF_YAML}, f)
+        manager, server, base = _start_server(root)
+        try:
+            t0 = time.monotonic()
+            with swapped(G, "load_gguf_checkpoint", lambda _p: parsed):
+                eng = manager.get("ds-gguf").engine
+            load_s = time.monotonic() - t0
+            reqs = [("/v1/chat/completions", "ds-gguf", {
+                "model": "ds-gguf", "max_tokens": GGUF_DEEPSEEK_HTTP_NEW, "ignore_eos": True,
+                "stream": i % 2 == 1, "temperature": 0.0 if i < 2 else 0.8, "seed": 40 + i,
+                "messages": [{"role": "user", "content": _gguf_text(n, 40 + i)}]})
+                for i, n in enumerate((150, 600, 1200, 2400))]
+            m0 = eng.metrics()
+            _zero_counts()
+            results, wall = _http_batch(base, reqs)
+            n = _read_counts()
+            m1 = eng.metrics()
+            _texts, ttfts = _check_http_results("gguf_deepseek http", reqs, results,
+                                                n_tokens=GGUF_DEEPSEEK_HTTP_NEW)
+            d = {k: int(m1[k] - m0[k]) for k in ("decode_steps", "admissions", "prefill_chunks",
+                                                  "chunked_admits", "decode_blocks",
+                                                  "decode_graph_captures",
+                                                  "decode_graph_replays")}
+            _check_graphs("gguf_deepseek http", d)
+            _check_gguf_deepseek_launches("gguf_deepseek http", eng.cfg, d, n)
+            out["http"] = dict(requests=len(reqs), wall_s=wall, load_s=load_s,
+                               stream_ttft_ms=[t * 1e3 for t in ttfts], launches=n, **d)
+            log(f"[gguf_deepseek http] {json.dumps(out['http'])}")
+        finally:
+            server.shutdown()
+            manager.shutdown()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["summary"] = dict(
+        file=_compact(out["file"], ("file_bytes", "write_s", "parse_and_repack_s", "to_card_s")),
+        engine=_compact(out["engine"], ("decode_tok_s", "device_tok_s_8_slots", "probe",
+                                        "ttft_ms_p50", "weight_bytes", "launches")),
+        greedy_parted=len(out["engine"]["greedy_vs_dense"]["parted"]),
+        http_load_s=out["http"]["load_s"])
+    log(f"[gguf_deepseek summary] {json.dumps(out['summary'])}")
+    return out
+
+
+EXPERT_LORA_RANK = 16
+EXPERT_LORA_PROMPTS = [20, 100, 300, 700, 1500, 20, 100, 300]
+EXPERT_LORA_NEW = 32
+
+
+def _mixtral_hf_shapes(cfg) -> dict[str, tuple]:
+    """Every tensor of a Mixtral HF checkpoint of cfg ([out, in] linears)."""
+    D, F, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    Q, K = cfg.num_heads * cfg.head_dim_, cfg.num_kv_heads * cfg.head_dim_
+    s = {"model.embed_tokens.weight": (V, D), "model.norm.weight": (D,),
+         "lm_head.weight": (V, D)}
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        s.update({p + "input_layernorm.weight": (D,), p + "post_attention_layernorm.weight": (D,),
+                  p + "self_attn.q_proj.weight": (Q, D), p + "self_attn.k_proj.weight": (K, D),
+                  p + "self_attn.v_proj.weight": (K, D), p + "self_attn.o_proj.weight": (D, Q),
+                  p + "block_sparse_moe.gate.weight": (cfg.num_experts, D)})
+        for e in range(cfg.num_experts):
+            q = f"{p}block_sparse_moe.experts.{e}."
+            s.update({q + "w1.weight": (F, D), q + "w3.weight": (F, D), q + "w2.weight": (D, F)})
+    return s
+
+
+def _greedy_ids(eng, prompts, new) -> tuple[list, dict]:
+    """Greedy requests through Engine.submit, the counts zeroed just before
+    and read just after: (each request's ids, the counts)."""
+    from localai_tpu_torch.engine.engine import GenRequest
+
+    _zero_counts()
+    handles = [eng.submit(GenRequest(prompt_ids=p, max_new_tokens=new, ignore_eos=True))
+               for p in prompts]
+    ids = [[ev.token_id for ev in h if ev.kind == "token"] for h in handles]
+    return ids, _read_counts()
+
+
+def phase_expert_lora() -> dict:
+    """A Mixtral-8x7b HF checkpoint at full width, 1 of its 32 layers
+    (seeded random bf16, written on the host), and a rank-16 PEFT adapter on
+    that layer's every expert w1 / w3 / w2 and on q_proj / v_proj, loaded
+    with quantize="int4" and the adapter merged (timed). A second checkpoint
+    holds the same tensors with the loader's deltas added beforehand (f32,
+    cast to bf16) and loads with quantize="int4" and no adapter (timed):
+    every int4 payload, scale and zero point of the merged projections
+    equals its, bit for bit, and 8 greedy requests through B3's expert form
+    give the same ids on both trees."""
+    from localai_tpu_torch.engine import weights as W
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig
+    from localai_tpu_torch.engine.tokenizer import ByteTokenizer
+    from localai_tpu_torch.models import get_arch
+
+    cfg = dataclasses.replace(get_arch("mixtral-8x7b"), num_layers=1)
+    E, R = cfg.num_experts, EXPERT_LORA_RANK
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    root = tempfile.mkdtemp(prefix="expert-lora-")
+    out: dict = {}
+    try:
+        ckpt, adir = f"{root}/ckpt", f"{root}/adapter"
+        os.makedirs(ckpt)
+        shapes = _mixtral_hf_shapes(cfg)
+        t0 = time.monotonic()
+        W.write_safetensors(
+            f"{ckpt}/model.safetensors", shapes, torch.bfloat16,
+            lambda k: (torch.ones(shapes[k], device="cuda") if len(shapes[k]) == 1 else
+                       torch.randn(shapes[k], generator=gen, device="cuda") * 0.02))
+        with open(f"{ckpt}/config.json", "w") as f:
+            json.dump({"model_type": "mixtral", "vocab_size": cfg.vocab_size,
+                       "hidden_size": cfg.hidden_size, "intermediate_size": cfg.intermediate_size,
+                       "num_hidden_layers": 1, "num_attention_heads": cfg.num_heads,
+                       "num_key_value_heads": cfg.num_kv_heads, "num_local_experts": E,
+                       "num_experts_per_tok": cfg.num_experts_per_token,
+                       "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.rms_eps,
+                       "max_position_embeddings": cfg.max_position,
+                       "tie_word_embeddings": False}, f)
+        write_s = time.monotonic() - t0
+        arch = W.arch_from_hf_config(ckpt)
+        check(arch.is_moe and arch.num_experts == E and arch.hidden_size == cfg.hidden_size,
+              f"expert_lora: the checkpoint's arch {arch}")
+        rng = np.random.default_rng(29)
+        D, F, Q, K = cfg.hidden_size, cfg.intermediate_size, cfg.num_heads * cfg.head_dim_, \
+            cfg.num_kv_heads * cfg.head_dim_
+        mods = [(f"block_sparse_moe.experts.{e}.{w}", (F, D) if w != "w2" else (D, F))
+                for e in range(E) for w in ("w1", "w3", "w2")]
+        mods += [("self_attn.q_proj", (Q, D)), ("self_attn.v_proj", (K, D))]
+        factors = {}
+        for mod, (d_out, d_in) in mods:
+            pre = f"base_model.model.model.layers.0.{mod}"
+            factors[f"{pre}.lora_A.weight"] = rng.normal(0, 0.02, (R, d_in)).astype(np.float32)
+            factors[f"{pre}.lora_B.weight"] = rng.normal(0, 0.02, (d_out, R)).astype(np.float32)
+        W.save_lora_adapter(adir, factors, R, R)
+        t0 = time.monotonic()
+        merged = W.load_hf_checkpoint(arch, ckpt, device="cuda", quantize="int4",
+                                      lora=[(adir, 1.0)])
+        load_s = time.monotonic() - t0
+
+        # The pre-merged checkpoint: the loader's deltas added in f32 on the host
+        # side to the checkpoint's tensors, cast to bf16 and written as a
+        # second checkpoint, loaded with quantize="int4" and no adapter. Each
+        # merged projection's payloads equal its payloads bit for bit.
+        t0 = time.monotonic()
+        deltas = W.load_lora_deltas(adir, 1.0, arch)
+        st = W.SafetensorsFile(f"{ckpt}/model.safetensors")
+        adapted, changed = {}, {}
+        for our, names in (("w_gate", "w1"), ("w_up", "w3"), ("w_down", "w2"),
+                           ("wq", "q_proj"), ("wv", "v_proj")):
+            if our.startswith("w_"):
+                for e in range(E):
+                    adapted[f"model.layers.0.block_sparse_moe.experts.{e}.{names}.weight"] = \
+                        (our, deltas[our][(0, e)])
+            else:
+                adapted[f"model.layers.0.self_attn.{names}.weight"] = (our, deltas[our][0])
+        moved = {our: [] for our, _d in adapted.values()}
+
+        def pre_merged(name: str) -> torch.Tensor:
+            base = st.get(name).cuda()
+            if name not in adapted:
+                return base
+            our, d = adapted[name]
+            pre = (base.float() + torch.from_numpy(d).cuda().t()).to(torch.bfloat16)
+            moved[our].append(float((pre != base).float().mean()))
+            return pre
+
+        pdir = f"{root}/pre_merged"
+        os.makedirs(pdir)
+        shutil.copy(f"{ckpt}/config.json", pdir)
+        W.write_safetensors(f"{pdir}/model.safetensors", shapes, torch.bfloat16, pre_merged)
+        del deltas, st
+        pre_write_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        pre_tree = W.load_hf_checkpoint(arch, pdir, device="cuda", quantize="int4")
+        pre_load_s = time.monotonic() - t0
+        equal = {our: all(torch.equal(merged["layers"][our][k], v)
+                          for k, v in pre_tree["layers"][our].items())
+                 for our in moved}
+        changed = {our: sum(v) / len(v) for our, v in moved.items()}
+        check(all(equal.values()), f"expert_lora: merged int4 payloads differ from the "
+                                   f"pre-merged checkpoint's: {equal}")
+        check(all(c > 0.1 for c in changed.values()),
+              f"expert_lora: a delta moved few bf16 weights: {changed}")
+
+        prompts = _serve_prompts(EXPERT_LORA_PROMPTS)
+        runs = {}
+        for label, tree in (("merged", merged), ("pre_merged", pre_tree)):
+            eng = Engine(arch, tree, ByteTokenizer(arch.vocab_size), device="cuda",
+                         engine_cfg=EngineConfig(**PAGED_ENGINE))
+            eng.start()
+            try:
+                t0 = time.monotonic()
+                ids, n = _greedy_ids(eng, prompts, EXPERT_LORA_NEW)
+                wall = time.monotonic() - t0
+            finally:
+                eng.stop()
+            check(all(len(x) == EXPERT_LORA_NEW for x in ids) and n["quant_matmul_moe"] > 0
+                  and n["quant_matmul_g4"] > 0,
+                  f"expert_lora {label}: ids {[len(x) for x in ids]}, launches {n}")
+            runs[label] = dict(ids=ids, wall_s=wall, launches=n)
+        check(runs["merged"]["ids"] == runs["pre_merged"]["ids"],
+              "expert_lora: the merged tree's greedy ids differ from the pre-merged tree's")
+        out = dict(write_s=write_s, load_s=load_s, pre_merged_write_s=pre_write_s,
+                   pre_merged_load_s=pre_load_s, rank=R,
+                   payloads_equal=equal, weights_moved=changed,
+                   launches=runs["merged"]["launches"], wall_s=runs["merged"]["wall_s"],
+                   ids_equal=True)
+        log(f"[expert_lora] {json.dumps(out)}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# 36. audio: whisper, the TTS voices, the VADs and the realtime socket
+# --------------------------------------------------------------------------- #
+
+AUDIO_SPEECH_S = (30.0, 75.0)  # 1 and 3 whisper chunks
+AUDIO_COS_MIN = 0.999  # the bf16 whisper encoder's states against the f32 witness
+VITS_COS_MIN = 0.999  # the card's VITS waveform against the CPU's f32 witness
+REALTIME_NEW = 16  # tokens the realtime turn decodes
+REALTIME_APPEND_S = 0.1  # a realtime client's pcm16 chunk, sent at this pace
+BUSY_SPEECH_S = 45.0  # the transcription posted under chats: 2 chunks
+BUSY_CHATS = 4
+BUSY_CHAT_NEW = 2048  # tokens a busy chat decodes (~8 s of the 4-layer 1b at 4 slots)
+VAD_STREAM_S = 30.0  # speech the streaming VAD takes in 100 ms pushes
+VAD_SEG_TOL_S = 0.02  # its segments' ends against detect()'s: two 10 ms frames (rounding)
+
+
+def _formant_speech(seconds: float, seed: int, sr: int = 16_000,
+                    with_end: bool = False) -> np.ndarray | tuple[np.ndarray, float]:
+    """Formant-synthesized speech of `seconds` (utterances of up to 6 s with
+    pauses between them), at sr; `with_end` adds the second at which the
+    last voiced sample ends (the synthesizer's own labels)."""
+    from localai_tpu_torch.audio.formant_speech import synth_utterance
+    from localai_tpu_torch.audio.wav import resample
+
+    rng = np.random.default_rng(seed)
+    parts, labels, n = [], [], 0.0
+    while n < seconds:
+        d = min(6.0, seconds - n)
+        x, label = synth_utterance(rng, d, 16_000)
+        parts.append(x)
+        labels.append(label)
+        n += d
+    x = np.concatenate(parts)[: int(seconds * 16_000)]
+    x = resample(x, 16_000, sr) if sr != 16_000 else x
+    if not with_end:
+        return x
+    voiced = np.flatnonzero(np.concatenate(labels)[: int(seconds * 16_000)] > 0)
+    return x, (int(voiced[-1]) + 1) / 16_000
+
+
+class _WsClient:
+    """A minimal RFC 6455 client over a raw socket (masked frames)."""
+
+    def __init__(self, base: str, path: str):
+        import base64
+
+        host, port = base.split("//")[1].split(":")
+        self.sock = socket.create_connection((host, int(port)), timeout=600)
+        key = base64.b64encode(os.urandom(16)).decode()
+        self.sock.sendall((f"GET {path} HTTP/1.1\r\nHost: {host}\r\nUpgrade: websocket\r\n"
+                           f"Connection: Upgrade\r\nSec-WebSocket-Key: {key}\r\n"
+                           "Sec-WebSocket-Version: 13\r\n\r\n").encode())
+        self.f = self.sock.makefile("rb")
+        status = self.f.readline().decode()
+        check("101" in status, f"realtime: handshake answered {status!r}")
+        while self.f.readline().strip():
+            pass
+
+    def send(self, obj: dict) -> None:
+        payload = json.dumps(obj).encode()
+        mask = os.urandom(4)
+        n = len(payload)
+        head = bytes([0x81]) + (bytes([0x80 | n]) if n < 126 else
+                                bytes([0x80 | 126]) + struct.pack(">H", n) if n < 1 << 16 else
+                                bytes([0x80 | 127]) + struct.pack(">Q", n))
+        body = (np.frombuffer(payload, np.uint8)
+                ^ np.resize(np.frombuffer(mask, np.uint8), n)).tobytes()
+        self.sock.sendall(head + mask + body)
+
+    def recv(self) -> dict:
+        while True:
+            b1, b2 = self.f.read(2)
+            ln = b2 & 0x7F
+            if ln == 126:
+                (ln,) = struct.unpack(">H", self.f.read(2))
+            elif ln == 127:
+                (ln,) = struct.unpack(">Q", self.f.read(8))
+            payload = self.f.read(ln)
+            if b1 & 0x0F == 0x1:
+                return json.loads(payload)
+            check(b1 & 0x0F != 0x8, "realtime: the server closed the socket")
+
+    def close(self) -> None:
+        self.sock.close()
+
+
+def _post_raw(base: str, path: str, body: bytes, ctype: str) -> tuple[int, str, bytes, float]:
+    import urllib.error
+    import urllib.request
+
+    t0 = time.monotonic()
+    req = urllib.request.Request(base + path, data=body, headers={"Content-Type": ctype})
+    try:
+        with urllib.request.urlopen(req, timeout=900) as r:
+            return r.status, r.headers.get("Content-Type"), r.read(), time.monotonic() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers.get("Content-Type"), e.read(), time.monotonic() - t0
+
+
+def _multipart(fields: dict) -> tuple[bytes, str]:
+    boundary = "smoke" + os.urandom(8).hex()
+    parts = []
+    for name, (fname, blob) in fields.items():
+        disp = f'form-data; name="{name}"' + (f'; filename="{fname}"' if fname else "")
+        parts.append(f"--{boundary}\r\nContent-Disposition: {disp}\r\n\r\n".encode() + blob
+                     + b"\r\n")
+    return b"".join(parts) + f"--{boundary}--\r\n".encode(), \
+        f"multipart/form-data; boundary={boundary}"
+
+
+def _forced_logits(cfg, params, enc, seq: list[int]) -> torch.Tensor:
+    """Whisper's logits after teacher-forcing `seq` (B = 1): the first step
+    eager, the rest replays of one captured decode step over static token
+    and position buffers (whisper.capture_graph: the engines' capture
+    stream, lock and thread-local mode)."""
+    from localai_tpu_torch.models import whisper as W
+
+    with torch.no_grad():
+        xk, xv = W.cross_kv(cfg, params, enc)
+        cache = W.SelfCache.zeros(cfg, 1, "cuda")
+        seq_d = torch.tensor(seq, device="cuda")
+        step = torch.zeros((1,), dtype=torch.int64, device="cuda")
+        logits = torch.zeros((1, cfg.vocab_size), device="cuda")
+
+        def forced_step():
+            logits.copy_(W.decode_step(cfg, params, seq_d[step], step, cache, xk, xv)[0])
+            step.add_(1)
+
+        graph = W.capture_graph(torch.device("cuda"), forced_step)  # runs the first step
+        for _ in range(len(seq) - 1):
+            graph.replay()
+        return logits[0].clone()
+
+
+def _whisper_witness(weng, mel) -> dict:
+    """The served bf16 whisper on one 30 s chunk against the f32 witness on
+    the same weights: the encoder's states by cosine, the greedy ids equal
+    or parting where the witness is at a near tie (its logits at the
+    parting step, teacher-forced on the bf16 ids: the gap of the two
+    choices within PREFIX_LOGIT_TOL of the largest |logit|); the encoder's
+    device time, and the decode's: CUDA events around the engine's own B =
+    1 step graphs (captured by the first 30 s request) replaying the 4
+    prompt and 192 greedy steps."""
+    from localai_tpu_torch.models import whisper as W
+
+    wcfg, params = weng.cfg, weng.params
+    prompt = [wcfg.sot_id, wcfg.first_lang_id, wcfg.transcribe_id, wcfg.no_timestamps_id]
+    f32cfg = dataclasses.replace(wcfg, dtype="float32")
+    p32 = {k: ({kk: vv.float() for kk, vv in v.items()} if isinstance(v, dict) else v.float())
+           for k, v in params.items()}
+    steps = weng.MAX_NEW_TOKENS
+    with torch.no_grad():
+        enc = W.encode(wcfg, params, mel)
+        enc32 = W.encode(f32cfg, p32, mel)
+        cos = float(torch.nn.functional.cosine_similarity(enc.float().flatten(),
+                                                          enc32.flatten(), dim=0))
+        enc_ms = cuda_time_ms(lambda: W.encode(wcfg, params, mel), reps=5)
+        with weng._lock:
+            captures = weng.graphs.captures
+            toks, nv = W.transcribe_greedy(wcfg, params, mel, prompt, steps, graphs=weng.graphs)
+            decode_ms, replays = weng.graphs.decode_ms(), weng.graphs.steps_last
+            check(weng.graphs.captures == captures and replays == steps + len(prompt),
+                  f"audio: the witness's request captured {weng.graphs.captures - captures} "
+                  f"graphs, or ran {replays} steps, not {steps + len(prompt)}")
+        toks32, _ = W.transcribe_greedy(f32cfg, p32, mel, prompt, steps)
+        # The graph replays against eager decode steps: the first 8 tokens.
+        xk, xv = W.cross_kv(wcfg, params, enc)
+        cache = W.SelfCache.zeros(wcfg, 1, "cuda")
+        eager, tok = [], None
+        for i in range(len(prompt) + 8):
+            t = prompt[i] if i < len(prompt) else tok
+            logits, cache = W.decode_step(wcfg, params, torch.tensor([t], device="cuda"),
+                                          torch.tensor([i], device="cuda"), cache, xk, xv)
+            tok = int(logits[0].argmax())
+            if i >= len(prompt) - 1 and len(eager) < 8:
+                eager.append(tok)
+    check(eager == toks[0, :8].tolist(), f"audio: whisper's graph replays gave "
+                                          f"{toks[0, :8].tolist()}, eager steps {eager}")
+    got, want = toks[0].tolist(), toks32[0].tolist()
+    part = None
+    if got != want:
+        p = next(i for i, (a, b) in enumerate(zip(want, got)) if a != b)
+        lg = _forced_logits(f32cfg, p32, enc32, prompt + got[:p])
+        part = dict(position=p, want=want[p], got=got[p],
+                    gap=abs(float(lg[want[p]] - lg[got[p]])),
+                    bound=PREFIX_LOGIT_TOL * float(lg.abs().max()))
+        check(part["gap"] <= part["bound"], f"audio: whisper's bf16 greedy ids part from the "
+                                            f"f32 witness's beyond a near tie: {part}")
+    check(cos >= AUDIO_COS_MIN, f"audio: whisper encoder cosine {cos} < {AUDIO_COS_MIN}")
+    del p32, enc32
+    torch.cuda.empty_cache()
+    return dict(encoder_cosine=cos, encoder_ms=enc_ms, decode_steps=replays,
+                decode_steps_ms=decode_ms, decode_ms_per_token=decode_ms / replays,
+                ids_equal=part is None, parted=part, n_valid=int(nv[0]))
+
+
+def _whisper_busy(base: str, weng, speech16: np.ndarray) -> dict:
+    """Transcriptions posted while BUSY_CHATS streamed greedy chats decode on
+    the same server: 30 s (1 chunk, its graphs captured by an earlier
+    request: replays only), then 45 s (2 chunks, a count no request had:
+    whisper captures its encoder and step graphs while the chat engine's
+    loop thread launches, allocates and synchronizes), after a short round
+    of the same chats has captured the chat engine's first blocks. Every
+    chat ends with its tokens and no error and is in flight across the 30
+    s request and at the 45 s request's post; the 30 s ids equal an idle
+    request's, the 45
+    s request captured its two graphs once, and the same 45 s again on the
+    idle server replays them with the same ids."""
+    from localai_tpu_torch.audio.wav import write_wav
+
+    def post(seconds: float) -> tuple[dict, float, int, float]:
+        body, ctype = _multipart({
+            "file": ("speech.wav", write_wav(speech16[: int(seconds * 16_000)], 16_000)),
+            "model": (None, b"whisper"), "response_format": (None, b"verbose_json")})
+        captures = weng.graphs.captures
+        t_post = time.monotonic()
+        status, _ct, raw, wall = _post_raw(base, "/v1/audio/transcriptions", body, ctype)
+        check(status == 200, f"audio: a {seconds} s transcription answered {status}: {raw[:300]}")
+        return json.loads(raw), wall, weng.graphs.captures - captures, t_post
+
+    def ids(res: dict) -> list:
+        return [s["tokens"] for s in res["segments"]]
+
+    idle30, idle30_wall, _c, _t = post(30.0)
+    results: list = [None] * BUSY_CHATS
+    stamps: list = [[] for _ in range(BUSY_CHATS)]
+
+    def chat(i: int, n: int = BUSY_CHAT_NEW) -> None:
+        req = {"model": "chat", "messages": [{"role": "user", "content": _obs_text(60, 900 + i)}],
+               "max_tokens": n, "ignore_eos": True, "temperature": 0.0, "stream": True}
+        results[i] = _http(base, "/v1/chat/completions", req, time.monotonic(), stamps[i])
+
+    # A short round first: the chat engine captures its first blocks' graphs.
+    warm = [threading.Thread(target=chat, args=(i, 64), daemon=True) for i in range(BUSY_CHATS)]
+    for th in warm:
+        th.start()
+    for th in warm:
+        th.join(timeout=300)
+    stamps = [[] for _ in range(BUSY_CHATS)]
+    threads = [threading.Thread(target=chat, args=(i,), daemon=True) for i in range(BUSY_CHATS)]
+    for th in threads:
+        th.start()
+    t0 = time.monotonic()
+    while min(len(x) for x in stamps) < 2:  # every chat decoding
+        check(time.monotonic() - t0 < 120, "audio: the busy chats never started")
+        time.sleep(0.005)
+    busy30, busy30_wall, c30, t30 = post(30.0)
+    busy45, busy45_wall, c45, t45 = post(BUSY_SPEECH_S)
+    for th in threads:
+        th.join(timeout=600)
+    for i, c in enumerate(results):
+        check(c is not None and c["status"] == 200 and c["frames"][-1] == "[DONE]"
+              and not any('"error"' in f for f in c["frames"]),
+              f"audio: busy chat {i} ended {c and c['status']}")
+        usage = json.loads(c["frames"][-2])["usage"]
+        check(usage["completion_tokens"] == BUSY_CHAT_NEW, f"audio: busy chat {i}: {usage}")
+    # Every chat in flight (a frame before and after) across the 30 s request,
+    # and one still in flight when the 45 s request was posted.
+    during30 = [sum(t30 < t <= t30 + busy30_wall for t in x) for x in stamps]
+    after45 = [sum(t > t45 for t in x) for x in stamps]
+    check(all(x[0] < t30 and x[-1] > t30 + busy30_wall for x in stamps) and max(after45) > 0,
+          f"audio: the chats were not in flight across the busy transcriptions: frames during "
+          f"the 30 s one {during30}, after the 45 s one's post {after45}")
+    check(c30 == 0 and c45 == 2, f"audio: the busy transcriptions captured {c30} and {c45} "
+                                 f"graphs, not 0 and 2 (the encoder, one step)")
+    check(ids(busy30) == ids(idle30), "audio: the 30 s transcription under chats differs "
+                                      "from the idle one")
+    idle45, idle45_wall, c_idle, _t = post(BUSY_SPEECH_S)
+    check(c_idle == 0 and ids(idle45) == ids(busy45) and len(busy45["segments"]) == 2,
+          f"audio: the idle 45 s rerun captured {c_idle} graphs or gave other ids")
+    return dict(chats=BUSY_CHATS, chat_tokens=BUSY_CHAT_NEW, idle_30s_wall_s=idle30_wall,
+                busy_30s_wall_s=busy30_wall, busy_45s_capture_wall_s=busy45_wall,
+                idle_45s_wall_s=idle45_wall, chat_frames_during_30s=during30,
+                chat_frames_after_45s_post=after45, ids_equal=True)
+
+
+def _vad_stream_bench(seconds: float = VAD_STREAM_S) -> dict:
+    """The packaged VAD net on the card as the realtime socket runs it: a
+    StreamingDetector given `seconds` of 24 kHz formant speech in 100 ms
+    pushes (wall ms a push, its host read included), against detect() of
+    the whole buffer at the end (segments equal within VAD_SEG_TOL_S, and
+    its wall ms: what every append cost when the socket reran it)."""
+    from localai_tpu_torch.audio import learned_vad as LV
+    from localai_tpu_torch.audio.wav import resample
+
+    p = LV.load_params(LV.packaged_weights(), device="cuda")
+    cfg = LV.config_from_params(p)
+    x = _formant_speech(seconds, 79, 24_000)
+    det, ms = LV.StreamingDetector(24_000), []
+    for i in range(0, len(x), 2400):
+        t0 = time.perf_counter()
+        got = det.push(cfg, p, x[i: i + 2400])
+        ms.append((time.perf_counter() - t0) * 1e3)
+    x16 = resample(x, 24_000, 16_000)
+    t0 = time.perf_counter()
+    want = LV.detect(cfg, p, x16, 16_000)
+    whole_ms = (time.perf_counter() - t0) * 1e3
+    check(len(got) == len(want) and len(got) > 0
+          and all(abs(a.start - b.start) <= VAD_SEG_TOL_S and abs(a.end - b.end) <= VAD_SEG_TOL_S
+                  for a, b in zip(got, want)),
+          f"audio: the streaming VAD's {len(got)} segments differ from detect()'s {len(want)}")
+    med = statistics.median
+    first, last = med(ms[10:60]), med(ms[-50:])
+    check(last <= 2 * first + 1.0, f"audio: the streaming VAD's push grew from {first:.3f} ms "
+                                   f"to {last:.3f} ms over {seconds} s")
+    return dict(seconds=seconds, pushes=len(ms), push_ms_median_first=first,
+                push_ms_median_last=last, push_ms_max=max(ms), push_ms_mean=sum(ms) / len(ms),
+                recomputes=det.recomputes, segments=len(got), whole_buffer_detect_ms=whole_ms)
+
+
+def _vits_witness(eng) -> dict:
+    """The served VITS voice on the card (f32 weights) against the same
+    synthesis in f32 on the CPU under the same noise tensors: valid samples
+    equal, the waveform's cosine; ms per second of speech on the card."""
+    from localai_tpu_torch.models import vits as V
+
+    ids = eng.tokenizer.encode("hello")  # 11 ids: a 256-frame budget, light on the CPU
+    tb, frames = eng.buckets(len(ids), 1.0)
+    pad = torch.zeros((1, tb), dtype=torch.int64)
+    pad[0, : len(ids)] = torch.tensor(ids)
+    dur, prior = eng.noise(1234, tb, frames)
+    n_tok = torch.tensor([len(ids)])
+
+    def run(device, params):
+        return V.synthesize(eng.cfg, params, pad.to(device), frames, dur.to(device),
+                            prior.to(device), n_tokens=n_tok.to(device))
+
+    wav, n = run("cuda", eng.params)
+    cpu = {k: v.cpu() for k, v in eng.params.items()}
+    wav32, n32 = run("cpu", cpu)
+    nv = int(n[0])
+    check(nv == int(n32[0]) and nv > 0, f"audio: VITS valid samples {nv} on the card, "
+                                        f"{int(n32[0])} on the CPU")
+    a, b = wav[0, :nv].float().cpu(), wav32[0, :nv]
+    cos = float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+    check(cos >= VITS_COS_MIN, f"audio: VITS waveform cosine {cos} < {VITS_COS_MIN}")
+    # The card's time for a sentence at the served text's size.
+    long_text = "the port speaks on the card, and a second clause follows the first."
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    samples, sr = eng.synthesize(long_text)
+    ms = (time.monotonic() - t0) * 1e3
+    return dict(tokens=len(ids), token_bucket=tb, frames=frames, valid_samples=nv,
+                cosine=cos, max_abs_err=float((a - b).abs().max()),
+                timed_tokens=len(eng.tokenizer.encode(long_text)),
+                timed_buckets=eng.buckets(len(eng.tokenizer.encode(long_text)), 1.0),
+                ms=ms, speech_s=len(samples) / sr, ms_per_speech_s=ms / (len(samples) / sr))
+
+
+def _realtime_round_trip(base: str, rt) -> dict:
+    """One realtime turn over /v1/realtime as a client streams it: server VAD
+    (the vad model), 3 s of pcm16 formant speech at 24 kHz and then 1 s of
+    silence, in REALTIME_APPEND_S appends sent at that pace by a thread of
+    their own. The server commits once 500 ms of silence follow the speech,
+    transcribes with whisper, runs the 1b's turn and speaks it with the
+    VITS voice. Times from the send of the last speech append (the end of
+    speech, as the user feels it: the 500 ms the server waits for silence
+    included; the append that carries the synthesizer's last voiced
+    sample) and from speech_stopped (the server's commit) to the first
+    response.audio.delta, broken into the transcription, the turn's TTFT
+    and the TTS; the VAD's ms on each append (rt.vad_ms, the server's own
+    clock)."""
+    import base64
+
+    ws = _WsClient(base, "/v1/realtime?model=chat")
+    try:
+        check(ws.recv()["type"] == "session.created", "realtime: no session.created")
+        ws.send({"type": "session.update", "session": {
+            "turn_detection": {"type": "server_vad", "silence_duration_ms": 500},
+            "temperature": 0.0, "max_response_output_tokens": REALTIME_NEW,
+            "transcription_model": "whisper", "tts_model": "vits",
+            "modalities": ["text", "audio"]}})
+        check(ws.recv()["type"] == "session.updated", "realtime: no session.updated")
+        # A text turn first: the 1b's decode-block graphs are captured before
+        # the timed turn (as on a server that has answered once).
+        ws.send({"type": "conversation.item.create", "item": {
+            "type": "message", "role": "user",
+            "content": [{"type": "input_text", "text": "warm up"}]}})
+        ws.send({"type": "response.create", "response": {"modalities": ["text"]}})
+        while ws.recv()["type"] != "response.done":
+            pass
+        speech, voiced_end = _formant_speech(3.0, 77, 24_000, with_end=True)
+        pcm = (np.clip(np.concatenate([speech, np.zeros(24_000, np.float32)]), -1, 1)
+               * 32767).astype(np.int16)
+        chunk = int(24_000 * REALTIME_APPEND_S)
+        n_speech = -(-len(speech) // chunk)
+        k_end = int(voiced_end / REALTIME_APPEND_S)  # the append with the last voiced sample
+        sent: list = []
+
+        def sender() -> None:
+            t_next = time.monotonic()
+            for i in range(0, len(pcm), chunk):
+                time.sleep(max(0.0, t_next - time.monotonic()))
+                ws.send({"type": "input_audio_buffer.append",
+                         "audio": base64.b64encode(pcm[i: i + chunk].tobytes()).decode()})
+                sent.append(time.monotonic())
+                t_next += REALTIME_APPEND_S
+
+        rt.vad_ms.clear()
+        _zero_counts()
+        th = threading.Thread(target=sender, daemon=True, name="realtime-sender")
+        th.start()
+        stamps, events, audio_bytes = {}, [], 0
+        while True:
+            ev = ws.recv()
+            now = time.monotonic()
+            events.append(ev["type"])
+            key = ev["type"]
+            if key == "response.audio_transcript.delta":
+                stamps.setdefault("first_delta", now)
+                stamps["last_delta"] = now
+            else:
+                stamps.setdefault(key, now)
+            if key == "response.audio.delta":
+                audio_bytes += len(base64.b64decode(ev["delta"]))
+            if key == "error":
+                fail(f"realtime: error event {ev}")
+            if key == "response.done":
+                break
+        n = _read_counts()
+        th.join(timeout=60)
+        # Every append reached the session (they are handled in order): the
+        # silence after the commit starts no turn.
+        ws.send({"type": "input_audio_buffer.clear"})
+        check(ws.recv()["type"] == "input_audio_buffer.cleared",
+              "realtime: the appends after the turn raised an event")
+        vad = list(rt.vad_ms)
+    finally:
+        ws.close()
+    order = ["input_audio_buffer.speech_started", "input_audio_buffer.speech_stopped",
+             "input_audio_buffer.committed", "conversation.item.created", "response.created",
+             "response.audio.delta", "response.audio.done", "response.done"]
+    check(all(k in stamps for k in order) and [k for k in events if k in order] ==
+          [k for k in order for _ in range(events.count(k))],
+          f"realtime: events {events}")
+    check(n["flash_prefill"] > 0 and n["paged_attention"] > 0,
+          f"realtime: the turn missed B1 or B2: {n}")
+    check(len(vad) == len(sent), f"realtime: {len(vad)} VAD runs for {len(sent)} appends")
+    t = stamps
+    vms = [ms for _s, ms in vad]
+    out = dict(events=len(events), appends=len(sent), append_s=REALTIME_APPEND_S,
+               voiced_end_s=voiced_end, audio_out_s=audio_bytes / 2 / 24_000,
+               end_of_speech_to_first_audio_ms=(t["response.audio.delta"] - sent[k_end]) * 1e3,
+               end_of_speech_to_stopped_ms=(t["input_audio_buffer.speech_stopped"]
+                                            - sent[k_end]) * 1e3,
+               commit_to_first_audio_ms=(t["response.audio.delta"]
+                                         - t["input_audio_buffer.speech_stopped"]) * 1e3,
+               transcription_ms=(t["input_audio_buffer.committed"]
+                                 - t["input_audio_buffer.speech_stopped"]) * 1e3,
+               turn_ttft_ms=(t.get("first_delta", t["response.audio.delta"])
+                             - t["response.created"]) * 1e3,
+               turn_ms=(t.get("last_delta", t["response.created"]) - t["response.created"]) * 1e3,
+               tts_ms=(t["response.audio.delta"] - t.get("last_delta", t["response.created"]))
+               * 1e3,
+               vad_ms_per_append=dict(mean=sum(vms) / len(vms), max=max(vms),
+                                      first_10=statistics.median(vms[:10]),
+                                      speech_last_10=statistics.median(vms[n_speech - 10:n_speech]),
+                                      buffer_s_max=max(s for s, _ms in vad)),
+               launches=n)
+    log(f"[audio realtime] {json.dumps(out)}")
+    return out
+
+
+def phase_audio() -> dict:
+    """Audio on the card through the port's server: whisper-large-v3 at full
+    width and depth (bf16, seeded random weights, a checkpoint written by
+    save_hf_whisper) transcribing 30 s and 75 s of formant speech (1 and 3
+    chunks) through /v1/audio/transcriptions, held to its f32 witness
+    (_whisper_witness), and 30 s and 45 s posted under streamed chats
+    (_whisper_busy); a VITS voice at MMS-TTS-eng's widths (a checkpoint
+    directory of seeded random weights) and tts-base through
+    /v1/audio/speech and /v1/audio/speech/stream, the VITS waveform held to
+    its CPU f32 witness (_vits_witness) and tts-base's Griffin-Lim timed;
+    /v1/vad with the packaged learned VAD, and its streaming form over 30 s
+    (_vad_stream_bench); then one realtime round trip in 100 ms appends
+    (_realtime_round_trip: whisper, the 4-layer 1b's turn through B1 and
+    B2, the VITS voice)."""
+    import yaml
+
+    from localai_tpu_torch.audio.wav import read_wav, write_wav
+    from localai_tpu_torch.models import tts as T
+    from localai_tpu_torch.models import vits as V
+    from localai_tpu_torch.models import whisper as W
+
+    root = tempfile.mkdtemp(prefix="audio-")
+    out: dict = {}
+    try:
+        wcfg = dataclasses.replace(W.WHISPER_PRESETS["whisper-large-v3"], dtype="bfloat16")
+        t0 = time.monotonic()
+        wparams = W.init_params(wcfg, seed=31, device="cuda")
+        # (the directory's name is no preset's: the manager reads the checkpoint)
+        W.save_hf_whisper(wcfg, wparams, f"{root}/whisper-large-v3-bf16", dtype=torch.bfloat16)
+        del wparams
+        torch.cuda.empty_cache()
+        out["whisper_write_s"] = time.monotonic() - t0
+        vcfg = V.VitsConfig()  # MMS-TTS-eng's widths
+        V.save_vits(vcfg, V.init_params(vcfg, seed=37, device="cuda"), f"{root}/mms-tts-eng",
+                    "abcdefghijklmnopqrstuvwxyz '-")
+        docs = [{"name": "whisper", "backend": "whisper", "model": "whisper-large-v3-bf16"},
+                {"name": "vits", "backend": "tts", "model": "mms-tts-eng"},
+                {"name": "tts-base", "backend": "tts", "model": "tts-base"},
+                {"name": "vad", "backend": "vad"},
+                dict(LORA_BASE_YAML, name="chat", max_tokens=REALTIME_NEW)]
+        for d in docs:
+            with open(f"{root}/{d['name']}.yaml", "w") as f:
+                yaml.safe_dump(d, f)
+        manager, server, base = _start_server(root, audio=True)
+        try:
+            t0 = time.monotonic()
+            weng = manager.get("whisper").engine
+            out["whisper_load_s"] = time.monotonic() - t0
+            check(weng.cfg.dtype == "bfloat16" and weng.cfg.enc_layers == 32,
+                  f"audio: whisper served as {weng.cfg}")
+            trans = []
+            speech16 = _formant_speech(max(AUDIO_SPEECH_S), 75)  # its heads are the shorter inputs
+            for seconds in AUDIO_SPEECH_S:
+                blob = write_wav(speech16[: int(seconds * 16_000)], 16_000)
+                body, ctype = _multipart({"file": ("speech.wav", blob),
+                                          "model": (None, b"whisper"),
+                                          "response_format": (None, b"verbose_json")})
+                status, _ct, raw, wall = _post_raw(base, "/v1/audio/transcriptions", body, ctype)
+                check(status == 200, f"audio: transcription answered {status}: {raw[:300]}")
+                res = json.loads(raw)
+                chunks = int(np.ceil(seconds * 16_000 / weng.chunk_samples))
+                check(len(res["segments"]) == chunks and abs(res["duration"] - seconds) < 1e-3,
+                      f"audio: {seconds} s gave {len(res['segments'])} segments")
+                trans.append(dict(seconds=seconds, chunks=chunks, wall_s=wall,
+                                  tokens=[len(s["tokens"]) for s in res["segments"]]))
+            out["transcriptions"] = trans
+            mel = weng.mels(speech16[: 30 * 16_000])[:1]
+            out["whisper"] = _whisper_witness(weng, mel)
+            log(f"[audio whisper] {json.dumps(out['whisper'])}")
+            manager.get("chat")
+            out["busy"] = _whisper_busy(base, weng, speech16)
+            log(f"[audio busy] {json.dumps(out['busy'])}")
+
+            speech = {}
+            for model, text in (("vits", "hello from the card. the voice is random."),
+                                ("tts-base", "hello from the card")):
+                for path in ("/v1/audio/speech", "/v1/audio/speech/stream"):
+                    status, ct, raw, wall = _post_raw(
+                        base, path, json.dumps({"model": model, "input": text}).encode(),
+                        "application/json")
+                    check(status == 200 and ct == "audio/wav" and len(raw) > 44,
+                          f"audio: {path} {model} answered {status} {ct}")
+                    n = (read_wav(raw)[0].size if not path.endswith("stream")
+                         else (len(raw) - 44) // 2)
+                    speech[f"{model} {path}"] = dict(wall_s=wall, samples=n)
+            out["speech"] = speech
+            out["vits"] = _vits_witness(manager.get("vits").engine)
+            tcfg = manager.get("tts-base").engine.cfg
+            mel = torch.randn((tcfg.max_frames, tcfg.n_mels), device="cuda") - 4.0
+            out["tts_base_griffin_lim_ms"] = cuda_time_ms(lambda: T.mel_to_audio(tcfg, mel),
+                                                          reps=3)
+            x = speech16[: 10 * 16_000]
+            status, _ct, raw, wall = _post_raw(base, "/v1/vad", json.dumps(
+                {"model": "vad", "audio": x.tolist(), "sample_rate": 16_000}).encode(),
+                "application/json")
+            segs = json.loads(raw).get("segments") if status == 200 else None
+            check(bool(segs), f"audio: /v1/vad answered {status} with {segs}")
+            out["vad"] = dict(segments=len(segs), wall_s=wall)
+            out["vad_stream"] = _vad_stream_bench()
+            log(f"[audio vad_stream] {json.dumps(out['vad_stream'])}")
+            out["realtime"] = _realtime_round_trip(base, server.realtime)
+        finally:
+            server.shutdown()
+            manager.shutdown()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["summary"] = {k: out[k] for k in ("whisper_write_s", "whisper_load_s",
+                                          "tts_base_griffin_lim_ms")}
+    out["summary"].update(
+        whisper=_compact(out["whisper"], ("encoder_cosine", "encoder_ms", "decode_ms_per_token",
+                                          "ids_equal")),
+        vits=_compact(out["vits"], ("ms_per_speech_s", "cosine", "valid_samples")),
+        busy=_compact(out["busy"], ("idle_30s_wall_s", "busy_30s_wall_s",
+                                    "busy_45s_capture_wall_s", "idle_45s_wall_s")),
+        vad_stream=_compact(out["vad_stream"], ("push_ms_median_first", "push_ms_median_last",
+                                                "push_ms_max", "recomputes",
+                                                "whole_buffer_detect_ms")),
+        realtime=_compact(out["realtime"], ("end_of_speech_to_first_audio_ms",
+                                            "commit_to_first_audio_ms", "transcription_ms",
+                                            "turn_ttft_ms", "tts_ms", "vad_ms_per_append")))
+    log(f"[audio summary] {json.dumps(out['summary'])}")
+    return out
+
+
+def diagnose_whisper_busy() -> dict:
+    """Where a whisper request's time goes beside streamed chats (not run by
+    main(); `python3 -c 'import chip_smoke as cs; cs.diagnose_whisper_busy()'`
+    on the card). The audio phase's server with whisper-large-v3 (bf16,
+    seed 31) and the 4-layer 1b chat model: (1) the eager encoder on one
+    30 s chunk, its aten ops counted by a dispatch mode, timed idle and
+    while BUSY_CHATS streamed chats decode (after a warm round): the extra
+    wall an op; (2) a 45 s (2-chunk) transcription posted beside the
+    chats, its handler thread's stack sampled every 0.25 s: the seconds in
+    the capture lock's wait, in eager runs and captures, in
+    instantiation, in replays. Prints one JSON line."""
+    import yaml
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from localai_tpu_torch.audio.wav import write_wav
+    from localai_tpu_torch.models import whisper as W
+
+    class _Ops(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            _Ops.n += 1
+            return func(*args, **(kwargs or {}))
+
+    root = tempfile.mkdtemp(prefix="whisper-busy-")
+    out: dict = {}
+    try:
+        wcfg = dataclasses.replace(W.WHISPER_PRESETS["whisper-large-v3"], dtype="bfloat16")
+        W.save_hf_whisper(wcfg, W.init_params(wcfg, seed=31, device="cuda"),
+                          f"{root}/whisper-large-v3-bf16", dtype=torch.bfloat16)
+        torch.cuda.empty_cache()
+        for d in [{"name": "whisper", "backend": "whisper", "model": "whisper-large-v3-bf16"},
+                  dict(LORA_BASE_YAML, name="chat", max_tokens=REALTIME_NEW)]:
+            with open(f"{root}/{d['name']}.yaml", "w") as f:
+                yaml.safe_dump(d, f)
+        manager, server, base = _start_server(root, audio=True)
+        try:
+            weng = manager.get("whisper").engine
+            manager.get("chat")
+            speech = _formant_speech(BUSY_SPEECH_S, 75)
+            mel = weng.mels(speech[: 30 * 16_000])[:1]
+
+            def encode_ms() -> float:
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                with torch.no_grad():
+                    W.encode(wcfg, weng.params, mel)
+                torch.cuda.synchronize()
+                return (time.monotonic() - t0) * 1e3
+
+            encode_ms()
+            with _Ops():
+                encode_ms()
+            idle = statistics.median(encode_ms() for _ in range(3))
+            stamps: list = [[] for _ in range(BUSY_CHATS)]
+
+            def chat(i: int, n: int) -> None:
+                req = {"model": "chat", "max_tokens": n, "ignore_eos": True, "stream": True,
+                       "temperature": 0.0,
+                       "messages": [{"role": "user", "content": _obs_text(60, 900 + i)}]}
+                _http(base, "/v1/chat/completions", req, time.monotonic(), stamps[i])
+
+            for n in (64, BUSY_CHAT_NEW):
+                stamps[:] = [[] for _ in range(BUSY_CHATS)]
+                threads = [threading.Thread(target=chat, args=(i, n), daemon=True)
+                           for i in range(BUSY_CHATS)]
+                for th in threads:
+                    th.start()
+                if n == 64:
+                    for th in threads:
+                        th.join(timeout=300)
+            while min(len(x) for x in stamps) < 2:
+                time.sleep(0.005)
+            busy = statistics.median(encode_ms() for _ in range(3))
+            samples: dict = {}
+            done = threading.Event()
+
+            def where(frames) -> str | None:
+                names = [(os.path.basename(f.filename), f.name) for f in frames]
+                if not any(n == "transcribe_greedy" for _f, n in names):
+                    return None
+                if any(n == "_capture_stream" for _f, n in names) or \
+                        names[-1][1] == "capture_graph":
+                    return "capture lock"
+                if any(n == "capture_end" for _f, n in names):
+                    return "instantiate"
+                if any(n == "capture_graph" for _f, n in names):
+                    return "eager run and capture"
+                return "replays and the rest"
+
+            def sampler() -> None:
+                import traceback
+
+                while not done.is_set():
+                    time.sleep(0.25)
+                    for fr in sys._current_frames().values():
+                        k = where(traceback.extract_stack(fr))
+                        if k:
+                            samples[k] = samples.get(k, 0) + 0.25
+
+            threading.Thread(target=sampler, daemon=True).start()
+            body, ctype = _multipart({"file": ("s.wav", write_wav(speech, 16_000)),
+                                      "model": (None, b"whisper")})
+            status, _ct, _raw, wall = _post_raw(base, "/v1/audio/transcriptions", body, ctype)
+            done.set()
+            check(status == 200, f"diagnose_whisper_busy: the transcription answered {status}")
+            for th in threads:
+                th.join(timeout=600)
+            out = dict(encoder_aten_ops=_Ops.n, encoder_idle_ms=idle, encoder_busy_ms=busy,
+                       busy_extra_ms_an_op=(busy - idle) / _Ops.n, transcription_45s_wall_s=wall,
+                       sampled_s=samples, chats=BUSY_CHATS, chat_tokens=BUSY_CHAT_NEW)
+        finally:
+            server.shutdown()
+            manager.shutdown()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[diagnose_whisper_busy] {json.dumps(out)}")
+    return out
 
 
 def main() -> None:
@@ -7770,7 +8985,7 @@ def main() -> None:
     dense = timed("engine", phase_engine, model["cfg"], model["params"])
     paged = timed("paged_engine", phase_paged_engine, model["cfg"], model["params"],
                   model["small"], model["p_small"])
-    graphs_1b = timed("graphs_1b", phase_graphs, "llama-3.2-1b paged, 8 layers",
+    graphs_1b = timed("graphs_1b", phase_graphs, f"llama-3.2-1b paged, {ONEB_LAYERS} layers",
                       model["cfg"], model["params"])
     del model["params"]
     torch.cuda.empty_cache()
@@ -7813,6 +9028,9 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     gguf = timed("gguf", phase_gguf, gen)
+    gguf_deepseek = timed("gguf_deepseek", phase_gguf_deepseek)
+    expert_lora = timed("expert_lora", phase_expert_lora)
+    audio = timed("audio", phase_audio)
     runs = {"dense_engine": dense, "paged_engine": paged, **qruns, "lora_8b_int8": lora_8b,
             "graphs_1b": graphs_1b["graph"], "graphs_1b_eager": graphs_1b["eager"],
             "graphs_8b": graphs_8b["graph"], "graphs_8b_eager": graphs_8b["eager"],
@@ -7838,7 +9056,12 @@ def main() -> None:
             "observe_1b": observe["traces"]["run"], **embed_rerank["runs"], **vision["runs"],
             # The parent's in-process models of the service phase; its
             # subprocess child's launches happen in the child, not counted here.
-            "service_parent": service["run"]}
+            "service_parent": service["run"],
+            "gguf_deepseek_engine": gguf_deepseek["engine"],
+            "gguf_deepseek_http": gguf_deepseek["http"],
+            "expert_lora_mixtral_int4": expert_lora,
+            # The realtime turn's launches (whisper and the voices run no kernel).
+            "audio_realtime": audio["realtime"]}
     by_path = {k: {path: out["launches"].get(k, 0) for path, out in runs.items()}
                for k in ("flash_prefill", "paged_attention", "paged_attention_latent",
                          "quant_matmul", "quant_matmul_moe", "quant_unembed", "lora_bgmv",
@@ -7874,6 +9097,8 @@ def main() -> None:
         # Embeddings and rerank through the server: the forward at a bucket
         # (B1 on every layer), the f32 witnesses, bert and the store.
         "embed_rerank": {k: v for k, v in embed_rerank.items() if k != "runs"},
+        # The realtime turn's admissions: the 4-layer 1b's prompt after whisper.
+        "audio": audio["summary"],
         # Vision chat: Qwen2-VL-2B's image admissions (H 12, K 2, D 128) with
         # the image injected and m-rope, llava's into llama-3-8b.
         "vision": {"rows": [_compact(r, ("shape", "lengths", "ms", "plain_ms", "library_ms",
@@ -8024,9 +9249,44 @@ def main() -> None:
         "ptxas": [r for r in usage["quant_matmul"] if "qmm" in r["kernel"]],
         "mixtral": mixtral["summary"],
         "moe_small": moe_small,
+        # LoRA merged into mixtral's experts (1 layer, int4): the merged tree's run.
+        "expert_lora": _compact(expert_lora, ("load_s", "payloads_equal", "ids_equal")),
         "shapes": [_compact(r, ("sub", "shape", "form", "dtype", "ms", "bf16_ms", "dequant_ms",
                                 "bound_ms"))
                    for r in moe_rows],
+    }
+    # B3's expert form on grouped int8 stacks (a deepseek2 GGUF's experts):
+    # deepseek-v2-lite's gate at a decode block of 8 slots, bf16 x.
+    gq_rows = [r for r in moe_rows if r["form"] == "grouped_int8" and r["shape"][1] == 64]
+    gq_main = next(r for r in gq_rows if r["shape"] == [8, 64, 2048, 1408])
+    gq_paths = ("gguf_deepseek_engine", "gguf_deepseek_http")
+    gq_record = {
+        "name": "quant_matmul_moe_gq",
+        "route": "cuda",
+        "source": "localai_tpu_torch/csrc/quant_matmul.cu",
+        "replaces": "localai_tpu/ops/quant_matmul.py:109",
+        "tpu_kernel": "localai_tpu/ops/quant_matmul.py::_qmm_kernel (expert grid, grouped int8)",
+        "kernel": "qmm_mma_kernel<FORM_GQ, MT, NT> with the expert axis (ops/quant_matmul.qmm_moe)",
+        # Every expert launch of the deepseek2 GGUF's runs (its experts are gq).
+        "launches": sum(by_path["quant_matmul_moe"][k] for k in gq_paths),
+        "launches_by_path": {k: by_path["quant_matmul_moe"][k] for k in gq_paths},
+        "shape": {"N": 8, "E": 64, "in": 2048, "out": 1408, "form": "grouped_int8",
+                  "dtype": "bfloat16", "einsum": "...d,edf->...ef"},
+        "max_abs_err": max(r["max_abs_err"] for r in gq_rows),
+        "tol": "bf16 x: 2^-7 x |out| + 1e-4 x max|out|",
+        "ok": all(r["ok"] for r in gq_rows),
+        "ms": gq_main["ms"],
+        "kernel_ms": gq_main["ms"],
+        "plain_ms": gq_main["plain_ms"],
+        "bound_ms": gq_main["bound_ms"],
+        "bound_by": gq_main["bound_by"],
+        "bf16_ms": gq_main["bf16_ms"],
+        "dequant_ms": gq_main["dequant_ms"],
+        "library_ms": None,  # no one PyTorch call takes grouped int8 expert stacks
+        "repeat_equal": all(r["repeat_equal"] for r in gq_rows),
+        "gguf_deepseek": gguf_deepseek["summary"],
+        "shapes": [_compact(r, ("sub", "shape", "ms", "plain_ms", "bf16_ms", "dequant_ms",
+                                "bound_ms", "bound_by", "max_abs_err")) for r in gq_rows],
     }
     b4_main = next(r for r in b4_rows if r["shape"] == [8, 128256, 4096]
                    and r["dtype"] == "bfloat16")
@@ -8152,7 +9412,7 @@ def main() -> None:
     log(f"[phases] {json.dumps(seconds)}")
     log(f"[done] all phases passed in {time.monotonic() - t_start:.1f}s")
     print(json.dumps({"kernels": [flash_record, paged_record, latent_record, quant_record,
-                                  moe_record, unembed_record, lora_record]}))
+                                  moe_record, gq_record, unembed_record, lora_record]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),

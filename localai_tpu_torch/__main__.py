@@ -1,14 +1,16 @@
-"""CLI entry point: `python -m localai_tpu_torch [run|models|version]`.
+"""CLI entry point: `python -m localai_tpu_torch [run|models|transcribe|tts|version]`.
 
 `run` starts the OpenAI-compatible server over the models dir, with the
-layers the JAX CLI registers, in its order: rerank (`/v1/rerank`), the
-vector store (`/stores/*`), the model gallery (`/models/available`,
+layers the JAX CLI registers, in its order: audio (`/v1/audio/*`, `/tts`,
+`/v1/vad`, `/v1/sound-generation`), rerank (`/v1/rerank`), realtime
+(`/v1/realtime` and its session routes), the vector store (`/stores/*`), the model gallery (`/models/available`,
 `apply`, `jobs`, `galleries`, `delete`), MCP chat with the agent jobs
 (`/mcp/v1/chat/completions`, `/agent-jobs/*`; the jobs' scheduler starts
 here and stops on shutdown), settings (`/settings`), model import and
 edit (`/models/import`, ...), OpenAPI (`/swagger`, `/swagger.json`) and
-the web UI (`/`). The audio, image, realtime and p2p layers are not
-ported yet (ROADMAP Queue A items 13 (c), 13 (d) and 12). Its flags
+the web UI (`/`). The image and p2p layers are not ported yet (ROADMAP
+Queue A items 13 (d) and 12). `transcribe` and `tts` run one model of the
+models dir (or a preset) without the server. Its flags
 mirror the env vars ApplicationConfig.from_env reads (LOCALAI_ADDRESS,
 LOCALAI_PORT, LOCALAI_MODELS_PATH, ...), so either style works; `--device`
 picks the engines' device (default `cuda`: the server refuses to start
@@ -41,8 +43,47 @@ def _build_parser() -> argparse.ArgumentParser:
     run.add_argument("--device", default="cuda", help="torch device of the engines (cuda | cpu)")
     models = sub.add_parser("models", help="list configured models")
     models.add_argument("--models-path", default=None)
+    tr = sub.add_parser("transcribe", help="transcribe a WAV file locally")
+    tr.add_argument("file")
+    tr.add_argument("--model", default="whisper-tiny")
+    tr.add_argument("--models-path", default=None)
+    tr.add_argument("--language", default=None)
+    tr.add_argument("--device", default="cuda", help="torch device (cuda | cpu)")
+    tts = sub.add_parser("tts", help="synthesize speech to a WAV file")
+    tts.add_argument("text")
+    tts.add_argument("--model", default="tts-base")
+    tts.add_argument("--models-path", default=None)
+    tts.add_argument("--voice", default=None)
+    tts.add_argument("--output", default="out.wav")
+    tts.add_argument("--device", default="cuda", help="torch device (cuda | cpu)")
     sub.add_parser("version", help="print version")
     return p
+
+
+def _run_local_audio(args, app_cfg) -> int:
+    """The `transcribe` / `tts` one-shot commands: a model of the models
+    dir, else a preset of that name, run without the HTTP server (the JAX
+    CLI's commands)."""
+    from localai_tpu_torch.audio import read_wav, resample, write_wav
+    from localai_tpu_torch.config import ModelConfig
+    from localai_tpu_torch.server import ModelManager
+
+    manager = ModelManager(app_cfg, device=args.device)
+    backend = "whisper" if args.command == "transcribe" else "tts"
+    if manager.configs.get(args.model) is None:
+        manager.configs.register(ModelConfig(name=args.model, model=args.model, backend=backend))
+    try:
+        lm = manager.get(args.model)
+        if args.command == "transcribe":
+            audio, sr = read_wav(args.file)
+            print(lm.engine.transcribe(resample(audio, sr, 16_000), language=args.language)["text"])
+        else:
+            samples, sr = lm.engine.synthesize(args.text, voice=args.voice)
+            write_wav(samples, sr, path=args.output)
+            print(args.output)
+    finally:
+        manager.shutdown()
+    return 0
 
 
 def build_app(app_cfg, device="cuda"):
@@ -51,10 +92,12 @@ def build_app(app_cfg, device="cuda"):
     yet started."""
     from localai_tpu_torch.gallery import Gallery, GalleryService
     from localai_tpu_torch.server import ModelManager, OpenAIApi, Router
+    from localai_tpu_torch.server.audio_api import AudioApi
     from localai_tpu_torch.server.gallery_api import GalleryApi
     from localai_tpu_torch.server.mcp_api import McpApi, make_job_runner
     from localai_tpu_torch.server.models_api import ModelsApi
     from localai_tpu_torch.server.openapi import register_openapi
+    from localai_tpu_torch.server.realtime_api import RealtimeApi
     from localai_tpu_torch.server.rerank_api import RerankApi
     from localai_tpu_torch.server.settings_api import SettingsApi
     from localai_tpu_torch.server.stores_api import StoresApi
@@ -66,7 +109,9 @@ def build_app(app_cfg, device="cuda"):
     router = Router()
     oai = OpenAIApi(manager)
     oai.register(router)
+    AudioApi(manager, oai).register(router)
     RerankApi(manager, oai).register(router)
+    RealtimeApi(manager, oai).register(router)
     StoresApi(StoreRegistry(device=manager.device)).register(router)
     gallery_service = GalleryService(
         app_cfg.models_dir, config_loader=manager.configs,
@@ -104,6 +149,8 @@ def main(argv: list[str] | None = None) -> int:
         for name, mc in sorted(ModelConfigLoader(cfg.models_dir).load_all().items()):
             print(f"{name}\tbackend={mc.backend}\tmodel={mc.model}")
         return 0
+    if args.command in ("transcribe", "tts"):
+        return _run_local_audio(args, ApplicationConfig.from_env(**overrides))
 
     if args.address:
         overrides["address"] = args.address

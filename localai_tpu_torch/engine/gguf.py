@@ -20,10 +20,11 @@ A leaf the JAX package keeps in bf16 travels as float32 numpy holding
 values already rounded to bf16 (round to nearest even, by a torch cast), so
 the device cast to bf16 is exact and an f32 arch sees the same values.
 
-Not ported yet: the DeepSeek (deepseek2) tree loader. Its metadata is read,
-and `load_gguf_params` refuses the tree before any tensor is read (ROADMAP
-Queue A item 10, other decoder families: its one GGUF leftover). A DeepSeek
-model serves from an HF checkpoint (engine/weights.py).
+A DeepSeek (deepseek2) file builds the two-stack MLA / MoE tree
+(`_load_gguf_deepseek`, the JAX package's loader): attention in bf16 with
+the rope columns de-interleaved, kv_b split per head into w_kb / w_vb, the
+fused expert stacks in grouped int8 per expert (B3's `gq` expert form)
+where every in width is a multiple of 32, the head in per-channel int8.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ import torch
 
 from localai_tpu_torch.models.config import ArchConfig
 from localai_tpu_torch.models.llama import check_supported
-from localai_tpu_torch.models.quant import quantize_tensor_np
+from localai_tpu_torch.models.quant import HOST_THREADS, quantize_tensor_np, threaded
 
 log = logging.getLogger("localai_tpu_torch.gguf")
 
@@ -189,8 +190,7 @@ class GGUFFile:
                 f"{self.path}: tensor {name!r} uses quant type {tname}, which "
                 f"has no dequantizer yet (supported: {sorted(_DEQUANT)})"
             )
-        flat = _DEQUANT[tname](raw, ti.n_elements)
-        return flat.reshape(shape)
+        return _dequant(tname, raw, ti.n_elements).reshape(shape)
 
     def grouped(self, name: str) -> Optional[dict[str, np.ndarray]]:
         """Native grouped repack for a 2D weight (lossless where possible):
@@ -248,7 +248,7 @@ class GGUFFile:
         if tname in ("Q5_K", "Q6_K", "Q5_0", "Q5_1", "Q4_1"):
             # no lossless 4-bit form — regrid to grouped int8 (finer grid
             # than the source, quality preserved)
-            w = _DEQUANT[tname](raw, ti.n_elements).reshape(n_out, n_in)
+            w = _dequant(tname, raw, ti.n_elements).reshape(n_out, n_in)
             return grouped_int8_from_dense(w)
         return None
 
@@ -415,6 +415,19 @@ def _deq_q6_k(raw: np.ndarray, n: int) -> np.ndarray:
             s32 = np.repeat(sl, 16, axis=1)  # scale per 16 values
             y[:, base + 32 * part: base + 32 * part + 32] = d[:, None] * s32 * q
     return y.reshape(-1)[:n]
+
+
+def _dequant(tname: str, raw: np.ndarray, n: int) -> np.ndarray:
+    """_DEQUANT[tname] of n weights; a large tensor's blocks split over host
+    threads (every block decodes alone, so the result is the same)."""
+    _tid, blk, bsz = GGML_TYPES[tname]
+    nb = n // blk
+    if n < 1 << 22:
+        return _DEQUANT[tname](raw, n)
+    cuts = np.linspace(0, nb, HOST_THREADS + 1).astype(int)
+    spans = [(a, b) for a, b in zip(cuts[:-1], cuts[1:]) if b > a]
+    return np.concatenate(threaded(
+        lambda ab: _DEQUANT[tname](raw[ab[0] * bsz: ab[1] * bsz], (ab[1] - ab[0]) * blk), spans))
 
 
 _DEQUANT = {
@@ -747,14 +760,12 @@ def load_gguf_params(gf: GGUFFile, arch: ArchConfig) -> dict:
     for q4_0/q4_K/q8_0); embeddings/norms dequantize to bf16 values (float32
     numpy, see the module docstring); lm_head goes to per-channel int8 (the
     unembed path's form). All host-side numpy; `params_from_numpy` puts it
-    on the device. An arch the port does not serve yet raises first, and so
-    does a DeepSeek file, whose tree this loader does not build yet.
+    on the device. An arch the port does not serve yet raises first; a
+    DeepSeek file goes to `_load_gguf_deepseek`.
     """
     check_supported(arch)
-    if arch.is_mla or arch.moe_family == "deepseek":
-        raise NotImplementedError(
-            "the GGUF DeepSeek (deepseek2) tree loader is not ported yet (ROADMAP Queue A item "
-            "10, other decoder families); load the model's HF checkpoint instead")
+    if arch.is_mla:
+        return _load_gguf_deepseek(gf, arch)
     L = arch.num_layers
     layers: dict[str, Any] = {}
     # llama.cpp's convert script permutes q/k rows ONLY for the llama family
@@ -844,6 +855,116 @@ def load_gguf_params(gf: GGUFFile, arch: ArchConfig) -> dict:
         "layers": layers,
         "final_norm": bf16_round(gf.tensor("output_norm.weight")),
     }
+    if "output.weight" in gf.tensors:
+        w = gf.tensor("output.weight").astype(np.float32)  # [V, D]
+        params["lm_head"] = quantize_tensor_np(w, axis=-1)
+    return params
+
+
+def _load_gguf_deepseek(gf: GGUFFile, arch: ArchConfig) -> dict:
+    """DeepSeek-V2/V3 GGUF → the two-stack MLA / MoE tree (the JAX
+    package's _load_gguf_deepseek, leaf for leaf).
+
+    llama.cpp's deepseek2 names (fused-expert layout): attn_q or attn_q_a /
+    attn_q_a_norm / attn_q_b, attn_kv_a_mqa, attn_kv_a_norm, attn_kv_b,
+    attn_output; ffn_gate_inp, exp_probs_b and ffn_{gate,up,down}_exps with
+    ffn_{gate,up,down}_shexp on the MoE blocks; plain ffn_{gate,up,down} on
+    the leading dense blocks. The rope columns de-interleave as in
+    engine/weights._load_deepseek. Attention tensors go to bf16 values, the
+    router to bf16 and its bias to f32; the expert stacks to grouped int8
+    per expert when the hidden and expert widths are multiples of 32, else
+    bf16 (all three projections share one form: the MoE route branches on
+    w_gate's); kv_b splits per head into w_kb / w_vb; output.weight goes to
+    per-channel int8."""
+    from localai_tpu_torch.engine.weights import _deinterleave
+
+    L = arch.num_layers
+    kd = arch.first_k_dense if arch.is_moe else 0
+    H = arch.num_heads
+    n, rot, vd = arch.qk_nope_head_dim, arch.qk_rope_head_dim, arch.v_head_dim
+    r = arch.kv_lora_rank
+
+    def mm(i: int, gname: str, rope_block: int = 0) -> np.ndarray:
+        """[in, out] bf16 values, rope columns de-interleaved."""
+        w = np.ascontiguousarray(gf.tensor(f"blk.{i}.{gname}.weight").astype(np.float32).T)
+        if rope_block:
+            w = _deinterleave(torch.from_numpy(w), rot, rope_block).numpy()
+        return bf16_round(w)
+
+    def vec(i: int, gname: str) -> np.ndarray:
+        return bf16_round(gf.tensor(f"blk.{i}.{gname}.weight"))
+
+    def stacked(fn, gname: str, lo: int, hi: int, **kw) -> np.ndarray:
+        return np.stack([fn(i, gname, **kw) for i in range(lo, hi)])
+
+    def attn_stack(lo: int, hi: int) -> dict:
+        out: dict[str, Any] = {
+            "attn_norm": stacked(vec, "attn_norm", lo, hi),
+            "mlp_norm": stacked(vec, "ffn_norm", lo, hi),
+            "kv_norm": stacked(vec, "attn_kv_a_norm", lo, hi),
+            "wo": stacked(mm, "attn_output", lo, hi),
+            "wkv_a": stacked(mm, "attn_kv_a_mqa", lo, hi, rope_block=r + rot),
+        }
+        if arch.q_lora_rank:
+            out["wq_a"] = stacked(mm, "attn_q_a", lo, hi)
+            out["q_norm_a"] = stacked(vec, "attn_q_a_norm", lo, hi)
+            out["wq_b"] = stacked(mm, "attn_q_b", lo, hi, rope_block=n + rot)
+        else:
+            out["wq"] = stacked(mm, "attn_q", lo, hi, rope_block=n + rot)
+        kbs, vbs = [], []
+        for i in range(lo, hi):
+            name = f"blk.{i}.attn_kv_b.weight"
+            if name not in gf.tensors:
+                raise GGUFReadError(
+                    f"deepseek2 GGUF missing {name!r} — exports that ship "
+                    "only the pre-split attn_k_b/attn_v_b are not supported"
+                )
+            kb = gf.tensor(name).astype(np.float32).reshape(H, n + vd, r)
+            kbs.append(bf16_round(kb[:, :n]))
+            vbs.append(bf16_round(kb[:, n:]))
+        out["w_kb"] = np.stack(kbs)
+        out["w_vb"] = np.stack(vbs)
+        return out
+
+    mlp = (("w_gate", "gate"), ("w_up", "up"), ("w_down", "down"))
+    layers = attn_stack(kd, L)
+    if arch.is_moe:
+        groupable = arch.hidden_size % 32 == 0 and arch.moe_inter_size % 32 == 0
+        layers["router"] = np.stack([
+            bf16_round(gf.tensor(f"blk.{i}.ffn_gate_inp.weight").astype(np.float32).T)
+            for i in range(kd, L)])
+        if arch.router_bias:
+            layers["router_bias"] = np.stack([
+                gf.tensor(f"blk.{i}.exp_probs_b.bias").astype(np.float32)
+                for i in range(kd, L)])
+        for ours, nm in mlp:
+            parts = []
+            for i in range(kd, L):
+                t3 = gf.tensor(f"blk.{i}.ffn_{nm}_exps.weight").astype(np.float32)
+                if groupable:
+                    per_e = threaded(grouped_int8_from_dense, list(t3))
+                    parts.append({k: np.stack([p[k] for p in per_e]) for k in per_e[0]})
+                else:
+                    parts.append(bf16_round(t3.swapaxes(-1, -2)))
+            layers[ours] = ({k: np.stack([p[k] for p in parts]) for k in parts[0]}
+                            if groupable else np.stack(parts))
+        if arch.n_shared_experts:
+            for ours, nm in mlp:
+                layers[f"shared_{nm}"] = stacked(mm, f"ffn_{nm}_shexp", kd, L)
+    else:
+        for ours, nm in mlp:
+            layers[ours] = stacked(mm, f"ffn_{nm}", 0, L)
+
+    params: dict[str, Any] = {
+        "embed": bf16_round(gf.tensor("token_embd.weight")),
+        "layers": layers,
+        "final_norm": bf16_round(gf.tensor("output_norm.weight")),
+    }
+    if kd:
+        dense = attn_stack(0, kd)
+        for ours, nm in mlp:
+            dense[ours] = stacked(mm, f"ffn_{nm}", 0, kd)
+        params["dense_layers"] = dense
     if "output.weight" in gf.tensors:
         w = gf.tensor("output.weight").astype(np.float32)  # [V, D]
         params["lm_head"] = quantize_tensor_np(w, axis=-1)

@@ -38,9 +38,11 @@ de-interleaved (V2 always, V3 per `rope_interleave`), `kv_b_proj` split per
 head into w_kb / w_vb, the router's `e_score_correction_bias`, the shared
 experts and the dense-layer prefix.
 
-Not ported yet: LoRA merged into expert projections (ROADMAP Queue A
-item 10, other decoder families). Refused, as the reference's loader
-refuses it too: LoRA merged into a DeepSeek tree.
+A merged adapter may target Mixtral's expert projections (`w1` / `w3` /
+`w2`): each (layer, expert) delta adds into its slice of the stacked
+[L, E, in, out] tensor in f32 before the cast or the quantizer, as the JAX
+loader merges it. Refused, as the reference's loader refuses it too: LoRA
+merged into a DeepSeek tree.
 """
 
 from __future__ import annotations
@@ -306,21 +308,29 @@ def load_hf_checkpoint(cfg: ArchConfig, ckpt_dir: str, device=None,
                     raise ValueError(f"lora delta for {our!r} targets layer {layer_i}, "
                                      f"model has {cfg.num_layers}")
                 tgt[li] = tgt[li] + d if li in tgt else d
-    if any(isinstance(li, tuple) for per_layer in lora_deltas.values() for li in per_layer):
-        raise NotImplementedError(
-            "LoRA deltas for mixture-of-experts projections are not ported yet "
-            "(ROADMAP Queue A item 10, other decoder families)")
 
     def merge_lora(our: str, i: int, t: torch.Tensor) -> torch.Tensor:
-        """Layer i's tensor plus its adapters' delta, added in f32 and
-        returned in the tensor's stored dtype (the JAX loader's order)."""
-        d = lora_deltas.get(our, {}).get(i)
-        if d is None:
-            return t
-        if tuple(d.shape) != tuple(t.shape):
-            raise ValueError(f"lora delta for {our!r} index {i} has shape {d.shape}, "
-                             f"model expects {tuple(t.shape)}")
-        return torch.from_numpy(t.float().numpy() + d).to(t.dtype)
+        """Layer i's tensor plus its adapters' deltas, each added in f32 to
+        its slice (the layer's tensor, or an expert's of an [E, in, out]
+        stack) and returned in the tensor's stored dtype (the JAX loader's
+        order)."""
+        stacked_shape = (cfg.num_layers, *t.shape)
+        for li, d in lora_deltas.get(our, {}).items():
+            if (li[0] if isinstance(li, tuple) else li) != i:
+                continue
+            _check_lora_index(our, li, stacked_shape)
+            part = li[1:] if isinstance(li, tuple) else ()
+            want = tuple(t[part].shape)
+            if tuple(d.shape) != want:
+                raise ValueError(f"lora delta for {our!r} index {li} has shape {d.shape}, "
+                                 f"model expects {want}")
+            # torch's f32 add on the host's threads: numpy's sum bit for bit.
+            merged = (t[part].float() + torch.from_numpy(d)).to(t.dtype)
+            if part:
+                t[part] = merged
+            else:
+                t = merged
+        return t
 
     def grab(name: str, transpose: bool) -> torch.Tensor:
         t = reader.get(name)

@@ -34,6 +34,8 @@ g4 with per-group zero points, q8_0 and the regridded types as gq.
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any
 
 import numpy as np
@@ -175,10 +177,46 @@ def is_grouped(w) -> bool:
     return isinstance(w, dict) and ("gq" in w or "g4" in w)
 
 
+# Host threads a large load-time array op splits over (numpy's array loops
+# release the GIL); a host quantization of at least _HOST_SPLIT weights
+# splits its output columns.
+HOST_THREADS = min(8, os.cpu_count() or 1)
+_HOST_SPLIT = 1 << 24
+
+
+def threaded(fn, items: list) -> list:
+    """[fn(x) for x in items] on HOST_THREADS threads: the same results in
+    the same order."""
+    if len(items) < 2 or HOST_THREADS == 1:
+        return [fn(x) for x in items]
+    with ThreadPoolExecutor(HOST_THREADS) as ex:
+        return list(ex.map(fn, items))
+
+
+def _by_columns(fn, wf: np.ndarray) -> dict:
+    """fn(wf) for a [..., in, out] array whose quantization groups run along
+    `in`: each output column is quantized alone, so fn over blocks of
+    columns on host threads, concatenated, is fn(wf) bit for bit."""
+    if wf.size < _HOST_SPLIT:
+        return fn(wf)
+    edges = np.linspace(0, wf.shape[-1], HOST_THREADS + 1).astype(int)
+    parts = threaded(lambda ab: fn(wf[..., ab[0]:ab[1]]), list(zip(edges[:-1], edges[1:])))
+    return {k: np.concatenate([p[k] for p in parts], axis=-1) for k in parts[0]}
+
+
 def quantize_tensor_np(arr, axis: int = -2) -> dict:
     """numpy variant for host-side load-time quantization (a checkpoint
     too big for device memory in bf16)."""
     wf = np.asarray(arr, np.float32)
+    if axis in (-2, wf.ndim - 2):
+        return _by_columns(_quantize_np, wf)
+    if wf.ndim == 2 and axis in (-1, 1):  # a head [V, D]: a scale a row, rows alone
+        return {k: np.ascontiguousarray(v.T)
+                for k, v in _by_columns(lambda w: _quantize_np(w, -2), wf.T).items()}
+    return _quantize_np(wf, axis)
+
+
+def _quantize_np(wf: np.ndarray, axis: int = -2) -> dict:
     s = np.max(np.abs(wf), axis=axis, keepdims=True) / 127.0
     s = np.maximum(s, 1e-9)
     q = np.clip(np.round(wf / s), -127, 127).astype(np.int8)
@@ -189,9 +227,13 @@ def quantize_tensor_np_g4(arr, group: int = GROUP_SIZE) -> dict:
     """numpy variant of `quantize_tensor_g4` (host-side int4 load path).
     arr [..., in, out] → grouped affine 4-bit over the in axis."""
     wf = np.asarray(arr, np.float32)
+    if wf.shape[-2] % group:
+        raise ValueError(f"in dim {wf.shape[-2]} not divisible by group {group}")
+    return _by_columns(lambda w: _quantize_np_g4(w, group), wf)
+
+
+def _quantize_np_g4(wf: np.ndarray, group: int) -> dict:
     *lead, n_in, n_out = wf.shape
-    if n_in % group:
-        raise ValueError(f"in dim {n_in} not divisible by group {group}")
     g = n_in // group
     wf = wf.reshape(*lead, g, group, n_out)
     mn = wf.min(axis=-2, keepdims=True)

@@ -1,6 +1,5 @@
-"""Stdlib HTTP server: routing, auth, SSE streaming, Prometheus metrics (a
-copy of localai_tpu/server/app.py without what only the unported routes
-use: the websocket upgrade, raw byte streams and multipart forms).
+"""Stdlib HTTP server: routing, auth, SSE and raw byte streaming, multipart
+forms, the WebSocket upgrade, Prometheus metrics (localai_tpu/server/app.py).
 
 Reference: core/http/app.go:45-226 (echo middleware chain: body limit, error
 handler, request logging, CORS, API-key auth, metrics) — rebuilt with
@@ -38,6 +37,40 @@ class Request:
     body: Optional[dict[str, Any]]
     raw_body: bytes = b""
 
+    def form(self) -> dict[str, tuple[Optional[str], bytes]]:
+        """Parse a multipart/form-data body → {field: (filename|None, bytes)}.
+
+        Used by the audio transcription endpoints — the
+        reference gets this from echo's form binding; here it is a direct
+        RFC 7578 boundary parse over raw_body.
+        """
+        ctype = self.headers.get("content-type", "")
+        if "multipart/form-data" not in ctype:
+            raise ApiError(400, "expected multipart/form-data")
+        m = re.search(r'boundary="?([^";]+)"?', ctype)
+        if not m:
+            raise ApiError(400, "multipart body missing boundary")
+        boundary = m.group(1).encode()
+        out: dict[str, tuple[Optional[str], bytes]] = {}
+        for part in self.raw_body.split(b"--" + boundary):
+            part = part.strip(b"\r\n")
+            if not part or part == b"--":
+                continue
+            if b"\r\n\r\n" in part:
+                head, _, content = part.partition(b"\r\n\r\n")
+            else:
+                head, _, content = part.partition(b"\n\n")
+            name = filename = None
+            for line in head.decode("utf-8", "replace").splitlines():
+                if line.lower().startswith("content-disposition"):
+                    nm = re.search(r'name="([^"]*)"', line)
+                    fm = re.search(r'filename="([^"]*)"', line)
+                    name = nm.group(1) if nm else None
+                    filename = fm.group(1) if fm else None
+            if name is not None:
+                out[name] = (filename, content)
+        return out
+
 
 @dataclass
 class Response:
@@ -45,6 +78,15 @@ class Response:
     body: Any = None  # dict → JSON; str/bytes → raw
     content_type: str = "application/json"
     headers: dict[str, str] = field(default_factory=dict)
+
+
+class RawStream:
+    """Handler return value that streams raw byte chunks (chunked encoding) —
+    e.g. streaming TTS audio (reference: TTSStreamEndpoint, tts.go:71-80)."""
+
+    def __init__(self, chunks: Iterator[bytes], content_type: str = "application/octet-stream"):
+        self.chunks = chunks
+        self.content_type = content_type
 
 
 class SSEStream:
@@ -280,7 +322,10 @@ def create_server(app_cfg: ApplicationConfig, router: Router) -> ThreadingHTTPSe
             tb = token.encode("utf-8", "surrogateescape")
             if any(hmac.compare_digest(tb, k.encode()) for k in app_cfg.api_keys):
                 return True
-            return False
+            # Minted realtime client secrets admit realtime paths only
+            # (RealtimeApi attaches the registry at route registration).
+            eph = getattr(router, "ephemeral_keys", None)
+            return eph is not None and eph.valid(token, path)
 
         def _common_headers(self) -> dict[str, str]:
             h = {}
@@ -353,6 +398,47 @@ def create_server(app_cfg: ApplicationConfig, router: Router) -> ThreadingHTTPSe
                 except (BrokenPipeError, ConnectionResetError):
                     pass
 
+        def _upgrade_websocket(self, upgrade) -> None:
+            from localai_tpu_torch.server.ws import WebSocket, accept_key
+
+            key = self.headers.get("Sec-WebSocket-Key")
+            if (self.headers.get("Upgrade", "").lower() != "websocket") or not key:
+                self._deny(400, "expected a WebSocket upgrade request")
+                return
+            self.send_response(101, "Switching Protocols")
+            self.send_header("Upgrade", "websocket")
+            self.send_header("Connection", "Upgrade")
+            self.send_header("Sec-WebSocket-Accept", accept_key(key))
+            self.end_headers()
+            self.wfile.flush()
+            ws = WebSocket(self.rfile, self.wfile)
+            try:
+                upgrade.session(ws)
+            except (BrokenPipeError, ConnectionResetError, ConnectionError):
+                log.debug("websocket client disconnected")
+            finally:
+                ws.close()
+                self.close_connection = True
+
+        def _respond_raw_stream(self, stream: "RawStream") -> None:
+            self.send_response(200)
+            self.send_header("Content-Type", stream.content_type)
+            self.send_header("Transfer-Encoding", "chunked")
+            for k, v in self._common_headers().items():
+                self.send_header(k, v)
+            self.end_headers()
+            try:
+                for chunk in stream.chunks:
+                    if chunk:
+                        self.wfile.write(f"{len(chunk):X}\r\n".encode() + chunk + b"\r\n")
+                        self.wfile.flush()
+                self.wfile.write(b"0\r\n\r\n")
+            except (BrokenPipeError, ConnectionResetError):
+                log.debug("raw-stream client disconnected")
+            finally:
+                if hasattr(stream.chunks, "close"):
+                    stream.chunks.close()
+
         def _handle(self) -> None:
             start = time.monotonic()
             parsed = urlparse(self.path)
@@ -405,6 +491,11 @@ def create_server(app_cfg: ApplicationConfig, router: Router) -> ThreadingHTTPSe
             )
             try:
                 result = handler(req)
+                from localai_tpu_torch.server.ws import WebSocketUpgrade
+
+                if isinstance(result, WebSocketUpgrade):
+                    self._upgrade_websocket(result)
+                    return
             except ApiError as e:
                 self._respond(e.to_response())
                 return
@@ -418,6 +509,8 @@ def create_server(app_cfg: ApplicationConfig, router: Router) -> ThreadingHTTPSe
 
             if isinstance(result, SSEStream):
                 self._respond_sse(result)
+            elif isinstance(result, RawStream):
+                self._respond_raw_stream(result)
             else:
                 self._respond(result)
 

@@ -27,12 +27,15 @@ with a vision tower: a Qwen2-VL checkpoint's own, or a llava tower from
 cross-encoders, engine/bert_engine.py), and the out-of-process `remote`
 (a relay to another server, options.url) and `subprocess` (a supervised
 child server of this package on the manager's device, in
-`<models_dir>/.subprocess-<name>`; engine/remote.py). Reap, restart and
+`<models_dir>/.subprocess-<name>`; engine/remote.py), and the audio
+backends `whisper` (also a `llama` model named like a whisper preset),
+`tts` (the acoustic model or a VITS voice) and `vad`
+(engine/audio_engine.py). Reap, restart and
 quarantine act on in-process engines only: an out-of-process engine never
 reports dead, and a subprocess's death is its child's exit, which the next
 request's respawn handles; unloading one stops its child. Not ported yet:
 every other backend (ROADMAP Queue A item 13, satellite engines and
-models). No YAML or server knob is dropped in silence: the
+models; MusicGen's names refuse naming item 13 (e)). No YAML or server knob is dropped in silence: the
 bounded-admission, fork, speculative-decoding and observability knobs
 reach the engine (a `draft_model` loads from a preset or a checkpoint dir
 beside the target), a server knob of an unported item fails its startup
@@ -72,6 +75,8 @@ _ROUTE_SWITCHES = ("paged_kernel", "quant_kernel", "lora_kernel")
 # the llama path); `llava` / `vlm` / `multimodal` attach a vision tower.
 _VLM_BACKENDS = ("llava", "vlm", "multimodal")
 _LLAMA_BACKENDS = ("llama", "rerank", *_VLM_BACKENDS)
+# The JAX manager's MusicGen backend names (ROADMAP Queue A item 13 (e)).
+_SOUNDGEN_BACKENDS = ("musicgen", "soundgen", "sound-generation")
 
 # Server knobs of ROADMAP Queue A items not ported yet: set, one fails the
 # server's startup naming its item.
@@ -597,17 +602,27 @@ class ModelManager:
         from localai_tpu_torch.models.llama import init_params
         from localai_tpu_torch.models.quant import init_params_quantized
 
+        from localai_tpu_torch.models.whisper import WHISPER_PRESETS
+
         faults.fire("manager_load")  # an injected load failure
         loader = {"bert": self._load_bert, "remote": self._load_remote,
-                  "subprocess": self._load_subprocess}.get(cfg.backend)
+                  "subprocess": self._load_subprocess, "whisper": self._load_whisper,
+                  "tts": self._load_tts, "vad": self._load_vad}.get(cfg.backend)
+        if loader is None and cfg.backend == "llama" and (
+                cfg.model in WHISPER_PRESETS or "whisper" in cfg.model):
+            loader = self._load_whisper  # the JAX manager's routing of whisper names
         if loader is not None:
             return loader(cfg)
+        if cfg.backend in _SOUNDGEN_BACKENDS:
+            raise UnsupportedBackendError(
+                f"model {cfg.name!r}: backend {cfg.backend!r} (MusicGen sound generation) is "
+                "not ported yet (ROADMAP Queue A item 13 (e))")
         if cfg.backend not in _LLAMA_BACKENDS:
             raise UnsupportedBackendError(
                 f"model {cfg.name!r}: backend {cfg.backend!r} is not ported yet "
                 "(ROADMAP Queue A item 13, satellite engines and models); the port "
-                "serves the llama, vlm (llava / multimodal), bert, remote and "
-                "subprocess backends")
+                "serves the llama, vlm (llava / multimodal), bert, whisper, tts, vad, remote "
+                "and subprocess backends")
         switched = [f"{k}={getattr(cfg, k)!r}" for k in _ROUTE_SWITCHES
                     if getattr(cfg, k) != "auto"]
         if switched:
@@ -782,6 +797,83 @@ class ModelManager:
                  time.monotonic() - t0)
         return LoadedModel(cfg, BertEngine(bcfg, params, tokenizer), None)
 
+    def _load_whisper(self, cfg: ModelConfig) -> LoadedModel:
+        """Whisper speech to text: a preset draws random weights from seed 0
+        on the device, a directory is read as an HF whisper checkpoint
+        (with its tokenizer when it ships one)."""
+        from localai_tpu_torch.engine.audio_engine import WhisperEngine
+        from localai_tpu_torch.models import whisper as W
+
+        if cfg.model in W.WHISPER_PRESETS:
+            wcfg = W.WHISPER_PRESETS[cfg.model]
+            return LoadedModel(cfg, WhisperEngine(
+                wcfg, W.init_params(wcfg, seed=0, device=self.device)), None)
+        ckpt_dir = self._resolve_ckpt_dir(cfg.model)
+        if not os.path.isdir(ckpt_dir):
+            raise FileNotFoundError(
+                f"model {cfg.name!r}: whisper checkpoint {ckpt_dir!r} not found")
+        wcfg = W.whisper_config_from_hf(ckpt_dir)
+        params = W.load_hf_whisper(wcfg, ckpt_dir, device=self.device)
+        tokenizer = None
+        if _has_tokenizer_files(ckpt_dir):
+            from transformers import AutoTokenizer
+
+            tokenizer = AutoTokenizer.from_pretrained(ckpt_dir, local_files_only=True)
+        return LoadedModel(cfg, WhisperEngine(wcfg, params, tokenizer), None)
+
+    def _load_tts(self, cfg: ModelConfig) -> LoadedModel:
+        """Text to speech: a preset draws random weights from seed 0; a
+        directory is an HF VITS voice (is_vits_dir) or the JAX package's own
+        TTS layout (save_tts). A MusicGen directory is ROADMAP Queue A item
+        13 (e)."""
+        from localai_tpu_torch.engine.audio_engine import TTSEngine, VitsEngine
+        from localai_tpu_torch.models import tts as T
+        from localai_tpu_torch.models import vits as V
+
+        voices = cfg.options.get("voices")
+        if cfg.model in T.TTS_PRESETS:
+            tcfg = T.TTS_PRESETS[cfg.model]
+            return LoadedModel(cfg, TTSEngine(tcfg, T.init_params(tcfg, seed=0,
+                                                                  device=self.device),
+                                              voices=voices), None)
+        ckpt_dir = self._resolve_ckpt_dir(cfg.model)
+        if not os.path.isdir(ckpt_dir):
+            raise FileNotFoundError(f"model {cfg.name!r}: tts checkpoint {ckpt_dir!r} not found")
+        if _model_type(ckpt_dir) == "musicgen":
+            raise UnsupportedBackendError(
+                f"model {cfg.name!r}: {ckpt_dir!r} is a MusicGen checkpoint; sound generation "
+                "is not ported yet (ROADMAP Queue A item 13 (e))")
+        if V.is_vits_dir(ckpt_dir):
+            vcfg, vparams, vtok = V.load_vits(ckpt_dir, device=self.device)
+            return LoadedModel(cfg, VitsEngine(vcfg, vparams, vtok, voices=voices), None)
+        tcfg, params = T.load_tts(ckpt_dir, device=self.device)
+        return LoadedModel(cfg, TTSEngine(tcfg, params, voices=voices), None)
+
+    def _load_vad(self, cfg: ModelConfig) -> LoadedModel:
+        """Voice activity: the packaged learned net by default (`model`
+        empty, builtin, base, vad-base or silero), a directory's
+        vad.safetensors / model.safetensors, or `model: energy` for the
+        weightless detector."""
+        from localai_tpu_torch.audio import learned_vad as LV
+        from localai_tpu_torch.engine.audio_engine import VADEngine
+
+        weights = None
+        if cfg.model in ("", "builtin", "base", "vad-base", "silero"):
+            weights = LV.packaged_weights()
+        if weights is None and cfg.model and cfg.model != "energy":
+            ckpt_dir = self._resolve_ckpt_dir(cfg.model)
+            if not os.path.isdir(ckpt_dir):
+                raise FileNotFoundError(
+                    f"model {cfg.name!r}: vad checkpoint {ckpt_dir!r} not found")
+            weights = LV.find_weights(ckpt_dir)
+            if not weights:
+                raise FileNotFoundError(
+                    f"model {cfg.name!r}: no vad.safetensors/model.safetensors in {ckpt_dir!r}")
+        if weights is None:
+            return LoadedModel(cfg, VADEngine(), None)
+        params = LV.load_params(weights, device=self.device)
+        return LoadedModel(cfg, VADEngine(LV.config_from_params(params), params), None)
+
     def _load_remote(self, cfg: ModelConfig) -> LoadedModel:
         from localai_tpu_torch.engine.remote import RemoteEngine
 
@@ -847,6 +939,17 @@ def _apply_rope_overrides(arch, cfg):
         # max_position to the deployment context.
         updates["max_position"] = max(arch.max_position, cfg.context_size)
     return dataclasses.replace(arch, **updates) if updates else arch
+
+
+def _model_type(ckpt_dir: str) -> str:
+    """config.json's model_type, or "" without a readable one."""
+    import json
+
+    try:
+        with open(os.path.join(ckpt_dir, "config.json")) as f:
+            return str(json.load(f).get("model_type", ""))
+    except (OSError, ValueError):
+        return ""
 
 
 def _has_tokenizer_files(path: str) -> bool:

@@ -1378,3 +1378,115 @@ def test_engines_loaded_and_dropped_leave_no_memory(card):
         torch.cuda.synchronize()
         after.append(torch.cuda.memory_allocated())
     assert after[2] == after[1], after
+
+
+# deepseek-v2-lite's experts as a deepseek2 GGUF loads them: grouped int8 per
+# expert (GGUF q8_0 / the regridded K-quants), E = 64, gate / up 2048 -> 1408,
+# down 1408 -> 2048, one layer of a stacked [L, E, G, 32, out] tree.
+DEEPSEEK_GQ_SHAPES = [("...d,edf->...ef", 64, 2048, 1408), ("...ef,efd->...ed", 64, 1408, 2048)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("sub, E, n_in, n_out", DEEPSEEK_GQ_SHAPES)
+def test_qmm_moe_grouped_int8_at_deepseek_experts_matches_plain_version(sub, E, n_in, n_out,
+                                                                        dtype):
+    """B3's expert form on the `gq` stacks of a deepseek2 GGUF layer (layer
+    1 of a two-layer stack, so the payload and scales are slices) at 8 and
+    48 rows, against qmm_moe_plain; a second launch the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and the CUDA toolkit (nvcc) to build "
+                    "localai_tpu_torch/csrc/quant_matmul.cu")
+    try:
+        kernels.nvcc_path()
+    except RuntimeError:
+        pytest.skip("needs the CUDA toolkit's nvcc to build localai_tpu_torch/csrc/quant_matmul.cu")
+    from localai_tpu_torch.ops.quant_matmul import qmm_moe
+
+    g = torch.Generator(device="cuda").manual_seed(n_in)
+    stack = _quantized("grouped_int8", torch.randn(2, E, n_in, n_out, generator=g,
+                                                   device="cuda") * 0.02)
+    qw = {k: v[1] for k, v in stack.items()}
+    assert qw["gq"].shape == (E, n_in // 32, 32, n_out) and qw["gs"].shape == (E, n_in // 32, 1,
+                                                                             n_out)
+    for N in (8, 48):
+        x = torch.randn((N, n_in) if sub == "...d,edf->...ef" else (N, E, n_in), generator=g,
+                        device="cuda").to(dtype)
+        before = qmm_moe.launches
+        got = qmm_moe(x, qw, sub)
+        torch.cuda.synchronize()
+        assert qmm_moe.launches == before + 1 and got.shape == (N, E, n_out)
+        _assert_moe_close(got, x, qw, sub)
+        assert torch.equal(got, qmm_moe(x, qw, sub))
+
+
+@pytest.mark.cuda
+def test_whisper_engine_replays_its_graph_and_captures_beside_a_busy_thread():
+    """WhisperEngine on the card keeps its graphs (the encoder and one step)
+    for each chunk count: a second request of a count replays them (no
+    capture), and the ids are those of eager steps on the card. A new count
+    captures while another thread launches, allocates and synchronizes its
+    stream, as an engine's loop thread does; neither side fails (the
+    capture is thread-local, on the engines' capture stream under their
+    lock). A request of more than MAX_KEPT_BATCH chunks captures for itself
+    and keeps nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (whisper's decode graph is captured on the card)")
+    import threading
+
+    import numpy as np
+
+    from localai_tpu_torch.engine.audio_engine import WhisperEngine
+    from localai_tpu_torch.models import whisper as W
+
+    cfg = W.WHISPER_PRESETS["whisper-test"]
+    eng = WhisperEngine(cfg, W.init_params(cfg, seed=0, device="cuda"))
+
+    def eager(audio) -> list[list[int]]:
+        with torch.no_grad():
+            mel, prompt = eng.mels(audio), eng._prompt_ids(None, False)
+            st = W._Greedy(cfg, eng.params, mel, len(prompt), eng.MAX_NEW_TOKENS)
+            st.reset(mel, prompt)
+            st.encode()
+            for _ in range(st.ids.shape[1]):
+                st.steps(1)
+            toks = st.ids[:, len(prompt):]
+            n = (toks != cfg.eot_id).sum(dim=-1)
+            return [toks[c, : int(n[c])].tolist() for c in range(mel.shape[0])]
+
+    audio = np.random.default_rng(0).normal(0, 0.1, 5 * eng.chunk_samples).astype(np.float32)
+    one = audio[: eng.chunk_samples]
+    first = eng.transcribe(one)
+    captures = eng.graphs.captures  # the encoder, one step
+    assert captures == 2
+    assert eng.transcribe(one) == first and eng.graphs.captures == captures
+    assert [s["tokens"] for s in first["segments"]] == eager(one)
+    stop, errors = threading.Event(), []
+
+    def busy() -> None:
+        """What a loop thread does: launches, allocations, reads that
+        synchronize its stream (no device-wide synchronize: that is invalid
+        during any capture, and the port makes it only under the capture
+        lock)."""
+        try:
+            while not stop.is_set():
+                x = torch.ones(512, 512, device="cuda") + stop.is_set()
+                (x @ x).sum().item()
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    th = threading.Thread(target=busy, daemon=True)
+    th.start()
+    try:
+        two = eng.transcribe(audio[: 2 * eng.chunk_samples])
+    finally:
+        stop.set()
+        th.join()
+    assert not errors and eng.graphs.captures == 2 * captures
+    assert [s["tokens"] for s in two["segments"]] == eager(audio[: 2 * eng.chunk_samples])
+    assert eng.graphs.MAX_KEPT_BATCH < 5
+    for _ in range(2):
+        five = eng.transcribe(audio)
+        assert len(eng.graphs._shapes) == 2
+    assert eng.graphs.captures == 4 * captures
+    assert [s["tokens"] for s in five["segments"]] == eager(audio)

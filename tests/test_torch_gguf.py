@@ -306,12 +306,16 @@ def test_arch_from_gguf_is_the_jax_packages(tmp_path, files, case):
         _meta_gguf(path, arch, extra, names)
         pa, ja = pg.arch_from_gguf(pg.GGUFFile(path)), jg.arch_from_gguf(jg.GGUFFile(path))
         assert _asdict(pa) == _asdict(ja)
-        if case == "deepseek2":  # read, then refused by the loader before any tensor is
+        if case == "deepseek2":  # read, and its tree is built (see the deepseek2 tests below)
             assert pa.is_mla and pa.moe_family == "deepseek"
             pg.check_supported(pa)  # the model itself is served
-            with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 10, other "
-                                                          "decoder families"):
-                pg.load_gguf_checkpoint(path)
+            tree_path = str(tmp_path / "ds.gguf")
+            chip_smoke.write_gguf_deepseek(tree_path, dataclasses.replace(
+                pg.arch_from_gguf(pg.GGUFFile(path)), vocab_size=256, num_layers=2),
+                2, types=lambda key, i: "F32N", vocab=False)
+            arch, tree, _tok = pg.load_gguf_checkpoint(tree_path)
+            assert arch.is_mla and sorted(tree) == ["dense_layers", "embed", "final_norm",
+                                                    "layers"]  # tied: no output.weight
         return
     path = str(tmp_path / "m.gguf")
     _meta_gguf(path, case, {})
@@ -443,3 +447,147 @@ def test_manager_refusals_name_their_cause(tmp_path, files, case):
     with pytest.raises(RuntimeError, match=want.replace("(", r"\(")):
         tm.get("g")
     tm.shutdown()
+
+
+# --------------------------------------------------------------------------- #
+# DeepSeek (deepseek2) files
+# --------------------------------------------------------------------------- #
+
+def _ds_arch(variant: str) -> ArchConfig:
+    """tiny-mla (q-lora, sigmoid router with its bias, expert width 48: not
+    groupable) or its groupable twin (expert width 64, no q-lora, a softmax
+    router without bias), untied, f32."""
+    from localai_tpu_torch.models import get_arch
+
+    base = dataclasses.replace(get_arch("tiny-mla"), dtype="float32", tie_embeddings=False)
+    if variant == "tiny-mla":
+        return base
+    return dataclasses.replace(base, moe_intermediate_size=64, q_lora_rank=None,
+                               router_bias=False, scoring_func="softmax", n_group=1,
+                               topk_group=1)
+
+
+def _ds_types(variant: str):
+    """F32 draws for tiny-mla; for the groupable twin q8_0 where the in
+    width allows (its experts then repack from q8_0), F32 draws elsewhere."""
+    if variant == "tiny-mla":
+        return lambda key, i: "F32N"
+    return lambda key, i: "Q8_0" if key.endswith("_exps") or key in (
+        "attn_output", "ffn_down", "output", "token_embd") else "F32N"
+
+
+@pytest.mark.parametrize("variant", ["tiny-mla", "groupable"])
+def test_deepseek2_tree_equals_the_jax_tree(tmp_path, variant):
+    cfg = _ds_arch(variant)
+    path = str(tmp_path / "ds.gguf")
+    chip_smoke.write_gguf_deepseek(path, cfg, cfg.num_layers, types=_ds_types(variant), seed=4)
+    parch, ptree, ptok = pg.load_gguf_checkpoint(path)
+    jarch, jtree, jtok = jg.load_gguf_checkpoint(path)
+    assert _asdict(parch) == _asdict(jarch) and ptok == jtok is not None
+    assert parch.q_lora_rank == cfg.q_lora_rank and parch.router_bias == cfg.router_bias
+    got = params_from_numpy(parch, ptree, device="cpu")
+    want = params_from_numpy(parch, jax.tree.map(np.asarray, jtree), device="cpu")
+    flat_w, _ = jax.tree_util.tree_flatten_with_path(want)
+    flat_g, _ = jax.tree_util.tree_flatten_with_path(got)
+    assert [p for p, _ in flat_g] == [p for p, _ in flat_w]
+    for (p, a), (_, b) in zip(flat_g, flat_w):
+        assert a.dtype == b.dtype and torch.equal(a, b), p
+    grouped = isinstance(got["layers"]["w_gate"], dict)
+    assert grouped == (variant == "groupable")
+    if grouped:  # B3's expert form: [L, E, G, 32, out] with [L, E, G, 1, out] scales
+        L, E = cfg.num_layers - cfg.first_k_dense, cfg.num_experts
+        assert tuple(got["layers"]["w_down"]["gq"].shape) == (L, E, 64 // 32, 32, 64)
+        assert tuple(got["layers"]["w_down"]["gs"].shape) == (L, E, 2, 1, 64)
+    assert sorted(got["lm_head"]) == ["q", "s"]
+
+
+def test_deepseek2_split_kv_b_is_refused_like_the_jax_loader(tmp_path):
+    cfg = _ds_arch("tiny-mla")
+    path = str(tmp_path / "ds.gguf")
+    chip_smoke.write_gguf_deepseek(path, cfg, cfg.num_layers, types=_ds_types("tiny-mla"))
+    gf = pg.GGUFFile(path)
+    gf.tensors = {("blk.1.attn_k_b.weight" if k == "blk.1.attn_kv_b.weight" else k): v
+                  for k, v in gf.tensors.items()}
+    jf = jg.GGUFFile(path)
+    jf.tensors = {("blk.1.attn_k_b.weight" if k == "blk.1.attn_kv_b.weight" else k): v
+                  for k, v in jf.tensors.items()}
+    with pytest.raises(jg.GGUFReadError) as want:
+        jg.load_gguf_params(jf, jg.arch_from_gguf(jf))
+    with pytest.raises(pg.GGUFReadError) as got:
+        pg.load_gguf_params(gf, pg.arch_from_gguf(gf))
+    assert str(got.value) == str(want.value)
+
+
+def test_deepseek2_greedy_ids_equal_the_jax_dense_engine(tmp_path):
+    """The f32 tiny-mla file through the port's paged engine and the JAX
+    package's dense engine: the same greedy ids."""
+    from localai_tpu.engine import ByteTokenizer as JaxByteTokenizer
+    from localai_tpu.engine import Engine as JaxEngine
+    from localai_tpu.engine import EngineConfig as JaxEngineConfig
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig
+    from localai_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    cfg = _ds_arch("tiny-mla")
+    path = str(tmp_path / "ds.gguf")
+    chip_smoke.write_gguf_deepseek(path, cfg, cfg.num_layers, types=_ds_types("tiny-mla"), seed=9)
+    parch, ptree, _ = pg.load_gguf_checkpoint(path)
+    jarch, jtree, _ = jg.load_gguf_checkpoint(path)
+    arch = dataclasses.replace(parch, dtype="float32", max_position=256)
+    jtree = jax.tree.map(lambda a: np.asarray(a, np.float32) if a.dtype == ml_dtypes.bfloat16
+                         else np.asarray(a), jtree)
+    jeng = JaxEngine(dataclasses.replace(jarch, dtype="float32", max_position=256),
+                     jax.tree.map(jnp.asarray, jtree), JaxByteTokenizer(arch.vocab_size),
+                     engine_cfg=JaxEngineConfig(max_slots=2, max_seq=128,
+                                                prefix_admit_async_compile=False,
+                                                loop_prepare_ahead=False))
+    teng = Engine(arch, params_from_numpy(arch, ptree, device="cpu"),
+                  ByteTokenizer(arch.vocab_size), device="cpu",
+                  engine_cfg=EngineConfig(max_slots=2, max_seq=128, kv_pages=16,
+                                          kv_page_size=16))
+    jeng.start()
+    teng.start()
+    try:
+        for prompt in (PROMPT, PROMPT[:3] * 7):
+            want = _ids(jeng.submit(JaxGenRequest(prompt_ids=prompt, max_new_tokens=8,
+                                                  ignore_eos=True)))
+            got = _ids(teng.submit(GenRequest(prompt_ids=prompt, max_new_tokens=8,
+                                              ignore_eos=True)))
+            assert got == want and len(got) == 8
+    finally:
+        jeng.stop()
+        teng.stop()
+
+
+@pytest.mark.parametrize("tname", ["Q4_0", "Q8_0", "Q4_K", "Q6_K"])
+def test_threaded_dequant_of_a_large_tensor_is_the_jax_packages(tmp_path, tname):
+    """A tensor past the threshold where the port splits its blocks over host
+    threads (2^22 weights): the same bits as the JAX package's one-pass
+    decode, and its grouped repack the same."""
+    rng = np.random.default_rng(1)
+    n_in, n_out = 4096, 1040  # 4,259,840 weights
+    path = str(tmp_path / "big.gguf")
+    tg.write_gguf(path, {"general.architecture": "llama"},
+                  {"w": (tname, (n_in, n_out), _payload(tname, n_in * n_out, rng))})
+    pf, jf = pg.GGUFFile(path), jg.GGUFFile(path)
+    assert _same(pf.tensor("w"), jf.tensor("w"))
+    pgr, jgr = pf.grouped("w"), jf.grouped("w")
+    assert sorted(pgr) == sorted(jgr) and all(_same(pgr[k], jgr[k]) for k in pgr)
+
+
+def test_threaded_host_quantizers_are_the_one_pass_ones():
+    """models/quant's host quantizers past their thread threshold (2^24
+    weights) give the one-pass numpy result, and the JAX package's."""
+    from localai_tpu.models import quant as jq
+    from localai_tpu_torch.models import quant as tq
+
+    w = np.random.default_rng(2).standard_normal((2, 4096, 2056)).astype(np.float32) * 0.02
+    got = tq.quantize_tensor_np_g4(w)
+    want = tq._quantize_np_g4(w, 32)
+    assert all(_same(got[k], want[k]) for k in want)
+    assert all(_same(got[k], np.asarray(v)) for k, v in jq.quantize_tensor_np_g4(w).items())
+    got8 = tq.quantize_tensor_np(w)
+    assert all(_same(got8[k], np.asarray(v)) for k, v in jq.quantize_tensor_np(w).items())
+    head = w.reshape(-1, 2056)  # a head [V, D]: one scale a row
+    got_h = tq.quantize_tensor_np(head, axis=-1)
+    assert all(_same(got_h[k], np.asarray(v))
+               for k, v in jq.quantize_tensor_np(head, axis=-1).items())

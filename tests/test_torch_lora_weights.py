@@ -192,3 +192,65 @@ def test_load_hf_checkpoint_with_lora_bit_identical(cfg, dirs, tmp_path, quantiz
     plain = tw.load_hf_checkpoint(cfg, ckpt, device="cpu")
     assert not torch.equal(plain["layers"]["wq"], tw.load_hf_checkpoint(
         cfg, ckpt, device="cpu", lora=lora)["layers"]["wq"])
+
+
+def _expert_adapter(path, cfg, experts, seed=7, r=4):
+    """A PEFT adapter on Mixtral's expert projections (w1 / w3 / w2 of each
+    (layer, expert) in `experts`) and on q_proj / v_proj."""
+    rng = np.random.default_rng(seed)
+    D, F, Q = cfg.hidden_size, cfg.intermediate_size, cfg.num_heads * cfg.head_dim_
+    t = {}
+    mods = [(f"block_sparse_moe.experts.{e}.{w}", (D, F) if w != "w2" else (F, D), i)
+            for i, e in experts for w in ("w1", "w3", "w2")]
+    mods += [(f"self_attn.{m}_proj", (D, Q if m == "q" else cfg.num_kv_heads * cfg.head_dim_),
+              i) for i in range(cfg.num_layers) for m in ("q", "v")]
+    for mod, (d_in, d_out), i in mods:
+        pre = f"base_model.model.model.layers.{i}.{mod}"
+        t[f"{pre}.lora_A.weight"] = rng.normal(0, 0.05, (r, d_in)).astype(np.float32)
+        t[f"{pre}.lora_B.weight"] = rng.normal(0, 0.05, (d_out, r)).astype(np.float32)
+    return _write(path, t, r=r)
+
+
+@pytest.mark.parametrize("quantize", ["", "int4"])
+def test_expert_lora_merges_like_the_jax_loader(tmp_path, quantize):
+    """A tiny-moe checkpoint saved by the JAX package and an adapter on
+    every layer's experts 0, 2 and 3 (and q / v), merged at load in bf16 or
+    int4: the port's tree equals the JAX loader's, leaf for leaf, and the
+    merged experts differ from the plain load."""
+    cfg = get_arch("tiny-moe")  # bf16
+    ckpt = str(tmp_path / "ckpt")
+    jw.save_hf_checkpoint(cfg, jl.init_params(dataclasses.replace(cfg, dtype="float32"),
+                                              jax.random.key(4)), ckpt)
+    experts = [(i, e) for i in range(cfg.num_layers) for e in (0, 2, 3)]
+    lora = [(_expert_adapter(tmp_path / "a", cfg, experts), 0.7)]
+    want = tw.params_from_numpy(cfg, jax.tree.map(
+        np.asarray, jw.load_hf_checkpoint(cfg, ckpt, quantize=quantize, lora=lora)), device="cpu")
+    got = tw.load_hf_checkpoint(cfg, ckpt, device="cpu", quantize=quantize, lora=lora)
+    flat_w, _ = jax.tree_util.tree_flatten_with_path(want)
+    flat_g, _ = jax.tree_util.tree_flatten_with_path(got)
+    assert [p for p, _ in flat_g] == [p for p, _ in flat_w]
+    for (p, a), (_, b) in zip(flat_g, flat_w):
+        assert a.dtype == b.dtype and torch.equal(a, b), p
+    plain = tw.load_hf_checkpoint(cfg, ckpt, device="cpu", quantize=quantize)
+    key = "g4" if quantize else None
+    for e in range(cfg.num_experts):
+        a = got["layers"]["w_up"][key][:, e] if key else got["layers"]["w_up"][:, e]
+        b = plain["layers"]["w_up"][key][:, e] if key else plain["layers"]["w_up"][:, e]
+        assert torch.equal(a, b) == (e == 1), e  # expert 1 has no delta
+
+
+def test_expert_lora_index_out_of_range_raises_like_the_jax_loader(tmp_path):
+    cfg = dataclasses.replace(get_arch("tiny-moe"), dtype="float32")
+    ckpt = str(tmp_path / "ckpt")
+    jw.save_hf_checkpoint(cfg, jl.init_params(cfg, jax.random.key(4)), ckpt)
+    lora = [(_expert_adapter(tmp_path / "a", cfg, [(1, cfg.num_experts)]), 1.0)]
+    with pytest.raises(ValueError) as want:
+        jw.load_hf_checkpoint(cfg, ckpt, lora=lora)
+    with pytest.raises(ValueError) as got:
+        tw.load_hf_checkpoint(cfg, ckpt, device="cpu", lora=lora)
+    assert str(got.value) == str(want.value) and "out of range" in str(got.value)
+    # Runtime tenants on expert targets stay refused in both packages.
+    with pytest.raises(ValueError, match="MoE expert projections") as want:
+        jw.load_lora_factors(lora[0][0], cfg=cfg)
+    with pytest.raises(ValueError, match="MoE expert projections") as got:
+        tw.load_lora_factors(lora[0][0], cfg=cfg)

@@ -448,11 +448,13 @@ def test_cli_app_registers_every_ported_layer(tmp_path):
                       ("POST", "/models/import-uri"), ("GET", "/models/import-jobs/:uuid"),
                       ("GET", "/models/config/:name"), ("POST", "/models/edit/:name"),
                       ("POST", "/models/reload"), ("GET", "/swagger.json"), ("GET", "/swagger"),
-                      ("GET", "/"), ("GET", "/index.html")):
+                      ("GET", "/"), ("GET", "/index.html"),
+                      ("POST", "/v1/audio/transcriptions"), ("POST", "/v1/audio/speech"),
+                      ("POST", "/v1/vad"), ("GET", "/v1/realtime"),
+                      ("POST", "/v1/realtime/sessions")):
             assert route in declared, route
-        # Not ported yet: audio, image, realtime, p2p (ROADMAP A13 (c) / (d), A12).
-        for path in ("/v1/audio/transcriptions", "/v1/images/generations", "/v1/realtime",
-                     "/p2p/status"):
+        # Not ported yet: image, p2p (ROADMAP A13 (d), A12).
+        for path in ("/v1/images/generations", "/p2p/status"):
             assert not any(p == path for _m, p in declared), path
         doc = build_openapi(router)
         assert {(p, m) for p, ops in doc["paths"].items() for m in ops} == \
