@@ -358,6 +358,18 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    witness under the same noise; /v1/vad with the packaged learned VAD;
    one realtime round trip (server VAD, whisper, the 4-layer 1b's turn
    through B1 and B2, the VITS voice's pcm16), timed from the commit.
+30. image (run after 29) — the port's image layer on the card: SD-1.5 at
+   full width and depth (a bf16 diffusers checkpoint of seeded random
+   weights) over /v1/images/generations at 512², 20 DDIM steps, CFG 7.5,
+   n 1 and 4, b64_json and url (a repeated seed gives the same bytes),
+   /v1/images/inpainting (multipart) and img2img, held to its f32 witness
+   (UNet cosine, 4-step image |Δ|); SDXL base (depth cut: SDXL_TX_DEPTH,
+   SDXL_TEXT2_LAYERS) at 1024² in 4 steps; Flux's loader on a 1-block
+   checkpoint, then Flux.1-dev at full width and depth drawn on the card,
+   1024² in 4 steps; AnimateDiff over /v1/videos (8 frames, 256²); the
+   dit-test preset over the server and card against CPU. Its numbers print
+   beside the card's name and power limit (`[image summary]`); B1-B5's
+   counters stay 0 on this path.
 In 5, 6, 8, 10, 11, 12, 14, 15, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28 and 29 (the
 parent's engines; the child's launches are its own) the kernel launch counters, zeroed just
 before each run, show that the path went through the kernels; a graph
@@ -8958,6 +8970,358 @@ def diagnose_whisper_busy() -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# 30. image
+# --------------------------------------------------------------------------- #
+
+IMAGE_PROMPT = "a watercolor painting of a lighthouse at dawn, highly detailed"
+# SDXL base at its published widths with depth cut for the run's time: the
+# UNet's third level 2 transformer blocks deep (of 10), text encoder 2 at
+# 8 of its 32 layers.
+SDXL_TX_DEPTH = (1, 2, 2)
+SDXL_TEXT2_LAYERS = 8
+
+
+def _image_server(root: str):
+    """The port's server over `root` in a thread: the OpenAI and image layers."""
+    from localai_tpu_torch.config import ApplicationConfig
+    from localai_tpu_torch.server import ModelManager, OpenAIApi, Router, create_server
+    from localai_tpu_torch.server.image_api import ImageApi
+
+    app = ApplicationConfig(address="127.0.0.1", port=0, models_dir=root,
+                            generated_content_dir=os.path.join(root, "generated"))
+    manager = ModelManager(app, device="cuda")
+    router = Router()
+    oai = OpenAIApi(manager)
+    oai.register(router)
+    ImageApi(manager, oai, app.generated_content_dir).register(router)
+    server = create_server(app, router)
+    threading.Thread(target=server.serve_forever, daemon=True, name="http").start()
+    return manager, server, f"http://127.0.0.1:{server.server_address[1]}"
+
+
+def _alias_sd(src: str, dst: str, sample_size: int) -> None:
+    """A checkpoint dir sharing src's weight files (symlinks) whose UNet
+    config names another native size."""
+    os.makedirs(os.path.join(dst, "unet"))
+    for name in os.listdir(src):
+        if name != "unet":
+            os.symlink(os.path.join(src, name), os.path.join(dst, name))
+    for name in os.listdir(os.path.join(src, "unet")):
+        if name != "config.json":
+            os.symlink(os.path.join(src, "unet", name), os.path.join(dst, "unet", name))
+    with open(os.path.join(src, "unet", "config.json")) as f:
+        doc = json.load(f)
+    with open(os.path.join(dst, "unet", "config.json"), "w") as f:
+        json.dump(dict(doc, sample_size=sample_size), f)
+
+
+def _png(base: str, entry: dict) -> bytes:
+    import base64
+
+    if "b64_json" in entry:
+        return base64.b64decode(entry["b64_json"])
+    status, _h, body = _http_call(base, "GET", entry["url"])
+    check(status == 200, f"GET {entry['url']}: {status}")
+    return body if isinstance(body, bytes) else body.encode("latin-1")
+
+
+def _post_image(base: str, path: str, payload: dict) -> tuple[list[bytes], float]:
+    """(PNG bytes of each image, wall s) of one image request, which must answer 200."""
+    import urllib.request
+
+    t0 = time.monotonic()
+    req = urllib.request.Request(base + path, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=900) as r:
+        check(r.status == 200, f"{path}: {r.status}")
+        body = json.loads(r.read())
+    wall = time.monotonic() - t0
+    pngs = []
+    for entry in body["data"]:
+        if "url" in entry:
+            with urllib.request.urlopen(base + entry["url"], timeout=60) as r:
+                check(r.headers.get("Content-Type") == "image/png", "generated image type")
+                pngs.append(r.read())
+        else:
+            pngs.append(_png(base, entry))
+    return pngs, wall
+
+
+def _check_png(png: bytes, size: int) -> np.ndarray:
+    from localai_tpu_torch.server.images import decode_png
+
+    px = decode_png(png)
+    check(px.shape == (size, size, 3), f"image shape {px.shape}")
+    check(float(px.std()) > 1.0, "image is flat")
+    return px
+
+
+def _sd_witness(eng, ckpt: str) -> dict:
+    """SD-1.5 in bf16 (the served engine's weights) against the same
+    checkpoint in f32 on the card (cuDNN's TF32 off): one UNet forward at
+    the 512² CFG batch (cosine of the noise prediction), one 4-step DDIM
+    generate on the same noise (max and mean |Δ| of the [0, 1] image), with
+    the bf16 UNet step and VAE decode timed by CUDA events."""
+    from localai_tpu_torch.models import latent_diffusion as LD
+
+    cfg, p16 = eng.cfg, eng.params
+    _c, p32, _t = LD.load_pipeline(ckpt, dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((2, 4, 64, 64), generator=gen, device="cuda")
+    ctx = torch.randn((2, 77, 768), generator=gen, device="cuda")
+    t = torch.full((2,), 501.0, device="cuda")
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            e16 = LD.unet_forward(cfg.unet, p16["unet"], x, t, ctx).float()
+            e32 = LD.unet_forward(cfg.unet, p32["unet"], x, t, ctx)
+            cos = _cosine(e16.reshape(-1).cpu().numpy(), e32.reshape(-1).cpu().numpy())
+            cond, unc = eng._ids(IMAGE_PROMPT, 1), eng._ids("", 1)
+            z = torch.randn((1, 4, 64, 64), generator=gen, device="cuda")
+            i16 = LD.generate(cfg, p16, cond, unc, steps=4, init_noise=z)
+            i32 = LD.generate(cfg, p32, cond, unc, steps=4, init_noise=z)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    del p32
+    torch.cuda.empty_cache()
+    d = (i16 - i32).abs()
+    out = dict(unet_cosine=cos, unet_max_abs=float(e32.abs().max()),
+               image_max_abs_diff=float(d.max()), image_mean_abs_diff=float(d.mean()),
+               finite=bool(torch.isfinite(i16).all() and torch.isfinite(e16).all()))
+    with torch.no_grad():
+        out["unet_step_ms"] = cuda_time_ms(
+            lambda: LD.unet_forward(cfg.unet, p16["unet"], x, t, ctx), reps=5, warmup=1)
+        lat = torch.randn((1, 4, 64, 64), generator=gen, device="cuda")
+        out["vae_decode_ms"] = cuda_time_ms(lambda: LD.vae_decode(cfg.vae, p16["vae"], lat),
+                                            reps=3, warmup=1)
+    log(f"[image witness] {json.dumps(out)}")
+    check(out["finite"], "SD-1.5 bf16 gave non-finite values")
+    check(cos >= 0.99, f"SD-1.5 bf16 UNet against f32: cosine {cos}")
+    check(out["image_mean_abs_diff"] <= 0.02 and out["image_max_abs_diff"] <= 0.25,
+          f"SD-1.5 bf16 4-step image against f32: {out}")
+    return out
+
+
+def _flux_full(tok_dir: str) -> dict:
+    """Flux.1-dev at its published widths and depth (19 double, 38 single
+    blocks, T5-XXL, CLIP-L, the 16-channel VAE), bf16 weights drawn on the
+    card from a seed (no 24 GB checkpoint), handed to FluxEngine with the
+    loader checkpoint's tokenizers: one 1024² image in 4 steps, and one
+    transformer step at 1024² timed by CUDA events."""
+    from localai_tpu_torch.engine.image_engine import FluxEngine
+    from localai_tpu_torch.models import flux as FX
+    from localai_tpu_torch.models.latent_diffusion import load_tokenizer_dir
+
+    cfg = FX.FluxPipelineConfig()
+    t0 = time.monotonic()
+    params = FX.init_params(cfg, seed=49, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    out = dict(draw_s=time.monotonic() - t0,
+               params=sum(t.numel() for part in params.values() for t in part.values()))
+    toks = (load_tokenizer_dir(os.path.join(tok_dir, "tokenizer")),
+            load_tokenizer_dir(os.path.join(tok_dir, "tokenizer_2")))
+    eng = FluxEngine(cfg, params, toks)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    imgs = eng.generate(IMAGE_PROMPT, n=1, steps=4, seed=3)
+    out["wall_1024_4_steps_s"] = time.monotonic() - t0
+    check(imgs[0].shape == (1024, 1024, 3) and float(imgs[0].std()) > 1.0, "Flux image")
+    again = eng.generate(IMAGE_PROMPT, n=1, steps=4, seed=3)
+    out["seed_repeats_bytes"] = bool(np.array_equal(imgs[0], again[0]))
+    check(out["seed_repeats_bytes"], "Flux: a repeated seed gave other bytes")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    tcfg = cfg.transformer
+    tok = torch.randn((1, 4096, tcfg.in_channels), generator=gen, device="cuda")
+    txt = torch.randn((1, 512, tcfg.joint_attention_dim), generator=gen, device="cuda")
+    pooled = torch.randn((1, tcfg.pooled_projection_dim), generator=gen, device="cuda")
+    ids = torch.from_numpy(FX.image_ids(128, 128)).cuda()
+    with torch.no_grad():
+        v = FX.flux_forward(tcfg, params["transformer"], tok, txt, pooled,
+                            torch.tensor([0.7], device="cuda"), ids,
+                            guidance=torch.tensor([3.5], device="cuda"))
+        check(bool(torch.isfinite(v).all()), "Flux forward non-finite")
+        out["step_ms"] = cuda_time_ms(lambda: FX.flux_forward(
+            tcfg, params["transformer"], tok, txt, pooled, torch.tensor([0.7], device="cuda"),
+            ids, guidance=torch.tensor([3.5], device="cuda")), reps=3, warmup=1)
+    eng.drop_device_state()
+    del params, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[image flux] {json.dumps(out)}")
+    return out
+
+
+def _dit_card_vs_cpu() -> dict:
+    """dit-test in f32: the same seeded tree and noise through generate on
+    the card and on the CPU (the port's own plain path)."""
+    from localai_tpu_torch.models import diffusion as D
+
+    cfg = D.DIFFUSION_PRESETS["dit-test"]
+    cpu = D.init_params(cfg, seed=0, device="cpu")
+    cpu["out_w"] = torch.randn(cpu["out_w"].shape, generator=torch.Generator().manual_seed(1)) * 0.05
+    card = {k: ({kk: vv.cuda() for kk, vv in v.items()} if isinstance(v, dict) else v.cuda())
+            for k, v in cpu.items()}
+    ids = torch.zeros((2, cfg.text_ctx), dtype=torch.long)
+    ids[:, :5] = torch.tensor(list(b"a cat"))
+    noise = torch.randn((2, 16, 16, 3), generator=torch.Generator().manual_seed(2))
+    a = D.generate(cfg, cpu, ids, steps=10, noise=noise)
+    b = D.generate(cfg, card, ids.cuda(), steps=10, noise=noise.cuda()).cpu()
+    out = dict(max_abs_diff=float((a - b).abs().max()), tol=1e-3)  # the CPU tests' image tol
+    check(out["max_abs_diff"] <= out["tol"], f"dit-test card against CPU: {out}")
+    return out
+
+
+def phase_image(smi: str) -> dict:
+    """Image and video generation through the port's server on the card:
+    SD-1.5 at full width and depth (a bf16 diffusers checkpoint of seeded
+    random weights, save_diffusers) over /v1/images/generations (512², 20
+    DDIM steps, n 1 and 4, b64_json and url; a repeated seed gives the same
+    bytes), /v1/images/inpainting (multipart) and img2img, held to its f32
+    witness (_sd_witness); SDXL base (published widths, depth cut: SDXL_TX_DEPTH,
+    SDXL_TEXT2_LAYERS) at 1024² in 4 steps; Flux's loader on a 1-block
+    checkpoint at Flux.1-dev's widths, then Flux.1-dev at full width and depth
+    from weights drawn on the card (_flux_full); AnimateDiff (a motion
+    adapter at v1-5-2's widths over the SD-1.5 weights at a 256² native
+    size) over /v1/videos, 8 frames; the dit-test preset over the server and
+    card against CPU. No B1-B5 kernel runs on this path: the launch counters
+    stay 0."""
+    import yaml
+
+    from localai_tpu_torch.models import flux as FX
+    from localai_tpu_torch.models import latent_diffusion as LD
+    from localai_tpu_torch.models import video_diffusion as VD
+
+    root = tempfile.mkdtemp(prefix="image-")
+    out: dict = {"card": smi}
+    try:
+        t0 = time.monotonic()
+        LD.save_diffusers(LD.sd15_config(), f"{root}/sd15", seed=41, dtype=torch.bfloat16,
+                          device="cuda")
+        out["sd15_write_s"] = time.monotonic() - t0
+        xl = LD.sdxl_config()
+        xl.unet.transformer_layers_per_block = SDXL_TX_DEPTH
+        xl.text2.num_hidden_layers = SDXL_TEXT2_LAYERS
+        LD.save_diffusers(xl, f"{root}/sdxl", seed=43, dtype=torch.bfloat16, device="cuda")
+        _alias_sd(f"{root}/sd15", f"{root}/anim", sample_size=32)
+        VD.save_motion_adapter(VD.MotionConfig(), f"{root}/anim/motion_adapter", seed=45,
+                               dtype=torch.bfloat16, device="cuda")
+        fcfg = FX.FluxPipelineConfig()
+        fcfg.transformer.num_layers = fcfg.transformer.num_single_layers = 1
+        fcfg.t5.num_layers = fcfg.clip.num_hidden_layers = 1
+        FX.save_flux(fcfg, f"{root}/flux-1l", seed=47, dtype=torch.bfloat16, device="cuda")
+        out["write_s"] = time.monotonic() - t0
+        for doc in ({"name": "sd15", "backend": "diffusers", "model": "sd15"},
+                    {"name": "sdxl", "backend": "diffusers", "model": "sdxl"},
+                    {"name": "anim", "backend": "diffusers", "model": "anim"},
+                    {"name": "flux-1l", "backend": "diffusers", "model": "flux-1l"},
+                    {"name": "dit", "backend": "diffusion", "model": "dit-test"}):
+            with open(f"{root}/{doc['name']}.yaml", "w") as f:
+                yaml.safe_dump(doc, f)
+        manager, server, base = _image_server(root)
+        try:
+            _zero_counts()
+            t0 = time.monotonic()
+            eng = manager.get("sd15").engine
+            out["sd15_load_s"] = time.monotonic() - t0
+            check(next(iter(eng.params["unet"].values())).dtype == torch.bfloat16,
+                  "SD-1.5 should load in its stored bf16")
+            body = {"model": "sd15", "prompt": IMAGE_PROMPT, "size": "512x512", "steps": 20,
+                    "guidance_scale": 7.5, "seed": 7}
+            (first,), out["wall_n1_first_s"] = _post_image(
+                base, "/v1/images/generations", {**body, "response_format": "b64_json"})
+            (second,), out["wall_n1_s"] = _post_image(base, "/v1/images/generations", body)
+            check(first == second, "SD-1.5: a repeated seed gave other bytes")
+            src = _check_png(first, 512)
+            torch.cuda.synchronize()
+            base_mem = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            four, out["wall_n4_s"] = _post_image(base, "/v1/images/generations",
+                                                 {**body, "n": 4, "seed": 8,
+                                                  "response_format": "b64_json"})
+            out["peak_extra_bytes_n4"] = torch.cuda.max_memory_allocated() - base_mem
+            px = [_check_png(p, 512) for p in four]
+            check(len(px) == 4 and not np.array_equal(px[0], px[1]), "n=4 images")
+            from localai_tpu_torch.server.images import encode_png
+
+            mask = np.zeros((512, 512), np.uint8)
+            mask[128:384, 128:384] = 255
+            raw, ctype = _multipart({"model": (None, b"sd15"), "prompt": (None, IMAGE_PROMPT.encode()),
+                                     "steps": (None, b"20"), "seed": (None, b"4"),
+                                     "image": ("image.png", first),
+                                     "mask": ("mask.png", encode_png(mask)),
+                                     "response_format": (None, b"b64_json")})
+            status, rtype, data, out["inpaint_wall_s"] = _post_raw(
+                base, "/v1/images/inpainting", raw, ctype)
+            check(status == 200, f"inpainting: {status} {data[:200]!r}")
+            _check_png(_png(base, json.loads(data)["data"][0]), 512)
+            import base64
+
+            (i2i,), out["img2img_wall_s"] = _post_image(base, "/v1/images/generations", {
+                **body, "image": base64.b64encode(first).decode(), "strength": 0.5,
+                "response_format": "b64_json"})
+            _check_png(i2i, 512)
+            out["witness"] = _sd_witness(eng, f"{root}/sd15")
+            manager.unload("sd15", drain_s=0.0)
+            del eng
+            t0 = time.monotonic()
+            manager.get("sdxl")
+            out["sdxl_load_s"] = time.monotonic() - t0
+            (xl_png,), out["sdxl_wall_1024_4_steps_s"] = _post_image(
+                base, "/v1/images/generations", {"model": "sdxl", "prompt": IMAGE_PROMPT,
+                                                 "steps": 4, "seed": 9,
+                                                 "response_format": "b64_json"})
+            _check_png(xl_png, 1024)
+            manager.unload("sdxl", drain_s=0.0)
+            (fl_png,), out["flux_1l_wall_512_2_steps_s"] = _post_image(
+                base, "/v1/images/generations", {"model": "flux-1l", "prompt": IMAGE_PROMPT,
+                                                 "size": "512x512", "steps": 2, "seed": 3,
+                                                 "response_format": "b64_json"})
+            _check_png(fl_png, 512)
+            manager.unload("flux-1l", drain_s=0.0)
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["flux"] = _flux_full(f"{root}/flux-1l")
+            t0 = time.monotonic()
+            status, _h, vid = _http_call(base, "POST", "/v1/videos", {
+                "model": "anim", "prompt": IMAGE_PROMPT, "n_frames": 8, "steps": 10,
+                "seed": 3})
+            out["video_wall_s"] = time.monotonic() - t0
+            check(status == 200, f"/v1/videos: {status} {vid}")
+            import urllib.request
+
+            with urllib.request.urlopen(base + vid["data"][0]["url"], timeout=60) as r:
+                ctype, blob = r.headers.get("Content-Type", ""), r.read()
+            check(ctype in ("image/gif", "video/mp4") and len(blob) > 0, f"video {ctype}")
+            check(ctype != "image/gif" or blob[:6] == b"GIF89a", "video: not a GIF")
+            out["video_type"], out["video_bytes"] = ctype, len(blob)
+            motion = manager.get("anim").engine.motion
+            check(motion is not None, "anim: no motion adapter loaded")
+            (dit_png,), _w = _post_image(base, "/v1/images/generations", {
+                "model": "dit", "prompt": "a cat", "steps": 10, "response_format": "b64_json"})
+            _check_png(dit_png, 16)
+            out["dit_card_vs_cpu"] = _dit_card_vs_cpu()
+            out["launches"] = _read_counts()
+            check(not any(out["launches"].values()),
+                  f"the image path launched a B1-B5 kernel: {out['launches']}")
+        finally:
+            server.shutdown()
+            manager.shutdown()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    w = out["witness"]
+    out["summary"] = dict(
+        card=smi, sd15_load_s=out["sd15_load_s"], unet_step_ms=w["unet_step_ms"],
+        wall_512_20_steps_n1_s=out["wall_n1_s"], wall_512_20_steps_n4_s=out["wall_n4_s"],
+        vae_decode_ms=w["vae_decode_ms"], peak_extra_bytes_n4=out["peak_extra_bytes_n4"],
+        flux_step_ms=out["flux"]["step_ms"], video_wall_s=out["video_wall_s"],
+        unet_cosine=w["unet_cosine"], image_max_abs_diff=w["image_max_abs_diff"])
+    log(f"[image] {json.dumps({k: v for k, v in out.items() if k != 'summary'})}")
+    log(f"[image summary] {json.dumps(out['summary'])}")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
@@ -9031,6 +9395,7 @@ def main() -> None:
     gguf_deepseek = timed("gguf_deepseek", phase_gguf_deepseek)
     expert_lora = timed("expert_lora", phase_expert_lora)
     audio = timed("audio", phase_audio)
+    image = timed("image", phase_image, smi)
     runs = {"dense_engine": dense, "paged_engine": paged, **qruns, "lora_8b_int8": lora_8b,
             "graphs_1b": graphs_1b["graph"], "graphs_1b_eager": graphs_1b["eager"],
             "graphs_8b": graphs_8b["graph"], "graphs_8b_eager": graphs_8b["eager"],
@@ -9061,7 +9426,9 @@ def main() -> None:
             "gguf_deepseek_http": gguf_deepseek["http"],
             "expert_lora_mixtral_int4": expert_lora,
             # The realtime turn's launches (whisper and the voices run no kernel).
-            "audio_realtime": audio["realtime"]}
+            "audio_realtime": audio["realtime"],
+            # SD-1.5, SDXL, Flux, AnimateDiff and the DiT: no B1-B5 kernel (all 0).
+            "image": image}
     by_path = {k: {path: out["launches"].get(k, 0) for path, out in runs.items()}
                for k in ("flash_prefill", "paged_attention", "paged_attention_latent",
                          "quant_matmul", "quant_matmul_moe", "quant_unembed", "lora_bgmv",

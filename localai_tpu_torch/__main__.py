@@ -2,14 +2,16 @@
 
 `run` starts the OpenAI-compatible server over the models dir, with the
 layers the JAX CLI registers, in its order: audio (`/v1/audio/*`, `/tts`,
-`/v1/vad`, `/v1/sound-generation`), rerank (`/v1/rerank`), realtime
+`/v1/vad`, `/v1/sound-generation`), image (`/v1/images/generations`,
+`/v1/images/inpainting`, `/v1/videos` and the generated files), rerank
+(`/v1/rerank`), realtime
 (`/v1/realtime` and its session routes), the vector store (`/stores/*`), the model gallery (`/models/available`,
 `apply`, `jobs`, `galleries`, `delete`), MCP chat with the agent jobs
 (`/mcp/v1/chat/completions`, `/agent-jobs/*`; the jobs' scheduler starts
 here and stops on shutdown), settings (`/settings`), model import and
 edit (`/models/import`, ...), OpenAPI (`/swagger`, `/swagger.json`) and
-the web UI (`/`). The image and p2p layers are not ported yet (ROADMAP
-Queue A items 13 (d) and 12). `transcribe` and `tts` run one model of the
+the web UI (`/`). The p2p layer is not ported yet (ROADMAP Queue A item
+12). `transcribe` and `tts` run one model of the
 models dir (or a preset) without the server. Its flags
 mirror the env vars ApplicationConfig.from_env reads (LOCALAI_ADDRESS,
 LOCALAI_PORT, LOCALAI_MODELS_PATH, ...), so either style works; `--device`
@@ -93,6 +95,7 @@ def build_app(app_cfg, device="cuda"):
     from localai_tpu_torch.gallery import Gallery, GalleryService
     from localai_tpu_torch.server import ModelManager, OpenAIApi, Router
     from localai_tpu_torch.server.audio_api import AudioApi
+    from localai_tpu_torch.server.image_api import ImageApi
     from localai_tpu_torch.server.gallery_api import GalleryApi
     from localai_tpu_torch.server.mcp_api import McpApi, make_job_runner
     from localai_tpu_torch.server.models_api import ModelsApi
@@ -110,6 +113,7 @@ def build_app(app_cfg, device="cuda"):
     oai = OpenAIApi(manager)
     oai.register(router)
     AudioApi(manager, oai).register(router)
+    ImageApi(manager, oai, app_cfg.generated_content_dir).register(router)
     RerankApi(manager, oai).register(router)
     RealtimeApi(manager, oai).register(router)
     StoresApi(StoreRegistry(device=manager.device)).register(router)

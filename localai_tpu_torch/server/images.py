@@ -8,6 +8,11 @@ zlib from the standard library; any other format is refused with an
 ImageDecodeError naming the missing decoder, which the server answers
 with 400. A part whose bytes do not decode is skipped, as the JAX server
 skips it.
+
+`encode_png` writes the images the image routes return (8-bit RGB or
+grayscale, filter None, zlib level 6): lossless, so a decoder reads back
+the exact pixels PIL's encoder would have stored; `to_gray` is PIL's
+convert("L").
 """
 
 from __future__ import annotations
@@ -98,6 +103,29 @@ def decode_png(data: bytes) -> np.ndarray:
     if ch <= 2:  # grayscale (+ alpha)
         return np.repeat(px[..., :1], 3, axis=-1)
     return np.ascontiguousarray(px[..., :3])
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """uint8 [H, W, 3] RGB or [H, W] grayscale → PNG bytes (no PIL)."""
+    a = np.ascontiguousarray(img, dtype=np.uint8)
+    h, w = a.shape[:2]
+    ctype = 2 if a.ndim == 3 else 0
+    raw = np.zeros((h, 1 + a[0].size), np.uint8)  # filter byte 0 (None) a scanline
+    raw[:, 1:] = a.reshape(h, -1)
+    return (_PNG_MAGIC + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)) + _chunk(b"IEND", b""))
+
+
+def to_gray(img: np.ndarray) -> np.ndarray:
+    """uint8 RGB → uint8 luma, PIL's convert("L") (ITU-R 601-2, fixed point)."""
+    a = np.asarray(img, np.uint32)
+    return ((a[..., 0] * 19595 + a[..., 1] * 38470 + a[..., 2] * 7471 + 0x8000) >> 16
+            ).astype(np.uint8)
 
 
 def decode_image(data: bytes) -> np.ndarray:

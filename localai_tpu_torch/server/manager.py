@@ -30,7 +30,10 @@ child server of this package on the manager's device, in
 `<models_dir>/.subprocess-<name>`; engine/remote.py), and the audio
 backends `whisper` (also a `llama` model named like a whisper preset),
 `tts` (the acoustic model or a VITS voice) and `vad`
-(engine/audio_engine.py). Reap, restart and
+(engine/audio_engine.py), and the image backends `diffusion` /
+`diffusers` / `stablediffusion` (engine/image_engine.py: a DiT preset or
+own-format checkpoint, a diffusers SD / SDXL checkpoint with its LoRAs,
+ControlNet and motion adapter, or a Flux checkpoint). Reap, restart and
 quarantine act on in-process engines only: an out-of-process engine never
 reports dead, and a subprocess's death is its child's exit, which the next
 request's respawn handles; unloading one stops its child. Not ported yet:
@@ -75,6 +78,8 @@ _ROUTE_SWITCHES = ("paged_kernel", "quant_kernel", "lora_kernel")
 # the llama path); `llava` / `vlm` / `multimodal` attach a vision tower.
 _VLM_BACKENDS = ("llava", "vlm", "multimodal")
 _LLAMA_BACKENDS = ("llama", "rerank", *_VLM_BACKENDS)
+# The JAX manager's image backend names, one loader.
+_DIFFUSION_BACKENDS = ("diffusion", "diffusers", "stablediffusion")
 # The JAX manager's MusicGen backend names (ROADMAP Queue A item 13 (e)).
 _SOUNDGEN_BACKENDS = ("musicgen", "soundgen", "sound-generation")
 
@@ -608,6 +613,8 @@ class ModelManager:
         loader = {"bert": self._load_bert, "remote": self._load_remote,
                   "subprocess": self._load_subprocess, "whisper": self._load_whisper,
                   "tts": self._load_tts, "vad": self._load_vad}.get(cfg.backend)
+        if cfg.backend in _DIFFUSION_BACKENDS:
+            loader = self._load_diffusion
         if loader is None and cfg.backend == "llama" and (
                 cfg.model in WHISPER_PRESETS or "whisper" in cfg.model):
             loader = self._load_whisper  # the JAX manager's routing of whisper names
@@ -621,8 +628,8 @@ class ModelManager:
             raise UnsupportedBackendError(
                 f"model {cfg.name!r}: backend {cfg.backend!r} is not ported yet "
                 "(ROADMAP Queue A item 13, satellite engines and models); the port "
-                "serves the llama, vlm (llava / multimodal), bert, whisper, tts, vad, remote "
-                "and subprocess backends")
+                "serves the llama, vlm (llava / multimodal), bert, whisper, tts, vad, diffusion "
+                "(diffusers / stablediffusion), remote and subprocess backends")
         switched = [f"{k}={getattr(cfg, k)!r}" for k in _ROUTE_SWITCHES
                     if getattr(cfg, k) != "auto"]
         if switched:
@@ -873,6 +880,95 @@ class ModelManager:
             return LoadedModel(cfg, VADEngine(), None)
         params = LV.load_params(weights, device=self.device)
         return LoadedModel(cfg, VADEngine(LV.config_from_params(params), params), None)
+
+    def _load_diffusion(self, cfg: ModelConfig) -> LoadedModel:
+        """Image generation: a DiT preset draws random f32 weights from seed
+        0 on the device; a directory is a Flux checkpoint (options.dtype,
+        bf16 by default), a diffusers SD / SDXL checkpoint (options.dtype,
+        else its stored dtype, with lora_adapters merged, options.scheduler checked here and
+        a motion adapter from options.motion_adapter or its
+        motion_adapter/ subdir) or an own-format DiT checkpoint. The
+        refusals are the JAX loader's, word for word."""
+        from localai_tpu_torch.engine.image_engine import (
+            DiffusionEngine,
+            FluxEngine,
+            LatentDiffusionEngine,
+        )
+        from localai_tpu_torch.models import diffusion as D
+
+        if cfg.model in D.DIFFUSION_PRESETS:
+            if cfg.lora_adapters:
+                raise ValueError(
+                    f"model {cfg.name!r}: lora_adapters need a diffusers-"
+                    "layout SD/SDXL checkpoint (not a synthetic preset)")
+            dcfg = D.DIFFUSION_PRESETS[cfg.model]
+            return LoadedModel(cfg, DiffusionEngine(dcfg, D.init_params(
+                dcfg, seed=0, device=self.device)), None)
+        ckpt_dir = self._resolve_ckpt_dir(cfg.model)
+        if not os.path.isdir(ckpt_dir):
+            raise FileNotFoundError(
+                f"model {cfg.name!r}: diffusion checkpoint {ckpt_dir!r} not found")
+        from localai_tpu_torch.models import flux as FX
+        from localai_tpu_torch.models import latent_diffusion as LD
+
+        import torch
+
+        dtypes = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
+                  "float32": torch.float32, "fp32": torch.float32}
+        opt = str(cfg.options.get("dtype", "bfloat16")).lower()
+        if opt not in dtypes:
+            raise ValueError(
+                f"model {cfg.name!r}: options.dtype {opt!r} — use bfloat16 or float32")
+        if FX.is_flux_dir(ckpt_dir):
+            if cfg.lora_adapters:
+                raise ValueError(
+                    f"model {cfg.name!r}: lora_adapters target SD/SDXL "
+                    "checkpoints (kohya format); Flux LoRA is unsupported")
+            fcfg, fparams, ftoks = FX.load_flux_pipeline(ckpt_dir, dtype=dtypes[opt],
+                                                         device=self.device)
+            return LoadedModel(cfg, FluxEngine(fcfg, fparams, ftoks), None)
+        if LD.is_diffusers_dir(ckpt_dir):
+            from localai_tpu_torch.models import video_diffusion as VD
+
+            ldcfg, ldparams, tok = LD.load_pipeline(
+                ckpt_dir, dtype=dtypes[opt] if "dtype" in cfg.options else None,
+                device=self.device)
+            for apath, w in self._parse_lora_entries(cfg):
+                n_merged = LD.load_diffusion_lora(apath, ldparams, w)
+                if n_merged == 0:
+                    raise ValueError(
+                        f"model {cfg.name!r}: lora adapter {apath!r} "
+                        "matched no unet/text-encoder tensors")
+                log.info("model %s: merged %d lora tensors from %s (weight=%.2f)",
+                         cfg.name, n_merged, apath, w)
+            motion = None
+            mdir = cfg.options.get("motion_adapter") or ""
+            if mdir:
+                mdir = self._resolve_ckpt_dir(str(mdir))
+            elif VD.is_motion_adapter_dir(os.path.join(ckpt_dir, "motion_adapter")):
+                mdir = os.path.join(ckpt_dir, "motion_adapter")
+            if mdir:
+                if not VD.is_motion_adapter_dir(mdir):
+                    raise FileNotFoundError(
+                        f"model {cfg.name!r}: motion_adapter {mdir!r} is "
+                        "not a diffusers MotionAdapter dir")
+                dt = next(iter(ldparams["unet"].values())).dtype
+                motion = VD.load_motion_adapter(mdir, dtype=dt, device=self.device)
+                log.info("model %s: motion adapter loaded from %s", cfg.name, mdir)
+            sched = str(cfg.options.get("scheduler", "ddim"))
+            if sched not in LD.SUPPORTED_SCHEDULERS:  # fail at load, not at a request
+                raise ValueError(
+                    f"model {cfg.name!r}: unknown scheduler {sched!r} "
+                    f"(supported: {', '.join(sorted(LD.SUPPORTED_SCHEDULERS))})")
+            return LoadedModel(cfg, LatentDiffusionEngine(
+                ldcfg, ldparams, tok, default_scheduler=sched, motion=motion), None)
+        if cfg.lora_adapters:
+            raise ValueError(
+                f"model {cfg.name!r}: lora_adapters need a diffusers-"
+                "layout SD/SDXL checkpoint (this is an own-format "
+                "diffusion checkpoint)")
+        dcfg, params = D.load_diffusion(ckpt_dir, device=self.device)
+        return LoadedModel(cfg, DiffusionEngine(dcfg, params), None)
 
     def _load_remote(self, cfg: ModelConfig) -> LoadedModel:
         from localai_tpu_torch.engine.remote import RemoteEngine

@@ -8,10 +8,10 @@ streaming, realtime talk over the /v1/realtime WebSocket (text turns +
 mic streaming with server-VAD), model list + load state, a model config
 editor (import/edit/delete/reload), gallery browse/install with job
 polling, an agent-jobs panel (create/run/toggle/history), TTS playback,
-image generation. No build step, no external assets. The talk and tts tabs
-reach the port's /v1/realtime and /v1/audio/speech; the port does not serve
-the image and p2p routes yet (ROADMAP Queue A items 13 (d) and 12): the
-image tab reaches a route that answers 404.
+image generation. No build step, no external assets. The talk, tts and
+image tabs reach the port's /v1/realtime, /v1/audio/speech and
+/v1/images/generations; the port does not serve the p2p routes yet
+(ROADMAP Queue A item 12).
 """
 
 from __future__ import annotations

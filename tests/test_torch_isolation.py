@@ -36,7 +36,11 @@ def test_port_never_imports_jax_or_the_jax_package():
             "localai_tpu_torch/templates/evaluator.py", "localai_tpu_torch/server/app.py",
             "localai_tpu_torch/server/manager.py", "localai_tpu_torch/server/openai_api.py",
             "localai_tpu_torch/__main__.py", "localai_tpu_torch/engine/gguf.py",
-            "localai_tpu_torch/engine/bpe_fast.py", "localai_tpu_torch/native.py"} <= names
+            "localai_tpu_torch/engine/bpe_fast.py", "localai_tpu_torch/native.py",
+            "localai_tpu_torch/models/latent_diffusion.py", "localai_tpu_torch/models/flux.py",
+            "localai_tpu_torch/models/video_diffusion.py", "localai_tpu_torch/models/diffusion.py",
+            "localai_tpu_torch/engine/image_engine.py", "localai_tpu_torch/server/image_api.py",
+            "localai_tpu_torch/utils/video_io.py"} <= names
     bad = [
         (str(p.relative_to(ROOT)), mod)
         for p in files
@@ -54,6 +58,10 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from localai_tpu_torch.models import get_arch
     from localai_tpu_torch.models.llama import KVCache, init_params, paged_cache_zeros
     from localai_tpu_torch.server.manager import ModelManager
+    from localai_tpu_torch.models import diffusion as D
+    from localai_tpu_torch.models import flux as FX
+    from localai_tpu_torch.models import latent_diffusion as LD
+    from localai_tpu_torch.models import video_diffusion as VD
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_arch("tiny")
@@ -68,6 +76,11 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         lambda: init_params(cfg, device="cuda"),
         lambda: ModelManager(ApplicationConfig(models_dir=str(tmp_path))),
         lambda: ModelManager(ApplicationConfig(models_dir=str(tmp_path)), device="cuda"),
+        lambda: LD.load_pipeline(str(tmp_path)),
+        lambda: LD.save_diffusers(LD.sd15_config(), str(tmp_path / "sd")),
+        lambda: FX.init_transformer(FX.FluxTransformerConfig()),
+        lambda: D.init_params(D.DIFFUSION_PRESETS["dit-test"]),
+        lambda: VD.load_motion_adapter(str(tmp_path)),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()

@@ -318,12 +318,13 @@ def test_subprocess_child_is_respawned_after_kill_9(tmp_path):
 def test_an_unported_backend_names_the_served_ones(tmp_path):
     from localai_tpu_torch.server.manager import UnsupportedBackendError
 
-    _write(tmp_path, "img", model="sd-test", backend="diffusion")
+    _write(tmp_path, "img", model="detr-test", backend="detection")
     _write(tmp_path, "no-url", model="remote", backend="remote")
     manager = ModelManager(ApplicationConfig(models_dir=str(tmp_path)), device="cpu")
     try:
         with pytest.raises(UnsupportedBackendError,
-                           match="item 13.*whisper, tts, vad, remote and subprocess"):
+                           match="item 13.*whisper, tts, vad, diffusion \\(diffusers / "
+                                 "stablediffusion\\), remote and subprocess"):
             manager.get("img")
         with pytest.raises(RuntimeError, match="needs options.url"):
             manager.get("no-url")

@@ -451,11 +451,13 @@ def test_cli_app_registers_every_ported_layer(tmp_path):
                       ("GET", "/"), ("GET", "/index.html"),
                       ("POST", "/v1/audio/transcriptions"), ("POST", "/v1/audio/speech"),
                       ("POST", "/v1/vad"), ("GET", "/v1/realtime"),
-                      ("POST", "/v1/realtime/sessions")):
+                      ("POST", "/v1/realtime/sessions"), ("POST", "/v1/images/generations"),
+                      ("POST", "/images/generations"), ("POST", "/v1/images/inpainting"),
+                      ("POST", "/v1/videos"), ("GET", "/generated-images/:name"),
+                      ("GET", "/generated-videos/:name")):
             assert route in declared, route
-        # Not ported yet: image, p2p (ROADMAP A13 (d), A12).
-        for path in ("/v1/images/generations", "/p2p/status"):
-            assert not any(p == path for _m, p in declared), path
+        # Not ported yet: p2p (ROADMAP A12).
+        assert not any(p == "/p2p/status" for _m, p in declared)
         doc = build_openapi(router)
         assert {(p, m) for p, ops in doc["paths"].items() for m in ops} == \
             {(_templated(p), m.lower()) for m, p in declared}
